@@ -8,39 +8,40 @@
 //
 // Bound on the H100: four S×S×D products per (b, head) at ~4·S·D FLOP per
 // byte read: bound by tensor-core operations at the training shapes.
-// Design: one thread block per (b, kv_head, 64-key block) loops over the
-// heads of its GQA group and, for each, over the 32-query blocks from the
-// causal diagonal on (runtime offsets). Each warp owns 16 keys and keeps
-// its dK and dV accumulators in registers, so every output row is written
-// once by one block: no atomics, and the result is deterministic. The
-// products run as Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, with Q and dO also kept
-// transposed in shared memory for dV += Pᵀ·dO and dK += dSᵀ·Q, all through
-// mma.sync bf16 fragments with fp32 accumulation. Not yet done: pipelined
+// Design: one thread block of 8 warps per (b, kv_head, 128-key block)
+// loops over the heads of its GQA group and, for each, over the 32-query
+// blocks from the causal diagonal on (runtime offsets). Each warp owns 16
+// keys and keeps its dK and dV accumulators in registers, so every output
+// row is written once by one block: no atomics, and the result is
+// deterministic. The Q, dO, lse and δ tiles are double-buffered with
+// cp.async. The products run as Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (Q, dO read
+// with ldmatrix) and dV += Pᵀ·dO, dK += dSᵀ·Q (read with ldmatrix.trans),
+// all mma.sync bf16 fragments with fp32 accumulation. Not yet done: TMA
 // loads and wgmma.
 #include "flash_common.cuh"
 
 namespace flash {
 
-constexpr int DKV_BK = 64;
+constexpr int DKV_WARPS = 8;
+constexpr int DKV_BK = 16 * DKV_WARPS;
 constexpr int DKV_BQ = 32;
 
 template <int D>
 constexpr int dkv_smem_bytes() {
-    return ((2 * DKV_BK + 2 * DKV_BQ) * (D + 8) + 2 * D * (DKV_BQ + 8)) * 2 + 2 * DKV_BQ * 4;
+    // K and V; Q and dO in two stages; lse and δ in two stages.
+    return (2 * DKV_BK + 4 * DKV_BQ) * (D + 8) * 2 + 4 * DKV_BQ * 4;
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_dkv_kernel(BwdArgs a) {
-    constexpr int BQ = DKV_BQ, BK = DKV_BK, LD = D + 8, LDT = BQ + 8;
+__global__ void __launch_bounds__(32 * DKV_WARPS) flash_dkv_kernel(BwdArgs a) {
+    constexpr int NT = 32 * DKV_WARPS, BQ = DKV_BQ, BK = DKV_BK, LD = D + 8;
     extern __shared__ __align__(16) unsigned char smem[];
     bf16* sK = reinterpret_cast<bf16*>(smem);
     bf16* sV = sK + BK * LD;
-    bf16* sQ = sV + BK * LD;
-    bf16* sdO = sQ + BQ * LD;
-    bf16* sQt = sdO + BQ * LD;
-    bf16* sdOt = sQt + D * LDT;
-    float* sLse = reinterpret_cast<float*>(sdOt + D * LDT);
-    float* sDelta = sLse + BQ;
+    bf16* sQ = sV + BK * LD;        // [2][BQ][LD]
+    bf16* sdO = sQ + 2 * BQ * LD;   // [2][BQ][LD]
+    float* sLse = reinterpret_cast<float*>(sdO + 2 * BQ * LD);  // [2][BQ]
+    float* sDelta = sLse + 2 * BQ;                               // [2][BQ]
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
     const int kb = blockIdx.x;
@@ -48,8 +49,37 @@ __global__ void __launch_bounds__(THREADS) flash_dkv_kernel(BwdArgs a) {
     const int rep = a.Hq / a.Hkv;
     const int k0 = kb * BK;
 
-    load_tile<D, BK>(sK, LD, nullptr, 0, a.k + b * a.k_b + hk * a.k_h, a.k_s, k0, a.Sk, tid);
-    load_tile<D, BK>(sV, LD, nullptr, 0, a.v + b * a.v_b + hk * a.v_h, a.v_s, k0, a.Sk, tid);
+    // Query blocks from the first that sees any key of this block under the
+    // causal mask; the work list runs over (group head, query block).
+    const int nqb = (a.Sq + BQ - 1) / BQ;
+    int qb_first = 0;
+    if (a.causal) {
+        const long long first = (long long)a.k_off + k0 - a.q_off - (BQ - 1);
+        qb_first = first <= 0 ? 0 : (int)((first + BQ - 1) / BQ);
+    }
+    const int nq = qb_first < nqb ? nqb - qb_first : 0;
+    const int n_iter = rep * nq;
+
+    // Start the copies of work item `it` into stage `st`.
+    auto load_q = [&](int it, int st) {
+        const int h = hk * rep + it / nq;
+        const int q0 = (qb_first + it % nq) * BQ;
+        load_tile<D, BQ, NT>(sQ + st * BQ * LD, a.q + b * a.q_b + h * a.q_h, a.q_s, q0, a.Sq, tid);
+        load_tile<D, BQ, NT>(sdO + st * BQ * LD, a.dout + b * a.do_b + h * a.do_h, a.do_s, q0,
+                             a.Sq, tid);
+        if (tid < 2 * BQ) {
+            const int r = tid % BQ;
+            const bool valid = q0 + r < a.Sq;
+            const float* src = (tid < BQ ? a.lse : a.delta) + ((long long)b * a.Hq + h) * a.Sq;
+            float* dst = (tid < BQ ? sLse : sDelta) + st * BQ + r;
+            cp_async4(dst, valid ? src + q0 + r : src, valid);
+        }
+    };
+
+    load_tile<D, BK, NT>(sK, a.k + b * a.k_b + hk * a.k_h, a.k_s, k0, a.Sk, tid);
+    load_tile<D, BK, NT>(sV, a.v + b * a.v_b + hk * a.v_h, a.v_s, k0, a.Sk, tid);
+    if (n_iter > 0) load_q(0, 0);
+    cp_async_commit();
 
     const int row = warp * 16 + g;  // key row of c0/c1 in the tile; row + 8 holds c2/c3
     float dk[D / 8][4], dv[D / 8][4];
@@ -58,80 +88,76 @@ __global__ void __launch_bounds__(THREADS) flash_dkv_kernel(BwdArgs a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
-    // First query block that sees any key of this block under the causal mask.
-    const int nqb = (a.Sq + BQ - 1) / BQ;
-    int qb_first = 0;
-    if (a.causal) {
-        const long long first = (long long)a.k_off + k0 - a.q_off - (BQ - 1);
-        qb_first = first <= 0 ? 0 : (int)((first + BQ - 1) / BQ);
-    }
+    for (int it = 0; it < n_iter; ++it) {
+        const int st = it & 1;
+        const int q0 = (qb_first + it % nq) * BQ;
+        if (it + 1 < n_iter) load_q(it + 1, st ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        const bf16* cQ = sQ + st * BQ * LD;
+        const bf16* cdO = sdO + st * BQ * LD;
+        const float* cLse = sLse + st * BQ;
+        const float* cDelta = sDelta + st * BQ;
 
-    for (int gi = 0; gi < rep; ++gi) {
-        const int h = hk * rep + gi;
-        const bf16* Q = a.q + b * a.q_b + h * a.q_h;
-        const bf16* dO = a.dout + b * a.do_b + h * a.do_h;
-        const long long stat = ((long long)b * a.Hq + h) * a.Sq;
-        for (int qb = qb_first; qb < nqb; ++qb) {
-            const int q0 = qb * BQ;
-            __syncthreads();
-            load_tile<D, BQ>(sQ, LD, sQt, LDT, Q, a.q_s, q0, a.Sq, tid);
-            load_tile<D, BQ>(sdO, LD, sdOt, LDT, dO, a.do_s, q0, a.Sq, tid);
-            if (tid < BQ) {
-                const bool in = q0 + tid < a.Sq;
-                sLse[tid] = in ? a.lse[stat + q0 + tid] : 0.f;
-                sDelta[tid] = in ? a.delta[stat + q0 + tid] : 0.f;
-            }
-            __syncthreads();
-
-            float st[BQ / 8][4], dpt[BQ / 8][4];  // Sᵀ and dPᵀ: keys × queries
+        float sT[BQ / 8][4], dpT[BQ / 8][4];  // Sᵀ and dPᵀ: keys × queries
 #pragma unroll
-            for (int n = 0; n < BQ / 8; ++n)
+        for (int n = 0; n < BQ / 8; ++n)
 #pragma unroll
-                for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+            for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                uint32_t ka[4], va[4];
-                load_a(ka, sK, LD, warp * 16, kk * 16, g, t);
-                load_a(va, sV, LD, warp * 16, kk * 16, g, t);
+        for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t ka[4], va[4];
+            load_a(ka, sK, LD, warp * 16, kk * 16, lane);
+            load_a(va, sV, LD, warp * 16, kk * 16, lane);
 #pragma unroll
-                for (int n = 0; n < BQ / 8; ++n) {
-                    uint32_t bfr[2];
-                    load_b(bfr, sQ, LD, n * 8, kk * 16, g, t);
-                    mma16816(st[n], ka, bfr);
-                    load_b(bfr, sdO, LD, n * 8, kk * 16, g, t);
-                    mma16816(dpt[n], va, bfr);
-                }
-            }
-#pragma unroll
-            for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int kpos = k0 + row + (e >> 1) * 8;
-                    const int qcol = n * 8 + 2 * t + (e & 1);
-                    const int qpos = q0 + qcol;
-                    const bool ok = kpos < a.Sk && qpos < a.Sq &&
-                                    (!a.causal || a.q_off + qpos >= a.k_off + kpos);
-                    const float p = ok ? __expf(st[n][e] * a.scale - sLse[qcol]) : 0.f;
-                    st[n][e] = p;
-                    dpt[n][e] = p * (dpt[n][e] - sDelta[qcol]);  // dSᵀ
-                }
-            }
-#pragma unroll
-            for (int kk = 0; kk < BQ / 16; ++kk) {
-                uint32_t pa[4], sa[4];
-                c_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-                c_to_a(sa, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-                for (int n = 0; n < D / 8; ++n) {
-                    uint32_t bfr[2];
-                    load_b(bfr, sdOt, LDT, n * 8, kk * 16, g, t);
-                    mma16816(dv[n], pa, bfr);
-                    load_b(bfr, sQt, LDT, n * 8, kk * 16, g, t);
-                    mma16816(dk[n], sa, bfr);
-                }
+            for (int n = 0; n < BQ / 16; ++n) {
+                uint32_t bf[4];
+                load_b_nk(bf, cQ, LD, n * 16, kk * 16, lane);
+                mma16816(sT[2 * n], ka, bf[0], bf[1]);
+                mma16816(sT[2 * n + 1], ka, bf[2], bf[3]);
+                load_b_nk(bf, cdO, LD, n * 16, kk * 16, lane);
+                mma16816(dpT[2 * n], va, bf[0], bf[1]);
+                mma16816(dpT[2 * n + 1], va, bf[2], bf[3]);
             }
         }
+        const bool masked = needs_mask(a.causal, a.q_off, a.k_off, q0, BQ, k0, BK, a.Sq, a.Sk);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int qcol = n * 8 + 2 * t + (e & 1);
+                bool ok = true;
+                if (masked) {
+                    const int kpos = k0 + row + (e >> 1) * 8;
+                    const int qpos = q0 + qcol;
+                    ok = kpos < a.Sk && qpos < a.Sq &&
+                         (!a.causal || a.q_off + qpos >= a.k_off + kpos);
+                }
+                const float p = ok ? __expf(sT[n][e] * a.scale - cLse[qcol]) : 0.f;
+                sT[n][e] = p;
+                dpT[n][e] = p * (dpT[n][e] - cDelta[qcol]);  // dSᵀ
+            }
+        }
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+            uint32_t pa[4], sa[4];
+            c_to_a(pa, sT[2 * kk], sT[2 * kk + 1]);
+            c_to_a(sa, dpT[2 * kk], dpT[2 * kk + 1]);
+#pragma unroll
+            for (int n = 0; n < D / 16; ++n) {
+                uint32_t bf[4];
+                load_b_kn(bf, cdO, LD, kk * 16, n * 16, lane);
+                mma16816(dv[2 * n], pa, bf[0], bf[1]);
+                mma16816(dv[2 * n + 1], pa, bf[2], bf[3]);
+                load_b_kn(bf, cQ, LD, kk * 16, n * 16, lane);
+                mma16816(dk[2 * n], sa, bf[0], bf[1]);
+                mma16816(dk[2 * n + 1], sa, bf[2], bf[3]);
+            }
+        }
+        __syncthreads();  // this stage is refilled by the next iteration
     }
+    cp_async_wait<0>();
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -156,7 +182,7 @@ cudaError_t launch_dkv(const BwdArgs& a, int B, cudaStream_t stream) {
     cudaError_t err = allow_smem(flash_dkv_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((a.Sk + DKV_BK - 1) / DKV_BK, B * a.Hkv);
-    flash_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(a);
+    flash_dkv_kernel<D><<<grid, 32 * DKV_WARPS, smem, stream>>>(a);
     return cudaGetLastError();
 }
 

@@ -10,14 +10,17 @@
 // Bound on the H100: at the training shapes (S=2048, D=128) the kernel does
 // ~2·S·D FLOP per byte of q/k/v it must read, far above the card's ~295
 // FLOP/byte ridge, so it is bound by tensor-core operations. Design: one
-// thread block per (b, q_head, 64-query block) walks the KV blocks in a
-// loop (the TPU kernel's sequential "arbitrary" grid axis), keeping m, l and
-// the output accumulator in registers; the products run on the tensor
-// cores through mma.sync bf16 fragments with fp32 accumulation; the loop
-// stops at the causal diagonal computed from the runtime offsets; q/k/v are
-// read in place through their strides (no transpose or pad copy). Causal
-// blocks are issued heaviest first. Not yet done: TMA/cp.async double
-// buffering and wgmma, which a faster version needs.
+// thread block of 8 warps per (b, q_head, 128-query block) walks the KV
+// blocks in a loop (the TPU kernel's sequential "arbitrary" grid axis);
+// each warp owns 16 query rows and keeps m, l and its output accumulator in
+// registers. K/V tiles of 64 keys are double-buffered in shared memory with
+// cp.async, so the next tile's copy overlaps this tile's products, which run
+// on the tensor cores through ldmatrix + mma.sync bf16 fragments with fp32
+// accumulation. The loop stops at the causal diagonal computed from the
+// runtime offsets, and only the blocks that straddle it (or the ragged tail)
+// evaluate the element mask. q/k/v are read in place through their strides
+// (no transpose or pad copy). Causal blocks are issued heaviest first. Not
+// yet done: TMA loads, wgmma and warp specialisation.
 #include "flash_common.cuh"
 
 namespace flash {
@@ -31,21 +34,22 @@ struct FwdArgs {
     float scale;
 };
 
-constexpr int FWD_BQ = 64;
+constexpr int FWD_WARPS = 8;
+constexpr int FWD_BQ = 16 * FWD_WARPS;
 constexpr int FWD_BK = 64;
 
 template <int D>
 constexpr int fwd_smem_bytes() {
-    return ((FWD_BQ + FWD_BK) * (D + 8) + D * (FWD_BK + 8)) * 2;
+    return (FWD_BQ + 4 * FWD_BK) * (D + 8) * 2;  // Q, and K and V in two stages
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FwdArgs a) {
-    constexpr int BQ = FWD_BQ, BK = FWD_BK, LD = D + 8, LDT = BK + 8;
+__global__ void __launch_bounds__(32 * FWD_WARPS) flash_fwd_kernel(FwdArgs a) {
+    constexpr int NT = 32 * FWD_WARPS, BQ = FWD_BQ, BK = FWD_BK, LD = D + 8;
     extern __shared__ __align__(16) unsigned char smem[];
     bf16* sQ = reinterpret_cast<bf16*>(smem);
-    bf16* sK = sQ + BQ * LD;
-    bf16* sVt = sK + BK * LD;
+    bf16* sK = sQ + BQ * LD;       // [2][BK][LD]
+    bf16* sV = sK + 2 * BK * LD;   // [2][BK][LD]
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
     const int qb = gridDim.x - 1 - blockIdx.x;
@@ -56,11 +60,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FwdArgs a) {
     const bf16* K = a.k + b * a.k_b + hk * a.k_h;
     const bf16* V = a.v + b * a.v_b + hk * a.v_h;
 
-    load_tile<D, BQ>(sQ, LD, nullptr, 0, Q, a.q_s, q0, a.Sq, tid);
-
     const int nkb = causal_key_blocks((a.Sk + BK - 1) / BK, a.causal, a.q_off, a.k_off, q0, BQ, BK);
-    const int row = warp * 16 + g;  // tile row of c0/c1; row + 8 holds c2/c3
+    load_tile<D, BQ, NT>(sQ, Q, a.q_s, q0, a.Sq, tid);
+    if (nkb > 0) {
+        load_tile<D, BK, NT>(sK, K, a.k_s, 0, a.Sk, tid);
+        load_tile<D, BK, NT>(sV, V, a.v_s, 0, a.Sk, tid);
+    }
+    cp_async_commit();
 
+    const int row = warp * 16 + g;  // tile row of c0/c1; row + 8 holds c2/c3
     float acc[D / 8][4];
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -69,9 +77,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FwdArgs a) {
 
     for (int kb = 0; kb < nkb; ++kb) {
         const int k0 = kb * BK;
-        __syncthreads();
-        load_tile<D, BK>(sK, LD, nullptr, 0, K, a.k_s, k0, a.Sk, tid);
-        load_tile<D, BK>(nullptr, 0, sVt, LDT, V, a.v_s, k0, a.Sk, tid);
+        const bf16* cK = sK + (kb & 1) * BK * LD;
+        const bf16* cV = sV + (kb & 1) * BK * LD;
+        if (kb + 1 < nkb) {
+            load_tile<D, BK, NT>(sK + ((kb + 1) & 1) * BK * LD, K, a.k_s, k0 + BK, a.Sk, tid);
+            load_tile<D, BK, NT>(sV + ((kb + 1) & 1) * BK * LD, V, a.v_s, k0 + BK, a.Sk, tid);
+        }
+        cp_async_commit();
+        cp_async_wait<1>();
         __syncthreads();
 
         float s[BK / 8][4];
@@ -80,23 +93,28 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FwdArgs a) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
             uint32_t af[4];
-            load_a(af, sQ, LD, warp * 16, kk * 16, g, t);
+            load_a(af, sQ, LD, warp * 16, kk * 16, lane);
 #pragma unroll
-            for (int n = 0; n < BK / 8; ++n) {
-                uint32_t bfr[2];
-                load_b(bfr, sK, LD, n * 8, kk * 16, g, t);
-                mma16816(s[n], af, bfr);
+            for (int n = 0; n < BK / 16; ++n) {
+                uint32_t bf[4];
+                load_b_nk(bf, cK, LD, n * 16, kk * 16, lane);
+                mma16816(s[2 * n], af, bf[0], bf[1]);
+                mma16816(s[2 * n + 1], af, bf[2], bf[3]);
             }
         }
 
+        const bool masked = needs_mask(a.causal, a.q_off, a.k_off, q0, BQ, k0, BK, a.Sq, a.Sk);
         float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
         for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const int qpos = q0 + row + (e >> 1) * 8;
-                const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-                const bool ok = kpos < a.Sk && (!a.causal || a.q_off + qpos >= a.k_off + kpos);
+                bool ok = true;
+                if (masked) {
+                    const int qpos = q0 + row + (e >> 1) * 8;
+                    const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+                    ok = kpos < a.Sk && (!a.causal || a.q_off + qpos >= a.k_off + kpos);
+                }
                 s[n][e] = ok ? s[n][e] * a.scale : NEG_INF;
                 mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
             }
@@ -132,13 +150,16 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FwdArgs a) {
             uint32_t pa[4];
             c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-            for (int n = 0; n < D / 8; ++n) {
-                uint32_t bfr[2];
-                load_b(bfr, sVt, LDT, n * 8, kk * 16, g, t);
-                mma16816(acc[n], pa, bfr);
+            for (int n = 0; n < D / 16; ++n) {
+                uint32_t bf[4];
+                load_b_kn(bf, cV, LD, kk * 16, n * 16, lane);
+                mma16816(acc[2 * n], pa, bf[0], bf[1]);
+                mma16816(acc[2 * n + 1], pa, bf[2], bf[3]);
             }
         }
+        __syncthreads();  // this stage is refilled by the next iteration
     }
+    cp_async_wait<0>();
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -162,7 +183,7 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
     cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((a.Sq + FWD_BQ - 1) / FWD_BQ, B * a.Hq);
-    flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(a);
+    flash_fwd_kernel<D><<<grid, 32 * FWD_WARPS, smem, stream>>>(a);
     return cudaGetLastError();
 }
 

@@ -21,6 +21,8 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    parameters, seq 2048, batch 4, bf16 with fp32 masters, AdamW, remat
    "dots", flash attention) for 2 warm-up and 5 timed steps, with the
    kernels' launch counts.
+6. profile: two more full-width steps under torch.profiler, device time by
+   kernel category and the share of the step with no kernel running.
 
 Then the kernel summary line and, last, the device line.
 """
@@ -261,7 +263,54 @@ def full_width_steps(hf):
         "losses": losses, "grad_norm": grad_norm, "launches": launches,
         "launches_per_step": {k: v / (warmup + timed) for k, v in launches.items()},
         "ln_vocab": math.log(cfg.vocab_size),
+        "_step": (step, state, batch),
     }
+
+
+def _category(name):
+    low = name.lower()
+    for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if f"{kernel}_kernel" in name:
+            return kernel
+    if any(x in low for x in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
+        return "matmul"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "optimizer (foreach)"
+    if low.startswith(("memcpy", "memset")):
+        return "copy/memset"
+    return "other kernels"
+
+
+def profile_steps(step, state, batch, step_ms, steps=2):
+    """Device time per full-width step by kernel category, over `steps`
+    profiled steps, and the share of the unprofiled step time (`step_ms`,
+    phase 5) during which no kernel ran. The profiler slows the host, so
+    its own wall time is reported but not used for the idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    by_cat, by_name = {}, {}
+    for e in kernels:
+        us = e.device_time_total
+        by_cat[_category(e.name)] = by_cat.get(_category(e.name), 0.0) + us / 1e3 / steps
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / steps
+    busy_ms = sum(by_cat.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"phase": "profile", "steps": steps, "profiled_wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
+            "idle_share": 1.0 - busy_ms / step_ms if kernels else None,
+            "ms_per_step_by_category": by_cat,
+            "top_kernels_ms_per_step": [[name[:90], ms] for name, ms in top]}
 
 
 def main() -> int:
@@ -331,10 +380,13 @@ def main() -> int:
     path_ok = (all(math.isfinite(x) for x in main_path["losses"])
                and abs(main_path["losses"][0] - main_path["ln_vocab"]) < 1.0
                and all(n == main_path["n_layers"] for n in per_step.values()))
-    emit({**main_path, "ok": path_ok})
+    emit({**{k: v for k, v in main_path.items() if k != "_step"}, "ok": path_ok})
     if not path_ok:
         print("chip_smoke: main path failed (loss or launch counts)", file=sys.stderr)
         return 1
+
+    # 6. where the device time of a step goes (after the counted run)
+    emit(profile_steps(*main_path.pop("_step"), main_path["step_ms"]))
 
     sources = {"flash_fwd": ("accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
                              "accelerate_tpu/ops/pallas_flash.py:72"),
