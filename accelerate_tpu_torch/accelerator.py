@@ -19,7 +19,6 @@ reading them waits for the step.
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -68,23 +67,14 @@ class Accelerator:
         # One device: FSDP has nothing to shard (a wider mesh raised above).
         self.fsdp_plugin = fsdp_plugin
         if gradient_accumulation_plugin is None:
-            steps = int(os.environ.get("ACCELERATE_GRADIENT_ACCUMULATION_STEPS",
-                                       gradient_accumulation_steps))
-            gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=steps)
+            gradient_accumulation_plugin = GradientAccumulationPlugin(
+                num_steps=gradient_accumulation_steps)
         self.gradient_state = GradientState(gradient_accumulation_plugin)
         self._train_states: list[TrainState] = []
 
     @property
     def device(self) -> torch.device:
         return self.state.device
-
-    @property
-    def mixed_precision(self) -> str:
-        return self.state.mixed_precision
-
-    @property
-    def gradient_accumulation_steps(self) -> int:
-        return self.gradient_state.num_steps
 
     @property
     def train_state(self) -> TrainState:

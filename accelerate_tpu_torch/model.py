@@ -58,11 +58,3 @@ class Model:
 
     def __call__(self, *args, **kwargs):
         return self.module(*args, **kwargs)
-
-    def eval(self):
-        self.module.eval()
-        return self
-
-    def train(self, mode: bool = True):
-        self.module.train(mode)
-        return self

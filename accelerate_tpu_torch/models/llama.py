@@ -107,17 +107,6 @@ class LlamaConfig:
         defaults.update(kw)
         return cls(**defaults)
 
-    @classmethod
-    def llama_7b(cls, **kw):
-        return cls(**kw)
-
-    @classmethod
-    def llama_1b(cls, **kw):
-        return cls(
-            hidden_size=2048, intermediate_size=5504, num_hidden_layers=16,
-            num_attention_heads=16, num_key_value_heads=16, **kw,
-        )
-
 
 def rms_norm(x, weight, eps):
     var = x.float().square().mean(-1, keepdim=True)

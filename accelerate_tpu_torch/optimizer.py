@@ -29,9 +29,13 @@ class AdamW:
     weight_decay: float = 1e-4
 
     def __call__(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.AdamW:
+        params = list(params)
+        # On the GPU, the fused implementation: one pass over p, g, m and v
+        # per parameter group, where the default (foreach) makes several.
+        fused = bool(params) and all(p.is_cuda for p in params)
         return torch.optim.AdamW(
             params, lr=self.learning_rate, betas=(self.b1, self.b2), eps=self.eps,
-            weight_decay=self.weight_decay)
+            weight_decay=self.weight_decay, fused=fused or None)
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,

@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import dataclasses
 
-MESH_AXIS_ORDER = ("dp_replicate", "dp_shard", "cp", "sp", "tp")
-
 
 @dataclasses.dataclass
 class ParallelismConfig:
@@ -45,26 +43,3 @@ class ParallelismConfig:
         if wide:
             raise NotImplementedError(
                 f"{wide}: only one device is ported yet (ROADMAP.md Queue A items 1-2)")
-
-    @property
-    def dp_size(self) -> int:
-        return self.dp_replicate_size * self.dp_shard_size
-
-    @property
-    def total_size(self) -> int:
-        return (self.dp_size * self.cp_size * self.sp_size * self.tp_size * self.pp_size)
-
-    def axis_size(self, axis: str) -> int:
-        return getattr(self, f"{axis}_size")
-
-    @property
-    def active_mesh_dims(self) -> tuple[str, ...]:
-        return tuple(ax for ax in MESH_AXIS_ORDER if self.axis_size(ax) > 1)
-
-    @property
-    def batch_axes(self) -> tuple[str, ...]:
-        return ("dp_replicate", "dp_shard")
-
-    @property
-    def seq_axes(self) -> tuple[str, ...]:
-        return ("cp", "sp")

@@ -37,7 +37,8 @@ class PartialState:
             return
         world = int(os.environ.get("WORLD_SIZE", "1"))
         if world > 1:
-            raise NotImplementedError(f"WORLD_SIZE={world}: more than one process is {_MULTI_GPU_ITEM}")
+            raise NotImplementedError(
+                f"WORLD_SIZE={world}: more than one process is {_MULTI_GPU_ITEM}")
         if cpu:
             device = torch.device("cpu")
         elif torch.cuda.is_available():
@@ -49,22 +50,10 @@ class PartialState:
         self.device = device
         self.num_processes = 1
         self.process_index = 0
-        self.local_process_index = 0
 
     @property
     def initialized(self) -> bool:
         return "device" in self._shared_state
-
-    @property
-    def is_main_process(self) -> bool:
-        return self.process_index == 0
-
-    @property
-    def use_distributed(self) -> bool:
-        return self.num_processes > 1
-
-    def wait_for_everyone(self):
-        """One process: nothing to wait for."""
 
     @classmethod
     def _reset_state(cls):
@@ -93,23 +82,9 @@ class AcceleratorState:
     def device(self) -> torch.device:
         return self._partial.device
 
-    @property
-    def num_processes(self) -> int:
-        return self._partial.num_processes
-
-    @property
-    def process_index(self) -> int:
-        return self._partial.process_index
-
-    @property
-    def is_main_process(self) -> bool:
-        return self._partial.is_main_process
-
     @classmethod
-    def _reset_state(cls, reset_partial_state: bool = False):
+    def _reset_state(cls):
         cls._shared_state.clear()
-        if reset_partial_state:
-            PartialState._reset_state()
 
 
 class GradientState:
@@ -119,19 +94,10 @@ class GradientState:
 
     def __init__(self, gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None):
         self.__dict__ = self._shared_state
-        if not self.initialized:
-            self.sync_gradients = True
-            self.plugin_kwargs = {"num_steps": 1}
+        if "num_steps" not in self._shared_state:
+            self.num_steps = 1
         if gradient_accumulation_plugin is not None:
-            self.plugin_kwargs = {"num_steps": gradient_accumulation_plugin.num_steps or 1}
-
-    @property
-    def initialized(self) -> bool:
-        return "sync_gradients" in self._shared_state
-
-    @property
-    def num_steps(self) -> int:
-        return self.plugin_kwargs["num_steps"]
+            self.num_steps = gradient_accumulation_plugin.num_steps or 1
 
     @classmethod
     def _reset_state(cls):

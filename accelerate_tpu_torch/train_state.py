@@ -25,7 +25,3 @@ class TrainState:
     @property
     def params(self) -> dict:
         return dict(self.model.module.named_parameters())
-
-    @property
-    def opt_state(self):
-        return self.optimizer.state
