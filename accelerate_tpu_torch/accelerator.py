@@ -89,7 +89,6 @@ class Accelerator:
         for obj in args:
             if isinstance(obj, Model):
                 obj.module.to(self.device)
-                obj._accelerator = self
                 model = obj
                 out.append(obj)
             elif isinstance(obj, (AdamW, torch.optim.Optimizer)):

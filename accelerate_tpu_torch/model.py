@@ -26,7 +26,6 @@ class Model:
         if not isinstance(module, nn.Module):
             raise TypeError(f"Model wraps a torch.nn.Module, got {type(module).__name__}")
         self.module = module
-        self._accelerator = None
 
     def parameters(self):
         return self.module.parameters()

@@ -142,6 +142,20 @@ def test_accelerator_needs_a_gpu_unless_cpu_is_asked(monkeypatch):
     assert acc.device == torch.device("cpu")
 
 
+def test_set_seed_seeds_every_generator_and_returns_one():
+    import random
+
+    draws = []
+    for _ in range(2):
+        gen = accelerate_tpu_torch.set_seed(1234)
+        draws.append((random.random(), np.random.rand(), torch.rand(3),
+                      torch.rand(3, generator=gen)))
+    (py_a, np_a, t_a, g_a), (py_b, np_b, t_b, g_b) = draws
+    assert py_a == py_b and np_a == np_b
+    assert torch.equal(t_a, t_b) and torch.equal(g_a, g_b)
+    assert gen.initial_seed() == 1234
+
+
 def test_wider_mesh_and_fp16_are_not_ported():
     with pytest.raises(NotImplementedError, match="Queue A"):
         ParallelismConfig(dp_shard_size=2)
