@@ -33,7 +33,6 @@ from .utils.dataclasses import (
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
-    ProjectConfiguration,
 )
 
 
@@ -54,22 +53,18 @@ class Accelerator:
         mixed_precision: Optional[str] = None,
         gradient_accumulation_steps: int = 1,
         cpu: bool = False,
-        project_dir: Optional[str] = None,
-        project_config: Optional[ProjectConfiguration] = None,
-        gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         parallelism_config: Optional[ParallelismConfig] = None,
         fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
     ):
-        self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
+        # fsdp_plugin is accepted only at its defaults (it raises otherwise):
+        # on one device FSDP has nothing to shard, and a wider mesh raises in
+        # AcceleratorState.
+        del fsdp_plugin
         self._mp_policy = MixedPrecisionPolicy.from_mixed_precision(mixed_precision)
         self.state = AcceleratorState(
             mixed_precision=mixed_precision, cpu=cpu, parallelism_config=parallelism_config)
-        # One device: FSDP has nothing to shard (a wider mesh raised above).
-        self.fsdp_plugin = fsdp_plugin
-        if gradient_accumulation_plugin is None:
-            gradient_accumulation_plugin = GradientAccumulationPlugin(
-                num_steps=gradient_accumulation_steps)
-        self.gradient_state = GradientState(gradient_accumulation_plugin)
+        self.gradient_state = GradientState(
+            GradientAccumulationPlugin(num_steps=gradient_accumulation_steps))
         self._train_states: list[TrainState] = []
 
     @property

@@ -19,8 +19,7 @@ import math
 
 import torch
 
-from .hopper_flash import NEG_INF
-from .hopper_flash import flash_attention as _hopper_flash_attention
+from .hopper_flash import NEG_INF, flash_attention  # noqa: F401  (re-exported)
 
 
 def _repeat_kv(k, v, hq):
@@ -83,13 +82,6 @@ def attention_stats(q, k, v, *, causal: bool = True, q_offset: int = 0, k_offset
     p = torch.exp(logits - m[..., None])
     acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype), v).float()
     return acc, m, p.sum(-1)
-
-
-def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0, k_offset: int = 0):
-    """Fused attention: the Hopper kernels for CUDA tensors, their plain
-    version for CPU tensors (ops/hopper_flash.py)."""
-    return _hopper_flash_attention(q, k, v, causal=causal, q_offset=q_offset,
-                                   k_offset=k_offset)
 
 
 def auto_flash_attention(q, k, v, *, causal: bool = True, mesh=None):

@@ -132,27 +132,34 @@ def _kernel(name):
     return fn
 
 
-def _check(name, q, k, v, *others):
-    """Raise on anything the kernels do not take: they read bf16 (B, S, H, D)
-    tensors on one CUDA device through strides whose last one is 1, with
-    16-byte aligned rows."""
-    tensors = (q, k, v) + others
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError(f"{name}: the Hopper kernel takes CUDA tensors only")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError(f"{name}: all tensors must be on one device")
-    if not all(t.dtype == torch.bfloat16 for t in tensors):
-        raise TypeError(f"{name}: the Hopper kernel takes bfloat16, got "
-                        f"{sorted({str(t.dtype) for t in tensors})}")
+def _check(name, q, k, v, dout=None, lse=None, delta=None):
+    """Raise on anything the kernels do not take: bf16 (B, S, H, D) q, k, v
+    (and dout shaped as q) read through strides whose last one is 1, with
+    16-byte aligned rows; contiguous fp32 (B, Hq, Sq) row statistics; all on
+    one CUDA device. Shapes are checked first, so a CPU caller sees them too."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: expected q (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D)")
-    b, _, hq, d = q.shape
+    b, sq, hq, d = q.shape
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
     if hq % k.shape[2]:
         raise ValueError(f"{name}: GQA needs Hq % Hkv == 0, got {hq} % {k.shape[2]}")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if dout is not None and dout.shape != q.shape:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
+    stats = [x for x in (lse, delta) if x is not None]
+    for x in stats:
+        if x.dtype != torch.float32 or x.shape != (b, hq, sq) or not x.is_contiguous():
+            raise ValueError(f"{name}: row statistics must be contiguous float32 {(b, hq, sq)}")
+    tensors = [t for t in (q, k, v, dout) if t is not None]
+    if not all(t.is_cuda for t in tensors + stats):
+        raise ValueError(f"{name}: the Hopper kernel takes CUDA tensors only")
+    if len({t.device for t in tensors + stats}) != 1:
+        raise ValueError(f"{name}: all tensors must be on one device")
+    if not all(t.dtype == torch.bfloat16 for t in tensors):
+        raise TypeError(f"{name}: the Hopper kernel takes bfloat16, got "
+                        f"{sorted({str(t.dtype) for t in tensors})}")
     for t in tensors:
         if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors need unit last stride and 16-byte aligned rows")
@@ -161,11 +168,6 @@ def _check(name, q, k, v, *others):
 def _strides(*tensors):
     vals = [s for t in tensors for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(vals))(*vals)
-
-
-def _stats(name, x, b, hq, sq):
-    if x.dtype != torch.float32 or x.shape != (b, hq, sq) or not x.is_contiguous():
-        raise ValueError(f"{name}: row statistics must be contiguous float32 {(b, hq, sq)}")
 
 
 def _launch(name, *args):
@@ -191,11 +193,9 @@ def flash_fwd_cuda(q, k, v, *, causal=True, q_offset=0, k_offset=0):
 
 def flash_dq_cuda(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_offset=0):
     """Launch the dQ kernel: dq bf16 (B, Sq, Hq, D)."""
-    _check("flash_dq", q, k, v, dout)
+    _check("flash_dq", q, k, v, dout, lse, delta)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    for x in (lse, delta):
-        _stats("flash_dq", x, b, hq, sq)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
         _launch("flash_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -207,11 +207,9 @@ def flash_dq_cuda(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_offse
 
 def flash_dkv_cuda(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_offset=0):
     """Launch the dK/dV kernel: (dk, dv) bf16 (B, Sk, Hkv, D), group-summed."""
-    _check("flash_dkv", q, k, v, dout)
+    _check("flash_dkv", q, k, v, dout, lse, delta)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    for x in (lse, delta):
-        _stats("flash_dkv", x, b, hq, sq)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):

@@ -68,9 +68,11 @@ class AcceleratorState:
     def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False,
                  parallelism_config: Optional[ParallelismConfig] = None):
         self.__dict__ = self._shared_state
+        # PartialState raises if it was set up with the other device.
+        partial = PartialState(cpu=cpu)
         if self.initialized:
             return
-        self._partial = PartialState(cpu=cpu)
+        self._partial = partial
         self.mixed_precision = "no" if mixed_precision is None else mixed_precision
         self.parallelism_config = parallelism_config or ParallelismConfig()
 

@@ -1,12 +1,28 @@
 """Plugin dataclasses: the subset of ``accelerate_tpu/utils/dataclasses.py``
-that the training step needs, with torch dtypes."""
+that the training step needs, with torch dtypes.
+
+The fields keep the JAX package's names and defaults. A field the port does
+not act on yet raises ``NotImplementedError`` naming its ROADMAP.md item
+when it is set away from its default, so no setting is silently ignored."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Any, Optional
 
 import torch
+
+_MULTI_GPU_ITEM = "ROADMAP.md Queue A item 1 (multi-GPU FSDP2/DDP)"
+_CHECKPOINT_ITEM = "ROADMAP.md Queue A item 4 (checkpointing)"
+_DATA_LOADER_ITEM = "ROADMAP.md Queue A item 3 (data loader)"
+
+
+def _refuse_non_defaults(obj, item: str, honoured: tuple = ()) -> None:
+    for f in fields(obj):
+        if f.name not in honoured and getattr(obj, f.name) != f.default:
+            raise NotImplementedError(
+                f"{type(obj).__name__}({f.name}={getattr(obj, f.name)!r}) is not "
+                f"ported yet ({item})")
 
 
 @dataclass
@@ -15,12 +31,16 @@ class MixedPrecisionPolicy:
 
     Params and optimizer state stay fp32 master copies; compute and
     activations run in ``compute_dtype``; gradients are reduced in
-    ``reduce_dtype``."""
+    ``reduce_dtype``. Only ``compute_dtype`` may be changed yet."""
 
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
     reduce_dtype: Any = torch.float32
     output_dtype: Any = torch.float32
+
+    def __post_init__(self):
+        _refuse_non_defaults(self, "ROADMAP.md Queue A item 7 (fp8 and reduced precision)",
+                             honoured=("compute_dtype",))
 
     @classmethod
     def from_mixed_precision(cls, mixed_precision: Optional[str]) -> "MixedPrecisionPolicy":
@@ -45,16 +65,22 @@ class MixedPrecisionPolicy:
 
 @dataclass
 class GradientAccumulationPlugin:
+    """``num_steps`` microbatches per optimizer step; the data-loader
+    coupling of the other fields waits for the data loader."""
+
     num_steps: int = None
     adjust_scheduler: bool = True
     sync_with_dataloader: bool = True
     sync_each_batch: bool = False
 
+    def __post_init__(self):
+        _refuse_non_defaults(self, _DATA_LOADER_ITEM, honoured=("num_steps",))
+
 
 @dataclass
 class FullyShardedDataParallelPlugin:
-    """Accepted for the JAX signature's sake. On one device there is nothing
-    to shard, so it changes nothing; a multi-GPU mesh is not ported yet."""
+    """Accepted at its defaults, where on one device there is nothing to
+    shard and it changes nothing; any other setting is not ported yet."""
 
     sharding_strategy: str = "FULL_SHARD"
     reshard_after_forward: bool = True
@@ -65,9 +91,15 @@ class FullyShardedDataParallelPlugin:
     mixed_precision_policy: Optional[MixedPrecisionPolicy] = None
     ignored_params: Optional[list] = None
 
+    def __post_init__(self):
+        _refuse_non_defaults(self, _MULTI_GPU_ITEM)
+
 
 @dataclass
 class ProjectConfiguration:
+    """Where checkpoints and logs go. The port writes neither yet, so only
+    the defaults are accepted."""
+
     project_dir: str = None
     logging_dir: str = None
     automatic_checkpoint_naming: bool = False
@@ -76,10 +108,5 @@ class ProjectConfiguration:
     save_on_each_node: bool = False
     automatic_resume: bool = False
 
-    def set_directories(self, project_dir: str = None):
-        self.project_dir = project_dir
-        if self.logging_dir is None:
-            self.logging_dir = project_dir
-
     def __post_init__(self):
-        self.set_directories(self.project_dir)
+        _refuse_non_defaults(self, _CHECKPOINT_ITEM)

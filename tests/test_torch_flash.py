@@ -142,7 +142,9 @@ def test_cuda_wrappers_not_reached_for_cpu_tensors(monkeypatch):
 
 
 def test_cuda_wrappers_raise_on_what_they_do_not_take():
-    q, k, v = (torch.from_numpy(x) for x in _qkv(s=64))
+    with pytest.raises(ValueError, match="head dim 16"):
+        hopper_flash.flash_fwd_cuda(*(torch.from_numpy(x) for x in _qkv(s=64, d=16)))
+    q, k, v = (torch.from_numpy(x) for x in _qkv(s=64, d=32))
     with pytest.raises(ValueError, match="CUDA tensors only"):
         hopper_flash.flash_fwd_cuda(q, k, v)
     lse = torch.zeros(2, 4, 64)
@@ -150,3 +152,14 @@ def test_cuda_wrappers_raise_on_what_they_do_not_take():
         hopper_flash.flash_dq_cuda(q, k, v, q, lse, lse)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         hopper_flash.flash_dkv_cuda(q, k, v, q, lse, lse)
+
+
+@pytest.mark.parametrize("wrapper", ["flash_dq_cuda", "flash_dkv_cuda"])
+def test_cuda_backward_wrappers_check_shapes_before_launch(wrapper):
+    q, k, v = (torch.from_numpy(x) for x in _qkv(s=64, d=32))
+    fn = getattr(hopper_flash, wrapper)
+    lse = torch.zeros(2, 4, 64)
+    with pytest.raises(ValueError, match="dout"):
+        fn(q, k, v, q[:, :32], lse, lse)
+    with pytest.raises(ValueError, match="row statistics"):
+        fn(q, k, v, q, lse[:, :, :32], lse)

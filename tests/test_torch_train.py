@@ -24,7 +24,16 @@ from accelerate_tpu import Model as JaxModel
 from accelerate_tpu.models import LlamaConfig as JaxLlamaConfig
 from accelerate_tpu.models import LlamaForCausalLM as JaxLlama
 from accelerate_tpu.models import cross_entropy_loss as jax_cross_entropy
-from accelerate_tpu_torch import Accelerator, Model, ParallelismConfig, adamw
+from accelerate_tpu_torch import (
+    Accelerator,
+    FullyShardedDataParallelPlugin,
+    GradientAccumulationPlugin,
+    MixedPrecisionPolicy,
+    Model,
+    ParallelismConfig,
+    ProjectConfiguration,
+    adamw,
+)
 from accelerate_tpu_torch.models import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -140,6 +149,38 @@ def test_accelerator_needs_a_gpu_unless_cpu_is_asked(monkeypatch):
     PartialState._reset_state()
     acc = Accelerator(cpu=True)
     assert acc.device == torch.device("cpu")
+
+
+def test_accelerator_refuses_a_second_device_choice(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    Accelerator(cpu=True)
+    with pytest.raises(ValueError, match="cpu=True"):
+        Accelerator()
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    Accelerator()
+    with pytest.raises(ValueError, match="cpu=False"):
+        Accelerator(cpu=True)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(cpu_offload=True)),
+    lambda: FullyShardedDataParallelPlugin(activation_checkpointing=True),
+    lambda: ProjectConfiguration(project_dir="runs"),
+    lambda: GradientAccumulationPlugin(num_steps=2, sync_each_batch=True),
+    lambda: MixedPrecisionPolicy(reduce_dtype=torch.bfloat16),
+])
+def test_settings_the_port_does_not_act_on_raise(make):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
+        make()
+
+
+def test_default_plugins_are_accepted():
+    acc = Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(),
+                      gradient_accumulation_steps=2)
+    assert acc.gradient_state.num_steps == 2
+    assert GradientAccumulationPlugin(num_steps=4).num_steps == 4
+    assert ProjectConfiguration().project_dir is None
 
 
 def test_set_seed_seeds_every_generator_and_returns_one():
