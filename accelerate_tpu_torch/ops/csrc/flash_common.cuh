@@ -1,8 +1,11 @@
-// Shared pieces of the three flash-attention kernels (flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu): bf16 tensor-core products through
-// mma.sync.m16n8k16, fragments loaded from shared memory with ldmatrix, and
-// tiles copied from the (B, S, H, D) layout, read through its strides, with
-// cp.async so that the next tile's copy overlaps this tile's products.
+// Shared pieces of the three flash-attention kernels: the element type, the
+// causal block arithmetic, the backward arguments and the shared-memory
+// limit (all three), and the dQ kernel's (flash_dq.cu) tensor-core path:
+// bf16 products through mma.sync.m16n8k16, fragments loaded from shared
+// memory with ldmatrix, and tiles copied from the (B, S, H, D) layout, read
+// through its strides, with cp.async so that the next tile's copy overlaps
+// this tile's products. The forward and dK/dV kernels use wgmma and TMA
+// instead (hopper_common.cuh).
 //
 // Fragment layout of mma.m16n8k16 (lane = 4*g + t, g = lane/4, t = lane%4):
 //   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 8+2t..),
@@ -25,6 +28,7 @@ namespace flash {
 using bf16 = __nv_bfloat16;
 
 constexpr float NEG_INF = -1e30f;  // the masked-score value of the TPU kernels
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -90,11 +94,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
     // src-size 0 fills the 16 bytes with zeros and reads nothing.
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }

@@ -1,188 +1,279 @@
 // Flash-attention backward, dK/dV pass, for Hopper (sm_90a).
 //
 // Replaces: accelerate_tpu/ops/pallas_flash.py:_dkv_kernel (launched by _bwd).
-// dV = Σ Pᵀ·dO and dK = scale · Σ dSᵀ·Q, summed over the query blocks AND
+// dV = Σ Pᵀ·dO and dK = scale · Σ dSᵀ·Q, summed over the query tiles AND
 // the query heads of the GQA group, so dK/dV come out at KV-head
 // resolution. P and dS are recomputed from q, k, v, dO, lse and δ as in the
 // dQ pass.
 //
 // Bound on the H100: four S×S×D products per (b, head) at ~4·S·D FLOP per
-// byte read: bound by tensor-core operations at the training shapes.
-// Design: one thread block of 8 warps per (b, kv_head, 128-key block)
-// loops over the heads of its GQA group and, for each, over the 32-query
-// blocks from the causal diagonal on (runtime offsets). Each warp owns 16
-// keys and keeps its dK and dV accumulators in registers, so every output
-// row is written once by one block: no atomics, and the result is
-// deterministic. The Q, dO, lse and δ tiles are double-buffered with
-// cp.async. The products run as Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (Q, dO read
-// with ldmatrix) and dV += Pᵀ·dO, dK += dSᵀ·Q (read with ldmatrix.trans),
-// all mma.sync bf16 fragments with fp32 accumulation. Not yet done: TMA
-// loads and wgmma.
-#include "flash_common.cuh"
+// byte read: bound by tensor-core operations at the training shapes, which
+// reach their rate only through wgmma fed from shared memory.
+//
+// Design: one block per (b, kv_head, 128-key tile), the heaviest causal
+// tiles of every head first, so each dK/dV row is written once by one
+// block: no atomics, and the result is deterministic. Three warpgroups,
+// specialised:
+// - the producer warpgroup gives its registers up (setmaxnreg.dec); one
+//   thread loads the K and V tiles once by TMA, then streams the work items
+//   (group head, 64-query tile from the causal diagonal on) through a ring
+//   of two stages: the Q and dO tiles by TMA, while the lanes of its warp
+//   copy that tile's lse and δ rows (a TMA copy of them would need Sq to be
+//   a multiple of 4, for 16-byte aligned rows); the stage's full barrier
+//   waits for the bytes and the 32 lanes;
+// - two consumer warpgroups (setmaxnreg.inc) own 64 keys each and keep
+//   their dK and dV accumulators (64 keys × D, fp32) in registers. Per item:
+//   Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as wgmma m64n64k16 with both operands from
+//   shared memory (K-major); P (exp2 with the scale folded in, lse kept in
+//   base 2) and dS = P∘(dP − δ) in registers; then dV += Pᵀ·dO and
+//   dK += dSᵀ·Q with Pᵀ and dSᵀ as bf16 register A operands and dO and Q
+//   read MN-major (the transpose bit). The products run as asynchronous
+//   groups, so that P is computed while dPᵀ is, and dS while dV is. A
+//   warpgroup whose 64 keys the causal mask hides from a whole item skips
+//   its products. The 64-query item keeps Sᵀ and dPᵀ at 32 registers each
+//   beside the 2·D/2 of the accumulators, under the 240 of setmaxnreg.
+// TMA reads the tensors in place through their strides and zero-fills rows
+// past Sq or Sk; the scores of queries past Sq are masked.
+#include "hopper_common.cuh"
 
 namespace flash {
 
-constexpr int DKV_WARPS = 8;
-constexpr int DKV_BK = 16 * DKV_WARPS;
-constexpr int DKV_BQ = 32;
+constexpr int DKV_BN = 128;  // keys of a block: 64 per consumer warpgroup
+constexpr int DKV_BM = 64;   // queries of a work item
+constexpr int DKV_STAGES = 2;
+constexpr int DKV_THREADS = 384;
 
 template <int D>
-constexpr int dkv_smem_bytes() {
-    // K and V; Q and dO in two stages; lse and δ in two stages.
-    return (2 * DKV_BK + 4 * DKV_BQ) * (D + 8) * 2 + 4 * DKV_BQ * 4;
-}
+struct DkvSmem {
+    static constexpr int KV_TILE = DKV_BN * D * 2;  // bytes of the K or the V tile
+    static constexpr int Q_TILE = DKV_BM * D * 2;   // bytes of one Q or dO tile
+    static constexpr int STATS = DKV_BM * 4;        // bytes of one lse or δ row
+    static constexpr int BYTES =
+        1024 + 2 * KV_TILE + DKV_STAGES * (2 * Q_TILE + 2 * STATS);  // + alignment slack
+};
 
 template <int D>
-__global__ void __launch_bounds__(32 * DKV_WARPS) flash_dkv_kernel(BwdArgs a) {
-    constexpr int NT = 32 * DKV_WARPS, BQ = DKV_BQ, BK = DKV_BK, LD = D + 8;
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* sK = reinterpret_cast<bf16*>(smem);
-    bf16* sV = sK + BK * LD;
-    bf16* sQ = sV + BK * LD;        // [2][BQ][LD]
-    bf16* sdO = sQ + 2 * BQ * LD;   // [2][BQ][LD]
-    float* sLse = reinterpret_cast<float*>(sdO + 2 * BQ * LD);  // [2][BQ]
-    float* sDelta = sLse + 2 * BQ;                               // [2][BQ]
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+    flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
+    using L = Swz<D>;
+    using M = DkvSmem<D>;
+    extern __shared__ unsigned char smem_raw[];
+    __shared__ __align__(8) uint64_t kv_full, full[DKV_STAGES], empty[DKV_STAGES];
+    unsigned char* sK = align1024(smem_raw);
+    unsigned char* sV = sK + M::KV_TILE;
+    unsigned char* sQ = sV + M::KV_TILE;                 // [stage] tiles
+    unsigned char* sdO = sQ + DKV_STAGES * M::Q_TILE;    // [stage] tiles
+    float* sLse = reinterpret_cast<float*>(sdO + DKV_STAGES * M::Q_TILE);  // [stage][DKV_BM]
+    float* sDelta = sLse + DKV_STAGES * DKV_BM;                            // [stage][DKV_BM]
 
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const int kb = blockIdx.x;
-    const int b = blockIdx.y / a.Hkv, hk = blockIdx.y % a.Hkv;
+    const int kb = blockIdx.y;  // every head's heaviest causal tile first
+    const int b = blockIdx.x / a.Hkv, hk = blockIdx.x % a.Hkv;
     const int rep = a.Hq / a.Hkv;
-    const int k0 = kb * BK;
+    const int k0 = kb * DKV_BN;
 
-    // Query blocks from the first that sees any key of this block under the
-    // causal mask; the work list runs over (group head, query block).
-    const int nqb = (a.Sq + BQ - 1) / BQ;
+    // Query tiles from the first that sees any key of this block under the
+    // causal mask; the work list runs over (group head, query tile).
+    const int nqb = (a.Sq + DKV_BM - 1) / DKV_BM;
     int qb_first = 0;
     if (a.causal) {
-        const long long first = (long long)a.k_off + k0 - a.q_off - (BQ - 1);
-        qb_first = first <= 0 ? 0 : (int)((first + BQ - 1) / BQ);
+        const long long first = (long long)a.k_off + k0 - a.q_off - (DKV_BM - 1);
+        qb_first = first <= 0 ? 0 : (int)((first + DKV_BM - 1) / DKV_BM);
     }
     const int nq = qb_first < nqb ? nqb - qb_first : 0;
     const int n_iter = rep * nq;
+    const int wg = threadIdx.x / 128;
 
-    // Start the copies of work item `it` into stage `st`.
-    auto load_q = [&](int it, int st) {
-        const int h = hk * rep + it / nq;
-        const int q0 = (qb_first + it % nq) * BQ;
-        load_tile<D, BQ, NT>(sQ + st * BQ * LD, a.q + b * a.q_b + h * a.q_h, a.q_s, q0, a.Sq, tid);
-        load_tile<D, BQ, NT>(sdO + st * BQ * LD, a.dout + b * a.do_b + h * a.do_h, a.do_s, q0,
-                             a.Sq, tid);
-        if (tid < 2 * BQ) {
-            const int r = tid % BQ;
-            const bool valid = q0 + r < a.Sq;
-            const float* src = (tid < BQ ? a.lse : a.delta) + ((long long)b * a.Hq + h) * a.Sq;
-            float* dst = (tid < BQ ? sLse : sDelta) + st * BQ + r;
-            cp_async4(dst, valid ? src + q0 + r : src, valid);
+    if (threadIdx.x == 0) {
+        mbar_init(&kv_full, 1);
+        for (int s = 0; s < DKV_STAGES; ++s) {
+            mbar_init(&full[s], 32);  // every lane of the producer warp
+            mbar_init(&empty[s], 8);  // one arrival per consumer warp
         }
-    };
-
-    load_tile<D, BK, NT>(sK, a.k + b * a.k_b + hk * a.k_h, a.k_s, k0, a.Sk, tid);
-    load_tile<D, BK, NT>(sV, a.v + b * a.v_b + hk * a.v_h, a.v_s, k0, a.Sk, tid);
-    if (n_iter > 0) load_q(0, 0);
-    cp_async_commit();
-
-    const int row = warp * 16 + g;  // key row of c0/c1 in the tile; row + 8 holds c2/c3
-    float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-    for (int it = 0; it < n_iter; ++it) {
-        const int st = it & 1;
-        const int q0 = (qb_first + it % nq) * BQ;
-        if (it + 1 < n_iter) load_q(it + 1, st ^ 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-        const bf16* cQ = sQ + st * BQ * LD;
-        const bf16* cdO = sdO + st * BQ * LD;
-        const float* cLse = sLse + st * BQ;
-        const float* cDelta = sDelta + st * BQ;
-
-        float sT[BQ / 8][4], dpT[BQ / 8][4];  // Sᵀ and dPᵀ: keys × queries
-#pragma unroll
-        for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-            uint32_t ka[4], va[4];
-            load_a(ka, sK, LD, warp * 16, kk * 16, lane);
-            load_a(va, sV, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-            for (int n = 0; n < BQ / 16; ++n) {
-                uint32_t bf[4];
-                load_b_nk(bf, cQ, LD, n * 16, kk * 16, lane);
-                mma16816(sT[2 * n], ka, bf[0], bf[1]);
-                mma16816(sT[2 * n + 1], ka, bf[2], bf[3]);
-                load_b_nk(bf, cdO, LD, n * 16, kk * 16, lane);
-                mma16816(dpT[2 * n], va, bf[0], bf[1]);
-                mma16816(dpT[2 * n + 1], va, bf[2], bf[3]);
-            }
-        }
-        const bool masked = needs_mask(a.causal, a.q_off, a.k_off, q0, BQ, k0, BK, a.Sq, a.Sk);
-#pragma unroll
-        for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int qcol = n * 8 + 2 * t + (e & 1);
-                bool ok = true;
-                if (masked) {
-                    const int kpos = k0 + row + (e >> 1) * 8;
-                    const int qpos = q0 + qcol;
-                    ok = kpos < a.Sk && qpos < a.Sq &&
-                         (!a.causal || a.q_off + qpos >= a.k_off + kpos);
-                }
-                const float p = ok ? __expf(sT[n][e] * a.scale - cLse[qcol]) : 0.f;
-                sT[n][e] = p;
-                dpT[n][e] = p * (dpT[n][e] - cDelta[qcol]);  // dSᵀ
-            }
-        }
-#pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-            uint32_t pa[4], sa[4];
-            c_to_a(pa, sT[2 * kk], sT[2 * kk + 1]);
-            c_to_a(sa, dpT[2 * kk], dpT[2 * kk + 1]);
-#pragma unroll
-            for (int n = 0; n < D / 16; ++n) {
-                uint32_t bf[4];
-                load_b_kn(bf, cdO, LD, kk * 16, n * 16, lane);
-                mma16816(dv[2 * n], pa, bf[0], bf[1]);
-                mma16816(dv[2 * n + 1], pa, bf[2], bf[3]);
-                load_b_kn(bf, cQ, LD, kk * 16, n * 16, lane);
-                mma16816(dk[2 * n], sa, bf[0], bf[1]);
-                mma16816(dk[2 * n + 1], sa, bf[2], bf[3]);
-            }
-        }
-        __syncthreads();  // this stage is refilled by the next iteration
+        mbar_init_fence();
     }
-    cp_async_wait<0>();
+    __syncthreads();
+
+    if (wg == 0) {
+        // Producer: warp 0 streams the work items; its lane 0 issues the TMA
+        // loads, and each lane copies two lse and two δ values of the item
+        // and then arrives, so the stage is full when both have landed.
+        reg_dealloc<24>();
+        const int lane = threadIdx.x;
+        if (lane < 32) {
+            if (lane == 0) {
+                mbar_arrive_tx(&kv_full, 2 * M::KV_TILE);
+                for (int c = 0; c < L::CHUNKS; ++c) {
+                    tma_load_4d(sK + c * DKV_BN * L::ROW, &tm_k, &kv_full, c * L::ELEMS, hk, k0, b);
+                    tma_load_4d(sV + c * DKV_BN * L::ROW, &tm_v, &kv_full, c * L::ELEMS, hk, k0, b);
+                }
+            }
+            for (int it = 0; it < n_iter; ++it) {
+                const int st = it % DKV_STAGES;
+                const int h = hk * rep + it / nq;
+                const int q0 = (qb_first + it % nq) * DKV_BM;
+                mbar_wait(&empty[st], ((it / DKV_STAGES) & 1) ^ 1);
+                if (lane == 0) {
+                    mbar_expect_tx(&full[st], 2 * M::Q_TILE);
+                    unsigned char* q_dst = sQ + st * M::Q_TILE;
+                    unsigned char* do_dst = sdO + st * M::Q_TILE;
+                    for (int c = 0; c < L::CHUNKS; ++c) {
+                        tma_load_4d(q_dst + c * DKV_BM * L::ROW, &tm_q, &full[st], c * L::ELEMS, h,
+                                    q0, b);
+                        tma_load_4d(do_dst + c * DKV_BM * L::ROW, &tm_do, &full[st],
+                                    c * L::ELEMS, h, q0, b);
+                    }
+                }
+                // lse in base 2, for exp2; the scores of queries past Sq are
+                // masked, and their row statistics are 0 here.
+                const long long row = ((long long)b * a.Hq + h) * a.Sq + q0;
+                for (int r = lane; r < DKV_BM; r += 32) {
+                    const bool valid = q0 + r < a.Sq;
+                    sLse[st * DKV_BM + r] = valid ? a.lse[row + r] * LOG2E : 0.f;
+                    sDelta[st * DKV_BM + r] = valid ? a.delta[row + r] : 0.f;
+                }
+                mbar_arrive(&full[st]);
+            }
+        }
+    } else {
+        // Consumers: warpgroup cw owns keys k0 + 64cw .. k0 + 64cw + 63.
+        reg_alloc<240>();
+        const int cw = wg - 1;
+        const int lane = threadIdx.x % 32, w = (threadIdx.x % 128) / 32;
+        const int g = lane / 4, t = lane % 4;
+        const int kw0 = k0 + cw * 64;           // first key of this warpgroup
+        const int krow = kw0 + w * 16 + g;      // key of d[4j], d[4j+1]; krow + 8 of the rest
+        const float scale_log2 = a.scale * LOG2E;
+
+        float dk[D / 2], dv[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+        mbar_wait(&kv_full, 0);
+
+        for (int it = 0; it < n_iter; ++it) {
+            const int st = it % DKV_STAGES;
+            const int q0 = (qb_first + it % nq) * DKV_BM;
+            mbar_wait(&full[st], (it / DKV_STAGES) & 1);
+            const bool hidden = kw0 >= a.Sk ||
+                                (a.causal && (long long)a.q_off + q0 + DKV_BM - 1 <
+                                                 (long long)a.k_off + kw0);
+            if (!hidden) {
+                const uint32_t aK = opaque(smem_addr(sK)), aV = opaque(smem_addr(sV));
+                const uint32_t aQ = opaque(smem_addr(sQ + st * M::Q_TILE));
+                const uint32_t adO = opaque(smem_addr(sdO + st * M::Q_TILE));
+                const float* cLse = sLse + st * DKV_BM;
+                const float* cDelta = sDelta + st * DKV_BM;
+                const bool masked = needs_mask(a.causal, a.q_off, a.k_off, q0, DKV_BM, kw0, 64,
+                                               a.Sq, a.Sk);
+
+                // Sᵀ and dPᵀ (64 keys × 64 queries) as two groups in flight.
+                float sT[DKV_BM / 2], dpT[DKV_BM / 2];
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk)
+                    wgmma_ss<DKV_BM>(sT, desc_k_major<D>(aK, DKV_BN, cw * 64, kk),
+                                     desc_k_major<D>(aQ, DKV_BM, 0, kk), kk > 0);
+                wgmma_commit();
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk)
+                    wgmma_ss<DKV_BM>(dpT, desc_k_major<D>(aV, DKV_BN, cw * 64, kk),
+                                     desc_k_major<D>(adO, DKV_BM, 0, kk), kk > 0);
+                wgmma_commit();
+
+                // P while dPᵀ is computed, then dV += Pᵀ·dO while dS is.
+                // Pᵀ and dSᵀ as A operands: k-step kk covers queries
+                // 16kk..16kk+15, the accumulators' n8 tiles 2kk and 2kk+1.
+                wgmma_wait<1>();
+                fence_regs(sT);
+#pragma unroll
+                for (int j = 0; j < DKV_BM / 8; ++j) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int qcol = j * 8 + 2 * t + (e & 1);
+                        bool ok = true;
+                        if (masked) {
+                            const int kpos = krow + (e >> 1) * 8;
+                            const int qpos = q0 + qcol;
+                            ok = kpos < a.Sk && qpos < a.Sq &&
+                                 (!a.causal || a.q_off + qpos >= a.k_off + kpos);
+                        }
+                        float& x = sT[4 * j + e];
+                        x = ok ? exp2_approx(fmaf(x, scale_log2, -cLse[qcol])) : 0.f;
+                    }
+                }
+                uint32_t pa[DKV_BM / 16][4];
+#pragma unroll
+                for (int kk = 0; kk < DKV_BM / 16; ++kk)
+#pragma unroll
+                    for (int r = 0; r < 4; ++r)
+                        pa[kk][r] = pack_bf16(sT[8 * kk + 2 * r], sT[8 * kk + 2 * r + 1]);
+                wgmma_fence();
+                fence_regs(dv);
+#pragma unroll
+                for (int kk = 0; kk < DKV_BM / 16; ++kk)
+                    wgmma_rs<D>(dv, pa[kk], desc_mn_major<D>(adO, DKV_BM, kk), 1);
+                wgmma_commit();
+
+                wgmma_wait<1>();  // dPᵀ is done; dV may still run
+                fence_regs(dpT);
+                uint32_t sa[DKV_BM / 16][4];
+#pragma unroll
+                for (int kk = 0; kk < DKV_BM / 16; ++kk) {
+#pragma unroll
+                    for (int r = 0; r < 4; ++r) {
+                        const int j = 2 * kk + r / 2, e = 2 * (r % 2);  // n8 tile, first element
+                        const float d0 = cDelta[j * 8 + 2 * t], d1 = cDelta[j * 8 + 2 * t + 1];
+                        const float p0 = sT[4 * j + e], p1 = sT[4 * j + e + 1];
+                        sa[kk][r] = pack_bf16(p0 * (dpT[4 * j + e] - d0),
+                                              p1 * (dpT[4 * j + e + 1] - d1));  // dSᵀ
+                    }
+                }
+                wgmma_fence();
+                fence_regs(dk);
+#pragma unroll
+                for (int kk = 0; kk < DKV_BM / 16; ++kk)
+                    wgmma_rs<D>(dk, sa[kk], desc_mn_major<D>(aQ, DKV_BM, kk), 1);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(dv);
+                fence_regs(dk);
+            }
+            if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+        }
 
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int kpos = k0 + row + i * 8;
-        if (kpos < a.Sk) {
-            bf16* dK = a.dk + b * a.dk_b + (long long)kpos * a.dk_s + hk * a.dk_h;
-            bf16* dV = a.dv + b * a.dv_b + (long long)kpos * a.dv_s + hk * a.dv_h;
+        for (int i = 0; i < 2; ++i) {
+            const int kpos = krow + i * 8;
+            if (kpos < a.Sk) {
+                bf16* dK = a.dk + b * a.dk_b + (long long)kpos * a.dk_s + hk * a.dk_h;
+                bf16* dV = a.dv + b * a.dv_b + (long long)kpos * a.dv_s + hk * a.dv_h;
 #pragma unroll
-            for (int n = 0; n < D / 8; ++n) {
-                *reinterpret_cast<uint32_t*>(dK + n * 8 + 2 * t) =
-                    pack_bf16(dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
-                *reinterpret_cast<uint32_t*>(dV + n * 8 + 2 * t) =
-                    pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+                for (int j = 0; j < D / 8; ++j) {
+                    *reinterpret_cast<uint32_t*>(dK + j * 8 + 2 * t) =
+                        pack_bf16(dk[4 * j + 2 * i] * a.scale, dk[4 * j + 2 * i + 1] * a.scale);
+                    *reinterpret_cast<uint32_t*>(dV + j * 8 + 2 * t) =
+                        pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+                }
             }
         }
     }
 }
 
 template <int D>
-cudaError_t launch_dkv(const BwdArgs& a, int B, cudaStream_t stream) {
-    const int smem = dkv_smem_bytes<D>();
+cudaError_t launch_dkv(const BwdArgs& a, const long long* st, int B, cudaStream_t stream) {
+    CUtensorMap tm_q, tm_k, tm_v, tm_do;
+    if (!make_rows_map<D>(&tm_q, a.q, B, a.Sq, a.Hq, st[0], st[1], st[2], DKV_BM) ||
+        !make_rows_map<D>(&tm_k, a.k, B, a.Sk, a.Hkv, st[3], st[4], st[5], DKV_BN) ||
+        !make_rows_map<D>(&tm_v, a.v, B, a.Sk, a.Hkv, st[6], st[7], st[8], DKV_BN) ||
+        !make_rows_map<D>(&tm_do, a.dout, B, a.Sq, a.Hq, st[9], st[10], st[11], DKV_BM))
+        return cudaErrorInvalidValue;
+    const int smem = DkvSmem<D>::BYTES;
     cudaError_t err = allow_smem(flash_dkv_kernel<D>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sk + DKV_BK - 1) / DKV_BK, B * a.Hkv);
-    flash_dkv_kernel<D><<<grid, 32 * DKV_WARPS, smem, stream>>>(a);
+    const dim3 grid(B * a.Hkv, (a.Sk + DKV_BN - 1) / DKV_BN);
+    flash_dkv_kernel<D><<<grid, DKV_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, a);
     return cudaGetLastError();
 }
 
@@ -203,19 +294,15 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
     a.delta = static_cast<const float*>(delta);
     a.dk = static_cast<bf16*>(dk);
     a.dv = static_cast<bf16*>(dv);
-    a.q_b = strides[0]; a.q_s = strides[1]; a.q_h = strides[2];
-    a.k_b = strides[3]; a.k_s = strides[4]; a.k_h = strides[5];
-    a.v_b = strides[6]; a.v_s = strides[7]; a.v_h = strides[8];
-    a.do_b = strides[9]; a.do_s = strides[10]; a.do_h = strides[11];
     a.dk_b = strides[12]; a.dk_s = strides[13]; a.dk_h = strides[14];
     a.dv_b = strides[15]; a.dv_s = strides[16]; a.dv_h = strides[17];
     a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv;
     a.causal = causal; a.q_off = q_off; a.k_off = k_off; a.scale = scale;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 32: return launch_dkv<32>(a, B, s);
-        case 64: return launch_dkv<64>(a, B, s);
-        case 128: return launch_dkv<128>(a, B, s);
+        case 32: return launch_dkv<32>(a, strides, B, s);
+        case 64: return launch_dkv<64>(a, strides, B, s);
+        case 128: return launch_dkv<128>(a, strides, B, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

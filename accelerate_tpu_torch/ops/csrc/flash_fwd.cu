@@ -9,181 +9,287 @@
 //
 // Bound on the H100: at the training shapes (S=2048, D=128) the kernel does
 // ~2·S·D FLOP per byte of q/k/v it must read, far above the card's ~295
-// FLOP/byte ridge, so it is bound by tensor-core operations. Design: one
-// thread block of 8 warps per (b, q_head, 128-query block) walks the KV
-// blocks in a loop (the TPU kernel's sequential "arbitrary" grid axis);
-// each warp owns 16 query rows and keeps m, l and its output accumulator in
-// registers. K/V tiles of 64 keys are double-buffered in shared memory with
-// cp.async, so the next tile's copy overlaps this tile's products, which run
-// on the tensor cores through ldmatrix + mma.sync bf16 fragments with fp32
-// accumulation. The loop stops at the causal diagonal computed from the
-// runtime offsets, and only the blocks that straddle it (or the ragged tail)
-// evaluate the element mask. q/k/v are read in place through their strides
-// (no transpose or pad copy). Causal blocks are issued heaviest first. Not
-// yet done: TMA loads, wgmma and warp specialisation.
-#include "flash_common.cuh"
+// FLOP/byte ridge, so it is bound by tensor-core operations, which reach
+// their rate only through wgmma fed from shared memory.
+//
+// Design: one block per (b, q_head, 128-query tile), the heaviest causal
+// tiles of every head first. The grid is not persistent: a persistent
+// version (one block per SM walking the tiles, the next tile's Q loaded
+// under the last one's epilogue) was no faster on an H100 at the training
+// shapes (PERF.md), so the simpler grid stays.
+// Three warpgroups, specialised:
+// - the producer warpgroup gives its registers up (setmaxnreg.dec) and one
+//   thread issues TMA loads: the Q tile once, then the K and V tiles of 128
+//   keys into a ring of two stages, each stage with full and empty
+//   mbarriers for K and for V, so that a K stage is refilled as soon as its
+//   S = Q·Kᵀ is done;
+// - two consumer warpgroups (setmaxnreg.inc) own 64 query rows each and keep
+//   m, l and the output accumulator in registers. Iteration j issues
+//   S_j = Q·K_jᵀ (wgmma m64n128k16, Q and K from shared memory, K-major) and
+//   O += P_{j−1}·V_{j−1} (P as bf16 register A operands, V read MN-major
+//   through the transpose bit) as two groups, then the online softmax of
+//   S_j (exp2 with the scale folded in). ptxas places the softmax after the
+//   wait for P·V; pinning it before that wait measured slower (PERF.md).
+//   The two warpgroups take turns to issue their products (named
+//   barriers), so one's softmax overlaps the other's products.
+// TMA reads q/k/v in place through their strides and zero-fills rows past
+// Sq or Sk. The loop stops at the causal diagonal computed from the runtime
+// offsets, and only tiles that straddle it (or the ragged tail) evaluate the
+// element mask.
+#include "hopper_common.cuh"
 
 namespace flash {
 
 struct FwdArgs {
-    const bf16 *q, *k, *v;
     bf16* o;
     float* lse;
-    long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
+    long long o_b, o_s, o_h;
     int Sq, Sk, Hq, Hkv, causal, q_off, k_off;
     float scale;
 };
 
-constexpr int FWD_WARPS = 8;
-constexpr int FWD_BQ = 16 * FWD_WARPS;
-constexpr int FWD_BK = 64;
+constexpr int FWD_BM = 128;  // query rows of a block: 64 per consumer warpgroup
+constexpr int FWD_BN = 128;  // keys of a K/V tile
+constexpr int FWD_STAGES = 2;
+constexpr int FWD_THREADS = 384;
 
 template <int D>
-constexpr int fwd_smem_bytes() {
-    return (FWD_BQ + 4 * FWD_BK) * (D + 8) * 2;  // Q, and K and V in two stages
-}
+struct FwdSmem {
+    static constexpr int TILE = FWD_BM * D * 2;  // bytes of one Q, K or V tile
+    static constexpr int BYTES = 1024 + (1 + 2 * FWD_STAGES) * TILE;  // + alignment slack
+};
 
 template <int D>
-__global__ void __launch_bounds__(32 * FWD_WARPS) flash_fwd_kernel(FwdArgs a) {
-    constexpr int NT = 32 * FWD_WARPS, BQ = FWD_BQ, BK = FWD_BK, LD = D + 8;
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* sQ = reinterpret_cast<bf16*>(smem);
-    bf16* sK = sQ + BQ * LD;       // [2][BK][LD]
-    bf16* sV = sK + 2 * BK * LD;   // [2][BK][LD]
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const FwdArgs a) {
+    using L = Swz<D>;
+    constexpr int TILE = FwdSmem<D>::TILE;
+    extern __shared__ unsigned char smem_raw[];
+    __shared__ __align__(8) uint64_t q_full, k_full[FWD_STAGES], v_full[FWD_STAGES],
+        k_empty[FWD_STAGES], v_empty[FWD_STAGES];
+    unsigned char* sQ = align1024(smem_raw);
+    unsigned char* sK = sQ + TILE;                // [stage] tiles
+    unsigned char* sV = sK + FWD_STAGES * TILE;   // [stage] tiles
 
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const int qb = gridDim.x - 1 - blockIdx.x;
-    const int b = blockIdx.y / a.Hq, h = blockIdx.y % a.Hq;
+    const int qb = gridDim.y - 1 - blockIdx.y;  // every head's heaviest causal tile first
+    const int b = blockIdx.x / a.Hq, h = blockIdx.x % a.Hq;
     const int hk = h / (a.Hq / a.Hkv);
-    const int q0 = qb * BQ;
-    const bf16* Q = a.q + b * a.q_b + h * a.q_h;
-    const bf16* K = a.k + b * a.k_b + hk * a.k_h;
-    const bf16* V = a.v + b * a.v_b + hk * a.v_h;
+    const int q0 = qb * FWD_BM;
+    const int nkb = causal_key_blocks((a.Sk + FWD_BN - 1) / FWD_BN, a.causal, a.q_off, a.k_off,
+                                      q0, FWD_BM, FWD_BN);
+    const int wg = threadIdx.x / 128;
 
-    const int nkb = causal_key_blocks((a.Sk + BK - 1) / BK, a.causal, a.q_off, a.k_off, q0, BQ, BK);
-    load_tile<D, BQ, NT>(sQ, Q, a.q_s, q0, a.Sq, tid);
-    if (nkb > 0) {
-        load_tile<D, BK, NT>(sK, K, a.k_s, 0, a.Sk, tid);
-        load_tile<D, BK, NT>(sV, V, a.v_s, 0, a.Sk, tid);
+    if (threadIdx.x == 0) {
+        mbar_init(&q_full, 1);
+        for (int s = 0; s < FWD_STAGES; ++s) {
+            mbar_init(&k_full[s], 1);
+            mbar_init(&v_full[s], 1);
+            mbar_init(&k_empty[s], 8);  // one arrival per consumer warp
+            mbar_init(&v_empty[s], 8);
+        }
+        mbar_init_fence();
     }
-    cp_async_commit();
+    __syncthreads();
 
-    const int row = warp * 16 + g;  // tile row of c0/c1; row + 8 holds c2/c3
-    float acc[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    float m[2] = {NEG_INF, NEG_INF};
-    float l[2] = {0.f, 0.f};  // this lane's partial row sums; reduced at the end
-
-    for (int kb = 0; kb < nkb; ++kb) {
-        const int k0 = kb * BK;
-        const bf16* cK = sK + (kb & 1) * BK * LD;
-        const bf16* cV = sV + (kb & 1) * BK * LD;
-        if (kb + 1 < nkb) {
-            load_tile<D, BK, NT>(sK + ((kb + 1) & 1) * BK * LD, K, a.k_s, k0 + BK, a.Sk, tid);
-            load_tile<D, BK, NT>(sV + ((kb + 1) & 1) * BK * LD, V, a.v_s, k0 + BK, a.Sk, tid);
-        }
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-
-        float s[BK / 8][4];
-#pragma unroll
-        for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-            uint32_t af[4];
-            load_a(af, sQ, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-            for (int n = 0; n < BK / 16; ++n) {
-                uint32_t bf[4];
-                load_b_nk(bf, cK, LD, n * 16, kk * 16, lane);
-                mma16816(s[2 * n], af, bf[0], bf[1]);
-                mma16816(s[2 * n + 1], af, bf[2], bf[3]);
+    if (wg == 0) {
+        // Producer: one thread issues every load.
+        reg_dealloc<24>();
+        if (threadIdx.x == 0) {
+            mbar_arrive_tx(&q_full, TILE);
+            for (int c = 0; c < L::CHUNKS; ++c)
+                tma_load_4d(sQ + c * FWD_BM * L::ROW, &tm_q, &q_full, c * L::ELEMS, h, q0, b);
+            for (int kb = 0; kb < nkb; ++kb) {
+                const int st = kb % FWD_STAGES;
+                const uint32_t free_parity = ((kb / FWD_STAGES) & 1) ^ 1;
+                mbar_wait(&k_empty[st], free_parity);
+                mbar_arrive_tx(&k_full[st], TILE);
+                for (int c = 0; c < L::CHUNKS; ++c)
+                    tma_load_4d(sK + st * TILE + c * FWD_BN * L::ROW, &tm_k, &k_full[st],
+                                c * L::ELEMS, hk, kb * FWD_BN, b);
+                mbar_wait(&v_empty[st], free_parity);
+                mbar_arrive_tx(&v_full[st], TILE);
+                for (int c = 0; c < L::CHUNKS; ++c)
+                    tma_load_4d(sV + st * TILE + c * FWD_BN * L::ROW, &tm_v, &v_full[st],
+                                c * L::ELEMS, hk, kb * FWD_BN, b);
             }
         }
+    } else {
+        // Consumers: warpgroup cw owns query rows 64cw..64cw+63 of the tile.
+        // Iteration kb issues S = Q·K_kbᵀ and then O += P·V of tile kb−1,
+        // then computes the softmax of S. The two warpgroups take turns to
+        // issue their products (named barriers 1 and 2; warpgroup 0 first),
+        // so that one's softmax runs beside the other's products. Each wait
+        // is unconditional, so that ptxas keeps every product chain
+        // asynchronous.
+        reg_alloc<240>();
+        const int cw = wg - 1;
+        const int lane = threadIdx.x % 32, w = (threadIdx.x % 128) / 32;
+        const int g = lane / 4, t = lane % 4;
+        const int row = cw * 64 + w * 16 + g;  // tile row of d[4j], d[4j+1]; row + 8 of the rest
+        const float scale_log2 = a.scale * LOG2E;
 
-        const bool masked = needs_mask(a.causal, a.q_off, a.k_off, q0, BQ, k0, BK, a.Sq, a.Sk);
-        float mx[2] = {NEG_INF, NEG_INF};
+        float o[D / 2];
 #pragma unroll
-        for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                bool ok = true;
-                if (masked) {
-                    const int qpos = q0 + row + (e >> 1) * 8;
-                    const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-                    ok = kpos < a.Sk && (!a.causal || a.q_off + qpos >= a.k_off + kpos);
-                }
-                s[n][e] = ok ? s[n][e] * a.scale : NEG_INF;
-                mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-            }
-        }
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+        float m[2] = {-INFINITY, -INFINITY};  // running row maxima of the raw scores
+        float l[2] = {0.f, 0.f};  // this lane's partial row sums; reduced at the end
+        float s[FWD_BN / 2];
+        uint32_t pa[FWD_BN / 16][4];  // P of the previous tile, the A operand of P·V
         float alpha[2];
+
+        auto issue_qk = [&](int kb) {
+            const int st = kb % FWD_STAGES;
+            const uint32_t aQ = opaque(smem_addr(sQ));
+            const uint32_t aK = opaque(smem_addr(sK + st * TILE));
+            mbar_wait(&k_full[st], (kb / FWD_STAGES) & 1);
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+                wgmma_ss<FWD_BN>(s, desc_k_major<D>(aQ, FWD_BM, cw * 64, kk),
+                                 desc_k_major<D>(aK, FWD_BN, 0, kk), kk > 0);
+            wgmma_commit();
+        };
+        auto issue_pv = [&](int kb) {
+            const int st = kb % FWD_STAGES;
+            const uint32_t aV = opaque(smem_addr(sV + st * TILE));
+            mbar_wait(&v_full[st], (kb / FWD_STAGES) & 1);
+            fence_regs(o);
+#pragma unroll
+            for (int kk = 0; kk < FWD_BN / 16; ++kk)
+                wgmma_rs<D>(o, pa[kk], desc_mn_major<D>(aV, FWD_BN, kk), 1);
+            wgmma_commit();
+        };
+        // Masked online softmax of S = Q·K_kbᵀ (complete): P into s, the
+        // running maxima and sums updated, the factor for O in alpha.
+        auto softmax = [&](int kb) {
+            fence_regs(s);
+            if (lane == 0) mbar_arrive(&k_empty[kb % FWD_STAGES]);  // this warp has read K_kb
+            const int k0 = kb * FWD_BN;
+            if (needs_mask(a.causal, a.q_off, a.k_off, q0, FWD_BM, k0, FWD_BN, a.Sq, a.Sk)) {
+#pragma unroll
+                for (int j = 0; j < FWD_BN / 8; ++j) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int qpos = q0 + row + (e >> 1) * 8;
+                        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+                        if (kpos >= a.Sk || (a.causal && a.q_off + qpos < a.k_off + kpos))
+                            s[4 * j + e] = -INFINITY;
+                    }
+                }
+            }
+            float mx[2] = {m[0], m[1]};
+#pragma unroll
+            for (int j = 0; j < FWD_BN / 8; ++j) {
+                mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+                mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+            }
+            float base[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                const float m_new = quad_max(mx[i]);
+                // While every key so far is masked the maximum is -inf, and
+                // exp2 of -inf minus a base of 0 gives the 0 those keys add.
+                base[i] = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+                alpha[i] = exp2_approx(m[i] * scale_log2 - base[i]);
+                m[i] = m_new;
+                l[i] *= alpha[i];
+            }
+#pragma unroll
+            for (int j = 0; j < FWD_BN / 8; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float& x = s[4 * j + e];
+                    x = exp2_approx(fmaf(x, scale_log2, -base[e >> 1]));
+                    l[e >> 1] += x;
+                }
+            }
+        };
+        // O scaled to the new maxima, and P packed as the A operand: k-step
+        // kk covers keys 16kk..16kk+15, the accumulator's n8 tiles 2kk, 2kk+1.
+        auto rescale_and_pack = [&]() {
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j) {
+                o[4 * j] *= alpha[0];
+                o[4 * j + 1] *= alpha[0];
+                o[4 * j + 2] *= alpha[1];
+                o[4 * j + 3] *= alpha[1];
+            }
+#pragma unroll
+            for (int kk = 0; kk < FWD_BN / 16; ++kk) {
+                pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+                pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+                pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+                pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+            }
+        };
+        auto release_v = [&](int kb) {
+            fence_regs(o);
+            if (lane == 0) mbar_arrive(&v_empty[kb % FWD_STAGES]);  // this warp has read V_kb
+        };
+
+        mbar_wait(&q_full, 0);
+        if (nkb > 0) {
+            if (cw == 1) named_arrive<256>(1);
+            named_sync<256>(1 + cw);
+            wgmma_fence();
+            issue_qk(0);
+            named_arrive<256>(2 - cw);
+            wgmma_wait<0>();
+            softmax(0);
+            rescale_and_pack();
+            for (int kb = 1; kb < nkb; ++kb) {
+                named_sync<256>(1 + cw);
+                wgmma_fence();
+                issue_qk(kb);
+                issue_pv(kb - 1);
+                named_arrive<256>(2 - cw);
+                wgmma_wait<1>();  // S is done; P·V of tile kb−1 may still run
+                softmax(kb);
+                wgmma_wait<0>();
+                release_v(kb - 1);
+                rescale_and_pack();
+            }
+            named_sync<256>(1 + cw);
+            wgmma_fence();
+            issue_pv(nkb - 1);
+            if (cw == 0) named_arrive<256>(2);
+            wgmma_wait<0>();
+            release_v(nkb - 1);
+        }
+
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-            const float m_new = fmaxf(m[i], quad_max(mx[i]));
-            alpha[i] = __expf(m[i] - m_new);
-            m[i] = m_new;
-            l[i] *= alpha[i];
-        }
+            const float l_safe = fmaxf(quad_sum(l[i]), 1e-30f);
+            const float inv = 1.f / l_safe;
+            const int qpos = q0 + row + i * 8;
+            if (qpos < a.Sq) {
+                bf16* O = a.o + b * a.o_b + (long long)qpos * a.o_s + h * a.o_h;
 #pragma unroll
-        for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                // A masked score contributes 0, also while every key so far
-                // is masked and m is still NEG_INF.
-                const float p = s[n][e] <= NEG_INF ? 0.f : __expf(s[n][e] - m[e >> 1]);
-                s[n][e] = p;
-                l[e >> 1] += p;
+                for (int j = 0; j < D / 8; ++j)
+                    *reinterpret_cast<uint32_t*>(O + j * 8 + 2 * t) =
+                        pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+                // A row with no visible key has lse = NEG_INF + log(1e-30).
+                const float m_row = m[i] == -INFINITY ? NEG_INF : m[i] * a.scale;
+                if (t == 0) a.lse[((long long)b * a.Hq + h) * a.Sq + qpos] = m_row + logf(l_safe);
             }
-        }
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-            acc[n][0] *= alpha[0];
-            acc[n][1] *= alpha[0];
-            acc[n][2] *= alpha[1];
-            acc[n][3] *= alpha[1];
-        }
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-            uint32_t pa[4];
-            c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-            for (int n = 0; n < D / 16; ++n) {
-                uint32_t bf[4];
-                load_b_kn(bf, cV, LD, kk * 16, n * 16, lane);
-                mma16816(acc[2 * n], pa, bf[0], bf[1]);
-                mma16816(acc[2 * n + 1], pa, bf[2], bf[3]);
-            }
-        }
-        __syncthreads();  // this stage is refilled by the next iteration
-    }
-    cp_async_wait<0>();
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const float l_safe = fmaxf(quad_sum(l[i]), 1e-30f);
-        const float inv = 1.f / l_safe;
-        const int qpos = q0 + row + i * 8;
-        if (qpos < a.Sq) {
-            bf16* O = a.o + b * a.o_b + (long long)qpos * a.o_s + h * a.o_h;
-#pragma unroll
-            for (int n = 0; n < D / 8; ++n)
-                *reinterpret_cast<uint32_t*>(O + n * 8 + 2 * t) =
-                    pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-            if (t == 0) a.lse[((long long)b * a.Hq + h) * a.Sq + qpos] = m[i] + logf(l_safe);
         }
     }
 }
 
 template <int D>
-cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
-    const int smem = fwd_smem_bytes<D>();
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const long long* st,
+                       const FwdArgs& a, int B, cudaStream_t stream) {
+    CUtensorMap tm_q, tm_k, tm_v;
+    if (!make_rows_map<D>(&tm_q, q, B, a.Sq, a.Hq, st[0], st[1], st[2], FWD_BM) ||
+        !make_rows_map<D>(&tm_k, k, B, a.Sk, a.Hkv, st[3], st[4], st[5], FWD_BN) ||
+        !make_rows_map<D>(&tm_v, v, B, a.Sk, a.Hkv, st[6], st[7], st[8], FWD_BN))
+        return cudaErrorInvalidValue;
+    const int smem = FwdSmem<D>::BYTES;
     cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq + FWD_BQ - 1) / FWD_BQ, B * a.Hq);
-    flash_fwd_kernel<D><<<grid, 32 * FWD_WARPS, smem, stream>>>(a);
+    const dim3 grid(B * a.Hq, (a.Sq + FWD_BM - 1) / FWD_BM);
+    flash_fwd_kernel<D><<<grid, FWD_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, a);
     return cudaGetLastError();
 }
 
@@ -195,22 +301,16 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
                          int causal, int q_off, int k_off, float scale, void* stream) {
     using namespace flash;
     FwdArgs a;
-    a.q = static_cast<const bf16*>(q);
-    a.k = static_cast<const bf16*>(k);
-    a.v = static_cast<const bf16*>(v);
     a.o = static_cast<bf16*>(out);
     a.lse = static_cast<float*>(lse);
-    a.q_b = strides[0]; a.q_s = strides[1]; a.q_h = strides[2];
-    a.k_b = strides[3]; a.k_s = strides[4]; a.k_h = strides[5];
-    a.v_b = strides[6]; a.v_s = strides[7]; a.v_h = strides[8];
     a.o_b = strides[9]; a.o_s = strides[10]; a.o_h = strides[11];
     a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv;
     a.causal = causal; a.q_off = q_off; a.k_off = k_off; a.scale = scale;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 32: return launch_fwd<32>(a, B, s);
-        case 64: return launch_fwd<64>(a, B, s);
-        case 128: return launch_fwd<128>(a, B, s);
+        case 32: return launch_fwd<32>(q, k, v, strides, a, B, s);
+        case 64: return launch_fwd<64>(q, k, v, strides, a, B, s);
+        case 128: return launch_fwd<128>(q, k, v, strides, a, B, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -8,8 +8,8 @@ kernels under ``csrc/`` replace the three Pallas kernels there:
 - ``flash_dq.cu``   ← ``_dq_kernel``: dQ from recomputed P;
 - ``flash_dkv.cu``  ← ``_dkv_kernel``: dK/dV summed over the GQA group.
 
-Layout is the model's ``(B, S, H, D)``, read through strides; ``lse`` is
-``(B, Hq, Sq)``. Offsets are the global positions of element 0 of q and k,
+Layout is the model's ``(B, S, H, D)``, read through strides (by TMA tensor
+maps in the forward and dK/dV kernels); ``lse`` is ``(B, Hq, Sq)``. Offsets are the global positions of element 0 of q and k,
 so ring attention can call the same kernels on rotated chunks.
 
 Each kernel has a wrapper (``flash_fwd_cuda``, ``flash_dq_cuda``,
@@ -134,9 +134,11 @@ def _kernel(name):
 
 def _check(name, q, k, v, dout=None, lse=None, delta=None):
     """Raise on anything the kernels do not take: bf16 (B, S, H, D) q, k, v
-    (and dout shaped as q) read through strides whose last one is 1, with
-    16-byte aligned rows; contiguous fp32 (B, Hq, Sq) row statistics; all on
-    one CUDA device. Shapes are checked first, so a CPU caller sees them too."""
+    (and dout shaped as q) read through strides whose last one is 1 and
+    whose others are positive multiples of 8 elements (16 bytes, as the TMA
+    tensor maps need), from 16-byte aligned storage; contiguous fp32
+    (B, Hq, Sq) row statistics; all on one CUDA device.
+    Shapes and layouts are checked first, so a CPU caller sees them too."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: expected q (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D)")
     b, sq, hq, d = q.shape
@@ -153,6 +155,11 @@ def _check(name, q, k, v, dout=None, lse=None, delta=None):
         if x.dtype != torch.float32 or x.shape != (b, hq, sq) or not x.is_contiguous():
             raise ValueError(f"{name}: row statistics must be contiguous float32 {(b, hq, sq)}")
     tensors = [t for t in (q, k, v, dout) if t is not None]
+    for t in tensors:
+        if (t.stride(-1) != 1 or any(s <= 0 or s % 8 for s in t.stride()[:-1])
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name}: tensors need unit last stride, other strides positive "
+                             "multiples of 8 elements and 16-byte aligned storage")
     if not all(t.is_cuda for t in tensors + stats):
         raise ValueError(f"{name}: the Hopper kernel takes CUDA tensors only")
     if len({t.device for t in tensors + stats}) != 1:
@@ -160,9 +167,6 @@ def _check(name, q, k, v, dout=None, lse=None, delta=None):
     if not all(t.dtype == torch.bfloat16 for t in tensors):
         raise TypeError(f"{name}: the Hopper kernel takes bfloat16, got "
                         f"{sorted({str(t.dtype) for t in tensors})}")
-    for t in tensors:
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensors need unit last stride and 16-byte aligned rows")
 
 
 def _strides(*tensors):

@@ -8,11 +8,15 @@ result line, without them or outside a checkout of the repository. Phases,
 each printing one JSON line; any failure ends the run with a nonzero exit:
 
 1. card: the card's name and power limit; the flash kernels are built from
-   ``accelerate_tpu_torch/ops/csrc`` (one nvcc per source, in parallel).
+   ``accelerate_tpu_torch/ops/csrc`` (one nvcc per source, in parallel),
+   with ptxas's registers and spills and the counts of wgmma (HGMMA), TMA
+   load (UTMALDG) and mma.sync (HMMA) instructions in each library's SASS.
 2. kernels: the forward, dQ and dK/dV kernels against their plain PyTorch
-   versions (fp32 on the same bf16 inputs) at the training shapes, a GQA
-   case with a ragged tail, and the visible, fully masked and partly masked
-   offset cases.
+   versions (fp32 on the same bf16 inputs) at the training shapes, GQA
+   cases with ragged tails (causal and not, groups of 2 and 4), q, k and v
+   as strided views of one fused QKV buffer, and the visible, fully masked
+   and partly masked offset cases; dK/dV launched twice must agree bit for
+   bit.
 3. timings of each kernel at the training shapes beside its bound and its
    plain version; SDPA's forward beside the forward kernel, and SDPA's
    backward (dq, dk, dv in one call) beside the dQ and dK/dV kernels' sum.
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -70,28 +75,37 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(stop) / iters
 
 
-def inputs(b, s, hq, hkv, d, seed):
+def inputs(b, s, hq, hkv, d, seed, fused_qkv=False):
+    """bf16 q, k, v, dout and an fp32 lse cotangent from a seed; with
+    `fused_qkv`, q, k and v are strided views of one (B, S, Hq+2·Hkv, D)
+    buffer, as a fused QKV projection gives them."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
-    q, k, v = (rnd(b, s, h, d).to(torch.bfloat16) for h in (hq, hkv, hkv))
+    if fused_qkv:
+        qkv = rnd(b, s, hq + 2 * hkv, d).to(torch.bfloat16)
+        q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    else:
+        q, k, v = (rnd(b, s, h, d).to(torch.bfloat16) for h in (hq, hkv, hkv))
     dout = rnd(b, s, hq, d).to(torch.bfloat16)
     g_lse = rnd(b, hq, s)
     return q, k, v, dout, g_lse
 
 
-def check_kernels(hf, name, b, s, hq, hkv, d, q_offset=0, k_offset=0, seed=0):
+def check_kernels(hf, name, b, s, hq, hkv, d, q_offset=0, k_offset=0, seed=0, causal=True,
+                  fused_qkv=False):
     """Kernel against plain version on the same bf16 inputs; returns errors."""
     import torch
 
-    q, k, v, dout, g_lse = inputs(b, s, hq, hkv, d, seed)
-    kw = dict(causal=True, q_offset=q_offset, k_offset=k_offset)
+    q, k, v, dout, g_lse = inputs(b, s, hq, hkv, d, seed, fused_qkv)
+    kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
     out, lse = hf.flash_fwd_cuda(q, k, v, **kw)
     out_ref, lse_ref = hf.flash_fwd_plain(q.float(), k.float(), v.float(), **kw)
     delta = ((dout.float() * out_ref).sum(-1).transpose(1, 2) - g_lse).contiguous()
     dq = hf.flash_dq_cuda(q, k, v, dout, lse_ref, delta, **kw)
     dk, dv = hf.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, **kw)
+    dk2, dv2 = hf.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, **kw)
     torch.cuda.synchronize()
     ref_args = (q.float(), k.float(), v.float(), dout.float(), lse_ref, delta)
     dq_ref = hf.flash_dq_plain(*ref_args, **kw)
@@ -99,9 +113,11 @@ def check_kernels(hf, name, b, s, hq, hkv, d, q_offset=0, k_offset=0, seed=0):
     lse_err = float((lse - lse_ref).abs().max())
     fully_masked = bool((out_ref == 0).all())
     errs = {
-        "case": name, "shape": [b, s, hq, hkv, d], "q_offset": q_offset, "k_offset": k_offset,
+        "case": name, "shape": [b, s, hq, hkv, d], "causal": causal, "fused_qkv": fused_qkv,
+        "q_offset": q_offset, "k_offset": k_offset,
         "out_rel": rel_err(out, out_ref), "lse_abs": lse_err,
         "dq_rel": rel_err(dq, dq_ref), "dk_rel": rel_err(dk, dk_ref), "dv_rel": rel_err(dv, dv_ref),
+        "dkv_repeat_identical": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
         "max_abs": {
             "flash_fwd": float((out.float() - out_ref).abs().max()),
             "flash_dq": float((dq.float() - dq_ref).abs().max()),
@@ -117,8 +133,27 @@ def check_kernels(hf, name, b, s, hq, hkv, d, q_offset=0, k_offset=0, seed=0):
         ok = (errs["exact_zero_out"] and float(lse.max()) < -1e29
               and all(bool((x == 0).all()) for x in (dq, dk, dv)))
         errs["lse_max"] = float(lse.max())
-    errs["ok"] = ok
+    errs["ok"] = ok and errs["dkv_repeat_identical"]
     return errs
+
+
+def sass_counts(names):
+    """Counts of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
+    instructions in each built library, from cuobjdump beside nvcc."""
+    from pathlib import Path
+
+    from accelerate_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).resolve().parent / "cuobjdump"
+    if not cuobjdump.exists():
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({cuobjdump})")
+    counts = {}
+    for name in names:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                        for op in ("HGMMA", "UTMALDG", "HMMA")}
+    return counts
 
 
 def causal_pairs(s):
@@ -338,10 +373,15 @@ def main() -> int:
     reports = _build.build()
     build_s = time.perf_counter() - t0
     ptxas = {name: [line.strip() for line in rep.splitlines()
-                    if "registers" in line or "spill" in line]
+                    if any(x in line for x in ("registers", "spill", "warning"))]
              for name, rep in reports.items()}
+    sass = sass_counts(_build.KERNEL_SOURCES)
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas})
+          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas, "sass": sass})
+    # The forward and dK/dV kernels are wgmma products on TMA-fed tiles.
+    if not all(sass[n]["HGMMA"] and sass[n]["UTMALDG"] for n in ("flash_fwd", "flash_dkv")):
+        print("chip_smoke: no wgmma or TMA load in the forward or dK/dV library", file=sys.stderr)
+        return 1
 
     # 2. kernels against their plain versions
     cases = [
@@ -351,6 +391,10 @@ def main() -> int:
         check_kernels(hf, "fully_masked", 2, 128, 4, 2, 64, q_offset=0, k_offset=128, seed=3),
         # Rows 0-31 see no key, inside key blocks that do run.
         check_kernels(hf, "partly_masked", 2, 160, 4, 2, 128, q_offset=0, k_offset=32, seed=4),
+        check_kernels(hf, "noncausal_gqa_ragged", 2, 200, 4, 2, 128, seed=5, causal=False),
+        check_kernels(hf, "fused_qkv_views", 2, 256, 4, 2, 128, seed=6, fused_qkv=True),
+        # dK/dV loops over a group of 4 heads on ragged 64-query tiles.
+        check_kernels(hf, "gqa4_ragged", 2, 300, 8, 2, 64, seed=8),
     ]
     for case in cases:
         emit({"phase": "kernels", **case})
@@ -406,7 +450,7 @@ def main() -> int:
          "launches": main_path["launches"][name],
          "max_abs_err": cases[0]["max_abs"][name], "ms": ms[name], "plain_ms": plain_ms[name],
          "bound_ms": bound[name][0], "bound_by": bound[name][1],
-         "library_ms": library_ms.get(name)}
+         "bound_share": bound[name][0] / ms[name], "library_ms": library_ms.get(name)}
         for name, (src, replaces) in sources.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

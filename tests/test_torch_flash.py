@@ -53,14 +53,27 @@ def _torch_flash(q, k, v, **kw):
     return out.numpy(), lse.numpy()
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hkv", [4, 2])
-def test_forward_matches_pallas(causal, hkv):
-    q, k, v = _qkv(s=160, hkv=hkv)  # 160: a ragged tail past the 128 block
+def _check_forward(causal, hkv, d):
+    q, k, v = _qkv(s=160, hkv=hkv, d=d)  # 160: a ragged tail past the 128 block
     out_j, lse_j = _jax_flash(q, k, v, causal=causal)
     out_t, lse_t = _torch_flash(q, k, v, causal=causal)
     np.testing.assert_allclose(out_t, out_j, rtol=ATOL, atol=ATOL)
     np.testing.assert_allclose(lse_t, lse_j, rtol=ATOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hkv", [4, 2])
+def test_forward_matches_pallas(causal, hkv):
+    _check_forward(causal, hkv, d=16)
+
+
+# The head dims the Hopper kernels take (hopper_flash.SUPPORTED_HEAD_DIMS),
+# so the plain versions they are held to on the card are held to Pallas there.
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hkv", [4, 2])
+def test_forward_matches_pallas_at_kernel_head_dims(causal, hkv, d):
+    _check_forward(causal, hkv, d)
 
 
 def test_offsets_visible_and_fully_masked():
@@ -89,13 +102,11 @@ def test_merge_flash_chunks_matches_jax_and_single_shot():
     np.testing.assert_allclose(out.numpy(), whole, rtol=ATOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("causal,hkv,q_offset,k_offset",
-                         [(True, 2, 0, 0), (False, 4, 0, 0), (True, 2, 32, 0), (True, 2, 0, 32)])
-def test_gradients_with_lse_cotangent_match_pallas(causal, hkv, q_offset, k_offset):
-    """dq, dk, dv of Σ w_o·out + Σ w_l·lse against jax.grad through the
-    Pallas custom_vjp (interpret mode). k_offset=32 leaves the first rows
-    with no visible key inside blocks that do run."""
-    q, k, v = _qkv(s=160, hq=4, hkv=hkv, seed=1)
+GRAD_CASES = [(True, 2, 0, 0), (False, 4, 0, 0), (True, 2, 32, 0), (True, 2, 0, 32)]
+
+
+def _check_gradients(causal, hkv, q_offset, k_offset, d):
+    q, k, v = _qkv(s=160, hq=4, hkv=hkv, d=d, seed=1)
     rng = np.random.default_rng(2)
     w_out = rng.standard_normal(q.shape, dtype=np.float32)
     w_lse = rng.standard_normal((q.shape[0], q.shape[2], q.shape[1]), dtype=np.float32)
@@ -113,6 +124,20 @@ def test_gradients_with_lse_cotangent_match_pallas(causal, hkv, q_offset, k_offs
     for name, a, b in zip("qkv", (qt.grad, kt.grad, vt.grad), g_j):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3, atol=1e-4,
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal,hkv,q_offset,k_offset", GRAD_CASES)
+def test_gradients_with_lse_cotangent_match_pallas(causal, hkv, q_offset, k_offset):
+    """dq, dk, dv of Σ w_o·out + Σ w_l·lse against jax.grad through the
+    Pallas custom_vjp (interpret mode). k_offset=32 leaves the first rows
+    with no visible key inside blocks that do run."""
+    _check_gradients(causal, hkv, q_offset, k_offset, d=16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,hkv,q_offset,k_offset", GRAD_CASES)
+def test_gradients_match_pallas_at_kernel_head_dims(causal, hkv, q_offset, k_offset, d):
+    _check_gradients(causal, hkv, q_offset, k_offset, d)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -163,3 +188,18 @@ def test_cuda_backward_wrappers_check_shapes_before_launch(wrapper):
         fn(q, k, v, q[:, :32], lse, lse)
     with pytest.raises(ValueError, match="row statistics"):
         fn(q, k, v, q, lse[:, :, :32], lse)
+
+
+def test_cuda_wrappers_refuse_strides_the_tensor_maps_cannot_take():
+    """TMA tensor maps need every stride but the last a positive multiple of
+    16 bytes; the wrappers refuse others before looking at the device."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(s=64, d=32))
+    broadcast_k = k[:, :, :1].expand(k.shape)  # stride 0 over the heads
+    with pytest.raises(ValueError, match="strides positive"):
+        hopper_flash.flash_fwd_cuda(q, broadcast_k, v)
+    padded = torch.zeros(2, 64, 4, 36)[..., :32]  # rows 72 bytes apart
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        hopper_flash.flash_fwd_cuda(padded, k, v)
+    lse = torch.zeros(2, 4, 64)
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        hopper_flash.flash_dkv_cuda(q, k, v, padded, lse, lse)
