@@ -7,153 +7,254 @@
 // lse cotangent of ring attention's chunk merge flows through here.
 //
 // Bound on the H100: three S×S×D products per (b, head) at ~3·S·D FLOP per
-// byte read: bound by tensor-core operations at the training shapes.
-// Design: one thread block of 8 warps per (b, q_head, 128-query block) loops
-// over the KV blocks up to the causal diagonal (runtime offsets); each warp
-// owns 16 query rows and keeps its dQ accumulator in registers, so dQ is
-// written once and needs no atomics. K/V tiles of 64 keys are
-// double-buffered with cp.async; the products use ldmatrix + mma.sync bf16
-// fragments with fp32 accumulation (K read with ldmatrix for S = Q·Kᵀ and
-// with ldmatrix.trans for dS·K). GQA: query head h reads KV head
-// h / (Hq/Hkv). Not yet done: TMA loads and wgmma.
-#include "flash_common.cuh"
+// byte read: bound by tensor-core operations (0.1043 ms at the training
+// shapes B=4, S=2048, H=16, D=128, causal), which reach their rate only
+// through wgmma fed from shared memory.
+//
+// Design: flash_dkv.cu with queries and keys swapped. One block per
+// (b, q_head, 128-query tile), the heaviest causal tiles of every head
+// first, so each dQ row is written once by one block: no atomics, and the
+// result is deterministic. Three warpgroups, specialised:
+// - the producer warpgroup gives its registers up (setmaxnreg.dec); one
+//   thread loads the Q and dO tiles once by TMA, then streams the K and V
+//   tiles of 64 keys, up to the causal diagonal of the runtime offsets,
+//   through a ring of two stages with full and empty mbarriers;
+// - two consumer warpgroups (setmaxnreg.inc) own 64 queries each and keep
+//   their dQ accumulator (64 queries × D, fp32) in registers beside the lse
+//   (in base 2) and δ of their rows, read once from global memory. Per key
+//   tile: S = Q·Kᵀ and dP = dO·Vᵀ as wgmma m64n64k16 with both operands
+//   from shared memory (K-major); P (one FFMA and one exp2 per score) while
+//   dP is computed; dS = P∘(dP − δ) packed as bf16 register A operands;
+//   then dQ += dS·K with K read MN-major from the same tile (the transpose
+//   bit). The dS·K product of one tile runs under the S and dP products of
+//   the next; a warp releases a stage after the wait that retires its dS·K.
+//   Each warpgroup stops at its own causal diagonal, so the first skips
+//   the last key tile when its queries see none of it.
+// TMA reads the tensors in place through their strides and zero-fills rows
+// past Sq or Sk; scores of keys past Sk are masked, and rows past Sq are
+// not written.
+#include "hopper_common.cuh"
 
 namespace flash {
 
-constexpr int DQ_WARPS = 8;
-constexpr int DQ_BQ = 16 * DQ_WARPS;
-constexpr int DQ_BK = 64;
+constexpr int DQ_BM = 128;  // queries of a block: 64 per consumer warpgroup
+constexpr int DQ_BN = 64;   // keys of a K/V tile
+constexpr int DQ_STAGES = 2;
+constexpr int DQ_THREADS = 384;
 
 template <int D>
-constexpr int dq_smem_bytes() {
-    return (2 * DQ_BQ + 4 * DQ_BK) * (D + 8) * 2;  // Q, dO, and K and V in two stages
-}
+struct DqSmem {
+    static constexpr int Q_TILE = DQ_BM * D * 2;   // bytes of the Q or the dO tile
+    static constexpr int KV_TILE = DQ_BN * D * 2;  // bytes of one K or V tile
+    static constexpr int BYTES = 1024 + 2 * Q_TILE + 2 * DQ_STAGES * KV_TILE;  // + alignment slack
+};
 
 template <int D>
-__global__ void __launch_bounds__(32 * DQ_WARPS) flash_dq_kernel(BwdArgs a) {
-    constexpr int NT = 32 * DQ_WARPS, BQ = DQ_BQ, BK = DQ_BK, LD = D + 8;
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* sQ = reinterpret_cast<bf16*>(smem);
-    bf16* sdO = sQ + BQ * LD;
-    bf16* sK = sdO + BQ * LD;      // [2][BK][LD]
-    bf16* sV = sK + 2 * BK * LD;   // [2][BK][LD]
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+    flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
+    using L = Swz<D>;
+    using M = DqSmem<D>;
+    extern __shared__ unsigned char smem_raw[];
+    __shared__ __align__(8) uint64_t q_full, full[DQ_STAGES], empty[DQ_STAGES];
+    unsigned char* sQ = align1024(smem_raw);
+    unsigned char* sdO = sQ + M::Q_TILE;
+    unsigned char* sK = sdO + M::Q_TILE;              // [stage] tiles
+    unsigned char* sV = sK + DQ_STAGES * M::KV_TILE;  // [stage] tiles
 
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const int qb = gridDim.x - 1 - blockIdx.x;
-    const int b = blockIdx.y / a.Hq, h = blockIdx.y % a.Hq;
+    const int qb = gridDim.y - 1 - blockIdx.y;  // every head's heaviest causal tile first
+    const int b = blockIdx.x / a.Hq, h = blockIdx.x % a.Hq;
     const int hk = h / (a.Hq / a.Hkv);
-    const int q0 = qb * BQ;
-    const bf16* K = a.k + b * a.k_b + hk * a.k_h;
-    const bf16* V = a.v + b * a.v_b + hk * a.v_h;
+    const int q0 = qb * DQ_BM;
+    const int nkt = (a.Sk + DQ_BN - 1) / DQ_BN;
+    const int nkb = causal_key_blocks(nkt, a.causal, a.q_off, a.k_off, q0, DQ_BM, DQ_BN);
+    const int wg = threadIdx.x / 128;
 
-    const int nkb = causal_key_blocks((a.Sk + BK - 1) / BK, a.causal, a.q_off, a.k_off, q0, BQ, BK);
-    load_tile<D, BQ, NT>(sQ, a.q + b * a.q_b + h * a.q_h, a.q_s, q0, a.Sq, tid);
-    load_tile<D, BQ, NT>(sdO, a.dout + b * a.do_b + h * a.do_h, a.do_s, q0, a.Sq, tid);
-    if (nkb > 0) {
-        load_tile<D, BK, NT>(sK, K, a.k_s, 0, a.Sk, tid);
-        load_tile<D, BK, NT>(sV, V, a.v_s, 0, a.Sk, tid);
-    }
-    cp_async_commit();
-
-    const int row = warp * 16 + g;
-    const long long stat = ((long long)b * a.Hq + h) * a.Sq;
-    float lse[2], delta[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int qpos = q0 + row + i * 8;
-        lse[i] = qpos < a.Sq ? a.lse[stat + qpos] : 0.f;
-        delta[i] = qpos < a.Sq ? a.delta[stat + qpos] : 0.f;
-    }
-
-    float acc[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-    for (int kb = 0; kb < nkb; ++kb) {
-        const int k0 = kb * BK;
-        const bf16* cK = sK + (kb & 1) * BK * LD;
-        const bf16* cV = sV + (kb & 1) * BK * LD;
-        if (kb + 1 < nkb) {
-            load_tile<D, BK, NT>(sK + ((kb + 1) & 1) * BK * LD, K, a.k_s, k0 + BK, a.Sk, tid);
-            load_tile<D, BK, NT>(sV + ((kb + 1) & 1) * BK * LD, V, a.v_s, k0 + BK, a.Sk, tid);
+    if (threadIdx.x == 0) {
+        mbar_init(&q_full, 1);
+        for (int s = 0; s < DQ_STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 8);  // one arrival per consumer warp
         }
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
+        mbar_init_fence();
+    }
+    __syncthreads();
 
-        float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-        for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-            uint32_t qa[4], da[4];
-            load_a(qa, sQ, LD, warp * 16, kk * 16, lane);
-            load_a(da, sdO, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-            for (int n = 0; n < BK / 16; ++n) {
-                uint32_t bf[4];
-                load_b_nk(bf, cK, LD, n * 16, kk * 16, lane);
-                mma16816(s[2 * n], qa, bf[0], bf[1]);
-                mma16816(s[2 * n + 1], qa, bf[2], bf[3]);
-                load_b_nk(bf, cV, LD, n * 16, kk * 16, lane);
-                mma16816(dp[2 * n], da, bf[0], bf[1]);
-                mma16816(dp[2 * n + 1], da, bf[2], bf[3]);
+    if (wg == 0) {
+        // Producer: one thread issues every load. The ring runs to the
+        // block's causal diagonal, which is the second warpgroup's, so every
+        // tile loaded is waited for.
+        reg_dealloc<24>();
+        if (threadIdx.x == 0) {
+            mbar_arrive_tx(&q_full, 2 * M::Q_TILE);
+            for (int c = 0; c < L::CHUNKS; ++c) {
+                tma_load_4d(sQ + c * DQ_BM * L::ROW, &tm_q, &q_full, c * L::ELEMS, h, q0, b);
+                tma_load_4d(sdO + c * DQ_BM * L::ROW, &tm_do, &q_full, c * L::ELEMS, h, q0, b);
             }
-        }
-        const bool masked = needs_mask(a.causal, a.q_off, a.k_off, q0, BQ, k0, BK, a.Sq, a.Sk);
-#pragma unroll
-        for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int i = e >> 1;
-                bool ok = true;
-                if (masked) {
-                    const int qpos = q0 + row + i * 8;
-                    const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-                    ok = kpos < a.Sk && (!a.causal || a.q_off + qpos >= a.k_off + kpos);
+            for (int kb = 0; kb < nkb; ++kb) {
+                const int st = kb % DQ_STAGES;
+                mbar_wait(&empty[st], ((kb / DQ_STAGES) & 1) ^ 1);
+                mbar_arrive_tx(&full[st], 2 * M::KV_TILE);
+                unsigned char* k_dst = sK + st * M::KV_TILE;
+                unsigned char* v_dst = sV + st * M::KV_TILE;
+                for (int c = 0; c < L::CHUNKS; ++c) {
+                    tma_load_4d(k_dst + c * DQ_BN * L::ROW, &tm_k, &full[st], c * L::ELEMS, hk,
+                                kb * DQ_BN, b);
+                    tma_load_4d(v_dst + c * DQ_BN * L::ROW, &tm_v, &full[st], c * L::ELEMS, hk,
+                                kb * DQ_BN, b);
                 }
-                const float p = ok ? __expf(s[n][e] * a.scale - lse[i]) : 0.f;
-                s[n][e] = p * (dp[n][e] - delta[i]);  // dS
             }
         }
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-            uint32_t sa[4];
-            c_to_a(sa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-            for (int n = 0; n < D / 16; ++n) {
-                uint32_t bf[4];
-                load_b_kn(bf, cK, LD, kk * 16, n * 16, lane);
-                mma16816(acc[2 * n], sa, bf[0], bf[1]);
-                mma16816(acc[2 * n + 1], sa, bf[2], bf[3]);
-            }
-        }
-        __syncthreads();  // this stage is refilled by the next iteration
-    }
-    cp_async_wait<0>();
+    } else {
+        // Consumers: warpgroup cw owns queries q0 + 64cw .. q0 + 64cw + 63.
+        // Tile kb issues S and dP, waits for dS·K of tile kb−1 and S, computes
+        // P while dP runs, then dS, and issues dS·K. Each wait is
+        // unconditional, so that ptxas keeps every product chain asynchronous.
+        reg_alloc<240>();
+        const int cw = wg - 1;
+        const int lane = threadIdx.x % 32, w = (threadIdx.x % 128) / 32;
+        const int g = lane / 4, t = lane % 4;
+        const int qw0 = q0 + cw * 64;        // first query of this warpgroup
+        const int qrow = qw0 + w * 16 + g;   // query of d[4j], d[4j+1]; qrow + 8 of the rest
+        const int nkw = causal_key_blocks(nkt, a.causal, a.q_off, a.k_off, qw0, 64, DQ_BN);
+        const float scale_log2 = a.scale * LOG2E;
 
+        // lse in base 2, for exp2; rows past Sq are not written, and their
+        // statistics are 0 here.
+        const long long stat = ((long long)b * a.Hq + h) * a.Sq;
+        float lse2[2], delta[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int qpos = q0 + row + i * 8;
-        if (qpos < a.Sq) {
-            bf16* dQ = a.dq + b * a.dq_b + (long long)qpos * a.dq_s + h * a.dq_h;
+        for (int i = 0; i < 2; ++i) {
+            const int qpos = qrow + i * 8;
+            lse2[i] = qpos < a.Sq ? a.lse[stat + qpos] * LOG2E : 0.f;
+            delta[i] = qpos < a.Sq ? a.delta[stat + qpos] : 0.f;
+        }
+
+        float dq[D / 2];
 #pragma unroll
-            for (int n = 0; n < D / 8; ++n)
-                *reinterpret_cast<uint32_t*>(dQ + n * 8 + 2 * t) =
-                    pack_bf16(acc[n][2 * i] * a.scale, acc[n][2 * i + 1] * a.scale);
+        for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+        float s[DQ_BN / 2], dp[DQ_BN / 2];
+        uint32_t ds[DQ_BN / 16][4];  // dS of the tile, the A operand of dS·K
+
+        auto issue_s_dp = [&](int kb) {
+            const int st = kb % DQ_STAGES;
+            const uint32_t aQ = opaque(smem_addr(sQ)), adO = opaque(smem_addr(sdO));
+            const uint32_t aK = opaque(smem_addr(sK + st * M::KV_TILE));
+            const uint32_t aV = opaque(smem_addr(sV + st * M::KV_TILE));
+            mbar_wait(&full[st], (kb / DQ_STAGES) & 1);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+                wgmma_ss<DQ_BN>(s, desc_k_major<D>(aQ, DQ_BM, cw * 64, kk),
+                                desc_k_major<D>(aK, DQ_BN, 0, kk), kk > 0);
+            wgmma_commit();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+                wgmma_ss<DQ_BN>(dp, desc_k_major<D>(adO, DQ_BM, cw * 64, kk),
+                                desc_k_major<D>(aV, DQ_BN, 0, kk), kk > 0);
+            wgmma_commit();
+        };
+        // P of the complete S, in place.
+        auto probs = [&](int kb) {
+            fence_regs(s);
+            const int k0 = kb * DQ_BN;
+            const bool masked =
+                needs_mask(a.causal, a.q_off, a.k_off, qw0, 64, k0, DQ_BN, a.Sq, a.Sk);
+#pragma unroll
+            for (int j = 0; j < DQ_BN / 8; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    bool ok = true;
+                    if (masked) {
+                        const int qpos = qrow + (e >> 1) * 8;
+                        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+                        ok = kpos < a.Sk && (!a.causal || a.q_off + qpos >= a.k_off + kpos);
+                    }
+                    float& x = s[4 * j + e];
+                    x = ok ? exp2_approx(fmaf(x, scale_log2, -lse2[e >> 1])) : 0.f;
+                }
+            }
+        };
+        // dS = P∘(dP − δ) of the complete dP, packed as the A operand: k-step
+        // kk covers keys 16kk..16kk+15, the accumulators' n8 tiles 2kk and
+        // 2kk+1; register r holds row g + 8·(r % 2).
+        auto grads = [&]() {
+            fence_regs(dp);
+#pragma unroll
+            for (int kk = 0; kk < DQ_BN / 16; ++kk) {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    const int x = 8 * kk + 2 * r;
+                    const float d = delta[r % 2];
+                    ds[kk][r] = pack_bf16(s[x] * (dp[x] - d), s[x + 1] * (dp[x + 1] - d));
+                }
+            }
+        };
+        auto issue_dq = [&](int kb) {
+            const uint32_t aK = opaque(smem_addr(sK + (kb % DQ_STAGES) * M::KV_TILE));
+            wgmma_fence();
+            fence_regs(dq);
+#pragma unroll
+            for (int kk = 0; kk < DQ_BN / 16; ++kk)
+                wgmma_rs<D>(dq, ds[kk], desc_mn_major<D>(aK, DQ_BN, kk), 1);
+            wgmma_commit();
+        };
+        auto release = [&](int kb) {
+            fence_regs(dq);
+            if (lane == 0) mbar_arrive(&empty[kb % DQ_STAGES]);  // this warp is done with K_kb
+        };
+
+        mbar_wait(&q_full, 0);
+        if (nkw > 0) {
+            issue_s_dp(0);
+            wgmma_wait<1>();  // S is done; dP may still run
+            probs(0);
+            wgmma_wait<0>();
+            grads();
+            issue_dq(0);
+            for (int kb = 1; kb < nkw; ++kb) {
+                issue_s_dp(kb);
+                wgmma_wait<1>();  // dS·K of tile kb−1 and S are done; dP may still run
+                release(kb - 1);
+                probs(kb);
+                wgmma_wait<0>();
+                grads();
+                issue_dq(kb);
+            }
+            wgmma_wait<0>();
+            release(nkw - 1);
+        }
+
+        // A warpgroup that saw no key writes the zeros it holds.
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int qpos = qrow + i * 8;
+            if (qpos < a.Sq) {
+                bf16* dQ = a.dq + b * a.dq_b + (long long)qpos * a.dq_s + h * a.dq_h;
+#pragma unroll
+                for (int j = 0; j < D / 8; ++j)
+                    *reinterpret_cast<uint32_t*>(dQ + j * 8 + 2 * t) =
+                        pack_bf16(dq[4 * j + 2 * i] * a.scale, dq[4 * j + 2 * i + 1] * a.scale);
+            }
         }
     }
 }
 
 template <int D>
-cudaError_t launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
-    const int smem = dq_smem_bytes<D>();
+cudaError_t launch_dq(const BwdArgs& a, const long long* st, int B, cudaStream_t stream) {
+    CUtensorMap tm_q, tm_k, tm_v, tm_do;
+    if (!make_rows_map<D>(&tm_q, a.q, B, a.Sq, a.Hq, st[0], st[1], st[2], DQ_BM) ||
+        !make_rows_map<D>(&tm_k, a.k, B, a.Sk, a.Hkv, st[3], st[4], st[5], DQ_BN) ||
+        !make_rows_map<D>(&tm_v, a.v, B, a.Sk, a.Hkv, st[6], st[7], st[8], DQ_BN) ||
+        !make_rows_map<D>(&tm_do, a.dout, B, a.Sq, a.Hq, st[9], st[10], st[11], DQ_BM))
+        return cudaErrorInvalidValue;
+    const int smem = DqSmem<D>::BYTES;
     cudaError_t err = allow_smem(flash_dq_kernel<D>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq + DQ_BQ - 1) / DQ_BQ, B * a.Hq);
-    flash_dq_kernel<D><<<grid, 32 * DQ_WARPS, smem, stream>>>(a);
+    const dim3 grid(B * a.Hq, (a.Sq + DQ_BM - 1) / DQ_BM);
+    flash_dq_kernel<D><<<grid, DQ_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, a);
     return cudaGetLastError();
 }
 
@@ -173,18 +274,14 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
     a.lse = static_cast<const float*>(lse);
     a.delta = static_cast<const float*>(delta);
     a.dq = static_cast<bf16*>(dq);
-    a.q_b = strides[0]; a.q_s = strides[1]; a.q_h = strides[2];
-    a.k_b = strides[3]; a.k_s = strides[4]; a.k_h = strides[5];
-    a.v_b = strides[6]; a.v_s = strides[7]; a.v_h = strides[8];
-    a.do_b = strides[9]; a.do_s = strides[10]; a.do_h = strides[11];
     a.dq_b = strides[12]; a.dq_s = strides[13]; a.dq_h = strides[14];
     a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv;
     a.causal = causal; a.q_off = q_off; a.k_off = k_off; a.scale = scale;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 32: return launch_dq<32>(a, B, s);
-        case 64: return launch_dq<64>(a, B, s);
-        case 128: return launch_dq<128>(a, B, s);
+        case 32: return launch_dq<32>(a, strides, B, s);
+        case 64: return launch_dq<64>(a, strides, B, s);
+        case 128: return launch_dq<128>(a, strides, B, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

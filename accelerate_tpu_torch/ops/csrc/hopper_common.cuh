@@ -1,27 +1,32 @@
-// Hopper primitives of the forward and dK/dV kernels (flash_fwd.cu,
-// flash_dkv.cu): TMA tensor-map loads that complete on mbarriers, wgmma
-// shared-memory descriptors and products, setmaxnreg, and the host code that
-// encodes the tensor maps.
+// Hopper primitives of the three flash-attention kernels (flash_fwd.cu,
+// flash_dq.cu, flash_dkv.cu): TMA tensor-map loads that complete on
+// mbarriers, wgmma shared-memory descriptors and products, setmaxnreg, named
+// barriers, and the host code that encodes the tensor maps.
 //
 // Shared tiles. A tile of R rows of a (B, S, H, D) tensor is loaded by TMA
 // as D / E chunks of E = min(64, D) head-dim elements; chunk c holds R rows
 // of E·2 bytes (64 or 128), swizzled by the TMA unit with the same span
 // (64B or 128B swizzle), and lies at c·R·E·2 bytes from the tile. The wgmma
 // descriptors below read exactly that layout:
-// - K-major (the reduction runs along D: Q and K in Q·Kᵀ, K and Q in K·Qᵀ):
-//   k-step kk (16 elements) starts at chunk kk / (E/16), byte 32·(kk % (E/16))
-//   of the row; 8-row groups are 8·E·2 bytes apart (SBO).
-// - MN-major (the reduction runs along the rows: V in P·V, dO and Q in
-//   Pᵀ·dO and dSᵀ·Q; the transpose bit of 16-bit types): k-step kk starts at
-//   row 16·kk; 8-row groups are 8·E·2 bytes apart (SBO) and the E-wide
-//   chunks along D are R·E·2 bytes apart (LBO).
+// - K-major (the reduction runs along D: Q and K in Q·Kᵀ, K and Q in K·Qᵀ,
+//   dO and V in dO·Vᵀ): k-step kk (16 elements) starts at chunk
+//   kk / (E/16), byte 32·(kk % (E/16)) of the row; 8-row groups are 8·E·2
+//   bytes apart (SBO).
+// - MN-major (the reduction runs along the rows: V in P·V, K in dS·K, dO
+//   and Q in Pᵀ·dO and dSᵀ·Q; the transpose bit of 16-bit types): k-step kk
+//   starts at row 16·kk; 8-row groups are 8·E·2 bytes apart (SBO) and the
+//   E-wide chunks along D are R·E·2 bytes apart (LBO).
 // Every tile starts on a 1024-byte boundary, so the swizzle phase is that of
 // the tile's own rows.
 //
 // wgmma accumulators (m64nN, fp32): thread t of the warpgroup (warp w =
 // t/32, g = (t%32)/4, q = t%4) holds d[4j+e] at row 16w + g + 8·(e>>1),
-// column 8j + 2q + (e&1): the mma.sync C layout of flash_common.cuh, tiled
-// over N. The register A operand of m64k16 takes the mma.sync A layout.
+// column 8j + 2q + (e&1). The register A operand of m64k16 (16 bf16 columns
+// of the 64 rows, as four 32-bit registers of bf16 pairs) is, per warp:
+// a0 = (row 16w + g, columns 2q, 2q+1), a1 = (row + 8, the same columns),
+// a2 = (row, columns 8 + 2q, 9 + 2q), a3 = (row + 8, those). So the
+// accumulator's n8 tiles 2kk and 2kk+1, packed in order (d[8kk+2r],
+// d[8kk+2r+1]) into register r, are the A operand of k-step kk.
 #pragma once
 
 #include <cuda.h>
@@ -203,7 +208,7 @@ template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
 
 // d (m64nN, fp32) = A·B + (scale_d ? d : 0), bf16 A from registers (the
-// mma.sync A layout, per warp 16 rows), B from shared memory, MN-major.
+// layout in the header, per warp 16 rows), B from shared memory, MN-major.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int scale_d);

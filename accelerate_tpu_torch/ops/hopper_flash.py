@@ -9,8 +9,9 @@ kernels under ``csrc/`` replace the three Pallas kernels there:
 - ``flash_dkv.cu``  ← ``_dkv_kernel``: dK/dV summed over the GQA group.
 
 Layout is the model's ``(B, S, H, D)``, read through strides (by TMA tensor
-maps in the forward and dK/dV kernels); ``lse`` is ``(B, Hq, Sq)``. Offsets are the global positions of element 0 of q and k,
-so ring attention can call the same kernels on rotated chunks.
+maps in all three kernels); ``lse`` is ``(B, Hq, Sq)``. Offsets are the
+global positions of element 0 of q and k, so ring attention can call the
+same kernels on rotated chunks.
 
 Each kernel has a wrapper (``flash_fwd_cuda``, ``flash_dq_cuda``,
 ``flash_dkv_cuda``) that checks its inputs, launches the kernel or raises,

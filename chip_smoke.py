@@ -10,13 +10,15 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
 1. card: the card's name and power limit; the flash kernels are built from
    ``accelerate_tpu_torch/ops/csrc`` (one nvcc per source, in parallel),
    with ptxas's registers and spills and the counts of wgmma (HGMMA), TMA
-   load (UTMALDG) and mma.sync (HMMA) instructions in each library's SASS.
+   load (UTMALDG) and mma.sync (HMMA) instructions in each library's SASS;
+   every library must have wgmma and TMA loads and no mma.sync
+   (``sass_ok``).
 2. kernels: the forward, dQ and dK/dV kernels against their plain PyTorch
    versions (fp32 on the same bf16 inputs) at the training shapes, GQA
    cases with ragged tails (causal and not, groups of 2 and 4), q, k and v
    as strided views of one fused QKV buffer, and the visible, fully masked
-   and partly masked offset cases; dK/dV launched twice must agree bit for
-   bit.
+   and partly masked offset cases; dQ and dK/dV, each launched twice, must
+   agree with themselves bit for bit.
 3. timings of each kernel at the training shapes beside its bound and its
    plain version; SDPA's forward beside the forward kernel, and SDPA's
    backward (dq, dk, dv in one call) beside the dQ and dK/dV kernels' sum.
@@ -47,6 +49,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 TOL_OUT, TOL_GRAD, TOL_LSE = 1e-2, 2e-2, 5e-3
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 SLICE = dict(b=4, s=2048, hq=16, hkv=16, d=128)
 
 
@@ -104,6 +107,7 @@ def check_kernels(hf, name, b, s, hq, hkv, d, q_offset=0, k_offset=0, seed=0, ca
     out_ref, lse_ref = hf.flash_fwd_plain(q.float(), k.float(), v.float(), **kw)
     delta = ((dout.float() * out_ref).sum(-1).transpose(1, 2) - g_lse).contiguous()
     dq = hf.flash_dq_cuda(q, k, v, dout, lse_ref, delta, **kw)
+    dq2 = hf.flash_dq_cuda(q, k, v, dout, lse_ref, delta, **kw)
     dk, dv = hf.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, **kw)
     dk2, dv2 = hf.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, **kw)
     torch.cuda.synchronize()
@@ -117,6 +121,7 @@ def check_kernels(hf, name, b, s, hq, hkv, d, q_offset=0, k_offset=0, seed=0, ca
         "q_offset": q_offset, "k_offset": k_offset,
         "out_rel": rel_err(out, out_ref), "lse_abs": lse_err,
         "dq_rel": rel_err(dq, dq_ref), "dk_rel": rel_err(dk, dk_ref), "dv_rel": rel_err(dv, dv_ref),
+        "dq_repeat_identical": bool(torch.equal(dq, dq2)),
         "dkv_repeat_identical": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
         "max_abs": {
             "flash_fwd": float((out.float() - out_ref).abs().max()),
@@ -133,7 +138,7 @@ def check_kernels(hf, name, b, s, hq, hkv, d, q_offset=0, k_offset=0, seed=0, ca
         ok = (errs["exact_zero_out"] and float(lse.max()) < -1e29
               and all(bool((x == 0).all()) for x in (dq, dk, dv)))
         errs["lse_max"] = float(lse.max())
-    errs["ok"] = ok and errs["dkv_repeat_identical"]
+    errs["ok"] = ok and errs["dq_repeat_identical"] and errs["dkv_repeat_identical"]
     return errs
 
 
@@ -154,6 +159,14 @@ def sass_counts(names):
         counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
                         for op in ("HGMMA", "UTMALDG", "HMMA")}
     return counts
+
+
+def sass_ok(sass):
+    """Whether every kernel library was built for Hopper's tensor cores:
+    wgmma products (HGMMA) on TMA-loaded tiles (UTMALDG), and no mma.sync
+    (HMMA). `sass` maps each library to its counts (sass_counts)."""
+    return all(name in sass and sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0
+               and sass[name]["HMMA"] == 0 for name in KERNELS)
 
 
 def causal_pairs(s):
@@ -307,7 +320,7 @@ def full_width_steps(hf):
 
 def _category(name):
     low = name.lower()
-    for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+    for kernel in KERNELS:
         if f"{kernel}_kernel" in name:
             return kernel
     if any(x in low for x in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
@@ -378,9 +391,9 @@ def main() -> int:
     sass = sass_counts(_build.KERNEL_SOURCES)
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas, "sass": sass})
-    # The forward and dK/dV kernels are wgmma products on TMA-fed tiles.
-    if not all(sass[n]["HGMMA"] and sass[n]["UTMALDG"] for n in ("flash_fwd", "flash_dkv")):
-        print("chip_smoke: no wgmma or TMA load in the forward or dK/dV library", file=sys.stderr)
+    if not sass_ok(sass):
+        print("chip_smoke: a kernel library lacks wgmma or TMA loads, or has mma.sync",
+              file=sys.stderr)
         return 1
 
     # 2. kernels against their plain versions
