@@ -1,0 +1,459 @@
+"""Autoregressive generation with a KV cache (counterpart of
+``accelerate_tpu/generation.py``, Llama family).
+
+- The cache is ``KVCache(k, v, length)``: k and v preallocated as
+  ``(L, B, T_max, Hkv, D)`` and written in place, ``length`` a device
+  tensor, ``()`` for a batch-global cache (``generate``) or ``(B,)`` for a
+  slot cache whose rows advance independently (``serving.py``).
+- The cached forward runs the Llama block math on the port's
+  ``LlamaForCausalLM`` parameters layer by layer, with the JAX plan's
+  numerics: RoPE at absolute cache positions (shifted down by each row's
+  left padding), attention over the whole cache with a position mask,
+  ``finfo(dtype).min`` on masked scores and the softmax in fp32.
+- ``generate`` runs the prompt once and then ``max_new_tokens`` decode
+  steps in a loop that reads nothing back to the host: every shape of a
+  decode step is static and ``done`` stays on the device.
+- Sampling: greedy, temperature, top-k, top-p, drawn with an explicit
+  ``torch.Generator`` (the JAX ``rng`` key).
+
+The other generation plans (GPT-2, OPT, NeoX, Mixtral, T5, Whisper), beam
+search and speculative decoding are not ported yet (ROADMAP.md Queue A
+items 6 and 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .models.llama import apply_rope, rms_norm, rotary_embedding
+from .utils.quantization import DecodeQuant, dequantize_decode_kernel
+
+_QUANT_PAGES_ITEM = "ROADMAP.md Queue A item 6 (int8 KV pages, QuantPages)"
+_OTHER_MODELS_ITEM = "ROADMAP.md Queue A item 8 (the other models)"
+_COMPILE_MANAGER_ITEM = "ROADMAP.md Queue A item 9 (control plane: compile_manager.py)"
+
+
+@dataclasses.dataclass
+class KVCache:
+    k: torch.Tensor       # (L, B, T_max, Hkv, D)
+    v: torch.Tensor       # (L, B, T_max, Hkv, D)
+    # Tokens written so far: a () tensor (batch-global) or (B,) for a slot
+    # cache where every row advances on its own.
+    length: torch.Tensor
+
+
+def _cache_dims(cfg) -> tuple[int, int, int, int]:
+    """(layers, kv_heads, head_dim, max_positions) of a Llama config."""
+    return (cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim,
+            cfg.max_position_embeddings)
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> KVCache:
+    layers, kv_heads, head_dim, _ = _cache_dims(cfg)
+    dtype = dtype or cfg.dtype
+    if dtype == torch.int8:
+        raise NotImplementedError(f"an int8 KV cache is not ported yet ({_QUANT_PAGES_ITEM})")
+    shape = (layers, batch, max_len, kv_heads, head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=torch.zeros((), dtype=torch.long, device=device))
+
+
+def init_slot_cache(cfg, n_slots: int, max_len: int, dtype=None, device=None) -> KVCache:
+    """Slot cache (serving.py): :func:`init_cache`'s buffers with a per-slot
+    ``(n_slots,)`` length."""
+    cache = init_cache(cfg, n_slots, max_len, dtype, device)
+    cache.length = torch.zeros((n_slots,), dtype=torch.long, device=device)
+    return cache
+
+
+def _row_positions(start: torch.Tensor, b: int, s: int) -> torch.Tensor:
+    """(B, S) absolute cache positions of ``s`` tokens appended at ``start``,
+    a () tensor or a (B,) per-row vector."""
+    offs = torch.arange(s, dtype=torch.long, device=start.device)
+    if start.dim() == 1:
+        return start[:, None] + offs[None, :]
+    return (start + offs).expand(b, s)
+
+
+def _cache_write(ck: torch.Tensor, k_new: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Write ``k_new`` (B, S, Hkv, D) into the cache slice ``ck``
+    (B, T, Hkv, D) in place, at row offset ``start``: a () tensor (the same
+    offset for every row) or a (B,) vector (each row at its own offset).
+    The offsets stay on the device. Returns ``ck``."""
+    b, s = k_new.shape[:2]
+    k_new = k_new.to(ck.dtype)
+    if start.dim() == 1:
+        rows = torch.arange(b, device=ck.device)[:, None]
+        ck[rows, _row_positions(start, b, s)] = k_new
+        return ck
+    return ck.index_copy_(1, start + torch.arange(s, device=ck.device), k_new)
+
+
+# ---------------------------------------------------------------------------
+# Llama block math on the model's parameters
+# ---------------------------------------------------------------------------
+
+
+def _kernel(w, dtype) -> torch.Tensor:
+    """A weight in the compute dtype; an int8 ``DecodeQuant`` dequantizes
+    here, next to its matmul."""
+    if isinstance(w, DecodeQuant):
+        return dequantize_decode_kernel(w, dtype)
+    return w.to(dtype)
+
+
+def _dense(w, x) -> torch.Tensor:
+    """x @ W for an ``(out, in)`` weight (q/k/v, o_proj and the MLP alike)."""
+    return F.linear(x, _kernel(w, x.dtype))
+
+
+def _proj(x, w, heads: int) -> torch.Tensor:
+    """(B, S, H) → (B, S, heads, D)."""
+    b, s, _ = x.shape
+    return _dense(w, x).view(b, s, heads, -1)
+
+
+def _out_proj(x, w) -> torch.Tensor:
+    """(B, S, heads, D) → (B, S, H)."""
+    return _dense(w, x.reshape(*x.shape[:2], -1))
+
+
+def _mlp(p: dict, pre: str, x) -> torch.Tensor:
+    gate = _dense(p[pre + "mlp.gate_proj.weight"], x)
+    up = _dense(p[pre + "mlp.up_proj.weight"], x)
+    return _dense(p[pre + "mlp.down_proj.weight"], F.silu(gate) * up)
+
+
+def _chassis_norm(cfg, w, x) -> torch.Tensor:
+    """RMSNorm (the only norm the port's LlamaConfig takes)."""
+    return rms_norm(x, w.to(x.dtype), cfg.rms_norm_eps)
+
+
+def _embed_tokens(cfg, embed, ids) -> torch.Tensor:
+    return F.embedding(ids, embed).to(cfg.dtype)
+
+
+def _qkv_proj(cfg, p: dict, pre: str, hn, cos, sin):
+    """Roped q and k, and v, of one layer."""
+    q = _proj(hn, p[pre + "self_attn.q_proj.weight"], cfg.num_attention_heads)
+    k = _proj(hn, p[pre + "self_attn.k_proj.weight"], cfg.num_key_value_heads)
+    v = _proj(hn, p[pre + "self_attn.v_proj.weight"], cfg.num_key_value_heads)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _attend_mask(q_positions, t: int, kv_valid=None) -> torch.Tensor:
+    """(B, Sq, T) bool: cache slot ``kv`` is visible to a query at absolute
+    position ``p`` when ``kv <= p`` (which also hides unwritten slots) and,
+    with ``kv_valid`` (B, T), when the slot holds no left padding."""
+    kv_pos = torch.arange(t, device=q_positions.device)
+    visible = kv_pos[None, None, :] <= q_positions[:, :, None]
+    if kv_valid is not None:
+        visible = visible & kv_valid[:, None, :].bool()
+    return visible
+
+
+def _attend_masked(q, k, v, visible) -> torch.Tensor:
+    """q (B, Sq, Hq, D) against cached k/v (B, T, Hkv, D) under ``visible``
+    (B, Sq, T)."""
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq != hkv:
+        k = k.repeat_interleave(hq // hkv, dim=2)
+        v = v.repeat_interleave(hq // hkv, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / np.sqrt(q.shape[-1]))
+    logits = logits.masked_fill(~visible[:, None], torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _attend(q, k, v, q_positions, kv_valid=None) -> torch.Tensor:
+    """Causal attention of q against the cache at absolute positions
+    ``q_positions`` (B, Sq); ``kv_valid`` (B, T) masks left-padding slots."""
+    return _attend_masked(q, k, v, _attend_mask(q_positions, k.shape[1], kv_valid))
+
+
+def _decode_params(model_or_params) -> dict:
+    """State-dict names → tensor (or ``DecodeQuant``): a dict as it is, a
+    decode-quantized model's ``params``, or a module's (or ``Model``'s)
+    parameters, without copies."""
+    if isinstance(model_or_params, dict):
+        return model_or_params
+    params = getattr(model_or_params, "params", None)
+    if params is not None:
+        return params
+    module = getattr(model_or_params, "module", model_or_params)
+    return dict(module.named_parameters())
+
+
+@torch.no_grad()
+def _llama_forward_cached(cfg, model_or_params, input_ids, cache: KVCache, return_all=False,
+                          pad_offset=None, kv_valid=None):
+    """Run ``input_ids`` (B, S), appended at ``cache.length``, through every
+    layer: returns (fp32 logits of the last position, or of every position
+    with ``return_all``; the cache with its length advanced by S). K and V
+    are written into ``cache`` in place.
+
+    Left-padded batches: ``pad_offset`` (B,) counts each row's leading pads
+    (RoPE positions shift down by it, so content starts at position 0) and
+    ``kv_valid`` (B, T_max) masks the pad slots out of attention."""
+    p = _decode_params(model_or_params)
+    b, s = input_ids.shape
+    start = cache.length
+    positions = _row_positions(start, b, s)
+    x = _embed_tokens(cfg, p["model.embed_tokens.weight"], input_ids.long())
+    rope_positions = positions
+    if pad_offset is not None:
+        rope_positions = torch.clamp(positions - pad_offset[:, None], min=0)
+    cos, sin = rotary_embedding(rope_positions, cfg.rotary_dim, cfg.rope_theta, x.dtype)
+    visible = _attend_mask(positions, cache.k.shape[2], kv_valid)
+    for i in range(cfg.num_hidden_layers):
+        pre = f"model.layers.{i}."
+        hn = _chassis_norm(cfg, p[pre + "input_layernorm.weight"], x)
+        q, k_new, v_new = _qkv_proj(cfg, p, pre, hn, cos, sin)
+        ck = _cache_write(cache.k[i], k_new, start)
+        cv = _cache_write(cache.v[i], v_new, start)
+        out = _attend_masked(q, ck, cv, visible)
+        x = x + _out_proj(out, p[pre + "self_attn.o_proj.weight"])
+        hn = _chassis_norm(cfg, p[pre + "post_attention_layernorm.weight"], x)
+        x = x + _mlp(p, pre, hn)
+    x = _chassis_norm(cfg, p["model.norm.weight"], x)
+    h_out = x if return_all else x[:, -1]
+    head = p["model.embed_tokens.weight"] if cfg.tie_word_embeddings else p["lm_head.weight"]
+    logits = F.linear(h_out, head.to(cfg.dtype))
+    return logits.float(), KVCache(cache.k, cache.v, start + s)
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+
+def _filter_logits(logits, *, temperature, top_k: Optional[int] = None,
+                   top_p: Optional[float] = None):
+    """Temperature, then top-k (ties with the k-th logit stay), then top-p
+    (the smallest prefix whose mass reaches ``top_p``, at least one token)."""
+    logits = logits / temperature
+    if top_k is not None:
+        top_k = min(top_k, logits.shape[-1])
+        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        logits = logits.masked_fill(logits < kth, -float("inf"))
+    if top_p is not None:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        cutoff_idx = (cum < top_p).sum(dim=-1).clamp(max=logits.shape[-1] - 1)
+        cutoff = sorted_logits.gather(-1, cutoff_idx[:, None])
+        logits = logits.masked_fill(logits < cutoff, -float("inf"))
+    return logits
+
+
+def sample_logits(logits, generator: Optional[torch.Generator] = None, *, temperature=1.0,
+                  top_k: Optional[int] = None, top_p: Optional[float] = None):
+    """(B, V) fp32 logits → (B,) token ids. ``temperature`` <= 0 (or None)
+    is greedy argmax; otherwise a Gumbel-max draw from the filtered
+    distribution with ``generator`` (default: seeded 0 on the logits'
+    device)."""
+    if temperature is None or temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    logits = _filter_logits(logits, temperature=temperature, top_k=top_k, top_p=top_p)
+    if generator is None:
+        generator = torch.Generator(device=logits.device).manual_seed(0)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# generate
+# ---------------------------------------------------------------------------
+
+# module class name -> forward_cached(cfg, params, ids, cache, ...)
+GENERATION_PLANS: dict[str, Callable] = {"LlamaForCausalLM": _llama_forward_cached}
+
+
+def _generation_plan(module) -> Callable:
+    fwd = GENERATION_PLANS.get(type(module).__name__)
+    if fwd is None:
+        raise NotImplementedError(
+            f"no generation plan for {type(module).__name__!r} (ported: "
+            f"{', '.join(sorted(GENERATION_PLANS))}); the other plans are {_OTHER_MODELS_ITEM}")
+    return fwd
+
+
+def _params_device(params: dict) -> torch.device:
+    embed = params["model.embed_tokens.weight"]
+    return embed.device
+
+
+@dataclasses.dataclass
+class GenerationConfig:
+    """Bundled sampling settings; ``generate(..., config=GenerationConfig(...))``
+    uses these as defaults, explicit keyword arguments win."""
+
+    max_new_tokens: int = 32
+    temperature: float = 0.0        # 0 → greedy
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    eos_token_id: Optional[int] = None
+    pad_token_id: Optional[int] = None  # finished rows get this (default: eos)
+    suppress_tokens: Optional[tuple] = None        # never sampled
+    begin_suppress_tokens: Optional[tuple] = None  # not at the first new token
+    forced_decoder_ids: Optional[tuple] = None     # ((position, token), ...)
+
+
+def ladder_bucket(n: int, ladder) -> Optional[int]:
+    """Smallest ladder rung >= ``n``, or ``None`` when ``n`` overshoots the
+    ladder (``accelerate_tpu/compile_manager.py:ladder_bucket``)."""
+    for b in sorted(int(x) for x in ladder):
+        if n <= b:
+            return b
+    return None
+
+
+def _bucketed_prompt_len(s: int, seq_buckets) -> int:
+    """Prompt length rounded up the ``seq_buckets`` ladder; a length past
+    the ladder keeps its size."""
+    if seq_buckets:
+        bucketed = ladder_bucket(s, seq_buckets)
+        return int(bucketed) if bucketed is not None else s
+    return s
+
+
+def clear_generation_cache() -> None:
+    """Kept for the JAX package's name: eager generation memoizes no
+    compiled loop, so there is nothing to drop."""
+
+
+def _pick(explicit, default):
+    return explicit if explicit is not None else default
+
+
+@torch.no_grad()
+def generate(
+    model,
+    input_ids,
+    max_new_tokens: Optional[int] = None,
+    *,
+    temperature: Optional[float] = None,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    eos_token_id: Optional[int] = None,
+    pad_token_id: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    forward_cached: Optional[Callable] = None,
+    config: Optional[GenerationConfig] = None,
+    decoder_input_ids=None,
+    attention_mask=None,
+    suppress_tokens=None,
+    begin_suppress_tokens=None,
+    forced_decoder_ids=None,
+    seq_buckets=None,
+    compile_manager=None,
+) -> torch.Tensor:
+    """Generate ``max_new_tokens`` continuations of ``input_ids`` (B, S)
+    with ``model`` (a ``Model``, a ``LlamaForCausalLM`` or a
+    decode-quantized model) on the device that holds its parameters.
+    Returns (B, S + max_new_tokens) on that device.
+
+    ``attention_mask`` (B, S): left-padded rows (zeros, then ones); RoPE
+    positions shift per row so content starts at 0 and pad slots never
+    enter attention. After a row emits ``eos_token_id`` it is padded with
+    ``pad_token_id`` (default: the EOS id). ``suppress_tokens`` are never
+    sampled, ``begin_suppress_tokens`` not as the first new token, and
+    ``forced_decoder_ids`` ((position, token), ...) force a token at an
+    absolute position. ``seq_buckets`` left-pads the prompt up a ladder of
+    lengths; the output keeps the caller's prompt columns.
+
+    The decode loop runs all ``max_new_tokens`` steps and reads nothing
+    back to the host."""
+    if decoder_input_ids is not None:
+        raise NotImplementedError(
+            f"encoder-decoder generation (decoder_input_ids) is not ported yet "
+            f"({_OTHER_MODELS_ITEM}: t5, whisper)")
+    if forward_cached is not None:
+        raise NotImplementedError(
+            f"generate(forward_cached=...) is not ported yet: the plan comes from the "
+            f"model's class, and plans other than Llama are {_OTHER_MODELS_ITEM}")
+    if compile_manager is not None:
+        raise NotImplementedError(f"generate(compile_manager=...) is not ported yet "
+                                  f"({_COMPILE_MANAGER_ITEM})")
+    gc = config or GenerationConfig()
+    max_new_tokens = _pick(max_new_tokens, gc.max_new_tokens)
+    temperature = _pick(temperature, gc.temperature)
+    top_k, top_p = _pick(top_k, gc.top_k), _pick(top_p, gc.top_p)
+    eos_token_id = _pick(eos_token_id, gc.eos_token_id)
+    pad_token_id = _pick(_pick(pad_token_id, gc.pad_token_id), eos_token_id)
+    suppress_tokens = _pick(suppress_tokens, gc.suppress_tokens)
+    begin_suppress_tokens = _pick(begin_suppress_tokens, gc.begin_suppress_tokens)
+    forced_decoder_ids = _pick(forced_decoder_ids, gc.forced_decoder_ids)
+
+    module = getattr(model, "module", model)
+    cfg = module.config
+    fwd = _generation_plan(module)
+    params = _decode_params(model)
+    device = _params_device(params)
+
+    orig_input_ids = torch.as_tensor(input_ids).to(device)
+    ids = orig_input_ids.long()
+    b, s = ids.shape
+    mask_np = None if attention_mask is None else np.asarray(
+        attention_mask.cpu() if torch.is_tensor(attention_mask) else attention_mask, np.int32)
+
+    s_b = _bucketed_prompt_len(s, seq_buckets)
+    if s_b > s:
+        fill = pad_token_id if pad_token_id is not None else 0
+        ids = torch.cat([torch.full((b, s_b - s), fill, dtype=ids.dtype, device=device), ids], 1)
+        if mask_np is None:
+            mask_np = np.ones((b, s), np.int32)
+        mask_np = np.concatenate([np.zeros((b, s_b - s), np.int32), mask_np], axis=1)
+        s = s_b
+
+    t_max = s + max_new_tokens
+    max_pos = _cache_dims(cfg)[3]
+    if t_max > max_pos:
+        raise ValueError(f"{t_max} tokens exceeds max_position_embeddings={max_pos}")
+    if generator is None and temperature is not None and temperature > 0:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    kwargs = {}
+    if mask_np is not None:
+        off_np = np.argmax(mask_np, axis=1).astype(np.int64)  # leading pads per row
+        if not np.all(off_np + mask_np.sum(axis=1) == s):
+            raise ValueError(
+                "attention_mask must be left-padded (zeros then ones per row) for "
+                "decoder-only generation; got a right-padded or non-contiguous mask.")
+        kv_valid = np.concatenate([mask_np.astype(bool), np.ones((b, t_max - s), bool)], 1)
+        kwargs = {"pad_offset": torch.from_numpy(off_np).to(device),
+                  "kv_valid": torch.from_numpy(kv_valid).to(device)}
+
+    forced = None
+    if forced_decoder_ids:
+        forced = {pos - s: int(tok) for pos, tok in forced_decoder_ids
+                  if s <= pos < s + max_new_tokens}
+    neg_inf = float(np.finfo(np.float32).min)
+
+    cache = init_cache(cfg, b, t_max, device=device)
+    logits, cache = fwd(cfg, params, ids, cache, **kwargs)
+    if begin_suppress_tokens:
+        logits[:, list(begin_suppress_tokens)] = neg_inf
+    done = torch.zeros((b,), dtype=torch.bool, device=device)
+    toks = torch.empty((max_new_tokens, b), dtype=torch.long, device=device)
+    for t in range(max_new_tokens):
+        if suppress_tokens:
+            logits[:, list(suppress_tokens)] = neg_inf
+        tok = sample_logits(logits, generator, temperature=temperature, top_k=top_k,
+                            top_p=top_p)
+        if forced and t in forced:
+            tok = torch.full_like(tok, forced[t])
+        if eos_token_id is not None:
+            tok = torch.where(done, pad_token_id, tok)
+            done = done | (tok == eos_token_id)
+        toks[t] = tok
+        if t + 1 < max_new_tokens:  # the last token's forward would feed nothing
+            logits, cache = fwd(cfg, params, tok[:, None], cache, **kwargs)
+    return torch.cat([orig_input_ids, toks.T.to(orig_input_ids.dtype)], dim=1)

@@ -3,6 +3,7 @@ from .dataclasses import (
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
     ProjectConfiguration,
+    ServingConfig,
 )
 from .random import set_seed
 
@@ -11,5 +12,6 @@ __all__ = [
     "GradientAccumulationPlugin",
     "MixedPrecisionPolicy",
     "ProjectConfiguration",
+    "ServingConfig",
     "set_seed",
 ]

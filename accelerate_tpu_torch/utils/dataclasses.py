@@ -1,5 +1,5 @@
 """Plugin dataclasses: the subset of ``accelerate_tpu/utils/dataclasses.py``
-that the training step needs, with torch dtypes.
+that the training step and the serving engine need, with torch dtypes.
 
 The fields keep the JAX package's names and defaults. A field the port does
 not act on yet raises ``NotImplementedError`` naming its ROADMAP.md item
@@ -17,12 +17,16 @@ _CHECKPOINT_ITEM = "ROADMAP.md Queue A item 4 (checkpointing)"
 _DATA_LOADER_ITEM = "ROADMAP.md Queue A item 3 (data loader)"
 
 
-def _refuse_non_defaults(obj, item: str, honoured: tuple = ()) -> None:
+def _refuse_non_defaults(obj, item, honoured: tuple = ()) -> None:
+    """Raise for the first field outside ``honoured`` that is set away from
+    its default. ``item`` names the ROADMAP item: one string, or a dict from
+    field name to string."""
     for f in fields(obj):
         if f.name not in honoured and getattr(obj, f.name) != f.default:
+            where = item[f.name] if isinstance(item, dict) else item
             raise NotImplementedError(
                 f"{type(obj).__name__}({f.name}={getattr(obj, f.name)!r}) is not "
-                f"ported yet ({item})")
+                f"ported yet ({where})")
 
 
 @dataclass
@@ -110,3 +114,82 @@ class ProjectConfiguration:
 
     def __post_init__(self):
         _refuse_non_defaults(self, _CHECKPOINT_ITEM)
+
+
+_SLO_ITEM = "ROADMAP.md Queue A item 6 (admission/SLO and the hang guard)"
+_JOURNAL_ITEM = "ROADMAP.md Queue A item 9 (control plane: journal.py)"
+# ServingConfig fields the engine does not act on yet, by ROADMAP item.
+_UNPORTED_SERVING_FIELDS = {
+    "enabled": "ROADMAP.md Queue A item 9 (control plane: Accelerator.build_serving_engine)",
+    "cache_dtype": "ROADMAP.md Queue A item 6 (int8 KV pages, QuantPages)",
+    "speculate_k": "ROADMAP.md Queue A item 6 (speculation)",
+    "speculate_ngram": "ROADMAP.md Queue A item 6 (speculation)",
+    "max_queue_depth": _SLO_ITEM, "overload_policy": _SLO_ITEM, "deadline_s": _SLO_ITEM,
+    "max_retries": _SLO_ITEM, "max_idle_ticks": _SLO_ITEM, "window_requests": _SLO_ITEM,
+    "journal_dir": _JOURNAL_ITEM, "journal_fsync": _JOURNAL_ITEM,
+    "journal_segment_records": _JOURNAL_ITEM,
+}
+
+
+@dataclass
+class ServingConfig:
+    """Continuous-batching engine settings (``serving.ServingEngine``).
+
+    - ``n_slots``: concurrent sequences; the slot cache is
+      ``(L, n_slots, max_len, Hkv, D)`` and one decode step advances every
+      live slot.
+    - ``max_len``: per-slot capacity (prompt + continuation); default
+      ``min(max_position_embeddings, 4096)``.
+    - ``prefill_chunks``: the chunk-size ladder of chunked prefill; default
+      pow2 ``min_prefill_chunk..max_prefill_chunk``.
+      ``prefill_chunks_per_tick`` prompt chunks run per tick.
+    - ``temperature`` / ``top_k`` / ``top_p`` / ``eos_token_id`` /
+      ``pad_token_id``: sampling, engine-wide. ``max_new_tokens`` is the
+      default per-request budget. ``seed`` seeds the sampling stream of a
+      request submitted without its own generator.
+
+    The other fields keep the JAX package's names and defaults and raise
+    ``NotImplementedError`` naming their ROADMAP item when set away from
+    them: the int8 KV cache (``cache_dtype``), speculation, admission
+    control and SLOs, the hang guard, and the journal."""
+
+    enabled: bool = True
+    n_slots: int = 8
+    max_len: Optional[int] = None
+    max_new_tokens: int = 32
+    prefill_chunks: Optional[list] = None
+    min_prefill_chunk: int = 16
+    max_prefill_chunk: int = 256
+    prefill_chunks_per_tick: int = 1
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    eos_token_id: Optional[int] = None
+    pad_token_id: Optional[int] = None
+    cache_dtype: Any = None
+    seed: int = 0
+    speculate_k: int = 0
+    speculate_ngram: int = 16
+    max_queue_depth: Optional[int] = None
+    overload_policy: str = "reject"
+    deadline_s: Optional[float] = None
+    max_retries: int = 2
+    max_idle_ticks: int = 100
+    window_requests: int = 128
+    journal_dir: Optional[str] = None
+    journal_fsync: str = "every_tick"
+    journal_segment_records: int = 512
+
+    def __post_init__(self):
+        _refuse_non_defaults(self, _UNPORTED_SERVING_FIELDS, honoured=tuple(
+            f.name for f in fields(self) if f.name not in _UNPORTED_SERVING_FIELDS))
+        if self.n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        if self.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if self.prefill_chunks_per_tick < 1:
+            raise ValueError("prefill_chunks_per_tick must be >= 1")
+        if self.min_prefill_chunk < 1 or self.max_prefill_chunk < self.min_prefill_chunk:
+            raise ValueError(
+                "need 1 <= min_prefill_chunk <= max_prefill_chunk, got "
+                f"{self.min_prefill_chunk}..{self.max_prefill_chunk}")

@@ -30,12 +30,27 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    kernels' launch counts.
 6. profile: two more full-width steps under torch.profiler, device time by
    kernel category and the share of the step with no kernel running.
+7. generate: greedy generate() of the tiny fp32 Llama on the card against
+   the CPU (a plain batch and a left-padded batch with EOS), then bench.py's
+   decode row at full width: the same 1.06B Llama in bf16, prompt (1, 64),
+   32 new tokens, bf16 and int8 weights, one warm-up and one timed call
+   each; prefill and per-token decode times beside the per-token bound,
+   and the decode steps' device-busy time and idle share from
+   torch.profiler.
+8. serving: ServingEngine.run of the tiny fp32 Llama against generate() on
+   the card, then the engine at full width on the serving row of
+   benchmarks/generate_bench.py (8 slots, 32 greedy requests of 4-63
+   prompt tokens with bimodal budgets, replayed open loop at their Poisson
+   arrival times, 8 per second): aggregate tok/s, ticks, occupancy, TTFT
+   p50/p95 on the host clock, peak memory; then steady 8-slot decode ticks
+   under torch.profiler.
 
 Then the kernel summary line and, last, the device line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -51,6 +66,16 @@ PEAK_HBM_BYTES = 3.35e12
 TOL_OUT, TOL_GRAD, TOL_LSE = 1e-2, 2e-2, 5e-3
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 SLICE = dict(b=4, s=2048, hq=16, hkv=16, d=128)
+# The Llama widths bench.py measures (bench.py:_build_config, big-HBM rung).
+FULL_WIDTH = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+                  num_hidden_layers=18, num_attention_heads=16, num_key_value_heads=16)
+GEN_PROMPT, GEN_NEW_TOKENS = 64, 32   # bench.py's decode row: prompt (1, 64), 32 new
+# benchmarks/generate_bench.py --serving with its defaults: --requests,
+# --slots, --qps, --prompt-len, --new-tokens.
+SERVING_ROW = dict(requests=32, slots=8, qps=8.0, prompt_len=64, new_tokens=64)
+# Greedy tokens of two devices must agree wherever the reference's top-2
+# logit gap exceeds this; below it, fp32 rounding may pick either token.
+TIE_GAP = 1e-4
 
 
 def emit(obj):
@@ -268,10 +293,8 @@ def full_width_steps(hf):
     from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
 
     batch_size, seq = SLICE["b"], SLICE["s"]
-    cfg = LlamaConfig(  # bench.py:_build_config, big-HBM rung
-        vocab_size=32000, hidden_size=2048, intermediate_size=5632, num_hidden_layers=18,
-        num_attention_heads=16, num_key_value_heads=16, max_position_embeddings=seq,
-        dtype=torch.bfloat16, remat=True, remat_policy="dots", attention_impl="flash")
+    cfg = LlamaConfig(**FULL_WIDTH, max_position_embeddings=seq, dtype=torch.bfloat16,
+                      remat=True, remat_policy="dots", attention_impl="flash")
     acc = Accelerator(mixed_precision="bf16", fsdp_plugin=FullyShardedDataParallelPlugin())
     module = LlamaForCausalLM(cfg, device=acc.device)
     module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
@@ -338,7 +361,6 @@ def profile_steps(step, state, batch, step_ms, steps=2):
     phase 5) during which no kernel ran. The profiler slows the host, so
     its own wall time is reported but not used for the idle share."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -348,6 +370,19 @@ def profile_steps(step, state, batch, step_ms, steps=2):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, by_cat, top, _ = device_times(prof, steps)
+    return {"phase": "profile", "steps": steps, "profiled_wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
+            "idle_share": 1.0 - busy_ms / step_ms if top else None,
+            "ms_per_step_by_category": by_cat, "top_kernels_ms_per_step": top}
+
+
+def device_times(prof, steps, n_top=12):
+    """Kernel time per step from a torch.profiler run of `steps` steps: the
+    busy total, the time by category, the top kernels by name and the
+    number of kernels per step."""
+    from torch.autograd import DeviceType
+
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     by_cat, by_name = {}, {}
@@ -355,13 +390,365 @@ def profile_steps(step, state, batch, step_ms, steps=2):
         us = e.device_time_total
         by_cat[_category(e.name)] = by_cat.get(_category(e.name), 0.0) + us / 1e3 / steps
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / steps
-    busy_ms = sum(by_cat.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"phase": "profile", "steps": steps, "profiled_wall_ms_per_step": wall_ms / steps,
-            "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
-            "idle_share": 1.0 - busy_ms / step_ms if kernels else None,
-            "ms_per_step_by_category": by_cat,
-            "top_kernels_ms_per_step": [[name[:90], ms] for name, ms in top]}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
+    return (sum(by_cat.values()), by_cat, [[name[:90], ms] for name, ms in top],
+            len(kernels) / steps)
+
+
+def host_ops(prof, steps, n_top=8):
+    """The torch ops with the most host (self CPU) time per step under the
+    profiler, which slows the host: [name, ms per step, calls per step]."""
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:n_top]
+    return [[e.key, e.self_cpu_time_total / 1e3 / steps, e.count / steps] for e in rows]
+
+
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: generation and serving
+# ---------------------------------------------------------------------------
+
+
+def decode_bound(width, weight_bytes, ctx=0):
+    """Least time (ms) of one decode token at batch 1, and its bytes: the
+    block projections at `weight_bytes` per parameter (int8: 1, plus one
+    fp32 scale per output channel), the LM head and norms in bf16, and the
+    K/V of `ctx` cached positions read and one position written. The
+    FLOPs (2 per parameter) take a few microseconds: bytes bound it."""
+    h, inter, layers = width["hidden_size"], width["intermediate_size"], \
+        width["num_hidden_layers"]
+    q_out = h // width["num_attention_heads"] * width["num_attention_heads"]
+    kv = h // width["num_attention_heads"] * width["num_key_value_heads"]
+    block = layers * (h * q_out + 2 * h * kv + q_out * h + 3 * h * inter)
+    nbytes = block * weight_bytes
+    if weight_bytes == 1:
+        nbytes += layers * (q_out + 2 * kv + h + 2 * inter + h) * 4
+    nbytes += width["vocab_size"] * h * 2 + (2 * layers + 1) * h * 2
+    nbytes += layers * 2 * (ctx + 1) * kv * 2
+    return nbytes / PEAK_HBM_BYTES * 1e3, nbytes
+
+
+def first_divergence(ref_rows, got_rows, ref_gaps, tie_gap=TIE_GAP):
+    """Where two devices' greedy tokens first part, row by row, per the
+    near-tie rule: one entry per row, None when the row is equal, else its
+    first differing position with the reference's top-2 logit gap at that
+    step and whether it is a near-tie (gap <= tie_gap), where either token
+    is right. Rows are the new tokens only; after a row parts, its later
+    tokens follow other prefixes and are not compared."""
+    out = []
+    for r, (ref, got) in enumerate(zip(ref_rows, got_rows)):
+        split = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+        if split is None:
+            out.append(None)
+        else:
+            gap = float(ref_gaps[r][split])
+            out.append({"pos": split, "gap": gap, "near_tie": gap <= tie_gap})
+    return out
+
+
+def parity_ok(divergences) -> bool:
+    """Every row equal, or parted first at a near-tie."""
+    return all(d is None or d["near_tie"] for d in divergences)
+
+
+def generate_gate(res) -> bool:
+    """Phase 7 passes when the tiny card/CPU tokens agree under the
+    near-tie rule, and at full width every token lies in [0, vocab) and
+    every logit is finite, for bf16 and int8 weights."""
+    return (all(parity_ok(rows) for rows in res["tiny"].values())
+            and all(v["tokens_in_vocab"] and v["logits_finite"]
+                    for v in res["full_width"].values()))
+
+
+def serving_trace(vocab, requests, qps, prompt_len, new_tokens, seed=1, **_):
+    """generate_bench.py's Poisson serving trace, drawn in its order from
+    default_rng(seed): prompt lengths in [4, prompt_len), budgets half in
+    [4, 12) and half in [new_tokens // 2, new_tokens], prompts, and
+    arrival times (s) at `qps` requests per second."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(4, max(9, prompt_len), requests)
+    budgets = np.where(rng.random(requests) < 0.5, rng.integers(4, 12, requests),
+                       rng.integers(max(2, new_tokens // 2), new_tokens + 1, requests)).astype(int)
+    prompts = [rng.integers(1, vocab, (int(n),), dtype=np.int32) for n in lengths]
+    arrivals = np.cumsum(rng.exponential(1.0 / qps, requests))
+    return lengths, budgets, prompts, arrivals
+
+
+def serving_gate(rows, prompts, budgets, stats, vocab) -> bool:
+    """Phase 8 passes when every request came back as its prompt and its
+    whole budget of new tokens in [0, vocab) (greedy, no EOS), and the
+    engine counts them all."""
+    if len(rows) != len(prompts) or stats["requests_completed"] != len(prompts):
+        return False
+    if stats["tokens_out"] != sum(int(b) for b in budgets):
+        return False
+    for row, prompt, budget in zip(rows, prompts, budgets):
+        p = len(prompt)
+        if len(row) != p + budget or list(row[:p]) != list(prompt):
+            return False
+        if not all(0 <= int(t) < vocab for t in row[p:]):
+            return False
+    return True
+
+
+def _greedy_gaps(cfg, model, rows, prompt_len, mask=None):
+    """(B, N) top-2 logit gaps of the greedy steps that produced
+    rows[:, prompt_len:], from one teacher-forced cached forward."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import generation as gen
+
+    b, t = rows.shape
+    kwargs = {}
+    if mask is not None:
+        valid = np.concatenate([mask.astype(bool), np.ones((b, t - prompt_len), bool)], 1)
+        kwargs = {"pad_offset": torch.from_numpy(np.argmax(mask, 1)).to(rows.device),
+                  "kv_valid": torch.from_numpy(valid).to(rows.device)}
+    logits, _ = gen._llama_forward_cached(cfg, model, rows, gen.init_cache(
+        cfg, b, t, device=rows.device), return_all=True, **kwargs)
+    top2 = torch.topk(logits[:, prompt_len - 1:t - 1], 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]).cpu().numpy()
+
+
+def _tiny_module(device, seed=0):
+    """The tiny fp32 Llama with numpy-seeded weights (std 1/sqrt(fan-in),
+    so greedy steps are rarely near-ties)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    module = LlamaForCausalLM(cfg)
+    rng = np.random.default_rng(seed)
+    module.load_state_dict({
+        n: torch.from_numpy(np.ones(p.shape, np.float32) if p.dim() == 1 else (
+            rng.standard_normal(p.shape) / (1.0 if "embed" in n else math.sqrt(p.shape[1])))
+            .astype(np.float32))
+        for n, p in module.state_dict().items()})
+    return cfg, module.to(device)
+
+
+def tiny_generate_parity(device="cuda"):
+    """Greedy generate() of the tiny fp32 Llama on the card and on the CPU
+    from the same weights: a plain batch, and a left-padded batch with EOS.
+    TF32 stays off, so the card computes in fp32."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import generate
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmuls are on; the fp32 comparison needs them off")
+    cfg, cpu_model = _tiny_module("cpu")
+    _, card_model = _tiny_module(device)
+    rng = np.random.default_rng(1)
+    s, n = 16, 24
+    ids = rng.integers(1, cfg.vocab_size, (2, s))
+    mask = np.ones((2, s), np.int64)
+    mask[1, :5] = 0
+    padded = ids * mask
+    eos = int(generate(cpu_model, ids, max_new_tokens=3)[0, -1])
+    cases = {"plain": (ids, {}),
+             "left_padded_eos": (padded, dict(attention_mask=mask, eos_token_id=eos,
+                                              pad_token_id=0))}
+    out = {}
+    for name, (x, kw) in cases.items():
+        ref = generate(cpu_model, x, max_new_tokens=n, **kw)
+        got = generate(card_model, x, max_new_tokens=n, **kw).cpu()
+        gaps = _greedy_gaps(cfg, cpu_model, ref, s, kw.get("attention_mask"))
+        out[name] = first_divergence(ref[:, s:].tolist(), got[:, s:].tolist(), gaps)
+    return out
+
+
+def _decode_steps(cfg, params, prompt, n):
+    """Prefill, then `n` greedy decode steps as generate() runs them:
+    returns (decode seconds, all logits finite)."""
+    import torch
+
+    from accelerate_tpu_torch import generation as gen
+
+    cache = gen.init_cache(cfg, prompt.shape[0], prompt.shape[1] + n + 1, device=prompt.device)
+    logits, cache = gen._llama_forward_cached(cfg, params, prompt, cache)
+    finite = [torch.isfinite(logits).all()]
+    tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        logits, cache = gen._llama_forward_cached(cfg, params, tok[:, None], cache)
+        finite.append(torch.isfinite(logits).all())
+        tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, bool(torch.stack(finite).all())
+
+
+def full_width_generate(device="cuda"):
+    """bench.py's decode row on the port: bf16 and int8-weight generate()
+    of the 1.06B Llama, prompt (1, 64), 32 new tokens, one warm-up and one
+    timed call each; then prefill and decode-step times and a profile of
+    the decode steps. Returns the phase's numbers and the bf16 module."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import Model, generate, quantize_model_for_decode
+    from accelerate_tpu_torch.generation import _decode_params, _llama_forward_cached, init_cache
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**FULL_WIDTH, max_position_embeddings=2048, dtype=torch.bfloat16)
+    module = LlamaForCausalLM(cfg, device=device)
+    module.init_weights(torch.Generator(device=device).manual_seed(0))
+    module.to(torch.bfloat16)
+    prompt_np = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, GEN_PROMPT))
+    prompt = torch.from_numpy(prompt_np).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    models = {"bf16": Model(module)}
+    models["int8"] = quantize_model_for_decode(models["bf16"])
+    rows, res = {}, {}
+    for name, model in models.items():
+        generate(model, prompt, max_new_tokens=GEN_NEW_TOKENS)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(model, prompt, max_new_tokens=GEN_NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows[name] = out[0, GEN_PROMPT:].cpu().numpy()
+        params = _decode_params(model)
+        prefill = []
+        for _ in range(3):
+            cache = init_cache(cfg, 1, GEN_PROMPT + GEN_NEW_TOKENS, device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _llama_forward_cached(cfg, params, prompt, cache)
+            torch.cuda.synchronize()
+            prefill.append((time.perf_counter() - t0) * 1e3)
+        steps = GEN_NEW_TOKENS - 1
+        decode_s, finite = _decode_steps(cfg, params, prompt, steps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, finite_p = _decode_steps(cfg, params, prompt, steps)
+        busy_ms, by_cat, top, n_kernels = device_times(prof, steps, n_top=8)
+        decode_ms = decode_s * 1e3 / steps
+        bound_ms, bound_bytes = decode_bound(FULL_WIDTH, 2 if name == "bf16" else 1,
+                                             ctx=GEN_PROMPT + GEN_NEW_TOKENS // 2)
+        res[name] = {
+            "decode_tok_s": GEN_NEW_TOKENS / wall, "generate_ms": wall * 1e3,
+            "prefill_ms": float(np.median(prefill)), "decode_ms_per_token": decode_ms,
+            "bound_ms_per_token": bound_ms, "bound_bytes_per_token": bound_bytes,
+            "bound_share": bound_ms / decode_ms,
+            "device_busy_ms_per_token": busy_ms,
+            "idle_share": 1.0 - busy_ms / decode_ms if top else None,
+            "kernels_per_token": n_kernels, "ms_per_token_by_category": by_cat,
+            "top_kernels_ms_per_token": top, "host_ops_ms_per_token": host_ops(prof, steps),
+            "tokens_in_vocab": bool(((rows[name] >= 0) & (rows[name] < cfg.vocab_size)).all()),
+            "logits_finite": finite and finite_p,
+        }
+    del models
+    return {
+        "decode_tok_s_bf16": res["bf16"]["decode_tok_s"],
+        "decode_tok_s_int8": res["int8"]["decode_tok_s"],
+        "int8_decode_speedup": res["int8"]["decode_tok_s"] / res["bf16"]["decode_tok_s"],
+        "int8_tokens_equal_bf16": float((rows["int8"] == rows["bf16"]).mean()),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "variants": res,
+    }, module
+
+
+def tiny_serving_parity(device="cuda"):
+    """ServingEngine.run of the tiny fp32 Llama on the card (3 slots, mixed
+    prompt lengths, chunked prefill) against generate() of each prompt
+    alone, under the near-tie rule."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import ServingConfig, ServingEngine, generate
+
+    cfg, model = _tiny_module(device)
+    rng = np.random.default_rng(2)
+    lengths, budgets = [3, 7, 12, 20, 5, 9], [6, 4, 8, 3, 5, 7]
+    prompts = [rng.integers(1, cfg.vocab_size, (n,)) for n in lengths]
+    engine = ServingEngine(model, ServingConfig(n_slots=3, max_len=64, prefill_chunks=[4, 8]))
+    outs = engine.run(prompts, max_new_tokens=budgets)
+    divergences = []
+    for prompt, budget, got in zip(prompts, budgets, outs):
+        ref = generate(model, prompt[None], max_new_tokens=budget)
+        gaps = _greedy_gaps(cfg, model, ref, len(prompt))
+        divergences += first_divergence([ref[0, len(prompt):].tolist()],
+                                        [got[len(prompt):].tolist()], gaps)
+    torch.cuda.synchronize()
+    return divergences
+
+
+def full_width_serving(module):
+    """The engine at full width on generate_bench.py's serving row: its
+    Poisson trace replayed open loop after one warm-up request, with the
+    row's ServingConfig (8 slots, max_len from the trace, chunks up to the
+    prompt length)."""
+    import torch
+
+    from accelerate_tpu_torch import Model, ServingConfig, ServingEngine
+    from accelerate_tpu_torch.serving import replay_trace
+
+    vocab = module.config.vocab_size
+    lengths, budgets, prompts, arrivals = serving_trace(vocab, **SERVING_ROW)
+    t_cap = int(max(lengths + budgets)) + 8
+    engine = ServingEngine(Model(module), ServingConfig(
+        n_slots=SERVING_ROW["slots"], max_len=t_cap,
+        max_prefill_chunk=max(16, SERVING_ROW["prompt_len"])))
+    engine.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, wall = replay_trace(engine, prompts, arrivals=list(arrivals),
+                              max_new_tokens=[int(b) for b in budgets])
+    stats = engine.stats()
+    ticks = decode_tick_profile(engine, vocab)
+    return {
+        "trace": {**SERVING_ROW, "seed": 1, "arrivals_span_s": float(arrivals[-1]),
+                  "prompt_tokens_total": int(lengths.sum()),
+                  "budget_tokens_total": int(budgets.sum())},
+        "max_len": t_cap, "ladder": engine.ladder, "wall_s": wall,
+        "tok_s": stats["tokens_out"] / wall, "stats": stats,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "kv_cache_gib": (engine._cache.k.nbytes + engine._cache.v.nbytes) / 2**30,
+        "decode_ticks": ticks,
+        "ok": serving_gate(rows, prompts, budgets.tolist(), stats, vocab),
+    }
+
+
+def decode_tick_profile(engine, vocab, n=10):
+    """Steady decode ticks with every slot live (prompts of up to 64
+    tokens, no prefill left): host-clock ms per tick over `n` ticks, then
+    `n` more under torch.profiler for the device-busy ms and the idle
+    share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(3)
+    budget = 3 * n + 4
+    for _ in range(engine.n_slots):
+        engine.submit(rng.integers(0, vocab, size=min(64, engine.t_max - budget)),
+                      max_new_tokens=budget)
+    while engine._queue or engine._prefilling:
+        engine.tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        engine.tick()
+    tick_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            engine.tick()
+    live = len(engine._decoding)
+    while engine.pending:
+        engine.tick()
+    engine.poll()
+    busy_ms, by_cat, top, n_kernels = device_times(prof, n, n_top=6)
+    return {"live_slots": live, "tick_ms": tick_ms, "device_busy_ms_per_tick": busy_ms,
+            "idle_share": 1.0 - busy_ms / tick_ms if top else None,
+            "kernels_per_tick": n_kernels, "ms_per_tick_by_category": by_cat,
+            "top_kernels_ms_per_tick": top}
 
 
 def main() -> int:
@@ -451,6 +838,33 @@ def main() -> int:
 
     # 6. where the device time of a step goes (after the counted run)
     emit(profile_steps(*main_path.pop("_step"), main_path["step_ms"]))
+    # The train step's model, optimizer state and activations go before the
+    # generation phases.
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_gib = torch.cuda.memory_allocated() / 2**30
+
+    # 7. generate: tiny card against CPU, then bench.py's decode row
+    gen_res = {"tiny": tiny_generate_parity()}
+    full_gen, gen_module = full_width_generate()
+    gen_res["full_width"] = full_gen["variants"]
+    gen_ok = generate_gate(gen_res)
+    emit({"phase": "generate", "tiny_divergence": gen_res["tiny"],
+          "allocated_gib_at_start": allocated_gib, **full_gen, "ok": gen_ok})
+    if not gen_ok:
+        print("chip_smoke: generate failed (card/CPU tokens, token range or finite logits)",
+              file=sys.stderr)
+        return 1
+
+    # 8. serving: tiny engine against generate on the card, then full width
+    tiny_serving = tiny_serving_parity()
+    serving = full_width_serving(gen_module)
+    serving_ok = serving["ok"] and parity_ok(tiny_serving)
+    emit({"phase": "serving", "tiny_divergence": tiny_serving, **serving, "ok": serving_ok})
+    if not serving_ok:
+        print("chip_smoke: serving failed (engine/generate tokens or a request)",
+              file=sys.stderr)
+        return 1
 
     sources = {"flash_fwd": ("accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
                              "accelerate_tpu/ops/pallas_flash.py:72"),

@@ -1,5 +1,6 @@
 """chip_smoke.py's pure pieces on the CPU: the kernels' bounds, the SASS
-check of the built libraries and the profiler's kernel categories.
+check of the built libraries, the profiler's kernel categories, the decode
+bound, the phase-7/8 gates and the serving trace.
 
 The script is loaded by its path, so the import does not depend on
 sys.path; its top level imports no torch, and neither does this file.
@@ -71,3 +72,105 @@ def test_sass_ok_needs_wgmma_and_tma_and_no_mma_sync(chip_smoke, kernel, op, cou
 
 def test_sass_ok_needs_every_library(chip_smoke):
     assert not chip_smoke.sass_ok({k: v for k, v in _SASS.items() if k != "flash_dq"})
+
+
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: the decode bound and the gates
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("weight_bytes,gb,ms", [(2, 1.9810, 0.5913), (1, 1.0577, 0.3157)])
+def test_decode_bound_per_token_of_the_1b_llama(chip_smoke, weight_bytes, gb, ms):
+    """924.9M block + 65.5M head parameters: ≈ 1.98 GB in bf16, ≈ 1.06 GB
+    with int8 blocks (plus their scales), at 3.35 TB/s."""
+    bound_ms, nbytes = chip_smoke.decode_bound(chip_smoke.FULL_WIDTH, weight_bytes)
+    assert nbytes / 1e9 == pytest.approx(gb, abs=5e-4)
+    assert bound_ms == pytest.approx(ms, abs=5e-4)
+
+
+def test_decode_bound_counts_the_kv_cache_read(chip_smoke):
+    """Each cached position adds K and V of 18 layers × 2048 bf16 values."""
+    base = chip_smoke.decode_bound(chip_smoke.FULL_WIDTH, 2)[1]
+    assert chip_smoke.decode_bound(chip_smoke.FULL_WIDTH, 2, ctx=80)[1] - base == \
+        80 * 18 * 2 * 2048 * 2
+
+
+_GAPS = [[0.5, 0.3, 5e-5, 0.2], [0.1, 0.1, 0.1, 0.1]]
+
+
+@pytest.mark.parametrize("got,expected", [
+    ([[1, 2, 3, 4], [5, 6, 7, 8]], [None, None]),
+    ([[1, 2, 9, 9], [5, 6, 7, 8]], [{"pos": 2, "gap": 5e-5, "near_tie": True}, None]),
+    ([[1, 9, 3, 4], [5, 6, 7, 8]], [{"pos": 1, "gap": 0.3, "near_tie": False}, None]),
+    ([[1, 2, 3, 4], [5, 6, 7, 9]], [None, {"pos": 3, "gap": 0.1, "near_tie": False}]),
+    # Row 0 parts at a near-tie; row 1 is still compared, and is wrong.
+    ([[1, 2, 9, 9], [5, 9, 7, 8]], [{"pos": 2, "gap": 5e-5, "near_tie": True},
+                                    {"pos": 1, "gap": 0.1, "near_tie": False}]),
+], ids=["equal", "near_tie", "wrong", "wrong_last", "near_tie_then_wrong_row"])
+def test_first_divergence_applies_the_near_tie_rule(chip_smoke, got, expected):
+    ref = [[1, 2, 3, 4], [5, 6, 7, 8]]
+    div = chip_smoke.first_divergence(ref, got, _GAPS)
+    assert div == expected
+    assert chip_smoke.parity_ok(div) is all(d is None or d["near_tie"] for d in expected)
+
+
+def _gen_result(tiny=None, in_vocab=True, finite=True):
+    full = {"tokens_in_vocab": True, "logits_finite": True}
+    return {"tiny": {"plain": [None, None], "left_padded_eos": [None, tiny]},
+            "full_width": {"bf16": dict(full),
+                           "int8": {"tokens_in_vocab": in_vocab, "logits_finite": finite}}}
+
+
+@pytest.mark.parametrize("kw,ok", [
+    ({}, True),
+    ({"tiny": {"pos": 4, "gap": 2e-5, "near_tie": True}}, True),
+    ({"tiny": {"pos": 4, "gap": 0.4, "near_tie": False}}, False),
+    ({"in_vocab": False}, False),
+    ({"finite": False}, False),
+], ids=["ok", "near_tie", "diverged", "token_out_of_vocab", "nonfinite_logits"])
+def test_generate_gate(chip_smoke, kw, ok):
+    assert chip_smoke.generate_gate(_gen_result(**kw)) is ok
+
+
+_PROMPTS = [[1, 2, 3], [4, 5, 6, 7, 8]]
+_BUDGETS = [4, 2]
+
+
+def _rows(new=7):
+    return [p + [new] * b for p, b in zip(_PROMPTS, _BUDGETS)]
+
+
+def _stats(completed=2, tokens_out=6):
+    return {"requests_completed": completed, "tokens_out": tokens_out}
+
+
+@pytest.mark.parametrize("rows,stats,ok", [
+    (_rows(), _stats(), True),
+    (_rows(), _stats(tokens_out=5), False),
+    ([_rows()[0][:-1], _rows()[1]], _stats(), False),
+    ([[9] + _rows()[0][1:], _rows()[1]], _stats(), False),
+    (_rows(new=50), _stats(), False),
+    (_rows()[:1], _stats(completed=1), False),
+], ids=["full_budgets", "short_count", "short_row", "prompt_changed", "token_out_of_vocab",
+        "missing_request"])
+def test_serving_gate(chip_smoke, rows, stats, ok):
+    assert chip_smoke.serving_gate(rows, _PROMPTS, _BUDGETS, stats, vocab=50) is ok
+
+
+def test_serving_trace_is_generate_bench_serving_row(chip_smoke):
+    """The trace draws what benchmarks/generate_bench.py's Poisson serving
+    row draws, in its order, from default_rng(1)."""
+    import numpy as np
+
+    lengths, budgets, prompts, arrivals = chip_smoke.serving_trace(
+        32000, **chip_smoke.SERVING_ROW)
+    rng = np.random.default_rng(1)
+    n = 32
+    np.testing.assert_array_equal(lengths, rng.integers(4, 64, n))
+    short = rng.random(n) < 0.5
+    short_b, long_ = rng.integers(4, 12, n), rng.integers(32, 65, n)
+    np.testing.assert_array_equal(budgets, np.where(short, short_b, long_))
+    for prompt, n_tok in zip(prompts, lengths):
+        np.testing.assert_array_equal(prompt, rng.integers(1, 32000, (n_tok,), dtype=np.int32))
+    np.testing.assert_array_equal(arrivals, np.cumsum(rng.exponential(1 / 8.0, n)))
+    assert ((budgets >= 4) & (budgets <= 64)).all() and np.all(np.diff(arrivals) > 0)
