@@ -1,20 +1,37 @@
-"""PyTorch/CUDA port of accelerate_tpu: the Llama training step on one
-NVIDIA Hopper GPU, with hand-written CUDA kernels for flash attention, and
-KV-cache generation and continuous-batching serving for Llama.
+"""PyTorch/CUDA port of accelerate_tpu: the Llama training loop on one
+NVIDIA Hopper GPU (the train step with hand-written CUDA kernels for flash
+attention, prepared data loaders, learning-rate schedules, and checkpoints
+in the JAX package's directory contract), and KV-cache generation and
+continuous-batching serving for Llama.
 
 It imports torch only, never JAX or the ``accelerate_tpu`` package, and
 runs on CUDA unless the caller asks for the CPU (``Accelerator(cpu=True)``).
 """
 
 from .accelerator import Accelerator
+from .data_loader import (
+    ColumnDataset,
+    SeedableRandomSampler,
+    prepare_data_loader,
+    skip_first_batches,
+)
 from .generation import GenerationConfig, generate
 from .model import Model
-from .optimizer import adamw
+from .optimizer import (
+    adamw,
+    constant_schedule,
+    cosine_decay_schedule,
+    join_schedules,
+    linear_schedule,
+    warmup_cosine_decay_schedule,
+)
 from .parallelism_config import ParallelismConfig
+from .scheduler import AcceleratedScheduler
 from .serving import ServingEngine
 from .state import AcceleratorState, GradientState, PartialState
 from .train_state import TrainState
 from .utils import (
+    DataLoaderConfiguration,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
@@ -25,8 +42,11 @@ from .utils import (
 from .utils.quantization import quantize_model_for_decode
 
 __all__ = [
+    "AcceleratedScheduler",
     "Accelerator",
     "AcceleratorState",
+    "ColumnDataset",
+    "DataLoaderConfiguration",
     "FullyShardedDataParallelPlugin",
     "GenerationConfig",
     "GradientAccumulationPlugin",
@@ -36,11 +56,19 @@ __all__ = [
     "ParallelismConfig",
     "PartialState",
     "ProjectConfiguration",
+    "SeedableRandomSampler",
     "ServingConfig",
     "ServingEngine",
     "TrainState",
     "adamw",
+    "constant_schedule",
+    "cosine_decay_schedule",
     "generate",
+    "join_schedules",
+    "linear_schedule",
+    "prepare_data_loader",
     "quantize_model_for_decode",
     "set_seed",
+    "skip_first_batches",
+    "warmup_cosine_decay_schedule",
 ]

@@ -1,11 +1,19 @@
-"""The Accelerator: the subset of ``accelerate_tpu/accelerator.py`` on the
-training step's path.
+"""The Accelerator: the subset of ``accelerate_tpu/accelerator.py`` that the
+training loop runs.
 
-    acc = Accelerator(mixed_precision="bf16")
-    model, opt = acc.prepare(Model(LlamaForCausalLM(cfg)), adamw(3e-4, weight_decay=0.1))
+    acc = Accelerator(mixed_precision="bf16",
+                      project_config=ProjectConfiguration(project_dir=run_dir,
+                                                          automatic_checkpoint_naming=True))
+    schedule = warmup_cosine_decay_schedule(0.0, 3e-4, 100, 10_000)
+    model, opt, loader, sched = acc.prepare(
+        Model(LlamaForCausalLM(cfg)), adamw(schedule, weight_decay=0.1), train_spec, schedule)
     step = acc.prepare_train_step(loss_fn, max_grad_norm=1.0)   # loss_fn(model, batch)
     state = acc.train_state
-    state, metrics = step(state, batch)                         # {"loss", "grad_norm"}
+    for batch in loader:                                        # tensors on acc.device
+        state, metrics = step(state, batch)                     # {"loss", "grad_norm"}
+        sched.step()
+    acc.save_state()                                            # checkpoints/checkpoint_<i>
+    acc.load_state()                                            # the newest, mid-epoch too
 
 The step has the JAX step's semantics: the loss runs on the parameters cast
 to the compute dtype, gradients land on the fp32 masters, accumulate over a
@@ -15,6 +23,12 @@ microbatches), are clipped by global norm with
 masters. The parameters and optimizer state are updated in place (the JAX
 step donates its buffers to the same effect). Metrics are device tensors:
 reading them waits for the step.
+
+``prepare`` takes models, optimizers, data loaders (anything with a
+``dataset``, or iterable with a ``batch_size``) and schedules
+(``schedule(count) -> lr``) in any order and returns them in order. One
+process on one device: ``gather``, ``gather_for_metrics`` and ``reduce``
+are identities there, and more processes are ROADMAP.md Queue A item 1.
 """
 
 from __future__ import annotations
@@ -24,16 +38,22 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .data_loader import BaseDataLoader, prepare_data_loader, skip_first_batches
 from .model import Model
 from .optimizer import AdamW
 from .parallelism_config import ParallelismConfig
+from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .train_state import TrainState
 from .utils.dataclasses import (
+    DataLoaderConfiguration,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
+    ProjectConfiguration,
 )
+
+_MULTI_GPU_ITEM = "ROADMAP.md Queue A item 1 (multi-GPU FSDP2/DDP)"
 
 
 def _microbatch_split(batch: dict, num_accum: int) -> list[dict]:
@@ -47,6 +67,25 @@ def _microbatch_split(batch: dict, num_accum: int) -> list[dict]:
     return [{k: v[:, i] for k, v in views.items()} for i in range(num_accum)]
 
 
+def _is_dataloader_like(obj) -> bool:
+    if isinstance(obj, BaseDataLoader):
+        return True
+    return hasattr(obj, "dataset") or (hasattr(obj, "__iter__") and hasattr(obj, "batch_size"))
+
+
+def _is_schedule(obj) -> bool:
+    return callable(obj) and not isinstance(obj, (Model, AdamW)) and not _is_dataloader_like(obj)
+
+
+class _HookHandle:
+    def __init__(self, registry: list, hook):
+        self._registry, self._hook = registry, hook
+
+    def remove(self):
+        if self._hook in self._registry:
+            self._registry.remove(self._hook)
+
+
 class Accelerator:
     def __init__(
         self,
@@ -55,21 +94,63 @@ class Accelerator:
         cpu: bool = False,
         parallelism_config: Optional[ParallelismConfig] = None,
         fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
+        split_batches: bool = False,
+        dataloader_config: Optional[DataLoaderConfiguration] = None,
+        project_dir: Optional[str] = None,
+        project_config: Optional[ProjectConfiguration] = None,
     ):
-        # fsdp_plugin is accepted only at its defaults (it raises otherwise):
-        # on one device FSDP has nothing to shard, and a wider mesh raises in
-        # AcceleratorState.
-        del fsdp_plugin
+        # fsdp_plugin's sharding fields are accepted only at their defaults
+        # (they raise otherwise): on one device FSDP has nothing to shard, and
+        # a wider mesh raises in AcceleratorState. Its state_dict_type picks
+        # the checkpoint's file layout.
+        self.fsdp_plugin = fsdp_plugin
+        self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
+        if project_dir is not None and self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
         self._mp_policy = MixedPrecisionPolicy.from_mixed_precision(mixed_precision)
         self.state = AcceleratorState(
             mixed_precision=mixed_precision, cpu=cpu, parallelism_config=parallelism_config)
         self.gradient_state = GradientState(
             GradientAccumulationPlugin(num_steps=gradient_accumulation_steps))
+        self.dataloader_config = dataloader_config or DataLoaderConfiguration(
+            split_batches=split_batches)
         self._train_states: list[TrainState] = []
+        self._models: list[Model] = []
+        self._optimizers: list[torch.optim.Optimizer] = []
+        self._schedulers: list[AcceleratedScheduler] = []
+        self._dataloaders: list[BaseDataLoader] = []
+        self._custom_objects: list = []
+        self._save_state_pre_hooks: list[Callable] = []
+        self._load_state_pre_hooks: list[Callable] = []
+        # Steps of the imperative loop (accumulate), which the port does not
+        # have yet; saved and restored with a checkpoint as the JAX package does.
+        self.step = 0
+        # The last save_state/load_state: its directory and seconds, split
+        # into host copies and disk; a save also counts its bytes.
+        self.checkpoint_stats: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
         return self.state.device
+
+    @property
+    def num_processes(self) -> int:
+        return self.state._partial.num_processes
+
+    @property
+    def process_index(self) -> int:
+        return self.state._partial.process_index
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.process_index == 0
+
+    def wait_for_everyone(self) -> None:
+        self.state._partial.wait_for_everyone()
+
+    @property
+    def project_dir(self) -> Optional[str]:
+        return self.project_configuration.project_dir
 
     @property
     def train_state(self) -> TrainState:
@@ -77,31 +158,87 @@ class Accelerator:
             raise RuntimeError("Call accelerator.prepare(model, optimizer) first.")
         return self._train_states[0]
 
+    # ------------------------------------------------------------------
+    # prepare()
+    # ------------------------------------------------------------------
+
     def prepare(self, *args):
-        """Move each ``Model`` to the device and build each optimizer on the
-        parameters of the model before it. Returns the arguments in order."""
-        out, model = [], None
-        for obj in args:
+        """Prepare models, optimizers, data loaders and schedules, returning
+        them in the order given. Each optimizer is built on the parameters of
+        the model before it; loaders and schedules may come anywhere."""
+        out, model = list(args), None
+        for i, obj in enumerate(args):
             if isinstance(obj, Model):
                 obj.module.to(self.device)
                 model = obj
-                out.append(obj)
+                self._models.append(obj)
             elif isinstance(obj, (AdamW, torch.optim.Optimizer)):
                 if model is None:
                     raise ValueError("prepare() needs the model before its optimizer")
                 opt = obj(model.parameters()) if isinstance(obj, AdamW) else obj
                 self._train_states.append(TrainState(step=0, model=model, optimizer=opt))
-                out.append(opt)
+                self._optimizers.append(opt)
+                out[i] = opt
+        for i, obj in enumerate(args):
+            if isinstance(obj, (Model, AdamW, torch.optim.Optimizer)):
+                continue
+            if _is_dataloader_like(obj):
+                out[i] = self.prepare_data_loader(obj)
+            elif isinstance(obj, AcceleratedScheduler) or _is_schedule(obj):
+                out[i] = self.prepare_scheduler(obj)
             else:
-                raise TypeError(f"prepare() does not take {type(obj).__name__} yet")
+                raise TypeError(f"prepare() does not take {type(obj).__name__}")
         return out[0] if len(out) == 1 else tuple(out)
+
+    def prepare_data_loader(self, data_loader):
+        """This package's loader over ``data_loader``, placing batches on
+        ``self.device``; registered for checkpoints."""
+        if isinstance(data_loader, BaseDataLoader):
+            prepared = data_loader
+        else:
+            cfg = self.dataloader_config
+            prepared = prepare_data_loader(
+                data_loader, device=self.device, num_processes=self.num_processes,
+                process_index=self.process_index, split_batches=cfg.split_batches,
+                dispatch_batches=cfg.dispatch_batches,
+                even_batches=cfg.even_batches, use_seedable_sampler=cfg.use_seedable_sampler,
+                data_seed=cfg.data_seed, non_blocking=cfg.non_blocking,
+                prefetch_size=cfg.prefetch_size)
+        if prepared not in self._dataloaders:
+            self._dataloaders.append(prepared)
+        return prepared
+
+    def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
+        if isinstance(scheduler, AcceleratedScheduler):
+            wrapped = scheduler
+        else:
+            wrapped = AcceleratedScheduler(
+                scheduler, optimizers=self._optimizers or None,
+                split_batches=self.dataloader_config.split_batches)
+        if wrapped not in self._schedulers:
+            self._schedulers.append(wrapped)
+        return wrapped
+
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        return skip_first_batches(dataloader, num_batches)
 
     def unwrap_model(self, model: Model) -> torch.nn.Module:
         return model.module if isinstance(model, Model) else model
 
+    # ------------------------------------------------------------------
+    # The train step
+    # ------------------------------------------------------------------
+
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-                .to(self.device, non_blocking=True) for k, v in batch.items()}
+        """A hand-built batch (numpy arrays or host tensors) on the device; a
+        batch that a prepared loader already placed passes as it is."""
+        def place(v):
+            if torch.is_tensor(v) and v.device == self.device:
+                return v
+            return torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v)).to(
+                self.device, non_blocking=True)
+
+        return {k: place(v) for k, v in batch.items()}
 
     def prepare_train_step(self, loss_fn: Callable, *, max_grad_norm: Optional[float] = None):
         """``step(state, batch) -> (state, {"loss", "grad_norm"})`` around
@@ -135,3 +272,94 @@ class Accelerator:
             return state, {"loss": loss_sum / num_accum, "grad_norm": gnorm}
 
         return step
+
+    # ------------------------------------------------------------------
+    # Metrics across processes (one process: identities)
+    # ------------------------------------------------------------------
+
+    def _one_process(self, what: str) -> None:
+        if self.num_processes > 1:
+            raise NotImplementedError(f"{what} across processes is {_MULTI_GPU_ITEM}")
+
+    def gather(self, tensor):
+        self._one_process("gather")
+        return tensor
+
+    def gather_for_metrics(self, input_data, use_gather_object: bool = False):
+        """The gathered values without the samples that ``even_batches``
+        repeated to fill the last batch."""
+        data = self.gather(input_data)
+        gs = self.gradient_state
+        if gs.end_of_dataloader and gs.remainder > 0:
+            def trim(x):
+                return x[: gs.remainder]
+
+            if isinstance(data, dict):
+                return {k: trim(v) for k, v in data.items()}
+            if isinstance(data, (tuple, list)) and not use_gather_object:
+                return type(data)(trim(v) for v in data)
+            return trim(data)
+        return data
+
+    def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
+        if reduction not in ("sum", "mean", "none"):
+            raise ValueError(f"reduction must be sum|mean|none, got {reduction!r}")
+        self._one_process("reduce")
+        return tensor * scale if scale != 1.0 else tensor
+
+    # ------------------------------------------------------------------
+    # Checkpoints
+    # ------------------------------------------------------------------
+
+    def register_for_checkpointing(self, *objects):
+        invalid = [o for o in objects
+                   if not (hasattr(o, "state_dict") and hasattr(o, "load_state_dict"))]
+        if invalid:
+            raise ValueError(
+                "All `objects` must include a `state_dict` and `load_state_dict` function "
+                f"to be stored: {invalid}")
+        self._custom_objects.extend(objects)
+
+    def register_save_state_pre_hook(self, hook: Callable) -> _HookHandle:
+        """``hook(models, train_state, output_dir)`` runs before every
+        ``save_state`` writes; the handle's ``remove()`` drops it."""
+        self._save_state_pre_hooks.append(hook)
+        return _HookHandle(self._save_state_pre_hooks, hook)
+
+    def register_load_state_pre_hook(self, hook: Callable) -> _HookHandle:
+        """``hook(models, input_dir)`` runs before every ``load_state`` reads."""
+        self._load_state_pre_hooks.append(hook)
+        return _HookHandle(self._load_state_pre_hooks, hook)
+
+    def save_state(self, output_dir: Optional[str] = None, safe_serialization: bool = True,
+                   block: bool = True) -> str:
+        """Write the training state (``checkpointing.py`` lists the files)
+        and return the directory."""
+        from .checkpointing import _checkpoint_dir, save_accelerator_state
+
+        if not safe_serialization:
+            raise ValueError("checkpoints hold model.safetensors: safe_serialization=False "
+                             "has no other format")
+        if not block:
+            raise NotImplementedError(
+                f"save_state(block=False) is asynchronous only for DISTRIBUTED_STATE_DICT "
+                f"(orbax), which is {_MULTI_GPU_ITEM}")
+        if self._save_state_pre_hooks:
+            output_dir = _checkpoint_dir(self, output_dir)
+            for hook in self._save_state_pre_hooks:
+                hook(self._models, self._train_states[0] if self._train_states else None,
+                     output_dir)
+        return save_accelerator_state(self, output_dir)
+
+    def load_state(self, input_dir: Optional[str] = None) -> str:
+        """Restore the training state from ``input_dir`` or the newest
+        automatic checkpoint (this package's or the JAX package's) and
+        return the directory. The next pass over a prepared loader resumes
+        at the batch after the last one the saved run took."""
+        from .checkpointing import _checkpoint_dir, load_accelerator_state
+
+        if self._load_state_pre_hooks:
+            input_dir = _checkpoint_dir(self, input_dir, for_load=True)
+            for hook in self._load_state_pre_hooks:
+                hook(self._models, input_dir)
+        return load_accelerator_state(self, input_dir)

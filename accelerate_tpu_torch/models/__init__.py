@@ -1,4 +1,4 @@
-from .convert import llama_params_from_flax
+from .convert import llama_params_from_flax, llama_params_to_flax
 from .llama import (
     LlamaAttention,
     LlamaBlock,
@@ -25,6 +25,7 @@ __all__ = [
     "apply_rope",
     "cross_entropy_loss",
     "llama_params_from_flax",
+    "llama_params_to_flax",
     "naive_attention",
     "rms_norm",
     "rotary_embedding",

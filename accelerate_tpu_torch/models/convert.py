@@ -1,4 +1,5 @@
-"""Carry Llama weights from the flax tree of the JAX package to a state dict.
+"""Carry Llama weights between the flax tree of the JAX package and a
+state dict of the port, both ways.
 
 The flax tree (``params`` of ``accelerate_tpu.models.LlamaForCausalLM``) holds
 either one ``nn.scan`` stack, ``model/layers/block/...`` with a leading layer
@@ -6,6 +7,10 @@ axis, or unrolled ``model/layers_{i}/...`` (``scan_layers=False``). Kernels
 are stored input-major: ``DenseGeneral`` q/k/v kernels are
 ``(H, heads, D)``, ``o_proj`` is ``(heads, D, H)``, ``Dense`` kernels are
 ``(in, out)``; a ``torch.nn.Linear`` weight is ``(out, in)``.
+
+The same maps carry any tree shaped like the parameters, such as AdamW's
+moments (optax's ``mu``/``nu``). Both directions work on torch tensors on
+any device, so a checkpoint changes layouts on the card.
 """
 
 from __future__ import annotations
@@ -15,56 +20,117 @@ import torch
 
 from .llama import LlamaConfig
 
-
-def _linear(kernel) -> np.ndarray:
-    """A flax kernel (in..., out...) of a projection with one input axis
-    (q/k/v, gate/up/down, lm_head) as a Linear weight (out, in)."""
-    kernel = np.asarray(kernel)
-    return kernel.reshape(kernel.shape[0], -1).T
+_NORMS = ("input_layernorm", "post_attention_layernorm")
+_PROJ = {"self_attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
+         "mlp": ("gate_proj", "up_proj", "down_proj")}
 
 
-def _block(blk: dict) -> dict:
-    attn, mlp = blk["self_attn"], blk["mlp"]
-    o = np.asarray(attn["o_proj"]["kernel"])  # (heads, D, H)
-    return {
-        "input_layernorm.weight": np.asarray(blk["input_layernorm"]["weight"]),
-        "post_attention_layernorm.weight": np.asarray(blk["post_attention_layernorm"]["weight"]),
-        "self_attn.q_proj.weight": _linear(attn["q_proj"]["kernel"]),
-        "self_attn.k_proj.weight": _linear(attn["k_proj"]["kernel"]),
-        "self_attn.v_proj.weight": _linear(attn["v_proj"]["kernel"]),
-        "self_attn.o_proj.weight": o.reshape(-1, o.shape[-1]).T,
-        "mlp.gate_proj.weight": _linear(mlp["gate_proj"]["kernel"]),
-        "mlp.up_proj.weight": _linear(mlp["up_proj"]["kernel"]),
-        "mlp.down_proj.weight": _linear(mlp["down_proj"]["kernel"]),
-    }
+def _as_tensor(x) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x
+    a = np.array(x)
+    try:
+        return torch.from_numpy(a)
+    except TypeError:  # a numpy dtype torch lacks, such as ml_dtypes' bfloat16
+        return torch.from_numpy(a.astype(np.float32))
+
+
+def _map_tree(fn, tree):
+    """``fn`` on every leaf of nested dicts (flax ``FrozenDict`` included)."""
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _linear(kernel: torch.Tensor) -> torch.Tensor:
+    """A flax kernel (in, out...) of a projection with one input axis as a
+    Linear weight (out, in): a view."""
+    return kernel.reshape(kernel.shape[0], -1).t()
+
+
+def _block_from_flax(blk: dict) -> dict:
+    out = {f"{n}.weight": _as_tensor(blk[n]["weight"]) for n in _NORMS}
+    for part, names in _PROJ.items():
+        for name in names:
+            kernel = _as_tensor(blk[part][name]["kernel"])
+            if name == "o_proj":  # (heads, D, H)
+                out[f"{part}.{name}.weight"] = kernel.reshape(-1, kernel.shape[-1]).t()
+            else:
+                out[f"{part}.{name}.weight"] = _linear(kernel)
+    return out
 
 
 def _layer_trees(model: dict, n_layers: int) -> list[dict]:
     if "layers" in model:  # nn.scan: every leaf has a leading layer axis
-        stacked = model["layers"]["block"]
-
-        def take(tree, i):
-            if isinstance(tree, dict) or hasattr(tree, "items"):
-                return {k: take(v, i) for k, v in tree.items()}
-            return np.asarray(tree)[i]
-
-        return [take(stacked, i) for i in range(n_layers)]
+        stacked = _map_tree(_as_tensor, model["layers"]["block"])
+        return [_map_tree(lambda t: t[i], stacked) for i in range(n_layers)]
     return [model[f"layers_{i}"] for i in range(n_layers)]
 
 
-def llama_params_from_flax(cfg: LlamaConfig, flax_params) -> dict[str, torch.Tensor]:
-    """State dict of ``LlamaForCausalLM(cfg)`` from the flax params tree
-    (numpy or array leaves), fp32."""
+def llama_views_from_flax(cfg: LlamaConfig, flax_params) -> dict[str, torch.Tensor]:
+    """``LlamaForCausalLM(cfg)`` names → tensors in its layouts, as views of
+    the flax tree's tensors where the layout allows (no copy, any dtype and
+    device). Either flax layout is read."""
     if "params" in flax_params and "model" not in flax_params:
         flax_params = flax_params["params"]
     model = flax_params["model"]
     flat = {
-        "model.embed_tokens.weight": np.asarray(model["embed_tokens"]["embedding"]),
-        "model.norm.weight": np.asarray(model["norm"]["weight"]),
+        "model.embed_tokens.weight": _as_tensor(model["embed_tokens"]["embedding"]),
+        "model.norm.weight": _as_tensor(model["norm"]["weight"]),
     }
     for i, blk in enumerate(_layer_trees(model, cfg.num_hidden_layers)):
-        for name, value in _block(blk).items():
+        for name, value in _block_from_flax(blk).items():
             flat[f"model.layers.{i}.{name}"] = value
     if not cfg.tie_word_embeddings:
-        flat["lm_head.weight"] = _linear(flax_params["lm_head"]["kernel"])
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in flat.items()}
+        flat["lm_head.weight"] = _linear(_as_tensor(flax_params["lm_head"]["kernel"]))
+    return flat
+
+
+def llama_params_from_flax(cfg: LlamaConfig, flax_params) -> dict[str, torch.Tensor]:
+    """State dict of ``LlamaForCausalLM(cfg)`` from the flax params tree
+    (numpy, array or tensor leaves): contiguous fp32 tensors."""
+    return {k: v.float().contiguous() for k, v in llama_views_from_flax(cfg, flax_params).items()}
+
+
+def _block_to_flax(get, cfg: LlamaConfig, prefix: str) -> dict:
+    heads, kv, d, h = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
+                       cfg.hidden_size)
+    shapes = {"q_proj": (h, heads, d), "k_proj": (h, kv, d), "v_proj": (h, kv, d)}
+    attn = {name: {"kernel": get(f"{prefix}self_attn.{name}.weight").t().reshape(shape)}
+            for name, shape in shapes.items()}
+    attn["o_proj"] = {"kernel": get(f"{prefix}self_attn.o_proj.weight").t().reshape(heads, d, h)}
+    return {
+        **{n: {"weight": get(f"{prefix}{n}.weight")} for n in _NORMS},
+        "self_attn": attn,
+        "mlp": {n: {"kernel": get(f"{prefix}mlp.{n}.weight").t()} for n in _PROJ["mlp"]},
+    }
+
+
+def llama_params_to_flax(cfg: LlamaConfig, state_dict: dict) -> dict:
+    """The flax params tree of ``cfg`` from a state dict (or any tree of
+    tensors with its names, such as AdamW's moments), the inverse of
+    ``llama_params_from_flax``: kernels input-major, q/k/v as
+    ``(H, heads, D)``, ``o_proj`` as ``(heads, D, H)``, and the layers as one
+    ``model/layers/block`` stack with a leading layer axis when
+    ``cfg.scan_layers``, else as ``model/layers_{i}``. Leaves are contiguous
+    tensors on the state dict's device, in its dtype."""
+    get = state_dict.__getitem__
+    layers = [_block_to_flax(get, cfg, f"model.layers.{i}.")
+              for i in range(cfg.num_hidden_layers)]
+    model = {"embed_tokens": {"embedding": get("model.embed_tokens.weight")},
+             "norm": {"weight": get("model.norm.weight")}}
+    if cfg.scan_layers:
+        model["layers"] = {"block": _zip_trees(lambda *leaves: torch.stack(leaves), layers)}
+    else:
+        model.update({f"layers_{i}": layer for i, layer in enumerate(layers)})
+    tree = {"model": model}
+    if not cfg.tie_word_embeddings:
+        tree["lm_head"] = {"kernel": get("lm_head.weight").t()}
+    return _map_tree(lambda t: t.contiguous(), tree)
+
+
+def _zip_trees(fn, trees: list[dict]) -> dict:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _zip_trees(fn, [t[k] for t in trees]) for k in first}
+    return fn(*trees)

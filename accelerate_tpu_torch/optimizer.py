@@ -1,8 +1,8 @@
-"""Optimizer factories with optax's names and defaults.
+"""Optimizer factories and learning-rate schedules with optax's names.
 
-Counterpart of the optax transforms the JAX package takes. ``adamw(...)``
-is built before the model's parameters exist, as an optax transform is;
-``Accelerator.prepare`` calls it on the parameters.
+Counterpart of the optax transforms and schedules the JAX package takes.
+``adamw(...)`` is built before the model's parameters exist, as an optax
+transform is; ``Accelerator.prepare`` calls it on the parameters.
 
 ``optax.adamw`` and ``torch.optim.AdamW`` compute the same update. With
 bias-corrected moments m̂ and v̂, optax applies
@@ -10,38 +10,141 @@ bias-corrected moments m̂ and v̂, optax applies
 ``p ← p·(1 − lr·wd) − lr·m̂/(√v̂ + eps)``: both decouple the weight decay
 from the moments, scale it by the learning rate, and apply it to the
 parameter before the step. optax's ``eps_root`` is 0 by default, as here.
+
+The learning rate is a float or a schedule ``schedule(count) -> lr``. optax
+evaluates the schedule at the update count before it increments
+(``scale_by_schedule``), so update k (from 0) uses ``schedule(k)``;
+``ScheduledAdamW`` sets every group's ``lr`` to that value before each
+step and counts its updates in ``count``, which a checkpoint carries as
+optax's ``count``. The schedules below are plain-Python copies of optax's,
+with its formulas and argument names; optax computes them in float32 and
+these in Python floats, so values agree to float32 rounding.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Iterable
+from typing import Any, Callable, Iterable, Sequence, Union
 
 import torch
+
+Schedule = Callable[[int], float]
+
+
+def constant_schedule(value: float) -> Schedule:
+    return lambda count: value
+
+
+def polynomial_schedule(init_value: float, end_value: float, power: float,
+                        transition_steps: int, transition_begin: int = 0) -> Schedule:
+    if transition_steps <= 0:
+        return lambda count: init_value
+    transition_begin = max(transition_begin, 0)
+
+    def schedule(count):
+        count = min(max(count - transition_begin, 0), transition_steps)
+        frac = 1 - count / transition_steps
+        return (init_value - end_value) * frac**power + end_value
+
+    return schedule
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int,
+                    transition_begin: int = 0) -> Schedule:
+    return polynomial_schedule(init_value, end_value, 1, transition_steps, transition_begin)
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0,
+                          exponent: float = 1.0) -> Schedule:
+    if not decay_steps > 0:
+        raise ValueError(
+            f"The cosine_decay_schedule requires positive decay_steps, got decay_steps={decay_steps}.")
+
+    def schedule(count):
+        count = min(count, decay_steps)
+        cosine_decay = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        return init_value * ((1 - alpha) * cosine_decay**exponent + alpha)
+
+    return schedule
+
+
+def join_schedules(schedules: Sequence[Schedule], boundaries: Sequence[int]) -> Schedule:
+    """``schedules[i]`` from ``boundaries[i - 1]`` on, counted from there."""
+
+    def schedule(count):
+        output = schedules[0](count)
+        for boundary, sched in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                output = sched(count - boundary)
+        return output
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0,
+                                 exponent: float = 1.0) -> Schedule:
+    """Linear warm-up to ``peak_value``, then cosine decay to ``end_value``
+    at ``decay_steps`` (which includes the warm-up)."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    return join_schedules(
+        [linear_schedule(init_value, peak_value, warmup_steps),
+         cosine_decay_schedule(peak_value, decay_steps - warmup_steps, alpha, exponent)],
+        [warmup_steps])
+
+
+class ScheduledAdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW`` whose rate follows ``schedule(count)``, where
+    ``count`` is the number of updates already applied."""
+
+    def __init__(self, params, schedule: Schedule, **kwargs):
+        self.schedule = schedule
+        self.count = 0
+        super().__init__(params, lr=float(schedule(0)), **kwargs)
+
+    def step(self, closure=None):
+        lr = float(self.schedule(self.count))
+        for group in self.param_groups:
+            group["lr"] = lr
+        loss = super().step(closure)
+        self.count += 1
+        return loss
+
+    def state_dict(self):
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count", 0))
+        super().load_state_dict(state_dict)
 
 
 @dataclass(frozen=True)
 class AdamW:
-    learning_rate: float
+    learning_rate: Union[float, Schedule]
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 1e-4
 
-    def __call__(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.AdamW:
+    def __call__(self, params: Iterable[torch.nn.Parameter]) -> ScheduledAdamW:
         params = list(params)
+        schedule = (self.learning_rate if callable(self.learning_rate)
+                    else constant_schedule(self.learning_rate))
         # On the GPU, the fused implementation: one pass over p, g, m and v
         # per parameter group, where the default (foreach) makes several.
         fused = bool(params) and all(p.is_cuda for p in params)
-        return torch.optim.AdamW(
-            params, lr=self.learning_rate, betas=(self.b1, self.b2), eps=self.eps,
+        return ScheduledAdamW(
+            params, schedule, betas=(self.b1, self.b2), eps=self.eps,
             weight_decay=self.weight_decay, fused=fused or None)
 
 
-def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-          weight_decay: float = 1e-4, mu_dtype: Any = None) -> AdamW:
+def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 1e-4, mu_dtype: Any = None) -> AdamW:
     """optax.adamw's signature and defaults (note: weight_decay 1e-4, not
-    torch's 1e-2). Moments stay fp32: a lower ``mu_dtype`` is not ported."""
+    torch's 1e-2); ``learning_rate`` is a float or a schedule. Moments stay
+    fp32: a lower ``mu_dtype`` is not ported."""
     if mu_dtype not in (None, torch.float32):
         raise NotImplementedError(
             f"mu_dtype={mu_dtype} is not ported yet (ROADMAP.md Queue A item 7)")

@@ -1,4 +1,5 @@
 from .dataclasses import (
+    DataLoaderConfiguration,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
@@ -8,6 +9,7 @@ from .dataclasses import (
 from .random import set_seed
 
 __all__ = [
+    "DataLoaderConfiguration",
     "FullyShardedDataParallelPlugin",
     "GradientAccumulationPlugin",
     "MixedPrecisionPolicy",

@@ -1,5 +1,5 @@
 """Plugin dataclasses: the subset of ``accelerate_tpu/utils/dataclasses.py``
-that the training step and the serving engine need, with torch dtypes.
+that the training loop and the serving engine need, with torch dtypes.
 
 The fields keep the JAX package's names and defaults. A field the port does
 not act on yet raises ``NotImplementedError`` naming its ROADMAP.md item
@@ -13,8 +13,8 @@ from typing import Any, Optional
 import torch
 
 _MULTI_GPU_ITEM = "ROADMAP.md Queue A item 1 (multi-GPU FSDP2/DDP)"
-_CHECKPOINT_ITEM = "ROADMAP.md Queue A item 4 (checkpointing)"
-_DATA_LOADER_ITEM = "ROADMAP.md Queue A item 3 (data loader)"
+_DATA_LOADER_ITEM = "ROADMAP.md Queue A item 3 (data loader: the imperative loop)"
+_CONTROL_PLANE_ITEM = "ROADMAP.md Queue A item 9 (control plane)"
 
 
 def _refuse_non_defaults(obj, item, honoured: tuple = ()) -> None:
@@ -69,8 +69,9 @@ class MixedPrecisionPolicy:
 
 @dataclass
 class GradientAccumulationPlugin:
-    """``num_steps`` microbatches per optimizer step; the data-loader
-    coupling of the other fields waits for the data loader."""
+    """``num_steps`` microbatches per optimizer step. The other fields
+    couple the imperative loop (``accumulate``) to the data loader, and
+    wait for that loop."""
 
     num_steps: int = None
     adjust_scheduler: bool = True
@@ -83,8 +84,11 @@ class GradientAccumulationPlugin:
 
 @dataclass
 class FullyShardedDataParallelPlugin:
-    """Accepted at its defaults, where on one device there is nothing to
-    shard and it changes nothing; any other setting is not ported yet."""
+    """On one device there is nothing to shard, so the sharding fields are
+    accepted only at their defaults. ``state_dict_type`` picks the layout of
+    ``model.safetensors`` in a checkpoint: ``SHARDED_STATE_DICT`` (5 GB
+    shards plus an index) or ``FULL_STATE_DICT`` (one file);
+    ``DISTRIBUTED_STATE_DICT`` (orbax) is not ported."""
 
     sharding_strategy: str = "FULL_SHARD"
     reshard_after_forward: bool = True
@@ -96,13 +100,22 @@ class FullyShardedDataParallelPlugin:
     ignored_params: Optional[list] = None
 
     def __post_init__(self):
-        _refuse_non_defaults(self, _MULTI_GPU_ITEM)
+        _refuse_non_defaults(self, _MULTI_GPU_ITEM, honoured=("state_dict_type",))
+        if self.state_dict_type not in ("SHARDED_STATE_DICT", "FULL_STATE_DICT"):
+            if self.state_dict_type == "DISTRIBUTED_STATE_DICT":
+                raise NotImplementedError(
+                    f"state_dict_type='DISTRIBUTED_STATE_DICT' (orbax) is not ported yet "
+                    f"({_MULTI_GPU_ITEM})")
+            raise ValueError(f"Unknown state_dict_type {self.state_dict_type!r}")
 
 
 @dataclass
 class ProjectConfiguration:
-    """Where checkpoints and logs go. The port writes neither yet, so only
-    the defaults are accepted."""
+    """Where checkpoints go. With ``automatic_checkpoint_naming``,
+    ``save_state()`` writes ``<project_dir>/checkpoints/checkpoint_<iteration>``
+    and keeps at most ``total_limit`` of them; ``load_state()`` reads the
+    newest. Logging (``logging_dir``), resuming on a restart
+    (``automatic_resume``) and per-node saves are not ported."""
 
     project_dir: str = None
     logging_dir: str = None
@@ -113,7 +126,46 @@ class ProjectConfiguration:
     automatic_resume: bool = False
 
     def __post_init__(self):
-        _refuse_non_defaults(self, _CHECKPOINT_ITEM)
+        _refuse_non_defaults(self, {
+            "logging_dir": _CONTROL_PLANE_ITEM + ": tracking",
+            "automatic_resume": _CONTROL_PLANE_ITEM + ": resume on restart",
+            "save_on_each_node": _MULTI_GPU_ITEM,
+        }, honoured=("project_dir", "automatic_checkpoint_naming", "total_limit", "iteration"))
+
+    def set_directories(self, project_dir: str = None):
+        self.project_dir = project_dir
+
+
+@dataclass
+class DataLoaderConfiguration:
+    """How ``Accelerator.prepare`` builds data loaders (the JAX package's
+    names and defaults). ``split_batches`` splits each batch over the
+    processes instead of giving each its own; ``dispatch_batches`` reads on
+    process 0 and sends each its slice; ``even_batches`` cycles samples
+    from the start so every process gets as many batches; a shuffling
+    loader uses ``SeedableRandomSampler(seed=data_seed or 0)`` when
+    ``use_seedable_sampler``; ``non_blocking`` copies batches to the card
+    from pinned host memory without waiting; ``prefetch_size`` batches are
+    assembled ahead on a thread. Every loader keeps its mid-epoch state, so
+    ``use_stateful_dataloader`` changes nothing. ``dispatch_group_size``
+    groups the broadcasts of several processes and is accepted only at its
+    default."""
+
+    split_batches: bool = False
+    dispatch_batches: Optional[bool] = None
+    even_batches: bool = True
+    use_seedable_sampler: bool = True
+    data_seed: Optional[int] = None
+    non_blocking: bool = True
+    use_stateful_dataloader: bool = False
+    prefetch_size: int = 2
+    dispatch_group_size: int = 8
+
+    def __post_init__(self):
+        _refuse_non_defaults(self, _MULTI_GPU_ITEM, honoured=tuple(
+            f.name for f in fields(self) if f.name != "dispatch_group_size"))
+        if self.prefetch_size < 0:
+            raise ValueError("prefetch_size must be >= 0")
 
 
 _SLO_ITEM = "ROADMAP.md Queue A item 6 (admission/SLO and the hang guard)"

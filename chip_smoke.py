@@ -44,6 +44,21 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    arrival times, 8 per second): aggregate tok/s, ticks, occupancy, TTFT
    p50/p95 on the host clock, peak memory; then steady 8-slot decode ticks
    under torch.profiler.
+9. loop: phase 5's Llama as a whole training loop. A ColumnDataset of 48
+   sequences of 2,049 token ids from default_rng(9), prepared with the
+   seedable sampler (batch 4, drop_last: 12 batches an epoch);
+   adamw(warmup_cosine_decay_schedule(0, 3e-4, 2, 12), weight_decay=0.1)
+   and its scheduler; automatic checkpoint naming with total_limit=1. Eight
+   steps from the loader, save_state() after step 4 (mid-epoch), two more
+   steps under torch.profiler; then a fresh Accelerator with weights from
+   another seed load_state()s the checkpoint and takes steps 5-8. The
+   resumed run must take the same samples, the same rates and bit-equal
+   losses and grad norms, with the step count at 4 after the load and 8
+   after, every kernel launched 18 times a step, and the native host
+   library writing and reading the checkpoint. Prints save and load seconds
+   split into host copies and disk, bytes and GB/s, the loader wait and the
+   loader-fed step ms beside phase 5's, the idle share, peak memory and the
+   checkpoint directory's free space. The checkpoint is removed at the end.
 
 Then the kernel summary line and, last, the device line.
 """
@@ -53,10 +68,14 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 # Peak rates of the card (NVIDIA H100 SXM data sheet, dense): bf16 tensor
 # core FLOP/s and HBM bytes/s.
@@ -76,6 +95,13 @@ SERVING_ROW = dict(requests=32, slots=8, qps=8.0, prompt_len=64, new_tokens=64)
 # Greedy tokens of two devices must agree wherever the reference's top-2
 # logit gap exceeds this; below it, fp32 rounding may pick either token.
 TIE_GAP = 1e-4
+# Phase 9: the training loop around phase 5's step.
+LOOP = dict(rows=48, batch=4, steps=8, save_after=4, profile_steps=2, data_seed=9,
+            init_seeds=(0, 1), weight_decay=0.1,
+            schedule=dict(init_value=0.0, peak_value=3e-4, warmup_steps=2, decay_steps=12))
+# Where the checkpoint goes when the temporary directory lacks the room
+# (listed in .gitignore; removed at the end of the phase).
+CKPT_FALLBACK = Path(__file__).resolve().parent / ".smoke_ckpt"
 
 
 def emit(obj):
@@ -751,6 +777,257 @@ def decode_tick_profile(engine, vocab, n=10):
             "top_kernels_ms_per_tick": top}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the training loop
+# ---------------------------------------------------------------------------
+
+
+class RandomSampler:
+    """Only its name counts: prepare() shuffles such a loader with the
+    seedable sampler."""
+
+
+class LoopSpec:
+    """What a user passes to prepare() as a loader: a dataset, a batch size,
+    a shuffling sampler, drop_last."""
+
+    def __init__(self, dataset, batch_size):
+        self.dataset, self.batch_size = dataset, batch_size
+        self.sampler, self.drop_last = RandomSampler(), True
+
+
+def llama_n_params(width) -> int:
+    """Parameters of the untied Llama of these widths."""
+    h, inter, layers = width["hidden_size"], width["intermediate_size"], \
+        width["num_hidden_layers"]
+    d = h // width["num_attention_heads"]
+    q, kv = width["num_attention_heads"] * d, width["num_key_value_heads"] * d
+    block = h * q + 2 * h * kv + q * h + 3 * h * inter + 2 * h
+    return 2 * width["vocab_size"] * h + layers * block + h
+
+
+def checkpoint_root(need_bytes, fallback=CKPT_FALLBACK):
+    """A fresh directory with room for `need_bytes` (and a quarter more):
+    under the temporary directory, else under `fallback`. Returns it and
+    what was found."""
+    tried = {}
+    for base in (None, fallback):
+        if base is not None:
+            Path(base).mkdir(parents=True, exist_ok=True)
+        root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base)
+        free = shutil.disk_usage(root).free
+        tried[root] = free
+        if free >= 1.25 * need_bytes:
+            return root, {"dir": root, "free_bytes": free, "need_bytes": need_bytes,
+                          "tried_free_bytes": tried}
+        os.rmdir(root)
+    raise RuntimeError(f"no directory with {need_bytes} bytes free for the checkpoint: {tried}")
+
+
+def build_loop(device, width, seq, project_dir, init_seed, tokens):
+    """Phase 5's model and step as a user's loop builds them: Accelerator
+    with a project directory, prepare(model, adamw(schedule), loader,
+    schedule), prepare_train_step."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import (
+        Accelerator, ColumnDataset, FullyShardedDataParallelPlugin, Model, ProjectConfiguration,
+        adamw, warmup_cosine_decay_schedule)
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    acc = Accelerator(
+        mixed_precision="bf16", cpu=device == "cpu",
+        fsdp_plugin=FullyShardedDataParallelPlugin(),
+        project_config=ProjectConfiguration(project_dir=project_dir,
+                                            automatic_checkpoint_naming=True, total_limit=1))
+    cfg = LlamaConfig(**width, max_position_embeddings=seq, dtype=torch.bfloat16,
+                      remat=True, remat_policy="dots", attention_impl="flash")
+    module = LlamaForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(init_seed))
+    schedule = warmup_cosine_decay_schedule(**LOOP["schedule"])
+    dataset = ColumnDataset(ids=tokens, idx=np.arange(len(tokens)))
+    _, _, loader, sched = acc.prepare(
+        Model(module), adamw(schedule, weight_decay=LOOP["weight_decay"]),
+        LoopSpec(dataset, LOOP["batch"]), schedule)
+
+    def loss_fn(model, batch):
+        ids = batch["ids"].long()
+        return cross_entropy_loss(model(ids[:, :-1]), ids[:, 1:])
+
+    return acc, acc.prepare_train_step(loss_fn, max_grad_norm=1.0), loader, sched, schedule
+
+
+def loop_steps(acc, step, it, sched, n):
+    """`n` steps from a loader's iterator, as a user's loop takes them.
+    Returns the steps' (sample indices, loss, grad norm, lr) as device
+    values where they are on the device, and the host seconds spent
+    waiting for the loader."""
+    rows, wait = [], 0.0
+    for _ in range(n):
+        t0 = time.perf_counter()
+        batch = next(it)
+        wait += time.perf_counter() - t0
+        _, metrics = step(acc.train_state, batch)
+        sched.step()
+        rows.append((batch["idx"], metrics["loss"], metrics["grad_norm"],
+                     acc.train_state.optimizer.param_groups[0]["lr"]))
+    return rows, wait
+
+
+def loop_records(rows) -> dict:
+    """Host values of loop_steps' rows (reading them waits for the card)."""
+    return {"indices": [r[0].tolist() for r in rows], "loss": [float(r[1]) for r in rows],
+            "grad_norm": [float(r[2]) for r in rows], "lr": [float(r[3]) for r in rows]}
+
+
+def loop_gate(first, resumed, lrs, step_after_load, step_after, launches, n_layers,
+              native_ok) -> dict:
+    """Phase 9's checks. `first` holds the uninterrupted run's steps after
+    the save and `resumed` the resumed run's (loop_records); `lrs` the
+    schedule's rates for those steps; `launches` each run's kernel counts
+    over its `steps` steps as (counts, steps)."""
+    after = LOOP["steps"] - LOOP["save_after"]
+    checks = {
+        "same_indices": first["indices"] == resumed["indices"],
+        "lr_follows_schedule": all(
+            math.isclose(a, b, rel_tol=1e-12, abs_tol=1e-15)
+            for run in (first, resumed) for a, b in zip(run["lr"], lrs)),
+        "bit_equal_loss": first["loss"] == resumed["loss"],
+        "bit_equal_grad_norm": first["grad_norm"] == resumed["grad_norm"],
+        "finite": all(math.isfinite(x) for run in (first, resumed)
+                      for x in run["loss"] + run["grad_norm"]),
+        "step_after_load": step_after_load == LOOP["save_after"],
+        "step_after": step_after == LOOP["steps"],
+        "launches": all(n == n_layers * steps for counts, steps in launches
+                        for n in counts.values()),
+        "native": native_ok,
+    }
+    checks["ok"] = all(checks.values()) and len(first["loss"]) == after
+    return checks
+
+
+def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"],
+               profile_steps=LOOP["profile_steps"]):
+    """Phase 9 (see the module docstring). Returns its report with the
+    checks of loop_gate."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import native
+
+    save_after, steps = LOOP["save_after"], LOOP["steps"]
+    tokens = np.random.default_rng(LOOP["data_seed"]).integers(
+        0, width["vocab_size"], (LOOP["rows"], seq + 1), dtype=np.int32)
+    n_params = llama_n_params(width)
+    root, disk = checkpoint_root(n_params * 4 * 3)
+    gib = 2**30
+
+    def timed(fn):
+        """fn()'s result and its ms on the host clock, between synchronisations."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def peak_since_last(key):
+        """Peak allocation since the last call, then a fresh window."""
+        mem[key] = torch.cuda.max_memory_allocated() / gib
+        torch.cuda.reset_peak_memory_stats()
+
+    mem, ms = {"allocated_at_start": torch.cuda.memory_allocated() / gib}, {}
+    try:
+        native.reset_paths()
+        torch.cuda.reset_peak_memory_stats()
+        acc, step, loader, sched, schedule = build_loop(
+            device, width, seq, root, LOOP["init_seeds"][0], tokens)
+        it = iter(loader)
+        hf.reset_launch_counts()
+        head, _ = loop_steps(acc, step, it, sched, 1)
+        (more, _), t = timed(lambda: loop_steps(acc, step, it, sched, save_after - 1))
+        head += more
+        ms["before_save"] = t / (save_after - 1)
+        peak_since_last("steps_before_save")
+        acc.save_state()
+        save = dict(acc.checkpoint_stats)
+        peak_since_last("save")
+        (tail, wait), t = timed(lambda: loop_steps(acc, step, it, sched, steps - save_after))
+        ms["after_save"] = t / (steps - save_after)
+        launches = [(dict(hf.LAUNCHES), steps)]
+        step_count = acc.train_state.step
+        # The same model on one fixed batch (phase 5's way), in this process
+        # after the save: tells the loader's cost from the host's state.
+        batch = next(it)
+        _, t = timed(lambda: [step(acc.train_state, batch) for _ in range(3)])
+        ms["fixed_batch_after_save"] = t / 3
+        busy_ms = None
+        if profile_steps:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                loop_steps(acc, step, it, sched, profile_steps)
+                torch.cuda.synchronize()
+            busy_ms = device_times(prof, profile_steps)[0]
+        first = loop_records(head + tail)
+        peak_since_last("steps_after_save")
+        it.close()
+        del acc, step, loader, sched, it, head, tail, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        acc, step, loader, sched, _ = build_loop(
+            device, width, seq, root, LOOP["init_seeds"][1], tokens)
+        torch.cuda.reset_peak_memory_stats()
+        acc.load_state()
+        load = dict(acc.checkpoint_stats)
+        peak_since_last("load")
+        step_after_load = acc.train_state.step
+        hf.reset_launch_counts()
+        it = iter(loader)
+        (rows, _), t = timed(lambda: loop_steps(acc, step, it, sched, steps - save_after))
+        ms["resumed"] = t / (steps - save_after)
+        launches.append((dict(hf.LAUNCHES), steps - save_after))
+        resumed = loop_records(rows)
+        step_after = acc.train_state.step
+        peak_since_last("resumed_steps")
+        it.close()
+        del acc, step, loader, sched, it, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    paths = {k: dict(v) for k, v in native.PATHS.items()}
+    lib = native.get_lib()
+    native_ok = (lib is not None and paths.get("pwrite_segments", {}).get("native", 0) > 0
+                 and paths.get("pread_segments", {}).get("native", 0) > 0)
+    after = {k: v[save_after:] for k, v in first.items()}
+    checks = loop_gate(after, resumed, [schedule(k) for k in range(save_after, steps)],
+                       step_after_load, step_after, launches, width["num_hidden_layers"],
+                       native_ok)
+    return {
+        "phase": "loop", "n_params": n_params, "rows": LOOP["rows"], "batch": LOOP["batch"],
+        "seq": seq, "steps": steps, "save_after": save_after, "step_count": step_count,
+        "first_losses": first["loss"], "after_save": after, "resumed": resumed,
+        "save": {**save, "gb_per_s": save["bytes"] / save["seconds"] / 1e9},
+        "load": {**load, "gb_per_s": save["bytes"] / load["seconds"] / 1e9},
+        "checkpoint_disk": disk,
+        "loader_wait_ms_per_step": wait * 1e3 / (steps - save_after),
+        "step_ms": ms["after_save"], "step_ms_by_window": ms,
+        "phase5_fixed_batch_step_ms": fixed_step_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "idle_share": 1.0 - busy_ms / ms["after_save"] if busy_ms else None,
+        "peak_mem_gib": max(v for k, v in mem.items() if k != "allocated_at_start"),
+        "mem_gib": mem, "launches": [c for c, _ in launches],
+        "native": {"library": str(native.lib_path()) if lib is not None else None,
+                   "build_error": native.BUILD_ERROR, "paths": paths},
+        "checks": checks, "ok": checks["ok"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -864,6 +1141,18 @@ def main() -> int:
     if not serving_ok:
         print("chip_smoke: serving failed (engine/generate tokens or a request)",
               file=sys.stderr)
+        return 1
+    # The serving engine and its model go before the training loop.
+    del gen_module, serving
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. the training loop: loader, schedule, save_state, resume in a fresh
+    # Accelerator
+    loop = loop_phase(hf, main_path["step_ms"])
+    emit(loop)
+    if not loop["ok"]:
+        print(f"chip_smoke: training loop failed: {loop['checks']}", file=sys.stderr)
         return 1
 
     sources = {"flash_fwd": ("accelerate_tpu_torch/ops/csrc/flash_fwd.cu",

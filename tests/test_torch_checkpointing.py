@@ -1,0 +1,367 @@
+"""The port's checkpoints (accelerate_tpu_torch.checkpointing) against the
+JAX package's, on a tiny Llama (2 layers, hidden 64, fp32, CPU).
+
+- a port save/load round trip restores every tensor, count and state;
+- a port run resumed mid-epoch takes the uninterrupted run's steps;
+- a checkpoint the JAX Accelerator saved resumes in the port: the next two
+  losses and grad norms agree with the JAX run's within rtol 1e-4 (the
+  tolerance of test_torch_train.py), and the step counts and rates match;
+- the port's model.safetensors loads in the JAX package to the flax tree
+  of ``llama_params_to_flax`` and the same logits (rtol 1e-5), for both
+  ``scan_layers`` settings;
+- automatic naming, pruning and numbering; both model file layouts; the
+  restricted unpickler; registered objects, hooks and the scheduler; the
+  safetensors files of each package read by the other side.
+"""
+
+import os
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import optax
+
+import accelerate_tpu.data_loader as jdl
+from accelerate_tpu import Accelerator as JaxAccelerator
+from accelerate_tpu import Model as JaxModel
+from accelerate_tpu.models import LlamaConfig as JaxLlamaConfig
+from accelerate_tpu.models import LlamaForCausalLM as JaxLlama
+from accelerate_tpu.models import cross_entropy_loss as jax_cross_entropy
+from accelerate_tpu.utils import ProjectConfiguration as JaxProjectConfiguration
+from accelerate_tpu.utils import other as jax_other
+from accelerate_tpu_torch import (
+    Accelerator,
+    ColumnDataset,
+    FullyShardedDataParallelPlugin,
+    Model,
+    ProjectConfiguration,
+    adamw,
+    linear_schedule,
+    set_seed,
+)
+from accelerate_tpu_torch import checkpointing
+from accelerate_tpu_torch.models import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    cross_entropy_loss,
+    llama_params_from_flax,
+    llama_params_to_flax,
+)
+from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+from accelerate_tpu_torch.utils.other import load_safetensors, save_safetensors
+
+WIDTH = dict(num_hidden_layers=2, hidden_size=64)
+ROWS, SEQ, BATCH = 48, 17, 8  # 6 batches per epoch; 8 rows for the 8-device CPU mesh
+SCHEDULE = dict(init_value=1e-3, end_value=1e-4, transition_steps=10)
+
+
+@pytest.fixture(autouse=True)
+def reset_port_state():
+    yield
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+
+
+def _tokens():
+    return np.random.default_rng(0).integers(0, 256, (ROWS, SEQ), dtype=np.int32)
+
+
+class RandomSampler:  # the name makes prepare shuffle with the seedable sampler
+    pass
+
+
+class _Spec:
+    def __init__(self, dataset):
+        self.dataset, self.batch_size, self.sampler, self.drop_last = (
+            dataset, BATCH, RandomSampler(), True)
+
+
+def _port_run(tmp_path, seed=0, scan_layers=True, **acc_kw):
+    """A port Accelerator with the tiny Llama (weights from `seed`), a
+    scheduled adamw, a shuffling loader and its scheduler."""
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    acc = Accelerator(cpu=True, project_config=ProjectConfiguration(
+        project_dir=str(tmp_path), automatic_checkpoint_naming=True), **acc_kw)
+    cfg = LlamaConfig.tiny(dtype=torch.float32, scan_layers=scan_layers, **WIDTH)
+    module = LlamaForCausalLM(cfg)
+    module.init_weights(torch.Generator().manual_seed(seed))
+    schedule = linear_schedule(**SCHEDULE)
+    model, opt, loader, sched = acc.prepare(
+        Model(module), adamw(schedule), _Spec(ColumnDataset(ids=_tokens())), schedule)
+
+    def loss_fn(m, b):
+        ids = b["ids"].long()
+        return cross_entropy_loss(m(ids[:, :-1]), ids[:, 1:])
+
+    return acc, acc.prepare_train_step(loss_fn, max_grad_norm=1.0), loader, sched
+
+
+def _steps(acc, step, loader, sched, n, it=None):
+    """`n` steps from the loader across epochs; (metrics, live iterator)."""
+    out = []
+    while len(out) < n:
+        it = it or iter(loader)
+        batch = next(it, None)
+        if batch is None:
+            it = None
+            continue
+        _, m = step(acc.train_state, batch)
+        sched.step()
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out, it
+
+
+def _snapshot(acc):
+    st = acc.train_state
+    opt = st.optimizer
+    return {
+        "params": {n: p.detach().clone() for n, p in st.model.module.named_parameters()},
+        "moments": {n: {k: v.clone() for k, v in opt.state[p].items()}
+                    for n, p in st.model.module.named_parameters()},
+        "step": st.step, "count": opt.count,
+    }
+
+
+def test_port_round_trip_restores_every_tensor(tmp_path):
+    acc, step, loader, sched = _port_run(tmp_path)
+    _, it = _steps(acc, step, loader, sched, 3)
+
+    class Counter:
+        def __init__(self, n):
+            self.n = n
+
+        def state_dict(self):
+            return {"n": self.n}
+
+        def load_state_dict(self, sd):
+            self.n = sd["n"]
+
+    acc.register_for_checkpointing(Counter(7))
+    want, want_loader = _snapshot(acc), loader.state_dict()
+    out = acc.save_state()
+    assert sorted(os.listdir(out)) == sorted([
+        "model.safetensors", "optimizer.bin", "scheduler.bin", "sampler.bin",
+        "custom_checkpoint_0.pkl", "accelerator_step.bin", "random_states_0.pkl"])
+    assert acc.checkpoint_stats["bytes"] > 0 and acc.checkpoint_stats["event"] == "save"
+    del it
+
+    acc2, _, loader2, sched2 = _port_run(tmp_path, seed=1)
+    counter = Counter(0)
+    acc2.register_for_checkpointing(counter)
+    assert acc2.load_state() == out
+    got = _snapshot(acc2)
+    for name, p in want["params"].items():
+        assert torch.equal(got["params"][name], p), name
+        for k, v in want["moments"][name].items():
+            assert torch.equal(got["moments"][name][k], v), (name, k)
+    assert (got["step"], got["count"]) == (want["step"], want["count"]) == (3, 3)
+    assert sched2.state_dict() == sched.state_dict() == {"step_count": 3}
+    assert loader2._resume_skip == want_loader["batches_yielded"] == 3
+    assert counter.n == 7
+
+
+def test_rng_states_are_restored(tmp_path):
+    import random
+
+    acc, *_ = _port_run(tmp_path)
+    set_seed(5)
+    out = acc.save_state()
+    want = (random.random(), np.random.rand(), float(torch.rand(())))
+    acc.load_state(out)
+    assert (random.random(), np.random.rand(), float(torch.rand(()))) == want
+
+
+def test_port_mid_epoch_resume_matches_uninterrupted(tmp_path):
+    acc, step, loader, sched = _port_run(tmp_path / "a")
+    straight, _ = _steps(acc, step, loader, sched, 9)  # across the epoch boundary
+
+    acc, step, loader, sched = _port_run(tmp_path / "b")
+    head, it = _steps(acc, step, loader, sched, 4)
+    acc.save_state()
+    del it
+    acc, step, loader, sched = _port_run(tmp_path / "b", seed=3)
+    acc.load_state()
+    assert acc.train_state.step == 4 and acc.train_state.optimizer.count == 4
+    tail, _ = _steps(acc, step, loader, sched, 5)
+    assert head + tail == straight
+    assert acc.train_state.step == 9
+
+
+def _jax_run(tmp_path):
+    jcfg = JaxLlamaConfig.tiny(dtype=jnp.float32, **WIDTH)
+    module = JaxLlama(jcfg)
+    acc = JaxAccelerator(project_config=JaxProjectConfiguration(
+        project_dir=str(tmp_path), automatic_checkpoint_naming=True))
+    model = JaxModel.from_flax(module, jax.random.key(0), _tokens()[:2, :-1])
+    schedule = optax.linear_schedule(**SCHEDULE)
+    _, _, loader, sched = acc.prepare(
+        model, optax.adamw(schedule), _Spec(jdl.ColumnDataset(ids=_tokens())), schedule)
+
+    def loss_fn(p, b):
+        return jax_cross_entropy(module.apply({"params": p}, b["ids"][:, :-1]), b["ids"][:, 1:])
+
+    step = acc.prepare_train_step(loss_fn, max_grad_norm=1.0)
+    it, out = iter(loader), []
+    for _ in range(5):
+        state, m = step(acc.train_state, next(it))
+        sched.step()
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+        if len(out) == 3:
+            acc.save_state()
+    count = int(acc.train_state.opt_state[0].count)
+    return out, count, int(acc.train_state.step), schedule
+
+
+def test_jax_checkpoint_resumes_in_the_port(tmp_path):
+    from accelerate_tpu.state import AcceleratorState as JS, GradientState as JG
+
+    jax_metrics, jax_count, jax_step, schedule = _jax_run(tmp_path)
+    JS._reset_state()
+    JG._reset_state()
+    acc, step, loader, sched = _port_run(tmp_path, seed=2)
+    acc.load_state()
+    st = acc.train_state
+    assert st.step == 3 and st.optimizer.count == 3 and sched.state_dict() == {"step_count": 3}
+    port_metrics, _ = _steps(acc, step, loader, sched, 2)
+    np.testing.assert_allclose(np.array(port_metrics), np.array(jax_metrics[3:]), rtol=1e-4)
+    assert (st.step, st.optimizer.count) == (jax_step, jax_count) == (5, 5)
+    # The last update's rate: the schedule at count 4, optax's in float32.
+    assert st.optimizer.param_groups[0]["lr"] == pytest.approx(float(schedule(4)), rel=1e-6)
+    assert sched.get_last_lr() == pytest.approx(float(schedule(5)), rel=1e-6)
+    assert acc.project_configuration.iteration == 1
+
+
+@pytest.mark.parametrize("scan_layers", [True, False])
+def test_port_weights_load_in_the_jax_package(tmp_path, scan_layers):
+    acc, step, loader, sched = _port_run(tmp_path, scan_layers=scan_layers)
+    _steps(acc, step, loader, sched, 1)
+    out = acc.save_state()
+    module = acc.train_state.model.module
+    tree = jax_other.unflatten_state_dict(jax_other.load_sharded_safetensors(out))
+    want = jax.tree.map(lambda t: t.detach().numpy(), llama_params_to_flax(
+        module.config, dict(module.named_parameters())))
+    assert jax.tree.structure(tree) == jax.tree.structure(want)
+    jax.tree.map(np.testing.assert_array_equal, tree, want)
+    assert ("layers" in tree["model"]) is scan_layers
+    jmodule = JaxLlama(JaxLlamaConfig.tiny(dtype=jnp.float32, scan_layers=scan_layers, **WIDTH))
+    ids = _tokens()[:2, :-1]
+    logits = np.asarray(jmodule.apply({"params": tree}, jnp.asarray(ids)))
+    with torch.no_grad():
+        port_logits = module(torch.from_numpy(ids).long()).numpy()
+    np.testing.assert_allclose(port_logits, logits, rtol=1e-5, atol=1e-5)
+    back = llama_params_from_flax(module.config, tree)
+    assert all(torch.equal(back[n], p) for n, p in module.named_parameters())
+
+
+def test_total_limit_and_iteration_past_a_restored_checkpoint(tmp_path):
+    acc, *_ = _port_run(tmp_path)
+    acc.project_configuration.total_limit = 2
+    for _ in range(3):
+        acc.save_state()
+    base = tmp_path / "checkpoints"
+    assert sorted(os.listdir(base)) == ["checkpoint_1", "checkpoint_2"]
+    (base / "checkpoint_tmp").mkdir()  # not a checkpoint: skipped
+    acc, *_ = _port_run(tmp_path)
+    acc.project_configuration.total_limit = 2
+    assert acc.load_state().endswith("checkpoint_2")
+    assert acc.project_configuration.iteration == 3
+    assert acc.save_state().endswith("checkpoint_3")
+    assert sorted(os.listdir(base)) == ["checkpoint_2", "checkpoint_3", "checkpoint_tmp"]
+
+
+@pytest.mark.parametrize("state_dict_type", ["SHARDED_STATE_DICT", "FULL_STATE_DICT"])
+def test_model_file_layouts(tmp_path, monkeypatch, state_dict_type):
+    monkeypatch.setattr(checkpointing, "MAX_SHARD_SIZE", 100_000)
+    acc, *_ = _port_run(tmp_path, fsdp_plugin=FullyShardedDataParallelPlugin(
+        state_dict_type=state_dict_type))
+    want = _snapshot(acc)["params"]
+    out = acc.save_state()
+    files = sorted(f for f in os.listdir(out) if f.startswith("model"))
+    if state_dict_type == "FULL_STATE_DICT":
+        assert files == ["model.safetensors"]
+    else:
+        assert "model.safetensors.index.json" in files and len(files) > 2
+        assert files[0].startswith("model-00001-of-")
+    jax_flat = jax_other.load_sharded_safetensors(out)
+    assert sum(v.nbytes for v in jax_flat.values()) == sum(
+        p.numel() * 4 for p in want.values())
+    acc, *_ = _port_run(tmp_path, seed=4)
+    acc.load_state(out)
+    assert all(torch.equal(p, want[n]) for n, p in
+               acc.train_state.model.module.named_parameters())
+
+
+def test_restricted_unpickler_refuses_a_foreign_global(tmp_path):
+    path = tmp_path / "evil.pkl"
+    path.write_bytes(pickle.dumps({"x": os.getcwd}, protocol=4))
+    with pytest.raises(pickle.UnpicklingError, match="refers to posix.getcwd"):
+        checkpointing.restricted_load(str(path))
+    arrays = {"a": np.arange(6, dtype=np.float32).reshape(2, 3), "s": np.int32(4)}
+    for protocol in (2, 5):
+        path.write_bytes(pickle.dumps(arrays, protocol=protocol))
+        back = checkpointing.restricted_load(str(path))
+        np.testing.assert_array_equal(back["a"], arrays["a"])
+        assert back["s"] == 4
+
+
+def test_hooks_custom_objects_and_scheduler_state(tmp_path):
+    acc, step, loader, sched = _port_run(tmp_path)
+    _steps(acc, step, loader, sched, 2)
+    calls = []
+    handle = acc.register_save_state_pre_hook(lambda models, st, d: calls.append(("save", d)))
+    acc.register_load_state_pre_hook(lambda models, d: calls.append(("load", d)))
+    out = acc.save_state()
+    handle.remove()
+    acc.save_state()
+    acc.load_state(out)
+    assert calls == [("save", out), ("load", out)]
+    with pytest.raises(ValueError, match="state_dict"):
+        acc.register_for_checkpointing(object())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 1"):
+        acc.save_state(block=False)
+    assert sched.get_last_lr() == pytest.approx(linear_schedule(**SCHEDULE)(2))
+
+
+def test_safetensors_files_cross_packages(tmp_path):
+    from safetensors.numpy import load_file
+
+    rng = np.random.default_rng(0)
+    small = {"w": rng.normal(size=(3, 5)).astype(np.float32),
+             "i": np.arange(4, dtype=np.int64), "s": np.float32(2.5)}
+    big = {**small, "big": rng.normal(size=(600, 600)).astype(np.float32)}  # > 1 MiB: native
+    for name, tensors in (("small", small), ("big", big)):
+        port_file, jax_file = str(tmp_path / f"p_{name}"), str(tmp_path / f"j_{name}")
+        save_safetensors(tensors, port_file)
+        for k, v in load_file(port_file).items():
+            np.testing.assert_array_equal(v, tensors[k])
+        jax_other.save_safetensors(tensors, jax_file)
+        for k, v in load_safetensors(jax_file).items():
+            np.testing.assert_array_equal(v.numpy(), tensors[k])
+    bf16 = {"h": torch.randn(4, 3).to(torch.bfloat16)}
+    save_safetensors(bf16, str(tmp_path / "bf16"))
+    assert torch.equal(load_safetensors(str(tmp_path / "bf16"))["h"], bf16["h"])
+
+
+def test_save_and_load_leave_no_reference_cycles(tmp_path):
+    """Nothing a save or load builds waits for the cyclic garbage collector:
+    on the card a cycle would hold the checkpoint's device copies (a
+    recursive closure in flatten_state_dict once kept 11 GiB after a save)."""
+    import gc
+
+    acc, *_ = _port_run(tmp_path)
+    out = acc.save_state()
+    acc.load_state(out)
+    gc.collect()
+    gc.disable()
+    try:
+        acc.save_state(out)
+        assert gc.collect() == 0
+        acc.load_state(out)
+        assert gc.collect() == 0
+    finally:
+        gc.enable()

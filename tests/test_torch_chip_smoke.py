@@ -1,9 +1,11 @@
 """chip_smoke.py's pure pieces on the CPU: the kernels' bounds, the SASS
 check of the built libraries, the profiler's kernel categories, the decode
-bound, the phase-7/8 gates and the serving trace.
+bound, the phase-7/8 gates, the serving trace, and phase 9's gate, its
+checkpoint directory and a rehearsal of the whole phase at a small width.
 
 The script is loaded by its path, so the import does not depend on
-sys.path; its top level imports no torch, and neither does this file.
+sys.path; its top level imports no torch, and this file imports torch only
+inside the phase-9 rehearsal.
 """
 
 import copy
@@ -174,3 +176,116 @@ def test_serving_trace_is_generate_bench_serving_row(chip_smoke):
         np.testing.assert_array_equal(prompt, rng.integers(1, 32000, (n_tok,), dtype=np.int32))
     np.testing.assert_array_equal(arrivals, np.cumsum(rng.exponential(1 / 8.0, n)))
     assert ((budgets >= 4) & (budgets <= 64)).all() and np.all(np.diff(arrivals) > 0)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the training loop
+# ---------------------------------------------------------------------------
+
+_TINY_WIDTH = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                   num_attention_heads=4, num_key_value_heads=2)
+
+
+def _loop_run(**change):
+    run = {"indices": [[1, 2], [3, 4]], "loss": [5.25, 5.5], "grad_norm": [1.5, 1.25],
+           "lr": [3e-4, 2.9e-4]}
+    run.update(change)
+    return run
+
+
+def _gate(chip_smoke, first=None, resumed=None, lrs=(3e-4, 2.9e-4), after_load=4, after=8,
+          launches=None, native_ok=True):
+    loop = dict(chip_smoke.LOOP, steps=6)  # two steps after the save
+    chip_smoke.LOOP, saved = loop, chip_smoke.LOOP
+    try:
+        return chip_smoke.loop_gate(
+            first or _loop_run(), resumed or _loop_run(), list(lrs), after_load, after - 2,
+            launches or [({"flash_fwd": 12, "flash_dq": 12}, 6), ({"flash_fwd": 4}, 2)],
+            2, native_ok)
+    finally:
+        chip_smoke.LOOP = saved
+
+
+@pytest.mark.parametrize("kw,failed", [
+    ({}, None),
+    ({"resumed": _loop_run(indices=[[1, 2], [4, 3]])}, "same_indices"),
+    ({"resumed": _loop_run(loss=[5.25, 5.500000000000001])}, "bit_equal_loss"),
+    ({"resumed": _loop_run(grad_norm=[1.5, 1.2500001])}, "bit_equal_grad_norm"),
+    ({"lrs": (3e-4, 2.8e-4)}, "lr_follows_schedule"),
+    ({"first": _loop_run(grad_norm=[float("inf"), 1.25]),
+      "resumed": _loop_run(grad_norm=[float("inf"), 1.25])}, "finite"),
+    ({"after_load": 0}, "step_after_load"),
+    ({"after": 7}, "step_after"),
+    ({"launches": [({"flash_fwd": 12}, 6), ({"flash_fwd": 3}, 2)]}, "launches"),
+    ({"native_ok": False}, "native"),
+], ids=["ok", "indices", "loss_one_ulp", "grad_norm", "lr", "inf", "step_after_load",
+        "step_after", "launches", "native"])
+def test_loop_gate(chip_smoke, kw, failed):
+    checks = _gate(chip_smoke, **kw)
+    assert checks["ok"] is (failed is None)
+    assert [k for k, v in checks.items() if not v and k != "ok"] == ([failed] if failed else [])
+
+
+def test_llama_n_params_is_the_modules_count(chip_smoke):
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    for width in (chip_smoke.FULL_WIDTH, _TINY_WIDTH):
+        module = LlamaForCausalLM(LlamaConfig(**width), device="meta")
+        assert chip_smoke.llama_n_params(width) == sum(p.numel() for p in module.parameters())
+    assert chip_smoke.llama_n_params(chip_smoke.FULL_WIDTH) == 1_055_991_808
+    del torch
+
+
+def test_checkpoint_root_falls_back_when_the_temporary_directory_is_small(
+        chip_smoke, tmp_path, monkeypatch):
+    import shutil
+    import tempfile
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path / "tmp"))
+    (tmp_path / "tmp").mkdir()
+    fallback = tmp_path / "fallback"
+    real = shutil.disk_usage
+
+    def usage(path):
+        free = 10 if str(path).startswith(str(tmp_path / "tmp")) else 10**6
+        return real(path)._replace(free=free)
+
+    monkeypatch.setattr(shutil, "disk_usage", usage)
+    root, disk = chip_smoke.checkpoint_root(8, fallback=fallback)
+    assert root.startswith(str(tmp_path / "tmp")) and disk["free_bytes"] == 10
+    root, disk = chip_smoke.checkpoint_root(1000, fallback=fallback)
+    assert root.startswith(str(fallback)) and disk["free_bytes"] == 10**6
+    assert len(disk["tried_free_bytes"]) == 2 and list(fallback.iterdir()) == [Path(root)]
+    with pytest.raises(RuntimeError, match="no directory"):
+        chip_smoke.checkpoint_root(10**7, fallback=fallback)
+
+
+def test_loop_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
+    """The whole phase at a small width on the CPU: the resumed run takes
+    the same samples, rates, losses and grad norms. The flash wrappers take
+    their plain versions here, so no kernel launches, and the checkpoint is
+    too small for the native writer: those two checks fail here only."""
+    import torch
+
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    try:
+        res = chip_smoke.loop_phase(hf, 1.0, device="cpu", width=_TINY_WIDTH, seq=32,
+                                    profile_steps=0)
+    finally:
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+    failed = sorted(k for k, v in res["checks"].items() if not v)
+    assert failed == ["launches", "native", "ok"]
+    assert res["step_count"] == 8 and len(res["resumed"]["loss"]) == 4
+    assert res["resumed"]["lr"] == res["after_save"]["lr"]
+    assert res["save"]["bytes"] > 3 * 4 * chip_smoke.llama_n_params(_TINY_WIDTH)
+    assert res["native"]["paths"]["pwrite_segments"] == {"native": 0, "plain": 1}
+    assert not Path(res["checkpoint_disk"]["dir"]).exists()

@@ -132,6 +132,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          cwd=PACKAGE.parent, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(modules) >= 15
+    for name in ("accelerate_tpu_torch.native", "accelerate_tpu_torch.data_loader",
+                 "accelerate_tpu_torch.checkpointing", "accelerate_tpu_torch.scheduler",
+                 "accelerate_tpu_torch.utils.other", "accelerate_tpu_torch.utils.constants"):
+        assert name in modules, name
 
 
 def test_port_sources_have_no_jax_imports():
@@ -166,13 +170,27 @@ def test_accelerator_refuses_a_second_device_choice(monkeypatch):
 @pytest.mark.parametrize("make", [
     lambda: Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(cpu_offload=True)),
     lambda: FullyShardedDataParallelPlugin(activation_checkpointing=True),
-    lambda: ProjectConfiguration(project_dir="runs"),
+    lambda: ProjectConfiguration(logging_dir="runs"),
     lambda: GradientAccumulationPlugin(num_steps=2, sync_each_batch=True),
     lambda: MixedPrecisionPolicy(reduce_dtype=torch.bfloat16),
 ])
 def test_settings_the_port_does_not_act_on_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
         make()
+
+
+def test_project_dir_is_acted_on(tmp_path):
+    """A project_dir, given either way, is where automatic checkpoints go."""
+    for acc in (Accelerator(cpu=True, project_dir=str(tmp_path)),
+                Accelerator(cpu=True, project_config=ProjectConfiguration(
+                    project_dir=str(tmp_path), automatic_checkpoint_naming=True))):
+        assert acc.project_dir == str(tmp_path)
+    torch.manual_seed(0)
+    acc.prepare(Model(torch.nn.Linear(3, 2)), adamw(1e-3))
+    out = acc.save_state()
+    assert out == str(tmp_path / "checkpoints" / "checkpoint_0")
+    assert (tmp_path / "checkpoints" / "checkpoint_0" / "model.safetensors").exists()
+    assert acc.project_configuration.iteration == 1
 
 
 def test_default_plugins_are_accepted():
@@ -204,3 +222,61 @@ def test_wider_mesh_and_fp16_are_not_ported():
         ParallelismConfig(cp_size=2, sp_size=2)
     with pytest.raises(NotImplementedError):
         Accelerator(mixed_precision="fp16", cpu=True)
+
+
+_SCHEDULES = [
+    ("constant_schedule", dict(value=3e-4)),
+    ("linear_schedule", dict(init_value=1e-3, end_value=1e-5, transition_steps=7)),
+    ("linear_schedule", dict(init_value=0.0, end_value=2e-4, transition_steps=5,
+                             transition_begin=3)),
+    ("linear_schedule", dict(init_value=1e-3, end_value=0.0, transition_steps=0)),
+    ("cosine_decay_schedule", dict(init_value=3e-4, decay_steps=9, alpha=0.1)),
+    ("cosine_decay_schedule", dict(init_value=1e-3, decay_steps=6, exponent=2.0)),
+    ("warmup_cosine_decay_schedule", dict(init_value=0.0, peak_value=3e-4, warmup_steps=2,
+                                          decay_steps=12)),
+    ("warmup_cosine_decay_schedule", dict(init_value=1e-5, peak_value=1e-3, warmup_steps=4,
+                                          decay_steps=20, end_value=1e-4)),
+]
+
+
+@pytest.mark.parametrize("name,kw", _SCHEDULES, ids=[n for n, _ in _SCHEDULES])
+def test_schedules_match_optax(name, kw):
+    """The port's schedules (Python floats) against optax's (float32) at
+    counts 0-24: within 1e-6 of the value, or of the schedule's largest
+    value where optax's float32 arithmetic cancels (an initial value far
+    below the peak, the cosine's tail), which puts its own rounding error
+    above 1e-6 of a small value."""
+    port, ref = getattr(accelerate_tpu_torch, name)(**kw), getattr(optax, name)(**kw)
+    values = [float(ref(count)) for count in range(25)]
+    peak = max(abs(v) for v in values)
+    for count, want in enumerate(values):
+        assert port(count) == pytest.approx(want, rel=1e-6, abs=1e-6 * peak), count
+
+
+def test_join_schedules_matches_optax():
+    parts = dict(boundaries=[3, 8])
+    port = accelerate_tpu_torch.join_schedules(
+        [accelerate_tpu_torch.constant_schedule(1.0),
+         accelerate_tpu_torch.linear_schedule(1.0, 0.5, 5),
+         accelerate_tpu_torch.constant_schedule(0.25)], **parts)
+    ref = optax.join_schedules([optax.constant_schedule(1.0), optax.linear_schedule(1.0, 0.5, 5),
+                                optax.constant_schedule(0.25)], **parts)
+    assert [port(c) for c in range(12)] == pytest.approx([float(ref(c)) for c in range(12)])
+
+
+def test_scheduled_adamw_applies_schedule_k_at_update_k():
+    """Update k (from 0) runs at schedule(k), as optax's scale_by_schedule;
+    the count survives the optimizer's state_dict."""
+    schedule = accelerate_tpu_torch.linear_schedule(1.0, 0.0, 4)
+    p = torch.nn.Parameter(torch.zeros(3))
+    opt = adamw(schedule)([p])
+    lrs = []
+    for _ in range(5):
+        p.grad = torch.ones(3)
+        opt.step()
+        lrs.append(opt.param_groups[0]["lr"])
+    assert lrs == [schedule(k) for k in range(5)] == [1.0, 0.75, 0.5, 0.25, 0.0]
+    assert opt.count == 5 and float(opt.state[p]["step"]) == 5.0
+    fresh = adamw(schedule)([torch.nn.Parameter(torch.zeros(3))])
+    fresh.load_state_dict(opt.state_dict())
+    assert fresh.count == 5
