@@ -1,8 +1,9 @@
-"""PyTorch/CUDA port of accelerate_tpu: the Llama training loop on one
-NVIDIA Hopper GPU (the train step with hand-written CUDA kernels for flash
-attention, prepared data loaders, learning-rate schedules, and checkpoints
-in the JAX package's directory contract), and KV-cache generation and
-continuous-batching serving for Llama.
+"""PyTorch/CUDA port of accelerate_tpu: the Llama training loop on NVIDIA
+Hopper GPUs (the train step with hand-written CUDA kernels for flash
+attention, on one GPU or data-parallel over a process group with FSDP2,
+HSDP or DDP; prepared data loaders, learning-rate schedules, and
+checkpoints in the JAX package's directory contract), and KV-cache
+generation and continuous-batching serving for Llama.
 
 It imports torch only, never JAX or the ``accelerate_tpu`` package, and
 runs on CUDA unless the caller asks for the CPU (``Accelerator(cpu=True)``).
@@ -28,7 +29,7 @@ from .optimizer import (
 from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
 from .serving import ServingEngine
-from .state import AcceleratorState, GradientState, PartialState
+from .state import AcceleratorState, DistributedType, GradientState, PartialState
 from .train_state import TrainState
 from .utils import (
     DataLoaderConfiguration,
@@ -47,6 +48,7 @@ __all__ = [
     "AcceleratorState",
     "ColumnDataset",
     "DataLoaderConfiguration",
+    "DistributedType",
     "FullyShardedDataParallelPlugin",
     "GenerationConfig",
     "GradientAccumulationPlugin",

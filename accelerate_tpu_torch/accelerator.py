@@ -26,9 +26,17 @@ reading them waits for the step.
 
 ``prepare`` takes models, optimizers, data loaders (anything with a
 ``dataset``, or iterable with a ``batch_size``) and schedules
-(``schedule(count) -> lr``) in any order and returns them in order. One
-process on one device: ``gather``, ``gather_for_metrics`` and ``reduce``
-are identities there, and more processes are ROADMAP.md Queue A item 1.
+(``schedule(count) -> lr``) in any order and returns them in order.
+
+Over a process group (torchrun's environment, ``state.py``), ``prepare``
+shards each model with FSDP2 when an ``fsdp_plugin`` is given (HSDP when
+``ParallelismConfig.dp_replicate_size > 1``), else replicates it under DDP
+(``parallel/fsdp.py``); each process feeds its own share of the batch. The
+step then has the same numbers as one process on the whole batch: the
+gradients are averaged over processes, the grad norm is the global norm
+over every shard, and the loss metric is the mean over processes.
+``gather``, ``gather_for_metrics``, ``reduce`` and ``pad_across_processes``
+run the collectives of ``utils/operations.py``.
 """
 
 from __future__ import annotations
@@ -37,14 +45,18 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .data_loader import BaseDataLoader, prepare_data_loader, skip_first_batches
 from .model import Model
 from .optimizer import AdamW
+from .parallel import apply_data_parallel
 from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .train_state import TrainState
+from .utils import operations
 from .utils.dataclasses import (
     DataLoaderConfiguration,
     FullyShardedDataParallelPlugin,
@@ -53,7 +65,8 @@ from .utils.dataclasses import (
     ProjectConfiguration,
 )
 
-_MULTI_GPU_ITEM = "ROADMAP.md Queue A item 1 (multi-GPU FSDP2/DDP)"
+_DP_REST_ITEM = ("ROADMAP.md Queue A item 1 (the rest of data parallelism: "
+                 "DISTRIBUTED_STATE_DICT, save_state(block=False))")
 
 
 def _microbatch_split(batch: dict, num_accum: int) -> list[dict]:
@@ -75,6 +88,26 @@ def _is_dataloader_like(obj) -> bool:
 
 def _is_schedule(obj) -> bool:
     return callable(obj) and not isinstance(obj, (Model, AdamW)) and not _is_dataloader_like(obj)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The process's own part of a (possibly sharded) tensor."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _global_norm(grads: list) -> torch.Tensor:
+    """The L2 norm over every gradient, whole or sharded: sharded ones
+    (FSDP2's DTensors) reduce over their mesh, so each process gets the
+    norm of the full gradients."""
+    sharded = [g for g in grads if isinstance(g, DTensor)]
+    whole = [g for g in grads if not isinstance(g, DTensor)]
+    parts = []
+    if sharded:
+        norm = torch.nn.utils.get_total_norm(sharded)
+        parts.append(norm.full_tensor() if isinstance(norm, DTensor) else norm)
+    if whole:
+        parts.append(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(whole))))
+    return parts[0] if len(parts) == 1 else torch.linalg.vector_norm(torch.stack(parts))
 
 
 class _HookHandle:
@@ -99,10 +132,8 @@ class Accelerator:
         project_dir: Optional[str] = None,
         project_config: Optional[ProjectConfiguration] = None,
     ):
-        # fsdp_plugin's sharding fields are accepted only at their defaults
-        # (they raise otherwise): on one device FSDP has nothing to shard, and
-        # a wider mesh raises in AcceleratorState. Its state_dict_type picks
-        # the checkpoint's file layout.
+        # fsdp_plugin shards the models over a process group (FSDP2); alone,
+        # only its state_dict_type acts (the checkpoint's file layout).
         self.fsdp_plugin = fsdp_plugin
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
@@ -142,8 +173,16 @@ class Accelerator:
         return self.state._partial.process_index
 
     @property
+    def local_process_index(self) -> int:
+        return self.state._partial.local_process_index
+
+    @property
     def is_main_process(self) -> bool:
         return self.process_index == 0
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.local_process_index == 0
 
     def wait_for_everyone(self) -> None:
         self.state._partial.wait_for_everyone()
@@ -170,11 +209,16 @@ class Accelerator:
         for i, obj in enumerate(args):
             if isinstance(obj, Model):
                 obj.module.to(self.device)
+                apply_data_parallel(obj, self.state, self.fsdp_plugin,
+                                    self._mp_policy.compute_dtype)
                 model = obj
                 self._models.append(obj)
             elif isinstance(obj, (AdamW, torch.optim.Optimizer)):
                 if model is None:
                     raise ValueError("prepare() needs the model before its optimizer")
+                if model.sharded and not isinstance(obj, AdamW):
+                    raise ValueError("under FSDP2 pass adamw(...), so that prepare() builds "
+                                     "the optimizer on the sharded parameters")
                 opt = obj(model.parameters()) if isinstance(obj, AdamW) else obj
                 self._train_states.append(TrainState(step=0, model=model, optimizer=opt))
                 self._optimizers.append(opt)
@@ -203,7 +247,7 @@ class Accelerator:
                 dispatch_batches=cfg.dispatch_batches,
                 even_batches=cfg.even_batches, use_seedable_sampler=cfg.use_seedable_sampler,
                 data_seed=cfg.data_seed, non_blocking=cfg.non_blocking,
-                prefetch_size=cfg.prefetch_size)
+                prefetch_size=cfg.prefetch_size, dispatch_group_size=cfg.dispatch_group_size)
         if prepared not in self._dataloaders:
             self._dataloaders.append(prepared)
         return prepared
@@ -242,11 +286,13 @@ class Accelerator:
 
     def prepare_train_step(self, loss_fn: Callable, *, max_grad_norm: Optional[float] = None):
         """``step(state, batch) -> (state, {"loss", "grad_norm"})`` around
-        ``loss_fn(model, batch) -> scalar loss``."""
+        ``loss_fn(model, batch) -> scalar loss``. Over a process group each
+        process passes its own share of the global batch."""
         if not self._train_states:
             raise RuntimeError("Call accelerator.prepare(...) first.")
         policy = self._mp_policy
         num_accum = self.gradient_state.num_steps
+        world = self.num_processes
 
         def step(state: TrainState, batch: dict):
             model, opt = state.model, state.optimizer
@@ -256,56 +302,66 @@ class Accelerator:
             opt.zero_grad(set_to_none=True)
             loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
             for mb in microbatches:
-                with model.compute_params(policy.cast_for_compute(named)):
+                if model.sharded:  # FSDP2's policy casts the masters for compute
                     loss = loss_fn(model, mb).float()
                     loss.backward()
+                else:
+                    with model.compute_params(policy.cast_for_compute(named)):
+                        loss = loss_fn(model, mb).float()
+                        loss.backward()
                 loss_sum += loss.detach()
             grads = [p.grad for p in params if p.grad is not None]
+            # Parameters FSDP2 leaves whole are averaged here, as DDP would.
+            for p in model.ignored.values():
+                if p.grad is not None and world > 1:
+                    dist.all_reduce(p.grad)
+                    p.grad.div_(world)
             if num_accum > 1:
-                torch._foreach_div_(grads, num_accum)
-            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+                torch._foreach_div_([_local(g) for g in grads], num_accum)
+            gnorm = _global_norm(grads)
             if max_grad_norm is not None:
                 factor = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
-                torch._foreach_mul_(grads, factor)
+                torch._foreach_mul_([_local(g) for g in grads], factor)
             opt.step()
             state.step += 1
-            return state, {"loss": loss_sum / num_accum, "grad_norm": gnorm}
+            loss = loss_sum / num_accum
+            if world > 1:
+                dist.all_reduce(loss)
+                loss = loss / world
+            return state, {"loss": loss, "grad_norm": gnorm}
 
         return step
 
     # ------------------------------------------------------------------
-    # Metrics across processes (one process: identities)
+    # Collectives across processes (utils/operations.py)
     # ------------------------------------------------------------------
 
-    def _one_process(self, what: str) -> None:
-        if self.num_processes > 1:
-            raise NotImplementedError(f"{what} across processes is {_MULTI_GPU_ITEM}")
-
     def gather(self, tensor):
-        self._one_process("gather")
-        return tensor
+        """Every process's tensors concatenated on dim 0."""
+        return operations.gather(tensor)
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
         """The gathered values without the samples that ``even_batches``
-        repeated to fill the last batch."""
-        data = self.gather(input_data)
+        repeated to fill the last batch. Data with leaves other than
+        tensors and arrays (or ``use_gather_object``) is gathered as Python
+        objects."""
+        as_objects = use_gather_object or not operations.is_array_tree(input_data)
+        data = (operations.gather_object(input_data) if as_objects
+                else operations.gather(input_data))
         gs = self.gradient_state
         if gs.end_of_dataloader and gs.remainder > 0:
-            def trim(x):
-                return x[: gs.remainder]
-
-            if isinstance(data, dict):
-                return {k: trim(v) for k, v in data.items()}
-            if isinstance(data, (tuple, list)) and not use_gather_object:
-                return type(data)(trim(v) for v in data)
-            return trim(data)
+            if as_objects:
+                return data[: gs.remainder]
+            return operations.recursively_apply(lambda t: t[: gs.remainder], data)
         return data
 
     def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
-        if reduction not in ("sum", "mean", "none"):
-            raise ValueError(f"reduction must be sum|mean|none, got {reduction!r}")
-        self._one_process("reduce")
-        return tensor * scale if scale != 1.0 else tensor
+        return operations.reduce(tensor, reduction=reduction, scale=scale)
+
+    def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0,
+                             pad_first: bool = False):
+        return operations.pad_across_processes(tensor, dim=dim, pad_index=pad_index,
+                                               pad_first=pad_first)
 
     # ------------------------------------------------------------------
     # Checkpoints
@@ -342,8 +398,8 @@ class Accelerator:
                              "has no other format")
         if not block:
             raise NotImplementedError(
-                f"save_state(block=False) is asynchronous only for DISTRIBUTED_STATE_DICT "
-                f"(orbax), which is {_MULTI_GPU_ITEM}")
+                f"save_state(block=False) is asynchronous only for DISTRIBUTED_STATE_DICT, "
+                f"which is {_DP_REST_ITEM}")
         if self._save_state_pre_hooks:
             output_dir = _checkpoint_dir(self, output_dir)
             for hook in self._save_state_pre_hooks:

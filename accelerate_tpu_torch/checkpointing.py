@@ -27,6 +27,15 @@ Parameters and moments move to the host through pinned buffers, all copies
 issued before one synchronisation, and back through pinned buffers with
 asynchronous copies; the layout changes run on the device.
 
+Over a process group the contract is the same. Sharded tensors (FSDP2's
+DTensors) are gathered whole, one at a time, every process joining each
+all-gather, and process 0 writes (each node's local process 0 with
+``save_on_each_node``); every process writes its own
+``random_states_<rank>.pkl``. On load every process reads the files and
+keeps its own shard of each tensor, so a checkpoint written at one world
+size (or by the JAX package under any mesh) loads at any other. The save
+ends with a barrier, so that every file is there when it returns.
+
 Every pickle of a checkpoint is read with a restricted unpickler: it
 allows numpy's array reconstructors and maps optax's ``ScaleByAdamState``,
 ``ScaleByScheduleState`` and ``EmptyState`` to stand-in records of the same
@@ -54,6 +63,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from .models.convert import llama_params_to_flax, llama_views_from_flax
 from .models.llama import LlamaForCausalLM
@@ -181,6 +191,17 @@ def _to_host(tensors: dict, device: torch.device) -> dict:
     return out
 
 
+def _whole(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The whole tensor of a sharded one (an all-gather every process of
+    its mesh joins), on ``device``; a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    if t.device.type != device.type:  # CPU-offloaded shards, gathered on the card
+        t = DTensor.from_local(t.to_local().to(device), t.device_mesh, t.placements,
+                               shape=t.shape, stride=t.stride())
+    return t.full_tensor()
+
+
 def _to_device(tensors: dict, device: torch.device) -> dict:
     """Host tensors on ``device``; from pinned memory the copies do not
     wait (the caller's later use on the same stream orders after them)."""
@@ -237,17 +258,31 @@ def _suffix(i: int) -> str:
 
 
 def _save_train_state(train_state, i: int, write_dir: str, max_shard, device,
-                      stats: dict) -> None:
+                      stats: dict, writer: bool = True) -> None:
+    """Write one model's parameters and moments; under FSDP2 every process
+    joins the gathers and only the ``writer`` keeps and writes them."""
     module, opt = train_state.model.module, train_state.optimizer
+    if not (writer or train_state.model.sharded):
+        return
     named = _named_params(train_state)
-    params = {n: p.detach() for n, p, _ in named}
-    t0 = time.perf_counter()
-    flat_params = _to_host(flatten_state_dict(_model_tree(module, params)), device)
-    moments = {}
+    trees = {"params": {n: p.detach() for n, p, _ in named}}
     for key in ("exp_avg", "exp_avg_sq"):
-        tensors = {n: _adam_state(opt, p, g)[key] for n, p, g in named}
-        moments[key] = _to_host(flatten_state_dict(_model_tree(module, tensors)), device)
+        trees[key] = {n: _adam_state(opt, p, g)[key] for n, p, g in named}
+    t0 = time.perf_counter()
+    host = {}
+    for key, tensors in trees.items():
+        whole = {}
+        for n, t in tensors.items():
+            full = _whole(t, device)
+            if writer:
+                whole[n] = full
+        if writer:
+            host[key] = _to_host(flatten_state_dict(_model_tree(module, whole)), device)
+        del whole
     stats["d2h_s"] += time.perf_counter() - t0
+    if not writer:
+        return
+    flat_params, moments = host["params"], host
 
     t0 = time.perf_counter()
     save_sharded_safetensors(flat_params, write_dir, max_shard_size=max_shard,
@@ -262,7 +297,11 @@ def _save_train_state(train_state, i: int, write_dir: str, max_shard, device,
     stats["write_s"] += time.perf_counter() - t0
 
 
-def _save_host_side_state(accelerator, output_dir: str) -> None:
+def _save_host_side_state(accelerator, output_dir: str, writer: bool) -> None:
+    _dump(rng_state(), os.path.join(
+        output_dir, f"{RNG_STATE_NAME}_{accelerator.process_index}.pkl"))
+    if not writer:
+        return
     for i, scheduler in enumerate(accelerator._schedulers):
         _dump(scheduler.state_dict(), os.path.join(output_dir, f"{SCHEDULER_NAME}{_suffix(i)}.bin"))
     for i, dl in enumerate(accelerator._dataloaders):
@@ -270,8 +309,6 @@ def _save_host_side_state(accelerator, output_dir: str) -> None:
     for i, obj in enumerate(accelerator._custom_objects):
         save_custom_state(obj, output_dir, i)
     _dump({"step": accelerator.step}, os.path.join(output_dir, "accelerator_step.bin"))
-    _dump(rng_state(), os.path.join(
-        output_dir, f"{RNG_STATE_NAME}_{accelerator.process_index}.pkl"))
 
 
 def save_accelerator_state(accelerator, output_dir: Optional[str] = None) -> str:
@@ -283,11 +320,15 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None) -> str
     if not accelerator._train_states:
         raise RuntimeError("Nothing prepared; call accelerator.prepare(...) first.")
     pc = accelerator.project_configuration
+    # One writer of the shared files: process 0, or each node's local process 0.
+    writer = (accelerator.is_local_main_process if pc.save_on_each_node
+              else accelerator.is_main_process)
     output_dir = _checkpoint_dir(accelerator, output_dir)
     if pc.automatic_checkpoint_naming:
         base = os.path.dirname(output_dir)
         os.makedirs(base, exist_ok=True)
-        _prune_total_limit(accelerator, base, room_for=1)
+        if writer:
+            _prune_total_limit(accelerator, base, room_for=1)
     os.makedirs(output_dir, exist_ok=True)
 
     plugin = accelerator.fsdp_plugin
@@ -295,8 +336,10 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None) -> str
                  else 10**15)
     stats = {"d2h_s": 0.0, "write_s": 0.0}
     for i, train_state in enumerate(accelerator._train_states):
-        _save_train_state(train_state, i, output_dir, max_shard, accelerator.device, stats)
-    _save_host_side_state(accelerator, output_dir)
+        _save_train_state(train_state, i, output_dir, max_shard, accelerator.device, stats,
+                          writer)
+    _save_host_side_state(accelerator, output_dir, writer)
+    accelerator.wait_for_everyone()
     if pc.automatic_checkpoint_naming:
         pc.iteration += 1
     stats["seconds"] = time.perf_counter() - t_start
@@ -323,7 +366,8 @@ def _opt_payload_parts(opt_state):
 
 
 def _copy_named(dst: dict, src: dict, what: str) -> None:
-    """``dst[name].copy_(src[name])`` for every name, which must match."""
+    """``dst[name].copy_(src[name])`` for every name, which must match; a
+    sharded ``dst`` takes its own shard of the whole ``src``."""
     if set(dst) != set(src):
         missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
         raise KeyError(f"{what}: checkpoint lacks {missing[:5]}, has unknown {extra[:5]}")
@@ -332,7 +376,12 @@ def _copy_named(dst: dict, src: dict, what: str) -> None:
             if tuple(src[name].shape) != tuple(t.shape):
                 raise ValueError(f"{what}: {name} is {tuple(src[name].shape)} in the checkpoint, "
                                  f"{tuple(t.shape)} here")
-            t.copy_(src[name])
+            if isinstance(t, DTensor):
+                shard = distribute_tensor(src[name].contiguous(), t.device_mesh, t.placements,
+                                          src_data_rank=None)
+                t.to_local().copy_(shard.to_local())
+            else:
+                t.copy_(src[name])
 
 
 def _load_train_state(train_state, i: int, input_dir: str, device, stats: dict) -> None:

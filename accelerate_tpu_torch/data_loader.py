@@ -26,8 +26,9 @@ form, so either package resumes the other's ``sampler.bin`` mid-epoch:
 ``load_state_dict`` arms the next iteration to skip the batches already
 taken, at the sampler (no skipped batch is collated).
 
-Dispatch mode (``DataLoaderDispatcher``) has its one-process semantics; its
-broadcast to other processes is ROADMAP.md Queue A item 1.
+Dispatch mode (``DataLoaderDispatcher``): process 0 reads, and sends the
+batches to every process in grouped broadcasts (``dispatch_group_size``
+batches, or 1 MiB, to a broadcast), each process keeping its slice.
 """
 
 from __future__ import annotations
@@ -46,9 +47,15 @@ import torch
 
 from . import native
 from .state import GradientState, PartialState
+from .utils.operations import (
+    broadcast_object_list,
+    concatenate,
+    find_batch_size,
+    pad_input_tensors,
+    recursively_apply,
+    slice_tensors,
+)
 from .utils.random import synchronize_rng_states
-
-_MULTI_GPU_ITEM = "ROADMAP.md Queue A item 1 (multi-GPU FSDP2/DDP)"
 
 
 class SeedableRandomSampler:
@@ -297,14 +304,6 @@ class ColumnDataset:
         return native.gather_columns(self.columns, indices)
 
 
-def _map_leaves(fn, batch):
-    if isinstance(batch, dict):
-        return {k: _map_leaves(fn, v) for k, v in batch.items()}
-    if isinstance(batch, (tuple, list)):
-        return type(batch)(_map_leaves(fn, v) for v in batch)
-    return fn(batch)
-
-
 class _PrefetchIterator:
     """Runs a source iterator on a daemon thread, at most ``prefetch_size``
     items ahead; an exception in the source is raised to the consumer."""
@@ -406,13 +405,13 @@ class BaseDataLoader:
                 x = x.pin_memory()
             return x
 
-        return _map_leaves(host, batch)
+        return recursively_apply(host, batch)
 
     def _device_put_batch(self, batch):
         """Host tensors → the loader's device, on the caller's stream."""
         if not self.device_placement:
             return batch
-        return _map_leaves(
+        return recursively_apply(
             lambda x: x.to(self.device, non_blocking=self.non_blocking)
             if torch.is_tensor(x) else x, batch)
 
@@ -586,30 +585,91 @@ class IterableDataLoaderShard(BaseDataLoader):
 
 
 class DataLoaderDispatcher(BaseDataLoader):
-    """Process 0 reads each batch and every process keeps its slice. With
-    one process that is the whole batch; the broadcast to other processes
-    is ROADMAP.md Queue A item 1."""
+    """Process 0 reads the data and broadcasts it; each process keeps its
+    slice (the JAX package's ``DataLoaderDispatcher``, batch for batch).
 
-    def __init__(self, dataset, batch_sampler=None, split_batches: bool = False, **kwargs):
+    Without ``split_batches`` every process gets a whole ``batch_size``
+    batch: process 0 reads ``world`` sampler batches a step and
+    concatenates them; with it, one sampler batch is cut into ``world``
+    slices. A last batch that does not divide repeats its first samples
+    (``pad_input_tensors``), which ``gather_for_metrics`` trims. A
+    broadcast costs about the same for any payload up to about 1 MB, so
+    process 0 reads ahead and sends ``dispatch_group_size`` batches, or 1
+    MiB of them (``dispatch_group_bytes``), in one ``broadcast_object_list``;
+    an ``exhausted`` flag in it ends every process's loop together. The
+    broadcasts run on the thread that iterates, in the same order on every
+    process, so with more than one process there is no prefetch thread."""
+
+    def __init__(self, dataset, batch_sampler=None, split_batches: bool = False,
+                 dispatch_group_size: int = 8, **kwargs):
         super().__init__(dataset, batch_sampler=batch_sampler, **kwargs)
         self.split_batches = split_batches
+        self.dispatch_group_size = max(1, int(dispatch_group_size))
+        self.dispatch_group_bytes = 1 << 20
+        if PartialState().num_processes > 1:
+            self.prefetch_size = 0
 
     @property
     def total_batch_size(self):
-        return getattr(self.batch_sampler, "batch_size", None)
+        bs = getattr(self.batch_sampler, "batch_size", None)
+        if bs is None:
+            return None
+        return bs if self.split_batches else bs * PartialState().num_processes
 
     def __len__(self):
-        return len(self.batch_sampler)
+        n, world = len(self.batch_sampler), PartialState().num_processes
+        return n if self.split_batches or world == 1 else math.ceil(n / world)
+
+    def _read(self, batch_indices):
+        """One collated batch with numpy leaves, for the broadcast's pickle."""
+        return recursively_apply(lambda t: t.detach().cpu().numpy() if torch.is_tensor(t) else t,
+                                 self.collate_fn([self.dataset[i] for i in batch_indices]))
 
     def _raw_batches(self):
-        if PartialState().num_processes > 1:
-            raise NotImplementedError(f"dispatching batches to other processes is {_MULTI_GPU_ITEM}")
+        state = PartialState()
+        world = state.num_processes
         it = iter(self.batch_sampler)
-        for _ in range(self._consume_skip()):
-            if next(it, None) is None:
+        if world == 1:
+            for _ in range(self._consume_skip()):
+                if next(it, None) is None:
+                    return
+            for batch_indices in it:
+                yield self.collate_fn([self.dataset[i] for i in batch_indices])
+            return
+        per_yield = 1 if self.split_batches else world
+        skip = self._consume_skip()
+        if state.is_main_process:
+            for _ in range(skip * per_yield):
+                if next(it, None) is None:
+                    break
+        while True:
+            payload = [None, None]
+            if state.is_main_process:
+                batches, sizes, nbytes, exhausted = [], [], 0, False
+                while len(batches) < self.dispatch_group_size:
+                    parts = [self._read(ix) for ix in itertools.islice(it, per_yield)]
+                    if not parts:
+                        exhausted = True
+                        break
+                    batch = parts[0] if len(parts) == 1 else concatenate(parts)
+                    batches.append(batch)
+                    recursively_apply(lambda leaf: sizes.append(leaf.nbytes), batch)
+                    nbytes = sum(sizes)
+                    if nbytes >= self.dispatch_group_bytes:
+                        break
+                payload = [batches, exhausted]
+            broadcast_object_list(payload, from_process=0)
+            batches, exhausted = payload
+            for batch in batches:
+                bs = find_batch_size(batch)
+                if bs % world:
+                    batch = pad_input_tensors(batch, bs, world)
+                    bs = find_batch_size(batch)
+                shard = bs // world
+                start = state.process_index * shard
+                yield slice_tensors(batch, start, start + shard)
+            if exhausted:
                 return
-        for batch_indices in it:
-            yield self.collate_fn([self.dataset[i] for i in batch_indices])
 
 
 def _infer_shuffle(dataloader) -> bool:
@@ -622,7 +682,8 @@ def prepare_data_loader(dataloader, device=None, num_processes: Optional[int] = 
                         put_on_device: bool = True, rng_types=None,
                         dispatch_batches: Optional[bool] = None, even_batches: bool = True,
                         use_seedable_sampler: bool = True, data_seed: Optional[int] = None,
-                        non_blocking: bool = True, prefetch_size: int = 2) -> BaseDataLoader:
+                        non_blocking: bool = True, prefetch_size: int = 2,
+                        dispatch_group_size: int = 8) -> BaseDataLoader:
     """A loader of this package over a user's loader: a
     ``torch.utils.data.DataLoader`` or anything with ``.dataset`` and
     ``.batch_size`` (its ``collate_fn``, ``drop_last`` and, by the name of
@@ -668,7 +729,7 @@ def prepare_data_loader(dataloader, device=None, num_processes: Optional[int] = 
     inner = BatchSampler(sampler, batch_size=batch_size, drop_last=drop_last)
     if dispatch_batches:
         return DataLoaderDispatcher(dataset, batch_sampler=inner, split_batches=split_batches,
-                                    **common)
+                                    dispatch_group_size=dispatch_group_size, **common)
     sharded = BatchSamplerShard(inner, num_processes=num_processes, process_index=process_index,
                                 split_batches=split_batches, even_batches=even_batches)
     return DataLoaderShard(dataset, batch_sampler=sharded, **common)

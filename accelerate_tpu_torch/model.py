@@ -12,6 +12,11 @@ runs on its parameters cast to the compute dtype (the JAX step's
 gradients. The cast copies stand in for the parameters through the forward
 and the backward, because a checkpointed block recomputes its forward
 during the backward and must see the same tensors.
+
+Over a process group (``parallel/fsdp.py``) the module keeps its names:
+FSDP2 shards it in place (``sharded``; its mixed-precision policy makes the
+compute copies, and ``ignored`` holds the parameters it leaves whole), and
+DDP wraps it (``forward_module``, through which calls run).
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ class Model:
         if not isinstance(module, nn.Module):
             raise TypeError(f"Model wraps a torch.nn.Module, got {type(module).__name__}")
         self.module = module
+        self.forward_module = module
+        self.sharded = False
+        self.ignored: dict = {}
 
     def parameters(self):
         return self.module.parameters()
@@ -56,4 +64,4 @@ class Model:
                 mod._parameters[attr] = original
 
     def __call__(self, *args, **kwargs):
-        return self.module(*args, **kwargs)
+        return self.forward_module(*args, **kwargs)

@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
-KERNEL_SOURCES = ("flash_fwd", "flash_dq", "flash_dkv")
+KERNEL_SOURCES = ("flash_fwd", "flash_dq", "flash_dkv", "flash_f32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,25 +1,38 @@
 // Shared pieces of the three flash-attention kernels (flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu): the element type and its packing, shared
-// addresses, the reductions over the four lanes of an accumulator row, the
+// flash_dq.cu, flash_dkv.cu): the 16-bit element types and their packing,
+// shared addresses, the reductions over the four lanes of an accumulator row, the
 // causal block arithmetic, the backward arguments and the shared-memory
 // limit. The Hopper primitives (TMA, mbarriers, wgmma, setmaxnreg) are in
 // hopper_common.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace flash {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float NEG_INF = -1e30f;  // the masked-score value of the TPU kernels
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Two floats rounded to bf16 in one 32-bit register, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// Two floats rounded to the element type T (bf16 or f16) in one 32-bit
+// register, `lo` in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<f16>(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -64,10 +77,11 @@ __device__ __forceinline__ bool needs_mask(int causal, int q_off, int k_off, int
 // Arguments of the two backward kernels (flash_dq.cu, flash_dkv.cu). The
 // inputs are read through TMA tensor maps built from their strides; the
 // outputs are written through the strides here.
+template <typename T>
 struct BwdArgs {
-    const bf16 *q, *k, *v, *dout;
+    const T *q, *k, *v, *dout;
     const float *lse, *delta;  // (B, Hq, Sq), contiguous
-    bf16 *dq, *dk, *dv;
+    T *dq, *dk, *dv;
     long long dq_b, dq_s, dq_h, dk_b, dk_s, dk_h, dv_b, dv_s, dv_h;
     int Sq, Sk, Hq, Hkv, causal, q_off, k_off;
     float scale;

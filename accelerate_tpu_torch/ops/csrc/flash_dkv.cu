@@ -26,12 +26,21 @@
 //   Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as wgmma m64n64k16 with both operands from
 //   shared memory (K-major); P (exp2 with the scale folded in, lse kept in
 //   base 2) and dS = P∘(dP − δ) in registers; then dV += Pᵀ·dO and
-//   dK += dSᵀ·Q with Pᵀ and dSᵀ as bf16 register A operands and dO and Q
+//   dK += dSᵀ·Q with Pᵀ and dSᵀ as register A operands of the input's
+//   16-bit type (bf16 or f16) and dO and Q
 //   read MN-major (the transpose bit). The products run as asynchronous
 //   groups, so that P is computed while dPᵀ is, and dS while dV is. A
 //   warpgroup whose 64 keys the causal mask hides from a whole item skips
 //   its products. The 64-query item keeps Sᵀ and dPᵀ at 32 registers each
 //   beside the 2·D/2 of the accumulators, under the 240 of setmaxnreg.
+// At D = 256 the dK and dV accumulators (64 keys × 256 fp32 each) would
+// need 256 registers a thread, above the 255 a thread can address. So the
+// grid's third dimension splits D: a block writes dK and dV for one half
+// of the columns (two m64n128 accumulators, the registers of D = 128) and
+// recomputes Sᵀ and dPᵀ over the whole D, which the other half's block
+// computes too (1.5 times the products of one pass). Its work items shrink
+// to 32 queries, so that the K and V tiles (128 KB) and a ring of two Q
+// and dO stages (64 KB) fit in shared memory.
 // TMA reads the tensors in place through their strides and zero-fills rows
 // past Sq or Sk; the scores of queries past Sq are masked.
 #include "hopper_common.cuh"
@@ -39,27 +48,30 @@
 namespace flash {
 
 constexpr int DKV_BN = 128;  // keys of a block: 64 per consumer warpgroup
-constexpr int DKV_BM = 64;   // queries of a work item
 constexpr int DKV_STAGES = 2;
 constexpr int DKV_THREADS = 384;
 
 template <int D>
 struct DkvSmem {
+    static constexpr int BM = D > 128 ? 32 : 64;    // queries of a work item
+    static constexpr int DN = D > 128 ? 128 : D;    // dK/dV columns of a block
+    static constexpr int SPLIT = D / DN;            // blocks along D (grid z)
     static constexpr int KV_TILE = DKV_BN * D * 2;  // bytes of the K or the V tile
-    static constexpr int Q_TILE = DKV_BM * D * 2;   // bytes of one Q or dO tile
-    static constexpr int STATS = DKV_BM * 4;        // bytes of one lse or δ row
+    static constexpr int Q_TILE = BM * D * 2;       // bytes of one Q or dO tile
+    static constexpr int STATS = BM * 4;            // bytes of one lse or δ row
     static constexpr int BYTES =
         1024 + 2 * KV_TILE + DKV_STAGES * (2 * Q_TILE + 2 * STATS);  // + alignment slack
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(DKV_THREADS, 1)
     flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
-                     const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
+                     const __grid_constant__ CUtensorMap tm_do, const BwdArgs<T> a) {
     using L = Swz<D>;
     using M = DkvSmem<D>;
+    constexpr int DKV_BM = M::BM;
     extern __shared__ unsigned char smem_raw[];
     __shared__ __align__(8) uint64_t kv_full, full[DKV_STAGES], empty[DKV_STAGES];
     unsigned char* sK = align1024(smem_raw);
@@ -73,6 +85,7 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
     const int b = blockIdx.x / a.Hkv, hk = blockIdx.x % a.Hkv;
     const int rep = a.Hq / a.Hkv;
     const int k0 = kb * DKV_BN;
+    const int col0 = blockIdx.z * M::DN;  // first dK/dV column of this block
 
     // Query tiles from the first that sees any key of this block under the
     // causal mask; the work list runs over (group head, query tile).
@@ -147,9 +160,9 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
         const int krow = kw0 + w * 16 + g;      // key of d[4j], d[4j+1]; krow + 8 of the rest
         const float scale_log2 = a.scale * LOG2E;
 
-        float dk[D / 2], dv[D / 2];
+        float dk[M::DN / 2], dv[M::DN / 2];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+        for (int i = 0; i < M::DN / 2; ++i) dk[i] = dv[i] = 0.f;
         mbar_wait(&kv_full, 0);
 
         for (int it = 0; it < n_iter; ++it) {
@@ -173,13 +186,13 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
                 wgmma_fence();
 #pragma unroll
                 for (int kk = 0; kk < D / 16; ++kk)
-                    wgmma_ss<DKV_BM>(sT, desc_k_major<D>(aK, DKV_BN, cw * 64, kk),
-                                     desc_k_major<D>(aQ, DKV_BM, 0, kk), kk > 0);
+                    wgmma_ss<DKV_BM, T>(sT, desc_k_major<D>(aK, DKV_BN, cw * 64, kk),
+                                        desc_k_major<D>(aQ, DKV_BM, 0, kk), kk > 0);
                 wgmma_commit();
 #pragma unroll
                 for (int kk = 0; kk < D / 16; ++kk)
-                    wgmma_ss<DKV_BM>(dpT, desc_k_major<D>(aV, DKV_BN, cw * 64, kk),
-                                     desc_k_major<D>(adO, DKV_BM, 0, kk), kk > 0);
+                    wgmma_ss<DKV_BM, T>(dpT, desc_k_major<D>(aV, DKV_BN, cw * 64, kk),
+                                        desc_k_major<D>(adO, DKV_BM, 0, kk), kk > 0);
                 wgmma_commit();
 
                 // P while dPᵀ is computed, then dV += Pᵀ·dO while dS is.
@@ -208,12 +221,14 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
                 for (int kk = 0; kk < DKV_BM / 16; ++kk)
 #pragma unroll
                     for (int r = 0; r < 4; ++r)
-                        pa[kk][r] = pack_bf16(sT[8 * kk + 2 * r], sT[8 * kk + 2 * r + 1]);
+                        pa[kk][r] = pack2<T>(sT[8 * kk + 2 * r], sT[8 * kk + 2 * r + 1]);
                 wgmma_fence();
                 fence_regs(dv);
 #pragma unroll
                 for (int kk = 0; kk < DKV_BM / 16; ++kk)
-                    wgmma_rs<D>(dv, pa[kk], desc_mn_major<D>(adO, DKV_BM, kk), 1);
+                    wgmma_rs<M::DN, T>(
+                        dv, pa[kk],
+                        desc_mn_major<D>(adO + column_offset<D>(DKV_BM, col0), DKV_BM, kk), 1);
                 wgmma_commit();
 
                 wgmma_wait<1>();  // dPᵀ is done; dV may still run
@@ -226,15 +241,17 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
                         const int j = 2 * kk + r / 2, e = 2 * (r % 2);  // n8 tile, first element
                         const float d0 = cDelta[j * 8 + 2 * t], d1 = cDelta[j * 8 + 2 * t + 1];
                         const float p0 = sT[4 * j + e], p1 = sT[4 * j + e + 1];
-                        sa[kk][r] = pack_bf16(p0 * (dpT[4 * j + e] - d0),
-                                              p1 * (dpT[4 * j + e + 1] - d1));  // dSᵀ
+                        sa[kk][r] = pack2<T>(p0 * (dpT[4 * j + e] - d0),
+                                             p1 * (dpT[4 * j + e + 1] - d1));  // dSᵀ
                     }
                 }
                 wgmma_fence();
                 fence_regs(dk);
 #pragma unroll
                 for (int kk = 0; kk < DKV_BM / 16; ++kk)
-                    wgmma_rs<D>(dk, sa[kk], desc_mn_major<D>(aQ, DKV_BM, kk), 1);
+                    wgmma_rs<M::DN, T>(
+                        dk, sa[kk],
+                        desc_mn_major<D>(aQ + column_offset<D>(DKV_BM, col0), DKV_BM, kk), 1);
                 wgmma_commit();
                 wgmma_wait<0>();
                 fence_regs(dv);
@@ -247,62 +264,77 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
         for (int i = 0; i < 2; ++i) {
             const int kpos = krow + i * 8;
             if (kpos < a.Sk) {
-                bf16* dK = a.dk + b * a.dk_b + (long long)kpos * a.dk_s + hk * a.dk_h;
-                bf16* dV = a.dv + b * a.dv_b + (long long)kpos * a.dv_s + hk * a.dv_h;
+                T* dK = a.dk + b * a.dk_b + (long long)kpos * a.dk_s + hk * a.dk_h + col0;
+                T* dV = a.dv + b * a.dv_b + (long long)kpos * a.dv_s + hk * a.dv_h + col0;
 #pragma unroll
-                for (int j = 0; j < D / 8; ++j) {
+                for (int j = 0; j < M::DN / 8; ++j) {
                     *reinterpret_cast<uint32_t*>(dK + j * 8 + 2 * t) =
-                        pack_bf16(dk[4 * j + 2 * i] * a.scale, dk[4 * j + 2 * i + 1] * a.scale);
+                        pack2<T>(dk[4 * j + 2 * i] * a.scale, dk[4 * j + 2 * i + 1] * a.scale);
                     *reinterpret_cast<uint32_t*>(dV + j * 8 + 2 * t) =
-                        pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+                        pack2<T>(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
                 }
             }
         }
     }
 }
 
-template <int D>
-cudaError_t launch_dkv(const BwdArgs& a, const long long* st, int B, cudaStream_t stream) {
+template <int D, typename T>
+cudaError_t launch_dkv(const BwdArgs<T>& a, const long long* st, int B, cudaStream_t stream) {
+    using M = DkvSmem<D>;
     CUtensorMap tm_q, tm_k, tm_v, tm_do;
-    if (!make_rows_map<D>(&tm_q, a.q, B, a.Sq, a.Hq, st[0], st[1], st[2], DKV_BM) ||
-        !make_rows_map<D>(&tm_k, a.k, B, a.Sk, a.Hkv, st[3], st[4], st[5], DKV_BN) ||
-        !make_rows_map<D>(&tm_v, a.v, B, a.Sk, a.Hkv, st[6], st[7], st[8], DKV_BN) ||
-        !make_rows_map<D>(&tm_do, a.dout, B, a.Sq, a.Hq, st[9], st[10], st[11], DKV_BM))
+    if (!make_rows_map<D, T>(&tm_q, a.q, B, a.Sq, a.Hq, st[0], st[1], st[2], M::BM) ||
+        !make_rows_map<D, T>(&tm_k, a.k, B, a.Sk, a.Hkv, st[3], st[4], st[5], DKV_BN) ||
+        !make_rows_map<D, T>(&tm_v, a.v, B, a.Sk, a.Hkv, st[6], st[7], st[8], DKV_BN) ||
+        !make_rows_map<D, T>(&tm_do, a.dout, B, a.Sq, a.Hq, st[9], st[10], st[11], M::BM))
         return cudaErrorInvalidValue;
-    const int smem = DkvSmem<D>::BYTES;
-    cudaError_t err = allow_smem(flash_dkv_kernel<D>, smem);
+    cudaError_t err = allow_smem(flash_dkv_kernel<D, T>, M::BYTES);
     if (err != cudaSuccess) return err;
-    const dim3 grid(B * a.Hkv, (a.Sk + DKV_BN - 1) / DKV_BN);
-    flash_dkv_kernel<D><<<grid, DKV_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, a);
+    const dim3 grid(B * a.Hkv, (a.Sk + DKV_BN - 1) / DKV_BN, M::SPLIT);
+    flash_dkv_kernel<D, T><<<grid, DKV_THREADS, M::BYTES, stream>>>(tm_q, tm_k, tm_v, tm_do, a);
     return cudaGetLastError();
+}
+
+template <typename T>
+int launch_dkv_typed(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, void* dk, void* dv, const long long* st,
+                     int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal, int q_off,
+                     int k_off, float scale, cudaStream_t s) {
+    BwdArgs<T> a = {};
+    a.q = static_cast<const T*>(q);
+    a.k = static_cast<const T*>(k);
+    a.v = static_cast<const T*>(v);
+    a.dout = static_cast<const T*>(dout);
+    a.lse = static_cast<const float*>(lse);
+    a.delta = static_cast<const float*>(delta);
+    a.dk = static_cast<T*>(dk);
+    a.dv = static_cast<T*>(dv);
+    a.dk_b = st[12]; a.dk_s = st[13]; a.dk_h = st[14];
+    a.dv_b = st[15]; a.dv_s = st[16]; a.dv_h = st[17];
+    a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv;
+    a.causal = causal; a.q_off = q_off; a.k_off = k_off; a.scale = scale;
+    switch (D) {
+        case 64: return launch_dkv<64, T>(a, st, B, s);
+        case 128: return launch_dkv<128, T>(a, st, B, s);
+        case 256: return launch_dkv<256, T>(a, st, B, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 }  // namespace flash
 
-// strides: q, k, v, dout, dk, dv, each (b, s, h), in elements.
+// strides: q, k, v, dout, dk, dv, each (b, s, h), in elements. dtype: 0 bf16, 1 f16.
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv,
                          const long long* strides, int B, int Sq, int Sk, int Hq, int Hkv, int D,
-                         int causal, int q_off, int k_off, float scale, void* stream) {
+                         int dtype, int causal, int q_off, int k_off, float scale,
+                         void* stream) {
     using namespace flash;
-    BwdArgs a = {};
-    a.q = static_cast<const bf16*>(q);
-    a.k = static_cast<const bf16*>(k);
-    a.v = static_cast<const bf16*>(v);
-    a.dout = static_cast<const bf16*>(dout);
-    a.lse = static_cast<const float*>(lse);
-    a.delta = static_cast<const float*>(delta);
-    a.dk = static_cast<bf16*>(dk);
-    a.dv = static_cast<bf16*>(dv);
-    a.dk_b = strides[12]; a.dk_s = strides[13]; a.dk_h = strides[14];
-    a.dv_b = strides[15]; a.dv_s = strides[16]; a.dv_h = strides[17];
-    a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv;
-    a.causal = causal; a.q_off = q_off; a.k_off = k_off; a.scale = scale;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (D) {
-        case 32: return launch_dkv<32>(a, strides, B, s);
-        case 64: return launch_dkv<64>(a, strides, B, s);
-        case 128: return launch_dkv<128>(a, strides, B, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (dtype == 0)
+        return launch_dkv_typed<bf16>(q, k, v, dout, lse, delta, dk, dv, strides, B, Sq, Sk, Hq,
+                                      Hkv, D, causal, q_off, k_off, scale, s);
+    if (dtype == 1)
+        return launch_dkv_typed<f16>(q, k, v, dout, lse, delta, dk, dv, strides, B, Sq, Sk, Hq,
+                                     Hkv, D, causal, q_off, k_off, scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }

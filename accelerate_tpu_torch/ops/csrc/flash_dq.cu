@@ -24,12 +24,17 @@
 //   (in base 2) and δ of their rows, read once from global memory. Per key
 //   tile: S = Q·Kᵀ and dP = dO·Vᵀ as wgmma m64n64k16 with both operands
 //   from shared memory (K-major); P (one FFMA and one exp2 per score) while
-//   dP is computed; dS = P∘(dP − δ) packed as bf16 register A operands;
+//   dP is computed; dS = P∘(dP − δ) packed as register A operands of the
+//   input's 16-bit type (bf16 or f16);
 //   then dQ += dS·K with K read MN-major from the same tile (the transpose
 //   bit). The dS·K product of one tile runs under the S and dP products of
 //   the next; a warp releases a stage after the wait that retires its dS·K.
 //   Each warpgroup stops at its own causal diagonal, so the first skips
 //   the last key tile when its queries see none of it.
+// At D = 256 the dQ accumulator (64 queries × 256 fp32, 128 registers a
+// thread) is held as two column halves, each the accumulator of an
+// m64n128 product over its half of K, and the key tile shrinks to 32 so
+// that S, dP and dS fit beside it and the ring fits in 192 KB.
 // TMA reads the tensors in place through their strides and zero-fills rows
 // past Sq or Sk; scores of keys past Sk are masked, and rows past Sq are
 // not written.
@@ -38,25 +43,28 @@
 namespace flash {
 
 constexpr int DQ_BM = 128;  // queries of a block: 64 per consumer warpgroup
-constexpr int DQ_BN = 64;   // keys of a K/V tile
 constexpr int DQ_STAGES = 2;
 constexpr int DQ_THREADS = 384;
 
 template <int D>
 struct DqSmem {
+    static constexpr int BN = D > 128 ? 32 : 64;   // keys of a K/V tile
+    static constexpr int DN = D > 128 ? 128 : D;   // columns of one dQ accumulator
+    static constexpr int NH = D / DN;              // dQ accumulators along D
     static constexpr int Q_TILE = DQ_BM * D * 2;   // bytes of the Q or the dO tile
-    static constexpr int KV_TILE = DQ_BN * D * 2;  // bytes of one K or V tile
+    static constexpr int KV_TILE = BN * D * 2;     // bytes of one K or V tile
     static constexpr int BYTES = 1024 + 2 * Q_TILE + 2 * DQ_STAGES * KV_TILE;  // + alignment slack
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
     flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
-                    const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
+                    const __grid_constant__ CUtensorMap tm_do, const BwdArgs<T> a) {
     using L = Swz<D>;
     using M = DqSmem<D>;
+    constexpr int DQ_BN = M::BN;
     extern __shared__ unsigned char smem_raw[];
     __shared__ __align__(8) uint64_t q_full, full[DQ_STAGES], empty[DQ_STAGES];
     unsigned char* sQ = align1024(smem_raw);
@@ -132,9 +140,11 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
             delta[i] = qpos < a.Sq ? a.delta[stat + qpos] : 0.f;
         }
 
-        float dq[D / 2];
+        float dq[M::NH][M::DN / 2];  // column half h holds columns h·DN..
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+        for (int hh = 0; hh < M::NH; ++hh)
+#pragma unroll
+            for (int i = 0; i < M::DN / 2; ++i) dq[hh][i] = 0.f;
         float s[DQ_BN / 2], dp[DQ_BN / 2];
         uint32_t ds[DQ_BN / 16][4];  // dS of the tile, the A operand of dS·K
 
@@ -147,13 +157,13 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_ss<DQ_BN>(s, desc_k_major<D>(aQ, DQ_BM, cw * 64, kk),
-                                desc_k_major<D>(aK, DQ_BN, 0, kk), kk > 0);
+                wgmma_ss<DQ_BN, T>(s, desc_k_major<D>(aQ, DQ_BM, cw * 64, kk),
+                                   desc_k_major<D>(aK, DQ_BN, 0, kk), kk > 0);
             wgmma_commit();
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk)
-                wgmma_ss<DQ_BN>(dp, desc_k_major<D>(adO, DQ_BM, cw * 64, kk),
-                                desc_k_major<D>(aV, DQ_BN, 0, kk), kk > 0);
+                wgmma_ss<DQ_BN, T>(dp, desc_k_major<D>(adO, DQ_BM, cw * 64, kk),
+                                   desc_k_major<D>(aV, DQ_BN, 0, kk), kk > 0);
             wgmma_commit();
         };
         // P of the complete S, in place.
@@ -188,7 +198,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
                 for (int r = 0; r < 4; ++r) {
                     const int x = 8 * kk + 2 * r;
                     const float d = delta[r % 2];
-                    ds[kk][r] = pack_bf16(s[x] * (dp[x] - d), s[x + 1] * (dp[x + 1] - d));
+                    ds[kk][r] = pack2<T>(s[x] * (dp[x] - d), s[x + 1] * (dp[x + 1] - d));
                 }
             }
         };
@@ -198,7 +208,11 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
             fence_regs(dq);
 #pragma unroll
             for (int kk = 0; kk < DQ_BN / 16; ++kk)
-                wgmma_rs<D>(dq, ds[kk], desc_mn_major<D>(aK, DQ_BN, kk), 1);
+#pragma unroll
+                for (int hh = 0; hh < M::NH; ++hh)
+                    wgmma_rs<M::DN, T>(
+                        dq[hh], ds[kk],
+                        desc_mn_major<D>(aK + column_offset<D>(DQ_BN, hh * M::DN), DQ_BN, kk), 1);
             wgmma_commit();
         };
         auto release = [&](int kb) {
@@ -232,56 +246,73 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         for (int i = 0; i < 2; ++i) {
             const int qpos = qrow + i * 8;
             if (qpos < a.Sq) {
-                bf16* dQ = a.dq + b * a.dq_b + (long long)qpos * a.dq_s + h * a.dq_h;
+                T* dQ = a.dq + b * a.dq_b + (long long)qpos * a.dq_s + h * a.dq_h;
 #pragma unroll
-                for (int j = 0; j < D / 8; ++j)
-                    *reinterpret_cast<uint32_t*>(dQ + j * 8 + 2 * t) =
-                        pack_bf16(dq[4 * j + 2 * i] * a.scale, dq[4 * j + 2 * i + 1] * a.scale);
+                for (int hh = 0; hh < M::NH; ++hh)
+#pragma unroll
+                    for (int j = 0; j < M::DN / 8; ++j)
+                        *reinterpret_cast<uint32_t*>(dQ + hh * M::DN + j * 8 + 2 * t) =
+                            pack2<T>(dq[hh][4 * j + 2 * i] * a.scale,
+                                     dq[hh][4 * j + 2 * i + 1] * a.scale);
             }
         }
     }
 }
 
-template <int D>
-cudaError_t launch_dq(const BwdArgs& a, const long long* st, int B, cudaStream_t stream) {
+template <int D, typename T>
+cudaError_t launch_dq(const BwdArgs<T>& a, const long long* st, int B, cudaStream_t stream) {
+    using M = DqSmem<D>;
     CUtensorMap tm_q, tm_k, tm_v, tm_do;
-    if (!make_rows_map<D>(&tm_q, a.q, B, a.Sq, a.Hq, st[0], st[1], st[2], DQ_BM) ||
-        !make_rows_map<D>(&tm_k, a.k, B, a.Sk, a.Hkv, st[3], st[4], st[5], DQ_BN) ||
-        !make_rows_map<D>(&tm_v, a.v, B, a.Sk, a.Hkv, st[6], st[7], st[8], DQ_BN) ||
-        !make_rows_map<D>(&tm_do, a.dout, B, a.Sq, a.Hq, st[9], st[10], st[11], DQ_BM))
+    if (!make_rows_map<D, T>(&tm_q, a.q, B, a.Sq, a.Hq, st[0], st[1], st[2], DQ_BM) ||
+        !make_rows_map<D, T>(&tm_k, a.k, B, a.Sk, a.Hkv, st[3], st[4], st[5], M::BN) ||
+        !make_rows_map<D, T>(&tm_v, a.v, B, a.Sk, a.Hkv, st[6], st[7], st[8], M::BN) ||
+        !make_rows_map<D, T>(&tm_do, a.dout, B, a.Sq, a.Hq, st[9], st[10], st[11], DQ_BM))
         return cudaErrorInvalidValue;
-    const int smem = DqSmem<D>::BYTES;
-    cudaError_t err = allow_smem(flash_dq_kernel<D>, smem);
+    cudaError_t err = allow_smem(flash_dq_kernel<D, T>, M::BYTES);
     if (err != cudaSuccess) return err;
     const dim3 grid(B * a.Hq, (a.Sq + DQ_BM - 1) / DQ_BM);
-    flash_dq_kernel<D><<<grid, DQ_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, a);
+    flash_dq_kernel<D, T><<<grid, DQ_THREADS, M::BYTES, stream>>>(tm_q, tm_k, tm_v, tm_do, a);
     return cudaGetLastError();
+}
+
+template <typename T>
+int launch_dq_typed(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dq, const long long* st, int B,
+                    int Sq, int Sk, int Hq, int Hkv, int D, int causal, int q_off, int k_off,
+                    float scale, cudaStream_t s) {
+    BwdArgs<T> a = {};
+    a.q = static_cast<const T*>(q);
+    a.k = static_cast<const T*>(k);
+    a.v = static_cast<const T*>(v);
+    a.dout = static_cast<const T*>(dout);
+    a.lse = static_cast<const float*>(lse);
+    a.delta = static_cast<const float*>(delta);
+    a.dq = static_cast<T*>(dq);
+    a.dq_b = st[12]; a.dq_s = st[13]; a.dq_h = st[14];
+    a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv;
+    a.causal = causal; a.q_off = q_off; a.k_off = k_off; a.scale = scale;
+    switch (D) {
+        case 64: return launch_dq<64, T>(a, st, B, s);
+        case 128: return launch_dq<128, T>(a, st, B, s);
+        case 256: return launch_dq<256, T>(a, st, B, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 }  // namespace flash
 
-// strides: q, k, v, dout, dq, each (b, s, h), in elements.
+// strides: q, k, v, dout, dq, each (b, s, h), in elements. dtype: 0 bf16, 1 f16.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dq, const long long* strides,
-                        int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal, int q_off,
-                        int k_off, float scale, void* stream) {
+                        int B, int Sq, int Sk, int Hq, int Hkv, int D, int dtype, int causal,
+                        int q_off, int k_off, float scale, void* stream) {
     using namespace flash;
-    BwdArgs a = {};
-    a.q = static_cast<const bf16*>(q);
-    a.k = static_cast<const bf16*>(k);
-    a.v = static_cast<const bf16*>(v);
-    a.dout = static_cast<const bf16*>(dout);
-    a.lse = static_cast<const float*>(lse);
-    a.delta = static_cast<const float*>(delta);
-    a.dq = static_cast<bf16*>(dq);
-    a.dq_b = strides[12]; a.dq_s = strides[13]; a.dq_h = strides[14];
-    a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv;
-    a.causal = causal; a.q_off = q_off; a.k_off = k_off; a.scale = scale;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (D) {
-        case 32: return launch_dq<32>(a, strides, B, s);
-        case 64: return launch_dq<64>(a, strides, B, s);
-        case 128: return launch_dq<128>(a, strides, B, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (dtype == 0)
+        return launch_dq_typed<bf16>(q, k, v, dout, lse, delta, dq, strides, B, Sq, Sk, Hq, Hkv,
+                                     D, causal, q_off, k_off, scale, s);
+    if (dtype == 1)
+        return launch_dq_typed<f16>(q, k, v, dout, lse, delta, dq, strides, B, Sq, Sk, Hq, Hkv,
+                                    D, causal, q_off, k_off, scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }

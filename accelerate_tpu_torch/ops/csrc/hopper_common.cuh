@@ -1,5 +1,5 @@
 // Hopper primitives of the three flash-attention kernels (flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu): TMA tensor-map loads that complete on
+// flash_dq.cu, flash_dkv.cu), for bf16 and f16 elements: TMA tensor-map loads that complete on
 // mbarriers, wgmma shared-memory descriptors and products, setmaxnreg, named
 // barriers, and the host code that encodes the tensor maps.
 //
@@ -21,8 +21,8 @@
 //
 // wgmma accumulators (m64nN, fp32): thread t of the warpgroup (warp w =
 // t/32, g = (t%32)/4, q = t%4) holds d[4j+e] at row 16w + g + 8·(e>>1),
-// column 8j + 2q + (e&1). The register A operand of m64k16 (16 bf16 columns
-// of the 64 rows, as four 32-bit registers of bf16 pairs) is, per warp:
+// column 8j + 2q + (e&1). The register A operand of m64k16 (16 columns of
+// the 64 rows, as four 32-bit registers of bf16 or f16 pairs) is, per warp:
 // a0 = (row 16w + g, columns 2q, 2q+1), a1 = (row + 8, the same columns),
 // a2 = (row, columns 8 + 2q, 9 + 2q), a3 = (row + 8, those). So the
 // accumulator's n8 tiles 2kk and 2kk+1, packed in order (d[8kk+2r],
@@ -84,6 +84,15 @@ template <int D>
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int rows, int kk) {
     using L = Swz<D>;
     return make_desc(tile + kk * 16 * L::ROW, rows * L::ROW, 8 * L::ROW, L::LAYOUT);
+}
+
+// Byte offset, in a tile of `rows` rows, of head-dim column `col` (a
+// multiple of the chunk width): an MN-major operand over columns col.. of
+// the tile starts there. A product whose N would pass 128 (D = 256) is
+// split into column ranges this way.
+template <int D>
+__host__ __device__ constexpr int column_offset(int rows, int col) {
+    return col / Swz<D>::ELEMS * rows * Swz<D>::ROW;
 }
 
 // ---------------------------------------------------------------------------
@@ -202,112 +211,175 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-// d (m64nN, fp32) = A·B + (scale_d ? d : 0), bf16 A and B from shared
-// memory, both K-major.
-template <int N>
+template <int H, int N>
+__device__ __forceinline__ void fence_regs(float (&d)[H][N]) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) fence_regs(d[h]);
+}
+
+// d (m64nN, fp32) = A·B + (scale_d ? d : 0), A and B of the 16-bit type T
+// (bf16 or f16) from shared memory, both K-major.
+template <int N, typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
 
-// d (m64nN, fp32) = A·B + (scale_d ? d : 0), bf16 A from registers (the
+// d (m64nN, fp32) = A·B + (scale_d ? d : 0), A of type T from registers (the
 // layout in the header, per warp 16 rows), B from shared memory, MN-major.
-template <int N>
+template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int scale_d);
 
+// The instructions, one macro per shape with the element type's PTX name
+// (TY: "bf16" or "f16") as its argument; f16 and bf16 operands share every
+// layout and the transpose bit.
+
+#define FLASH_WGMMA_SS_N32(TY) \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]) \
+        : "l"(da), "l"(db), "r"(scale_d))
+
+#define FLASH_WGMMA_SS_N64(TY) \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+        : "l"(da), "l"(db), "r"(scale_d))
+
+#define FLASH_WGMMA_SS_N128(TY) \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+        "+f"(d[62]), "+f"(d[63]) \
+        : "l"(da), "l"(db), "r"(scale_d))
+
+#define FLASH_WGMMA_RS_N64(TY) \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+#define FLASH_WGMMA_RS_N128(TY) \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+        "+f"(d[62]), "+f"(d[63]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
 template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
+__device__ __forceinline__ void wgmma_ss<32, bf16>(float (&d)[16], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+    FLASH_WGMMA_SS_N32("bf16");
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+__device__ __forceinline__ void wgmma_ss<32, f16>(float (&d)[16], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+    FLASH_WGMMA_SS_N32("f16");
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
-                                              int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+__device__ __forceinline__ void wgmma_ss<64, bf16>(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+    FLASH_WGMMA_SS_N64("bf16");
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
-                                              int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+__device__ __forceinline__ void wgmma_ss<64, f16>(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+    FLASH_WGMMA_SS_N64("f16");
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
-                                              int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+__device__ __forceinline__ void wgmma_ss<128, bf16>(float (&d)[64], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+    FLASH_WGMMA_SS_N128("bf16");
 }
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128, f16>(float (&d)[64], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+    FLASH_WGMMA_SS_N128("f16");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64, bf16>(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+    FLASH_WGMMA_RS_N64("bf16");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64, f16>(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+    FLASH_WGMMA_RS_N64("f16");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128, bf16>(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+    FLASH_WGMMA_RS_N128("bf16");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128, f16>(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+    FLASH_WGMMA_RS_N128("f16");
+}
+
+#undef FLASH_WGMMA_SS_N32
+#undef FLASH_WGMMA_SS_N64
+#undef FLASH_WGMMA_SS_N128
+#undef FLASH_WGMMA_RS_N64
+#undef FLASH_WGMMA_RS_N128
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps
@@ -338,9 +410,18 @@ inline EncodeTiled encode_tiled() {
     return fn;
 }
 
-// Boxes of `rows` rows by one chunk of a bf16 (B, S, H, D) tensor, read in
-// place through its element strides (each a multiple of 8: _check).
-template <int D>
+// The TMA data type of a 16-bit element type.
+template <typename T>
+constexpr CUtensorMapDataType tma_type();
+template <>
+constexpr CUtensorMapDataType tma_type<bf16>() { return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; }
+template <>
+constexpr CUtensorMapDataType tma_type<f16>() { return CU_TENSOR_MAP_DATA_TYPE_FLOAT16; }
+
+// Boxes of `rows` rows by one chunk of a (B, S, H, D) tensor of the 16-bit
+// type T, read in place through its element strides (each a multiple of 8:
+// _check).
+template <int D, typename T>
 inline bool make_rows_map(CUtensorMap* map, const void* base, int B, int S, int H,
                           long long stride_b, long long stride_s, long long stride_h, int rows) {
     using L = Swz<D>;
@@ -351,7 +432,7 @@ inline bool make_rows_map(CUtensorMap* map, const void* base, int B, int S, int 
                                    (cuuint64_t)stride_b * 2};
     const cuuint32_t box[4] = {(cuuint32_t)L::ELEMS, 1, (cuuint32_t)rows, 1};
     const cuuint32_t unit[4] = {1, 1, 1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+    return encode(map, tma_type<T>(), 4, const_cast<void*>(base), dims,
                   strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   L::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

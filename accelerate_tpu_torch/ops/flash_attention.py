@@ -84,12 +84,25 @@ def attention_stats(q, k, v, *, causal: bool = True, q_offset: int = 0, k_offset
     return acc, m, p.sum(-1)
 
 
+# Mesh axes along which each process holds a slice of the batch: attention
+# runs on that slice as it is.
+DATA_PARALLEL_AXES = ("dp_replicate", "dp_shard")
+
+
 def auto_flash_attention(q, k, v, *, causal: bool = True, mesh=None):
-    """Model-layer fused attention. On one device this is
-    :func:`flash_attention`; a multi-device mesh (sharding the heads or the
-    batch) is not ported yet."""
+    """Model-layer fused attention: :func:`flash_attention` on this
+    process's tensors. ``mesh`` (a ``DeviceMesh`` with named axes, as
+    ``ParallelismConfig.build_mesh`` makes) may spread the batch over
+    ``dp_replicate`` and ``dp_shard``, where each process attends over its
+    own batch shard; an axis that splits the sequence or the heads is not
+    ported."""
     if mesh is not None:
-        raise NotImplementedError(
-            "auto_flash_attention over a device mesh is not ported yet "
-            "(ROADMAP.md, Queue A item 1: multi-GPU FSDP2/DDP)")
+        names = mesh.mesh_dim_names or ()
+        wide = {n: mesh.size(i) for i, n in enumerate(names)
+                if mesh.size(i) > 1 and n not in DATA_PARALLEL_AXES}
+        if len(names) != mesh.ndim or wide:
+            raise NotImplementedError(
+                f"auto_flash_attention over mesh axes {wide or mesh} that split the sequence "
+                "or the heads is not ported yet (ROADMAP.md Queue A item 3: ring attention "
+                "and Ulysses)")
     return flash_attention(q, k, v, causal=causal)

@@ -1,12 +1,23 @@
 """Flash attention on Hopper: hand-written forward, dQ and dK/dV kernels.
 
-Counterpart of ``accelerate_tpu/ops/pallas_flash.py``. The three CUDA
-kernels under ``csrc/`` replace the three Pallas kernels there:
+Counterpart of ``accelerate_tpu/ops/pallas_flash.py``. The CUDA kernels
+under ``csrc/`` replace the three Pallas kernels there:
 
 - ``flash_fwd.cu``  ← ``_fwd_kernel``: online-softmax forward, returns
   ``out`` and the fp32 row log-sum-exp ``lse``;
 - ``flash_dq.cu``   ← ``_dq_kernel``: dQ from recomputed P;
-- ``flash_dkv.cu``  ← ``_dkv_kernel``: dK/dV summed over the GQA group.
+- ``flash_dkv.cu``  ← ``_dkv_kernel``: dK/dV summed over the GQA group;
+- ``flash_f32.cu``  ← all three for float32 inputs (CUDA-core FMA, since
+  ``wgmma`` has no fp32 operands).
+
+The first three take bf16 and fp16 (``wgmma``, fp32 accumulation, P cast
+to v's dtype before P·V as the TPU kernel casts it). Every kernel is built
+for head dims 64, 128 and 256 (``BUILT_HEAD_DIMS``); any other D up to 256
+is zero-padded to the next of them and the results sliced back, with the
+scale ``1/sqrt(d)`` of the unpadded d, as the Pallas kernel pads D to 128
+lanes: zero columns add nothing to q·k and give zero output columns, so
+the result is exact (``pad_head_dim``). D above 256 raises
+``NotImplementedError``.
 
 Layout is the model's ``(B, S, H, D)``, read through strides (by TMA tensor
 maps in all three kernels); ``lse`` is ``(B, Hq, Sq)``. Offsets are the
@@ -15,8 +26,9 @@ same kernels on rotated chunks.
 
 Each kernel has a wrapper (``flash_fwd_cuda``, ``flash_dq_cuda``,
 ``flash_dkv_cuda``) that checks its inputs, launches the kernel or raises,
-and counts the launch in ``LAUNCHES``; beside them are the plain PyTorch
-versions (``flash_fwd_plain``, ``flash_dq_plain``, ``flash_dkv_plain``).
+and counts the launch in ``LAUNCHES`` (by kernel) and ``VARIANT_LAUNCHES``
+(by kernel, dtype and built head dim: ``variant``); beside them are the
+plain PyTorch versions (``flash_fwd_plain``, ``flash_dq_plain``, ``flash_dkv_plain``).
 ``flash_fwd`` and ``flash_bwd`` take the plain version only for tensors on
 the CPU. The gradient is the custom op ``accelerate_tpu_torch::flash_fwd``
 with a registered backward, so that a selective-checkpoint policy can name
@@ -31,16 +43,62 @@ import math
 
 import torch
 
-NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+import torch.nn.functional as F
 
-# Launches of each kernel since the last reset_launch_counts().
+NEG_INF = -1e30
+# Head dims the kernels are built for; any D up to the last is padded to the
+# next of them.
+BUILT_HEAD_DIMS = (64, 128, 256)
+HEAD_DIM_ITEM = "ROADMAP.md Queue B.1 item 1 (flash attention at head dims above 256)"
+# The element types of the kernels, by the code their C entry points take.
+DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
+
+# Launches of each kernel since the last reset_launch_counts(), and of each
+# variant (``variant(name, dtype, width)``).
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+VARIANT_LAUNCHES: dict[str, int] = {}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    VARIANT_LAUNCHES.clear()
+
+
+def variant(name: str, dtype: torch.dtype, width: int) -> str:
+    """The name of one built kernel: ``flash_fwd.bf16.d128``."""
+    return f"{name}.{_DTYPE_NAMES[dtype]}.d{width}"
+
+
+def source(name: str, dtype: torch.dtype) -> str:
+    """The ``csrc`` source (without ``.cu``) that holds a kernel for ``dtype``."""
+    return "flash_f32" if dtype == torch.float32 else name
+
+
+def built_head_dim(d: int) -> int:
+    """The width the kernels run a head dim ``d`` at: the smallest built
+    width at or above it."""
+    if d > BUILT_HEAD_DIMS[-1]:
+        raise NotImplementedError(
+            f"flash attention at head dim {d} > {BUILT_HEAD_DIMS[-1]} is not ported yet "
+            f"({HEAD_DIM_ITEM})")
+    return next(w for w in BUILT_HEAD_DIMS if w >= d)
+
+
+def pad_head_dim(fn, width: int, *args, **kw):
+    """``fn(*args)`` with every (B, S, H, D) argument zero-padded along D to
+    ``width`` and every (B, S, H, width) result sliced back to D, at the
+    scale ``1/sqrt(D)`` of the unpadded D. Row statistics pass as they are.
+    Exact: zero columns add nothing to q·kᵀ, dO·vᵀ or the row sums, and the
+    padded columns of out, dq, dk and dv come out zero."""
+    d = args[0].shape[-1]
+    if width == d:
+        return fn(*args, **kw)
+    kw.setdefault("scale", 1.0 / math.sqrt(d))
+    out = fn(*(F.pad(x, (0, width - d)) if x.dim() == 4 else x for x in args), **kw)
+    cut = lambda t: t[..., :d].contiguous() if t.dim() == 4 else t  # noqa: E731
+    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
 
 
 # ---------------------------------------------------------------------------
@@ -57,19 +115,24 @@ def _mask(sq, sk, causal, q_offset, k_offset, device):
     return q_pos[:, None] >= k_pos[None, :]
 
 
-def _scores(q, k, causal, q_offset, k_offset):
+def _scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def _scores(q, k, causal, q_offset, k_offset, scale=None):
     """Masked fp32 scores (B, Hq, Sq, Sk), KV heads repeated over the group."""
-    hq, hkv, d = q.shape[2], k.shape[2], q.shape[3]
+    hq, hkv = q.shape[2], k.shape[2]
     k = k.float().repeat_interleave(hq // hkv, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(d)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * _scale(q, scale)
     mask = _mask(q.shape[1], k.shape[1], causal, q_offset, k_offset, q.device)
     return s, mask
 
 
-def flash_fwd_plain(q, k, v, *, causal=True, q_offset=0, k_offset=0):
-    """What the forward kernel computes, in fp32: (out in q's dtype, lse)."""
+def flash_fwd_plain(q, k, v, *, causal=True, q_offset=0, k_offset=0, scale=None):
+    """What the forward kernel computes, in fp32: (out in q's dtype, lse).
+    ``scale`` defaults to ``1/sqrt(D)``."""
     hq, hkv = q.shape[2], k.shape[2]
-    s, mask = _scores(q, k, causal, q_offset, k_offset)
+    s, mask = _scores(q, k, causal, q_offset, k_offset, scale)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m) * mask
@@ -80,30 +143,32 @@ def flash_fwd_plain(q, k, v, *, causal=True, q_offset=0, k_offset=0):
     return out.to(q.dtype), lse
 
 
-def _bwd_terms(q, k, v, dout, lse, delta, causal, q_offset, k_offset):
+def _bwd_terms(q, k, v, dout, lse, delta, causal, q_offset, k_offset, scale):
     """Recomputed P and dS = P∘(dP − δ), fp32 (B, Hq, Sq, Sk)."""
     rep = q.shape[2] // k.shape[2]
-    s, mask = _scores(q, k, causal, q_offset, k_offset)
+    s, mask = _scores(q, k, causal, q_offset, k_offset, scale)
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float().repeat_interleave(rep, dim=2))
     return p, p * (dp - delta[..., None])
 
 
-def flash_dq_plain(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_offset=0):
+def flash_dq_plain(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_offset=0,
+                   scale=None):
     """What the dQ kernel computes, in fp32: dq in q's dtype."""
-    _, ds = _bwd_terms(q, k, v, dout, lse, delta, causal, q_offset, k_offset)
+    _, ds = _bwd_terms(q, k, v, dout, lse, delta, causal, q_offset, k_offset, scale)
     kf = k.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) / math.sqrt(q.shape[-1])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * _scale(q, scale)
     return dq.to(q.dtype)
 
 
-def flash_dkv_plain(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_offset=0):
+def flash_dkv_plain(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_offset=0,
+                    scale=None):
     """What the dK/dV kernel computes, in fp32: (dk, dv) summed over the
     GQA group, in k's and v's dtype."""
     b, sk, hkv, d = k.shape
     rep = q.shape[2] // hkv
-    p, ds = _bwd_terms(q, k, v, dout, lse, delta, causal, q_offset, k_offset)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) / math.sqrt(d)
+    p, ds = _bwd_terms(q, k, v, dout, lse, delta, causal, q_offset, k_offset, scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * _scale(q, scale)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
     dk = dk.reshape(b, sk, hkv, rep, d).sum(3)
     dv = dv.reshape(b, sk, hkv, rep, d).sum(3)
@@ -117,29 +182,37 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_off
 _PTR = ctypes.c_void_p
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _INT = ctypes.c_int
-# (tensor pointers, strides, B, Sq, Sk, Hq, Hkv, D, causal, q_off, k_off, scale, stream)
-_ARGTYPES = {
-    name: [_PTR] * n_ptr + [_STRIDES] + [_INT] * 9 + [ctypes.c_float, _PTR]
-    for name, n_ptr in (("flash_fwd", 5), ("flash_dq", 7), ("flash_dkv", 8))
-}
+# (tensor pointers, strides, B, Sq, Sk, Hq, Hkv, D, dtype, causal, q_off, k_off, scale,
+# stream)
+_N_PTR = {"flash_fwd": 5, "flash_dq": 7, "flash_dkv": 8}
+_kernels: dict = {}
 
 
-def _kernel(name):
-    from ._build import load
+def _kernel(name, dtype):
+    """The C entry point of kernel ``name`` for ``dtype``, its library built
+    first if needed."""
+    key = (name, dtype == torch.float32)
+    fn = _kernels.get(key)
+    if fn is None:
+        from ._build import load
 
-    fn = getattr(load(name), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = _INT
+        fn = getattr(load(source(name, dtype)), name + ("_f32" if key[1] else ""))
+        fn.argtypes = [_PTR] * _N_PTR[name] + [_STRIDES] + [_INT] * 10 + [ctypes.c_float, _PTR]
+        fn.restype = _INT
+        _kernels[key] = fn
     return fn
 
 
 def _check(name, q, k, v, dout=None, lse=None, delta=None):
-    """Raise on anything the kernels do not take: bf16 (B, S, H, D) q, k, v
-    (and dout shaped as q) read through strides whose last one is 1 and
-    whose others are positive multiples of 8 elements (16 bytes, as the TMA
-    tensor maps need), from 16-byte aligned storage; contiguous fp32
-    (B, Hq, Sq) row statistics; all on one CUDA device.
-    Shapes and layouts are checked first, so a CPU caller sees them too."""
+    """Raise on anything the kernels do not take, and return the width the
+    call runs at (``built_head_dim``). They take (B, S, H, D) q, k, v (and
+    dout shaped as q) of one dtype among bf16, fp16 and fp32, with D up to
+    256, contiguous fp32 (B, Hq, Sq) row statistics, all on one CUDA device.
+    Tensors read in place (D at a built width) need a unit last stride;
+    bf16 and fp16 ones, read by TMA tensor maps, also other strides that
+    are positive multiples of 8 elements (16 bytes) and 16-byte aligned
+    storage. Shapes and layouts are checked first, so a CPU caller sees
+    them too."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: expected q (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D)")
     b, sq, hq, d = q.shape
@@ -147,8 +220,7 @@ def _check(name, q, k, v, dout=None, lse=None, delta=None):
         raise ValueError(f"{name}: q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
     if hq % k.shape[2]:
         raise ValueError(f"{name}: GQA needs Hq % Hkv == 0, got {hq} % {k.shape[2]}")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    width = built_head_dim(d)
     if dout is not None and dout.shape != q.shape:
         raise ValueError(f"{name}: dout {tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
     stats = [x for x in (lse, delta) if x is not None]
@@ -156,18 +228,23 @@ def _check(name, q, k, v, dout=None, lse=None, delta=None):
         if x.dtype != torch.float32 or x.shape != (b, hq, sq) or not x.is_contiguous():
             raise ValueError(f"{name}: row statistics must be contiguous float32 {(b, hq, sq)}")
     tensors = [t for t in (q, k, v, dout) if t is not None]
-    for t in tensors:
-        if (t.stride(-1) != 1 or any(s <= 0 or s % 8 for s in t.stride()[:-1])
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name}: tensors need unit last stride, other strides positive "
-                             "multiples of 8 elements and 16-byte aligned storage")
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or q.dtype not in DTYPES:
+        raise TypeError(f"{name}: q, k, v (and dout) must share one dtype among "
+                        f"{sorted(map(str, DTYPES))}, got {sorted(map(str, dtypes))}")
+    if width == d:
+        tma = q.dtype != torch.float32
+        for t in tensors:
+            if t.stride(-1) != 1 or tma and (any(s <= 0 or s % 8 for s in t.stride()[:-1])
+                                             or t.data_ptr() % 16):
+                raise ValueError(f"{name}: tensors need unit last stride, and for bf16 and "
+                                 "fp16 other strides positive multiples of 8 elements and "
+                                 "16-byte aligned storage")
     if not all(t.is_cuda for t in tensors + stats):
         raise ValueError(f"{name}: the Hopper kernel takes CUDA tensors only")
     if len({t.device for t in tensors + stats}) != 1:
         raise ValueError(f"{name}: all tensors must be on one device")
-    if not all(t.dtype == torch.bfloat16 for t in tensors):
-        raise TypeError(f"{name}: the Hopper kernel takes bfloat16, got "
-                        f"{sorted({str(t.dtype) for t in tensors})}")
+    return width
 
 
 def _strides(*tensors):
@@ -175,54 +252,73 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch(name, *args):
-    err = _kernel(name)(*args, torch.cuda.current_stream().cuda_stream)
+def _launch(name, dtype, width, *args):
+    err = _kernel(name, dtype)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        raise RuntimeError(f"{variant(name, dtype, width)}: CUDA error {err} at launch")
     LAUNCHES[name] += 1
+    key = variant(name, dtype, width)
+    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
-def flash_fwd_cuda(q, k, v, *, causal=True, q_offset=0, k_offset=0):
-    """Launch the forward kernel: (out bf16 (B, Sq, Hq, D), lse fp32 (B, Hq, Sq))."""
-    _check("flash_fwd", q, k, v)
+def _fwd_launch(q, k, v, *, causal, q_offset, k_offset, scale=None):
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), _strides(q, k, v, out), b, sq, sk, hq, hkv, d,
-                int(causal), int(q_offset), int(k_offset), 1.0 / math.sqrt(d))
+        _launch("flash_fwd", q.dtype, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out), b, sq, sk, hq, hkv, d,
+                DTYPES[q.dtype], int(causal), int(q_offset), int(k_offset), _scale(q, scale))
     return out, lse
 
 
-def flash_dq_cuda(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_offset=0):
-    """Launch the dQ kernel: dq bf16 (B, Sq, Hq, D)."""
-    _check("flash_dq", q, k, v, dout, lse, delta)
+def _dq_launch(q, k, v, dout, lse, delta, *, causal, q_offset, k_offset, scale=None):
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
-        _launch("flash_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, dout, dq),
-                b, sq, sk, hq, hkv, d, int(causal), int(q_offset), int(k_offset),
-                1.0 / math.sqrt(d))
+        _launch("flash_dq", q.dtype, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                _strides(q, k, v, dout, dq), b, sq, sk, hq, hkv, d, DTYPES[q.dtype],
+                int(causal), int(q_offset), int(k_offset), _scale(q, scale))
     return dq
 
 
-def flash_dkv_cuda(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_offset=0):
-    """Launch the dK/dV kernel: (dk, dv) bf16 (B, Sk, Hkv, D), group-summed."""
-    _check("flash_dkv", q, k, v, dout, lse, delta)
+def _dkv_launch(q, k, v, dout, lse, delta, *, causal, q_offset, k_offset, scale=None):
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
-        _launch("flash_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                _strides(q, k, v, dout, dk, dv), b, sq, sk, hq, hkv, d, int(causal),
-                int(q_offset), int(k_offset), 1.0 / math.sqrt(d))
+        _launch("flash_dkv", q.dtype, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), _strides(q, k, v, dout, dk, dv), b, sq, sk, hq, hkv, d,
+                DTYPES[q.dtype], int(causal), int(q_offset), int(k_offset), _scale(q, scale))
     return dk, dv
+
+
+def flash_fwd_cuda(q, k, v, *, causal=True, q_offset=0, k_offset=0):
+    """Launch the forward kernel: (out (B, Sq, Hq, D) in q's dtype, lse fp32
+    (B, Hq, Sq))."""
+    width = _check("flash_fwd", q, k, v)
+    return pad_head_dim(_fwd_launch, width, q, k, v, causal=causal, q_offset=q_offset,
+                        k_offset=k_offset)
+
+
+def flash_dq_cuda(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_offset=0):
+    """Launch the dQ kernel: dq (B, Sq, Hq, D) in q's dtype."""
+    width = _check("flash_dq", q, k, v, dout, lse, delta)
+    return pad_head_dim(_dq_launch, width, q, k, v, dout, lse, delta, causal=causal,
+                        q_offset=q_offset, k_offset=k_offset)
+
+
+def flash_dkv_cuda(q, k, v, dout, lse, delta, *, causal=True, q_offset=0, k_offset=0):
+    """Launch the dK/dV kernel: (dk, dv) (B, Sk, Hkv, D) in k's dtype,
+    group-summed."""
+    width = _check("flash_dkv", q, k, v, dout, lse, delta)
+    return pad_head_dim(_dkv_launch, width, q, k, v, dout, lse, delta, causal=causal,
+                        q_offset=q_offset, k_offset=k_offset)
 
 
 def flash_fwd(q, k, v, *, causal=True, q_offset=0, k_offset=0):

@@ -1,0 +1,107 @@
+"""Data parallelism over the process group: FSDP2, HSDP and DDP.
+
+Counterpart of ``accelerate_tpu/parallel/sharding.py``'s FSDP half
+(``fsdp_spec_for_leaf``, ``plan_parameter_sharding``) and of what
+``FullyShardedDataParallelPlugin`` decides there. The JAX package shards
+each parameter over the ``dp_shard`` mesh axis and lets GSPMD gather it
+where it is used; here FSDP2's ``fully_shard`` does the same per module:
+
+- with a plugin, ``fully_shard`` goes on each decoder block and then on
+  the root, over the ``dp_shard`` mesh; with ``dp_replicate > 1`` the mesh
+  is the 2-D ``(dp_replicate, dp_shard)`` one and FSDP2 runs HSDP
+  (sharded within a replica group, gradients averaged across them);
+- without a plugin, the model is replicated under DDP over every process.
+
+Every parameter is sharded on dim 0 (FSDP2's default); the layout changes
+nothing in the numbers. The bf16 compute copy comes from FSDP2's
+``MixedPrecisionPolicy(param_dtype=compute dtype, reduce_dtype=fp32)``:
+the sharded masters stay fp32, each all-gather casts them, and gradients
+are reduce-scattered in fp32, as the one-process step casts the masters
+for its forward and lands fp32 gradients on them.
+
+The plugin's fields that map onto FSDP2 are honoured: ``reshard_after_forward``,
+``cpu_offload`` (``CPUOffloadPolicy``: masters, gradients and the optimizer
+step on the host), ``ignored_params`` (regular expressions on parameter
+names: those stay whole on every process, outside FSDP2, and the train step
+averages their gradients itself, as the JAX package replicates them) and
+``activation_checkpointing`` (the model's own remat, ``config.remat``).
+``FullyShardedDataParallelPlugin`` refuses the others.
+"""
+
+from __future__ import annotations
+
+import re
+
+import torch
+from torch import nn
+
+
+def decoder_blocks(module: nn.Module) -> list[nn.Module]:
+    """The repeated blocks FSDP2 wraps one by one: the items of every
+    ``ModuleList`` named ``layers`` (the Llama decoder's)."""
+    return [block for name, child in module.named_modules()
+            if isinstance(child, nn.ModuleList) and name.rsplit(".", 1)[-1] == "layers"
+            for block in child]
+
+
+def ignored_parameters(module: nn.Module, patterns) -> dict[str, nn.Parameter]:
+    """Parameters whose name matches one of the regular expressions."""
+    regexes = [re.compile(p) for p in patterns or ()]
+    return {name: p for name, p in module.named_parameters()
+            if any(r.search(name) for r in regexes)}
+
+
+def _activation_checkpointing(module: nn.Module) -> None:
+    config = getattr(module, "config", None)
+    if config is None or not hasattr(config, "remat"):
+        raise NotImplementedError(
+            f"activation_checkpointing on {type(module).__name__}: only models with a "
+            "config.remat switch (Llama) are ported (ROADMAP.md Queue A item 10)")
+    config.remat = True
+
+
+def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype) -> dict:
+    """``fully_shard`` on each decoder block and on ``module``, in place.
+    ``mesh`` is the 2-D ``(dp_replicate, dp_shard)`` mesh. Returns the
+    ignored parameters by name."""
+    from torch.distributed.fsdp import CPUOffloadPolicy, MixedPrecisionPolicy, OffloadPolicy
+    from torch.distributed.fsdp import fully_shard
+
+    if plugin.activation_checkpointing:
+        _activation_checkpointing(module)
+    shard_mesh = mesh if mesh.size(0) > 1 else mesh["dp_shard"]
+    mp = (MixedPrecisionPolicy() if compute_dtype == torch.float32 else
+          MixedPrecisionPolicy(param_dtype=compute_dtype, reduce_dtype=torch.float32))
+    ignored = ignored_parameters(module, plugin.ignored_params)
+    # Pinned host memory needs the card; on a CPU device the policy only
+    # keeps the optimizer step where the shards already are.
+    offload = (CPUOffloadPolicy(pin_memory=shard_mesh.device_type == "cuda")
+               if plugin.cpu_offload else OffloadPolicy())
+    kw = dict(mesh=shard_mesh, reshard_after_forward=plugin.reshard_after_forward,
+              mp_policy=mp, offload_policy=offload, ignored_params=set(ignored.values()) or None)
+    for block in decoder_blocks(module):
+        fully_shard(block, **kw)
+    fully_shard(module, **kw)
+    return ignored
+
+
+def apply_ddp(module: nn.Module, device: torch.device) -> nn.Module:
+    """``module`` replicated under DDP over the default group: the wrapper
+    to run its forward through (its parameters are the module's own)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    return DistributedDataParallel(
+        module, device_ids=[device.index] if device.type == "cuda" else None)
+
+
+def apply_data_parallel(model, state, plugin, compute_dtype: torch.dtype) -> None:
+    """Shard or replicate ``model`` (a ``Model``) over ``state``'s process
+    group: FSDP2/HSDP with a plugin, DDP without. Does nothing without a
+    group."""
+    if not state._partial.use_distributed:
+        return
+    if plugin is not None:
+        model.ignored = apply_fsdp(model.module, state.device_mesh, plugin, compute_dtype)
+        model.sharded = True
+    else:
+        model.forward_module = apply_ddp(model.module, state.device)

@@ -1,30 +1,65 @@
-"""Process and device state singletons for one process on one device.
+"""Process and device state singletons over ``torch.distributed``.
 
 Counterpart of ``accelerate_tpu/state.py``. Each class shares one state
 dict between its instances (the borg pattern), so every ``PartialState()``
-in a process sees the same device. ``_reset_state()`` clears it.
+in a process sees the same rank and device. ``_reset_state()`` clears it.
 
-Device resolution: ``cuda:0`` unless the caller asks for the CPU. Without
-a CUDA device and without ``cpu=True`` the constructor raises: nothing runs
-on the CPU unless it was asked for.
+Processes: ``PartialState`` joins a process group when torchrun's
+environment is set (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``), at any world size including 1: NCCL on
+``cuda:LOCAL_RANK``, gloo when the caller asks for the CPU. A group the
+caller initialised before (``torch.distributed.init_process_group``) is
+adopted as it is. Without either, the process runs alone and no group
+exists. ``_reset_state()`` destroys a group that ``PartialState`` created,
+and leaves an adopted one to its owner.
+
+Device resolution: ``cuda:LOCAL_RANK`` (``cuda:0`` alone) unless the caller
+asks for the CPU. Without a CUDA device and without ``cpu=True`` the
+constructor raises: nothing runs on the CPU unless it was asked for.
 """
 
 from __future__ import annotations
 
+import enum
 import os
+from datetime import timedelta
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from .parallelism_config import ParallelismConfig
 from .utils.dataclasses import GradientAccumulationPlugin
 
-_MULTI_GPU_ITEM = "ROADMAP.md Queue A item 1 (multi-GPU FSDP2/DDP)"
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+class DistributedType(str, enum.Enum):
+    """How the processes are joined. The parallelism strategy (FSDP2, DDP,
+    HSDP) is the ``Accelerator``'s choice over the group."""
+
+    NO = "NO"                # one process, no process group
+    MULTI_CPU = "MULTI_CPU"  # a gloo group over CPU processes
+    MULTI_GPU = "MULTI_GPU"  # an NCCL group, one GPU per process
+
+
+def _torchrun_env() -> Optional[dict]:
+    """torchrun's variables when all are set, else None; raises when some
+    are missing and ``WORLD_SIZE`` asks for more than one process."""
+    found = {k: os.environ[k] for k in _TORCHRUN_ENV if k in os.environ}
+    if len(found) == len(_TORCHRUN_ENV):
+        return found
+    if int(found.get("WORLD_SIZE", "1")) > 1:
+        missing = [k for k in _TORCHRUN_ENV if k not in found]
+        raise ValueError(f"torchrun's environment is incomplete: {missing} unset "
+                         f"(have {sorted(found)}); launch with torchrun or set all of "
+                         f"{list(_TORCHRUN_ENV)}")
+    return None
 
 
 class PartialState:
-    """Rank and device of this process. ``PartialState()`` reads the state
-    that is set up, or sets it up on the card; an explicit ``cpu`` must
+    """Rank, device and process group of this process. ``PartialState()``
+    reads the state that is set up, or sets it up; an explicit ``cpu`` must
     agree with the state already set up."""
 
     _shared_state: dict = {}
@@ -37,35 +72,71 @@ class PartialState:
                     f"PartialState was already set up with cpu={self._cpu}; "
                     "call PartialState._reset_state() first")
             return
-        world = int(os.environ.get("WORLD_SIZE", "1"))
-        if world > 1:
-            raise NotImplementedError(
-                f"WORLD_SIZE={world}: more than one process is {_MULTI_GPU_ITEM}")
+        adopted = dist.is_available() and dist.is_initialized()
+        env = None if adopted else _torchrun_env()
+        if adopted:
+            local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        else:
+            local = int(env["LOCAL_RANK"]) if env else 0
         if cpu:
             device = torch.device("cpu")
         elif torch.cuda.is_available():
-            device = torch.device("cuda", 0)
+            device = torch.device("cuda", local)
+            if env is not None or adopted:
+                torch.cuda.set_device(device)  # before NCCL's first use
         else:
             raise RuntimeError(
                 "No CUDA device is available. Pass cpu=True to run on the CPU.")
+        owns_group = False
+        if env is not None and not adopted:
+            dist.init_process_group(
+                backend="gloo" if cpu else "nccl", init_method="env://",
+                rank=int(env["RANK"]), world_size=int(env["WORLD_SIZE"]),
+                timeout=timedelta(minutes=10))
+            owns_group = True
+        grouped = adopted or owns_group
+        if grouped and cpu and dist.get_backend() != "gloo":
+            raise ValueError(f"cpu=True needs a gloo process group, got {dist.get_backend()}")
         self._cpu = bool(cpu)
+        self._owns_group = owns_group
         self.device = device
-        self.num_processes = 1
-        self.process_index = 0
+        self.backend = dist.get_backend() if grouped else None
+        self.num_processes = dist.get_world_size() if grouped else 1
+        self.process_index = dist.get_rank() if grouped else 0
+        self.local_process_index = local
+        self.distributed_type = (DistributedType.NO if not grouped else DistributedType.MULTI_CPU
+                                 if cpu else DistributedType.MULTI_GPU)
 
     @property
     def initialized(self) -> bool:
         return "device" in self._shared_state
 
     @property
+    def use_distributed(self) -> bool:
+        """Whether a process group joins this process to others (or to
+        itself, at world size 1)."""
+        return self.distributed_type != DistributedType.NO
+
+    @property
     def is_main_process(self) -> bool:
         return self.process_index == 0
 
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.local_process_index == 0
+
     def wait_for_everyone(self) -> None:
-        """A barrier across processes: one process has nothing to wait for."""
+        """A barrier across the group; alone, nothing to wait for."""
+        if self.use_distributed:
+            if self.backend == "nccl":
+                dist.barrier(device_ids=[self.device.index])
+            else:
+                dist.barrier()
 
     @classmethod
     def _reset_state(cls):
+        if cls._shared_state.get("_owns_group") and dist.is_initialized():
+            dist.destroy_process_group()
         cls._shared_state.clear()
 
 
@@ -74,16 +145,29 @@ class AcceleratorState:
 
     _shared_state: dict = {}
 
-    def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False,
+    def __init__(self, mixed_precision: Optional[str] = None, cpu: Optional[bool] = None,
                  parallelism_config: Optional[ParallelismConfig] = None):
         self.__dict__ = self._shared_state
-        # PartialState raises if it was set up with the other device.
+        # PartialState raises if it was set up with the other device; None
+        # takes the device already set up.
         partial = PartialState(cpu=cpu)
         if self.initialized:
             return
         self._partial = partial
         self.mixed_precision = "no" if mixed_precision is None else mixed_precision
-        self.parallelism_config = parallelism_config or ParallelismConfig()
+        # The data-parallel axes fill the world, as the JAX package fills its
+        # devices (ParallelismConfig.infer_missing_axis).
+        self.parallelism_config = (parallelism_config or ParallelismConfig()).infer_missing_axis(
+            partial.num_processes)
+        self._mesh = None
+
+    @property
+    def device_mesh(self):
+        """The ``DeviceMesh`` of the data-parallel axes over the process
+        group (built on first use), or None without a group."""
+        if self._mesh is None and self._partial.use_distributed:
+            self._mesh = self.parallelism_config.build_mesh(self._partial.device.type)
+        return self._mesh
 
     @property
     def initialized(self) -> bool:

@@ -12,7 +12,9 @@ from typing import Any, Optional
 
 import torch
 
-_MULTI_GPU_ITEM = "ROADMAP.md Queue A item 1 (multi-GPU FSDP2/DDP)"
+_DP_REST_ITEM = ("ROADMAP.md Queue A item 1 (the rest of data parallelism: "
+                 "DISTRIBUTED_STATE_DICT, save_state(block=False), FSDP plugin fields beyond "
+                 "FSDP2's)")
 _DATA_LOADER_ITEM = "ROADMAP.md Queue A item 3 (data loader: the imperative loop)"
 _CONTROL_PLANE_ITEM = "ROADMAP.md Queue A item 9 (control plane)"
 
@@ -84,11 +86,18 @@ class GradientAccumulationPlugin:
 
 @dataclass
 class FullyShardedDataParallelPlugin:
-    """On one device there is nothing to shard, so the sharding fields are
-    accepted only at their defaults. ``state_dict_type`` picks the layout of
+    """FSDP2 over the ``dp_shard`` axis (``parallel/fsdp.py``), when the
+    process belongs to a group; alone, there is nothing to shard.
+    Honoured: ``reshard_after_forward``, ``cpu_offload``
+    (``CPUOffloadPolicy``), ``ignored_params`` (regular expressions on
+    parameter names, kept whole), ``activation_checkpointing`` (the
+    model's remat) and ``state_dict_type``, the layout of
     ``model.safetensors`` in a checkpoint: ``SHARDED_STATE_DICT`` (5 GB
-    shards plus an index) or ``FULL_STATE_DICT`` (one file);
-    ``DISTRIBUTED_STATE_DICT`` (orbax) is not ported."""
+    shards plus an index) or ``FULL_STATE_DICT`` (one file), gathered
+    from the shards either way. ``sharding_strategy`` other than
+    ``FULL_SHARD``, ``min_weight_size_to_shard`` (FSDP2 shards every
+    parameter), a ``mixed_precision_policy`` and ``DISTRIBUTED_STATE_DICT``
+    raise, naming their ROADMAP.md item."""
 
     sharding_strategy: str = "FULL_SHARD"
     reshard_after_forward: bool = True
@@ -100,12 +109,16 @@ class FullyShardedDataParallelPlugin:
     ignored_params: Optional[list] = None
 
     def __post_init__(self):
-        _refuse_non_defaults(self, _MULTI_GPU_ITEM, honoured=("state_dict_type",))
+        _refuse_non_defaults(self, {
+            "sharding_strategy": _DP_REST_ITEM, "min_weight_size_to_shard": _DP_REST_ITEM,
+            "mixed_precision_policy": "ROADMAP.md Queue A item 9 (fp8 and reduced precision)",
+        }, honoured=("reshard_after_forward", "cpu_offload", "state_dict_type",
+                     "activation_checkpointing", "ignored_params"))
         if self.state_dict_type not in ("SHARDED_STATE_DICT", "FULL_STATE_DICT"):
             if self.state_dict_type == "DISTRIBUTED_STATE_DICT":
                 raise NotImplementedError(
-                    f"state_dict_type='DISTRIBUTED_STATE_DICT' (orbax) is not ported yet "
-                    f"({_MULTI_GPU_ITEM})")
+                    f"state_dict_type='DISTRIBUTED_STATE_DICT' (torch.distributed.checkpoint) "
+                    f"is not ported yet ({_DP_REST_ITEM})")
             raise ValueError(f"Unknown state_dict_type {self.state_dict_type!r}")
 
 
@@ -114,8 +127,10 @@ class ProjectConfiguration:
     """Where checkpoints go. With ``automatic_checkpoint_naming``,
     ``save_state()`` writes ``<project_dir>/checkpoints/checkpoint_<iteration>``
     and keeps at most ``total_limit`` of them; ``load_state()`` reads the
-    newest. Logging (``logging_dir``), resuming on a restart
-    (``automatic_resume``) and per-node saves are not ported."""
+    newest. ``save_on_each_node`` writes the shared files once per node
+    (by each node's local process 0) instead of once. Logging
+    (``logging_dir``) and resuming on a restart (``automatic_resume``) are
+    not ported."""
 
     project_dir: str = None
     logging_dir: str = None
@@ -129,8 +144,8 @@ class ProjectConfiguration:
         _refuse_non_defaults(self, {
             "logging_dir": _CONTROL_PLANE_ITEM + ": tracking",
             "automatic_resume": _CONTROL_PLANE_ITEM + ": resume on restart",
-            "save_on_each_node": _MULTI_GPU_ITEM,
-        }, honoured=("project_dir", "automatic_checkpoint_naming", "total_limit", "iteration"))
+        }, honoured=("project_dir", "automatic_checkpoint_naming", "total_limit", "iteration",
+                     "save_on_each_node"))
 
     def set_directories(self, project_dir: str = None):
         self.project_dir = project_dir
@@ -148,8 +163,8 @@ class DataLoaderConfiguration:
     from pinned host memory without waiting; ``prefetch_size`` batches are
     assembled ahead on a thread. Every loader keeps its mid-epoch state, so
     ``use_stateful_dataloader`` changes nothing. ``dispatch_group_size``
-    groups the broadcasts of several processes and is accepted only at its
-    default."""
+    is how many batches process 0 sends in one broadcast when it
+    dispatches."""
 
     split_batches: bool = False
     dispatch_batches: Optional[bool] = None
@@ -162,8 +177,6 @@ class DataLoaderConfiguration:
     dispatch_group_size: int = 8
 
     def __post_init__(self):
-        _refuse_non_defaults(self, _MULTI_GPU_ITEM, honoured=tuple(
-            f.name for f in fields(self) if f.name != "dispatch_group_size"))
         if self.prefetch_size < 0:
             raise ValueError("prefetch_size must be >= 0")
 

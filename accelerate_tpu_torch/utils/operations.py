@@ -1,0 +1,223 @@
+"""Collectives across processes over ``torch.distributed``.
+
+Counterpart of ``accelerate_tpu/utils/operations.py``'s cross-process half:
+``gather``, ``gather_object``, ``broadcast``, ``broadcast_object_list``,
+``reduce``, ``pad_across_processes`` and ``pad_input_tensors``, with its
+semantics. Each takes a tensor, a numpy array or a nested list, tuple or
+dict of them, and gives back the same structure and leaf types. Alone (no
+process group, or a group of one) each is an identity, as in the JAX
+package.
+
+The group's backend decides where a collective runs: NCCL on the
+process's GPU (host leaves go there and come back), gloo on the CPU.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def _state():
+    from ..state import PartialState
+
+    return PartialState()
+
+
+def _world() -> int:
+    return _state().num_processes
+
+
+def recursively_apply(func: Callable, data: Any) -> Any:
+    """``func`` on every tensor or numpy leaf of a nested list, tuple or dict;
+    other leaves pass as they are."""
+    if isinstance(data, (tuple, list)):
+        out = [recursively_apply(func, d) for d in data]
+        return type(data)(*out) if hasattr(data, "_fields") else type(data)(out)
+    if isinstance(data, Mapping):
+        return type(data)({k: recursively_apply(func, v) for k, v in data.items()})
+    if torch.is_tensor(data) or isinstance(data, np.ndarray):
+        return func(data)
+    return data
+
+
+def is_array_tree(data: Any) -> bool:
+    """Whether every leaf of a nested list, tuple or dict is a tensor or a
+    numpy array."""
+    if isinstance(data, (tuple, list)):
+        return all(map(is_array_tree, data))
+    if isinstance(data, Mapping):
+        return all(map(is_array_tree, data.values()))
+    return torch.is_tensor(data) or isinstance(data, np.ndarray)
+
+
+def _on_comm_device(fn: Callable) -> Callable:
+    """Wrap ``fn(torch_tensor) -> torch_tensor`` so that a leaf moves to the
+    device the backend runs on and comes back as the type and device it
+    came as (numpy leaves as numpy)."""
+
+    def wrapper(leaf):
+        was_numpy = isinstance(leaf, np.ndarray)
+        t = torch.from_numpy(np.ascontiguousarray(leaf)) if was_numpy else leaf
+        comm = _state().device if _state().backend == "nccl" else torch.device("cpu")
+        out = fn(t.to(comm).contiguous())
+        return out.cpu().numpy() if was_numpy else out.to(t.device)
+
+    return wrapper
+
+
+def gather(tensor):
+    """Every process's tensors concatenated on dim 0, in rank order (each
+    must have the same shape: ``pad_across_processes`` first otherwise)."""
+    world = _world()
+    if world == 1:
+        return tensor
+
+    @_on_comm_device
+    def one(t):
+        t = t.reshape(1) if t.dim() == 0 else t
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        return torch.cat(parts, dim=0)
+
+    return recursively_apply(one, tensor)
+
+
+def gather_object(obj: Any) -> list:
+    """Every process's picklable object, in rank order; a list's items are
+    concatenated instead."""
+    world = _world()
+    if world == 1:
+        return obj if isinstance(obj, list) else [obj]
+    out = [None] * world
+    dist.all_gather_object(out, obj)
+    if isinstance(obj, list):
+        return [x for part in out for x in part]
+    return out
+
+
+def broadcast(tensor, from_process: int = 0):
+    """Process ``from_process``'s values on every process, in place where
+    the leaf allows it (tensors on the backend's device), as returned."""
+    if _world() == 1:
+        return tensor
+
+    @_on_comm_device
+    def one(t):
+        dist.broadcast(t, src=from_process)
+        return t
+
+    def in_place(leaf):
+        out = one(leaf)
+        if torch.is_tensor(leaf) and out is not leaf:
+            leaf.copy_(out)
+            return leaf
+        if isinstance(leaf, np.ndarray) and leaf.flags.writeable:
+            leaf[...] = out
+            return leaf
+        return out
+
+    return recursively_apply(in_place, tensor)
+
+
+def broadcast_object_list(object_list: list, from_process: int = 0) -> list:
+    """Process ``from_process``'s picklable objects into ``object_list`` on
+    every process, in place; returns it."""
+    state = _state()
+    if state.num_processes == 1:
+        return object_list
+    device = state.device if state.backend == "nccl" else None
+    dist.broadcast_object_list(object_list, src=from_process, device=device)
+    return object_list
+
+
+def reduce(tensor, reduction: str = "mean", scale: float = 1.0):
+    """The sum (``"sum"``) or mean (``"mean"``) over processes of every
+    leaf, times ``scale``; ``"none"`` applies only the scale."""
+    if reduction not in ("sum", "mean", "none"):
+        raise ValueError(f"reduction must be sum|mean|none, got {reduction!r}")
+    world = _world()
+
+    @_on_comm_device
+    def one(t):
+        t = t.clone()
+        if world > 1 and reduction != "none":
+            dist.all_reduce(t, op=dist.ReduceOp.SUM)  # gloo has no AVG
+            if reduction == "mean":
+                t = t / world
+        return t * scale if scale != 1.0 else t
+
+    return recursively_apply(one, tensor)
+
+
+def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):
+    """Every leaf padded with ``pad_index`` along ``dim`` to the largest
+    size any process has there, so that ``gather`` can take it."""
+    world = _world()
+
+    def one(leaf):
+        if dim >= leaf.ndim:
+            return leaf
+        size = torch.tensor([leaf.shape[dim]], dtype=torch.int64)
+        sizes = gather(size) if world > 1 else size
+        pad = int(sizes.max()) - leaf.shape[dim]
+        if pad == 0:
+            return leaf
+        shape = list(leaf.shape)
+        shape[dim] = pad
+        if isinstance(leaf, np.ndarray):
+            filler = np.full(shape, pad_index, dtype=leaf.dtype)
+            return np.concatenate([filler, leaf] if pad_first else [leaf, filler], axis=dim)
+        filler = leaf.new_full(shape, pad_index)
+        return torch.cat([filler, leaf] if pad_first else [leaf, filler], dim=dim)
+
+    return recursively_apply(one, tensor)
+
+
+def pad_input_tensors(tensor, batch_size: int, num_processes: int, dim: int = 0):
+    """A batch of ``batch_size`` along ``dim`` padded, by repeating its first
+    samples, to the next multiple of ``num_processes``."""
+
+    def one(leaf):
+        if batch_size % num_processes == 0:
+            return leaf
+        extra = -(-batch_size // num_processes) * num_processes - leaf.shape[dim]
+        if isinstance(leaf, np.ndarray):
+            idx = np.arange(extra) % leaf.shape[dim]
+            return np.concatenate([leaf, np.take(leaf, idx, axis=dim)], axis=dim)
+        idx = torch.arange(extra, device=leaf.device) % leaf.shape[dim]
+        return torch.cat([leaf, leaf.index_select(dim, idx)], dim=dim)
+
+    return recursively_apply(one, tensor)
+
+
+def find_batch_size(data) -> int:
+    """Dim 0 of the first tensor or array in ``data``."""
+    if isinstance(data, (tuple, list)):
+        return find_batch_size(data[0])
+    if isinstance(data, Mapping):
+        return find_batch_size(next(iter(data.values())))
+    if torch.is_tensor(data) or isinstance(data, np.ndarray):
+        return data.shape[0]
+    raise TypeError(f"Cannot find the batch size of {type(data).__name__}")
+
+
+def slice_tensors(data, start: int, stop: int):
+    """Rows ``start:stop`` of every leaf."""
+    return recursively_apply(lambda t: t[start:stop], data)
+
+
+def concatenate(data: list, dim: int = 0):
+    """Leaf-wise concatenation of a list of like structures."""
+    first = data[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(concatenate([d[i] for d in data], dim) for i in range(len(first)))
+    if isinstance(first, Mapping):
+        return type(first)({k: concatenate([d[k] for d in data], dim) for k in first})
+    if isinstance(first, np.ndarray):
+        return np.concatenate(data, axis=dim)
+    return torch.cat(data, dim=dim)

@@ -7,18 +7,32 @@ counters); the port keeps ``python``, ``numpy``, ``torch`` (the CPU
 generator) and ``torch_cuda`` (one state per CUDA device, when CUDA is set
 up). Torch states are stored as numpy uint8 arrays, so the file unpickles
 without torch's classes.
+
+``synchronize_rng_states`` broadcasts process 0's states of the named kinds
+(``RNGType``) to every process, as the JAX package broadcasts its own.
 """
 
 from __future__ import annotations
 
+import enum
 import os
 import random
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
-_MULTI_GPU_ITEM = "ROADMAP.md Queue A item 1 (multi-GPU FSDP2/DDP)"
+
+
+class RNGType(str, enum.Enum):
+    """The generators ``synchronize_rng_state`` can align. ``generator`` is
+    a ``torch.Generator`` passed by the caller (a sampler's)."""
+
+    TORCH = "torch"
+    CUDA = "cuda"
+    GENERATOR = "generator"
+    NUMPY = "numpy"
+    PYTHON = "python"
 
 
 def set_seed(seed: int, device_specific: bool = False) -> torch.Generator:
@@ -65,11 +79,37 @@ def load_rng_state(state: dict) -> None:
             [torch.from_numpy(np.asarray(s, dtype=np.uint8)) for s in state["torch_cuda"]])
 
 
-def synchronize_rng_states(rng_types: Iterable[str], generator=None) -> None:
-    """Broadcast rank 0's RNG states to every process: nothing to do for
-    one process."""
+def synchronize_rng_state(rng_type: Optional[RNGType] = None,
+                          generator: Optional[torch.Generator] = None) -> None:
+    """Process 0's state of one generator on every process; alone, nothing
+    to do. ``None`` means ``generator`` when one is given, else torch's CPU
+    generator."""
     from ..state import PartialState
+    from .operations import broadcast_object_list
 
-    if PartialState().num_processes > 1:
-        raise NotImplementedError(
-            f"synchronising RNG states across processes is {_MULTI_GPU_ITEM}")
+    if PartialState().num_processes == 1:
+        return
+    if rng_type is None:
+        rng_type = RNGType.GENERATOR if generator is not None else RNGType.TORCH
+    rng_type = RNGType(rng_type)
+    get, put = {
+        RNGType.TORCH: (lambda: torch.get_rng_state().numpy(),
+                        lambda s: torch.set_rng_state(torch.from_numpy(s))),
+        RNGType.CUDA: (lambda: torch.cuda.get_rng_state().numpy(),
+                       lambda s: torch.cuda.set_rng_state(torch.from_numpy(s))),
+        RNGType.GENERATOR: (lambda: generator.get_state().numpy(),
+                            lambda s: generator.set_state(torch.from_numpy(s))),
+        RNGType.NUMPY: (np.random.get_state, np.random.set_state),
+        RNGType.PYTHON: (random.getstate, random.setstate),
+    }[rng_type]
+    if rng_type == RNGType.GENERATOR and generator is None:
+        raise ValueError("rng_type 'generator' needs the generator")
+    payload = [get()]
+    broadcast_object_list(payload, from_process=0)
+    put(payload[0])
+
+
+def synchronize_rng_states(rng_types: Iterable[str], generator=None) -> None:
+    """``synchronize_rng_state`` for each named kind, in order."""
+    for rng_type in rng_types:
+        synchronize_rng_state(RNGType(rng_type), generator=generator)

@@ -10,18 +10,24 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
 1. card: the card's name and power limit; the flash kernels are built from
    ``accelerate_tpu_torch/ops/csrc`` (one nvcc per source, in parallel),
    with ptxas's registers and spills and the counts of wgmma (HGMMA), TMA
-   load (UTMALDG) and mma.sync (HMMA) instructions in each library's SASS;
-   every library must have wgmma and TMA loads and no mma.sync
-   (``sass_ok``).
+   load (UTMALDG), mma.sync (HMMA) and FMA (FFMA) instructions in each
+   library's SASS; ``sass_ok`` holds each library to its design
+   (``DESIGNS``): the bf16/fp16 libraries to wgmma and TMA loads and no
+   mma.sync, the fp32 one to FMA and no tensor-core product.
 2. kernels: the forward, dQ and dK/dV kernels against their plain PyTorch
-   versions (fp32 on the same bf16 inputs) at the training shapes, GQA
-   cases with ragged tails (causal and not, groups of 2 and 4), q, k and v
-   as strided views of one fused QKV buffer, and the visible, fully masked
-   and partly masked offset cases; dQ and dK/dV, each launched twice, must
-   agree with themselves bit for bit.
-3. timings of each kernel at the training shapes beside its bound and its
-   plain version; SDPA's forward beside the forward kernel, and SDPA's
-   backward (dq, dk, dv in one call) beside the dQ and dK/dV kernels' sum.
+   versions (fp32 on the same inputs; tolerances by dtype in ``TOLS``) at
+   the training shapes, GQA cases with ragged tails (causal and not,
+   groups of 2, 4 and 8), q, k and v as strided views of one fused QKV
+   buffer, the visible, fully masked and partly masked offset cases, head
+   dim 256 in bf16 and fp16, fp16 at 64 and 128, fp32 at 64, 128 and 256,
+   and head dims 80 and 96, which the wrappers pad; dQ and dK/dV, each
+   launched twice, must agree with themselves bit for bit in every
+   variant.
+3. timings of every built variant (``TIMED``: bf16, fp16 and fp32 at head
+   dims 64 and 128 at the training shape and 256 at a Gemma-2B-like one,
+   and head dim 96 padded) beside its bound and its plain version; SDPA's
+   forward beside the forward kernel, and SDPA's backward (dq, dk, dv in
+   one call) beside the dQ and dK/dV kernels' sum.
 4. one train step of the tiny Llama on the card (kernels) and on the CPU
    (plain versions) from the same numpy-seeded weights: loss and grad norm.
 5. the main path: the Llama train step that bench.py measures (1.06B
@@ -59,8 +65,19 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    split into host copies and disk, bytes and GB/s, the loader wait and the
    loader-fed step ms beside phase 5's, the idle share, peak memory and the
    checkpoint directory's free space. The checkpoint is removed at the end.
+10. data parallelism: ``chip_smoke.py --child`` runs with torchrun's
+   environment, so that it joins a process group of one (NCCL) and this
+   process's singletons stay untouched. There phase 5's model, batch and
+   steps go through prepare() with the FSDP plugin, which shards the model
+   with FSDP2: the first three losses and grad norms must be phase 5's
+   (``DP_REL_TOL``), with 18 launches per kernel per step; the collectives
+   of ``utils/operations.py`` must round-trip; phase 9's loop must resume
+   bit-equal under FSDP2; phase 4's tiny step under DDP (no plugin) must
+   give phase 4's numbers. Prints the FSDP2 step ms, idle share and peak
+   memory beside phase 5's. The child's failure fails the run.
 
-Then the kernel summary line and, last, the device line.
+Then the kernel summary line (one entry per kernel of every timed
+variant) and, last, the device line.
 """
 
 from __future__ import annotations
@@ -77,14 +94,41 @@ import tempfile
 import time
 from pathlib import Path
 
-# Peak rates of the card (NVIDIA H100 SXM data sheet, dense): bf16 tensor
-# core FLOP/s and HBM bytes/s.
+# Peak rates of the card (NVIDIA H100 SXM data sheet, dense): bf16 and fp16
+# tensor-core FLOP/s, fp32 FLOP/s on the CUDA cores, HBM bytes/s.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# By the kernels' input dtype: the peak rate of its products and its bytes
+# per element (fp32 inputs run on the CUDA cores: flash_f32.cu).
+DTYPE_PEAK = {"bfloat16": (PEAK_BF16_FLOPS, 2), "float16": (PEAK_BF16_FLOPS, 2),
+              "float32": (PEAK_FP32_FLOPS, 4)}
 
-TOL_OUT, TOL_GRAD, TOL_LSE = 1e-2, 2e-2, 5e-3
+# Each kernel against its plain version (fp32 on the same inputs): output
+# and gradients as relative error in norm, lse as absolute error. fp16 is
+# held to bf16's tolerance (its mantissa is finer); fp32 kernels multiply in
+# fp32 and differ from the plain version only in the order of their sums.
+TOLS = {"bfloat16": (1e-2, 2e-2, 5e-3), "float16": (1e-2, 2e-2, 5e-3),
+        "float32": (1e-4, 1e-4, 1e-4)}
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 SLICE = dict(b=4, s=2048, hq=16, hkv=16, d=128)
+# Gemma-2B's attention (8 query heads, 1 KV head, head dim 256) at seq 2048.
+GEMMA_LIKE = dict(b=2, s=2048, hq=8, hkv=1, d=256)
+# Phase 3 times every built variant (hopper_flash.variant) at the shape its
+# users give it: head dims 64 and 128 at the training shape, 256 at the
+# Gemma-like one, and one head dim the wrappers pad (96, run at 128). The
+# first is the main path's.
+TIMED = [("bfloat16", SLICE), ("bfloat16", dict(SLICE, d=64)), ("bfloat16", GEMMA_LIKE),
+         ("float16", SLICE), ("float16", dict(SLICE, d=64)), ("float16", GEMMA_LIKE),
+         ("float32", SLICE), ("float32", dict(SLICE, d=64)), ("float32", GEMMA_LIKE),
+         ("bfloat16", dict(SLICE, d=96))]
+SOURCES = {"flash_fwd": "accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
+           "flash_dq": "accelerate_tpu_torch/ops/csrc/flash_dq.cu",
+           "flash_dkv": "accelerate_tpu_torch/ops/csrc/flash_dkv.cu",
+           "flash_f32": "accelerate_tpu_torch/ops/csrc/flash_f32.cu"}
+REPLACES = {"flash_fwd": "accelerate_tpu/ops/pallas_flash.py:72",
+            "flash_dq": "accelerate_tpu/ops/pallas_flash.py:185",
+            "flash_dkv": "accelerate_tpu/ops/pallas_flash.py:226"}
 # The Llama widths bench.py measures (bench.py:_build_config, big-HBM rung).
 FULL_WIDTH = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                   num_hidden_layers=18, num_attention_heads=16, num_key_value_heads=16)
@@ -129,30 +173,35 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(stop) / iters
 
 
-def inputs(b, s, hq, hkv, d, seed, fused_qkv=False):
-    """bf16 q, k, v, dout and an fp32 lse cotangent from a seed; with
+def inputs(b, s, hq, hkv, d, seed, fused_qkv=False, dtype="bfloat16", device="cuda"):
+    """q, k, v, dout of `dtype` and an fp32 lse cotangent from a seed; with
     `fused_qkv`, q, k and v are strided views of one (B, S, Hq+2·Hkv, D)
     buffer, as a fused QKV projection gives them."""
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
     if fused_qkv:
-        qkv = rnd(b, s, hq + 2 * hkv, d).to(torch.bfloat16)
+        qkv = rnd(b, s, hq + 2 * hkv, d).to(dt)
         q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
     else:
-        q, k, v = (rnd(b, s, h, d).to(torch.bfloat16) for h in (hq, hkv, hkv))
-    dout = rnd(b, s, hq, d).to(torch.bfloat16)
+        q, k, v = (rnd(b, s, h, d).to(dt) for h in (hq, hkv, hkv))
+    dout = rnd(b, s, hq, d).to(dt)
     g_lse = rnd(b, hq, s)
     return q, k, v, dout, g_lse
 
 
 def check_kernels(hf, name, b, s, hq, hkv, d, q_offset=0, k_offset=0, seed=0, causal=True,
-                  fused_qkv=False):
-    """Kernel against plain version on the same bf16 inputs; returns errors."""
+                  fused_qkv=False, dtype="bfloat16", device="cuda"):
+    """Kernel against plain version on the same inputs of `dtype`; returns
+    errors, the variant each kernel ran (``hopper_flash.variant``) and
+    whether it passed TOLS. dQ and dK/dV are launched twice and must agree
+    with themselves bit for bit: every variant writes each output row from
+    one block, with no atomics."""
     import torch
 
-    q, k, v, dout, g_lse = inputs(b, s, hq, hkv, d, seed, fused_qkv)
+    q, k, v, dout, g_lse = inputs(b, s, hq, hkv, d, seed, fused_qkv, dtype, device)
     kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
     out, lse = hf.flash_fwd_cuda(q, k, v, **kw)
     out_ref, lse_ref = hf.flash_fwd_plain(q.float(), k.float(), v.float(), **kw)
@@ -161,15 +210,19 @@ def check_kernels(hf, name, b, s, hq, hkv, d, q_offset=0, k_offset=0, seed=0, ca
     dq2 = hf.flash_dq_cuda(q, k, v, dout, lse_ref, delta, **kw)
     dk, dv = hf.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, **kw)
     dk2, dv2 = hf.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, **kw)
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
     ref_args = (q.float(), k.float(), v.float(), dout.float(), lse_ref, delta)
     dq_ref = hf.flash_dq_plain(*ref_args, **kw)
     dk_ref, dv_ref = hf.flash_dkv_plain(*ref_args, **kw)
     lse_err = float((lse - lse_ref).abs().max())
     fully_masked = bool((out_ref == 0).all())
+    width = hf.built_head_dim(d)
     errs = {
-        "case": name, "shape": [b, s, hq, hkv, d], "causal": causal, "fused_qkv": fused_qkv,
-        "q_offset": q_offset, "k_offset": k_offset,
+        "case": name, "shape": [b, s, hq, hkv, d], "dtype": dtype, "causal": causal,
+        "fused_qkv": fused_qkv, "q_offset": q_offset, "k_offset": k_offset,
+        "variants": {kname: hf.variant(kname, q.dtype, width) for kname in KERNELS},
+        "library": hf.source("flash_fwd", q.dtype), "padded_to": width if width != d else None,
         "out_rel": rel_err(out, out_ref), "lse_abs": lse_err,
         "dq_rel": rel_err(dq, dq_ref), "dk_rel": rel_err(dk, dk_ref), "dv_rel": rel_err(dv, dv_ref),
         "dq_repeat_identical": bool(torch.equal(dq, dq2)),
@@ -181,8 +234,10 @@ def check_kernels(hf, name, b, s, hq, hkv, d, q_offset=0, k_offset=0, seed=0, ca
                              float((dv.float() - dv_ref).abs().max())),
         },
     }
-    ok = (errs["out_rel"] <= TOL_OUT and lse_err <= TOL_LSE
-          and max(errs["dq_rel"], errs["dk_rel"], errs["dv_rel"]) <= TOL_GRAD)
+    tol_out, tol_grad, tol_lse = TOLS[dtype]
+    errs["tolerance"] = {"out_rel": tol_out, "grad_rel": tol_grad, "lse_abs": tol_lse}
+    ok = (errs["out_rel"] <= tol_out and lse_err <= tol_lse
+          and max(errs["dq_rel"], errs["dk_rel"], errs["dv_rel"]) <= tol_grad)
     if fully_masked:
         # No key visible: exact zeros and lse ~ -1e30, gradients exactly 0.
         errs["exact_zero_out"] = bool((out == 0).all())
@@ -193,9 +248,18 @@ def check_kernels(hf, name, b, s, hq, hkv, d, q_offset=0, k_offset=0, seed=0, ca
     return errs
 
 
+# The design each kernel library is built to, and so what its SASS must
+# show: the wgmma libraries wgmma products (HGMMA) on TMA-loaded tiles
+# (UTMALDG) and no mma.sync (HMMA); the fp32 library FMA on the CUDA cores
+# (FFMA) and no tensor-core product of either kind.
+DESIGNS = {"flash_fwd": "wgmma", "flash_dq": "wgmma", "flash_dkv": "wgmma",
+           "flash_f32": "cuda-core fma"}
+
+
 def sass_counts(names):
-    """Counts of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
-    instructions in each built library, from cuobjdump beside nvcc."""
+    """Counts of wgmma (HGMMA), TMA load (UTMALDG), mma.sync (HMMA) and fp32
+    FMA (FFMA) instructions in each built library, from cuobjdump beside
+    nvcc."""
     from pathlib import Path
 
     from accelerate_tpu_torch.ops import _build
@@ -208,27 +272,35 @@ def sass_counts(names):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build._lib_path(name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
-                        for op in ("HGMMA", "UTMALDG", "HMMA")}
+                        for op in ("HGMMA", "UTMALDG", "HMMA", "FFMA")}
     return counts
 
 
 def sass_ok(sass):
-    """Whether every kernel library was built for Hopper's tensor cores:
-    wgmma products (HGMMA) on TMA-loaded tiles (UTMALDG), and no mma.sync
-    (HMMA). `sass` maps each library to its counts (sass_counts)."""
-    return all(name in sass and sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0
-               and sass[name]["HMMA"] == 0 for name in KERNELS)
+    """Whether every kernel library was built to its design (DESIGNS).
+    `sass` maps each library to its counts (sass_counts)."""
+    def built_to_design(name):
+        c = sass.get(name)
+        if c is None:
+            return False
+        if DESIGNS[name] == "wgmma":
+            return c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
+        return c["FFMA"] > 0 and c["HGMMA"] == 0 and c["HMMA"] == 0
+
+    return all(built_to_design(name) for name in DESIGNS)
 
 
 def causal_pairs(s):
     return s * (s + 1) // 2
 
 
-def bounds(b, s, hq, hkv, d):
+def bounds(b, s, hq, hkv, d, dtype="bfloat16", causal=True):
     """Least time (ms) each kernel could take at these shapes: the larger of
-    its bf16 tensor-core FLOPs over the peak and its bytes over HBM rate."""
-    pairs = b * hq * causal_pairs(s)
-    q_bytes, kv_bytes, stat_bytes = b * s * hq * d * 2, b * s * hkv * d * 2, b * hq * s * 4
+    its FLOPs over the peak rate for its dtype and its bytes over HBM rate.
+    D is the caller's: a padded head dim counts the unpadded work."""
+    peak, elem = DTYPE_PEAK[dtype]
+    pairs = b * hq * (causal_pairs(s) if causal else s * s)
+    q_bytes, kv_bytes, stat_bytes = b * s * hq * d * elem, b * s * hkv * d * elem, b * hq * s * 4
     work = {  # (matmuls of 2·D FLOP per visible pair, bytes read once + written once)
         "flash_fwd": (2, q_bytes + 2 * kv_bytes + q_bytes + stat_bytes),
         "flash_dq": (3, 2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + q_bytes),
@@ -236,18 +308,21 @@ def bounds(b, s, hq, hkv, d):
     }
     out = {}
     for name, (mms, nbytes) in work.items():
-        flop_ms = mms * 2 * d * pairs / PEAK_BF16_FLOPS * 1e3
+        flop_ms = mms * 2 * d * pairs / peak * 1e3
         byte_ms = nbytes / PEAK_HBM_BYTES * 1e3
         out[name] = (max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes")
     return out
 
 
-def time_kernels(hf):
+def time_variant(hf, dtype, shape):
+    """Each kernel's ms at `shape` (causal) for `dtype`, beside its plain
+    version's, its bound and SDPA's forward and backward on the same
+    inputs."""
     import torch
     import torch.nn.functional as F
 
-    b, s, hq, hkv, d = (SLICE[x] for x in ("b", "s", "hq", "hkv", "d"))
-    q, k, v, dout, g_lse = inputs(b, s, hq, hkv, d, seed=7)
+    b, s, hq, hkv, d = (shape[x] for x in ("b", "s", "hq", "hkv", "d"))
+    q, k, v, dout, g_lse = inputs(b, s, hq, hkv, d, seed=7, dtype=dtype)
     out, lse = hf.flash_fwd_cuda(q, k, v)
     delta = ((dout.float() * out.float()).sum(-1).transpose(1, 2) - g_lse).contiguous()
     ms = {
@@ -260,27 +335,37 @@ def time_kernels(hf):
         "flash_dq": cuda_ms(lambda: hf.flash_dq_plain(q, k, v, dout, lse, delta), 3, warmup=1),
         "flash_dkv": cuda_ms(lambda: hf.flash_dkv_plain(q, k, v, dout, lse, delta), 3, warmup=1),
     }
-    # Library yardstick: scaled_dot_product_attention (B, H, S, D) views.
+    # Library yardstick: scaled_dot_product_attention on (B, H, S, D) views,
+    # with its own GQA where the heads are grouped.
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    gqa = {"enable_gqa": True} if hq != hkv else {}
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+
     with torch.no_grad():
-        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
-    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        sdpa_fwd = cuda_ms(sdpa, 20)
+    o = sdpa()
     g = dout.transpose(1, 2)
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True), 20)
-    # SDPA's backward yields dq, dk and dv in one call: it stands beside the
-    # sum of the dQ and dK/dV kernels, and beside neither kernel alone.
-    library_ms = {"flash_fwd": sdpa_fwd, "flash_dq+flash_dkv": sdpa_bwd}
-    return ms, plain_ms, library_ms
+    width = hf.built_head_dim(d)
+    return {
+        "dtype": dtype, "shape": shape, "padded_to": width if width != d else None,
+        "variants": {name: hf.variant(name, q.dtype, width) for name in KERNELS},
+        "ms": ms, "plain_ms": plain_ms, "bound": bounds(b, s, hq, hkv, d, dtype),
+        # SDPA's backward yields dq, dk and dv in one call: it stands beside
+        # the sum of the dQ and dK/dV kernels, and beside neither alone.
+        "library_ms": {"flash_fwd": sdpa_fwd, "flash_dq+flash_dkv": sdpa_bwd},
+    }
 
 
-def tiny_step_parity():
-    """One bf16 train step of the tiny Llama on the card and on the CPU."""
+def _tiny_step_inputs():
+    """Phase 4's tiny bf16 Llama (remat "dots"), numpy-seeded weights and
+    one batch."""
     import numpy as np
     import torch
 
-    from accelerate_tpu_torch import Accelerator, Model, adamw
-    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
-    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig.tiny(dtype=torch.bfloat16, remat=True, remat_policy="dots")
     rng = np.random.default_rng(0)
@@ -291,19 +376,37 @@ def tiny_step_parity():
         for n, p in ref.state_dict().items()
     }
     ids = rng.integers(0, cfg.vocab_size, size=(2, 129)).astype(np.int64)
-    batch = {"x": ids[:, :-1], "y": ids[:, 1:]}
+    return cfg, weights, {"x": ids[:, :-1], "y": ids[:, 1:]}
+
+
+def tiny_step(cfg, weights, batch, cpu):
+    """One step of the tiny Llama through a fresh Accelerator: its metrics
+    and whether DDP ran it (over a process group without a plugin)."""
+    from accelerate_tpu_torch import Accelerator, Model, adamw
+    from accelerate_tpu_torch.models import LlamaForCausalLM, cross_entropy_loss
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    module = LlamaForCausalLM(cfg)
+    module.load_state_dict(weights)
+    acc = Accelerator(mixed_precision="bf16", cpu=cpu)
+    model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+    step = acc.prepare_train_step(
+        lambda m, bt: cross_entropy_loss(m(bt["x"]), bt["y"]), max_grad_norm=1.0)
+    _, metrics = step(acc.train_state, batch)
+    return {k: float(v) for k, v in metrics.items()}, model.forward_module is not model.module
+
+
+def tiny_step_parity():
+    """One bf16 train step of the tiny Llama on the card and on the CPU."""
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    cfg, weights, batch = _tiny_step_inputs()
     results = {}
     for cpu in (False, True):
-        for cls in (AcceleratorState, GradientState, PartialState):
-            cls._reset_state()
-        module = LlamaForCausalLM(cfg)
-        module.load_state_dict(weights)
-        acc = Accelerator(mixed_precision="bf16", cpu=cpu)
-        model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
-        step = acc.prepare_train_step(
-            lambda m, bt: cross_entropy_loss(m(bt["x"]), bt["y"]), max_grad_norm=1.0)
-        _, metrics = step(acc.train_state, batch)
-        results["cpu" if cpu else "cuda"] = {k: float(v) for k, v in metrics.items()}
+        PartialState._reset_state()
+        results["cpu" if cpu else "cuda"], _ = tiny_step(cfg, weights, batch, cpu)
     for cls in (AcceleratorState, GradientState, PartialState):
         cls._reset_state()
     rel = {k: abs(results["cuda"][k] - results["cpu"][k]) / abs(results["cpu"][k])
@@ -311,17 +414,21 @@ def tiny_step_parity():
     return results, rel
 
 
-def full_width_steps(hf):
+def full_width_steps(hf, device="cuda", width=FULL_WIDTH, batch_size=SLICE["b"],
+                     seq=SLICE["s"]):
+    """Phase 5: the 1.06B Llama train step through prepare() with the FSDP
+    plugin (FSDP2 over a process group, the plain step alone) for 2 warm-up
+    and 5 timed steps."""
     import numpy as np
     import torch
 
     from accelerate_tpu_torch import Accelerator, FullyShardedDataParallelPlugin, Model, adamw
     from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
 
-    batch_size, seq = SLICE["b"], SLICE["s"]
-    cfg = LlamaConfig(**FULL_WIDTH, max_position_embeddings=seq, dtype=torch.bfloat16,
+    cfg = LlamaConfig(**width, max_position_embeddings=seq, dtype=torch.bfloat16,
                       remat=True, remat_policy="dots", attention_impl="flash")
-    acc = Accelerator(mixed_precision="bf16", fsdp_plugin=FullyShardedDataParallelPlugin())
+    acc = Accelerator(mixed_precision="bf16", fsdp_plugin=FullyShardedDataParallelPlugin(),
+                      cpu=device == "cpu")
     module = LlamaForCausalLM(cfg, device=acc.device)
     module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
     model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
@@ -338,39 +445,43 @@ def full_width_steps(hf):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hf.reset_launch_counts()
-    losses = []
+    first = []  # the first three steps' metrics, read after the timed window
     for _ in range(warmup):
         state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))
+        first.append(metrics)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(timed):
+    for i in range(timed):
         state, metrics = step(state, batch)
+        if i == 0:
+            first.append(metrics)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / timed
     launches = dict(hf.LAUNCHES)
-    losses.append(float(metrics["loss"]))
-    grad_norm = float(metrics["grad_norm"])
+    variant_launches = dict(hf.VARIANT_LAUNCHES)
+    first = [(float(m["loss"]), float(m["grad_norm"])) for m in first]
+    losses = [first[0][0], first[1][0], float(metrics["loss"])]
 
     tok_s = batch_size * seq / dt
     flops_per_token = 6 * n_params + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq
     return {
         "phase": "main_path", "n_params": n_params, "batch": batch_size, "seq": seq,
         "n_layers": cfg.num_hidden_layers, "remat_policy": cfg.remat_policy,
-        "steps": warmup + timed, "step_ms": dt * 1e3,
+        "sharded": model.sharded, "steps": warmup + timed, "step_ms": dt * 1e3,
         "tok_s": tok_s, "mfu": tok_s * flops_per_token / PEAK_BF16_FLOPS,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "losses": losses, "grad_norm": grad_norm, "launches": launches,
+        "losses": losses, "first_metrics": first, "grad_norm": float(metrics["grad_norm"]),
+        "launches": launches, "variant_launches": variant_launches,
         "launches_per_step": {k: v / (warmup + timed) for k, v in launches.items()},
         "ln_vocab": math.log(cfg.vocab_size),
-        "_step": (step, state, batch),
+        "_step": (step, state, batch), "_acc": acc,
     }
 
 
 def _category(name):
     low = name.lower()
     for kernel in KERNELS:
-        if f"{kernel}_kernel" in name:
+        if f"{kernel}_kernel" in name or f"{kernel}_f32_kernel" in name:
             return kernel
     if any(x in low for x in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
         return "matmul"
@@ -824,10 +935,11 @@ def checkpoint_root(need_bytes, fallback=CKPT_FALLBACK):
     raise RuntimeError(f"no directory with {need_bytes} bytes free for the checkpoint: {tried}")
 
 
-def build_loop(device, width, seq, project_dir, init_seed, tokens):
+def build_loop(device, width, seq, project_dir, init_seed, tokens, keep_group=False):
     """Phase 5's model and step as a user's loop builds them: Accelerator
     with a project directory, prepare(model, adamw(schedule), loader,
-    schedule), prepare_train_step."""
+    schedule), prepare_train_step. A fresh Accelerator each time; with
+    `keep_group`, over the process group this process belongs to."""
     import numpy as np
     import torch
 
@@ -837,7 +949,7 @@ def build_loop(device, width, seq, project_dir, init_seed, tokens):
     from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
     from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 
-    for cls in (AcceleratorState, GradientState, PartialState):
+    for cls in (AcceleratorState, GradientState) + (() if keep_group else (PartialState,)):
         cls._reset_state()
     acc = Accelerator(
         mixed_precision="bf16", cpu=device == "cpu",
@@ -911,7 +1023,7 @@ def loop_gate(first, resumed, lrs, step_after_load, step_after, launches, n_laye
 
 
 def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"],
-               profile_steps=LOOP["profile_steps"]):
+               profile_steps=LOOP["profile_steps"], keep_group=False):
     """Phase 9 (see the module docstring). Returns its report with the
     checks of loop_gate."""
     import numpy as np
@@ -945,7 +1057,7 @@ def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         native.reset_paths()
         torch.cuda.reset_peak_memory_stats()
         acc, step, loader, sched, schedule = build_loop(
-            device, width, seq, root, LOOP["init_seeds"][0], tokens)
+            device, width, seq, root, LOOP["init_seeds"][0], tokens, keep_group)
         it = iter(loader)
         hf.reset_launch_counts()
         head, _ = loop_steps(acc, step, it, sched, 1)
@@ -979,7 +1091,7 @@ def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         torch.cuda.empty_cache()
 
         acc, step, loader, sched, _ = build_loop(
-            device, width, seq, root, LOOP["init_seeds"][1], tokens)
+            device, width, seq, root, LOOP["init_seeds"][1], tokens, keep_group)
         torch.cuda.reset_peak_memory_stats()
         acc.load_state()
         load = dict(acc.checkpoint_stats)
@@ -1028,6 +1140,154 @@ def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: data parallelism over a process group, in a child process
+# ---------------------------------------------------------------------------
+
+# Phase 10's gates against phases 4 and 5 of the parent: at world size 1
+# FSDP2 and DDP run the same arithmetic, but FSDP2's global grad norm is
+# reduced over its mesh as a DTensor (a square root of a sum of squares),
+# which may round the clip factor differently in its last bit.
+DP_REL_TOL = 1e-4
+
+
+def torchrun_env(port: int) -> dict:
+    """torchrun's variables for one process of a group of one."""
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_child(args: dict, timeout: float):
+    """``chip_smoke.py --child '<args>'`` with torchrun's environment, so
+    that it joins a process group of its own and the singletons of this
+    process stay untouched. Returns its exit code, its JSON lines and the
+    end of its standard error."""
+    env = {**os.environ, **torchrun_env(free_port())}
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
+                           json.dumps(args)], env=env, capture_output=True, text=True,
+                          timeout=timeout, cwd=Path(__file__).resolve().parent)
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    return proc.returncode, lines, proc.stderr[-4000:]
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b) if b else abs(a)
+
+
+def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"],
+                        batch_size=SLICE["b"], profile=True):
+    """Phase 10, run by the child. Over the group of one that torchrun's
+    environment makes (NCCL on the card): phase 5's model, batch and steps
+    through prepare() with the FSDP plugin, which shards it with FSDP2; the
+    collectives' round trip; phase 9's loop, saved and resumed in a fresh
+    Accelerator; and phase 4's tiny step under DDP (no plugin). `args`
+    holds the parent's phase 4 and 5 numbers to hold these to."""
+    import torch
+
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+    from accelerate_tpu_torch.utils import operations
+
+    partial = PartialState(cpu=device == "cpu")
+    group = {"backend": partial.backend, "world": partial.num_processes,
+             "distributed_type": partial.distributed_type.value}
+    main = full_width_steps(hf, device=device, width=width, batch_size=batch_size, seq=seq)
+    step, state, batch = main.pop("_step")
+    acc = main.pop("_acc")
+    prof = profile_steps(step, state, batch, main["step_ms"]) if profile else None
+
+    x = torch.arange(24.0, device=acc.device).reshape(4, 6)
+    obj = [{"a": 1}, "b"]
+    trips = {
+        "gather": torch.equal(acc.gather(x), x),
+        "reduce_sum": torch.equal(acc.reduce(x), x),
+        "reduce_mean": torch.equal(acc.reduce(x, reduction="mean"), x),
+        "broadcast": torch.equal(operations.broadcast(x.clone()), x),
+        "pad_across_processes": torch.equal(acc.pad_across_processes(x, dim=1), x),
+        "gather_object": operations.gather_object(obj) == obj,
+        "broadcast_object_list": operations.broadcast_object_list(list(obj)) == obj,
+    }
+    del step, state, batch, acc
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    loop = loop_phase(hf, main["step_ms"], device=device, width=width, seq=seq,
+                      profile_steps=LOOP["profile_steps"] if profile else 0, keep_group=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, weights, tiny_batch = _tiny_step_inputs()
+    ddp_metrics, ddp_wrapped = tiny_step(cfg, weights, tiny_batch, cpu=device == "cpu")
+
+    phase5 = args["phase5"]
+    rel = [[_rel(a, b) for a, b in zip(got, ref)]
+           for got, ref in zip(main["first_metrics"], phase5["first_metrics"])]
+    ddp_rel = {k: _rel(ddp_metrics[k], args["tiny_step"][k]) for k in ("loss", "grad_norm")}
+    checks = {
+        "group_of_one": group["world"] == 1 and group["backend"] == (
+            "gloo" if device == "cpu" else "nccl"),
+        "fsdp2_sharded": main["sharded"],
+        "losses_match_phase5": len(rel) == 3 and max(max(r) for r in rel) <= DP_REL_TOL,
+        "launches": all(n == main["n_layers"] for n in main["launches_per_step"].values()),
+        "collectives_round_trip": all(trips.values()),
+        "loop_resumes_bit_equal": loop["ok"],
+        "ddp_wrapped": ddp_wrapped,
+        "ddp_matches_phase4": max(ddp_rel.values()) <= DP_REL_TOL,
+    }
+    checks["ok"] = all(checks.values())
+    return {
+        "phase": "data_parallel", "group": group,
+        "fsdp2": {**{k: v for k, v in main.items() if k != "phase"},
+                  "rel_to_phase5": rel,
+                  "bit_equal_to_phase5": [list(m) for m in main["first_metrics"]]
+                  == [list(m) for m in phase5["first_metrics"]],
+                  "phase5_step_ms": phase5["step_ms"],
+                  "phase5_peak_mem_gib": phase5["peak_mem_gib"],
+                  "device_busy_ms_per_step": prof and prof["device_busy_ms_per_step"],
+                  "idle_share": prof and prof["idle_share"]},
+        "collectives": trips, "loop": loop,
+        "ddp_tiny": {"metrics": ddp_metrics, "phase4": args["tiny_step"], "rel": ddp_rel,
+                     "bit_equal": ddp_metrics == args["tiny_step"]},
+        "checks": checks, "ok": checks["ok"],
+    }
+
+
+def _stub_cuda_for_cpu():
+    """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
+    import torch
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        setattr(torch.cuda, name, lambda *a, **k: 0)
+
+
+def child_main(args: dict) -> int:
+    """The child of phase 10. ``args["device"] == "cpu"`` rehearses it on
+    the CPU over gloo (``args["kw"]`` may shrink it); the card run passes
+    only the parent's numbers."""
+    if args.get("device", "cuda") == "cpu":
+        _stub_cuda_for_cpu()
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+
+    res = data_parallel_phase(hf, args, device=args.get("device", "cuda"), **args.get("kw", {}))
+    emit(res)
+    from accelerate_tpu_torch.state import PartialState
+
+    PartialState._reset_state()  # destroys the group it created
+    return 0 if res["ok"] else 1
+
+
+
+
 def main() -> int:
     import torch
 
@@ -1061,6 +1321,8 @@ def main() -> int:
         return 1
 
     # 2. kernels against their plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 plain versions in full fp32
+    torch.backends.cudnn.allow_tf32 = False
     cases = [
         check_kernels(hf, "slice", **SLICE),
         check_kernels(hf, "gqa_ragged", 2, 160, 4, 2, 32, seed=1),
@@ -1072,6 +1334,26 @@ def main() -> int:
         check_kernels(hf, "fused_qkv_views", 2, 256, 4, 2, 128, seed=6, fused_qkv=True),
         # dK/dV loops over a group of 4 heads on ragged 64-query tiles.
         check_kernels(hf, "gqa4_ragged", 2, 300, 8, 2, 64, seed=8),
+        # Head dim 256 (Gemma's), GQA 8:1, ragged tails, both 16-bit types.
+        *(check_kernels(hf, f"{dt}_d256_gqa8_{'causal' if c else 'full'}", 2, 300, 8, 1, 256,
+                        seed=10 + i, causal=c, dtype=dt)
+          for i, (dt, c) in enumerate((d, c) for d in ("bfloat16", "float16")
+                                      for c in (True, False))),
+        check_kernels(hf, "float16_d256_partly_masked", 1, 160, 4, 2, 256, q_offset=0,
+                      k_offset=32, seed=14, dtype="float16"),
+        check_kernels(hf, "float16_d128", 2, 256, 4, 2, 128, seed=15, dtype="float16"),
+        check_kernels(hf, "float16_d64_ragged", 2, 160, 4, 2, 64, seed=16, dtype="float16"),
+        check_kernels(hf, "float32_d64", 2, 200, 4, 2, 64, seed=17, dtype="float32"),
+        check_kernels(hf, "float32_d128", 2, 200, 4, 2, 128, seed=18, dtype="float32"),
+        check_kernels(hf, "float32_d128_noncausal_offsets", 2, 160, 4, 2, 128, q_offset=0,
+                      k_offset=32, seed=19, causal=False, dtype="float32"),
+        check_kernels(hf, "float32_d256_gqa8", 1, 130, 8, 1, 256, seed=20, dtype="float32"),
+        check_kernels(hf, "float32_fully_masked", 2, 128, 4, 2, 64, q_offset=0, k_offset=128,
+                      seed=21, dtype="float32"),
+        # Head dims the wrappers pad to 128.
+        check_kernels(hf, "bfloat16_d80_padded", 2, 160, 4, 2, 80, seed=22),
+        check_kernels(hf, "bfloat16_d96_padded_noncausal", 2, 160, 4, 2, 96, seed=23,
+                      causal=False),
     ]
     for case in cases:
         emit({"phase": "kernels", **case})
@@ -1079,16 +1361,16 @@ def main() -> int:
         print("chip_smoke: a kernel disagrees with its plain version", file=sys.stderr)
         return 1
 
-    # 3. timings at the training shapes
-    ms, plain_ms, library_ms = time_kernels(hf)
-    bound = bounds(*(SLICE[x] for x in ("b", "s", "hq", "hkv", "d")))
-    emit({"phase": "timings", "shape": SLICE, "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": {k: v[0] for k, v in bound.items()},
-          "backward_ms": {"flash_dq+flash_dkv": ms["flash_dq"] + ms["flash_dkv"],
-                          "bound": bound["flash_dq"][0] + bound["flash_dkv"][0]},
-          "library_ms": library_ms,
-          "library": "scaled_dot_product_attention: its forward, and its backward "
-                     "(dq, dk and dv in one call)"})
+    # 3. timings: the main path's variant at the training shapes, then every
+    # other variant
+    timed = [time_variant(hf, dtype, shape) for dtype, shape in TIMED]
+    for t in timed:
+        emit({"phase": "timings", **t,
+              "bound_ms": {k: v[0] for k, v in t["bound"].items()},
+              "backward_ms": {"flash_dq+flash_dkv": t["ms"]["flash_dq"] + t["ms"]["flash_dkv"],
+                              "bound": t["bound"]["flash_dq"][0] + t["bound"]["flash_dkv"][0]},
+              "library": "scaled_dot_product_attention: its forward, and its backward "
+                         "(dq, dk and dv in one call)"})
 
     # 4. tiny Llama, one step on the card and on the CPU
     results, rel = tiny_step_parity()
@@ -1108,6 +1390,7 @@ def main() -> int:
     path_ok = (all(math.isfinite(x) for x in main_path["losses"])
                and abs(main_path["losses"][0] - main_path["ln_vocab"]) < 1.0
                and all(n == main_path["n_layers"] for n in per_step.values()))
+    main_path.pop("_acc")
     emit({**{k: v for k, v in main_path.items() if k != "_step"}, "ok": path_ok})
     if not path_ok:
         print("chip_smoke: main path failed (loss or launch counts)", file=sys.stderr)
@@ -1154,24 +1437,54 @@ def main() -> int:
     if not loop["ok"]:
         print(f"chip_smoke: training loop failed: {loop['checks']}", file=sys.stderr)
         return 1
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    sources = {"flash_fwd": ("accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
-                             "accelerate_tpu/ops/pallas_flash.py:72"),
-               "flash_dq": ("accelerate_tpu_torch/ops/csrc/flash_dq.cu",
-                            "accelerate_tpu/ops/pallas_flash.py:185"),
-               "flash_dkv": ("accelerate_tpu_torch/ops/csrc/flash_dkv.cu",
-                             "accelerate_tpu/ops/pallas_flash.py:226")}
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": main_path["launches"][name],
-         "max_abs_err": cases[0]["max_abs"][name], "ms": ms[name], "plain_ms": plain_ms[name],
-         "bound_ms": bound[name][0], "bound_by": bound[name][1],
-         "bound_share": bound[name][0] / ms[name], "library_ms": library_ms.get(name)}
-        for name, (src, replaces) in sources.items()]})
+    # 10. FSDP2 (and DDP) over a process group of one, in a child process
+    rc, lines, err = run_child({"phase5": {k: main_path[k] for k in (
+        "first_metrics", "step_ms", "peak_mem_gib")}, "tiny_step": results["cuda"]}, timeout=540)
+    dp = lines[-1] if lines else {}
+    dp_ok = rc == 0 and bool(dp.get("ok"))
+    emit({"phase": "data_parallel", **dp, "child_exit": rc, "ok": dp_ok,
+          **({} if dp_ok else {"child_stderr": err})})
+    if not dp_ok:
+        print(f"chip_smoke: data-parallel phase failed: {dp.get('checks')}", file=sys.stderr)
+        return 1
+
+    emit({"kernels": kernel_summary(timed, cases, main_path)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
+def kernel_summary(timed, cases, main_path):
+    """One entry per kernel of every timed variant (phase 3): its source,
+    the TPU kernel it replaces, its launches in phase 5's main-path run,
+    its largest error in the first check case that ran it (phase 2), its
+    ms beside its plain version's, its bound and SDPA's forward (the
+    backward kernels have no one-call library counterpart)."""
+    out = []
+    for t in timed:
+        for name in KERNELS:
+            variant = t["variants"][name]
+            label = (variant if t["padded_to"] is None else
+                     f"{name}.{variant.split('.')[1]}.d{t['shape']['d']}")
+            case = next((c for c in cases if c["variants"][name] == variant
+                         and (c["padded_to"] is None) == (t["padded_to"] is None)), None)
+            ms, (bound_ms, bound_by) = t["ms"][name], t["bound"][name]
+            out.append({
+                "name": label, "runs": variant, "route": "cuda",
+                "source": SOURCES["flash_f32" if t["dtype"] == "float32" else name],
+                "replaces": REPLACES[name], "dtype": t["dtype"], "shape": t["shape"],
+                "launches": main_path["variant_launches"].get(label, 0),
+                "max_abs_err": case["max_abs"][name] if case else None,
+                "ms": ms, "plain_ms": t["plain_ms"][name], "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_share": bound_ms / ms,
+                "library_ms": t["library_ms"].get(name)})
+    return out
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--child":
+        sys.exit(child_main(json.loads(sys.argv[2])))
     sys.exit(main())

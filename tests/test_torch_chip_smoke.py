@@ -52,11 +52,14 @@ def test_category_books_the_kernels_by_name(chip_smoke, name, category):
 
 
 _KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
-# cuobjdump -sass counts of the three libraries as built for the H100 (D = 32,
-# 64 and 128 each): wgmma and TMA loads in all three, mma.sync in none.
-_SASS = {"flash_fwd": {"HGMMA": 76, "UTMALDG": 44, "HMMA": 0},
-         "flash_dq": {"HGMMA": 80, "UTMALDG": 48, "HMMA": 0},
-         "flash_dkv": {"HGMMA": 52, "UTMALDG": 16, "HMMA": 0}}
+# cuobjdump -sass counts of the four libraries as built for the H100 (D = 64,
+# 128 and 256, bf16 and fp16 in the wgmma libraries, fp32 in flash_f32):
+# wgmma and TMA loads in the first three and mma.sync in none; FMA on the
+# CUDA cores and no tensor-core product in the fp32 one.
+_SASS = {"flash_fwd": {"HGMMA": 208, "UTMALDG": 122, "HMMA": 0, "FFMA": 886},
+         "flash_dq": {"HGMMA": 272, "UTMALDG": 168, "HMMA": 0, "FFMA": 320},
+         "flash_dkv": {"HGMMA": 152, "UTMALDG": 56, "HMMA": 0, "FFMA": 160},
+         "flash_f32": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0, "FFMA": 3033}}
 
 
 @pytest.mark.parametrize("kernel,op,count,ok", [
@@ -74,6 +77,115 @@ def test_sass_ok_needs_wgmma_and_tma_and_no_mma_sync(chip_smoke, kernel, op, cou
 
 def test_sass_ok_needs_every_library(chip_smoke):
     assert not chip_smoke.sass_ok({k: v for k, v in _SASS.items() if k != "flash_dq"})
+    assert not chip_smoke.sass_ok({k: v for k, v in _SASS.items() if k != "flash_f32"})
+
+
+@pytest.mark.parametrize("op,count,ok", [
+    ("FFMA", 0, False), ("HGMMA", 8, False), ("HMMA", 8, False), ("UTMALDG", 4, True)])
+def test_sass_ok_judges_the_fp32_library_by_its_own_design(chip_smoke, op, count, ok):
+    """flash_f32.cu multiplies on the CUDA cores: FMA and no tensor-core
+    product; TMA loads would be allowed, though it has none."""
+    sass = copy.deepcopy(_SASS)
+    sass["flash_f32"][op] = count
+    assert chip_smoke.sass_ok(sass) is ok
+    assert chip_smoke.DESIGNS["flash_f32"] != chip_smoke.DESIGNS["flash_fwd"]
+
+
+def test_bounds_by_dtype_and_padded_head_dim(chip_smoke):
+    """fp16 shares bf16's tensor-core peak; fp32 runs on the CUDA cores at
+    67 TFLOP/s with 4-byte elements; a padded head dim counts the unpadded
+    work."""
+    bf16 = chip_smoke.bounds(4, 2048, 16, 16, 128)
+    assert chip_smoke.bounds(4, 2048, 16, 16, 128, "float16") == bf16
+    f32 = chip_smoke.bounds(4, 2048, 16, 16, 128, "float32")
+    for name in bf16:
+        assert f32[name][0] == pytest.approx(bf16[name][0] * 989 / 67, rel=1e-9)
+    d96 = chip_smoke.bounds(4, 2048, 16, 16, 96)
+    assert d96["flash_fwd"][0] == pytest.approx(bf16["flash_fwd"][0] * 96 / 128, rel=1e-9)
+    full = chip_smoke.bounds(2, 2048, 8, 1, 256, causal=False)
+    causal = chip_smoke.bounds(2, 2048, 8, 1, 256)
+    assert full["flash_dkv"][0] > 1.99 * causal["flash_dkv"][0]
+
+
+def test_every_built_variant_is_timed_and_checked(chip_smoke):
+    """Phase 3 times each dtype at each built head dim (and one padded head
+    dim); phase 2's cases cover the same variants."""
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+
+    timed = {(dtype, hf.built_head_dim(shape["d"]), shape["d"] in hf.BUILT_HEAD_DIMS)
+             for dtype, shape in chip_smoke.TIMED}
+    built = {(dtype, w, True) for dtype in chip_smoke.TOLS for w in hf.BUILT_HEAD_DIMS}
+    assert built <= timed and ("bfloat16", 128, False) in timed
+    assert chip_smoke.TIMED[0] == ("bfloat16", chip_smoke.SLICE)
+
+
+def test_check_kernels_bookkeeping_on_the_cpu(chip_smoke):
+    """check_kernels' plumbing with the plain versions standing in for the
+    kernels on the CPU: the variant and library it names, padding and the
+    tolerance of its dtype."""
+    import torch
+
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+
+    class PlainAsKernels:
+        def __getattr__(self, name):
+            return getattr(hf, name)
+
+        def flash_fwd_cuda(self, *a, **kw):
+            return hf.flash_fwd_plain(*a, **kw)
+
+        def flash_dq_cuda(self, *a, **kw):
+            return hf.flash_dq_plain(*a, **kw)
+
+        def flash_dkv_cuda(self, *a, **kw):
+            return hf.flash_dkv_plain(*a, **kw)
+
+    for dtype, d, variant, library, padded in (
+            ("float32", 80, "flash_dq.f32.d128", "flash_f32", 128),
+            ("float16", 256, "flash_dq.f16.d256", "flash_fwd", None),
+            ("bfloat16", 32, "flash_dq.bf16.d64", "flash_fwd", 64)):
+        res = chip_smoke.check_kernels(PlainAsKernels(), "cpu", 1, 40, 4, 2, d, seed=1,
+                                       dtype=dtype, device="cpu")
+        assert res["ok"], res
+        assert res["variants"]["flash_dq"] == variant and res["library"] == library
+        assert res["padded_to"] == padded
+        assert res["tolerance"]["out_rel"] == chip_smoke.TOLS[dtype][0]
+    assert torch.get_default_dtype() == torch.float32
+
+
+def test_kernel_summary_lists_every_timed_variant(chip_smoke):
+    """One kernels-line entry per kernel of each timed variant, with the
+    keys the contract names, the fp32 variants' source flash_f32.cu and the
+    padded one named by its own head dim."""
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+    import torch
+
+    timed, cases = [], []
+    for dtype, shape in chip_smoke.TIMED:
+        width = hf.built_head_dim(shape["d"])
+        variants = {k: hf.variant(k, getattr(torch, dtype), width) for k in chip_smoke.KERNELS}
+        padded = width if width != shape["d"] else None
+        timed.append({"dtype": dtype, "shape": shape, "padded_to": padded,
+                      "variants": variants, "ms": dict.fromkeys(chip_smoke.KERNELS, 2.0),
+                      "plain_ms": dict.fromkeys(chip_smoke.KERNELS, 9.0),
+                      "bound": chip_smoke.bounds(*shape.values(), dtype),
+                      "library_ms": {"flash_fwd": 1.5, "flash_dq+flash_dkv": 3.0}})
+        cases.append({"variants": variants, "padded_to": padded,
+                      "max_abs": dict.fromkeys(chip_smoke.KERNELS, 1e-3)})
+    main_path = {"variant_launches": {"flash_fwd.bf16.d128": 126, "flash_dq.bf16.d128": 126,
+                                      "flash_dkv.bf16.d128": 126}}
+    lines = chip_smoke.kernel_summary(timed, cases, main_path)
+    assert len(lines) == 3 * len(chip_smoke.TIMED)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(line) for line in lines)
+    by_name = {line["name"]: line for line in lines}
+    assert by_name["flash_fwd.bf16.d128"]["launches"] == 126
+    assert by_name["flash_dkv.f32.d256"]["source"].endswith("flash_f32.cu")
+    assert by_name["flash_dq.bf16.d96"]["runs"] == "flash_dq.bf16.d128"
+    assert by_name["flash_dq.bf16.d96"]["launches"] == 0
+    assert by_name["flash_fwd.f16.d64"]["library_ms"] == 1.5
+    assert by_name["flash_dq.f16.d64"]["library_ms"] is None
 
 
 # ---------------------------------------------------------------------------
@@ -289,3 +401,60 @@ def test_loop_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     assert res["save"]["bytes"] > 3 * 4 * chip_smoke.llama_n_params(_TINY_WIDTH)
     assert res["native"]["paths"]["pwrite_segments"] == {"native": 0, "plain": 1}
     assert not Path(res["checkpoint_disk"]["dir"]).exists()
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: FSDP2 and DDP over a process group of one, in a child process
+# ---------------------------------------------------------------------------
+
+
+def test_data_parallel_child_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
+    """The whole phase on the CPU at a small width: phases 4 and 5 in this
+    process without a group, then ``chip_smoke.py --child`` with torchrun's
+    environment, which joins a gloo group of one, shards phase 5's model
+    with FSDP2 and runs phase 9's loop and phase 4's step under DDP. The
+    plain versions stand in for the kernels here, so no kernel launches,
+    and the checkpoint is too small for the native writer: the launch
+    checks fail here only."""
+    import torch
+
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    kw = dict(width=_TINY_WIDTH, seq=32, batch_size=2)
+    try:
+        main = chip_smoke.full_width_steps(hf, device="cpu", **kw)
+        assert not main["sharded"] and main["variant_launches"] == {}
+        cfg, weights, batch = chip_smoke._tiny_step_inputs()
+        tiny, ddp = chip_smoke.tiny_step(cfg, weights, batch, cpu=True)
+        assert not ddp
+    finally:
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+    args = {"device": "cpu", "kw": {**kw, "profile": False},
+            "phase5": {"first_metrics": main["first_metrics"], "step_ms": main["step_ms"],
+                       "peak_mem_gib": 0.0},
+            "tiny_step": tiny}
+    rc, lines, err = chip_smoke.run_child(args, timeout=300)
+    assert lines, err
+    res = lines[-1]
+    failed = sorted(k for k, v in res["checks"].items() if not v)
+    assert failed == ["launches", "loop_resumes_bit_equal", "ok"], (failed, err)
+    assert rc == 1
+    assert res["group"] == {"backend": "gloo", "world": 1, "distributed_type": "MULTI_CPU"}
+    assert res["fsdp2"]["sharded"] and all(res["collectives"].values())
+    assert max(max(r) for r in res["fsdp2"]["rel_to_phase5"]) <= chip_smoke.DP_REL_TOL
+    assert sorted(k for k, v in res["loop"]["checks"].items() if not v) == [
+        "launches", "native", "ok"]
+    assert res["ddp_tiny"]["rel"]["loss"] <= chip_smoke.DP_REL_TOL
+    assert len(res["loop"]["resumed"]["loss"]) == 4
+
+
+def test_torchrun_env_is_a_group_of_one(chip_smoke):
+    env = chip_smoke.torchrun_env(29512)
+    assert env["WORLD_SIZE"] == "1" and env["RANK"] == env["LOCAL_RANK"] == "0"
+    assert env["MASTER_PORT"] == "29512" and env["MASTER_ADDR"] == "127.0.0.1"
+    assert 0 < chip_smoke.free_port() < 65536

@@ -1,0 +1,725 @@
+"""The port's data parallelism (FSDP2, DDP and HSDP over torch.distributed)
+against the JAX package's ``dp_shard``/``dp_replicate`` meshes.
+
+Two gangs of gloo processes run on the CPU, started with
+``torch.multiprocessing`` (spawn) and meeting through a ``file://``
+rendezvous under the test's temporary directory, so that no port is
+contended: one of 2 processes and one of 4. Each process runs a list of
+jobs and process 0 pickles everyone's results; the tests compare them with
+the JAX Accelerator run in this process on its virtual CPU devices
+(``tests/conftest.py``), on the same global batches made with numpy from a
+seed, from the same flax-initialised tiny Llama (fp32):
+
+- three steps of FSDP2 at 2 and 4 processes, DDP at 2, and HSDP at 2 × 2:
+  losses and grad norms within rtol 1e-4, and the parameters after them;
+- the collectives of ``utils/operations.py`` against the JAX package's
+  own functions, run here with its process count and all-gather replaced
+  by the gang's per-process inputs;
+- the dispatcher's batches against the JAX ``DataLoaderDispatcher`` run
+  the same way, and synchronised RNG states;
+- a checkpoint written by 4 FSDP2 processes resumed in one process and
+  read by the JAX package, and a JAX checkpoint saved under ``dp_shard=4``
+  resumed by 2 FSDP2 processes.
+
+The spawned processes import this module: JAX is imported only inside the
+functions that compute the references.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import random
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from accelerate_tpu_torch import (
+    Accelerator,
+    FullyShardedDataParallelPlugin,
+    Model,
+    ParallelismConfig,
+    ProjectConfiguration,
+    adamw,
+)
+from accelerate_tpu_torch.models import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    cross_entropy_loss,
+    llama_params_from_flax,
+    llama_params_to_flax,
+)
+from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+from accelerate_tpu_torch.utils import operations
+
+SEQ, GLOBAL_BATCH, STEPS, LR = 16, 8, 3, 1e-3
+# Per-process inputs of the collectives: rank r holds (r + 1) rows, so that
+# pad_across_processes has work to do.
+COLLECTIVE_ROWS = 3
+# Parameters after AdamW steps: see _assert_params_close.
+PARAM_ATOL, UPDATE_RTOL, OUTLIER_SHARE = 1e-4, 1e-2, 1e-4
+
+
+def _batches(n=STEPS, bs=GLOBAL_BATCH, seq=SEQ, vocab=256):
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, vocab, size=(bs, seq + 1), dtype=np.int32)
+        out.append({"x": ids[:, :-1], "y": ids[:, 1:]})
+    return out
+
+
+def _reset_port():
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+
+
+@pytest.fixture(autouse=True)
+def reset_port_state():
+    yield
+    _reset_port()
+
+
+# ---------------------------------------------------------------------------
+# The jobs each spawned process runs
+# ---------------------------------------------------------------------------
+
+
+def _local(batch, rank, world):
+    n = GLOBAL_BATCH // world
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+
+def _port_loss(model, b):
+    return cross_entropy_loss(model(b["x"].long()), b["y"].long())
+
+
+# FSDP plugin fields that map onto FSDP2, each set alone: the numbers must
+# stay those of the default plugin.
+PLUGIN_OPTIONS = {
+    "ignored_norms": dict(ignored_params=[r"norm\.weight$"]),
+    "activation_checkpointing": dict(activation_checkpointing=True),
+    "no_reshard_after_forward": dict(reshard_after_forward=False),
+    "cpu_offload": dict(cpu_offload=True),
+}
+
+
+def _port_accelerator(kind, plugin_kw=None, **kw):
+    if kind == "ddp":
+        return Accelerator(cpu=True, **kw)
+    pc = ParallelismConfig(dp_replicate_size=2, dp_shard_size=2) if kind == "hsdp" else None
+    return Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(**plugin_kw or {}),
+                       parallelism_config=pc, **kw)
+
+
+def _whole_params(model) -> dict:
+    return {n: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach().numpy().copy()
+            for n, p in model.module.named_parameters()}
+
+
+def _train(ctx, kind, steps=STEPS, save_after=None, load_dir=None, project_dir=None,
+           plugin_kw=None, ga=1):
+    """``steps`` steps of the tiny Llama from ctx's flax weights on this
+    process's share of each global batch: (loss, grad norm) per step and
+    the whole parameters after them."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    module = LlamaForCausalLM(cfg)
+    module.load_state_dict(llama_params_from_flax(cfg, ctx["flax_params"]))
+    acc = _port_accelerator(kind, plugin_kw, gradient_accumulation_steps=ga,
+                            project_config=ProjectConfiguration(
+                                project_dir=project_dir,
+                                automatic_checkpoint_naming=project_dir is not None))
+    model, opt = acc.prepare(Model(module), adamw(LR))
+    step = acc.prepare_train_step(_port_loss, max_grad_norm=1.0)
+    first = 0
+    if load_dir is not None:
+        acc.load_state(load_dir)
+        first = acc.train_state.step
+    metrics, saved = [], None
+    for i in range(first, steps):
+        _, m = step(acc.train_state, _local(ctx["batches"][i], rank, world))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if save_after is not None and i + 1 == save_after:
+            acc.save_state()
+            saved = _whole_params(model)
+    out = {"metrics": metrics, "params": _whole_params(model), "params_at_save": saved,
+           "sharded": model.sharded, "ddp": model.forward_module is not model.module,
+           "fused": opt.param_groups[0].get("fused"), "step": acc.train_state.step,
+           "remat": cfg.remat, "ignored": sorted(model.ignored)}
+    _reset_port()
+    return out
+
+
+def _job_collectives(ctx):
+    rank, world = dist.get_rank(), dist.get_world_size()
+    acc = Accelerator(cpu=True)
+    x = torch.arange((rank + 1) * COLLECTIVE_ROWS, dtype=torch.float32).reshape(rank + 1, -1)
+    x = x + 100 * rank
+    padded = acc.pad_across_processes(x, pad_index=-1)
+    padded_first = operations.pad_across_processes(x.numpy(), pad_index=-2, pad_first=True)
+    out = {
+        "pad": padded.numpy(), "pad_first": padded_first,
+        "gather": acc.gather(padded).numpy(),
+        "gather_tree": operations.gather({"a": torch.full((2,), float(rank)),
+                                          "b": [np.full((1, 2), rank, np.int64)]}),
+        "gather_object": operations.gather_object({"rank": rank}),
+        "gather_object_list": operations.gather_object([rank, rank * 10]),
+        "reduce_sum": acc.reduce(torch.tensor([rank + 1.0, 2.0])).numpy(),
+        "reduce_mean": operations.reduce(np.array([rank + 1.0, 2.0]), "mean", scale=2.0),
+        "broadcast": operations.broadcast(torch.full((3,), float(rank)), from_process=world - 1
+                                          ).numpy(),
+        "broadcast_object_list": operations.broadcast_object_list(
+            [f"from {rank}", {"r": rank}], from_process=1),
+        "pad_input": operations.pad_input_tensors(torch.arange(world + 1), world + 1, world
+                                                  ).numpy(),
+    }
+    # Attention over the data-parallel mesh: each process on its own shard.
+    from accelerate_tpu_torch.ops import auto_flash_attention, flash_attention
+
+    q, k, v = (torch.from_numpy(np.random.default_rng(rank).standard_normal(
+        (1, 32, 4, 16), dtype=np.float32)) for _ in range(3))
+    mesh = AcceleratorState().device_mesh
+    out["mesh"] = (list(mesh.mesh_dim_names), list(mesh.shape))
+    out["auto_flash_equal"] = torch.equal(auto_flash_attention(q, k, v, mesh=mesh),
+                                          flash_attention(q, k, v))
+    _reset_port()
+    return out
+
+
+class _Spec:
+    """What a user hands prepare() as a loader: a dataset and a batch size."""
+
+    def __init__(self, dataset, batch_size):
+        self.dataset, self.batch_size, self.drop_last = dataset, batch_size, False
+
+
+def _dispatch_dataset():
+    from accelerate_tpu_torch import ColumnDataset
+
+    rng = np.random.default_rng(3)
+    return ColumnDataset(x=rng.standard_normal((22, 3)).astype(np.float32),
+                         idx=np.arange(22))
+
+
+def _job_dispatcher(ctx):
+    from accelerate_tpu_torch import DataLoaderConfiguration
+
+    out = {}
+    for split in (False, True):
+        acc = Accelerator(cpu=True, dataloader_config=DataLoaderConfiguration(
+            dispatch_batches=True, split_batches=split, dispatch_group_size=2))
+        loader = acc.prepare(_Spec(_dispatch_dataset(), 4))
+        out[split] = {"len": len(loader),
+                      "batches": [{k: v.numpy() for k, v in b.items()} for b in loader]}
+        _reset_port()
+    return out
+
+
+def _job_rng(ctx):
+    from accelerate_tpu_torch.utils.random import synchronize_rng_states
+
+    rank = dist.get_rank()
+    PartialState(cpu=True)
+    gen = torch.Generator().manual_seed(1000 + rank)
+    torch.manual_seed(rank)
+    np.random.seed(rank)
+    random.seed(rank)
+    before = float(torch.rand(()))
+    synchronize_rng_states(["torch", "numpy", "python", "generator"], generator=gen)
+    draws = (torch.rand(3).tolist(), np.random.rand(3).tolist(), random.random(),
+             torch.rand(2, generator=gen).tolist())
+    _reset_port()
+    return {"before": before, "draws": draws}
+
+
+def _job_fsdp(ctx):
+    return _train(ctx, "fsdp")
+
+
+def _job_ddp(ctx):
+    return _train(ctx, "ddp")
+
+
+def _job_hsdp(ctx):
+    return _train(ctx, "hsdp")
+
+
+def _job_per_node(ctx):
+    """One FSDP2 step, saved into a directory of this process's own (a node's
+    local disk) with and without save_on_each_node; LOCAL_RANK=0 makes each
+    process a node of its own. The files each wrote."""
+    rank = dist.get_rank()
+    listing = {}
+    for per_node in (False, True):
+        os.environ["LOCAL_RANK"] = "0" if per_node else str(rank)
+        cfg = LlamaConfig.tiny(dtype=torch.float32)
+        module = LlamaForCausalLM(cfg)
+        module.load_state_dict(llama_params_from_flax(cfg, ctx["flax_params"]))
+        node_dir = os.path.join(ctx["per_node_dir"], f"{per_node}", f"node{rank}")
+        acc = Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(),
+                          project_config=ProjectConfiguration(
+                              project_dir=node_dir, automatic_checkpoint_naming=True,
+                              save_on_each_node=per_node))
+        acc.prepare(Model(module), adamw(LR))
+        step = acc.prepare_train_step(_port_loss, max_grad_norm=1.0)
+        step(acc.train_state, _local(ctx["batches"][0], rank, dist.get_world_size()))
+        out = acc.save_state()
+        listing[per_node] = {"local": acc.local_process_index, "files": sorted(os.listdir(out))}
+        _reset_port()
+    del os.environ["LOCAL_RANK"]
+    return listing
+
+
+def _job_options(ctx):
+    return {name: _train(ctx, "fsdp", plugin_kw=kw) for name, kw in PLUGIN_OPTIONS.items()}
+
+
+def _job_fsdp_ga2(ctx):
+    return _train(ctx, "fsdp", ga=2)
+
+
+def _job_save(ctx):
+    """FSDP2 for STEPS - 1 steps with a checkpoint after the second, then one
+    more step: the checkpoint and the step it resumes into."""
+    return _train(ctx, "fsdp", save_after=2, project_dir=ctx["save_dir"])
+
+
+def _job_resume_jax(ctx):
+    """FSDP2 resuming the JAX package's dp_shard=4 checkpoint, then the
+    steps after it."""
+    return _train(ctx, "fsdp", load_dir=ctx["jax_ckpt"])
+
+
+JOBS = {"fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
+        "dispatcher": _job_dispatcher, "rng": _job_rng, "save": _job_save,
+        "options": _job_options, "fsdp_ga2": _job_fsdp_ga2, "per_node": _job_per_node,
+        "resume_jax": _job_resume_jax}
+
+
+def _worker(rank, world, init_file, ctx_path, jobs):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    with open(ctx_path, "rb") as f:
+        ctx = pickle.load(f)
+    results = {job: JOBS[job](ctx) for job in jobs}
+    gathered = [None] * world
+    dist.all_gather_object(gathered, results)
+    if rank == 0:
+        with open(ctx_path + f".out{world}", "wb") as f:
+            pickle.dump(gathered, f)
+    dist.destroy_process_group()
+
+
+def _spawn(tmp, world, jobs, ctx) -> list:
+    """Run ``jobs`` in a gang of ``world`` gloo processes; every process's
+    results, by rank."""
+    ctx_path = str(tmp / f"ctx{world}.pkl")
+    with open(ctx_path, "wb") as f:
+        pickle.dump(ctx, f)
+    mp.start_processes(_worker, args=(world, str(tmp / f"rendezvous{world}"), ctx_path, jobs),
+                       nprocs=world, join=True, start_method="spawn")
+    with open(ctx_path + f".out{world}", "rb") as f:
+        return pickle.load(f)
+
+
+# ---------------------------------------------------------------------------
+# The JAX references, and one run of each gang for the whole module
+# ---------------------------------------------------------------------------
+
+
+def _jax_reset():
+    from accelerate_tpu.state import AcceleratorState as JS
+    from accelerate_tpu.state import GradientState as JG
+    from accelerate_tpu.state import PartialState as JP
+
+    for cls in (JS, JG, JP):
+        cls._reset_state()
+
+
+def _jax_train(batches, pc_kwargs, plugin, project_dir=None, save_after=None, ga=1):
+    """STEPS steps of the JAX Accelerator on the whole global batches:
+    (loss, grad norm) per step and the parameters after them."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from accelerate_tpu import Accelerator as JaxAccelerator
+    from accelerate_tpu import FullyShardedDataParallelPlugin as JaxPlugin
+    from accelerate_tpu import Model as JaxModel
+    from accelerate_tpu import ParallelismConfig as JaxPC
+    from accelerate_tpu import ProjectConfiguration as JaxProject
+    from accelerate_tpu.models import LlamaConfig as JaxLlamaConfig
+    from accelerate_tpu.models import LlamaForCausalLM as JaxLlama
+    from accelerate_tpu.models import cross_entropy_loss as jax_ce
+
+    _jax_reset()
+    module = JaxLlama(JaxLlamaConfig.tiny(dtype=jnp.float32))
+    acc = JaxAccelerator(parallelism_config=JaxPC(**pc_kwargs), gradient_accumulation_steps=ga,
+                         fsdp_plugin=JaxPlugin() if plugin else None,
+                         project_config=JaxProject(project_dir=project_dir,
+                                                   automatic_checkpoint_naming=bool(project_dir)))
+    model = JaxModel.from_flax(module, jax.random.key(0), batches[0]["x"])
+    params = jax.tree.map(np.asarray, model.params)
+    acc.prepare(model, optax.adamw(LR))
+
+    def loss_fn(p, b):
+        return jax_ce(module.apply({"params": p}, b["x"]), b["y"])
+
+    step = acc.prepare_train_step(loss_fn, max_grad_norm=1.0)
+    metrics = []
+    for i, b in enumerate(batches):
+        _, m = step(acc.train_state, {k: jnp.asarray(v) for k, v in b.items()})
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if save_after is not None and i + 1 == save_after:
+            acc.save_state()
+    final = jax.tree.map(np.asarray, acc.train_state.params)
+    _jax_reset()
+    return params, metrics, final
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The JAX references and both gangs' results."""
+    tmp = tmp_path_factory.mktemp("dist")
+    batches = _batches()
+    ref = {}
+    params, ref["fsdp4"], ref["fsdp4_params"] = _jax_train(
+        batches, dict(dp_shard_size=4), plugin=True, project_dir=str(tmp / "jax"), save_after=2)
+    _, ref["fsdp2"], ref["fsdp2_params"] = _jax_train(batches, dict(dp_shard_size=2), True)
+    _, ref["ddp"], ref["ddp_params"] = _jax_train(batches, dict(dp_replicate_size=2), False)
+    _, ref["fsdp2_ga2"], _ = _jax_train(batches, dict(dp_shard_size=2), True, ga=2)
+    _, ref["hsdp"], ref["hsdp_params"] = _jax_train(
+        batches, dict(dp_replicate_size=2, dp_shard_size=2), True)
+    ctx = {"flax_params": params, "batches": batches, "save_dir": str(tmp / "port4"),
+           "per_node_dir": str(tmp / "per_node"),
+           "jax_ckpt": str(tmp / "jax" / "checkpoints" / "checkpoint_0")}
+    two = _spawn(tmp, 2, ["fsdp", "ddp", "collectives", "dispatcher", "rng", "resume_jax",
+                          "options", "fsdp_ga2", "per_node"], ctx)
+    four = _spawn(tmp, 4, ["fsdp", "hsdp", "collectives", "save"], ctx)
+    return {"ref": ref, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
+
+
+def _flax(params: dict) -> dict:
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    return llama_params_to_flax(cfg, {k: torch.from_numpy(v) for k, v in params.items()})
+
+
+def _assert_params_close(got, want, init):
+    """Parameters after STEPS AdamW steps against the reference's. AdamW's
+    m/√v turns the rounding of a near-zero gradient into a move of up to a
+    whole step (lr) either way, so a few entries may differ by up to
+    STEPS·lr while the rest agree to rounding. The JAX package's own runs
+    on two meshes differ so: dp_shard=2 with the plugin and dp_replicate=2
+    without give one embedding entry 9.4e-4 apart, and the embedding's
+    update 3.5e-3 apart in norm. So: every entry within STEPS·lr; at most
+    OUTLIER_SHARE of a tensor's entries (and 2) beyond PARAM_ATOL; each
+    tensor's update (its change from ``init``) within UPDATE_RTOL in norm."""
+    import jax
+
+    flat = [dict(jax.tree_util.tree_flatten_with_path(t)[0]) for t in (got, want, init)]
+    assert flat[0].keys() == flat[1].keys() == flat[2].keys()
+    for path in flat[1]:
+        g, w, i = (np.asarray(f[path], np.float64) for f in flat)
+        name, diff = jax.tree_util.keystr(path), np.abs(g - w)
+        assert diff.max() <= STEPS * LR, name
+        assert (diff > PARAM_ATOL).sum() <= OUTLIER_SHARE * diff.size + 2, name
+        assert np.linalg.norm(diff) <= UPDATE_RTOL * np.linalg.norm(w - i), name
+
+
+def _assert_trees_close(got, want, rtol, atol):
+    import jax
+
+    flat_got = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    flat_want = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    assert flat_got.keys() == flat_want.keys()
+    for path, w in flat_want.items():
+        np.testing.assert_allclose(np.asarray(flat_got[path]), np.asarray(w), rtol=rtol,
+                                   atol=atol, err_msg=jax.tree_util.keystr(path))
+
+
+# ---------------------------------------------------------------------------
+# Tests
+# ---------------------------------------------------------------------------
+
+CASES = [(2, "fsdp", "fsdp2"), (4, "fsdp", "fsdp4"), (2, "ddp", "ddp"), (4, "hsdp", "hsdp")]
+
+
+@pytest.mark.parametrize("world,job,ref", CASES, ids=[c[2] for c in CASES])
+def test_losses_and_grad_norms_match_jax(runs, world, job, ref):
+    """Every process reports the global mean loss and the global grad norm,
+    equal to the JAX package's on the whole batch within rtol 1e-4."""
+    for rank_results in runs[world]:
+        np.testing.assert_allclose(np.array(rank_results[job]["metrics"]),
+                                   np.array(runs["ref"][ref]), rtol=1e-4)
+
+
+@pytest.mark.parametrize("world,job,ref", CASES, ids=[c[2] for c in CASES])
+def test_parameters_after_three_steps_match_jax(runs, world, job, ref):
+    """The whole parameters after the steps, in flax layout, against the
+    JAX package's (_assert_params_close), and the same on every process."""
+    results = runs[world]
+    _assert_params_close(_flax(results[0][job]["params"]), runs["ref"][ref + "_params"],
+                         runs["ctx"]["flax_params"])
+    for r in results[1:]:
+        for name, value in r[job]["params"].items():
+            np.testing.assert_array_equal(value, results[0][job]["params"][name])
+
+
+@pytest.mark.parametrize("option", list(PLUGIN_OPTIONS))
+def test_plugin_options_keep_the_numbers(runs, option):
+    """Each honoured plugin field, at 2 processes, against the JAX
+    package's dp_shard=2 run: the ignored norms stay whole (and their
+    gradients are averaged by the step), activation checkpointing turns
+    the model's remat on."""
+    for r in runs[2]:
+        got = r["options"][option]
+        np.testing.assert_allclose(np.array(got["metrics"]), np.array(runs["ref"]["fsdp2"]),
+                                   rtol=1e-4)
+        assert got["remat"] == (option == "activation_checkpointing")
+        assert len(got["ignored"]) == (5 if option == "ignored_norms" else 0)
+    _assert_params_close(_flax(runs[2][0]["options"][option]["params"]),
+                         runs["ref"]["fsdp2_params"], runs["ctx"]["flax_params"])
+
+
+def test_gradient_accumulation_matches_jax(runs):
+    """Two microbatches a step on each of 2 FSDP2 processes against the JAX
+    package's two microbatches of the global batch."""
+    for r in runs[2]:
+        np.testing.assert_allclose(np.array(r["fsdp_ga2"]["metrics"]),
+                                   np.array(runs["ref"]["fsdp2_ga2"]), rtol=1e-4)
+
+
+def test_fsdp_shards_and_ddp_replicates(runs):
+    assert all(r["fsdp"]["sharded"] and not r["fsdp"]["ddp"] for r in runs[2] + runs[4])
+    assert all(r["hsdp"]["sharded"] for r in runs[4])
+    assert all(r["ddp"]["ddp"] and not r["ddp"]["sharded"] for r in runs[2])
+    # AdamW runs foreach on the CPU's DTensors; fused only for CUDA parameters.
+    assert runs[2][0]["fsdp"]["fused"] is None
+
+
+def _jax_collectives(world, monkeypatch):
+    """The JAX package's collectives for each rank of a gang of ``world``,
+    run here: its process count is patched to ``world`` and its all-gather
+    returns the gang's per-rank inputs of the call (given in order)."""
+    from accelerate_tpu.utils import operations as jops
+
+    inputs = [np.arange((r + 1) * COLLECTIVE_ROWS, dtype=np.float32).reshape(r + 1, -1) + 100 * r
+              for r in range(world)]
+    monkeypatch.setattr(jops, "_world", lambda: world)
+    out = []
+    for rank in range(world):
+        queue, caller = [], [rank]
+
+        def allgather(x, tiled, _queue=queue, _caller=caller):
+            parts = _queue.pop(0)
+            assert np.array_equal(np.asarray(parts[_caller[0]]), np.asarray(x))
+            return np.concatenate(parts) if tiled else np.stack(parts)
+
+        monkeypatch.setattr(jops, "_process_allgather", allgather)
+        sizes = [np.array([x.shape[0]], np.int64) for x in inputs]
+        # Every rank's padded input, as the gather that follows sees them.
+        padded_all = []
+        for r in range(world):
+            caller[0] = r
+            queue.append(sizes)
+            padded_all.append(np.asarray(jops.pad_across_processes(inputs[r], pad_index=-1)))
+        caller[0] = rank
+        queue.append(sizes)
+        pad_first = np.asarray(jops.pad_across_processes(inputs[rank], pad_index=-2,
+                                                         pad_first=True))
+        queue.append(padded_all)
+        gathered = np.asarray(jops.gather(padded_all[rank]))
+        queue.append([np.array([r + 1.0, 2.0]) for r in range(world)])
+        reduced_sum = np.asarray(jops.reduce(np.array([rank + 1.0, 2.0]), reduction="sum"))
+        queue.append([np.array([r + 1.0, 2.0]) for r in range(world)])
+        reduced_mean = np.asarray(jops.reduce(np.array([rank + 1.0, 2.0]), "mean", scale=2.0))
+        out.append({"pad": padded_all[rank], "pad_first": pad_first, "gather": gathered,
+                    "reduce_sum": reduced_sum, "reduce_mean": reduced_mean,
+                    "pad_input": np.asarray(jops.pad_input_tensors(np.arange(world + 1),
+                                                                   world + 1, world))})
+        assert not queue
+    return out
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_collectives_match_jax(runs, world, monkeypatch):
+    want = _jax_collectives(world, monkeypatch)
+    for rank, (got, ref) in enumerate(zip((r["collectives"] for r in runs[world]), want)):
+        for key, value in ref.items():
+            np.testing.assert_allclose(got[key], value, err_msg=f"{key} rank {rank}")
+        assert got["gather_object"] == [{"rank": r} for r in range(world)]
+        assert got["gather_object_list"] == [x for r in range(world) for x in (r, r * 10)]
+        assert got["broadcast"].tolist() == [float(world - 1)] * 3
+        assert got["broadcast_object_list"] == ["from 1", {"r": 1}]
+        tree = got["gather_tree"]
+        assert tree["a"].tolist() == [float(r) for r in range(world) for _ in range(2)]
+        assert isinstance(tree["b"][0], np.ndarray)
+        assert tree["b"][0].tolist() == [[r, r] for r in range(world)]
+
+
+def _jax_dispatch(world, split, monkeypatch):
+    """The JAX DataLoaderDispatcher's slices for each rank of a gang of
+    ``world``: its PartialState reports the rank, and its broadcast hands
+    every rank what rank 0 sent."""
+    from types import SimpleNamespace
+
+    import accelerate_tpu.data_loader as jdl
+
+    class _Ds:
+        def __init__(self, ds):
+            self.ds = ds
+
+        def __len__(self):
+            return len(self.ds)
+
+        def __getitem__(self, i):
+            return self.ds[i]
+
+    ds = _Ds(_dispatch_dataset())
+    sent = []
+    out = []
+    for rank in range(world):
+        state = SimpleNamespace(num_processes=world, process_index=rank,
+                                is_main_process=rank == 0)
+        monkeypatch.setattr(jdl, "PartialState", lambda state=state: state)
+        replay = iter(sent) if rank else None
+
+        def bcast(payload, from_process=0, _replay=replay):
+            if _replay is None:
+                sent.append(list(payload))
+            else:
+                payload[:] = next(_replay)
+            return payload
+
+        monkeypatch.setattr(jdl, "broadcast_object_list", bcast)
+        inner = jdl.BatchSampler(jdl.SequentialSampler(len(ds)), batch_size=4)
+        loader = jdl.DataLoaderDispatcher(ds, batch_sampler=inner, split_batches=split,
+                                          dispatch_group_size=2)
+        out.append({"len": len(loader),
+                    "batches": [{k: np.asarray(v) for k, v in b.items()}
+                                for b in loader._raw_batches()]})
+    return out
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["whole", "split"])
+def test_dispatcher_batches_match_jax(runs, split, monkeypatch):
+    want = _jax_dispatch(2, split, monkeypatch)
+    for rank, r in enumerate(runs[2]):
+        got = r["dispatcher"][split]
+        assert got["len"] == want[rank]["len"]
+        assert len(got["batches"]) == len(want[rank]["batches"]) > 0
+        for g, w in zip(got["batches"], want[rank]["batches"]):
+            assert g.keys() == w.keys()
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k])
+
+
+def test_save_on_each_node_writes_once_per_node(runs):
+    """Without save_on_each_node process 0 alone writes the shared files; with
+    it each node's local process 0 does (here every process is a node of
+    its own, with a directory of its own). Every process writes its own
+    random states either way."""
+    shared = {"model.safetensors", "optimizer.bin", "accelerator_step.bin"}
+    for rank, r in enumerate(runs[2]):
+        once, per_node = r["per_node"][False], r["per_node"][True]
+        assert once["local"] == rank and per_node["local"] == 0
+        for listing in (once, per_node):
+            assert f"random_states_{rank}.pkl" in listing["files"]
+        assert shared <= set(per_node["files"])
+        assert (shared <= set(once["files"])) == (rank == 0)
+        if rank:
+            assert once["files"] == [f"random_states_{rank}.pkl"]
+
+
+def test_auto_flash_attention_runs_on_the_data_parallel_mesh(runs):
+    for world in (2, 4):
+        for r in runs[world]:
+            assert r["collectives"]["mesh"] == (["dp_replicate", "dp_shard"], [1, world])
+            assert r["collectives"]["auto_flash_equal"]
+
+
+def test_rng_states_are_synchronised_from_rank_0(runs):
+    results = [r["rng"] for r in runs[2]]
+    assert results[0]["before"] != results[1]["before"]
+    assert results[0]["draws"] == results[1]["draws"]
+
+
+def test_world4_checkpoint_resumes_in_one_process(runs):
+    """The checkpoint the 4 FSDP2 processes wrote after step 2, resumed by
+    one process: its step 3 is theirs, and so are the parameters after it."""
+    from accelerate_tpu_torch.state import PartialState as P
+
+    four = runs[4][0]["save"]
+    ckpt = os.path.join(runs["ctx"]["save_dir"], "checkpoints", "checkpoint_0")
+    assert sorted(f for f in os.listdir(ckpt) if f.startswith("random_states")) == [
+        f"random_states_{r}.pkl" for r in range(4)]
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    module = LlamaForCausalLM(cfg)
+    acc = Accelerator(cpu=True)
+    assert not P().use_distributed
+    model, _ = acc.prepare(Model(module), adamw(LR))
+    step = acc.prepare_train_step(_port_loss, max_grad_norm=1.0)
+    acc.load_state(ckpt)
+    assert acc.train_state.step == 2 and acc.train_state.optimizer.count == 2
+    _, m = step(acc.train_state, runs["ctx"]["batches"][2])
+    np.testing.assert_allclose([float(m["loss"]), float(m["grad_norm"])], four["metrics"][2],
+                               rtol=1e-4)
+    _assert_params_close(_flax({n: p.detach().numpy() for n, p in module.named_parameters()}),
+                         _flax(four["params"]), runs["ctx"]["flax_params"])
+
+
+def test_world4_checkpoint_reads_in_the_jax_package(runs):
+    """The model.safetensors the 4 processes gathered holds, read by the JAX
+    package's own reader, exactly the whole parameters they had."""
+    from accelerate_tpu.utils import other as jax_other
+
+    ckpt = os.path.join(runs["ctx"]["save_dir"], "checkpoints", "checkpoint_0")
+    tree = jax_other.unflatten_state_dict(jax_other.load_sharded_safetensors(ckpt))
+    _assert_trees_close(tree, _flax(runs[4][0]["save"]["params_at_save"]), rtol=0, atol=0)
+
+
+def test_jax_dp_shard4_checkpoint_resumes_at_world2(runs):
+    """The JAX package's checkpoint, saved under dp_shard=4 after step 2,
+    resumed by 2 FSDP2 processes: step 3 and the parameters after it are
+    the JAX run's."""
+    for r in runs[2]:
+        resumed = r["resume_jax"]
+        assert resumed["step"] == STEPS
+        np.testing.assert_allclose(np.array(resumed["metrics"]),
+                                   np.array(runs["ref"]["fsdp4"][2:]), rtol=1e-4)
+    _assert_params_close(_flax(runs[2][0]["resume_jax"]["params"]),
+                         runs["ref"]["fsdp4_params"], runs["ctx"]["flax_params"])
+
+
+def test_torchrun_environment_must_be_complete(monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(ValueError, match="incomplete"):
+        PartialState(cpu=True)
+    _reset_port()
+
+
+def test_world_fill_and_refused_axes():
+    assert ParallelismConfig().infer_missing_axis(4).dp_shard_size == 4
+    pc = ParallelismConfig(dp_replicate_size=2).infer_missing_axis(8)
+    assert (pc.dp_replicate_size, pc.dp_shard_size) == (2, 4)
+    with pytest.raises(ValueError, match="does not divide"):
+        ParallelismConfig(dp_shard_size=3).infer_missing_axis(4)
+    for axis, item in (("cp_size", "item 3"), ("sp_size", "item 3"), ("tp_size", "item 6"),
+                       ("pp_size", "item 6"), ("ep_size", "item 6")):
+        with pytest.raises(NotImplementedError, match=f"Queue A {item}"):
+            ParallelismConfig(**{axis: 2})
+    env = ParallelismConfig(dp_replicate_size=2, dp_shard_size=3).to_env()
+    for k, v in env.items():
+        os.environ[k] = v
+    try:
+        assert ParallelismConfig.from_env() == ParallelismConfig(dp_replicate_size=2,
+                                                                 dp_shard_size=3)
+    finally:
+        for k in env:
+            del os.environ[k]

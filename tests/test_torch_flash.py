@@ -67,7 +67,7 @@ def test_forward_matches_pallas(causal, hkv):
     _check_forward(causal, hkv, d=16)
 
 
-# The head dims the Hopper kernels take (hopper_flash.SUPPORTED_HEAD_DIMS),
+# Head dims the Hopper kernels are built for (hopper_flash.BUILT_HEAD_DIMS),
 # so the plain versions they are held to on the card are held to Pallas there.
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
@@ -167,9 +167,21 @@ def test_cuda_wrappers_not_reached_for_cpu_tensors(monkeypatch):
 
 
 def test_cuda_wrappers_raise_on_what_they_do_not_take():
-    with pytest.raises(ValueError, match="head dim 16"):
-        hopper_flash.flash_fwd_cuda(*(torch.from_numpy(x) for x in _qkv(s=64, d=16)))
+    """Head dims above 256 raise NotImplementedError naming their ROADMAP
+    entry, mixed or unported dtypes TypeError, and every other head dim and
+    dtype the Pallas kernel takes reaches the device check."""
+    with pytest.raises(NotImplementedError, match="Queue B.1 item 1"):
+        hopper_flash.flash_fwd_cuda(*(torch.from_numpy(x) for x in _qkv(s=64, d=288)))
     q, k, v = (torch.from_numpy(x) for x in _qkv(s=64, d=32))
+    with pytest.raises(TypeError, match="one dtype"):
+        hopper_flash.flash_fwd_cuda(q, k.half(), v)
+    with pytest.raises(TypeError, match="one dtype"):
+        hopper_flash.flash_fwd_cuda(q.double(), k.double(), v.double())
+    for d in (16, 80, 96, 256):
+        for dtype in hopper_flash.DTYPES:
+            x = [torch.from_numpy(t).to(dtype) for t in _qkv(s=64, d=d)]
+            with pytest.raises(ValueError, match="CUDA tensors only"):
+                hopper_flash.flash_fwd_cuda(*x)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         hopper_flash.flash_fwd_cuda(q, k, v)
     lse = torch.zeros(2, 4, 64)
@@ -191,15 +203,170 @@ def test_cuda_backward_wrappers_check_shapes_before_launch(wrapper):
 
 
 def test_cuda_wrappers_refuse_strides_the_tensor_maps_cannot_take():
-    """TMA tensor maps need every stride but the last a positive multiple of
-    16 bytes; the wrappers refuse others before looking at the device."""
-    q, k, v = (torch.from_numpy(x) for x in _qkv(s=64, d=32))
+    """TMA tensor maps (bf16 and fp16 at a built head dim, read in place)
+    need every stride but the last a positive multiple of 16 bytes; the
+    wrappers refuse others before looking at the device. fp32 tensors and
+    padded head dims are not read by tensor maps."""
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(s=64, d=64))
     broadcast_k = k[:, :, :1].expand(k.shape)  # stride 0 over the heads
     with pytest.raises(ValueError, match="strides positive"):
         hopper_flash.flash_fwd_cuda(q, broadcast_k, v)
-    padded = torch.zeros(2, 64, 4, 36)[..., :32]  # rows 72 bytes apart
+    padded = torch.zeros(2, 64, 4, 68, dtype=torch.bfloat16)[..., :64]  # rows 136 bytes apart
     with pytest.raises(ValueError, match="multiples of 8 elements"):
         hopper_flash.flash_fwd_cuda(padded, k, v)
     lse = torch.zeros(2, 4, 64)
     with pytest.raises(ValueError, match="multiples of 8 elements"):
         hopper_flash.flash_dkv_cuda(q, k, v, padded, lse, lse)
+    for args in ((q.float(), broadcast_k.float(), v.float()), (q[..., :48], k[..., :48],
+                                                              v[..., :48])):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            hopper_flash.flash_fwd_cuda(*args)
+
+
+# ---------------------------------------------------------------------------
+# Every head dim and dtype the Pallas kernel takes
+# ---------------------------------------------------------------------------
+
+# Head dims the kernels run padded (80 and 96, to 128) and the widest built
+# one (256, Gemma's); the Pallas kernel pads each to a multiple of 128 lanes.
+WIDE_DIMS = [80, 96, 256]
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_matches_pallas_at_padded_and_wide_head_dims(causal, d):
+    _check_forward(causal, 2, d)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("causal,hkv,q_offset,k_offset", GRAD_CASES[:3])
+def test_gradients_match_pallas_at_padded_and_wide_head_dims(causal, hkv, q_offset, k_offset,
+                                                             d):
+    _check_gradients(causal, hkv, q_offset, k_offset, d)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+# fp16 against Pallas, both from the same fp16 inputs: the Pallas kernel
+# computes in fp16 with fp32 accumulation and casts P to fp16 before P·V;
+# the plain version computes in fp32. The tolerance is the one the card
+# holds the bf16 kernels to (chip_smoke.py: out and gradients 1e-2 and 2e-2
+# relative in norm, lse 5e-3 absolute), which fp16's finer mantissa meets
+# with room to spare.
+@pytest.mark.parametrize("d", [64, 96, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp16_matches_pallas(causal, d):
+    q, k, v = (x.astype(np.float16) for x in _qkv(s=160, hkv=2, d=d, seed=4))
+    rng = np.random.default_rng(5)
+    w_out = rng.standard_normal(q.shape, dtype=np.float32)
+    w_lse = rng.standard_normal((q.shape[0], q.shape[2], q.shape[1]), dtype=np.float32)
+
+    def jax_loss(q, k, v):
+        out, lse = pallas_flash_attention_with_lse(q, k, v, block_q=128, block_k=128,
+                                                   interpret=True, causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * w_out) + jnp.sum(lse * w_lse), (out, lse)
+
+    (_, (out_j, lse_j)), g_j = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(
+        *map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, lse = flash_attention_with_lse(qt, kt, vt, causal=causal)
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    (torch.sum(out.float() * torch.from_numpy(w_out))
+     + torch.sum(lse * torch.from_numpy(w_lse))).backward()
+    assert _rel(out.detach().float(), np.asarray(out_j, np.float32)) <= 1e-2
+    assert np.max(np.abs(lse.detach().numpy() - np.asarray(lse_j))) <= 5e-3
+    for name, a, b in zip("qkv", (qt.grad, kt.grad, vt.grad), g_j):
+        assert a.dtype == torch.float16
+        assert _rel(a.float(), np.asarray(b, np.float32)) <= 2e-2, f"d{name}"
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_fp32_matches_pallas_at_rtol_1e5(d):
+    """fp32 on both sides: forward and gradients within rtol 1e-5 (atol
+    1e-5 for entries near zero)."""
+    q, k, v = _qkv(s=160, hkv=2, d=d, seed=6)
+    out_j, lse_j = _jax_flash(q, k, v, causal=True)
+    out_t, lse_t = _torch_flash(q, k, v, causal=True)
+    np.testing.assert_allclose(out_t, out_j, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lse_t, lse_j, rtol=1e-5, atol=1e-5)
+
+    def jax_loss(q, k, v):
+        out, lse = pallas_flash_attention_with_lse(q, k, v, block_q=128, block_k=128,
+                                                   interpret=True, causal=True)
+        return jnp.sum(out * out_j) + jnp.sum(lse)
+
+    g_j = jax.grad(jax_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, lse = flash_attention_with_lse(qt, kt, vt, causal=True)
+    (torch.sum(out * torch.from_numpy(np.array(out_j))) + torch.sum(lse)).backward()
+    for name, a, b in zip("qkv", (qt.grad, kt.grad, vt.grad), g_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d,width", [(16, 64), (80, 128), (96, 128), (160, 256)])
+@pytest.mark.parametrize("causal,hkv,q_offset,k_offset", GRAD_CASES)
+def test_pad_head_dim_gives_the_unpadded_plain_results(causal, hkv, q_offset, k_offset, d,
+                                                       width):
+    """What the wrappers run for a head dim between built widths: the
+    inputs zero-padded to the width, the plain version at the unpadded
+    scale, the results sliced back. Output, lse, dq, dk and dv equal the
+    plain version at the unpadded D up to fp32 rounding of the sums."""
+    assert hopper_flash.built_head_dim(d) == width
+    q, k, v = map(torch.from_numpy, _qkv(s=96, hkv=hkv, d=d, seed=7))
+    rng = np.random.default_rng(8)
+    dout = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32))
+    kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
+    out, lse = hopper_flash.pad_head_dim(hopper_flash.flash_fwd_plain, width, q, k, v, **kw)
+    out_ref, lse_ref = hopper_flash.flash_fwd_plain(q, k, v, **kw)
+    assert out.shape == q.shape and out.is_contiguous()
+    torch.testing.assert_close(out, out_ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-6, atol=1e-6)
+    delta = (dout * out_ref).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, dout, lse_ref, delta)
+    dq = hopper_flash.pad_head_dim(hopper_flash.flash_dq_plain, width, *args, **kw)
+    dk, dv = hopper_flash.pad_head_dim(hopper_flash.flash_dkv_plain, width, *args, **kw)
+    torch.testing.assert_close(dq, hopper_flash.flash_dq_plain(*args, **kw),
+                               rtol=1e-6, atol=1e-6)
+    for got, want in zip((dk, dv), hopper_flash.flash_dkv_plain(*args, **kw)):
+        assert got.shape == k.shape
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_built_head_dims_and_variant_names():
+    assert [hopper_flash.built_head_dim(d) for d in (1, 64, 65, 128, 129, 256)] == [
+        64, 64, 128, 128, 256, 256]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue B.1 item 1"):
+        hopper_flash.built_head_dim(257)
+    assert hopper_flash.variant("flash_dq", torch.float16, 256) == "flash_dq.f16.d256"
+    assert hopper_flash.source("flash_dkv", torch.float32) == "flash_f32"
+    assert hopper_flash.source("flash_dkv", torch.bfloat16) == "flash_dkv"
+
+
+class _Mesh:
+    """What auto_flash_attention reads of a DeviceMesh."""
+
+    def __init__(self, **axes):
+        self.mesh_dim_names, self.shape = tuple(axes), tuple(axes.values())
+        self.ndim = len(axes)
+
+    def size(self, i):
+        return self.shape[i]
+
+
+def test_auto_flash_attention_takes_data_parallel_meshes_only():
+    """Over dp_replicate and dp_shard each process attends over its own
+    batch shard; an axis that splits the sequence or the heads raises,
+    naming ring attention and Ulysses."""
+    from accelerate_tpu_torch.ops import auto_flash_attention, flash_attention
+
+    q, k, v = map(torch.from_numpy, _qkv(s=32, hkv=2))
+    want = flash_attention(q, k, v)
+    for mesh in (None, _Mesh(dp_replicate=2, dp_shard=4), _Mesh(dp_shard=8, cp=1)):
+        assert torch.equal(auto_flash_attention(q, k, v, mesh=mesh), want)
+    for mesh in (_Mesh(dp_shard=2, cp=2), _Mesh(tp=2)):
+        with pytest.raises(NotImplementedError, match="Queue A item 3"):
+            auto_flash_attention(q, k, v, mesh=mesh)

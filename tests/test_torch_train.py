@@ -168,8 +168,9 @@ def test_accelerator_refuses_a_second_device_choice(monkeypatch):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(cpu_offload=True)),
-    lambda: FullyShardedDataParallelPlugin(activation_checkpointing=True),
+    lambda: Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(
+        sharding_strategy="SHARD_GRAD_OP")),
+    lambda: FullyShardedDataParallelPlugin(min_weight_size_to_shard=0),
     lambda: ProjectConfiguration(logging_dir="runs"),
     lambda: GradientAccumulationPlugin(num_steps=2, sync_each_batch=True),
     lambda: MixedPrecisionPolicy(reduce_dtype=torch.bfloat16),
@@ -217,7 +218,7 @@ def test_set_seed_seeds_every_generator_and_returns_one():
 
 def test_wider_mesh_and_fp16_are_not_ported():
     with pytest.raises(NotImplementedError, match="Queue A"):
-        ParallelismConfig(dp_shard_size=2)
+        ParallelismConfig(tp_size=2)
     with pytest.raises(ValueError):
         ParallelismConfig(cp_size=2, sp_size=2)
     with pytest.raises(NotImplementedError):
