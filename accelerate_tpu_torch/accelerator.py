@@ -34,7 +34,16 @@ shards each model with FSDP2 when an ``fsdp_plugin`` is given (HSDP when
 (``parallel/fsdp.py``); each process feeds its own share of the batch. The
 step then has the same numbers as one process on the whole batch: the
 gradients are averaged over processes, the grad norm is the global norm
-over every shard, and the loss metric is the mean over processes.
+over every shard, and the loss metric is the mean over processes. With
+``ParallelismConfig(cp_size=...)`` or ``sp_size`` the processes of a
+``cp``/``sp`` axis share rows and each holds a slice of the sequence
+(``parallel/sharding.py``); the model attends over the whole sequence
+through ``parallel/cp.py`` or ``parallel/sp.py``. ``cross_entropy_loss``
+counts the valid labels of every process inside the step
+(``operations.global_token_count``), so the loss is the token mean of
+the global batch however unevenly ``-100`` labels fall; a loss function
+of the user's own that returns its process's mean gets the mean of the
+processes' means.
 ``gather``, ``gather_for_metrics``, ``reduce`` and ``pad_across_processes``
 run the collectives of ``utils/operations.py``.
 """
@@ -96,9 +105,12 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 
 def _global_norm(grads: list) -> torch.Tensor:
-    """The L2 norm over every gradient, whole or sharded: sharded ones
-    (FSDP2's DTensors) reduce over their mesh, so each process gets the
-    norm of the full gradients."""
+    """The L2 norm over every gradient, whole or sharded, each distinct
+    shard counted once: sharded ones (FSDP2's DTensors) reduce over the
+    mesh dim they are sharded on and not over a replicated one (HSDP's
+    ``dp_replicate × sp``); whole ones (DDP's, and the parameters FSDP2
+    ignores) are equal on every process after their all-reduce, so the
+    local norm is theirs."""
     sharded = [g for g in grads if isinstance(g, DTensor)]
     whole = [g for g in grads if not isinstance(g, DTensor)]
     parts = []
@@ -180,6 +192,20 @@ class Accelerator:
     def is_main_process(self) -> bool:
         return self.process_index == 0
 
+    # This process's coordinate on a mesh axis, as the JAX package names them.
+
+    @property
+    def data_parallel_rank(self) -> int:
+        return self.state.axis_rank("dp_replicate")
+
+    @property
+    def data_parallel_shard_rank(self) -> int:
+        return self.state.axis_rank("dp_shard")
+
+    @property
+    def context_parallel_rank(self) -> int:
+        return self.state.axis_rank("cp")
+
     @property
     def is_local_main_process(self) -> bool:
         return self.local_process_index == 0
@@ -236,14 +262,17 @@ class Accelerator:
 
     def prepare_data_loader(self, data_loader):
         """This package's loader over ``data_loader``, placing batches on
-        ``self.device``; registered for checkpoints."""
+        ``self.device``; registered for checkpoints. Samples are dealt over
+        the data-parallel processes, and each process keeps its slice of
+        the sequence over ``cp``/``sp``."""
         if isinstance(data_loader, BaseDataLoader):
             prepared = data_loader
         else:
             cfg = self.dataloader_config
             prepared = prepare_data_loader(
-                data_loader, device=self.device, num_processes=self.num_processes,
-                process_index=self.process_index, split_batches=cfg.split_batches,
+                data_loader, device=self.device, num_processes=self.state.data_parallel_size,
+                process_index=self.state.data_parallel_index,
+                sequence_shard=self.state.sequence_shard, split_batches=cfg.split_batches,
                 dispatch_batches=cfg.dispatch_batches,
                 even_batches=cfg.even_batches, use_seedable_sampler=cfg.use_seedable_sampler,
                 data_seed=cfg.data_seed, non_blocking=cfg.non_blocking,
@@ -287,7 +316,10 @@ class Accelerator:
     def prepare_train_step(self, loss_fn: Callable, *, max_grad_norm: Optional[float] = None):
         """``step(state, batch) -> (state, {"loss", "grad_norm"})`` around
         ``loss_fn(model, batch) -> scalar loss``. Over a process group each
-        process passes its own share of the global batch."""
+        process passes its own share of the global batch
+        (``parallel.sharding.local_batch``). The losses and gradients are
+        averaged over every process (``ParallelismConfig.loss_reduce_axes``,
+        all of them while tp, pp and ep are not ported)."""
         if not self._train_states:
             raise RuntimeError("Call accelerator.prepare(...) first.")
         policy = self._mp_policy
@@ -302,16 +334,18 @@ class Accelerator:
             opt.zero_grad(set_to_none=True)
             loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
             for mb in microbatches:
-                if model.sharded:  # FSDP2's policy casts the masters for compute
-                    loss = loss_fn(model, mb).float()
-                    loss.backward()
-                else:
-                    with model.compute_params(policy.cast_for_compute(named)):
+                with operations.loss_over_processes(world):
+                    if model.sharded:  # FSDP2's policy casts the masters for compute
                         loss = loss_fn(model, mb).float()
                         loss.backward()
+                    else:
+                        with model.compute_params(policy.cast_for_compute(named)):
+                            loss = loss_fn(model, mb).float()
+                            loss.backward()
                 loss_sum += loss.detach()
             grads = [p.grad for p in params if p.grad is not None]
-            # Parameters FSDP2 leaves whole are averaged here, as DDP would.
+            # Parameters FSDP2 leaves whole are averaged here over every
+            # process (loss_reduce_axes), as DDP would.
             for p in model.ignored.values():
                 if p.grad is not None and world > 1:
                     dist.all_reduce(p.grad)

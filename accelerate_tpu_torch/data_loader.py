@@ -29,6 +29,13 @@ taken, at the sampler (no skipped batch is collated).
 Dispatch mode (``DataLoaderDispatcher``): process 0 reads, and sends the
 batches to every process in grouped broadcasts (``dispatch_group_size``
 batches, or 1 MiB, to a broadcast), each process keeping its slice.
+
+Over a ``cp`` or ``sp`` axis the samples are dealt over the data-parallel
+processes only (``num_processes``/``process_index`` are the data-parallel
+size and position, which ``Accelerator.prepare_data_loader`` passes), so
+processes that differ only in ``cp``/``sp`` read the same rows; each
+keeps its slice of the sequence dim (``sequence_shard``, cut by
+``parallel.sharding.sequence_slice`` before the copy to the device).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import numpy as np
 import torch
 
 from . import native
+from .parallel.sharding import sequence_slice
 from .state import GradientState, PartialState
 from .utils.operations import (
     broadcast_object_list,
@@ -364,7 +372,8 @@ class BaseDataLoader:
 
     def __init__(self, dataset, batch_sampler=None, collate_fn=None, device=None,
                  device_placement: bool = True, rng_types=None, non_blocking: bool = True,
-                 prefetch_size: int = 2, _drop_last: bool = False):
+                 prefetch_size: int = 2, _drop_last: bool = False,
+                 sequence_shard: tuple[int, int] = (1, 0)):
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.collate_fn = collate_fn or default_collate
@@ -373,6 +382,7 @@ class BaseDataLoader:
         self.rng_types = rng_types
         self.non_blocking = non_blocking
         self.prefetch_size = prefetch_size
+        self.sequence_shard = tuple(sequence_shard)
         self.gradient_state = GradientState()
         self.end_of_dataloader = False
         self.remainder = -1
@@ -393,8 +403,10 @@ class BaseDataLoader:
                 and self.device.type == "cuda")
 
     def _host_batch(self, batch):
-        """numpy leaves → torch tensors, in pinned memory when the copy to
-        the card is to run without waiting. Runs on the prefetch thread."""
+        """This process's slice of the sequence; numpy leaves → torch
+        tensors, in pinned memory when the copy to the card is to run
+        without waiting. Runs on the prefetch thread."""
+        batch = sequence_slice(batch, *self.sequence_shard)
         if not self.device_placement:
             return batch
 
@@ -601,8 +613,14 @@ class DataLoaderDispatcher(BaseDataLoader):
     process, so with more than one process there is no prefetch thread."""
 
     def __init__(self, dataset, batch_sampler=None, split_batches: bool = False,
-                 dispatch_group_size: int = 8, **kwargs):
+                 dispatch_group_size: int = 8, num_processes: Optional[int] = None,
+                 process_index: Optional[int] = None, **kwargs):
         super().__init__(dataset, batch_sampler=batch_sampler, **kwargs)
+        state = PartialState()
+        # The processes reading distinct rows (all of them unless cp/sp
+        # split the sequence) and this one's position among them.
+        self.num_processes = state.num_processes if num_processes is None else num_processes
+        self.process_index = state.process_index if process_index is None else process_index
         self.split_batches = split_batches
         self.dispatch_group_size = max(1, int(dispatch_group_size))
         self.dispatch_group_bytes = 1 << 20
@@ -614,10 +632,10 @@ class DataLoaderDispatcher(BaseDataLoader):
         bs = getattr(self.batch_sampler, "batch_size", None)
         if bs is None:
             return None
-        return bs if self.split_batches else bs * PartialState().num_processes
+        return bs if self.split_batches else bs * self.num_processes
 
     def __len__(self):
-        n, world = len(self.batch_sampler), PartialState().num_processes
+        n, world = len(self.batch_sampler), self.num_processes
         return n if self.split_batches or world == 1 else math.ceil(n / world)
 
     def _read(self, batch_indices):
@@ -627,9 +645,9 @@ class DataLoaderDispatcher(BaseDataLoader):
 
     def _raw_batches(self):
         state = PartialState()
-        world = state.num_processes
+        world = self.num_processes
         it = iter(self.batch_sampler)
-        if world == 1:
+        if state.num_processes == 1:
             for _ in range(self._consume_skip()):
                 if next(it, None) is None:
                     return
@@ -666,7 +684,7 @@ class DataLoaderDispatcher(BaseDataLoader):
                     batch = pad_input_tensors(batch, bs, world)
                     bs = find_batch_size(batch)
                 shard = bs // world
-                start = state.process_index * shard
+                start = self.process_index * shard
                 yield slice_tensors(batch, start, start + shard)
             if exhausted:
                 return
@@ -683,16 +701,19 @@ def prepare_data_loader(dataloader, device=None, num_processes: Optional[int] = 
                         dispatch_batches: Optional[bool] = None, even_batches: bool = True,
                         use_seedable_sampler: bool = True, data_seed: Optional[int] = None,
                         non_blocking: bool = True, prefetch_size: int = 2,
-                        dispatch_group_size: int = 8) -> BaseDataLoader:
+                        dispatch_group_size: int = 8,
+                        sequence_shard: tuple[int, int] = (1, 0)) -> BaseDataLoader:
     """A loader of this package over a user's loader: a
     ``torch.utils.data.DataLoader`` or anything with ``.dataset`` and
     ``.batch_size`` (its ``collate_fn``, ``drop_last`` and, by the name of
     its ``sampler`` class, whether it shuffles), or a dataset. A dataset
     without ``__len__`` is a stream (:class:`IterableDatasetShard`).
 
-    ``num_processes``/``process_index`` default to this process's; the
-    device defaults to ``PartialState().device`` and is resolved only when
-    ``put_on_device``."""
+    ``num_processes``/``process_index`` (the processes that read distinct
+    rows, and this one's position among them) default to this process's;
+    ``sequence_shard`` is (slices, this process's slice) of the sequence
+    dim. The device defaults to ``PartialState().device`` and is resolved
+    only when ``put_on_device``."""
     if num_processes is None or process_index is None:
         state = PartialState()
         num_processes = state.num_processes if num_processes is None else num_processes
@@ -707,7 +728,7 @@ def prepare_data_loader(dataloader, device=None, num_processes: Optional[int] = 
     shuffle = _infer_shuffle(dataloader)
     common = dict(collate_fn=collate_fn, device=device, device_placement=put_on_device,
                   rng_types=rng_types, non_blocking=non_blocking, prefetch_size=prefetch_size,
-                  _drop_last=drop_last)
+                  _drop_last=drop_last, sequence_shard=sequence_shard)
     try:
         len(dataset)
     except TypeError:
@@ -729,7 +750,9 @@ def prepare_data_loader(dataloader, device=None, num_processes: Optional[int] = 
     inner = BatchSampler(sampler, batch_size=batch_size, drop_last=drop_last)
     if dispatch_batches:
         return DataLoaderDispatcher(dataset, batch_sampler=inner, split_batches=split_batches,
-                                    dispatch_group_size=dispatch_group_size, **common)
+                                    dispatch_group_size=dispatch_group_size,
+                                    num_processes=num_processes, process_index=process_index,
+                                    **common)
     sharded = BatchSamplerShard(inner, num_processes=num_processes, process_index=process_index,
                                 split_batches=split_batches, even_batches=even_batches)
     return DataLoaderShard(dataset, batch_sampler=sharded, **common)

@@ -9,11 +9,19 @@ fp32. Module and parameter names follow the flax tree
 ``model/layers/block/self_attn/q_proj/kernel``), so ``models/convert.py``
 maps one onto the other.
 
+Attention (``attention_impl``): ``flash`` (the Hopper kernels,
+``ops/flash_attention.auto_flash_attention``), ``native`` (materialised
+scores), ``ring`` (``parallel/cp.py``) and ``ulysses`` (``parallel/sp.py``).
+Over a ``cp`` or ``sp`` axis each process holds a slice of every sequence
+and RoPE takes the slice's global positions; ``flash`` then attends over
+the whole sequence through the allgather ring, as the JAX package does.
+
 Remat: with ``remat=True`` each block runs under ``torch.utils.checkpoint``.
 The policies match the JAX ones: ``minimal`` recomputes everything, the
 flash kernel included; ``flash`` keeps the flash forward's outputs
 (``hopper_flash.FLASH_FWD_OP``, the ``flash_out``/``flash_lse`` names of the
-JAX package); ``dots`` also keeps every projection's matmul output.
+JAX package; each ring chunk's too); ``dots`` also keeps every projection's
+matmul output.
 
 The decoder-chassis knobs of the JAX config (layernorm, biases, partial
 rotary, Granite and Gemma constants, fp8) are not ported yet: a config that
@@ -38,6 +46,10 @@ from torch.utils.checkpoint import (
 
 from ..ops.flash_attention import auto_flash_attention
 from ..ops.hopper_flash import FLASH_FWD_OP
+from ..parallel.cp import ring_attention
+from ..parallel.sp import ulysses_attention
+from ..state import current_sequence_shard
+from ..utils.operations import global_token_count
 
 # Chassis knobs of the JAX LlamaConfig with the value that means plain Llama.
 _UNPORTED_KNOBS = {
@@ -80,7 +92,7 @@ class LlamaConfig:
     scan_layers: bool = True
     remat: bool = False
     remat_policy: str = "flash"         # flash | dots | minimal
-    attention_impl: str = "flash"       # flash | native (ring | ulysses: not ported)
+    attention_impl: str = "flash"       # flash | native | ring | ulysses
     fp8: bool = False
 
     def __post_init__(self):
@@ -161,9 +173,10 @@ def _dispatch_attention(impl: str):
         return naive_attention
     if impl == "flash":
         return auto_flash_attention
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl={impl!r} is not ported yet (ROADMAP.md Queue A item 2)")
+    if impl == "ring":
+        return ring_attention
+    if impl == "ulysses":
+        return ulysses_attention
     raise ValueError(f"Unknown attention_impl {impl}")
 
 
@@ -270,7 +283,16 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids):
         cfg = self.cfg
         x = F.embedding(input_ids, self.embed_tokens.weight).to(cfg.dtype)
-        positions = torch.arange(input_ids.shape[-1], device=input_ids.device)
+        # Over a cp or sp axis this process holds slice i of n of each
+        # sequence: its global positions, as the JAX package's arange over
+        # the whole sequence gives them.
+        n, i = current_sequence_shard()
+        if n > 1 and cfg.attention_impl == "native":
+            raise NotImplementedError(
+                "attention_impl='native' attends within this process's slice of the sequence; "
+                "over a cp or sp axis use flash, ring or ulysses")
+        s = input_ids.shape[-1]
+        positions = i * s + torch.arange(s, device=input_ids.device)
         cos, sin = rotary_embedding(positions, cfg.rotary_dim, cfg.rope_theta, x.dtype)
         for layer in self.layers:
             if cfg.remat and torch.is_grad_enabled():
@@ -306,9 +328,16 @@ class LlamaForCausalLM(nn.Module):
 
 
 def cross_entropy_loss(logits, labels, ignore_index: int = -100):
-    """Token-level CE with masking, in fp32 whatever the compute dtype."""
+    """Token-level CE with masking, in fp32 whatever the compute dtype: the
+    mean over the tokens whose label is not ``ignore_index``.
+
+    Inside a train step over several processes the count is that of every
+    process's tokens and the sum is scaled by their number, so that the
+    step's mean over processes is the token mean of the global batch, as
+    the JAX step takes it (``operations.global_token_count``)."""
     logits = logits.float()
     valid = labels != ignore_index
     total = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
                             ignore_index=ignore_index, reduction="sum")
-    return total / valid.sum().clamp_min(1)
+    count, n = global_token_count(valid.sum())
+    return total * n / count.clamp_min(1)

@@ -8,6 +8,8 @@ Counterpart of ``accelerate_tpu/ops/flash_attention.py``:
   statistics that ring attention merges.
 - :func:`flash_attention` — the fused attention of ``ops/hopper_flash.py``:
   the Hopper kernels for CUDA tensors, their plain version on the CPU.
+- :func:`auto_flash_attention` — the model layer's: ``flash_attention``
+  over the process's mesh, through the ring when the sequence is split.
 
 All support GQA (Hq a multiple of Hkv) and causal masking with query/key
 position offsets. Layout is (B, S, H, D).
@@ -87,22 +89,38 @@ def attention_stats(q, k, v, *, causal: bool = True, q_offset: int = 0, k_offset
 # Mesh axes along which each process holds a slice of the batch: attention
 # runs on that slice as it is.
 DATA_PARALLEL_AXES = ("dp_replicate", "dp_shard")
+# Mesh axes that split the sequence: each process attends over the whole
+# sequence through the "allgather" ring over the axis.
+SEQUENCE_AXES = ("cp", "sp")
 
 
 def auto_flash_attention(q, k, v, *, causal: bool = True, mesh=None):
     """Model-layer fused attention: :func:`flash_attention` on this
-    process's tensors. ``mesh`` (a ``DeviceMesh`` with named axes, as
-    ``ParallelismConfig.build_mesh`` makes) may spread the batch over
-    ``dp_replicate`` and ``dp_shard``, where each process attends over its
-    own batch shard; an axis that splits the sequence or the heads is not
-    ported."""
+    process's tensors, over ``mesh`` (a ``DeviceMesh`` with named axes, as
+    ``ParallelismConfig.build_mesh`` makes; default: the set-up
+    ``AcceleratorState``'s, if any).
+
+    Over ``dp_replicate`` and ``dp_shard`` each process attends over its
+    own rows. Over a ``cp`` or ``sp`` axis wider than 1, where each process
+    holds a slice of the sequence, it attends over the whole sequence, as
+    the JAX package's ``shard_map`` leaves the sequence dim whole: the
+    ``"allgather"`` ring over that axis (``parallel/cp.py``). An axis that
+    splits the heads (tp) is not ported."""
+    if mesh is None:
+        from ..state import current_mesh
+
+        mesh = current_mesh()
     if mesh is not None:
         names = mesh.mesh_dim_names or ()
-        wide = {n: mesh.size(i) for i, n in enumerate(names)
-                if mesh.size(i) > 1 and n not in DATA_PARALLEL_AXES}
-        if len(names) != mesh.ndim or wide:
+        wide = [n for i, n in enumerate(names) if mesh.size(i) > 1 and n not in DATA_PARALLEL_AXES]
+        other = [n for n in wide if n not in SEQUENCE_AXES]
+        if len(names) != mesh.ndim or other:
             raise NotImplementedError(
-                f"auto_flash_attention over mesh axes {wide or mesh} that split the sequence "
-                "or the heads is not ported yet (ROADMAP.md Queue A item 3: ring attention "
-                "and Ulysses)")
+                f"auto_flash_attention over mesh axes {other or mesh} that split the heads is "
+                "not ported yet (ROADMAP.md Queue A item 6)")
+        if wide:
+            from ..parallel.cp import ring_attention
+
+            return ring_attention(q, k, v, causal=causal, mesh=mesh, rotate_method="allgather",
+                                  axis_name=wide[0])
     return flash_attention(q, k, v, causal=causal)

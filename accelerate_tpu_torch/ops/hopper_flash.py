@@ -366,14 +366,19 @@ def _setup_context(ctx, inputs, output):
     ctx.kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
 
 
+def output_delta(out, dout):
+    """δ = rowsum(dO∘O): fp32 (B, H, S), as the backward kernels take it."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
 def _backward(ctx, g_out, g_lse):
     q, k, v, out, lse = ctx.saved_tensors
     g_out = torch.zeros_like(out) if g_out is None else g_out.to(q.dtype).contiguous()
     # δ folds the lse cotangent: dS = P∘(dP − δ), δ = rowsum(dO∘O) − g_lse.
-    delta = (g_out.float() * out.float()).sum(-1).transpose(1, 2)
+    delta = output_delta(out, g_out)
     if g_lse is not None:
         delta = delta - g_lse.float()
-    dq, dk, dv = flash_bwd(q, k, v, g_out, lse, delta.contiguous(), **ctx.kw)
+    dq, dk, dv = flash_bwd(q, k, v, g_out, lse, delta, **ctx.kw)
     return dq, dk, dv, None, None, None
 
 

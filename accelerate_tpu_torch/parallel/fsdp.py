@@ -7,10 +7,18 @@ each parameter over the ``dp_shard`` mesh axis and lets GSPMD gather it
 where it is used; here FSDP2's ``fully_shard`` does the same per module:
 
 - with a plugin, ``fully_shard`` goes on each decoder block and then on
-  the root, over the ``dp_shard`` mesh; with ``dp_replicate > 1`` the mesh
-  is the 2-D ``(dp_replicate, dp_shard)`` one and FSDP2 runs HSDP
-  (sharded within a replica group, gradients averaged across them);
+  the root, over ``dp_shard × cp`` (``ParallelismConfig.fsdp_axes``: the
+  ``cp`` ranks shard the parameters too); when ``dp_replicate × sp`` is
+  wider than 1 the mesh is the 2-D ``(replicate, shard)`` one
+  (``AcceleratorState.data_parallel_mesh``) and FSDP2 runs HSDP: sharded
+  within a replica group, gradients averaged across the groups. ``sp``
+  ranks hold replicas, since each runs the whole weights on its slice of
+  the sequence;
 - without a plugin, the model is replicated under DDP over every process.
+
+Either way the gradients are averaged over every process
+(``loss_reduce_axes``), which with ``cross_entropy_loss``'s global token
+count gives the gradient of the global token mean.
 
 Every parameter is sharded on dim 0 (FSDP2's default); the layout changes
 nothing in the numbers. The bf16 compute copy comes from FSDP2's
@@ -62,14 +70,14 @@ def _activation_checkpointing(module: nn.Module) -> None:
 
 def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype) -> dict:
     """``fully_shard`` on each decoder block and on ``module``, in place.
-    ``mesh`` is the 2-D ``(dp_replicate, dp_shard)`` mesh. Returns the
-    ignored parameters by name."""
+    ``mesh`` is the 2-D ``(replicate, shard)`` data-parallel mesh. Returns
+    the ignored parameters by name."""
     from torch.distributed.fsdp import CPUOffloadPolicy, MixedPrecisionPolicy, OffloadPolicy
     from torch.distributed.fsdp import fully_shard
 
     if plugin.activation_checkpointing:
         _activation_checkpointing(module)
-    shard_mesh = mesh if mesh.size(0) > 1 else mesh["dp_shard"]
+    shard_mesh = mesh if mesh.size(0) > 1 else mesh["shard"]
     mp = (MixedPrecisionPolicy() if compute_dtype == torch.float32 else
           MixedPrecisionPolicy(param_dtype=compute_dtype, reduce_dtype=torch.float32))
     ignored = ignored_parameters(module, plugin.ignored_params)
@@ -101,7 +109,7 @@ def apply_data_parallel(model, state, plugin, compute_dtype: torch.dtype) -> Non
     if not state._partial.use_distributed:
         return
     if plugin is not None:
-        model.ignored = apply_fsdp(model.module, state.device_mesh, plugin, compute_dtype)
+        model.ignored = apply_fsdp(model.module, state.data_parallel_mesh, plugin, compute_dtype)
         model.sharded = True
     else:
         model.forward_module = apply_ddp(model.module, state.device)

@@ -2,11 +2,15 @@
 
 Counterpart of ``accelerate_tpu/parallelism_config.py``: the same axis
 names, validation, environment round trip and world-size fill. The port
-runs the data-parallel axes: ``dp_replicate`` (DDP, or the replicate axis
-of HSDP) and ``dp_shard`` (FSDP2), over a ``torch.distributed`` group, one
-process per GPU. ``cp`` and ``sp`` above 1 raise, naming ROADMAP.md Queue A
-item 3 (ring attention and Ulysses); ``tp``, ``pp`` and ``ep`` above 1
-raise, naming item 6.
+runs four axes over a ``torch.distributed`` group, one process per GPU:
+``dp_replicate`` (DDP, or the replicate axis of HSDP), ``dp_shard``
+(FSDP2), ``cp`` (ring attention, ``parallel/cp.py``) and ``sp`` (Ulysses,
+``parallel/sp.py``). ``tp``, ``pp`` and ``ep`` above 1 raise, naming
+ROADMAP.md Queue A item 6.
+
+Processes lie on the mesh in row-major order of ``MESH_AXES``, as the JAX
+package lays its devices: rank ``((r_dp_replicate · dp_shard + r_dp_shard)
+· cp + r_cp) · sp + r_sp``.
 """
 
 from __future__ import annotations
@@ -15,9 +19,10 @@ import dataclasses
 import os
 
 PARALLELISM_CONFIG_PREFIX = "PARALLELISM_CONFIG_"
+# The mesh's axes, outermost first (the JAX package's MESH_AXIS_ORDER
+# without the unported tp).
+MESH_AXES = ("dp_replicate", "dp_shard", "cp", "sp")
 _UNPORTED_AXES = {
-    "cp_size": "ROADMAP.md Queue A item 3 (ring attention)",
-    "sp_size": "ROADMAP.md Queue A item 3 (Ulysses)",
     "tp_size": "ROADMAP.md Queue A item 6 (TP)",
     "pp_size": "ROADMAP.md Queue A item 6 (PP)",
     "ep_size": "ROADMAP.md Queue A item 6 (EP)",
@@ -54,8 +59,8 @@ class ParallelismConfig:
         for name, item in _UNPORTED_AXES.items():
             if getattr(self, name) > 1:
                 raise NotImplementedError(
-                    f"{name}={getattr(self, name)}: only the data-parallel axes are ported "
-                    f"yet ({item})")
+                    f"{name}={getattr(self, name)}: only the data-parallel, cp and sp axes "
+                    f"are ported yet ({item})")
 
     @property
     def dp_size(self) -> int:
@@ -64,6 +69,56 @@ class ParallelismConfig:
     @property
     def total_size(self) -> int:
         return self.dp_size * self.cp_size * self.sp_size * self.tp_size * self.pp_size
+
+    def axis_size(self, axis: str) -> int:
+        return getattr(self, f"{axis}_size")
+
+    @property
+    def fsdp_axes(self) -> tuple[str, ...]:
+        """Axes FSDP2 shards the parameters over: ``dp_shard`` joined with
+        ``cp``."""
+        return ("dp_shard", "cp")
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        """Axes the batch rows are split over; ``cp`` and ``sp`` ranks share
+        rows and split the sequence."""
+        return ("dp_replicate", "dp_shard")
+
+    @property
+    def seq_axes(self) -> tuple[str, ...]:
+        """Axes the sequence dim is split over (``cp`` or ``sp``, never both)."""
+        return ("cp", "sp")
+
+    @property
+    def loss_reduce_axes(self) -> tuple[str, ...]:
+        """Axes a scalar loss is averaged over. While ``tp``, ``pp`` and
+        ``ep`` are not ported they span every process."""
+        return ("dp_replicate", "dp_shard", "cp", "sp")
+
+    @property
+    def seq_size(self) -> int:
+        """How many processes split one sequence (``cp_size · sp_size``)."""
+        return self.cp_size * self.sp_size
+
+    def coordinates(self, rank: int) -> dict[str, int]:
+        """The position of process ``rank`` on each of ``MESH_AXES``."""
+        coords = {}
+        for axis in reversed(MESH_AXES):
+            rank, coords[axis] = divmod(rank, self.axis_size(axis))
+        return {axis: coords[axis] for axis in MESH_AXES}
+
+    def data_parallel_index(self, rank: int) -> int:
+        """Which rows process ``rank`` reads: its position on
+        ``dp_replicate × dp_shard``."""
+        c = self.coordinates(rank)
+        return c["dp_replicate"] * self.dp_shard_size + c["dp_shard"]
+
+    def sequence_index(self, rank: int) -> int:
+        """Which slice of the sequence process ``rank`` holds: its position
+        on ``cp × sp``."""
+        c = self.coordinates(rank)
+        return c["cp"] * self.sp_size + c["sp"]
 
     @classmethod
     def from_env(cls) -> "ParallelismConfig":
@@ -101,9 +156,25 @@ class ParallelismConfig:
         return dataclasses.replace(self, dp_shard_size=self.dp_shard_size * (n_processes // fixed))
 
     def build_mesh(self, device_type: str):
-        """The ``DeviceMesh`` over the process group with the axes
-        ``("dp_replicate", "dp_shard")``, one process per device."""
+        """The 4-D ``DeviceMesh`` over the process group with the axes
+        ``MESH_AXES``, one process per device. Axes of size 1 are kept, so
+        that every name resolves."""
         from torch.distributed.device_mesh import init_device_mesh
 
-        return init_device_mesh(device_type, (self.dp_replicate_size, self.dp_shard_size),
-                                mesh_dim_names=("dp_replicate", "dp_shard"))
+        return init_device_mesh(device_type, tuple(self.axis_size(a) for a in MESH_AXES),
+                                mesh_dim_names=MESH_AXES)
+
+    def build_data_parallel_mesh(self, device_type: str):
+        """The 2-D ``DeviceMesh`` FSDP2 shards over: ``("replicate",
+        "shard")`` of ``dp_replicate × sp`` by ``dp_shard × cp``. ``sp``
+        ranks hold replicas (each attends to a slice of the sequence with
+        whole weights); ``cp`` ranks shard the parameters as ``dp_shard``
+        ranks do (``fsdp_axes``)."""
+        import torch
+        from torch.distributed.device_mesh import DeviceMesh
+
+        replicate = ("dp_replicate", "sp")
+        ranks = torch.arange(self.total_size).reshape([self.axis_size(a) for a in MESH_AXES])
+        ranks = ranks.permute([MESH_AXES.index(a) for a in replicate + self.fsdp_axes])
+        return DeviceMesh(device_type, ranks.reshape(self.dp_replicate_size * self.sp_size, -1),
+                          mesh_dim_names=("replicate", "shard"))

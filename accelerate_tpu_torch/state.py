@@ -160,14 +160,48 @@ class AcceleratorState:
         self.parallelism_config = (parallelism_config or ParallelismConfig()).infer_missing_axis(
             partial.num_processes)
         self._mesh = None
+        self._dp_mesh = None
 
     @property
     def device_mesh(self):
-        """The ``DeviceMesh`` of the data-parallel axes over the process
-        group (built on first use), or None without a group."""
+        """The 4-D ``DeviceMesh`` (``parallelism_config.MESH_AXES``) over the
+        process group, or None without a group. Built on first use, with one
+        process group per axis (``get_group(axis)``)."""
         if self._mesh is None and self._partial.use_distributed:
             self._mesh = self.parallelism_config.build_mesh(self._partial.device.type)
         return self._mesh
+
+    @property
+    def data_parallel_mesh(self):
+        """The 2-D ``(replicate, shard)`` mesh FSDP2 runs over
+        (``ParallelismConfig.build_data_parallel_mesh``), built on first
+        use; None without a group."""
+        if self._dp_mesh is None and self._partial.use_distributed:
+            self._dp_mesh = self.parallelism_config.build_data_parallel_mesh(
+                self._partial.device.type)
+        return self._dp_mesh
+
+    def axis_rank(self, axis: str) -> int:
+        """This process's coordinate on a mesh axis (0 without a group)."""
+        return self.parallelism_config.coordinates(self._partial.process_index)[axis]
+
+    @property
+    def data_parallel_size(self) -> int:
+        """Processes that read distinct batch rows (``dp_replicate × dp_shard``)."""
+        return self.parallelism_config.dp_size
+
+    @property
+    def data_parallel_index(self) -> int:
+        """This process's position among them; ``cp`` and ``sp`` ranks of one
+        position read the same rows."""
+        return self.parallelism_config.data_parallel_index(self._partial.process_index)
+
+    @property
+    def sequence_shard(self) -> tuple[int, int]:
+        """(number of slices, this process's slice) of the sequence dim over
+        the active sequence axis (``cp`` or ``sp``)."""
+        cfg = self.parallelism_config
+        return cfg.seq_size, cfg.sequence_index(self._partial.process_index)
 
     @property
     def initialized(self) -> bool:
@@ -180,6 +214,22 @@ class AcceleratorState:
     @classmethod
     def _reset_state(cls):
         cls._shared_state.clear()
+
+
+def current_mesh():
+    """The set-up ``AcceleratorState``'s 4-D mesh, or None when no state is
+    set up or it has no process group. Sets nothing up."""
+    if not AcceleratorState._shared_state.get("_partial"):
+        return None
+    return AcceleratorState().device_mesh
+
+
+def current_sequence_shard() -> tuple[int, int]:
+    """(number of slices, this process's slice) of the sequence over the
+    set-up ``AcceleratorState``'s ``cp``/``sp`` axis; (1, 0) without one."""
+    if not AcceleratorState._shared_state.get("_partial"):
+        return 1, 0
+    return AcceleratorState().sequence_shard
 
 
 class GradientState:

@@ -15,6 +15,8 @@ process's GPU (host leaves go there and come back), gloo on the CPU.
 from __future__ import annotations
 
 from collections.abc import Mapping
+from contextlib import contextmanager
+from contextvars import ContextVar
 from typing import Any, Callable
 
 import numpy as np
@@ -30,6 +32,37 @@ def _state():
 
 def _world() -> int:
     return _state().num_processes
+
+
+# While the train step runs a loss function, the number of processes whose
+# losses it averages (Accelerator.prepare_train_step); 1 elsewhere.
+_LOSS_PROCESSES: ContextVar[int] = ContextVar("loss_processes", default=1)
+
+
+@contextmanager
+def loss_over_processes(n: int):
+    """Inside the block the step averages the losses of ``n`` processes
+    (every process of the group: ``ParallelismConfig.loss_reduce_axes``)."""
+    token = _LOSS_PROCESSES.set(n)
+    try:
+        yield
+    finally:
+        _LOSS_PROCESSES.reset(token)
+
+
+def global_token_count(count: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """For a loss that divides a sum over this process's tokens by their
+    ``count``: the count summed over the processes whose losses the train
+    step averages, and how many they are (``count`` and 1 outside the
+    step). ``sum · n / total`` averaged over the ``n`` processes is the
+    token mean over all of them, as the JAX step's loss on the global
+    batch is."""
+    n = _LOSS_PROCESSES.get()
+    if n == 1:
+        return count, 1
+    count = count.detach().clone()
+    dist.all_reduce(count)
+    return count, n
 
 
 def recursively_apply(func: Callable, data: Any) -> Any:

@@ -73,8 +73,27 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    (``DP_REL_TOL``), with 18 launches per kernel per step; the collectives
    of ``utils/operations.py`` must round-trip; phase 9's loop must resume
    bit-equal under FSDP2; phase 4's tiny step under DDP (no plugin) must
-   give phase 4's numbers. Prints the FSDP2 step ms, idle share and peak
-   memory beside phase 5's. The child's failure fails the run.
+   give phase 4's numbers, and with ``attention_impl="ring"`` and
+   ``"ulysses"`` over the 4-D mesh (``cp = sp = 1``) bit for bit. Prints
+   the FSDP2 step ms, idle share and peak memory beside phase 5's. The
+   child's failure fails the run.
+11. sequence parallelism. A chip call has one GPU, so every rank's share
+   of the ring runs in this process, through ``parallel/cp.py``'s per-step
+   helpers (``chunk_forward``, ``chunk_backward``) with the transfers done
+   in place, and Ulysses through ``parallel/sp.py``'s layouts. (a) At
+   bench.py's seq-8192 attention shape (B=2, S=8192, Hq=Hkv=16, D=128,
+   bf16, causal) and at GQA 16:4, over 4 virtual ranks (2,048-token
+   chunks): both rotate methods and Ulysses against one
+   ``flash_attention_with_lse`` call on the whole sequence (out, lse, dQ,
+   dK, dV within ``TOLS["bfloat16"]``), each timed beside it, with each
+   kernel's launches. (b) bench.py's seq-8192 row: the 1.06B Llama at
+   batch 2, remat "flash" (stepping down to "minimal" on OOM), 2 warm-up
+   and 3 timed steps with flash attention (step ms, tok/s, MFU, idle share
+   of one profiled step, peak memory); then the weights drawn again from
+   the same seed and one step with every block's attention through (a)'s
+   ring schedule: loss within 1e-3 and grad norm within 2e-2 of the first
+   flash step's, relative, with 16 launches per kernel per layer; a second
+   ring step gives its warm time.
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -82,6 +101,7 @@ variant) and, last, the device line.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -415,10 +435,10 @@ def tiny_step_parity():
 
 
 def full_width_steps(hf, device="cuda", width=FULL_WIDTH, batch_size=SLICE["b"],
-                     seq=SLICE["s"]):
+                     seq=SLICE["s"], remat_policy="dots", timed=5):
     """Phase 5: the 1.06B Llama train step through prepare() with the FSDP
     plugin (FSDP2 over a process group, the plain step alone) for 2 warm-up
-    and 5 timed steps."""
+    and `timed` timed steps (phase 11 runs it at seq 8192)."""
     import numpy as np
     import torch
 
@@ -426,7 +446,7 @@ def full_width_steps(hf, device="cuda", width=FULL_WIDTH, batch_size=SLICE["b"],
     from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
 
     cfg = LlamaConfig(**width, max_position_embeddings=seq, dtype=torch.bfloat16,
-                      remat=True, remat_policy="dots", attention_impl="flash")
+                      remat=True, remat_policy=remat_policy, attention_impl="flash")
     acc = Accelerator(mixed_precision="bf16", fsdp_plugin=FullyShardedDataParallelPlugin(),
                       cpu=device == "cpu")
     module = LlamaForCausalLM(cfg, device=acc.device)
@@ -439,7 +459,7 @@ def full_width_steps(hf, device="cuda", width=FULL_WIDTH, batch_size=SLICE["b"],
     batch = {"x": torch.from_numpy(ids[:, :-1]).to(acc.device),
              "y": torch.from_numpy(ids[:, 1:]).to(acc.device)}
     state = acc.train_state
-    warmup, timed = 2, 5
+    warmup = 2
 
     # The main path: counts from 0 just before, read just after.
     torch.cuda.synchronize()
@@ -474,7 +494,7 @@ def full_width_steps(hf, device="cuda", width=FULL_WIDTH, batch_size=SLICE["b"],
         "launches": launches, "variant_launches": variant_launches,
         "launches_per_step": {k: v / (warmup + timed) for k, v in launches.items()},
         "ln_vocab": math.log(cfg.vocab_size),
-        "_step": (step, state, batch), "_acc": acc,
+        "_step": (step, state, batch), "_acc": acc, "_module": module,
     }
 
 
@@ -1201,6 +1221,7 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
     main = full_width_steps(hf, device=device, width=width, batch_size=batch_size, seq=seq)
     step, state, batch = main.pop("_step")
     acc = main.pop("_acc")
+    main.pop("_module")
     prof = profile_steps(step, state, batch, main["step_ms"]) if profile else None
 
     x = torch.arange(24.0, device=acc.device).reshape(4, 6)
@@ -1226,6 +1247,12 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
     torch.cuda.empty_cache()
     cfg, weights, tiny_batch = _tiny_step_inputs()
     ddp_metrics, ddp_wrapped = tiny_step(cfg, weights, tiny_batch, cpu=device == "cpu")
+    # Ring and Ulysses over the 4-D mesh of one process (cp = sp = 1).
+    seq_metrics = {impl: tiny_step(dataclasses.replace(cfg, attention_impl=impl), weights,
+                                   tiny_batch, cpu=device == "cpu")[0]
+                   for impl in ("ring", "ulysses")}
+    mesh = AcceleratorState().device_mesh
+    mesh_axes = [list(mesh.mesh_dim_names), list(mesh.shape)]
 
     phase5 = args["phase5"]
     rel = [[_rel(a, b) for a, b in zip(got, ref)]
@@ -1241,6 +1268,9 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         "loop_resumes_bit_equal": loop["ok"],
         "ddp_wrapped": ddp_wrapped,
         "ddp_matches_phase4": max(ddp_rel.values()) <= DP_REL_TOL,
+        "mesh_4d": mesh_axes == [["dp_replicate", "dp_shard", "cp", "sp"], [1, 1, 1, 1]],
+        "ring_ulysses_bit_equal_to_phase4": all(m == args["tiny_step"]
+                                                for m in seq_metrics.values()),
     }
     checks["ok"] = all(checks.values())
     return {
@@ -1256,8 +1286,352 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         "collectives": trips, "loop": loop,
         "ddp_tiny": {"metrics": ddp_metrics, "phase4": args["tiny_step"], "rel": ddp_rel,
                      "bit_equal": ddp_metrics == args["tiny_step"]},
+        "mesh": mesh_axes, "seq_tiny": seq_metrics,
         "checks": checks, "ok": checks["ok"],
     }
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: sequence parallelism, every rank's share in one process
+# ---------------------------------------------------------------------------
+
+# bench.py's seq-8192 row (bench.py:_build_config, big-HBM rung): batch 2,
+# remat "flash" stepping down to "minimal" on OOM; its attention shape; and
+# the virtual ranks the sequence is split over (2,048-token chunks).
+SEQ_ROW = dict(b=2, s=8192, hq=16, hkv=16, d=128)
+SEQ_ROW_POLICIES = ("flash", "minimal")
+SEQ_RANKS = 4
+# Phase 11 (b): the ring step's loss and grad norm against the flash step's
+# on the same weights and batch.
+SEQ_LOSS_RTOL, SEQ_GNORM_RTOL = 1e-3, 2e-2
+
+
+def ring_schedule_forward(qs, ks, vs, causal, method):
+    """The forward of every rank of a ring over len(qs) ranks, each holding
+    its chunk (qs[i], ks[i], vs[i]), through parallel/cp.py's per-step
+    helper; the transfers are done in place (rank i receives rank i-1's
+    K/V). Returns each rank's merged (out fp32, lse)."""
+    import torch
+
+    from accelerate_tpu_torch.parallel.cp import chunk_forward, ring_source
+
+    cp, s = len(qs), qs[0].shape[1]
+    if method == "allgather":
+        k_all, v_all = torch.cat(ks, 1), torch.cat(vs, 1)
+        return [chunk_forward(qs[i], k_all, v_all, None, None, causal=causal, q_offset=i * s,
+                              k_offset=0) for i in range(cp)]
+    held, res = list(zip(ks, vs)), [(None, None)] * cp
+    for step in range(cp):
+        res = [chunk_forward(qs[i], *held[i], *res[i], causal=causal, q_offset=i * s,
+                             k_offset=ring_source(i, step, cp) * s) for i in range(cp)]
+        held = [held[(i - 1) % cp] for i in range(cp)]
+    return res
+
+
+def ring_schedule_backward(qs, ks, vs, douts, outs, lses, causal, method):
+    """The backward of every rank of the ring, through parallel/cp.py's
+    per-step helper with the fp32 dK/dV accumulators moved with their
+    chunk in place. `outs` are the merged outputs in q's dtype. Returns
+    each rank's fp32 (dq, dk, dv)."""
+    import torch
+
+    from accelerate_tpu_torch.ops.hopper_flash import output_delta
+    from accelerate_tpu_torch.parallel.cp import chunk_backward, ring_source
+
+    cp, s = len(qs), qs[0].shape[1]
+    deltas = [output_delta(o, d) for o, d in zip(outs, douts)]
+    zeros = lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device)  # noqa: E731
+    dqs = [zeros(q) for q in qs]
+    if method == "allgather":
+        k_all, v_all = torch.cat(ks, 1), torch.cat(vs, 1)
+        dk_all, dv_all = zeros(k_all), zeros(v_all)
+        for i in range(cp):
+            chunk_backward(qs[i], k_all, v_all, douts[i], lses[i], deltas[i], dqs[i], dk_all,
+                           dv_all, causal=causal, q_offset=i * s, k_offset=0)
+        return dqs, list(dk_all.chunk(cp, 1)), list(dv_all.chunk(cp, 1))
+    held = [(k, v, zeros(k), zeros(v)) for k, v in zip(ks, vs)]
+    for step in range(cp):
+        for i in range(cp):
+            k, v, dk, dv = held[i]
+            chunk_backward(qs[i], k, v, douts[i], lses[i], deltas[i], dqs[i], dk, dv,
+                           causal=causal, q_offset=i * s, k_offset=ring_source(i, step, cp) * s)
+        held = [held[(i - 1) % cp] for i in range(cp)]
+    return dqs, [h[2] for h in held], [h[3] for h in held]
+
+
+def ulysses_schedule(qs, ks, vs, causal):
+    """Every rank's Ulysses attention (parallel/sp.py's layouts and
+    flash_attention_with_lse, differentiable), the all-to-alls done in
+    place: each rank's (out, lse of its heads over the whole sequence)."""
+    import torch
+
+    from accelerate_tpu_torch.ops import flash_attention_with_lse
+    from accelerate_tpu_torch.ops.flash_attention import _repeat_kv
+    from accelerate_tpu_torch.parallel import sp as sp_mod
+
+    n, hq = len(qs), qs[0].shape[2]
+    kvs = [_repeat_kv(k, v, hq) for k, v in zip(ks, vs)]
+    ks, vs = [kv[0] for kv in kvs], [kv[1] for kv in kvs]
+
+    def exchange(bufs):  # rank r receives entry r of every rank's buffer
+        return [torch.stack([bufs[j][r] for j in range(n)]) for r in range(n)]
+
+    def seq_to_heads(xs):
+        return [sp_mod.unpack_seq_to_heads(r)
+                for r in exchange([sp_mod.pack_seq_to_heads(x, n) for x in xs])]
+
+    heads = [flash_attention_with_lse(q, k, v, causal=causal)
+             for q, k, v in zip(seq_to_heads(qs), seq_to_heads(ks), seq_to_heads(vs))]
+    outs = [sp_mod.unpack_heads_to_seq(r)
+            for r in exchange([sp_mod.pack_heads_to_seq(o, n) for o, _ in heads])]
+    return outs, [lse for _, lse in heads]
+
+
+def _chunks(x, n):
+    return [c.contiguous() for c in x.chunk(n, dim=1)]
+
+
+def sequence_parallel_attention(hf, b, s, hq, hkv, d, n=SEQ_RANKS, dtype="bfloat16",
+                                device="cuda", iters=10, seed=31):
+    """Phase 11 (a): at one shape, the ring (both rotate methods) and
+    Ulysses over `n` virtual ranks in one process against one
+    flash_attention_with_lse call on the whole sequence (its forward and
+    its autograd backward): out, lse, dq, dk, dv as relative error in norm
+    (lse absolute), within TOLS[dtype]; each schedule's and the one call's
+    forward and backward ms, each schedule's device-busy ms for one forward
+    and backward, and each kernel's launches per schedule."""
+    import torch
+
+    from accelerate_tpu_torch.ops import flash_attention_with_lse
+
+    q, k, v, dout, _ = inputs(b, s, hq, hkv, d, seed, dtype=dtype, device=device)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out_ref, lse_ref = flash_attention_with_lse(*leaves)
+    out_ref.backward(dout)
+    ref = {"out": out_ref.detach(), "lse": lse_ref.detach(),
+           **{f"d{name}": x.grad for name, x in zip("qkv", leaves)}}
+    qs, ks, vs, douts = (_chunks(x, n) for x in (q, k, v, dout))
+
+    def one_call_fwd():
+        return hf.flash_fwd(q, k, v)
+
+    delta = hf.output_delta(out_ref, dout)
+
+    def one_call_bwd():
+        return hf.flash_bwd(q, k, v, dout, lse_ref.detach(), delta)
+
+    # Three kernel launches: their CUDA-event times are their device times.
+    results = {"one_call": {"fwd_ms": cuda_ms(one_call_fwd, iters),
+                            "bwd_ms": cuda_ms(one_call_bwd, iters)}}
+    tol_out, tol_grad, tol_lse = TOLS[dtype]
+    for method in ("alltoall", "allgather", "ulysses"):
+        hf.reset_launch_counts()
+        if method == "ulysses":
+            rank_leaves = [[x.detach().requires_grad_() for x in xs] for xs in (qs, ks, vs)]
+            outs, lses = ulysses_schedule(*rank_leaves, causal=True)
+            torch.autograd.backward(outs, douts)
+            got = {"out": torch.cat(outs, 1).detach(), "lse": torch.cat(lses, 1).detach(),
+                   **{f"d{name}": torch.cat([x.grad for x in xs], 1)
+                      for name, xs in zip("qkv", rank_leaves)}}
+            launches = dict(hf.LAUNCHES)
+            with torch.no_grad():
+                fwd_ms = cuda_ms(lambda: ulysses_schedule(qs, ks, vs, causal=True), iters)
+
+            def fwd_bwd():
+                torch.autograd.backward(ulysses_schedule(*rank_leaves, causal=True)[0], douts)
+
+            # Its backward is autograd's: timed with a forward, less the forward.
+            bwd_ms = cuda_ms(fwd_bwd, iters) - fwd_ms
+        else:
+            res = ring_schedule_forward(qs, ks, vs, True, method)
+            outs = [o.to(q.dtype) for o, _ in res]
+            lses = [lse for _, lse in res]
+            dqs, dks, dvs = ring_schedule_backward(qs, ks, vs, douts, outs, lses, True, method)
+            got = {"out": torch.cat(outs, 1), "lse": torch.cat(lses, 2),
+                   "dq": torch.cat(dqs, 1).to(q.dtype), "dk": torch.cat(dks, 1).to(k.dtype),
+                   "dv": torch.cat(dvs, 1).to(v.dtype)}
+            launches = dict(hf.LAUNCHES)
+
+            def fwd(method=method):
+                return ring_schedule_forward(qs, ks, vs, True, method)
+
+            def bwd(method=method, outs=outs, lses=lses):
+                return ring_schedule_backward(qs, ks, vs, douts, outs, lses, True, method)
+
+            def fwd_bwd():
+                fwd()
+                bwd()
+
+            fwd_ms, bwd_ms = cuda_ms(fwd, iters), cuda_ms(bwd, iters)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        errs = {key: rel_err(got[key], ref[key]) for key in ("out", "dq", "dk", "dv")}
+        errs["lse_abs"] = float((got["lse"] - ref["lse"]).abs().max())
+        ok = (errs["out"] <= tol_out and errs["lse_abs"] <= tol_lse
+              and max(errs["dq"], errs["dk"], errs["dv"]) <= tol_grad)
+        results[method] = {"errors": errs, "ok": ok, "launches": launches,
+                           "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                           "device_busy_ms": device_busy_ms(fwd_bwd)}
+    return {"shape": dict(b=b, s=s, hq=hq, hkv=hkv, d=d), "ranks": n, "dtype": dtype,
+            "tolerance": {"out_rel": tol_out, "grad_rel": tol_grad, "lse_abs": tol_lse},
+            "bound_ms": {k: v[0] for k, v in bounds(b, s, hq, hkv, d, dtype).items()},
+            **results}
+
+
+def device_busy_ms(fn):
+    """The device time of the kernels one call of `fn` runs, from
+    torch.profiler: beside the host-clock ms it shows whether the host's
+    launches or the kernels bound a schedule."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_times(prof, 1)[0]
+
+
+def attention_gate(cases) -> bool:
+    """Every schedule of every shape within tolerance, each with the
+    launches its schedule makes: n² per kernel for the ring (n steps on each
+    of n ranks), n for the allgather ring and for Ulysses (one call per
+    rank)."""
+    for case in cases:
+        n = case["ranks"]
+        want = {"alltoall": n * n, "allgather": n, "ulysses": n}
+        for method, count in want.items():
+            r = case[method]
+            if not r["ok"] or any(r["launches"][kname] != count for kname in KERNELS):
+                return False
+    return True
+
+
+def in_process_ring_attention(n, method="alltoall"):
+    """An attention function for ``LlamaAttention.attn_fn`` that runs the
+    ring's schedule over `n` virtual ranks on chunks of the whole sequence
+    (phase 11 (b)); its backward is the ring's backward."""
+    import torch
+
+    class Ring(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            qs, ks, vs = (_chunks(x, n) for x in (q, k, v))
+            res = ring_schedule_forward(qs, ks, vs, causal, method)
+            outs = [o.to(q.dtype) for o, _ in res]
+            ctx.save_for_backward(q, k, v, *outs, *(lse for _, lse in res))
+            ctx.causal = causal
+            return torch.cat(outs, 1)
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, *saved = ctx.saved_tensors
+            qs, ks, vs = (_chunks(x, n) for x in (q, k, v))
+            dqs, dks, dvs = ring_schedule_backward(qs, ks, vs, _chunks(dout.to(q.dtype), n),
+                                                   saved[:n], saved[n:], ctx.causal, method)
+            return (torch.cat(dqs, 1).to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+                    torch.cat(dvs, 1).to(v.dtype), None)
+
+    def attn_fn(q, k, v, *, causal=True):
+        return Ring.apply(q, k, v, causal)
+
+    return attn_fn
+
+
+def seq_row_steps(hf, device="cuda", width=FULL_WIDTH, batch_size=SEQ_ROW["b"],
+                  seq=SEQ_ROW["s"], timed=3, profile=True):
+    """Phase 11 (b): bench.py's seq-8192 row, remat "flash" stepping down to
+    "minimal" on OOM, for 2 warm-up and `timed` steps with
+    attention_impl="flash"; then the weights are drawn again from the same
+    seed and one step runs with every block's attention through the ring
+    schedule over SEQ_RANKS virtual ranks: its loss and grad norm against
+    the first flash step's, and its launches; a second ring step gives its
+    warm time, and a third its device time under the profiler."""
+    import torch
+
+    for policy in SEQ_ROW_POLICIES:
+        try:
+            row = full_width_steps(hf, device=device, width=width, batch_size=batch_size,
+                                   seq=seq, remat_policy=policy, timed=timed)
+            break
+        except torch.OutOfMemoryError:
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise RuntimeError("the seq-8192 row ran out of memory at every remat policy")
+    step, state, batch = row.pop("_step")
+    row.pop("_acc")
+    module = row.pop("_module")
+    prof = profile_steps(step, state, batch, row["step_ms"], steps=1) if profile else None
+
+    with torch.no_grad():
+        module.init_weights(torch.Generator(device=device).manual_seed(0))
+    for layer in module.model.layers:
+        layer.self_attn.attn_fn = in_process_ring_attention(SEQ_RANKS)
+    torch.cuda.synchronize()
+    hf.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(hf.LAUNCHES)
+    # A second ring step, warm, for its time (the weights have moved).
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    ring = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "first_step_ms": first_ms, "step_ms": (time.perf_counter() - t0) * 1e3,
+            "launches": launches,
+            "launches_per_layer": {k: v / row["n_layers"] for k, v in launches.items()}}
+    if profile:
+        ring_prof = profile_steps(step, state, batch, ring["step_ms"], steps=1)
+        ring.update({k: ring_prof[k] for k in ("device_busy_ms_per_step", "idle_share",
+                                                "ms_per_step_by_category")})
+    flash_first = {"loss": row["first_metrics"][0][0], "grad_norm": row["first_metrics"][0][1]}
+    ring["rel"] = {k: _rel(ring[k], flash_first[k]) for k in ("loss", "grad_norm")}
+    del step, state, batch, module
+    return {**{k: v for k, v in row.items() if k != "phase"},
+            "device_busy_ms_per_step": prof and prof["device_busy_ms_per_step"],
+            "idle_share": prof and prof["idle_share"],
+            "ms_per_step_by_category": prof and prof["ms_per_step_by_category"],
+            "ring_step": ring, "flash_first_step": flash_first}
+
+
+def seq_row_gate(row) -> bool:
+    """The flash steps' losses finite and the first near ln(vocab), each
+    kernel launched once per layer per step; the ring step's loss within
+    SEQ_LOSS_RTOL and grad norm within SEQ_GNORM_RTOL of the first flash
+    step's, with SEQ_RANKS² forward launches per layer under remat "flash"
+    (each chunk's outputs kept: no forward kernel in the recompute), twice
+    that under "minimal", and SEQ_RANKS² dQ and dK/dV launches per layer."""
+    ring, n2 = row["ring_step"], SEQ_RANKS * SEQ_RANKS
+    fwd_per_layer = n2 * (2 if row["remat_policy"] == "minimal" else 1)
+    return (all(math.isfinite(x) for x in row["losses"])
+            and abs(row["losses"][0] - row["ln_vocab"]) < 1.0
+            and all(n == row["n_layers"] for n in row["launches_per_step"].values())
+            and ring["rel"]["loss"] <= SEQ_LOSS_RTOL and ring["rel"]["grad_norm"] <= SEQ_GNORM_RTOL
+            and ring["launches_per_layer"] == {"flash_fwd": fwd_per_layer, "flash_dq": n2,
+                                               "flash_dkv": n2})
+
+
+def sequence_parallel_phase(hf, device="cuda", width=FULL_WIDTH, shape=SEQ_ROW, seq=None,
+                            batch_size=None, iters=10, profile=True):
+    """Phase 11: (a) at bench.py's seq-8192 attention shape, MHA and GQA
+    16:4; (b) the seq-8192 row's train step, then one step through the
+    ring schedule."""
+    import torch
+
+    gqa = dict(shape, hkv=shape["hq"] // 4)
+    attention = [sequence_parallel_attention(hf, **sh, device=device, iters=iters)
+                 for sh in (shape, gqa)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = seq_row_steps(hf, device=device, width=width, seq=seq or shape["s"],
+                        batch_size=batch_size or shape["b"], profile=profile)
+    checks = {"attention": attention_gate(attention), "seq_row": seq_row_gate(row)}
+    checks["ok"] = all(checks.values())
+    return {"phase": "sequence_parallel", "attention": attention, "seq_row": row,
+            "checks": checks, "ok": checks["ok"]}
 
 
 def _stub_cuda_for_cpu():
@@ -1391,6 +1765,7 @@ def main() -> int:
                and abs(main_path["losses"][0] - main_path["ln_vocab"]) < 1.0
                and all(n == main_path["n_layers"] for n in per_step.values()))
     main_path.pop("_acc")
+    main_path.pop("_module")
     emit({**{k: v for k, v in main_path.items() if k != "_step"}, "ok": path_ok})
     if not path_ok:
         print("chip_smoke: main path failed (loss or launch counts)", file=sys.stderr)
@@ -1449,6 +1824,13 @@ def main() -> int:
           **({} if dp_ok else {"child_stderr": err})})
     if not dp_ok:
         print(f"chip_smoke: data-parallel phase failed: {dp.get('checks')}", file=sys.stderr)
+        return 1
+
+    # 11. ring attention and Ulysses: every rank's share in this process
+    seq = sequence_parallel_phase(hf)
+    emit(seq)
+    if not seq["ok"]:
+        print(f"chip_smoke: sequence-parallel phase failed: {seq['checks']}", file=sys.stderr)
         return 1
 
     emit({"kernels": kernel_summary(timed, cases, main_path)})

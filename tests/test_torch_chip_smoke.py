@@ -415,7 +415,8 @@ def test_data_parallel_child_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     with FSDP2 and runs phase 9's loop and phase 4's step under DDP. The
     plain versions stand in for the kernels here, so no kernel launches,
     and the checkpoint is too small for the native writer: the launch
-    checks fail here only."""
+    checks fail here only. Phase 4's step with ring and Ulysses attention
+    over the 4-D mesh of one process gives phase 4's numbers bit for bit."""
     import torch
 
     from accelerate_tpu_torch.ops import hopper_flash as hf
@@ -451,6 +452,8 @@ def test_data_parallel_child_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
         "launches", "native", "ok"]
     assert res["ddp_tiny"]["rel"]["loss"] <= chip_smoke.DP_REL_TOL
     assert len(res["loop"]["resumed"]["loss"]) == 4
+    assert res["mesh"] == [["dp_replicate", "dp_shard", "cp", "sp"], [1, 1, 1, 1]]
+    assert res["seq_tiny"] == {"ring": tiny, "ulysses": tiny}
 
 
 def test_torchrun_env_is_a_group_of_one(chip_smoke):
@@ -458,3 +461,99 @@ def test_torchrun_env_is_a_group_of_one(chip_smoke):
     assert env["WORLD_SIZE"] == "1" and env["RANK"] == env["LOCAL_RANK"] == "0"
     assert env["MASTER_PORT"] == "29512" and env["MASTER_ADDR"] == "127.0.0.1"
     assert 0 < chip_smoke.free_port() < 65536
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: ring attention and Ulysses, every rank's share in one process
+# ---------------------------------------------------------------------------
+
+
+def _stub_cuda(chip_smoke, monkeypatch):
+    import torch
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, iters, warmup=2: (fn(), 0.0)[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sequence_parallel_attention_rehearsed_on_the_cpu(chip_smoke, monkeypatch, dtype):
+    """Phase 11 (a) at a tiny GQA shape on the plain versions: the ring
+    (both rotate methods) and Ulysses over 4 virtual ranks against one
+    plain call on the whole sequence, within the dtype's tolerance. No
+    kernel launches here, so only the gate's launch counts fail."""
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+
+    _stub_cuda(chip_smoke, monkeypatch)
+    res = chip_smoke.sequence_parallel_attention(hf, 1, 64, 4, 2, 16, n=4, dtype=dtype,
+                                                 device="cpu", iters=1)
+    assert res["shape"] == dict(b=1, s=64, hq=4, hkv=2, d=16) and res["ranks"] == 4
+    for method in ("alltoall", "allgather", "ulysses"):
+        assert res[method]["ok"], (method, res[method]["errors"])
+        assert res[method]["launches"] == {k: 0 for k in chip_smoke.KERNELS}
+    assert not chip_smoke.attention_gate([res])
+
+
+def _attention_case(ok=True, ring=16, other=4):
+    launches = {"alltoall": ring, "allgather": other, "ulysses": other}
+    return {"ranks": 4, **{m: {"ok": ok, "launches": {k: n for k in _KERNELS}}
+                           for m, n in launches.items()}}
+
+
+@pytest.mark.parametrize("case,ok", [
+    (_attention_case(), True), (_attention_case(ok=False), False),
+    (_attention_case(ring=4), False), (_attention_case(other=16), False)],
+    ids=["passes", "outside_tolerance", "ring_launches", "allgather_launches"])
+def test_attention_gate(chip_smoke, case, ok):
+    assert chip_smoke.attention_gate([case]) is ok
+
+
+def _seq_row(policy="flash", fwd=16, loss_rel=1e-4, gnorm_rel=1e-3, first_loss=10.4):
+    return {"remat_policy": policy, "losses": [first_loss, 10.3, 10.2], "ln_vocab": 10.37,
+            "n_layers": 18, "launches_per_step": {k: 18.0 for k in _KERNELS},
+            "ring_step": {"rel": {"loss": loss_rel, "grad_norm": gnorm_rel},
+                          "launches_per_layer": {"flash_fwd": fwd, "flash_dq": 16,
+                                                 "flash_dkv": 16}}}
+
+
+@pytest.mark.parametrize("row,ok", [
+    (_seq_row(), True), (_seq_row("minimal", fwd=32), True), (_seq_row(fwd=32), False),
+    (_seq_row(loss_rel=2e-3), False), (_seq_row(gnorm_rel=3e-2), False),
+    (_seq_row(first_loss=12.0), False)],
+    ids=["flash", "minimal_recomputes", "flash_recomputed", "loss", "grad_norm", "start"])
+def test_seq_row_gate(chip_smoke, row, ok):
+    assert chip_smoke.seq_row_gate(row) is ok
+
+
+def test_seq_row_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
+    """Phase 11 (b) at a small width on the CPU: the flash steps, then one
+    step through the 4-rank ring schedule on the same weights, within the
+    gate's loss and grad-norm bounds. Under remat "flash" each block runs
+    the forward 16 times (4 ranks × 4 steps) and its recompute none; the
+    plain versions stand in for the kernels, so the launch checks fail
+    here only."""
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    _stub_cuda(chip_smoke, monkeypatch)
+    calls = []
+    plain = hf.flash_fwd_plain
+    monkeypatch.setattr(hf, "flash_fwd_plain", lambda *a, **k: calls.append(1) or plain(*a, **k))
+    try:
+        row = chip_smoke.seq_row_steps(hf, device="cpu", width=_TINY_WIDTH, batch_size=2,
+                                       seq=64, profile=False)
+    finally:
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+    ring = row["ring_step"]
+    assert row["remat_policy"] == "flash" and row["seq"] == 64 and row["steps"] == 5
+    assert ring["rel"]["loss"] <= chip_smoke.SEQ_LOSS_RTOL
+    assert ring["rel"]["grad_norm"] <= chip_smoke.SEQ_GNORM_RTOL
+    assert ring["launches"] == {k: 0 for k in chip_smoke.KERNELS}
+    # 5 flash steps of 2 layers, then two ring steps of 2 layers × 16 chunks.
+    assert len(calls) == 5 * 2 + 2 * 2 * 16
+    assert not chip_smoke.seq_row_gate(row)
+    assert chip_smoke.seq_row_gate({**row, "launches_per_step": {
+        k: 2.0 for k in chip_smoke.KERNELS}, "ring_step": {**ring, "launches_per_layer": {
+            "flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16}}})

@@ -12,6 +12,9 @@ seed, from the same flax-initialised tiny Llama (fp32):
 
 - three steps of FSDP2 at 2 and 4 processes, DDP at 2, and HSDP at 2 × 2:
   losses and grad norms within rtol 1e-4, and the parameters after them;
+- three steps of FSDP2 at 2 processes on batches whose ``-100`` labels
+  fall unevenly over the processes: the loss is the token mean of the
+  global batch, as the JAX step's;
 - the collectives of ``utils/operations.py`` against the JAX package's
   own functions, run here with its process count and all-gather replaced
   by the gang's per-process inputs;
@@ -72,6 +75,18 @@ def _batches(n=STEPS, bs=GLOBAL_BATCH, seq=SEQ, vocab=256):
     return out
 
 
+def _uneven(batches):
+    """The batches with labels of -100 that fall unevenly over 2 processes:
+    most of the second half of the rows, and the tail of every sequence."""
+    out = []
+    for b in batches:
+        y = b["y"].copy()
+        y[GLOBAL_BATCH // 2:, 3:] = -100
+        y[:, -5:] = -100
+        out.append({"x": b["x"], "y": y})
+    return out
+
+
 def _reset_port():
     for cls in (AcceleratorState, GradientState, PartialState):
         cls._reset_state()
@@ -121,7 +136,7 @@ def _whole_params(model) -> dict:
 
 
 def _train(ctx, kind, steps=STEPS, save_after=None, load_dir=None, project_dir=None,
-           plugin_kw=None, ga=1):
+           plugin_kw=None, ga=1, batches="batches"):
     """``steps`` steps of the tiny Llama from ctx's flax weights on this
     process's share of each global batch: (loss, grad norm) per step and
     the whole parameters after them."""
@@ -141,7 +156,7 @@ def _train(ctx, kind, steps=STEPS, save_after=None, load_dir=None, project_dir=N
         first = acc.train_state.step
     metrics, saved = [], None
     for i in range(first, steps):
-        _, m = step(acc.train_state, _local(ctx["batches"][i], rank, world))
+        _, m = step(acc.train_state, _local(ctx[batches][i], rank, world))
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
         if save_after is not None and i + 1 == save_after:
             acc.save_state()
@@ -282,6 +297,10 @@ def _job_fsdp_ga2(ctx):
     return _train(ctx, "fsdp", ga=2)
 
 
+def _job_fsdp_uneven(ctx):
+    return _train(ctx, "fsdp", batches="uneven_batches")
+
+
 def _job_save(ctx):
     """FSDP2 for STEPS - 1 steps with a checkpoint after the second, then one
     more step: the checkpoint and the step it resumes into."""
@@ -297,7 +316,7 @@ def _job_resume_jax(ctx):
 JOBS = {"fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
         "dispatcher": _job_dispatcher, "rng": _job_rng, "save": _job_save,
         "options": _job_options, "fsdp_ga2": _job_fsdp_ga2, "per_node": _job_per_node,
-        "resume_jax": _job_resume_jax}
+        "resume_jax": _job_resume_jax, "fsdp_uneven": _job_fsdp_uneven}
 
 
 def _worker(rank, world, init_file, ctx_path, jobs):
@@ -393,13 +412,16 @@ def runs(tmp_path_factory):
     _, ref["fsdp2"], ref["fsdp2_params"] = _jax_train(batches, dict(dp_shard_size=2), True)
     _, ref["ddp"], ref["ddp_params"] = _jax_train(batches, dict(dp_replicate_size=2), False)
     _, ref["fsdp2_ga2"], _ = _jax_train(batches, dict(dp_shard_size=2), True, ga=2)
+    _, ref["fsdp2_uneven"], ref["fsdp2_uneven_params"] = _jax_train(
+        _uneven(batches), dict(dp_shard_size=2), True)
     _, ref["hsdp"], ref["hsdp_params"] = _jax_train(
         batches, dict(dp_replicate_size=2, dp_shard_size=2), True)
-    ctx = {"flax_params": params, "batches": batches, "save_dir": str(tmp / "port4"),
+    ctx = {"flax_params": params, "batches": batches, "uneven_batches": _uneven(batches),
+           "save_dir": str(tmp / "port4"),
            "per_node_dir": str(tmp / "per_node"),
            "jax_ckpt": str(tmp / "jax" / "checkpoints" / "checkpoint_0")}
     two = _spawn(tmp, 2, ["fsdp", "ddp", "collectives", "dispatcher", "rng", "resume_jax",
-                          "options", "fsdp_ga2", "per_node"], ctx)
+                          "options", "fsdp_ga2", "per_node", "fsdp_uneven"], ctx)
     four = _spawn(tmp, 4, ["fsdp", "hsdp", "collectives", "save"], ctx)
     return {"ref": ref, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
 
@@ -492,6 +514,20 @@ def test_gradient_accumulation_matches_jax(runs):
     for r in runs[2]:
         np.testing.assert_allclose(np.array(r["fsdp_ga2"]["metrics"]),
                                    np.array(runs["ref"]["fsdp2_ga2"]), rtol=1e-4)
+
+
+def test_uneven_ignored_labels_give_the_global_token_mean(runs):
+    """Labels of -100 fall unevenly over 2 FSDP2 processes (44 valid labels
+    on one, 12 on the other): the loss and the gradients are those of the
+    token mean over the global batch, the JAX step's, not the mean of the
+    processes' means."""
+    for b in _uneven(_batches()):
+        assert [int(half.sum()) for half in np.split(b["y"] != -100, 2)] == [44, 12]
+    for r in runs[2]:
+        np.testing.assert_allclose(np.array(r["fsdp_uneven"]["metrics"]),
+                                   np.array(runs["ref"]["fsdp2_uneven"]), rtol=1e-4)
+    _assert_params_close(_flax(runs[2][0]["fsdp_uneven"]["params"]),
+                         runs["ref"]["fsdp2_uneven_params"], runs["ctx"]["flax_params"])
 
 
 def test_fsdp_shards_and_ddp_replicates(runs):
@@ -639,7 +675,8 @@ def test_save_on_each_node_writes_once_per_node(runs):
 def test_auto_flash_attention_runs_on_the_data_parallel_mesh(runs):
     for world in (2, 4):
         for r in runs[world]:
-            assert r["collectives"]["mesh"] == (["dp_replicate", "dp_shard"], [1, world])
+            assert r["collectives"]["mesh"] == (["dp_replicate", "dp_shard", "cp", "sp"],
+                                                [1, world, 1, 1])
             assert r["collectives"]["auto_flash_equal"]
 
 
@@ -705,14 +742,21 @@ def test_torchrun_environment_must_be_complete(monkeypatch):
 
 
 def test_world_fill_and_refused_axes():
+    """dp_shard fills the world around the other axes; cp and sp place each
+    process on the 4-D mesh in row-major order; tp, pp and ep raise."""
     assert ParallelismConfig().infer_missing_axis(4).dp_shard_size == 4
     pc = ParallelismConfig(dp_replicate_size=2).infer_missing_axis(8)
     assert (pc.dp_replicate_size, pc.dp_shard_size) == (2, 4)
     with pytest.raises(ValueError, match="does not divide"):
         ParallelismConfig(dp_shard_size=3).infer_missing_axis(4)
-    for axis, item in (("cp_size", "item 3"), ("sp_size", "item 3"), ("tp_size", "item 6"),
-                       ("pp_size", "item 6"), ("ep_size", "item 6")):
-        with pytest.raises(NotImplementedError, match=f"Queue A {item}"):
+    for axis in ("cp", "sp"):
+        pc = ParallelismConfig(**{f"{axis}_size": 2}).infer_missing_axis(8)
+        assert (pc.dp_shard_size, pc.axis_size(axis), pc.seq_size) == (4, 2, 2)
+        assert [pc.coordinates(r)[axis] for r in range(4)] == [0, 1, 0, 1]
+        assert [pc.data_parallel_index(r) for r in range(4)] == [0, 0, 1, 1]
+        assert [pc.sequence_index(r) for r in range(4)] == [0, 1, 0, 1]
+    for axis in ("tp_size", "pp_size", "ep_size"):
+        with pytest.raises(NotImplementedError, match="Queue A item 6"):
             ParallelismConfig(**{axis: 2})
     env = ParallelismConfig(dp_replicate_size=2, dp_shard_size=3).to_env()
     for k, v in env.items():

@@ -357,16 +357,24 @@ class _Mesh:
         return self.shape[i]
 
 
-def test_auto_flash_attention_takes_data_parallel_meshes_only():
+def test_auto_flash_attention_takes_data_parallel_meshes_only(monkeypatch):
     """Over dp_replicate and dp_shard each process attends over its own
-    batch shard; an axis that splits the sequence or the heads raises,
-    naming ring attention and Ulysses."""
+    batch shard; over a cp or sp axis, which splits the sequence, it
+    attends over the whole sequence through the allgather ring over that
+    axis (tests/test_torch_context_parallel.py holds it to the JAX
+    package's); an axis that splits the heads raises, naming Queue A item 6."""
     from accelerate_tpu_torch.ops import auto_flash_attention, flash_attention
+    from accelerate_tpu_torch.parallel import cp
 
     q, k, v = map(torch.from_numpy, _qkv(s=32, hkv=2))
     want = flash_attention(q, k, v)
     for mesh in (None, _Mesh(dp_replicate=2, dp_shard=4), _Mesh(dp_shard=8, cp=1)):
         assert torch.equal(auto_flash_attention(q, k, v, mesh=mesh), want)
-    for mesh in (_Mesh(dp_shard=2, cp=2), _Mesh(tp=2)):
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
-            auto_flash_attention(q, k, v, mesh=mesh)
+    calls = []
+    monkeypatch.setattr(cp, "ring_attention", lambda *a, **kw: calls.append(kw) or a[0])
+    for mesh, axis in ((_Mesh(dp_shard=2, cp=2, sp=1), "cp"), (_Mesh(cp=1, sp=4), "sp")):
+        assert auto_flash_attention(q, k, v, causal=False, mesh=mesh) is q
+        assert calls.pop() == dict(causal=False, mesh=mesh, rotate_method="allgather",
+                                   axis_name=axis)
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        auto_flash_attention(q, k, v, mesh=_Mesh(tp=2))

@@ -112,7 +112,15 @@ def test_remat_policies_keep_gradients_and_name_flash_outputs(policy, fwd_calls,
 
 
 def test_unported_knobs_raise():
+    """The chassis knobs raise; ring and Ulysses attention are ported and,
+    with no cp or sp axis to split the sequence over, give flash's logits."""
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         LlamaConfig.tiny(norm_type="layernorm")
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        LlamaForCausalLM(LlamaConfig.tiny(attention_impl="ring"))
+    base = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32))
+    base.init_weights(torch.Generator().manual_seed(0))
+    ids = torch.from_numpy(_ids()).long()
+    want = base(ids)
+    for impl in ("ring", "ulysses"):
+        model = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32, attention_impl=impl))
+        model.load_state_dict(base.state_dict())
+        assert torch.equal(model(ids), want), impl
