@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of accelerate_tpu: the Llama training loop on NVIDIA
 Hopper GPUs (the train step with hand-written CUDA kernels for flash
 attention, on one GPU or data-parallel over a process group with FSDP2,
-HSDP or DDP; prepared data loaders, learning-rate schedules, and
-checkpoints in the JAX package's directory contract), and KV-cache
+HSDP or DDP, fused or as the imperative loop of ``accumulate``,
+``backward`` and ``optimizer.step()``; prepared data loaders,
+learning-rate schedules, and checkpoints in the JAX package's directory
+contract), and KV-cache
 generation and continuous-batching serving for Llama.
 
 It imports torch only, never JAX or the ``accelerate_tpu`` package, and
@@ -19,6 +21,7 @@ from .data_loader import (
 from .generation import GenerationConfig, generate
 from .model import Model
 from .optimizer import (
+    AcceleratedOptimizer,
     adamw,
     constant_schedule,
     cosine_decay_schedule,
@@ -38,11 +41,13 @@ from .utils import (
     MixedPrecisionPolicy,
     ProjectConfiguration,
     ServingConfig,
+    find_executable_batch_size,
     set_seed,
 )
 from .utils.quantization import quantize_model_for_decode
 
 __all__ = [
+    "AcceleratedOptimizer",
     "AcceleratedScheduler",
     "Accelerator",
     "AcceleratorState",
@@ -65,6 +70,7 @@ __all__ = [
     "adamw",
     "constant_schedule",
     "cosine_decay_schedule",
+    "find_executable_batch_size",
     "generate",
     "join_schedules",
     "linear_schedule",

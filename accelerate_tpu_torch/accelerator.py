@@ -1,5 +1,5 @@
-"""The Accelerator: the subset of ``accelerate_tpu/accelerator.py`` that the
-training loop runs.
+"""The Accelerator: the port of ``accelerate_tpu/accelerator.py``'s training
+surface, in two forms. The fused step:
 
     acc = Accelerator(mixed_precision="bf16",
                       project_config=ProjectConfiguration(project_dir=run_dir,
@@ -14,6 +14,18 @@ training loop runs.
         sched.step()
     acc.save_state()                                            # checkpoints/checkpoint_<i>
     acc.load_state()                                            # the newest, mid-epoch too
+
+and the imperative loop, one microbatch at a time:
+
+    acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=4)
+    model, opt, loader, sched = acc.prepare(model, adamw(schedule), train_spec, schedule)
+    for batch in loader:
+        with acc.accumulate(model):
+            loss = acc.backward(loss_fn, batch)                 # loss_fn(model, batch)
+            acc.clip_grad_norm_(None, 1.0)
+            opt.step()                                          # on the window's last batch
+            sched.step()
+            opt.zero_grad()
 
 The step has the JAX step's semantics: the loss runs on the parameters cast
 to the compute dtype, gradients land on the fp32 masters, accumulate over a
@@ -46,11 +58,30 @@ of the user's own that returns its process's mean gets the mean of the
 processes' means.
 ``gather``, ``gather_for_metrics``, ``reduce`` and ``pad_across_processes``
 run the collectives of ``utils/operations.py``.
+
+The imperative loop has the JAX package's semantics as well.
+``accumulate`` counts microbatches in ``step`` and sets
+``sync_gradients`` on every ``gradient_accumulation_steps``-th one, and
+on a loader's last batch with ``sync_with_dataloader``. ``backward(loss_fn,
+*args)`` runs the forward itself, as the fused step does (the compute
+cast, the loss averaged over processes), backpropagates the loss divided
+by the accumulation steps into the fp32 masters' ``grad`` and returns the
+loss (the mean over processes). The optimizer that ``prepare`` returns
+(``AcceleratedOptimizer``) steps only when ``sync_gradients`` is set.
+``clip_grad_norm_`` arms the clip for every later step and returns the
+global norm of the gradients accumulated so far; the step then scales
+them by ``min(1, max_norm / (norm + 1e-6))``. Over a process group the
+microbatches that do not end a window skip the gradient collectives
+(FSDP2's ``set_requires_gradient_sync(False)``, DDP's ``no_sync``), unless
+``sync_each_batch``; their gradients are then each process's own, so
+``clip_grad_norm_`` there arms the clip and returns None.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+import functools
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -59,11 +90,13 @@ from torch.distributed.tensor import DTensor
 
 from .data_loader import BaseDataLoader, prepare_data_loader, skip_first_batches
 from .model import Model
-from .optimizer import AdamW
+from .logging import get_logger
+from .optimizer import AcceleratedOptimizer, AdamW
 from .parallel import apply_data_parallel
+from .parallel.fsdp import gradient_sync
 from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
-from .state import AcceleratorState, GradientState
+from .state import AcceleratorState, DistributedType, GradientState
 from .train_state import TrainState
 from .utils import operations
 from .utils.dataclasses import (
@@ -76,6 +109,8 @@ from .utils.dataclasses import (
 
 _DP_REST_ITEM = ("ROADMAP.md Queue A item 1 (the rest of data parallelism: "
                  "DISTRIBUTED_STATE_DICT, save_state(block=False))")
+
+logger = get_logger(__name__)
 
 
 def _microbatch_split(batch: dict, num_accum: int) -> list[dict]:
@@ -143,7 +178,14 @@ class Accelerator:
         dataloader_config: Optional[DataLoaderConfiguration] = None,
         project_dir: Optional[str] = None,
         project_config: Optional[ProjectConfiguration] = None,
+        gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
+        step_scheduler_with_optimizer: bool = True,
+        log_with=None,
     ):
+        if log_with is not None:
+            raise NotImplementedError(
+                f"log_with={log_with!r}: trackers are not ported yet "
+                "(ROADMAP.md Queue A item 13)")
         # fsdp_plugin shards the models over a process group (FSDP2); alone,
         # only its state_dict_type acts (the checkpoint's file layout).
         self.fsdp_plugin = fsdp_plugin
@@ -153,21 +195,30 @@ class Accelerator:
         self._mp_policy = MixedPrecisionPolicy.from_mixed_precision(mixed_precision)
         self.state = AcceleratorState(
             mixed_precision=mixed_precision, cpu=cpu, parallelism_config=parallelism_config)
+        # The plugin, when given, decides; as in the JAX package.
         self.gradient_state = GradientState(
-            GradientAccumulationPlugin(num_steps=gradient_accumulation_steps))
+            gradient_accumulation_plugin
+            or GradientAccumulationPlugin(num_steps=gradient_accumulation_steps))
+        self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self.dataloader_config = dataloader_config or DataLoaderConfiguration(
             split_batches=split_batches)
         self._train_states: list[TrainState] = []
         self._models: list[Model] = []
-        self._optimizers: list[torch.optim.Optimizer] = []
+        self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list[AcceleratedScheduler] = []
         self._dataloaders: list[BaseDataLoader] = []
         self._custom_objects: list = []
         self._save_state_pre_hooks: list[Callable] = []
         self._load_state_pre_hooks: list[Callable] = []
-        # Steps of the imperative loop (accumulate), which the port does not
-        # have yet; saved and restored with a checkpoint as the JAX package does.
+        # Microbatches of the imperative loop since the last window ended
+        # (accumulate); saved and restored with a checkpoint.
         self.step = 0
+        # The imperative loop's clip, armed by clip_grad_norm_ for every
+        # later step, and whether the gradients are each process's own (a
+        # window that skips the collectives).
+        self._max_grad_norm: Optional[float] = None
+        self._grads_local = False
+        self.flag_tensor: Optional[torch.Tensor] = None
         # The last save_state/load_state: its directory and seconds, split
         # into host copies and disk; a save also counts its bytes.
         self.checkpoint_stats: Optional[dict] = None
@@ -192,6 +243,46 @@ class Accelerator:
     def is_main_process(self) -> bool:
         return self.process_index == 0
 
+    @property
+    def is_last_process(self) -> bool:
+        return self.state._partial.is_last_process
+
+    @property
+    def distributed_type(self) -> DistributedType:
+        return self.state._partial.distributed_type
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.state._partial.use_distributed
+
+    @property
+    def mixed_precision(self) -> str:
+        return self.state.mixed_precision
+
+    @property
+    def split_batches(self) -> bool:
+        return self.dataloader_config.split_batches
+
+    @property
+    def even_batches(self) -> bool:
+        return self.dataloader_config.even_batches
+
+    @property
+    def sync_gradients(self) -> bool:
+        return self.gradient_state.sync_gradients
+
+    @property
+    def gradient_accumulation_steps(self) -> int:
+        return self.gradient_state.num_steps
+
+    @gradient_accumulation_steps.setter
+    def gradient_accumulation_steps(self, value: int):
+        self.gradient_state.plugin_kwargs.update({"num_steps": value})
+
+    @property
+    def optimizer_step_was_skipped(self) -> bool:
+        return any(opt.step_was_skipped for opt in self._optimizers)
+
     # This process's coordinate on a mesh axis, as the JAX package names them.
 
     @property
@@ -212,6 +303,44 @@ class Accelerator:
 
     def wait_for_everyone(self) -> None:
         self.state._partial.wait_for_everyone()
+
+    # Process control: PartialState's helpers.
+
+    def on_main_process(self, function):
+        return self.state._partial.on_main_process(function)
+
+    def on_local_main_process(self, function):
+        return self.state._partial.on_local_main_process(function)
+
+    def on_last_process(self, function):
+        return self.state._partial.on_last_process(function)
+
+    def on_process(self, function=None, process_index=None):
+        if function is None:
+            return functools.partial(self.on_process, process_index=process_index)
+        return self.state._partial.on_process(function, process_index)
+
+    def on_local_process(self, function=None, local_process_index=None):
+        if function is None:
+            return functools.partial(self.on_local_process,
+                                     local_process_index=local_process_index)
+        return self.state._partial.on_local_process(function, local_process_index)
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        with self.state._partial.main_process_first():
+            yield
+
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        with self.state._partial.local_main_process_first():
+            yield
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.state._partial.split_between_processes(inputs, apply_padding=apply_padding)
+
+    def print(self, *args, **kwargs):
+        self.state._partial.print(*args, **kwargs)
 
     @property
     def project_dir(self) -> Optional[str]:
@@ -245,10 +374,14 @@ class Accelerator:
                 if model.sharded and not isinstance(obj, AdamW):
                     raise ValueError("under FSDP2 pass adamw(...), so that prepare() builds "
                                      "the optimizer on the sharded parameters")
+                if isinstance(obj, AcceleratedOptimizer):
+                    obj = obj.optimizer
                 opt = obj(model.parameters()) if isinstance(obj, AdamW) else obj
+                # The train state (the fused step, checkpoints) keeps the
+                # optimizer itself; the caller gets the imperative loop's.
                 self._train_states.append(TrainState(step=0, model=model, optimizer=opt))
-                self._optimizers.append(opt)
-                out[i] = opt
+                self._optimizers.append(AcceleratedOptimizer(opt, accelerator=self))
+                out[i] = self._optimizers[-1]
         for i, obj in enumerate(args):
             if isinstance(obj, (Model, AdamW, torch.optim.Optimizer)):
                 continue
@@ -287,6 +420,7 @@ class Accelerator:
         else:
             wrapped = AcceleratedScheduler(
                 scheduler, optimizers=self._optimizers or None,
+                step_with_optimizer=self.step_scheduler_with_optimizer,
                 split_batches=self.dataloader_config.split_batches)
         if wrapped not in self._schedulers:
             self._schedulers.append(wrapped)
@@ -302,16 +436,16 @@ class Accelerator:
     # The train step
     # ------------------------------------------------------------------
 
-    def _to_device(self, batch: dict) -> dict:
-        """A hand-built batch (numpy arrays or host tensors) on the device; a
-        batch that a prepared loader already placed passes as it is."""
-        def place(v):
-            if torch.is_tensor(v) and v.device == self.device:
-                return v
-            return torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v)).to(
-                self.device, non_blocking=True)
+    def _place(self, v) -> torch.Tensor:
+        """A host value (numpy array, host tensor) on the device; a tensor a
+        prepared loader already placed passes as it is."""
+        if torch.is_tensor(v) and v.device == self.device:
+            return v
+        return torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v)).to(
+            self.device, non_blocking=True)
 
-        return {k: place(v) for k, v in batch.items()}
+    def _to_device(self, batch: dict) -> dict:
+        return {k: self._place(v) for k, v in batch.items()}
 
     def prepare_train_step(self, loss_fn: Callable, *, max_grad_norm: Optional[float] = None):
         """``step(state, batch) -> (state, {"loss", "grad_norm"})`` around
@@ -367,6 +501,146 @@ class Accelerator:
         return step
 
     # ------------------------------------------------------------------
+    # The imperative loop
+    # ------------------------------------------------------------------
+
+    @contextlib.contextmanager
+    def accumulate(self, *models):
+        """One microbatch of an accumulation window: sets ``sync_gradients``
+        when the microbatch ends the window. ``models`` are taken for the
+        JAX package's signature; ``backward`` acts on the prepared model."""
+        self._do_sync()
+        yield
+
+    def _do_sync(self) -> None:
+        gs = self.gradient_state
+        if gs.sync_with_dataloader and gs.end_of_dataloader:
+            self.step = 0
+            gs._set_sync_gradients(True)
+        else:
+            self.step += 1
+            gs._set_sync_gradients(self.step % gs.num_steps == 0)
+
+    @contextlib.contextmanager
+    def no_sync(self, model=None):
+        """Inside the block ``sync_gradients`` is False: ``backward`` skips
+        the gradient collectives and the optimizer does not step."""
+        old = self.gradient_state.sync_gradients
+        self.gradient_state._set_sync_gradients(False)
+        try:
+            yield
+        finally:
+            self.gradient_state._set_sync_gradients(old)
+
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables, even_batches: Optional[bool] = None):
+        """Overrides the prepared loaders' ``even_batches`` inside the block
+        and restores it on exit, as the JAX package does. Every process must
+        still run as many microbatches: the loss's token count is
+        all-reduced on each one."""
+        overridden = []
+        if even_batches is not None:
+            for dl in self._dataloaders:
+                sampler = getattr(dl, "batch_sampler", None)
+                if hasattr(sampler, "even_batches"):
+                    overridden.append((sampler, sampler.even_batches))
+                    sampler.even_batches = even_batches
+        try:
+            yield
+        finally:
+            for sampler, old in overridden:
+                sampler.even_batches = old
+
+    def backward(self, loss_fn: Callable, *args, has_aux: bool = False, **kwargs):
+        """Run ``loss_fn(model, *args, **kwargs)`` on the prepared model and
+        accumulate the gradients of the loss divided by the accumulation
+        steps in the fp32 masters' ``grad``. Returns the loss (detached, not
+        divided; the mean over processes), and ``aux`` when ``has_aux``
+        (``loss_fn`` then returns ``(loss, aux)``).
+
+        The JAX package's signature: a loss function and its inputs, not a
+        loss tensor. Host arrays among the inputs go to the device. The
+        forward runs as in the fused step: on the parameters cast to the
+        compute dtype (FSDP2's policy under a plugin), with the loss averaged
+        over the processes. A microbatch that does not end the window skips
+        the gradient collectives unless ``sync_each_batch``; the one that
+        ends it reduces them and averages the parameters FSDP2 leaves whole."""
+        if torch.is_tensor(loss_fn) or not callable(loss_fn):
+            raise TypeError(
+                "backward() takes the loss function and its inputs, as the JAX package's "
+                "does: accelerator.backward(loss_fn, batch) with loss_fn(model, batch) -> "
+                f"scalar loss; got a {type(loss_fn).__name__}")
+        if not self._train_states:
+            raise RuntimeError("Call accelerator.prepare(...) before backward().")
+        model = self._train_states[0].model
+        gs, world = self.gradient_state, self.num_processes
+        communicate = gs.sync_gradients or gs.sync_each_batch
+        args, kwargs = operations.recursively_apply(self._place, (args, kwargs))
+        with operations.loss_over_processes(world), gradient_sync(model, communicate):
+            cast = (contextlib.nullcontext() if model.sharded else model.compute_params(
+                self._mp_policy.cast_for_compute(dict(model.module.named_parameters()))))
+            with cast:
+                out = loss_fn(model, *args, **kwargs)
+                loss, aux = out if has_aux else (out, None)
+                loss = loss.float()
+                (loss / gs.num_steps).backward()
+        if communicate and world > 1:
+            for p in model.ignored.values():
+                if p.grad is not None:
+                    dist.all_reduce(p.grad)
+                    p.grad.div_(world)
+        # A reducing backward reduces what earlier microbatches accumulated too.
+        self._grads_local = not communicate and self.use_distributed
+        loss = loss.detach()
+        if world > 1:
+            dist.all_reduce(loss)
+            loss = loss / world
+        return (loss, aux) if has_aux else loss
+
+    def _grads(self, train_state) -> list:
+        return [p.grad for p in train_state.model.parameters()
+                if p.requires_grad and p.grad is not None]
+
+    def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0, norm_type: float = 2.0):
+        """Arm the clip for this and every later optimizer step, and return
+        the global L2 norm of the gradients accumulated so far (a device
+        scalar; FSDP2's shards counted once). ``parameters`` is taken for
+        the signature: the clip acts on the prepared model. None without
+        gradients, or while the window's gradients are each process's own."""
+        if norm_type != 2.0:
+            raise NotImplementedError("Only L2 grad-norm clipping is supported, as in the "
+                                      "JAX package")
+        self._max_grad_norm = float(max_norm)
+        grads = self._grads(self._train_states[0]) if self._train_states else []
+        if not grads or self._grads_local:
+            return None
+        return _global_norm(grads)
+
+    def clip_grad_value_(self, parameters=None, clip_value: float = 1.0):
+        raise NotImplementedError(
+            "clip_grad_value_ is not supported; use clip_grad_norm_, as in the JAX package "
+            "(clipping each value breaks the linearity of the data-parallel mean)")
+
+    def unscale_gradients(self, optimizer=None):
+        """A no-op: without fp16 loss scaling the gradients are never scaled."""
+        return None
+
+    def _apply_gradients(self, optimizer: torch.optim.Optimizer) -> None:
+        """The optimizer step of a window (``AcceleratedOptimizer.step``):
+        the armed clip, by the global norm of the gradients as they are
+        now, then ``optimizer.step()``. Nothing without gradients."""
+        state = next(st for st in self._train_states if st.optimizer is optimizer)
+        grads = self._grads(state)
+        if not grads:
+            return
+        if self._max_grad_norm is not None:
+            factor = torch.clamp(self._max_grad_norm / (_global_norm(grads) + 1e-6), max=1.0)
+            torch._foreach_mul_([_local(g) for g in grads], factor)
+        optimizer.step()
+        state.step += 1
+        self._grads_local = False
+
+    # ------------------------------------------------------------------
     # Collectives across processes (utils/operations.py)
     # ------------------------------------------------------------------
 
@@ -396,6 +670,87 @@ class Accelerator:
                              pad_first: bool = False):
         return operations.pad_across_processes(tensor, dim=dim, pad_index=pad_index,
                                                pad_first=pad_first)
+
+    def set_trigger(self) -> None:
+        """Raise this process's flag; ``check_trigger`` sees it on every
+        process."""
+        self.flag_tensor = torch.tensor(1, device=self.device)
+
+    def check_trigger(self) -> bool:
+        """Whether any process raised its flag since the last check that
+        saw one (a sum over processes); lowers it."""
+        if self.flag_tensor is None:
+            self.flag_tensor = torch.tensor(0, device=self.device)
+        if int(operations.reduce(self.flag_tensor, reduction="sum")) >= 1:
+            self.flag_tensor = torch.tensor(0, device=self.device)
+            return True
+        return False
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler=None):
+        """A no-op that warns once: the compute dtype is the precision
+        policy's, applied by ``backward`` and the fused step to the cast
+        copies of the parameters (``Model.compute_params``)."""
+        logger.warning_once(
+            "Accelerator.autocast() does nothing: mixed precision is a policy applied inside "
+            "backward() and the prepared train step (mixed_precision=%s).",
+            self.state.mixed_precision)
+        yield
+
+    # ------------------------------------------------------------------
+    # Exporting weights, and freeing memory
+    # ------------------------------------------------------------------
+
+    def get_state_dict(self, model: Model, unwrap: bool = True) -> dict:
+        """The model's whole fp32 parameters on the host, under the flat
+        ``/``-joined names and layouts of the JAX package's ``get_state_dict``
+        for the same model (the flax tree, ``models/convert.py``). Every
+        process joins the gathers of FSDP2's shards and gets the whole."""
+        from .checkpointing import _flat_model_tree, _to_host, _whole
+
+        whole = {n: _whole(p.detach(), self.device)
+                 for n, p in model.module.named_parameters()}
+        return _to_host(_flat_model_tree(model.module, whole), self.device)
+
+    def save_model(self, model: Model, save_directory: str,
+                   max_shard_size: Union[int, str] = "5GB", safe_serialization: bool = True):
+        """``get_state_dict(model)`` written by the main process as
+        ``model.safetensors``, or shards of ``max_shard_size`` and
+        ``model.safetensors.index.json``: the files and keys of the JAX
+        package's ``save_model``."""
+        from .utils.other import save_sharded_safetensors
+
+        if not safe_serialization:
+            raise ValueError("save_model writes safetensors: safe_serialization=False has no "
+                             "other format")
+        flat = self.get_state_dict(model)
+        if self.is_main_process:
+            save_sharded_safetensors(flat, save_directory, max_shard_size=max_shard_size)
+        self.wait_for_everyone()
+
+    def save(self, obj, f, safe_serialization: bool = False) -> None:
+        """``obj`` written once (once per node with ``save_on_each_node``):
+        safetensors for a flat dict of tensors when ``safe_serialization``,
+        else ``torch.save``."""
+        operations.save(obj, f, save_on_each_node=self.project_configuration.save_on_each_node,
+                        safe_serialization=safe_serialization)
+
+    def free_memory(self, *objects):
+        """Drop every prepared object this Accelerator holds and the
+        imperative loop's state, then ``release_memory(*objects)``: returns
+        a None for each, and the caller rebinds its own names to them."""
+        from .utils.memory import release_memory
+
+        for held in (self._train_states, self._models, self._optimizers, self._schedulers,
+                     self._dataloaders):
+            held.clear()
+        self.step = 0
+        self._max_grad_norm = self.flag_tensor = None
+        self._grads_local = False
+        return release_memory(*objects)
+
+    def clear(self, *objects):
+        return self.free_memory(*objects)
 
     # ------------------------------------------------------------------
     # Checkpoints

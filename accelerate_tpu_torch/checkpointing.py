@@ -216,6 +216,13 @@ def _model_tree(module: torch.nn.Module, tensors: dict) -> dict:
     return unflatten_state_dict({k.replace(".", "/"): v for k, v in tensors.items()})
 
 
+def _flat_model_tree(module: torch.nn.Module, tensors: dict) -> dict:
+    """``_model_tree`` flattened to ``/``-joined names, in sorted order: the
+    order of the JAX package's prepared params (JAX's tree functions sort
+    dict keys), so that shards split at the same keys."""
+    return dict(sorted(flatten_state_dict(_model_tree(module, tensors)).items()))
+
+
 def _model_views(module: torch.nn.Module, tree: dict) -> dict:
     """Inverse of ``_model_tree``: parameter name → tensor (a view where the
     layout allows) in the module's layout."""
@@ -277,7 +284,7 @@ def _save_train_state(train_state, i: int, write_dir: str, max_shard, device,
             if writer:
                 whole[n] = full
         if writer:
-            host[key] = _to_host(flatten_state_dict(_model_tree(module, whole)), device)
+            host[key] = _to_host(_flat_model_tree(module, whole), device)
         del whole
     stats["d2h_s"] += time.perf_counter() - t0
     if not writer:

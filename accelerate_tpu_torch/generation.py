@@ -18,7 +18,7 @@
 
 The other generation plans (GPT-2, OPT, NeoX, Mixtral, T5, Whisper), beam
 search and speculative decoding are not ported yet (ROADMAP.md Queue A
-items 6 and 8).
+items 8 and 10).
 """
 
 from __future__ import annotations
@@ -33,9 +33,9 @@ import torch.nn.functional as F
 from .models.llama import apply_rope, rms_norm, rotary_embedding
 from .utils.quantization import DecodeQuant, dequantize_decode_kernel
 
-_QUANT_PAGES_ITEM = "ROADMAP.md Queue A item 6 (int8 KV pages, QuantPages)"
-_OTHER_MODELS_ITEM = "ROADMAP.md Queue A item 8 (the other models)"
-_COMPILE_MANAGER_ITEM = "ROADMAP.md Queue A item 9 (control plane: compile_manager.py)"
+_QUANT_PAGES_ITEM = "ROADMAP.md Queue A item 8.1 (int8 KV pages, QuantPages)"
+_OTHER_MODELS_ITEM = "ROADMAP.md Queue A item 10 (the other models)"
+_COMPILE_MANAGER_ITEM = "ROADMAP.md Queue A item 12 (control plane: compile_manager.py)"
 
 
 @dataclasses.dataclass

@@ -25,7 +25,7 @@ matmul output.
 
 The decoder-chassis knobs of the JAX config (layernorm, biases, partial
 rotary, Granite and Gemma constants, fp8) are not ported yet: a config that
-sets one raises ``NotImplementedError`` (ROADMAP.md Queue A item 8).
+sets one raises ``NotImplementedError`` (ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ class LlamaConfig:
         changed = [k for k, plain in _UNPORTED_KNOBS.items() if getattr(self, k) != plain]
         if changed:
             raise NotImplementedError(
-                f"LlamaConfig knobs {changed} are not ported yet (ROADMAP.md Queue A item 8)")
+                f"LlamaConfig knobs {changed} are not ported yet (ROADMAP.md Queue A item 10)")
         if self.remat_policy not in ("flash", "dots", "minimal"):
             raise ValueError(f"remat_policy must be flash|dots|minimal, got {self.remat_policy}")
 

@@ -11,6 +11,10 @@ bias-corrected moments m̂ and v̂, optax applies
 from the moments, scale it by the learning rate, and apply it to the
 parameter before the step. optax's ``eps_root`` is 0 by default, as here.
 
+``Accelerator.prepare`` hands back an ``AcceleratedOptimizer`` around the
+built one for the imperative loop (``accumulate``/``backward``/``step``);
+the train state keeps the built optimizer itself.
+
 The learning rate is a float or a schedule ``schedule(count) -> lr``. optax
 evaluates the schedule at the update count before it increments
 (``scale_by_schedule``), so update k (from 0) uses ``schedule(k)``;
@@ -28,6 +32,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Sequence, Union
 
 import torch
+
+from .state import GradientState
 
 Schedule = Callable[[int], float]
 
@@ -147,5 +153,72 @@ def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.
     fp32: a lower ``mu_dtype`` is not ported."""
     if mu_dtype not in (None, torch.float32):
         raise NotImplementedError(
-            f"mu_dtype={mu_dtype} is not ported yet (ROADMAP.md Queue A item 7)")
+            f"mu_dtype={mu_dtype} is not ported yet (ROADMAP.md Queue A item 9)")
     return AdamW(learning_rate, b1, b2, eps, weight_decay)
+
+
+class AcceleratedOptimizer(torch.optim.Optimizer):
+    """The prepared optimizer as the imperative loop drives it.
+
+    Counterpart of ``accelerate_tpu/optimizer.py``. ``step()`` applies the
+    gradients accumulated on the parameters (``Accelerator.backward``) only
+    when ``GradientState.sync_gradients`` is set, through
+    ``Accelerator._apply_gradients`` (the parameters the FSDP plugin leaves
+    whole averaged over the processes, then the armed clip), and is a no-op
+    inside an accumulation window or with no gradient to apply;
+    ``zero_grad()`` is a no-op inside a window. ``param_groups``, ``state``,
+    ``defaults``, ``state_dict`` and ``load_state_dict`` are the wrapped
+    optimizer's. It does not run ``torch.optim.Optimizer.__init__``: the
+    wrapped optimizer holds the parameters and the hooks."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, accelerator=None):
+        self.optimizer = optimizer
+        self.gradient_state = GradientState()
+        self._accelerator = accelerator
+        # fp16 overflow skips are not ported (no loss scaling): every step
+        # that runs is applied.
+        self._is_overflow = False
+
+    @property
+    def state(self):
+        return self.optimizer.state
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    @property
+    def defaults(self):
+        return self.optimizer.defaults
+
+    def state_dict(self):
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state_dict):
+        self.optimizer.load_state_dict(state_dict)
+
+    def zero_grad(self, set_to_none: bool = True):
+        if self.gradient_state.sync_gradients:
+            self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    def step(self, closure=None):
+        if not self.gradient_state.sync_gradients:
+            return None
+        if self._accelerator is None:
+            raise RuntimeError("This optimizer is not bound to an Accelerator; pass it "
+                               "through accelerator.prepare(...) first.")
+        self._accelerator._apply_gradients(self.optimizer)
+        return None
+
+    @property
+    def step_was_skipped(self) -> bool:
+        """Whether the last step was skipped (fp16 overflow); never here."""
+        return self._is_overflow
+
+    def train(self):
+        if hasattr(self.optimizer, "train"):
+            self.optimizer.train()
+
+    def eval(self):
+        if hasattr(self.optimizer, "eval"):
+            self.optimizer.eval()

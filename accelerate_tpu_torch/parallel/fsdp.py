@@ -27,6 +27,12 @@ the sharded masters stay fp32, each all-gather casts them, and gradients
 are reduce-scattered in fp32, as the one-process step casts the masters
 for its forward and lands fp32 gradients on them.
 
+The imperative loop's microbatches that do not end an accumulation
+window skip the gradient collectives (``gradient_sync``): FSDP2 keeps the
+unsharded fp32 gradients on each process until the microbatch that ends
+the window reduce-scatters their sum; DDP's ``no_sync`` keeps each
+process's gradients until the next synchronised backward all-reduces them.
+
 The plugin's fields that map onto FSDP2 are honoured: ``reshard_after_forward``,
 ``cpu_offload`` (``CPUOffloadPolicy``: masters, gradients and the optimizer
 step on the host), ``ignored_params`` (regular expressions on parameter
@@ -39,6 +45,7 @@ averages their gradients itself, as the JAX package replicates them) and
 from __future__ import annotations
 
 import re
+from contextlib import contextmanager
 
 import torch
 from torch import nn
@@ -113,3 +120,26 @@ def apply_data_parallel(model, state, plugin, compute_dtype: torch.dtype) -> Non
         model.sharded = True
     else:
         model.forward_module = apply_ddp(model.module, state.device)
+
+
+@contextmanager
+def gradient_sync(model, enabled: bool):
+    """A forward and backward of ``model`` (a ``Model``) inside the block
+    reduce the gradients over the processes, or with ``enabled=False``
+    leave each process's own to accumulate: FSDP2's
+    ``set_requires_gradient_sync(False)`` on the root (it recurses), turned
+    back on at exit; DDP's ``no_sync()``, which DDP reads when the forward
+    runs. Alone, nothing to skip."""
+    if enabled:
+        yield
+    elif model.sharded:
+        model.module.set_requires_gradient_sync(False)
+        try:
+            yield
+        finally:
+            model.module.set_requires_gradient_sync(True)
+    elif model.forward_module is not model.module:
+        with model.forward_module.no_sync():
+            yield
+    else:
+        yield

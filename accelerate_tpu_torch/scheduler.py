@@ -6,8 +6,11 @@ schedules). The optimizer built by ``adamw(schedule)`` evaluates the
 schedule itself, at its own update count, so the rate it applies does not
 depend on this wrapper; the wrapper keeps an explicit count for
 ``get_last_lr``, logging and checkpoints (``scheduler.bin``). ``step()``
-counts only when the optimizer really stepped, ``num_processes`` times
-unless ``split_batches``.
+counts only when the optimizer really stepped: on the microbatch that
+ends an accumulation window (``GradientState.sync_gradients``) and not
+after a skipped step, ``num_processes`` times unless ``split_batches``.
+``adjust_scheduler`` has nothing to adjust: a schedule is a pure function
+of the count.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ class AcceleratedScheduler:
             return
         if not self.gradient_state.sync_gradients:
             return
+        if any(getattr(opt, "step_was_skipped", False) for opt in self.optimizers):
+            return
         self._step_count += 1 if self.split_batches else PartialState().num_processes
 
     def get_last_lr(self):
@@ -40,6 +45,9 @@ class AcceleratedScheduler:
         if callable(self.scheduler):
             return float(self.scheduler(self._step_count))
         return float(self.scheduler)
+
+    def get_lr(self):
+        return self.get_last_lr()
 
     def state_dict(self):
         return {"step_count": self._step_count}

@@ -35,8 +35,8 @@ Not ported yet, and refused where they would be set: the int8 KV cache,
 speculation, admission control and SLOs (deadlines, queue bounds, retries,
 the hang guard), the journal, telemetry, tracing, chaos, fault tolerance,
 the compile manager, canary and weight swaps, crash recovery and the SDC
-canary (ROADMAP.md Queue A items 5, 6 and 9), and generation plans other
-than Llama's (item 8).
+canary (ROADMAP.md Queue A items 7, 8 and 12), and generation plans other
+than Llama's (item 10).
 """
 
 from __future__ import annotations
@@ -63,14 +63,14 @@ from .utils.dataclasses import ServingConfig
 
 # Engine arguments of the JAX package that the port does not take yet.
 _UNPORTED_ENGINE_ARGS = {
-    "forward_cached": "ROADMAP.md Queue A item 8 (the other models' generation plans)",
-    "compile_manager": "ROADMAP.md Queue A item 9 (control plane: compile_manager.py)",
-    "telemetry": "ROADMAP.md Queue A item 5 (telemetry and profiler)",
-    "profiler": "ROADMAP.md Queue A item 5 (telemetry and profiler)",
-    "fault_tolerance": "ROADMAP.md Queue A item 9 (control plane: preemption drain)",
-    "chaos": "ROADMAP.md Queue A item 9 (control plane: chaos.py)",
-    "tracing": "ROADMAP.md Queue A item 9 (control plane: tracing.py)",
-    "journal": "ROADMAP.md Queue A item 9 (control plane: journal.py)",
+    "forward_cached": "ROADMAP.md Queue A item 10 (the other models' generation plans)",
+    "compile_manager": "ROADMAP.md Queue A item 12 (control plane: compile_manager.py)",
+    "telemetry": "ROADMAP.md Queue A item 7 (telemetry and profiler)",
+    "profiler": "ROADMAP.md Queue A item 7 (telemetry and profiler)",
+    "fault_tolerance": "ROADMAP.md Queue A item 12 (control plane: preemption drain)",
+    "chaos": "ROADMAP.md Queue A item 12 (control plane: chaos.py)",
+    "tracing": "ROADMAP.md Queue A item 12 (control plane: tracing.py)",
+    "journal": "ROADMAP.md Queue A item 12 (control plane: journal.py)",
 }
 
 

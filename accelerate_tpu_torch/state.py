@@ -22,9 +22,12 @@ from __future__ import annotations
 
 import enum
 import os
+from contextlib import contextmanager
 from datetime import timedelta
-from typing import Optional
+from functools import wraps
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -125,6 +128,10 @@ class PartialState:
     def is_local_main_process(self) -> bool:
         return self.local_process_index == 0
 
+    @property
+    def is_last_process(self) -> bool:
+        return self.process_index == self.num_processes - 1
+
     def wait_for_everyone(self) -> None:
         """A barrier across the group; alone, nothing to wait for."""
         if self.use_distributed:
@@ -132,6 +139,87 @@ class PartialState:
                 dist.barrier(device_ids=[self.device.index])
             else:
                 dist.barrier()
+
+    @contextmanager
+    def main_process_first(self):
+        """The main process runs the body first; the others wait for it,
+        then run it."""
+        with self._first(self.is_main_process):
+            yield
+
+    @contextmanager
+    def local_main_process_first(self):
+        """As ``main_process_first``, with each node's local main process."""
+        with self._first(self.is_local_main_process):
+            yield
+
+    @contextmanager
+    def _first(self, leader: bool):
+        if not leader:
+            self.wait_for_everyone()
+        yield
+        if leader:
+            self.wait_for_everyone()
+
+    def on_process(self, function: Callable = None, process_index: int = None):
+        """Decorator: ``function`` runs on process ``process_index`` only and
+        returns None elsewhere."""
+        return self._only_if(function, lambda: self.process_index == process_index)
+
+    def on_main_process(self, function: Callable = None):
+        return self._only_if(function, lambda: self.is_main_process)
+
+    def on_local_main_process(self, function: Callable = None):
+        return self._only_if(function, lambda: self.is_local_main_process)
+
+    def on_last_process(self, function: Callable):
+        return self._only_if(function, lambda: self.is_last_process)
+
+    def on_local_process(self, function: Callable = None, local_process_index: int = None):
+        return self._only_if(function, lambda: self.local_process_index == local_process_index)
+
+    @staticmethod
+    def _only_if(function: Callable, here: Callable[[], bool]) -> Callable:
+        @wraps(function)
+        def wrapper(*args, **kwargs):
+            if here():
+                return function(*args, **kwargs)
+
+        return wrapper
+
+    @contextmanager
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        """This process's contiguous share of a list, tuple, tensor, array or
+        dict of them (each value split alike). Shares differ by at most one
+        element, the longer ones first; ``apply_padding`` repeats the last
+        element so that every share has the longest length."""
+        if self.num_processes == 1:
+            yield inputs
+            return
+        per, extra = divmod(len(next(iter(inputs.values())) if isinstance(inputs, dict)
+                                 else inputs), self.num_processes)
+        start = self.process_index * per + min(self.process_index, extra)
+        end = start + per + (1 if self.process_index < extra else 0)
+        target = per + (1 if extra else 0)
+
+        def share(x):
+            part = x[start:end]
+            if not apply_padding or len(part) >= target:
+                return part
+            fill = target - len(part)
+            if torch.is_tensor(x):
+                return torch.cat([part, x[-1:].expand(fill, *x.shape[1:])])
+            if isinstance(x, np.ndarray):
+                return np.concatenate([part, np.repeat(x[-1:], fill, axis=0)])
+            return list(part) + [x[-1]] * fill
+
+        yield ({k: share(v) for k, v in inputs.items()} if isinstance(inputs, dict)
+               else share(inputs))
+
+    def print(self, *args, **kwargs):
+        """``print`` on each node's local main process only."""
+        if self.is_local_main_process:
+            print(*args, **kwargs)
 
     @classmethod
     def _reset_state(cls):
@@ -239,20 +327,42 @@ class GradientState:
     stack, innermost last) and flags ``end_of_dataloader`` when the batch it
     just yielded is its last (a one-batch lookahead); ``remainder`` is the
     number of real samples in the last global batch when the loader pads
-    it, else -1. ``sync_gradients`` stays True: the fused train step
-    applies every optimizer step (the imperative ``accumulate`` loop that
-    toggles it is ROADMAP.md Queue A item 3)."""
+    it, else -1. ``sync_gradients`` says whether the current microbatch
+    ends an accumulation window: ``Accelerator.accumulate`` sets it, the
+    optimizer steps and the gradients are reduced over the processes only
+    when it is set (or on every microbatch with ``sync_each_batch``). The
+    fused train step leaves it at True. The plugin's fields live in
+    ``plugin_kwargs`` (``GradientAccumulationPlugin.to_kwargs()``)."""
 
     _shared_state: dict = {}
 
     def __init__(self, gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None):
         self.__dict__ = self._shared_state
-        if "num_steps" not in self._shared_state:
-            self.num_steps = 1
+        if "sync_gradients" not in self._shared_state:
             self.sync_gradients = True
             self.dataloader_references = [None]
+            self.plugin_kwargs = {}
         if gradient_accumulation_plugin is not None:
-            self.num_steps = gradient_accumulation_plugin.num_steps or 1
+            self.plugin_kwargs = gradient_accumulation_plugin.to_kwargs()
+
+    @property
+    def num_steps(self) -> int:
+        return self.plugin_kwargs.get("num_steps") or 1
+
+    @property
+    def adjust_scheduler(self) -> bool:
+        return self.plugin_kwargs.get("adjust_scheduler", True)
+
+    @property
+    def sync_with_dataloader(self) -> bool:
+        return self.plugin_kwargs.get("sync_with_dataloader", True)
+
+    @property
+    def sync_each_batch(self) -> bool:
+        return self.plugin_kwargs.get("sync_each_batch", False)
+
+    def _set_sync_gradients(self, sync_gradients: bool) -> None:
+        self.sync_gradients = sync_gradients
 
     @property
     def active_dataloader(self):

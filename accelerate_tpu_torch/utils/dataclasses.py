@@ -15,8 +15,8 @@ import torch
 _DP_REST_ITEM = ("ROADMAP.md Queue A item 1 (the rest of data parallelism: "
                  "DISTRIBUTED_STATE_DICT, save_state(block=False), FSDP plugin fields beyond "
                  "FSDP2's)")
-_DATA_LOADER_ITEM = "ROADMAP.md Queue A item 3 (data loader: the imperative loop)"
-_CONTROL_PLANE_ITEM = "ROADMAP.md Queue A item 9 (control plane)"
+_REDUCED_PRECISION_ITEM = "ROADMAP.md Queue A item 9 (fp8 and reduced precision)"
+_CONTROL_PLANE_ITEM = "ROADMAP.md Queue A item 12 (control plane)"
 
 
 def _refuse_non_defaults(obj, item, honoured: tuple = ()) -> None:
@@ -45,8 +45,7 @@ class MixedPrecisionPolicy:
     output_dtype: Any = torch.float32
 
     def __post_init__(self):
-        _refuse_non_defaults(self, "ROADMAP.md Queue A item 7 (fp8 and reduced precision)",
-                             honoured=("compute_dtype",))
+        _refuse_non_defaults(self, _REDUCED_PRECISION_ITEM, honoured=("compute_dtype",))
 
     @classmethod
     def from_mixed_precision(cls, mixed_precision: Optional[str]) -> "MixedPrecisionPolicy":
@@ -57,7 +56,7 @@ class MixedPrecisionPolicy:
         if mixed_precision in ("fp16", "fp8"):
             raise NotImplementedError(
                 f"mixed_precision={mixed_precision!r} is not ported yet (fp16 needs "
-                "DynamicLossScale; fp8 is ROADMAP.md Queue A item 7)")
+                f"DynamicLossScale; both are {_REDUCED_PRECISION_ITEM})")
         raise ValueError(f"Unknown mixed precision {mixed_precision}")
 
     def cast_for_compute(self, tensors: dict) -> dict:
@@ -71,17 +70,27 @@ class MixedPrecisionPolicy:
 
 @dataclass
 class GradientAccumulationPlugin:
-    """``num_steps`` microbatches per optimizer step. The other fields
-    couple the imperative loop (``accumulate``) to the data loader, and
-    wait for that loop."""
+    """How ``Accelerator.accumulate`` windows the imperative loop.
+
+    - ``num_steps``: microbatches per optimizer step.
+    - ``adjust_scheduler``: the JAX package's flag; a schedule here is a
+      pure function of the optimizer's update count, so it needs no
+      adjusting either way.
+    - ``sync_with_dataloader``: the last batch of a loader ends the window,
+      however many microbatches it holds.
+    - ``sync_each_batch``: reduce the gradients over the processes on every
+      microbatch (memory held flat at the price of the communication); the
+      optimizer still steps only when the window ends."""
 
     num_steps: int = None
     adjust_scheduler: bool = True
     sync_with_dataloader: bool = True
     sync_each_batch: bool = False
 
-    def __post_init__(self):
-        _refuse_non_defaults(self, _DATA_LOADER_ITEM, honoured=("num_steps",))
+    def to_kwargs(self) -> dict:
+        """The fields set away from their defaults (``GradientState.plugin_kwargs``)."""
+        return {f.name: getattr(self, f.name) for f in fields(self)
+                if getattr(self, f.name) != f.default}
 
 
 @dataclass
@@ -111,7 +120,7 @@ class FullyShardedDataParallelPlugin:
     def __post_init__(self):
         _refuse_non_defaults(self, {
             "sharding_strategy": _DP_REST_ITEM, "min_weight_size_to_shard": _DP_REST_ITEM,
-            "mixed_precision_policy": "ROADMAP.md Queue A item 9 (fp8 and reduced precision)",
+            "mixed_precision_policy": _REDUCED_PRECISION_ITEM,
         }, honoured=("reshard_after_forward", "cpu_offload", "state_dict_type",
                      "activation_checkpointing", "ignored_params"))
         if self.state_dict_type not in ("SHARDED_STATE_DICT", "FULL_STATE_DICT"):
@@ -142,8 +151,8 @@ class ProjectConfiguration:
 
     def __post_init__(self):
         _refuse_non_defaults(self, {
-            "logging_dir": _CONTROL_PLANE_ITEM + ": tracking",
-            "automatic_resume": _CONTROL_PLANE_ITEM + ": resume on restart",
+            "logging_dir": _CONTROL_PLANE_ITEM + ": fault_tolerance.py's logging_dir",
+            "automatic_resume": _CONTROL_PLANE_ITEM + ": fault_tolerance.py's resume on restart",
         }, honoured=("project_dir", "automatic_checkpoint_naming", "total_limit", "iteration",
                      "save_on_each_node"))
 
@@ -181,14 +190,14 @@ class DataLoaderConfiguration:
             raise ValueError("prefetch_size must be >= 0")
 
 
-_SLO_ITEM = "ROADMAP.md Queue A item 6 (admission/SLO and the hang guard)"
-_JOURNAL_ITEM = "ROADMAP.md Queue A item 9 (control plane: journal.py)"
+_SLO_ITEM = "ROADMAP.md Queue A item 8.3 (admission/SLO and the hang guard)"
+_JOURNAL_ITEM = "ROADMAP.md Queue A item 8.8 (the engine's journal hooks, with item 12)"
 # ServingConfig fields the engine does not act on yet, by ROADMAP item.
 _UNPORTED_SERVING_FIELDS = {
-    "enabled": "ROADMAP.md Queue A item 9 (control plane: Accelerator.build_serving_engine)",
-    "cache_dtype": "ROADMAP.md Queue A item 6 (int8 KV pages, QuantPages)",
-    "speculate_k": "ROADMAP.md Queue A item 6 (speculation)",
-    "speculate_ngram": "ROADMAP.md Queue A item 6 (speculation)",
+    "enabled": "ROADMAP.md Queue A item 12 (control plane: Accelerator.build_serving_engine)",
+    "cache_dtype": "ROADMAP.md Queue A item 8.1 (int8 KV pages, QuantPages)",
+    "speculate_k": "ROADMAP.md Queue A item 8.2 (speculation)",
+    "speculate_ngram": "ROADMAP.md Queue A item 8.2 (speculation)",
     "max_queue_depth": _SLO_ITEM, "overload_policy": _SLO_ITEM, "deadline_s": _SLO_ITEM,
     "max_retries": _SLO_ITEM, "max_idle_ticks": _SLO_ITEM, "window_requests": _SLO_ITEM,
     "journal_dir": _JOURNAL_ITEM, "journal_fsync": _JOURNAL_ITEM,

@@ -2,8 +2,8 @@
 
 Counterpart of ``accelerate_tpu/utils/operations.py``'s cross-process half:
 ``gather``, ``gather_object``, ``broadcast``, ``broadcast_object_list``,
-``reduce``, ``pad_across_processes`` and ``pad_input_tensors``, with its
-semantics. Each takes a tensor, a numpy array or a nested list, tuple or
+``reduce``, ``pad_across_processes``, ``pad_input_tensors`` and ``save``,
+with its semantics. Each takes a tensor, a numpy array or a nested list, tuple or
 dict of them, and gives back the same structure and leaf types. Alone (no
 process group, or a group of one) each is an identity, as in the JAX
 package.
@@ -254,3 +254,20 @@ def concatenate(data: list, dim: int = 0):
     if isinstance(first, np.ndarray):
         return np.concatenate(data, axis=dim)
     return torch.cat(data, dim=dim)
+
+
+def save(obj, f, save_on_each_node: bool = False, safe_serialization: bool = True) -> None:
+    """Write ``obj`` to ``f`` on the main process (each node's local main
+    process with ``save_on_each_node``): a flat dict of tensors as
+    safetensors when ``safe_serialization``, anything else with
+    ``torch.save``."""
+    state = _state()
+    if not (state.is_main_process or save_on_each_node and state.is_local_main_process):
+        return
+    if safe_serialization and isinstance(obj, Mapping) and all(
+            torch.is_tensor(v) or isinstance(v, np.ndarray) for v in obj.values()):
+        from .other import save_safetensors
+
+        save_safetensors(obj, f)
+    else:
+        torch.save(obj, f)

@@ -76,7 +76,7 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    give phase 4's numbers, and with ``attention_impl="ring"`` and
    ``"ulysses"`` over the 4-D mesh (``cp = sp = 1``) bit for bit. Prints
    the FSDP2 step ms, idle share and peak memory beside phase 5's. The
-   child's failure fails the run.
+   child also runs phase 12 (c). The child's failure fails the run.
 11. sequence parallelism. A chip call has one GPU, so every rank's share
    of the ring runs in this process, through ``parallel/cp.py``'s per-step
    helpers (``chunk_forward``, ``chunk_backward``) with the transfers done
@@ -94,6 +94,23 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    ring schedule: loss within 1e-3 and grad norm within 2e-2 of the first
    flash step's, relative, with 16 launches per kernel per layer; a second
    ring step gives its warm time.
+12. the imperative loop. (a) Phase 5's model (weights from seed 0), batch
+   and optimizer at 4 accumulation steps: 3 fused steps (the batch split
+   into 1-row microbatches), then 3 windows of the loop a user writes,
+   ``with acc.accumulate(model): loss = acc.backward(loss_fn, mb);
+   acc.clip_grad_norm_(None, 1.0); opt.step(); opt.zero_grad()`` over
+   ``batch[i::4]``, the rows the fused split gives microbatch i. Losses and
+   grad norms within ``DP_REL_TOL`` of the fused step's (and whether they
+   are bit-equal), 3 optimizer steps and 12 microbatches, every kernel
+   launched once per layer per microbatch; each run's ms per optimizer
+   step on the host clock, device-busy ms and idle share of one more
+   profiled step, and peak memory. (b) ``find_executable_batch_size``
+   from 64 rows around one full-width forward and backward of (a)'s
+   model: the size that ran, the halvings, and the allocated bytes back
+   within 64 MiB of their value before the search. (c) phase 10's child
+   runs (a)'s loop under FSDP2 (set_requires_gradient_sync(False) on the
+   microbatches that do not end a window): within ``DP_REL_TOL`` of (a)'s
+   fused step, with its ms, idle share and peak memory.
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -168,8 +185,12 @@ LOOP = dict(rows=48, batch=4, steps=8, save_after=4, profile_steps=2, data_seed=
 CKPT_FALLBACK = Path(__file__).resolve().parent / ".smoke_ckpt"
 
 
+# Seconds since the script started go on every line it prints.
+RUN_START = time.perf_counter()
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    print(json.dumps({**obj, "elapsed_s": time.perf_counter() - RUN_START}), flush=True)
 
 
 def rel_err(got, ref):
@@ -531,7 +552,8 @@ def profile_steps(step, state, batch, step_ms, steps=2):
     return {"phase": "profile", "steps": steps, "profiled_wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
             "idle_share": 1.0 - busy_ms / step_ms if top else None,
-            "ms_per_step_by_category": by_cat, "top_kernels_ms_per_step": top}
+            "ms_per_step_by_category": by_cat, "top_kernels_ms_per_step": top,
+            "host_ops_ms_per_step": host_ops(prof, steps)}
 
 
 def device_times(prof, steps, n_top=12):
@@ -1245,6 +1267,14 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
                       profile_steps=LOOP["profile_steps"] if profile else 0, keep_group=True)
     gc.collect()
     torch.cuda.empty_cache()
+    # Phase 12 (c): the imperative loop under FSDP2, held to the parent's
+    # fused step in phase 12.
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    imperative = accumulation_run(hf, loop=True, device=device, width=width, seq=seq,
+                                  batch_size=batch_size, profile=profile)
+    gc.collect()
+    torch.cuda.empty_cache()
     cfg, weights, tiny_batch = _tiny_step_inputs()
     ddp_metrics, ddp_wrapped = tiny_step(cfg, weights, tiny_batch, cpu=device == "cpu")
     # Ring and Ulysses over the 4-D mesh of one process (cp = sp = 1).
@@ -1286,7 +1316,7 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         "collectives": trips, "loop": loop,
         "ddp_tiny": {"metrics": ddp_metrics, "phase4": args["tiny_step"], "rel": ddp_rel,
                      "bit_equal": ddp_metrics == args["tiny_step"]},
-        "mesh": mesh_axes, "seq_tiny": seq_metrics,
+        "mesh": mesh_axes, "seq_tiny": seq_metrics, "imperative": imperative,
         "checks": checks, "ok": checks["ok"],
     }
 
@@ -1634,6 +1664,196 @@ def sequence_parallel_phase(hf, device="cuda", width=FULL_WIDTH, shape=SEQ_ROW, 
             "checks": checks, "ok": checks["ok"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the imperative loop against the fused step, and the batch search
+# ---------------------------------------------------------------------------
+
+# Phase 12: gradient accumulation steps (phase 5's 4 rows: 1-row
+# microbatches), optimizer steps of each run, and where the batch-size
+# search starts.
+IMPERATIVE = dict(ga=4, steps=3, search_start=64)
+# The batch search must hand back what it allocated, within this.
+SEARCH_MEM_SLACK = 64 * 2**20
+
+
+def accumulation_run(hf, loop, device="cuda", width=FULL_WIDTH, seq=SLICE["s"],
+                     batch_size=SLICE["b"], ga=IMPERATIVE["ga"], steps=IMPERATIVE["steps"],
+                     profile=True, keep=False):
+    """Phase 5's model (weights from seed 0), batch and optimizer at
+    ``ga`` accumulation steps, for ``steps`` optimizer steps: the fused
+    step (``loop=False``) or the imperative loop over the microbatches
+    ``batch[i::ga]`` (the rows the fused step's split gives microbatch i),
+    ``accumulate`` / ``backward`` / ``clip_grad_norm_(None, 1.0)`` /
+    ``opt.step()`` / ``opt.zero_grad()``. With the FSDP plugin: FSDP2 over
+    a process group, the plain step alone. The kernel launches are counted
+    from 0 over the steps. Then one more optimizer step under
+    torch.profiler (device-busy ms and idle share against the host-clock
+    ms of the steps after the first). With ``keep`` the Accelerator,
+    optimizer and loss function stay in the result (``_run``)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, FullyShardedDataParallelPlugin, Model, adamw
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
+
+    cfg = LlamaConfig(**width, max_position_embeddings=seq, dtype=torch.bfloat16,
+                      remat=True, remat_policy="dots", attention_impl="flash")
+    acc = Accelerator(mixed_precision="bf16", fsdp_plugin=FullyShardedDataParallelPlugin(),
+                      gradient_accumulation_steps=ga, cpu=device == "cpu")
+    module = LlamaForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    model, opt = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+
+    def loss_fn(m, b):
+        return cross_entropy_loss(m(b["x"]), b["y"])
+
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(batch_size, seq + 1))
+    batch = {"x": torch.from_numpy(ids[:, :-1]).to(acc.device),
+             "y": torch.from_numpy(ids[:, 1:]).to(acc.device)}
+    flags = []
+    if loop:
+        def step(state, b):
+            losses = []
+            for i in range(ga):
+                with acc.accumulate(model):
+                    losses.append(acc.backward(loss_fn, {k: v[i::ga] for k, v in b.items()}))
+                    norm = acc.clip_grad_norm_(None, 1.0)
+                    flags.append(acc.sync_gradients)
+                    opt.step()
+                    opt.zero_grad()
+            # Summed in the fused step's order, so that equal losses add up equal.
+            return state, {"loss": sum(losses) / ga, "grad_norm": norm}
+    else:
+        step = acc.prepare_train_step(loss_fn, max_grad_norm=1.0)
+    state = acc.train_state
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    metrics, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    warm_ms = sum(step_ms[1:]) / max(len(step_ms) - 1, 1)
+    prof = profile_steps(step, state, batch, warm_ms, steps=1) if profile else None
+    out = {
+        "loop": "imperative" if loop else "fused", "ga": ga, "batch": batch_size, "seq": seq,
+        "sharded": model.sharded, "n_layers": cfg.num_hidden_layers, "steps": steps,
+        "optimizer_steps": acc.train_state.step - (1 if profile else 0),
+        "metrics": [[float(m["loss"]), float(m["grad_norm"])] for m in metrics],
+        "step_ms": step_ms, "warm_step_ms": warm_ms, "peak_mem_gib": peak,
+        "launches": launches, "variant_launches": variant_launches,
+        "launches_per_microbatch": {k: v / (steps * ga) for k, v in launches.items()},
+        "sync_flags": flags[:steps * ga],
+        "device_busy_ms_per_step": prof and prof["device_busy_ms_per_step"],
+        "idle_share": prof and prof["idle_share"],
+        "ms_per_step_by_category": prof and prof["ms_per_step_by_category"],
+        "profiled_wall_ms_per_step": prof and prof["profiled_wall_ms_per_step"],
+        "host_ops_ms_per_step": prof and prof["host_ops_ms_per_step"],
+    }
+    if keep:
+        out["_run"] = (acc, opt, loss_fn, cfg)
+    del step, state, batch
+    return out
+
+
+def batch_size_search(acc, opt, loss_fn, cfg, device="cuda", seq=SLICE["s"],
+                      start=IMPERATIVE["search_start"]):
+    """Phase 12 (b): ``find_executable_batch_size`` from ``start`` rows
+    around one forward and backward of the prepared model
+    (``acc.backward``, then ``opt.zero_grad()``): the sizes tried, the one
+    that ran, and the allocated bytes before and after the search."""
+    import torch
+
+    from accelerate_tpu_torch.utils import find_executable_batch_size
+
+    tried = []
+    gen = torch.Generator(device=device).manual_seed(12)
+
+    @find_executable_batch_size(starting_batch_size=start)
+    def forward_backward(batch_size):
+        tried.append(batch_size)
+        ids = torch.randint(0, cfg.vocab_size, (batch_size, seq + 1), generator=gen,
+                            device=device)
+        loss = acc.backward(loss_fn, {"x": ids[:, :-1], "y": ids[:, 1:]})
+        opt.zero_grad()
+        return float(loss)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss = forward_backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    return {"start": start, "tried": tried, "batch_size": tried[-1], "halvings": len(tried) - 1,
+            "loss": loss, "seconds": seconds, "allocated_before": before,
+            "allocated_after": after}
+
+
+def imperative_gate(fused, loop, search, fsdp_loop) -> dict:
+    """Phase 12's checks: (a) the loop's losses and grad norms within
+    DP_REL_TOL of the fused step's, ``ga`` microbatches and one optimizer
+    step a window, each kernel launched once per layer per microbatch;
+    (b) the search settled below its start and gave its memory back; (c)
+    the FSDP2 loop of phase 10's child within DP_REL_TOL of the fused
+    step, its model sharded, its kernels launched as (a)'s."""
+    def close(run):
+        return (len(run["metrics"]) == len(fused["metrics"])
+                and all(_rel(a, b) <= DP_REL_TOL for got, ref in zip(
+                    run["metrics"], fused["metrics"]) for a, b in zip(got, ref)))
+
+    def launched(run):
+        return all(n == run["n_layers"] * run["ga"] * run["steps"]
+                   for n in run["launches"].values())
+
+    ga, steps = loop["ga"], loop["steps"]
+    checks = {
+        "loop_matches_fused": close(loop),
+        "optimizer_steps": loop["optimizer_steps"] == fused["optimizer_steps"] == steps,
+        "windows": loop["sync_flags"] == ([False] * (ga - 1) + [True]) * steps,
+        "launches": launched(loop),
+        "finite": all(math.isfinite(x) for run in (fused, loop) for m in run["metrics"]
+                      for x in m),
+        "search_settled_below_start": 0 < search["batch_size"] < search["start"],
+        "search_gave_memory_back": abs(search["allocated_after"] - search["allocated_before"])
+        <= SEARCH_MEM_SLACK,
+        "fsdp2_loop_matches_fused": bool(fsdp_loop) and fsdp_loop["sharded"] and close(fsdp_loop),
+        "fsdp2_loop_launches": bool(fsdp_loop) and launched(fsdp_loop),
+    }
+    checks["ok"] = all(checks.values())
+    return checks
+
+
+def imperative_phase(hf, fsdp_loop, device="cuda", width=FULL_WIDTH, seq=SLICE["s"],
+                     batch_size=SLICE["b"], search_start=IMPERATIVE["search_start"],
+                     profile=True):
+    """Phase 12 (see the module docstring); ``fsdp_loop`` is (c), the child's
+    run of phase 10."""
+    import torch
+
+    kw = dict(device=device, width=width, seq=seq, batch_size=batch_size, profile=profile)
+    fused = accumulation_run(hf, loop=False, **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop = accumulation_run(hf, loop=True, keep=True, **kw)
+    search = batch_size_search(*loop.pop("_run"), device=device, seq=seq, start=search_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = imperative_gate(fused, loop, search, fsdp_loop)
+    return {"phase": "imperative_loop", "fused": fused, "loop": loop,
+            "bit_equal": loop["metrics"] == fused["metrics"],
+            "rel_to_fused": [[_rel(a, b) for a, b in zip(g, r)]
+                             for g, r in zip(loop["metrics"], fused["metrics"])],
+            "batch_search": search, "fsdp2_loop": fsdp_loop,
+            "checks": checks, "ok": checks["ok"]}
+
+
 def _stub_cuda_for_cpu():
     """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
     import torch
@@ -1832,16 +2052,30 @@ def main() -> int:
     if not seq["ok"]:
         print(f"chip_smoke: sequence-parallel phase failed: {seq['checks']}", file=sys.stderr)
         return 1
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    emit({"kernels": kernel_summary(timed, cases, main_path)})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    # 12. the imperative loop against the fused step, the batch-size search,
+    # and (from phase 10's child) the loop under FSDP2
+    imp = imperative_phase(hf, dp.get("imperative"))
+    emit(imp)
+    if not imp["ok"]:
+        print(f"chip_smoke: imperative-loop phase failed: {imp['checks']}", file=sys.stderr)
+        return 1
+
+    emit({"kernels": kernel_summary(timed, cases, main_path, {
+        "imperative_loop": imp["loop"]["variant_launches"]})})
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
-def kernel_summary(timed, cases, main_path):
+def kernel_summary(timed, cases, main_path, other_paths=None):
     """One entry per kernel of every timed variant (phase 3): its source,
-    the TPU kernel it replaces, its launches in phase 5's main-path run,
+    the TPU kernel it replaces, its launches in phase 5's main-path run
+    (and by path: phase 5's ``train_step`` and each of ``other_paths``, a
+    path's name → its variant launch counts),
     its largest error in the first check case that ran it (phase 2), its
     ms beside its plain version's, its bound and SDPA's forward (the
     backward kernels have no one-call library counterpart)."""
@@ -1859,6 +2093,10 @@ def kernel_summary(timed, cases, main_path):
                 "source": SOURCES["flash_f32" if t["dtype"] == "float32" else name],
                 "replaces": REPLACES[name], "dtype": t["dtype"], "shape": t["shape"],
                 "launches": main_path["variant_launches"].get(label, 0),
+                "launches_by_path": {
+                    "train_step": main_path["variant_launches"].get(label, 0),
+                    **{path: counts.get(label, 0)
+                       for path, counts in (other_paths or {}).items()}},
                 "max_abs_err": case["max_abs"][name] if case else None,
                 "ms": ms, "plain_ms": t["plain_ms"][name], "bound_ms": bound_ms,
                 "bound_by": bound_by, "bound_share": bound_ms / ms,

@@ -1,7 +1,8 @@
 """chip_smoke.py's pure pieces on the CPU: the kernels' bounds, the SASS
 check of the built libraries, the profiler's kernel categories, the decode
-bound, the phase-7/8 gates, the serving trace, and phase 9's gate, its
-checkpoint directory and a rehearsal of the whole phase at a small width.
+bound, the phase-7/8 gates, the serving trace, phase 9's gate, its
+checkpoint directory and a rehearsal of the whole phase at a small width,
+the rehearsals of phases 10 and 11, and phase 12's gate and rehearsal.
 
 The script is loaded by its path, so the import does not depend on
 sys.path; its top level imports no torch, and this file imports torch only
@@ -10,6 +11,7 @@ inside the phase-9 rehearsal.
 
 import copy
 import importlib.util
+import math
 from pathlib import Path
 
 import pytest
@@ -425,9 +427,10 @@ def test_data_parallel_child_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
-    kw = dict(width=_TINY_WIDTH, seq=32, batch_size=2)
+    kw = dict(width=_TINY_WIDTH, seq=32, batch_size=4)
     try:
         main = chip_smoke.full_width_steps(hf, device="cpu", **kw)
+        fused = chip_smoke.accumulation_run(hf, loop=False, device="cpu", profile=False, **kw)
         assert not main["sharded"] and main["variant_launches"] == {}
         cfg, weights, batch = chip_smoke._tiny_step_inputs()
         tiny, ddp = chip_smoke.tiny_step(cfg, weights, batch, cpu=True)
@@ -454,6 +457,13 @@ def test_data_parallel_child_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     assert len(res["loop"]["resumed"]["loss"]) == 4
     assert res["mesh"] == [["dp_replicate", "dp_shard", "cp", "sp"], [1, 1, 1, 1]]
     assert res["seq_tiny"] == {"ring": tiny, "ulysses": tiny}
+    # Phase 12 (c): the imperative loop under FSDP2 against the fused step
+    # of this process, as phase 12 holds it.
+    imperative = res["imperative"]
+    assert imperative["sharded"] and imperative["loop"] == "imperative"
+    assert imperative["sync_flags"] == [False, False, False, True] * 3
+    for got, ref in zip(imperative["metrics"], fused["metrics"]):
+        assert max(chip_smoke._rel(a, b) for a, b in zip(got, ref)) <= chip_smoke.DP_REL_TOL
 
 
 def test_torchrun_env_is_a_group_of_one(chip_smoke):
@@ -557,3 +567,84 @@ def test_seq_row_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     assert chip_smoke.seq_row_gate({**row, "launches_per_step": {
         k: 2.0 for k in chip_smoke.KERNELS}, "ring_step": {**ring, "launches_per_layer": {
             "flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16}}})
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the imperative loop against the fused step, and the batch search
+# ---------------------------------------------------------------------------
+
+
+def _acc_run(loop=True, metrics=((10.4, 2.0), (10.3, 1.9), (10.2, 1.8)), launches=72,
+             flags=None, sharded=False):
+    return {"loop": "imperative" if loop else "fused", "ga": 4, "steps": 3, "n_layers": 6,
+            "sharded": sharded, "optimizer_steps": 3, "metrics": [list(m) for m in metrics],
+            "launches": {k: launches for k in _KERNELS},
+            "sync_flags": ([False] * 3 + [True]) * 3 if flags is None and loop else flags or []}
+
+
+def _search(size=16, before=10 * 2**30, after=10 * 2**30):
+    return {"start": 64, "batch_size": size, "allocated_before": before,
+            "allocated_after": after}
+
+
+_OFF = ((10.4 * (1 + 2e-4), 2.0), (10.3, 1.9), (10.2, 1.8))
+
+
+@pytest.mark.parametrize("loop,search,fsdp,failed", [
+    (_acc_run(), _search(), _acc_run(sharded=True), []),
+    (_acc_run(metrics=_OFF), _search(), _acc_run(sharded=True), ["loop_matches_fused"]),
+    (_acc_run(launches=18), _search(), _acc_run(sharded=True), ["launches"]),
+    (_acc_run(flags=[True] * 12), _search(), _acc_run(sharded=True), ["windows"]),
+    (_acc_run(), _search(size=64), _acc_run(sharded=True), ["search_settled_below_start"]),
+    (_acc_run(), _search(after=10 * 2**30 + 65 * 2**20), _acc_run(sharded=True),
+     ["search_gave_memory_back"]),
+    (_acc_run(), _search(), _acc_run(), ["fsdp2_loop_matches_fused"]),
+    (_acc_run(), _search(), _acc_run(sharded=True, metrics=_OFF),
+     ["fsdp2_loop_matches_fused"]),
+    (_acc_run(), _search(), _acc_run(sharded=True, launches=0), ["fsdp2_loop_launches"]),
+    (_acc_run(), _search(), None, ["fsdp2_loop_launches", "fsdp2_loop_matches_fused"]),
+], ids=["passes", "loss", "launches", "windows", "no_halving", "memory_kept", "fsdp_unsharded",
+        "fsdp_numbers", "fsdp_launches", "no_child_run"])
+def test_imperative_gate(chip_smoke, loop, search, fsdp, failed):
+    checks = chip_smoke.imperative_gate(_acc_run(loop=False), loop, search, fsdp)
+    assert sorted(k for k, v in checks.items() if not v) == sorted(failed + ["ok"] if failed else [])
+
+
+def test_imperative_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
+    """Phase 12 (a) and (b) at a small width on the CPU (bf16 over fp32
+    masters, the plain versions for the kernels): the loop gives the fused
+    step's losses and grad norms bit for bit, since 1/4 scales exactly;
+    the batch search halves from 64 rows down to 16, where an allocation
+    failure stands in for the card's above 16 rows. No kernel launches and
+    no child run here: those checks fail here only."""
+    import torch
+
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    _stub_cuda(chip_smoke, monkeypatch)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    search = chip_smoke.batch_size_search
+
+    def limited_search(acc, opt, loss_fn, cfg, **kw):
+        def loss_within_memory(model, batch):
+            if batch["x"].shape[0] > 16:
+                raise torch.OutOfMemoryError("CUDA out of memory (a stand-in)")
+            return loss_fn(model, batch)
+
+        return search(acc, opt, loss_within_memory, cfg, **kw)
+
+    monkeypatch.setattr(chip_smoke, "batch_size_search", limited_search)
+    try:
+        res = chip_smoke.imperative_phase(hf, None, device="cpu", width=_TINY_WIDTH, seq=32,
+                                          batch_size=4, profile=False)
+    finally:
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+    failed = sorted(k for k, v in res["checks"].items() if not v)
+    assert failed == ["fsdp2_loop_launches", "fsdp2_loop_matches_fused", "launches", "ok"]
+    assert res["bit_equal"] and res["loop"]["optimizer_steps"] == 3
+    assert res["loop"]["sync_flags"] == [False, False, False, True] * 3
+    assert res["batch_search"]["tried"] == [64, 32, 16]
+    assert res["batch_search"]["halvings"] == 2
+    assert all(math.isfinite(x) for m in res["fused"]["metrics"] for x in m)

@@ -22,7 +22,14 @@ seed, from the same flax-initialised tiny Llama (fp32):
   the same way, and synchronised RNG states;
 - a checkpoint written by 4 FSDP2 processes resumed in one process and
   read by the JAX package, and a JAX checkpoint saved under ``dp_shard=4``
-  resumed by 2 FSDP2 processes.
+  resumed by 2 FSDP2 processes;
+- the imperative loop (``accumulate``/``backward``/``optimizer.step()``) at
+  two microbatches a step under FSDP2 and DDP at 2 processes and HSDP at
+  2 × 2 against the port's fused step on the same batches, with the
+  gradient collectives skipped on the microbatch that does not end the
+  window (and run on each with ``sync_each_batch``); triggers,
+  ``split_between_processes``, ``main_process_first`` and
+  ``gather_for_metrics`` inside an accumulation window across the ranks.
 
 The spawned processes import this module: JAX is imported only inside the
 functions that compute the references.
@@ -43,6 +50,7 @@ import torch.multiprocessing as mp
 from accelerate_tpu_torch import (
     Accelerator,
     FullyShardedDataParallelPlugin,
+    GradientAccumulationPlugin,
     Model,
     ParallelismConfig,
     ProjectConfiguration,
@@ -55,6 +63,7 @@ from accelerate_tpu_torch.models import (
     llama_params_from_flax,
     llama_params_to_flax,
 )
+from accelerate_tpu_torch.accelerator import _microbatch_split
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 from accelerate_tpu_torch.utils import operations
 
@@ -313,10 +322,125 @@ def _job_resume_jax(ctx):
     return _train(ctx, "fsdp", load_dir=ctx["jax_ckpt"])
 
 
+def _reduces_gradients(model) -> bool:
+    """Whether every FSDP2 parameter group of the model reduces its
+    gradients (``set_requires_gradient_sync``)."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return all(group.reduce_grads for m in model.module.modules() if isinstance(m, FSDPModule)
+               for group in m._get_fsdp_state()._fsdp_param_groups)
+
+
+def _imperative(ctx, kind, ga=2, sync_each_batch=False):
+    """The imperative loop over the same STEPS global batches as ``_train``
+    (each process its share, split into ``ga`` microbatches as the fused
+    step splits it): (window loss, grad norm) per step, the parameters
+    after, and a probe of the window's first microbatch: what
+    ``clip_grad_norm_`` returned, whether FSDP2 reduced gradients during
+    its backward, whether the sharded parameters had a ``grad`` after it,
+    and the sum of this process's first gradient."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    module = LlamaForCausalLM(cfg)
+    module.load_state_dict(llama_params_from_flax(cfg, ctx["flax_params"]))
+    acc = _port_accelerator(kind, gradient_accumulation_plugin=GradientAccumulationPlugin(
+        num_steps=ga, sync_each_batch=sync_each_batch))
+    model, opt = acc.prepare(Model(module), adamw(LR))
+    metrics, probe, flags = [], {}, []
+
+    def loss_fn(m, b):
+        if model.sharded and not probe:
+            probe["reduces_gradients"] = _reduces_gradients(model)
+        return _port_loss(m, b)
+
+    for i in range(STEPS):
+        local = {k: torch.from_numpy(v) for k, v in _local(ctx["batches"][i], rank, world).items()}
+        losses = []
+        for mb in _microbatch_split(local, ga):
+            with acc.accumulate(model):
+                losses.append(acc.backward(loss_fn, mb))
+                norm = acc.clip_grad_norm_(None, 1.0)
+                flags.append(acc.sync_gradients)
+                if "norm" not in probe:
+                    probe["norm"] = None if norm is None else float(norm)
+                    grads = [p.grad for p in model.parameters()]
+                    probe["grads_kept_back"] = all(g is None for g in grads)
+                    probe["first_grad_sum"] = (None if grads[0] is None else float(
+                        (grads[0].to_local() if hasattr(grads[0], "to_local")
+                         else grads[0]).double().sum()))
+                opt.step()
+                opt.zero_grad()
+        metrics.append((float(sum(losses) / ga), float(norm)))
+    out = {"metrics": metrics, "params": _whole_params(model), "probe": probe, "flags": flags,
+           "step": acc.train_state.step, "grad_after_step": [p.grad for p in
+                                                             model.parameters()] == [None] * len(
+                                                                 list(model.parameters()))}
+    _reset_port()
+    return out
+
+
+def _job_imperative(ctx):
+    """FSDP2 and DDP at 2 processes: the fused step and the imperative loop
+    at ga 2, and the loop with sync_each_batch."""
+    return {kind: {"fused": _train(ctx, kind, ga=2), "loop": _imperative(ctx, kind),
+                   "each_batch": _imperative(ctx, kind, sync_each_batch=True)}
+            for kind in ("fsdp", "ddp")}
+
+
+def _job_imperative_hsdp(ctx):
+    return {"hsdp": {"fused": _train(ctx, "hsdp", ga=2), "loop": _imperative(ctx, "hsdp")}}
+
+
+def _job_surface(ctx):
+    """Triggers, split_between_processes, main_process_first and
+    gather_for_metrics inside an accumulation window, on every rank."""
+    from accelerate_tpu_torch import ColumnDataset
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    acc = Accelerator(cpu=True, gradient_accumulation_steps=2)
+    out = {"triggers": []}
+    for raiser in (None, world - 1):
+        if rank == raiser:
+            acc.set_trigger()
+        out["triggers"].append(acc.check_trigger())
+    out["triggers"].append(acc.check_trigger())  # lowered after it was seen
+    items = list(range(5))
+    for padding in (False, True):
+        with acc.split_between_processes(items, apply_padding=padding) as share:
+            out[f"list_{padding}"] = share
+        with acc.split_between_processes({"a": torch.arange(5), "b": np.arange(5) * 10},
+                                         apply_padding=padding) as share:
+            out[f"dict_{padding}"] = {k: np.asarray(v).tolist() for k, v in share.items()}
+    log = os.path.join(ctx["surface_dir"], f"order{world}.txt")
+    with acc.main_process_first():
+        with open(log, "a") as f:
+            f.write(f"{rank}\n")
+    acc.wait_for_everyone()
+    with open(log) as f:
+        out["first"] = f.read().split()
+
+    model, opt, loader = acc.prepare(
+        Model(torch.nn.Linear(2, 1)), adamw(LR),
+        _Spec(ColumnDataset(x=np.ones((7, 2), np.float32), idx=np.arange(7)), 2))
+    out["gathered"], out["sync"] = [], []
+    for batch in loader:
+        with acc.accumulate(model):
+            acc.backward(lambda m, b: m(b["x"]).sum(), batch)
+            out["gathered"].extend(acc.gather_for_metrics(batch["idx"]).tolist())
+            out["sync"].append(acc.sync_gradients)
+            opt.step()
+            opt.zero_grad()
+    out["opt_steps"] = acc.train_state.step
+    _reset_port()
+    return out
+
+
 JOBS = {"fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
         "dispatcher": _job_dispatcher, "rng": _job_rng, "save": _job_save,
         "options": _job_options, "fsdp_ga2": _job_fsdp_ga2, "per_node": _job_per_node,
-        "resume_jax": _job_resume_jax, "fsdp_uneven": _job_fsdp_uneven}
+        "resume_jax": _job_resume_jax, "fsdp_uneven": _job_fsdp_uneven,
+        "imperative": _job_imperative, "imperative_hsdp": _job_imperative_hsdp,
+        "surface": _job_surface}
 
 
 def _worker(rank, world, init_file, ctx_path, jobs):
@@ -418,11 +542,13 @@ def runs(tmp_path_factory):
         batches, dict(dp_replicate_size=2, dp_shard_size=2), True)
     ctx = {"flax_params": params, "batches": batches, "uneven_batches": _uneven(batches),
            "save_dir": str(tmp / "port4"),
-           "per_node_dir": str(tmp / "per_node"),
+           "per_node_dir": str(tmp / "per_node"), "surface_dir": str(tmp),
            "jax_ckpt": str(tmp / "jax" / "checkpoints" / "checkpoint_0")}
     two = _spawn(tmp, 2, ["fsdp", "ddp", "collectives", "dispatcher", "rng", "resume_jax",
-                          "options", "fsdp_ga2", "per_node", "fsdp_uneven"], ctx)
-    four = _spawn(tmp, 4, ["fsdp", "hsdp", "collectives", "save"], ctx)
+                          "options", "fsdp_ga2", "per_node", "fsdp_uneven", "imperative",
+                          "surface"], ctx)
+    four = _spawn(tmp, 4, ["fsdp", "hsdp", "collectives", "save", "imperative_hsdp",
+                           "surface"], ctx)
     return {"ref": ref, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
 
 
@@ -767,3 +893,96 @@ def test_world_fill_and_refused_axes():
     finally:
         for k in env:
             del os.environ[k]
+
+
+# ---------------------------------------------------------------------------
+# The imperative loop and the rest of the surface across processes
+# ---------------------------------------------------------------------------
+
+IMPERATIVE = [(2, "imperative", "fsdp"), (2, "imperative", "ddp"), (4, "imperative_hsdp", "hsdp")]
+
+
+@pytest.mark.parametrize("world,job,kind", IMPERATIVE, ids=[c[2] for c in IMPERATIVE])
+def test_imperative_loop_matches_the_fused_step(runs, world, job, kind):
+    """Two microbatches a window: the window losses and grad norms of the
+    fused step (rtol 1e-5: the loop reduces its gradients once a window,
+    the fused step once a microbatch), the same parameters on every
+    process (_assert_params_close against the fused step's), and a
+    window ending every second microbatch."""
+    for r in runs[world]:
+        got, want = r[job][kind]["loop"], r[job][kind]["fused"]
+        np.testing.assert_allclose(np.array(got["metrics"]), np.array(want["metrics"]),
+                                   rtol=1e-5)
+        assert got["flags"] == [False, True] * STEPS and got["step"] == STEPS
+        assert got["grad_after_step"]
+    _assert_params_close(_flax(runs[world][0][job][kind]["loop"]["params"]),
+                         _flax(runs[world][0][job][kind]["fused"]["params"]),
+                         runs["ctx"]["flax_params"])
+    for r in runs[world][1:]:
+        for name, value in r[job][kind]["loop"]["params"].items():
+            np.testing.assert_array_equal(value, runs[world][0][job][kind]["loop"]["params"][name])
+
+
+@pytest.mark.parametrize("world,job,kind", IMPERATIVE, ids=[c[2] for c in IMPERATIVE])
+def test_first_microbatch_skips_the_gradient_collectives(runs, world, job, kind):
+    """On the microbatch that does not end the window FSDP2 (and HSDP)
+    reduced nothing (its sharded parameters have no grad yet) and DDP left
+    each process its own gradients; clip_grad_norm_ returns None there."""
+    probes = [r[job][kind]["loop"]["probe"] for r in runs[world]]
+    assert all(p["norm"] is None for p in probes)
+    if kind == "ddp":
+        assert probes[0]["first_grad_sum"] != probes[1]["first_grad_sum"]
+    else:
+        assert all(p["grads_kept_back"] and p["reduces_gradients"] is False for p in probes)
+
+
+@pytest.mark.parametrize("kind", ["fsdp", "ddp"])
+def test_sync_each_batch_reduces_every_microbatch_and_steps_per_window(runs, kind):
+    """With sync_each_batch every microbatch reduces (equal gradients on
+    both processes after the first, a norm there) and the optimizer still
+    steps once a window: the fused step's numbers and parameters."""
+    probes = [r["imperative"][kind]["each_batch"]["probe"] for r in runs[2]]
+    assert all(p["norm"] is not None and not p["grads_kept_back"] for p in probes)
+    if kind == "ddp":
+        assert probes[0]["first_grad_sum"] == probes[1]["first_grad_sum"]
+    else:
+        assert all(p["reduces_gradients"] for p in probes)
+    for r in runs[2]:
+        got, want = r["imperative"][kind]["each_batch"], r["imperative"][kind]["fused"]
+        np.testing.assert_allclose(np.array(got["metrics"]), np.array(want["metrics"]),
+                                   rtol=1e-5)
+        assert got["step"] == STEPS
+    _assert_params_close(_flax(runs[2][0]["imperative"][kind]["each_batch"]["params"]),
+                         _flax(runs[2][0]["imperative"][kind]["fused"]["params"]),
+                         runs["ctx"]["flax_params"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_triggers_and_process_helpers_across_ranks(runs, world):
+    """A flag raised on the last rank is seen on every rank, once; the
+    shares of 5 items are contiguous, the longer first, and padded with
+    the last item; the main process runs its block first."""
+    shares = {2: [[0, 1, 2], [3, 4]], 4: [[0, 1], [2], [3], [4]]}[world]
+    longest = max(map(len, shares))
+    for rank, r in enumerate(runs[world]):
+        s = r["surface"]
+        assert s["triggers"] == [False, True, False]
+        assert s["list_False"] == shares[rank]
+        assert s["list_True"] == shares[rank] + [4] * (longest - len(shares[rank]))
+        assert s["dict_False"] == {"a": shares[rank], "b": [10 * x for x in shares[rank]]}
+        padded = s["list_True"]
+        assert s["dict_True"] == {"a": padded, "b": [10 * x for x in padded]}
+        assert s["first"][0] == "0" and sorted(s["first"]) == [str(i) for i in range(world)]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gather_for_metrics_inside_an_accumulation_window(runs, world):
+    """7 samples in batches of 2 per process: the last global batch is padded
+    by even_batches and gather_for_metrics drops the repeats, inside
+    ``accumulate`` as outside; the loader's last batch ends a window."""
+    for r in runs[world]:
+        s = r["surface"]
+        assert s["gathered"] == list(range(7))
+        assert s["sync"][-1] and s["opt_steps"] == sum(s["sync"])
+        n = len(s["sync"])
+        assert s["sync"] == [(i + 1) % 2 == 0 or i == n - 1 for i in range(n)]

@@ -341,11 +341,11 @@ def test_quantized_model_refuses_full_forwards(quantized):
 def test_unported_generation_options_raise(pair):
     _, _, cfg, module = pair
     ids = _ids(1, 4, seed=15)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         generate(module, ids, decoder_input_ids=ids)
     with pytest.raises(NotImplementedError, match="compile_manager"):
         generate(module, ids, compile_manager=object())
-    with pytest.raises(NotImplementedError, match="forward_cached.*item 8"):
+    with pytest.raises(NotImplementedError, match="forward_cached.*item 10"):
         generate(module, ids, forward_cached=gen._llama_forward_cached)
     with pytest.raises(NotImplementedError, match="QuantPages"):
         gen.init_cache(cfg, 1, 8, dtype=torch.int8)

@@ -114,7 +114,7 @@ def test_remat_policies_keep_gradients_and_name_flash_outputs(policy, fwd_calls,
 def test_unported_knobs_raise():
     """The chassis knobs raise; ring and Ulysses attention are ported and,
     with no cp or sp axis to split the sequence over, give flash's logits."""
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 10"):
         LlamaConfig.tiny(norm_type="layernorm")
     base = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32))
     base.init_weights(torch.Generator().manual_seed(0))

@@ -172,8 +172,9 @@ def test_accelerator_refuses_a_second_device_choice(monkeypatch):
         sharding_strategy="SHARD_GRAD_OP")),
     lambda: FullyShardedDataParallelPlugin(min_weight_size_to_shard=0),
     lambda: ProjectConfiguration(logging_dir="runs"),
-    lambda: GradientAccumulationPlugin(num_steps=2, sync_each_batch=True),
+    lambda: FullyShardedDataParallelPlugin(state_dict_type="DISTRIBUTED_STATE_DICT"),
     lambda: MixedPrecisionPolicy(reduce_dtype=torch.bfloat16),
+    lambda: Accelerator(cpu=True, log_with="tensorboard"),
 ])
 def test_settings_the_port_does_not_act_on_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
