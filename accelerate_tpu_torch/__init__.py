@@ -4,8 +4,10 @@ attention, on one GPU or data-parallel over a process group with FSDP2,
 HSDP or DDP, fused or as the imperative loop of ``accumulate``,
 ``backward`` and ``optimizer.step()``; prepared data loaders,
 learning-rate schedules, and checkpoints in the JAX package's directory
-contract), and KV-cache
-generation and continuous-batching serving for Llama.
+contract), KV-cache generation and continuous-batching serving for Llama,
+and their observability: experiment trackers (``log_with``), step
+telemetry and the device-time profiler (``TelemetryKwargs``), and
+``Accelerator.profile`` (``ProfileKwargs``).
 
 It imports torch only, never JAX or the ``accelerate_tpu`` package, and
 runs on CUDA unless the caller asks for the CPU (``Accelerator(cpu=True)``).
@@ -33,14 +35,17 @@ from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
 from .serving import ServingEngine
 from .state import AcceleratorState, DistributedType, GradientState, PartialState
+from .telemetry import TelemetryRecorder
 from .train_state import TrainState
 from .utils import (
     DataLoaderConfiguration,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
+    ProfileKwargs,
     ProjectConfiguration,
     ServingConfig,
+    TelemetryKwargs,
     find_executable_batch_size,
     set_seed,
 )
@@ -62,10 +67,13 @@ __all__ = [
     "Model",
     "ParallelismConfig",
     "PartialState",
+    "ProfileKwargs",
     "ProjectConfiguration",
     "SeedableRandomSampler",
     "ServingConfig",
     "ServingEngine",
+    "TelemetryKwargs",
+    "TelemetryRecorder",
     "TrainState",
     "adamw",
     "constant_schedule",

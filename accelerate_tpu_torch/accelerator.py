@@ -75,17 +75,26 @@ microbatches that do not end a window skip the gradient collectives
 (FSDP2's ``set_requires_gradient_sync(False)``, DDP's ``no_sync``), unless
 ``sync_each_batch``; their gradients are then each process's own, so
 ``clip_grad_norm_`` there arms the clip and returns None.
+
+Observability, as in the JAX package: ``log_with`` names trackers
+(``tracking.py``), built by ``init_trackers`` and fed by ``log``;
+``kwargs_handlers=[TelemetryKwargs(...)]`` makes ``self.telemetry``
+(``telemetry.py``), which the prepared step, ``backward``, the optimizer
+step, the prepared loaders and ``save_state``/``load_state`` report to;
+``profile()`` traces windows with ``torch.profiler`` after
+``ProfileKwargs``. ``end_training`` closes the telemetry, then the
+trackers.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import time
 from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from .data_loader import BaseDataLoader, prepare_data_loader, skip_first_batches
@@ -97,14 +106,18 @@ from .parallel.fsdp import gradient_sync
 from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, DistributedType, GradientState
+from .tracking import GeneralTracker, filter_trackers
 from .train_state import TrainState
 from .utils import operations
 from .utils.dataclasses import (
     DataLoaderConfiguration,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
+    KwargsHandler,
     MixedPrecisionPolicy,
+    ProfileKwargs,
     ProjectConfiguration,
+    TelemetryKwargs,
 )
 
 _DP_REST_ITEM = ("ROADMAP.md Queue A item 1 (the rest of data parallelism: "
@@ -181,17 +194,27 @@ class Accelerator:
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         step_scheduler_with_optimizer: bool = True,
         log_with=None,
+        kwargs_handlers: Optional[list[KwargsHandler]] = None,
     ):
-        if log_with is not None:
-            raise NotImplementedError(
-                f"log_with={log_with!r}: trackers are not ported yet "
-                "(ROADMAP.md Queue A item 13)")
         # fsdp_plugin shards the models over a process group (FSDP2); alone,
         # only its state_dict_type acts (the checkpoint's file layout).
         self.fsdp_plugin = fsdp_plugin
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
+        self.profile_handler: Optional[ProfileKwargs] = None
+        self.telemetry_handler: Optional[TelemetryKwargs] = None
+        for handler in kwargs_handlers or []:
+            if isinstance(handler, ProfileKwargs):
+                self.profile_handler = handler
+            elif isinstance(handler, TelemetryKwargs):
+                self.telemetry_handler = handler
+            else:
+                raise NotImplementedError(
+                    f"kwargs handler {type(handler).__name__} is not ported yet (ROADMAP.md "
+                    "Queue A: GradScalerKwargs and FP8RecipeKwargs item 9, "
+                    "DistributedDataParallelKwargs item 1, CompileKwargs, "
+                    "FaultToleranceKwargs and AutoPlanKwargs item 12)")
         self._mp_policy = MixedPrecisionPolicy.from_mixed_precision(mixed_precision)
         self.state = AcceleratorState(
             mixed_precision=mixed_precision, cpu=cpu, parallelism_config=parallelism_config)
@@ -222,6 +245,16 @@ class Accelerator:
         # The last save_state/load_state: its directory and seconds, split
         # into host copies and disk; a save also counts its bytes.
         self.checkpoint_stats: Optional[dict] = None
+        # Trackers (tracking.py): resolved now, built by init_trackers.
+        self.log_with = filter_trackers(log_with, self.project_configuration.logging_dir)
+        self.trackers: list[GeneralTracker] = []
+        # Step telemetry (telemetry.py): without a TelemetryKwargs handler
+        # every hook is one None check.
+        self.telemetry = None
+        if self.telemetry_handler is not None and self.telemetry_handler.enabled:
+            from .telemetry import TelemetryRecorder
+
+            self.telemetry = TelemetryRecorder(self, self.telemetry_handler)
 
     @property
     def device(self) -> torch.device:
@@ -347,6 +380,10 @@ class Accelerator:
         return self.project_configuration.project_dir
 
     @property
+    def logging_dir(self) -> Optional[str]:
+        return self.project_configuration.logging_dir
+
+    @property
     def train_state(self) -> TrainState:
         if not self._train_states:
             raise RuntimeError("Call accelerator.prepare(model, optimizer) first.")
@@ -412,6 +449,7 @@ class Accelerator:
                 prefetch_size=cfg.prefetch_size, dispatch_group_size=cfg.dispatch_group_size)
         if prepared not in self._dataloaders:
             self._dataloaders.append(prepared)
+        prepared._telemetry = self.telemetry  # the loader's wait goes to add_data_wait
         return prepared
 
     def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
@@ -482,7 +520,7 @@ class Accelerator:
             # process (loss_reduce_axes), as DDP would.
             for p in model.ignored.values():
                 if p.grad is not None and world > 1:
-                    dist.all_reduce(p.grad)
+                    operations.all_reduce(p.grad)
                     p.grad.div_(world)
             if num_accum > 1:
                 torch._foreach_div_([_local(g) for g in grads], num_accum)
@@ -494,11 +532,31 @@ class Accelerator:
             state.step += 1
             loss = loss_sum / num_accum
             if world > 1:
-                dist.all_reduce(loss)
+                operations.all_reduce(loss)
                 loss = loss / world
             return state, {"loss": loss, "grad_norm": gnorm}
 
-        return step
+        def step_and_track(state: TrainState, batch: dict):
+            tel = self.telemetry
+            if tel is None:
+                return step(state, batch)
+            # The first profiled step runs under the FLOP counter.
+            counting = (tel.profiler.capture_cost() if tel.profiler is not None
+                        else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with counting:
+                state, metrics = step(state, batch)
+            if tel.handler.sync_timing:
+                self._synchronize()
+            tel.on_train_step(step, batch, time.perf_counter() - t0, metrics=metrics)
+            return state, metrics
+
+        return step_and_track
+
+    def _synchronize(self) -> None:
+        """Wait for the card (telemetry's ``sync_timing``)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     # The imperative loop
@@ -575,6 +633,8 @@ class Accelerator:
         model = self._train_states[0].model
         gs, world = self.gradient_state, self.num_processes
         communicate = gs.sync_gradients or gs.sync_each_batch
+        tel = self.telemetry
+        t0 = time.perf_counter() if tel is not None else 0.0
         args, kwargs = operations.recursively_apply(self._place, (args, kwargs))
         with operations.loss_over_processes(world), gradient_sync(model, communicate):
             cast = (contextlib.nullcontext() if model.sharded else model.compute_params(
@@ -587,14 +647,18 @@ class Accelerator:
         if communicate and world > 1:
             for p in model.ignored.values():
                 if p.grad is not None:
-                    dist.all_reduce(p.grad)
+                    operations.all_reduce(p.grad)
                     p.grad.div_(world)
         # A reducing backward reduces what earlier microbatches accumulated too.
         self._grads_local = not communicate and self.use_distributed
         loss = loss.detach()
         if world > 1:
-            dist.all_reduce(loss)
+            operations.all_reduce(loss)
             loss = loss / world
+        if tel is not None:
+            if tel.handler.sync_timing:
+                self._synchronize()
+            tel.on_backward(loss_fn, (args, kwargs), time.perf_counter() - t0)
         return (loss, aux) if has_aux else loss
 
     def _grads(self, train_state) -> list:
@@ -633,12 +697,18 @@ class Accelerator:
         grads = self._grads(state)
         if not grads:
             return
+        tel = self.telemetry
+        t0 = time.perf_counter() if tel is not None else 0.0
         if self._max_grad_norm is not None:
             factor = torch.clamp(self._max_grad_norm / (_global_norm(grads) + 1e-6), max=1.0)
             torch._foreach_mul_([_local(g) for g in grads], factor)
         optimizer.step()
         state.step += 1
         self._grads_local = False
+        if tel is not None:
+            if tel.handler.sync_timing:
+                self._synchronize()
+            tel.on_apply_gradients(time.perf_counter() - t0)
 
     # ------------------------------------------------------------------
     # Collectives across processes (utils/operations.py)
@@ -698,6 +768,71 @@ class Accelerator:
         yield
 
     # ------------------------------------------------------------------
+    # Trackers, telemetry and the profiler
+    # ------------------------------------------------------------------
+
+    def init_trackers(self, project_name: str, config: Optional[dict] = None,
+                      init_kwargs: Optional[dict] = None):
+        """Build the trackers ``log_with`` named (``init_kwargs[name]``
+        goes to each one's constructor) and store ``config`` in each."""
+        from .tracking import resolve_trackers
+
+        self.trackers = resolve_trackers(self.log_with, project_name, self.logging_dir,
+                                         init_kwargs or {})
+        if config is not None:
+            for tracker in self.trackers:
+                tracker.store_init_configuration(config)
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        """The tracker called ``name``, or with ``unwrap`` the object it
+        writes through (a ``SummaryWriter``, a run)."""
+        for tracker in self.trackers:
+            if tracker.name == name:
+                return tracker.tracker if unwrap else tracker
+        raise ValueError(f"{name} is not an available tracker stored inside the `Accelerator`.")
+
+    def log(self, values: dict, step: Optional[int] = None, log_kwargs: Optional[dict] = None):
+        """``values`` to every tracker, on the main process (a device
+        scalar among them is read, which waits for the card)."""
+        log_kwargs = log_kwargs or {}
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.log(values, step=step, **log_kwargs.get(tracker.name, {}))
+
+    def end_training(self):
+        """Close the telemetry (its summary record, the profiler's last
+        record), then finish every tracker, and wait for every process."""
+        if self.telemetry is not None:
+            self.telemetry.close()
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.finish()
+        self.wait_for_everyone()
+
+    @contextlib.contextmanager
+    def profile(self, profile_handler: Optional[ProfileKwargs] = None):
+        """A ``torch.profiler`` trace honouring :class:`ProfileKwargs`
+        (``utils/profiling.py``): with ``schedule_option`` the block gets
+        a session whose ``step()`` is called once per train step, and each
+        active window is written as ``<dir>/cycle_<i>/trace.json``; without
+        it the whole block is written as ``<dir>/trace.json``. The
+        directory is ``output_trace_dir`` or the project directory; with
+        neither, nothing is traced and the block gets None."""
+        from .utils.profiling import ProfileSession
+
+        handler = profile_handler or self.profile_handler or ProfileKwargs()
+        if handler.output_trace_dir is None and self.project_dir is None:
+            yield None
+            return
+        session = ProfileSession(handler, handler.output_trace_dir or self.project_dir,
+                                 device=self.device)
+        session.enter()
+        try:
+            yield session
+        finally:
+            session.exit()
+
+    # ------------------------------------------------------------------
     # Exporting weights, and freeing memory
     # ------------------------------------------------------------------
 
@@ -741,6 +876,9 @@ class Accelerator:
         a None for each, and the caller rebinds its own names to them."""
         from .utils.memory import release_memory
 
+        if self.telemetry is not None:
+            self.telemetry.close()
+            self.telemetry = None
         for held in (self._train_states, self._models, self._optimizers, self._schedulers,
                      self._dataloaders):
             held.clear()

@@ -353,7 +353,16 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None) -> str
     stats["bytes"] = sum(os.path.getsize(os.path.join(output_dir, f))
                          for f in os.listdir(output_dir))
     accelerator.checkpoint_stats = {"event": "save", "dir": output_dir, **stats}
+    _record_checkpoint_event(accelerator, "checkpoint_save", output_dir, stats)
     return output_dir
+
+
+def _record_checkpoint_event(accelerator, event: str, path: str, stats: dict) -> None:
+    """The save's or load's seconds (and its split) in the telemetry JSONL,
+    beside the step records, as the JAX package records them."""
+    tel = getattr(accelerator, "telemetry", None)
+    if tel is not None:
+        tel.record_event(event, dir=path, format="safetensors", **stats)
 
 
 # ---------------------------------------------------------------------------
@@ -466,6 +475,7 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None) -> str:
     _load_host_side_state(accelerator, input_dir)
     stats["seconds"] = time.perf_counter() - t_start
     accelerator.checkpoint_stats = {"event": "load", "dir": input_dir, **stats}
+    _record_checkpoint_event(accelerator, "checkpoint_load", input_dir, stats)
     return input_dir
 
 

@@ -47,6 +47,7 @@ import os
 import queue
 import random as _pyrandom
 import threading
+import time
 from typing import Any, Iterable, Iterator, Optional
 
 import numpy as np
@@ -394,6 +395,9 @@ class BaseDataLoader:
         self._resume_skip = 0
         self._pending_skip = 0
         self._sampler_snapshot = None
+        # Step telemetry (telemetry.py), set by Accelerator.prepare: the
+        # seconds next() blocks on the next batch go to add_data_wait.
+        self._telemetry = None
 
     # -- device side -----------------------------------------------------
 
@@ -450,14 +454,27 @@ class BaseDataLoader:
         iterator = map(self._host_batch, self._raw_batches())
         if self.prefetch_size > 0:
             iterator = _PrefetchIterator(iterator, self.prefetch_size)
+        tel = self._telemetry
+
+        def _next():
+            # The time this blocks is the host wait the prefetch thread did
+            # not hide: input starvation.
+            if tel is None:
+                return next(iterator, None)
+            t0 = time.perf_counter()
+            try:
+                return next(iterator, None)
+            finally:
+                tel.add_data_wait(time.perf_counter() - t0)
+
         try:
-            current = next(iterator, None)
+            current = _next()
             if current is None:
                 self.batches_yielded = 0
                 self._sampler_snapshot = None
                 return
             while True:
-                nxt = next(iterator, None)
+                nxt = _next()
                 self.batches_yielded += 1
                 if nxt is None:
                     self.end_of_dataloader = True

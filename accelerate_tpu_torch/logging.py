@@ -60,8 +60,13 @@ _WARNED_ONCE: set = set()
 
 
 def _warning_once_key(msg, args, kwargs) -> str:
-    return repr((str(msg), tuple(map(repr, args)),
-                 tuple(sorted((k, repr(v)) for k, v in kwargs.items()))))
+    """A string key, so that unhashable arguments dedup too; the message
+    alone where an argument's ``repr`` fails."""
+    try:
+        return repr((str(msg), tuple(map(repr, args)),
+                     tuple(sorted((k, repr(v)) for k, v in kwargs.items()))))
+    except Exception:
+        return str(msg)
 
 
 def get_logger(name: str, log_level: str = None) -> MultiProcessAdapter:

@@ -33,7 +33,14 @@ plain PyTorch versions (``flash_fwd_plain``, ``flash_dq_plain``, ``flash_dkv_pla
 the CPU. The gradient is the custom op ``accelerate_tpu_torch::flash_fwd``
 with a registered backward, so that a selective-checkpoint policy can name
 the forward's outputs (``FLASH_FWD_OP``), as ``checkpoint_name("flash_out")``
-does in the JAX package.
+does in the JAX package; the backward runs the custom op
+``accelerate_tpu_torch::flash_bwd``. Both ops have FLOP formulas
+(``torch.utils.flop_counter``), so that ``FlopCounterMode`` counts the
+attention of a step (``profiler.DeviceTimeProfiler.capture_cost``): the
+forward's two products over the (query, key) pairs the causal mask keeps,
+``4·B·Hq·D·pairs``, and the backward's five, ``10·B·Hq·D·pairs`` (the
+split into a dQ and a dK/dV kernel computes QKᵀ and dO·Vᵀ once more each;
+the count leaves that out).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import math
 import torch
 
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 NEG_INF = -1e30
 # Head dims the kernels are built for; any D up to the last is padded to the
@@ -371,6 +379,19 @@ def output_delta(out, dout):
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+@torch.library.custom_op("accelerate_tpu_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+                  lse: torch.Tensor, delta: torch.Tensor, causal: bool, q_offset: int,
+                  k_offset: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_bwd(q, k, v, dout, lse, delta, causal=causal, q_offset=q_offset,
+                     k_offset=k_offset)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, dout, lse, delta, causal, q_offset, k_offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def _backward(ctx, g_out, g_lse):
     q, k, v, out, lse = ctx.saved_tensors
     g_out = torch.zeros_like(out) if g_out is None else g_out.to(q.dtype).contiguous()
@@ -378,7 +399,9 @@ def _backward(ctx, g_out, g_lse):
     delta = output_delta(out, g_out)
     if g_lse is not None:
         delta = delta - g_lse.float()
-    dq, dk, dv = flash_bwd(q, k, v, g_out, lse, delta, **ctx.kw)
+    kw = ctx.kw
+    dq, dk, dv = _flash_bwd_op(q, k, v, g_out, lse, delta, kw["causal"], kw["q_offset"],
+                               kw["k_offset"])
     return dq, dk, dv, None, None, None
 
 
@@ -386,6 +409,44 @@ _flash_op.register_autograd(_backward, setup_context=_setup_context)
 
 # The op whose outputs the "flash" and "dots" remat policies keep.
 FLASH_FWD_OP = torch.ops.accelerate_tpu_torch.flash_fwd.default
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, q_offset: int = 0,
+                    k_offset: int = 0) -> int:
+    """(query, key) pairs attention computes: all ``sq·sk``, or with the
+    causal mask those where the key's global position is at most the
+    query's."""
+    if not causal:
+        return sq * sk
+    first = q_offset - k_offset + 1  # keys the first query sees
+    return sum(min(max(first + i, 0), sk) for i in range(sq))
+
+
+def _attention_flops(per_pair: int, q_shape, k_shape, causal, q_offset, k_offset) -> int:
+    b, sq, hq, d = q_shape
+    return per_pair * b * hq * d * attention_pairs(sq, k_shape[1], causal, q_offset, k_offset)
+
+
+def _register_flop_formulas() -> None:
+    """FLOP formulas of the two custom ops, for FlopCounterMode (once per
+    process: the registry refuses a second registration)."""
+    from torch.utils.flop_counter import flop_registry
+
+    if torch.ops.accelerate_tpu_torch.flash_fwd in flop_registry:
+        return
+
+    @register_flop_formula(torch.ops.accelerate_tpu_torch.flash_fwd)
+    def _fwd_flops(q_shape, k_shape, v_shape, causal, q_offset, k_offset, *args,
+                   out_shape=None, **kwargs) -> int:
+        return _attention_flops(4, q_shape, k_shape, causal, q_offset, k_offset)
+
+    @register_flop_formula(torch.ops.accelerate_tpu_torch.flash_bwd)
+    def _bwd_flops(q_shape, k_shape, v_shape, dout_shape, lse_shape, delta_shape, causal,
+                   q_offset, k_offset, *args, out_shape=None, **kwargs) -> int:
+        return _attention_flops(10, q_shape, k_shape, causal, q_offset, k_offset)
+
+
+_register_flop_formulas()
 
 
 # ---------------------------------------------------------------------------

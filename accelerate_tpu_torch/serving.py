@@ -31,12 +31,22 @@ Usage::
             ...  # res["tokens"]: prompt + continuation, padded to the budget
     rows, secs = replay_trace(engine, prompts, arrivals=arrival_s)  # open loop
 
+Observability: ``ServingEngine(telemetry=acc.telemetry)`` writes a
+``serving_request_done`` record per finished request and, at the end of
+``run``/``replay_trace`` and on ``close``, the ``stats()`` block
+(``record_serving``); it registers ``stats()`` as the hub's ``serving``
+provider and feeds the ``serving_availability`` SLO. With a profiler
+(``profiler=``, or the recorder's from ``TelemetryKwargs(profile=True)``)
+each tick is split into admit, prefill, decode, host-fetch and
+bookkeeping seconds on the host clock (``DeviceTimeProfiler.on_tick``),
+timing the tick's one host read without adding another.
+
 Not ported yet, and refused where they would be set: the int8 KV cache,
 speculation, admission control and SLOs (deadlines, queue bounds, retries,
-the hang guard), the journal, telemetry, tracing, chaos, fault tolerance,
-the compile manager, canary and weight swaps, crash recovery and the SDC
-canary (ROADMAP.md Queue A items 7, 8 and 12), and generation plans other
-than Llama's (item 10).
+the hang guard), the journal, tracing, chaos, fault tolerance, the compile
+manager, canary and weight swaps, crash recovery and the SDC canary
+(ROADMAP.md Queue A items 8 and 12), and generation plans other than
+Llama's (item 10).
 """
 
 from __future__ import annotations
@@ -65,8 +75,6 @@ from .utils.dataclasses import ServingConfig
 _UNPORTED_ENGINE_ARGS = {
     "forward_cached": "ROADMAP.md Queue A item 10 (the other models' generation plans)",
     "compile_manager": "ROADMAP.md Queue A item 12 (control plane: compile_manager.py)",
-    "telemetry": "ROADMAP.md Queue A item 7 (telemetry and profiler)",
-    "profiler": "ROADMAP.md Queue A item 7 (telemetry and profiler)",
     "fault_tolerance": "ROADMAP.md Queue A item 12 (control plane: preemption drain)",
     "chaos": "ROADMAP.md Queue A item 12 (control plane: chaos.py)",
     "tracing": "ROADMAP.md Queue A item 12 (control plane: tracing.py)",
@@ -222,7 +230,7 @@ def _build_prefill_step(fwd, cfg, temperature, top_k, top_p, eos_token_id):
 
 class _Request:
     __slots__ = ("id", "tokens", "budget", "generator", "slot", "chunks", "next_chunk",
-                 "consumed", "out", "submit_t", "first_token_t")
+                 "consumed", "out", "submit_t", "first_token_t", "done_t")
 
     def __init__(self, rid, tokens, budget, generator):
         self.id = rid
@@ -236,24 +244,33 @@ class _Request:
         self.out: list[int] = []      # sampled continuation (EOS included)
         self.submit_t = time.perf_counter()
         self.first_token_t = None
+        self.done_t = None
 
 
 class ServingEngine:
     """Continuous-batching inference over one model (a ``Model``, a
     ``LlamaForCausalLM`` or a decode-quantized model) on the device that
     holds its parameters, with a :class:`ServingConfig`. The generation
-    plan comes from the model's class."""
+    plan comes from the model's class. ``telemetry`` is a
+    ``TelemetryRecorder`` (``Accelerator.telemetry``) and ``profiler`` a
+    ``DeviceTimeProfiler``, by default the recorder's."""
 
     def __init__(self, model, config: Optional[ServingConfig] = None, *,
                  forward_cached=None, compile_manager=None, telemetry=None,
                  fault_tolerance=None, chaos=None, tracing=None, journal=None, profiler=None):
         given = dict(forward_cached=forward_cached, compile_manager=compile_manager,
-                     telemetry=telemetry, fault_tolerance=fault_tolerance, chaos=chaos,
-                     tracing=tracing, journal=journal, profiler=profiler)
+                     fault_tolerance=fault_tolerance, chaos=chaos, tracing=tracing,
+                     journal=journal)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) is not ported yet ({_UNPORTED_ENGINE_ARGS[name]})")
+        self.telemetry = telemetry
+        # Per-tick attribution (profiler.py): host perf_counter sections
+        # only. None: every hook is one check.
+        self._profiler = profiler if profiler is not None else getattr(
+            telemetry, "profiler", None)
+        self._tick_fetch_s = 0.0
         self.config = c = config if config is not None else ServingConfig()
         module = getattr(model, "module", model)
         self.cfg = module.config
@@ -291,6 +308,13 @@ class ServingEngine:
         self._ttfts: list[float] = []
         self._stats = {}
         self.reset_metrics()
+        # The metrics hub of the recorder: stats() as the "serving"
+        # provider, and one good/bad sample per finished request into the
+        # availability SLO's window.
+        self._hub = getattr(telemetry, "hub", None)
+        if self._hub is not None:
+            self._hub.register_slo("serving_availability", 0.99)
+            self._hub.register_provider("serving", self.stats, replace=True)
 
     # -- request lifecycle -------------------------------------------------
 
@@ -340,14 +364,32 @@ class ServingEngine:
         """One scheduler round: admit into free slots, advance up to
         ``prefill_chunks_per_tick`` prompt chunks, then one decode step for
         every live slot, retiring the rows that finished."""
+        prof = self._profiler
+        t0 = time.perf_counter() if prof is not None else 0.0
+        tick_no = self._stats["ticks"]
         self._admit()
+        t1 = time.perf_counter() if prof is not None else 0.0
         for _ in range(int(self.config.prefill_chunks_per_tick)):
             if not self._prefilling:
                 break
             self._prefill_one(self._prefilling[0])
+        t2 = time.perf_counter() if prof is not None else 0.0
+        self._tick_fetch_s = 0.0  # the decode's host read, timed in _decode_tick
         if self._decoding:
             self._decode_tick()
+        t3 = time.perf_counter() if prof is not None else 0.0
         self._stats["ticks"] += 1
+        if prof is not None:
+            # Lagged attribution from host sections; bookkeeping_s closes
+            # the identity.
+            t4 = time.perf_counter()
+            prof.on_tick(tick_no, t4 - t0, sections={
+                "admit_s": t1 - t0,
+                "prefill_s": t2 - t1,
+                "decode_s": (t3 - t2) - self._tick_fetch_s,
+                "host_fetch_s": self._tick_fetch_s,
+                "bookkeeping_s": t4 - t3,
+            }, gauges={"occupancy": len(self._decoding)})
 
     def _admit(self) -> None:
         while self._free and self._queue:
@@ -389,8 +431,12 @@ class ServingEngine:
         sampled = sorted(self._decoding) if self._sampled else ()
         toks, _ = self._decode(self._params, self._cache, self._state, sampled)
         self._stats["decode_steps"] += 1
-        # The tick's one host sync: this step's tokens and done flags.
+        # The tick's one host sync: this step's tokens and done flags. The
+        # profiler times it as the tick's host_fetch_s.
+        tf0 = time.perf_counter() if self._profiler is not None else 0.0
         host = torch.stack((toks[:, 0], self._state.done.long())).cpu().numpy()
+        if self._profiler is not None:
+            self._tick_fetch_s += time.perf_counter() - tf0
         for slot, req in list(self._decoding.items()):
             req.out.append(int(host[0, slot]))
             if host[1, slot]:
@@ -401,7 +447,7 @@ class ServingEngine:
         """Natural completion: the device row already flagged itself done,
         so the slot goes straight back to the free list."""
         self._free.append(req.slot)
-        self._last_done_t = time.perf_counter()
+        req.done_t = self._last_done_t = time.perf_counter()
         n_new = len(req.out)
         row = np.concatenate([req.tokens, np.asarray(req.out, np.int64),
                               np.full((req.budget - n_new,), self.pad_token_id, np.int64)])
@@ -411,6 +457,14 @@ class ServingEngine:
         self._stats["tokens_out"] += n_new
         self._finished.append({"id": req.id, "status": "ok", "tokens": row,
                                "new_tokens": n_new, "ttft_s": ttft})
+        if self._hub is not None:
+            self._hub.observe_slo("serving_availability", True)
+        if self.telemetry is not None:
+            tpot = (req.done_t - req.first_token_t) / (n_new - 1) if n_new > 1 else 0.0
+            self.telemetry.record_event(
+                "serving_request_done", request_id=req.id, status="ok", ttft_s=ttft,
+                tpot_s=tpot, new_tokens=n_new, prompt_tokens=int(req.tokens.size),
+                slot=req.slot)
 
     # -- batch front-end ---------------------------------------------------
 
@@ -439,6 +493,7 @@ class ServingEngine:
             if ticks > guard:
                 raise RuntimeError(f"serving engine failed to drain in {guard} ticks "
                                    f"({self.pending} requests still pending)")
+        self._push_telemetry_summary()
         return [results[i] for i in ids]
 
     def warmup(self) -> None:
@@ -457,6 +512,17 @@ class ServingEngine:
         self._last_done_t = None
         self._ttfts.clear()
         self._finished.clear()
+        if self._profiler is not None:
+            # Warm-up records would skew the term means and the flight ring.
+            self._profiler.reset()
+
+    def close(self) -> None:
+        """Push the ``stats()`` block into the telemetry stream."""
+        self._push_telemetry_summary()
+
+    def _push_telemetry_summary(self) -> None:
+        if self.telemetry is not None:
+            self.telemetry.record_serving(self.stats())
 
     # -- reporting ---------------------------------------------------------
 
@@ -524,4 +590,5 @@ def replay_trace(engine: ServingEngine, prompts, *, arrivals, max_new_tokens=Non
         elif nxt < n:  # idle until the next arrival
             time.sleep(min(0.002, max(0.0, float(arrivals[order[nxt]]) - now)))
     elapsed = time.perf_counter() - t0
+    engine._push_telemetry_summary()
     return [results[ids[i]] for i in range(n)], elapsed

@@ -2,14 +2,18 @@ from .dataclasses import (
     DataLoaderConfiguration,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
+    KwargsHandler,
     MixedPrecisionPolicy,
+    ProfileKwargs,
     ProjectConfiguration,
     ServingConfig,
+    TelemetryKwargs,
 )
 from .memory import (
     clear_device_cache,
     find_executable_batch_size,
     get_device_memory_stats,
+    live_bytes_on_device,
     release_memory,
     should_reduce_batch_size,
 )
@@ -19,12 +23,16 @@ __all__ = [
     "DataLoaderConfiguration",
     "FullyShardedDataParallelPlugin",
     "GradientAccumulationPlugin",
+    "KwargsHandler",
     "MixedPrecisionPolicy",
+    "ProfileKwargs",
     "ProjectConfiguration",
     "ServingConfig",
+    "TelemetryKwargs",
     "clear_device_cache",
     "find_executable_batch_size",
     "get_device_memory_stats",
+    "live_bytes_on_device",
     "release_memory",
     "set_seed",
     "should_reduce_batch_size",

@@ -7,8 +7,9 @@ when it is set away from its default, so no setting is silently ignored."""
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, fields
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -29,6 +30,88 @@ def _refuse_non_defaults(obj, item, honoured: tuple = ()) -> None:
             raise NotImplementedError(
                 f"{type(obj).__name__}({f.name}={getattr(obj, f.name)!r}) is not "
                 f"ported yet ({where})")
+
+
+class KwargsHandler:
+    """Base of the handlers ``Accelerator(kwargs_handlers=[...])`` takes:
+    ``to_kwargs()`` is the fields set away from their defaults."""
+
+    def to_dict(self):
+        return copy.deepcopy(self.__dict__)
+
+    def to_kwargs(self):
+        default_dict = self.__class__().to_dict()
+        return {k: v for k, v in self.to_dict().items() if default_dict[k] != v}
+
+
+@dataclass
+class ProfileKwargs(KwargsHandler):
+    """``Accelerator.profile()``'s settings (``utils/profiling.py``), the JAX
+    package's fields. Each traced window is one ``torch.profiler.profile``:
+
+    - ``activities``: ``"cpu"``/``"cuda"`` (or ``ProfilerActivity``
+      members); default the CPU, and CUDA when the Accelerator is on a card;
+    - ``schedule_option``: ``wait``/``warmup``/``active``/``repeat``/
+      ``skip_first`` (torch.profiler's schedule) over the session's
+      ``step()`` calls, one window directory ``cycle_<i>`` each; without
+      it the whole context is one window;
+    - ``on_trace_ready(session)``: called after each window is written;
+    - ``record_shapes``, ``with_stack``, ``with_flops``: passed to the
+      profiler;
+    - ``profile_memory``: the profiler's allocation events, and a
+      ``torch.cuda.memory`` snapshot (``memory_snapshot.pickle``) beside
+      each trace;
+    - ``output_trace_dir``: where the windows go (default the project
+      directory)."""
+
+    activities: Optional[list] = None
+    schedule_option: Optional[dict] = None
+    on_trace_ready: Optional[Callable] = None
+    record_shapes: bool = False
+    profile_memory: bool = False
+    with_stack: bool = False
+    with_flops: bool = False
+    output_trace_dir: Optional[str] = None
+
+
+@dataclass
+class TelemetryKwargs(KwargsHandler):
+    """Step telemetry (``telemetry.py``), with the JAX package's fields and
+    defaults. Passing the handler turns it on; without it every hook is one
+    ``is None`` check.
+
+    - ``sync_timing``: ``torch.cuda.synchronize()`` before the step timer
+      stops (the device's wall time, at the cost of the host running
+      ahead); off, the step's time is the host's dispatch time, which
+      converges to the device's once the card's queue is full.
+    - ``log_every``: forward a summary to the trackers every N steps.
+    - ``straggler_probe_every``: gather the step times of every process
+      every N steps (0: never).
+    - ``memory_every``: read the allocator's counters every N steps.
+    - ``output_dir``: default ``<project_dir>/telemetry``.
+    - ``max_log_bytes``: rotate the per-process JSONL at this size.
+    - ``profile``: the device-time profiler (``profiler.py``): ``True``, a
+      dict of ``ProfilerConfig`` fields, or a ``ProfilerConfig``.
+    - ``tracing``: request tracing; not ported (ROADMAP.md Queue A item
+      12)."""
+
+    enabled: bool = True
+    sync_timing: bool = False
+    log_every: int = 10
+    straggler_probe_every: int = 50
+    straggler_warn_skew: float = 0.2
+    ema_alpha: float = 0.1
+    memory_every: int = 1
+    output_dir: Optional[str] = None
+    max_log_bytes: Optional[int] = 256 * 1024 * 1024
+    tracing: Any = None
+    profile: Any = None
+
+    def __post_init__(self):
+        if self.tracing:  # False and None both mean off, as in the JAX package
+            raise NotImplementedError(
+                f"TelemetryKwargs(tracing={self.tracing!r}) is not ported yet "
+                f"({_CONTROL_PLANE_ITEM}: tracing.py's request tracing)")
 
 
 @dataclass
@@ -133,13 +216,13 @@ class FullyShardedDataParallelPlugin:
 
 @dataclass
 class ProjectConfiguration:
-    """Where checkpoints go. With ``automatic_checkpoint_naming``,
+    """Where checkpoints and logs go. With ``automatic_checkpoint_naming``,
     ``save_state()`` writes ``<project_dir>/checkpoints/checkpoint_<iteration>``
     and keeps at most ``total_limit`` of them; ``load_state()`` reads the
     newest. ``save_on_each_node`` writes the shared files once per node
-    (by each node's local process 0) instead of once. Logging
-    (``logging_dir``) and resuming on a restart (``automatic_resume``) are
-    not ported."""
+    (by each node's local process 0) instead of once. ``logging_dir`` is
+    where the trackers write (default ``project_dir``). Resuming on a
+    restart (``automatic_resume``) is not ported."""
 
     project_dir: str = None
     logging_dir: str = None
@@ -150,14 +233,16 @@ class ProjectConfiguration:
     automatic_resume: bool = False
 
     def __post_init__(self):
-        _refuse_non_defaults(self, {
-            "logging_dir": _CONTROL_PLANE_ITEM + ": fault_tolerance.py's logging_dir",
-            "automatic_resume": _CONTROL_PLANE_ITEM + ": fault_tolerance.py's resume on restart",
-        }, honoured=("project_dir", "automatic_checkpoint_naming", "total_limit", "iteration",
-                     "save_on_each_node"))
+        _refuse_non_defaults(
+            self, _CONTROL_PLANE_ITEM + ": fault_tolerance.py's resume on restart",
+            honoured=("project_dir", "logging_dir", "automatic_checkpoint_naming",
+                      "total_limit", "iteration", "save_on_each_node"))
+        self.set_directories(self.project_dir)
 
     def set_directories(self, project_dir: str = None):
         self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
 
 
 @dataclass

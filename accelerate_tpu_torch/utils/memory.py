@@ -46,13 +46,47 @@ def clear_device_cache(garbage_collection: bool = False) -> None:
 
 
 def get_device_memory_stats(device=None) -> dict:
-    """The CUDA caching allocator's counters for ``device`` (the current
-    card by default; ``torch.cuda.memory_stats``); {} without a card."""
+    """``device``'s memory under the JAX package's names, from the CUDA
+    caching allocator's counters (``torch.cuda.memory_stats``, read on the
+    host without waiting for the card): ``bytes_in_use`` (allocated tensor
+    bytes), ``peak_bytes_in_use`` (their high-water mark since the last
+    ``reset_peak_memory_stats``) and ``bytes_limit`` (the card's memory).
+    The current card by default; {} for the CPU, as the JAX package's CPU
+    devices report none."""
     if device is not None and torch.device(device).type != "cuda":
         return {}
     if not torch.cuda.is_available():
         return {}
-    return dict(torch.cuda.memory_stats(device))
+    raw = torch.cuda.memory_stats(device)
+    return {
+        "bytes_in_use": raw.get("allocated_bytes.all.current", 0),
+        "peak_bytes_in_use": raw.get("allocated_bytes.all.peak", 0),
+        "bytes_limit": torch.cuda.get_device_properties(device).total_memory,
+    }
+
+
+def live_bytes_on_device(device=None) -> int:
+    """Bytes of the live tensors on ``device``: the allocator's count on a
+    card (``torch.cuda.memory_allocated``), a census of the live tensors'
+    storages on the CPU (each storage once), as the JAX package counts its
+    live arrays where the backend reports no memory statistics."""
+    device = torch.device(device) if device is not None else (
+        torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu"))
+    if device.type == "cuda":
+        return torch.cuda.memory_allocated(device)
+    seen, total = set(), 0
+    for obj in gc.get_objects():
+        if issubclass(type(obj), torch.Tensor) and obj.device.type == device.type \
+                and not obj.is_meta:
+            try:
+                storage = obj.untyped_storage()
+                ptr, nbytes = storage.data_ptr(), storage.nbytes()
+            except (RuntimeError, NotImplementedError):
+                continue  # no storage: sparse, wrapper subclasses, freed ones
+            if ptr not in seen:
+                seen.add(ptr)
+                total += nbytes
+    return total
 
 
 def should_reduce_batch_size(exception: Exception) -> bool:

@@ -10,6 +10,14 @@ package.
 
 The group's backend decides where a collective runs: NCCL on the
 process's GPU (host leaves go there and come back), gloo on the CPU.
+
+``collective_counters`` tallies each collective this package makes (the
+functions here, and the train step's and ``backward``'s all-reduces of the
+loss, its token count and the gradients FSDP2 leaves whole, through
+``all_reduce``): a count and the payload bytes by operation, as the JAX
+package's counters do for its collectives. The collectives inside FSDP2's
+and DDP's own hooks are torch's and not counted. The counters are off (one
+bool check a call) unless step telemetry is on (``telemetry.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +30,45 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+class _CollectiveCounters:
+    """Process-wide count and payload bytes of this package's collectives,
+    by operation; read by ``telemetry.TelemetryRecorder``, which turns them
+    on."""
+
+    __slots__ = ("enabled", "counts", "bytes")
+
+    def __init__(self):
+        self.enabled = False
+        self.counts: dict = {}
+        self.bytes: dict = {}
+
+    def record(self, op: str, data) -> None:
+        if not self.enabled:
+            return
+        nbytes = 0
+
+        def add(leaf):
+            nonlocal nbytes
+            nbytes += leaf.nbytes if isinstance(leaf, np.ndarray) else (
+                leaf.numel() * leaf.element_size())
+            return leaf
+
+        recursively_apply(add, data)
+        self.counts[op] = self.counts.get(op, 0) + 1
+        self.bytes[op] = self.bytes.get(op, 0) + nbytes
+
+    def snapshot(self) -> dict:
+        return {op: {"count": n, "bytes": self.bytes.get(op, 0)}
+                for op, n in sorted(self.counts.items())}
+
+    def reset(self) -> None:
+        self.counts.clear()
+        self.bytes.clear()
+
+
+collective_counters = _CollectiveCounters()
 
 
 def _state():
@@ -61,8 +108,17 @@ def global_token_count(count: torch.Tensor) -> tuple[torch.Tensor, int]:
     if n == 1:
         return count, 1
     count = count.detach().clone()
-    dist.all_reduce(count)
+    all_reduce(count)
     return count, n
+
+
+def all_reduce(tensor: torch.Tensor) -> torch.Tensor:
+    """``dist.all_reduce(tensor)`` (a sum, in place), counted by
+    ``collective_counters``: the step's and ``backward``'s reductions of
+    the loss, its token count and the gradients FSDP2 leaves whole."""
+    collective_counters.record("all_reduce", tensor)
+    dist.all_reduce(tensor)
+    return tensor
 
 
 def recursively_apply(func: Callable, data: Any) -> Any:
@@ -106,6 +162,11 @@ def _on_comm_device(fn: Callable) -> Callable:
 def gather(tensor):
     """Every process's tensors concatenated on dim 0, in rank order (each
     must have the same shape: ``pad_across_processes`` first otherwise)."""
+    collective_counters.record("gather", tensor)
+    return _gather(tensor)
+
+
+def _gather(tensor):
     world = _world()
     if world == 1:
         return tensor
@@ -123,6 +184,7 @@ def gather(tensor):
 def gather_object(obj: Any) -> list:
     """Every process's picklable object, in rank order; a list's items are
     concatenated instead."""
+    collective_counters.record("gather_object", [])
     world = _world()
     if world == 1:
         return obj if isinstance(obj, list) else [obj]
@@ -136,6 +198,7 @@ def gather_object(obj: Any) -> list:
 def broadcast(tensor, from_process: int = 0):
     """Process ``from_process``'s values on every process, in place where
     the leaf allows it (tensors on the backend's device), as returned."""
+    collective_counters.record("broadcast", tensor)
     if _world() == 1:
         return tensor
 
@@ -160,6 +223,7 @@ def broadcast(tensor, from_process: int = 0):
 def broadcast_object_list(object_list: list, from_process: int = 0) -> list:
     """Process ``from_process``'s picklable objects into ``object_list`` on
     every process, in place; returns it."""
+    collective_counters.record("broadcast_object_list", [])
     state = _state()
     if state.num_processes == 1:
         return object_list
@@ -173,6 +237,7 @@ def reduce(tensor, reduction: str = "mean", scale: float = 1.0):
     leaf, times ``scale``; ``"none"`` applies only the scale."""
     if reduction not in ("sum", "mean", "none"):
         raise ValueError(f"reduction must be sum|mean|none, got {reduction!r}")
+    collective_counters.record("reduce", tensor)
     world = _world()
 
     @_on_comm_device
@@ -190,13 +255,14 @@ def reduce(tensor, reduction: str = "mean", scale: float = 1.0):
 def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):
     """Every leaf padded with ``pad_index`` along ``dim`` to the largest
     size any process has there, so that ``gather`` can take it."""
+    collective_counters.record("pad_across_processes", tensor)
     world = _world()
 
     def one(leaf):
         if dim >= leaf.ndim:
             return leaf
         size = torch.tensor([leaf.shape[dim]], dtype=torch.int64)
-        sizes = gather(size) if world > 1 else size
+        sizes = _gather(size) if world > 1 else size
         pad = int(sizes.max()) - leaf.shape[dim]
         if pad == 0:
             return leaf

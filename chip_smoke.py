@@ -111,6 +111,30 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    runs (a)'s loop under FSDP2 (set_requires_gradient_sync(False) on the
    microbatches that do not end a window): within ``DP_REL_TOL`` of (a)'s
    fused step, with its ms, idle share and peak memory.
+13. observability. (a) Phase 9's loop (its data, schedule and model) with
+   ``log_with=["json", "tensorboard"]`` and ``TelemetryKwargs(profile=True,
+   log_every=2, straggler_probe_every=2)``: 8 steps inside
+   ``accelerator.profile()`` (schedule wait 1, warmup 1, active 2, repeat
+   1), ``accelerator.log`` of each loss, ``save_state()`` after step 4,
+   ``end_training()``. TensorBoard must drop with the JAX package's
+   warning where its package is missing, else hold the losses; the JSON
+   tracker holds the 8 losses and the summaries of steps 2, 4, 6 and 8;
+   the telemetry JSONL holds 8 step records of the JAX schema (4 samples,
+   no recompile), data waits summing to what the loader's hook reported,
+   peak memory equal to ``max_memory_allocated`` after each step, one
+   checkpoint event within 5 % of the save's own seconds and one summary;
+   the profiler's 8 records (7 lagged, the last at close) sum to their
+   walls; the one traced window (steps 3-4) launches each flash kernel 18
+   times a step; the flight bundle holds the 8 records. (b) With telemetry
+   off and on in turns: host-clock ms, device-busy ms and, under
+   torch.profiler, the synchronisations and device-to-host copies of a
+   step, which must be equal; the counted FLOPs beside bench.py's model.
+   (c) One window of phase 12's imperative loop (4 one-row microbatches):
+   one ``optimizer_step`` record with its backward and apply seconds.
+   (d) Phase 8's engine and trace, replayed without telemetry and with a
+   recorder's ``telemetry=`` in turns: tick records that sum to their
+   walls, the serving block's TTFT equal to ``stats()``, tok/s of both
+   beside phase 8's.
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -977,11 +1001,13 @@ def checkpoint_root(need_bytes, fallback=CKPT_FALLBACK):
     raise RuntimeError(f"no directory with {need_bytes} bytes free for the checkpoint: {tried}")
 
 
-def build_loop(device, width, seq, project_dir, init_seed, tokens, keep_group=False):
+def build_loop(device, width, seq, project_dir, init_seed, tokens, keep_group=False,
+               acc_kw=None):
     """Phase 5's model and step as a user's loop builds them: Accelerator
     with a project directory, prepare(model, adamw(schedule), loader,
     schedule), prepare_train_step. A fresh Accelerator each time; with
-    `keep_group`, over the process group this process belongs to."""
+    `keep_group`, over the process group this process belongs to; `acc_kw`
+    goes to the Accelerator (phase 13's trackers and handlers)."""
     import numpy as np
     import torch
 
@@ -997,7 +1023,8 @@ def build_loop(device, width, seq, project_dir, init_seed, tokens, keep_group=Fa
         mixed_precision="bf16", cpu=device == "cpu",
         fsdp_plugin=FullyShardedDataParallelPlugin(),
         project_config=ProjectConfiguration(project_dir=project_dir,
-                                            automatic_checkpoint_naming=True, total_limit=1))
+                                            automatic_checkpoint_naming=True, total_limit=1),
+        **(acc_kw or {}))
     cfg = LlamaConfig(**width, max_position_embeddings=seq, dtype=torch.bfloat16,
                       remat=True, remat_policy="dots", attention_impl="flash")
     module = LlamaForCausalLM(cfg, device=acc.device)
@@ -1854,6 +1881,424 @@ def imperative_phase(hf, fsdp_loop, device="cuda", width=FULL_WIDTH, seq=SLICE["
             "checks": checks, "ok": checks["ok"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the loop and the engine with the library's observability on
+# ---------------------------------------------------------------------------
+
+# (a) phase 9's loop with trackers, telemetry, the profiler and a traced
+# window; (b) host-clock steps with telemetry off and on (blocks in the order
+# off, on, on, off), each block `cost_steps` steps after one warm-up, then
+# one step under torch.profiler; the flight bundle's exit code.
+OBSERVED = dict(steps=8, save_after=4, log_every=2, probe_every=2,
+                schedule=dict(wait=1, warmup=1, active=2, repeat=1), cost_steps=4,
+                flight_code=75, trackers=("json", "tensorboard"))
+# The identity of a profiler record: its terms sum to wall_s within 1e-9
+# relative, beside the half nanosecond to which each of its numbers is
+# rounded (as the JAX package rounds them).
+IDENTITY_REL = 1e-9
+# Host-device synchronisations counted per step by telemetry_cost.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def sums_to_wall(rec) -> bool:
+    terms = rec["terms"]
+    return abs(sum(terms.values()) - rec["wall_s"]) <= (
+        IDENTITY_REL * rec["wall_s"] + 0.5e-9 * (len(terms) + 1))
+
+
+def sync_counts(prof, steps=1) -> dict:
+    """Per step of a torch.profiler run: the host calls that wait for the
+    card (``SYNC_CALLS``) and the device-to-host copies."""
+    from torch.autograd import DeviceType
+
+    out = dict.fromkeys(SYNC_CALLS + ("memcpy_dtoh",), 0)
+    for e in prof.events():
+        if e.name in out:
+            out[e.name] += 1
+        elif e.device_type == DeviceType.CUDA and "DtoH" in e.name:
+            out["memcpy_dtoh"] += 1
+    return {k: v / steps for k, v in out.items()}
+
+
+def trace_launches(path) -> dict:
+    """Launches of each flash kernel in a Chrome trace of torch.profiler."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = dict.fromkeys(KERNELS, 0)
+    for e in events:
+        if e.get("cat") == "kernel" and _category(e.get("name", "")) in counts:
+            counts[_category(e["name"])] += 1
+    return counts
+
+
+def _jsonl(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+class _Messages:
+    """The warnings a logger emits inside the block."""
+
+    def __init__(self, name):
+        import logging
+
+        self.logger, self.messages = logging.getLogger(name), []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda record: self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def counted_flops_model(width, batch, seq) -> dict:
+    """What capture_cost's FLOP count should be for one step of the Llama,
+    beside bench.py's FLOP model: the counter sees the products only
+    (6 FLOPs per weight of a projection per token, no embedding lookup, no
+    norm) and attention over the causal pairs at 4 forward and 10
+    backward FLOPs per pair and head dim; bench.py counts 6 per parameter,
+    embedding included, and 12·L·H·S per token of full attention."""
+    h, layers, vocab = width["hidden_size"], width["num_hidden_layers"], width["vocab_size"]
+    n = llama_n_params(width)
+    tokens = batch * seq
+    projections = n - vocab * h - (2 * layers + 1) * h
+    attention = 14 * layers * batch * h * seq * (seq + 1) // 2
+    return {"bench_model": 6 * n * tokens + 12 * layers * h * seq * tokens,
+            "counted_model": 6 * projections * tokens + attention,
+            "embedding_in_bench": 6 * vocab * h * tokens,
+            "attention_in_bench": 12 * layers * h * seq * tokens, "attention_counted": attention}
+
+
+def telemetry_cost(hf, acc, step, loader, sched, recorder, device="cuda",
+                   cost_steps=OBSERVED["cost_steps"]):
+    """(b): the same step with telemetry off and on (the recorder set on the
+    Accelerator and the loader, or None), in blocks off, on, on, off: one
+    warm-up step, ``cost_steps`` steps on the host clock, one step under
+    torch.profiler for its device-busy ms, its launches and its
+    synchronisations. No profiler may be running when it starts."""
+    import torch
+    from torch.autograd.profiler import _is_profiler_enabled
+    from torch.profiler import ProfilerActivity, profile
+
+    free_before = not _is_profiler_enabled
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
+    # The recorder's own host time: its step hook, and the JSONL writes in it.
+    spent = {"on_train_step": 0.0, "_write": 0.0}
+    for name in spent:
+        inner = getattr(recorder, name)
+
+        def timed_hook(*a, _inner=inner, _name=name, **k):
+            t = time.perf_counter()
+            try:
+                return _inner(*a, **k)
+            finally:
+                spent[_name] += time.perf_counter() - t
+
+        setattr(recorder, name, timed_hook)
+    blocks = []
+    for on in (False, True, True, False):
+        acc.telemetry = loader._telemetry = recorder if on else None
+        it = iter(loader)
+        step(acc.train_state, next(it))
+        sched.step()
+        torch.cuda.synchronize()
+        for name in spent:
+            spent[name] = 0.0
+        t0 = time.perf_counter()
+        for _ in range(cost_steps):
+            step(acc.train_state, next(it))
+            sched.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / cost_steps
+        hook_ms = {k: v * 1e3 / cost_steps for k, v in spent.items()}
+        with profile(activities=activities) as prof:
+            step(acc.train_state, next(it))
+            sched.step()
+            torch.cuda.synchronize()
+        it.close()
+        busy = device_times(prof, 1)[0]
+        blocks.append({"telemetry": on, "step_ms": ms, "device_busy_ms": busy,
+                       "recorder_ms": hook_ms, "syncs": sync_counts(prof)})
+    for name in spent:
+        delattr(recorder, name)
+    acc.telemetry = loader._telemetry = recorder
+
+    def mean(on, key):
+        return sum(b[key] for b in blocks if b["telemetry"] == on) / 2
+
+    return {"profiler_free_before": free_before, "blocks": blocks,
+            "step_ms": {"off": mean(False, "step_ms"), "on": mean(True, "step_ms")},
+            "device_busy_ms": {"off": mean(False, "device_busy_ms"),
+                               "on": mean(True, "device_busy_ms")},
+            "recorder_ms": {k: sum(b["recorder_ms"][k] for b in blocks if b["telemetry"]) / 2
+                            for k in spent},
+            "syncs_equal": all(b["syncs"] == blocks[0]["syncs"] for b in blocks)}
+
+
+def observed_imperative(hf, acc, loader, recorder, ga=IMPERATIVE["ga"]):
+    """(c): one window of phase 12's imperative loop (``ga`` microbatches of
+    one row) with telemetry on: its optimizer_step record and the kernels'
+    launches."""
+    from accelerate_tpu_torch.models import cross_entropy_loss
+
+    def loss_fn(model, b):
+        ids = b["ids"].long()
+        return cross_entropy_loss(model(ids[:, :-1]), ids[:, 1:])
+
+    acc.telemetry = loader._telemetry = recorder
+    acc.gradient_accumulation_steps = ga
+    model, opt = acc._models[0], acc._optimizers[0]
+    it = iter(loader)
+    batch = next(it)
+    it.close()
+    hf.reset_launch_counts()
+    flags = []
+    for i in range(ga):
+        with acc.accumulate(model):
+            acc.backward(loss_fn, {"ids": batch["ids"][i::ga]})
+            flags.append(acc.sync_gradients)
+            opt.step()
+            opt.zero_grad()
+    launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+    records = [r for r in _jsonl(recorder.path) if r["event"] == "optimizer_step"]
+    return {"ga": ga, "sync_flags": flags, "records": records, "launches": launches,
+            "variant_launches": variant_launches}
+
+
+def observed_serving(hf, module, recorder, phase8_tok_s=None, row=SERVING_ROW):
+    """(d): phase 8's engine and trace, replayed by an engine without
+    telemetry and one with ``telemetry=recorder`` (and its profiler, whose
+    ring must hold every tick of a replay), in the order off, on, on, off:
+    the observed engine's tick records and serving block against its
+    stats() (its last replay), tok/s of each replay beside phase 8's."""
+    import torch
+
+    from accelerate_tpu_torch import Model, ServingConfig, ServingEngine
+    from accelerate_tpu_torch.serving import replay_trace
+
+    vocab = module.config.vocab_size
+    lengths, budgets, prompts, arrivals = serving_trace(vocab, **row)
+    cfg = ServingConfig(n_slots=row["slots"], max_len=int(max(lengths + budgets)) + 8,
+                        max_prefill_chunk=max(16, row["prompt_len"]))
+    engines = {False: ServingEngine(Model(module), cfg),
+               True: ServingEngine(Model(module), cfg, telemetry=recorder)}
+    for engine in engines.values():
+        engine.warmup()
+    replays = []
+    for on in (False, True, True, False):
+        engine = engines[on]
+        engine.reset_metrics()
+        torch.cuda.synchronize()
+        hf.reset_launch_counts()
+        rows, wall = replay_trace(engine, prompts, arrivals=list(arrivals),
+                                  max_new_tokens=[int(b) for b in budgets])
+        stats = engine.stats()
+        replays.append({"telemetry": on, "tok_s": stats["tokens_out"] / wall, "wall_s": wall,
+                        "ticks": stats["ticks"], "ttft_p50_s": stats["ttft_p50_s"],
+                        "ttft_p95_s": stats["ttft_p95_s"],
+                        "ok": serving_gate(rows, prompts, budgets.tolist(), stats, vocab)})
+        if on:
+            launches, observed = dict(hf.VARIANT_LAUNCHES), stats
+            ticks_lagged = recorder.profiler.summary()["ticks"]
+    metrics = recorder.hub.render()
+    recorder.close()
+    ticks = recorder.profiler.records()
+    records = _jsonl(recorder.path)
+    block = [r for r in records if r["event"] == "serving_summary"][-1]
+    done = [r for r in records if r["event"] == "serving_request_done"]
+    checks = {
+        "requests": all(r["ok"] for r in replays),
+        "ticks_sum_to_wall": len(ticks) == observed["ticks"] and all(
+            sums_to_wall(r) for r in ticks),
+        "ticks_lagged": ticks_lagged == observed["ticks"] - 1,
+        "serving_block_ttft": (block["ttft_p50_s"], block["ttft_p95_s"]) == (
+            observed["ttft_p50_s"], observed["ttft_p95_s"]),
+        # The observed engine's warm-up request and its two replays.
+        "request_records": len(done) == 1 + 2 * len(prompts),
+        "hub": "accelerate_tpu_slo_serving_availability_burn_rate 0.0" in metrics,
+    }
+
+    def mean(on):
+        return sum(r["tok_s"] for r in replays if r["telemetry"] == on) / 2
+
+    return {"replays": replays, "tok_s": {"off": mean(False), "on": mean(True)},
+            "phase8_tok_s": phase8_tok_s, "ticks": observed["ticks"], "tick_records": len(ticks),
+            "tick_terms_mean_s": recorder.profiler.summary()["tick_terms_mean_s"],
+            "ttft_p50_s": observed["ttft_p50_s"], "ttft_p95_s": observed["ttft_p95_s"],
+            "variant_launches": launches, "checks": checks}
+
+
+def observed_phase(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], phase8_tok_s=None,
+                   phase9=None, cost_steps=OBSERVED["cost_steps"], serving_row=SERVING_ROW):
+    """Phase 13 (see the module docstring). Returns its report with its
+    checks."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.profiler import dump_flight, exit_class_name
+    from accelerate_tpu_torch.telemetry import STEP_RECORD_KEYS, TelemetryRecorder
+    from accelerate_tpu_torch.utils import ProfileKwargs, TelemetryKwargs
+    from accelerate_tpu_torch.utils.imports import is_tensorboard_available
+
+    t_start = time.perf_counter()
+    steps, save_after = OBSERVED["steps"], OBSERVED["save_after"]
+    every = OBSERVED["log_every"]
+    tokens = np.random.default_rng(LOOP["data_seed"]).integers(
+        0, width["vocab_size"], (LOOP["rows"], seq + 1), dtype=np.int32)
+    root, disk = checkpoint_root(llama_n_params(width) * 4 * 3)
+    handlers = [TelemetryKwargs(profile=True, log_every=every,
+                                straggler_probe_every=OBSERVED["probe_every"]),
+                ProfileKwargs(schedule_option=OBSERVED["schedule"])]
+    try:
+        with _Messages("accelerate_tpu_torch.tracking") as warned:
+            acc, step, loader, sched, _ = build_loop(
+                device, width, seq, root, LOOP["init_seeds"][0], tokens,
+                acc_kw=dict(log_with=list(OBSERVED["trackers"]), kwargs_handlers=handlers))
+        tel = acc.telemetry
+        hook = []  # the loader's waits, as its hook reports them
+        add = tel.add_data_wait
+        tel.add_data_wait = lambda s: (hook.append(s), add(s))[1]
+        acc.init_trackers("chip_smoke", config={**width, "seq": seq, "batch": LOOP["batch"]})
+
+        # (a) the main path of this phase: counts from 0 just before, read just after
+        it = iter(loader)
+        hf.reset_launch_counts()
+        losses, peaks = [], []
+        with acc.profile() as session:
+            for i in range(steps):
+                _, metrics = step(acc.train_state, next(it))
+                peaks.append(torch.cuda.max_memory_allocated())
+                sched.step()
+                session.step()
+                losses.append(float(metrics["loss"]))
+                acc.log({"loss": losses[-1]}, step=i + 1)
+                if i + 1 == save_after:
+                    acc.save_state()
+                    save = dict(acc.checkpoint_stats)
+        launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+        it.close()
+        lagged = len(tel.profiler.records())
+        acc.end_training()
+        prof_records = tel.profiler.records()
+        flight_path = dump_flight(tel, OBSERVED["flight_code"], reason="chip_smoke phase 13")
+        with open(flight_path) as f:
+            flight = json.load(f)
+        records = _jsonl(tel.path)
+        logged = _jsonl(os.path.join(acc.logging_dir, "chip_smoke.metrics.jsonl"))
+        tb = None
+        if "tensorboard" in acc.log_with:
+            from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+            ea = EventAccumulator(os.path.join(acc.logging_dir, "chip_smoke"))
+            ea.Reload()
+            tb = [(e.step, e.value) for e in ea.Scalars("loss")]
+        trace_dirs = [os.path.relpath(d, root) for d in session.trace_dirs]
+        traced = {k: v / 2 for k, v in trace_launches(
+            os.path.join(session.trace_dirs[0], "trace.json")).items()} if trace_dirs else {}
+        cost = dict(tel.profiler._cost or {})
+        # The checkpoint goes before (b): its pages, still being written
+        # back, would slow the recorder's writes.
+        shutil.rmtree(os.path.dirname(save["dir"]), ignore_errors=True)
+
+        # (b) the cost of telemetry; (c) the imperative loop: a second
+        # recorder on the same Accelerator (its own JSONL), no FLOP count
+        acc.trackers = []
+        recorder = TelemetryRecorder(acc, TelemetryKwargs(
+            profile={"capture_cost": False}, log_every=every,
+            straggler_probe_every=OBSERVED["probe_every"],
+            output_dir=os.path.join(root, "telemetry_cost")))
+        costs = telemetry_cost(hf, acc, step, loader, sched, recorder, device=device,
+                               cost_steps=cost_steps)
+        imperative = observed_imperative(hf, acc, loader, recorder)
+        acc.free_memory()  # closes the recorder
+        del step, loader, sched, it, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) phase 8's engine, with a recorder on (a)'s Accelerator
+        cfg = LlamaConfig(**width, max_position_embeddings=2048, dtype=torch.bfloat16)
+        module = LlamaForCausalLM(cfg, device=acc.device)
+        module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+        module.to(torch.bfloat16)
+        serving = observed_serving(hf, module, TelemetryRecorder(acc, TelemetryKwargs(
+            profile={"ring_size": 4096}, output_dir=os.path.join(root, "telemetry_serving"))),
+            phase8_tok_s, row=serving_row)
+        del module
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_layers = width["num_hidden_layers"]
+    step_recs = [r for r in records if r["event"] == "step"]
+    log_recs = [r for r in logged if r["event"] == "log"]
+    tel_steps = [r["step"] for r in log_recs if "telemetry/step_time_s" in r["values"]]
+    saves = [r for r in records if r["event"] == "checkpoint_save"]
+    opt_recs = imperative["records"]
+    tb_ok = (tb == [(i + 1, x) for i, x in enumerate(losses)] if tb is not None
+             else "Tried adding logger tensorboard, but that package is not installed."
+             in warned.messages)
+    checks = {
+        "tensorboard": tb_ok and ("tensorboard" in acc.log_with) == is_tensorboard_available(),
+        "json_tracker_losses": [r["values"]["loss"] for r in log_recs
+                                if "loss" in r["values"]] == losses,
+        "json_tracker_telemetry": tel_steps == list(range(every, steps + 1, every)),
+        "step_records": len(step_recs) == steps and all(
+            set(r) == set(STEP_RECORD_KEYS) | {"t_mono"} and r["samples"] == LOOP["batch"]
+            and r["recompiles"] == 0 for r in step_recs),
+        "data_wait_sums": math.isclose(sum(r["data_wait_s"] for r in step_recs), sum(hook),
+                                       rel_tol=1e-9, abs_tol=1e-12),
+        "hbm_peak_matches": [r["hbm_peak_bytes"] for r in step_recs] == peaks,
+        "checkpoint_save_event": len(saves) == 1 and abs(
+            saves[0]["seconds"] - save["seconds"]) <= 0.05 * save["seconds"],
+        "summary_record": sum(r["event"] == "summary" for r in records) == 1,
+        "profiler_records": lagged == steps - 1 and len(prof_records) == steps,
+        "profiler_sums": all(sums_to_wall(r) for r in prof_records),
+        "one_window": trace_dirs == ["cycle_0"],
+        "trace_launches": traced == {k: n_layers for k in KERNELS},
+        "launches": all(n == n_layers * steps for n in launches.values()),
+        "flight": (os.path.basename(flight_path)
+                   == f"flight_{exit_class_name(OBSERVED['flight_code'])}.json"
+                   and [e["step"] for e in flight["entries"]] == list(range(1, steps + 1))),
+        "finite": all(math.isfinite(x) for x in losses),
+        "flops_counted": cost.get("flops", 0) > 0,
+        "no_added_sync": costs["syncs_equal"],
+        "profilers_apart": costs["profiler_free_before"],
+        "imperative_records": len(opt_recs) == 1 and opt_recs[0]["backward_s"] > 0
+        and opt_recs[0]["apply_s"] > 0,
+        "imperative_launches": all(n == n_layers * imperative["ga"]
+                                   for n in imperative["launches"].values()),
+        **{f"serving_{k}": v for k, v in serving["checks"].items()},
+    }
+    checks["ok"] = all(checks.values())
+    flops = counted_flops_model(width, LOOP["batch"], seq)
+    return {
+        "phase": "observability", "seconds": time.perf_counter() - t_start,
+        "trackers": acc.log_with, "tracker_warnings": warned.messages,
+        "losses": losses, "launches": launches, "variant_launches": variant_launches,
+        "traced_launches_per_step": traced, "trace_dirs": trace_dirs,
+        "step_records": [{k: r[k] for k in ("step", "wall_s", "data_wait_s", "samples",
+                                             "recompiles", "hbm_peak_bytes")} for r in step_recs],
+        "checkpoint_save_s": {"event": saves[0]["seconds"] if saves else None,
+                              "stats": save["seconds"]},
+        "profile_summary": tel.profiler.summary(), "flight_entries": len(flight["entries"]),
+        "flops": {"counted": cost.get("flops"), **flops,
+                  "counted_over_model": cost.get("flops", 0) / flops["counted_model"],
+                  "counted_over_bench": cost.get("flops", 0) / flops["bench_model"]},
+        "telemetry_cost": {**costs, "phase9_step_ms": phase9 and phase9.get("step_ms"),
+                           "phase9_device_busy_ms": phase9 and phase9.get(
+                               "device_busy_ms_per_step")},
+        "imperative": {k: v for k, v in imperative.items() if k != "records"}
+        | {"records": [{k: r[k] for k in ("step", "wall_s", "backward_s", "apply_s")}
+                       for r in opt_recs]},
+        "serving": serving, "checkpoint_disk": disk, "checks": checks, "ok": checks["ok"],
+    }
+
+
 def _stub_cuda_for_cpu():
     """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
     import torch
@@ -2021,6 +2466,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     # The serving engine and its model go before the training loop.
+    serving_tok_s = serving["tok_s"]
     del gen_module, serving
     gc.collect()
     torch.cuda.empty_cache()
@@ -2063,8 +2509,21 @@ def main() -> int:
         print(f"chip_smoke: imperative-loop phase failed: {imp['checks']}", file=sys.stderr)
         return 1
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. the loop and the engine with trackers, telemetry and the profiler
+    obs = observed_phase(hf, phase8_tok_s=serving_tok_s, phase9=loop)
+    emit(obs)
+    if not obs["ok"]:
+        print(f"chip_smoke: observability phase failed: {obs['checks']}", file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
-        "imperative_loop": imp["loop"]["variant_launches"]})})
+        "imperative_loop": imp["loop"]["variant_launches"],
+        "observed_loop": obs["variant_launches"],
+        "observed_imperative": obs["imperative"]["variant_launches"],
+        "observed_serving": obs["serving"]["variant_launches"]})})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -648,3 +648,76 @@ def test_imperative_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     assert res["batch_search"]["tried"] == [64, 32, 16]
     assert res["batch_search"]["halvings"] == 2
     assert all(math.isfinite(x) for m in res["fused"]["metrics"] for x in m)
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the loop and the engine with the library's observability on
+# ---------------------------------------------------------------------------
+
+
+def test_counted_flops_model_at_full_width(chip_smoke):
+    """What capture_cost should count a step of the 1.06B Llama at batch 4,
+    seq 2048, beside bench.py's model: 0.894 of it, the embedding and the
+    causal half of attention apart."""
+    f = chip_smoke.counted_flops_model(chip_smoke.FULL_WIDTH, 4, 2048)
+    assert f["bench_model"] == 59325812834304 and f["counted_model"] == 53010600296448
+    assert (f["bench_model"] - f["embedding_in_bench"] - f["attention_in_bench"]
+            + f["attention_counted"] - f["counted_model"]) == 6 * 37 * 2048 * 4 * 2048
+
+
+@pytest.mark.parametrize("terms,wall,ok", [
+    ({"a": 0.1, "b": 0.2}, 0.3, True),
+    ({"a": 0.100000001, "b": 0.2}, 0.3, True),      # a nanosecond of rounding
+    ({"a": 0.100000005, "b": 0.2}, 0.3, False),
+    ({"a": 0.0, "b": 0.0}, 1e-3, False),
+])
+def test_sums_to_wall_allows_the_rounding_only(chip_smoke, terms, wall, ok):
+    assert chip_smoke.sums_to_wall({"terms": terms, "wall_s": wall}) is ok
+
+
+def test_trace_launches_counts_the_flash_kernels(chip_smoke, tmp_path):
+    import json
+
+    events = [{"cat": "kernel", "name": "void flash::flash_fwd_kernel<128>(CUtensorMap_st)"},
+              {"cat": "kernel", "name": "void flash::flash_dq_kernel<128>(flash::BwdArgs)"},
+              {"cat": "kernel", "name": "void flash::flash_dq_kernel<128>(flash::BwdArgs)"},
+              {"cat": "cpu_op", "name": "flash_dkv_kernel"},
+              {"cat": "kernel", "name": "nvjet_tst_128x256"}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert chip_smoke.trace_launches(path) == {"flash_fwd": 1, "flash_dq": 2, "flash_dkv": 0}
+
+
+def test_observed_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
+    """Phase 13 at a small width on the CPU: trackers (TensorBoard is
+    installed here), the telemetry JSONL, the profiler's records, the
+    traced window, the flight bundle, the cost of telemetry, the
+    imperative window and the engine. The plain versions stand in for the
+    kernels (no launches) and ``max_memory_allocated`` is stubbed (the
+    CPU's gauge is a census of live tensors): those checks fail here only.
+    The engine replays 8 of the serving row's requests at 64 per second."""
+    import torch
+
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    _stub_cuda(chip_smoke, monkeypatch)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    try:
+        res = chip_smoke.observed_phase(hf, device="cpu", width=_TINY_WIDTH, seq=32,
+                                        serving_row=dict(chip_smoke.SERVING_ROW, requests=8,
+                                                         qps=64.0))
+    finally:
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+    failed = sorted(k for k, v in res["checks"].items() if not v)
+    assert failed == ["hbm_peak_matches", "imperative_launches", "launches", "ok",
+                      "trace_launches"]
+    assert res["trackers"] == ["json", "tensorboard"] and not res["tracker_warnings"]
+    assert res["flops"]["counted"] == res["flops"]["counted_model"]
+    assert res["trace_dirs"] == ["cycle_0"] and res["flight_entries"] == 8
+    assert [r["step"] for r in res["step_records"]] == list(range(1, 9))
+    assert res["telemetry_cost"]["syncs_equal"] and len(res["telemetry_cost"]["blocks"]) == 4
+    assert res["imperative"]["sync_flags"] == [False, False, False, True]
+    assert res["serving"]["tick_records"] == res["serving"]["ticks"] > 0
+    assert [r["telemetry"] for r in res["serving"]["replays"]] == [False, True, True, False]

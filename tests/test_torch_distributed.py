@@ -29,7 +29,10 @@ seed, from the same flax-initialised tiny Llama (fp32):
   gradient collectives skipped on the microbatch that does not end the
   window (and run on each with ``sync_each_batch``); triggers,
   ``split_between_processes``, ``main_process_first`` and
-  ``gather_for_metrics`` inside an accumulation window across the ranks.
+  ``gather_for_metrics`` inside an accumulation window across the ranks;
+- step telemetry at 2 processes: the straggler probe's gather of every
+  process's step time, and ``collective_counters`` counting each
+  collective of a step and of ``utils/operations.py``.
 
 The spawned processes import this module: JAX is imported only inside the
 functions that compute the references.
@@ -435,12 +438,58 @@ def _job_surface(ctx):
     return out
 
 
+def _job_telemetry(ctx):
+    """Step telemetry over the gang: two FSDP2 steps with the straggler
+    probe on every step, the collective counters read around each step,
+    then each collective of ``utils/operations.py`` once."""
+    import json
+
+    from accelerate_tpu_torch.utils import TelemetryKwargs
+    from accelerate_tpu_torch.utils.operations import collective_counters
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    module = LlamaForCausalLM(cfg)
+    module.load_state_dict(llama_params_from_flax(cfg, ctx["flax_params"]))
+    acc = _port_accelerator("fsdp", project_dir=ctx["telemetry_dir"], kwargs_handlers=[
+        TelemetryKwargs(straggler_probe_every=1, log_every=0, profile=True)])
+    acc.prepare(Model(module), adamw(LR))
+    step = acc.prepare_train_step(_port_loss, max_grad_norm=1.0)
+    per_step = []
+    for i in range(2):
+        before = collective_counters.snapshot()
+        step(acc.train_state, _local(ctx["batches"][i], rank, world))
+        after = collective_counters.snapshot()
+        per_step.append({op: {k: v[k] - before.get(op, {}).get(k, 0) for k in v}
+                         for op, v in after.items()})
+    before = collective_counters.snapshot()
+    x = torch.ones(2, 3)
+    acc.gather(x)
+    acc.reduce(x)
+    acc.pad_across_processes(x)
+    operations.broadcast(x)
+    operations.gather_object({"rank": rank})
+    operations.broadcast_object_list([rank])
+    after = collective_counters.snapshot()
+    ops = {op: {k: v[k] - before.get(op, {}).get(k, 0) for k in v} for op, v in after.items()
+           if v != before.get(op)}
+    token_count_bytes = torch.ones((), dtype=torch.long).element_size()
+    acc.end_training()
+    profile = acc.telemetry.profiler.summary()  # the lagged last record flushed
+    with open(os.path.join(ctx["telemetry_dir"], "telemetry", f"rank_{rank}.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    _reset_port()
+    return {"per_step": per_step, "ops": ops, "records": records,
+            "token_count_bytes": token_count_bytes, "profile": profile,
+            "enabled_after": collective_counters.enabled}
+
+
 JOBS = {"fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
         "dispatcher": _job_dispatcher, "rng": _job_rng, "save": _job_save,
         "options": _job_options, "fsdp_ga2": _job_fsdp_ga2, "per_node": _job_per_node,
         "resume_jax": _job_resume_jax, "fsdp_uneven": _job_fsdp_uneven,
         "imperative": _job_imperative, "imperative_hsdp": _job_imperative_hsdp,
-        "surface": _job_surface}
+        "surface": _job_surface, "telemetry": _job_telemetry}
 
 
 def _worker(rank, world, init_file, ctx_path, jobs):
@@ -543,10 +592,11 @@ def runs(tmp_path_factory):
     ctx = {"flax_params": params, "batches": batches, "uneven_batches": _uneven(batches),
            "save_dir": str(tmp / "port4"),
            "per_node_dir": str(tmp / "per_node"), "surface_dir": str(tmp),
+           "telemetry_dir": str(tmp / "telemetry"),
            "jax_ckpt": str(tmp / "jax" / "checkpoints" / "checkpoint_0")}
     two = _spawn(tmp, 2, ["fsdp", "ddp", "collectives", "dispatcher", "rng", "resume_jax",
                           "options", "fsdp_ga2", "per_node", "fsdp_uneven", "imperative",
-                          "surface"], ctx)
+                          "surface", "telemetry"], ctx)
     four = _spawn(tmp, 4, ["fsdp", "hsdp", "collectives", "save", "imperative_hsdp",
                            "surface"], ctx)
     return {"ref": ref, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
@@ -986,3 +1036,48 @@ def test_gather_for_metrics_inside_an_accumulation_window(runs, world):
         assert s["sync"][-1] and s["opt_steps"] == sum(s["sync"])
         n = len(s["sync"])
         assert s["sync"] == [(i + 1) % 2 == 0 or i == n - 1 for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Step telemetry over the gang
+# ---------------------------------------------------------------------------
+
+
+def test_straggler_probe_gathers_every_process_step_time(runs):
+    """Every process writes a probe record a step holding every process's
+    step time in rank order, its own among them; the skew follows."""
+    out = [r["telemetry"] for r in runs[2]]
+    for rank, res in enumerate(out):
+        steps = [r for r in res["records"] if r["event"] == "step"]
+        probes = [r for r in res["records"] if r["event"] == "straggler_probe"]
+        assert [p["step"] for p in probes] == [1, 2]
+        for st, probe in zip(steps, probes):
+            times = probe["rank_times_s"]
+            assert len(times) == 2 and times[rank] == st["wall_s"]
+            assert (probe["step_time_max_s"], probe["step_time_min_s"]) == (max(times),
+                                                                            min(times))
+            assert probe["skew"] == pytest.approx((max(times) - min(times)) / np.mean(times))
+        assert res["profile"]["steps"] == 2 and not res["enabled_after"]
+    assert ([p["rank_times_s"] for p in out[0]["records"] if p["event"] == "straggler_probe"]
+            == [p["rank_times_s"] for p in out[1]["records"] if p["event"] == "straggler_probe"])
+
+
+def test_collective_counters_count_every_collective_of_a_step(runs):
+    """A step at 2 processes runs two collectives of this package: the
+    all-reduce of the loss's token count and that of the loss (FSDP2's own
+    all-gathers and reduce-scatters are torch's). The probe's gather does
+    not count. Each operation of utils/operations.py counts once with its
+    payload, pad_across_processes without the gather inside it."""
+    for res in (r["telemetry"] for r in runs[2]):
+        assert res["per_step"] == [{"all_reduce": {
+            "count": 2, "bytes": res["token_count_bytes"] + 4}}] * 2
+        steps = [r for r in res["records"] if r["event"] == "step"]
+        assert [s["collectives"] for s in steps] == [
+            {"all_reduce": {"count": 2 * (i + 1), "bytes": (i + 1) * (
+                res["token_count_bytes"] + 4)}} for i in range(2)]
+        assert res["ops"] == {
+            "gather": {"count": 1, "bytes": 24}, "reduce": {"count": 1, "bytes": 24},
+            "pad_across_processes": {"count": 1, "bytes": 24},
+            "broadcast": {"count": 1, "bytes": 24}, "gather_object": {"count": 1, "bytes": 0},
+            "broadcast_object_list": {"count": 1, "bytes": 0}}
+

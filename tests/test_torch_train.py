@@ -34,6 +34,7 @@ from accelerate_tpu_torch import (
     ProjectConfiguration,
     adamw,
 )
+from accelerate_tpu_torch.utils import TelemetryKwargs
 from accelerate_tpu_torch.models import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -126,6 +127,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', "
         "'accelerate_tpu')]\n"
         "assert not bad, bad\n"
+        "# The trackers import their packages when built (TensorBoard pulls in TensorFlow).\n"
+        "tb = [m for m in sys.modules if m.split('.')[0] in ('tensorboard', 'tensorflow') "
+        "or m.startswith('torch.utils.tensorboard')]\n"
+        "assert not tb, tb\n"
         "print(len(sys.modules))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -134,7 +139,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(modules) >= 15
     for name in ("accelerate_tpu_torch.native", "accelerate_tpu_torch.data_loader",
                  "accelerate_tpu_torch.checkpointing", "accelerate_tpu_torch.scheduler",
-                 "accelerate_tpu_torch.utils.other", "accelerate_tpu_torch.utils.constants"):
+                 "accelerate_tpu_torch.utils.other", "accelerate_tpu_torch.utils.constants",
+                 "accelerate_tpu_torch.tracking", "accelerate_tpu_torch.telemetry",
+                 "accelerate_tpu_torch.profiler", "accelerate_tpu_torch.utils.profiling",
+                 "accelerate_tpu_torch.utils.imports"):
         assert name in modules, name
 
 
@@ -171,10 +179,10 @@ def test_accelerator_refuses_a_second_device_choice(monkeypatch):
     lambda: Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(
         sharding_strategy="SHARD_GRAD_OP")),
     lambda: FullyShardedDataParallelPlugin(min_weight_size_to_shard=0),
-    lambda: ProjectConfiguration(logging_dir="runs"),
+    lambda: ProjectConfiguration(automatic_resume=True),
     lambda: FullyShardedDataParallelPlugin(state_dict_type="DISTRIBUTED_STATE_DICT"),
     lambda: MixedPrecisionPolicy(reduce_dtype=torch.bfloat16),
-    lambda: Accelerator(cpu=True, log_with="tensorboard"),
+    lambda: TelemetryKwargs(tracing=True),
 ])
 def test_settings_the_port_does_not_act_on_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
