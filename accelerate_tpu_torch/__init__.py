@@ -7,7 +7,10 @@ learning-rate schedules, and checkpoints in the JAX package's directory
 contract), KV-cache generation and continuous-batching serving for Llama,
 and their observability: experiment trackers (``log_with``), step
 telemetry and the device-time profiler (``TelemetryKwargs``), and
-``Accelerator.profile`` (``ProfileKwargs``).
+``Accelerator.profile`` (``ProfileKwargs``). Reduced precision:
+``mixed_precision="fp16"`` with dynamic loss scaling (``GradScalerKwargs``)
+and ``"fp8"`` with fp8 projections on Hopper's fp8 tensor cores
+(``FP8RecipeKwargs``, ``LlamaConfig(fp8=True)``).
 
 It imports torch only, never JAX or the ``accelerate_tpu`` package, and
 runs on CUDA unless the caller asks for the CPU (``Accelerator(cpu=True)``).
@@ -36,11 +39,13 @@ from .scheduler import AcceleratedScheduler
 from .serving import ServingEngine
 from .state import AcceleratorState, DistributedType, GradientState, PartialState
 from .telemetry import TelemetryRecorder
-from .train_state import TrainState
+from .train_state import DynamicLossScale, TrainState, grads_all_finite
 from .utils import (
     DataLoaderConfiguration,
+    FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
+    GradScalerKwargs,
     MixedPrecisionPolicy,
     ProfileKwargs,
     ProjectConfiguration,
@@ -59,8 +64,11 @@ __all__ = [
     "ColumnDataset",
     "DataLoaderConfiguration",
     "DistributedType",
+    "DynamicLossScale",
+    "FP8RecipeKwargs",
     "FullyShardedDataParallelPlugin",
     "GenerationConfig",
+    "GradScalerKwargs",
     "GradientAccumulationPlugin",
     "GradientState",
     "MixedPrecisionPolicy",
@@ -80,6 +88,7 @@ __all__ = [
     "cosine_decay_schedule",
     "find_executable_batch_size",
     "generate",
+    "grads_all_finite",
     "join_schedules",
     "linear_schedule",
     "prepare_data_loader",

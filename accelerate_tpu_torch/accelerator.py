@@ -76,6 +76,21 @@ microbatches that do not end a window skip the gradient collectives
 ``sync_each_batch``; their gradients are then each process's own, so
 ``clip_grad_norm_`` there arms the clip and returns None.
 
+Reduced precision, as in the JAX package. ``mixed_precision="fp16"``
+computes in float16 with dynamic loss scaling (``GradScalerKwargs``,
+``train_state.DynamicLossScale``): the loss is multiplied by the scale
+before its backward, the gradients are unscaled before their norm and
+clip, and a step whose gradients are not all finite (on any process:
+the flag is all-reduced with MIN) leaves the parameters, the AdamW moments
+and step counts, the schedule's count and ``state.step`` as they were,
+while the scale backs off. The skip runs on the card (fused AdamW's
+``found_inf``), so the fused step still never waits for it;
+``optimizer.step_was_skipped`` reads the flag and waits. Checkpoints
+carry the scale in ``scaler.bin``. ``mixed_precision="fp8"`` computes in
+bfloat16 and ``fp8_dot_general`` is the recipe's fp8 linear
+(``FP8RecipeKwargs``, ``ops/fp8.py``) for custom modules; Llama takes
+``LlamaConfig(fp8=True)``.
+
 Observability, as in the JAX package: ``log_with`` names trackers
 (``tracking.py``), built by ``init_trackers`` and fed by ``log``;
 ``kwargs_handlers=[TelemetryKwargs(...)]`` makes ``self.telemetry``
@@ -107,12 +122,14 @@ from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, DistributedType, GradientState
 from .tracking import GeneralTracker, filter_trackers
-from .train_state import TrainState
+from .train_state import DynamicLossScale, TrainState
 from .utils import operations
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
+    GradScalerKwargs,
     KwargsHandler,
     MixedPrecisionPolicy,
     ProfileKwargs,
@@ -135,6 +152,11 @@ def _microbatch_split(batch: dict, num_accum: int) -> list[dict]:
         raise ValueError(f"Batch dim {b} not divisible by gradient accumulation steps {num_accum}.")
     views = {k: v.reshape(b // num_accum, num_accum, *v.shape[1:]) for k, v in batch.items()}
     return [{k: v[:, i] for k, v in views.items()} for i in range(num_accum)]
+
+
+def _scaled(loss: torch.Tensor, loss_scale) -> torch.Tensor:
+    """The loss times the fp16 loss scale, or the loss without one."""
+    return loss if loss_scale is None else loss * loss_scale.scale
 
 
 def _is_dataloader_like(obj) -> bool:
@@ -204,16 +226,21 @@ class Accelerator:
             self.project_configuration.set_directories(project_dir)
         self.profile_handler: Optional[ProfileKwargs] = None
         self.telemetry_handler: Optional[TelemetryKwargs] = None
+        self.scaler_handler: Optional[GradScalerKwargs] = None
+        self.fp8_recipe_handler: Optional[FP8RecipeKwargs] = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, ProfileKwargs):
                 self.profile_handler = handler
             elif isinstance(handler, TelemetryKwargs):
                 self.telemetry_handler = handler
+            elif isinstance(handler, GradScalerKwargs):
+                self.scaler_handler = handler
+            elif isinstance(handler, FP8RecipeKwargs):
+                self.fp8_recipe_handler = handler
             else:
                 raise NotImplementedError(
                     f"kwargs handler {type(handler).__name__} is not ported yet (ROADMAP.md "
-                    "Queue A: GradScalerKwargs and FP8RecipeKwargs item 9, "
-                    "DistributedDataParallelKwargs item 1, CompileKwargs, "
+                    "Queue A: DistributedDataParallelKwargs item 1, CompileKwargs, "
                     "FaultToleranceKwargs and AutoPlanKwargs item 12)")
         self._mp_policy = MixedPrecisionPolicy.from_mixed_precision(mixed_precision)
         self.state = AcceleratorState(
@@ -314,7 +341,25 @@ class Accelerator:
 
     @property
     def optimizer_step_was_skipped(self) -> bool:
+        """Whether the last optimizer step overflowed under fp16 loss
+        scaling (reading it waits for the card)."""
         return any(opt.step_was_skipped for opt in self._optimizers)
+
+    @property
+    def fp8_dot_general(self):
+        """The recipe's fp8 linear for custom modules, ``linear(x, w) = x @
+        wᵀ`` (``ops/fp8.py``), or None unless ``mixed_precision="fp8"``. The
+        recipe's format, eval policy and backend act; its delayed-scaling
+        fields do not (current scaling, as in the JAX package)."""
+        if self.mixed_precision != "fp8":
+            return None
+        from .ops.fp8 import fp8_dot_general
+
+        recipe = self.fp8_recipe_handler
+        return fp8_dot_general(
+            recipe.fp8_format if recipe else "HYBRID",
+            use_during_eval=recipe.use_during_eval if recipe else False,
+            native=recipe.native_dots if recipe else None)
 
     # This process's coordinate on a mesh axis, as the JAX package names them.
 
@@ -413,10 +458,22 @@ class Accelerator:
                                      "the optimizer on the sharded parameters")
                 if isinstance(obj, AcceleratedOptimizer):
                     obj = obj.optimizer
-                opt = obj(model.parameters()) if isinstance(obj, AdamW) else obj
+                loss_scale = self._new_loss_scale()
+                if isinstance(obj, AdamW):
+                    opt = obj(model.parameters(), skip_on_overflow=loss_scale is not None)
+                else:
+                    opt = obj
+                    if loss_scale is not None and not getattr(
+                            opt, "_step_supports_amp_scaling", False):
+                        raise ValueError(
+                            "mixed_precision='fp16' skips an overflowed step on the device: "
+                            "pass adamw(...) or a fused torch optimizer (fused=True)")
                 # The train state (the fused step, checkpoints) keeps the
                 # optimizer itself; the caller gets the imperative loop's.
-                self._train_states.append(TrainState(step=0, model=model, optimizer=opt))
+                step = (0 if loss_scale is None
+                        else torch.zeros((), dtype=torch.int32, device=self.device))
+                self._train_states.append(TrainState(step=step, model=model, optimizer=opt,
+                                                     loss_scale=loss_scale))
                 self._optimizers.append(AcceleratedOptimizer(opt, accelerator=self))
                 out[i] = self._optimizers[-1]
         for i, obj in enumerate(args):
@@ -429,6 +486,16 @@ class Accelerator:
             else:
                 raise TypeError(f"prepare() does not take {type(obj).__name__}")
         return out[0] if len(out) == 1 else tuple(out)
+
+    def _new_loss_scale(self) -> Optional[DynamicLossScale]:
+        """The dynamic loss scale of ``mixed_precision="fp16"`` (the
+        ``GradScalerKwargs`` handler's settings), or None."""
+        if self.mixed_precision != "fp16":
+            return None
+        kw = self.scaler_handler.to_kwargs() if self.scaler_handler else {}
+        if not kw.pop("enabled", True):
+            return None
+        return DynamicLossScale.create(device=self.device, **kw)
 
     def prepare_data_loader(self, data_loader):
         """This package's loader over ``data_loader``, placing batches on
@@ -491,7 +558,9 @@ class Accelerator:
         process passes its own share of the global batch
         (``parallel.sharding.local_batch``). The losses and gradients are
         averaged over every process (``ParallelismConfig.loss_reduce_axes``,
-        all of them while tp, pp and ep are not ported)."""
+        all of them while tp, pp and ep are not ported). Under fp16 loss
+        scaling the loss is the unscaled one and the norm that of the
+        unscaled gradients; an overflowed step is skipped on the card."""
         if not self._train_states:
             raise RuntimeError("Call accelerator.prepare(...) first.")
         policy = self._mp_policy
@@ -509,11 +578,11 @@ class Accelerator:
                 with operations.loss_over_processes(world):
                     if model.sharded:  # FSDP2's policy casts the masters for compute
                         loss = loss_fn(model, mb).float()
-                        loss.backward()
+                        _scaled(loss, state.loss_scale).backward()
                     else:
                         with model.compute_params(policy.cast_for_compute(named)):
                             loss = loss_fn(model, mb).float()
-                            loss.backward()
+                            _scaled(loss, state.loss_scale).backward()
                 loss_sum += loss.detach()
             grads = [p.grad for p in params if p.grad is not None]
             # Parameters FSDP2 leaves whole are averaged here over every
@@ -524,12 +593,12 @@ class Accelerator:
                     p.grad.div_(world)
             if num_accum > 1:
                 torch._foreach_div_([_local(g) for g in grads], num_accum)
+            finite = self._unscale_and_check(state, grads)
             gnorm = _global_norm(grads)
             if max_grad_norm is not None:
                 factor = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
                 torch._foreach_mul_([_local(g) for g in grads], factor)
-            opt.step()
-            state.step += 1
+            self._optimizer_step(state, finite)
             loss = loss_sum / num_accum
             if world > 1:
                 operations.all_reduce(loss)
@@ -552,6 +621,38 @@ class Accelerator:
             return state, metrics
 
         return step_and_track
+
+    def _unscale_and_check(self, state: TrainState, grads: list) -> Optional[torch.Tensor]:
+        """Under loss scaling: ``grads`` unscaled in place, and whether every
+        gradient of every process is finite (a bool device tensor; MIN over
+        the processes, which hold different shards, so that all take the
+        same decision). None without loss scaling."""
+        if state.loss_scale is None:
+            return None
+        finite = state.loss_scale.unscale([_local(g) for g in grads])
+        if self.num_processes > 1:
+            flag = finite.to(torch.int32)
+            operations.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
+            finite = flag.bool()
+        return finite
+
+    def _optimizer_step(self, state: TrainState, finite: Optional[torch.Tensor]) -> None:
+        """``optimizer.step()`` and the step count; under loss scaling the
+        optimizer skips the step where ``finite`` is False (its
+        ``found_inf``), the count advances by ``finite`` and the scale is
+        updated, all on the device."""
+        opt = state.optimizer
+        if finite is None:
+            opt.step()
+            state.step += 1
+            return
+        opt.found_inf = (~finite).float()
+        try:
+            opt.step()
+        finally:
+            opt.found_inf = None
+        state.step += finite.to(state.step.dtype)
+        state.loss_scale.update(finite)
 
     def _synchronize(self) -> None:
         """Wait for the card (telemetry's ``sync_timing``)."""
@@ -612,9 +713,10 @@ class Accelerator:
     def backward(self, loss_fn: Callable, *args, has_aux: bool = False, **kwargs):
         """Run ``loss_fn(model, *args, **kwargs)`` on the prepared model and
         accumulate the gradients of the loss divided by the accumulation
-        steps in the fp32 masters' ``grad``. Returns the loss (detached, not
-        divided; the mean over processes), and ``aux`` when ``has_aux``
-        (``loss_fn`` then returns ``(loss, aux)``).
+        steps (times the loss scale under fp16) in the fp32 masters'
+        ``grad``. Returns the loss (detached, not divided, unscaled; the
+        mean over processes), and ``aux`` when ``has_aux`` (``loss_fn`` then
+        returns ``(loss, aux)``).
 
         The JAX package's signature: a loss function and its inputs, not a
         loss tensor. Host arrays among the inputs go to the device. The
@@ -630,7 +732,7 @@ class Accelerator:
                 f"scalar loss; got a {type(loss_fn).__name__}")
         if not self._train_states:
             raise RuntimeError("Call accelerator.prepare(...) before backward().")
-        model = self._train_states[0].model
+        model, loss_scale = self._train_states[0].model, self._train_states[0].loss_scale
         gs, world = self.gradient_state, self.num_processes
         communicate = gs.sync_gradients or gs.sync_each_batch
         tel = self.telemetry
@@ -643,7 +745,7 @@ class Accelerator:
                 out = loss_fn(model, *args, **kwargs)
                 loss, aux = out if has_aux else (out, None)
                 loss = loss.float()
-                (loss / gs.num_steps).backward()
+                _scaled(loss / gs.num_steps, loss_scale).backward()
         if communicate and world > 1:
             for p in model.ignored.values():
                 if p.grad is not None:
@@ -668,8 +770,10 @@ class Accelerator:
     def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0, norm_type: float = 2.0):
         """Arm the clip for this and every later optimizer step, and return
         the global L2 norm of the gradients accumulated so far (a device
-        scalar; FSDP2's shards counted once). ``parameters`` is taken for
-        the signature: the clip acts on the prepared model. None without
+        scalar; FSDP2's shards counted once), unscaled under fp16 loss
+        scaling (the JAX package returns the scaled norm there: a fault of
+        the reference, ROADMAP.md Queue C). ``parameters`` is taken for the
+        signature: the clip acts on the prepared model. None without
         gradients, or while the window's gradients are each process's own."""
         if norm_type != 2.0:
             raise NotImplementedError("Only L2 grad-norm clipping is supported, as in the "
@@ -678,7 +782,9 @@ class Accelerator:
         grads = self._grads(self._train_states[0]) if self._train_states else []
         if not grads or self._grads_local:
             return None
-        return _global_norm(grads)
+        loss_scale = self._train_states[0].loss_scale
+        norm = _global_norm(grads)
+        return norm if loss_scale is None else norm / loss_scale.scale
 
     def clip_grad_value_(self, parameters=None, clip_value: float = 1.0):
         raise NotImplementedError(
@@ -686,29 +792,35 @@ class Accelerator:
             "(clipping each value breaks the linearity of the data-parallel mean)")
 
     def unscale_gradients(self, optimizer=None):
-        """A no-op: without fp16 loss scaling the gradients are never scaled."""
+        """A no-op: every path that reads the gradients under fp16 loss
+        scaling unscales them first (``clip_grad_norm_``'s norm, the
+        optimizer step's clip and finite check), so callers migrating from
+        Accelerate's ``unscale_gradients()``-then-clip run unchanged."""
         return None
 
-    def _apply_gradients(self, optimizer: torch.optim.Optimizer) -> None:
+    def _apply_gradients(self, optimizer: torch.optim.Optimizer) -> Optional[torch.Tensor]:
         """The optimizer step of a window (``AcceleratedOptimizer.step``):
-        the armed clip, by the global norm of the gradients as they are
-        now, then ``optimizer.step()``. Nothing without gradients."""
+        under fp16 the gradients unscaled and checked, the armed clip by the
+        global norm of the gradients as they are now, then the step (skipped
+        on the device where they overflowed). Returns the finite flag under
+        loss scaling, else None. Nothing without gradients."""
         state = next(st for st in self._train_states if st.optimizer is optimizer)
         grads = self._grads(state)
         if not grads:
-            return
+            return None
         tel = self.telemetry
         t0 = time.perf_counter() if tel is not None else 0.0
+        finite = self._unscale_and_check(state, grads)
         if self._max_grad_norm is not None:
             factor = torch.clamp(self._max_grad_norm / (_global_norm(grads) + 1e-6), max=1.0)
             torch._foreach_mul_([_local(g) for g in grads], factor)
-        optimizer.step()
-        state.step += 1
+        self._optimizer_step(state, finite)
         self._grads_local = False
         if tel is not None:
             if tel.handler.sync_timing:
                 self._synchronize()
             tel.on_apply_gradients(time.perf_counter() - t0)
+        return finite
 
     # ------------------------------------------------------------------
     # Collectives across processes (utils/operations.py)

@@ -15,6 +15,10 @@ A checkpoint directory holds:
 - ``scheduler.bin``, ``sampler.bin`` (a loader's full mid-epoch
   ``state_dict``), ``custom_checkpoint_<i>.pkl`` for registered objects,
   ``accelerator_step.bin`` and ``random_states_<rank>.pkl``;
+- ``scaler.bin`` under fp16 loss scaling: the JAX package's pickle
+  ``{"scale": float, "growth_tracker": int}`` of the first model's scale,
+  restored into the live one on load (a JAX fp16 checkpoint resumes with
+  its scale);
 - ``model_<i>.safetensors`` and ``optimizer_<i>.bin`` for a second and
   later prepared model.
 
@@ -74,6 +78,7 @@ from .utils.constants import (
     OPTIMIZER_NAME,
     RNG_STATE_NAME,
     SAMPLER_NAME,
+    SCALER_NAME,
     SCHEDULER_NAME,
 )
 from .utils.other import (
@@ -309,6 +314,10 @@ def _save_host_side_state(accelerator, output_dir: str, writer: bool) -> None:
         output_dir, f"{RNG_STATE_NAME}_{accelerator.process_index}.pkl"))
     if not writer:
         return
+    loss_scale = accelerator._train_states[0].loss_scale
+    if loss_scale is not None:
+        _dump({"scale": float(loss_scale.scale), "growth_tracker": int(loss_scale.growth_tracker)},
+              os.path.join(output_dir, f"{SCALER_NAME}.bin"))
     for i, scheduler in enumerate(accelerator._schedulers):
         _dump(scheduler.state_dict(), os.path.join(output_dir, f"{SCHEDULER_NAME}{_suffix(i)}.bin"))
     for i, dl in enumerate(accelerator._dataloaders):
@@ -428,7 +437,7 @@ def _load_train_state(train_state, i: int, input_dir: str, device, stats: dict) 
         opt.state[p]["step"].fill_(count)
     if hasattr(opt, "count"):
         opt.count = count
-    train_state.step = int(payload["step"])
+    train_state.set_step(int(payload["step"]))
     if pin:
         torch.cuda.synchronize(device)
     stats["h2d_s"] += time.perf_counter() - t0
@@ -439,6 +448,11 @@ def _load_host_side_state(accelerator, input_dir: str) -> None:
         path = os.path.join(input_dir, name)
         return restricted_load(path) if os.path.exists(path) else None
 
+    loss_scale = accelerator._train_states[0].loss_scale
+    scaler = read(f"{SCALER_NAME}.bin")
+    if loss_scale is not None and scaler is not None:
+        loss_scale.scale.fill_(float(scaler["scale"]))
+        loss_scale.growth_tracker.fill_(int(scaler["growth_tracker"]))
     for i, scheduler in enumerate(accelerator._schedulers):
         sd = read(f"{SCHEDULER_NAME}{_suffix(i)}.bin")
         if sd is not None:

@@ -17,12 +17,15 @@ Over a process group (``parallel/fsdp.py``) the module keeps its names:
 FSDP2 shards it in place (``sharded``; its mixed-precision policy makes the
 compute copies, and ``ignored`` holds the parameters it leaves whole), and
 DDP wraps it (``forward_module``, through which calls run).
+
+An inference call (autograd off) runs inside ``ops.fp8.eval_mode()``.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
 
+import torch
 from torch import nn
 
 
@@ -64,4 +67,15 @@ class Model:
                 mod._parameters[attr] = original
 
     def __call__(self, *args, **kwargs):
-        return self.forward_module(*args, **kwargs)
+        """The module's forward. An inference call (autograd not recording:
+        under ``torch.no_grad()`` or ``torch.inference_mode()``) runs inside
+        ``ops.fp8.eval_mode()``, so that fp8 projections built with
+        ``use_during_eval=False`` compute in full precision, as the JAX
+        package's ``Model.__call__(train=False)`` does. The train step and
+        ``backward`` call it with autograd on."""
+        if torch.is_grad_enabled():
+            return self.forward_module(*args, **kwargs)
+        from .ops.fp8 import eval_mode
+
+        with eval_mode():
+            return self.forward_module(*args, **kwargs)

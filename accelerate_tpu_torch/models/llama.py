@@ -21,11 +21,18 @@ The policies match the JAX ones: ``minimal`` recomputes everything, the
 flash kernel included; ``flash`` keeps the flash forward's outputs
 (``hopper_flash.FLASH_FWD_OP``, the ``flash_out``/``flash_lse`` names of the
 JAX package; each ring chunk's too); ``dots`` also keeps every projection's
-matmul output.
+matmul output, the fp8 products included (``ops/fp8.FP8_MM_OP``), so that
+the recompute quantizes again but does not redo a product.
 
-The decoder-chassis knobs of the JAX config (layernorm, biases, partial
-rotary, Granite and Gemma constants, fp8) are not ported yet: a config that
-sets one raises ``NotImplementedError`` (ROADMAP.md Queue A item 10).
+fp8 (``fp8=True``): the seven block projections (q, k, v, o, gate, up,
+down) go through ``ops/fp8.fp8_dot_general(fp8_format, native=
+backend_to_native(fp8_backend))``; the embedding and ``lm_head`` stay in
+the compute dtype, as in the JAX package. The weights are the same, so
+``models/convert.py`` carries them over either way.
+
+The other decoder-chassis knobs of the JAX config (layernorm, biases,
+partial rotary, Granite and Gemma constants) are not ported yet: a config
+that sets one raises ``NotImplementedError`` (ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.flash_attention import auto_flash_attention
+from ..ops.fp8 import FP8_MM_OP, backend_to_native, fp8_dot_general
 from ..ops.hopper_flash import FLASH_FWD_OP
 from ..parallel.cp import ring_attention
 from ..parallel.sp import ulysses_attention
@@ -56,7 +64,7 @@ _UNPORTED_KNOBS = {
     "attention_bias": False, "norm_type": "rmsnorm", "mlp_gated": True, "mlp_bias": False,
     "attention_out_bias": False, "partial_rotary_factor": 1.0, "embedding_multiplier": 1.0,
     "residual_multiplier": 1.0, "attention_multiplier": None, "logits_scaling": 1.0,
-    "hidden_act": "silu", "rms_norm_plus_one": False, "scale_embeddings": False, "fp8": False,
+    "hidden_act": "silu", "rms_norm_plus_one": False, "scale_embeddings": False,
 }
 
 
@@ -93,7 +101,9 @@ class LlamaConfig:
     remat: bool = False
     remat_policy: str = "flash"         # flash | dots | minimal
     attention_impl: str = "flash"       # flash | native | ring | ulysses
-    fp8: bool = False
+    fp8: bool = False                   # fp8 matmuls in the block projections
+    fp8_format: str = "HYBRID"          # E4M3 | E5M2 | HYBRID (e4m3 fwd / e5m2 bwd)
+    fp8_backend: str = "AUTO"           # AUTO | TE | AO | QDQ (ops/fp8.py backend_to_native)
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -108,6 +118,14 @@ class LlamaConfig:
     @property
     def rotary_dim(self) -> int:
         return int(self.head_dim * self.partial_rotary_factor)
+
+    @property
+    def dot_general(self):
+        """The block projections' linear: fp8 when ``fp8`` is set, else None
+        (``F.linear``)."""
+        if not self.fp8:
+            return None
+        return fp8_dot_general(self.fp8_format, native=backend_to_native(self.fp8_backend))
 
     @classmethod
     def tiny(cls, **kw):
@@ -189,8 +207,9 @@ def _remat_policy(cfg: LlamaConfig):
     save = {FLASH_FWD_OP}
     if cfg.remat_policy == "dots":
         # JAX's dots_with_no_batch_dims_saveable: the projections (2-D
-        # matmuls), not the batched attention einsums.
-        save |= {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+        # matmuls, fp8 ones included), not the batched attention einsums.
+        save |= {torch.ops.aten.mm.default, torch.ops.aten.addmm.default, FP8_MM_OP,
+                 torch.ops.aten._scaled_mm.default}
 
     def policy(ctx, op, *args, **kwargs):
         return CheckpointPolicy.MUST_SAVE if op in save else CheckpointPolicy.PREFER_RECOMPUTE
@@ -199,15 +218,17 @@ def _remat_policy(cfg: LlamaConfig):
 
 
 class _Linear(nn.Module):
-    """Bias-free projection whose fp32 weight is cast to the compute dtype at use."""
+    """Bias-free projection whose fp32 weight is cast to the compute dtype
+    at use; ``linear`` is ``F.linear`` or the fp8 one."""
 
-    def __init__(self, in_features, out_features, dtype, device=None):
+    def __init__(self, in_features, out_features, dtype, device=None, linear=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
         self.dtype = dtype
+        self.linear = linear or F.linear
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return self.linear(x.to(self.dtype), self.weight.to(self.dtype))
 
 
 class RMSNorm(nn.Module):
@@ -224,11 +245,11 @@ class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        h, d = cfg.hidden_size, cfg.head_dim
-        self.q_proj = _Linear(h, cfg.num_attention_heads * d, cfg.dtype, device)
-        self.k_proj = _Linear(h, cfg.num_key_value_heads * d, cfg.dtype, device)
-        self.v_proj = _Linear(h, cfg.num_key_value_heads * d, cfg.dtype, device)
-        self.o_proj = _Linear(cfg.num_attention_heads * d, h, cfg.dtype, device)
+        h, d, dot = cfg.hidden_size, cfg.head_dim, cfg.dot_general
+        self.q_proj = _Linear(h, cfg.num_attention_heads * d, cfg.dtype, device, dot)
+        self.k_proj = _Linear(h, cfg.num_key_value_heads * d, cfg.dtype, device, dot)
+        self.v_proj = _Linear(h, cfg.num_key_value_heads * d, cfg.dtype, device, dot)
+        self.o_proj = _Linear(cfg.num_attention_heads * d, h, cfg.dtype, device, dot)
         self.attn_fn = _dispatch_attention(cfg.attention_impl)
 
     def forward(self, x, cos, sin):
@@ -247,9 +268,10 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        self.gate_proj = _Linear(cfg.hidden_size, cfg.intermediate_size, cfg.dtype, device)
-        self.up_proj = _Linear(cfg.hidden_size, cfg.intermediate_size, cfg.dtype, device)
-        self.down_proj = _Linear(cfg.intermediate_size, cfg.hidden_size, cfg.dtype, device)
+        h, inter, dot = cfg.hidden_size, cfg.intermediate_size, cfg.dot_general
+        self.gate_proj = _Linear(h, inter, cfg.dtype, device, dot)
+        self.up_proj = _Linear(h, inter, cfg.dtype, device, dot)
+        self.down_proj = _Linear(inter, h, cfg.dtype, device, dot)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))

@@ -20,9 +20,18 @@ evaluates the schedule at the update count before it increments
 (``scale_by_schedule``), so update k (from 0) uses ``schedule(k)``;
 ``ScheduledAdamW`` sets every group's ``lr`` to that value before each
 step and counts its updates in ``count``, which a checkpoint carries as
-optax's ``count``. The schedules below are plain-Python copies of optax's,
-with its formulas and argument names; optax computes them in float32 and
-these in Python floats, so values agree to float32 rounding.
+optax's ``count``. The schedules below are copies of optax's, with its
+formulas and argument names; at a Python int count they compute in Python
+floats, at a device tensor count in float32 tensors (as optax does), so
+values agree to float32 rounding.
+
+Under fp16 loss scaling the optimizer skips an overflowed step on the
+device (``skip_on_overflow``): the Accelerator sets ``found_inf``, which
+torch's fused AdamW reads, leaving parameters, moments and its step
+counts as they were. ``count`` is then a device tensor advanced by
+``1 - found_inf`` and the rate a device tensor evaluated from it, so that
+the schedule follows the skip as optax's ``count`` does, and nothing waits
+for the card.
 """
 
 from __future__ import annotations
@@ -49,7 +58,10 @@ def polynomial_schedule(init_value: float, end_value: float, power: float,
     transition_begin = max(transition_begin, 0)
 
     def schedule(count):
-        count = min(max(count - transition_begin, 0), transition_steps)
+        if torch.is_tensor(count):
+            count = torch.clamp(count - transition_begin, 0, transition_steps)
+        else:
+            count = min(max(count - transition_begin, 0), transition_steps)
         frac = 1 - count / transition_steps
         return (init_value - end_value) * frac**power + end_value
 
@@ -68,8 +80,12 @@ def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.
             f"The cosine_decay_schedule requires positive decay_steps, got decay_steps={decay_steps}.")
 
     def schedule(count):
-        count = min(count, decay_steps)
-        cosine_decay = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        if torch.is_tensor(count):
+            count = torch.clamp(count, max=decay_steps)
+            cosine_decay = 0.5 * (1 + torch.cos(math.pi * count / decay_steps))
+        else:
+            count = min(count, decay_steps)
+            cosine_decay = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
         return init_value * ((1 - alpha) * cosine_decay**exponent + alpha)
 
     return schedule
@@ -81,7 +97,9 @@ def join_schedules(schedules: Sequence[Schedule], boundaries: Sequence[int]) -> 
     def schedule(count):
         output = schedules[0](count)
         for boundary, sched in zip(boundaries, schedules[1:]):
-            if count >= boundary:
+            if torch.is_tensor(count):
+                output = torch.where(count < boundary, output, sched(count - boundary))
+            elif count >= boundary:
                 output = sched(count - boundary)
         return output
 
@@ -106,15 +124,48 @@ class ScheduledAdamW(torch.optim.AdamW):
 
     def __init__(self, params, schedule: Schedule, **kwargs):
         self.schedule = schedule
-        self.count = 0
+        self._count = 0
         super().__init__(params, lr=float(schedule(0)), **kwargs)
 
-    def step(self, closure=None):
-        lr = float(self.schedule(self.count))
+    def skip_on_overflow(self) -> None:
+        """Keep the count and the rate on the device, for steps that
+        ``found_inf`` may skip (fused AdamW only)."""
+        if not self.defaults.get("fused"):
+            raise ValueError("skipping an overflowed step on the device needs fused AdamW")
+        device = self.param_groups[0]["params"][0].device
+        self._count = torch.tensor(self._count, dtype=torch.int32, device=device)
         for group in self.param_groups:
-            group["lr"] = lr
+            group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32, device=device)
+
+    @property
+    def count(self) -> int:
+        """The updates applied (reading a device count waits for the card)."""
+        return int(self._count)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        if torch.is_tensor(self._count):
+            self._count.fill_(value)
+        else:
+            self._count = int(value)
+
+    def step(self, closure=None):
+        if not torch.is_tensor(self._count):
+            lr = float(self.schedule(self._count))
+            for group in self.param_groups:
+                group["lr"] = lr
+            loss = super().step(closure)
+            self._count += 1
+            return loss
+        lr = self.schedule(self._count)
+        for group in self.param_groups:
+            if torch.is_tensor(lr):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(lr)
         loss = super().step(closure)
-        self.count += 1
+        found_inf = getattr(self, "found_inf", None)
+        self._count += 1 if found_inf is None else (1 - found_inf).to(self._count)
         return loss
 
     def state_dict(self):
@@ -123,7 +174,11 @@ class ScheduledAdamW(torch.optim.AdamW):
     def load_state_dict(self, state_dict):
         state_dict = dict(state_dict)
         self.count = int(state_dict.pop("count", 0))
+        lrs = [group["lr"] for group in self.param_groups]
         super().load_state_dict(state_dict)
+        for group, lr in zip(self.param_groups, lrs):  # a device rate stays one
+            if torch.is_tensor(lr):
+                group["lr"] = lr
 
 
 @dataclass(frozen=True)
@@ -134,26 +189,35 @@ class AdamW:
     eps: float = 1e-8
     weight_decay: float = 1e-4
 
-    def __call__(self, params: Iterable[torch.nn.Parameter]) -> ScheduledAdamW:
+    def __call__(self, params: Iterable[torch.nn.Parameter],
+                 skip_on_overflow: bool = False) -> ScheduledAdamW:
+        """The optimizer on ``params``; with ``skip_on_overflow`` (fp16 loss
+        scaling) fused on any device, with its count on the device."""
         params = list(params)
         schedule = (self.learning_rate if callable(self.learning_rate)
                     else constant_schedule(self.learning_rate))
         # On the GPU, the fused implementation: one pass over p, g, m and v
         # per parameter group, where the default (foreach) makes several.
-        fused = bool(params) and all(p.is_cuda for p in params)
-        return ScheduledAdamW(
+        fused = skip_on_overflow or (bool(params) and all(p.is_cuda for p in params))
+        opt = ScheduledAdamW(
             params, schedule, betas=(self.b1, self.b2), eps=self.eps,
             weight_decay=self.weight_decay, fused=fused or None)
+        if skip_on_overflow:
+            opt.skip_on_overflow()
+        return opt
 
 
 def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4, mu_dtype: Any = None) -> AdamW:
     """optax.adamw's signature and defaults (note: weight_decay 1e-4, not
     torch's 1e-2); ``learning_rate`` is a float or a schedule. Moments stay
-    fp32: a lower ``mu_dtype`` is not ported."""
+    fp32: a lower ``mu_dtype`` (bench.py's rung for cards under 30 GiB) is
+    not ported, since torch's AdamW keeps both moments in the parameters'
+    dtype."""
     if mu_dtype not in (None, torch.float32):
         raise NotImplementedError(
-            f"mu_dtype={mu_dtype} is not ported yet (ROADMAP.md Queue A item 9)")
+            f"mu_dtype={mu_dtype} is not ported yet (ROADMAP.md Queue A item 9: torch's AdamW "
+            "cannot keep only the first moment in bf16 beside fp32 masters)")
     return AdamW(learning_rate, b1, b2, eps, weight_decay)
 
 
@@ -166,7 +230,9 @@ class AcceleratedOptimizer(torch.optim.Optimizer):
     ``Accelerator._apply_gradients`` (the parameters the FSDP plugin leaves
     whole averaged over the processes, then the armed clip), and is a no-op
     inside an accumulation window or with no gradient to apply;
-    ``zero_grad()`` is a no-op inside a window. ``param_groups``, ``state``,
+    ``zero_grad()`` is a no-op inside a window. Under fp16 loss scaling a
+    step whose gradients overflowed is skipped (on the device), and
+    ``step_was_skipped`` says so. ``param_groups``, ``state``,
     ``defaults``, ``state_dict`` and ``load_state_dict`` are the wrapped
     optimizer's. It does not run ``torch.optim.Optimizer.__init__``: the
     wrapped optimizer holds the parameters and the hooks."""
@@ -175,8 +241,8 @@ class AcceleratedOptimizer(torch.optim.Optimizer):
         self.optimizer = optimizer
         self.gradient_state = GradientState()
         self._accelerator = accelerator
-        # fp16 overflow skips are not ported (no loss scaling): every step
-        # that runs is applied.
+        # Whether the last step overflowed: False, or a bool device tensor
+        # under fp16 loss scaling.
         self._is_overflow = False
 
     @property
@@ -207,13 +273,16 @@ class AcceleratedOptimizer(torch.optim.Optimizer):
         if self._accelerator is None:
             raise RuntimeError("This optimizer is not bound to an Accelerator; pass it "
                                "through accelerator.prepare(...) first.")
-        self._accelerator._apply_gradients(self.optimizer)
+        finite = self._accelerator._apply_gradients(self.optimizer)
+        self._is_overflow = False if finite is None else ~finite
         return None
 
     @property
     def step_was_skipped(self) -> bool:
-        """Whether the last step was skipped (fp16 overflow); never here."""
-        return self._is_overflow
+        """Whether the last step was skipped (fp16 overflow). Under loss
+        scaling reading it waits for the card, as the JAX package's
+        ``bool(finite)`` does."""
+        return bool(self._is_overflow)
 
     def train(self):
         if hasattr(self.optimizer, "train"):

@@ -1,7 +1,9 @@
 from .dataclasses import (
     DataLoaderConfiguration,
+    FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
+    GradScalerKwargs,
     KwargsHandler,
     MixedPrecisionPolicy,
     ProfileKwargs,
@@ -21,8 +23,10 @@ from .random import set_seed
 
 __all__ = [
     "DataLoaderConfiguration",
+    "FP8RecipeKwargs",
     "FullyShardedDataParallelPlugin",
     "GradientAccumulationPlugin",
+    "GradScalerKwargs",
     "KwargsHandler",
     "MixedPrecisionPolicy",
     "ProfileKwargs",

@@ -16,7 +16,11 @@ import torch
 _DP_REST_ITEM = ("ROADMAP.md Queue A item 1 (the rest of data parallelism: "
                  "DISTRIBUTED_STATE_DICT, save_state(block=False), FSDP plugin fields beyond "
                  "FSDP2's)")
-_REDUCED_PRECISION_ITEM = "ROADMAP.md Queue A item 9 (fp8 and reduced precision)"
+_REDUCED_PRECISION_ITEM = (
+    "ROADMAP.md Queue A item 9: the JAX package defines MixedPrecisionPolicy's param_dtype, "
+    "reduce_dtype and output_dtype and FullyShardedDataParallelPlugin.mixed_precision_policy "
+    "but never reads them, so there is nothing to port; the masters, the gradient "
+    "reductions and the outputs stay fp32")
 _CONTROL_PLANE_ITEM = "ROADMAP.md Queue A item 12 (control plane)"
 
 
@@ -120,7 +124,8 @@ class MixedPrecisionPolicy:
 
     Params and optimizer state stay fp32 master copies; compute and
     activations run in ``compute_dtype``; gradients are reduced in
-    ``reduce_dtype``. Only ``compute_dtype`` may be changed yet."""
+    ``reduce_dtype``. Only ``compute_dtype`` may be changed: the JAX
+    package never reads the other three."""
 
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
@@ -132,14 +137,15 @@ class MixedPrecisionPolicy:
 
     @classmethod
     def from_mixed_precision(cls, mixed_precision: Optional[str]) -> "MixedPrecisionPolicy":
+        """``"fp16"`` computes in float16 (the Accelerator adds dynamic loss
+        scaling); ``"fp8"`` in bfloat16, since fp8 acts per matmul (the
+        model's ``fp8`` projections, ``ops/fp8.py``)."""
         if mixed_precision in (None, "no"):
             return cls(compute_dtype=torch.float32)
-        if mixed_precision == "bf16":
+        if mixed_precision in ("bf16", "fp8"):
             return cls(compute_dtype=torch.bfloat16)
-        if mixed_precision in ("fp16", "fp8"):
-            raise NotImplementedError(
-                f"mixed_precision={mixed_precision!r} is not ported yet (fp16 needs "
-                f"DynamicLossScale; both are {_REDUCED_PRECISION_ITEM})")
+        if mixed_precision == "fp16":
+            return cls(compute_dtype=torch.float16)
         raise ValueError(f"Unknown mixed precision {mixed_precision}")
 
     def cast_for_compute(self, tensors: dict) -> dict:
@@ -149,6 +155,56 @@ class MixedPrecisionPolicy:
             name: t.to(self.compute_dtype) if t.is_floating_point() else t
             for name, t in tensors.items()
         }
+
+
+@dataclass
+class GradScalerKwargs(KwargsHandler):
+    """Dynamic loss scaling under ``mixed_precision="fp16"``
+    (``train_state.DynamicLossScale``), the JAX package's fields and
+    defaults. ``enabled=False`` trains fp16 without scaling."""
+
+    init_scale: float = 65536.0
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    growth_interval: int = 2000
+    enabled: bool = True
+
+
+_FP8_FORMATS = ("E4M3", "E5M2", "HYBRID")
+
+
+@dataclass
+class FP8RecipeKwargs(KwargsHandler):
+    """The fp8 recipe of ``Accelerator.fp8_dot_general``
+    (``ops/fp8.py``): ``fp8_format`` (HYBRID: e4m3 forward, e5m2 backward),
+    ``backend`` (TE and AO select the native fp8 product, QDQ the
+    quantize-dequantize simulation, AUTO the default; MSAMP raises) and
+    ``use_during_eval``. ``amax_history_len``, ``amax_compute_algo`` and
+    ``margin`` are taken and unused, as in the JAX package: it scales by
+    the current amax of every call, not a delayed history."""
+
+    fp8_format: str = "HYBRID"
+    backend: str = "AUTO"
+    amax_history_len: int = 16
+    amax_compute_algo: str = "max"
+    margin: int = 0
+    use_during_eval: bool = False
+
+    def __post_init__(self):
+        from ..ops.fp8 import backend_to_native
+
+        self.fp8_format = self.fp8_format.upper()
+        if self.fp8_format not in _FP8_FORMATS:
+            raise ValueError(f"fp8_format must be one of {list(_FP8_FORMATS)}")
+        self.backend = self.backend.upper()
+        backend_to_native(self.backend)  # validates (MSAMP refused)
+
+    @property
+    def native_dots(self) -> Optional[bool]:
+        """None: the default (``ACCELERATE_FP8_NATIVE``)."""
+        from ..ops.fp8 import backend_to_native
+
+        return backend_to_native(self.backend)
 
 
 @dataclass

@@ -112,12 +112,13 @@ def global_token_count(count: torch.Tensor) -> tuple[torch.Tensor, int]:
     return count, n
 
 
-def all_reduce(tensor: torch.Tensor) -> torch.Tensor:
-    """``dist.all_reduce(tensor)`` (a sum, in place), counted by
-    ``collective_counters``: the step's and ``backward``'s reductions of
-    the loss, its token count and the gradients FSDP2 leaves whole."""
+def all_reduce(tensor: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``dist.all_reduce(tensor, op)`` (a sum by default, in place), counted
+    by ``collective_counters``: the step's and ``backward``'s reductions of
+    the loss, its token count, the gradients FSDP2 leaves whole and the
+    fp16 step's finite flag (a MIN)."""
     collective_counters.record("all_reduce", tensor)
-    dist.all_reduce(tensor)
+    dist.all_reduce(tensor, op=op)
     return tensor
 
 

@@ -76,7 +76,8 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    give phase 4's numbers, and with ``attention_impl="ring"`` and
    ``"ulysses"`` over the 4-D mesh (``cp = sp = 1``) bit for bit. Prints
    the FSDP2 step ms, idle share and peak memory beside phase 5's. The
-   child also runs phase 12 (c). The child's failure fails the run.
+   child also runs phase 12 (c) and phase 14 (a)'s overflow under FSDP2.
+   The child's failure fails the run.
 11. sequence parallelism. A chip call has one GPU, so every rank's share
    of the ring runs in this process, through ``parallel/cp.py``'s per-step
    helpers (``chunk_forward``, ``chunk_backward``) with the transfers done
@@ -136,6 +137,36 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    walls, the serving block's TTFT equal to ``stats()``, tok/s of both
    beside phase 8's.
 
+14. reduced precision. (a) Phase 5's model, batch and step under
+   ``mixed_precision="fp16"`` with ``LlamaConfig(dtype=float16)`` and the
+   default ``GradScalerKwargs`` (init scale 65536) for 2 warm-up and 10
+   timed steps: per step its loss, grad norm, scale and whether it was
+   skipped; step ms, tok/s, peak memory; the fp16 flash kernels 18 times
+   each a step; one profiled step (device-busy ms, idle share, and its
+   synchronisations and device-to-host copies, which must equal phase
+   13's bf16 step's). Then one step whose loss is multiplied by inf: the
+   parameters, AdamW's moments and step counts stay bit-equal
+   (``torch.equal`` on the card), the optimizer's count and the step
+   count hold, the scale halves (floor 1.0), and the next step applies.
+   Phase 10's child runs the same overflow under FSDP2. (b) bench.py's fp8
+   row: the same step under ``mixed_precision="fp8"`` with
+   ``LlamaConfig(fp8=True, fp8_format="HYBRID")`` (bf16 compute), 2
+   warm-up and 10 timed steps: ms, tok/s, MFU over the bf16 peak as
+   bench.py reckons it, peak memory, ``fp8_speedup`` (its tok/s over phase
+   5's), every fp8 product on ``torch._scaled_mm`` (21 a layer a step:
+   the remat ``dots`` policy keeps the forward's), the device ms of one
+   profiled step split into fp8 products, quantization (amax, casts,
+   transposed copies), flash and the rest; the first loss within 5 % of
+   phase 5's (``tests/test_fp8.py``'s bound) and a descending loss. (c)
+   The fp8 linear at the 1.06B projection shapes (8192 tokens: 2048 →
+   2048, 2048 → 5632, 5632 → 2048), bf16 operands, for HYBRID and E4M3
+   (``_scaled_mm``) and E5M2 (dequantized to bf16, then a bf16 product):
+   output, dX and dW against the plain version (fp32 on the codes) within
+   ``TOLS["bfloat16"]``; ``_quant``'s codes and scales equal to the CPU's
+   bit for bit; the forward product's ms beside its bound (fp8 peak
+   1,979 TFLOP/s), the plain version's, a bf16 ``torch.mm``'s and one
+   quantization's.
+
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
 """
@@ -156,8 +187,9 @@ import time
 from pathlib import Path
 
 # Peak rates of the card (NVIDIA H100 SXM data sheet, dense): bf16 and fp16
-# tensor-core FLOP/s, fp32 FLOP/s on the CUDA cores, HBM bytes/s.
+# tensor-core FLOP/s, fp8's, fp32 FLOP/s on the CUDA cores, HBM bytes/s.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP8_FLOPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 # By the kernels' input dtype: the peak rate of its products and its bytes
@@ -1310,6 +1342,13 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
                    for impl in ("ring", "ulysses")}
     mesh = AcceleratorState().device_mesh
     mesh_axes = [list(mesh.mesh_dim_names), list(mesh.shape)]
+    # Phase 14 (a) under FSDP2: an fp16 step, an overflowed one and the next.
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp16 = fp16_steps(hf, device=device, width=width, seq=seq, batch_size=batch_size, warmup=0,
+                      timed=1, profile=False)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     phase5 = args["phase5"]
     rel = [[_rel(a, b) for a, b in zip(got, ref)]
@@ -1328,6 +1367,9 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         "mesh_4d": mesh_axes == [["dp_replicate", "dp_shard", "cp", "sp"], [1, 1, 1, 1]],
         "ring_ulysses_bit_equal_to_phase4": all(m == args["tiny_step"]
                                                 for m in seq_metrics.values()),
+        "fp16_overflow_skipped": fp16["sharded"] and all(fp16["overflow"][k] for k in (
+            "params_bit_equal", "moments_bit_equal", "scale_backed_off", "step_held",
+            "next_applied")),
     }
     checks["ok"] = all(checks.values())
     return {
@@ -1343,7 +1385,7 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         "collectives": trips, "loop": loop,
         "ddp_tiny": {"metrics": ddp_metrics, "phase4": args["tiny_step"], "rel": ddp_rel,
                      "bit_equal": ddp_metrics == args["tiny_step"]},
-        "mesh": mesh_axes, "seq_tiny": seq_metrics, "imperative": imperative,
+        "mesh": mesh_axes, "seq_tiny": seq_metrics, "imperative": imperative, "fp16": fp16,
         "checks": checks, "ok": checks["ok"],
     }
 
@@ -2299,6 +2341,385 @@ def observed_phase(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], phase8_t
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: reduced precision — the fp16 step with loss scaling, the fp8 step
+# ---------------------------------------------------------------------------
+
+# (a) the fp16 step: warm-up and timed steps (12 in all), then the injected
+# overflow and the step after it; (b) the fp8 step, bench.py's fp8 row (10
+# timed iterations after warm-up); (c) the fp8 linear at the 1.06B model's
+# projection shapes (tokens, in, out): q/k/v/o, gate/up, down.
+PRECISION = dict(fp16_warmup=2, fp16_timed=10, fp8_warmup=2, fp8_timed=10,
+                 linear_shapes=((8192, 2048, 2048), (8192, 2048, 5632), (8192, 5632, 2048)))
+# tests/test_fp8.py:188-228's bound between the fp8 and bf16 first losses.
+FP8_LOSS_RTOL = 0.05
+FP8_FORMATS = ("HYBRID", "E4M3", "E5M2")
+# fp8 products of one projection a step: the forward's, dX's and dW's (the
+# remat "dots" policy keeps the forward's, so the recompute adds none).
+FP8_PRODUCTS = 3
+FP8_PROJECTIONS = 7
+# What a profiled step may not add over phase 13's bf16 step.
+SYNC_KEYS = ("cudaStreamSynchronize", "cudaEventSynchronize", "memcpy_dtoh")
+
+
+def _local_tensor(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _precision_run(precision, device, width, seq, batch_size, fp8=False):
+    """Phase 5's model (weights from seed 0), batch and optimizer under
+    ``mixed_precision=precision`` (fp16: a float16 model; fp8: bf16 with
+    HYBRID fp8 projections), with the FSDP plugin. The loss function
+    multiplies its loss by inf while ``poison["on"]``."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, FullyShardedDataParallelPlugin, Model, adamw
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    for cls in (AcceleratorState, GradientState):  # the precision is AcceleratorState's
+        cls._reset_state()
+    cfg = LlamaConfig(**width, max_position_embeddings=seq,
+                      dtype=torch.float16 if precision == "fp16" else torch.bfloat16,
+                      remat=True, remat_policy="dots", attention_impl="flash", fp8=fp8,
+                      fp8_format="HYBRID")
+    acc = Accelerator(mixed_precision=precision, fsdp_plugin=FullyShardedDataParallelPlugin(),
+                      cpu=device == "cpu")
+    module = LlamaForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+    poison = {"on": False}
+
+    def loss_fn(m, b):
+        loss = cross_entropy_loss(m(b["x"]), b["y"])
+        return loss * math.inf if poison["on"] else loss
+
+    step = acc.prepare_train_step(loss_fn, max_grad_norm=1.0)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(batch_size, seq + 1))
+    batch = {"x": torch.from_numpy(ids[:, :-1]).to(acc.device),
+             "y": torch.from_numpy(ids[:, 1:]).to(acc.device)}
+    return cfg, acc, model, step, batch, poison
+
+
+def profiled_step(step, state, batch, step_ms, device="cuda", annotate=()):
+    """One step under torch.profiler: device-busy ms, idle share against
+    ``step_ms``, ms by kernel category, the synchronisations and D2H copies
+    (``sync_counts``), and the device ms under each ``record_function``
+    label of ``annotate`` ((module, function name, label) triples wrapped
+    for the step) and of the ``aten::_scaled_mm`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    originals = []
+    for module, name, label in annotate:
+        inner = getattr(module, name)
+
+        def wrapped(*a, _inner=inner, _label=label, **k):
+            with record_function(_label):
+                return _inner(*a, **k)
+
+        originals.append((module, name, inner))
+        setattr(module, name, wrapped)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        for module, name, inner in originals:
+            setattr(module, name, inner)
+    busy, by_cat, top, _ = device_times(prof, 1)
+    labels = {label for _, _, label in annotate} | {"aten::_scaled_mm"}
+    by_label = dict.fromkeys(sorted(labels), 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in by_label:
+            by_label[e.name] += e.device_time_total / 1e3
+    return {"device_busy_ms": busy, "idle_share": 1.0 - busy / step_ms if top else None,
+            "ms_by_category": by_cat, "top_kernels_ms": top, "ms_by_label": by_label,
+            "syncs": sync_counts(prof)}
+
+
+def overflow_check(acc, step, batch, poison):
+    """One step whose loss is multiplied by inf, then one plain step: the
+    parameters, AdamW's moments and step counts (compared on the device
+    with ``torch.equal``), the optimizer's count and ``state.step`` must
+    stay as they were, the scale back off (floor 1.0), and the next step
+    apply."""
+    import torch
+
+    state = acc.train_state
+    opt, ls = state.optimizer, state.loss_scale
+    params = [_local_tensor(p.detach()).clone() for p in state.model.parameters()]
+    moments = [_local_tensor(v).clone() for s in opt.state.values() for v in s.values()]
+    before = {"scale": float(ls.scale), "growth_tracker": int(ls.growth_tracker),
+              "step": int(state.step), "count": opt.count}
+    poison["on"] = True
+    try:
+        state, bad = step(state, batch)
+    finally:
+        poison["on"] = False
+    after = {"scale": float(ls.scale), "growth_tracker": int(ls.growth_tracker),
+             "step": int(state.step), "count": opt.count}
+    params_equal = all(torch.equal(a, _local_tensor(p.detach()))
+                       for a, p in zip(params, state.model.parameters()))
+    moments_equal = all(torch.equal(a, _local_tensor(v)) for a, v in zip(
+        moments, (v for s in opt.state.values() for v in s.values())))
+    state, good = step(state, batch)
+    applied = int(state.step) == before["step"] + 1 and not all(
+        torch.equal(a, _local_tensor(p.detach())) for a, p in zip(params, state.model.parameters()))
+    del params, moments
+    return {"before": before, "after": after, "loss": float(bad["loss"]),
+            "grad_norm": float(bad["grad_norm"]), "next_loss": float(good["loss"]),
+            "params_bit_equal": params_equal, "moments_bit_equal": moments_equal,
+            "scale_backed_off": after["scale"] == max(before["scale"] * 0.5, 1.0)
+            and after["growth_tracker"] == 0,
+            "step_held": (after["step"], after["count"]) == (before["step"], before["count"]),
+            "next_applied": applied}
+
+
+def fp16_steps(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], batch_size=SLICE["b"],
+               warmup=PRECISION["fp16_warmup"], timed=PRECISION["fp16_timed"], profile=True):
+    """(a): the fp16 step for ``warmup`` + ``timed`` steps with the kernel
+    launches counted from 0, per step its loss, grad norm, scale and
+    whether it was skipped (read after the timed window); one profiled
+    step; then ``overflow_check``."""
+    import torch
+
+    cfg, acc, model, step, batch, poison = _precision_run("fp16", device, width, seq,
+                                                          batch_size)
+    state = acc.train_state
+    ls = state.loss_scale
+    records = []
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, m = step(state, batch)
+            records.append((m["loss"], m["grad_norm"], ls.scale.clone(), state.step.clone()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    run(warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(timed)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step, applied = [], 0
+    for loss, gnorm, scale, count in records:
+        per_step.append({"loss": float(loss), "grad_norm": float(gnorm), "scale": float(scale),
+                         "skipped": int(count) == applied})
+        applied = int(count)
+    prof = profiled_step(step, state, batch, dt * 1e3, device) if profile else None
+    overflow = overflow_check(acc, step, batch, poison)
+    tok_s = batch_size * seq / dt
+    return {"n_layers": cfg.num_hidden_layers, "sharded": model.sharded,
+            "steps": warmup + timed, "step_ms": dt * 1e3, "tok_s": tok_s,
+            "peak_mem_gib": peak, "per_step": per_step,
+            "overflowed_steps": sum(r["skipped"] for r in per_step),
+            "launches": launches, "variant_launches": variant_launches,
+            "launches_per_step": {k: v / (warmup + timed) for k, v in launches.items()},
+            "ln_vocab": math.log(cfg.vocab_size), "overflow": overflow,
+            "profile": prof}
+
+
+def fp8_steps(hf, fp8_ops, device="cuda", width=FULL_WIDTH, seq=SLICE["s"],
+              batch_size=SLICE["b"], warmup=PRECISION["fp8_warmup"],
+              timed=PRECISION["fp8_timed"], profile=True):
+    """(b): bench.py's fp8 row, the 1.06B step with HYBRID fp8 projections,
+    ``warmup`` + ``timed`` steps with the launches and the fp8 products'
+    paths counted from 0; one profiled step, its device ms split into the
+    fp8 products, the quantization (amax, casts, transposed copies) and the
+    rest."""
+    import torch
+
+    cfg, acc, model, step, batch, _ = _precision_run("fp8", device, width, seq, batch_size,
+                                                     fp8=True)
+    state = acc.train_state
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    fp8_ops.reset_paths()
+    for _ in range(warmup):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+    paths = dict(fp8_ops.PATHS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = None
+    if profile:
+        prof = profiled_step(step, state, batch, dt * 1e3, device, annotate=(
+            (fp8_ops, "_quant", "fp8_quantize"), (fp8_ops, "_transposed", "fp8_quantize")))
+        flash = sum(prof["ms_by_category"].get(k, 0.0) for k in KERNELS)
+        gemm, quant = prof["ms_by_label"]["aten::_scaled_mm"], prof["ms_by_label"]["fp8_quantize"]
+        prof["split_ms"] = {"fp8_gemm": gemm, "quantization": quant, "flash": flash,
+                            "rest": prof["device_busy_ms"] - gemm - quant - flash}
+    tok_s = batch_size * seq / dt
+    n_params = model.num_parameters()
+    flops_per_token = 6 * n_params + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq
+    return {"n_layers": cfg.num_hidden_layers, "steps": warmup + timed, "step_ms": dt * 1e3,
+            "tok_s": tok_s, "mfu": tok_s * flops_per_token / PEAK_BF16_FLOPS,
+            "peak_mem_gib": peak, "losses": [float(x) for x in losses], "paths": paths,
+            "launches": launches, "variant_launches": variant_launches, "profile": prof}
+
+
+def fp8_reference(fp8_ops, x, w, g, fwd, bwd):
+    """The fp8 linear's forward and gradients through the plain version of
+    the product (fp32 on the codes) on x's device."""
+    xq, sx = fp8_ops._quant(x, fwd)
+    wq, sw = fp8_ops._quant(w, fwd)
+    gq, sg = fp8_ops._quant(g, bwd)
+    plain = fp8_ops.fp8_mm_plain
+    return (plain(xq, wq.t(), sx, sw, x.dtype), plain(gq, wq, sg, sw, x.dtype),
+            plain(gq.t(), xq, sg, sx, w.dtype))
+
+
+def fp8_linear_cases(fp8_ops, device="cuda", shapes=PRECISION["linear_shapes"], iters=20):
+    """(c): at each projection shape, bf16 x (tokens, in), w (out, in) and
+    a cotangent: ``_quant``'s codes and scales against the CPU's bit for
+    bit; for each format the fp8 linear's output, dX and dW against the
+    plain version (``TOLS["bfloat16"]``), the path its products took, and
+    the forward product's ms beside its bound, the plain version's and a
+    bf16 ``torch.mm``'s, and one quantization's ms."""
+    import torch
+
+    tol_out, tol_grad, _ = TOLS["bfloat16"]
+    cases = []
+    for m, k, n in shapes:
+        gen = torch.Generator(device=device).manual_seed(m + k + n)
+        x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+        g = (torch.randn(m, n, generator=gen, device=device) * 1e-3).to(torch.bfloat16)
+        codes_equal = True
+        for t, dt in ((x, torch.float8_e4m3fn), (w, torch.float8_e4m3fn),
+                      (g, torch.float8_e5m2)):
+            q, s = fp8_ops._quant(t, dt)
+            qc, sc = fp8_ops._quant(t.cpu(), dt)
+            codes_equal &= (torch.equal(q.view(torch.uint8).cpu(), qc.view(torch.uint8))
+                            and float(s) == float(sc))
+        for fmt in FP8_FORMATS:
+            fwd, bwd = fp8_ops._fmt_dtypes(fmt)
+            fp8_ops.reset_paths()
+            xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+            y = fp8_ops.fp8_dot_general(fmt, native=True)(xr, wr)
+            y.backward(g)
+            paths = dict(fp8_ops.PATHS)
+            ref = fp8_reference(fp8_ops, x, w, g, fwd, bwd)
+            got = (y.detach(), xr.grad, wr.grad)
+            err = dict(zip(("out", "dx", "dw"), (rel_err(a, b) for a, b in zip(got, ref))))
+            max_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+            expect = "dequantized" if fmt == "E5M2" else "scaled_mm"
+            xq, sx = fp8_ops._quant(x, fwd)
+            wq, sw = fp8_ops._quant(w, fwd)
+            ms = cuda_ms(lambda: fp8_ops.fp8_mm(xq, wq.t(), sx, sw, torch.bfloat16), iters)
+            plain_ms = cuda_ms(lambda: fp8_ops.fp8_mm_plain(xq, wq.t(), sx, sw, torch.bfloat16),
+                               iters)
+            bf16_ms = cuda_ms(lambda: torch.mm(x, w.t()), iters)
+            quant_ms = cuda_ms(lambda: fp8_ops._quant(x, fwd), iters)
+            flops, nbytes = 2 * m * k * n, (m * k + n * k) + 2 * m * n
+            peak = PEAK_FP8_FLOPS if expect == "scaled_mm" else PEAK_BF16_FLOPS
+            bound = max(flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3
+            cases.append({
+                "shape": [m, k, n], "format": fmt, "rel_err": err, "max_abs_err": max_abs,
+                "paths": paths, "path": expect, "codes_equal": codes_equal,
+                "forward_ms": ms, "plain_ms": plain_ms, "bf16_mm_ms": bf16_ms,
+                "quantize_ms": quant_ms, "bound_ms": bound,
+                "bound_by": "operations" if flops / peak > nbytes / PEAK_HBM_BYTES else "bytes",
+                "ok": (err["out"] <= tol_out and err["dx"] <= tol_grad and err["dw"] <= tol_grad
+                       and paths[expect] == 3 and sum(paths.values()) == 3)})
+    return cases
+
+
+def precision_gate(fp16, fp8, linear, phase5, bf16_syncs, dp_fp16=None) -> dict:
+    """Phase 14's checks: (a) finite losses starting near ln(vocab), some
+    steps applied, each fp16 flash kernel once per layer per step, the
+    overflowed step leaving every parameter, moment and count and backing
+    off the scale, the step after it applied, and no synchronisation or
+    D2H copy over phase 13's bf16 step; (b) every fp8 product on
+    ``_scaled_mm``, each bf16 flash kernel once per layer per step, the
+    first loss within FP8_LOSS_RTOL of phase 5's and the loss descending;
+    (c) every linear case within tolerance, on its path, with the codes
+    equal to the CPU's; phase 10's child's fp16 overflow under FSDP2."""
+    n_layers, ov = fp16["n_layers"], fp16["overflow"]
+    fp8_products = FP8_PRODUCTS * FP8_PROJECTIONS * fp8["n_layers"] * fp8["steps"]
+
+    def flash_each(run, tag):
+        return all(run["variant_launches"].get(f"{k}.{tag}.d128", 0) == n_layers * run["steps"]
+                   for k in KERNELS)
+
+    losses = [r["loss"] for r in fp16["per_step"]]
+    checks = {
+        "fp16_losses": all(math.isfinite(x) for x in losses)
+        and abs(losses[0] - fp16["ln_vocab"]) < 1.0,
+        "fp16_applied": fp16["overflowed_steps"] < fp16["steps"],
+        "fp16_flash_launches": flash_each(fp16, "f16"),
+        "overflow_params_bit_equal": ov["params_bit_equal"],
+        "overflow_moments_bit_equal": ov["moments_bit_equal"],
+        "overflow_scale_backed_off": ov["scale_backed_off"],
+        "overflow_step_held": ov["step_held"],
+        "overflow_next_applied": ov["next_applied"],
+        "fp16_no_added_sync": bool(fp16["profile"]) and bf16_syncs is not None and all(
+            fp16["profile"]["syncs"][k] == bf16_syncs[k] for k in SYNC_KEYS),
+        "fp8_on_scaled_mm": fp8["paths"] == {"scaled_mm": fp8_products, "dequantized": 0,
+                                             "plain": 0},
+        "fp8_flash_launches": flash_each(fp8, "bf16"),
+        "fp8_first_loss": _rel(fp8["losses"][0], phase5["losses"][0]) <= FP8_LOSS_RTOL,
+        "fp8_descends": all(math.isfinite(x) for x in fp8["losses"])
+        and fp8["losses"][-1] < fp8["losses"][0],
+        "linear_within_tolerance": bool(linear) and all(c["ok"] for c in linear),
+        "quantize_bit_equal": bool(linear) and all(c["codes_equal"] for c in linear),
+        "fsdp2_fp16_overflow": bool(dp_fp16) and dp_fp16["sharded"] and all(
+            dp_fp16["overflow"][k] for k in ("params_bit_equal", "moments_bit_equal",
+                                             "scale_backed_off", "step_held", "next_applied")),
+    }
+    checks["ok"] = all(checks.values())
+    return checks
+
+
+def precision_phase(hf, phase5, bf16_syncs=None, dp_fp16=None, device="cuda",
+                    width=FULL_WIDTH, seq=SLICE["s"], batch_size=SLICE["b"], profile=True,
+                    linear_shapes=PRECISION["linear_shapes"]):
+    """Phase 14 (see the module docstring). ``phase5`` holds the main path's
+    losses and tok/s, ``bf16_syncs`` phase 13's counts for a bf16 step
+    and ``dp_fp16`` phase 10's child's fp16 run under FSDP2."""
+    import torch
+
+    from accelerate_tpu_torch.ops import fp8 as fp8_ops
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    t_start = time.perf_counter()
+    kw = dict(device=device, width=width, seq=seq, batch_size=batch_size, profile=profile)
+    fp16 = fp16_steps(hf, **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp8 = fp8_steps(hf, fp8_ops, **kw)
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    linear = fp8_linear_cases(fp8_ops, device=device, shapes=linear_shapes)
+    fp8["fp8_speedup"] = fp8["tok_s"] / phase5["tok_s"]
+    fp8["phase5"] = {"tok_s": phase5["tok_s"], "first_loss": phase5["losses"][0]}
+    checks = precision_gate(fp16, fp8, linear, phase5, bf16_syncs, dp_fp16)
+    return {"phase": "reduced_precision", "seconds": time.perf_counter() - t_start,
+            "fp16": fp16, "fp8": fp8, "fp8_linear": linear, "fsdp2_fp16": dp_fp16,
+            "bf16_syncs": bf16_syncs, "checks": checks, "ok": checks["ok"]}
+
+
 def _stub_cuda_for_cpu():
     """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
     import torch
@@ -2519,11 +2940,26 @@ def main() -> int:
         print(f"chip_smoke: observability phase failed: {obs['checks']}", file=sys.stderr)
         return 1
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14. reduced precision: the fp16 step with loss scaling, the fp8 step,
+    # the fp8 linear against its plain version
+    precision = precision_phase(hf, main_path, obs["telemetry_cost"]["blocks"][0]["syncs"],
+                                dp.get("fp16"))
+    emit(precision)
+    if not precision["ok"]:
+        print(f"chip_smoke: reduced-precision phase failed: {precision['checks']}",
+              file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
         "imperative_loop": imp["loop"]["variant_launches"],
         "observed_loop": obs["variant_launches"],
         "observed_imperative": obs["imperative"]["variant_launches"],
-        "observed_serving": obs["serving"]["variant_launches"]})})
+        "observed_serving": obs["serving"]["variant_launches"],
+        "fp16_step": precision["fp16"]["variant_launches"],
+        "fp8_step": precision["fp8"]["variant_launches"]})})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

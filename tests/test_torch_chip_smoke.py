@@ -2,7 +2,8 @@
 check of the built libraries, the profiler's kernel categories, the decode
 bound, the phase-7/8 gates, the serving trace, phase 9's gate, its
 checkpoint directory and a rehearsal of the whole phase at a small width,
-the rehearsals of phases 10 and 11, and phase 12's gate and rehearsal.
+the rehearsals of phases 10 and 11, phase 12's gate and rehearsal, and
+phases 13 and 14.
 
 The script is loaded by its path, so the import does not depend on
 sys.path; its top level imports no torch, and this file imports torch only
@@ -457,6 +458,8 @@ def test_data_parallel_child_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     assert len(res["loop"]["resumed"]["loss"]) == 4
     assert res["mesh"] == [["dp_replicate", "dp_shard", "cp", "sp"], [1, 1, 1, 1]]
     assert res["seq_tiny"] == {"ring": tiny, "ulysses": tiny}
+    # Phase 14 (a)'s overflow under FSDP2.
+    assert res["fp16"]["sharded"] and res["checks"]["fp16_overflow_skipped"]
     # Phase 12 (c): the imperative loop under FSDP2 against the fused step
     # of this process, as phase 12 holds it.
     imperative = res["imperative"]
@@ -721,3 +724,106 @@ def test_observed_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     assert res["imperative"]["sync_flags"] == [False, False, False, True]
     assert res["serving"]["tick_records"] == res["serving"]["ticks"] > 0
     assert [r["telemetry"] for r in res["serving"]["replays"]] == [False, True, True, False]
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: reduced precision
+# ---------------------------------------------------------------------------
+
+_OVERFLOW_OK = {"params_bit_equal": True, "moments_bit_equal": True, "scale_backed_off": True,
+                "step_held": True, "next_applied": True}
+_BF16_SYNCS = {"cudaStreamSynchronize": 0.0, "cudaDeviceSynchronize": 1.0,
+               "cudaEventSynchronize": 0.0, "memcpy_dtoh": 0.0}
+
+
+def _fp16_run(steps=12, skipped=(0, 1), losses=None, launches=18, overflow=None, syncs=None,
+              sharded=False):
+    per_step = [{"loss": (losses or {}).get(i, 10.4), "grad_norm": 1.0, "scale": 1.0,
+                 "skipped": i in skipped} for i in range(steps)]
+    return {"n_layers": 18, "steps": steps, "per_step": per_step, "ln_vocab": math.log(32000),
+            "overflowed_steps": len(skipped), "sharded": sharded,
+            "variant_launches": {f"{k}.f16.d128": launches * steps for k in _KERNELS},
+            "overflow": {**_OVERFLOW_OK, **(overflow or {})},
+            "profile": {"syncs": {**_BF16_SYNCS, **(syncs or {})}}}
+
+
+def _fp8_run(steps=12, scaled_mm=None, first=10.45, last=10.0, launches=18):
+    return {"n_layers": 18, "steps": steps, "losses": [first] + [10.2] * (steps - 2) + [last],
+            "paths": {"scaled_mm": 21 * 18 * steps if scaled_mm is None else scaled_mm,
+                      "dequantized": 0, "plain": 0},
+            "variant_launches": {f"{k}.bf16.d128": launches * steps for k in _KERNELS}}
+
+
+def _linear(ok=True, codes=True):
+    return [{"ok": ok, "codes_equal": codes}] * 9
+
+
+@pytest.mark.parametrize("change,failed", [
+    ({}, []),
+    ({"fp16": _fp16_run(losses={0: 12.0})}, ["fp16_losses"]),
+    ({"fp16": _fp16_run(losses={5: float("nan")})}, ["fp16_losses"]),
+    ({"fp16": _fp16_run(skipped=range(12))}, ["fp16_applied"]),
+    ({"fp16": _fp16_run(launches=17)}, ["fp16_flash_launches"]),
+    ({"fp16": _fp16_run(overflow={"moments_bit_equal": False})}, ["overflow_moments_bit_equal"]),
+    ({"fp16": _fp16_run(overflow={"scale_backed_off": False})}, ["overflow_scale_backed_off"]),
+    ({"fp16": _fp16_run(syncs={"memcpy_dtoh": 1.0})}, ["fp16_no_added_sync"]),
+    ({"fp16": _fp16_run(syncs={"cudaDeviceSynchronize": 2.0})}, []),
+    ({"fp8": _fp8_run(scaled_mm=21 * 18 * 12 - 1)}, ["fp8_on_scaled_mm"]),
+    ({"fp8": _fp8_run(first=11.2)}, ["fp8_first_loss"]),
+    ({"fp8": _fp8_run(last=10.5)}, ["fp8_descends"]),
+    ({"linear": _linear(ok=False)}, ["linear_within_tolerance"]),
+    ({"linear": _linear(codes=False)}, ["quantize_bit_equal"]),
+    ({"dp": _fp16_run(steps=1, skipped=(), sharded=False)}, ["fsdp2_fp16_overflow"]),
+    ({"dp": _fp16_run(steps=1, skipped=(), sharded=True, overflow={"step_held": False})},
+     ["fsdp2_fp16_overflow"]),
+], ids=["ok", "first_loss", "nan", "all_skipped", "launches", "moments", "scale", "dtoh",
+        "device_sync_counted_apart", "fallback", "fp8_loss", "fp8_flat", "linear", "codes",
+        "dp_unsharded", "dp_step"])
+def test_precision_gate(chip_smoke, change, failed):
+    """Phase 14's checks: a D2H copy fails the step, the measurement's own
+    device synchronisation does not; one fp8 product off ``_scaled_mm``
+    fails the fp8 step."""
+    runs = {"fp16": _fp16_run(), "fp8": _fp8_run(), "linear": _linear(),
+            "dp": _fp16_run(steps=1, skipped=(), sharded=True), **change}
+    checks = chip_smoke.precision_gate(runs["fp16"], runs["fp8"], runs["linear"],
+                                       {"losses": [10.4]}, _BF16_SYNCS, runs["dp"])
+    assert sorted(k for k, v in checks.items() if not v) == sorted(failed + ["ok"] if failed
+                                                                   else [])
+
+
+def test_precision_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
+    """Phase 14 at a small width on the CPU (the plain versions for the
+    flash kernels and the fp8 products): the fp16 step with its injected
+    overflow (parameters, moments and counts bit-equal, the scale halved,
+    the next step applied) and no synchronisation in a profiled step; the
+    fp8 step's 21 products a layer a step and its first loss against the
+    bf16 step's; the fp8 linear equal to its plain version. No kernel
+    launch and no ``_scaled_mm`` here, and no child run: those checks fail
+    here only."""
+    import torch
+
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    _stub_cuda(chip_smoke, monkeypatch)
+    try:
+        main = chip_smoke.full_width_steps(hf, device="cpu", width=_TINY_WIDTH, seq=32,
+                                           batch_size=4)
+        res = chip_smoke.precision_phase(hf, main, _BF16_SYNCS, None, device="cpu",
+                                         width=_TINY_WIDTH, seq=32, batch_size=4,
+                                         linear_shapes=((64, 32, 48),))
+    finally:
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+    failed = sorted(k for k, v in res["checks"].items() if not v)
+    assert failed == ["fp16_flash_launches", "fp8_flash_launches", "fp8_on_scaled_mm",
+                      "fsdp2_fp16_overflow", "linear_within_tolerance", "ok"]
+    fp16, fp8 = res["fp16"], res["fp8"]
+    assert fp16["overflow"]["after"]["scale"] == fp16["overflow"]["before"]["scale"] / 2
+    assert not any(fp16["profile"]["syncs"].values())
+    assert fp8["paths"] == {"scaled_mm": 0, "dequantized": 0, "plain": 21 * 2 * 12}
+    assert set(fp8["profile"]["split_ms"]) == {"fp8_gemm", "quantization", "flash", "rest"}
+    assert fp8["fp8_speedup"] > 0 and torch.cuda.max_memory_allocated() == 0
+    for case in res["fp8_linear"]:
+        assert case["codes_equal"] and max(case["rel_err"].values()) == 0.0
+        assert case["paths"] == {"scaled_mm": 0, "dequantized": 0, "plain": 3}

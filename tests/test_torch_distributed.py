@@ -32,7 +32,11 @@ seed, from the same flax-initialised tiny Llama (fp32):
   ``gather_for_metrics`` inside an accumulation window across the ranks;
 - step telemetry at 2 processes: the straggler probe's gather of every
   process's step time, and ``collective_counters`` counting each
-  collective of a step and of ``utils/operations.py``.
+  collective of a step and of ``utils/operations.py``;
+- fp16 with loss scaling under FSDP2 at 2 processes, fused and as the
+  imperative loop: a step whose gradients overflow on process 1's shard
+  only is skipped by both processes (the finite flag's MIN over the
+  group), with every shard, moment and count unchanged.
 
 The spawned processes import this module: JAX is imported only inside the
 functions that compute the references.
@@ -54,6 +58,7 @@ from accelerate_tpu_torch import (
     Accelerator,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
+    GradScalerKwargs,
     Model,
     ParallelismConfig,
     ProjectConfiguration,
@@ -484,12 +489,68 @@ def _job_telemetry(ctx):
             "enabled_after": collective_counters.enabled}
 
 
+def _job_fp16(ctx):
+    """fp16 FSDP2 steps, fused then as the imperative loop (2 microbatches),
+    3 each, the second of which overflows on process 1's shard only: an inf
+    written into that process's shard of the embedding's gradient once
+    FSDP2 has reduce-scattered it. Per step: loss, grad norm, scale, growth
+    tracker, step, optimizer count, and whether this process's shards and
+    AdamW state stayed bit-equal."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+    for loop in (False, True):
+        cfg = LlamaConfig.tiny(dtype=torch.float16)
+        module = LlamaForCausalLM(cfg)
+        module.load_state_dict(llama_params_from_flax(cfg, ctx["flax_params"]))
+        acc = _port_accelerator("fsdp", mixed_precision="fp16", gradient_accumulation_steps=2,
+                                kwargs_handlers=[GradScalerKwargs(init_scale=1024.0,
+                                                                  growth_interval=2)])
+        model, opt = acc.prepare(Model(module), adamw(LR))
+        overflow = {"on": False}
+
+        def poison(p):
+            if overflow["on"] and rank == 1:
+                p.grad.to_local().view(-1)[0] = float("inf")
+
+        module.model.embed_tokens.weight.register_post_accumulate_grad_hook(poison)
+        step = acc.prepare_train_step(_port_loss, max_grad_norm=1.0)
+        st, rows = acc.train_state, []
+        for i in range(STEPS):
+            overflow["on"] = i == 1
+            before = [t.to_local().clone() for t in module.parameters()] + [
+                v.to_local().clone() if hasattr(v, "to_local") else v.clone()
+                for s in st.optimizer.state.values() for v in s.values()]
+            batch = _local(ctx["batches"][i], rank, world)
+            if loop:
+                for mb in _microbatch_split(batch, 2):
+                    with acc.accumulate(model):
+                        loss = acc.backward(_port_loss, mb)
+                        norm = acc.clip_grad_norm_(None, 1.0)
+                        opt.step()
+                        opt.zero_grad()
+                skipped = opt.step_was_skipped
+            else:
+                st, m = step(st, batch)
+                loss, norm, skipped = m["loss"], m["grad_norm"], None
+            after = [t.to_local() for t in module.parameters()] + [
+                v.to_local() if hasattr(v, "to_local") else v
+                for s in st.optimizer.state.values() for v in s.values()]
+            rows.append({"loss": float(loss), "grad_norm": float(norm), "skipped": skipped,
+                         "scale": float(st.loss_scale.scale),
+                         "tracker": int(st.loss_scale.growth_tracker), "step": int(st.step),
+                         "count": st.optimizer.count,
+                         "unchanged": all(torch.equal(a, b) for a, b in zip(before, after))})
+        out["loop" if loop else "fused"] = rows
+        _reset_port()
+    return out
+
+
 JOBS = {"fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
         "dispatcher": _job_dispatcher, "rng": _job_rng, "save": _job_save,
         "options": _job_options, "fsdp_ga2": _job_fsdp_ga2, "per_node": _job_per_node,
         "resume_jax": _job_resume_jax, "fsdp_uneven": _job_fsdp_uneven,
         "imperative": _job_imperative, "imperative_hsdp": _job_imperative_hsdp,
-        "surface": _job_surface, "telemetry": _job_telemetry}
+        "surface": _job_surface, "telemetry": _job_telemetry, "fp16": _job_fp16}
 
 
 def _worker(rank, world, init_file, ctx_path, jobs):
@@ -596,7 +657,7 @@ def runs(tmp_path_factory):
            "jax_ckpt": str(tmp / "jax" / "checkpoints" / "checkpoint_0")}
     two = _spawn(tmp, 2, ["fsdp", "ddp", "collectives", "dispatcher", "rng", "resume_jax",
                           "options", "fsdp_ga2", "per_node", "fsdp_uneven", "imperative",
-                          "surface", "telemetry"], ctx)
+                          "surface", "telemetry", "fp16"], ctx)
     four = _spawn(tmp, 4, ["fsdp", "hsdp", "collectives", "save", "imperative_hsdp",
                            "surface"], ctx)
     return {"ref": ref, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
@@ -1081,3 +1142,22 @@ def test_collective_counters_count_every_collective_of_a_step(runs):
             "broadcast": {"count": 1, "bytes": 24}, "gather_object": {"count": 1, "bytes": 0},
             "broadcast_object_list": {"count": 1, "bytes": 0}}
 
+
+
+@pytest.mark.parametrize("loop", ["fused", "loop"])
+def test_fp16_overflow_on_one_shard_skips_on_every_process(runs, loop):
+    """Only process 1's gradient shard overflows in step 2, so only it sees
+    a non-finite value; the finite flag's MIN over the group makes both
+    processes skip, keeping every shard, moment and count, and back off
+    the scale. Steps 1 and 3 apply, and both processes agree on every
+    number."""
+    ranks = [r["fp16"][loop] for r in runs[2]]
+    assert ranks[0] == ranks[1]
+    rows = ranks[0]
+    assert [r["unchanged"] for r in rows] == [False, True, False]
+    assert [(r["scale"], r["tracker"], r["step"], r["count"]) for r in rows] == [
+        (1024.0, 1, 1, 1), (512.0, 0, 1, 1), (512.0, 1, 2, 2)]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+    assert np.isfinite(rows[0]["grad_norm"]) and not np.isfinite(rows[1]["grad_norm"])
+    if loop == "loop":
+        assert [r["skipped"] for r in rows] == [False, True, False]

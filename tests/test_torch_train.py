@@ -226,15 +226,18 @@ def test_set_seed_seeds_every_generator_and_returns_one():
 
 
 def test_wider_mesh_and_fp16_are_not_ported():
-    """cp and sp are ported (each alone); tp and fp16 are not."""
+    """cp and sp are ported (each alone); tp is not. fp16 is ported (with
+    dynamic loss scaling, tests/test_torch_mixed_precision.py); a lower
+    AdamW ``mu_dtype`` is not."""
     for axes in (dict(cp_size=2), dict(sp_size=2)):
         assert ParallelismConfig(**axes).seq_size == 2
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         ParallelismConfig(tp_size=2)
     with pytest.raises(ValueError, match="mutually exclusive"):
         ParallelismConfig(cp_size=2, sp_size=2)
-    with pytest.raises(NotImplementedError):
-        Accelerator(mixed_precision="fp16", cpu=True)
+    assert Accelerator(mixed_precision="fp16", cpu=True).mixed_precision == "fp16"
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        adamw(1e-3, mu_dtype=torch.bfloat16)
 
 
 _SCHEDULES = [
