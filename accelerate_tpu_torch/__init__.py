@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of accelerate_tpu: the Llama training loop on NVIDIA
 Hopper GPUs (the train step with hand-written CUDA kernels for flash
-attention, on one GPU or data-parallel over a process group with FSDP2,
+attention, on one GPU or data-parallel over a process group with FSDP2
+(every ``sharding_strategy``, and DeepSpeed ZeRO stages read as them),
 HSDP or DDP, fused or as the imperative loop of ``accumulate``,
 ``backward`` and ``optimizer.step()``; prepared data loaders,
 learning-rate schedules, and checkpoints in the JAX package's directory
-contract), KV-cache generation and continuous-batching serving for Llama,
+contract, which resume in either package, or written by every process with
+``torch.distributed.checkpoint``, blocking or in the background), KV-cache generation and continuous-batching serving for Llama,
 and their observability: experiment trackers (``log_with``), step
 telemetry and the device-time profiler (``TelemetryKwargs``), and
 ``Accelerator.profile`` (``ProfileKwargs``). Reduced precision:
@@ -17,6 +19,7 @@ runs on CUDA unless the caller asks for the CPU (``Accelerator(cpu=True)``).
 """
 
 from .accelerator import Accelerator
+from .checkpointing import CheckpointSaveError
 from .data_loader import (
     ColumnDataset,
     SeedableRandomSampler,
@@ -42,6 +45,8 @@ from .telemetry import TelemetryRecorder
 from .train_state import DynamicLossScale, TrainState, grads_all_finite
 from .utils import (
     DataLoaderConfiguration,
+    DeepSpeedPlugin,
+    DistributedDataParallelKwargs,
     FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
@@ -50,6 +55,7 @@ from .utils import (
     ProfileKwargs,
     ProjectConfiguration,
     ServingConfig,
+    ShardingStrategy,
     TelemetryKwargs,
     find_executable_batch_size,
     set_seed,
@@ -61,8 +67,11 @@ __all__ = [
     "AcceleratedScheduler",
     "Accelerator",
     "AcceleratorState",
+    "CheckpointSaveError",
     "ColumnDataset",
     "DataLoaderConfiguration",
+    "DeepSpeedPlugin",
+    "DistributedDataParallelKwargs",
     "DistributedType",
     "DynamicLossScale",
     "FP8RecipeKwargs",
@@ -80,6 +89,7 @@ __all__ = [
     "SeedableRandomSampler",
     "ServingConfig",
     "ServingEngine",
+    "ShardingStrategy",
     "TelemetryKwargs",
     "TelemetryRecorder",
     "TrainState",

@@ -57,7 +57,17 @@ the global batch however unevenly ``-100`` labels fall; a loss function
 of the user's own that returns its process's mean gets the mean of the
 processes' means.
 ``gather``, ``gather_for_metrics``, ``reduce`` and ``pad_across_processes``
-run the collectives of ``utils/operations.py``.
+run the collectives of ``utils/operations.py``. The plugin's
+``sharding_strategy`` picks FSDP2, HSDP or DDP (``parallel/fsdp.py``);
+``deepspeed_plugin`` is read as a strategy, and
+``DistributedDataParallelKwargs`` sets DDP's reducer.
+
+Checkpoints (``checkpointing.py``): ``save_state``/``load_state`` in the
+JAX package's directory contract, which either package resumes; under
+``DISTRIBUTED_STATE_DICT`` every process writes its own shards with
+``torch.distributed.checkpoint``, and ``save_state(block=False)`` returns
+once the state is staged in host memory while a thread writes it, until
+``wait_for_checkpoint`` (one save in flight at a time).
 
 The imperative loop has the JAX package's semantics as well.
 ``accumulate`` counts microbatches in ``step`` and sets
@@ -117,7 +127,7 @@ from .model import Model
 from .logging import get_logger
 from .optimizer import AcceleratedOptimizer, AdamW
 from .parallel import apply_data_parallel
-from .parallel.fsdp import gradient_sync
+from .parallel.fsdp import average_whole_gradients, gradient_sync
 from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, DistributedType, GradientState
@@ -126,6 +136,8 @@ from .train_state import DynamicLossScale, TrainState
 from .utils import operations
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    DeepSpeedPlugin,
+    DistributedDataParallelKwargs,
     FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
@@ -136,9 +148,6 @@ from .utils.dataclasses import (
     ProjectConfiguration,
     TelemetryKwargs,
 )
-
-_DP_REST_ITEM = ("ROADMAP.md Queue A item 1 (the rest of data parallelism: "
-                 "DISTRIBUTED_STATE_DICT, save_state(block=False))")
 
 logger = get_logger(__name__)
 
@@ -175,21 +184,33 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 
 def _global_norm(grads: list) -> torch.Tensor:
-    """The L2 norm over every gradient, whole or sharded, each distinct
-    shard counted once: sharded ones (FSDP2's DTensors) reduce over the
-    mesh dim they are sharded on and not over a replicated one (HSDP's
-    ``dp_replicate × sp``); whole ones (DDP's, and the parameters FSDP2
-    ignores) are equal on every process after their all-reduce, so the
-    local norm is theirs."""
-    sharded = [g for g in grads if isinstance(g, DTensor)]
-    whole = [g for g in grads if not isinstance(g, DTensor)]
-    parts = []
-    if sharded:
-        norm = torch.nn.utils.get_total_norm(sharded)
-        parts.append(norm.full_tensor() if isinstance(norm, DTensor) else norm)
-    if whole:
-        parts.append(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(whole))))
-    return parts[0] if len(parts) == 1 else torch.linalg.vector_norm(torch.stack(parts))
+    """The L2 norm over every gradient, whole or sharded, with the
+    one-process step's arithmetic: the norm of the per-tensor norms, in the
+    parameters' order. A sharded gradient's norm (FSDP2's DTensors) is the
+    root of its shards' squared norms summed over the mesh dims it is
+    sharded on, not over a replicated one (HSDP's ``dp_replicate × sp``):
+    one all-reduce for all of them. Whole ones (DDP's, and the parameters
+    FSDP2 leaves whole) are equal on every process after their
+    all-reduce, so the local norm is theirs. Over a group of one the
+    result is the one-process step's bit for bit."""
+    norms = list(torch._foreach_norm([_local(g) for g in grads]))
+    by_layout: dict = {}
+    for i, g in enumerate(grads):
+        if isinstance(g, DTensor):
+            by_layout.setdefault((g.device_mesh, tuple(g.placements)), []).append(i)
+    for (mesh, placements), idx in by_layout.items():
+        dims = [d for d, p in enumerate(placements) if p.is_shard() and mesh.size(d) > 1]
+        if not dims:
+            continue
+        sq = torch.stack([norms[i] for i in idx]).square()
+        if mesh.device_type == "cuda" and not sq.is_cuda:  # CPU-offloaded shards
+            sq = sq.cuda()
+        for d in dims:
+            operations.all_reduce(sq, group=mesh.get_group(d))
+        for i, n in zip(idx, sq.sqrt().to(norms[idx[0]].device).unbind()):
+            norms[i] = n
+    device = norms[0].device
+    return torch.linalg.vector_norm(torch.stack([n.to(device) for n in norms]))
 
 
 class _HookHandle:
@@ -217,9 +238,24 @@ class Accelerator:
         step_scheduler_with_optimizer: bool = True,
         log_with=None,
         kwargs_handlers: Optional[list[KwargsHandler]] = None,
+        deepspeed_plugin: Optional[DeepSpeedPlugin] = None,
     ):
-        # fsdp_plugin shards the models over a process group (FSDP2); alone,
-        # only its state_dict_type acts (the checkpoint's file layout).
+        # A DeepSpeed ZeRO stage is a sharding strategy (DeepSpeedPlugin),
+        # taken when no fsdp_plugin is given, as in the JAX package; its
+        # accumulation steps and clipping apply unless set here, as the
+        # DeepSpeed engine applied them.
+        self._ds_gradient_clipping = None
+        if deepspeed_plugin is not None:
+            if fsdp_plugin is None:
+                fsdp_plugin = deepspeed_plugin.to_fsdp_plugin()
+            if (gradient_accumulation_steps == 1 and gradient_accumulation_plugin is None
+                    and deepspeed_plugin.gradient_accumulation_steps > 1):
+                gradient_accumulation_steps = deepspeed_plugin.gradient_accumulation_steps
+            self._ds_gradient_clipping = deepspeed_plugin.gradient_clipping
+        self.deepspeed_plugin = deepspeed_plugin
+        # fsdp_plugin shards the models over a process group (FSDP2, or DDP
+        # under NO_SHARD); alone, only its state_dict_type acts (the
+        # checkpoint's format).
         self.fsdp_plugin = fsdp_plugin
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
@@ -228,6 +264,7 @@ class Accelerator:
         self.telemetry_handler: Optional[TelemetryKwargs] = None
         self.scaler_handler: Optional[GradScalerKwargs] = None
         self.fp8_recipe_handler: Optional[FP8RecipeKwargs] = None
+        self.ddp_handler: Optional[DistributedDataParallelKwargs] = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, ProfileKwargs):
                 self.profile_handler = handler
@@ -237,11 +274,12 @@ class Accelerator:
                 self.scaler_handler = handler
             elif isinstance(handler, FP8RecipeKwargs):
                 self.fp8_recipe_handler = handler
+            elif isinstance(handler, DistributedDataParallelKwargs):
+                self.ddp_handler = handler
             else:
                 raise NotImplementedError(
                     f"kwargs handler {type(handler).__name__} is not ported yet (ROADMAP.md "
-                    "Queue A: DistributedDataParallelKwargs item 1, CompileKwargs, "
-                    "FaultToleranceKwargs and AutoPlanKwargs item 12)")
+                    "Queue A: CompileKwargs, FaultToleranceKwargs and AutoPlanKwargs item 12)")
         self._mp_policy = MixedPrecisionPolicy.from_mixed_precision(mixed_precision)
         self.state = AcceleratorState(
             mixed_precision=mixed_precision, cpu=cpu, parallelism_config=parallelism_config)
@@ -272,6 +310,10 @@ class Accelerator:
         # The last save_state/load_state: its directory and seconds, split
         # into host copies and disk; a save also counts its bytes.
         self.checkpoint_stats: Optional[dict] = None
+        # A save_state(block=False) still writing, and the stager that keeps
+        # its host copies for the next one (checkpointing.py).
+        self._pending_save: Optional[dict] = None
+        self._dcp_stager = None
         # Trackers (tracking.py): resolved now, built by init_trackers.
         self.log_with = filter_trackers(log_with, self.project_configuration.logging_dir)
         self.trackers: list[GeneralTracker] = []
@@ -447,7 +489,7 @@ class Accelerator:
             if isinstance(obj, Model):
                 obj.module.to(self.device)
                 apply_data_parallel(obj, self.state, self.fsdp_plugin,
-                                    self._mp_policy.compute_dtype)
+                                    self._mp_policy.compute_dtype, self.ddp_handler)
                 model = obj
                 self._models.append(obj)
             elif isinstance(obj, (AdamW, torch.optim.Optimizer)):
@@ -560,9 +602,13 @@ class Accelerator:
         averaged over every process (``ParallelismConfig.loss_reduce_axes``,
         all of them while tp, pp and ep are not ported). Under fp16 loss
         scaling the loss is the unscaled one and the norm that of the
-        unscaled gradients; an overflowed step is skipped on the card."""
+        unscaled gradients; an overflowed step is skipped on the card.
+        Without ``max_grad_norm`` a ``DeepSpeedPlugin``'s
+        ``gradient_clipping`` clips."""
         if not self._train_states:
             raise RuntimeError("Call accelerator.prepare(...) first.")
+        if max_grad_norm is None:
+            max_grad_norm = self._ds_gradient_clipping
         policy = self._mp_policy
         num_accum = self.gradient_state.num_steps
         world = self.num_processes
@@ -570,27 +616,20 @@ class Accelerator:
         def step(state: TrainState, batch: dict):
             model, opt = state.model, state.optimizer
             params = [p for p in model.parameters() if p.requires_grad]
-            named = dict(model.module.named_parameters())
             microbatches = _microbatch_split(self._to_device(batch), num_accum)
             opt.zero_grad(set_to_none=True)
             loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
             for mb in microbatches:
-                with operations.loss_over_processes(world):
-                    if model.sharded:  # FSDP2's policy casts the masters for compute
-                        loss = loss_fn(model, mb).float()
-                        _scaled(loss, state.loss_scale).backward()
-                    else:
-                        with model.compute_params(policy.cast_for_compute(named)):
-                            loss = loss_fn(model, mb).float()
-                            _scaled(loss, state.loss_scale).backward()
+                with (operations.loss_over_processes(world),
+                      model.compute_params(policy.cast_for_compute(self._cast_params(model)))):
+                    loss = loss_fn(model, mb).float()
+                    _scaled(loss, state.loss_scale).backward()
                 loss_sum += loss.detach()
             grads = [p.grad for p in params if p.grad is not None]
             # Parameters FSDP2 leaves whole are averaged here over every
             # process (loss_reduce_axes), as DDP would.
-            for p in model.ignored.values():
-                if p.grad is not None and world > 1:
-                    operations.all_reduce(p.grad)
-                    p.grad.div_(world)
+            if world > 1:
+                average_whole_gradients(model, world)
             if num_accum > 1:
                 torch._foreach_div_([_local(g) for g in grads], num_accum)
             finite = self._unscale_and_check(state, grads)
@@ -621,6 +660,13 @@ class Accelerator:
             return state, metrics
 
         return step_and_track
+
+    @staticmethod
+    def _cast_params(model: Model) -> dict:
+        """The parameters the step casts for compute itself: all of them,
+        or under FSDP2 (whose policy casts the ones it shards) those it
+        leaves whole."""
+        return dict(model.ignored) if model.sharded else dict(model.module.named_parameters())
 
     def _unscale_and_check(self, state: TrainState, grads: list) -> Optional[torch.Tensor]:
         """Under loss scaling: ``grads`` unscaled in place, and whether every
@@ -738,19 +784,15 @@ class Accelerator:
         tel = self.telemetry
         t0 = time.perf_counter() if tel is not None else 0.0
         args, kwargs = operations.recursively_apply(self._place, (args, kwargs))
-        with operations.loss_over_processes(world), gradient_sync(model, communicate):
-            cast = (contextlib.nullcontext() if model.sharded else model.compute_params(
-                self._mp_policy.cast_for_compute(dict(model.module.named_parameters()))))
-            with cast:
-                out = loss_fn(model, *args, **kwargs)
-                loss, aux = out if has_aux else (out, None)
-                loss = loss.float()
-                _scaled(loss / gs.num_steps, loss_scale).backward()
+        cast = self._mp_policy.cast_for_compute(self._cast_params(model))
+        with (operations.loss_over_processes(world), gradient_sync(model, communicate),
+              model.compute_params(cast)):
+            out = loss_fn(model, *args, **kwargs)
+            loss, aux = out if has_aux else (out, None)
+            loss = loss.float()
+            _scaled(loss / gs.num_steps, loss_scale).backward()
         if communicate and world > 1:
-            for p in model.ignored.values():
-                if p.grad is not None:
-                    operations.all_reduce(p.grad)
-                    p.grad.div_(world)
+            average_whole_gradients(model, world)
         # A reducing backward reduces what earlier microbatches accumulated too.
         self._grads_local = not communicate and self.use_distributed
         loss = loss.detach()
@@ -827,12 +869,15 @@ class Accelerator:
     # ------------------------------------------------------------------
 
     def gather(self, tensor):
-        """Every process's tensors concatenated on dim 0."""
+        """The global values of every process's tensors
+        (``operations.gather``): the rows of every data-parallel process
+        on dim 0, each at full length under ``cp``/``sp``."""
         return operations.gather(tensor)
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
         """The gathered values without the samples that ``even_batches``
-        repeated to fill the last batch. Data with leaves other than
+        repeated to fill the last batch (rows of the global batch, under
+        ``cp``/``sp`` too). Data with leaves other than
         tensors and arrays (or ``use_gather_object``) is gathered as Python
         objects."""
         as_objects = use_gather_object or not operations.is_array_tree(input_data)
@@ -912,8 +957,12 @@ class Accelerator:
                 tracker.log(values, step=step, **log_kwargs.get(tracker.name, {}))
 
     def end_training(self):
-        """Close the telemetry (its summary record, the profiler's last
-        record), then finish every tracker, and wait for every process."""
+        """Wait for a save in flight (and free its host copies), close the
+        telemetry (its summary record, the profiler's last record), then
+        finish every tracker, and wait for every process."""
+        from .checkpointing import release_staging
+
+        release_staging(self)
         if self.telemetry is not None:
             self.telemetry.close()
         if self.is_main_process:
@@ -986,8 +1035,10 @@ class Accelerator:
         """Drop every prepared object this Accelerator holds and the
         imperative loop's state, then ``release_memory(*objects)``: returns
         a None for each, and the caller rebinds its own names to them."""
+        from .checkpointing import release_staging
         from .utils.memory import release_memory
 
+        release_staging(self)
         if self.telemetry is not None:
             self.telemetry.close()
             self.telemetry = None
@@ -1029,22 +1080,23 @@ class Accelerator:
     def save_state(self, output_dir: Optional[str] = None, safe_serialization: bool = True,
                    block: bool = True) -> str:
         """Write the training state (``checkpointing.py`` lists the files)
-        and return the directory."""
+        and return the directory. A save still in flight is waited for
+        first. ``block=False`` under ``DISTRIBUTED_STATE_DICT`` returns once
+        the state is staged in host memory and writes it in the background
+        (``wait_for_checkpoint`` waits for it); the safetensors formats warn
+        and save synchronously, as the JAX package does."""
         from .checkpointing import _checkpoint_dir, save_accelerator_state
 
         if not safe_serialization:
             raise ValueError("checkpoints hold model.safetensors: safe_serialization=False "
                              "has no other format")
-        if not block:
-            raise NotImplementedError(
-                f"save_state(block=False) is asynchronous only for DISTRIBUTED_STATE_DICT, "
-                f"which is {_DP_REST_ITEM}")
+        self.wait_for_checkpoint()
         if self._save_state_pre_hooks:
             output_dir = _checkpoint_dir(self, output_dir)
             for hook in self._save_state_pre_hooks:
                 hook(self._models, self._train_states[0] if self._train_states else None,
                      output_dir)
-        return save_accelerator_state(self, output_dir)
+        return save_accelerator_state(self, output_dir, block=block)
 
     def load_state(self, input_dir: Optional[str] = None) -> str:
         """Restore the training state from ``input_dir`` or the newest
@@ -1053,8 +1105,18 @@ class Accelerator:
         at the batch after the last one the saved run took."""
         from .checkpointing import _checkpoint_dir, load_accelerator_state
 
+        self.wait_for_checkpoint()
         if self._load_state_pre_hooks:
             input_dir = _checkpoint_dir(self, input_dir, for_load=True)
             for hook in self._load_state_pre_hooks:
                 hook(self._models, input_dir)
         return load_accelerator_state(self, input_dir)
+
+    def wait_for_checkpoint(self) -> None:
+        """Block until a ``save_state(block=False)`` has finished writing.
+        A failure in the background raises ``CheckpointSaveError`` here
+        (recorded as a ``checkpoint_async_error`` telemetry event), and the
+        save is no longer in flight."""
+        from .checkpointing import finish_pending_save
+
+        finish_pending_save(self)

@@ -1,26 +1,51 @@
 """Training-state checkpoints in the JAX package's directory contract.
 
-Counterpart of ``accelerate_tpu/checkpointing.py`` (its safetensors path).
-A checkpoint directory holds:
+Counterpart of ``accelerate_tpu/checkpointing.py``. A checkpoint directory
+holds:
 
 - ``model.safetensors``: the fp32 master parameters under the flax tree's
   ``/``-joined names and in its layouts (``models/convert.py``), as one
   file (``FULL_STATE_DICT``) or 5 GB shards plus
   ``model.safetensors.index.json`` (``SHARDED_STATE_DICT``, the default);
-- ``optimizer.bin``: a pickle of ``{"opt_state", "step", "extra_state"}``.
-  The port writes ``opt_state`` as the plain dict ``{"count", "mu", "nu"}``
-  with the moments in the parameters' flax names and layouts (numpy
-  leaves); the JAX package writes optax's state tuple, which the port reads
-  (below);
+- ``optimizer.bin``: a pickle of ``{"opt_state", "step", "extra_state"}``
+  with ``opt_state`` in the structure of ``optax.adamw``'s chain state, so
+  that the JAX package's ``load_state`` maps it onto its live state:
+  ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``, the
+  last ``ScaleByScheduleState(count)`` when the rate is a schedule, with
+  the moments in the parameters' flax names and layouts (numpy leaves).
+  The pickle names optax's classes (``_OptaxPickler``) without importing
+  optax; the reader maps them to stand-ins (below), and still reads the
+  plain ``{"count", "mu", "nu"}`` of older port checkpoints;
 - ``scheduler.bin``, ``sampler.bin`` (a loader's full mid-epoch
   ``state_dict``), ``custom_checkpoint_<i>.pkl`` for registered objects,
-  ``accelerator_step.bin`` and ``random_states_<rank>.pkl``;
+  ``accelerator_step.bin`` and ``random_states_<rank>.pkl`` (with the JAX
+  package's ``jax`` entry, ``utils/random.py``);
 - ``scaler.bin`` under fp16 loss scaling: the JAX package's pickle
   ``{"scale": float, "growth_tracker": int}`` of the first model's scale,
   restored into the live one on load (a JAX fp16 checkpoint resumes with
   its scale);
 - ``model_<i>.safetensors`` and ``optimizer_<i>.bin`` for a second and
   later prepared model.
+
+So a checkpoint of either package resumes in the other.
+
+``DISTRIBUTED_STATE_DICT`` replaces ``model.safetensors`` and
+``optimizer.bin`` with ``distributed_state_torch/``, written with
+``torch.distributed.checkpoint`` (DCP): every process writes its own
+shards, nothing is gathered. It holds the model's and AdamW's state from
+``get_state_dict`` (FSDP2's DTensors as they are sharded) under the flax
+tree's ``/``-joined names of the unrolled layers (``params/...``,
+``opt_state/mu/...``, ``opt_state/nu/...``), in the port's layouts, with
+``opt_state/count`` and ``step``; the other files are as above. A load
+reads it into the live layout at any world size (DCP reshards), without a
+process group too (``no_dist``). ``save_state(block=False)`` stages the
+state into host buffers (pinned on the card; ``_HostStaging``, DCP's
+stager interface, keeps them for the next save) and returns;
+a thread writes the files while training goes on, until
+``Accelerator.wait_for_checkpoint``. The JAX package's orbax directory
+(``distributed_state/``) is refused: each package reads only its own
+distributed format, and the safetensors formats are the interchange. One
+prepared model only, as in the JAX package.
 
 With ``ProjectConfiguration(automatic_checkpoint_naming=True)`` the
 directory is ``<project_dir>/checkpoints/checkpoint_<iteration>``: a save
@@ -44,20 +69,17 @@ Every pickle of a checkpoint is read with a restricted unpickler: it
 allows numpy's array reconstructors and maps optax's ``ScaleByAdamState``,
 ``ScaleByScheduleState`` and ``EmptyState`` to stand-in records of the same
 fields, so a JAX checkpoint loads without optax; any other global is
-refused. The JAX package's ``random_states_0.pkl`` holds ``python``,
-``numpy`` and ``jax`` states: the first two are restored, ``jax`` is
-skipped (``utils/random.py``).
+refused.
 
-Not ported: the atomic manifest commit of ``fault_tolerance.py`` and orbax
-(``DISTRIBUTED_STATE_DICT``). A JAX process cannot unpickle the port's
-``optimizer.bin`` as optax state, so resuming a port checkpoint in the JAX
-package's ``load_state`` is not supported; its ``model.safetensors`` reads
-back there exactly.
+Not ported: the atomic manifest commit of ``fault_tolerance.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import os
+import warnings
 import pickle
 import re
 import shutil
@@ -73,9 +95,11 @@ from .models.convert import llama_params_to_flax, llama_views_from_flax
 from .models.llama import LlamaForCausalLM
 from .utils.constants import (
     CHECKPOINT_DIR_REGEX,
+    DCP_DIR_NAME,
     MAX_SHARD_SIZE,
     MODEL_NAME,
     OPTIMIZER_NAME,
+    ORBAX_DIR_NAME,
     RNG_STATE_NAME,
     SAMPLER_NAME,
     SCALER_NAME,
@@ -88,6 +112,14 @@ from .utils.other import (
     unflatten_state_dict,
 )
 from .utils.random import load_rng_state, rng_state
+
+logger = logging.getLogger(__name__)
+
+
+class CheckpointSaveError(RuntimeError):
+    """A checkpoint failed to persist: raised by
+    ``Accelerator.wait_for_checkpoint`` for a ``save_state(block=False)``
+    whose background write failed."""
 
 # ---------------------------------------------------------------------------
 # Reading pickles without optax
@@ -128,9 +160,35 @@ def restricted_load(path: str):
         return RestrictedUnpickler(f).load()
 
 
+_OPTAX_NAMES = {cls: key for key, cls in _OPTAX_RECORDS.items()}
+
+
+class _OptaxPickler(pickle._Pickler):
+    """Pickles the stand-in records under optax's module and class names,
+    as the JAX package's pickle of its optimizer state names them, so that
+    a JAX process unpickles optax's own classes. Everything else as
+    ``pickle.dump`` does (the pure-Python pickler, whose ``save_global``
+    can be taught the names: the C one verifies each name by importing
+    its module)."""
+
+    def save_global(self, obj, name=None):
+        if obj not in _OPTAX_NAMES:
+            return super().save_global(obj, name)
+        module, qualname = _OPTAX_NAMES[obj]
+        self.save(module)
+        self.save(qualname)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
 def _dump(obj, path: str) -> None:
     with open(path, "wb") as f:
         pickle.dump(obj, f, protocol=5)
+
+
+def _dump_optax(obj, path: str) -> None:
+    with open(path, "wb") as f:
+        _OptaxPickler(f, protocol=5).dump(obj)
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +319,234 @@ def _named_params(train_state) -> list:
 
 
 # ---------------------------------------------------------------------------
+# DISTRIBUTED_STATE_DICT: torch.distributed.checkpoint
+# ---------------------------------------------------------------------------
+
+
+def _flax_name(module: torch.nn.Module, fqn: str) -> str:
+    """The flax tree's ``/``-joined name of a parameter (Llama: the unrolled
+    layers' ``layers_<i>``, ``kernel`` for a projection, ``embedding``),
+    else the module's own name with ``/``."""
+    if not isinstance(module, LlamaForCausalLM):
+        return fqn.replace(".", "/")
+    owner, _, leaf = fqn.rpartition(".")
+    if owner.endswith("embed_tokens"):
+        leaf = "embedding"
+    elif owner.endswith("_proj") or owner == "lm_head":
+        leaf = "kernel"
+    owner = re.sub(r"(^|\.)layers\.(\d+)(?=\.|$)", r"\1layers_\2", owner)
+    return f"{owner.replace('.', '/')}/{leaf}"
+
+
+def _dcp_state(train_state) -> tuple[dict, list]:
+    """The DCP state of a train state, from ``get_state_dict``: parameters
+    and AdamW moments (FSDP2's DTensors as sharded) under ``params/``,
+    ``opt_state/mu/`` and ``opt_state/nu/`` plus the flax name, with
+    ``opt_state/count`` and ``step``; and for each entry the live tensor it
+    belongs to (the optimizer's state is created first, as AdamW creates
+    it, so that ``get_state_dict`` takes no initialising step)."""
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, get_state_dict
+
+    module, opt = train_state.model.module, train_state.optimizer
+    named = _named_params(train_state)
+    for _, p, g in named:
+        _adam_state(opt, p, g)
+    msd, osd = get_state_dict(module, opt,
+                              options=StateDictOptions(flatten_optimizer_state_dict=True))
+    state, live = {}, []
+    for fqn, p, _ in named:
+        name = _flax_name(module, fqn)
+        for key, value, dst in ((f"params/{name}", msd[fqn], p),
+                                (f"opt_state/mu/{name}", osd[f"state.{fqn}.exp_avg"],
+                                 opt.state[p]["exp_avg"]),
+                                (f"opt_state/nu/{name}", osd[f"state.{fqn}.exp_avg_sq"],
+                                 opt.state[p]["exp_avg_sq"])):
+            state[key] = value
+            live.append((key, dst))
+    state["opt_state/count"] = torch.tensor(int(getattr(opt, "count", train_state.step)))
+    state["step"] = torch.tensor(int(train_state.step))
+    return state, live
+
+
+def _local_view(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+class _HostStaging:
+    """DCP's ``AsyncStager`` for background saves: ``stage`` copies every
+    tensor of the state into a host buffer it keeps (pinned on the card,
+    with non-blocking copies and one synchronisation), so ``async_save``
+    returns once the device-to-host copy is done. The buffers are reused by
+    the next save of the same state: only the first pays for allocating
+    (and pinning) them, and none is freed while training runs. A DTensor
+    is staged as a DTensor of the same layout over its host shard."""
+
+    should_synchronize_after_execute = False
+
+    def __init__(self, pin: bool):
+        self.pin = pin
+        self.buffers: dict = {}
+
+    def stage(self, state_dict: dict) -> dict:
+        staged = {}
+        for key, value in state_dict.items():
+            local = _local_view(value)
+            buf = self.buffers.get(key)
+            if buf is None or buf.shape != local.shape or buf.dtype != local.dtype:
+                buf = self.buffers[key] = torch.empty(local.shape, dtype=local.dtype,
+                                                      pin_memory=self.pin)
+            buf.copy_(local, non_blocking=self.pin)
+            staged[key] = (DTensor.from_local(buf, value.device_mesh, value.placements,
+                                              run_check=False, shape=value.shape,
+                                              stride=value.stride())
+                           if isinstance(value, DTensor) else buf)
+        if self.pin:
+            torch.cuda.synchronize()
+        return staged
+
+    def synchronize_staging(self) -> None:
+        pass
+
+    def close(self) -> None:
+        self.buffers.clear()
+
+
+def _stager(accelerator) -> _HostStaging:
+    """The accelerator's stager (``_HostStaging``), kept from one background
+    save to the next; ``release_staging`` drops its buffers (at
+    ``end_training`` and ``free_memory``)."""
+    if getattr(accelerator, "_dcp_stager", None) is None:
+        accelerator._dcp_stager = _HostStaging(pin=accelerator.device.type == "cuda")
+    return accelerator._dcp_stager
+
+
+def release_staging(accelerator) -> None:
+    """Free the host copies a background save kept (after waiting for it)."""
+    finish_pending_save(accelerator)
+    stager = getattr(accelerator, "_dcp_stager", None)
+    if stager is not None:
+        accelerator._dcp_stager = None
+        stager.close()
+
+
+def _async_group(accelerator):
+    """The gloo group a background save plans over (None alone): DCP needs
+    a CPU backend there, and its thread must not interleave collectives
+    with the training's on the default group. Made once, by every
+    process."""
+    if not accelerator.use_distributed:
+        return None
+    if getattr(accelerator, "_dcp_async_group", None) is None:
+        accelerator._dcp_async_group = torch.distributed.new_group(backend="gloo")
+    return accelerator._dcp_async_group
+
+
+@contextlib.contextmanager
+def _no_single_process_warning():
+    """DCP warns that it saves or loads in one process even when told so
+    (``no_dist``)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        yield
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _save_distributed(accelerator, output_dir: str, block: bool, stats: dict) -> None:
+    """Every process writes its own shards to ``<output_dir>/distributed_state_torch``;
+    with ``block=False`` the state is staged into host memory and a thread
+    writes it (``accelerator._pending_save``)."""
+    import torch.distributed.checkpoint as dcp
+
+    if len(accelerator._train_states) > 1:
+        raise NotImplementedError(
+            "DISTRIBUTED_STATE_DICT saves a single prepared model, as in the JAX package; use "
+            "FULL_STATE_DICT or SHARDED_STATE_DICT for more than one")
+    path = os.path.join(output_dir, DCP_DIR_NAME)
+    state, _ = _dcp_state(accelerator._train_states[0])
+    no_dist = not accelerator.use_distributed
+    t0 = time.perf_counter()
+    if block:
+        with _no_single_process_warning():
+            dcp.save(state, checkpoint_id=path, no_dist=no_dist)
+        stats["write_s"] += time.perf_counter() - t0
+        return
+    future = dcp.async_save(state, checkpoint_id=path, process_group=_async_group(accelerator),
+                            async_stager=_stager(accelerator), no_dist=no_dist)
+    stats["stage_s"] = time.perf_counter() - t0
+    stats["staged_bytes"] = sum(_local_view(t).numel() * t.element_size()
+                                for t in state.values())
+    # Whether the write was still running when the call returned.
+    stats["persisting_at_return"] = not future.done()
+    accelerator._pending_save = {"future": future, "dir": output_dir, "path": path,
+                                 "started": time.perf_counter()}
+
+
+def finish_pending_save(accelerator) -> Optional[dict]:
+    """Wait for the save ``save_state(block=False)`` left in flight, if any:
+    its seconds (``wait_s``, and ``persist_s`` since the call returned) and
+    bytes join ``accelerator.checkpoint_stats``. A failure in the
+    background raises ``CheckpointSaveError`` (and is recorded as a
+    telemetry event); the save is no longer in flight either way."""
+    pending = getattr(accelerator, "_pending_save", None)
+    if pending is None:
+        return None
+    accelerator._pending_save = None
+    t0 = time.perf_counter()
+    try:
+        pending["future"].result()
+    except Exception as exc:
+        tel = getattr(accelerator, "telemetry", None)
+        if tel is not None:
+            tel.record_event("checkpoint_async_error", dir=pending["dir"],
+                             error=f"{type(exc).__name__}: {exc}"[:500])
+        raise CheckpointSaveError(
+            f"the checkpoint {pending['dir']} failed to persist in the background: {exc}"
+        ) from exc
+    accelerator.wait_for_everyone()
+    done = {"wait_s": time.perf_counter() - t0,
+            "persist_s": time.perf_counter() - pending["started"],
+            "bytes": _dir_bytes(pending["dir"])}
+    if accelerator.checkpoint_stats and accelerator.checkpoint_stats.get("dir") == pending["dir"]:
+        accelerator.checkpoint_stats.update(done)
+    return done
+
+
+def _load_distributed(accelerator, input_dir: str, stats: dict) -> None:
+    """``<input_dir>/distributed_state_torch`` read into the live tensors,
+    resharded to this run's layout by DCP."""
+    import torch.distributed.checkpoint as dcp
+
+    if len(accelerator._train_states) > 1:
+        raise NotImplementedError(
+            "DISTRIBUTED_STATE_DICT holds a single prepared model, as in the JAX package")
+    train_state = accelerator._train_states[0]
+    opt = train_state.optimizer
+    state, live = _dcp_state(train_state)
+    t0 = time.perf_counter()
+    with _no_single_process_warning():
+        dcp.load(state, checkpoint_id=os.path.join(input_dir, DCP_DIR_NAME),
+                 no_dist=not accelerator.use_distributed)
+    with torch.no_grad():  # where get_state_dict handed out a copy
+        for key, dst in live:
+            src = state[key]
+            if _local_view(src).data_ptr() != _local_view(dst).data_ptr():
+                _local_view(dst).copy_(_local_view(src))
+    count = int(state["opt_state/count"])
+    for _, p, _ in _named_params(train_state):
+        opt.state[p]["step"].fill_(count)
+    if hasattr(opt, "count"):
+        opt.count = count
+    train_state.set_step(int(state["step"]))
+    if accelerator.device.type == "cuda":
+        torch.cuda.synchronize(accelerator.device)
+    stats["read_s"] += time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
 # Save
 # ---------------------------------------------------------------------------
 
@@ -299,13 +585,16 @@ def _save_train_state(train_state, i: int, write_dir: str, max_shard, device,
     t0 = time.perf_counter()
     save_sharded_safetensors(flat_params, write_dir, max_shard_size=max_shard,
                              weights_name=f"{MODEL_NAME}{_suffix(i)}.safetensors")
-    count = int(getattr(opt, "count", train_state.step))
-    opt_state = {"count": np.asarray(count, dtype=np.int32),
-                 "mu": unflatten_state_dict({k: v.numpy() for k, v in moments["exp_avg"].items()}),
-                 "nu": unflatten_state_dict(
-                     {k: v.numpy() for k, v in moments["exp_avg_sq"].items()})}
-    _dump({"opt_state": opt_state, "step": int(train_state.step), "extra_state": None},
-          os.path.join(write_dir, f"{OPTIMIZER_NAME}{_suffix(i)}.bin"))
+    count = np.asarray(int(getattr(opt, "count", train_state.step)), dtype=np.int32)
+    adam = ScaleByAdamState(
+        count, unflatten_state_dict({k: v.numpy() for k, v in moments["exp_avg"].items()}),
+        unflatten_state_dict({k: v.numpy() for k, v in moments["exp_avg_sq"].items()}))
+    # optax.adamw: scale_by_adam, add_decayed_weights, then the rate's
+    # transform (scale_by_schedule for a schedule, stateless for a float).
+    rate = ScaleByScheduleState(count.copy()) if getattr(opt, "scheduled", False) else EmptyState()
+    _dump_optax({"opt_state": (adam, EmptyState(), rate), "step": int(train_state.step),
+                 "extra_state": None},
+                os.path.join(write_dir, f"{OPTIMIZER_NAME}{_suffix(i)}.bin"))
     stats["write_s"] += time.perf_counter() - t0
 
 
@@ -327,15 +616,26 @@ def _save_host_side_state(accelerator, output_dir: str, writer: bool) -> None:
     _dump({"step": accelerator.step}, os.path.join(output_dir, "accelerator_step.bin"))
 
 
-def save_accelerator_state(accelerator, output_dir: Optional[str] = None) -> str:
+def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
+                           block: bool = True) -> str:
     """Write the prepared training state to ``output_dir`` (or the next
     automatic checkpoint directory) and return the directory. Fills
     ``accelerator.checkpoint_stats`` with the seconds of the whole save, of
-    the copies to the host and of the writes, and the bytes written."""
+    the copies to the host and of the writes, and the bytes written.
+    ``block=False`` under ``DISTRIBUTED_STATE_DICT`` returns once the state
+    is staged in host memory (``finish_pending_save`` waits for the rest);
+    the safetensors formats warn and save synchronously, as the JAX
+    package does."""
     t_start = time.perf_counter()
     if not accelerator._train_states:
         raise RuntimeError("Nothing prepared; call accelerator.prepare(...) first.")
     pc = accelerator.project_configuration
+    plugin = accelerator.fsdp_plugin
+    distributed = plugin is not None and plugin.state_dict_type == "DISTRIBUTED_STATE_DICT"
+    if not block and not distributed:
+        logger.warning("save_state(block=False) is only asynchronous for DISTRIBUTED_STATE_DICT "
+                       "checkpoints; the safetensors gather path saves synchronously.")
+        block = True
     # One writer of the shared files: process 0, or each node's local process 0.
     writer = (accelerator.is_local_main_process if pc.save_on_each_node
               else accelerator.is_main_process)
@@ -347,31 +647,36 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None) -> str
             _prune_total_limit(accelerator, base, room_for=1)
     os.makedirs(output_dir, exist_ok=True)
 
-    plugin = accelerator.fsdp_plugin
     max_shard = (MAX_SHARD_SIZE if plugin is None or plugin.state_dict_type == "SHARDED_STATE_DICT"
                  else 10**15)
     stats = {"d2h_s": 0.0, "write_s": 0.0}
-    for i, train_state in enumerate(accelerator._train_states):
-        _save_train_state(train_state, i, output_dir, max_shard, accelerator.device, stats,
-                          writer)
+    if distributed:
+        _save_distributed(accelerator, output_dir, block, stats)
+    else:
+        for i, train_state in enumerate(accelerator._train_states):
+            _save_train_state(train_state, i, output_dir, max_shard, accelerator.device, stats,
+                              writer)
     _save_host_side_state(accelerator, output_dir, writer)
     accelerator.wait_for_everyone()
     if pc.automatic_checkpoint_naming:
         pc.iteration += 1
     stats["seconds"] = time.perf_counter() - t_start
-    stats["bytes"] = sum(os.path.getsize(os.path.join(output_dir, f))
-                         for f in os.listdir(output_dir))
-    accelerator.checkpoint_stats = {"event": "save", "dir": output_dir, **stats}
-    _record_checkpoint_event(accelerator, "checkpoint_save", output_dir, stats)
+    if block:
+        stats["bytes"] = _dir_bytes(output_dir)
+    fmt = "dcp" if distributed else "safetensors"
+    accelerator.checkpoint_stats = {"event": "save", "dir": output_dir, "format": fmt,
+                                    "blocking": block, **stats}
+    _record_checkpoint_event(accelerator, "checkpoint_save", output_dir, fmt, stats)
     return output_dir
 
 
-def _record_checkpoint_event(accelerator, event: str, path: str, stats: dict) -> None:
+def _record_checkpoint_event(accelerator, event: str, path: str, fmt: str,
+                             stats: dict) -> None:
     """The save's or load's seconds (and its split) in the telemetry JSONL,
     beside the step records, as the JAX package records them."""
     tel = getattr(accelerator, "telemetry", None)
     if tel is not None:
-        tel.record_event(event, dir=path, format="safetensors", **stats)
+        tel.record_event(event, dir=path, format=fmt, **stats)
 
 
 # ---------------------------------------------------------------------------
@@ -484,12 +789,24 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None) -> str:
         raise RuntimeError("Call accelerator.prepare(...) before load_state().")
     input_dir = _checkpoint_dir(accelerator, input_dir, for_load=True)
     stats = {"read_s": 0.0, "h2d_s": 0.0}
-    for i, train_state in enumerate(accelerator._train_states):
-        _load_train_state(train_state, i, input_dir, accelerator.device, stats)
+    distributed = os.path.isdir(os.path.join(input_dir, DCP_DIR_NAME))
+    if distributed:
+        _load_distributed(accelerator, input_dir, stats)
+    else:
+        if (os.path.isdir(os.path.join(input_dir, ORBAX_DIR_NAME))
+                and not os.path.exists(os.path.join(input_dir, f"{OPTIMIZER_NAME}.bin"))):
+            raise ValueError(
+                f"{input_dir} holds the JAX package's DISTRIBUTED_STATE_DICT (orbax, "
+                f"{ORBAX_DIR_NAME}/), which the port does not read: save it from the JAX package "
+                "with state_dict_type FULL_STATE_DICT or SHARDED_STATE_DICT (safetensors), the "
+                "formats both packages read")
+        for i, train_state in enumerate(accelerator._train_states):
+            _load_train_state(train_state, i, input_dir, accelerator.device, stats)
     _load_host_side_state(accelerator, input_dir)
     stats["seconds"] = time.perf_counter() - t_start
-    accelerator.checkpoint_stats = {"event": "load", "dir": input_dir, **stats}
-    _record_checkpoint_event(accelerator, "checkpoint_load", input_dir, stats)
+    fmt = "dcp" if distributed else "safetensors"
+    accelerator.checkpoint_stats = {"event": "load", "dir": input_dir, "format": fmt, **stats}
+    _record_checkpoint_event(accelerator, "checkpoint_load", input_dir, fmt, stats)
     return input_dir
 
 

@@ -41,6 +41,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Sequence, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .state import GradientState
 
@@ -120,10 +121,13 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 
 class ScheduledAdamW(torch.optim.AdamW):
     """``torch.optim.AdamW`` whose rate follows ``schedule(count)``, where
-    ``count`` is the number of updates already applied."""
+    ``count`` is the number of updates already applied. ``scheduled`` says
+    whether the caller gave a schedule (False for a constant rate): optax's
+    state has a schedule's count then (``checkpointing.py``)."""
 
-    def __init__(self, params, schedule: Schedule, **kwargs):
+    def __init__(self, params, schedule: Schedule, scheduled: bool = True, **kwargs):
         self.schedule = schedule
+        self.scheduled = scheduled
         self._count = 0
         super().__init__(params, lr=float(schedule(0)), **kwargs)
 
@@ -199,9 +203,14 @@ class AdamW:
         # On the GPU, the fused implementation: one pass over p, g, m and v
         # per parameter group, where the default (foreach) makes several.
         fused = skip_on_overflow or (bool(params) and all(p.is_cuda for p in params))
+        # FSDP2's sharded parameters (DTensors) and the ones it leaves whole
+        # go in groups of their own: one fused or foreach call takes one kind.
+        sharded = [p for p in params if isinstance(p, DTensor)]
+        whole = [p for p in params if not isinstance(p, DTensor)]
+        groups = params if not (sharded and whole) else [{"params": sharded}, {"params": whole}]
         opt = ScheduledAdamW(
-            params, schedule, betas=(self.b1, self.b2), eps=self.eps,
-            weight_decay=self.weight_decay, fused=fused or None)
+            groups, schedule, scheduled=callable(self.learning_rate), betas=(self.b1, self.b2),
+            eps=self.eps, weight_decay=self.weight_decay, fused=fused or None)
         if skip_on_overflow:
             opt.skip_on_overflow()
         return opt

@@ -4,24 +4,45 @@ Counterpart of ``accelerate_tpu/parallel/sharding.py``'s FSDP half
 (``fsdp_spec_for_leaf``, ``plan_parameter_sharding``) and of what
 ``FullyShardedDataParallelPlugin`` decides there. The JAX package shards
 each parameter over the ``dp_shard`` mesh axis and lets GSPMD gather it
-where it is used; here FSDP2's ``fully_shard`` does the same per module:
+where it is used; here FSDP2's ``fully_shard`` does the same per module.
+The plugin's ``sharding_strategy`` picks the layout:
 
-- with a plugin, ``fully_shard`` goes on each decoder block and then on
-  the root, over ``dp_shard × cp`` (``ParallelismConfig.fsdp_axes``: the
-  ``cp`` ranks shard the parameters too); when ``dp_replicate × sp`` is
-  wider than 1 the mesh is the 2-D ``(replicate, shard)`` one
-  (``AcceleratorState.data_parallel_mesh``) and FSDP2 runs HSDP: sharded
-  within a replica group, gradients averaged across the groups. ``sp``
-  ranks hold replicas, since each runs the whole weights on its slice of
-  the sequence;
-- without a plugin, the model is replicated under DDP over every process.
+- ``FULL_SHARD`` and ``HYBRID_SHARD``: ``fully_shard`` goes on each decoder
+  block and then on the root, over ``dp_shard × cp``
+  (``ParallelismConfig.fsdp_axes``: the ``cp`` ranks shard the parameters
+  too); when ``dp_replicate × sp`` is wider than 1 the mesh is the 2-D
+  ``(replicate, shard)`` one (``AcceleratorState.data_parallel_mesh``) and
+  FSDP2 runs HSDP: sharded within a replica group, gradients averaged
+  across the groups. In the JAX plan the two strategies are one
+  (``shards_params`` is true for both). ``sp`` ranks hold replicas, since
+  each runs the whole weights on its slice of the sequence;
+- ``SHARD_GRAD_OP``: FSDP2 with ``reshard_after_forward=False``, torch's
+  counterpart of ZeRO-2: gradients and optimizer state sharded, the
+  parameters gathered once for the forward and kept whole through the
+  backward. Unlike the JAX plan, which keeps the parameters whole on every
+  process between steps (``2N`` bytes of bf16 compute copies, plus the fp32
+  masters replicated), FSDP2 reshards them after the backward: between
+  steps each process holds ``1/W`` of the fp32 masters. The numbers are
+  the same;
+- ``NO_SHARD``, and no plugin: the model replicated under DDP over every
+  process (``DistributedDataParallelKwargs`` sets its reducer).
 
 Either way the gradients are averaged over every process
 (``loss_reduce_axes``), which with ``cross_entropy_loss``'s global token
 count gives the gradient of the global token mean.
 
-Every parameter is sharded on dim 0 (FSDP2's default); the layout changes
-nothing in the numbers. The bf16 compute copy comes from FSDP2's
+Which parameters FSDP2 shards is the JAX plan's rule
+(``whole_parameters``): a parameter of rank below 2 (norm scales, biases),
+one with fewer than ``min_weight_size_to_shard`` elements, one with no dim
+that divides by the shard count, and one that ``ignored_params`` names
+stay whole on every process, outside FSDP2. The train step casts them for
+compute and averages their gradients itself, in one all-reduce over a flat
+buffer (``average_whole_gradients``). The others are sharded on dim 0
+(FSDP2's default); the layout changes nothing in the numbers. The JAX
+package counts the elements of a scanned layout's stacked leaf (every
+layer's weight at once), the port those of one layer's parameter: the
+split differs only for a block weight under the minimum whose stack is
+over it. The bf16 compute copy comes from FSDP2's
 ``MixedPrecisionPolicy(param_dtype=compute dtype, reduce_dtype=fp32)``:
 the sharded masters stay fp32, each all-gather casts them, and gradients
 are reduce-scattered in fp32, as the one-process step casts the masters
@@ -33,13 +54,10 @@ unsharded fp32 gradients on each process until the microbatch that ends
 the window reduce-scatters their sum; DDP's ``no_sync`` keeps each
 process's gradients until the next synchronised backward all-reduces them.
 
-The plugin's fields that map onto FSDP2 are honoured: ``reshard_after_forward``,
-``cpu_offload`` (``CPUOffloadPolicy``: masters, gradients and the optimizer
-step on the host), ``ignored_params`` (regular expressions on parameter
-names: those stay whole on every process, outside FSDP2, and the train step
-averages their gradients itself, as the JAX package replicates them) and
+The other plugin fields that map onto FSDP2 are honoured:
+``reshard_after_forward``, ``cpu_offload`` (``CPUOffloadPolicy``: masters,
+gradients and the optimizer step on the host) and
 ``activation_checkpointing`` (the model's own remat, ``config.remat``).
-``FullyShardedDataParallelPlugin`` refuses the others.
 """
 
 from __future__ import annotations
@@ -66,6 +84,37 @@ def ignored_parameters(module: nn.Module, patterns) -> dict[str, nn.Parameter]:
             if any(r.search(name) for r in regexes)}
 
 
+def whole_parameters(module: nn.Module, plugin, shard_count: int) -> dict[str, nn.Parameter]:
+    """The parameters that stay whole on every process under ``plugin``,
+    by name: those ``ignored_params`` names, and, as the JAX plan keeps
+    them replicated, those of rank below 2, with fewer than
+    ``min_weight_size_to_shard`` elements, or with no dim that divides by
+    ``shard_count``."""
+    whole = ignored_parameters(module, plugin.ignored_params)
+    for name, p in module.named_parameters():
+        if (p.dim() < 2 or p.numel() < plugin.min_weight_size_to_shard
+                or not any(s % shard_count == 0 for s in p.shape)):
+            whole[name] = p
+    return whole
+
+
+def average_whole_gradients(model, world: int) -> None:
+    """The gradients of the parameters FSDP2 leaves whole averaged over the
+    ``world`` processes, as DDP would average them: one all-reduce of a
+    flat buffer per dtype (Llama's 37 norm scales in one collective)."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    from ..utils import operations
+
+    grads = [p.grad for p in model.ignored.values() if p.grad is not None]
+    for dtype in dict.fromkeys(g.dtype for g in grads):
+        same = [g for g in grads if g.dtype == dtype]
+        flat = _flatten_dense_tensors(same)
+        operations.all_reduce(flat)
+        flat.div_(world)
+        torch._foreach_copy_(same, _unflatten_dense_tensors(flat, same))
+
+
 def _activation_checkpointing(module: nn.Module) -> None:
     config = getattr(module, "config", None)
     if config is None or not hasattr(config, "remat"):
@@ -78,7 +127,7 @@ def _activation_checkpointing(module: nn.Module) -> None:
 def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype) -> dict:
     """``fully_shard`` on each decoder block and on ``module``, in place.
     ``mesh`` is the 2-D ``(replicate, shard)`` data-parallel mesh. Returns
-    the ignored parameters by name."""
+    the parameters left whole (``whole_parameters``) by name."""
     from torch.distributed.fsdp import CPUOffloadPolicy, MixedPrecisionPolicy, OffloadPolicy
     from torch.distributed.fsdp import fully_shard
 
@@ -87,12 +136,13 @@ def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype) -> d
     shard_mesh = mesh if mesh.size(0) > 1 else mesh["shard"]
     mp = (MixedPrecisionPolicy() if compute_dtype == torch.float32 else
           MixedPrecisionPolicy(param_dtype=compute_dtype, reduce_dtype=torch.float32))
-    ignored = ignored_parameters(module, plugin.ignored_params)
+    ignored = whole_parameters(module, plugin, mesh.size(1))
     # Pinned host memory needs the card; on a CPU device the policy only
     # keeps the optimizer step where the shards already are.
     offload = (CPUOffloadPolicy(pin_memory=shard_mesh.device_type == "cuda")
                if plugin.cpu_offload else OffloadPolicy())
-    kw = dict(mesh=shard_mesh, reshard_after_forward=plugin.reshard_after_forward,
+    reshard = plugin.reshard_after_forward and plugin.sharding_strategy != "SHARD_GRAD_OP"
+    kw = dict(mesh=shard_mesh, reshard_after_forward=reshard,
               mp_policy=mp, offload_policy=offload, ignored_params=set(ignored.values()) or None)
     for block in decoder_blocks(module):
         fully_shard(block, **kw)
@@ -100,26 +150,33 @@ def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype) -> d
     return ignored
 
 
-def apply_ddp(module: nn.Module, device: torch.device) -> nn.Module:
+def apply_ddp(module: nn.Module, device: torch.device, ddp_kwargs=None) -> nn.Module:
     """``module`` replicated under DDP over the default group: the wrapper
-    to run its forward through (its parameters are the module's own)."""
+    to run its forward through (its parameters are the module's own).
+    ``ddp_kwargs`` (a ``DistributedDataParallelKwargs``) sets the reducer."""
     from torch.nn.parallel import DistributedDataParallel
 
     return DistributedDataParallel(
-        module, device_ids=[device.index] if device.type == "cuda" else None)
+        module, device_ids=[device.index] if device.type == "cuda" else None,
+        **(ddp_kwargs.ddp_kwargs() if ddp_kwargs is not None else {}))
 
 
-def apply_data_parallel(model, state, plugin, compute_dtype: torch.dtype) -> None:
+def apply_data_parallel(model, state, plugin, compute_dtype: torch.dtype,
+                        ddp_kwargs=None) -> None:
     """Shard or replicate ``model`` (a ``Model``) over ``state``'s process
-    group: FSDP2/HSDP with a plugin, DDP without. Does nothing without a
-    group."""
+    group: FSDP2/HSDP with a plugin whose strategy shards, DDP without a
+    plugin or under ``NO_SHARD``. Does nothing without a group."""
     if not state._partial.use_distributed:
         return
-    if plugin is not None:
+    if plugin is not None and plugin.sharding_strategy == "NO_SHARD" and plugin.cpu_offload:
+        raise NotImplementedError(
+            "cpu_offload needs a strategy that shards (FSDP2's CPUOffloadPolicy); NO_SHARD "
+            "replicates under DDP, which keeps every tensor on the device")
+    if plugin is not None and plugin.sharding_strategy != "NO_SHARD":
         model.ignored = apply_fsdp(model.module, state.data_parallel_mesh, plugin, compute_dtype)
         model.sharded = True
     else:
-        model.forward_module = apply_ddp(model.module, state.device)
+        model.forward_module = apply_ddp(model.module, state.device, ddp_kwargs)
 
 
 @contextmanager

@@ -8,13 +8,17 @@ the serving engine, and records:
 
 - each step's wall time (the host's dispatch time by default; the device's
   with ``sync_timing=True``, which synchronises the card first), the time
-  the loop waited for its loader, samples/s and tokens/s with EMAs;
+  the loop waited for its loader, samples/s and tokens/s with EMAs, of
+  the global batch as the JAX package counts it (a process's batch times
+  the data-parallel processes, and its tokens also times the ``cp × sp``
+  processes that split the sequence; no collective);
 - a **recompile watchdog**. The JAX package reads the jitted step's
   executable-cache size; the port's step runs eagerly and has no such
   cache. It counts each new shape/dtype digest of the batch after the
   first (the event that makes the JAX step recompile, and that changes
-  every kernel's shapes here), warns with the digest, and writes a
-  ``recompile`` record. A digest seen before never counts;
+  every kernel's shapes here), warns with the digest (of the global
+  shapes), and writes a ``recompile`` record. A digest seen before never
+  counts;
 - device-memory gauges from the CUDA allocator's counters
   (``utils/memory.py``; a census of live tensors on the CPU), read on the
   host;
@@ -51,7 +55,7 @@ import numpy as np
 from .logging import get_logger
 from .profiler import DeviceTimeProfiler, MetricsHub, ProfilerConfig
 from .utils.memory import get_device_memory_stats, live_bytes_on_device
-from .utils.operations import collective_counters, gather
+from .utils.operations import _gather, collective_counters
 
 logger = get_logger(__name__)
 
@@ -127,6 +131,34 @@ def _batch_counts(batch) -> tuple[Optional[int], Optional[int]]:
     return samples, tokens
 
 
+class _GlobalShape:
+    """A leaf's shape and dtype in the global batch: dim 0 times the
+    data-parallel processes and, for a leaf of rank >= 2, dim 1 times the
+    ``cp × sp`` processes that each hold a slice of it
+    (``parallel/sharding.py``)."""
+
+    def __init__(self, leaf, dp: int, seq: int):
+        shape = list(leaf.shape)
+        if shape:
+            shape[0] *= dp
+        if len(shape) >= 2:
+            shape[1] *= seq
+        self.shape, self.dtype = tuple(shape), leaf.dtype
+
+
+def _global_batch(batch, dp: int, seq: int):
+    """``batch`` with each array leaf replaced by its global shape, as the
+    JAX package's step sees the batch: one global array per leaf. The
+    counts and the recompile digest read it without a collective."""
+    if dp == seq == 1:
+        return batch
+    if isinstance(batch, Mapping):
+        return {k: _global_batch(v, dp, seq) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return [_global_batch(v, dp, seq) for v in batch]
+    return _GlobalShape(batch, dp, seq) if getattr(batch, "shape", None) is not None else batch
+
+
 class TelemetryRecorder:
     """Per-process observer of the training loop. One per Accelerator,
     made when a ``TelemetryKwargs`` handler is passed."""
@@ -136,6 +168,10 @@ class TelemetryRecorder:
         self.handler = handler
         self.process_index = accelerator.process_index
         self.num_processes = accelerator.num_processes
+        # The processes that read distinct rows, and those that split one
+        # row's sequence: a local batch times these is the global one.
+        self._dp = accelerator.state.data_parallel_size
+        self._seq = accelerator.state.sequence_shard[0]
         self.device = accelerator.device
         self.output_dir = handler.output_dir or os.path.join(
             accelerator.project_dir or ".", "telemetry")
@@ -185,6 +221,7 @@ class TelemetryRecorder:
         self._step_times.append(wall_s)
         data_wait, self._pending_data_wait = self._pending_data_wait, 0.0
         self._data_waits.append(data_wait)
+        batch = _global_batch(batch, self._dp, self._seq)
         self._watch_recompiles(step_fn, batch)
         samples, tokens = _batch_counts(batch)
         samples_per_s = samples / wall_s if samples and wall_s > 0 else None
@@ -231,7 +268,7 @@ class TelemetryRecorder:
         """Imperative path: accumulate backward wall time; the record is
         emitted at the apply boundary (on_apply_gradients)."""
         self._pending_backward += wall_s
-        self._watch_recompiles(loss_fn, batch)
+        self._watch_recompiles(loss_fn, _global_batch(batch, self._dp, self._seq))
 
     def on_apply_gradients(self, wall_s: float):
         self.step += 1
@@ -307,7 +344,9 @@ class TelemetryRecorder:
         The probe's own collective does not count in the counters."""
         was_enabled, collective_counters.enabled = collective_counters.enabled, False
         try:
-            times = np.asarray(gather(np.asarray([wall_s], np.float64)), np.float64)
+            # Every process's time, the sequence groups' members included.
+            times = np.asarray(_gather(np.asarray([wall_s], np.float64), seq_size=1),
+                               np.float64)
         except Exception as e:  # a failed probe must never kill training
             logger.warning_once(f"telemetry: straggler probe failed: {e}")
             return
@@ -343,6 +382,8 @@ class TelemetryRecorder:
             self._checkpoint_events += 1
             self._ckpt[f"{kind}s"] += 1
             self._ckpt[f"{kind}_s"] += float(fields.get("seconds") or 0.0)
+        elif event == "checkpoint_async_error":
+            self._ckpt["async_errors"] += 1
         record = {"event": event, "step": self.step, "time": time.time()}
         record.update(fields)
         self._write(record)

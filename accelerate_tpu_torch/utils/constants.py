@@ -3,7 +3,11 @@
 write one directory layout and classify exits alike."""
 
 MODEL_NAME = "model"
-ORBAX_DIR_NAME = "distributed_state"  # DISTRIBUTED_STATE_DICT (orbax): not ported
+# The JAX package's DISTRIBUTED_STATE_DICT directory (orbax), which the port
+# does not read, and the port's own (torch.distributed.checkpoint). The
+# names differ so that neither package opens the other's format by mistake.
+ORBAX_DIR_NAME = "distributed_state"
+DCP_DIR_NAME = "distributed_state_torch"
 OPTIMIZER_NAME = "optimizer"
 SCHEDULER_NAME = "scheduler"
 SAMPLER_NAME = "sampler"

@@ -8,14 +8,14 @@ when it is set away from its default, so no setting is silently ignored."""
 from __future__ import annotations
 
 import copy
+import enum
+import json
 from dataclasses import dataclass, fields
 from typing import Any, Callable, Optional
 
 import torch
 
-_DP_REST_ITEM = ("ROADMAP.md Queue A item 1 (the rest of data parallelism: "
-                 "DISTRIBUTED_STATE_DICT, save_state(block=False), FSDP plugin fields beyond "
-                 "FSDP2's)")
+_COMM_HOOK_ITEM = "ROADMAP.md Queue A item 6 (TP, PP and the gradient-communication hooks)"
 _REDUCED_PRECISION_ITEM = (
     "ROADMAP.md Queue A item 9: the JAX package defines MixedPrecisionPolicy's param_dtype, "
     "reduce_dtype and output_dtype and FullyShardedDataParallelPlugin.mixed_precision_policy "
@@ -232,20 +232,50 @@ class GradientAccumulationPlugin:
                 if getattr(self, f.name) != f.default}
 
 
+class ShardingStrategy(str, enum.Enum):
+    """The FSDP sharding strategies, with the JAX package's names; the
+    integer forms ``"1"``-``"4"`` name them in this order."""
+
+    FULL_SHARD = "FULL_SHARD"        # parameters, gradients, optimizer state (ZeRO-3)
+    SHARD_GRAD_OP = "SHARD_GRAD_OP"  # gradients and optimizer state (ZeRO-2)
+    NO_SHARD = "NO_SHARD"            # replicated (DDP)
+    HYBRID_SHARD = "HYBRID_SHARD"    # sharded within dp_shard, replicated across dp_replicate
+
+    def __str__(self):
+        return self.value
+
+    @classmethod
+    def list(cls) -> list[str]:
+        return [m.value for m in cls]
+
+
+_STRATEGY_CODES = {"1": "FULL_SHARD", "2": "SHARD_GRAD_OP", "3": "NO_SHARD", "4": "HYBRID_SHARD"}
+_STATE_DICT_TYPES = ("SHARDED_STATE_DICT", "FULL_STATE_DICT", "DISTRIBUTED_STATE_DICT")
+
+
 @dataclass
 class FullyShardedDataParallelPlugin:
-    """FSDP2 over the ``dp_shard`` axis (``parallel/fsdp.py``), when the
-    process belongs to a group; alone, there is nothing to shard.
-    Honoured: ``reshard_after_forward``, ``cpu_offload``
-    (``CPUOffloadPolicy``), ``ignored_params`` (regular expressions on
-    parameter names, kept whole), ``activation_checkpointing`` (the
-    model's remat) and ``state_dict_type``, the layout of
-    ``model.safetensors`` in a checkpoint: ``SHARDED_STATE_DICT`` (5 GB
-    shards plus an index) or ``FULL_STATE_DICT`` (one file), gathered
-    from the shards either way. ``sharding_strategy`` other than
-    ``FULL_SHARD``, ``min_weight_size_to_shard`` (FSDP2 shards every
-    parameter), a ``mixed_precision_policy`` and ``DISTRIBUTED_STATE_DICT``
-    raise, naming their ROADMAP.md item."""
+    """How ``prepare`` shards a model over the process group
+    (``parallel/fsdp.py``); alone, there is nothing to shard.
+
+    - ``sharding_strategy``: ``FULL_SHARD`` and ``HYBRID_SHARD`` are FSDP2
+      over the data-parallel mesh (HSDP when ``dp_replicate × sp`` is wider
+      than 1); ``SHARD_GRAD_OP`` is FSDP2 without resharding after the
+      forward (torch's ZeRO-2); ``NO_SHARD`` replicates under DDP. The four
+      names or ``"1"``-``"4"``.
+    - ``min_weight_size_to_shard``: parameters with fewer elements, and
+      every parameter of rank below 2, stay whole on every process, as
+      the JAX plan keeps them replicated.
+    - ``reshard_after_forward``, ``cpu_offload`` (``CPUOffloadPolicy``),
+      ``ignored_params`` (regular expressions on parameter names, kept
+      whole) and ``activation_checkpointing`` (the model's remat).
+    - ``state_dict_type``: the checkpoint's format. ``SHARDED_STATE_DICT``
+      (5 GB safetensors shards plus an index) or ``FULL_STATE_DICT`` (one
+      file), gathered from the shards either way; ``DISTRIBUTED_STATE_DICT``
+      writes every process's own shards with ``torch.distributed.checkpoint``
+      (``checkpointing.py``).
+
+    ``mixed_precision_policy`` raises, naming its ROADMAP.md item."""
 
     sharding_strategy: str = "FULL_SHARD"
     reshard_after_forward: bool = True
@@ -257,17 +287,116 @@ class FullyShardedDataParallelPlugin:
     ignored_params: Optional[list] = None
 
     def __post_init__(self):
-        _refuse_non_defaults(self, {
-            "sharding_strategy": _DP_REST_ITEM, "min_weight_size_to_shard": _DP_REST_ITEM,
-            "mixed_precision_policy": _REDUCED_PRECISION_ITEM,
-        }, honoured=("reshard_after_forward", "cpu_offload", "state_dict_type",
-                     "activation_checkpointing", "ignored_params"))
-        if self.state_dict_type not in ("SHARDED_STATE_DICT", "FULL_STATE_DICT"):
-            if self.state_dict_type == "DISTRIBUTED_STATE_DICT":
-                raise NotImplementedError(
-                    f"state_dict_type='DISTRIBUTED_STATE_DICT' (torch.distributed.checkpoint) "
-                    f"is not ported yet ({_DP_REST_ITEM})")
+        _refuse_non_defaults(self, _REDUCED_PRECISION_ITEM, honoured=tuple(
+            f.name for f in fields(self) if f.name != "mixed_precision_policy"))
+        strategy = str(self.sharding_strategy).upper()
+        self.sharding_strategy = _STRATEGY_CODES.get(strategy, strategy)
+        if self.sharding_strategy not in ShardingStrategy.list():
+            raise ValueError(f"sharding_strategy must be one of {ShardingStrategy.list()}")
+        self.state_dict_type = str(self.state_dict_type).upper()
+        if self.state_dict_type not in _STATE_DICT_TYPES:
             raise ValueError(f"Unknown state_dict_type {self.state_dict_type!r}")
+
+    @property
+    def shards_params(self) -> bool:
+        return self.sharding_strategy in ("FULL_SHARD", "HYBRID_SHARD")
+
+    @property
+    def shards_grads_and_opt(self) -> bool:
+        return self.sharding_strategy != "NO_SHARD"
+
+
+@dataclass
+class DeepSpeedPlugin:
+    """A DeepSpeed ZeRO configuration read as a sharding strategy, as the
+    JAX package reads it: stage 0 is ``NO_SHARD``, 1 and 2 ``SHARD_GRAD_OP``,
+    3 ``FULL_SHARD`` (``to_fsdp_plugin``). ``Accelerator(deepspeed_plugin=)``
+    takes its ``gradient_accumulation_steps`` and ``gradient_clipping``
+    where the caller sets neither; ``mixed_precision`` is only carried (pass
+    it to the Accelerator yourself). Offload to ``"cpu"`` of the optimizer
+    or the parameters becomes ``cpu_offload``."""
+
+    zero_stage: int = 2
+    offload_optimizer_device: str = "none"
+    offload_param_device: str = "none"
+    gradient_accumulation_steps: int = 1
+    gradient_clipping: Optional[float] = None
+    zero3_init_flag: bool = False
+    mixed_precision: Optional[str] = None
+
+    def __post_init__(self):
+        if self.zero_stage not in (0, 1, 2, 3):
+            raise ValueError(f"zero_stage must be 0, 1, 2 or 3, got {self.zero_stage!r}")
+
+    @classmethod
+    def from_ds_json(cls, path: str, mixed_precision: Optional[str] = None) -> "DeepSpeedPlugin":
+        """The plugin of a DeepSpeed ``ds_config.json``, with the JAX
+        package's reading: ``"auto"`` takes the field's default; no
+        ``zero_optimization`` section is stage 0, and ``"stage": "auto"``
+        stage 2; a ``bf16``/``fp16`` section ``{"enabled": "auto"}`` is on
+        when ``mixed_precision`` names it. The engine's other keys
+        (optimizer, scheduler, communication) are ignored."""
+        with open(path) as f:
+            cfg = json.load(f)
+
+        def noauto(v, default):
+            return default if v in (None, "auto") else v
+
+        z = cfg.get("zero_optimization")
+        default_stage = 2 if z is not None else 0
+        z = z or {}
+        enabled = {}
+        for section in ("bf16", "fp16"):
+            on = (cfg.get(section, {}) or {}).get("enabled")
+            enabled[section] = mixed_precision == section if on == "auto" else on
+        mp = "bf16" if enabled["bf16"] is True else "fp16" if enabled["fp16"] is True else None
+        clip = noauto(cfg.get("gradient_clipping"), None)
+        return cls(
+            zero_stage=int(noauto(z.get("stage"), default_stage)),
+            offload_optimizer_device=noauto((z.get("offload_optimizer") or {}).get("device"),
+                                            "none"),
+            offload_param_device=noauto((z.get("offload_param") or {}).get("device"), "none"),
+            gradient_accumulation_steps=int(noauto(cfg.get("gradient_accumulation_steps"), 1)),
+            gradient_clipping=None if clip is None else float(clip),
+            mixed_precision=mp)
+
+    def to_fsdp_plugin(self) -> FullyShardedDataParallelPlugin:
+        strategy = {0: "NO_SHARD", 1: "SHARD_GRAD_OP", 2: "SHARD_GRAD_OP",
+                    3: "FULL_SHARD"}[self.zero_stage]
+        return FullyShardedDataParallelPlugin(
+            sharding_strategy=strategy,
+            cpu_offload="cpu" in (self.offload_optimizer_device, self.offload_param_device))
+
+
+@dataclass
+class DistributedDataParallelKwargs(KwargsHandler):
+    """DDP's reducer settings, passed to ``DistributedDataParallel`` when
+    ``prepare`` replicates a model (no plugin, or ``NO_SHARD``):
+    ``bucket_cap_mb``, ``find_unused_parameters``,
+    ``gradient_as_bucket_view`` and ``static_graph``. The JAX package takes
+    them and acts on none (its gradient mean is one all-reduce the compiler
+    places). ``comm_hook`` other than ``"no"`` raises, naming its ROADMAP.md
+    item; ``powersgd_rank`` goes with it."""
+
+    bucket_cap_mb: int = 25
+    find_unused_parameters: bool = False
+    gradient_as_bucket_view: bool = False
+    static_graph: bool = False
+    comm_hook: str = "no"
+    powersgd_rank: int = 8
+
+    def __post_init__(self):
+        if self.comm_hook != "no":
+            raise NotImplementedError(
+                f"DistributedDataParallelKwargs(comm_hook={self.comm_hook!r}) is not ported "
+                f"yet ({_COMM_HOOK_ITEM})")
+
+    def ddp_kwargs(self) -> dict:
+        """The ``DistributedDataParallel`` arguments of these settings."""
+        return {"bucket_cap_mb": self.bucket_cap_mb,
+                "find_unused_parameters": self.find_unused_parameters,
+                "gradient_as_bucket_view": self.gradient_as_bucket_view,
+                "static_graph": self.static_graph}
 
 
 @dataclass

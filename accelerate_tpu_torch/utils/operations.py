@@ -25,7 +25,7 @@ from __future__ import annotations
 from collections.abc import Mapping
 from contextlib import contextmanager
 from contextvars import ContextVar
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -112,13 +112,14 @@ def global_token_count(count: torch.Tensor) -> tuple[torch.Tensor, int]:
     return count, n
 
 
-def all_reduce(tensor: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``dist.all_reduce(tensor, op)`` (a sum by default, in place), counted
-    by ``collective_counters``: the step's and ``backward``'s reductions of
-    the loss, its token count, the gradients FSDP2 leaves whole and the
-    fp16 step's finite flag (a MIN)."""
+def all_reduce(tensor: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    """``dist.all_reduce(tensor, op, group)`` (a sum over every process by
+    default, in place), counted by ``collective_counters``: the step's and
+    ``backward``'s reductions of the loss, its token count, the gradients
+    FSDP2 leaves whole, the sharded gradients' squared norms and the fp16
+    step's finite flag (a MIN)."""
     collective_counters.record("all_reduce", tensor)
-    dist.all_reduce(tensor, op=op)
+    dist.all_reduce(tensor, op=op, group=group)
     return tensor
 
 
@@ -161,23 +162,45 @@ def _on_comm_device(fn: Callable) -> Callable:
 
 
 def gather(tensor):
-    """Every process's tensors concatenated on dim 0, in rank order (each
-    must have the same shape: ``pad_across_processes`` first otherwise)."""
+    """The global values of every process's tensors, in rank order (each
+    must have the same shape: ``pad_across_processes`` first otherwise).
+
+    Under ``cp`` or ``sp`` the processes of one sequence group hold one
+    set of rows, each its slice of the sequence (``parallel/sharding.py``):
+    a leaf with more than one dim is joined on dim 1 over the group, in
+    the group's order, and the groups' rows are joined on dim 0, so that
+    the result is the global batch's rows at full length, as the JAX
+    package's gather of a global array gives them. A scalar or 1-dim leaf,
+    which every process of a group holds whole, is taken once per group.
+    Without ``cp``/``sp`` that is every process's tensor on dim 0. One
+    all-gather over every process: the sequence axes are the mesh's
+    innermost, so process ``r`` holds slice ``r % n`` of row group
+    ``r // n``."""
     collective_counters.record("gather", tensor)
     return _gather(tensor)
 
 
-def _gather(tensor):
+def _gather(tensor, seq_size: Optional[int] = None):
+    """``gather`` without the counter; ``seq_size`` overrides the set-up
+    sequence groups (1: every process's tensor on dim 0)."""
     world = _world()
     if world == 1:
         return tensor
+    if seq_size is None:
+        from ..state import current_sequence_shard
+
+        seq_size = current_sequence_shard()[0]
 
     @_on_comm_device
     def one(t):
+        whole = t.dim() <= 1
         t = t.reshape(1) if t.dim() == 0 else t
         parts = [torch.empty_like(t) for _ in range(world)]
         dist.all_gather(parts, t)
-        return torch.cat(parts, dim=0)
+        if seq_size == 1:
+            return torch.cat(parts, dim=0)
+        groups = [parts[i:i + seq_size] for i in range(0, world, seq_size)]
+        return torch.cat([g[0] if whole else torch.cat(g, dim=1) for g in groups], dim=0)
 
     return recursively_apply(one, tensor)
 
@@ -263,7 +286,7 @@ def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bo
         if dim >= leaf.ndim:
             return leaf
         size = torch.tensor([leaf.shape[dim]], dtype=torch.int64)
-        sizes = _gather(size) if world > 1 else size
+        sizes = _gather(size, seq_size=1) if world > 1 else size
         pad = int(sizes.max()) - leaf.shape[dim]
         if pad == 0:
             return leaf

@@ -5,8 +5,11 @@ Counterpart of ``accelerate_tpu/utils/random.py``: ``set_seed``, and
 package keeps ``python``, ``numpy`` and ``jax`` (its key registry's seed and
 counters); the port keeps ``python``, ``numpy``, ``torch`` (the CPU
 generator) and ``torch_cuda`` (one state per CUDA device, when CUDA is set
-up). Torch states are stored as numpy uint8 arrays, so the file unpickles
-without torch's classes.
+up), and the JAX package's ``jax`` entry, so that its ``load_rng_state``
+reads the file: the one the last ``load_rng_state`` read, else the state
+``set_seed`` gives the JAX key registry (``{"seed": seed, "counters":
+{}}``, seed 0 before any ``set_seed``). Torch states are stored as numpy
+uint8 arrays, so the file unpickles without torch's classes.
 
 ``synchronize_rng_states`` broadcasts process 0's states of the named kinds
 (``RNGType``) to every process, as the JAX package broadcasts its own.
@@ -22,6 +25,9 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+# The JAX package's key-registry state (its random_states' "jax" entry),
+# carried through a port run unchanged.
+_jax_registry_state: dict = {"seed": 0, "counters": {}}
 
 
 class RNGType(str, enum.Enum):
@@ -44,9 +50,11 @@ def set_seed(seed: int, device_specific: bool = False) -> torch.Generator:
         from ..state import PartialState
 
         seed += PartialState().process_index
+    global _jax_registry_state
     random.seed(seed)
     np.random.seed(seed % (2**32))
     torch.manual_seed(seed)
+    _jax_registry_state = {"seed": int(seed), "counters": {}}
     os.environ["ACCELERATE_SEED"] = str(seed)
     generator = torch.Generator()
     generator.manual_seed(seed)
@@ -59,6 +67,8 @@ def rng_state() -> dict:
         "python": random.getstate(),
         "numpy": np.random.get_state(),
         "torch": torch.get_rng_state().numpy(),
+        "jax": {"seed": _jax_registry_state["seed"],
+                "counters": dict(_jax_registry_state["counters"])},
     }
     if torch.cuda.is_initialized():
         state["torch_cuda"] = [s.numpy() for s in torch.cuda.get_rng_state_all()]
@@ -68,8 +78,13 @@ def rng_state() -> dict:
 def load_rng_state(state: dict) -> None:
     """Restore what ``state`` holds. A JAX package checkpoint holds
     ``python``, ``numpy`` and ``jax``: the first two are restored, and
-    ``jax`` (its key registry) has no torch counterpart and is skipped, so
-    the torch generators keep their state."""
+    ``jax`` (its key registry), which no torch generator reads, is kept to
+    be written back by ``rng_state``; the torch generators keep their
+    state."""
+    global _jax_registry_state
+    if "jax" in state:
+        _jax_registry_state = {"seed": int(state["jax"]["seed"]),
+                               "counters": dict(state["jax"]["counters"])}
     random.setstate(state["python"])
     np.random.set_state(state["numpy"])
     if "torch" in state:

@@ -76,8 +76,8 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    give phase 4's numbers, and with ``attention_impl="ring"`` and
    ``"ulysses"`` over the 4-D mesh (``cp = sp = 1``) bit for bit. Prints
    the FSDP2 step ms, idle share and peak memory beside phase 5's. The
-   child also runs phase 12 (c) and phase 14 (a)'s overflow under FSDP2.
-   The child's failure fails the run.
+   child also runs phase 12 (c), phase 14 (a)'s overflow under FSDP2 and
+   phase 15 (c). The child's failure fails the run.
 11. sequence parallelism. A chip call has one GPU, so every rank's share
    of the ring runs in this process, through ``parallel/cp.py``'s per-step
    helpers (``chunk_forward``, ``chunk_backward``) with the transfers done
@@ -166,6 +166,31 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    bit for bit; the forward product's ms beside its bound (fp8 peak
    1,979 TFLOP/s), the plain version's, a bf16 ``torch.mm``'s and one
    quantization's.
+
+15. distributed checkpoints. (a) Phase 9's loop (its data, schedule and
+   1.06B model) with ``FullyShardedDataParallelPlugin(state_dict_type=
+   "DISTRIBUTED_STATE_DICT")`` and no process group: ``save_state()``
+   after step 4 writes torch.distributed.checkpoint's files; a fresh
+   Accelerator with weights from another seed ``load_state()``s them and
+   takes steps 5-8, bit-equal to the uninterrupted run, every kernel
+   launched 18 times a step. (b) The same loop with ``save_state(block=
+   False)`` after step 4: steps 5 and 6 run while the checkpoint persists,
+   then ``wait_for_checkpoint()``, steps 7 and 8, a second background save
+   (its stall, with the pinned copies of the first reused; removed once
+   written), and the resume as in (a).
+   Prints the save's and the load's seconds, bytes and GB/s beside phase
+   9's safetensors ones; the stall (seconds until ``save_state`` returned)
+   beside the blocking saves'; steps 5-6's ms with the save in flight
+   beside steps 7-8's and (a)'s; ``wait_for_checkpoint``'s seconds; the
+   host's MemAvailable before the save and the bytes staged; the
+   checkpoint directory's free space. Each checkpoint is removed before
+   the next; without room on disk or in host memory the phase fails. (c)
+   In phase 10's child (NCCL, a group of one), at phase 4's tiny width so
+   that the whole run stays under 600 s: (a)'s blocking save and resume
+   under FSDP2, bit-equal; phase 4's step under ``SHARD_GRAD_OP``,
+   ``NO_SHARD``, ``HYBRID_SHARD`` and ``DeepSpeedPlugin(zero_stage=2)``,
+   each within ``DP_REL_TOL`` of phase 4's loss and grad norm, DDP
+   exactly under ``NO_SHARD``, each kernel launched once per layer.
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -476,9 +501,10 @@ def _tiny_step_inputs():
     return cfg, weights, {"x": ids[:, :-1], "y": ids[:, 1:]}
 
 
-def tiny_step(cfg, weights, batch, cpu):
-    """One step of the tiny Llama through a fresh Accelerator: its metrics
-    and whether DDP ran it (over a process group without a plugin)."""
+def tiny_step(cfg, weights, batch, cpu, acc_kw=None):
+    """One step of the tiny Llama through a fresh Accelerator (`acc_kw`
+    goes to it: phase 15 (c)'s strategies): its metrics and whether DDP
+    ran it (over a process group without a plugin, or under NO_SHARD)."""
     from accelerate_tpu_torch import Accelerator, Model, adamw
     from accelerate_tpu_torch.models import LlamaForCausalLM, cross_entropy_loss
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
@@ -487,7 +513,7 @@ def tiny_step(cfg, weights, batch, cpu):
         cls._reset_state()
     module = LlamaForCausalLM(cfg)
     module.load_state_dict(weights)
-    acc = Accelerator(mixed_precision="bf16", cpu=cpu)
+    acc = Accelerator(mixed_precision="bf16", cpu=cpu, **(acc_kw or {}))
     model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
     step = acc.prepare_train_step(
         lambda m, bt: cross_entropy_loss(m(bt["x"]), bt["y"]), max_grad_norm=1.0)
@@ -1034,12 +1060,14 @@ def checkpoint_root(need_bytes, fallback=CKPT_FALLBACK):
 
 
 def build_loop(device, width, seq, project_dir, init_seed, tokens, keep_group=False,
-               acc_kw=None):
+               acc_kw=None, state_dict_type="SHARDED_STATE_DICT"):
     """Phase 5's model and step as a user's loop builds them: Accelerator
     with a project directory, prepare(model, adamw(schedule), loader,
     schedule), prepare_train_step. A fresh Accelerator each time; with
     `keep_group`, over the process group this process belongs to; `acc_kw`
-    goes to the Accelerator (phase 13's trackers and handlers)."""
+    goes to the Accelerator (phase 13's trackers and handlers);
+    `state_dict_type` is the checkpoint's format (phase 15:
+    DISTRIBUTED_STATE_DICT)."""
     import numpy as np
     import torch
 
@@ -1053,7 +1081,7 @@ def build_loop(device, width, seq, project_dir, init_seed, tokens, keep_group=Fa
         cls._reset_state()
     acc = Accelerator(
         mixed_precision="bf16", cpu=device == "cpu",
-        fsdp_plugin=FullyShardedDataParallelPlugin(),
+        fsdp_plugin=FullyShardedDataParallelPlugin(state_dict_type=state_dict_type),
         project_config=ProjectConfiguration(project_dir=project_dir,
                                             automatic_checkpoint_naming=True, total_limit=1),
         **(acc_kw or {}))
@@ -1123,10 +1151,28 @@ def loop_gate(first, resumed, lrs, step_after_load, step_after, launches, n_laye
     return checks
 
 
+def mem_available_bytes():
+    """The host's MemAvailable (``/proc/meminfo``), or None where there is
+    no such file."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        return None
+    return None
+
+
 def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"],
-               profile_steps=LOOP["profile_steps"], keep_group=False):
-    """Phase 9 (see the module docstring). Returns its report with the
-    checks of loop_gate."""
+               profile_steps=LOOP["profile_steps"], keep_group=False,
+               state_dict_type="SHARDED_STATE_DICT", async_save=False):
+    """Phase 9 (see the module docstring), and phase 15's loops: with
+    `state_dict_type="DISTRIBUTED_STATE_DICT"` the checkpoint is
+    torch.distributed.checkpoint's (the native library writes nothing
+    then), and with `async_save` it is saved with ``block=False``: steps 5
+    and 6 run while it persists, then ``wait_for_checkpoint``. Returns its
+    report with the checks of loop_gate."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1139,6 +1185,7 @@ def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
     n_params = llama_n_params(width)
     root, disk = checkpoint_root(n_params * 4 * 3)
     gib = 2**30
+    dcp = state_dict_type == "DISTRIBUTED_STATE_DICT"
 
     def timed(fn):
         """fn()'s result and its ms on the host clock, between synchronisations."""
@@ -1158,7 +1205,8 @@ def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         native.reset_paths()
         torch.cuda.reset_peak_memory_stats()
         acc, step, loader, sched, schedule = build_loop(
-            device, width, seq, root, LOOP["init_seeds"][0], tokens, keep_group)
+            device, width, seq, root, LOOP["init_seeds"][0], tokens, keep_group,
+            state_dict_type=state_dict_type)
         it = iter(loader)
         hf.reset_launch_counts()
         head, _ = loop_steps(acc, step, it, sched, 1)
@@ -1166,12 +1214,48 @@ def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         head += more
         ms["before_save"] = t / (save_after - 1)
         peak_since_last("steps_before_save")
-        acc.save_state()
-        save = dict(acc.checkpoint_stats)
-        peak_since_last("save")
-        (tail, wait), t = timed(lambda: loop_steps(acc, step, it, sched, steps - save_after))
-        ms["after_save"] = t / (steps - save_after)
+        if async_save:
+            # The host must hold the staged copy: the state's fp32 params
+            # and moments (a quarter more for the rest of the process).
+            avail = mem_available_bytes()
+            if avail is not None and avail < 1.25 * n_params * 4 * 3:
+                raise RuntimeError(f"the host has {avail} bytes available, too few to stage "
+                                   f"the {n_params * 4 * 3}-byte checkpoint")
+            _, stall_ms = timed(lambda: acc.save_state(block=False))
+            save = dict(acc.checkpoint_stats)
+            peak_since_last("save")
+            in_flight = 2
+            (tail, wait), t = timed(lambda: loop_steps(acc, step, it, sched, in_flight))
+            ms["in_flight"] = t / in_flight
+            t0 = time.perf_counter()
+            acc.wait_for_checkpoint()
+            wait_s = time.perf_counter() - t0
+            save.update(acc.checkpoint_stats)
+            save["async"] = {"stall_s": stall_ms / 1e3, "wait_s": wait_s,
+                             "mem_available_before_save": avail,
+                             "staged_bytes": save.get("staged_bytes")}
+            (more, wait2), t = timed(lambda: loop_steps(
+                acc, step, it, sched, steps - save_after - in_flight))
+            ms["after_wait"] = t / (steps - save_after - in_flight)
+            ms["after_save"] = (ms["in_flight"] * in_flight + t) / (steps - save_after)
+            tail, wait = tail + more, wait + wait2
+            # A second background save of the same tensors reuses the
+            # pinned copies of the first: its stall is the copy alone.
+            second = os.path.join(root, "second_save")
+            _, stall2_ms = timed(lambda: acc.save_state(second, block=False))
+            stage2_s = acc.checkpoint_stats.get("stage_s")
+            acc.wait_for_checkpoint()
+            shutil.rmtree(second, ignore_errors=True)
+            save["async"].update({"second_stall_s": stall2_ms / 1e3, "second_stage_s": stage2_s,
+                                  "second_persist_s": acc.checkpoint_stats.get("persist_s")})
+        else:
+            acc.save_state()
+            save = dict(acc.checkpoint_stats)
+            peak_since_last("save")
+            (tail, wait), t = timed(lambda: loop_steps(acc, step, it, sched, steps - save_after))
+            ms["after_save"] = t / (steps - save_after)
         launches = [(dict(hf.LAUNCHES), steps)]
+        variant_launches = dict(hf.VARIANT_LAUNCHES)
         step_count = acc.train_state.step
         # The same model on one fixed batch (phase 5's way), in this process
         # after the save: tells the loader's cost from the host's state.
@@ -1187,12 +1271,15 @@ def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         first = loop_records(head + tail)
         peak_since_last("steps_after_save")
         it.close()
+        if async_save:
+            acc.end_training()  # frees the pinned copies the background save kept
         del acc, step, loader, sched, it, head, tail, batch
         gc.collect()
         torch.cuda.empty_cache()
 
         acc, step, loader, sched, _ = build_loop(
-            device, width, seq, root, LOOP["init_seeds"][1], tokens, keep_group)
+            device, width, seq, root, LOOP["init_seeds"][1], tokens, keep_group,
+            state_dict_type=state_dict_type)
         torch.cuda.reset_peak_memory_stats()
         acc.load_state()
         load = dict(acc.checkpoint_stats)
@@ -1215,14 +1302,17 @@ def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
 
     paths = {k: dict(v) for k, v in native.PATHS.items()}
     lib = native.get_lib()
-    native_ok = (lib is not None and paths.get("pwrite_segments", {}).get("native", 0) > 0
-                 and paths.get("pread_segments", {}).get("native", 0) > 0)
+    # DCP writes and reads its own files: the native library is phase 9's.
+    native_ok = dcp or (lib is not None
+                        and paths.get("pwrite_segments", {}).get("native", 0) > 0
+                        and paths.get("pread_segments", {}).get("native", 0) > 0)
     after = {k: v[save_after:] for k, v in first.items()}
     checks = loop_gate(after, resumed, [schedule(k) for k in range(save_after, steps)],
                        step_after_load, step_after, launches, width["num_hidden_layers"],
                        native_ok)
     return {
-        "phase": "loop", "n_params": n_params, "rows": LOOP["rows"], "batch": LOOP["batch"],
+        "phase": "loop", "state_dict_type": state_dict_type, "async_save": async_save,
+        "n_params": n_params, "rows": LOOP["rows"], "batch": LOOP["batch"],
         "seq": seq, "steps": steps, "save_after": save_after, "step_count": step_count,
         "first_losses": first["loss"], "after_save": after, "resumed": resumed,
         "save": {**save, "gb_per_s": save["bytes"] / save["seconds"] / 1e9},
@@ -1235,6 +1325,7 @@ def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         "idle_share": 1.0 - busy_ms / ms["after_save"] if busy_ms else None,
         "peak_mem_gib": max(v for k, v in mem.items() if k != "allocated_at_start"),
         "mem_gib": mem, "launches": [c for c, _ in launches],
+        "variant_launches": variant_launches,
         "native": {"library": str(native.lib_path()) if lib is not None else None,
                    "build_error": native.BUILD_ERROR, "paths": paths},
         "checks": checks, "ok": checks["ok"],
@@ -1349,6 +1440,17 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
                       timed=1, profile=False)
     gc.collect()
     torch.cuda.empty_cache()
+    # Phase 15 (c), at phase 4's tiny width (the whole run stays under
+    # 600 s): phase 15 (a)'s DCP loop under FSDP2, then phase 4's step under
+    # every other sharding strategy and a DeepSpeed stage.
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    dcp_loop = loop_phase(hf, main["step_ms"], device=device, width=TINY_WIDTH,
+                          seq=TINY_SEQ, profile_steps=0, keep_group=True,
+                          state_dict_type="DISTRIBUTED_STATE_DICT")
+    gc.collect()
+    torch.cuda.empty_cache()
+    strategies = strategy_steps(hf, args["tiny_step"], cpu=device == "cpu")
 
     phase5 = args["phase5"]
     rel = [[_rel(a, b) for a, b in zip(got, ref)]
@@ -1370,6 +1472,9 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         "fp16_overflow_skipped": fp16["sharded"] and all(fp16["overflow"][k] for k in (
             "params_bit_equal", "moments_bit_equal", "scale_backed_off", "step_held",
             "next_applied")),
+        "dcp_loop_resumes_bit_equal": dcp_loop["ok"],
+        "strategies_match_phase4": sorted(strategies) == sorted(STRATEGY_RUNS) and all(
+            r["ok"] for r in strategies.values()),
     }
     checks["ok"] = all(checks.values())
     return {
@@ -1386,6 +1491,114 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         "ddp_tiny": {"metrics": ddp_metrics, "phase4": args["tiny_step"], "rel": ddp_rel,
                      "bit_equal": ddp_metrics == args["tiny_step"]},
         "mesh": mesh_axes, "seq_tiny": seq_metrics, "imperative": imperative, "fp16": fp16,
+        "phase15": {"dcp_loop": dcp_loop, "strategies": strategies},
+        "checks": checks, "ok": checks["ok"],
+    }
+
+
+# Phase 15 (c): the strategies phase 4's step runs under in phase 10's child
+# besides FULL_SHARD, and the DeepSpeed stage; phase 4's tiny Llama as
+# widths (LlamaConfig.tiny) and its sequence length.
+STRATEGY_RUNS = ("SHARD_GRAD_OP", "NO_SHARD", "HYBRID_SHARD", "zero2")
+TINY_WIDTH = dict(vocab_size=256, hidden_size=128, intermediate_size=384, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=2)
+TINY_SEQ = 128
+
+
+def strategy_steps(hf, phase4, cpu=False):
+    """Phase 4's tiny step under each of STRATEGY_RUNS (a
+    ``sharding_strategy``, or ``DeepSpeedPlugin(zero_stage=2)``), over the
+    group of one: loss and grad norm within DP_REL_TOL of phase 4's (and
+    whether bit-equal), each kernel launched once per layer, and DDP
+    exactly under NO_SHARD."""
+    from accelerate_tpu_torch import DeepSpeedPlugin, FullyShardedDataParallelPlugin
+
+    cfg, weights, batch = _tiny_step_inputs()
+    out = {}
+    for name in STRATEGY_RUNS:
+        plugin = (DeepSpeedPlugin(zero_stage=2) if name == "zero2" else
+                  FullyShardedDataParallelPlugin(sharding_strategy=name))
+        acc_kw = ({"deepspeed_plugin": plugin} if name == "zero2" else {"fsdp_plugin": plugin})
+        strategy = (plugin.to_fsdp_plugin() if name == "zero2" else plugin).sharding_strategy
+        hf.reset_launch_counts()
+        metrics, ddp = tiny_step(cfg, weights, batch, cpu, acc_kw)
+        launches = dict(hf.LAUNCHES)
+        rel = {k: _rel(metrics[k], phase4[k]) for k in ("loss", "grad_norm")}
+        out[name] = {
+            "sharding_strategy": strategy, "ddp": ddp, "metrics": metrics, "rel_to_phase4": rel,
+            "bit_equal_to_phase4": metrics == phase4, "launches": launches,
+            "ok": max(rel.values()) <= DP_REL_TOL and ddp == (strategy == "NO_SHARD")
+            and all(n == cfg.num_hidden_layers for n in launches.values()),
+        }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: DISTRIBUTED_STATE_DICT checkpoints, blocking and in the
+# background, and (from phase 10's child) the sharding strategies
+# ---------------------------------------------------------------------------
+
+
+def _io(stats, seconds_key="seconds"):
+    """Seconds, bytes and GB/s of a save's or load's stats."""
+    seconds, nbytes = stats.get(seconds_key), stats.get("bytes")
+    return {"seconds": seconds, "bytes": nbytes,
+            "gb_per_s": nbytes / seconds / 1e9 if seconds and nbytes else None}
+
+
+def distributed_checkpoint_phase(hf, phase9, dp_child, device="cuda", width=FULL_WIDTH,
+                                 seq=SLICE["s"]):
+    """Phase 15 (see the module docstring). `phase9` is phase 9's report
+    (its safetensors save and load go beside DCP's), `dp_child` phase 10's
+    child report (its ``phase15``: (c))."""
+    import torch
+
+    blocking = loop_phase(hf, phase9["phase5_fixed_batch_step_ms"], device=device, width=width,
+                          seq=seq, profile_steps=0, state_dict_type="DISTRIBUTED_STATE_DICT")
+    gc.collect()
+    torch.cuda.empty_cache()
+    background = loop_phase(hf, phase9["phase5_fixed_batch_step_ms"], device=device,
+                            width=width, seq=seq, profile_steps=0,
+                            state_dict_type="DISTRIBUTED_STATE_DICT", async_save=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    child = dp_child.get("phase15") or {}
+    strategies = child.get("strategies") or {}
+    asynchronous = background["save"]["async"]
+    windows = background["step_ms_by_window"]
+    checks = {
+        "dcp_resumes_bit_equal": blocking["ok"],
+        "async_resumes_bit_equal": background["ok"],
+        "async_returned_before_persisting": bool(background["save"].get("persisting_at_return")),
+        "fsdp2_dcp_resumes_bit_equal": bool(child.get("dcp_loop", {}).get("ok")),
+        "strategies_within_dp_rel_tol": sorted(strategies) == sorted(STRATEGY_RUNS)
+        and all(r["ok"] for r in strategies.values()),
+    }
+    checks["ok"] = all(checks.values())
+    return {
+        "phase": "distributed_checkpoint",
+        "save": {"safetensors_phase9": _io(phase9["save"]), "dcp": _io(blocking["save"]),
+                 "dcp_async_persist": _io(background["save"], "persist_s")},
+        "load": {"safetensors_phase9": _io(phase9["load"]), "dcp": _io(blocking["load"]),
+                 "dcp_after_async": _io({**background["load"],
+                                         "bytes": background["save"]["bytes"]})},
+        "async": {"stall_s": asynchronous["stall_s"],
+                  "second_save_stall_s": asynchronous.get("second_stall_s"),
+                  "second_save_stage_s": asynchronous.get("second_stage_s"),
+                  "blocking_dcp_save_s": blocking["save"]["seconds"],
+                  "blocking_safetensors_save_s": phase9["save"]["seconds"],
+                  "stage_s": background["save"].get("stage_s"),
+                  "wait_for_checkpoint_s": asynchronous["wait_s"],
+                  "persist_s": background["save"]["persist_s"],
+                  "steps_5_6_ms_in_flight": windows["in_flight"],
+                  "steps_7_8_ms_after_wait": windows["after_wait"],
+                  "steps_5_8_ms_blocking_run": blocking["step_ms_by_window"]["after_save"],
+                  "mem_available_before_save_bytes": asynchronous["mem_available_before_save"],
+                  "staged_bytes": asynchronous["staged_bytes"],
+                  "checkpoint_disk": background["checkpoint_disk"]},
+        "blocking": blocking, "background": background,
+        "strategies": strategies,
+        "fsdp2_dcp_loop": child.get("dcp_loop"),
         "checks": checks, "ok": checks["ok"],
     }
 
@@ -2904,7 +3117,7 @@ def main() -> int:
 
     # 10. FSDP2 (and DDP) over a process group of one, in a child process
     rc, lines, err = run_child({"phase5": {k: main_path[k] for k in (
-        "first_metrics", "step_ms", "peak_mem_gib")}, "tiny_step": results["cuda"]}, timeout=540)
+        "first_metrics", "step_ms", "peak_mem_gib")}, "tiny_step": results["cuda"]}, timeout=720)
     dp = lines[-1] if lines else {}
     dp_ok = rc == 0 and bool(dp.get("ok"))
     emit({"phase": "data_parallel", **dp, "child_exit": rc, "ok": dp_ok,
@@ -2953,13 +3166,27 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15. DISTRIBUTED_STATE_DICT checkpoints: phase 9's loop saved blocking
+    # and in the background, and the strategies phase 10's child ran
+    dcp = distributed_checkpoint_phase(hf, loop, dp)
+    emit(dcp)
+    if not dcp["ok"]:
+        print(f"chip_smoke: distributed-checkpoint phase failed: {dcp['checks']}",
+              file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
         "imperative_loop": imp["loop"]["variant_launches"],
         "observed_loop": obs["variant_launches"],
         "observed_imperative": obs["imperative"]["variant_launches"],
         "observed_serving": obs["serving"]["variant_launches"],
         "fp16_step": precision["fp16"]["variant_launches"],
-        "fp8_step": precision["fp8"]["variant_launches"]})})
+        "fp8_step": precision["fp8"]["variant_launches"],
+        "dcp_loop": dcp["blocking"]["variant_launches"],
+        "dcp_async_loop": dcp["background"]["variant_launches"]})})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

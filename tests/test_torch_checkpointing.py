@@ -9,11 +9,22 @@ JAX package's, on a tiny Llama (2 layers, hidden 64, fp32, CPU).
 - the port's model.safetensors loads in the JAX package to the flax tree
   of ``llama_params_to_flax`` and the same logits (rtol 1e-5), for both
   ``scan_layers`` settings;
+- a checkpoint the port saved resumes in the JAX package's ``load_state``
+  (optax's state structure in ``optimizer.bin``): the next two losses and
+  grad norms agree with the port run's within rtol 1e-4, for a constant
+  rate and for a schedule; the JAX package's ``jax`` RNG entry survives
+  JAX → port → JAX;
+- ``DISTRIBUTED_STATE_DICT`` (torch.distributed.checkpoint without a
+  process group): the round trip, ``save_state(block=False)`` with steps
+  taken while it persists, a second asynchronous save queued behind the
+  first, a background failure raised by ``wait_for_checkpoint``; the JAX
+  package's orbax directory and a second model refused;
 - automatic naming, pruning and numbering; both model file layouts; the
   restricted unpickler; registered objects, hooks and the scheduler; the
   safetensors files of each package read by the other side.
 """
 
+import logging
 import os
 import pickle
 
@@ -80,9 +91,13 @@ class _Spec:
             dataset, BATCH, RandomSampler(), True)
 
 
-def _port_run(tmp_path, seed=0, scan_layers=True, **acc_kw):
+LR = 1e-3
+
+
+def _port_run(tmp_path, seed=0, scan_layers=True, scheduled=True, **acc_kw):
     """A port Accelerator with the tiny Llama (weights from `seed`), a
-    scheduled adamw, a shuffling loader and its scheduler."""
+    scheduled adamw (a constant rate with ``scheduled=False``), a
+    shuffling loader and its scheduler."""
     for cls in (AcceleratorState, GradientState, PartialState):
         cls._reset_state()
     acc = Accelerator(cpu=True, project_config=ProjectConfiguration(
@@ -90,9 +105,10 @@ def _port_run(tmp_path, seed=0, scan_layers=True, **acc_kw):
     cfg = LlamaConfig.tiny(dtype=torch.float32, scan_layers=scan_layers, **WIDTH)
     module = LlamaForCausalLM(cfg)
     module.init_weights(torch.Generator().manual_seed(seed))
-    schedule = linear_schedule(**SCHEDULE)
+    schedule = linear_schedule(**SCHEDULE) if scheduled else (lambda count: LR)
     model, opt, loader, sched = acc.prepare(
-        Model(module), adamw(schedule), _Spec(ColumnDataset(ids=_tokens())), schedule)
+        Model(module), adamw(schedule if scheduled else LR),
+        _Spec(ColumnDataset(ids=_tokens())), schedule)
 
     def loss_fn(m, b):
         ids = b["ids"].long()
@@ -309,7 +325,7 @@ def test_restricted_unpickler_refuses_a_foreign_global(tmp_path):
         assert back["s"] == 4
 
 
-def test_hooks_custom_objects_and_scheduler_state(tmp_path):
+def test_hooks_custom_objects_and_scheduler_state(tmp_path, caplog):
     acc, step, loader, sched = _port_run(tmp_path)
     _steps(acc, step, loader, sched, 2)
     calls = []
@@ -322,8 +338,17 @@ def test_hooks_custom_objects_and_scheduler_state(tmp_path):
     assert calls == [("save", out), ("load", out)]
     with pytest.raises(ValueError, match="state_dict"):
         acc.register_for_checkpointing(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 1"):
-        acc.save_state(block=False)
+    # The safetensors formats save synchronously with a warning, as the JAX
+    # package's do; the files load.
+    want = _snapshot(acc)["params"]
+    with caplog.at_level(logging.WARNING):
+        out = acc.save_state(block=False)
+    assert "saves synchronously" in caplog.text
+    assert acc.checkpoint_stats["blocking"] and acc._pending_save is None
+    acc2, *_ = _port_run(tmp_path, seed=5)
+    acc2.load_state(out)
+    assert all(torch.equal(p, want[n])
+               for n, p in acc2.train_state.model.module.named_parameters())
     assert sched.get_last_lr() == pytest.approx(linear_schedule(**SCHEDULE)(2))
 
 
@@ -365,3 +390,220 @@ def test_save_and_load_leave_no_reference_cycles(tmp_path):
         assert gc.collect() == 0
     finally:
         gc.enable()
+
+
+# ---------------------------------------------------------------------------
+# A port checkpoint resumed by the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _jax_resume(tmp_path, scheduled):
+    """The JAX Accelerator with the tiny Llama from other weights, adamw and
+    the loader of _port_run: load_state() of the newest checkpoint in
+    tmp_path, then two steps. (metrics, step, adam count, the opt_state)."""
+    from accelerate_tpu.state import AcceleratorState as JS, GradientState as JG
+
+    JS._reset_state()
+    JG._reset_state()
+    module = JaxLlama(JaxLlamaConfig.tiny(dtype=jnp.float32, **WIDTH))
+    acc = JaxAccelerator(project_config=JaxProjectConfiguration(
+        project_dir=str(tmp_path), automatic_checkpoint_naming=True))
+    model = JaxModel.from_flax(module, jax.random.key(7), _tokens()[:2, :-1])
+    schedule = optax.linear_schedule(**SCHEDULE)
+    objs = [model, optax.adamw(schedule if scheduled else LR),
+            _Spec(jdl.ColumnDataset(ids=_tokens()))] + ([schedule] if scheduled else [])
+    prepared = acc.prepare(*objs)
+    loader = prepared[2]
+
+    def loss_fn(p, b):
+        return jax_cross_entropy(module.apply({"params": p}, b["ids"][:, :-1]), b["ids"][:, 1:])
+
+    step = acc.prepare_train_step(loss_fn, max_grad_norm=1.0)
+    acc.load_state()
+    it, out = iter(loader), []
+    for _ in range(2):
+        _, m = step(acc.train_state, next(it))
+        if scheduled:
+            prepared[3].step()
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    it.close()
+    st = acc.train_state
+    result = (out, int(st.step), int(st.opt_state[0].count), st.opt_state)
+    JS._reset_state()
+    JG._reset_state()
+    return result
+
+
+@pytest.mark.parametrize("scheduled", [False, True], ids=["constant", "schedule"])
+def test_port_checkpoint_resumes_in_the_jax_package(tmp_path, scheduled):
+    """The mirror of test_jax_checkpoint_resumes_in_the_port: the port saves
+    after 3 steps (optimizer.bin in optax's structure, unpickled by the JAX
+    process into optax's own classes) and takes 2 more; the JAX package's
+    load_state reads the checkpoint and its next two losses and grad norms
+    are the port's within rtol 1e-4, at the same step and count."""
+    acc, step, loader, sched = _port_run(tmp_path, scheduled=scheduled)
+    head, it = _steps(acc, step, loader, sched, 3)
+    out = acc.save_state()
+    tail, _ = _steps(acc, step, loader, sched, 2, it)
+    with open(os.path.join(out, "optimizer.bin"), "rb") as f:
+        payload = pickle.load(f)  # the JAX process's reader: plain pickle, optax importable
+    adam, decay, rate = payload["opt_state"]
+    assert type(adam) is optax.ScaleByAdamState and type(decay) is optax.EmptyState
+    assert type(rate) is (optax.ScaleByScheduleState if scheduled else optax.EmptyState)
+    metrics, jax_step, count, opt_state = _jax_resume(tmp_path, scheduled)
+    want = optax.adamw(LR).init({"p": jnp.zeros(2)}) if not scheduled else optax.adamw(
+        optax.linear_schedule(**SCHEDULE)).init({"p": jnp.zeros(2)})
+    assert jax.tree.structure(opt_state, is_leaf=lambda x: isinstance(x, dict)) == \
+        jax.tree.structure(want, is_leaf=lambda x: isinstance(x, dict))
+    np.testing.assert_allclose(np.array(metrics), np.array(tail), rtol=1e-4)
+    assert (jax_step, count) == (acc.train_state.step, acc.train_state.optimizer.count) == (5, 5)
+    # The port still reads what it writes, and its older plain-dict form.
+    back = checkpointing.restricted_load(os.path.join(out, "optimizer.bin"))
+    assert checkpointing._opt_payload_parts(back["opt_state"])[0] == 3
+    old = {"count": np.int32(3), "mu": {}, "nu": {}}
+    assert checkpointing._opt_payload_parts(old) == (3, {}, {})
+
+
+def test_jax_rng_entry_survives_a_port_round_trip(tmp_path):
+    """random_states_<rank>.pkl: the JAX package's key registry (seed and
+    stream counters) read by the port, written back by the port, restored
+    by the JAX package unchanged; without one the port writes the state
+    set_seed gives the registry."""
+    from accelerate_tpu.utils import random as jax_random
+
+    from accelerate_tpu_torch.utils import random as port_random
+
+    jax_random.set_seed(7)
+    for stream in ("dropout", "dropout", "params"):
+        jax_random.next_rng_key(stream)
+    want = jax_random.rng_state()["jax"]
+    assert want == {"seed": 7, "counters": {"dropout": 2, "params": 1}}
+    path = tmp_path / "random_states_0.pkl"
+    path.write_bytes(pickle.dumps(jax_random.rng_state()))
+    port_random.load_rng_state(checkpointing.restricted_load(str(path)))
+    checkpointing._dump(port_random.rng_state(), str(path))
+    jax_random.set_seed(0)
+    with open(path, "rb") as f:
+        jax_random.load_rng_state(pickle.load(f))
+    assert jax_random.rng_state()["jax"] == want
+    set_seed(11)
+    assert port_random.rng_state()["jax"] == {"seed": 11, "counters": {}}
+
+
+# ---------------------------------------------------------------------------
+# DISTRIBUTED_STATE_DICT without a process group
+# ---------------------------------------------------------------------------
+
+
+def _dcp_run(tmp_path, seed=0, **kw):
+    return _port_run(tmp_path, seed=seed, fsdp_plugin=FullyShardedDataParallelPlugin(
+        state_dict_type="DISTRIBUTED_STATE_DICT"), **kw)
+
+
+def test_distributed_state_dict_round_trip(tmp_path):
+    """Every tensor, count and state back; the directory holds DCP's files
+    in place of model.safetensors and optimizer.bin, and the next steps
+    are the uninterrupted run's."""
+    acc, step, loader, sched = _dcp_run(tmp_path)
+    _, it = _steps(acc, step, loader, sched, 3)
+    want = _snapshot(acc)
+    out = acc.save_state()
+    assert sorted(os.listdir(out)) == sorted([
+        "distributed_state_torch", "scheduler.bin", "sampler.bin", "accelerator_step.bin",
+        "random_states_0.pkl"])
+    assert ".metadata" in os.listdir(os.path.join(out, "distributed_state_torch"))
+    stats = acc.checkpoint_stats
+    assert stats["format"] == "dcp" and stats["blocking"] and stats["bytes"] > 0
+    straight, _ = _steps(acc, step, loader, sched, 2, it)
+
+    acc2, step2, loader2, sched2 = _dcp_run(tmp_path, seed=1)
+    assert acc2.load_state() == out and acc2.checkpoint_stats["format"] == "dcp"
+    got = _snapshot(acc2)
+    for name, p in want["params"].items():
+        assert torch.equal(got["params"][name], p), name
+        for k, v in want["moments"][name].items():
+            assert torch.equal(got["moments"][name][k], v), (name, k)
+    assert (got["step"], got["count"]) == (3, 3)
+    assert _steps(acc2, step2, loader2, sched2, 2)[0] == straight
+
+
+def test_distributed_state_dict_names_are_the_flax_trees():
+    from accelerate_tpu_torch.checkpointing import _flax_name
+    from accelerate_tpu_torch.utils.other import flatten_state_dict
+
+    module = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32, **WIDTH))
+    names = {_flax_name(module, n) for n, _ in module.named_parameters()}
+    flax = flatten_state_dict(llama_params_to_flax(
+        LlamaConfig.tiny(dtype=torch.float32, scan_layers=False, **WIDTH),
+        dict(module.named_parameters())))
+    assert names == set(flax)
+
+
+def test_async_distributed_save_persists_while_training_goes_on(tmp_path):
+    """save_state(block=False) returns once the state is staged: two steps
+    run before wait_for_checkpoint, and the load gives the state at the
+    save. A second asynchronous save waits for the first; the next save,
+    load_state and end_training drain the one in flight."""
+    acc, step, loader, sched = _dcp_run(tmp_path)
+    _, it = _steps(acc, step, loader, sched, 2)
+    want = _snapshot(acc)
+    first = acc.save_state(block=False)
+    assert acc._pending_save is not None and not acc.checkpoint_stats["blocking"]
+    assert acc.checkpoint_stats["staged_bytes"] > 0
+    _, it = _steps(acc, step, loader, sched, 2, it)
+    acc.wait_for_checkpoint()
+    assert acc._pending_save is None and acc.checkpoint_stats["bytes"] > 0
+    after = _snapshot(acc)
+    second = acc.save_state(block=False)
+    third = acc.save_state(block=False)  # waits for the second
+    acc.end_training()
+    assert acc._pending_save is None and first != second != third
+
+    for out, snap in ((first, want), (second, after), (third, after)):
+        acc2, *_ = _dcp_run(tmp_path, seed=3)
+        acc2.load_state(out)
+        got = _snapshot(acc2)
+        assert all(torch.equal(got["params"][n], p) for n, p in snap["params"].items())
+        assert all(torch.equal(got["moments"][n][k], v) for n, m in snap["moments"].items()
+                   for k, v in m.items())
+        assert (got["step"], got["count"]) == (snap["step"], snap["count"])
+
+
+def test_async_save_failure_raises_in_wait_for_checkpoint(tmp_path, monkeypatch):
+    """A write that fails in the background surfaces in wait_for_checkpoint
+    as CheckpointSaveError; the save is then no longer in flight."""
+    from concurrent.futures import Future
+
+    import torch.distributed.checkpoint as dcp
+
+    from accelerate_tpu_torch import CheckpointSaveError, TelemetryKwargs
+
+    def failing(state, **kw):
+        future = Future()
+        future.set_exception(OSError("disk full"))
+        return future
+
+    monkeypatch.setattr(dcp, "async_save", failing)
+    acc, *_ = _dcp_run(tmp_path, kwargs_handlers=[TelemetryKwargs(log_every=0)])
+    acc.save_state(block=False)
+    with pytest.raises(CheckpointSaveError, match="disk full"):
+        acc.wait_for_checkpoint()
+    assert acc._pending_save is None
+    acc.wait_for_checkpoint()
+    assert acc.telemetry._ckpt["async_errors"] == 1
+    acc.end_training()
+    assert acc._dcp_stager is None
+
+
+def test_distributed_state_dict_refuses_orbax_and_more_than_one_model(tmp_path):
+    """The JAX package's orbax directory is not read (the safetensors
+    formats are the interchange); DISTRIBUTED_STATE_DICT holds one model."""
+    acc, *_ = _dcp_run(tmp_path)
+    orbax = tmp_path / "jax_ckpt"
+    (orbax / "distributed_state").mkdir(parents=True)
+    with pytest.raises(ValueError, match="orbax.*FULL_STATE_DICT or SHARDED_STATE_DICT"):
+        acc.load_state(str(orbax))
+    second = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32, **WIDTH))
+    acc.prepare(Model(second), adamw(LR))
+    with pytest.raises(NotImplementedError, match="single prepared model"):
+        acc.save_state()

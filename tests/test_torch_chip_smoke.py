@@ -447,7 +447,8 @@ def test_data_parallel_child_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     assert lines, err
     res = lines[-1]
     failed = sorted(k for k, v in res["checks"].items() if not v)
-    assert failed == ["launches", "loop_resumes_bit_equal", "ok"], (failed, err)
+    assert failed == ["dcp_loop_resumes_bit_equal", "launches", "loop_resumes_bit_equal", "ok",
+                      "strategies_match_phase4"], (failed, err)
     assert rc == 1
     assert res["group"] == {"backend": "gloo", "world": 1, "distributed_type": "MULTI_CPU"}
     assert res["fsdp2"]["sharded"] and all(res["collectives"].values())
@@ -467,6 +468,73 @@ def test_data_parallel_child_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     assert imperative["sync_flags"] == [False, False, False, True] * 3
     for got, ref in zip(imperative["metrics"], fused["metrics"]):
         assert max(chip_smoke._rel(a, b) for a, b in zip(got, ref)) <= chip_smoke.DP_REL_TOL
+    # Phase 15 (c), at phase 4's tiny width: the DCP loop under FSDP2
+    # resumes bit-equal (its launch check fails here only), and every
+    # strategy keeps phase 4's numbers.
+    dcp_loop = res["phase15"]["dcp_loop"]
+    assert sorted(k for k, v in dcp_loop["checks"].items() if not v) == ["launches", "ok"]
+    assert dcp_loop["state_dict_type"] == "DISTRIBUTED_STATE_DICT"
+    assert dcp_loop["save"]["format"] == "dcp" and dcp_loop["load"]["format"] == "dcp"
+    assert dcp_loop["n_params"] == chip_smoke.llama_n_params(chip_smoke.TINY_WIDTH)
+    strategies = res["phase15"]["strategies"]
+    assert sorted(strategies) == sorted(chip_smoke.STRATEGY_RUNS)
+    for name, run in strategies.items():
+        assert max(run["rel_to_phase4"].values()) <= chip_smoke.DP_REL_TOL, name
+        assert run["ddp"] == (name == "NO_SHARD")
+        assert not any(run["launches"].values())
+    assert strategies["zero2"]["sharding_strategy"] == "SHARD_GRAD_OP"
+
+
+def test_distributed_checkpoint_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
+    """Phase 15 (a) and (b) at a small width on the CPU: the blocking and
+    the asynchronous DCP save both resume bit-equal (their launch checks
+    fail here only: the plain versions stand in for the kernels); the
+    asynchronous save was in flight while steps 5 and 6 ran. (c) comes
+    from the child (test_data_parallel_child_rehearsed_on_the_cpu); here a
+    report that passes stands in for it."""
+    import torch
+
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    phase9 = {"phase5_fixed_batch_step_ms": 1.0, "save": {"seconds": 2.0, "bytes": 10},
+              "load": {"seconds": 1.0}}
+    child = {"phase15": {"dcp_loop": {"ok": True},
+                         "strategies": {n: {"ok": True} for n in chip_smoke.STRATEGY_RUNS}},
+             "fsdp2": {"step_ms": 1.0}}
+    calls = []
+    real_save = chip_smoke.loop_phase
+
+    def loop_phase(*a, **k):
+        calls.append((k["state_dict_type"], k.get("async_save", False)))
+        return real_save(*a, **{**k, "width": _TINY_WIDTH, "seq": 32})
+
+    monkeypatch.setattr(chip_smoke, "loop_phase", loop_phase)
+    try:
+        res = chip_smoke.distributed_checkpoint_phase(hf, phase9, child, device="cpu")
+    finally:
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+    assert calls == [("DISTRIBUTED_STATE_DICT", False), ("DISTRIBUTED_STATE_DICT", True)]
+    failed = sorted(k for k, v in res["checks"].items() if not v)
+    assert set(failed) - {"async_returned_before_persisting"} == {
+        "async_resumes_bit_equal", "dcp_resumes_bit_equal", "ok"}
+    for run in (res["blocking"], res["background"]):
+        assert sorted(k for k, v in run["checks"].items() if not v) == ["launches", "ok"]
+        assert run["save"]["format"] == run["load"]["format"] == "dcp"
+        assert run["resumed"]["loss"] == run["after_save"]["loss"]
+        assert not Path(run["checkpoint_disk"]["dir"]).exists()
+    background = res["background"]["save"]
+    assert not background["blocking"] and background["bytes"] > 0
+    assert res["async"]["staged_bytes"] >= 3 * 4 * chip_smoke.llama_n_params(_TINY_WIDTH)
+    assert res["async"]["stall_s"] > 0 and res["async"]["wait_for_checkpoint_s"] >= 0
+    assert res["async"]["second_save_stall_s"] > 0  # the second save, removed once written
+    assert res["save"]["safetensors_phase9"]["gb_per_s"] == 10 / 2.0 / 1e9
+    assert set(res["strategies"]) == set(chip_smoke.STRATEGY_RUNS)
 
 
 def test_torchrun_env_is_a_group_of_one(chip_smoke):

@@ -25,7 +25,14 @@ same inputs made with numpy from a seed:
 - the ring run's checkpoint resumed in one process and read by the JAX
   package; the loader's and the dispatcher's slices against
   ``batch_partition_spec``; the logits of each process's slice (RoPE at
-  its global positions) against the JAX model's on the whole sequence.
+  its global positions) against the JAX model's on the whole sequence;
+- ``gather`` and ``gather_for_metrics`` of a prepared loader's batches
+  (7 rows: a ragged last batch) under ``cp`` 2 and 4, ``sp`` 2 and
+  ``dp_shard=2 × cp=2``: exactly the JAX package's rows, at full length;
+- step telemetry under ``cp=2``: the records count the global batch, as
+  the JAX package's;
+- a ``DISTRIBUTED_STATE_DICT`` checkpoint saved by 2 FSDP2 processes and
+  loaded by 4 (the 2-process gang runs first here).
 
 The spawned processes import this module: JAX is imported only inside the
 functions that compute the references.
@@ -61,14 +68,17 @@ from accelerate_tpu_torch.models import (
 from accelerate_tpu_torch.parallel.sharding import local_batch
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 from test_torch_distributed import (
+    DCP,
     LR,
     STEPS,
     _assert_params_close,
+    _assert_states_equal,
     _batches,
     _flax,
     _jax_reset,
     _uneven,
 )
+from test_torch_distributed import _train as _dp_train
 
 ATOL = 2e-5
 # Attention inputs: (B, S, Hq, D) queries, Hkv KV heads.
@@ -233,7 +243,76 @@ def _job_loader(ctx):
     return out
 
 
-JOBS = {"attention": _job_attention, "train": _job_train, "loader": _job_loader}
+# gather and gather_for_metrics: the sequence layouts each gang runs, and a
+# loader of GATHER_ROWS rows of GATHER_SEQ ids in batches of GATHER_BATCH a
+# data-parallel process, so that the last global batch is ragged.
+GATHER = {2: {"cp2": dict(cp_size=2), "sp2": dict(sp_size=2)},
+          4: {"cp4": dict(cp_size=4), "dp_shard2_cp2": dict(dp_shard_size=2, cp_size=2)}}
+GATHER_ROWS, GATHER_SEQ, GATHER_BATCH = 7, 8, 2
+
+
+def _gather_ids():
+    return np.arange(GATHER_ROWS * GATHER_SEQ).reshape(GATHER_ROWS, GATHER_SEQ) * 10
+
+
+def _job_gather(ctx):
+    """Each batch of a prepared loader through gather and gather_for_metrics."""
+    from types import SimpleNamespace
+
+    out = {}
+    for name, kw in GATHER[dist.get_world_size()].items():
+        acc = Accelerator(cpu=True, parallelism_config=ParallelismConfig(**kw))
+        loader = acc.prepare(SimpleNamespace(
+            dataset=ColumnDataset(ids=_gather_ids(), row=np.arange(GATHER_ROWS)),
+            batch_size=GATHER_BATCH, drop_last=False))
+        got = out[name] = {"gather": [], "metrics": [], "local": []}
+        for batch in loader:
+            got["local"].append(tuple(batch["ids"].shape))
+            got["gather"].append({k: v.numpy() for k, v in acc.gather(batch).items()})
+            got["metrics"].append({k: v.numpy()
+                                   for k, v in acc.gather_for_metrics(batch).items()})
+        _reset_port()
+    return out
+
+
+def _job_telemetry(ctx):
+    """Two steps of the tiny Llama's ring under cp=2 (DDP) with telemetry:
+    the step records."""
+    import json
+
+    from accelerate_tpu_torch import TelemetryKwargs
+
+    rank = dist.get_rank()
+    cfg = LlamaConfig.tiny(dtype=torch.float32, attention_impl="ring")
+    module = LlamaForCausalLM(cfg)
+    module.load_state_dict(llama_params_from_flax(cfg, ctx["flax_params"]))
+    pc = ParallelismConfig(cp_size=2)
+    acc = Accelerator(cpu=True, parallelism_config=pc, project_dir=ctx["telemetry_dir"],
+                      kwargs_handlers=[TelemetryKwargs(log_every=0, straggler_probe_every=1)])
+    acc.prepare(Model(module), adamw(LR))
+    step = acc.prepare_train_step(_port_loss, max_grad_norm=1.0)
+    for i in range(2):
+        step(acc.train_state, local_batch(ctx["batches"][i], pc, rank))
+    acc.end_training()
+    with open(os.path.join(ctx["telemetry_dir"], "telemetry", f"rank_{rank}.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    _reset_port()
+    return records
+
+
+def _job_dcp_save(ctx):
+    """FSDP2 at this gang's size with DISTRIBUTED_STATE_DICT, saved after step 2."""
+    return _dp_train(ctx, "fsdp", save_after=2, project_dir=ctx["dcp_dir"], plugin_kw=DCP)
+
+
+def _job_dcp_load(ctx):
+    return _dp_train(ctx, "fsdp", load_dir=os.path.join(ctx["dcp_dir"], "checkpoints",
+                                                        "checkpoint_0"), plugin_kw=DCP)
+
+
+JOBS = {"attention": _job_attention, "train": _job_train, "loader": _job_loader,
+        "gather": _job_gather, "telemetry": _job_telemetry, "dcp_save": _job_dcp_save,
+        "dcp_load": _job_dcp_load}
 
 
 def _worker(rank, world, init_file, ctx_path, jobs):
@@ -359,9 +438,10 @@ def runs(tmp_path_factory):
     for name, world, kw, impl, fsdp in TRAIN:
         params, ref[name], ref[name + "_params"] = _jax_train(_uneven(batches), kw, impl, fsdp)
     ctx = {"flax_params": params, "batches": batches, "uneven_batches": _uneven(batches),
-           "attention": _attention_inputs(), "save_dir": str(tmp / "ring")}
-    two = _spawn(tmp, 2, ["attention"], ctx)
-    four = _spawn(tmp, 4, ["attention", "train", "loader"], ctx)
+           "attention": _attention_inputs(), "save_dir": str(tmp / "ring"),
+           "telemetry_dir": str(tmp / "telemetry"), "dcp_dir": str(tmp / "dcp2")}
+    two = _spawn(tmp, 2, ["attention", "gather", "telemetry", "dcp_save"], ctx)
+    four = _spawn(tmp, 4, ["attention", "train", "loader", "gather", "dcp_load"], ctx)
     return {"ref": ref, 2: two, 4: four, "ctx": ctx}
 
 
@@ -499,3 +579,89 @@ def test_sequence_slice_must_divide():
     got = local_batch({"x": np.arange(16).reshape(2, 8), "n": np.arange(2)}, pc, 1)
     np.testing.assert_array_equal(got["x"], [[4, 5, 6, 7], [12, 13, 14, 15]])
     np.testing.assert_array_equal(got["n"], [0, 1])
+
+
+# ---------------------------------------------------------------------------
+# gather under cp/sp, telemetry under cp, DCP from 2 processes to 4
+# ---------------------------------------------------------------------------
+
+
+def _jax_gathered(dp):
+    """The JAX package's gather and gather_for_metrics of each global batch
+    of the loader (its rows dealt by its BatchSamplerShard at ``dp``
+    data-parallel processes, even_batches), with the last batch's
+    remainder; a global batch is one array there, so its gather is the
+    batch's rows at full length."""
+    from types import SimpleNamespace
+
+    import accelerate_tpu.data_loader as jdl
+    from accelerate_tpu import Accelerator as JaxAccelerator
+    from accelerate_tpu.utils.operations import gather as jax_gather
+
+    shards = [list(jdl.BatchSamplerShard(
+        jdl.BatchSampler(jdl.SequentialSampler(GATHER_ROWS), batch_size=GATHER_BATCH),
+        num_processes=dp, process_index=d)) for d in range(dp)]
+    ids, out = _gather_ids(), {"gather": [], "metrics": []}
+    for k in range(len(shards[0])):
+        rows = np.concatenate([shards[d][k] for d in range(dp)])
+        batch = {"ids": ids[rows], "row": rows}
+        last = k == len(shards[0]) - 1
+        stub = SimpleNamespace(gather=jax_gather, gradient_state=SimpleNamespace(
+            end_of_dataloader=last,
+            remainder=GATHER_ROWS % (GATHER_BATCH * dp) if last else -1))
+        out["gather"].append(jax_gather(batch))
+        out["metrics"].append(JaxAccelerator.gather_for_metrics(stub, batch))
+    return out
+
+
+GATHER_CASES = [(world, name) for world in (2, 4) for name in GATHER[world]]
+
+
+@pytest.mark.parametrize("world,name", GATHER_CASES, ids=[c[1] for c in GATHER_CASES])
+def test_gather_for_metrics_under_cp_and_sp_matches_jax(runs, world, name):
+    """Each process holds a slice of the sequence; gather returns the global
+    batch's rows at full length and gather_for_metrics drops the repeated
+    rows of the ragged last batch: exactly the JAX package's values, on
+    every process, and every row once."""
+    pc = ParallelismConfig(**GATHER[world][name]).infer_missing_axis(world)
+    want = _jax_gathered(pc.dp_size)
+    for r in runs[world]:
+        got = r["gather"][name]
+        assert got["local"][0] == (GATHER_BATCH, GATHER_SEQ // pc.seq_size)
+        for key in ("gather", "metrics"):
+            assert len(got[key]) == len(want[key])
+            for g, w in zip(got[key], want[key]):
+                assert g.keys() == w.keys()
+                for k in w:
+                    np.testing.assert_array_equal(g[k], w[k], err_msg=f"{key} {k}")
+        rows = np.concatenate([m["row"] for m in got["metrics"]])
+        np.testing.assert_array_equal(rows, np.arange(GATHER_ROWS))
+
+
+def test_telemetry_counts_the_global_batch_under_cp(runs):
+    """Under cp=2 each process's step holds half of each sequence; its
+    records count the global batch (samples, tokens_per_s × wall_s) as the
+    JAX package's _batch_counts of the global batch, and the straggler
+    probe has both processes' times."""
+    from accelerate_tpu.telemetry import _batch_counts as jax_batch_counts
+
+    want = [jax_batch_counts(b) for b in _batches()[:2]]
+    for rank, records in enumerate(r["telemetry"] for r in runs[2]):
+        steps = [x for x in records if x["event"] == "step"]
+        assert len(steps) == 2
+        for s, (samples, tokens) in zip(steps, want):
+            assert s["samples"] == samples
+            assert s["tokens_per_s"] * s["wall_s"] == pytest.approx(tokens, rel=1e-9)
+        probes = [x for x in records if x["event"] == "straggler_probe"]
+        assert [len(p["rank_times_s"]) for p in probes] == [2, 2]
+
+
+def test_dcp_saved_at_world2_loads_at_world4(runs):
+    """The DCP checkpoint 2 FSDP2 processes saved after step 2, loaded by 4:
+    every parameter, moment, count and step equal, and step 3 the
+    uninterrupted run's (rtol 1e-5)."""
+    saved = runs[2][0]["dcp_save"]
+    for r in runs[4]:
+        loaded = r["dcp_load"]
+        _assert_states_equal(loaded["state_at_load"], saved["state_at_save"])
+        np.testing.assert_allclose(loaded["metrics"], saved["metrics"][2:], rtol=1e-5)

@@ -36,7 +36,18 @@ seed, from the same flax-initialised tiny Llama (fp32):
 - fp16 with loss scaling under FSDP2 at 2 processes, fused and as the
   imperative loop: a step whose gradients overflow on process 1's shard
   only is skipped by both processes (the finite flag's MIN over the
-  group), with every shard, moment and count unchanged.
+  group), with every shard, moment and count unchanged;
+- every ``sharding_strategy`` (``SHARD_GRAD_OP`` at 2 and 4 processes,
+  ``NO_SHARD``, ``HYBRID_SHARD`` at 2 × 2), ``min_weight_size_to_shard``
+  and ``DeepSpeedPlugin`` stages 0-3 against the JAX package's runs of the
+  same plugin, and which parameters FSDP2 shards against the JAX plan;
+  ``DistributedDataParallelKwargs`` reaching DDP;
+- ``DISTRIBUTED_STATE_DICT`` (torch.distributed.checkpoint): saved by 4
+  FSDP2 processes, loaded by 2 and by one (resharded, every tensor equal,
+  the next step the uninterrupted run's), and ``save_state(block=False)``
+  with steps taken while it persists and a second save queued behind it.
+  (The 4-process gang runs first; a save at 2 loaded at 4 is in
+  ``tests/test_torch_context_parallel.py``.)
 
 The spawned processes import this module: JAX is imported only inside the
 functions that compute the references.
@@ -56,6 +67,8 @@ import torch.multiprocessing as mp
 
 from accelerate_tpu_torch import (
     Accelerator,
+    DeepSpeedPlugin,
+    DistributedDataParallelKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
@@ -142,21 +155,46 @@ PLUGIN_OPTIONS = {
 def _port_accelerator(kind, plugin_kw=None, **kw):
     if kind == "ddp":
         return Accelerator(cpu=True, **kw)
+    if kind == "ds":
+        return Accelerator(cpu=True, deepspeed_plugin=DeepSpeedPlugin(**plugin_kw), **kw)
     pc = ParallelismConfig(dp_replicate_size=2, dp_shard_size=2) if kind == "hsdp" else None
     return Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(**plugin_kw or {}),
                        parallelism_config=pc, **kw)
 
 
+def _whole(t):
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().numpy().copy()
+
+
 def _whole_params(model) -> dict:
-    return {n: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach().numpy().copy()
-            for n, p in model.module.named_parameters()}
+    return {n: _whole(p) for n, p in model.module.named_parameters()}
+
+
+def _whole_state(acc) -> dict:
+    """Whole parameters, AdamW moments, count and step of the train state."""
+    st = acc.train_state
+    return {"params": _whole_params(st.model),
+            "moments": {n: {k: _whole(st.optimizer.state[p][k]) for k in ("exp_avg",
+                                                                          "exp_avg_sq")}
+                        for n, p in st.model.module.named_parameters()},
+            "count": st.optimizer.count, "step": int(st.step)}
+
+
+def _dtensors(model) -> list:
+    from torch.distributed.tensor import DTensor
+
+    return sorted(n for n, p in model.module.named_parameters() if isinstance(p, DTensor))
+
+
+DCP = {"state_dict_type": "DISTRIBUTED_STATE_DICT"}
 
 
 def _train(ctx, kind, steps=STEPS, save_after=None, load_dir=None, project_dir=None,
-           plugin_kw=None, ga=1, batches="batches"):
+           plugin_kw=None, ga=1, batches="batches", acc_kw=None):
     """``steps`` steps of the tiny Llama from ctx's flax weights on this
     process's share of each global batch: (loss, grad norm) per step and
-    the whole parameters after them."""
+    the whole parameters after them; the whole train state at the save and
+    after the load."""
     rank, world = dist.get_rank(), dist.get_world_size()
     cfg = LlamaConfig.tiny(dtype=torch.float32)
     module = LlamaForCausalLM(cfg)
@@ -164,24 +202,29 @@ def _train(ctx, kind, steps=STEPS, save_after=None, load_dir=None, project_dir=N
     acc = _port_accelerator(kind, plugin_kw, gradient_accumulation_steps=ga,
                             project_config=ProjectConfiguration(
                                 project_dir=project_dir,
-                                automatic_checkpoint_naming=project_dir is not None))
+                                automatic_checkpoint_naming=project_dir is not None),
+                            **acc_kw or {})
     model, opt = acc.prepare(Model(module), adamw(LR))
     step = acc.prepare_train_step(_port_loss, max_grad_norm=1.0)
-    first = 0
+    first, loaded = 0, None
     if load_dir is not None:
         acc.load_state(load_dir)
         first = acc.train_state.step
+        loaded = _whole_state(acc)
     metrics, saved = [], None
     for i in range(first, steps):
         _, m = step(acc.train_state, _local(ctx[batches][i], rank, world))
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
         if save_after is not None and i + 1 == save_after:
             acc.save_state()
-            saved = _whole_params(model)
-    out = {"metrics": metrics, "params": _whole_params(model), "params_at_save": saved,
+            saved = _whole_state(acc)
+    out = {"metrics": metrics, "params": _whole_params(model),
+           "params_at_save": saved and saved["params"], "state_at_save": saved,
+           "state_at_load": loaded,
            "sharded": model.sharded, "ddp": model.forward_module is not model.module,
            "fused": opt.param_groups[0].get("fused"), "step": acc.train_state.step,
-           "remat": cfg.remat, "ignored": sorted(model.ignored)}
+           "remat": cfg.remat, "ignored": sorted(model.ignored), "dtensors": _dtensors(model),
+           "format": acc.checkpoint_stats and acc.checkpoint_stats["format"]}
     _reset_port()
     return out
 
@@ -220,6 +263,12 @@ def _job_collectives(ctx):
                                           flash_attention(q, k, v))
     _reset_port()
     return out
+
+
+def _sharded(params) -> list:
+    from torch.distributed.tensor import DTensor
+
+    return [p for p in params if isinstance(p, DTensor)]
 
 
 class _Spec:
@@ -371,7 +420,10 @@ def _imperative(ctx, kind, ga=2, sync_each_batch=False):
                 flags.append(acc.sync_gradients)
                 if "norm" not in probe:
                     probe["norm"] = None if norm is None else float(norm)
-                    grads = [p.grad for p in model.parameters()]
+                    # FSDP2's sharded parameters (the whole ones get their
+                    # process's own gradients from autograd); DDP's all.
+                    params = list(model.parameters())
+                    grads = [p.grad for p in (_sharded(params) or params)]
                     probe["grads_kept_back"] = all(g is None for g in grads)
                     probe["first_grad_sum"] = (None if grads[0] is None else float(
                         (grads[0].to_local() if hasattr(grads[0], "to_local")
@@ -479,14 +531,23 @@ def _job_telemetry(ctx):
     ops = {op: {k: v[k] - before.get(op, {}).get(k, 0) for k in v} for op, v in after.items()
            if v != before.get(op)}
     token_count_bytes = torch.ones((), dtype=torch.long).element_size()
+    whole_grad_bytes = sum(p.numel() * p.element_size() for p in
+                           acc.train_state.model.ignored.values())
+    sharded_grads = len(_dtensors(acc.train_state.model))
     acc.end_training()
     profile = acc.telemetry.profiler.summary()  # the lagged last record flushed
     with open(os.path.join(ctx["telemetry_dir"], "telemetry", f"rank_{rank}.jsonl")) as f:
         records = [json.loads(line) for line in f]
     _reset_port()
     return {"per_step": per_step, "ops": ops, "records": records,
-            "token_count_bytes": token_count_bytes, "profile": profile,
-            "enabled_after": collective_counters.enabled}
+            "token_count_bytes": token_count_bytes, "whole_grad_bytes": whole_grad_bytes,
+            "sharded_grads": sharded_grads,
+            "profile": profile, "enabled_after": collective_counters.enabled}
+
+
+def _own(t):
+    """A process's own part of a tensor: its shard of a DTensor."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def _job_fp16(ctx):
@@ -517,9 +578,8 @@ def _job_fp16(ctx):
         st, rows = acc.train_state, []
         for i in range(STEPS):
             overflow["on"] = i == 1
-            before = [t.to_local().clone() for t in module.parameters()] + [
-                v.to_local().clone() if hasattr(v, "to_local") else v.clone()
-                for s in st.optimizer.state.values() for v in s.values()]
+            before = [_own(t).clone() for t in module.parameters()] + [
+                _own(v).clone() for s in st.optimizer.state.values() for v in s.values()]
             batch = _local(ctx["batches"][i], rank, world)
             if loop:
                 for mb in _microbatch_split(batch, 2):
@@ -532,9 +592,8 @@ def _job_fp16(ctx):
             else:
                 st, m = step(st, batch)
                 loss, norm, skipped = m["loss"], m["grad_norm"], None
-            after = [t.to_local() for t in module.parameters()] + [
-                v.to_local() if hasattr(v, "to_local") else v
-                for s in st.optimizer.state.values() for v in s.values()]
+            after = [_own(t) for t in module.parameters()] + [
+                _own(v) for s in st.optimizer.state.values() for v in s.values()]
             rows.append({"loss": float(loss), "grad_norm": float(norm), "skipped": skipped,
                          "scale": float(st.loss_scale.scale),
                          "tracker": int(st.loss_scale.growth_tracker), "step": int(st.step),
@@ -545,12 +604,107 @@ def _job_fp16(ctx):
     return out
 
 
+# Strategies and plugins: name -> (kind, plugin kwargs, the JAX reference
+# run of the same plugin). min_weight_size_to_shard=0 plans the tiny Llama
+# as the default does (its norms stay whole by rank, every other parameter
+# is over 2**11 elements: test_min_weight_size_plans_like_jax), so its run
+# is the default's; HYBRID_SHARD is FULL_SHARD in the JAX package (it reads
+# a strategy only through shards_params and shards_grads_and_opt, equal for
+# the two: test_sharding_strategy_names_and_codes), so its run is the HSDP
+# one; a DeepSpeed stage is the JAX run of the strategy the JAX package
+# maps it to (test_deepspeed_stages_map_as_in_jax).
+STRATEGIES = {
+    2: {"shard_grad_op": ("fsdp", {"sharding_strategy": "SHARD_GRAD_OP"}, "sgo2"),
+        "no_shard": ("fsdp", {"sharding_strategy": "3"}, "no_shard2"),
+        "min_size_0": ("fsdp", {"min_weight_size_to_shard": 0}, "fsdp2"),
+        **{f"zero{k}": ("ds", {"zero_stage": k}, ref)
+           for k, ref in ((0, "no_shard2"), (1, "sgo2"), (2, "sgo2"), (3, "fsdp2"))}},
+    4: {"shard_grad_op": ("fsdp", {"sharding_strategy": "SHARD_GRAD_OP"}, "sgo4"),
+        "hybrid_shard": ("hsdp", {"sharding_strategy": "HYBRID_SHARD"}, "hsdp")},
+}
+DDP_KWARGS = {"ddp": dict(bucket_cap_mb=1, find_unused_parameters=True,
+                          gradient_as_bucket_view=True),
+              "no_shard": dict(static_graph=True)}
+
+
+def _job_strategies(ctx):
+    return {name: _train(ctx, kind, plugin_kw=kw)
+            for name, (kind, kw, _) in STRATEGIES[dist.get_world_size()].items()}
+
+
+def _job_ddp_kwargs(ctx):
+    """DistributedDataParallelKwargs on DDP without a plugin and under
+    NO_SHARD: the reducer's settings as DDP holds them."""
+    out = {}
+    for name, kw in DDP_KWARGS.items():
+        plugin = FullyShardedDataParallelPlugin(sharding_strategy="NO_SHARD") if name != "ddp" \
+            else None
+        acc = Accelerator(cpu=True, fsdp_plugin=plugin,
+                          kwargs_handlers=[DistributedDataParallelKwargs(**kw)])
+        model, _ = acc.prepare(Model(LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32))),
+                               adamw(LR))
+        ddp = model.forward_module
+        out[name] = {"type": type(ddp).__name__, "sharded": model.sharded,
+                     "bucket_cap_mb": ddp.bucket_bytes_cap / 2**20,
+                     "find_unused_parameters": ddp.find_unused_parameters,
+                     "gradient_as_bucket_view": ddp.gradient_as_bucket_view,
+                     "static_graph": ddp.static_graph}
+        _reset_port()
+    return out
+
+
+def _job_dcp_save(ctx):
+    """FSDP2 with DISTRIBUTED_STATE_DICT: a checkpoint after step 2, then step 3."""
+    return _train(ctx, "fsdp", save_after=2, project_dir=ctx["dcp_dir"], plugin_kw=DCP)
+
+
+def _dcp_ckpt(ctx):
+    return os.path.join(ctx["dcp_dir"], "checkpoints", "checkpoint_0")
+
+
+def _job_dcp_load(ctx):
+    """The checkpoint of _job_dcp_save loaded at this gang's size, then step 3."""
+    return _train(ctx, "fsdp", load_dir=_dcp_ckpt(ctx), plugin_kw=DCP)
+
+
+def _job_dcp_async(ctx):
+    """save_state(block=False) after step 1, steps 2 and 3 while it persists,
+    then wait_for_checkpoint; two more asynchronous saves, the second
+    queued behind the first, drained by end_training. Each checkpoint
+    loaded by a fresh Accelerator."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    module = LlamaForCausalLM(cfg)
+    module.load_state_dict(llama_params_from_flax(cfg, ctx["flax_params"]))
+    acc = _port_accelerator("fsdp", DCP)
+    acc.prepare(Model(module), adamw(LR))
+    step = acc.prepare_train_step(_port_loss, max_grad_norm=1.0)
+    dirs = [os.path.join(ctx["dcp_async_dir"], name) for name in ("a", "b", "c")]
+    step(acc.train_state, _local(ctx["batches"][0], rank, world))
+    acc.save_state(dirs[0], block=False)
+    out = {"in_flight": acc._pending_save is not None, "at_save": _whole_state(acc)}
+    for i in (1, 2):
+        step(acc.train_state, _local(ctx["batches"][i], rank, world))
+    acc.wait_for_checkpoint()
+    out["after"] = _whole_state(acc)
+    acc.save_state(dirs[1], block=False)
+    acc.save_state(dirs[2], block=False)
+    acc.end_training()
+    out["drained"] = acc._pending_save is None
+    _reset_port()
+    out["loaded"] = [_train(ctx, "fsdp", steps=0, load_dir=d, plugin_kw=DCP)["state_at_load"]
+                     for d in (dirs[0], dirs[2])]
+    return out
+
+
 JOBS = {"fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
         "dispatcher": _job_dispatcher, "rng": _job_rng, "save": _job_save,
         "options": _job_options, "fsdp_ga2": _job_fsdp_ga2, "per_node": _job_per_node,
         "resume_jax": _job_resume_jax, "fsdp_uneven": _job_fsdp_uneven,
         "imperative": _job_imperative, "imperative_hsdp": _job_imperative_hsdp,
-        "surface": _job_surface, "telemetry": _job_telemetry, "fp16": _job_fp16}
+        "surface": _job_surface, "telemetry": _job_telemetry, "fp16": _job_fp16,
+        "strategies": _job_strategies, "ddp_kwargs": _job_ddp_kwargs,
+        "dcp_save": _job_dcp_save, "dcp_load": _job_dcp_load, "dcp_async": _job_dcp_async}
 
 
 def _worker(rank, world, init_file, ctx_path, jobs):
@@ -594,9 +748,21 @@ def _jax_reset():
         cls._reset_state()
 
 
-def _jax_train(batches, pc_kwargs, plugin, project_dir=None, save_after=None, ga=1):
+def _jax_plan(shardings) -> set:
+    """The ``/``-joined flax names of the leaves a sharding tree shards."""
+    import jax
+
+    return {"/".join(str(k.key) for k in path)
+            for path, s in jax.tree_util.tree_flatten_with_path(shardings)[0]
+            if any(axis is not None for axis in s.spec)}
+
+
+def _jax_train(batches, pc_kwargs, plugin, project_dir=None, save_after=None, ga=1, plan=None):
     """STEPS steps of the JAX Accelerator on the whole global batches:
-    (loss, grad norm) per step and the parameters after them."""
+    (loss, grad norm) per step and the parameters after them. ``plugin``:
+    True for the default FSDP plugin, or its kwargs. ``plan`` (a dict)
+    gets the names of the parameters whose AdamW state the plan shards
+    (the parameters themselves but under SHARD_GRAD_OP)."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -613,12 +779,15 @@ def _jax_train(batches, pc_kwargs, plugin, project_dir=None, save_after=None, ga
     _jax_reset()
     module = JaxLlama(JaxLlamaConfig.tiny(dtype=jnp.float32))
     acc = JaxAccelerator(parallelism_config=JaxPC(**pc_kwargs), gradient_accumulation_steps=ga,
-                         fsdp_plugin=JaxPlugin() if plugin else None,
+                         fsdp_plugin=(JaxPlugin(**plugin) if isinstance(plugin, dict)
+                                      else JaxPlugin() if plugin else None),
                          project_config=JaxProject(project_dir=project_dir,
                                                    automatic_checkpoint_naming=bool(project_dir)))
     model = JaxModel.from_flax(module, jax.random.key(0), batches[0]["x"])
     params = jax.tree.map(np.asarray, model.params)
     acc.prepare(model, optax.adamw(LR))
+    if plan is not None:
+        plan["sharded"] = _jax_plan(acc._state_shardings.opt_state[0].mu)
 
     def loss_fn(p, b):
         return jax_ce(module.apply({"params": p}, b["x"]), b["y"])
@@ -641,26 +810,38 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dist")
     batches = _batches()
     ref = {}
+    plans = {}
     params, ref["fsdp4"], ref["fsdp4_params"] = _jax_train(
-        batches, dict(dp_shard_size=4), plugin=True, project_dir=str(tmp / "jax"), save_after=2)
-    _, ref["fsdp2"], ref["fsdp2_params"] = _jax_train(batches, dict(dp_shard_size=2), True)
+        batches, dict(dp_shard_size=4), plugin=True, project_dir=str(tmp / "jax"), save_after=2,
+        plan=plans.setdefault("fsdp4", {}))
+    _, ref["fsdp2"], ref["fsdp2_params"] = _jax_train(batches, dict(dp_shard_size=2), True,
+                                                      plan=plans.setdefault("fsdp2", {}))
+    for name, pc, kw in (("sgo2", dict(dp_shard_size=2), {"sharding_strategy": "SHARD_GRAD_OP"}),
+                         ("sgo4", dict(dp_shard_size=4), {"sharding_strategy": "SHARD_GRAD_OP"}),
+                         ("no_shard2", dict(dp_shard_size=2), {"sharding_strategy": "NO_SHARD"})):
+        _, ref[name], ref[name + "_params"] = _jax_train(batches, pc, kw,
+                                                         plan=plans.setdefault(name, {}))
     _, ref["ddp"], ref["ddp_params"] = _jax_train(batches, dict(dp_replicate_size=2), False)
     _, ref["fsdp2_ga2"], _ = _jax_train(batches, dict(dp_shard_size=2), True, ga=2)
     _, ref["fsdp2_uneven"], ref["fsdp2_uneven_params"] = _jax_train(
         _uneven(batches), dict(dp_shard_size=2), True)
     _, ref["hsdp"], ref["hsdp_params"] = _jax_train(
-        batches, dict(dp_replicate_size=2, dp_shard_size=2), True)
+        batches, dict(dp_replicate_size=2, dp_shard_size=2), True,
+        plan=plans.setdefault("hsdp", {}))
     ctx = {"flax_params": params, "batches": batches, "uneven_batches": _uneven(batches),
            "save_dir": str(tmp / "port4"),
            "per_node_dir": str(tmp / "per_node"), "surface_dir": str(tmp),
            "telemetry_dir": str(tmp / "telemetry"),
+           "dcp_dir": str(tmp / "dcp4"), "dcp_async_dir": str(tmp / "dcp_async"),
            "jax_ckpt": str(tmp / "jax" / "checkpoints" / "checkpoint_0")}
+    # The 4-process gang first: the 2-process one loads its DCP checkpoint.
+    four = _spawn(tmp, 4, ["fsdp", "hsdp", "collectives", "save", "imperative_hsdp",
+                           "surface", "strategies", "dcp_save"], ctx)
     two = _spawn(tmp, 2, ["fsdp", "ddp", "collectives", "dispatcher", "rng", "resume_jax",
                           "options", "fsdp_ga2", "per_node", "fsdp_uneven", "imperative",
-                          "surface", "telemetry", "fp16"], ctx)
-    four = _spawn(tmp, 4, ["fsdp", "hsdp", "collectives", "save", "imperative_hsdp",
-                           "surface"], ctx)
-    return {"ref": ref, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
+                          "surface", "telemetry", "fp16", "strategies", "ddp_kwargs",
+                          "dcp_load", "dcp_async"], ctx)
+    return {"ref": ref, "plans": plans, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
 
 
 def _flax(params: dict) -> dict:
@@ -734,13 +915,15 @@ def test_plugin_options_keep_the_numbers(runs, option):
     """Each honoured plugin field, at 2 processes, against the JAX
     package's dp_shard=2 run: the ignored norms stay whole (and their
     gradients are averaged by the step), activation checkpointing turns
-    the model's remat on."""
+    the model's remat on. The 5 norm scales stay whole under every option
+    (rank 1, as the JAX plan keeps them); ``ignored_params`` names the same
+    ones here."""
     for r in runs[2]:
         got = r["options"][option]
         np.testing.assert_allclose(np.array(got["metrics"]), np.array(runs["ref"]["fsdp2"]),
                                    rtol=1e-4)
         assert got["remat"] == (option == "activation_checkpointing")
-        assert len(got["ignored"]) == (5 if option == "ignored_norms" else 0)
+        assert len(got["ignored"]) == 5 and all(n.endswith("norm.weight") for n in got["ignored"])
     _assert_params_close(_flax(runs[2][0]["options"][option]["params"]),
                          runs["ref"]["fsdp2_params"], runs["ctx"]["flax_params"])
 
@@ -767,10 +950,42 @@ def test_uneven_ignored_labels_give_the_global_token_mean(runs):
                          runs["ref"]["fsdp2_uneven_params"], runs["ctx"]["flax_params"])
 
 
+def _flax_stacked(names) -> set:
+    """Port parameter names as the scanned flax tree's (one leaf for every
+    layer's weight)."""
+    import re
+
+    from accelerate_tpu_torch.checkpointing import _flax_name
+
+    module = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32), device="meta")
+    return {re.sub(r"layers_\d+", "layers/block", _flax_name(module, n)) for n in names}
+
+
+def _assert_split_is_the_jax_plan(result, plan):
+    """The parameters FSDP2 shards (DTensors) are those the JAX plan shards,
+    and each stacked leaf is sharded in every layer or in none."""
+    whole = {n for n in _whole_params_names() if n not in result["dtensors"]}
+    sharded, kept = _flax_stacked(result["dtensors"]), _flax_stacked(whole)
+    assert sharded == plan and not sharded & kept
+
+
+def _whole_params_names() -> list:
+    module = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32), device="meta")
+    return [n for n, _ in module.named_parameters()]
+
+
 def test_fsdp_shards_and_ddp_replicates(runs):
+    """FSDP2 and HSDP shard exactly what the JAX plan of the same mesh
+    shards (every parameter but the norm scales, of rank 1); DDP shards
+    nothing."""
     assert all(r["fsdp"]["sharded"] and not r["fsdp"]["ddp"] for r in runs[2] + runs[4])
     assert all(r["hsdp"]["sharded"] for r in runs[4])
-    assert all(r["ddp"]["ddp"] and not r["ddp"]["sharded"] for r in runs[2])
+    assert all(r["ddp"]["ddp"] and not r["ddp"]["sharded"] and not r["ddp"]["dtensors"]
+               for r in runs[2])
+    for world in (2, 4):
+        for r in runs[world]:
+            _assert_split_is_the_jax_plan(r["fsdp"], runs["plans"][f"fsdp{world}"]["sharded"])
+    assert not any("norm" in name for name in runs["plans"]["fsdp2"]["sharded"])
     # AdamW runs foreach on the CPU's DTensors; fused only for CUDA parameters.
     assert runs[2][0]["fsdp"]["fused"] is None
 
@@ -1124,18 +1339,22 @@ def test_straggler_probe_gathers_every_process_step_time(runs):
 
 
 def test_collective_counters_count_every_collective_of_a_step(runs):
-    """A step at 2 processes runs two collectives of this package: the
-    all-reduce of the loss's token count and that of the loss (FSDP2's own
-    all-gathers and reduce-scatters are torch's). The probe's gather does
-    not count. Each operation of utils/operations.py counts once with its
+    """A step at 2 processes runs four collectives of this package: the
+    all-reduce of the loss's token count, that of the gradients FSDP2
+    leaves whole (one flat buffer), that of the sharded gradients' squared
+    norms (one fp32 each) and that of the loss (FSDP2's own all-gathers
+    and reduce-scatters are torch's). The probe's gather does not count. Each operation of utils/operations.py counts once with its
     payload, pad_across_processes without the gather inside it."""
     for res in (r["telemetry"] for r in runs[2]):
-        assert res["per_step"] == [{"all_reduce": {
-            "count": 2, "bytes": res["token_count_bytes"] + 4}}] * 2
+        assert res["whole_grad_bytes"] == 5 * 128 * 4  # the norm scales, in one all-reduce
+        assert res["sharded_grads"] == 16
+        step_bytes = (res["token_count_bytes"] + 4 + res["whole_grad_bytes"]
+                      + 4 * res["sharded_grads"])
+        assert res["per_step"] == [{"all_reduce": {"count": 4, "bytes": step_bytes}}] * 2
         steps = [r for r in res["records"] if r["event"] == "step"]
         assert [s["collectives"] for s in steps] == [
-            {"all_reduce": {"count": 2 * (i + 1), "bytes": (i + 1) * (
-                res["token_count_bytes"] + 4)}} for i in range(2)]
+            {"all_reduce": {"count": 4 * (i + 1), "bytes": (i + 1) * step_bytes}}
+            for i in range(2)]
         assert res["ops"] == {
             "gather": {"count": 1, "bytes": 24}, "reduce": {"count": 1, "bytes": 24},
             "pad_across_processes": {"count": 1, "bytes": 24},
@@ -1161,3 +1380,218 @@ def test_fp16_overflow_on_one_shard_skips_on_every_process(runs, loop):
     assert np.isfinite(rows[0]["grad_norm"]) and not np.isfinite(rows[1]["grad_norm"])
     if loop == "loop":
         assert [r["skipped"] for r in rows] == [False, True, False]
+
+
+def test_telemetry_counts_the_global_batch(runs):
+    """Each process's step records count the global batch, as the JAX
+    package's record of the dp_shard=2 step does (its _batch_counts on the
+    global batch): samples, and tokens as tokens_per_s × wall_s."""
+    from accelerate_tpu.telemetry import _batch_counts as jax_batch_counts
+
+    want = [jax_batch_counts(b) for b in _batches()[:2]]
+    assert want[0] == (GLOBAL_BATCH, GLOBAL_BATCH * SEQ)
+    for res in (r["telemetry"] for r in runs[2]):
+        steps = [r for r in res["records"] if r["event"] == "step"]
+        got = [(s["samples"], s["tokens_per_s"] * s["wall_s"]) for s in steps]
+        for (samples, tokens), (jax_samples, jax_tokens) in zip(got, want):
+            assert samples == jax_samples
+            assert tokens == pytest.approx(jax_tokens, rel=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# Sharding strategies, DeepSpeed stages and DDP's settings
+# ---------------------------------------------------------------------------
+
+STRATEGY_CASES = [(world, name) for world in (2, 4) for name in STRATEGIES[world]]
+
+
+@pytest.mark.parametrize("world,name", STRATEGY_CASES, ids=[f"{n}{w}" for w, n in STRATEGY_CASES])
+def test_strategies_match_jax(runs, world, name):
+    """Three steps of each strategy and DeepSpeed stage: losses and grad
+    norms within rtol 1e-4 of the JAX package's run of the same plugin,
+    the parameters after them (_assert_params_close, and equal on every
+    process), and FSDP2 sharding exactly what the JAX plan shards (nothing
+    under NO_SHARD and stage 0, which run DDP)."""
+    kind, _, ref = STRATEGIES[world][name]
+    results = runs[world]
+    for r in results:
+        got = r["strategies"][name]
+        np.testing.assert_allclose(np.array(got["metrics"]), np.array(runs["ref"][ref]),
+                                   rtol=1e-4)
+        assert got["ddp"] == (not got["sharded"])
+        _assert_split_is_the_jax_plan(got, runs["plans"][ref]["sharded"])
+    _assert_params_close(_flax(results[0]["strategies"][name]["params"]),
+                         runs["ref"][ref + "_params"], runs["ctx"]["flax_params"])
+    for r in results[1:]:
+        for key, value in r["strategies"][name]["params"].items():
+            np.testing.assert_array_equal(value, results[0]["strategies"][name]["params"][key])
+
+
+def test_strategy_plans_follow_jax(runs):
+    """The JAX plans the strategies are held to: SHARD_GRAD_OP shards the
+    optimizer state of what FULL_SHARD shards, NO_SHARD nothing."""
+    plans = {k: v["sharded"] for k, v in runs["plans"].items()}
+    assert plans["sgo2"] == plans["sgo4"] == plans["fsdp2"] == plans["hsdp"] != set()
+    assert plans["no_shard2"] == set()
+
+
+def test_min_weight_size_plans_like_jax():
+    """min_weight_size_to_shard and the rank-1 rule keep the same parameters
+    whole as the JAX planner, at 0, the default 2**11 and 20,000 elements
+    (over the tiny Llama's per-layer q_proj, under its stacked one: the
+    one place the split differs, as parallel/fsdp.py says)."""
+    import jax
+    import jax.numpy as jnp
+
+    from accelerate_tpu import FullyShardedDataParallelPlugin as JaxPlugin
+    from accelerate_tpu import ParallelismConfig as JaxPC
+    from accelerate_tpu.models import LlamaConfig as JaxLlamaConfig
+    from accelerate_tpu.models import LlamaForCausalLM as JaxLlama
+    from accelerate_tpu.parallel.sharding import plan_parameter_sharding
+
+    from accelerate_tpu_torch.parallel.fsdp import whole_parameters
+
+    module = JaxLlama(JaxLlamaConfig.tiny(dtype=jnp.float32))
+    params = jax.eval_shape(lambda: module.init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32))
+                            )["params"]
+    pc = JaxPC(dp_shard_size=2)
+    mesh = pc.build_mesh(jax.devices()[:2])
+    port = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32), device="meta")
+    names = [n for n, _ in port.named_parameters()]
+    for size in (0, 2**11, 20_000):
+        want = _jax_plan(plan_parameter_sharding(
+            params, mesh, fsdp_plugin=JaxPlugin(min_weight_size_to_shard=size),
+            parallelism_config=pc))
+        whole = whole_parameters(port, FullyShardedDataParallelPlugin(
+            min_weight_size_to_shard=size), 2)
+        got = _flax_stacked(n for n in names if n not in whole)
+        if size == 20_000:  # q and o: 16,384 elements a layer, 32,768 stacked
+            assert want - got == {f"model/layers/block/self_attn/{p}/kernel"
+                                  for p in ("q_proj", "o_proj")}
+            assert got <= want
+        else:
+            assert got == want
+
+
+def test_deepspeed_stages_map_as_in_jax(tmp_path):
+    """Each ZeRO stage maps to the JAX package's strategy, and from_ds_json
+    reads a ds_config as the JAX package's does ("auto" values, the
+    mixed-precision sections, offload)."""
+    import json
+
+    from accelerate_tpu.utils.dataclasses import DeepSpeedPlugin as JaxDeepSpeedPlugin
+
+    for stage in range(4):
+        assert (DeepSpeedPlugin(zero_stage=stage).to_fsdp_plugin().sharding_strategy
+                == JaxDeepSpeedPlugin(zero_stage=stage).to_fsdp_plugin().sharding_strategy)
+    configs = {
+        "zero3": {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}},
+                  "bf16": {"enabled": "auto"}, "gradient_accumulation_steps": 4,
+                  "gradient_clipping": 1.0, "optimizer": {"type": "AdamW"}},
+        "auto": {"zero_optimization": {"stage": "auto"}, "fp16": {"enabled": "auto"},
+                 "gradient_accumulation_steps": "auto", "gradient_clipping": "auto"},
+        "none": {"train_batch_size": 8},
+    }
+    fields = ("zero_stage", "offload_optimizer_device", "offload_param_device",
+              "gradient_accumulation_steps", "gradient_clipping", "mixed_precision")
+    for name, cfg in configs.items():
+        path = tmp_path / f"{name}.json"
+        path.write_text(json.dumps(cfg))
+        for mp in (None, "bf16", "fp16"):
+            port, ref = DeepSpeedPlugin.from_ds_json(str(path), mp), \
+                JaxDeepSpeedPlugin.from_ds_json(str(path), mp)
+            assert [getattr(port, f) for f in fields] == [getattr(ref, f) for f in fields]
+            assert (port.to_fsdp_plugin().cpu_offload, port.to_fsdp_plugin().sharding_strategy) \
+                == (ref.to_fsdp_plugin().cpu_offload, ref.to_fsdp_plugin().sharding_strategy)
+    acc = Accelerator(cpu=True, deepspeed_plugin=DeepSpeedPlugin.from_ds_json(
+        str(tmp_path / "zero3.json")))
+    assert acc.gradient_accumulation_steps == 4 and acc._ds_gradient_clipping == 1.0
+    assert acc.fsdp_plugin.sharding_strategy == "FULL_SHARD" and acc.fsdp_plugin.cpu_offload
+
+
+def test_sharding_strategy_names_and_codes():
+    from accelerate_tpu.utils.dataclasses import FullyShardedDataParallelPlugin as JaxPlugin
+
+    from accelerate_tpu_torch import ShardingStrategy
+
+    for code, name in zip("1234", ShardingStrategy.list()):
+        for value in (code, name, name.lower(), ShardingStrategy(name)):
+            port, ref = FullyShardedDataParallelPlugin(sharding_strategy=value), \
+                JaxPlugin(sharding_strategy=value)
+            assert port.sharding_strategy == ref.sharding_strategy == name
+            assert (port.shards_params, port.shards_grads_and_opt) == (
+                ref.shards_params, ref.shards_grads_and_opt)
+    with pytest.raises(ValueError, match="sharding_strategy"):
+        FullyShardedDataParallelPlugin(sharding_strategy="ZERO9")
+
+
+def test_ddp_kwargs_reach_ddp(runs):
+    """DistributedDataParallelKwargs' bucket size, unused-parameter search,
+    bucket views and static graph are DDP's own, without a plugin and
+    under NO_SHARD; comm_hook raises, naming its ROADMAP item."""
+    for r in runs[2]:
+        for name, kw in DDP_KWARGS.items():
+            got = r["ddp_kwargs"][name]
+            assert got["type"] == "DistributedDataParallel" and not got["sharded"]
+            want = {**{k: v for k, v in DistributedDataParallelKwargs().ddp_kwargs().items()}, **kw}
+            assert {k: got[k] for k in want} == want
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        DistributedDataParallelKwargs(comm_hook="powersgd")
+
+
+# ---------------------------------------------------------------------------
+# DISTRIBUTED_STATE_DICT across world sizes
+# ---------------------------------------------------------------------------
+
+
+def _assert_states_equal(got, want):
+    assert (got["step"], got["count"]) == (want["step"], want["count"])
+    for name, value in want["params"].items():
+        np.testing.assert_array_equal(got["params"][name], value, err_msg=name)
+        for k, m in want["moments"][name].items():
+            np.testing.assert_array_equal(got["moments"][name][k], m, err_msg=f"{name} {k}")
+
+
+def test_dcp_saved_at_world4_loads_at_world2(runs):
+    """The DCP checkpoint 4 FSDP2 processes wrote after step 2 (each its own
+    shards, no model.safetensors), loaded by 2: every parameter, moment,
+    count and step equal, and step 3 the uninterrupted run's (rtol 1e-5)."""
+    ckpt = _dcp_ckpt(runs["ctx"])
+    assert "distributed_state_torch" in os.listdir(ckpt)
+    assert not {"model.safetensors", "optimizer.bin"} & set(os.listdir(ckpt))
+    saved = runs[4][0]["dcp_save"]
+    assert saved["format"] == "dcp"
+    for r in runs[2]:
+        loaded = r["dcp_load"]
+        _assert_states_equal(loaded["state_at_load"], saved["state_at_save"])
+        np.testing.assert_allclose(loaded["metrics"], saved["metrics"][2:], rtol=1e-5)
+        assert loaded["step"] == STEPS and loaded["dtensors"]
+
+
+def test_dcp_saved_at_world4_loads_in_one_process(runs):
+    from accelerate_tpu_torch.state import PartialState as P
+
+    saved = runs[4][0]["dcp_save"]
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    acc = Accelerator(cpu=True)
+    assert not P().use_distributed
+    acc.prepare(Model(LlamaForCausalLM(cfg)), adamw(LR))
+    step = acc.prepare_train_step(_port_loss, max_grad_norm=1.0)
+    acc.load_state(_dcp_ckpt(runs["ctx"]))
+    _assert_states_equal(_whole_state(acc), saved["state_at_save"])
+    _, m = step(acc.train_state, runs["ctx"]["batches"][2])
+    np.testing.assert_allclose([float(m["loss"]), float(m["grad_norm"])], saved["metrics"][2],
+                               rtol=1e-5)
+
+
+def test_async_dcp_save_across_processes(runs):
+    """save_state(block=False) returned with the save in flight, two steps
+    ran before wait_for_checkpoint, and the checkpoint holds the state at
+    the save; the third save, queued behind the second, holds the state
+    after the steps, and end_training drained it."""
+    for r in runs[2]:
+        res = r["dcp_async"]
+        assert res["in_flight"] and res["drained"]
+        assert res["at_save"]["step"] == 1 and res["after"]["step"] == 3
+        _assert_states_equal(res["loaded"][0], res["at_save"])
+        _assert_states_equal(res["loaded"][1], res["after"])

@@ -34,7 +34,7 @@ from accelerate_tpu_torch import (
     ProjectConfiguration,
     adamw,
 )
-from accelerate_tpu_torch.utils import TelemetryKwargs
+from accelerate_tpu_torch.utils import DistributedDataParallelKwargs, TelemetryKwargs
 from accelerate_tpu_torch.models import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -176,11 +176,10 @@ def test_accelerator_refuses_a_second_device_choice(monkeypatch):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(
-        sharding_strategy="SHARD_GRAD_OP")),
-    lambda: FullyShardedDataParallelPlugin(min_weight_size_to_shard=0),
+    lambda: DistributedDataParallelKwargs(comm_hook="bf16"),
+    lambda: FullyShardedDataParallelPlugin(mixed_precision_policy=MixedPrecisionPolicy()),
     lambda: ProjectConfiguration(automatic_resume=True),
-    lambda: FullyShardedDataParallelPlugin(state_dict_type="DISTRIBUTED_STATE_DICT"),
+    lambda: ParallelismConfig(tp_size=2),
     lambda: MixedPrecisionPolicy(reduce_dtype=torch.bfloat16),
     lambda: TelemetryKwargs(tracing=True),
 ])
