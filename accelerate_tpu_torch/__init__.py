@@ -26,7 +26,7 @@ from .data_loader import (
     prepare_data_loader,
     skip_first_batches,
 )
-from .generation import GenerationConfig, generate
+from .generation import GenerationConfig, beam_search, generate, speculative_generate
 from .model import Model
 from .optimizer import (
     AcceleratedOptimizer,
@@ -39,7 +39,7 @@ from .optimizer import (
 )
 from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
-from .serving import ServingEngine
+from .serving import ServingEngine, ServingStalledError, replay_trace
 from .state import AcceleratorState, DistributedType, GradientState, PartialState
 from .telemetry import TelemetryRecorder
 from .train_state import DynamicLossScale, TrainState, grads_all_finite
@@ -89,11 +89,13 @@ __all__ = [
     "SeedableRandomSampler",
     "ServingConfig",
     "ServingEngine",
+    "ServingStalledError",
     "ShardingStrategy",
     "TelemetryKwargs",
     "TelemetryRecorder",
     "TrainState",
     "adamw",
+    "beam_search",
     "constant_schedule",
     "cosine_decay_schedule",
     "find_executable_batch_size",
@@ -103,7 +105,9 @@ __all__ = [
     "linear_schedule",
     "prepare_data_loader",
     "quantize_model_for_decode",
+    "replay_trace",
     "set_seed",
     "skip_first_batches",
+    "speculative_generate",
     "warmup_cosine_decay_schedule",
 ]

@@ -418,6 +418,24 @@ class Accelerator:
         return self.state.axis_rank("cp")
 
     @property
+    def tensor_parallel_rank(self) -> int:
+        return 0  # tp is not ported (ROADMAP.md Queue A item 6)
+
+    @property
+    def pipeline_parallel_rank(self) -> int:
+        return 0  # pp is not ported (ROADMAP.md Queue A item 6)
+
+    @property
+    def mesh(self):
+        """The 4-D ``DeviceMesh`` over the process group, or None without
+        one."""
+        return self.state.device_mesh
+
+    @property
+    def parallelism_config(self) -> ParallelismConfig:
+        return self.state.parallelism_config
+
+    @property
     def is_local_main_process(self) -> bool:
         return self.local_process_index == 0
 
@@ -471,6 +489,24 @@ class Accelerator:
         return self.project_configuration.logging_dir
 
     @property
+    def save_iteration(self) -> int:
+        return self.project_configuration.iteration
+
+    # The loader settings, as the JAX package exposes them.
+
+    @property
+    def dispatch_batches(self) -> Optional[bool]:
+        return self.dataloader_config.dispatch_batches
+
+    @property
+    def use_seedable_sampler(self) -> bool:
+        return self.dataloader_config.use_seedable_sampler
+
+    @property
+    def non_blocking(self) -> bool:
+        return self.dataloader_config.non_blocking
+
+    @property
     def train_state(self) -> TrainState:
         if not self._train_states:
             raise RuntimeError("Call accelerator.prepare(model, optimizer) first.")
@@ -487,37 +523,11 @@ class Accelerator:
         out, model = list(args), None
         for i, obj in enumerate(args):
             if isinstance(obj, Model):
-                obj.module.to(self.device)
-                apply_data_parallel(obj, self.state, self.fsdp_plugin,
-                                    self._mp_policy.compute_dtype, self.ddp_handler)
-                model = obj
-                self._models.append(obj)
+                model = self.prepare_model(obj)
             elif isinstance(obj, (AdamW, torch.optim.Optimizer)):
                 if model is None:
                     raise ValueError("prepare() needs the model before its optimizer")
-                if model.sharded and not isinstance(obj, AdamW):
-                    raise ValueError("under FSDP2 pass adamw(...), so that prepare() builds "
-                                     "the optimizer on the sharded parameters")
-                if isinstance(obj, AcceleratedOptimizer):
-                    obj = obj.optimizer
-                loss_scale = self._new_loss_scale()
-                if isinstance(obj, AdamW):
-                    opt = obj(model.parameters(), skip_on_overflow=loss_scale is not None)
-                else:
-                    opt = obj
-                    if loss_scale is not None and not getattr(
-                            opt, "_step_supports_amp_scaling", False):
-                        raise ValueError(
-                            "mixed_precision='fp16' skips an overflowed step on the device: "
-                            "pass adamw(...) or a fused torch optimizer (fused=True)")
-                # The train state (the fused step, checkpoints) keeps the
-                # optimizer itself; the caller gets the imperative loop's.
-                step = (0 if loss_scale is None
-                        else torch.zeros((), dtype=torch.int32, device=self.device))
-                self._train_states.append(TrainState(step=step, model=model, optimizer=opt,
-                                                     loss_scale=loss_scale))
-                self._optimizers.append(AcceleratedOptimizer(opt, accelerator=self))
-                out[i] = self._optimizers[-1]
+                out[i] = self._prepare_optimizer_for(model, obj)
         for i, obj in enumerate(args):
             if isinstance(obj, (Model, AdamW, torch.optim.Optimizer)):
                 continue
@@ -528,6 +538,53 @@ class Accelerator:
             else:
                 raise TypeError(f"prepare() does not take {type(obj).__name__}")
         return out[0] if len(out) == 1 else tuple(out)
+
+    def prepare_model(self, model: Model, device_placement=None,
+                      evaluation_mode: bool = False) -> Model:
+        """``model`` on this process's device, sharded or replicated over
+        the process group as ``prepare`` does it; prepared once."""
+        if model not in self._models:
+            model.module.to(self.device)
+            apply_data_parallel(model, self.state, self.fsdp_plugin,
+                                self._mp_policy.compute_dtype, self.ddp_handler)
+            self._models.append(model)
+        return model
+
+    def prepare_optimizer(self, optimizer, device_placement=None) -> AcceleratedOptimizer:
+        """``optimizer`` built on (or bound to) the first prepared model
+        that has none yet, as ``prepare(model, optimizer)`` binds it."""
+        if isinstance(optimizer, AcceleratedOptimizer) and optimizer in self._optimizers:
+            return optimizer
+        bound = {id(st.model) for st in self._train_states}
+        model = next((m for m in self._models if id(m) not in bound), None)
+        if model is None:
+            raise ValueError("prepare_optimizer() needs a prepared model without an optimizer: "
+                             "call prepare_model(model) first")
+        return self._prepare_optimizer_for(model, optimizer)
+
+    def _prepare_optimizer_for(self, model: Model, obj) -> AcceleratedOptimizer:
+        if model.sharded and not isinstance(obj, AdamW):
+            raise ValueError("under FSDP2 pass adamw(...), so that prepare() builds "
+                             "the optimizer on the sharded parameters")
+        if isinstance(obj, AcceleratedOptimizer):
+            obj = obj.optimizer
+        loss_scale = self._new_loss_scale()
+        if isinstance(obj, AdamW):
+            opt = obj(model.parameters(), skip_on_overflow=loss_scale is not None)
+        else:
+            opt = obj
+            if loss_scale is not None and not getattr(opt, "_step_supports_amp_scaling", False):
+                raise ValueError(
+                    "mixed_precision='fp16' skips an overflowed step on the device: "
+                    "pass adamw(...) or a fused torch optimizer (fused=True)")
+        # The train state (the fused step, checkpoints) keeps the optimizer
+        # itself; the caller gets the imperative loop's.
+        step = (0 if loss_scale is None
+                else torch.zeros((), dtype=torch.int32, device=self.device))
+        self._train_states.append(TrainState(step=step, model=model, optimizer=opt,
+                                             loss_scale=loss_scale))
+        self._optimizers.append(AcceleratedOptimizer(opt, accelerator=self))
+        return self._optimizers[-1]
 
     def _new_loss_scale(self) -> Optional[DynamicLossScale]:
         """The dynamic loss scale of ``mixed_precision="fp16"`` (the

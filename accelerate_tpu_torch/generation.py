@@ -4,7 +4,13 @@
 - The cache is ``KVCache(k, v, length)``: k and v preallocated as
   ``(L, B, T_max, Hkv, D)`` and written in place, ``length`` a device
   tensor, ``()`` for a batch-global cache (``generate``) or ``(B,)`` for a
-  slot cache whose rows advance independently (``serving.py``).
+  slot cache whose rows advance independently (``serving.py``). A write
+  at a per-row offset drops the rows that fall past ``T_max``, as the JAX
+  scatter does.
+- int8 KV pages: ``init_cache(dtype=torch.int8)`` keeps k and v as
+  ``QuantPages`` (int8 codes and one fp32 absmax scale per row of the
+  head dim). Each new row is quantized where it is written and the pages
+  dequantize next to the attention products.
 - The cached forward runs the Llama block math on the port's
   ``LlamaForCausalLM`` parameters layer by layer, with the JAX plan's
   numerics: RoPE at absolute cache positions (shifted down by each row's
@@ -15,10 +21,11 @@
   decode step is static and ``done`` stays on the device.
 - Sampling: greedy, temperature, top-k, top-p, drawn with an explicit
   ``torch.Generator`` (the JAX ``rng`` key).
+- ``speculative_generate`` (greedy, batch 1, a draft model) and
+  ``beam_search`` (length-normalised) over the same cached forward.
 
-The other generation plans (GPT-2, OPT, NeoX, Mixtral, T5, Whisper), beam
-search and speculative decoding are not ported yet (ROADMAP.md Queue A
-items 8 and 10).
+The other generation plans (GPT-2, OPT, NeoX, Mixtral, T5, Whisper) are
+not ported yet (ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -33,15 +40,60 @@ import torch.nn.functional as F
 from .models.llama import apply_rope, rms_norm, rotary_embedding
 from .utils.quantization import DecodeQuant, dequantize_decode_kernel
 
-_QUANT_PAGES_ITEM = "ROADMAP.md Queue A item 8.1 (int8 KV pages, QuantPages)"
 _OTHER_MODELS_ITEM = "ROADMAP.md Queue A item 10 (the other models)"
 _COMPILE_MANAGER_ITEM = "ROADMAP.md Queue A item 12 (control plane: compile_manager.py)"
 
 
 @dataclasses.dataclass
+class QuantPages:
+    """int8 KV pages with one absmax scale per row of the head dim: the
+    pair that stands in for a float ``KVCache.k``/``.v``. Indexing takes
+    the same view of both leaves, so a layer's or a slot's slice is
+    written in place like a float cache's."""
+
+    data: torch.Tensor   # int8, the float cache's layout
+    scale: torch.Tensor  # fp32, data.shape[:-1] + (1,)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.data.shape
+
+    @property
+    def nbytes(self) -> int:
+        return self.data.nbytes + self.scale.nbytes
+
+    def __getitem__(self, index) -> "QuantPages":
+        return QuantPages(self.data[index], self.scale[index])
+
+
+def quantize_kv_page(x: torch.Tensor) -> QuantPages:
+    """Symmetric int8 quantization over the last (head dim) axis:
+    ``scale = max(amax, tiny) / 127`` in fp32, codes
+    ``clip(round(x / scale), -127, 127)`` with round-half-to-even. Both
+    divisions are by a tensor, which is a true division on the card too.
+    A scale below fp32's smallest normal (a zero row's) is flushed to 0,
+    as XLA flushes subnormals."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    tiny = torch.finfo(torch.float32).tiny
+    scale = amax.clamp_min(tiny) / torch.full_like(amax, 127.0)
+    data = torch.clamp(torch.round(xf / scale), -127, 127)
+    scale = torch.where(scale < tiny, torch.zeros_like(scale), scale)
+    return QuantPages(data.to(torch.int8), scale)
+
+
+def dequantize_kv_page(pages: QuantPages, dtype) -> torch.Tensor:
+    return pages.data.to(dtype) * pages.scale.to(dtype)
+
+
+@dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor       # (L, B, T_max, Hkv, D)
-    v: torch.Tensor       # (L, B, T_max, Hkv, D)
+    k: torch.Tensor | QuantPages  # (L, B, T_max, Hkv, D)
+    v: torch.Tensor | QuantPages  # (L, B, T_max, Hkv, D)
     # Tokens written so far: a () tensor (batch-global) or (B,) for a slot
     # cache where every row advances on its own.
     length: torch.Tensor
@@ -54,14 +106,20 @@ def _cache_dims(cfg) -> tuple[int, int, int, int]:
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> KVCache:
+    """Zeroed k and v of ``(L, batch, max_len, Hkv, D)``. ``torch.int8``
+    gives ``QuantPages`` whose scales start at one, so an unwritten row
+    dequantizes to zero as the float cache's does."""
     layers, kv_heads, head_dim, _ = _cache_dims(cfg)
     dtype = dtype or cfg.dtype
-    if dtype == torch.int8:
-        raise NotImplementedError(f"an int8 KV cache is not ported yet ({_QUANT_PAGES_ITEM})")
     shape = (layers, batch, max_len, kv_heads, head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device),
-                   length=torch.zeros((), dtype=torch.long, device=device))
+
+    def side():
+        if dtype == torch.int8:
+            return QuantPages(torch.zeros(shape, dtype=torch.int8, device=device),
+                              torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device))
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return KVCache(k=side(), v=side(), length=torch.zeros((), dtype=torch.long, device=device))
 
 
 def init_slot_cache(cfg, n_slots: int, max_len: int, dtype=None, device=None) -> KVCache:
@@ -81,18 +139,43 @@ def _row_positions(start: torch.Tensor, b: int, s: int) -> torch.Tensor:
     return (start + offs).expand(b, s)
 
 
-def _cache_write(ck: torch.Tensor, k_new: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+def _write_plan(start: torch.Tensor, s: int, t: int):
+    """Where a window of ``s`` rows written at per-row offsets ``start``
+    (B,) lands in a cache of ``t`` rows: ``(rows (B, 1), target (B, S),
+    source (B, S))``. A row below ``t`` writes at its position; a row past
+    it writes at ``t - 1`` instead, carrying the value that position ends
+    with, so every write there agrees: the window's own row at ``t - 1``
+    (a source below ``s``), else the cache's old row (source ``s``). The
+    rows past ``t`` are thus dropped, with no mask and no host read."""
+    j = torch.arange(s, device=start.device)
+    pos = start[:, None] + j
+    at_last = (t - 1 - start)[:, None]  # window index of position t - 1
+    past = torch.where((at_last >= 0) & (at_last < s), at_last, s)
+    rows = torch.arange(start.shape[0], device=start.device)[:, None]
+    return rows, pos.clamp(max=t - 1), torch.where(pos < t, j, past)
+
+
+def _cache_write(ck, k_new: torch.Tensor, start: torch.Tensor, plan=None):
     """Write ``k_new`` (B, S, Hkv, D) into the cache slice ``ck``
     (B, T, Hkv, D) in place, at row offset ``start``: a () tensor (the same
-    offset for every row) or a (B,) vector (each row at its own offset).
-    The offsets stay on the device. Returns ``ck``."""
-    b, s = k_new.shape[:2]
-    k_new = k_new.to(ck.dtype)
-    if start.dim() == 1:
-        rows = torch.arange(b, device=ck.device)[:, None]
-        ck[rows, _row_positions(start, b, s)] = k_new
+    offset for every row) or a (B,) vector (each row at its own offset,
+    where rows at positions >= T are dropped; ``plan`` is
+    ``_write_plan``'s, made once for every layer). A ``QuantPages`` slice
+    quantizes the new rows and writes codes and scales at the same
+    offsets. The offsets stay on the device. Returns ``ck``."""
+    if start.dim() == 1 and plan is None:
+        plan = _write_plan(start, k_new.shape[1], ck.shape[1])
+    if isinstance(ck, QuantPages):
+        q = quantize_kv_page(k_new)
+        _cache_write(ck.data, q.data, start, plan)
+        _cache_write(ck.scale, q.scale, start, plan)
         return ck
-    return ck.index_copy_(1, start + torch.arange(s, device=ck.device), k_new)
+    k_new = k_new.to(ck.dtype)
+    if start.dim() == 0:
+        return ck.index_copy_(1, start + torch.arange(k_new.shape[1], device=ck.device), k_new)
+    rows, target, source = plan
+    ck[rows, target] = torch.cat([k_new, ck[:, -1:]], dim=1)[rows, source]
+    return ck
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +243,12 @@ def _attend_mask(q_positions, t: int, kv_valid=None) -> torch.Tensor:
 
 def _attend_masked(q, k, v, visible) -> torch.Tensor:
     """q (B, Sq, Hq, D) against cached k/v (B, T, Hkv, D) under ``visible``
-    (B, Sq, T)."""
+    (B, Sq, T). ``QuantPages`` k/v dequantize to ``q.dtype`` here, next to
+    the products."""
+    if isinstance(k, QuantPages):
+        k = dequantize_kv_page(k, q.dtype)
+    if isinstance(v, QuantPages):
+        v = dequantize_kv_page(v, q.dtype)
     hq, hkv = q.shape[2], k.shape[2]
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=2)
@@ -211,12 +299,13 @@ def _llama_forward_cached(cfg, model_or_params, input_ids, cache: KVCache, retur
         rope_positions = torch.clamp(positions - pad_offset[:, None], min=0)
     cos, sin = rotary_embedding(rope_positions, cfg.rotary_dim, cfg.rope_theta, x.dtype)
     visible = _attend_mask(positions, cache.k.shape[2], kv_valid)
+    plan = _write_plan(start, s, cache.k.shape[2]) if start.dim() == 1 else None
     for i in range(cfg.num_hidden_layers):
         pre = f"model.layers.{i}."
         hn = _chassis_norm(cfg, p[pre + "input_layernorm.weight"], x)
         q, k_new, v_new = _qkv_proj(cfg, p, pre, hn, cos, sin)
-        ck = _cache_write(cache.k[i], k_new, start)
-        cv = _cache_write(cache.v[i], v_new, start)
+        ck = _cache_write(cache.k[i], k_new, start, plan)
+        cv = _cache_write(cache.v[i], v_new, start, plan)
         out = _attend_masked(q, ck, cv, visible)
         x = x + _out_proj(out, p[pre + "self_attn.o_proj.weight"])
         hn = _chassis_norm(cfg, p[pre + "post_attention_layernorm.weight"], x)
@@ -457,3 +546,161 @@ def generate(
         if t + 1 < max_new_tokens:  # the last token's forward would feed nothing
             logits, cache = fwd(cfg, params, tok[:, None], cache, **kwargs)
     return torch.cat([orig_input_ids, toks.T.to(orig_input_ids.dtype)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding and beam search
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def speculative_generate(model, draft_model, input_ids, max_new_tokens: int = 32, *,
+                         num_draft_tokens: int = 4,
+                         eos_token_id: Optional[int] = None) -> torch.Tensor:
+    """Greedy speculative decoding, batch 1: the draft proposes
+    ``num_draft_tokens`` tokens greedily through its own cache, one cached
+    target pass over that window scores every position, and the longest
+    agreeing prefix is kept with the target's token after it. The result
+    is the target's greedy continuation (equal to :func:`generate` but
+    where the top-2 logits sit within the window's rounding); the draft
+    changes only how many target passes it takes.
+
+    Both caches are indexed by position, so after a rejection each rewinds
+    its length to the accepted prefix and the next write overwrites the
+    stale rows. Returns (1, S + max_new_tokens) on the target's device."""
+    if num_draft_tokens < 1:
+        raise ValueError(f"num_draft_tokens must be >= 1, got {num_draft_tokens}")
+    module, dmodule = getattr(model, "module", model), getattr(draft_model, "module", draft_model)
+    cfg, dcfg = module.config, dmodule.config
+    fwd, dfwd = _generation_plan(module), _generation_plan(dmodule)
+    params, dparams = _decode_params(model), _decode_params(draft_model)
+    device = _params_device(params)
+    input_ids = torch.as_tensor(input_ids).to(device)
+    b, s = input_ids.shape
+    if b != 1:
+        raise ValueError("speculative_generate supports batch size 1")
+    k = num_draft_tokens
+    t_max = s + max_new_tokens + k + 1
+    if t_max > min(_cache_dims(cfg)[3], _cache_dims(dcfg)[3]):
+        raise ValueError("sequence would exceed max positions")
+
+    out = input_ids.long()
+    tlogits, tcache = fwd(cfg, params, out, init_cache(cfg, b, t_max, device=device))
+    dlogits, dcache = dfwd(dcfg, dparams, out, init_cache(dcfg, b, t_max, device=device))
+    produced = 0
+    while produced < max_new_tokens:
+        proposals, dl, dc = [], dlogits, dcache
+        for _ in range(k):
+            tok = torch.argmax(dl, dim=-1)
+            proposals.append(tok)
+            dl, dc = dfwd(dcfg, dparams, tok[:, None], dc)
+        prop = torch.stack(proposals, dim=1)  # (1, k)
+        # Window position j predicts the token after proposal j; the
+        # carried ``tlogits`` predicts the first.
+        win_logits, tc = fwd(cfg, params, prop, tcache, return_all=True)
+        pred_tok = torch.argmax(torch.cat([tlogits[:, None], win_logits], dim=1), dim=-1)
+        agree = (pred_tok[0, :k] == prop[0]).cpu().numpy()
+        n_accept = int(np.argmin(agree)) if not agree.all() else k
+        new_toks = torch.cat([prop[:, :n_accept], pred_tok[:, n_accept:n_accept + 1]],
+                             dim=1)[:, :max_new_tokens - produced]
+        out = torch.cat([out, new_toks], dim=1)
+        produced += new_toks.shape[1]
+        if eos_token_id is not None and bool((new_toks == eos_token_id).any()):
+            new = out[0, s:]
+            first = int(torch.argmax((new == eos_token_id).int()))
+            new[first + 1:] = eos_token_id
+            break
+        if produced >= max_new_tokens:
+            break
+        # Rewind both caches to the accepted prefix minus its last token and
+        # feed that token again: its row is the only stale one, and the
+        # carried logits come fresh.
+        rewind = torch.tensor(out.shape[1] - 1, dtype=torch.long, device=device)
+        tlogits, tcache = fwd(cfg, params, out[:, -1:], KVCache(tc.k, tc.v, rewind))
+        dlogits, dcache = dfwd(dcfg, dparams, out[:, -1:], KVCache(dc.k, dc.v, rewind))
+
+    if out.shape[1] < s + max_new_tokens:  # EOS ended the loop early
+        pad = eos_token_id if eos_token_id is not None else 0
+        out = torch.cat([out, out.new_full((1, s + max_new_tokens - out.shape[1]), pad)], dim=1)
+    return out[:, :s + max_new_tokens].to(input_ids.dtype)
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values of each row and their indices, equal values
+    in index order (``lax.top_k``'s order)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[:, :k], indices[:, :k]
+
+
+@torch.no_grad()
+def beam_search(model, input_ids, max_new_tokens: int = 32, *, num_beams: int = 4,
+                length_penalty: float = 1.0, eos_token_id: Optional[int] = None,
+                forward_cached: Optional[Callable] = None,
+                decoder_input_ids=None) -> torch.Tensor:
+    """Length-normalised beam search (score ``logprob_sum /
+    len**length_penalty``) over the cached forward of :func:`generate`.
+    The prompt prefills once per row, the cache is tiled to
+    ``B × num_beams`` and reordered along the beam axis every step, and
+    each step keeps the best ``num_beams`` of ``num_beams × V`` candidates.
+    A beam that emits ``eos_token_id`` freezes: its score stops growing and
+    its later tokens are EOS. Returns the best sequence of each row,
+    (B, S + max_new_tokens)."""
+    if decoder_input_ids is not None:
+        raise NotImplementedError(
+            f"encoder-decoder beam search (decoder_input_ids) is not ported yet "
+            f"({_OTHER_MODELS_ITEM}: t5, whisper)")
+    if forward_cached is not None:
+        raise NotImplementedError(
+            f"beam_search(forward_cached=...) is not ported yet: the plan comes from the "
+            f"model's class, and plans other than Llama are {_OTHER_MODELS_ITEM}")
+    module = getattr(model, "module", model)
+    cfg = module.config
+    fwd = _generation_plan(module)
+    params = _decode_params(model)
+    device = _params_device(params)
+    input_ids = torch.as_tensor(input_ids).to(device)
+    b, s = input_ids.shape
+    k = num_beams
+    t_max = s + max_new_tokens
+    max_pos = _cache_dims(cfg)[3]
+    if t_max > max_pos:
+        raise ValueError(f"{t_max} tokens exceeds max_position_embeddings={max_pos}")
+
+    logits, cache = fwd(cfg, params, input_ids.long(), init_cache(cfg, b, t_max, device=device))
+    cand_logp = torch.log_softmax(logits, dim=-1)[:, None, :].expand(b, k, -1)
+    v = cand_logp.shape[-1]
+    cache = KVCache(cache.k.repeat_interleave(k, dim=1), cache.v.repeat_interleave(k, dim=1),
+                    cache.length)
+    # Beam 0 carries the prompt; the others start dead, so the first step
+    # picks k distinct tokens from beam 0's distribution.
+    scores = torch.full((b, k), -float("inf"), device=device)
+    scores[:, 0] = 0.0
+    done = torch.zeros((b, k), dtype=torch.bool, device=device)
+    lengths = torch.zeros((b, k), dtype=torch.long, device=device)
+    tokens = torch.zeros((b, k, max_new_tokens), dtype=torch.long, device=device)
+    not_first = torch.arange(v, device=device) != 0
+    row_base = torch.arange(b, device=device)[:, None] * k
+    for t in range(max_new_tokens):
+        # A frozen beam continues through its slot 0 only, at its score.
+        cand = scores[..., None] + torch.where(done[..., None], 0.0, cand_logp)
+        cand = cand.masked_fill(done[..., None] & not_first, -float("inf"))
+        scores, top_idx = _top_k(cand.reshape(b, k * v), k)
+        beam_idx, tok = top_idx // v, top_idx % v
+        was_done = done.gather(1, beam_idx)
+        lengths = lengths.gather(1, beam_idx)
+        tokens = tokens.gather(1, beam_idx[..., None].expand(-1, -1, max_new_tokens))
+        emit = torch.where(was_done, eos_token_id if eos_token_id is not None else 0, tok)
+        tokens[:, :, t] = emit
+        lengths = torch.where(was_done, lengths, lengths + 1)
+        done = was_done | (emit == eos_token_id) if eos_token_id is not None else was_done
+        flat_beam = (row_base + beam_idx).reshape(-1)
+        cache = KVCache(cache.k.index_select(1, flat_beam), cache.v.index_select(1, flat_beam),
+                        cache.length)
+        if t + 1 < max_new_tokens:
+            logits, cache = fwd(cfg, params, emit.reshape(b * k, 1), cache)
+            cand_logp = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
+
+    final = scores / lengths.clamp_min(1).float() ** length_penalty
+    best = torch.argmax(final, dim=1)
+    best_tokens = tokens[torch.arange(b, device=device), best]
+    return torch.cat([input_ids, best_tokens.to(input_ids.dtype)], dim=1)

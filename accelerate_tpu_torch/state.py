@@ -102,6 +102,10 @@ class PartialState:
             raise ValueError(f"cpu=True needs a gloo process group, got {dist.get_backend()}")
         self._cpu = bool(cpu)
         self._owns_group = owns_group
+        # ACCELERATE_DEBUG_MODE: collectives check their shapes across
+        # processes first (operations.verify_operation).
+        self.debug = os.environ.get("ACCELERATE_DEBUG_MODE", "").lower() in (
+            "1", "y", "yes", "t", "true", "on")
         self.device = device
         self.backend = dist.get_backend() if grouped else None
         self.num_processes = dist.get_world_size() if grouped else 1

@@ -460,16 +460,10 @@ class DataLoaderConfiguration:
             raise ValueError("prefetch_size must be >= 0")
 
 
-_SLO_ITEM = "ROADMAP.md Queue A item 8.3 (admission/SLO and the hang guard)"
 _JOURNAL_ITEM = "ROADMAP.md Queue A item 8.8 (the engine's journal hooks, with item 12)"
 # ServingConfig fields the engine does not act on yet, by ROADMAP item.
 _UNPORTED_SERVING_FIELDS = {
     "enabled": "ROADMAP.md Queue A item 12 (control plane: Accelerator.build_serving_engine)",
-    "cache_dtype": "ROADMAP.md Queue A item 8.1 (int8 KV pages, QuantPages)",
-    "speculate_k": "ROADMAP.md Queue A item 8.2 (speculation)",
-    "speculate_ngram": "ROADMAP.md Queue A item 8.2 (speculation)",
-    "max_queue_depth": _SLO_ITEM, "overload_policy": _SLO_ITEM, "deadline_s": _SLO_ITEM,
-    "max_retries": _SLO_ITEM, "max_idle_ticks": _SLO_ITEM, "window_requests": _SLO_ITEM,
     "journal_dir": _JOURNAL_ITEM, "journal_fsync": _JOURNAL_ITEM,
     "journal_segment_records": _JOURNAL_ITEM,
 }
@@ -491,11 +485,23 @@ class ServingConfig:
       ``pad_token_id``: sampling, engine-wide. ``max_new_tokens`` is the
       default per-request budget. ``seed`` seeds the sampling stream of a
       request submitted without its own generator.
+    - ``cache_dtype``: None (the model's dtype) or ``torch.int8``, which
+      keeps the slot cache as int8 ``QuantPages`` with one fp32 scale per
+      row of the head dim: (D + 4) / (2 D) of a 16-bit cache's bytes.
+    - ``speculate_k``: 0, or the drafts per slot per tick, verified in one
+      ``(n_slots, k + 1)`` forward; ``speculate_ngram`` (>= 2) is the
+      token-history window the n-gram draft matches in.
+    - ``max_queue_depth`` (None: unbounded) and ``overload_policy``
+      (``reject``, ``shed_oldest`` or ``block``): admission control.
+      ``deadline_s``: the default per-request deadline from ``submit``.
+      ``max_retries``: replays of a request after a failed prefill or a
+      quarantined slot before it finishes ``failed``. ``max_idle_ticks``:
+      ticks without progress before ``ServingStalledError``.
+      ``window_requests``: the rolling window of ``window_stats()``.
 
-    The other fields keep the JAX package's names and defaults and raise
-    ``NotImplementedError`` naming their ROADMAP item when set away from
-    them: the int8 KV cache (``cache_dtype``), speculation, admission
-    control and SLOs, the hang guard, and the journal."""
+    ``enabled`` and the journal fields keep the JAX package's names and
+    defaults and raise ``NotImplementedError`` naming their ROADMAP item
+    when set away from them."""
 
     enabled: bool = True
     n_slots: int = 8
@@ -537,3 +543,22 @@ class ServingConfig:
             raise ValueError(
                 "need 1 <= min_prefill_chunk <= max_prefill_chunk, got "
                 f"{self.min_prefill_chunk}..{self.max_prefill_chunk}")
+        if self.cache_dtype is not None and self.cache_dtype != torch.int8:
+            raise ValueError(f"cache_dtype must be None or torch.int8, got {self.cache_dtype!r}")
+        if self.overload_policy not in ("reject", "shed_oldest", "block"):
+            raise ValueError("overload_policy must be 'reject', 'shed_oldest', or "
+                             f"'block', got {self.overload_policy!r}")
+        if self.max_queue_depth is not None and self.max_queue_depth < 1:
+            raise ValueError("max_queue_depth must be >= 1 (or None)")
+        if self.deadline_s is not None and not self.deadline_s > 0:
+            raise ValueError("deadline_s must be > 0 (or None)")
+        if self.max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
+        if self.max_idle_ticks < 1:
+            raise ValueError("max_idle_ticks must be >= 1")
+        if self.window_requests < 1:
+            raise ValueError("window_requests must be >= 1")
+        if self.speculate_k < 0:
+            raise ValueError("speculate_k must be >= 0")
+        if self.speculate_ngram < 2:
+            raise ValueError("speculate_ngram must be >= 2")

@@ -1,12 +1,14 @@
 """Collectives across processes over ``torch.distributed``.
 
-Counterpart of ``accelerate_tpu/utils/operations.py``'s cross-process half:
+Counterpart of ``accelerate_tpu/utils/operations.py``: the collectives
 ``gather``, ``gather_object``, ``broadcast``, ``broadcast_object_list``,
 ``reduce``, ``pad_across_processes``, ``pad_input_tensors`` and ``save``,
-with its semantics. Each takes a tensor, a numpy array or a nested list, tuple or
-dict of them, and gives back the same structure and leaf types. Alone (no
-process group, or a group of one) each is an identity, as in the JAX
-package.
+with its semantics, and the helpers over nested structures
+(``send_to_device``, ``convert_to_fp32``, ``get_data_structure``,
+``listify``, ``verify_operation``, ...). Each takes a tensor, a numpy
+array or a nested list, tuple or dict of them, and gives back the same
+structure and leaf types. Alone (no process group, or a group of one) each
+collective is an identity, as in the JAX package.
 
 The group's backend decides where a collective runs: NCCL on the
 process's GPU (host leaves go there and come back), gloo on the CPU.
@@ -22,6 +24,7 @@ bool check a call) unless step telemetry is on (``telemetry.py``).
 
 from __future__ import annotations
 
+import functools
 from collections.abc import Mapping
 from contextlib import contextmanager
 from contextvars import ContextVar
@@ -123,17 +126,152 @@ def all_reduce(tensor: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.
     return tensor
 
 
-def recursively_apply(func: Callable, data: Any) -> Any:
-    """``func`` on every tensor or numpy leaf of a nested list, tuple or dict;
-    other leaves pass as they are."""
+class DistributedOperationException(Exception):
+    """A collective called with shapes that differ across processes
+    (``verify_operation``)."""
+
+
+def _is_array(x) -> bool:
+    return torch.is_tensor(x) or isinstance(x, np.ndarray)
+
+
+def honor_type(obj, generator):
+    """A sequence of ``obj``'s exact type (a namedtuple too) from
+    ``generator``."""
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*list(generator))
+    return type(obj)(generator)
+
+
+def recursively_apply(func: Callable, data: Any, *args, test_type: Callable = None,
+                      error_on_other_type: bool = False, **kwargs) -> Any:
+    """``func(leaf, *args, **kwargs)`` on every leaf of a nested list,
+    tuple or dict that passes ``test_type`` (default: a tensor or a numpy
+    array); other leaves pass as they are, or raise ``TypeError`` with
+    ``error_on_other_type``."""
+    test_type = test_type or _is_array
     if isinstance(data, (tuple, list)):
-        out = [recursively_apply(func, d) for d in data]
-        return type(data)(*out) if hasattr(data, "_fields") else type(data)(out)
+        return honor_type(data, (recursively_apply(func, d, *args, test_type=test_type,
+                                                   error_on_other_type=error_on_other_type,
+                                                   **kwargs) for d in data))
     if isinstance(data, Mapping):
-        return type(data)({k: recursively_apply(func, v) for k, v in data.items()})
-    if torch.is_tensor(data) or isinstance(data, np.ndarray):
-        return func(data)
+        return type(data)({k: recursively_apply(func, v, *args, test_type=test_type,
+                                                error_on_other_type=error_on_other_type, **kwargs)
+                           for k, v in data.items()})
+    if test_type(data):
+        return func(data, *args, **kwargs)
+    if error_on_other_type:
+        raise TypeError(f"Unsupported type {type(data).__name__}: only nested lists, tuples and "
+                        f"dicts of leaves that satisfy {test_type.__name__} are supported.")
     return data
+
+
+class TensorInformation:
+    """A leaf's shape and dtype (``get_data_structure``)."""
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(shape)
+        self.dtype = dtype
+
+    def __repr__(self):
+        return f"TensorInformation(shape={self.shape}, dtype={self.dtype})"
+
+    def __eq__(self, other):
+        return (isinstance(other, TensorInformation) and self.shape == other.shape
+                and self.dtype == other.dtype)
+
+
+def send_to_device(tensor, device=None, non_blocking: bool = True, skip_keys=None):
+    """Every tensor or numpy leaf as a tensor on ``device`` (default: this
+    process's device); a dict's ``skip_keys`` stay where they are."""
+    device = torch.device(device) if device is not None else _state().device
+
+    def send(t):
+        t = torch.from_numpy(np.ascontiguousarray(t)) if isinstance(t, np.ndarray) else t
+        return t.to(device, non_blocking=non_blocking)
+
+    if isinstance(tensor, Mapping) and skip_keys:
+        return type(tensor)({k: v if k in skip_keys else send_to_device(v, device, non_blocking)
+                             for k, v in tensor.items()})
+    return recursively_apply(send, tensor)
+
+
+def get_data_structure(data):
+    """The structure of ``data`` with a ``TensorInformation`` per leaf."""
+    return recursively_apply(lambda t: TensorInformation(t.shape, t.dtype), data)
+
+
+def get_shape(data):
+    """The structure of ``data`` with each leaf's shape as a list."""
+    return recursively_apply(lambda t: list(t.shape), data)
+
+
+def initialize_tensors(data_structure):
+    """Zeroed tensors from a ``get_data_structure`` skeleton, on this
+    process's device."""
+    return recursively_apply(
+        lambda info: torch.zeros(info.shape, dtype=info.dtype, device=_state().device),
+        data_structure, test_type=lambda x: isinstance(x, TensorInformation))
+
+
+def copy_tensor_to_devices(tensor):
+    """A host tensor on this process's device: each process holds one
+    device, so that is every device of the process (the JAX package's
+    replication over a host's local devices)."""
+    return send_to_device(tensor)
+
+
+def convert_to_fp32(tensor):
+    """Floating leaves upcast (or cast down from float64) to float32."""
+
+    def convert(t):
+        if torch.is_tensor(t):
+            return t.float() if t.is_floating_point() else t
+        return t.astype(np.float32) if np.issubdtype(t.dtype, np.floating) else t
+
+    return recursively_apply(convert, tensor)
+
+
+def convert_outputs_to_fp32(model_forward):
+    """``model_forward`` whose outputs go through ``convert_to_fp32``."""
+
+    @functools.wraps(model_forward)
+    def forward(*args, **kwargs):
+        return convert_to_fp32(model_forward(*args, **kwargs))
+
+    return forward
+
+
+def listify(data):
+    """Tensors and arrays as plain Python lists (for logging)."""
+    return recursively_apply(
+        lambda t: t.detach().cpu().tolist() if torch.is_tensor(t) else t.tolist(), data)
+
+
+def verify_operation(function):
+    """A collective that first checks, in debug mode (``PartialState.debug``,
+    ``ACCELERATE_DEBUG_MODE``) over more than one process, that every
+    process passes leaves of the same shapes, and raises
+    ``DistributedOperationException`` naming the processes that differ."""
+
+    @functools.wraps(function)
+    def wrapper(*args, **kwargs):
+        state = _state()
+        if not getattr(state, "debug", False) or state.num_processes <= 1:
+            return function(*args, **kwargs)
+        tensor = kwargs.get("tensor", args[0] if args else None)
+        output = gather_object([get_shape(tensor)])
+        if output[0] is not None and not all(o == output[0] for o in output):
+            bad = [i for i, o in enumerate(output) if o != output[0]]
+            raise DistributedOperationException(
+                "Cannot apply the desired operation due to shape mismatches. All shapes "
+                f"across devices must be valid.\n\nOperation: `{function.__name__}`\n"
+                "Input shapes:\n" + "\n".join(f"  - Process {i}: {o}"
+                                               for i, o in enumerate(output))
+                + f"\nMismatched processes: {bad}")
+        return function(*args, **kwargs)
+
+    return wrapper
 
 
 def is_array_tree(data: Any) -> bool:
@@ -329,9 +467,12 @@ def find_batch_size(data) -> int:
     raise TypeError(f"Cannot find the batch size of {type(data).__name__}")
 
 
-def slice_tensors(data, start: int, stop: int):
+def iterate_over_batch(data, start: int, stop: int):
     """Rows ``start:stop`` of every leaf."""
     return recursively_apply(lambda t: t[start:stop], data)
+
+
+slice_tensors = iterate_over_batch
 
 
 def concatenate(data: list, dim: int = 0):

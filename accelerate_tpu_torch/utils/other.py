@@ -13,6 +13,10 @@ which also fsync), small ones through Python file I/O.
 Tensors are torch tensors on the host (numpy arrays are accepted when
 saving). A load can land in pinned host memory, from which a copy to the
 card runs asynchronously.
+
+Also the small helpers of ``accelerate_tpu/utils/other.py``:
+``convert_bytes``, ``get_free_port``, ``merge_dicts``,
+``extract_model_from_parallel`` and ``wait_for_everyone``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import socket
 from typing import Any, Mapping
 
 import numpy as np
@@ -244,3 +249,52 @@ def load_sharded_safetensors(directory: str, weights_name: str = "model.safetens
     else:
         raise FileNotFoundError(f"No {weights_name} or index found in {directory}")
     return state
+
+
+def convert_bytes(size: float) -> str:
+    """Bytes in human units of 1024 (``"1.50 KB"``)."""
+    for unit in ["B", "KB", "MB", "GB", "TB"]:
+        if abs(size) < 1024.0:
+            return f"{size:.2f} {unit}"
+        size /= 1024.0
+    return f"{size:.2f} PB"
+
+
+def get_free_port() -> int:
+    """A TCP port free on this host now (for a ``tcp://localhost`` group)."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
+
+
+def merge_dicts(source: dict, destination: dict) -> dict:
+    """``source`` merged into ``destination`` in place, nested dicts key by
+    key; returns ``destination``."""
+    for key, value in source.items():
+        if isinstance(value, dict):
+            merge_dicts(value, destination.setdefault(key, {}))
+        else:
+            destination[key] = value
+    return destination
+
+
+def extract_model_from_parallel(model, keep_fp32_wrapper: bool = True, recursive: bool = False):
+    """The user's model from a prepared one. ``prepare`` hands back the
+    user's ``Model`` itself, so only a ``DistributedDataParallel`` wrapper
+    goes (of a module passed alone, and with ``recursive`` of its
+    submodules)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    while isinstance(model, DistributedDataParallel):
+        model = model.module
+    if recursive and isinstance(model, torch.nn.Module):
+        for name, child in list(model.named_children()):
+            setattr(model, name, extract_model_from_parallel(child, recursive=True))
+    return model
+
+
+def wait_for_everyone() -> None:
+    """A barrier over every process (nothing alone)."""
+    from ..state import PartialState
+
+    PartialState().wait_for_everyone()

@@ -192,6 +192,41 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    each within ``DP_REL_TOL`` of phase 4's loss and grad norm, DDP
    exactly under ``NO_SHARD``, each kernel launched once per layer.
 
+16. serving, the rest. (a) The tiny fp32 Llama on the card and on the
+   CPU: the engine greedy at speculate_k 0, 2 and 4 and over int8 KV pages
+   (card tokens against the CPU's under the near-tie rule, the speculative
+   rows against the k=0 rows), sampled speculation at k 2 and 4 in two
+   slot orders (each request's tokens follow its generator), the int8
+   codes and scales of one tensor on both devices bit for bit,
+   speculative_generate, and beam_search at 1 beam (greedy generate's
+   tokens) and 4. (b) Phase 8's 1.06B bf16 Llama, 8 slots: phase 8's trace
+   and the same arrivals with repetitive prompts (an 8-token motif
+   repeated 8 times: templated code, logs, JSON), each at speculate_k 0
+   and 4 (speculate_ngram 16): every status ok, drafted >= accepted and the
+   rows' counts summing to stats()["speculation"], the k=4 greedy rows
+   equal to the k=0 rows up to a tie gap derived in the run from three
+   forward paths over the same rows (``bf16_tie_gap``), acceptance on the
+   repetitive trace above 0; acceptance, tokens per tick, tok/s, TTFT and
+   the decode tick's host and device ms and idle share. (c) Phase 8's
+   trace over int8 KV pages: every status ok, the cache's bytes exactly
+   (D + 4) / (2 D) of the bf16 cache's, the first decode step's logits
+   within ``INT8_LOGIT_REL`` of the bf16 cache's; tok/s, the tick, peak
+   memory, the share of greedy tokens equal to the bf16 run's and the
+   device ms the eager dequantization adds to a tick. (d) One engine: a
+   burst of 32 requests before the first tick into a queue of 8 under
+   ``reject``, ``shed_oldest`` and ``block`` (the shed requests are the
+   ones ``expected_shed`` names), deadlines that expire mid-decode (those
+   requests ``timeout``, their slots reused), NaN in one live slot's KV
+   rows (quarantined, the request retried and ``ok`` with a clean run's
+   greedy tokens) and every live slot poisoned (``ServingStalledError``
+   within ``max_idle_ticks`` ticks); each faults block and window. (e)
+   bench.py's decode row through speculative_generate with the target as
+   its own draft and with a 2-layer draft (tokens equal to greedy
+   generate's up to the tie gap; target passes, ms per token beside
+   phase 7's) and beam_search with 4 beams (its length-normalised score at
+   least greedy's, within ``BEAM_SCORE_REL``). No flash kernel is on this
+   path; its launches, counted from zero, are in the kernel summary.
+
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
 """
@@ -2933,6 +2968,586 @@ def precision_phase(hf, phase5, bf16_syncs=None, dp_fp16=None, device="cuda",
             "bf16_syncs": bf16_syncs, "checks": checks, "ok": checks["ok"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: serving, the rest
+# ---------------------------------------------------------------------------
+
+SERVING_REST = dict(
+    spec_k=4, spec_ngram=16, motif=8, motif_repeats=8,      # (b)
+    burst=32, queue_depth=8, burst_prompt=16, burst_budget=8,  # (d)
+    deadline_s=1.5, deadline_budget=200, idle_ticks=5, poison_budget=16,
+    draft_layers=2, draft_tokens=4, beams=4,                  # (e)
+    tie_rows=2)
+# (c): the first decode step's logits over int8 pages against the bf16
+# cache's, as the relative L2 error of the whole (slots, vocab) block.
+INT8_LOGIT_REL = 5e-2
+# (e): beam search's length-normalised log-probability may fall below
+# greedy's by this much relative (both recomputed by one teacher-forced
+# bf16 forward) and still pass.
+BEAM_SCORE_REL = 1e-3
+
+
+def expected_shed(policy, n, cap):
+    """The indices shed when ``n`` requests reach a queue of ``cap`` before
+    the first tick: ``reject`` sheds the ones that find it full,
+    ``shed_oldest`` the oldest, ``block`` none (submit ticks until there is
+    room)."""
+    over = max(0, n - cap)
+    return {"reject": list(range(cap, n)) if over else [],
+            "shed_oldest": list(range(over)), "block": []}[policy]
+
+
+def int8_bytes_ok(int8_bytes, bf16_bytes, head_dim) -> bool:
+    """int8 pages (codes plus one fp32 scale per row of the head dim) take
+    exactly (D + 4) / (2 D) of a 16-bit cache's bytes."""
+    return int8_bytes * 2 * head_dim == bf16_bytes * (head_dim + 4)
+
+
+def speculation_counts_ok(rows, block) -> bool:
+    """Every row drafted at least what it accepted, and the rows' counts
+    sum to the engine's speculation block."""
+    return (all(r["drafted"] >= r["accepted"] for r in rows)
+            and sum(r["drafted"] for r in rows) == block["drafted"]
+            and sum(r["accepted"] for r in rows) == block["accepted"])
+
+
+def _drain(engine) -> dict:
+    """Tick until nothing is pending: every poll row by id."""
+    rows = {r["id"]: r for r in engine.poll()}
+    while engine.pending:
+        engine.tick()
+        rows.update((r["id"], r) for r in engine.poll())
+    return rows
+
+
+def _engine_rows(engine, prompts, budgets):
+    """Submit every prompt, tick until drained: the poll rows in order."""
+    ids = [engine.submit(p, max_new_tokens=int(b)) for p, b in zip(prompts, budgets)]
+    rows = _drain(engine)
+    return [rows[i] for i in ids]
+
+
+def _replay_rows(engine, prompts, arrivals, budgets):
+    """``replay_trace`` that keeps every poll row (status, counts): the
+    rows in input order and the wall time."""
+    from accelerate_tpu_torch.serving import replay_trace
+
+    ids, seen = [], {}
+    submit, poll = engine.submit, engine.poll
+
+    def submit_and_keep(*args, **kwargs):
+        ids.append(submit(*args, **kwargs))
+        return ids[-1]
+
+    def poll_and_keep():
+        out = poll()
+        seen.update((r["id"], r) for r in out)
+        return out
+
+    engine.submit, engine.poll = submit_and_keep, poll_and_keep
+    try:
+        _, wall = replay_trace(engine, prompts, arrivals=list(arrivals),
+                               max_new_tokens=[int(b) for b in budgets])
+    finally:
+        del engine.submit, engine.poll
+    order = sorted(range(len(prompts)), key=lambda i: float(arrivals[i]))
+    by_input = dict(zip(order, ids))
+    return [seen[by_input[i]] for i in range(len(prompts))], wall
+
+
+def _row_gaps(cfg, model, row, prompt_len, device):
+    """Top-2 logit gaps over a row's new tokens, from one teacher-forced
+    prefill."""
+    import torch
+
+    t = torch.as_tensor(row[None]).long().to(device)
+    return _greedy_gaps(cfg, model, t, prompt_len)[0]
+
+
+def tiny_serving_rest_parity(device="cuda"):
+    """(a) The tiny fp32 Llama on the card and on the CPU: the engine at
+    speculate_k 0, 2 and 4 greedy and over int8 pages, sampled speculation
+    in two slot orders, int8 codes of one tensor on both devices,
+    speculative_generate and beam_search."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import (ServingConfig, ServingEngine, beam_search, generate,
+                                      speculative_generate)
+    from accelerate_tpu_torch.generation import quantize_kv_page
+
+    cfg, cpu_model = _tiny_module("cpu")
+    _, card_model = _tiny_module(device)
+    rng = np.random.default_rng(4)
+    lengths, budgets = [5, 12, 20, 7, 16, 9], [10, 7, 8, 12, 9, 6]
+    prompts = [np.resize(rng.integers(1, cfg.vocab_size, 3), n) if i % 2
+               else rng.integers(1, cfg.vocab_size, n) for i, n in enumerate(lengths)]
+    base = dict(n_slots=3, max_len=28, prefill_chunks=[4, 8], speculate_ngram=8)
+
+    def run(model, **kw):
+        return _engine_rows(ServingEngine(model, ServingConfig(**base, **kw)), prompts, budgets)
+
+    out, card = {"card_vs_cpu": {}, "spec_vs_k0": {}}, {}
+    for name, kw in {"k0": {}, "k2": dict(speculate_k=2), "k4": dict(speculate_k=4),
+                     "int8": dict(cache_dtype=torch.int8)}.items():
+        ref, got = run(cpu_model, **kw), run(card_model, **kw)
+        card[name] = got
+        out["card_vs_cpu"][name] = [
+            first_divergence([list(r["tokens"][len(p):])], [list(g["tokens"][len(p):])],
+                             [_row_gaps(cfg, cpu_model, r["tokens"], len(p), "cpu")])[0]
+            for p, r, g in zip(prompts, ref, got)]
+        out[f"{name}_ok"] = all(r["status"] == "ok" for r in got)
+    for name in ("k2", "k4"):
+        out["spec_vs_k0"][name] = [
+            first_divergence([list(a["tokens"][len(p):])], [list(b["tokens"][len(p):])],
+                             [_row_gaps(cfg, card_model, a["tokens"], len(p), device)])[0]
+            for p, a, b in zip(prompts, card["k0"], card[name])]
+        out[f"{name}_accepted"] = sum(r["accepted"] for r in card[name])
+
+    out["sampled_follow_generators"] = {}
+    for k in (2, 4):
+        scfg = ServingConfig(**base, speculate_k=k, temperature=0.9, top_k=40)
+        runs = []
+        for order in (list(range(6)), [5, 3, 1, 0, 2, 4]):
+            engine = ServingEngine(card_model, scfg)
+            ids = [engine.submit(prompts[i], max_new_tokens=budgets[i],
+                                 generator=torch.Generator(device=device).manual_seed(100 + i))
+                   for i in order]
+            rows = _drain(engine)
+            runs.append({i: rows[rid]["tokens"].tolist() for i, rid in zip(order, ids)})
+        out["sampled_follow_generators"][f"k{k}"] = runs[0] == runs[1]
+
+    x = np.random.default_rng(5).standard_normal((3, 4, 2, 128)).astype(np.float32) * 3
+    x[0, 0, 0] = 0.0
+    x[0, 1, 0, :16] = np.asarray([127, -127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5, 126.5,
+                                  -126.5, 0, 4.5, 5.5, -3.5, 64.5]) * 2.0 ** -3
+    x[0, 1, 0, 16:] = 0.0
+    codes = {}
+    for name, t in {"halves": torch.from_numpy(x),
+                    "bf16_rows": torch.from_numpy(x).bfloat16()}.items():
+        a, b = quantize_kv_page(t), quantize_kv_page(t.to(device))
+        codes[name] = (torch.equal(a.data, b.data.cpu()) and torch.equal(a.scale, b.scale.cpu()))
+    out["int8_codes_bit_equal"] = codes
+
+    prompt = rng.integers(1, cfg.vocab_size, (1, 12))
+    ref = generate(cpu_model, prompt, max_new_tokens=16)
+    gaps = _greedy_gaps(cfg, cpu_model, ref, 12)
+    spec = {dev: speculative_generate(m, m, prompt, 16, num_draft_tokens=3).cpu()
+            for dev, m in (("cpu", cpu_model), ("card", card_model))}
+    out["speculative_generate"] = first_divergence(
+        ref[:, 12:].tolist(), spec["card"][:, 12:].tolist(), gaps)
+    out["speculative_generate_cpu_equal"] = torch.equal(spec["cpu"], ref)
+    card_greedy = generate(card_model, prompt, max_new_tokens=16).cpu()
+    beams = {n: beam_search(card_model, prompt, 16, num_beams=n).cpu() for n in (1, 4)}
+    out["beam1_vs_greedy"] = first_divergence(card_greedy[:, 12:].tolist(),
+                                              beams[1][:, 12:].tolist(), gaps)
+    out["beam4_card_equals_cpu"] = torch.equal(
+        beams[4], beam_search(cpu_model, prompt, 16, num_beams=4))
+    return out
+
+
+def tiny_rest_ok(res) -> bool:
+    return (all(parity_ok(v) for v in res["card_vs_cpu"].values())
+            and all(parity_ok(v) for v in res["spec_vs_k0"].values())
+            and all(res[f"{n}_ok"] for n in ("k0", "k2", "k4", "int8"))
+            and all(res["sampled_follow_generators"].values())
+            and all(res["int8_codes_bit_equal"].values())
+            and parity_ok(res["speculative_generate"]) and parity_ok(res["beam1_vs_greedy"]))
+
+
+def _windowed_logits(cfg, model, row, prompt_len, width, device):
+    """fp32 logits predicting row[prompt_len:] from the prompt's prefill
+    and then windows of ``width`` tokens (width 1: the one-token decode
+    path; width k+1: the verify forward's shape)."""
+    import torch
+
+    from accelerate_tpu_torch import generation as gen
+
+    ids = torch.as_tensor(row[None]).long().to(device)
+    t = ids.shape[1]
+    cache = gen.init_cache(cfg, 1, t + width, device=device)
+    logits, cache = gen._llama_forward_cached(cfg, model, ids[:, :prompt_len], cache)
+    out = [logits]
+    pos = prompt_len
+    while pos < t - 1:
+        chunk = ids[:, pos:min(pos + width, t - 1)]
+        logits, cache = gen._llama_forward_cached(cfg, model, chunk, cache, return_all=True)
+        out.extend(logits[:, j] for j in range(chunk.shape[1]))
+        pos += chunk.shape[1]
+    return torch.stack(out, dim=1)[0]  # (new tokens, V)
+
+
+def bf16_tie_gap(cfg, model, rows, prompt_lens, k, device):
+    """The bf16 tie gap, from this run: over sample rows, the largest
+    difference ``delta`` of one logit computed by two of three paths (one
+    prefill over the row, which the gaps come from; the one-token decode
+    path; (k+1)-token windows). A k row can part from its 0 row where the
+    one-token and window paths swap the top two (a gap under 2 delta by the
+    one-token path), which the prefill path sees under 4 delta. Returns
+    (4 delta, delta)."""
+    import torch
+
+    from accelerate_tpu_torch import generation as gen
+
+    delta = 0.0
+    for row, p in zip(rows, prompt_lens):
+        ids = torch.as_tensor(row[None]).long().to(device)
+        full, _ = gen._llama_forward_cached(cfg, model, ids, gen.init_cache(
+            cfg, 1, ids.shape[1], device=device), return_all=True)
+        paths = [full[0, p - 1:-1], _windowed_logits(cfg, model, row, p, 1, device),
+                 _windowed_logits(cfg, model, row, p, k + 1, device)]
+        delta = max(delta, *(float((a - b).abs().max())
+                             for a, b in ((paths[0], paths[1]), (paths[1], paths[2]))))
+    return 4 * delta, delta
+
+
+def speculation_at_width(module, row=SERVING_ROW, rest=SERVING_REST, device="cuda"):
+    """(b) The engine at speculate_k 0 and k on phase 8's trace and on the
+    same arrivals with repetitive prompts (a motif repeated), with decode
+    ticks profiled on phase 8's trace; the k runs' greedy rows against the
+    0 runs' under the bf16 tie gap derived here."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Model, ServingConfig, ServingEngine
+
+    cfg, vocab, k = module.config, module.config.vocab_size, rest["spec_k"]
+    lengths, budgets, prompts, arrivals = serving_trace(vocab, **row)
+    rng = np.random.default_rng(16)
+    motifs = [np.tile(rng.integers(1, vocab, rest["motif"]), rest["motif_repeats"])
+              for _ in prompts]
+    runs, engines = {}, {}
+    for trace, trace_prompts in (("phase8", prompts), ("repetitive", motifs)):
+        t_cap = int(max(len(p) + b for p, b in zip(trace_prompts, budgets))) + 8
+        for kk in (0, k):
+            engine = ServingEngine(Model(module), ServingConfig(
+                n_slots=row["slots"], max_len=t_cap, max_prefill_chunk=max(16, row["prompt_len"]),
+                speculate_k=kk, speculate_ngram=rest["spec_ngram"]))
+            engine.warmup()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rows, wall = _replay_rows(engine, trace_prompts, arrivals, budgets)
+            stats = engine.stats()
+            runs[trace, kk] = {
+                "rows": rows, "wall_s": wall, "tok_s": stats["tokens_out"] / wall,
+                "ttft_p50_s": stats["ttft_p50_s"], "ttft_p95_s": stats["ttft_p95_s"],
+                "speculation": stats["speculation"], "decode_steps": stats["decode_steps"],
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "statuses_ok": all(r["status"] == "ok" for r in rows),
+                "counts_ok": speculation_counts_ok(rows, stats["speculation"])}
+            if trace == "phase8":
+                runs[trace, kk]["decode_ticks"] = decode_tick_profile(engine, vocab)
+                engines[kk] = engine
+    # The tie gap from the run, and each k row's first parting from its 0 row.
+    sample = runs["phase8", 0]["rows"][:rest["tie_rows"]]
+    tie_gap, delta = bf16_tie_gap(cfg, module, [r["tokens"] for r in sample],
+                                  [len(p) for p in prompts[:rest["tie_rows"]]], k, device)
+    divergences = {}
+    for trace, trace_prompts in (("phase8", prompts), ("repetitive", motifs)):
+        out = []
+        for p, a, b in zip(trace_prompts, runs[trace, 0]["rows"], runs[trace, k]["rows"]):
+            new_a, new_b = list(a["tokens"][len(p):]), list(b["tokens"][len(p):])
+            if new_a == new_b:
+                out.append(None)
+                continue
+            gaps = _row_gaps(cfg, module, a["tokens"], len(p), device)
+            out.append(first_divergence([new_a], [new_b], [gaps], tie_gap=tie_gap)[0])
+        divergences[trace] = out
+    report = {f"{trace}_k{kk}": {key: v for key, v in r.items() if key != "rows"}
+              for (trace, kk), r in runs.items()}
+    checks = {
+        "statuses_ok": all(r["statuses_ok"] for r in runs.values()),
+        "counts_ok": all(r["counts_ok"] for r in runs.values()),
+        "greedy_rows_equal_k0": all(parity_ok(v) for v in divergences.values()),
+        "repetitive_acceptance": (runs["repetitive", k]["speculation"]["acceptance_rate"]
+                                  or 0) > 0}
+    return {"runs": report, "bf16_tie_gap": tie_gap, "bf16_logit_delta": delta,
+            "divergences": divergences, "checks": checks,
+            "_rows": runs["phase8", 0]["rows"], "_engine": engines[0], "_trace": (
+                lengths, budgets, prompts, arrivals)}
+
+
+def int8_pages_at_width(module, bf16, row=SERVING_ROW, device="cuda"):
+    """(c) Phase 8's trace over int8 KV pages beside (b)'s bf16 k=0 run:
+    statuses, the cache's bytes, the first decode step's logits against
+    the bf16 cache's, tok/s, ticks, peak memory and agreeing tokens."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Model, ServingConfig, ServingEngine
+    from accelerate_tpu_torch import generation as gen
+
+    cfg, vocab = module.config, module.config.vocab_size
+    lengths, budgets, prompts, arrivals = bf16["_trace"]
+    ref_engine = bf16["_engine"]
+    engine = ServingEngine(Model(module), ServingConfig(
+        n_slots=row["slots"], max_len=ref_engine.t_max,
+        max_prefill_chunk=max(16, row["prompt_len"]), cache_dtype=torch.int8))
+    engine.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, wall = _replay_rows(engine, prompts, arrivals, budgets)
+    stats = engine.stats()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ticks = decode_tick_profile(engine, vocab)
+    int8_bytes = engine._cache.k.nbytes + engine._cache.v.nbytes
+    bf16_bytes = ref_engine._cache.k.nbytes + ref_engine._cache.v.nbytes
+
+    # The first decode step after a prefill of 8 prompts of 64 tokens, fed
+    # the same tokens (the bf16 cache's greedy ones) over both caches.
+    ids = torch.from_numpy(np.random.default_rng(17).integers(
+        1, vocab, (row["slots"], 64))).to(device)
+    logits, nxt = {}, None
+    for name, dtype in (("bf16", None), ("int8", torch.int8)):
+        cache = gen.init_cache(cfg, row["slots"], 72, dtype=dtype, device=device)
+        first, cache = gen._llama_forward_cached(cfg, module, ids, cache)
+        nxt = torch.argmax(first, -1)[:, None] if nxt is None else nxt
+        logits[name], _ = gen._llama_forward_cached(cfg, module, nxt, cache)
+    diff = logits["int8"] - logits["bf16"]
+    rel = float(diff.norm() / logits["bf16"].norm())
+    new = [(a["tokens"][len(p):], b["tokens"][len(p):])
+           for p, a, b in zip(prompts, bf16["_rows"], rows)]
+    agree = float(np.mean(np.concatenate([a == b for a, b in new])))
+    bf16_ticks = bf16["runs"]["phase8_k0"]["decode_ticks"]
+    return {
+        "tok_s": stats["tokens_out"] / wall, "bf16_tok_s": bf16["runs"]["phase8_k0"]["tok_s"],
+        "ttft_p50_s": stats["ttft_p50_s"], "ttft_p95_s": stats["ttft_p95_s"],
+        "peak_mem_gib": peak, "bf16_peak_mem_gib": bf16["runs"]["phase8_k0"]["peak_mem_gib"],
+        "cache_bytes": int8_bytes, "bf16_cache_bytes": bf16_bytes,
+        "bytes_ratio": int8_bytes / bf16_bytes,
+        "bytes_ratio_expected": (cfg.head_dim + 4) / (2 * cfg.head_dim),
+        "first_decode_logits_rel_err": rel, "first_decode_logits_max_abs_err":
+            float(diff.abs().max()), "rel_err_limit": INT8_LOGIT_REL,
+        "greedy_tokens_agree_bf16": agree, "decode_ticks": ticks,
+        "dequant_device_ms_per_tick": (
+            ticks["device_busy_ms_per_tick"] - bf16_ticks["device_busy_ms_per_tick"]),
+        "checks": {"statuses_ok": all(r["status"] == "ok" for r in rows),
+                   "bytes_ratio": int8_bytes_ok(int8_bytes, bf16_bytes, cfg.head_dim),
+                   "first_decode_logits": rel <= INT8_LOGIT_REL}}
+
+
+def admission_at_width(module, tie_gap, row=SERVING_ROW, rest=SERVING_REST, device="cuda"):
+    """(d) Admission control and the fault paths on one engine at full
+    width: a burst into a bounded queue under each policy, deadlines that
+    expire mid-decode, NaN in a live slot's cache rows, then every live
+    slot poisoned until the hang guard raises."""
+    import dataclasses
+
+    import numpy as np
+
+    from accelerate_tpu_torch import Model, ServingConfig, ServingEngine, ServingStalledError
+
+    cfg, vocab = module.config, module.config.vocab_size
+    rng = np.random.default_rng(18)
+    engine = ServingEngine(Model(module), ServingConfig(
+        n_slots=row["slots"], max_len=rest["burst_prompt"] + rest["deadline_budget"] + 8))
+    engine.warmup()
+    out, checks = {"burst": {}}, {}
+
+    def configure(**kw):
+        engine.config = dataclasses.replace(engine.config, **kw)
+        engine.reset_metrics()
+
+    burst = [rng.integers(1, vocab, rest["burst_prompt"]) for _ in range(rest["burst"])]
+    for policy in ("reject", "shed_oldest", "block"):
+        configure(max_queue_depth=rest["queue_depth"], overload_policy=policy)
+        rows = _engine_rows(engine, burst, [rest["burst_budget"]] * rest["burst"])
+        shed = [i for i, r in enumerate(rows) if r["status"] == "shed"]
+        out["burst"][policy] = {"shed": shed, "faults": engine.fault_stats(),
+                                "window": engine.window_stats()}
+        checks[f"burst_{policy}"] = (
+            shed == expected_shed(policy, rest["burst"], rest["queue_depth"])
+            and all(r["status"] == "ok" for i, r in enumerate(rows) if i not in shed))
+
+    configure(max_queue_depth=None)
+    n = row["slots"]
+    timed = [rng.integers(1, vocab, rest["burst_prompt"]) for _ in range(n)]
+    ids = [engine.submit(p, max_new_tokens=rest["deadline_budget"],
+                         deadline_s=rest["deadline_s"]) for p in timed]
+    after = [engine.submit(p, max_new_tokens=rest["burst_budget"]) for p in burst[:n]]
+    done = _drain(engine)
+    dl, rows = [done[i] for i in ids], [done[i] for i in after]
+    stats = engine.stats()
+    out["deadline"] = {"new_tokens": [r["new_tokens"] for r in dl],
+                       "statuses": [r["status"] for r in dl],
+                       "slot_reuses": stats["slot_reuses"], "faults": engine.fault_stats(),
+                       "window": engine.window_stats()}
+    checks["deadline"] = (len(dl) == n and all(r["status"] == "timeout" for r in dl)
+                          and any(0 < r["new_tokens"] < rest["deadline_budget"] for r in dl)
+                          and all(r["status"] == "ok" for r in rows)
+                          and stats["slot_reuses"] >= n)
+
+    configure()
+    victims = burst[:4]
+    clean = _engine_rows(engine, victims, [rest["poison_budget"]] * 4)
+    ids = [engine.submit(p, max_new_tokens=rest["poison_budget"]) for p in victims]
+    while engine._queue or engine._prefilling:
+        engine.tick()
+    engine.tick()
+    slot = next(s for s, r in engine._decoding.items() if r.id == ids[0])
+    engine._cache.k[:, slot] = float("nan")
+    engine._cache.v[:, slot] = float("nan")
+    done = _drain(engine)
+    got = [done[i] for i in ids]
+    div = [first_divergence([list(c["tokens"][len(p):])], [list(g["tokens"][len(p):])],
+                            [_row_gaps(cfg, module, c["tokens"], len(p), device)],
+                            tie_gap=tie_gap)[0]
+           if list(c["tokens"]) != list(g["tokens"]) else None
+           for p, c, g in zip(victims, clean, got)]
+    out["poison"] = {"slot": slot, "attempts": [r["attempt"] for r in got],
+                     "statuses": [r["status"] for r in got], "divergence": div,
+                     "faults": engine.fault_stats(), "window": engine.window_stats()}
+    checks["poison"] = (all(r["status"] == "ok" for r in got) and got[0]["attempt"] == 2
+                        and parity_ok(div) and engine.fault_stats()["slot_quarantines"] == 1)
+
+    configure(max_idle_ticks=rest["idle_ticks"])
+    live = len(engine._free)
+    for p in burst[:live]:
+        engine.submit(p, max_new_tokens=rest["deadline_budget"])
+    while engine._queue or engine._prefilling:
+        engine.tick()
+    for s in list(engine._decoding):
+        engine._cache.k[:, s] = float("nan")
+        engine._cache.v[:, s] = float("nan")
+    ticks, error = 0, None
+    try:
+        while engine.pending and ticks <= 10 * rest["idle_ticks"]:
+            ticks += 1
+            engine.tick()
+    except ServingStalledError as exc:
+        error = str(exc)
+    out["stall"] = {"ticks_to_raise": ticks, "error": error, "faults": engine.fault_stats(),
+                    "window": engine.window_stats()}
+    checks["stall"] = error is not None and ticks <= 1 + rest["idle_ticks"] and \
+        f"{row['slots']}/{row['slots']} slots quarantined" in error
+    out["checks"] = checks
+    return out
+
+
+def _sequence_score(cfg, model, row, prompt_len, length_penalty=1.0):
+    """A sequence's length-normalised log-probability from one
+    teacher-forced forward."""
+    import torch
+
+    from accelerate_tpu_torch import generation as gen
+
+    ids = row.long()
+    logits, _ = gen._llama_forward_cached(cfg, model, ids, gen.init_cache(
+        cfg, 1, ids.shape[1], device=ids.device), return_all=True)
+    logp = torch.log_softmax(logits[0, prompt_len - 1:-1], dim=-1)
+    new = ids[0, prompt_len:]
+    return float(logp.gather(1, new[:, None]).sum()) / new.numel() ** length_penalty
+
+
+def generation_rest_at_width(module, tie_gap, rest=SERVING_REST, device="cuda",
+                             width=FULL_WIDTH, n_new=GEN_NEW_TOKENS, prompt_len=GEN_PROMPT):
+    """(e) bench.py's decode row (prompt (1, 64), 32 new tokens) through
+    speculative_generate with the target as its own draft and with a
+    2-layer draft, and through beam_search: tokens against greedy
+    generate(), target passes and ms per token."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import beam_search, generate, speculative_generate
+    from accelerate_tpu_torch import generation as gen
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = module.config
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, prompt_len))).to(device)
+
+    def timed(fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / n_new
+
+    greedy, greedy_ms = timed(lambda: generate(module, prompt, max_new_tokens=n_new))
+    gaps = _row_gaps(cfg, module, greedy[0].cpu().numpy(), prompt_len, device)
+    dcfg = LlamaConfig(**dict(width, num_hidden_layers=rest["draft_layers"]),
+                       max_position_embeddings=cfg.max_position_embeddings, dtype=cfg.dtype)
+    draft = LlamaForCausalLM(dcfg, device=device)
+    draft.init_weights(torch.Generator(device=device).manual_seed(1))
+    draft.to(cfg.dtype)
+    plan = gen.GENERATION_PLANS["LlamaForCausalLM"]
+    out = {"greedy_ms_per_token": greedy_ms}
+    for name, d in (("self_draft", module), ("small_draft", draft)):
+        windows = [0]
+
+        def counted(*args, **kw):
+            windows[0] += bool(kw.get("return_all"))
+            return plan(*args, **kw)
+
+        gen.GENERATION_PLANS["LlamaForCausalLM"] = counted
+        try:
+            got, ms = timed(lambda: speculative_generate(
+                module, d, prompt, n_new, num_draft_tokens=rest["draft_tokens"]))
+        finally:
+            gen.GENERATION_PLANS["LlamaForCausalLM"] = plan
+        # Per call (the warm-up's and the timed one's windows are counted):
+        # the prefill, each window, and a rewind after every window but the
+        # last.
+        per_call = windows[0] // 2
+        out[name] = {"ms_per_token": ms, "target_passes": 2 * per_call, "windows": per_call,
+                     "divergence": first_divergence(
+                         greedy[:, prompt_len:].tolist(), got[:, prompt_len:].tolist(), [gaps],
+                         tie_gap=tie_gap)[0]}
+    del draft
+    beams, beam_ms = timed(lambda: beam_search(module, prompt, n_new, num_beams=rest["beams"]))
+    scores = {"beam": _sequence_score(cfg, module, beams, prompt_len),
+              "greedy": _sequence_score(cfg, module, greedy, prompt_len)}
+    out["beam_search"] = {"ms_per_token": beam_ms, "num_beams": rest["beams"],
+                          "score": scores["beam"], "greedy_score": scores["greedy"],
+                          "equals_greedy": torch.equal(beams, greedy)}
+    out["checks"] = {
+        "self_draft": out["self_draft"]["divergence"] is None
+        or out["self_draft"]["divergence"]["near_tie"],
+        "small_draft": out["small_draft"]["divergence"] is None
+        or out["small_draft"]["divergence"]["near_tie"],
+        "beam_score": scores["beam"] >= scores["greedy"] - BEAM_SCORE_REL * abs(scores["greedy"])}
+    return out
+
+
+def serving_rest_phase(hf, phase7=None, device="cuda", width=FULL_WIDTH, row=SERVING_ROW,
+                       rest=SERVING_REST):
+    """Phase 16: (a) tiny parity on the card; (b)-(e) at full width with
+    phase 8's 1.06B bf16 Llama (weights from seed 0). No flash kernel lies
+    on this path: the launches, counted from zero, are printed."""
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    t0 = time.perf_counter()
+    hf.reset_launch_counts()
+    tiny = tiny_serving_rest_parity(device)
+    cfg = LlamaConfig(**width, max_position_embeddings=2048, dtype=torch.bfloat16)
+    module = LlamaForCausalLM(cfg, device=device)
+    module.init_weights(torch.Generator(device=device).manual_seed(0))
+    module.to(torch.bfloat16)
+    spec = speculation_at_width(module, row, rest, device)
+    tie_gap = spec["bf16_tie_gap"]
+    int8 = int8_pages_at_width(module, spec, row, device)
+    for key in ("_rows", "_engine", "_trace"):
+        spec.pop(key)
+    admission = admission_at_width(module, tie_gap, row, rest, device)
+    generation = generation_rest_at_width(module, tie_gap, rest, device, width)
+    launches = dict(hf.VARIANT_LAUNCHES)
+    checks = {"tiny": tiny_rest_ok(tiny),
+              **{f"speculation_{k}": v for k, v in spec["checks"].items()},
+              **{f"int8_{k}": v for k, v in int8["checks"].items()},
+              **{f"admission_{k}": v for k, v in admission["checks"].items()},
+              **{f"generation_{k}": v for k, v in generation["checks"].items()}}
+    del module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "serving_rest", "tiny": tiny, "speculation": spec, "int8_pages": int8,
+            "admission": admission, "generation": generation,
+            "phase7_decode_ms_per_token": phase7, "variant_launches": launches,
+            "phase_s": time.perf_counter() - t0, "checks": checks, "ok": all(checks.values())}
+
+
 def _stub_cuda_for_cpu():
     """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
     import torch
@@ -3083,6 +3698,7 @@ def main() -> int:
     full_gen, gen_module = full_width_generate()
     gen_res["full_width"] = full_gen["variants"]
     gen_ok = generate_gate(gen_res)
+    phase7_ms = full_gen["variants"]["bf16"]["decode_ms_per_token"]
     emit({"phase": "generate", "tiny_divergence": gen_res["tiny"],
           "allocated_gib_at_start": allocated_gib, **full_gen, "ok": gen_ok})
     if not gen_ok:
@@ -3178,6 +3794,18 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16. serving, the rest: speculation, int8 KV pages, admission and
+    # faults, speculative_generate and beam_search
+    rest = serving_rest_phase(hf, phase7_ms)
+    emit(rest)
+    if not rest["ok"]:
+        failed = sorted(k for k, v in rest["checks"].items() if not v)
+        print(f"chip_smoke: serving phase 16 failed: {failed}", file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
         "imperative_loop": imp["loop"]["variant_launches"],
         "observed_loop": obs["variant_launches"],
@@ -3186,7 +3814,8 @@ def main() -> int:
         "fp16_step": precision["fp16"]["variant_launches"],
         "fp8_step": precision["fp8"]["variant_launches"],
         "dcp_loop": dcp["blocking"]["variant_launches"],
-        "dcp_async_loop": dcp["background"]["variant_launches"]})})
+        "dcp_async_loop": dcp["background"]["variant_launches"],
+        "serving_rest": rest["variant_launches"]})})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,9 @@
 out-of-memory retry (``utils/memory.py``), the ``memory_utils`` alias,
 ``logging.py``, ``autocast``, ``save_model``/``get_state_dict``/``save``,
 ``free_memory``, triggers, the process helpers on one process, the
-gradient-accumulation plugin and the refusals of the imperative loop.
+gradient-accumulation plugin, the refusals of the imperative loop, the
+properties and ``prepare_model``/``prepare_optimizer``, and the helpers of
+``utils/operations.py`` and ``utils/other.py``.
 """
 
 import gc
@@ -379,3 +381,133 @@ def test_optimizer_zero_grad_and_step_wait_for_the_window():
     assert all(p.grad is None for p in model.parameters())
     assert not any(torch.equal(p, b) for p, b in zip(model.parameters(), before))
     assert acc.train_state.step == 1 and acc.train_state.optimizer.count == 1
+
+
+# ---------------------------------------------------------------------------
+# The rest of the surface: properties, prepare_model/prepare_optimizer and
+# the helpers of utils/operations.py and utils/other.py
+# ---------------------------------------------------------------------------
+
+
+def test_properties_match_a_fresh_jax_accelerator():
+    from accelerate_tpu import DataLoaderConfiguration as JaxDLC
+    from accelerate_tpu import ProjectConfiguration as JaxProject
+    from accelerate_tpu_torch import DataLoaderConfiguration, ProjectConfiguration
+
+    jacc = JaxAccelerator(dataloader_config=JaxDLC(dispatch_batches=False,
+                                                   use_seedable_sampler=False),
+                          project_config=JaxProject(iteration=3))
+    acc = Accelerator(cpu=True, dataloader_config=DataLoaderConfiguration(
+        dispatch_batches=False, use_seedable_sampler=False),
+        project_config=ProjectConfiguration(iteration=3))
+    for name in ("dispatch_batches", "use_seedable_sampler", "non_blocking", "save_iteration",
+                 "tensor_parallel_rank", "pipeline_parallel_rank"):
+        assert getattr(acc, name) == getattr(jacc, name), name
+    assert acc.mesh is None  # no process group
+    assert acc.parallelism_config is acc.state.parallelism_config
+    # dp_shard fills the world: the port's processes, the JAX package's devices.
+    assert acc.parallelism_config.dp_shard_size == acc.num_processes == 1
+    assert jacc.parallelism_config.dp_shard_size == len(jax.devices())
+
+
+def test_prepare_model_then_prepare_optimizer_give_prepares_step():
+    """The two halves in turn give the step of ``prepare(model, opt)``."""
+    def run(split):
+        _reset_all()
+        torch.manual_seed(0)
+        acc = Accelerator(cpu=True)
+        model = Model(torch.nn.Linear(4, 2))
+        if split:
+            assert acc.prepare_model(model) is model and acc.prepare_model(model) is model
+            opt = acc.prepare_optimizer(adamw(1e-2))
+        else:
+            model, opt = acc.prepare(model, adamw(1e-2))
+        step = acc.prepare_train_step(lambda m, b: (m(b["x"]) ** 2).mean(), max_grad_norm=1.0)
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 4), np.float32))
+        metrics = [step(acc.train_state, {"x": x})[1] for _ in range(2)]
+        return ([float(m["loss"]) for m in metrics], model.module.weight.detach().clone(),
+                opt.optimizer is acc.train_state.optimizer)
+
+    split, whole = run(True), run(False)
+    assert split[0] == whole[0] and torch.equal(split[1], whole[1]) and split[2] and whole[2]
+    _reset_all()
+    with pytest.raises(ValueError, match="prepare_model"):
+        Accelerator(cpu=True).prepare_optimizer(adamw(1e-2))
+
+
+def _reset_all():
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+
+
+def test_structure_helpers_match_jax():
+    from collections import namedtuple
+
+    from accelerate_tpu.utils import operations as jops
+    from accelerate_tpu_torch.utils import operations as ops
+
+    Pair = namedtuple("Pair", "a b")
+    rng = np.random.default_rng(5)
+    data = {"x": rng.standard_normal((4, 3)).astype(np.float16), "ids": np.arange(4),
+            "pair": Pair(np.ones((4, 2), np.float64), [np.zeros((4,), np.float32)]), "tag": "t"}
+    tdata = {"x": torch.from_numpy(data["x"]), "ids": torch.from_numpy(data["ids"]),
+             "pair": Pair(torch.from_numpy(data["pair"].a), [torch.zeros(4)]), "tag": "t"}
+    jdata = jax.tree.map(lambda x: x if isinstance(x, str) else jnp.asarray(x), data)
+    assert ops.get_shape(tdata) == jops.get_shape(jdata)
+    assert ops.listify(tdata) == jops.listify(jdata)
+    assert ops.listify(data) == jops.listify(jdata)
+    sliced, jsliced = ops.iterate_over_batch(tdata, 1, 3), jops.iterate_over_batch(jdata, 1, 3)
+    assert isinstance(sliced["pair"], Pair) and ops.listify(sliced) == jops.listify(jsliced)
+    fp32 = ops.convert_to_fp32(tdata)
+    jfp32 = jops.convert_to_fp32(jdata)
+    assert fp32["x"].dtype == torch.float32 and str(jfp32["x"].dtype) == "float32"
+    assert fp32["ids"].dtype == torch.int64 and fp32["pair"].a.dtype == torch.float32
+    assert ops.convert_to_fp32(data)["pair"].a.dtype == np.float32
+    assert ops.listify(fp32) == jops.listify(jfp32)
+    forward = ops.convert_outputs_to_fp32(lambda x: (x.half(), {"y": x.bfloat16()}))
+    out = forward(torch.ones(2))
+    assert out[0].dtype == out[1]["y"].dtype == torch.float32
+    assert ops.honor_type(Pair(1, 2), iter([3, 4])) == jops.honor_type(Pair(1, 2), iter([3, 4]))
+    Accelerator(cpu=True)  # the device the helpers place on
+    structure = ops.get_data_structure(tdata)
+    assert structure["x"] == ops.TensorInformation((4, 3), torch.float16)
+    zeros = ops.initialize_tensors(structure)
+    assert zeros["x"].shape == (4, 3) and zeros["x"].dtype == torch.float16
+    assert not zeros["pair"].b[0].any() and zeros["tag"] == "t"
+    with pytest.raises(TypeError, match="Unsupported type"):
+        ops.recursively_apply(lambda t: t, {"a": "s"}, error_on_other_type=True)
+    sent = ops.send_to_device(data, "cpu", skip_keys=["ids"])
+    assert torch.is_tensor(sent["x"]) and isinstance(sent["ids"], np.ndarray)
+    assert torch.is_tensor(ops.copy_tensor_to_devices(data)["pair"].a)
+
+
+def test_verify_operation_passes_alone_and_in_debug_mode(monkeypatch):
+    from accelerate_tpu_torch.utils import operations as ops
+
+    monkeypatch.setenv("ACCELERATE_DEBUG_MODE", "1")
+    assert PartialState(cpu=True).debug
+
+    @ops.verify_operation
+    def collective(tensor):
+        return tensor
+
+    assert collective.__name__ == "collective"
+    assert collective(torch.ones(2)).shape == (2,)  # one process: nothing to compare
+    assert issubclass(ops.DistributedOperationException, Exception)
+
+
+def test_other_helpers_match_jax():
+    from accelerate_tpu.utils import other as jother
+    from accelerate_tpu_torch.utils import other
+
+    for size in (0, 512, 1536, 3 * 2**20 + 5, 7.5 * 2**40, 2**60):
+        assert other.convert_bytes(size) == jother.convert_bytes(size)
+    src = {"a": {"b": 1, "c": {"d": 2}}, "e": 3}
+    assert other.merge_dicts(src, {"a": {"x": 0}, "f": 4}) == jother.merge_dicts(
+        src, {"a": {"x": 0}, "f": 4})
+    port = other.get_free_port()
+    assert 0 < port < 65536
+    model = Model(torch.nn.Linear(2, 2))
+    assert other.extract_model_from_parallel(model) is model
+    Accelerator(cpu=True)
+    other.wait_for_everyone()  # alone: returns

@@ -895,3 +895,85 @@ def test_precision_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     for case in res["fp8_linear"]:
         assert case["codes_equal"] and max(case["rel_err"].values()) == 0.0
         assert case["paths"] == {"scaled_mm": 0, "dequantized": 0, "plain": 3}
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: serving, the rest
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("policy,n,cap,shed", [
+    ("reject", 32, 8, list(range(8, 32))), ("shed_oldest", 32, 8, list(range(24))),
+    ("block", 32, 8, []), ("reject", 5, 8, []), ("shed_oldest", 8, 8, []),
+    ("reject", 9, 8, [8]), ("shed_oldest", 9, 8, [0])])
+def test_expected_shed_is_the_queue_arithmetic(chip_smoke, policy, n, cap, shed):
+    assert chip_smoke.expected_shed(policy, n, cap) == shed
+
+
+@pytest.mark.parametrize("k_row,gap,ok", [
+    ([4, 5, 6, 7], None, True),        # equal rows
+    ([4, 5, 9, 1], 0.05, True),        # parted at a step whose gap is under the tie gap
+    ([4, 5, 9, 1], 0.5, False),        # parted where the 0 run's choice was clear
+])
+def test_tie_gap_gate_on_speculative_rows(chip_smoke, k_row, gap, ok):
+    gaps = [0.9, 0.8, 0.7 if gap is None else gap, 0.6]
+    div = chip_smoke.first_divergence([[4, 5, 6, 7]], [k_row], [gaps], tie_gap=0.1)
+    assert chip_smoke.parity_ok(div) is ok
+    if gap is not None:
+        assert div[0]["pos"] == 2 and div[0]["gap"] == gap
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+def test_int8_bytes_ratio_of_the_slot_caches(chip_smoke, head_dim):
+    """The int8 slot cache's bytes against a 16-bit one's: exactly
+    (D + 4) / (2 D) (0.516 at D = 128)."""
+    import torch
+
+    from accelerate_tpu_torch import generation as gen
+    from accelerate_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(**dict(_TINY_WIDTH, hidden_size=4 * head_dim), head_dim=head_dim,
+                      dtype=torch.bfloat16)
+    q = gen.init_slot_cache(cfg, 3, 24, dtype=torch.int8)
+    b = gen.init_slot_cache(cfg, 3, 24)
+    int8_bytes, bf16_bytes = q.k.nbytes + q.v.nbytes, b.k.nbytes + b.v.nbytes
+    assert chip_smoke.int8_bytes_ok(int8_bytes, bf16_bytes, head_dim)
+    assert not chip_smoke.int8_bytes_ok(int8_bytes + 1, bf16_bytes, head_dim)
+    if head_dim == 128:
+        assert round(int8_bytes / bf16_bytes, 3) == 0.516
+
+
+def test_speculation_counts_ok(chip_smoke):
+    rows = [{"drafted": 8, "accepted": 3}, {"drafted": 4, "accepted": 4}]
+    assert chip_smoke.speculation_counts_ok(rows, {"drafted": 12, "accepted": 7})
+    assert not chip_smoke.speculation_counts_ok(rows, {"drafted": 12, "accepted": 6})
+    assert not chip_smoke.speculation_counts_ok([{"drafted": 2, "accepted": 3}],
+                                                {"drafted": 2, "accepted": 3})
+
+
+def test_serving_rest_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
+    """Phase 16 on the CPU at a small width: (a) with the CPU standing in
+    for the card, (b)-(e) with 8 requests of the serving row at 64 per
+    second, short deadlines and budgets. Every check passes here too. One
+    intra-op thread: its thousands of small ops stall when they contend
+    with other test workers for the cores."""
+    import torch
+
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+
+    _stub_cuda(chip_smoke, monkeypatch)
+    row = dict(chip_smoke.SERVING_ROW, requests=8, qps=64.0, new_tokens=16)
+    rest = dict(chip_smoke.SERVING_REST, burst=12, queue_depth=3, deadline_s=0.15,
+                deadline_budget=120, poison_budget=8)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        res = chip_smoke.serving_rest_phase(hf, phase7=25.0, device="cpu", width=_TINY_WIDTH,
+                                            row=row, rest=rest)
+    finally:
+        torch.set_num_threads(threads)
+    assert sorted(k for k, v in res["checks"].items() if not v) == []
+    assert res["variant_launches"] == {}
+    assert res["admission"]["burst"]["reject"]["faults"]["sheds"] == 9
+    assert res["speculation"]["runs"]["repetitive_k4"]["speculation"]["acceptance_rate"] > 0
+    assert res["int8_pages"]["bytes_ratio"] == res["int8_pages"]["bytes_ratio_expected"]

@@ -48,6 +48,10 @@ seed, from the same flax-initialised tiny Llama (fp32):
   with steps taken while it persists and a second save queued behind it.
   (The 4-process gang runs first; a save at 2 loaded at 4 is in
   ``tests/test_torch_context_parallel.py``.)
+- ``verify_operation`` in debug mode at 2 processes (a collective whose
+  shapes differ on process 1 raises on both; equal shapes pass), and
+  ``utils.other``'s ``wait_for_everyone`` and
+  ``extract_model_from_parallel`` of a DDP-wrapped module.
 
 The spawned processes import this module: JAX is imported only inside the
 functions that compute the references.
@@ -697,7 +701,35 @@ def _job_dcp_async(ctx):
     return out
 
 
-JOBS = {"fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
+def _job_verify(ctx):
+    """``verify_operation`` around ``gather`` in debug mode: equal shapes
+    gather, shapes that differ on the last process raise on every one."""
+    from accelerate_tpu_torch.parallel.fsdp import apply_ddp
+    from accelerate_tpu_torch.utils import operations, other
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    os.environ["ACCELERATE_DEBUG_MODE"] = "1"
+    try:
+        acc = Accelerator(cpu=True)
+        out = {"debug": PartialState().debug}
+        gather = operations.verify_operation(operations.gather)
+        out["equal"] = gather({"x": torch.full((2,), float(rank))})["x"].tolist()
+        try:
+            gather(torch.zeros(3 if rank == world - 1 else 2))
+            out["error"] = None
+        except operations.DistributedOperationException as exc:
+            out["error"] = str(exc)
+        other.wait_for_everyone()
+        module = torch.nn.Linear(2, 2)
+        out["unwrapped"] = other.extract_model_from_parallel(apply_ddp(module, acc.device)) \
+            is module
+    finally:
+        del os.environ["ACCELERATE_DEBUG_MODE"]
+    _reset_port()
+    return out
+
+
+JOBS = {"verify": _job_verify, "fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
         "dispatcher": _job_dispatcher, "rng": _job_rng, "save": _job_save,
         "options": _job_options, "fsdp_ga2": _job_fsdp_ga2, "per_node": _job_per_node,
         "resume_jax": _job_resume_jax, "fsdp_uneven": _job_fsdp_uneven,
@@ -840,7 +872,7 @@ def runs(tmp_path_factory):
     two = _spawn(tmp, 2, ["fsdp", "ddp", "collectives", "dispatcher", "rng", "resume_jax",
                           "options", "fsdp_ga2", "per_node", "fsdp_uneven", "imperative",
                           "surface", "telemetry", "fp16", "strategies", "ddp_kwargs",
-                          "dcp_load", "dcp_async"], ctx)
+                          "dcp_load", "dcp_async", "verify"], ctx)
     return {"ref": ref, "plans": plans, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
 
 
@@ -1595,3 +1627,16 @@ def test_async_dcp_save_across_processes(runs):
         assert res["at_save"]["step"] == 1 and res["after"]["step"] == 3
         _assert_states_equal(res["loaded"][0], res["at_save"])
         _assert_states_equal(res["loaded"][1], res["after"])
+
+
+def test_verify_operation_checks_shapes_across_processes(runs):
+    """In debug mode a collective whose leaves differ in shape on one
+    process raises ``DistributedOperationException`` on every process,
+    naming it, as the JAX package's ``verify_operation`` does."""
+    for rank, out in enumerate(runs[2]):
+        res = out["verify"]
+        assert res["debug"] and res["unwrapped"]
+        assert res["equal"] == [0.0, 0.0, 1.0, 1.0]
+        assert "Operation: `gather`" in res["error"]
+        assert "Process 0: [2]" in res["error"] and "Process 1: [3]" in res["error"]
+        assert res["error"].endswith("Mismatched processes: [1]")

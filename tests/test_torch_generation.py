@@ -1,5 +1,7 @@
-"""The port's KV-cache generation (accelerate_tpu_torch/generation.py) and
-int8 weight-only decode (utils/quantization.py) against the JAX package's.
+"""The port's KV-cache generation (accelerate_tpu_torch/generation.py:
+the cache and its int8 pages, generate, speculative_generate,
+beam_search) and int8 weight-only decode (utils/quantization.py) against
+the JAX package's.
 
 The flax module initialises the tiny Llama (fp32, GQA), its weights come
 over with ``llama_params_from_flax``, and both packages run the same
@@ -21,12 +23,30 @@ from accelerate_tpu import generation as jax_gen
 from accelerate_tpu.models import LlamaConfig as JaxLlamaConfig
 from accelerate_tpu.models import LlamaForCausalLM as JaxLlama
 from accelerate_tpu.utils import quantization as jax_quant
-from accelerate_tpu_torch import GenerationConfig, Model, generate, quantize_model_for_decode
+from accelerate_tpu_torch import (
+    GenerationConfig,
+    Model,
+    beam_search,
+    generate,
+    quantize_model_for_decode,
+    speculative_generate,
+)
 from accelerate_tpu_torch import generation as gen
 from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, llama_params_from_flax
 from accelerate_tpu_torch.utils.quantization import DECODE_QUANT_WEIGHTS, quantize_decode_kernel
 
 MIN_GAP = 1e-4  # top-2 logit gap each greedy step must exceed
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The tiny engines and decode loops run thousands of small ops: one
+    intra-op thread keeps them from contending with the other test
+    workers for the cores (restored after the module)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -277,6 +297,168 @@ def test_sampled_generate_is_seeded_and_greedy_at_temperature_zero(pair):
 
 
 # ---------------------------------------------------------------------------
+# int8 KV pages and writes past the capacity
+# ---------------------------------------------------------------------------
+
+
+def _kv_rows(dtype):
+    """Rows of 16 over (B=3, S=4, H=2): a zero row, rows whose absmax is
+    127 × 2**-3 (scale exactly 2**-3) with exact halves of that scale (the
+    round-half-to-even cases) and ±127 extremes, and random rows."""
+    rng = np.random.default_rng(21)
+    x = (rng.standard_normal((3, 4, 2, 16)) * 2.0).astype(np.float32)
+    x[0, 0, 0] = 0.0
+    halves = np.asarray([127, -127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5, 126.5, -126.5,
+                         0.0, 4.5, 5.5, -3.5, 64.5], np.float32) * 2.0 ** -3
+    x[0, 1, 0] = halves
+    x[1, 2, 1] = -halves
+    x[2, 3, 0, 5] = -40.0  # one large entry: the others round near zero
+    if dtype == "bfloat16":
+        return jnp.asarray(x).astype(jnp.bfloat16), torch.from_numpy(x).bfloat16()
+    return jnp.asarray(x), torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kv_page_is_bit_equal_to_jax(dtype):
+    jx, tx = _kv_rows(dtype)
+    want = jax_gen.quantize_kv_page(jx)
+    got = gen.quantize_kv_page(tx)
+    assert got.data.dtype == torch.int8 and got.scale.shape == (3, 4, 2, 1)
+    np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+    assert got.scale[0, 0, 0, 0] == 0.0  # a zero row: the subnormal scale flushed
+    assert set(got.data[0, 1, 0].tolist()[:11]) == {127, -127, 0, 2, -2, 4, 126, -126}
+    back = gen.dequantize_kv_page(got, torch.float32)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(
+        jax_gen.dequantize_kv_page(want, jnp.float32)))
+
+
+@pytest.mark.parametrize("pages", [False, True], ids=["float", "int8"])
+def test_cache_write_drops_rows_past_capacity_like_jax(pages):
+    """A window written at per-row offsets that run past T keeps the rows
+    below T and drops the rest, as the JAX scatter does; rows whose whole
+    window lies past T, or whose window ends exactly at T - 1, included."""
+    rng = np.random.default_rng(22)
+    b, t, s = 4, 10, 5
+    ck = rng.standard_normal((b, t, 2, 8)).astype(np.float32)
+    new = rng.standard_normal((b, s, 2, 8)).astype(np.float32)
+    start = np.asarray([7, 5, 12, 2], np.int32)
+    if pages:
+        jck, tck = jax_gen.quantize_kv_page(jnp.asarray(ck)), gen.quantize_kv_page(
+            torch.from_numpy(ck))
+    else:
+        jck, tck = jnp.asarray(ck), torch.from_numpy(ck.copy())
+    want = jax_gen._cache_write(jck, jnp.asarray(new), jnp.asarray(start))
+    got = gen._cache_write(tck, torch.from_numpy(new), torch.from_numpy(start).long())
+    for g, w in ([(got.data, want.data), (got.scale, want.scale)] if pages
+                 else [(got, want)]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    before = gen.quantize_kv_page(torch.from_numpy(ck)) if pages else torch.from_numpy(ck)
+    after, before = (got.data, before.data) if pages else (got, before)
+    assert not torch.equal(after[0, 7:], before[0, 7:])  # row 0 wrote 7..9
+    assert torch.equal(after[2], before[2])              # row 2's window lies past T
+
+
+def test_int8_cache_forward_matches_jax(pair):
+    """Prefill and a decode step through int8 pages: the pages hold the
+    JAX package's codes (within one code where a projection's rounding
+    lands on a half) and the logits agree with JAX's and stay near the
+    float cache's."""
+    jcfg, jmodel, cfg, module = pair
+    ids = _ids(2, 8, seed=23)
+    nxt = np.asarray([[7], [11]], np.int32)
+    cache = gen.init_cache(cfg, 2, 16, dtype=torch.int8)
+    assert isinstance(cache.k, gen.QuantPages) and (cache.k.scale == 1).all()
+    jcache = jax_gen.init_cache(jcfg, 2, 16, dtype=jnp.int8)
+    fcache = gen.init_cache(cfg, 2, 16)
+    for step in (ids, nxt):
+        logits, cache = gen._llama_forward_cached(cfg, module, torch.from_numpy(step), cache)
+        jlogits, jcache = jax_gen._llama_forward_cached(jcfg, jmodel.params, jnp.asarray(step),
+                                                        jcache)
+        flogits, fcache = gen._llama_forward_cached(cfg, module, torch.from_numpy(step), fcache)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(logits.numpy(), flogits.numpy(), rtol=0, atol=5e-2)
+    codes = cache.k.data.numpy().astype(np.int32)
+    assert np.abs(codes - np.asarray(jcache.k.data, np.int32)).max() <= 1
+    np.testing.assert_allclose(cache.k.scale.numpy(), np.asarray(jcache.k.scale), rtol=1e-5)
+    assert cache.k.nbytes == cache.k.data.numel() * (1 + 4 / cfg.head_dim)
+
+
+# ---------------------------------------------------------------------------
+# speculative_generate and beam_search
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def draft_pair(pair):
+    """A second tiny Llama (other weights) as the draft, in both packages."""
+    jcfg = pair[0]
+    probe = np.random.default_rng(1).integers(0, jcfg.vocab_size, (1, 8), dtype=np.int32)
+    jdraft = JaxModel.from_flax(JaxLlama(jcfg), jax.random.key(7), probe)
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    draft = LlamaForCausalLM(cfg)
+    draft.load_state_dict(llama_params_from_flax(cfg, jax.tree.map(np.asarray, jdraft.params)))
+    return jdraft, draft
+
+
+@pytest.mark.parametrize("draft,k,eos", [("self", 3, False), ("other", 4, False),
+                                         ("other", 2, True)])
+def test_speculative_generate_matches_jax_and_greedy(pair, draft_pair, draft, k, eos):
+    """The target's greedy continuation whatever the draft: equal to the
+    JAX package's speculative_generate and to the port's generate."""
+    _, jmodel, cfg, module = pair
+    jdraft, tdraft = draft_pair if draft == "other" else (jmodel, module)
+    ids = _ids(1, 6, seed=24)
+    greedy = generate(module, ids, max_new_tokens=12)
+    eos_id = int(greedy[0, 10]) if eos else None
+    got = speculative_generate(Model(module), tdraft, ids, 12, num_draft_tokens=k,
+                               eos_token_id=eos_id)
+    want = np.asarray(jax_gen.speculative_generate(jmodel, jdraft, ids, 12, num_draft_tokens=k,
+                                                   eos_token_id=eos_id))
+    assert got.shape == (1, 18)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert _min_greedy_gap(cfg, module, greedy, 6) > MIN_GAP
+    if eos:
+        np.testing.assert_array_equal(got[0, :11].numpy(), greedy[0, :11].numpy())
+        assert (got[0, 11:] == eos_id).all()
+    else:
+        np.testing.assert_array_equal(got.numpy(), greedy.numpy())
+
+
+def test_speculative_generate_checks_its_arguments(pair):
+    _, _, cfg, module = pair
+    with pytest.raises(ValueError, match="num_draft_tokens"):
+        speculative_generate(module, module, _ids(1, 4, seed=25), 4, num_draft_tokens=0)
+    with pytest.raises(ValueError, match="batch size 1"):
+        speculative_generate(module, module, _ids(2, 4, seed=25), 4)
+    with pytest.raises(ValueError, match="max positions"):
+        speculative_generate(module, module, _ids(1, 4, seed=25), cfg.max_position_embeddings)
+
+
+@pytest.mark.parametrize("num_beams,eos", [(1, False), (2, False), (4, False), (4, True)])
+def test_beam_search_matches_jax(pair, num_beams, eos):
+    """Beam search against the JAX package's, with frozen EOS beams padded
+    by EOS; one beam is greedy generate()."""
+    _, jmodel, cfg, module = pair
+    ids = _ids(2, 6, seed=26)
+    eos_id = None
+    if eos:  # a token a high-scoring beam of row 0 emits early
+        eos_id = int(beam_search(module, ids, 8, num_beams=num_beams)[0, 7])
+    got = beam_search(Model(module), ids, 8, num_beams=num_beams, eos_token_id=eos_id,
+                      length_penalty=0.8)
+    want = np.asarray(jax_gen.beam_search(jmodel, ids, 8, num_beams=num_beams,
+                                          eos_token_id=eos_id, length_penalty=0.8))
+    assert got.shape == (2, 14)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if num_beams == 1:
+        np.testing.assert_array_equal(got.numpy(), generate(module, ids, 8).numpy())
+    if eos:
+        row = got[0, 6:].numpy()
+        hits = np.flatnonzero(row == eos_id)
+        assert hits.size and hits[0] < 7 and (row[hits[0]:] == eos_id).all()
+
+
+# ---------------------------------------------------------------------------
 # int8 weight-only decode
 # ---------------------------------------------------------------------------
 
@@ -347,8 +529,10 @@ def test_unported_generation_options_raise(pair):
         generate(module, ids, compile_manager=object())
     with pytest.raises(NotImplementedError, match="forward_cached.*item 10"):
         generate(module, ids, forward_cached=gen._llama_forward_cached)
-    with pytest.raises(NotImplementedError, match="QuantPages"):
-        gen.init_cache(cfg, 1, 8, dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        gen.beam_search(module, ids, 2, decoder_input_ids=ids)
+    with pytest.raises(NotImplementedError, match="forward_cached.*item 10"):
+        gen.beam_search(module, ids, 2, forward_cached=gen._llama_forward_cached)
 
     class GPT2LMHeadModel(torch.nn.Module):
         config = cfg

@@ -1,11 +1,17 @@
 """The port's continuous-batching engine (accelerate_tpu_torch/serving.py)
-against the port's generate() and the JAX package's ServingEngine.
+against the port's generate() and the JAX package's ServingEngine: the
+core, int8 KV pages, admission control, deadlines, retries, quarantine,
+the hang guard, the rolling window and the key sets of poll rows and
+stats().
 
 The tiny Llama (fp32, GQA) is initialised by flax and carried over with
 ``llama_params_from_flax``; prompts are numpy-seeded. Token comparisons
 also assert that each greedy step's top-2 logit gap is well above fp32
 rounding, so equal tokens are not luck at a near-tie.
 """
+
+import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -25,8 +31,26 @@ from accelerate_tpu_torch import generation as gen
 from accelerate_tpu_torch import serving
 from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, llama_params_from_flax
 from accelerate_tpu_torch.utils.dataclasses import _UNPORTED_SERVING_FIELDS
+from test_schemas import (
+    FAULTS_KEYS,
+    POLL_ROW_KEYS,
+    SERVING_STATS_KEYS,
+    SPECULATION_KEYS,
+    WINDOW_KEYS,
+)
 
 MIN_GAP = 1e-4  # top-2 logit gap each greedy step must exceed
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The tiny engines and decode loops run thousands of small ops: one
+    intra-op thread keeps them from contending with the other test
+    workers for the cores (restored after the module)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -300,19 +324,29 @@ def test_submit_validation(pair):
 # ---------------------------------------------------------------------------
 
 
+BAD_CONFIGS = [dict(n_slots=0), dict(prefill_chunks_per_tick=0),
+               dict(min_prefill_chunk=32, max_prefill_chunk=16), dict(max_new_tokens=0),
+               dict(overload_policy="drop"), dict(max_queue_depth=0), dict(deadline_s=0.0),
+               dict(max_retries=-1), dict(max_idle_ticks=0), dict(window_requests=0),
+               dict(speculate_k=-1), dict(speculate_ngram=1)]
+
+
 def test_serving_config_validation():
-    for bad in (dict(n_slots=0), dict(prefill_chunks_per_tick=0),
-                dict(min_prefill_chunk=32, max_prefill_chunk=16), dict(max_new_tokens=0)):
-        with pytest.raises(ValueError):
-            ServingConfig(**bad)
+    """Each bad setting raises ValueError, as the JAX package's does."""
+    for bad in BAD_CONFIGS:
+        for cls in (ServingConfig, JaxServingConfig):
+            with pytest.raises(ValueError):
+                cls(**bad)
 
 
-_UNPORTED_VALUES = {
-    "enabled": False, "cache_dtype": torch.int8, "speculate_k": 2, "speculate_ngram": 8,
-    "max_queue_depth": 4, "overload_policy": "block", "deadline_s": 1.0, "max_retries": 0,
-    "max_idle_ticks": 5, "window_requests": 16, "journal_dir": "wal",
-    "journal_fsync": "os", "journal_segment_records": 8,
-}
+def test_cache_dtype_takes_int8_only():
+    assert ServingConfig(cache_dtype=torch.int8).cache_dtype == torch.int8
+    with pytest.raises(ValueError, match="cache_dtype"):
+        ServingConfig(cache_dtype=torch.float16)
+
+
+_UNPORTED_VALUES = {"enabled": False, "journal_dir": "wal", "journal_fsync": "os",
+                    "journal_segment_records": 8}
 
 
 @pytest.mark.parametrize("field", sorted(_UNPORTED_SERVING_FIELDS))
@@ -321,8 +355,308 @@ def test_unported_serving_config_fields_raise(field):
         ServingConfig(**{field: _UNPORTED_VALUES[field]})
 
 
+def test_client_request_id_is_refused(pair):
+    engine = ServingEngine(pair[2], ServingConfig(n_slots=1, max_len=8))
+    with pytest.raises(NotImplementedError, match="item 8.8"):
+        engine.submit(np.ones((2,), np.int32), max_new_tokens=2, client_request_id="a")
+
+
 @pytest.mark.parametrize("arg", sorted(serving._UNPORTED_ENGINE_ARGS))
 def test_unported_engine_arguments_raise(pair, arg):
     _, _, module = pair
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
         ServingEngine(module, ServingConfig(n_slots=1, max_len=8), **{arg: object()})
+
+
+# ---------------------------------------------------------------------------
+# int8 KV pages
+# ---------------------------------------------------------------------------
+
+
+def test_int8_cache_engine_matches_jax_int8_engine(pair):
+    """The engine over int8 KV pages gives the JAX int8 engine's greedy
+    rows, and its cache takes (D + 4) / (2 D) of a 16-bit cache's bytes."""
+    jmodel, cfg, module = pair
+    prompts = _prompts([5, 11, 3, 17, 8], seed=41)
+    budgets = [7, 5, 9, 4, 6]
+    kw = dict(n_slots=2, max_len=32, prefill_chunks=[4, 8])
+    engine = ServingEngine(module, ServingConfig(**kw, cache_dtype=torch.int8))
+    got = engine.run(prompts, max_new_tokens=budgets)
+    jengine = JaxServingEngine(jmodel, JaxServingConfig(**kw, cache_dtype=jnp.int8))
+    want = jengine.run(prompts, max_new_tokens=budgets)
+    for prompt, g, w in zip(prompts, got, want):
+        assert _min_greedy_gap(cfg, module, g, len(prompt)) > MIN_GAP
+        np.testing.assert_array_equal(g, np.asarray(w))
+    k = engine._cache.k
+    assert isinstance(k, gen.QuantPages) and k.data.dtype == torch.int8
+    d = cfg.head_dim
+    assert (engine._cache.k.nbytes + engine._cache.v.nbytes) * 2 * d == \
+        2 * k.data.numel() * 2 * (d + 4)
+
+
+# ---------------------------------------------------------------------------
+# Admission control, deadlines, retries, quarantine and the hang guard,
+# each against the JAX engine given the same submissions
+# ---------------------------------------------------------------------------
+
+ADMISSION = dict(n_slots=2, max_len=32, prefill_chunks=[4, 8])
+BURST = [5, 9, 4, 7, 6, 3]
+BURST_BUDGETS = [6, 4, 5, 3, 6, 4]
+
+
+@pytest.fixture(scope="module")
+def jax_engine(pair):
+    """One JAX engine for the module, reset to a fresh engine's host state
+    (and given a config) by ``_fresh``."""
+    return JaxServingEngine(pair[0], JaxServingConfig(**ADMISSION))
+
+
+def _fresh(jengine, **config):
+    jengine.config = JaxServingConfig(**ADMISSION, **config)
+    jengine._free = list(range(jengine.n_slots - 1, -1, -1))
+    jengine._used_slots.clear()
+    jengine._has_deadlines = jengine.config.deadline_s is not None
+    jengine.reset_metrics()
+    return jengine
+
+
+class _Clock:
+    """A perf_counter both packages read, moved by the test."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def __call__(self):
+        return self.now
+
+
+def _drive(engine, submissions, clock=None, step=1.0, max_ticks=200):
+    """Submit ``(prompt, budget, kwargs)`` in turn, then tick until drained
+    (advancing ``clock`` by ``step`` a tick); every poll row by id."""
+    ids = [engine.submit(p, max_new_tokens=b, **kw) for p, b, kw in submissions]
+    rows = {r["id"]: r for r in engine.poll()}
+    for _ in range(max_ticks):
+        if not engine.pending:
+            break
+        engine.tick()
+        if clock is not None:
+            clock.now += step
+        rows.update((r["id"], r) for r in engine.poll())
+    return [rows[i] for i in ids]
+
+
+def _assert_rows_match(got, want):
+    assert [r["status"] for r in got] == [r["status"] for r in want]
+    for g, w in zip(got, want):
+        assert set(g) == set(w) == POLL_ROW_KEYS
+        for key in ("new_tokens", "attempt", "recovered", "drafted", "accepted",
+                    "weights_version"):
+            assert g[key] == w[key], key
+        assert (g["ttft_s"] is None) == (w["ttft_s"] is None)
+        np.testing.assert_array_equal(g["tokens"], np.asarray(w["tokens"]))
+
+
+def _assert_blocks_match(engine, jengine, timed=False):
+    stats, jstats = engine.stats(), jengine.stats()
+    assert set(stats) == set(jstats) == SERVING_STATS_KEYS
+    assert set(stats["faults"]) == FAULTS_KEYS and stats["faults"] == jstats["faults"]
+    assert set(stats["speculation"]) == SPECULATION_KEYS
+    assert set(stats["window"]) == WINDOW_KEYS
+    keys = ["requests", "capacity", "ok", "shed_rate", "timeout_rate", "failed_rate",
+            "queue_depth_p95", "prompt_decode_ratio"]
+    if timed:  # the same clock: the latencies agree too
+        keys += ["ttft_p50_s", "ttft_p95_s", "tpot_p50_s", "tpot_p95_s"]
+    for key in keys:
+        assert stats["window"][key] == jstats["window"][key], key
+    for key in ("requests_submitted", "requests_completed", "tokens_out", "prompt_tokens_in",
+                "prefill_chunks", "prefill_pad_tokens", "decode_steps", "ticks",
+                "slot_allocs", "slot_reuses", "mean_queue_depth", "peak_occupancy"):
+        assert stats[key] == jstats[key], key
+    assert stats["journal"] is None and stats["weights_version"] == 0
+
+
+@pytest.mark.parametrize("policy,shed", [("reject", [2, 3, 4, 5]), ("shed_oldest", [0, 1, 2, 3]),
+                                         ("block", [])])
+def test_overload_policies_match_jax(pair, jax_engine, policy, shed):
+    """Six requests submitted before the first tick into a queue of two:
+    ``reject`` sheds the four that find it full, ``shed_oldest`` the four
+    oldest, ``block`` none (submit ticks the engine until there is room)."""
+    _, _, module = pair
+    subs = [(p, b, {}) for p, b in zip(_prompts(BURST, seed=42), BURST_BUDGETS)]
+    cfg = dict(max_queue_depth=2, overload_policy=policy)
+    engine = ServingEngine(module, ServingConfig(**ADMISSION, **cfg))
+    got = _drive(engine, subs)
+    jengine = _fresh(jax_engine, **cfg)
+    want = _drive(jengine, subs)
+    _assert_rows_match(got, want)
+    assert [i for i, r in enumerate(got) if r["status"] == "shed"] == shed
+    for i, (row, (prompt, budget, _)) in enumerate(zip(got, subs)):
+        if i in shed:
+            assert row["weights_version"] is None and row["new_tokens"] == 0
+            np.testing.assert_array_equal(row["tokens"][len(prompt):], 0)
+        else:
+            want_row = generate(module, prompt[None], max_new_tokens=budget)[0].numpy()
+            np.testing.assert_array_equal(row["tokens"], want_row)
+    _assert_blocks_match(engine, jengine)
+    assert engine.stats()["faults"]["sheds"] == len(shed)
+    assert engine.window_stats()["shed_rate"] == len(shed) / len(subs)
+
+
+def test_deadlines_match_jax(pair, jax_engine, monkeypatch):
+    """Per-request and default deadlines on one clock: the requests past
+    theirs finish ``timeout`` mid-decode with the tokens they had, their
+    slots go to the queued requests, and the others finish ``ok``."""
+    _, _, module = pair
+    clock = _Clock()
+    monkeypatch.setattr(time, "perf_counter", clock)
+    prompts = _prompts(BURST, seed=43)
+    per_request = [{"deadline_s": 6.5}, {}, {"deadline_s": 3.5}, {}, {}, {"deadline_s": 0.5}]
+    subs = [(p, b + 6, kw) for p, b, kw in zip(prompts, BURST_BUDGETS, per_request)]
+    engine = ServingEngine(module, ServingConfig(**ADMISSION, deadline_s=60.0))
+    got = _drive(engine, subs, clock)
+    clock.now = 1000.0
+    jengine = _fresh(jax_engine, deadline_s=60.0)
+    want = _drive(jengine, subs, clock)
+    _assert_rows_match(got, want)
+    assert [r["status"] for r in got] == ["timeout", "ok", "timeout", "ok", "ok", "timeout"]
+    assert 0 < got[0]["new_tokens"] < subs[0][1]        # cut mid-decode
+    assert got[5]["ttft_s"] is None                      # expired in the queue
+    assert engine.stats()["slot_reuses"] >= 2             # timed-out slots granted again
+    _assert_blocks_match(engine, jengine, timed=True)
+
+
+@pytest.mark.parametrize("max_retries", [0, 1])
+def test_prefill_failures_retry_or_fail_like_jax(pair, jax_engine, max_retries):
+    """The second and third prefill calls raise: with one retry the
+    request replays and finishes ``ok`` on attempt 2 (its slot freed and
+    granted again), with none it finishes ``failed``."""
+    _, _, module = pair
+    subs = [(p, b, {}) for p, b in zip(_prompts(BURST[:4], seed=44), BURST_BUDGETS)]
+
+    def failing(step):
+        calls = [0]
+
+        def prefill(*args, **kwargs):
+            calls[0] += 1
+            if calls[0] in (2, 3):
+                raise RuntimeError("injected prefill failure")
+            return step(*args, **kwargs)
+
+        return prefill
+
+    engine = ServingEngine(module, ServingConfig(**ADMISSION, max_retries=max_retries))
+    engine._prefill = failing(engine._prefill)
+    got = _drive(engine, subs)
+    jengine = _fresh(jax_engine, max_retries=max_retries)
+    step = jengine._prefill
+    jengine._prefill = failing(step)
+    try:
+        want = _drive(jengine, subs)
+    finally:
+        jengine._prefill = step
+    _assert_rows_match(got, want)
+    # Call 2 is request 0's second chunk, call 3 request 1's first.
+    if max_retries:
+        assert [(r["status"], r["attempt"]) for r in got] == [("ok", 2), ("ok", 2), ("ok", 1),
+                                                               ("ok", 1)]
+        for row, (prompt, budget, _) in zip(got, subs):
+            np.testing.assert_array_equal(row["tokens"], generate(
+                module, prompt[None], max_new_tokens=budget)[0].numpy())
+    else:
+        assert [r["status"] for r in got] == ["failed", "failed", "ok", "ok"]
+    _assert_blocks_match(engine, jengine)
+
+
+def _poison(engine, slot):
+    """NaN into a port engine's cache rows of ``slot`` (the JAX engine's
+    ``_poison_slot``)."""
+    engine._cache.k[:, slot] = float("nan")
+    engine._cache.v[:, slot] = float("nan")
+
+
+def test_poisoned_slot_is_quarantined_and_retried_like_jax(pair):
+    """NaN written into a live slot's cache rows: the sentinel quarantines
+    the slot, the request replays in the other slot and finishes ``ok``
+    with a clean run's greedy tokens on attempt 2; a sampled request
+    replays its generator's tokens the same way."""
+    jmodel, _, module = pair
+    subs = [(p, b, {}) for p, b in zip(_prompts(BURST[:3], seed=45), [8, 4, 5])]
+    # A window of two: window_stats() reads the last two requests only.
+    engine = ServingEngine(module, ServingConfig(**ADMISSION, window_requests=2))
+    jengine = JaxServingEngine(jmodel, JaxServingConfig(**ADMISSION, window_requests=2))
+    runs = []
+    for eng, j in ((engine, None), (jengine, jengine)):
+        ids = [eng.submit(p, max_new_tokens=b) for p, b, _ in subs]
+        rows = {}
+        for tick in range(100):
+            if not eng.pending:
+                break
+            if tick == 5:
+                assert 0 in eng._decoding
+                if j is None:
+                    _poison(eng, 0)
+                else:
+                    j._poison_slot(0)
+            eng.tick()
+            rows.update((r["id"], r) for r in eng.poll())
+        runs.append([rows[i] for i in ids])
+    got, want = runs
+    _assert_rows_match(got, want)
+    assert [r["status"] for r in got] == ["ok"] * 3 and got[0]["attempt"] == 2
+    for row, (prompt, budget, _) in zip(got, subs):
+        np.testing.assert_array_equal(row["tokens"], generate(
+            module, prompt[None], max_new_tokens=budget)[0].numpy())
+    faults = engine.fault_stats()
+    assert faults == jengine.fault_stats()
+    assert (faults["slot_quarantines"], faults["quarantined_slots"], faults["retries"]) == (1, 1, 1)
+    _assert_blocks_match(engine, jengine)
+    assert engine.window_stats()["requests"] == engine.window_stats()["capacity"] == 2
+
+    sampled = ServingConfig(**ADMISSION, temperature=0.9, top_k=30)
+    clean = ServingEngine(module, sampled).run(
+        [subs[0][0]], max_new_tokens=8, generators=[torch.Generator().manual_seed(5)])[0]
+    engine = ServingEngine(module, sampled)
+    rid = engine.submit(subs[0][0], max_new_tokens=8, generator=torch.Generator().manual_seed(5))
+    for _ in range(4):
+        engine.tick()
+    _poison(engine, 0)
+    while engine.pending:
+        engine.tick()
+    (row,) = engine.poll()
+    assert row["id"] == rid and row["attempt"] == 2
+    np.testing.assert_array_equal(row["tokens"], clean)
+
+
+def test_every_slot_quarantined_raises_the_stall_error_like_jax(pair):
+    """Both slots poisoned: their requests wait for a slot that never
+    frees, and ``max_idle_ticks`` ticks later the engine raises
+    ``ServingStalledError`` naming them and the quarantined slots."""
+    jmodel, _, module = pair
+    subs = _prompts([4, 6, 5], seed=46)
+    cfg = dict(ADMISSION, max_idle_ticks=4)
+    engine = ServingEngine(module, ServingConfig(**cfg))
+    jengine = JaxServingEngine(jmodel, JaxServingConfig(**cfg))
+    ticks = []
+    for eng, error in ((engine, serving.ServingStalledError),
+                       (jengine, jax_serving.ServingStalledError)):
+        for p in subs:
+            eng.submit(p, max_new_tokens=8)
+        while len(eng._decoding) < 2:
+            eng.tick()
+        for slot in (0, 1):
+            if eng is engine:
+                _poison(engine, slot)
+            else:
+                eng._poison_slot(slot)
+        n = 0
+        with pytest.raises(error) as info:
+            while True:
+                n += 1
+                eng.tick()
+        ticks.append(n)
+        assert "2/2 slots quarantined" in str(info.value)
+        assert "0:queued" in str(info.value) and "1:queued" in str(info.value)
+    # One tick flags the slots (progress: the decode step), then the fourth
+    # idle one raises.
+    assert ticks[0] == ticks[1] == 1 + 4
+    assert engine.fault_stats() == jengine.fault_stats()
