@@ -6,8 +6,12 @@ HSDP or DDP, fused or as the imperative loop of ``accumulate``,
 ``backward`` and ``optimizer.step()``; prepared data loaders,
 learning-rate schedules, and checkpoints in the JAX package's directory
 contract, which resume in either package, or written by every process with
-``torch.distributed.checkpoint``, blocking or in the background), KV-cache generation and continuous-batching serving for Llama,
-and their observability: experiment trackers (``log_with``), step
+``torch.distributed.checkpoint``, blocking or in the background), KV-cache
+generation and continuous-batching serving, for the Llama decoder chassis
+with every knob of the JAX config (Gemma, Qwen2, Phi-3, Mistral and the
+generic specs: StarCoder2, StableLM, Granite, InternLM2, loaded from
+Hugging Face checkpoints by ``models.load_pretrained``), and their
+observability: experiment trackers (``log_with``), step
 telemetry and the device-time profiler (``TelemetryKwargs``), and
 ``Accelerator.profile`` (``ProfileKwargs``). Reduced precision:
 ``mixed_precision="fp16"`` with dynamic loss scaling (``GradScalerKwargs``)
@@ -26,8 +30,21 @@ from .data_loader import (
     prepare_data_loader,
     skip_first_batches,
 )
-from .generation import GenerationConfig, beam_search, generate, speculative_generate
+from .generation import (
+    GenerationConfig,
+    beam_search,
+    generate,
+    register_generation_plan,
+    speculative_generate,
+)
 from .model import Model
+from .models import (
+    fused_cross_entropy_loss,
+    llama_params_from_hf,
+    llama_params_to_hf,
+    load_pretrained,
+    model_from_pretrained,
+)
 from .optimizer import (
     AcceleratedOptimizer,
     adamw,
@@ -99,12 +116,18 @@ __all__ = [
     "constant_schedule",
     "cosine_decay_schedule",
     "find_executable_batch_size",
+    "fused_cross_entropy_loss",
     "generate",
     "grads_all_finite",
     "join_schedules",
     "linear_schedule",
+    "llama_params_from_hf",
+    "llama_params_to_hf",
+    "load_pretrained",
+    "model_from_pretrained",
     "prepare_data_loader",
     "quantize_model_for_decode",
+    "register_generation_plan",
     "replay_trace",
     "set_seed",
     "skip_first_batches",

@@ -15,7 +15,10 @@
   ``LlamaForCausalLM`` parameters layer by layer, with the JAX plan's
   numerics: RoPE at absolute cache positions (shifted down by each row's
   left padding), attention over the whole cache with a position mask,
-  ``finfo(dtype).min`` on masked scores and the softmax in fp32.
+  ``finfo(dtype).min`` on masked scores and the softmax in fp32. It runs
+  every knob of the decoder chassis (``models/llama.py``): layernorm or
+  RMSNorm with Gemma's plus one, biases, an ungated MLP and its
+  activation, partial rotary, Gemma's and Granite's constants.
 - ``generate`` runs the prompt once and then ``max_new_tokens`` decode
   steps in a loop that reads nothing back to the host: every shape of a
   decode step is static and ``done`` stays on the device.
@@ -23,6 +26,8 @@
   ``torch.Generator`` (the JAX ``rng`` key).
 - ``speculative_generate`` (greedy, batch 1, a draft model) and
   ``beam_search`` (length-normalised) over the same cached forward.
+- The plan comes from the module's class (``GENERATION_PLANS``,
+  ``register_generation_plan``) unless ``forward_cached=`` names one.
 
 The other generation plans (GPT-2, OPT, NeoX, Mixtral, T5, Whisper) are
 not ported yet (ROADMAP.md Queue A item 10).
@@ -37,7 +42,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .models.llama import apply_rope, rms_norm, rotary_embedding
+from .models.llama import (
+    activation_fn,
+    apply_partial_rope,
+    as_dtype,
+    embed_tokens,
+    layer_norm,
+    rms_norm,
+    rotary_embedding,
+    scale_logits,
+    scale_residual,
+)
 from .utils.quantization import DecodeQuant, dequantize_decode_kernel
 
 _OTHER_MODELS_ITEM = "ROADMAP.md Queue A item 10 (the other models)"
@@ -191,43 +206,51 @@ def _kernel(w, dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
-def _dense(w, x) -> torch.Tensor:
-    """x @ W for an ``(out, in)`` weight (q/k/v, o_proj and the MLP alike)."""
-    return F.linear(x, _kernel(w, x.dtype))
+def _dense(p: dict, name: str, x) -> torch.Tensor:
+    """x @ W for the ``(out, in)`` weight ``name.weight`` (q/k/v, o_proj and
+    the MLP alike), plus ``name.bias`` when the model has one."""
+    y = F.linear(x, _kernel(p[name + ".weight"], x.dtype))
+    bias = p.get(name + ".bias")
+    return y if bias is None else y + bias.to(y.dtype)
 
 
-def _proj(x, w, heads: int) -> torch.Tensor:
+def _proj(p: dict, name: str, x, heads: int) -> torch.Tensor:
     """(B, S, H) → (B, S, heads, D)."""
     b, s, _ = x.shape
-    return _dense(w, x).view(b, s, heads, -1)
+    return _dense(p, name, x).view(b, s, heads, -1)
 
 
-def _out_proj(x, w) -> torch.Tensor:
-    """(B, S, heads, D) → (B, S, H)."""
-    return _dense(w, x.reshape(*x.shape[:2], -1))
+def _mlp(cfg, p: dict, pre: str, x) -> torch.Tensor:
+    act = activation_fn(cfg.hidden_act)
+    up = _dense(p, pre + "mlp.up_proj", x)
+    hidden = act(_dense(p, pre + "mlp.gate_proj", x)) * up if cfg.mlp_gated else act(up)
+    return _dense(p, pre + "mlp.down_proj", hidden)
 
 
-def _mlp(p: dict, pre: str, x) -> torch.Tensor:
-    gate = _dense(p[pre + "mlp.gate_proj.weight"], x)
-    up = _dense(p[pre + "mlp.up_proj.weight"], x)
-    return _dense(p[pre + "mlp.down_proj.weight"], F.silu(gate) * up)
-
-
-def _chassis_norm(cfg, w, x) -> torch.Tensor:
-    """RMSNorm (the only norm the port's LlamaConfig takes)."""
+def _chassis_norm(cfg, p: dict, name: str, x) -> torch.Tensor:
+    """The norm ``name`` by the chassis knob: layernorm with its bias, or
+    RMSNorm, whose weight w computes as w + 1 for Gemma (added in the
+    weight's dtype, then cast, as the module does)."""
+    w = p[name + ".weight"]
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, w, p[name + ".bias"], cfg.rms_norm_eps)
+    if cfg.rms_norm_plus_one:
+        w = w + 1.0
     return rms_norm(x, w.to(x.dtype), cfg.rms_norm_eps)
 
 
-def _embed_tokens(cfg, embed, ids) -> torch.Tensor:
-    return F.embedding(ids, embed).to(cfg.dtype)
-
-
 def _qkv_proj(cfg, p: dict, pre: str, hn, cos, sin):
-    """Roped q and k, and v, of one layer."""
-    q = _proj(hn, p[pre + "self_attn.q_proj.weight"], cfg.num_attention_heads)
-    k = _proj(hn, p[pre + "self_attn.k_proj.weight"], cfg.num_key_value_heads)
-    v = _proj(hn, p[pre + "self_attn.v_proj.weight"], cfg.num_key_value_heads)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    """Roped q and k, and v, of one layer: biases when the model has them,
+    RoPE on ``cfg.rotary_dim`` dims, and the attention multiplier folded
+    into q after RoPE, where the JAX plan folds it."""
+    q = _proj(p, pre + "self_attn.q_proj", hn, cfg.num_attention_heads)
+    k = _proj(p, pre + "self_attn.k_proj", hn, cfg.num_key_value_heads)
+    v = _proj(p, pre + "self_attn.v_proj", hn, cfg.num_key_value_heads)
+    q = apply_partial_rope(q, cos, sin, cfg.rotary_dim)
+    k = apply_partial_rope(k, cos, sin, cfg.rotary_dim)
+    if cfg.attention_multiplier is not None:
+        q = q * as_dtype(cfg.attention_multiplier * np.sqrt(cfg.head_dim), q.dtype)
+    return q, k, v
 
 
 def _attend_mask(q_positions, t: int, kv_valid=None) -> torch.Tensor:
@@ -293,27 +316,29 @@ def _llama_forward_cached(cfg, model_or_params, input_ids, cache: KVCache, retur
     b, s = input_ids.shape
     start = cache.length
     positions = _row_positions(start, b, s)
-    x = _embed_tokens(cfg, p["model.embed_tokens.weight"], input_ids.long())
+    x = embed_tokens(cfg, p["model.embed_tokens.weight"], input_ids.long())
     rope_positions = positions
     if pad_offset is not None:
         rope_positions = torch.clamp(positions - pad_offset[:, None], min=0)
     cos, sin = rotary_embedding(rope_positions, cfg.rotary_dim, cfg.rope_theta, x.dtype)
     visible = _attend_mask(positions, cache.k.shape[2], kv_valid)
     plan = _write_plan(start, s, cache.k.shape[2]) if start.dim() == 1 else None
+    rm = cfg.residual_multiplier
     for i in range(cfg.num_hidden_layers):
         pre = f"model.layers.{i}."
-        hn = _chassis_norm(cfg, p[pre + "input_layernorm.weight"], x)
+        hn = _chassis_norm(cfg, p, pre + "input_layernorm", x)
         q, k_new, v_new = _qkv_proj(cfg, p, pre, hn, cos, sin)
         ck = _cache_write(cache.k[i], k_new, start, plan)
         cv = _cache_write(cache.v[i], v_new, start, plan)
         out = _attend_masked(q, ck, cv, visible)
-        x = x + _out_proj(out, p[pre + "self_attn.o_proj.weight"])
-        hn = _chassis_norm(cfg, p[pre + "post_attention_layernorm.weight"], x)
-        x = x + _mlp(p, pre, hn)
-    x = _chassis_norm(cfg, p["model.norm.weight"], x)
+        out = _dense(p, pre + "self_attn.o_proj", out.reshape(b, s, -1))
+        x = x + scale_residual(out, rm)
+        hn = _chassis_norm(cfg, p, pre + "post_attention_layernorm", x)
+        x = x + scale_residual(_mlp(cfg, p, pre, hn), rm)
+    x = _chassis_norm(cfg, p, "model.norm", x)
     h_out = x if return_all else x[:, -1]
     head = p["model.embed_tokens.weight"] if cfg.tie_word_embeddings else p["lm_head.weight"]
-    logits = F.linear(h_out, head.to(cfg.dtype))
+    logits = scale_logits(F.linear(h_out, head.to(cfg.dtype)), cfg.logits_scaling)
     return logits.float(), KVCache(cache.k, cache.v, start + s)
 
 
@@ -365,7 +390,19 @@ def sample_logits(logits, generator: Optional[torch.Generator] = None, *, temper
 GENERATION_PLANS: dict[str, Callable] = {"LlamaForCausalLM": _llama_forward_cached}
 
 
-def _generation_plan(module) -> Callable:
+def register_generation_plan(module_class_name: str, fn: Callable) -> None:
+    """Make ``fn(cfg, params, input_ids, cache, return_all=False,
+    pad_offset=None, kv_valid=None) -> (fp32 logits, cache)`` the plan of
+    every module of that class name (``params``: state-dict names →
+    tensors)."""
+    GENERATION_PLANS[module_class_name] = fn
+
+
+def _generation_plan(module, forward_cached: Optional[Callable] = None) -> Callable:
+    """``forward_cached`` when given (it outranks the registry, as in the
+    JAX package), else the plan of the module's class."""
+    if forward_cached is not None:
+        return forward_cached
     fwd = GENERATION_PLANS.get(type(module).__name__)
     if fwd is None:
         raise NotImplementedError(
@@ -464,10 +501,6 @@ def generate(
         raise NotImplementedError(
             f"encoder-decoder generation (decoder_input_ids) is not ported yet "
             f"({_OTHER_MODELS_ITEM}: t5, whisper)")
-    if forward_cached is not None:
-        raise NotImplementedError(
-            f"generate(forward_cached=...) is not ported yet: the plan comes from the "
-            f"model's class, and plans other than Llama are {_OTHER_MODELS_ITEM}")
     if compile_manager is not None:
         raise NotImplementedError(f"generate(compile_manager=...) is not ported yet "
                                   f"({_COMPILE_MANAGER_ITEM})")
@@ -483,7 +516,7 @@ def generate(
 
     module = getattr(model, "module", model)
     cfg = module.config
-    fwd = _generation_plan(module)
+    fwd = _generation_plan(module, forward_cached)
     params = _decode_params(model)
     device = _params_device(params)
 
@@ -649,13 +682,9 @@ def beam_search(model, input_ids, max_new_tokens: int = 32, *, num_beams: int = 
         raise NotImplementedError(
             f"encoder-decoder beam search (decoder_input_ids) is not ported yet "
             f"({_OTHER_MODELS_ITEM}: t5, whisper)")
-    if forward_cached is not None:
-        raise NotImplementedError(
-            f"beam_search(forward_cached=...) is not ported yet: the plan comes from the "
-            f"model's class, and plans other than Llama are {_OTHER_MODELS_ITEM}")
     module = getattr(model, "module", model)
     cfg = module.config
-    fwd = _generation_plan(module)
+    fwd = _generation_plan(module, forward_cached)
     params = _decode_params(model)
     device = _params_device(params)
     input_ids = torch.as_tensor(input_ids).to(device)

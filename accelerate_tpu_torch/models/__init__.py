@@ -1,4 +1,5 @@
 from .convert import llama_params_from_flax, llama_params_to_flax
+from .hub import llama_params_from_hf, llama_params_to_hf, load_pretrained, model_from_pretrained
 from .llama import (
     LlamaAttention,
     LlamaBlock,
@@ -9,6 +10,7 @@ from .llama import (
     apply_partial_rope,
     apply_rope,
     cross_entropy_loss,
+    fused_cross_entropy_loss,
     naive_attention,
     rms_norm,
     rotary_embedding,
@@ -24,8 +26,13 @@ __all__ = [
     "apply_partial_rope",
     "apply_rope",
     "cross_entropy_loss",
+    "fused_cross_entropy_loss",
     "llama_params_from_flax",
+    "llama_params_from_hf",
     "llama_params_to_flax",
+    "llama_params_to_hf",
+    "load_pretrained",
+    "model_from_pretrained",
     "naive_attention",
     "rms_norm",
     "rotary_embedding",

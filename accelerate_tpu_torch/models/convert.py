@@ -6,7 +6,10 @@ either one ``nn.scan`` stack, ``model/layers/block/...`` with a leading layer
 axis, or unrolled ``model/layers_{i}/...`` (``scan_layers=False``). Kernels
 are stored input-major: ``DenseGeneral`` q/k/v kernels are
 ``(H, heads, D)``, ``o_proj`` is ``(heads, D, H)``, ``Dense`` kernels are
-``(in, out)``; a ``torch.nn.Linear`` weight is ``(out, in)``.
+``(in, out)``; a ``torch.nn.Linear`` weight is ``(out, in)``. The chassis
+knobs add leaves: q/k/v biases ``(heads, D)`` (a ``(heads * D,)`` bias
+here), the ``o_proj`` bias ``(H,)``, MLP biases, a LayerNorm's ``bias``
+beside its ``weight``, and no ``gate_proj`` for an ungated MLP.
 
 The same maps carry any tree shaped like the parameters, such as AdamW's
 moments (optax's ``mu``/``nu``). Both directions work on torch tensors on
@@ -21,8 +24,15 @@ import torch
 from .llama import LlamaConfig
 
 _NORMS = ("input_layernorm", "post_attention_layernorm")
-_PROJ = {"self_attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
-         "mlp": ("gate_proj", "up_proj", "down_proj")}
+_ATTN_IN = ("q_proj", "k_proj", "v_proj")
+
+
+def _norm_leaves(cfg: LlamaConfig) -> tuple[str, ...]:
+    return ("weight", "bias") if cfg.norm_type == "layernorm" else ("weight",)
+
+
+def _mlp_names(cfg: LlamaConfig) -> tuple[str, ...]:
+    return ("gate_proj", "up_proj", "down_proj") if cfg.mlp_gated else ("up_proj", "down_proj")
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -48,15 +58,21 @@ def _linear(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.reshape(kernel.shape[0], -1).t()
 
 
-def _block_from_flax(blk: dict) -> dict:
-    out = {f"{n}.weight": _as_tensor(blk[n]["weight"]) for n in _NORMS}
-    for part, names in _PROJ.items():
-        for name in names:
-            kernel = _as_tensor(blk[part][name]["kernel"])
-            if name == "o_proj":  # (heads, D, H)
-                out[f"{part}.{name}.weight"] = kernel.reshape(-1, kernel.shape[-1]).t()
-            else:
-                out[f"{part}.{name}.weight"] = _linear(kernel)
+def _block_from_flax(cfg: LlamaConfig, blk: dict) -> dict:
+    out = {f"{n}.{leaf}": _as_tensor(blk[n][leaf]) for n in _NORMS for leaf in _norm_leaves(cfg)}
+    attn = blk["self_attn"]
+    for name in _ATTN_IN:
+        out[f"self_attn.{name}.weight"] = _linear(_as_tensor(attn[name]["kernel"]))
+        if cfg.attention_bias:  # (heads, D)
+            out[f"self_attn.{name}.bias"] = _as_tensor(attn[name]["bias"]).reshape(-1)
+    kernel = _as_tensor(attn["o_proj"]["kernel"])  # (heads, D, H)
+    out["self_attn.o_proj.weight"] = kernel.reshape(-1, kernel.shape[-1]).t()
+    if cfg.attention_out_bias:
+        out["self_attn.o_proj.bias"] = _as_tensor(attn["o_proj"]["bias"])
+    for name in _mlp_names(cfg):
+        out[f"mlp.{name}.weight"] = _linear(_as_tensor(blk["mlp"][name]["kernel"]))
+        if cfg.mlp_bias:
+            out[f"mlp.{name}.bias"] = _as_tensor(blk["mlp"][name]["bias"])
     return out
 
 
@@ -74,12 +90,11 @@ def llama_views_from_flax(cfg: LlamaConfig, flax_params) -> dict[str, torch.Tens
     if "params" in flax_params and "model" not in flax_params:
         flax_params = flax_params["params"]
     model = flax_params["model"]
-    flat = {
-        "model.embed_tokens.weight": _as_tensor(model["embed_tokens"]["embedding"]),
-        "model.norm.weight": _as_tensor(model["norm"]["weight"]),
-    }
+    flat = {"model.embed_tokens.weight": _as_tensor(model["embed_tokens"]["embedding"])}
+    for leaf in _norm_leaves(cfg):
+        flat[f"model.norm.{leaf}"] = _as_tensor(model["norm"][leaf])
     for i, blk in enumerate(_layer_trees(model, cfg.num_hidden_layers)):
-        for name, value in _block_from_flax(blk).items():
+        for name, value in _block_from_flax(cfg, blk).items():
             flat[f"model.layers.{i}.{name}"] = value
     if not cfg.tie_word_embeddings:
         flat["lm_head.weight"] = _linear(_as_tensor(flax_params["lm_head"]["kernel"]))
@@ -95,14 +110,24 @@ def llama_params_from_flax(cfg: LlamaConfig, flax_params) -> dict[str, torch.Ten
 def _block_to_flax(get, cfg: LlamaConfig, prefix: str) -> dict:
     heads, kv, d, h = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
                        cfg.hidden_size)
-    shapes = {"q_proj": (h, heads, d), "k_proj": (h, kv, d), "v_proj": (h, kv, d)}
-    attn = {name: {"kernel": get(f"{prefix}self_attn.{name}.weight").t().reshape(shape)}
-            for name, shape in shapes.items()}
+    n_heads = {"q_proj": heads, "k_proj": kv, "v_proj": kv}
+    attn = {}
+    for name, n in n_heads.items():
+        attn[name] = {"kernel": get(f"{prefix}self_attn.{name}.weight").t().reshape(h, n, d)}
+        if cfg.attention_bias:
+            attn[name]["bias"] = get(f"{prefix}self_attn.{name}.bias").reshape(n, d)
     attn["o_proj"] = {"kernel": get(f"{prefix}self_attn.o_proj.weight").t().reshape(heads, d, h)}
+    if cfg.attention_out_bias:
+        attn["o_proj"]["bias"] = get(f"{prefix}self_attn.o_proj.bias")
+    mlp = {}
+    for name in _mlp_names(cfg):
+        mlp[name] = {"kernel": get(f"{prefix}mlp.{name}.weight").t()}
+        if cfg.mlp_bias:
+            mlp[name]["bias"] = get(f"{prefix}mlp.{name}.bias")
     return {
-        **{n: {"weight": get(f"{prefix}{n}.weight")} for n in _NORMS},
+        **{n: {leaf: get(f"{prefix}{n}.{leaf}") for leaf in _norm_leaves(cfg)} for n in _NORMS},
         "self_attn": attn,
-        "mlp": {n: {"kernel": get(f"{prefix}mlp.{n}.weight").t()} for n in _PROJ["mlp"]},
+        "mlp": mlp,
     }
 
 
@@ -110,7 +135,8 @@ def llama_params_to_flax(cfg: LlamaConfig, state_dict: dict) -> dict:
     """The flax params tree of ``cfg`` from a state dict (or any tree of
     tensors with its names, such as AdamW's moments), the inverse of
     ``llama_params_from_flax``: kernels input-major, q/k/v as
-    ``(H, heads, D)``, ``o_proj`` as ``(heads, D, H)``, and the layers as one
+    ``(H, heads, D)`` (their biases ``(heads, D)``), ``o_proj`` as
+    ``(heads, D, H)``, and the layers as one
     ``model/layers/block`` stack with a leading layer axis when
     ``cfg.scan_layers``, else as ``model/layers_{i}``. Leaves are contiguous
     tensors on the state dict's device, in its dtype."""
@@ -118,7 +144,7 @@ def llama_params_to_flax(cfg: LlamaConfig, state_dict: dict) -> dict:
     layers = [_block_to_flax(get, cfg, f"model.layers.{i}.")
               for i in range(cfg.num_hidden_layers)]
     model = {"embed_tokens": {"embedding": get("model.embed_tokens.weight")},
-             "norm": {"weight": get("model.norm.weight")}}
+             "norm": {leaf: get(f"model.norm.{leaf}") for leaf in _norm_leaves(cfg)}}
     if cfg.scan_layers:
         model["layers"] = {"block": _zip_trees(lambda *leaves: torch.stack(leaves), layers)}
     else:

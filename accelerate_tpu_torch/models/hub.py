@@ -1,0 +1,232 @@
+"""Hugging Face checkpoints of the Llama family on the port's decoder
+chassis (counterpart of the Llama-family part of
+``accelerate_tpu/models/hub.py``).
+
+The port's parameter names and layouts already are Hugging Face's
+(``model.layers.{i}.self_attn.q_proj.weight``, a Linear weight
+``(out, in)``), so a checkpoint maps over by name: ``llama_params_from_hf``
+picks the tensors ``LlamaForCausalLM(cfg)`` holds and makes them fp32
+masters, ``llama_params_to_hf`` hands them back as host tensors. Gemma's
+norm weights are stored as w in both conventions (both compute w + 1).
+Phi-3's fused ``qkv_proj`` and ``gate_up_proj`` are split by rows.
+
+``load_pretrained(src)`` takes a transformers model (anything with
+``.config`` and ``.state_dict()``; transformers itself is not imported), a
+local checkpoint directory (``config.json`` with ``*.safetensors``, read by
+the port's own reader, or ``pytorch_model.bin``), or a ``(config,
+state_dict)`` pair, picks the family from ``model_type`` and falls back to
+the declarative specs of ``generic_hub.py`` for the types outside
+``_FAMILIES``. The JAX package's other families (GPT-2, BERT, T5, ...)
+raise ``NotImplementedError`` (ROADMAP.md Queue A item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..utils.other import load_safetensors
+from .llama import LlamaConfig, LlamaForCausalLM
+
+_OTHER_FAMILIES_ITEM = "ROADMAP.md Queue A item 10 (the other models)"
+
+
+def _getter(hf: Any):
+    """``get(key, default)`` over a config dict or a config object."""
+    if isinstance(hf, dict):
+        return hf.get
+    return lambda k, d=None: getattr(hf, k, d)
+
+
+def _tensor(x) -> torch.Tensor:
+    """A host tensor of a checkpoint entry (torch tensor or array-like)."""
+    if torch.is_tensor(x):
+        return x.detach().cpu()
+    return torch.from_numpy(np.asarray(x))
+
+
+# ---------------------------------------------------------------------------
+# Llama, Mistral, Qwen2, Gemma, Phi-3
+# ---------------------------------------------------------------------------
+
+
+def llama_config_from_hf(hf: Any) -> LlamaConfig:
+    g = _getter(hf)
+    return LlamaConfig(
+        vocab_size=g("vocab_size"),
+        hidden_size=g("hidden_size"),
+        intermediate_size=g("intermediate_size"),
+        num_hidden_layers=g("num_hidden_layers"),
+        num_attention_heads=g("num_attention_heads"),
+        num_key_value_heads=g("num_key_value_heads") or g("num_attention_heads"),
+        head_dim=g("head_dim"),
+        max_position_embeddings=g("max_position_embeddings", 4096),
+        rms_norm_eps=g("rms_norm_eps", 1e-5),
+        rope_theta=g("rope_theta", 10000.0),
+        tie_word_embeddings=bool(g("tie_word_embeddings", False)),
+        # Qwen2 always carries q/k/v biases; Llama and Mistral name the flag.
+        attention_bias=bool(g("attention_bias", g("model_type") == "qwen2")),
+    )
+
+
+def gemma_config_from_hf(hf: Any) -> LlamaConfig:
+    """The Llama chassis with Gemma's three knobs: a GeGLU MLP
+    (``gelu_tanh``), norm weights computed as w + 1, and embeddings scaled
+    by sqrt(hidden_size); head_dim 256 unless given, tied embeddings."""
+    g = _getter(hf)
+    return dataclasses.replace(
+        llama_config_from_hf(hf), head_dim=g("head_dim", 256), tie_word_embeddings=True,
+        hidden_act="gelu_tanh", rms_norm_plus_one=True, scale_embeddings=True)
+
+
+def phi3_config_from_hf(hf: Any) -> LlamaConfig:
+    """The Llama config, refusing what the chassis would load and compute
+    wrong: rope scaling (longrope, Phi-3-mini-128k) and a partial rotary
+    factor (Phi-4-mini)."""
+    g = _getter(hf)
+    scaling = g("rope_scaling")
+    if scaling:
+        kind = scaling.get("type", scaling) if isinstance(scaling, dict) else scaling
+        raise ValueError(
+            f"Phi-3 checkpoint uses rope_scaling={kind!r} — longrope is not supported by the "
+            "Llama family; load the base (4k) variant instead.")
+    partial = g("partial_rotary_factor", 1.0)
+    if partial not in (None, 1.0):
+        raise ValueError(f"Phi-3 checkpoint uses partial_rotary_factor={partial} — the Llama "
+                         "family applies full-head RoPE only.")
+    return llama_config_from_hf(hf)
+
+
+def llama_params_from_hf(cfg: LlamaConfig, sd: dict) -> dict[str, torch.Tensor]:
+    """State dict of ``LlamaForCausalLM(cfg)`` (contiguous fp32 host
+    tensors, copies: the source's tensors stay untouched by training) from
+    a Hugging Face one: the names the module holds, each checked against
+    its shape. Other entries (a tied ``lm_head.weight``, rotary buffers)
+    are left out."""
+    want = LlamaForCausalLM(cfg, device="meta").state_dict()
+    missing = sorted(set(want) - set(sd))
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} tensors of the model: {missing[:8]}")
+    out = {}
+    for name, ref in want.items():
+        t = _tensor(sd[name]).to(torch.float32, copy=True).contiguous()
+        if t.shape != ref.shape:
+            raise ValueError(f"{name}: checkpoint {tuple(t.shape)} vs model {tuple(ref.shape)}")
+        out[name] = t
+    return out
+
+
+def llama_params_to_hf(cfg: LlamaConfig, state_dict: dict) -> dict[str, torch.Tensor]:
+    """The Hugging Face state dict of a ``LlamaForCausalLM(cfg)`` state dict
+    (the inverse of ``llama_params_from_hf``): the same names, as
+    contiguous host tensors in their dtype."""
+    want = LlamaForCausalLM(cfg, device="meta").state_dict()
+    return {name: _tensor(state_dict[name]).contiguous() for name in want}
+
+
+def phi3_params_from_hf(cfg: LlamaConfig, sd: dict) -> dict[str, torch.Tensor]:
+    """Phi-3's fused projections split into the Llama names: ``qkv_proj``
+    rows are [q (Hq·D) | k (Hkv·D) | v (Hkv·D)], ``gate_up_proj`` rows
+    [gate (I) | up (I)]; the rest is Llama's."""
+    q_rows = cfg.num_attention_heads * cfg.head_dim
+    kv_rows = cfg.num_key_value_heads * cfg.head_dim
+    split: dict = {}
+    for k, v in sd.items():
+        if k.endswith("self_attn.qkv_proj.weight"):
+            base, w = k[: -len("qkv_proj.weight")], _tensor(v)
+            split[base + "q_proj.weight"] = w[:q_rows]
+            split[base + "k_proj.weight"] = w[q_rows:q_rows + kv_rows]
+            split[base + "v_proj.weight"] = w[q_rows + kv_rows:]
+        elif k.endswith("mlp.gate_up_proj.weight"):
+            base, w = k[: -len("gate_up_proj.weight")], _tensor(v)
+            split[base + "gate_proj.weight"] = w[: cfg.intermediate_size]
+            split[base + "up_proj.weight"] = w[cfg.intermediate_size:]
+        else:
+            split[k] = v
+    return llama_params_from_hf(cfg, split)
+
+
+# ---------------------------------------------------------------------------
+# High-level entry
+# ---------------------------------------------------------------------------
+
+# model_type -> (module class, config from HF, state dict from HF)
+_FAMILIES = {
+    "llama": (LlamaForCausalLM, llama_config_from_hf, llama_params_from_hf),
+    "mistral": (LlamaForCausalLM, llama_config_from_hf, llama_params_from_hf),
+    "qwen2": (LlamaForCausalLM, llama_config_from_hf, llama_params_from_hf),
+    "gemma": (LlamaForCausalLM, gemma_config_from_hf, llama_params_from_hf),
+    "phi3": (LlamaForCausalLM, phi3_config_from_hf, phi3_params_from_hf),
+}
+# The JAX package's other hand-written families.
+_UNPORTED_FAMILIES = ("clip", "mixtral", "gpt2", "bert", "t5", "vit", "opt", "gpt_neox",
+                      "whisper")
+
+
+def _read_checkpoint_dir(path: str) -> tuple[dict, dict]:
+    """(config.json, name → host tensor) of a checkpoint directory: every
+    ``*.safetensors`` shard, else ``pytorch_model.bin``."""
+    with open(os.path.join(path, "config.json")) as f:
+        hf_cfg = json.load(f)
+    sd: dict = {}
+    shards = sorted(fn for fn in os.listdir(path) if fn.endswith(".safetensors"))
+    if shards:
+        for fn in shards:
+            sd.update(load_safetensors(os.path.join(path, fn)))
+    elif os.path.exists(os.path.join(path, "pytorch_model.bin")):
+        sd = torch.load(os.path.join(path, "pytorch_model.bin"), map_location="cpu",
+                        weights_only=True)
+    else:
+        raise FileNotFoundError(f"No *.safetensors or pytorch_model.bin under {path}")
+    return hf_cfg, sd
+
+
+def load_pretrained(src, family: Optional[str] = None, dtype=torch.bfloat16):
+    """A Hugging Face checkpoint as ``(config, state_dict, module_class)``:
+    the state dict's tensors are fp32 masters on the host and ``dtype`` is
+    the config's compute dtype.
+
+    ``src``: a transformers model (``.config`` and ``.state_dict()``), a
+    local checkpoint directory, or a ``(hf_config, state_dict)`` pair."""
+    if isinstance(src, (str, os.PathLike)):
+        hf_cfg, sd = _read_checkpoint_dir(os.fspath(src))
+    elif isinstance(src, tuple):
+        hf_cfg, sd = src
+    else:
+        hf_cfg, sd = src.config, src.state_dict()
+    if family is None:
+        family = _getter(hf_cfg)("model_type")
+    if family in _UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"model family {family!r} is not ported yet ({_OTHER_FAMILIES_ITEM})")
+    if family not in _FAMILIES:
+        from . import generic_hub
+
+        spec = generic_hub.get_arch_spec(family)
+        if spec is not None:
+            return generic_hub.load_with_spec(spec, hf_cfg, sd, dtype)
+        raise ValueError(
+            f"Unsupported model family {family!r}; hand-written families: "
+            f"{', '.join(sorted(_FAMILIES))}; generic specs: "
+            f"{', '.join(generic_hub.known_generic_types())}. Register new architectures "
+            f"with accelerate_tpu_torch.models.generic_hub.register_arch_spec.")
+    cls, cfg_fn, params_fn = _FAMILIES[family]
+    cfg = dataclasses.replace(cfg_fn(hf_cfg), dtype=dtype)
+    return cfg, params_fn(cfg, sd), cls
+
+
+def model_from_pretrained(src, family: Optional[str] = None, dtype=torch.bfloat16,
+                          device="cuda"):
+    """A Hugging Face checkpoint as a ready ``Model`` on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    from ..model import Model
+
+    cfg, state_dict, cls = load_pretrained(src, family=family, dtype=dtype)
+    module = cls(cfg, device="meta")
+    module.load_state_dict(state_dict, assign=True)
+    return Model(module.to(device))

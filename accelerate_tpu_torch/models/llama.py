@@ -30,16 +30,30 @@ backend_to_native(fp8_backend))``; the embedding and ``lm_head`` stay in
 the compute dtype, as in the JAX package. The weights are the same, so
 ``models/convert.py`` carries them over either way.
 
-The other decoder-chassis knobs of the JAX config (layernorm, biases,
-partial rotary, Granite and Gemma constants) are not ported yet: a config
-that sets one raises ``NotImplementedError`` (ROADMAP.md Queue A item 10).
+The decoder chassis: every knob of the JAX config (all off means plain
+Llama). ``norm_type="layernorm"`` (mean-centred, with a bias),
+``rms_norm_plus_one`` (Gemma: the stored weight w computes as w + 1),
+biases on q/k/v (``attention_bias``), on ``o_proj``
+(``attention_out_bias``) and on the MLP (``mlp_bias``), an ungated MLP
+(``mlp_gated=False``), ``hidden_act``, ``partial_rotary_factor``,
+Gemma's ``scale_embeddings`` and Granite's four constants
+(``embedding_multiplier``, ``residual_multiplier``,
+``attention_multiplier``, ``logits_scaling``). Each constant is rounded to
+the compute dtype before it multiplies, as the JAX package's
+``jnp.asarray(c, dtype)`` does; the attention multiplier is folded into q
+as ``mult * sqrt(head_dim)``, so every attention impl runs unchanged. A
+bias is added after the projection's product, in the compute dtype.
+
+``fused_cross_entropy_loss`` takes the causal-LM loss without the
+(B, S, V) logits: the sequence goes through the head in ``chunk_size``
+slices whose logits are recomputed in the backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from functools import partial
+from functools import lru_cache, partial
 from typing import Any, Optional
 
 import torch
@@ -59,14 +73,6 @@ from ..parallel.sp import ulysses_attention
 from ..state import current_sequence_shard
 from ..utils.operations import global_token_count
 
-# Chassis knobs of the JAX LlamaConfig with the value that means plain Llama.
-_UNPORTED_KNOBS = {
-    "attention_bias": False, "norm_type": "rmsnorm", "mlp_gated": True, "mlp_bias": False,
-    "attention_out_bias": False, "partial_rotary_factor": 1.0, "embedding_multiplier": 1.0,
-    "residual_multiplier": 1.0, "attention_multiplier": None, "logits_scaling": 1.0,
-    "hidden_act": "silu", "rms_norm_plus_one": False, "scale_embeddings": False,
-}
-
 
 @dataclasses.dataclass
 class LlamaConfig:
@@ -81,16 +87,20 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
-    attention_bias: bool = False
-    norm_type: str = "rmsnorm"
-    mlp_gated: bool = True
-    mlp_bias: bool = False
-    attention_out_bias: bool = False
-    partial_rotary_factor: float = 1.0
+    attention_bias: bool = False        # bias on q/k/v (Qwen2)
+    norm_type: str = "rmsnorm"          # rmsnorm | layernorm (mean-centred, with bias)
+    mlp_gated: bool = True              # False: up_proj -> act -> down_proj
+    mlp_bias: bool = False              # biases on the MLP projections
+    attention_out_bias: bool = False    # bias on o_proj
+    partial_rotary_factor: float = 1.0  # RoPE on this fraction of head_dim
+    # Granite's constants (1.0 / None: plain Llama); the attention
+    # multiplier replaces the 1/sqrt(head_dim) score scale.
     embedding_multiplier: float = 1.0
     residual_multiplier: float = 1.0
     attention_multiplier: Optional[float] = None
     logits_scaling: float = 1.0
+    # Gemma's: GeGLU, norm weights stored as w and computed as w + 1,
+    # embeddings scaled by sqrt(hidden_size).
     hidden_act: str = "silu"
     rms_norm_plus_one: bool = False
     scale_embeddings: bool = False
@@ -108,10 +118,13 @@ class LlamaConfig:
     def __post_init__(self):
         if self.head_dim is None:
             self.head_dim = self.hidden_size // self.num_attention_heads
-        changed = [k for k, plain in _UNPORTED_KNOBS.items() if getattr(self, k) != plain]
-        if changed:
-            raise NotImplementedError(
-                f"LlamaConfig knobs {changed} are not ported yet (ROADMAP.md Queue A item 10)")
+        if self.norm_type not in ("rmsnorm", "layernorm"):
+            raise ValueError(f"norm_type must be rmsnorm|layernorm, got {self.norm_type}")
+        if self.rotary_dim % 2:
+            raise ValueError(
+                f"partial_rotary_factor {self.partial_rotary_factor} of head_dim "
+                f"{self.head_dim} gives odd rotary_dim {self.rotary_dim}")
+        activation_fn(self.hidden_act)
         if self.remat_policy not in ("flash", "dots", "minimal"):
             raise ValueError(f"remat_policy must be flash|dots|minimal, got {self.remat_policy}")
 
@@ -141,6 +154,68 @@ class LlamaConfig:
 def rms_norm(x, weight, eps):
     var = x.float().square().mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+def layer_norm(x, weight, bias, eps):
+    """Mean-centred norm with a bias, in fp32 and returned in ``x``'s dtype;
+    shared by ``LayerNorm`` and the cached forward of ``generation.py``."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(x.dtype)
+
+
+@lru_cache(maxsize=None)
+def as_dtype(c: float, dtype) -> float:
+    """``c`` rounded to ``dtype``, as the JAX package's ``jnp.asarray(c,
+    dtype)`` rounds a constant before it multiplies (sqrt(2048) is 45.25 in
+    bf16). Multiplying by the rounded value gives the product of the two
+    ``dtype`` numbers."""
+    return float(torch.tensor(c, dtype=torch.float64).to(dtype))
+
+
+def scale_residual(y, mult: float):
+    """A branch's output times Granite's ``residual_multiplier``."""
+    return y if mult == 1.0 else y * as_dtype(mult, y.dtype)
+
+
+def scale_logits(logits, scaling: float):
+    """Granite's logits divided by ``logits_scaling`` in their dtype; the
+    divisor is a tensor, so that the card divides as the CPU does (it
+    multiplies by the reciprocal of a Python number)."""
+    if scaling == 1.0:
+        return logits
+    return logits / torch.full((), as_dtype(scaling, logits.dtype), dtype=logits.dtype,
+                               device=logits.device)
+
+
+def embed_tokens(cfg, weight, ids):
+    """Embedding rows in the compute dtype, scaled as Gemma
+    (``scale_embeddings``: sqrt(hidden_size)) and Granite
+    (``embedding_multiplier``) scale them."""
+    x = F.embedding(ids, weight).to(cfg.dtype)
+    if cfg.scale_embeddings:
+        x = x * as_dtype(math.sqrt(cfg.hidden_size), cfg.dtype)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * as_dtype(cfg.embedding_multiplier, cfg.dtype)
+    return x
+
+
+_ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": F.gelu,
+    "gelu_tanh": partial(F.gelu, approximate="tanh"),
+    "gelu_new": partial(F.gelu, approximate="tanh"),
+    "gelu_pytorch_tanh": partial(F.gelu, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+def activation_fn(name: str):
+    if name not in _ACTIVATIONS:
+        raise ValueError(f"Unknown hidden_act {name!r}; known: {sorted(_ACTIVATIONS)}")
+    return _ACTIVATIONS[name]
 
 
 def rotary_embedding(positions, head_dim: int, theta: float, dtype):
@@ -218,27 +293,59 @@ def _remat_policy(cfg: LlamaConfig):
 
 
 class _Linear(nn.Module):
-    """Bias-free projection whose fp32 weight is cast to the compute dtype
-    at use; ``linear`` is ``F.linear`` or the fp8 one."""
+    """Projection whose fp32 weight (and bias) is cast to the compute dtype
+    at use; ``linear`` is ``F.linear`` or the fp8 one. The bias is added
+    after the product, as flax's Dense adds it."""
 
-    def __init__(self, in_features, out_features, dtype, device=None, linear=None):
+    def __init__(self, in_features, out_features, dtype, device=None, linear=None,
+                 bias=False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
+        self.bias = nn.Parameter(torch.empty(out_features, device=device)) if bias else None
         self.dtype = dtype
         self.linear = linear or F.linear
 
     def forward(self, x):
-        return self.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        y = self.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
 
 
 class RMSNorm(nn.Module):
+    """RMSNorm; with ``plus_one`` (Gemma) the stored weight w computes as
+    w + 1, added in the weight's dtype before the cast, as in flax."""
+
+    def __init__(self, size, eps, device=None, plus_one=False):
+        super().__init__()
+        init = torch.zeros if plus_one else torch.ones
+        self.weight = nn.Parameter(init(size, device=device))
+        self.eps = eps
+        self.plus_one = plus_one
+
+    def forward(self, x):
+        w = self.weight + 1.0 if self.plus_one else self.weight
+        return rms_norm(x, w.to(x.dtype), self.eps)
+
+
+class LayerNorm(nn.Module):
+    """Mean-centred norm with a bias; params ``weight``/``bias`` (the JAX
+    module's names)."""
+
     def __init__(self, size, eps, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(size, device=device))
+        self.bias = nn.Parameter(torch.zeros(size, device=device))
         self.eps = eps
 
     def forward(self, x):
-        return rms_norm(x, self.weight.to(x.dtype), self.eps)
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def make_norm(cfg: LlamaConfig, device=None) -> nn.Module:
+    if cfg.norm_type == "layernorm":
+        return LayerNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
+    return RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, cfg.rms_norm_plus_one)
 
 
 class LlamaAttention(nn.Module):
@@ -246,10 +353,13 @@ class LlamaAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, d, dot = cfg.hidden_size, cfg.head_dim, cfg.dot_general
-        self.q_proj = _Linear(h, cfg.num_attention_heads * d, cfg.dtype, device, dot)
-        self.k_proj = _Linear(h, cfg.num_key_value_heads * d, cfg.dtype, device, dot)
-        self.v_proj = _Linear(h, cfg.num_key_value_heads * d, cfg.dtype, device, dot)
-        self.o_proj = _Linear(cfg.num_attention_heads * d, h, cfg.dtype, device, dot)
+        qkv = partial(_Linear, dtype=cfg.dtype, device=device, linear=dot,
+                      bias=cfg.attention_bias)
+        self.q_proj = qkv(h, cfg.num_attention_heads * d)
+        self.k_proj = qkv(h, cfg.num_key_value_heads * d)
+        self.v_proj = qkv(h, cfg.num_key_value_heads * d)
+        self.o_proj = _Linear(cfg.num_attention_heads * d, h, cfg.dtype, device, dot,
+                              bias=cfg.attention_out_bias)
         self.attn_fn = _dispatch_attention(cfg.attention_impl)
 
     def forward(self, x, cos, sin):
@@ -259,6 +369,9 @@ class LlamaAttention(nn.Module):
         q = self.q_proj(x).view(b, s, cfg.num_attention_heads, d)
         k = self.k_proj(x).view(b, s, cfg.num_key_value_heads, d)
         v = self.v_proj(x).view(b, s, cfg.num_key_value_heads, d)
+        if cfg.attention_multiplier is not None:
+            # attention divides by sqrt(d): (q * c * sqrt(d)) . k / sqrt(d) = c * (q . k)
+            q = q * as_dtype(cfg.attention_multiplier * math.sqrt(d), q.dtype)
         q = apply_partial_rope(q, cos, sin, cfg.rotary_dim)
         k = apply_partial_rope(k, cos, sin, cfg.rotary_dim)
         out = self.attn_fn(q, k, v, causal=True)
@@ -268,26 +381,35 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        h, inter, dot = cfg.hidden_size, cfg.intermediate_size, cfg.dot_general
-        self.gate_proj = _Linear(h, inter, cfg.dtype, device, dot)
-        self.up_proj = _Linear(h, inter, cfg.dtype, device, dot)
-        self.down_proj = _Linear(inter, h, cfg.dtype, device, dot)
+        h, inter = cfg.hidden_size, cfg.intermediate_size
+        dense = partial(_Linear, dtype=cfg.dtype, device=device, linear=cfg.dot_general,
+                        bias=cfg.mlp_bias)
+        self.gated = cfg.mlp_gated
+        if cfg.mlp_gated:
+            self.gate_proj = dense(h, inter)
+        self.up_proj = dense(h, inter)
+        self.down_proj = dense(inter, h)
+        self.act = activation_fn(cfg.hidden_act)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        up = self.up_proj(x)
+        hidden = self.act(self.gate_proj(x)) * up if self.gated else self.act(up)
+        return self.down_proj(hidden)
 
 
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
+        self.input_layernorm = make_norm(cfg, device)
         self.self_attn = LlamaAttention(cfg, device)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
+        self.post_attention_layernorm = make_norm(cfg, device)
         self.mlp = LlamaMLP(cfg, device)
+        self.residual_multiplier = cfg.residual_multiplier
 
     def forward(self, x, cos, sin):
-        h = x + self.self_attn(self.input_layernorm(x), cos, sin)
-        return h + self.mlp(self.post_attention_layernorm(h))
+        rm = self.residual_multiplier
+        h = x + scale_residual(self.self_attn(self.input_layernorm(x), cos, sin), rm)
+        return h + scale_residual(self.mlp(self.post_attention_layernorm(h)), rm)
 
 
 class LlamaModel(nn.Module):
@@ -296,7 +418,7 @@ class LlamaModel(nn.Module):
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, device=device)
         self.layers = nn.ModuleList(LlamaBlock(cfg, device) for _ in range(cfg.num_hidden_layers))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
+        self.norm = make_norm(cfg, device)
         policy = _remat_policy(cfg)
         self._remat_kwargs = {"use_reentrant": False}
         if policy is not None:
@@ -304,7 +426,7 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids):
         cfg = self.cfg
-        x = F.embedding(input_ids, self.embed_tokens.weight).to(cfg.dtype)
+        x = embed_tokens(cfg, self.embed_tokens.weight, input_ids)
         # Over a cp or sp axis this process holds slice i of n of each
         # sequence: its global positions, as the JAX package's arange over
         # the whole sequence gives them.
@@ -332,21 +454,80 @@ class LlamaForCausalLM(nn.Module):
         if not cfg.tie_word_embeddings:
             self.lm_head = _Linear(cfg.hidden_size, cfg.vocab_size, cfg.dtype, device)
 
-    def forward(self, input_ids):
-        x = self.model(input_ids)
+    def head_weight(self) -> torch.Tensor:
+        """The LM head's ``(V, H)`` weight: the embedding when tied."""
         if self.config.tie_word_embeddings:
-            return F.linear(x, self.model.embed_tokens.weight.to(self.config.dtype))
-        return self.lm_head(x)
+            return self.model.embed_tokens.weight
+        return self.lm_head.weight
+
+    def forward(self, input_ids, labels=None, *, ignore_index: int = -100,
+                chunk_size: int = 256):
+        """Logits (B, S, V) in the compute dtype; with ``labels``, the fp32
+        sum of the token losses and the count of labels that are not
+        ``ignore_index`` instead (``fused_cross_entropy_loss``), the logits
+        built ``chunk_size`` positions at a time."""
+        x = self.model(input_ids)
+        if labels is not None:
+            return _chunked_loss(x, self.head_weight().to(self.config.dtype), labels,
+                                 self.config.logits_scaling, ignore_index, chunk_size)
+        return scale_logits(F.linear(x, self.head_weight().to(self.config.dtype)),
+                            self.config.logits_scaling)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
-        """Seeded random weights: normal(0, std) matrices and embeddings,
-        unit norm scales. ``generator`` must be on the parameters' device."""
+        """Seeded random weights as flax's initialisers give them:
+        normal(0, std) matrices and embeddings, zero biases, unit norm
+        weights (zero for Gemma's plus-one RMSNorm, whose w + 1 is one).
+        ``generator`` must be on the parameters' device."""
+        cfg = self.config
+        plus_one = cfg.rms_norm_plus_one and cfg.norm_type == "rmsnorm"
         for name, p in self.named_parameters():
-            if name.endswith("layernorm.weight") or name == "model.norm.weight":
-                p.fill_(1.0)
-            else:
+            if p.dim() >= 2:
                 p.normal_(0.0, std, generator=generator)
+            elif name.endswith("bias") or plus_one:
+                p.zero_()
+            else:
+                p.fill_(1.0)
+
+
+def _chunk_loss(hidden, head, labels, scaling: float, ignore_index: int):
+    """fp32 sum of the token losses of one chunk: hidden (B, C, H) against
+    head (V, H), both in the compute dtype."""
+    logits = scale_logits(F.linear(hidden, head), scaling).float()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, safe[..., None])[..., 0]
+    return torch.where(valid, lse - picked, 0.0).sum()
+
+
+def _chunked_loss(hidden, head, labels, scaling, ignore_index, chunk_size):
+    """(fp32 token-loss sum, valid count) over ``chunk_size`` slices of the
+    sequence; each slice's logits are recomputed in the backward
+    (``torch.utils.checkpoint``), so the (B, S, V) logits never exist. An
+    odd tail falls back to one chunk, as in the JAX package."""
+    s = hidden.shape[1]
+    if s % chunk_size:
+        chunk_size = s
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for start in range(0, s, chunk_size):
+        sl = slice(start, start + chunk_size)
+        total = total + checkpoint(_chunk_loss, hidden[:, sl], head, labels[:, sl], scaling,
+                                   ignore_index, use_reentrant=False)
+    return total, (labels != ignore_index).sum()
+
+
+def fused_cross_entropy_loss(model, input_ids, labels, ignore_index: int = -100,
+                             chunk_size: int = 256):
+    """Causal-LM loss with the head's matmul folded into a chunked loss:
+    equal to ``cross_entropy_loss(model(input_ids), labels)`` up to the
+    order of fp32 sums, without the (B, S, V) logits. ``model`` is a
+    ``LlamaForCausalLM`` or a ``Model`` of one (the call goes through it, so
+    FSDP2's and DDP's hooks run). The mean is the global token mean, as
+    ``cross_entropy_loss`` takes it."""
+    total, valid = model(input_ids, labels, ignore_index=ignore_index, chunk_size=chunk_size)
+    count, n = global_token_count(valid)
+    return total * n / count.clamp_min(1)
 
 
 def cross_entropy_loss(logits, labels, ignore_index: int = -100):

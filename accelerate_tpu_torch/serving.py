@@ -63,8 +63,8 @@ without adding another.
 Not ported yet, and refused where they would be set: the journal and
 ``client_request_id``, tracing, chaos, fault tolerance, the compile
 manager, canary and weight swaps, crash recovery and the SDC canary
-(ROADMAP.md Queue A items 8.8 and 12), and generation plans other than
-Llama's (item 10).
+(ROADMAP.md Queue A items 8.8 and 12). The engine runs every config of the
+Llama chassis, or the plan ``forward_cached=`` names.
 """
 
 from __future__ import annotations
@@ -95,7 +95,6 @@ logger = logging.getLogger(__name__)
 
 # Engine arguments of the JAX package that the port does not take yet.
 _UNPORTED_ENGINE_ARGS = {
-    "forward_cached": "ROADMAP.md Queue A item 10 (the other models' generation plans)",
     "compile_manager": "ROADMAP.md Queue A item 12 (control plane: compile_manager.py)",
     "fault_tolerance": "ROADMAP.md Queue A item 12 (control plane: preemption drain)",
     "chaos": "ROADMAP.md Queue A item 12 (control plane: chaos.py)",
@@ -458,16 +457,16 @@ class ServingEngine:
     """Continuous-batching inference over one model (a ``Model``, a
     ``LlamaForCausalLM`` or a decode-quantized model) on the device that
     holds its parameters, with a :class:`ServingConfig`. The generation
-    plan comes from the model's class. ``telemetry`` is a
-    ``TelemetryRecorder`` (``Accelerator.telemetry``) and ``profiler`` a
-    ``DeviceTimeProfiler``, by default the recorder's."""
+    plan comes from the model's class unless ``forward_cached`` names
+    one. ``telemetry`` is a ``TelemetryRecorder``
+    (``Accelerator.telemetry``) and ``profiler`` a ``DeviceTimeProfiler``,
+    by default the recorder's."""
 
     def __init__(self, model, config: Optional[ServingConfig] = None, *,
                  forward_cached=None, compile_manager=None, telemetry=None,
                  fault_tolerance=None, chaos=None, tracing=None, journal=None, profiler=None):
-        given = dict(forward_cached=forward_cached, compile_manager=compile_manager,
-                     fault_tolerance=fault_tolerance, chaos=chaos, tracing=tracing,
-                     journal=journal)
+        given = dict(compile_manager=compile_manager, fault_tolerance=fault_tolerance,
+                     chaos=chaos, tracing=tracing, journal=journal)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -481,7 +480,7 @@ class ServingEngine:
         self.config = c = config if config is not None else ServingConfig()
         module = getattr(model, "module", model)
         self.cfg = module.config
-        fwd = _generation_plan(module)
+        fwd = _generation_plan(module, forward_cached)
         self._params = _decode_params(model)
         self.device = _params_device(self._params)
 

@@ -5,7 +5,9 @@
 model whose block projections are int8 codes with one fp32 scale per output
 channel (symmetric, reduced over the matmul's contraction dims). The cached
 forward (``generation._kernel``) dequantizes each one next to its matmul;
-embeddings, the LM head and the norms stay full precision.
+embeddings, the LM head (a tied one is the embedding), the norms and the
+biases stay full precision, as in the JAX package. Every config of the
+Llama chassis takes it (an ungated MLP has no ``gate_proj`` to quantize).
 
 The port's projections are 2-D ``(out, in)`` weights, so the contraction dim
 is dim 1 for every projection. That is the logical reduction the JAX package

@@ -226,6 +226,25 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    phase 7's) and beam_search with 4 beams (its length-normalised score at
    least greedy's, within ``BEAM_SCORE_REL``). No flash kernel is on this
    path; its launches, counted from zero, are in the kernel summary.
+17. the Llama decoder chassis. (a) Phase 4's tiny width with Gemma's knobs
+   and with Granite's constants, biases, layernorm, an ungated MLP and
+   partial rotary: one bf16 step on the card and on the CPU from the same
+   numpy-seeded weights, loss and grad norm within phase 4's tolerance.
+   (b) Gemma-2B (google/gemma-2b's config.json through
+   ``gemma_config_from_hf``: 2.5B parameters, head dim 256, 8 query heads
+   over 1 KV head, vocabulary 256,000) with seeded random weights: batch
+   2 x seq 2048, bf16 over fp32 masters, adamw, clipping, remat "dots",
+   flash attention, ``fused_cross_entropy_loss`` in chunks of 256; 2
+   warm-up and 5 timed steps on one batch with the flash kernels' launches
+   counted from zero (18 of each a step, all of the bf16 head-dim-256
+   variant), ms per step, MFU, peak memory, two profiled steps (idle share,
+   device time by category); then the fused loss and one step of
+   ``cross_entropy_loss`` on the same state and an unseen batch (within
+   ``FUSED_LOSS_REL``; the two steps' peaks side by side). (c) Its decode row (phase 7's, bf16
+   and int8 weights) beside the 5.01 GB per-token bound. (d) Its engine on
+   phase 8's trace cut to 16 requests. (e) A tiny Gemma written as a
+   Hugging Face checkpoint and read back by ``model_from_pretrained``:
+   logits equal bit for bit.
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -286,6 +305,9 @@ REPLACES = {"flash_fwd": "accelerate_tpu/ops/pallas_flash.py:72",
 FULL_WIDTH = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                   num_hidden_layers=18, num_attention_heads=16, num_key_value_heads=16)
 GEN_PROMPT, GEN_NEW_TOKENS = 64, 32   # bench.py's decode row: prompt (1, 64), 32 new
+# Decode steps under torch.profiler for the device-busy time a token; the
+# profile's parsing takes far longer than the steps it records.
+PROFILED_DECODE_STEPS = 8
 # benchmarks/generate_bench.py --serving with its defaults: --requests,
 # --slots, --qps, --prompt-len, --new-tokens.
 SERVING_ROW = dict(requests=32, slots=8, qps=8.0, prompt_len=64, new_tokens=64)
@@ -858,10 +880,14 @@ def tiny_generate_parity(device="cuda"):
     return out
 
 
-def _decode_steps(cfg, params, prompt, n):
+def _decode_steps(cfg, params, prompt, n, profiled=False):
     """Prefill, then `n` greedy decode steps as generate() runs them:
-    returns (decode seconds, all logits finite)."""
+    returns (decode seconds, all logits finite, and with `profiled` the
+    torch.profiler run of the decode steps alone, else None)."""
+    import contextlib
+
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from accelerate_tpu_torch import generation as gen
 
@@ -870,32 +896,44 @@ def _decode_steps(cfg, params, prompt, n):
     finite = [torch.isfinite(logits).all()]
     tok = torch.argmax(logits, dim=-1)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        logits, cache = gen._llama_forward_cached(cfg, params, tok[:, None], cache)
-        finite.append(torch.isfinite(logits).all())
-        tok = torch.argmax(logits, dim=-1)
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0, bool(torch.stack(finite).all())
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            logits, cache = gen._llama_forward_cached(cfg, params, tok[:, None], cache)
+            finite.append(torch.isfinite(logits).all())
+            tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return dt, bool(torch.stack(finite).all()), prof
 
 
 def full_width_generate(device="cuda"):
-    """bench.py's decode row on the port: bf16 and int8-weight generate()
-    of the 1.06B Llama, prompt (1, 64), 32 new tokens, one warm-up and one
-    timed call each; then prefill and decode-step times and a profile of
-    the decode steps. Returns the phase's numbers and the bf16 module."""
-    import numpy as np
+    """bench.py's decode row on the port's 1.06B Llama (``decode_row``).
+    Returns the phase's numbers and the bf16 module."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from accelerate_tpu_torch import Model, generate, quantize_model_for_decode
-    from accelerate_tpu_torch.generation import _decode_params, _llama_forward_cached, init_cache
     from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig(**FULL_WIDTH, max_position_embeddings=2048, dtype=torch.bfloat16)
     module = LlamaForCausalLM(cfg, device=device)
     module.init_weights(torch.Generator(device=device).manual_seed(0))
     module.to(torch.bfloat16)
+    return decode_row(cfg, module, FULL_WIDTH, device), module
+
+
+def decode_row(cfg, module, width, device="cuda"):
+    """bench.py's decode row: bf16 and int8-weight generate() of `module`
+    (bf16 weights), prompt (1, 64), 32 new tokens, one warm-up and one
+    timed call each; then prefill and decode-step times, and a profile of
+    ``PROFILED_DECODE_STEPS`` decode steps (the prefill outside it),
+    beside the per-token bound of `width`."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Model, generate, quantize_model_for_decode
+    from accelerate_tpu_torch.generation import _decode_params, _llama_forward_cached, init_cache
+
     prompt_np = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, GEN_PROMPT))
     prompt = torch.from_numpy(prompt_np).to(device)
     torch.cuda.synchronize()
@@ -921,12 +959,12 @@ def full_width_generate(device="cuda"):
             torch.cuda.synchronize()
             prefill.append((time.perf_counter() - t0) * 1e3)
         steps = GEN_NEW_TOKENS - 1
-        decode_s, finite = _decode_steps(cfg, params, prompt, steps)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, finite_p = _decode_steps(cfg, params, prompt, steps)
-        busy_ms, by_cat, top, n_kernels = device_times(prof, steps, n_top=8)
+        decode_s, finite, _ = _decode_steps(cfg, params, prompt, steps)
+        _, finite_p, prof = _decode_steps(cfg, params, prompt, PROFILED_DECODE_STEPS,
+                                          profiled=True)
+        busy_ms, by_cat, top, n_kernels = device_times(prof, PROFILED_DECODE_STEPS, n_top=8)
         decode_ms = decode_s * 1e3 / steps
-        bound_ms, bound_bytes = decode_bound(FULL_WIDTH, 2 if name == "bf16" else 1,
+        bound_ms, bound_bytes = decode_bound(width, 2 if name == "bf16" else 1,
                                              ctx=GEN_PROMPT + GEN_NEW_TOKENS // 2)
         res[name] = {
             "decode_tok_s": GEN_NEW_TOKENS / wall, "generate_ms": wall * 1e3,
@@ -936,7 +974,8 @@ def full_width_generate(device="cuda"):
             "device_busy_ms_per_token": busy_ms,
             "idle_share": 1.0 - busy_ms / decode_ms if top else None,
             "kernels_per_token": n_kernels, "ms_per_token_by_category": by_cat,
-            "top_kernels_ms_per_token": top, "host_ops_ms_per_token": host_ops(prof, steps),
+            "top_kernels_ms_per_token": top,
+            "host_ops_ms_per_token": host_ops(prof, PROFILED_DECODE_STEPS),
             "tokens_in_vocab": bool(((rows[name] >= 0) & (rows[name] < cfg.vocab_size)).all()),
             "logits_finite": finite and finite_p,
         }
@@ -948,7 +987,7 @@ def full_width_generate(device="cuda"):
         "int8_tokens_equal_bf16": float((rows["int8"] == rows["bf16"]).mean()),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "variants": res,
-    }, module
+    }
 
 
 def tiny_serving_parity(device="cuda"):
@@ -976,22 +1015,21 @@ def tiny_serving_parity(device="cuda"):
     return divergences
 
 
-def full_width_serving(module):
+def full_width_serving(module, row=SERVING_ROW):
     """The engine at full width on generate_bench.py's serving row: its
     Poisson trace replayed open loop after one warm-up request, with the
     row's ServingConfig (8 slots, max_len from the trace, chunks up to the
-    prompt length)."""
+    prompt length). Phase 17 cuts the trace to fewer requests (`row`)."""
     import torch
 
     from accelerate_tpu_torch import Model, ServingConfig, ServingEngine
     from accelerate_tpu_torch.serving import replay_trace
 
     vocab = module.config.vocab_size
-    lengths, budgets, prompts, arrivals = serving_trace(vocab, **SERVING_ROW)
+    lengths, budgets, prompts, arrivals = serving_trace(vocab, **row)
     t_cap = int(max(lengths + budgets)) + 8
     engine = ServingEngine(Model(module), ServingConfig(
-        n_slots=SERVING_ROW["slots"], max_len=t_cap,
-        max_prefill_chunk=max(16, SERVING_ROW["prompt_len"])))
+        n_slots=row["slots"], max_len=t_cap, max_prefill_chunk=max(16, row["prompt_len"])))
     engine.warmup()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1000,7 +1038,7 @@ def full_width_serving(module):
     stats = engine.stats()
     ticks = decode_tick_profile(engine, vocab)
     return {
-        "trace": {**SERVING_ROW, "seed": 1, "arrivals_span_s": float(arrivals[-1]),
+        "trace": {**row, "seed": 1, "arrivals_span_s": float(arrivals[-1]),
                   "prompt_tokens_total": int(lengths.sum()),
                   "budget_tokens_total": int(budgets.sum())},
         "max_len": t_cap, "ladder": engine.ladder, "wall_s": wall,
@@ -1012,11 +1050,11 @@ def full_width_serving(module):
     }
 
 
-def decode_tick_profile(engine, vocab, n=10):
+def decode_tick_profile(engine, vocab, n=10, profiled=4):
     """Steady decode ticks with every slot live (prompts of up to 64
     tokens, no prefill left): host-clock ms per tick over `n` ticks, then
-    `n` more under torch.profiler for the device-busy ms and the idle
-    share."""
+    `profiled` more under torch.profiler for the device-busy ms and the
+    idle share (its parsing takes far longer than the ticks)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1034,13 +1072,13 @@ def decode_tick_profile(engine, vocab, n=10):
         engine.tick()
     tick_ms = (time.perf_counter() - t0) * 1e3 / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+        for _ in range(profiled):
             engine.tick()
     live = len(engine._decoding)
     while engine.pending:
         engine.tick()
     engine.poll()
-    busy_ms, by_cat, top, n_kernels = device_times(prof, n, n_top=6)
+    busy_ms, by_cat, top, n_kernels = device_times(prof, profiled, n_top=6)
     return {"live_slots": live, "tick_ms": tick_ms, "device_busy_ms_per_tick": busy_ms,
             "idle_share": 1.0 - busy_ms / tick_ms if top else None,
             "kernels_per_tick": n_kernels, "ms_per_tick_by_category": by_cat,
@@ -3548,6 +3586,290 @@ def serving_rest_phase(hf, phase7=None, device="cuda", width=FULL_WIDTH, row=SER
             "phase_s": time.perf_counter() - t0, "checks": checks, "ok": all(checks.values())}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the Llama decoder chassis, and Gemma-2B at full width
+# ---------------------------------------------------------------------------
+
+# google/gemma-2b's config.json (Hugging Face Hub), as gemma_config_from_hf
+# reads it: GeGLU, norm weights computed as w + 1, embeddings scaled by
+# sqrt(hidden), tied; 2,506,172,416 parameters.
+GEMMA_2B = dict(model_type="gemma", vocab_size=256000, hidden_size=2048,
+                intermediate_size=16384, num_hidden_layers=18, num_attention_heads=8,
+                num_key_value_heads=1, head_dim=256, max_position_embeddings=8192,
+                rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=True)
+# (b): batch 2 x seq 2048, 2 warm-up and 5 timed steps, the fused loss in
+# chunks of 256; (d): phase 8's trace cut to 16 requests.
+GEMMA_ROW = dict(batch=2, seq=2048, warmup=2, timed=5, chunk_size=256, requests=16)
+# (a): phase 4's tiny width with Gemma's knobs, and with Granite's constants,
+# biases, layernorm, an ungated MLP and partial rotary.
+CHASSIS_KNOBS = {
+    "gemma": dict(hidden_act="gelu_tanh", rms_norm_plus_one=True, scale_embeddings=True,
+                  tie_word_embeddings=True),
+    "granite_bias": dict(norm_type="layernorm", attention_bias=True, attention_out_bias=True,
+                         mlp_bias=True, mlp_gated=False, partial_rotary_factor=0.5,
+                         embedding_multiplier=3.0, residual_multiplier=0.5,
+                         attention_multiplier=0.08, logits_scaling=2.0,
+                         hidden_act="gelu_pytorch_tanh"),
+}
+# The fused loss against the naive one on the same state: both losses on
+# the learnt batch, and on an unseen batch the losses and the fused loss's
+# gradient norm against the naive step's (bf16 logits either way; the sums
+# differ in order).
+FUSED_LOSS_REL = 1e-3
+# (e): a tiny Gemma written as a Hugging Face checkpoint and read back.
+TINY_GEMMA = dict(GEMMA_2B, vocab_size=256, hidden_size=128, intermediate_size=384,
+                  num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=1,
+                  head_dim=64, max_position_embeddings=512)
+
+
+def _chassis_step_inputs(knobs):
+    """Phase 4's tiny bf16 Llama (remat "dots") with ``knobs``:
+    numpy-seeded weights (matrices and biases of std 0.02, norm weights of
+    one, zero for Gemma's w + 1) and one batch."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16, remat=True, remat_policy="dots", **knobs)
+    rng = np.random.default_rng(0)
+    weights = {}
+    for n, p in LlamaForCausalLM(cfg, device="meta").state_dict().items():
+        if p.dim() == 1 and not n.endswith("bias"):
+            a = np.full(p.shape, 0.0 if cfg.rms_norm_plus_one else 1.0, np.float32)
+        else:
+            a = (rng.standard_normal(p.shape) * 0.02).astype(np.float32)
+        weights[n] = torch.from_numpy(a)
+    ids = rng.integers(0, cfg.vocab_size, size=(2, 129)).astype(np.int64)
+    return cfg, weights, {"x": ids[:, :-1], "y": ids[:, 1:]}
+
+
+def tiny_chassis_parity(device="cuda"):
+    """(a) One bf16 step of each tiny chassis on `device` (the kernels) and
+    on the CPU (the plain versions): loss and grad norm within phase 4's
+    tolerance."""
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    out = {}
+    for name, knobs in CHASSIS_KNOBS.items():
+        cfg, weights, batch = _chassis_step_inputs(knobs)
+        res = {}
+        for label, cpu in (("card", device == "cpu"), ("cpu", True)):
+            PartialState._reset_state()
+            res[label], _ = tiny_step(cfg, weights, batch, cpu)
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+        rel = {k: abs(res["card"][k] - res["cpu"][k]) / abs(res["cpu"][k])
+               for k in ("loss", "grad_norm")}
+        out[name] = {**res, "rel": rel,
+                     "ok": all(math.isfinite(v) for r in res.values() for v in r.values())
+                     and max(rel.values()) <= 2e-2}
+    return out
+
+
+def gemma_train_steps(hf, device="cuda", width=GEMMA_2B, row=GEMMA_ROW):
+    """(b) Gemma-2B's train step (seeded random weights, bf16 compute over
+    fp32 masters, adamw, clipping, remat "dots", flash attention, the fused
+    loss) on one fixed batch: the counted run, a profile of two more steps,
+    then both losses on that batch, and the fused loss's backward and one
+    step of the naive loss on the same state and a second batch."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, FullyShardedDataParallelPlugin, Model, adamw
+    from accelerate_tpu_torch.models import (
+        LlamaForCausalLM,
+        cross_entropy_loss,
+        fused_cross_entropy_loss,
+    )
+    from accelerate_tpu_torch.models.hub import gemma_config_from_hf
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    seq, bs, chunk = row["seq"], row["batch"], row["chunk_size"]
+    cfg = dataclasses.replace(gemma_config_from_hf(width), dtype=torch.bfloat16, remat=True,
+                              remat_policy="dots", attention_impl="flash")
+    acc = Accelerator(mixed_precision="bf16", fsdp_plugin=FullyShardedDataParallelPlugin(),
+                      cpu=device == "cpu")
+    module = LlamaForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+    n_params = model.num_parameters()
+    step = acc.prepare_train_step(
+        lambda m, b: fused_cross_entropy_loss(m, b["x"], b["y"], chunk_size=chunk),
+        max_grad_norm=1.0)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(bs, seq + 1))
+    batch = {"x": torch.from_numpy(ids[:, :-1]).to(acc.device),
+             "y": torch.from_numpy(ids[:, 1:]).to(acc.device)}
+    state, n_steps = acc.train_state, row["warmup"] + row["timed"]
+
+    # The main path of this phase: counts from 0 just before, read just after.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    losses = []
+    for _ in range(row["warmup"]):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(row["timed"]):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / row["timed"]
+    launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+    peak_fused = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    profile = profile_steps(step, state, batch, dt * 1e3)
+
+    # Both losses on the same state, each pair through one call path (a
+    # forward outside the step's compute cast against the step's own loss
+    # differs by more than the two losses do): on the fixed batch, learnt
+    # by now (loss near 0.02), two forwards; on a batch the steps have not
+    # seen, the fused loss's backward (no update) and one step of the naive
+    # loss. Losses and gradient norms held to FUSED_LOSS_REL.
+    def fused(m, b):
+        return fused_cross_entropy_loss(m, b["x"], b["y"], chunk_size=chunk)
+
+    def naive(m, b):
+        return cross_entropy_loss(m(b["x"]), b["y"])
+
+    with torch.no_grad():
+        learnt = {"fused_loss": float(fused(model, batch)),
+                  "naive_loss": float(naive(model, batch))}
+    learnt["rel"] = abs(learnt["fused_loss"] - learnt["naive_loss"]) / abs(learnt["naive_loss"])
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(bs, seq + 1))
+    held = {"x": torch.from_numpy(ids[:, :-1]).to(acc.device),
+            "y": torch.from_numpy(ids[:, 1:]).to(acc.device)}
+    state.optimizer.zero_grad(set_to_none=True)  # the last step's gradients
+    fused_loss = float(acc.backward(fused, held))
+    fused_grad_norm = float(acc.clip_grad_norm_(None, 1.0))
+    naive_step = acc.prepare_train_step(naive, max_grad_norm=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = naive_step(state, held)
+    naive_loss, naive_grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    peak_naive = torch.cuda.max_memory_allocated() / 2**30
+    fused_naive_rel = {"loss": abs(fused_loss - naive_loss) / abs(naive_loss),
+                       "grad_norm": abs(fused_grad_norm - naive_grad_norm) / naive_grad_norm}
+
+    tok_s = bs * seq / dt
+    flops_per_token = 6 * n_params + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq
+    want = {hf.variant(k, torch.bfloat16, hf.built_head_dim(cfg.head_dim)): cfg.num_hidden_layers
+            * n_steps for k in KERNELS}
+    checks = {
+        "losses_finite": all(math.isfinite(x) for x in losses),
+        "losses_fall": losses[-1] < losses[0],
+        # remat "dots" keeps the forward's outputs: one launch of each kernel
+        # per layer and step, all of the bf16 head-dim-256 variant.
+        "flash_launches": launches == {k: cfg.num_hidden_layers * n_steps for k in KERNELS}
+        and variant_launches == want,
+        "fused_equals_naive": max(*fused_naive_rel.values(), learnt["rel"]) <= FUSED_LOSS_REL,
+    }
+    del acc, model, module, state, step, naive_step, batch, held
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "config": {k: getattr(cfg, k) for k in (
+            "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+            "num_attention_heads", "num_key_value_heads", "head_dim", "hidden_act",
+            "rms_norm_plus_one", "scale_embeddings", "tie_word_embeddings")},
+        "n_params": n_params, "batch": bs, "seq": seq, "chunk_size": chunk,
+        "steps": n_steps, "step_ms": dt * 1e3, "tok_s": tok_s,
+        "mfu": tok_s * flops_per_token / PEAK_BF16_FLOPS, "losses": losses,
+        "ln_vocab": math.log(cfg.vocab_size),
+        "launches": launches, "variant_launches": variant_launches,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "peak_mem_gib": {"fused_loss_step": peak_fused, "naive_loss_step": peak_naive},
+        "fused_loss": fused_loss, "naive_loss": naive_loss,
+        "fused_grad_norm": fused_grad_norm, "naive_grad_norm": naive_grad_norm,
+        "fused_naive_rel": fused_naive_rel, "learnt_batch": learnt,
+        "profile": profile, "checks": checks,
+    }
+
+
+def hub_round_trip(device="cuda", width=TINY_GEMMA):
+    """(e) A tiny Gemma written as a Hugging Face checkpoint (its state
+    dict through ``llama_params_to_hf``, the port's safetensors writer and
+    a config.json) and read back by ``model_from_pretrained``: its logits
+    equal the source model's bit for bit."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import (
+        LlamaForCausalLM,
+        llama_params_to_hf,
+        model_from_pretrained,
+    )
+    from accelerate_tpu_torch.models.hub import gemma_config_from_hf
+    from accelerate_tpu_torch.utils.other import save_safetensors
+
+    cfg = gemma_config_from_hf(width)
+    module = LlamaForCausalLM(cfg, device=device)
+    module.init_weights(torch.Generator(device=device).manual_seed(1), std=0.2)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 64)))
+    ids = ids.to(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_safetensors(llama_params_to_hf(cfg, module.state_dict()),
+                         os.path.join(tmp, "model.safetensors"))
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(width, f)
+        loaded = model_from_pretrained(tmp, dtype=cfg.dtype, device=device)
+    with torch.no_grad():
+        want, got = module(ids), loaded(ids)
+    return {"config": width, "n_tensors": len(module.state_dict()),
+            "bit_equal": bool(torch.equal(got, want)),
+            "max_abs_diff": float((got.float() - want.float()).abs().max())}
+
+
+def chassis_phase(hf, device="cuda", width=GEMMA_2B, row=GEMMA_ROW,
+                  serving_row=SERVING_ROW, tiny_gemma=TINY_GEMMA):
+    """Phase 17: (a) the tiny chassis card against CPU, (b) Gemma-2B's
+    train step, (c) its decode row, (d) its engine, (e) the hub round
+    trip. `width`, `row`, `serving_row` and `tiny_gemma` shrink it for a
+    rehearsal on the CPU."""
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaForCausalLM
+    from accelerate_tpu_torch.models.hub import gemma_config_from_hf
+
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        part_s[name] = time.perf_counter() - t
+        return out
+
+    tiny = timed("tiny", tiny_chassis_parity, device)
+    train = timed("train", gemma_train_steps, hf, device, width, row)
+    cfg = dataclasses.replace(gemma_config_from_hf(width), dtype=torch.bfloat16)
+    module = LlamaForCausalLM(cfg, device=device)
+    module.init_weights(torch.Generator(device=device).manual_seed(0))
+    module.to(torch.bfloat16)
+    decode = timed("decode", decode_row, cfg, module, width, device)
+    serving = timed("serving", full_width_serving, module,
+                    dict(serving_row, requests=row["requests"]))
+    del module
+    gc.collect()
+    torch.cuda.empty_cache()
+    hub = timed("hub", hub_round_trip, device, tiny_gemma)
+    checks = {**{f"tiny_{k}": v["ok"] for k, v in tiny.items()},
+              **{f"train_{k}": v for k, v in train["checks"].items()},
+              "decode": all(v["tokens_in_vocab"] and v["logits_finite"]
+                            for v in decode["variants"].values()),
+              "serving": serving["ok"], "hub_bit_equal": hub["bit_equal"]}
+    return {"phase": "chassis", "tiny": tiny, "gemma_2b_train": train, "gemma_2b_decode": decode,
+            "gemma_2b_serving": serving, "hub_round_trip": hub,
+            "phase_s": time.perf_counter() - t0, "part_s": part_s, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def _stub_cuda_for_cpu():
     """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
     import torch
@@ -3642,6 +3964,8 @@ def main() -> int:
         check_kernels(hf, "bfloat16_d80_padded", 2, 160, 4, 2, 80, seed=22),
         check_kernels(hf, "bfloat16_d96_padded_noncausal", 2, 160, 4, 2, 96, seed=23,
                       causal=False),
+        # Phase 17's Gemma-2B step: its attention at the step's own shape.
+        check_kernels(hf, "gemma_2b", **GEMMA_LIKE, seed=24),
     ]
     for case in cases:
         emit({"phase": "kernels", **case})
@@ -3806,7 +4130,20 @@ def main() -> int:
         print(f"chip_smoke: serving phase 16 failed: {failed}", file=sys.stderr)
         return 1
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. the Llama chassis: tiny knob sets card against CPU, Gemma-2B's
+    # train step, decode row and engine, and the hub round trip
+    chassis = chassis_phase(hf)
+    emit(chassis)
+    if not chassis["ok"]:
+        failed = sorted(k for k, v in chassis["checks"].items() if not v)
+        print(f"chip_smoke: chassis phase 17 failed: {failed}", file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
+        "gemma_2b_step": chassis["gemma_2b_train"]["variant_launches"],
         "imperative_loop": imp["loop"]["variant_launches"],
         "observed_loop": obs["variant_launches"],
         "observed_imperative": obs["imperative"]["variant_launches"],
@@ -3822,32 +4159,42 @@ def main() -> int:
     return 0
 
 
+# The main paths whose launches the kernels line reports: phase 5's Llama
+# train step (bf16 d128) and phase 17's Gemma-2B train step (bf16 d256).
+MAIN_PATHS = ("train_step", "gemma_2b_step")
+
+
 def kernel_summary(timed, cases, main_path, other_paths=None):
     """One entry per kernel of every timed variant (phase 3): its source,
-    the TPU kernel it replaces, its launches in phase 5's main-path run
-    (and by path: phase 5's ``train_step`` and each of ``other_paths``, a
-    path's name → its variant launch counts),
-    its largest error in the first check case that ran it (phase 2), its
-    ms beside its plain version's, its bound and SDPA's forward (the
-    backward kernels have no one-call library counterpart)."""
+    the TPU kernel it replaces, its launches in the main paths' runs
+    (``MAIN_PATHS``: phase 5's train step and phase 17's Gemma-2B step,
+    each counted from zero; and by path: phase 5's ``train_step`` and each
+    of ``other_paths``, a path's name → its variant launch counts),
+    its largest error in the check case (phase 2) at the timed shape where
+    there is one, else in the first that ran it, its ms beside its plain
+    version's, its bound and SDPA's forward (the backward kernels have no
+    one-call library counterpart)."""
     out = []
     for t in timed:
         for name in KERNELS:
             variant = t["variants"][name]
             label = (variant if t["padded_to"] is None else
                      f"{name}.{variant.split('.')[1]}.d{t['shape']['d']}")
-            case = next((c for c in cases if c["variants"][name] == variant
-                         and (c["padded_to"] is None) == (t["padded_to"] is None)), None)
+            ran = [c for c in cases if c["variants"][name] == variant
+                   and (c["padded_to"] is None) == (t["padded_to"] is None)]
+            at_shape = [c for c in ran if c.get("shape") == list(t["shape"].values())
+                        and c.get("dtype") == t["dtype"] and c.get("causal")]
+            case = (at_shape or ran or [None])[0]
             ms, (bound_ms, bound_by) = t["ms"][name], t["bound"][name]
+            by_path = {"train_step": main_path["variant_launches"].get(label, 0),
+                       **{path: counts.get(label, 0)
+                          for path, counts in (other_paths or {}).items()}}
             out.append({
                 "name": label, "runs": variant, "route": "cuda",
                 "source": SOURCES["flash_f32" if t["dtype"] == "float32" else name],
                 "replaces": REPLACES[name], "dtype": t["dtype"], "shape": t["shape"],
-                "launches": main_path["variant_launches"].get(label, 0),
-                "launches_by_path": {
-                    "train_step": main_path["variant_launches"].get(label, 0),
-                    **{path: counts.get(label, 0)
-                       for path, counts in (other_paths or {}).items()}},
+                "launches": sum(by_path.get(path, 0) for path in MAIN_PATHS),
+                "launches_by_path": by_path,
                 "max_abs_err": case["max_abs"][name] if case else None,
                 "ms": ms, "plain_ms": t["plain_ms"][name], "bound_ms": bound_ms,
                 "bound_by": bound_by, "bound_share": bound_ms / ms,

@@ -14,7 +14,8 @@ seed, from the same flax-initialised tiny Llama (fp32):
   losses and grad norms within rtol 1e-4, and the parameters after them;
 - three steps of FSDP2 at 2 processes on batches whose ``-100`` labels
   fall unevenly over the processes: the loss is the token mean of the
-  global batch, as the JAX step's;
+  global batch, as the JAX step's, with ``cross_entropy_loss`` and with
+  ``fused_cross_entropy_loss``;
 - the collectives of ``utils/operations.py`` against the JAX package's
   own functions, run here with its process count and all-gather replaced
   by the gang's per-process inputs;
@@ -85,6 +86,7 @@ from accelerate_tpu_torch.models import (
     LlamaConfig,
     LlamaForCausalLM,
     cross_entropy_loss,
+    fused_cross_entropy_loss,
     llama_params_from_flax,
     llama_params_to_flax,
 )
@@ -194,7 +196,7 @@ DCP = {"state_dict_type": "DISTRIBUTED_STATE_DICT"}
 
 
 def _train(ctx, kind, steps=STEPS, save_after=None, load_dir=None, project_dir=None,
-           plugin_kw=None, ga=1, batches="batches", acc_kw=None):
+           plugin_kw=None, ga=1, batches="batches", acc_kw=None, loss_fn=_port_loss):
     """``steps`` steps of the tiny Llama from ctx's flax weights on this
     process's share of each global batch: (loss, grad norm) per step and
     the whole parameters after them; the whole train state at the save and
@@ -209,7 +211,7 @@ def _train(ctx, kind, steps=STEPS, save_after=None, load_dir=None, project_dir=N
                                 automatic_checkpoint_naming=project_dir is not None),
                             **acc_kw or {})
     model, opt = acc.prepare(Model(module), adamw(LR))
-    step = acc.prepare_train_step(_port_loss, max_grad_norm=1.0)
+    step = acc.prepare_train_step(loss_fn, max_grad_norm=1.0)
     first, loaded = 0, None
     if load_dir is not None:
         acc.load_state(load_dir)
@@ -369,6 +371,11 @@ def _job_fsdp_ga2(ctx):
 
 def _job_fsdp_uneven(ctx):
     return _train(ctx, "fsdp", batches="uneven_batches")
+
+
+def _job_fused_ce(ctx):
+    return _train(ctx, "fsdp", batches="uneven_batches", loss_fn=lambda m, b: (
+        fused_cross_entropy_loss(m, b["x"].long(), b["y"].long(), chunk_size=4)))
 
 
 def _job_save(ctx):
@@ -733,6 +740,7 @@ JOBS = {"verify": _job_verify, "fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_
         "dispatcher": _job_dispatcher, "rng": _job_rng, "save": _job_save,
         "options": _job_options, "fsdp_ga2": _job_fsdp_ga2, "per_node": _job_per_node,
         "resume_jax": _job_resume_jax, "fsdp_uneven": _job_fsdp_uneven,
+        "fused_ce": _job_fused_ce,
         "imperative": _job_imperative, "imperative_hsdp": _job_imperative_hsdp,
         "surface": _job_surface, "telemetry": _job_telemetry, "fp16": _job_fp16,
         "strategies": _job_strategies, "ddp_kwargs": _job_ddp_kwargs,
@@ -870,7 +878,8 @@ def runs(tmp_path_factory):
     four = _spawn(tmp, 4, ["fsdp", "hsdp", "collectives", "save", "imperative_hsdp",
                            "surface", "strategies", "dcp_save"], ctx)
     two = _spawn(tmp, 2, ["fsdp", "ddp", "collectives", "dispatcher", "rng", "resume_jax",
-                          "options", "fsdp_ga2", "per_node", "fsdp_uneven", "imperative",
+                          "options", "fsdp_ga2", "per_node", "fsdp_uneven", "fused_ce",
+                          "imperative",
                           "surface", "telemetry", "fp16", "strategies", "ddp_kwargs",
                           "dcp_load", "dcp_async", "verify"], ctx)
     return {"ref": ref, "plans": plans, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
@@ -979,6 +988,19 @@ def test_uneven_ignored_labels_give_the_global_token_mean(runs):
         np.testing.assert_allclose(np.array(r["fsdp_uneven"]["metrics"]),
                                    np.array(runs["ref"]["fsdp2_uneven"]), rtol=1e-4)
     _assert_params_close(_flax(runs[2][0]["fsdp_uneven"]["params"]),
+                         runs["ref"]["fsdp2_uneven_params"], runs["ctx"]["flax_params"])
+
+
+def test_fused_loss_takes_the_global_token_mean(runs):
+    """``fused_cross_entropy_loss`` (chunks of 4) on the same uneven labels
+    over 2 FSDP2 processes: the JAX step's global token mean, as
+    ``cross_entropy_loss`` gives it, within rtol 1e-4, and the port's
+    naive-loss run within 1e-5."""
+    for r in runs[2]:
+        got = np.array(r["fused_ce"]["metrics"])
+        np.testing.assert_allclose(got, np.array(runs["ref"]["fsdp2_uneven"]), rtol=1e-4)
+        np.testing.assert_allclose(got, np.array(r["fsdp_uneven"]["metrics"]), rtol=1e-5)
+    _assert_params_close(_flax(runs[2][0]["fused_ce"]["params"]),
                          runs["ref"]["fsdp2_uneven_params"], runs["ctx"]["flax_params"])
 
 

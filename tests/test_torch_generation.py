@@ -527,12 +527,8 @@ def test_unported_generation_options_raise(pair):
         generate(module, ids, decoder_input_ids=ids)
     with pytest.raises(NotImplementedError, match="compile_manager"):
         generate(module, ids, compile_manager=object())
-    with pytest.raises(NotImplementedError, match="forward_cached.*item 10"):
-        generate(module, ids, forward_cached=gen._llama_forward_cached)
     with pytest.raises(NotImplementedError, match="item 10"):
         gen.beam_search(module, ids, 2, decoder_input_ids=ids)
-    with pytest.raises(NotImplementedError, match="forward_cached.*item 10"):
-        gen.beam_search(module, ids, 2, forward_cached=gen._llama_forward_cached)
 
     class GPT2LMHeadModel(torch.nn.Module):
         config = cfg

@@ -112,10 +112,14 @@ def test_remat_policies_keep_gradients_and_name_flash_outputs(policy, fwd_calls,
 
 
 def test_unported_knobs_raise():
-    """The chassis knobs raise; ring and Ulysses attention are ported and,
-    with no cp or sp axis to split the sequence over, give flash's logits."""
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        LlamaConfig.tiny(norm_type="layernorm")
+    """Every chassis knob is ported (tests/test_torch_chassis.py); a value
+    the JAX config refuses raises here too. Ring and Ulysses attention are
+    ported and, with no cp or sp axis to split the sequence over, give
+    flash's logits."""
+    with pytest.raises(ValueError, match="norm_type"):
+        LlamaConfig.tiny(norm_type="batchnorm")
+    with pytest.raises(ValueError, match="odd rotary_dim"):
+        LlamaConfig.tiny(partial_rotary_factor=0.3)
     base = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32))
     base.init_weights(torch.Generator().manual_seed(0))
     ids = torch.from_numpy(_ids()).long()
