@@ -10,7 +10,11 @@ contract, which resume in either package, or written by every process with
 generation and continuous-batching serving, for the Llama decoder chassis
 with every knob of the JAX config (Gemma, Qwen2, Phi-3, Mistral and the
 generic specs: StarCoder2, StableLM, Granite, InternLM2, loaded from
-Hugging Face checkpoints by ``models.load_pretrained``), and their
+Hugging Face checkpoints by ``models.load_pretrained``) and the Mixtral
+sparse-MoE family (``MixtralForCausalLM``: capacity dispatch with the
+global batch's semantics over data parallelism, ``moe_cross_entropy_loss``),
+long-context generation with the prompt split over ``cp``
+(``cp_generate``: ring-attention prefill, flash-decoding), and their
 observability: experiment trackers (``log_with``), step
 telemetry and the device-time profiler (``TelemetryKwargs``), and
 ``Accelerator.profile`` (``ProfileKwargs``). Reduced precision:
@@ -24,6 +28,7 @@ runs on CUDA unless the caller asks for the CPU (``Accelerator(cpu=True)``).
 
 from .accelerator import Accelerator
 from .checkpointing import CheckpointSaveError
+from .cp_generation import cp_generate
 from .data_loader import (
     ColumnDataset,
     SeedableRandomSampler,
@@ -39,11 +44,16 @@ from .generation import (
 )
 from .model import Model
 from .models import (
+    MixtralConfig,
+    MixtralForCausalLM,
+    compute_dispatch,
     fused_cross_entropy_loss,
+    load_balance_loss,
     llama_params_from_hf,
     llama_params_to_hf,
     load_pretrained,
     model_from_pretrained,
+    moe_cross_entropy_loss,
 )
 from .optimizer import (
     AcceleratedOptimizer,
@@ -98,6 +108,8 @@ __all__ = [
     "GradientAccumulationPlugin",
     "GradientState",
     "MixedPrecisionPolicy",
+    "MixtralConfig",
+    "MixtralForCausalLM",
     "Model",
     "ParallelismConfig",
     "PartialState",
@@ -113,8 +125,10 @@ __all__ = [
     "TrainState",
     "adamw",
     "beam_search",
+    "compute_dispatch",
     "constant_schedule",
     "cosine_decay_schedule",
+    "cp_generate",
     "find_executable_batch_size",
     "fused_cross_entropy_loss",
     "generate",
@@ -123,8 +137,10 @@ __all__ = [
     "linear_schedule",
     "llama_params_from_hf",
     "llama_params_to_hf",
+    "load_balance_loss",
     "load_pretrained",
     "model_from_pretrained",
+    "moe_cross_entropy_loss",
     "prepare_data_loader",
     "quantize_model_for_decode",
     "register_generation_plan",

@@ -1,5 +1,5 @@
 """Autoregressive generation with a KV cache (counterpart of
-``accelerate_tpu/generation.py``, Llama family).
+``accelerate_tpu/generation.py``, the Llama family and Mixtral).
 
 - The cache is ``KVCache(k, v, length)``: k and v preallocated as
   ``(L, B, T_max, Hkv, D)`` and written in place, ``length`` a device
@@ -29,8 +29,12 @@
 - The plan comes from the module's class (``GENERATION_PLANS``,
   ``register_generation_plan``) unless ``forward_cached=`` names one.
 
-The other generation plans (GPT-2, OPT, NeoX, Mixtral, T5, Whisper) are
-not ported yet (ROADMAP.md Queue A item 10).
+- Mixtral's plan is the same forward: a layer with a router runs the
+  JAX plan's dropless expert layer (``_moe_dropless``) in place of the
+  MLP, and its other knobs are the chassis defaults.
+
+The other generation plans (GPT-2, OPT, NeoX, T5, Whisper) are not ported
+yet (ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from .models.llama import (
     scale_logits,
     scale_residual,
 )
+from .models.moe import router_probs, top_k_experts
 from .utils.quantization import DecodeQuant, dequantize_decode_kernel
 
 _OTHER_MODELS_ITEM = "ROADMAP.md Queue A item 10 (the other models)"
@@ -220,7 +225,28 @@ def _proj(p: dict, name: str, x, heads: int) -> torch.Tensor:
     return _dense(p, name, x).view(b, s, heads, -1)
 
 
+def _moe_dropless(cfg, p: dict, pre: str, x) -> torch.Tensor:
+    """Mixtral's expert layer as the JAX decode plan computes it: fp32
+    routing, every expert on every token (dropless: no capacity), the top-k
+    expert outputs mixed with their weights rounded to the compute dtype."""
+    b, s, d = x.shape
+    tokens = x.reshape(b * s, d)
+    weights, experts = top_k_experts(router_probs(tokens, p[pre + "moe.router"]),
+                                     cfg.num_experts_per_tok)
+    xe = tokens.expand(cfg.num_local_experts, -1, -1)
+    h = F.silu(torch.bmm(xe, _kernel(p[pre + "moe.w_gate"], x.dtype)))
+    h = h * torch.bmm(xe, _kernel(p[pre + "moe.w_up"], x.dtype))
+    ye = torch.bmm(h, _kernel(p[pre + "moe.w_down"], x.dtype))  # (E, T, d)
+    picked = ye[experts, torch.arange(b * s, device=x.device)[:, None]]  # (T, k, d)
+    mixed = picked * weights.to(x.dtype)[..., None]
+    return mixed.float().sum(1).to(x.dtype).reshape(b, s, d)
+
+
 def _mlp(cfg, p: dict, pre: str, x) -> torch.Tensor:
+    """A layer's feed-forward: the chassis MLP, or Mixtral's expert layer
+    where the layer has a router."""
+    if pre + "moe.router" in p:
+        return _moe_dropless(cfg, p, pre, x)
     act = activation_fn(cfg.hidden_act)
     up = _dense(p, pre + "mlp.up_proj", x)
     hidden = act(_dense(p, pre + "mlp.gate_proj", x)) * up if cfg.mlp_gated else act(up)
@@ -387,7 +413,8 @@ def sample_logits(logits, generator: Optional[torch.Generator] = None, *, temper
 # ---------------------------------------------------------------------------
 
 # module class name -> forward_cached(cfg, params, ids, cache, ...)
-GENERATION_PLANS: dict[str, Callable] = {"LlamaForCausalLM": _llama_forward_cached}
+GENERATION_PLANS: dict[str, Callable] = {"LlamaForCausalLM": _llama_forward_cached,
+                                         "MixtralForCausalLM": _llama_forward_cached}
 
 
 def register_generation_plan(module_class_name: str, fn: Callable) -> None:

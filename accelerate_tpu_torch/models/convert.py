@@ -1,5 +1,5 @@
-"""Carry Llama weights between the flax tree of the JAX package and a
-state dict of the port, both ways.
+"""Carry Llama and Mixtral weights between the flax tree of the JAX package
+and a state dict of the port, both ways.
 
 The flax tree (``params`` of ``accelerate_tpu.models.LlamaForCausalLM``) holds
 either one ``nn.scan`` stack, ``model/layers/block/...`` with a leading layer
@@ -10,6 +10,11 @@ are stored input-major: ``DenseGeneral`` q/k/v kernels are
 knobs add leaves: q/k/v biases ``(heads, D)`` (a ``(heads * D,)`` bias
 here), the ``o_proj`` bias ``(H,)``, MLP biases, a LayerNorm's ``bias``
 beside its ``weight``, and no ``gate_proj`` for an ungated MLP.
+
+A Mixtral config (one with ``num_local_experts``) maps the same way: Llama's
+attention and norms, and a ``moe`` subtree in place of ``mlp``: ``router``
+``(d, E)`` and the stacked ``w_gate``/``w_up`` ``(E, d, f)`` and ``w_down``
+``(E, f, d)``, which the port holds in the same layouts.
 
 The same maps carry any tree shaped like the parameters, such as AdamW's
 moments (optax's ``mu``/``nu``). Both directions work on torch tensors on
@@ -58,8 +63,17 @@ def _linear(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.reshape(kernel.shape[0], -1).t()
 
 
+_MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
+
+
+def _is_moe(cfg) -> bool:
+    return hasattr(cfg, "num_local_experts")
+
+
 def _block_from_flax(cfg: LlamaConfig, blk: dict) -> dict:
     out = {f"{n}.{leaf}": _as_tensor(blk[n][leaf]) for n in _NORMS for leaf in _norm_leaves(cfg)}
+    if _is_moe(cfg):
+        out.update({f"moe.{leaf}": _as_tensor(blk["moe"][leaf]) for leaf in _MOE_LEAVES})
     attn = blk["self_attn"]
     for name in _ATTN_IN:
         out[f"self_attn.{name}.weight"] = _linear(_as_tensor(attn[name]["kernel"]))
@@ -69,7 +83,7 @@ def _block_from_flax(cfg: LlamaConfig, blk: dict) -> dict:
     out["self_attn.o_proj.weight"] = kernel.reshape(-1, kernel.shape[-1]).t()
     if cfg.attention_out_bias:
         out["self_attn.o_proj.bias"] = _as_tensor(attn["o_proj"]["bias"])
-    for name in _mlp_names(cfg):
+    for name in () if _is_moe(cfg) else _mlp_names(cfg):
         out[f"mlp.{name}.weight"] = _linear(_as_tensor(blk["mlp"][name]["kernel"]))
         if cfg.mlp_bias:
             out[f"mlp.{name}.bias"] = _as_tensor(blk["mlp"][name]["bias"])
@@ -119,16 +133,16 @@ def _block_to_flax(get, cfg: LlamaConfig, prefix: str) -> dict:
     attn["o_proj"] = {"kernel": get(f"{prefix}self_attn.o_proj.weight").t().reshape(heads, d, h)}
     if cfg.attention_out_bias:
         attn["o_proj"]["bias"] = get(f"{prefix}self_attn.o_proj.bias")
+    norms = {n: {leaf: get(f"{prefix}{n}.{leaf}") for leaf in _norm_leaves(cfg)} for n in _NORMS}
+    if _is_moe(cfg):
+        return {**norms, "self_attn": attn,
+                "moe": {leaf: get(f"{prefix}moe.{leaf}") for leaf in _MOE_LEAVES}}
     mlp = {}
     for name in _mlp_names(cfg):
         mlp[name] = {"kernel": get(f"{prefix}mlp.{name}.weight").t()}
         if cfg.mlp_bias:
             mlp[name]["bias"] = get(f"{prefix}mlp.{name}.bias")
-    return {
-        **{n: {leaf: get(f"{prefix}{n}.{leaf}") for leaf in _norm_leaves(cfg)} for n in _NORMS},
-        "self_attn": attn,
-        "mlp": mlp,
-    }
+    return {**norms, "self_attn": attn, "mlp": mlp}
 
 
 def llama_params_to_flax(cfg: LlamaConfig, state_dict: dict) -> dict:

@@ -9,6 +9,10 @@ picks the tensors ``LlamaForCausalLM(cfg)`` holds and makes them fp32
 masters, ``llama_params_to_hf`` hands them back as host tensors. Gemma's
 norm weights are stored as w in both conventions (both compute w + 1).
 Phi-3's fused ``qkv_proj`` and ``gate_up_proj`` are split by rows.
+Mixtral's ``block_sparse_moe`` (a ``gate`` Linear of ``(E, d)`` and
+``experts.{e}.w1``/``w3``/``w2``, gate, up and down as ``(out, in)``
+Linears) maps onto the stacked, input-major ``moe.router`` ``(d, E)``,
+``moe.w_gate``/``w_up`` ``(E, d, f)`` and ``moe.w_down`` ``(E, f, d)``.
 
 ``load_pretrained(src)`` takes a transformers model (anything with
 ``.config`` and ``.state_dict()``; transformers itself is not imported), a
@@ -16,8 +20,9 @@ local checkpoint directory (``config.json`` with ``*.safetensors``, read by
 the port's own reader, or ``pytorch_model.bin``), or a ``(config,
 state_dict)`` pair, picks the family from ``model_type`` and falls back to
 the declarative specs of ``generic_hub.py`` for the types outside
-``_FAMILIES``. The JAX package's other families (GPT-2, BERT, T5, ...)
-raise ``NotImplementedError`` (ROADMAP.md Queue A item 10).
+``_FAMILIES`` (the Llama family and Mixtral). The JAX package's other
+families (GPT-2, BERT, T5, ...) raise ``NotImplementedError`` (ROADMAP.md
+Queue A item 10).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 from ..utils.other import load_safetensors
 from .llama import LlamaConfig, LlamaForCausalLM
+from .moe import MixtralConfig, MixtralForCausalLM
 
 _OTHER_FAMILIES_ITEM = "ROADMAP.md Queue A item 10 (the other models)"
 
@@ -102,13 +108,12 @@ def phi3_config_from_hf(hf: Any) -> LlamaConfig:
     return llama_config_from_hf(hf)
 
 
-def llama_params_from_hf(cfg: LlamaConfig, sd: dict) -> dict[str, torch.Tensor]:
-    """State dict of ``LlamaForCausalLM(cfg)`` (contiguous fp32 host
-    tensors, copies: the source's tensors stay untouched by training) from
-    a Hugging Face one: the names the module holds, each checked against
-    its shape. Other entries (a tied ``lm_head.weight``, rotary buffers)
-    are left out."""
-    want = LlamaForCausalLM(cfg, device="meta").state_dict()
+def _module_params(cls, cfg, sd: dict) -> dict[str, torch.Tensor]:
+    """State dict of ``cls(cfg)`` (contiguous fp32 host tensors, copies: the
+    source's tensors stay untouched by training) from a checkpoint in the
+    module's own names: the names the module holds, each checked against
+    its shape. Other entries are left out."""
+    want = cls(cfg, device="meta").state_dict()
     missing = sorted(set(want) - set(sd))
     if missing:
         raise KeyError(f"checkpoint lacks {len(missing)} tensors of the model: {missing[:8]}")
@@ -119,6 +124,14 @@ def llama_params_from_hf(cfg: LlamaConfig, sd: dict) -> dict[str, torch.Tensor]:
             raise ValueError(f"{name}: checkpoint {tuple(t.shape)} vs model {tuple(ref.shape)}")
         out[name] = t
     return out
+
+
+def llama_params_from_hf(cfg: LlamaConfig, sd: dict) -> dict[str, torch.Tensor]:
+    """State dict of ``LlamaForCausalLM(cfg)`` (contiguous fp32 host
+    tensors, copies) from a Hugging Face one: the names the module holds,
+    each checked against its shape. Other entries (a tied
+    ``lm_head.weight``, rotary buffers) are left out."""
+    return _module_params(LlamaForCausalLM, cfg, sd)
 
 
 def llama_params_to_hf(cfg: LlamaConfig, state_dict: dict) -> dict[str, torch.Tensor]:
@@ -152,19 +165,86 @@ def phi3_params_from_hf(cfg: LlamaConfig, sd: dict) -> dict[str, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+# Mixtral
+# ---------------------------------------------------------------------------
+
+
+def mixtral_config_from_hf(hf: Any) -> MixtralConfig:
+    """The JAX package's reading: the Llama fields, the expert count, top-k
+    and the aux-loss coefficient; ``capacity_factor`` keeps its default."""
+    g = _getter(hf)
+    return MixtralConfig(
+        vocab_size=g("vocab_size"),
+        hidden_size=g("hidden_size"),
+        intermediate_size=g("intermediate_size"),
+        num_hidden_layers=g("num_hidden_layers"),
+        num_attention_heads=g("num_attention_heads"),
+        num_key_value_heads=g("num_key_value_heads") or g("num_attention_heads"),
+        max_position_embeddings=g("max_position_embeddings", 4096),
+        rms_norm_eps=g("rms_norm_eps", 1e-5),
+        rope_theta=g("rope_theta", 10000.0),
+        num_local_experts=g("num_local_experts", 8),
+        num_experts_per_tok=g("num_experts_per_tok", 2),
+        router_aux_loss_coef=g("router_aux_loss_coef", 0.02),
+    )
+
+
+_HF_EXPERTS = {"w_gate": "w1", "w_up": "w3", "w_down": "w2"}
+
+
+def mixtral_params_from_hf(cfg: MixtralConfig, sd: dict) -> dict[str, torch.Tensor]:
+    """State dict of ``MixtralForCausalLM(cfg)`` (contiguous fp32 host
+    tensors) from a Hugging Face Mixtral one: attention, norms, embedding
+    and head by name, each layer's router and experts transposed and
+    stacked."""
+    src = dict(sd)
+    for i in range(cfg.num_hidden_layers):
+        moe = f"model.layers.{i}.block_sparse_moe."
+        src[f"model.layers.{i}.moe.router"] = _tensor(sd[moe + "gate.weight"]).t()
+        for ours, theirs in _HF_EXPERTS.items():
+            src[f"model.layers.{i}.moe.{ours}"] = torch.stack([
+                _tensor(sd[f"{moe}experts.{e}.{theirs}.weight"]).t()
+                for e in range(cfg.num_local_experts)])
+    return _module_params(MixtralForCausalLM, cfg, src)
+
+
+def mixtral_params_to_hf(cfg: MixtralConfig, state_dict: dict) -> dict[str, torch.Tensor]:
+    """The Hugging Face state dict of a ``MixtralForCausalLM(cfg)`` state
+    dict (the inverse of ``mixtral_params_from_hf``): contiguous host
+    tensors in their dtype."""
+    out = {}
+    for name in MixtralForCausalLM(cfg, device="meta").state_dict():
+        t = _tensor(state_dict[name])
+        pre, _, leaf = name.rpartition(".moe.")
+        if not pre:
+            out[name] = t.contiguous()
+        elif leaf == "router":
+            out[f"{pre}.block_sparse_moe.gate.weight"] = t.t().contiguous()
+        else:
+            for e in range(cfg.num_local_experts):
+                out[f"{pre}.block_sparse_moe.experts.{e}.{_HF_EXPERTS[leaf]}.weight"] = \
+                    t[e].t().contiguous()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # High-level entry
 # ---------------------------------------------------------------------------
 
-# model_type -> (module class, config from HF, state dict from HF)
+# model_type -> (module class, config from HF, state dict from HF, state
+# dict to HF)
+_LLAMA = (llama_params_from_hf, llama_params_to_hf)
 _FAMILIES = {
-    "llama": (LlamaForCausalLM, llama_config_from_hf, llama_params_from_hf),
-    "mistral": (LlamaForCausalLM, llama_config_from_hf, llama_params_from_hf),
-    "qwen2": (LlamaForCausalLM, llama_config_from_hf, llama_params_from_hf),
-    "gemma": (LlamaForCausalLM, gemma_config_from_hf, llama_params_from_hf),
-    "phi3": (LlamaForCausalLM, phi3_config_from_hf, phi3_params_from_hf),
+    "llama": (LlamaForCausalLM, llama_config_from_hf, *_LLAMA),
+    "mistral": (LlamaForCausalLM, llama_config_from_hf, *_LLAMA),
+    "qwen2": (LlamaForCausalLM, llama_config_from_hf, *_LLAMA),
+    "gemma": (LlamaForCausalLM, gemma_config_from_hf, *_LLAMA),
+    "phi3": (LlamaForCausalLM, phi3_config_from_hf, phi3_params_from_hf, llama_params_to_hf),
+    "mixtral": (MixtralForCausalLM, mixtral_config_from_hf, mixtral_params_from_hf,
+                mixtral_params_to_hf),
 }
 # The JAX package's other hand-written families.
-_UNPORTED_FAMILIES = ("clip", "mixtral", "gpt2", "bert", "t5", "vit", "opt", "gpt_neox",
+_UNPORTED_FAMILIES = ("clip", "gpt2", "bert", "t5", "vit", "opt", "gpt_neox",
                       "whisper")
 
 
@@ -215,7 +295,7 @@ def load_pretrained(src, family: Optional[str] = None, dtype=torch.bfloat16):
             f"{', '.join(sorted(_FAMILIES))}; generic specs: "
             f"{', '.join(generic_hub.known_generic_types())}. Register new architectures "
             f"with accelerate_tpu_torch.models.generic_hub.register_arch_spec.")
-    cls, cfg_fn, params_fn = _FAMILIES[family]
+    cls, cfg_fn, params_fn, _ = _FAMILIES[family]
     cfg = dataclasses.replace(cfg_fn(hf_cfg), dtype=dtype)
     return cfg, params_fn(cfg, sd), cls
 

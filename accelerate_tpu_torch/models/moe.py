@@ -1,0 +1,380 @@
+"""Mixtral-family sparse-MoE decoder in PyTorch.
+
+Counterpart of ``accelerate_tpu/models/moe.py`` with the same numerics:
+
+- **routing**: the router's product and softmax in fp32 (a true fp32
+  product on the card: TF32 could flip a top-k choice), the top
+  ``num_experts_per_tok`` experts with equal probabilities taken in index
+  order, as ``jax.lax.top_k`` takes them, and their weights renormalised
+  to sum to one;
+- **capacity**: each expert takes ``capacity = max(1, min(ceil(k·T/E·cf),
+  T))`` tokens (GShard/Switch). Tokens claim slots in token-major order, a
+  token's second choice after its first; a choice past capacity is dropped
+  and its token keeps only the residual path for it;
+- **stacked experts**: ``w_gate``/``w_up`` ``(E, d, f)`` and ``w_down``
+  ``(E, f, d)``, the router ``(d, E)``, all fp32 masters. Where the JAX
+  layer contracts one-hot dispatch and combine tensors of ``(T, E, C)``,
+  this one writes each kept token into its slot and reads the expert rows
+  back by index: the same values, the combine weights rounded to the
+  compute dtype before they mix, and the two choices summed in fp32;
+- **the load-balance loss**: ``E · Σ_e frac_e · mean_prob_e`` times
+  ``router_aux_loss_coef`` per layer, returned beside the logits
+  (``return_aux=True``) where flax sows it.
+
+The global batch: inside a train step over several processes
+(``operations.loss_processes``) the JAX layer sees the global ``(T, E)``
+array, so here capacity comes from the global token count, slot positions
+run over every process's tokens in row order (process r's after process
+r − 1's: one ``all_gather`` of the per-expert choice counts a layer), and
+the aux loss takes ``frac`` and ``mean_prob`` over the global batch. Each
+process's aux term is its share of the global one, scaled as
+``cross_entropy_loss`` scales its sum, so that the step's mean over the
+processes is the JAX loss and gives the JAX gradient.
+
+The decoder reuses the Llama port's attention (``attention_impl``: the
+Hopper flash kernels at Mixtral's GQA shape), norms and remat policies; the
+decoder list is ``model.layers``, which FSDP2 wraps block by block. Expert
+parallelism and tensor-parallel rules, and Mixtral over ``cp``/``sp``
+axes, are ROADMAP.md Queue A item 6.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from functools import partial
+from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+from ..state import current_sequence_shard
+from ..utils.operations import loss_processes
+from .llama import (
+    LlamaAttention,
+    LlamaConfig,
+    RMSNorm,
+    _Linear,
+    _remat_policy,
+    cross_entropy_loss,
+    embed_tokens,
+    rotary_embedding,
+)
+
+_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (TP, EP and Mixtral over cp/sp)"
+
+
+@dataclasses.dataclass
+class MixtralConfig(LlamaConfig):
+    num_local_experts: int = 8
+    num_experts_per_tok: int = 2
+    capacity_factor: float = 2.0
+    router_aux_loss_coef: float = 0.02
+
+    @classmethod
+    def tiny(cls, **kw):
+        defaults = dict(
+            vocab_size=256, hidden_size=128, intermediate_size=256,
+            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+            max_position_embeddings=512, num_local_experts=4,
+            num_experts_per_tok=2,
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+def expert_capacity(cfg: MixtralConfig, tokens: int) -> int:
+    """Slots per expert for ``tokens`` tokens, in the JAX layer's float order."""
+    capacity = int(math.ceil(cfg.num_experts_per_tok * tokens / cfg.num_local_experts
+                             * cfg.capacity_factor))
+    return max(1, min(capacity, tokens))
+
+
+@contextlib.contextmanager
+def _true_fp32(device: torch.device):
+    """fp32 products in fp32 on the card (TF32 off inside the block)."""
+    if device.type != "cuda":
+        yield
+        return
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def router_probs(tokens: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """(T, E) fp32 softmax of the tokens' router logits (``router`` (d, E))."""
+    with _true_fp32(tokens.device):
+        logits = tokens.float() @ router.float()
+    return torch.softmax(logits, dim=-1)
+
+
+def top_k_experts(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` most probable experts of each token and their weights
+    renormalised to sum to one: equal probabilities in index order, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order)."""
+    values, indices = torch.sort(probs, dim=-1, descending=True, stable=True)
+    values, indices = values[:, :k], indices[:, :k]
+    return values / values.sum(-1, keepdim=True).clamp_min(1e-9), indices
+
+
+class Routing(NamedTuple):
+    """Where each (token, choice) goes: ``experts`` (T, k), its slot
+    ``position`` (T, k) in the expert's queue, ``kept`` (T, k) below
+    capacity, the choice's ``weights`` (T, k) (zero where dropped); the
+    per-expert ``dispatched`` counts (E,) of the batch they route over
+    (the global one under a step over several processes); ``capacity``."""
+
+    experts: torch.Tensor
+    position: torch.Tensor
+    kept: torch.Tensor
+    weights: torch.Tensor
+    dispatched: torch.Tensor
+    capacity: int
+
+
+def route(weights: torch.Tensor, experts: torch.Tensor, num_experts: int, capacity: int,
+          offset=None, totals=None) -> Routing:
+    """Routing of the top-k choices (``top_k_experts``: ``weights``,
+    ``experts`` (T, k)) into ``capacity`` slots per expert. ``offset``
+    (E,): the choices of each expert made by the tokens before these
+    (lower ranks'); ``totals`` (E,): every choice of the batch (default:
+    these tokens')."""
+    t, k = experts.shape
+    onehot = F.one_hot(experts, num_experts).reshape(t * k, num_experts)
+    # Queue positions: token-major, a token's k-th choice after its (k-1)-th.
+    position = (torch.cumsum(onehot, 0) - onehot).reshape(t, k, num_experts)
+    position = position.gather(-1, experts[..., None])[..., 0]
+    if offset is not None:
+        position = position + offset[experts]
+    kept = position < capacity
+    totals = onehot.sum(0) if totals is None else totals
+    return Routing(experts, position, kept, torch.where(kept, weights, 0.0),
+                   totals.clamp(max=capacity), capacity)
+
+
+def compute_dispatch(router_probs: torch.Tensor, num_experts_per_tok: int,
+                     capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's dense GShard tensors of (T, E) ``router_probs``:
+    ``dispatch`` (T, E, C), one where token t holds slot c of expert e, and
+    ``combine`` (T, E, C), the dispatch weighted by the renormalised router
+    weight. ``MoeLayer`` routes by index (``route``) to the same slots."""
+    t, e = router_probs.shape
+    r = route(*top_k_experts(router_probs, num_experts_per_tok), e, capacity)
+    slot = torch.where(r.kept, r.position, capacity)
+    pos_onehot = F.one_hot(r.experts * (capacity + 1) + slot, e * (capacity + 1))
+    pos_onehot = pos_onehot.reshape(t, num_experts_per_tok, e, capacity + 1)[..., :capacity]
+    pos_onehot = pos_onehot.to(router_probs.dtype)
+    dispatch = pos_onehot.sum(1)
+    combine = (pos_onehot * r.weights[:, :, None, None]).sum(1)
+    return dispatch, combine
+
+
+def load_balance_loss(router_probs: torch.Tensor, dispatch: torch.Tensor) -> torch.Tensor:
+    """Switch-Transformer aux loss: E · Σ_e fraction_dispatched_e · mean_prob_e."""
+    e = router_probs.shape[-1]
+    tokens_per_expert = dispatch.sum((0, 2))
+    frac = tokens_per_expert / dispatch.sum().clamp_min(1.0)
+    return e * torch.sum(frac * router_probs.mean(0).float())
+
+
+def _global_counts(counts: torch.Tensor, tokens: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Over the processes of the running step, in rank order: the choices
+    of each expert made by lower ranks (E,), by every rank (E,), and the
+    global token count. One all_gather of E + 1 integers."""
+    mine = torch.cat([counts, counts.new_tensor([tokens])])
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, mine)
+    rank = dist.get_rank()
+    every = torch.stack(parts)
+    offset = every[:rank, :-1].sum(0)
+    return offset, every[:, :-1].sum(0), int(every[:, -1].sum())
+
+
+class MoeLayer(nn.Module):
+    """Sparse SwiGLU expert layer (Mixtral's MLP) with stacked experts.
+
+    ``forward(x, processes=1)`` returns ``(out, aux)``; with ``processes``
+    > 1 it routes over the global batch of that many processes (one call
+    each, in the same order). ``stats`` holds the last call's detached
+    ``dropped`` and ``routed`` choice counts of the batch it routed over,
+    and this process's chosen ``experts``, ``kept`` mask and router
+    ``probs``."""
+
+    def __init__(self, cfg: MixtralConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, e, f = cfg.hidden_size, cfg.num_local_experts, cfg.intermediate_size
+        self.router = nn.Parameter(torch.empty(d, e, device=device))
+        self.w_gate = nn.Parameter(torch.empty(e, d, f, device=device))
+        self.w_up = nn.Parameter(torch.empty(e, d, f, device=device))
+        self.w_down = nn.Parameter(torch.empty(e, f, d, device=device))
+        self.stats: dict = {}
+
+    def forward(self, x, processes: int = 1):
+        b, s, d = x.shape
+        tokens = x.reshape(b * s, d)
+        r, aux = self.route(tokens, processes)
+        ye = self.experts(self.dispatch(tokens, r))
+        return self.combine(ye, r).reshape(b, s, d), aux
+
+    def route(self, tokens, processes: int = 1) -> tuple[Routing, torch.Tensor]:
+        """The routing of (T, d) ``tokens`` and the layer's aux loss; over
+        several processes this process's share of it: its probabilities'
+        sum times processes / T, whose mean over the processes is the
+        global mean's term."""
+        cfg = self.cfg
+        e, k, t = cfg.num_local_experts, cfg.num_experts_per_tok, tokens.shape[0]
+        probs = router_probs(tokens, self.router)
+        weights, experts = top_k_experts(probs, k)
+        offset, totals, t_all = None, None, t
+        if processes > 1:
+            counts = F.one_hot(experts, e).sum((0, 1))
+            offset, totals, t_all = _global_counts(counts, t)
+        r = route(weights, experts, e, expert_capacity(cfg, t_all), offset, totals)
+        frac = r.dispatched.float() / r.dispatched.sum().clamp_min(1).float()
+        mean_prob = probs.mean(0) if processes == 1 else probs.sum(0) * (processes / t_all)
+        aux = cfg.router_aux_loss_coef * (e * torch.sum(frac * mean_prob))
+        self.stats = {"dropped": t_all * k - r.dispatched.sum().detach(), "routed": t_all * k,
+                      "experts": experts.detach(), "kept": r.kept, "probs": probs.detach()}
+        return r, aux
+
+    def dispatch(self, tokens, r: Routing) -> torch.Tensor:
+        """(E, C, d) expert inputs: each kept choice's token in its slot,
+        zeros in the empty ones. Dropped choices land in a spare slot C
+        that no product reads."""
+        e, d = self.cfg.num_local_experts, tokens.shape[1]
+        t, k = r.experts.shape
+        slot = torch.where(r.kept, r.position, r.capacity)
+        token_of = torch.arange(t, device=tokens.device)[:, None].expand(t, k)
+        buf = tokens.new_zeros((e, r.capacity + 1, d), dtype=self.cfg.dtype)
+        buf = buf.index_put((r.experts.reshape(-1), slot.reshape(-1)),
+                            tokens.to(self.cfg.dtype)[token_of.reshape(-1)])
+        return buf[:, :r.capacity]
+
+    def experts(self, xe) -> torch.Tensor:
+        """The stacked SwiGLU experts on (E, C, d) inputs."""
+        dtype = self.cfg.dtype
+        h = F.silu(torch.bmm(xe, self.w_gate.to(dtype))) * torch.bmm(xe, self.w_up.to(dtype))
+        return torch.bmm(h, self.w_down.to(dtype))
+
+    def combine(self, ye, r: Routing) -> torch.Tensor:
+        """(T, d): each token's expert rows mixed with its weights rounded
+        to the compute dtype, the k choices summed in fp32 (a dropped one
+        reads a zero row with weight 0)."""
+        dtype = self.cfg.dtype
+        slot = torch.where(r.kept, r.position, r.capacity)
+        picked = F.pad(ye, (0, 0, 0, 1))[r.experts, slot]
+        w = r.weights.to(dtype).float()
+        return (picked.float() * w[..., None]).sum(1).to(dtype)
+
+
+class MixtralBlock(nn.Module):
+    def __init__(self, cfg: MixtralConfig, device=None):
+        super().__init__()
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
+        self.self_attn = LlamaAttention(cfg, device)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
+        self.moe = MoeLayer(cfg, device)
+
+    def forward(self, x, cos, sin, processes: int = 1):
+        h = x + self.self_attn(self.input_layernorm(x), cos, sin)
+        out, aux = self.moe(self.post_attention_layernorm(h), processes)
+        return h + out, aux
+
+
+class MixtralModel(nn.Module):
+    def __init__(self, cfg: MixtralConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, device=device)
+        self.layers = nn.ModuleList(MixtralBlock(cfg, device)
+                                    for _ in range(cfg.num_hidden_layers))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
+        policy = _remat_policy(cfg)
+        self._remat_kwargs = {"use_reentrant": False}
+        if policy is not None:
+            self._remat_kwargs["context_fn"] = partial(create_selective_checkpoint_contexts, policy)
+
+    def forward(self, input_ids):
+        """(final hidden states, the sum of the layers' aux losses)."""
+        cfg = self.cfg
+        if current_sequence_shard()[0] > 1:
+            raise NotImplementedError(
+                f"Mixtral over a cp or sp axis is not ported yet ({_PARALLEL_ITEM})")
+        x = embed_tokens(cfg, self.embed_tokens.weight, input_ids)
+        s = input_ids.shape[-1]
+        positions = torch.arange(s, device=input_ids.device)
+        cos, sin = rotary_embedding(positions, cfg.rotary_dim, cfg.rope_theta, x.dtype)
+        # Read here, outside any checkpointed block: a recompute in the
+        # backward routes over the same processes.
+        processes = loss_processes()
+        aux = x.new_zeros((), dtype=torch.float32)
+        for layer in self.layers:
+            if cfg.remat and torch.is_grad_enabled():
+                x, a = checkpoint(layer, x, cos, sin, processes, **self._remat_kwargs)
+            else:
+                x, a = layer(x, cos, sin, processes)
+            aux = aux + a
+        return self.norm(x), aux
+
+
+class MixtralForCausalLM(nn.Module):
+    def __init__(self, cfg: MixtralConfig, device=None):
+        super().__init__()
+        self.config = cfg
+        self.model = MixtralModel(cfg, device)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = _Linear(cfg.hidden_size, cfg.vocab_size, cfg.dtype, device)
+
+    def head_weight(self) -> torch.Tensor:
+        if self.config.tie_word_embeddings:
+            return self.model.embed_tokens.weight
+        return self.lm_head.weight
+
+    def forward(self, input_ids, return_aux: bool = False):
+        """Logits (B, S, V) in the compute dtype; with ``return_aux``,
+        ``(logits, aux)``: the fp32 sum of the layers' router aux losses
+        (flax's sown ``"losses"``)."""
+        x, aux = self.model(input_ids)
+        logits = F.linear(x, self.head_weight().to(self.config.dtype))
+        return (logits, aux) if return_aux else logits
+
+    def router_stats(self) -> dict:
+        """The last forward's dropped and routed choices, summed over the
+        layers (detached tensors; read them after the step)."""
+        layers = [blk.moe.stats for blk in self.model.layers]
+        return {"dropped": sum(s["dropped"] for s in layers),
+                "routed": sum(s["routed"] for s in layers)}
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator, std: float = 0.02):
+        """Seeded random weights: normal(0, std) matrices, expert stacks and
+        embeddings, unit norm weights. ``generator`` must be on the
+        parameters' device."""
+        for p in self.parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, std, generator=generator)
+            else:
+                p.fill_(1.0)
+
+
+def moe_cross_entropy_loss(model, input_ids, labels, ignore_index: int = -100):
+    """The causal-LM loss of a ``MixtralForCausalLM`` (or a ``Model`` of
+    one): ``cross_entropy_loss`` (the global token mean) plus the layers'
+    router aux losses. A ``prepare_train_step`` loss and an imperative-loop
+    one alike."""
+    logits, aux = model(input_ids, return_aux=True)
+    return cross_entropy_loss(logits, labels, ignore_index) + aux
+
+
+def mixtral_tp_rules(scan_layers: bool = True, ep_axes: tuple = ()):
+    """The JAX package's TP + EP rule table for Mixtral; tensor and expert
+    parallelism are not ported."""
+    raise NotImplementedError(f"mixtral_tp_rules is not ported yet ({_PARALLEL_ITEM})")

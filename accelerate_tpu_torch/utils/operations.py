@@ -100,6 +100,12 @@ def loss_over_processes(n: int):
         _LOSS_PROCESSES.reset(token)
 
 
+def loss_processes() -> int:
+    """How many processes' losses the running train step averages (1
+    outside a step): those whose tokens make its global batch."""
+    return _LOSS_PROCESSES.get()
+
+
 def global_token_count(count: torch.Tensor) -> tuple[torch.Tensor, int]:
     """For a loss that divides a sum over this process's tokens by their
     ``count``: the count summed over the processes whose losses the train

@@ -25,7 +25,8 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    variant.
 3. timings of every built variant (``TIMED``: bf16, fp16 and fp32 at head
    dims 64 and 128 at the training shape and 256 at a Gemma-2B-like one,
-   and head dim 96 padded) beside its bound and its plain version; SDPA's
+   head dim 96 padded, and bf16 d128 at phase 18's Mixtral step and
+   cp_generate prefill shapes) beside its bound and its plain version; SDPA's
    forward beside the forward kernel, and SDPA's backward (dq, dk, dv in
    one call) beside the dQ and dK/dV kernels' sum.
 4. one train step of the tiny Llama on the card (kernels) and on the CPU
@@ -245,6 +246,37 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    phase 8's trace cut to 16 requests. (e) A tiny Gemma written as a
    Hugging Face checkpoint and read back by ``model_from_pretrained``:
    logits equal bit for bit.
+18. the Mixtral family and long-context generation. (a) Phase 4's tiny
+   width with 4 experts, top 2 and capacity factor 0.5 (tokens drop): one
+   bf16 step on the card and on the CPU from the same numpy-seeded
+   weights, loss, aux loss and grad norm within phase 4's tolerance, equal
+   dropped counts, each layer's chosen experts of the two steps equal
+   wherever the k-th and (k+1)-th router probabilities lie further apart
+   than the tie gap the two steps' router inputs allow (those inputs
+   within phase 4's tolerance), and each layer's routing on the card from
+   the CPU step's router inputs equal to the CPU's above ``TIE_GAP``. (b)
+   Mixtral-8x7B
+   (mistralai/Mixtral-8x7B-v0.1's config.json through
+   ``mixtral_config_from_hf``, seeded random weights) at 2 layers: batch 2
+   x seq 2048 (batch 1 where 2 does not fit, said so), bf16 over fp32
+   masters, adamw, clipping, remat "dots", flash attention,
+   ``moe_cross_entropy_loss``; 2 warm-up and 5 timed steps with the flash
+   kernels' launches counted from zero (2 of each a step, all
+   ``*.bf16.d128``), ms, tok/s, MFU over the active parameters, peak
+   memory, the dropped share, and two profiled steps with the router,
+   dispatch, expert products and combine as categories of their own. (c)
+   Phase 7's decode row at 8 layers in bf16 beside the routed experts' and
+   all experts' per-token bounds. (d) Phase 8's engine on 16 requests; its
+   greedy tokens against generate()'s on the fp32 model of the same width
+   and depth. (e) cp_generate at one process on phase 7's 1.06B Llama,
+   prompt (1, 8192), 32 new tokens: tokens equal generate()'s under the
+   near-tie rule (the tie gap from the plain bf16 and fp32 prefills), the
+   kernel prefill's last logits within ``CP_LOGITS_DELTA`` of the plain
+   bf16 one's, prefill ms, ms a token, peak memory, 18 forward launches.
+   (f) A tiny Mixtral written as a Hugging Face checkpoint and read back:
+   logits equal bit for bit. Phase 2 holds the kernels at the Mixtral
+   step's attention shape (B2 S2048 Hq32 Hkv8 D128) and at cp_generate's
+   prefill (B1 S8192 H16 D128), and phase 3 times them there.
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -286,14 +318,39 @@ KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 SLICE = dict(b=4, s=2048, hq=16, hkv=16, d=128)
 # Gemma-2B's attention (8 query heads, 1 KV head, head dim 256) at seq 2048.
 GEMMA_LIKE = dict(b=2, s=2048, hq=8, hkv=1, d=256)
+# Mixtral-8x7B's attention (32 query heads over 8 KV heads, head dim 128) at
+# phase 18's step shape.
+MIXTRAL_LIKE = dict(b=2, s=2048, hq=32, hkv=8, d=128)
+# Phase 18's cp_generate prefill: phase 7's 1.06B Llama (16 heads of dim
+# 128) over a (1, 8192) prompt, the forward kernel once a layer.
+CP_GEN_LIKE = dict(b=1, s=8192, hq=16, hkv=16, d=128)
+# The main paths whose launches the kernels line reports: phase 5's Llama
+# train step (bf16 d128), phase 17's Gemma-2B train step (bf16 d256), phase
+# 18's Mixtral-8x7B train step (bf16 d128, GQA 4:1) and its cp_generate
+# prefill (bf16 d128 at seq 8192, the forward kernel).
+MAIN_PATHS = ("train_step", "gemma_2b_step", "mixtral_8x7b_step", "cp_generate")
+# The other runs whose launches the line lists by path, outside "launches".
+OTHER_PATHS = ("imperative_loop", "observed_loop", "observed_imperative", "observed_serving",
+               "fp16_step", "fp8_step", "dcp_loop", "dcp_async_loop", "serving_rest")
+_TRAINING_PATHS = ("train_step", "gemma_2b_step", *OTHER_PATHS)
 # Phase 3 times every built variant (hopper_flash.variant) at the shape its
 # users give it: head dims 64 and 128 at the training shape, 256 at the
 # Gemma-like one, and one head dim the wrappers pad (96, run at 128). The
-# first is the main path's.
-TIMED = [("bfloat16", SLICE), ("bfloat16", dict(SLICE, d=64)), ("bfloat16", GEMMA_LIKE),
-         ("float16", SLICE), ("float16", dict(SLICE, d=64)), ("float16", GEMMA_LIKE),
-         ("float32", SLICE), ("float32", dict(SLICE, d=64)), ("float32", GEMMA_LIKE),
-         ("bfloat16", dict(SLICE, d=96))]
+# first is the main path's. Each entry is (name, dtype, shape, paths): the
+# kernels line names it by its variant, with the name appended where one is
+# given, and counts there the launches of those paths at that variant.
+TIMED = [(None, "bfloat16", SLICE, _TRAINING_PATHS),
+         (None, "bfloat16", dict(SLICE, d=64), _TRAINING_PATHS),
+         (None, "bfloat16", GEMMA_LIKE, _TRAINING_PATHS),
+         (None, "float16", SLICE, _TRAINING_PATHS),
+         (None, "float16", dict(SLICE, d=64), _TRAINING_PATHS),
+         (None, "float16", GEMMA_LIKE, _TRAINING_PATHS),
+         (None, "float32", SLICE, _TRAINING_PATHS),
+         (None, "float32", dict(SLICE, d=64), _TRAINING_PATHS),
+         (None, "float32", GEMMA_LIKE, _TRAINING_PATHS),
+         (None, "bfloat16", dict(SLICE, d=96), _TRAINING_PATHS),
+         ("mixtral_8x7b", "bfloat16", MIXTRAL_LIKE, ("mixtral_8x7b_step",)),
+         ("cp_generate_8192", "bfloat16", CP_GEN_LIKE, ("cp_generate",))]
 SOURCES = {"flash_fwd": "accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
            "flash_dq": "accelerate_tpu_torch/ops/csrc/flash_dq.cu",
            "flash_dkv": "accelerate_tpu_torch/ops/csrc/flash_dkv.cu",
@@ -922,63 +979,81 @@ def full_width_generate(device="cuda"):
     return decode_row(cfg, module, FULL_WIDTH, device), module
 
 
-def decode_row(cfg, module, width, device="cuda"):
-    """bench.py's decode row: bf16 and int8-weight generate() of `module`
-    (bf16 weights), prompt (1, 64), 32 new tokens, one warm-up and one
-    timed call each; then prefill and decode-step times, and a profile of
-    ``PROFILED_DECODE_STEPS`` decode steps (the prefill outside it),
-    beside the per-token bound of `width`."""
+def decode_variant(cfg, model, prompt, device="cuda"):
+    """bench.py's decode row for one model (bf16 or int8 weights): one
+    warm-up and one timed generate() of 32 new tokens after `prompt`, then
+    prefill and decode-step times and a profile of
+    ``PROFILED_DECODE_STEPS`` decode steps (the prefill outside it).
+    Returns (the new tokens, the numbers)."""
     import numpy as np
     import torch
 
-    from accelerate_tpu_torch import Model, generate, quantize_model_for_decode
+    from accelerate_tpu_torch import generate
     from accelerate_tpu_torch.generation import _decode_params, _llama_forward_cached, init_cache
 
-    prompt_np = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, GEN_PROMPT))
-    prompt = torch.from_numpy(prompt_np).to(device)
+    generate(model, prompt, max_new_tokens=GEN_NEW_TOKENS)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(model, prompt, max_new_tokens=GEN_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row = out[0, GEN_PROMPT:].cpu().numpy()
+    params = _decode_params(model)
+    prefill = []
+    for _ in range(3):
+        cache = init_cache(cfg, 1, GEN_PROMPT + GEN_NEW_TOKENS, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _llama_forward_cached(cfg, params, prompt, cache)
+        torch.cuda.synchronize()
+        prefill.append((time.perf_counter() - t0) * 1e3)
+    steps = GEN_NEW_TOKENS - 1
+    decode_s, finite, _ = _decode_steps(cfg, params, prompt, steps)
+    _, finite_p, prof = _decode_steps(cfg, params, prompt, PROFILED_DECODE_STEPS, profiled=True)
+    busy_ms, by_cat, top, n_kernels = device_times(prof, PROFILED_DECODE_STEPS, n_top=8)
+    decode_ms = decode_s * 1e3 / steps
+    return row, {
+        "decode_tok_s": GEN_NEW_TOKENS / wall, "generate_ms": wall * 1e3,
+        "prefill_ms": float(np.median(prefill)), "decode_ms_per_token": decode_ms,
+        "device_busy_ms_per_token": busy_ms,
+        "idle_share": 1.0 - busy_ms / decode_ms if top else None,
+        "kernels_per_token": n_kernels, "ms_per_token_by_category": by_cat,
+        "top_kernels_ms_per_token": top,
+        "host_ops_ms_per_token": host_ops(prof, PROFILED_DECODE_STEPS),
+        "tokens_in_vocab": bool(((row >= 0) & (row < cfg.vocab_size)).all()),
+        "logits_finite": finite and finite_p,
+    }
+
+
+def decode_prompt(cfg, device="cuda"):
+    """bench.py's decode prompt: (1, 64) ids from default_rng(0)."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, GEN_PROMPT))).to(device)
+
+
+def decode_row(cfg, module, width, device="cuda"):
+    """bench.py's decode row: bf16 and int8-weight generate() of `module`
+    (bf16 weights), prompt (1, 64), 32 new tokens (``decode_variant``),
+    beside the per-token bound of `width`."""
+    import torch
+
+    from accelerate_tpu_torch import Model, quantize_model_for_decode
+
+    prompt = decode_prompt(cfg, device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     models = {"bf16": Model(module)}
     models["int8"] = quantize_model_for_decode(models["bf16"])
     rows, res = {}, {}
     for name, model in models.items():
-        generate(model, prompt, max_new_tokens=GEN_NEW_TOKENS)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = generate(model, prompt, max_new_tokens=GEN_NEW_TOKENS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        rows[name] = out[0, GEN_PROMPT:].cpu().numpy()
-        params = _decode_params(model)
-        prefill = []
-        for _ in range(3):
-            cache = init_cache(cfg, 1, GEN_PROMPT + GEN_NEW_TOKENS, device=device)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _llama_forward_cached(cfg, params, prompt, cache)
-            torch.cuda.synchronize()
-            prefill.append((time.perf_counter() - t0) * 1e3)
-        steps = GEN_NEW_TOKENS - 1
-        decode_s, finite, _ = _decode_steps(cfg, params, prompt, steps)
-        _, finite_p, prof = _decode_steps(cfg, params, prompt, PROFILED_DECODE_STEPS,
-                                          profiled=True)
-        busy_ms, by_cat, top, n_kernels = device_times(prof, PROFILED_DECODE_STEPS, n_top=8)
-        decode_ms = decode_s * 1e3 / steps
+        rows[name], res[name] = decode_variant(cfg, model, prompt, device)
         bound_ms, bound_bytes = decode_bound(width, 2 if name == "bf16" else 1,
                                              ctx=GEN_PROMPT + GEN_NEW_TOKENS // 2)
-        res[name] = {
-            "decode_tok_s": GEN_NEW_TOKENS / wall, "generate_ms": wall * 1e3,
-            "prefill_ms": float(np.median(prefill)), "decode_ms_per_token": decode_ms,
-            "bound_ms_per_token": bound_ms, "bound_bytes_per_token": bound_bytes,
-            "bound_share": bound_ms / decode_ms,
-            "device_busy_ms_per_token": busy_ms,
-            "idle_share": 1.0 - busy_ms / decode_ms if top else None,
-            "kernels_per_token": n_kernels, "ms_per_token_by_category": by_cat,
-            "top_kernels_ms_per_token": top,
-            "host_ops_ms_per_token": host_ops(prof, PROFILED_DECODE_STEPS),
-            "tokens_in_vocab": bool(((rows[name] >= 0) & (rows[name] < cfg.vocab_size)).all()),
-            "logits_finite": finite and finite_p,
-        }
+        res[name].update(bound_ms_per_token=bound_ms, bound_bytes_per_token=bound_bytes,
+                         bound_share=bound_ms / res[name]["decode_ms_per_token"])
     del models
     return {
         "decode_tok_s_bf16": res["bf16"]["decode_tok_s"],
@@ -1019,7 +1094,8 @@ def full_width_serving(module, row=SERVING_ROW):
     """The engine at full width on generate_bench.py's serving row: its
     Poisson trace replayed open loop after one warm-up request, with the
     row's ServingConfig (8 slots, max_len from the trace, chunks up to the
-    prompt length). Phase 17 cuts the trace to fewer requests (`row`)."""
+    prompt length). Phases 17 and 18 cut the trace to fewer requests
+    (`row`)."""
     import torch
 
     from accelerate_tpu_torch import Model, ServingConfig, ServingEngine
@@ -3793,28 +3869,26 @@ def gemma_train_steps(hf, device="cuda", width=GEMMA_2B, row=GEMMA_ROW):
 
 
 def hub_round_trip(device="cuda", width=TINY_GEMMA):
-    """(e) A tiny Gemma written as a Hugging Face checkpoint (its state
-    dict through ``llama_params_to_hf``, the port's safetensors writer and
-    a config.json) and read back by ``model_from_pretrained``: its logits
+    """A tiny model of `width`'s family (phase 17 (e): Gemma; phase 18 (f):
+    Mixtral) written as a Hugging Face checkpoint (its state dict through
+    the family's ``*_params_to_hf``, the port's safetensors writer and a
+    config.json) and read back by ``model_from_pretrained``: its logits
     equal the source model's bit for bit."""
     import numpy as np
     import torch
 
-    from accelerate_tpu_torch.models import (
-        LlamaForCausalLM,
-        llama_params_to_hf,
-        model_from_pretrained,
-    )
-    from accelerate_tpu_torch.models.hub import gemma_config_from_hf
+    from accelerate_tpu_torch.models import model_from_pretrained
+    from accelerate_tpu_torch.models.hub import _FAMILIES
     from accelerate_tpu_torch.utils.other import save_safetensors
 
-    cfg = gemma_config_from_hf(width)
-    module = LlamaForCausalLM(cfg, device=device)
+    cls, config_from_hf, _, to_hf = _FAMILIES[width["model_type"]]
+    cfg = config_from_hf(width)
+    module = cls(cfg, device=device)
     module.init_weights(torch.Generator(device=device).manual_seed(1), std=0.2)
     ids = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 64)))
     ids = ids.to(device)
     with tempfile.TemporaryDirectory() as tmp:
-        save_safetensors(llama_params_to_hf(cfg, module.state_dict()),
+        save_safetensors(to_hf(cfg, module.state_dict()),
                          os.path.join(tmp, "model.safetensors"))
         with open(os.path.join(tmp, "config.json"), "w") as f:
             json.dump(width, f)
@@ -3866,6 +3940,605 @@ def chassis_phase(hf, device="cuda", width=GEMMA_2B, row=GEMMA_ROW,
               "serving": serving["ok"], "hub_bit_equal": hub["bit_equal"]}
     return {"phase": "chassis", "tiny": tiny, "gemma_2b_train": train, "gemma_2b_decode": decode,
             "gemma_2b_serving": serving, "hub_round_trip": hub,
+            "phase_s": time.perf_counter() - t0, "part_s": part_s, "checks": checks,
+            "ok": all(checks.values())}
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the Mixtral family at Mixtral-8x7B's width, and cp_generate
+# ---------------------------------------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1's config.json (Hugging Face Hub), as
+# mixtral_config_from_hf reads it: 8 experts, top 2, 32 query heads over 8
+# KV heads of dim 128; 1,451.3M parameters a layer, 262.1M for the
+# embedding and head.
+MIXTRAL_8X7B = dict(model_type="mixtral", vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+                    num_key_value_heads=8, max_position_embeddings=32768, rms_norm_eps=1e-5,
+                    rope_theta=1e6, num_local_experts=8, num_experts_per_tok=2,
+                    router_aux_loss_coef=0.02, hidden_act="silu", sliding_window=None,
+                    tie_word_embeddings=False)
+# Depth is the only cut: the train step at 2 layers (about 18 bytes a
+# parameter: 57 GB at 2 layers, 83 GB at 3), decode and the engine at 8
+# layers in bf16 (23.7 GB of weights). (b): batch 2 x seq 2048, 2 warm-up
+# and 5 timed steps; (d): phase 8's trace cut to 16 requests.
+MIXTRAL_ROW = dict(batch=2, seq=2048, warmup=2, timed=5, train_layers=2, decode_layers=8,
+                   requests=16)
+# (a): phase 4's tiny width with 4 experts, top 2 and capacity factor 0.5,
+# so that tokens drop.
+TINY_MIXTRAL = dict(MIXTRAL_8X7B, vocab_size=256, hidden_size=128, intermediate_size=256,
+                    num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                    max_position_embeddings=512, num_local_experts=4, rope_theta=10000.0)
+TINY_CAPACITY_FACTOR = 0.5
+# (e): cp_generate at one process on phase 7's 1.06B Llama, prompt (1, 8192).
+CP_ROW = dict(prompt_len=CP_GEN_LIKE["s"], new_tokens=32)
+# (e): the largest difference of the kernel prefill's last logits from the
+# plain bf16 prefill's, 2.3 times the readings on an H100 (0.107; PERF.md,
+# phase 18 (e)).
+CP_LOGITS_DELTA = 0.25
+
+
+def _tiny_moe_inputs(width=TINY_MIXTRAL):
+    """The tiny bf16 Mixtral (remat "dots", capacity factor 0.5) with
+    numpy-seeded weights (matrices and expert stacks of std 0.02, the router
+    of std 1/sqrt(hidden) so that few tokens sit at a routing tie, norm
+    weights of one) and one batch."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import MixtralForCausalLM
+    from accelerate_tpu_torch.models.hub import mixtral_config_from_hf
+
+    cfg = dataclasses.replace(mixtral_config_from_hf(width), dtype=torch.bfloat16, remat=True,
+                              remat_policy="dots", capacity_factor=TINY_CAPACITY_FACTOR)
+    rng = np.random.default_rng(0)
+    weights = {}
+    for n, p in MixtralForCausalLM(cfg, device="meta").state_dict().items():
+        if p.dim() == 1:
+            a = np.ones(p.shape, np.float32)
+        else:
+            std = 1.0 / math.sqrt(cfg.hidden_size) if n.endswith("moe.router") else 0.02
+            a = (rng.standard_normal(p.shape) * std).astype(np.float32)
+        weights[n] = torch.from_numpy(a)
+    ids = rng.integers(0, cfg.vocab_size, size=(2, 129)).astype(np.int64)
+    return cfg, weights, {"x": ids[:, :-1], "y": ids[:, 1:]}
+
+
+def _moe_step(cfg, weights, batch, cpu):
+    """One bf16 step of the tiny Mixtral through a fresh Accelerator: loss,
+    aux loss, grad norm, each layer's routing (experts, kept, probs) and
+    the inputs its router took (the layer's input and the router weight
+    in the compute dtype, from the forward)."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, adamw
+    from accelerate_tpu_torch.models import MixtralForCausalLM, cross_entropy_loss
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    module = MixtralForCausalLM(cfg)
+    module.load_state_dict(weights)
+    acc = Accelerator(mixed_precision="bf16", cpu=cpu)
+    model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+    aux = []
+
+    def loss_fn(m, b):
+        logits, a = m(b["x"], return_aux=True)
+        aux.append(a.detach())
+        return cross_entropy_loss(logits, b["y"]) + a
+
+    inputs = []
+
+    def keep_inputs(layer, args):
+        if len(inputs) < cfg.num_hidden_layers:  # the forward's, not the recompute's
+            inputs.append((args[0].detach().cpu(), layer.router.detach().cpu()))
+
+    hooks = [blk.moe.register_forward_pre_hook(keep_inputs) for blk in module.model.layers]
+    step = acc.prepare_train_step(loss_fn, max_grad_norm=1.0)
+    _, metrics = step(acc.train_state, batch)
+    for h in hooks:
+        h.remove()
+    routing = [{k: blk.moe.stats[k].cpu() for k in ("experts", "kept", "probs")}
+               for blk in module.model.layers]
+    for r, x in zip(routing, inputs):
+        r["inputs"] = x
+    return ({"loss": float(metrics["loss"]), "aux": float(aux[0]),
+             "grad_norm": float(metrics["grad_norm"]),
+             "dropped": int(module.router_stats()["dropped"])}, routing)
+
+
+def routing_agreement(ref, got, k, tie_gaps=None, chosen_only=False):
+    """Tokens whose routing differs between two runs, per layer, split by
+    the reference's gap between its k-th and (k+1)-th router
+    probabilities: those above the layer's tie gap (``tie_gaps``, else
+    ``TIE_GAP``) must be none. Routing is the chosen experts in order and
+    the kept mask, or with ``chosen_only`` the set of chosen experts (the
+    kept mask then differs wherever one moved choice shifts its expert's
+    queue, and is counted apart). The first differing token and the
+    largest gap among the differing ones are reported."""
+    import torch
+
+    out = []
+    for layer, (r, g) in enumerate(zip(ref, got)):
+        tie_gap = TIE_GAP if tie_gaps is None else tie_gaps[layer]
+        top = torch.sort(r["probs"], dim=-1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        kept_differ = (r["kept"] != g["kept"]).any(-1)
+        if chosen_only:
+            differ = (r["experts"].sort(-1).values != g["experts"].sort(-1).values).any(-1)
+        else:
+            differ = (r["experts"] != g["experts"]).any(-1) | kept_differ
+        where = differ.nonzero()[:, 0].tolist()
+        out.append({"differ": len(where),
+                    "differ_above_gap": int((differ & (gap > tie_gap)).sum()),
+                    "excluded_near_tie": int((gap <= tie_gap).sum()), "tie_gap": tie_gap,
+                    "first_differing": ({"token": where[0], "gap": float(gap[where[0]])}
+                                        if where else None),
+                    "largest_differing_gap": max((float(gap[i]) for i in where), default=None),
+                    "kept_differ": int(kept_differ.sum())})
+    return out
+
+
+def router_input_tie_gaps(ref, got):
+    """Per layer, the tie gap the two steps' router inputs allow, and how
+    far those inputs lie apart: from each step's recorded inputs (the layer's
+    input and the router weight in the compute dtype) the router
+    probabilities by the same fp32 product on the CPU; twice their largest
+    difference, plus ``TIE_GAP`` for the order of the product's sums. A
+    token's chosen experts can part between the steps only where its k-th
+    and (k+1)-th probabilities are closer than that. The inputs' distance
+    is the relative error in norm."""
+    from accelerate_tpu_torch.models.moe import router_probs
+
+    gaps, rel = [], []
+    for r, g in zip(ref, got):
+        (x_r, w_r), (x_g, w_g) = r["inputs"], g["inputs"]
+        p_r, p_g = (router_probs(x.reshape(-1, x.shape[-1]), w)
+                    for x, w in ((x_r, w_r), (x_g, w_g)))
+        gaps.append(2 * float((p_r - p_g).abs().max()) + TIE_GAP)
+        rel.append(float((x_g.float() - x_r.float()).norm() / x_r.float().norm()))
+    return gaps, rel
+
+
+def same_input_routing(cfg, ref, device):
+    """Each layer's routing on `device` from the inputs the reference's
+    router took (``_moe_step``'s): the router's fp32 product, the top-k
+    choice and the capacity queue, without the earlier layers' rounding."""
+    from accelerate_tpu_torch.models.moe import expert_capacity, route, router_probs, \
+        top_k_experts
+
+    out = []
+    for r in ref:
+        x, w = r["inputs"]
+        tokens = x.reshape(-1, x.shape[-1]).to(device)
+        weights, experts = top_k_experts(router_probs(tokens, w.to(device)),
+                                         cfg.num_experts_per_tok)
+        got = route(weights, experts, cfg.num_local_experts,
+                    expert_capacity(cfg, tokens.shape[0]))
+        out.append({"experts": experts.cpu(), "kept": got.kept.cpu()})
+    return out
+
+
+def tiny_moe_parity(device="cuda", width=TINY_MIXTRAL):
+    """(a) One bf16 step of the tiny Mixtral on `device` (the kernels) and
+    on the CPU (the plain versions): loss, aux loss and grad norm within
+    phase 4's tolerance, equal dropped counts. Routing, two ways: each
+    layer's chosen experts of the two steps equal on every token whose
+    k-th and (k+1)-th router probabilities lie further apart than the tie
+    gap the two steps' router inputs allow (``router_input_tie_gaps``;
+    those inputs within phase 4's tolerance of each other); and each
+    layer's routing on the card from the CPU step's router inputs (the
+    fp32 product, the top-k choice and the capacity queue) equal to the
+    CPU's, kept mask included, above ``TIE_GAP``."""
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    cfg, weights, batch = _tiny_moe_inputs(width)
+    res, routing = {}, {}
+    for label, cpu in (("card", device == "cpu"), ("cpu", True)):
+        PartialState._reset_state()
+        res[label], routing[label] = _moe_step(cfg, weights, batch, cpu)
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    rel = {k: abs(res["card"][k] - res["cpu"][k]) / abs(res["cpu"][k])
+           for k in ("loss", "aux", "grad_norm")}
+    k = cfg.num_experts_per_tok
+    tie_gaps, inputs_rel = router_input_tie_gaps(routing["cpu"], routing["card"])
+    steps = routing_agreement(routing["cpu"], routing["card"], k, tie_gaps, chosen_only=True)
+    same = routing_agreement(routing["cpu"], same_input_routing(cfg, routing["cpu"], device), k)
+    checks = {"finite": all(math.isfinite(v) for r in res.values() for v in r.values()),
+              "rel": max(rel.values()) <= 2e-2,
+              "dropped_equal": res["card"]["dropped"] == res["cpu"]["dropped"],
+              "dropped_some": res["cpu"]["dropped"] > 0,
+              "router_inputs_rel": max(inputs_rel) <= 2e-2,
+              "routing_equal": all(a["differ_above_gap"] == 0 for a in steps),
+              "same_input_routing_equal": all(a["differ_above_gap"] == 0 for a in same)}
+    return {**res, "rel": rel, "capacity_factor": cfg.capacity_factor, "routing": steps,
+            "router_inputs_rel": inputs_rel, "same_input_routing": same, "checks": checks,
+            "ok": all(checks.values())}
+
+
+def mixtral_active_params(cfg) -> dict:
+    """Parameters a token runs through, as bench.py counts a dense model's:
+    attention, router, k of the E experts and norms of every layer, the
+    final norm, the embedding and the head. Capacity padding (the empty
+    expert slots the products also run) is not counted."""
+    h, f, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    attn = 2 * h * cfg.num_attention_heads * d + 2 * h * cfg.num_key_value_heads * d
+    layer = attn + h * cfg.num_local_experts + cfg.num_experts_per_tok * 3 * h * f + 2 * h
+    return {"per_layer": layer, "embedding_and_head": 2 * cfg.vocab_size * h,
+            "total": cfg.num_hidden_layers * layer + 2 * cfg.vocab_size * h + h}
+
+
+# MoE parts of a step under torch.profiler: the layer's methods wrapped in
+# record_function labels (the forward and the remat recompute), and the
+# backward ops their kernels run under.
+MOE_LABELS = (("route", "moe_router"), ("dispatch", "moe_dispatch"),
+              ("experts", "moe_expert_products"), ("combine", "moe_combine"))
+MOE_BACKWARD = {"BmmBackward0": "moe_expert_products", "IndexPutBackward0": "moe_dispatch",
+                "IndexBackward0": "moe_combine", "ConstantPadNdBackward0": "moe_combine"}
+
+
+def moe_profile(step, state, batch, step_ms, steps=2):
+    """Two steps under torch.profiler: device-busy ms and idle share per
+    step, ms by kernel category, and the MoE's router, dispatch, combine
+    and expert products as categories of their own (forward, recompute and
+    backward kernels), with the rest of the step beside them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from accelerate_tpu_torch.models.moe import MoeLayer
+
+    originals = []
+    for name, label in MOE_LABELS:
+        inner = getattr(MoeLayer, name)
+
+        def wrapped(*a, _inner=inner, _label=label, **k):
+            with record_function(_label):
+                return _inner(*a, **k)
+
+        originals.append((name, inner))
+        setattr(MoeLayer, name, wrapped)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                state, _ = step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        for name, inner in originals:
+            setattr(MoeLayer, name, inner)
+    busy, by_cat, top, _ = device_times(prof, steps)
+    moe = dict.fromkeys(sorted({label for _, label in MOE_LABELS}), 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        label = e.name if e.name in moe else next(
+            (v for op, v in MOE_BACKWARD.items() if e.name.endswith(op)), None)
+        if label is not None:
+            moe[label] += e.device_time_total / 1e3 / steps
+    return {"steps": steps, "device_busy_ms_per_step": busy, "step_ms": step_ms,
+            "idle_share": 1.0 - busy / step_ms if top else None,
+            "ms_per_step_by_category": by_cat, "moe_ms_per_step": moe,
+            "rest_ms_per_step": busy - sum(moe.values()), "top_kernels_ms_per_step": top}
+
+
+def mixtral_train_steps(hf, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW):
+    """(b) The Mixtral-8x7B train step at ``row["train_layers"]`` layers
+    (seeded random weights, bf16 compute over fp32 masters, adamw,
+    clipping, remat "dots", flash attention, ``moe_cross_entropy_loss``) on
+    one fixed batch, counted from zero; then two profiled steps. Batch 1
+    where batch 2 does not fit (said so in the result)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        FullyShardedDataParallelPlugin,
+        Model,
+        adamw,
+        moe_cross_entropy_loss,
+    )
+    from accelerate_tpu_torch.models import MixtralForCausalLM
+    from accelerate_tpu_torch.models.hub import mixtral_config_from_hf
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    seq = row["seq"]
+    cfg = dataclasses.replace(mixtral_config_from_hf(width),
+                              num_hidden_layers=row["train_layers"], dtype=torch.bfloat16,
+                              remat=True, remat_policy="dots", attention_impl="flash")
+    out = {}
+    for bs in (row["batch"], 1):
+        for cls in (AcceleratorState, GradientState):
+            cls._reset_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+        acc = Accelerator(mixed_precision="bf16", fsdp_plugin=FullyShardedDataParallelPlugin(),
+                          cpu=device == "cpu")
+        module = MixtralForCausalLM(cfg, device=acc.device)
+        module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+        model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+        step = acc.prepare_train_step(
+            lambda m, b: moe_cross_entropy_loss(m, b["x"], b["y"]), max_grad_norm=1.0)
+        ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(bs, seq + 1))
+        batch = {"x": torch.from_numpy(ids[:, :-1]).to(acc.device),
+                 "y": torch.from_numpy(ids[:, 1:]).to(acc.device)}
+        state, n_steps = acc.train_state, row["warmup"] + row["timed"]
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            hf.reset_launch_counts()
+            losses, dropped = [], []
+            for i in range(n_steps):
+                if i == row["warmup"]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(metrics["loss"])
+                dropped.append(module.router_stats()["dropped"])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / row["timed"]
+        except torch.cuda.OutOfMemoryError as exc:
+            if bs == 1:
+                raise
+            out["batch_fallback"] = f"batch {bs} ran out of memory: {str(exc)[:200]}"
+            del acc, model, module, state, step, batch
+            continue
+        break
+    launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    routed = module.router_stats()["routed"]
+    dropped_share = [int(x) / routed for x in dropped]
+    profile = moe_profile(step, state, batch, dt * 1e3)
+    active = mixtral_active_params(cfg)
+    tok_s = bs * seq / dt
+    flops_per_token = 6 * active["total"] + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq
+    want = {hf.variant(k, torch.bfloat16, cfg.head_dim): cfg.num_hidden_layers * n_steps
+            for k in KERNELS}
+    checks = {
+        "losses_finite": all(math.isfinite(x) for x in losses),
+        "losses_fall": losses[-1] < losses[0],
+        # remat "dots" keeps the forward's outputs: one launch of each kernel
+        # per layer and step, all of the bf16 head-dim-128 variant.
+        "flash_launches": launches == {k: cfg.num_hidden_layers * n_steps for k in KERNELS}
+        and variant_launches == want,
+    }
+    n_params = model.num_parameters()
+    del acc, model, module, state, step, batch
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        **out, "config": {k: getattr(cfg, k) for k in (
+            "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+            "num_attention_heads", "num_key_value_heads", "head_dim", "num_local_experts",
+            "num_experts_per_tok", "capacity_factor", "rope_theta")},
+        "n_params": n_params, "active_params": active, "batch": bs, "seq": seq,
+        "steps": n_steps, "step_ms": dt * 1e3, "tok_s": tok_s,
+        "mfu": tok_s * flops_per_token / PEAK_BF16_FLOPS,
+        "mfu_formula": "tok/s * (6 * active params + 12 * layers * hidden * seq) / 989e12; "
+                       "active: attention, router, k of E experts, norms, embedding and head; "
+                       "capacity padding not counted",
+        "losses": losses, "ln_vocab": math.log(cfg.vocab_size),
+        "dropped_share": dropped_share, "launches": launches,
+        "variant_launches": variant_launches,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "peak_mem_gib": peak, "profile": profile, "checks": checks,
+    }
+
+
+def moe_decode_bound(cfg, ctx=0) -> dict:
+    """Least time (ms) of one bf16 decode token at batch 1: the bytes of the
+    attention, the router, the norms, the head and the K/V of ``ctx``
+    cached positions, and of the routed experts (k of E) or of all E (what
+    a dense expert layer reads)."""
+    h, f, d, layers = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim, \
+        cfg.num_hidden_layers
+    attn = 2 * h * cfg.num_attention_heads * d + 2 * h * cfg.num_key_value_heads * d
+    base = layers * (attn + h * cfg.num_local_experts + 2 * h) + cfg.vocab_size * h + h
+    base_bytes = base * 2 + layers * 2 * (ctx + 1) * cfg.num_key_value_heads * d * 2
+    expert = 3 * h * f * 2 * layers
+    routed = base_bytes + cfg.num_experts_per_tok * expert
+    every = base_bytes + cfg.num_local_experts * expert
+    return {"routed_ms": routed / PEAK_HBM_BYTES * 1e3, "routed_bytes": routed,
+            "all_experts_ms": every / PEAK_HBM_BYTES * 1e3, "all_experts_bytes": every}
+
+
+def moe_decode_row(cfg, module, device="cuda"):
+    """(c) Phase 7's decode row on the bf16 Mixtral (``decode_variant``)
+    beside the per-token bounds of the routed experts and of all."""
+    import torch
+
+    from accelerate_tpu_torch import Model
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, res = decode_variant(cfg, Model(module), decode_prompt(cfg, device), device)
+    bound = moe_decode_bound(cfg, ctx=GEN_PROMPT + GEN_NEW_TOKENS // 2)
+    return {"layers": cfg.num_hidden_layers, **res, "bound": bound,
+            "bound_share_routed": bound["routed_ms"] / res["decode_ms_per_token"],
+            "bound_share_all_experts": bound["all_experts_ms"] / res["decode_ms_per_token"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def moe_serving_parity(cfg, row=SERVING_ROW, device="cuda"):
+    """(d)'s gate, on the fp32 Mixtral of the same width and depth (TF32
+    off): the engine on the row's requests (8 slots, chunked prefill)
+    against generate() of each prompt alone, under the near-tie rule. In
+    bf16 a random-weight Mixtral's greedy rows part within a few tokens
+    wherever two paths round a router input apart (an expert's output is
+    as large as the residual stream), which no tie gap on the logits
+    describes; fp32 leaves the paths' own differences."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Model, ServingConfig, ServingEngine, generate
+    from accelerate_tpu_torch.models import MixtralForCausalLM
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmuls are on; the fp32 comparison needs them off")
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    module = MixtralForCausalLM(cfg, device="meta").to_empty(device=device)
+    module.init_weights(torch.Generator(device=device).manual_seed(0))
+    lengths, budgets, prompts, _ = serving_trace(cfg.vocab_size, **row)
+    engine = ServingEngine(Model(module), ServingConfig(
+        n_slots=row["slots"], max_len=int(max(lengths + budgets)) + 8,
+        max_prefill_chunk=max(16, row["prompt_len"])))
+    t0 = time.perf_counter()
+    rows = engine.run(prompts, max_new_tokens=[int(b) for b in budgets])
+    engine_s = time.perf_counter() - t0
+    divergences = []
+    for p, b, got in zip(prompts, budgets, rows):
+        ref = generate(module, torch.as_tensor(p[None]).long().to(device),
+                       max_new_tokens=int(b))[0].cpu().numpy()
+        new_ref, new_got = list(ref[len(p):]), list(np.asarray(got)[len(p):])
+        if new_ref == new_got:
+            divergences.append(None)
+            continue
+        gaps = _row_gaps(cfg, module, ref, len(p), device)
+        divergences.append(first_divergence([new_ref], [new_got], [gaps])[0])
+    del engine, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dtype": "float32", "requests": len(prompts), "engine_s": engine_s,
+            "divergences": divergences, "equal_rows": sum(d is None for d in divergences),
+            "ok": parity_ok(divergences)}
+
+
+def cp_generate_row(hf, device="cuda", width=FULL_WIDTH, row=CP_ROW):
+    """(e) cp_generate at one process on phase 7's 1.06B Llama (bf16,
+    max_position_embeddings = prompt + new tokens), prompt (1, 8192), 32
+    new tokens: greedy tokens against generate()'s under the near-tie rule,
+    prefill ms, ms a token, peak memory and the forward kernel's launches,
+    counted from zero. The tie gap does not go through the kernel: four
+    times the largest difference of the plain bf16 and plain fp32
+    prefills' last logits (each bf16 path lies within that of fp32's, so
+    two of them can swap the top two only under it). The kernel prefill's
+    last logits must lie within ``CP_LOGITS_DELTA`` of the plain bf16
+    one's; phase 2 holds the kernel at this shape (``CP_GEN_LIKE``)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import cp_generate, generate
+    from accelerate_tpu_torch.cp_generation import _prefill
+    from accelerate_tpu_torch.generation import _decode_params, _llama_forward_cached, init_cache
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    s, n = row["prompt_len"], row["new_tokens"]
+    cfg = LlamaConfig(**width, max_position_embeddings=s + n, dtype=torch.bfloat16)
+    module = LlamaForCausalLM(cfg, device=device)
+    module.init_weights(torch.Generator(device=device).manual_seed(0))
+    module.to(torch.bfloat16)
+    prompt = torch.from_numpy(np.random.default_rng(18).integers(
+        0, cfg.vocab_size, size=(1, s))).to(device)
+    params = _decode_params(module)
+    cp_generate(module, prompt[:, :256], 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = cp_generate(module, prompt, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_cp, pk, pv = _prefill(cfg, params, prompt)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    del pk, pv
+    ref = generate(module, prompt, max_new_tokens=n)
+    gaps = _greedy_gaps(cfg, module, ref, s)
+    logits_gen, _ = _llama_forward_cached(cfg, params, prompt,
+                                          init_cache(cfg, 1, s + n, device=device))
+    delta = float((logits_cp.float() - logits_gen.float()).abs().max())
+    # The same (bf16-rounded) weights, every product in fp32.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    logits_32, _ = _llama_forward_cached(cfg32, _decode_params(module.float()), prompt,
+                                         init_cache(cfg32, 1, s, device=device))
+    plain_delta = float((logits_gen.float() - logits_32).abs().max())
+    tie_gap = max(TIE_GAP, 4 * plain_delta)
+    div = first_divergence(ref[:, s:].tolist(), got[:, s:].tolist(), gaps, tie_gap=tie_gap)
+    del module, params, logits_32
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_ms = (wall * 1e3 - prefill_ms) / (n - 1)
+    checks = {"tokens_equal_generate": parity_ok(div),
+              "prompt_kept": bool(torch.equal(got[:, :s], prompt)),
+              "first_logits_delta": delta <= CP_LOGITS_DELTA,
+              # The prefill runs the forward kernel once a layer; decode none.
+              "flash_launches": launches == {"flash_fwd": cfg.num_hidden_layers,
+                                             "flash_dq": 0, "flash_dkv": 0}}
+    return {"prompt_len": s, "new_tokens": n, "layers": cfg.num_hidden_layers,
+            "cp_generate_ms": wall * 1e3, "prefill_ms": prefill_ms,
+            "decode_ms_per_token": decode_ms, "peak_mem_gib": peak,
+            "launches": launches, "variant_launches": variant_launches,
+            "first_logits_delta": delta, "first_logits_delta_limit": CP_LOGITS_DELTA,
+            "plain_bf16_fp32_delta": plain_delta, "tie_gap": tie_gap, "divergence": div,
+            "checks": checks, "ok": all(checks.values())}
+
+
+def moe_phase(hf, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW, serving_row=SERVING_ROW,
+              tiny=TINY_MIXTRAL, llama_width=FULL_WIDTH, cp_row=CP_ROW):
+    """Phase 18: (a) the tiny Mixtral card against CPU, (b) Mixtral-8x7B's
+    train step at 2 layers, (c) its decode row and (d) its engine at 8
+    layers (bf16; the engine's tokens against generate()'s on the fp32
+    model), (e) cp_generate at one process, (f) the hub round trip. The
+    keyword arguments shrink it for a rehearsal on the CPU."""
+    import torch
+
+    from accelerate_tpu_torch.models import MixtralForCausalLM
+    from accelerate_tpu_torch.models.hub import mixtral_config_from_hf
+
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        part_s[name] = time.perf_counter() - t
+        return out
+
+    def allocated_gib():
+        return torch.cuda.memory_allocated() / 2**30
+
+    tiny_res = timed("tiny", tiny_moe_parity, device, tiny)
+    train = timed("train", mixtral_train_steps, hf, device, width, row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(mixtral_config_from_hf(width),
+                              num_hidden_layers=row["decode_layers"], dtype=torch.bfloat16,
+                              max_position_embeddings=2048)
+    t = time.perf_counter()
+    allocated = {"before_decode_model": allocated_gib()}
+    module = MixtralForCausalLM(cfg, device="meta").to(torch.bfloat16).to_empty(device=device)
+    module.init_weights(torch.Generator(device=device).manual_seed(0))
+    part_s["decode_init"] = time.perf_counter() - t
+    allocated["decode_model"] = allocated_gib()
+    decode = timed("decode", moe_decode_row, cfg, module, device)
+    serving_row = dict(serving_row, requests=row["requests"])
+    serving = timed("serving", full_width_serving, module, serving_row)
+    del module
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated["after_decode_model"] = allocated_gib()
+    serving["fp32_parity"] = timed("serving_parity", moe_serving_parity, cfg, serving_row,
+                                   device)
+    cp = timed("cp_generate", cp_generate_row, hf, device, llama_width, cp_row)
+    hub = timed("hub", hub_round_trip, device, tiny)
+    checks = {**{f"tiny_{k}": v for k, v in tiny_res["checks"].items()},
+              **{f"train_{k}": v for k, v in train["checks"].items()},
+              "decode": decode["tokens_in_vocab"] and decode["logits_finite"],
+              "serving": serving["ok"], "serving_parity": serving["fp32_parity"]["ok"],
+              **{f"cp_{k}": v for k, v in cp["checks"].items()},
+              "hub_bit_equal": hub["bit_equal"]}
+    return {"phase": "moe", "tiny": tiny_res, "mixtral_8x7b_train": train,
+            "mixtral_8x7b_decode": decode, "mixtral_8x7b_serving": serving,
+            "cp_generate": cp, "hub_round_trip": hub, "allocated_gib": allocated,
             "phase_s": time.perf_counter() - t0, "part_s": part_s, "checks": checks,
             "ok": all(checks.values())}
 
@@ -3966,6 +4639,10 @@ def main() -> int:
                       causal=False),
         # Phase 17's Gemma-2B step: its attention at the step's own shape.
         check_kernels(hf, "gemma_2b", **GEMMA_LIKE, seed=24),
+        # Phase 18's Mixtral-8x7B step: GQA 4:1 at head dim 128.
+        check_kernels(hf, "mixtral_8x7b", **MIXTRAL_LIKE, seed=25),
+        # Phase 18's cp_generate prefill: seq 8192, the forward kernel.
+        check_kernels(hf, "cp_generate_8192", **CP_GEN_LIKE, seed=26),
     ]
     for case in cases:
         emit({"phase": "kernels", **case})
@@ -3975,7 +4652,8 @@ def main() -> int:
 
     # 3. timings: the main path's variant at the training shapes, then every
     # other variant
-    timed = [time_variant(hf, dtype, shape) for dtype, shape in TIMED]
+    timed = [dict(time_variant(hf, dtype, shape), name=name, paths=paths)
+             for name, dtype, shape, paths in TIMED]
     for t in timed:
         emit({"phase": "timings", **t,
               "bound_ms": {k: v[0] for k, v in t["bound"].items()},
@@ -4142,8 +4820,22 @@ def main() -> int:
         print(f"chip_smoke: chassis phase 17 failed: {failed}", file=sys.stderr)
         return 1
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18. the Mixtral family: the tiny step card against CPU, Mixtral-8x7B's
+    # train step, decode row and engine, cp_generate, the hub round trip
+    moe = moe_phase(hf)
+    emit(moe)
+    if not moe["ok"]:
+        failed = sorted(k for k, v in moe["checks"].items() if not v)
+        print(f"chip_smoke: Mixtral phase 18 failed: {failed}", file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
         "gemma_2b_step": chassis["gemma_2b_train"]["variant_launches"],
+        "mixtral_8x7b_step": moe["mixtral_8x7b_train"]["variant_launches"],
+        "cp_generate": moe["cp_generate"]["variant_launches"],
         "imperative_loop": imp["loop"]["variant_launches"],
         "observed_loop": obs["variant_launches"],
         "observed_imperative": obs["imperative"]["variant_launches"],
@@ -4159,21 +4851,16 @@ def main() -> int:
     return 0
 
 
-# The main paths whose launches the kernels line reports: phase 5's Llama
-# train step (bf16 d128) and phase 17's Gemma-2B train step (bf16 d256).
-MAIN_PATHS = ("train_step", "gemma_2b_step")
-
-
 def kernel_summary(timed, cases, main_path, other_paths=None):
     """One entry per kernel of every timed variant (phase 3): its source,
     the TPU kernel it replaces, its launches in the main paths' runs
-    (``MAIN_PATHS``: phase 5's train step and phase 17's Gemma-2B step,
-    each counted from zero; and by path: phase 5's ``train_step`` and each
-    of ``other_paths``, a path's name → its variant launch counts),
-    its largest error in the check case (phase 2) at the timed shape where
-    there is one, else in the first that ran it, its ms beside its plain
-    version's, its bound and SDPA's forward (the backward kernels have no
-    one-call library counterpart)."""
+    (``MAIN_PATHS``, each counted from zero) among the entry's paths, and by
+    path: phase 5's ``train_step`` and each of ``other_paths`` (a path's
+    name → its variant launch counts) that the entry lists; its largest
+    error in the check case (phase 2) at the timed shape where there is
+    one, else in the first that ran it, its ms beside its plain version's,
+    its bound and SDPA's forward (the backward kernels have no one-call
+    library counterpart)."""
     out = []
     for t in timed:
         for name in KERNELS:
@@ -4186,11 +4873,11 @@ def kernel_summary(timed, cases, main_path, other_paths=None):
                         and c.get("dtype") == t["dtype"] and c.get("causal")]
             case = (at_shape or ran or [None])[0]
             ms, (bound_ms, bound_by) = t["ms"][name], t["bound"][name]
-            by_path = {"train_step": main_path["variant_launches"].get(label, 0),
-                       **{path: counts.get(label, 0)
-                          for path, counts in (other_paths or {}).items()}}
+            counts = {"train_step": main_path["variant_launches"], **(other_paths or {})}
+            by_path = {path: counts[path].get(label, 0) for path in t["paths"] if path in counts}
             out.append({
-                "name": label, "runs": variant, "route": "cuda",
+                "name": f"{label}.{t['name']}" if t["name"] else label, "runs": variant,
+                "route": "cuda",
                 "source": SOURCES["flash_f32" if t["dtype"] == "float32" else name],
                 "replaces": REPLACES[name], "dtype": t["dtype"], "shape": t["shape"],
                 "launches": sum(by_path.get(path, 0) for path in MAIN_PATHS),

@@ -116,10 +116,10 @@ def test_every_built_variant_is_timed_and_checked(chip_smoke):
     from accelerate_tpu_torch.ops import hopper_flash as hf
 
     timed = {(dtype, hf.built_head_dim(shape["d"]), shape["d"] in hf.BUILT_HEAD_DIMS)
-             for dtype, shape in chip_smoke.TIMED}
+             for _, dtype, shape, _ in chip_smoke.TIMED}
     built = {(dtype, w, True) for dtype in chip_smoke.TOLS for w in hf.BUILT_HEAD_DIMS}
     assert built <= timed and ("bfloat16", 128, False) in timed
-    assert chip_smoke.TIMED[0] == ("bfloat16", chip_smoke.SLICE)
+    assert chip_smoke.TIMED[0][:3] == (None, "bfloat16", chip_smoke.SLICE)
 
 
 def test_check_kernels_bookkeeping_on_the_cpu(chip_smoke):
@@ -164,11 +164,12 @@ def test_kernel_summary_lists_every_timed_variant(chip_smoke):
     import torch
 
     timed, cases = [], []
-    for dtype, shape in chip_smoke.TIMED:
+    for label, dtype, shape, paths in chip_smoke.TIMED:
         width = hf.built_head_dim(shape["d"])
         variants = {k: hf.variant(k, getattr(torch, dtype), width) for k in chip_smoke.KERNELS}
         padded = width if width != shape["d"] else None
-        timed.append({"dtype": dtype, "shape": shape, "padded_to": padded,
+        timed.append({"name": label, "paths": paths, "dtype": dtype, "shape": shape,
+                      "padded_to": padded,
                       "variants": variants, "ms": dict.fromkeys(chip_smoke.KERNELS, 2.0),
                       "plain_ms": dict.fromkeys(chip_smoke.KERNELS, 9.0),
                       "bound": chip_smoke.bounds(*shape.values(), dtype),

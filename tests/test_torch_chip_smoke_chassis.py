@@ -94,7 +94,8 @@ def test_kernel_summary_reports_the_error_at_the_gemma_2b_shape(chip_smoke):
 
     shape = chip_smoke.GEMMA_LIKE
     variants = {k: hf.variant(k, torch.bfloat16, 256) for k in chip_smoke.KERNELS}
-    timed = [{"dtype": "bfloat16", "shape": shape, "padded_to": None, "variants": variants,
+    timed = [{"name": None, "paths": ("gemma_2b_step",), "dtype": "bfloat16", "shape": shape,
+              "padded_to": None, "variants": variants,
               "ms": dict.fromkeys(chip_smoke.KERNELS, 2.0),
               "plain_ms": dict.fromkeys(chip_smoke.KERNELS, 9.0),
               "bound": chip_smoke.bounds(*shape.values(), "bfloat16"), "library_ms": {}}]

@@ -32,7 +32,14 @@ same inputs made with numpy from a seed:
 - step telemetry under ``cp=2``: the records count the global batch, as
   the JAX package's;
 - a ``DISTRIBUTED_STATE_DICT`` checkpoint saved by 2 FSDP2 processes and
-  loaded by 4 (the 2-process gang runs first here).
+  loaded by 4 (the 2-process gang runs first here);
+- ``cp_generate`` at cp 2, cp 4 and ``dp_shard=2 × cp=2``: greedy tokens
+  equal the JAX ``cp_generate``'s and the port's ``generate``'s on every
+  process, EOS padding and a first token that is EOS as ``generate`` pads
+  them, seeded sampling reproducible and equal on every process, each
+  process's prefix cache of ``(L, B, S/cp, Hkv, D)``, a prompt that does
+  not divide refused, and a Granite config (the chassis knobs the JAX
+  ``cp_generate`` skips) giving ``generate``'s tokens.
 
 The spawned processes import this module: JAX is imported only inside the
 functions that compute the references.
@@ -310,7 +317,83 @@ def _job_dcp_load(ctx):
                                                         "checkpoint_0"), plugin_kw=DCP)
 
 
-JOBS = {"attention": _job_attention, "train": _job_train, "loader": _job_loader,
+# cp_generate: each gang's layouts, the prompt (B, S) and new tokens.
+CP_GENERATE = {2: {"cp2": dict(cp_size=2)},
+               4: {"cp4": dict(cp_size=4), "dp_shard2_cp2": dict(dp_shard_size=2, cp_size=2)}}
+CP_PROMPT, CP_NEW = (2, 16), 8
+# The chassis knobs the JAX cp_generate skips (layernorm, partial rotary,
+# the o_proj bias, Granite's constants), with biases and an ungated MLP.
+GRANITE_KNOBS = dict(norm_type="layernorm", attention_bias=True, attention_out_bias=True,
+                     mlp_bias=True, mlp_gated=False, partial_rotary_factor=0.5,
+                     embedding_multiplier=3.0, residual_multiplier=0.5,
+                     attention_multiplier=0.08, logits_scaling=2.0, hidden_act="gelu")
+
+
+def _granite_weights(cfg) -> dict:
+    """Numpy-drawn weights (std 1/sqrt(fan-in); biases of 0.1, norm weights
+    around one) that give every knob work."""
+    rng = np.random.default_rng(11)
+    out = {}
+    for name, p in LlamaForCausalLM(cfg, device="meta").state_dict().items():
+        if p.dim() == 2:
+            a = rng.standard_normal(p.shape) / np.sqrt(p.shape[1])
+        else:
+            a = rng.standard_normal(p.shape) * 0.1 + (0.0 if name.endswith("bias") else 1.0)
+        out[name] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+def _job_cp_generate(ctx):
+    """cp_generate in each layout of this gang: greedy (and the port's
+    generate beside it), EOS at a mid-row token and at the first token,
+    two seeded samples, the prefix cache's shape, the refusal of a prompt
+    that does not divide, and the Granite config against generate."""
+    from accelerate_tpu_torch import cp_generate, generate
+    from accelerate_tpu_torch.cp_generation import _prefill
+    from accelerate_tpu_torch.generation import _decode_params
+
+    out = {}
+    prompt = ctx["cp_prompt"]
+    s = prompt.shape[1]
+    for name, kw in CP_GENERATE[dist.get_world_size()].items():
+        acc = Accelerator(cpu=True, parallelism_config=ParallelismConfig(**kw))
+        cfg = LlamaConfig.tiny(dtype=torch.float32)
+        module = LlamaForCausalLM(cfg)
+        module.load_state_dict(llama_params_from_flax(cfg, ctx["flax_params"]))
+        res = {"greedy": cp_generate(module, prompt, CP_NEW).numpy(),
+               "generate": generate(module, prompt, CP_NEW).numpy()}
+        eos = int(res["generate"][0, s + 2])
+        first = int(res["generate"][0, s])
+        for key, kwargs in (("eos", dict(eos_token_id=eos, pad_token_id=0)),
+                            ("first_eos", dict(eos_token_id=first, pad_token_id=1))):
+            res[key] = cp_generate(module, prompt, CP_NEW, **kwargs).numpy()
+            res[key + "_generate"] = generate(module, prompt, CP_NEW, **kwargs).numpy()
+        res["sampled"] = [cp_generate(module, prompt, CP_NEW, temperature=0.8, top_k=20,
+                                      generator=torch.Generator().manual_seed(7)).numpy()
+                          for _ in range(2)]
+        cp, idx = acc.state.parallelism_config.cp_size, acc.context_parallel_rank
+        dp, di = acc.state.data_parallel_size, acc.state.data_parallel_index
+        rows = prompt[di * len(prompt) // dp:(di + 1) * len(prompt) // dp]
+        chunk = s // cp
+        _, pk, _ = _prefill(cfg, _decode_params(module),
+                            torch.from_numpy(rows[:, idx * chunk:(idx + 1) * chunk]),
+                            acc.state.device_mesh)
+        res["prefix_shape"] = tuple(pk.shape)
+        try:
+            cp_generate(module, prompt[:, :s - 1], 2)
+        except ValueError as exc:
+            res["refused"] = str(exc)
+        gcfg = LlamaConfig.tiny(dtype=torch.float32, **GRANITE_KNOBS)
+        granite = LlamaForCausalLM(gcfg)
+        granite.load_state_dict(_granite_weights(gcfg))
+        res["granite"] = cp_generate(granite, prompt, CP_NEW).numpy()
+        res["granite_generate"] = generate(granite, prompt, CP_NEW).numpy()
+        out[name] = res
+        _reset_port()
+    return out
+
+
+JOBS = {"attention": _job_attention, "cp_generate": _job_cp_generate, "train": _job_train, "loader": _job_loader,
         "gather": _job_gather, "telemetry": _job_telemetry, "dcp_save": _job_dcp_save,
         "dcp_load": _job_dcp_load}
 
@@ -437,11 +520,14 @@ def runs(tmp_path_factory):
     ref = {}
     for name, world, kw, impl, fsdp in TRAIN:
         params, ref[name], ref[name + "_params"] = _jax_train(_uneven(batches), kw, impl, fsdp)
+    prompt = np.random.default_rng(12).integers(1, 256, CP_PROMPT)
     ctx = {"flax_params": params, "batches": batches, "uneven_batches": _uneven(batches),
+           "cp_prompt": prompt,
            "attention": _attention_inputs(), "save_dir": str(tmp / "ring"),
            "telemetry_dir": str(tmp / "telemetry"), "dcp_dir": str(tmp / "dcp2")}
-    two = _spawn(tmp, 2, ["attention", "gather", "telemetry", "dcp_save"], ctx)
-    four = _spawn(tmp, 4, ["attention", "train", "loader", "gather", "dcp_load"], ctx)
+    two = _spawn(tmp, 2, ["attention", "gather", "telemetry", "dcp_save", "cp_generate"], ctx)
+    four = _spawn(tmp, 4, ["attention", "train", "loader", "gather", "dcp_load", "cp_generate"],
+                  ctx)
     return {"ref": ref, 2: two, 4: four, "ctx": ctx}
 
 
@@ -665,3 +751,77 @@ def test_dcp_saved_at_world2_loads_at_world4(runs):
         loaded = r["dcp_load"]
         _assert_states_equal(loaded["state_at_load"], saved["state_at_save"])
         np.testing.assert_allclose(loaded["metrics"], saved["metrics"][2:], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# cp_generate
+# ---------------------------------------------------------------------------
+
+CP_CASES = [(world, name) for world, layouts in CP_GENERATE.items() for name in layouts]
+
+
+def _jax_cp_generate(flax_params, prompt, cp):
+    """The JAX package's greedy cp_generate on the forced 8-device host,
+    cp ranks times 8 / cp data-parallel ones."""
+    import jax.numpy as jnp
+
+    from accelerate_tpu import Model as JaxModel
+    from accelerate_tpu.cp_generation import cp_generate as jax_cp_generate
+    from accelerate_tpu.models import LlamaConfig as JaxLlamaConfig
+    from accelerate_tpu.models import LlamaForCausalLM as JaxLlama
+
+    mesh = _jax_state(cp_size=cp, dp_shard_size=8 // cp).mesh
+    model = JaxModel(module=JaxLlama(JaxLlamaConfig.tiny(dtype=jnp.float32)), params=flax_params)
+    out = np.asarray(jax_cp_generate(model, prompt, CP_NEW, mesh=mesh))
+    _jax_reset()
+    return out
+
+
+@pytest.mark.parametrize("cp", [2, 4])
+def test_cp_generate_greedy_matches_jax_and_generate(runs, cp):
+    """Greedy tokens of every layout with this cp size, on every process:
+    the JAX cp_generate's and the port's generate's, with every step's
+    top-2 logit gap above 1e-4 (equal tokens are not luck at a near-tie)."""
+    from accelerate_tpu_torch import generation as gen
+
+    prompt = runs["ctx"]["cp_prompt"]
+    want = _jax_cp_generate(runs["ctx"]["flax_params"], prompt, cp)
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    module = LlamaForCausalLM(cfg)
+    module.load_state_dict(llama_params_from_flax(cfg, runs["ctx"]["flax_params"]))
+    rows = torch.from_numpy(np.array(want)).long()
+    logits, _ = gen._llama_forward_cached(cfg, module, rows, gen.init_cache(cfg, *rows.shape),
+                                          return_all=True)
+    top2 = torch.topk(logits[:, prompt.shape[1] - 1:-1], 2, dim=-1).values
+    assert float((top2[..., 0] - top2[..., 1]).min()) > 1e-4
+    for world, name in CP_CASES:
+        if CP_GENERATE[world][name]["cp_size"] != cp:
+            continue
+        for r in runs[world]:
+            np.testing.assert_array_equal(r["cp_generate"][name]["greedy"], want, err_msg=name)
+            np.testing.assert_array_equal(r["cp_generate"][name]["generate"], want)
+
+
+@pytest.mark.parametrize("world,name", CP_CASES, ids=[c[1] for c in CP_CASES])
+def test_cp_generate_eos_sampling_and_cache(runs, world, name):
+    """EOS at a mid-row token and at the first new token pad as generate
+    pads them; two samples from one seed are equal, on every process; the
+    prefix cache holds this process's rows and S/cp positions of each of
+    the 2 layers' 2 KV heads; a prompt that does not divide by cp raises;
+    the Granite config's tokens are generate's."""
+    cp = CP_GENERATE[world][name]["cp_size"]
+    rows = CP_PROMPT[0] // (world // cp)
+    first = runs[world][0]["cp_generate"][name]
+    for r in runs[world]:
+        res = r["cp_generate"][name]
+        for key in ("eos", "first_eos", "granite"):
+            np.testing.assert_array_equal(res[key], res[key + "_generate"], err_msg=key)
+        np.testing.assert_array_equal(res["sampled"][0], res["sampled"][1])
+        np.testing.assert_array_equal(res["sampled"][0], first["sampled"][0])
+        assert res["prefix_shape"] == (2, rows, CP_PROMPT[1] // cp, 2, 32)
+        assert f"must divide by cp={cp}" in res["refused"]
+    s = CP_PROMPT[1]
+    assert (first["first_eos"][0, s + 1:] == 1).all()
+    eos_row = first["eos"][0, s:]
+    assert (eos_row[3:] == 0).all() and eos_row[2] == first["generate"][0, s + 2]
+    assert not np.array_equal(first["granite"], first["sampled"][0])

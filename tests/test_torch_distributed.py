@@ -49,6 +49,10 @@ seed, from the same flax-initialised tiny Llama (fp32):
   with steps taken while it persists and a second save queued behind it.
   (The 4-process gang runs first; a save at 2 loaded at 4 is in
   ``tests/test_torch_context_parallel.py``.)
+- the Mixtral family under FSDP2 at 2 processes, capacity factor 0.5:
+  capacity, slot positions and the aux loss over the global batch, so
+  that losses, aux losses, grad norms and drop counts are the JAX
+  package's on the whole batch;
 - ``verify_operation`` in debug mode at 2 processes (a collective whose
   shapes differ on process 1 raises on both; equal shapes pass), and
   ``utils.other``'s ``wait_for_everyone`` and
@@ -736,7 +740,63 @@ def _job_verify(ctx):
     return out
 
 
-JOBS = {"verify": _job_verify, "fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
+# The Mixtral job: capacity factor 0.5, so that tokens drop, over 8 experts
+# (top 2), whose loads differ enough that some stay under capacity.
+MOE = dict(capacity_factor=0.5, num_local_experts=8, scan_layers=False)
+
+
+def _job_moe(ctx):
+    """The Mixtral runs: routing over the global batch, and, for contrast,
+    each process routing its own rows alone (the layer told it runs on one
+    process)."""
+    from accelerate_tpu_torch.models import moe
+
+    out = {"global": _moe_steps(ctx)}
+    routed_over = moe.loss_processes
+    moe.loss_processes = lambda: 1
+    try:
+        out["local"] = _moe_steps(ctx)
+    finally:
+        moe.loss_processes = routed_over
+    return out
+
+
+def _moe_steps(ctx):
+    """STEPS steps of the tiny fp32 Mixtral under FSDP2 on this process's
+    rows: per step the loss, the aux loss (the mean of the processes'
+    shares: the global batch's), the grad norm and the layers' dropped
+    choices."""
+    from accelerate_tpu_torch import moe_cross_entropy_loss
+    from accelerate_tpu_torch.models import MixtralConfig, MixtralForCausalLM
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = MixtralConfig.tiny(dtype=torch.float32, **MOE)
+    module = MixtralForCausalLM(cfg)
+    module.load_state_dict(llama_params_from_flax(cfg, ctx["moe_flax"]))
+    acc = _port_accelerator("fsdp")
+    model, _ = acc.prepare(Model(module), adamw(LR))
+    aux = []
+
+    def tap(*args, **kwargs):
+        out = model(*args, **kwargs)
+        aux.append(out[1].detach().clone())
+        return out
+
+    step = acc.prepare_train_step(
+        lambda m, b: moe_cross_entropy_loss(tap, b["x"].long(), b["y"].long()),
+        max_grad_norm=1.0)
+    rows = []
+    for i in range(STEPS):
+        _, m = step(acc.train_state, _local(ctx["batches"][i], rank, world))
+        share = aux[-1]
+        dist.all_reduce(share)
+        rows.append((float(m["loss"]), float(share) / world, float(m["grad_norm"]),
+                     int(module.router_stats()["dropped"])))
+    _reset_port()
+    return rows
+
+
+JOBS = {"verify": _job_verify, "moe": _job_moe, "fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
         "dispatcher": _job_dispatcher, "rng": _job_rng, "save": _job_save,
         "options": _job_options, "fsdp_ga2": _job_fsdp_ga2, "per_node": _job_per_node,
         "resume_jax": _job_resume_jax, "fsdp_uneven": _job_fsdp_uneven,
@@ -844,6 +904,57 @@ def _jax_train(batches, pc_kwargs, plugin, project_dir=None, save_after=None, ga
     return params, metrics, final
 
 
+def _jax_moe_train(batches):
+    """STEPS steps of the JAX Accelerator's tiny fp32 Mixtral (unscanned
+    layers: one dispatch per layer) under dp_shard=2 with the FSDP plugin
+    on the whole global batches: per step the loss, the aux loss and the
+    dropped choices (a forward of the step's parameters, its dispatch
+    counted through a debug callback) and the grad norm; and the initial
+    parameters."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from accelerate_tpu import Accelerator as JaxAccelerator
+    from accelerate_tpu import FullyShardedDataParallelPlugin as JaxPlugin
+    from accelerate_tpu import Model as JaxModel
+    from accelerate_tpu import ParallelismConfig as JaxPC
+    from accelerate_tpu.models import moe as jax_moe
+
+    _jax_reset()
+    module = jax_moe.MixtralForCausalLM(jax_moe.MixtralConfig.tiny(dtype=jnp.float32, **MOE))
+    acc = JaxAccelerator(parallelism_config=JaxPC(dp_shard_size=2), fsdp_plugin=JaxPlugin())
+    model = JaxModel.from_flax(module, jax.random.key(0), batches[0]["x"])
+    params = jax.tree.map(np.asarray, model.params)
+    acc.prepare(model, optax.adamw(LR))
+    step = acc.prepare_train_step(
+        lambda p, b: jax_moe.moe_cross_entropy_loss(module, p, b["x"], b["y"]),
+        max_grad_norm=1.0)
+    dispatch, dropped = jax_moe.compute_dispatch, []
+
+    def counting(probs, k, capacity):
+        d, c = dispatch(probs, k, capacity)
+        jax.debug.callback(lambda n: dropped.append(int(n)), probs.shape[0] * k - d.sum())
+        return d, c
+
+    forward = jax.jit(lambda p, x: module.apply({"params": p}, x, mutable=["losses"])[1])
+    rows = []
+    for b in batches:
+        b = {k: jnp.asarray(v) for k, v in b.items()}
+        jax_moe.compute_dispatch = counting
+        try:  # traced (when it is) with the counting dispatch
+            col = forward(acc.train_state.params, b["x"])
+            jax.effects_barrier()
+        finally:
+            jax_moe.compute_dispatch = dispatch
+        aux = float(sum(jnp.sum(v) for v in jax.tree.leaves(col["losses"])))
+        _, m = step(acc.train_state, b)
+        rows.append((float(m["loss"]), aux, float(m["grad_norm"]), sum(dropped)))
+        dropped.clear()
+    _jax_reset()
+    return params, rows
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The JAX references and both gangs' results."""
@@ -868,7 +979,9 @@ def runs(tmp_path_factory):
     _, ref["hsdp"], ref["hsdp_params"] = _jax_train(
         batches, dict(dp_replicate_size=2, dp_shard_size=2), True,
         plan=plans.setdefault("hsdp", {}))
+    ctx_moe, ref["moe"] = _jax_moe_train(batches)
     ctx = {"flax_params": params, "batches": batches, "uneven_batches": _uneven(batches),
+           "moe_flax": ctx_moe,
            "save_dir": str(tmp / "port4"),
            "per_node_dir": str(tmp / "per_node"), "surface_dir": str(tmp),
            "telemetry_dir": str(tmp / "telemetry"),
@@ -881,7 +994,7 @@ def runs(tmp_path_factory):
                           "options", "fsdp_ga2", "per_node", "fsdp_uneven", "fused_ce",
                           "imperative",
                           "surface", "telemetry", "fp16", "strategies", "ddp_kwargs",
-                          "dcp_load", "dcp_async", "verify"], ctx)
+                          "dcp_load", "dcp_async", "verify", "moe"], ctx)
     return {"ref": ref, "plans": plans, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
 
 
@@ -1002,6 +1115,31 @@ def test_fused_loss_takes_the_global_token_mean(runs):
         np.testing.assert_allclose(got, np.array(r["fsdp_uneven"]["metrics"]), rtol=1e-5)
     _assert_params_close(_flax(runs[2][0]["fused_ce"]["params"]),
                          runs["ref"]["fsdp2_uneven_params"], runs["ctx"]["flax_params"])
+
+
+def test_mixtral_routes_over_the_global_batch(runs):
+    """The tiny Mixtral under FSDP2 at 2 processes, capacity factor 0.5:
+    each process routes its rows with the global batch's capacity, slot
+    positions after the lower rank's choices and the aux loss's sums over
+    both, so losses, aux losses and grad norms equal the JAX package's on
+    the global batch within ``DP_REL_TOL`` (1e-4) and the dropped choices
+    are the JAX dispatch's, on every process."""
+    want = np.array(runs["ref"]["moe"])
+    assert (want[:, 3] > 0).all() and len(set(want[:, 3])) > 1
+    for rank_rows in runs[2]:
+        got = np.array(rank_rows["moe"]["global"])
+        np.testing.assert_allclose(got[:, :3], want[:, :3], rtol=1e-4)
+        np.testing.assert_array_equal(got[:, 3], want[:, 3])
+
+
+def test_mixtral_routing_each_process_alone_would_differ(runs):
+    """The same steps with each process routing its own rows alone
+    (capacity from its own tokens, positions from its own first token):
+    other tokens drop, and the loss leaves the JAX package's by far more
+    than ``DP_REL_TOL``, so the test above tells the two apart."""
+    want = np.array(runs["ref"]["moe"])
+    local = np.array(runs[2][0]["moe"]["local"])
+    assert np.abs(local[:, 0] / want[:, 0] - 1).max() > 1e-3
 
 
 def _flax_stacked(names) -> set:
