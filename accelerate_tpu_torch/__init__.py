@@ -13,7 +13,8 @@ generic specs: StarCoder2, StableLM, Granite, InternLM2, loaded from
 Hugging Face checkpoints by ``models.load_pretrained``) and the Mixtral
 sparse-MoE family (``MixtralForCausalLM``: capacity dispatch with the
 global batch's semantics over data parallelism, ``moe_cross_entropy_loss``),
-long-context generation with the prompt split over ``cp``
+GPT-2, OPT and GPT-NeoX, the T5 and Whisper encoder-decoders (their
+encoder runs once in ``generate`` and ``beam_search``), long-context generation with the prompt split over ``cp``
 (``cp_generate``: ring-attention prefill, flash-decoding), and their
 observability: experiment trackers (``log_with``), step
 telemetry and the device-time profiler (``TelemetryKwargs``), and
@@ -39,6 +40,7 @@ from .generation import (
     GenerationConfig,
     beam_search,
     generate,
+    register_encdec_generation_plan,
     register_generation_plan,
     speculative_generate,
 )
@@ -143,6 +145,7 @@ __all__ = [
     "moe_cross_entropy_loss",
     "prepare_data_loader",
     "quantize_model_for_decode",
+    "register_encdec_generation_plan",
     "register_generation_plan",
     "replay_trace",
     "set_seed",

@@ -91,8 +91,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
-from .models.convert import llama_params_to_flax, llama_views_from_flax
-from .models.llama import LlamaForCausalLM
+from .models.convert import flax_converter
 from .utils.constants import (
     CHECKPOINT_DIR_REGEX,
     DCP_DIR_NAME,
@@ -273,9 +272,11 @@ def _to_device(tensors: dict, device: torch.device) -> dict:
 
 def _model_tree(module: torch.nn.Module, tensors: dict) -> dict:
     """Parameter-named tensors as the flax tree of the JAX package's model
-    (Llama), else keyed by the module's own names with ``/``."""
-    if isinstance(module, LlamaForCausalLM):
-        return llama_params_to_flax(module.config, tensors)
+    (the module class's converter, ``models/convert.FLAX_CONVERTERS``),
+    else keyed by the module's own names with ``/``."""
+    conv = flax_converter(module)
+    if conv is not None:
+        return conv.to_flax(module.config, tensors)
     return unflatten_state_dict({k.replace(".", "/"): v for k, v in tensors.items()})
 
 
@@ -289,8 +290,9 @@ def _flat_model_tree(module: torch.nn.Module, tensors: dict) -> dict:
 def _model_views(module: torch.nn.Module, tree: dict) -> dict:
     """Inverse of ``_model_tree``: parameter name → tensor (a view where the
     layout allows) in the module's layout."""
-    if isinstance(module, LlamaForCausalLM):
-        return llama_views_from_flax(module.config, tree)
+    conv = flax_converter(module)
+    if conv is not None:
+        return conv.views_from_flax(module.config, tree)
     return {k.replace("/", "."): v for k, v in flatten_state_dict(tree).items()}
 
 
@@ -324,18 +326,13 @@ def _named_params(train_state) -> list:
 
 
 def _flax_name(module: torch.nn.Module, fqn: str) -> str:
-    """The flax tree's ``/``-joined name of a parameter (Llama: the unrolled
-    layers' ``layers_<i>``, ``kernel`` for a projection, ``embedding``),
-    else the module's own name with ``/``."""
-    if not isinstance(module, LlamaForCausalLM):
+    """The ``/``-joined name of a parameter in the unrolled flax tree of the
+    module class's converter (Llama: ``layers_<i>``, ``kernel`` for a
+    projection, ``embedding``), else the module's own name with ``/``."""
+    conv = flax_converter(module)
+    if conv is None:
         return fqn.replace(".", "/")
-    owner, _, leaf = fqn.rpartition(".")
-    if owner.endswith("embed_tokens"):
-        leaf = "embedding"
-    elif owner.endswith("_proj") or owner == "lm_head":
-        leaf = "kernel"
-    owner = re.sub(r"(^|\.)layers\.(\d+)(?=\.|$)", r"\1layers_\2", owner)
-    return f"{owner.replace('.', '/')}/{leaf}"
+    return conv.flax_name(module.config, fqn)
 
 
 def _dcp_state(train_state) -> tuple[dict, list]:

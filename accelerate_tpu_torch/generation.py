@@ -1,5 +1,5 @@
 """Autoregressive generation with a KV cache (counterpart of
-``accelerate_tpu/generation.py``, the Llama family and Mixtral).
+``accelerate_tpu/generation.py``).
 
 - The cache is ``KVCache(k, v, length)``: k and v preallocated as
   ``(L, B, T_max, Hkv, D)`` and written in place, ``length`` a device
@@ -32,9 +32,22 @@
 - Mixtral's plan is the same forward: a layer with a router runs the
   JAX plan's dropless expert layer (``_moe_dropless``) in place of the
   MLP, and its other knobs are the chassis defaults.
-
-The other generation plans (GPT-2, OPT, NeoX, T5, Whisper) are not ported
-yet (ROADMAP.md Queue A item 10).
+- GPT-2, OPT and GPT-NeoX have plans of their own with the JAX plans'
+  numerics (``_gpt2_forward_cached``, ``_opt_forward_cached``,
+  ``_neox_forward_cached``): learned positions (OPT's offset of 2) or
+  partial rotary, the JAX plans' LayerNorm (``_layer_norm``: statistics
+  rounded to the activations' type), fused projections split by view.
+- Encoder-decoder families (T5, Whisper; ``ENCDEC_GENERATION_PLANS``,
+  ``register_encdec_generation_plan``): ``generate``'s and
+  ``beam_search``'s ``input_ids`` feed the encoder, which runs once
+  through the module's own encoder; each decoder layer's cross-attention
+  K and V are computed from its output once (``EncDecState``) and the
+  decoder keeps the self-attention cache of the causal plans. The
+  decoder prompt defaults to one ``decoder_start_token_id`` a row; beam
+  search tiles the encoded state along the beams. As in the JAX plans,
+  the cross K/V keep the encoder output's type, and the decoder's
+  activations take the type that the products promote to (fp32 after the
+  first cross-attention for a bf16 config over fp32 masters).
 """
 
 from __future__ import annotations
@@ -58,9 +71,9 @@ from .models.llama import (
     scale_residual,
 )
 from .models.moe import router_probs, top_k_experts
+from .models.t5 import MASKED, relative_position_bucket, t5_rms
 from .utils.quantization import DecodeQuant, dequantize_decode_kernel
 
-_OTHER_MODELS_ITEM = "ROADMAP.md Queue A item 10 (the other models)"
 _COMPILE_MANAGER_ITEM = "ROADMAP.md Queue A item 12 (control plane: compile_manager.py)"
 
 
@@ -120,9 +133,19 @@ class KVCache:
 
 
 def _cache_dims(cfg) -> tuple[int, int, int, int]:
-    """(layers, kv_heads, head_dim, max_positions) of a Llama config."""
-    return (cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim,
-            cfg.max_position_embeddings)
+    """(layers, kv_heads, head_dim, max_positions) of any ported config. For
+    an encoder-decoder config these describe the decoder's self-attention
+    cache; T5's relative positions are unbounded (max 2**30)."""
+    if hasattr(cfg, "n_dec"):  # T5
+        return cfg.n_dec, cfg.num_heads, cfg.d_kv, 2**30
+    if hasattr(cfg, "decoder_layers"):  # Whisper
+        return (cfg.decoder_layers, cfg.decoder_attention_heads, cfg.decoder_head_dim,
+                cfg.max_target_positions)
+    layers = getattr(cfg, "num_hidden_layers", None) or cfg.n_layer
+    kv_heads = (getattr(cfg, "num_key_value_heads", None)
+                or getattr(cfg, "num_attention_heads", None) or cfg.n_head)
+    max_pos = getattr(cfg, "max_position_embeddings", None) or cfg.n_positions
+    return layers, kv_heads, cfg.head_dim, max_pos
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> KVCache:
@@ -298,6 +321,9 @@ def _attend_masked(q, k, v, visible) -> torch.Tensor:
         k = dequantize_kv_page(k, q.dtype)
     if isinstance(v, QuantPages):
         v = dequantize_kv_page(v, q.dtype)
+    if k.dtype != q.dtype:  # fp32 activations over a 16-bit cache: the promoted type
+        dt = torch.promote_types(q.dtype, k.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
     hq, hkv = q.shape[2], k.shape[2]
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=2)
@@ -369,6 +395,339 @@ def _llama_forward_cached(cfg, model_or_params, input_ids, cache: KVCache, retur
 
 
 # ---------------------------------------------------------------------------
+# GPT-2, OPT and GPT-NeoX on the model's parameters
+# ---------------------------------------------------------------------------
+
+
+def _layer_norm(x, p: dict, name: str, eps: float) -> torch.Tensor:
+    """The JAX plans' LayerNorm (``jnp.mean``/``jnp.var``): mean and
+    variance taken in fp32 and rounded to ``x``'s type, the rest in that
+    type, with ``name.weight`` (flax's scale) and ``name.bias``."""
+    dt = x.dtype
+    mean = x.float().mean(-1, keepdim=True)
+    var = x.float().var(-1, unbiased=False, keepdim=True)
+    y = (x - mean.to(dt)) * torch.rsqrt(var.to(dt) + eps)
+    return y * p[name + ".weight"].to(dt) + p[name + ".bias"].to(dt)
+
+
+def _positions(cache: KVCache, b: int, s: int, pad_offset):
+    """(cache positions (B, S), the positions a row's content sits at: the
+    cache's shifted down by its left padding)."""
+    positions = _row_positions(cache.length, b, s)
+    if pad_offset is None:
+        return positions, positions
+    return positions, torch.clamp(positions - pad_offset[:, None], min=0)
+
+
+def _cached_layers(x, cache: KVCache, positions, kv_valid, n_layers: int, block):
+    """``x`` through ``n_layers`` layers of ``block(i, x, attend)``, where
+    ``attend(i, q, k_new, v_new)`` writes layer i's new K/V into ``cache``
+    and attends q against it."""
+    start = cache.length
+    visible = _attend_mask(positions, cache.k.shape[2], kv_valid)
+    plan = _write_plan(start, x.shape[1], cache.k.shape[2]) if start.dim() == 1 else None
+
+    def attend(i, q, k_new, v_new):
+        ck = _cache_write(cache.k[i], k_new, start, plan)
+        cv = _cache_write(cache.v[i], v_new, start, plan)
+        return _attend_masked(q, ck, cv, visible)
+
+    for i in range(n_layers):
+        x = block(i, x, attend)
+    return x
+
+
+def _head(x, weight, dtype, return_all: bool) -> torch.Tensor:
+    """fp32 logits of the last position (every position with
+    ``return_all``) through ``weight`` rounded to ``dtype``, in the type the
+    two promote to."""
+    h = x if return_all else x[:, -1]
+    w = weight.to(dtype)
+    dt = torch.promote_types(h.dtype, w.dtype)
+    return F.linear(h.to(dt), w.to(dt)).float()
+
+
+@torch.no_grad()
+def _gpt2_forward_cached(cfg, model_or_params, input_ids, cache: KVCache, return_all=False,
+                         pad_offset=None, kv_valid=None):
+    """GPT-2 under ``_llama_forward_cached``'s contract: learned positions
+    (shifted by left padding), the fused ``c_attn`` split by view, the
+    tanh-GELU MLP and the head tied to ``wte``."""
+    p = _decode_params(model_or_params)
+    b, s = input_ids.shape
+    eps, nh = cfg.layer_norm_epsilon, cfg.n_head
+    positions, pos_ids = _positions(cache, b, s, pad_offset)
+    ids = input_ids.long()
+    x = (F.embedding(ids, p["transformer.wte.weight"]).to(cfg.dtype)
+         + F.embedding(pos_ids, p["transformer.wpe.weight"]).to(cfg.dtype))
+
+    def block(i, x, attend):
+        pre = f"transformer.h.{i}."
+        hn = _layer_norm(x, p, pre + "ln_1", eps)
+        q, k, v = _dense(p, pre + "attn.c_attn", hn).view(b, s, 3, nh, -1).unbind(2)
+        x = x + _dense(p, pre + "attn.c_proj", attend(i, q, k, v).reshape(b, s, -1))
+        hn = _layer_norm(x, p, pre + "ln_2", eps)
+        return x + _dense(p, pre + "c_proj",
+                          F.gelu(_dense(p, pre + "c_fc", hn), approximate="tanh"))
+
+    x = _cached_layers(x, cache, positions, kv_valid, cfg.n_layer, block)
+    x = _layer_norm(x, p, "transformer.ln_f", eps)
+    logits = _head(x, p["transformer.wte.weight"], cfg.dtype, return_all)
+    return logits, KVCache(cache.k, cache.v, cache.length + s)
+
+
+@torch.no_grad()
+def _opt_forward_cached(cfg, model_or_params, input_ids, cache: KVCache, return_all=False,
+                        pad_offset=None, kv_valid=None):
+    """OPT under ``_llama_forward_cached``'s contract: learned positions
+    with the offset of 2, biased q/k/v/out projections, the ReLU MLP, the
+    head tied to ``embed_tokens``."""
+    p = _decode_params(model_or_params)
+    b, s = input_ids.shape
+    eps, nh = cfg.layer_norm_eps, cfg.num_attention_heads
+    positions, pos_ids = _positions(cache, b, s, pad_offset)
+    ids = input_ids.long()
+    x = (F.embedding(ids, p["model.embed_tokens.weight"]).to(cfg.dtype)
+         + F.embedding(pos_ids + cfg.POSITION_OFFSET,
+                       p["model.embed_positions.weight"]).to(cfg.dtype))
+
+    def block(i, x, attend):
+        pre = f"model.layers.{i}."
+        hn = _layer_norm(x, p, pre + "self_attn_layer_norm", eps)
+        q, k, v = (_proj(p, f"{pre}self_attn.{n}_proj", hn, nh) for n in "qkv")
+        x = x + _dense(p, pre + "self_attn.out_proj", attend(i, q, k, v).reshape(b, s, -1))
+        hn = _layer_norm(x, p, pre + "final_layer_norm", eps)
+        return x + _dense(p, pre + "fc2", F.relu(_dense(p, pre + "fc1", hn)))
+
+    x = _cached_layers(x, cache, positions, kv_valid, cfg.num_hidden_layers, block)
+    x = _layer_norm(x, p, "model.final_layer_norm", eps)
+    logits = _head(x, p["model.embed_tokens.weight"], cfg.dtype, return_all)
+    return logits, KVCache(cache.k, cache.v, cache.length + s)
+
+
+@torch.no_grad()
+def _neox_forward_cached(cfg, model_or_params, input_ids, cache: KVCache, return_all=False,
+                         pad_offset=None, kv_valid=None):
+    """GPT-NeoX under ``_llama_forward_cached``'s contract: the fused
+    per-head ``[q|k|v]``, rotary tables in the compute dtype on the leading
+    ``rotary_ndims`` dims, the exact-GELU MLP, the parallel (or sequential)
+    residual and the untied ``embed_out``."""
+    p = _decode_params(model_or_params)
+    b, s = input_ids.shape
+    eps, nh, rnd = cfg.layer_norm_eps, cfg.num_attention_heads, cfg.rotary_ndims
+    positions, rope_positions = _positions(cache, b, s, pad_offset)
+    x = F.embedding(input_ids.long(), p["gpt_neox.embed_in.weight"]).to(cfg.dtype)
+    cos, sin = rotary_embedding(rope_positions, rnd, cfg.rotary_emb_base, x.dtype)
+
+    def block(i, x, attend):
+        pre = f"gpt_neox.layers.{i}."
+        hn = _layer_norm(x, p, pre + "input_layernorm", eps)
+        qkv = _dense(p, pre + "attention.query_key_value", hn).view(b, s, nh, 3, -1)
+        q, k, v = qkv.unbind(3)
+        q = apply_partial_rope(q, cos, sin, rnd)
+        k = apply_partial_rope(k, cos, sin, rnd)
+        attn = _dense(p, pre + "attention.dense", attend(i, q, k, v).reshape(b, s, -1))
+
+        def mlp(h):
+            h = _layer_norm(h, p, pre + "post_attention_layernorm", eps)
+            return _dense(p, pre + "dense_4h_to_h", F.gelu(_dense(p, pre + "dense_h_to_4h", h)))
+
+        if cfg.use_parallel_residual:  # the MLP sees the layer's input
+            return x + attn + mlp(x)
+        x = x + attn
+        return x + mlp(x)
+
+    x = _cached_layers(x, cache, positions, kv_valid, cfg.num_hidden_layers, block)
+    x = _layer_norm(x, p, "gpt_neox.final_layer_norm", eps)
+    logits = _head(x, p["embed_out.weight"], cfg.dtype, return_all)
+    return logits, KVCache(cache.k, cache.v, cache.length + s)
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder plans (T5, Whisper)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class EncDecState:
+    """What the encoder leaves for the decode loop: every decoder layer's
+    cross-attention K and V, ``(L_dec, B, S_enc, H, D)`` in the encoder
+    output's type, and the encoder's ``(B, S_enc)`` key mask (None for
+    Whisper)."""
+
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    enc_mask: Optional[torch.Tensor]
+
+    def tile(self, beams: int) -> "EncDecState":
+        """The state of ``beams`` copies of each row, row-major."""
+        return EncDecState(self.cross_k.repeat_interleave(beams, dim=1),
+                           self.cross_v.repeat_interleave(beams, dim=1),
+                           None if self.enc_mask is None
+                           else self.enc_mask.repeat_interleave(beams, dim=0))
+
+
+def _promoted(*xs):
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return [x.to(dt) for x in xs]
+
+
+def _cross_attend(q, k, v, mask, scale: Optional[float]) -> torch.Tensor:
+    """q (B, Sq, H, D) against the encoder's k/v (B, Sk, H, D), no
+    causality: fp32 scores (times ``scale`` when given), ``-1e9`` where
+    ``mask`` hides a key, probabilities in q's type, products in the type
+    the operands promote to."""
+    qq, kk = _promoted(q, k)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qq, kk).float()
+    if scale is not None:
+        scores = scores * float(np.float32(scale))
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None, :].bool(), MASKED)
+    probs, vv = _promoted(torch.softmax(scores, dim=-1).to(q.dtype), v)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+
+
+def _module_of(model):
+    return getattr(model, "module", model)
+
+
+def _cross_kv(p: dict, names: list[str], enc, heads: int):
+    """Stacked (L, B, S, H, D) projections of ``enc`` by the weights (and
+    biases, where a layer has one) ``names``, in ``enc``'s type."""
+    b, s, _ = enc.shape
+    return torch.stack([_dense(p, n, enc).view(b, s, heads, -1) for n in names])
+
+
+@torch.no_grad()
+def _t5_encode(cfg, model, input_ids) -> EncDecState:
+    """The module's encoder (``T5ForConditionalGeneration.encode``: the key
+    mask from ``pad_token_id``), then every decoder layer's cross K/V."""
+    module = _module_of(model)
+    ids = torch.as_tensor(input_ids).to(module.shared.weight.device).long()
+    enc, mask = module.encode(ids)
+    p = dict(module.named_parameters())
+    layers = [f"decoder.block_{i}.cross_attn." for i in range(cfg.n_dec)]
+    return EncDecState(_cross_kv(p, [n + "k" for n in layers], enc, cfg.num_heads),
+                       _cross_kv(p, [n + "v" for n in layers], enc, cfg.num_heads), mask)
+
+
+def _t5_self_bias(cfg, table, q_positions, t_max: int) -> torch.Tensor:
+    """Causal relative-position bias of the queries against the whole cache
+    axis: (B, H, Sq, T) fp32 from the (buckets, H) table."""
+    kv_pos = torch.arange(t_max, device=q_positions.device)
+    buckets = relative_position_bucket(
+        kv_pos[None, None, :] - q_positions[:, :, None], bidirectional=False,
+        num_buckets=cfg.relative_attention_num_buckets,
+        max_distance=cfg.relative_attention_max_distance)
+    return F.embedding(buckets, table).permute(0, 3, 1, 2).float()
+
+
+@torch.no_grad()
+def _t5_decode(cfg, model_or_params, input_ids, cache: KVCache, enc: EncDecState,
+               return_all=False):
+    """The cached T5 decoder: ``block_0``'s relative bias for every layer,
+    no 1/sqrt(d) scale, scores and softmax in fp32, the tied head with the
+    ``d_model ** -0.5`` scale."""
+    p = _decode_params(model_or_params)
+    b, s = input_ids.shape
+    eps, nh, t_max = cfg.layer_norm_epsilon, cfg.num_heads, cache.k.shape[2]
+    start = cache.length
+    positions = _row_positions(start, b, s)
+    y = F.embedding(input_ids.long(), p["shared.weight"]).to(cfg.dtype)
+    self_bias = _t5_self_bias(
+        cfg, p["decoder.block_0.self_attn.relative_attention_bias.weight"], positions, t_max)
+    visible = _attend_mask(positions, t_max)
+
+    def rms(h, name):
+        return t5_rms(h, p[name + ".weight"].to(h.dtype), eps)
+
+    for i in range(cfg.n_dec):
+        pre = f"decoder.block_{i}."
+        hn = rms(y, pre + "ln0")
+        q, k_new, v_new = (_proj(p, f"{pre}self_attn.{n}", hn, nh) for n in "qkv")
+        ck = _cache_write(cache.k[i], k_new, start)
+        cv = _cache_write(cache.v[i], v_new, start)
+        qq, kk, vv = _promoted(q, ck, cv)
+        scores = torch.einsum("bqhd,bkhd->bhqk", qq, kk).float() + self_bias
+        probs = torch.softmax(scores.masked_fill(~visible[:, None], MASKED), dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(qq.dtype), vv)
+        y = y + _dense(p, pre + "self_attn.o", out.reshape(b, s, -1))
+        hn = rms(y, pre + "ln1")
+        q = _proj(p, pre + "cross_attn.q", hn, nh)
+        out = _cross_attend(q, enc.cross_k[i], enc.cross_v[i], enc.enc_mask, None)
+        y = y + _dense(p, pre + "cross_attn.o", out.reshape(b, s, -1))
+        hn = rms(y, pre + "ln2")
+        y = y + _dense(p, pre + "ffn.wo", F.relu(_dense(p, pre + "ffn.wi", hn)))
+    y = rms(y, "decoder.final_ln")
+    y = y * as_dtype(cfg.d_model ** -0.5, y.dtype)
+    logits = _head(y, p["shared.weight"], cfg.dtype, return_all)
+    return logits, KVCache(cache.k, cache.v, start + s)
+
+
+@torch.no_grad()
+def _whisper_encode(cfg, model, input_features) -> EncDecState:
+    """The module's encoder on (B, T, mel) features, then every decoder
+    layer's cross K (no bias) and V (with its bias)."""
+    module = _module_of(model)
+    weight = module.encoder.conv1.weight
+    enc = module.encoder(torch.as_tensor(input_features).to(weight.device))
+    p = dict(module.named_parameters())
+    layers = [f"decoder.layers.{i}.encoder_attn." for i in range(cfg.decoder_layers)]
+    heads = cfg.decoder_attention_heads
+    return EncDecState(_cross_kv(p, [n + "k_proj" for n in layers], enc, heads),
+                       _cross_kv(p, [n + "v_proj" for n in layers], enc, heads), None)
+
+
+@torch.no_grad()
+def _whisper_decode(cfg, model_or_params, input_ids, cache: KVCache, enc: EncDecState,
+                    return_all=False):
+    """The cached Whisper decoder: pre-LN blocks (the JAX plans'
+    ``_layer_norm``), learned positions, biased q/v and unbiased k
+    projections, 1/sqrt(d) in both attentions, the tied head."""
+    p = _decode_params(model_or_params)
+    b, s = input_ids.shape
+    eps, nh = cfg.layer_norm_eps, cfg.decoder_attention_heads
+    start = cache.length
+    positions = _row_positions(start, b, s)
+    y = (F.embedding(input_ids.long(), p["decoder.embed_tokens.weight"]).to(cfg.dtype)
+         + F.embedding(positions, p["decoder.embed_positions.weight"]).to(cfg.dtype))
+    scale = 1.0 / np.sqrt(cfg.decoder_head_dim)
+
+    def block(i, y, attend):
+        pre = f"decoder.layers.{i}."
+        hn = _layer_norm(y, p, pre + "self_attn_layer_norm", eps)
+        q, k, v = (_proj(p, f"{pre}self_attn.{n}_proj", hn, nh) for n in "qkv")
+        y = y + _dense(p, pre + "self_attn.out_proj", attend(i, q, k, v).reshape(b, s, -1))
+        hn = _layer_norm(y, p, pre + "encoder_attn_layer_norm", eps)
+        q = _proj(p, pre + "encoder_attn.q_proj", hn, nh)
+        out = _cross_attend(q, enc.cross_k[i], enc.cross_v[i], None, scale)
+        y = y + _dense(p, pre + "encoder_attn.out_proj", out.reshape(b, s, -1))
+        hn = _layer_norm(y, p, pre + "final_layer_norm", eps)
+        return y + _dense(p, pre + "fc2", F.gelu(_dense(p, pre + "fc1", hn)))
+
+    y = _cached_layers(y, cache, positions, None, cfg.decoder_layers, block)
+    y = _layer_norm(y, p, "decoder.layer_norm", eps)
+    logits = _head(y, p["decoder.embed_tokens.weight"], cfg.dtype, return_all)
+    return logits, KVCache(cache.k, cache.v, start + s)
+
+
+# module class name -> (encode(cfg, model, encoder inputs) -> EncDecState,
+#                       decode(cfg, params, ids, cache, enc_state, return_all=False))
+ENCDEC_GENERATION_PLANS: dict[str, tuple] = {
+    "T5ForConditionalGeneration": (_t5_encode, _t5_decode),
+    "WhisperForConditionalGeneration": (_whisper_encode, _whisper_decode),
+}
+
+
+def register_encdec_generation_plan(module_class_name: str, encode_fn, decode_fn) -> None:
+    """Make ``(encode_fn, decode_fn)`` the plan of every module of that
+    class name (the signatures of ``ENCDEC_GENERATION_PLANS``' entries)."""
+    ENCDEC_GENERATION_PLANS[module_class_name] = (encode_fn, decode_fn)
+
+
+# ---------------------------------------------------------------------------
 # Sampling
 # ---------------------------------------------------------------------------
 
@@ -413,8 +772,13 @@ def sample_logits(logits, generator: Optional[torch.Generator] = None, *, temper
 # ---------------------------------------------------------------------------
 
 # module class name -> forward_cached(cfg, params, ids, cache, ...)
-GENERATION_PLANS: dict[str, Callable] = {"LlamaForCausalLM": _llama_forward_cached,
-                                         "MixtralForCausalLM": _llama_forward_cached}
+GENERATION_PLANS: dict[str, Callable] = {
+    "LlamaForCausalLM": _llama_forward_cached,
+    "MixtralForCausalLM": _llama_forward_cached,
+    "GPT2LMHeadModel": _gpt2_forward_cached,
+    "OPTForCausalLM": _opt_forward_cached,
+    "GPTNeoXForCausalLM": _neox_forward_cached,
+}
 
 
 def register_generation_plan(module_class_name: str, fn: Callable) -> None:
@@ -432,15 +796,49 @@ def _generation_plan(module, forward_cached: Optional[Callable] = None) -> Calla
         return forward_cached
     fwd = GENERATION_PLANS.get(type(module).__name__)
     if fwd is None:
-        raise NotImplementedError(
-            f"no generation plan for {type(module).__name__!r} (ported: "
-            f"{', '.join(sorted(GENERATION_PLANS))}); the other plans are {_OTHER_MODELS_ITEM}")
+        known = ", ".join(sorted(GENERATION_PLANS) + sorted(ENCDEC_GENERATION_PLANS))
+        raise ValueError(f"No generation plan for {type(module).__name__!r}; built-in: {known}")
     return fwd
 
 
+def _is_encdec(module, forward_cached=None) -> bool:
+    return forward_cached is None and type(module).__name__ in ENCDEC_GENERATION_PLANS
+
+
+def _resolve_plan(model, inputs, decoder_input_ids=None, forward_cached=None, beams=1):
+    """``(prompt ids, forward)``. An encoder-decoder module runs its encoder
+    once on ``inputs``; the prompt is ``decoder_input_ids`` (default: one
+    ``decoder_start_token_id`` a row) and the forward is its decoder with
+    the encoded state bound in, picked by the call's batch size (beam
+    search sees B rows at the prefill and B × ``beams`` after it). Any
+    other module: ``inputs`` and its causal plan (``forward_cached`` when
+    given, which outranks the registries, as in the JAX package)."""
+    module = _module_of(model)
+    if not _is_encdec(module, forward_cached):
+        if decoder_input_ids is not None:
+            raise ValueError(f"decoder_input_ids is for encoder-decoder modules "
+                             f"({', '.join(sorted(ENCDEC_GENERATION_PLANS))}), not "
+                             f"{type(module).__name__!r}")
+        return inputs, _generation_plan(module, forward_cached)
+    encode_fn, decode_fn = ENCDEC_GENERATION_PLANS[type(module).__name__]
+    cfg = module.config
+    enc = encode_fn(cfg, model, inputs)
+    rows, device = enc.cross_k.shape[1], enc.cross_k.device
+    if decoder_input_ids is None:
+        decoder_input_ids = torch.full((rows, 1), getattr(cfg, "decoder_start_token_id", 0),
+                                       dtype=torch.long, device=device)
+    states = {rows: enc}
+    if beams > 1:
+        states[rows * beams] = enc.tile(beams)
+
+    def fwd(cfg, params, ids, cache, return_all=False):
+        return decode_fn(cfg, params, ids, cache, states[ids.shape[0]], return_all)
+
+    return torch.as_tensor(decoder_input_ids).to(device), fwd
+
+
 def _params_device(params: dict) -> torch.device:
-    embed = params["model.embed_tokens.weight"]
-    return embed.device
+    return next(v.device for v in params.values() if torch.is_tensor(v))
 
 
 @dataclasses.dataclass
@@ -509,9 +907,15 @@ def generate(
     compile_manager=None,
 ) -> torch.Tensor:
     """Generate ``max_new_tokens`` continuations of ``input_ids`` (B, S)
-    with ``model`` (a ``Model``, a ``LlamaForCausalLM`` or a
+    with ``model`` (a ``Model``, a module with a generation plan or a
     decode-quantized model) on the device that holds its parameters.
     Returns (B, S + max_new_tokens) on that device.
+
+    Encoder-decoder modules (T5, Whisper): ``input_ids`` feed the encoder
+    (token ids, or Whisper's (B, T, mel) features), which runs once, and
+    the loop continues ``decoder_input_ids`` (default: one
+    ``decoder_start_token_id`` a row); the result is the decoder's
+    sequence.
 
     ``attention_mask`` (B, S): left-padded rows (zeros, then ones); RoPE
     positions shift per row so content starts at 0 and pad slots never
@@ -524,10 +928,6 @@ def generate(
 
     The decode loop runs all ``max_new_tokens`` steps and reads nothing
     back to the host."""
-    if decoder_input_ids is not None:
-        raise NotImplementedError(
-            f"encoder-decoder generation (decoder_input_ids) is not ported yet "
-            f"({_OTHER_MODELS_ITEM}: t5, whisper)")
     if compile_manager is not None:
         raise NotImplementedError(f"generate(compile_manager=...) is not ported yet "
                                   f"({_COMPILE_MANAGER_ITEM})")
@@ -541,9 +941,13 @@ def generate(
     begin_suppress_tokens = _pick(begin_suppress_tokens, gc.begin_suppress_tokens)
     forced_decoder_ids = _pick(forced_decoder_ids, gc.forced_decoder_ids)
 
-    module = getattr(model, "module", model)
+    module = _module_of(model)
     cfg = module.config
-    fwd = _generation_plan(module, forward_cached)
+    encdec = _is_encdec(module, forward_cached)
+    if encdec and attention_mask is not None:
+        raise ValueError("encoder-decoder generation takes no attention_mask: the encoder's "
+                         "mask comes from pad_token_id")
+    input_ids, fwd = _resolve_plan(model, input_ids, decoder_input_ids, forward_cached)
     params = _decode_params(model)
     device = _params_device(params)
 
@@ -553,7 +957,7 @@ def generate(
     mask_np = None if attention_mask is None else np.asarray(
         attention_mask.cpu() if torch.is_tensor(attention_mask) else attention_mask, np.int32)
 
-    s_b = _bucketed_prompt_len(s, seq_buckets)
+    s_b = s if encdec else _bucketed_prompt_len(s, seq_buckets)
     if s_b > s:
         fill = pad_token_id if pad_token_id is not None else 0
         ids = torch.cat([torch.full((b, s_b - s), fill, dtype=ids.dtype, device=device), ids], 1)
@@ -704,14 +1108,12 @@ def beam_search(model, input_ids, max_new_tokens: int = 32, *, num_beams: int = 
     each step keeps the best ``num_beams`` of ``num_beams × V`` candidates.
     A beam that emits ``eos_token_id`` freezes: its score stops growing and
     its later tokens are EOS. Returns the best sequence of each row,
-    (B, S + max_new_tokens)."""
-    if decoder_input_ids is not None:
-        raise NotImplementedError(
-            f"encoder-decoder beam search (decoder_input_ids) is not ported yet "
-            f"({_OTHER_MODELS_ITEM}: t5, whisper)")
-    module = getattr(model, "module", model)
-    cfg = module.config
-    fwd = _generation_plan(module, forward_cached)
+    (B, S + max_new_tokens). Encoder-decoder modules follow
+    :func:`generate`'s contract (the encoder runs once and its state is
+    tiled along the beams; the result is the decoder's sequence)."""
+    cfg = _module_of(model).config
+    input_ids, fwd = _resolve_plan(model, input_ids, decoder_input_ids, forward_cached,
+                                   beams=num_beams)
     params = _decode_params(model)
     device = _params_device(params)
     input_ids = torch.as_tensor(input_ids).to(device)

@@ -1,5 +1,6 @@
-"""Carry Llama and Mixtral weights between the flax tree of the JAX package
-and a state dict of the port, both ways.
+"""Carry weights between the flax trees of the JAX package and state dicts
+of the port, both ways, for every ported family; and the registry that
+``checkpointing.py`` looks a module's converter up in.
 
 The flax tree (``params`` of ``accelerate_tpu.models.LlamaForCausalLM``) holds
 either one ``nn.scan`` stack, ``model/layers/block/...`` with a leading layer
@@ -16,17 +17,44 @@ attention and norms, and a ``moe`` subtree in place of ``mlp``: ``router``
 ``(d, E)`` and the stacked ``w_gate``/``w_up`` ``(E, d, f)`` and ``w_down``
 ``(E, f, d)``, which the port holds in the same layouts.
 
+GPT-2, OPT, GPT-NeoX, T5 and Whisper are described as data (``_Leaf``
+tables below): each parameter's port name, its flax path and the two
+layout maps between them. Linear weights ``(out, in)`` become kernels
+``(in, *out_axes)`` (``DenseGeneral``'s per-head outputs: GPT-2's
+``c_attn`` ``(H, 3, heads, D)``, NeoX's ``query_key_value``
+``(H, heads, 3, D)``, q/k/v ``(H, heads, D)``) or ``(*in_axes, out)``
+(output projections ``(heads, D, H)``); biases take the output axes'
+shape; flax's LayerNorm ``scale`` is the port's ``weight``; Whisper's
+convolutions are ``(k, in, out)`` kernels. A family's layers form one
+``nn.scan`` stack with a leading layer axis (``scan_layers=True``) or
+unrolled subtrees, and T5 keeps ``block_0`` (the relative-bias owner)
+apart and scans the rest.
+
 The same maps carry any tree shaped like the parameters, such as AdamW's
 moments (optax's ``mu``/``nu``). Both directions work on torch tensors on
 any device, so a checkpoint changes layouts on the card.
+
+``FLAX_CONVERTERS`` maps a module class to its ``FlaxConverter``
+(``to_flax``, ``views_from_flax``, ``flax_name``); ``flax_converter``
+looks a module up, and a class without an entry keeps its own names.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import re
+from typing import Callable, Optional
+
 import numpy as np
 import torch
 
-from .llama import LlamaConfig
+from .gpt2 import GPT2LMHeadModel
+from .llama import LlamaConfig, LlamaForCausalLM
+from .moe import MixtralForCausalLM
+from .neox import GPTNeoXForCausalLM
+from .opt import OPTForCausalLM
+from .t5 import T5ForConditionalGeneration
+from .whisper import WhisperForConditionalGeneration
 
 _NORMS = ("input_layernorm", "post_attention_layernorm")
 _ATTN_IN = ("q_proj", "k_proj", "v_proj")
@@ -174,3 +202,351 @@ def _zip_trees(fn, trees: list[dict]) -> dict:
     if isinstance(first, dict):
         return {k: _zip_trees(fn, [t[k] for t in trees]) for k in first}
     return fn(*trees)
+
+
+def llama_flax_name(cfg, fqn: str) -> str:
+    """The ``/``-joined name of a Llama or Mixtral parameter in the unrolled
+    flax tree: ``layers_<i>``, ``kernel`` for a projection, ``embedding``."""
+    owner, _, leaf = fqn.rpartition(".")
+    if owner.endswith("embed_tokens"):
+        leaf = "embedding"
+    elif owner.endswith("_proj") or owner == "lm_head":
+        leaf = "kernel"
+    owner = re.sub(r"(^|\.)layers\.(\d+)(?=\.|$)", r"\1layers_\2", owner)
+    return f"{owner.replace('.', '/')}/{leaf}"
+
+
+# ---------------------------------------------------------------------------
+# GPT-2, OPT, GPT-NeoX, T5, Whisper: leaf tables
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """One parameter: its port name, its flax path, and the maps from the
+    port's layout to flax's and back."""
+
+    port: str
+    flax: str
+    to_flax: Callable = lambda t: t
+    from_flax: Callable = lambda t: t
+
+
+def _linear_leaf(port: str, flax: str, *out_axes) -> _Leaf:
+    """A Linear ``(out, in)`` as a kernel ``(in, *out_axes)`` (Dense: no
+    axes given)."""
+    return _Leaf(port, flax,
+                 lambda w: w.t().reshape(w.shape[1], *(out_axes or (w.shape[0],))),
+                 lambda k: k.reshape(k.shape[0], -1).t())
+
+
+def _out_leaf(port: str, flax: str, *in_axes) -> _Leaf:
+    """An output projection ``(out, in)`` as a kernel ``(*in_axes, out)``."""
+    return _Leaf(port, flax, lambda w: w.t().reshape(*in_axes, w.shape[0]),
+                 lambda k: k.reshape(-1, k.shape[-1]).t())
+
+
+def _bias_leaf(port: str, flax: str, *axes) -> _Leaf:
+    return _Leaf(port, flax, lambda b: b.reshape(axes), lambda b: b.reshape(-1))
+
+
+def _ln_leaves(port: str, flax: str) -> list[_Leaf]:
+    """flax's LayerNorm: ``scale`` is the port's ``weight``."""
+    return [_Leaf(f"{port}.weight", f"{flax}/scale"), _Leaf(f"{port}.bias", f"{flax}/bias")]
+
+
+def _dense_leaves(name: str, bias: bool = True) -> list[_Leaf]:
+    out = [_linear_leaf(f"{name}.weight", f"{name}/kernel")]
+    return out + ([_Leaf(f"{name}.bias", f"{name}/bias")] if bias else [])
+
+
+@dataclasses.dataclass(frozen=True)
+class _Stack:
+    """A list of identical layers: ``port`` (``{i}`` the layer), the scanned
+    flax path, the unrolled one (``{i}``), the layer's leaves, and
+    ``first_apart`` leaves that only layer 0 holds, which then sits apart
+    at ``unrolled.format(i=0)`` and the scan covers layers 1..n-1 (T5)."""
+
+    port: str
+    scanned: str
+    unrolled: str
+    n: int
+    leaves: list
+    first_apart: list = dataclasses.field(default_factory=list)
+
+
+def _gpt2_tables(cfg):
+    nh, d = cfg.n_head, cfg.head_dim
+    top = [_Leaf("transformer.wte.weight", "transformer/wte/embedding"),
+           _Leaf("transformer.wpe.weight", "transformer/wpe/embedding"),
+           *_ln_leaves("transformer.ln_f", "transformer/ln_f")]
+    layer = [*_ln_leaves("ln_1", "ln_1"), *_ln_leaves("ln_2", "ln_2"),
+             _linear_leaf("attn.c_attn.weight", "attn/c_attn/kernel", 3, nh, d),
+             _bias_leaf("attn.c_attn.bias", "attn/c_attn/bias", 3, nh, d),
+             _out_leaf("attn.c_proj.weight", "attn/c_proj/kernel", nh, d),
+             _Leaf("attn.c_proj.bias", "attn/c_proj/bias"),
+             *_dense_leaves("c_fc"), *_dense_leaves("c_proj")]
+    return top, [_Stack("transformer.h.{i}.", "transformer/h/block", "transformer/h_{i}",
+                        cfg.n_layer, layer)]
+
+
+def _opt_tables(cfg):
+    nh, d = cfg.num_attention_heads, cfg.head_dim
+    top = [_Leaf("model.embed_tokens.weight", "model/embed_tokens/embedding"),
+           _Leaf("model.embed_positions.weight", "model/embed_positions/embedding"),
+           *_ln_leaves("model.final_layer_norm", "model/final_layer_norm")]
+    layer = [*_ln_leaves("self_attn_layer_norm", "self_attn_layer_norm"),
+             *_ln_leaves("final_layer_norm", "final_layer_norm"),
+             _out_leaf("self_attn.out_proj.weight", "self_attn/out_proj/kernel", nh, d),
+             _Leaf("self_attn.out_proj.bias", "self_attn/out_proj/bias"),
+             *_dense_leaves("fc1"), *_dense_leaves("fc2")]
+    for name in ("q_proj", "k_proj", "v_proj"):
+        layer += [_linear_leaf(f"self_attn.{name}.weight", f"self_attn/{name}/kernel", nh, d),
+                  _bias_leaf(f"self_attn.{name}.bias", f"self_attn/{name}/bias", nh, d)]
+    return top, [_Stack("model.layers.{i}.", "model/layers/block", "model/layer_{i}",
+                        cfg.num_hidden_layers, layer)]
+
+
+def _neox_tables(cfg):
+    nh, d = cfg.num_attention_heads, cfg.head_dim
+    top = [_Leaf("gpt_neox.embed_in.weight", "gpt_neox/embed_in/embedding"),
+           *_ln_leaves("gpt_neox.final_layer_norm", "gpt_neox/final_layer_norm"),
+           _linear_leaf("embed_out.weight", "embed_out/kernel")]
+    layer = [*_ln_leaves("input_layernorm", "input_layernorm"),
+             *_ln_leaves("post_attention_layernorm", "post_attention_layernorm"),
+             _linear_leaf("attention.query_key_value.weight", "attention/query_key_value/kernel",
+                          nh, 3, d),
+             _bias_leaf("attention.query_key_value.bias", "attention/query_key_value/bias",
+                        nh, 3, d),
+             _out_leaf("attention.dense.weight", "attention/dense/kernel", nh, d),
+             _Leaf("attention.dense.bias", "attention/dense/bias"),
+             *_dense_leaves("dense_h_to_4h"), *_dense_leaves("dense_4h_to_h")]
+    return top, [_Stack("gpt_neox.layers.{i}.", "gpt_neox/layers/block", "gpt_neox/layer_{i}",
+                        cfg.num_hidden_layers, layer)]
+
+
+def _t5_attn(name: str, nh: int, dk: int) -> list[_Leaf]:
+    return [*(_linear_leaf(f"{name}.{p}.weight", f"{name}/{p}/kernel", nh, dk) for p in "qkv"),
+            _out_leaf(f"{name}.o.weight", f"{name}/o/kernel", nh, dk)]
+
+
+def _t5_tables(cfg):
+    nh, dk = cfg.num_heads, cfg.d_kv
+    top = [_Leaf("shared.weight", "shared/embedding"),
+           _Leaf("encoder.final_ln.weight", "encoder/final_ln/weight"),
+           _Leaf("decoder.final_ln.weight", "decoder/final_ln/weight")]
+    ffn = [_linear_leaf("ffn.wi.weight", "ffn/wi/kernel"),
+           _linear_leaf("ffn.wo.weight", "ffn/wo/kernel")]
+    enc = [*_t5_attn("self_attn", nh, dk), _Leaf("ln0.weight", "ln0/weight"),
+           _Leaf("ln1.weight", "ln1/weight"), *ffn]
+    dec = [*enc, *_t5_attn("cross_attn", nh, dk), _Leaf("ln2.weight", "ln2/weight")]
+    bias = [_Leaf("self_attn.relative_attention_bias.weight",
+                  "self_attn/relative_attention_bias/embedding")]
+    return top, [_Stack(f"{s}.block_{{i}}.", f"{s}/layers/block", f"{s}/block_{{i}}", n, leaves,
+                        bias)
+                 for s, n, leaves in (("encoder", cfg.num_layers, enc),
+                                      ("decoder", cfg.n_dec, dec))]
+
+
+def _whisper_attn(name: str, nh: int, d: int) -> list[_Leaf]:
+    out = [_out_leaf(f"{name}.out_proj.weight", f"{name}/out_proj/kernel", nh, d),
+           _Leaf(f"{name}.out_proj.bias", f"{name}/out_proj/bias")]
+    for p in ("q_proj", "k_proj", "v_proj"):
+        out.append(_linear_leaf(f"{name}.{p}.weight", f"{name}/{p}/kernel", nh, d))
+        if p != "k_proj":  # Whisper: no K bias
+            out.append(_bias_leaf(f"{name}.{p}.bias", f"{name}/{p}/bias", nh, d))
+    return out
+
+
+_CONV = dict(to_flax=lambda w: w.permute(2, 1, 0), from_flax=lambda k: k.permute(2, 1, 0))
+
+
+def _whisper_tables(cfg):
+    top = [_Leaf("encoder.conv1.weight", "encoder/conv1/kernel", **_CONV),
+           _Leaf("encoder.conv1.bias", "encoder/conv1/bias"),
+           _Leaf("encoder.conv2.weight", "encoder/conv2/kernel", **_CONV),
+           _Leaf("encoder.conv2.bias", "encoder/conv2/bias"),
+           _Leaf("encoder.embed_positions", "encoder/embed_positions"),
+           *_ln_leaves("encoder.layer_norm", "encoder/layer_norm"),
+           _Leaf("decoder.embed_tokens.weight", "decoder/embed_tokens/embedding"),
+           _Leaf("decoder.embed_positions.weight", "decoder/embed_positions/embedding"),
+           *_ln_leaves("decoder.layer_norm", "decoder/layer_norm")]
+    mlp = [*_dense_leaves("fc1"), *_dense_leaves("fc2"),
+           *_ln_leaves("final_layer_norm", "final_layer_norm"),
+           *_ln_leaves("self_attn_layer_norm", "self_attn_layer_norm")]
+    enc = [*_whisper_attn("self_attn", cfg.encoder_attention_heads, cfg.head_dim), *mlp]
+    nh, d = cfg.decoder_attention_heads, cfg.decoder_head_dim
+    dec = [*_whisper_attn("self_attn", nh, d), *_whisper_attn("encoder_attn", nh, d),
+           *_ln_leaves("encoder_attn_layer_norm", "encoder_attn_layer_norm"), *mlp]
+    return top, [_Stack(f"{s}.layers.{{i}}.", f"{s}/layers/block", f"{s}/layer_{{i}}", n, leaves)
+                 for s, n, leaves in (("encoder", cfg.encoder_layers, enc),
+                                      ("decoder", cfg.decoder_layers, dec))]
+
+
+def _set(tree: dict, path: str, value) -> None:
+    *parents, leaf = path.split("/")
+    for p in parents:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = value
+
+
+def _get(tree, path: str):
+    for p in path.split("/"):
+        tree = tree[p]
+    return tree
+
+
+def _tables_to_flax(tables, cfg, state_dict: dict) -> dict:
+    """The flax tree of a state dict (or a tree of tensors with its names)
+    by a family's tables: contiguous tensors on its device, in its dtype."""
+    top, stacks = tables(cfg)
+    get = state_dict.__getitem__
+    tree: dict = {}
+    for leaf in top:
+        _set(tree, leaf.flax, leaf.to_flax(get(leaf.port)))
+    for st in stacks:
+        start = 1 if st.first_apart else 0
+        if st.first_apart:
+            for leaf in st.leaves + st.first_apart:
+                _set(tree, f"{st.unrolled.format(i=0)}/{leaf.flax}",
+                     leaf.to_flax(get(st.port.format(i=0) + leaf.port)))
+        for leaf in st.leaves:
+            per_layer = [leaf.to_flax(get(st.port.format(i=i) + leaf.port))
+                         for i in range(start, st.n)]
+            if not per_layer:
+                continue
+            if cfg.scan_layers:
+                _set(tree, f"{st.scanned}/{leaf.flax}", torch.stack(per_layer))
+            else:
+                for i, t in enumerate(per_layer, start):
+                    _set(tree, f"{st.unrolled.format(i=i)}/{leaf.flax}", t)
+    return _map_tree(lambda t: t.contiguous(), tree)
+
+
+def _tables_from_flax(tables, cfg, flax_params) -> dict[str, torch.Tensor]:
+    """Port names → tensors in the port's layouts (views where the layout
+    allows) from a flax tree in either layer layout."""
+    if set(flax_params) == {"params"}:
+        flax_params = flax_params["params"]
+    top, stacks = tables(cfg)
+    flat = {leaf.port: leaf.from_flax(_as_tensor(_get(flax_params, leaf.flax))) for leaf in top}
+    for st in stacks:
+        start = 1 if st.first_apart else 0
+        if st.first_apart:
+            for leaf in st.leaves + st.first_apart:
+                flat[st.port.format(i=0) + leaf.port] = leaf.from_flax(_as_tensor(
+                    _get(flax_params, f"{st.unrolled.format(i=0)}/{leaf.flax}")))
+        scanned = st.n > start and _has(flax_params, st.scanned)
+        for leaf in st.leaves:
+            if scanned:
+                stacked = _as_tensor(_get(flax_params, f"{st.scanned}/{leaf.flax}"))
+            for i in range(start, st.n):
+                t = (stacked[i - start] if scanned else _as_tensor(
+                    _get(flax_params, f"{st.unrolled.format(i=i)}/{leaf.flax}")))
+                flat[st.port.format(i=i) + leaf.port] = leaf.from_flax(t)
+    return flat
+
+
+def _has(tree, path: str) -> bool:
+    try:
+        _get(tree, path)
+        return True
+    except (KeyError, TypeError):
+        return False
+
+
+def _tables_flax_name(tables, cfg, fqn: str) -> str:
+    """A parameter's ``/``-joined name in the unrolled flax tree."""
+    top, stacks = tables(cfg)
+    for leaf in top:
+        if leaf.port == fqn:
+            return leaf.flax
+    for st in stacks:
+        head, _, tail = st.port.partition("{i}")
+        m = re.fullmatch(re.escape(head) + r"(\d+)" + re.escape(tail) + r"(.+)", fqn)
+        if m:
+            return f"{st.unrolled.format(i=int(m.group(1)))}/" + next(
+                leaf.flax for leaf in st.leaves + st.first_apart if leaf.port == m.group(2))
+    raise KeyError(fqn)
+
+
+def _family(tables):
+    """(to_flax, views_from_flax, params_from_flax, flax_name) of a
+    family's tables."""
+    def to_flax(cfg, state_dict: dict) -> dict:
+        return _tables_to_flax(tables, cfg, state_dict)
+
+    def views_from_flax(cfg, flax_params) -> dict[str, torch.Tensor]:
+        return _tables_from_flax(tables, cfg, flax_params)
+
+    def params_from_flax(cfg, flax_params) -> dict[str, torch.Tensor]:
+        return {k: v.float().contiguous()
+                for k, v in _tables_from_flax(tables, cfg, flax_params).items()}
+
+    def flax_name(cfg, fqn: str) -> str:
+        return _tables_flax_name(tables, cfg, fqn)
+
+    return to_flax, views_from_flax, params_from_flax, flax_name
+
+
+# ``*_params_to_flax(cfg, state_dict)``: the flax tree (the layers stacked
+# when ``cfg.scan_layers``); ``*_params_from_flax(cfg, tree)``: the state
+# dict (contiguous fp32), from either layout; ``*_views_from_flax``: the
+# same as views where the layout allows.
+(gpt2_params_to_flax, gpt2_views_from_flax, gpt2_params_from_flax,
+ _gpt2_flax_name) = _family(_gpt2_tables)
+opt_params_to_flax, opt_views_from_flax, opt_params_from_flax, _opt_flax_name = \
+    _family(_opt_tables)
+(neox_params_to_flax, neox_views_from_flax, neox_params_from_flax,
+ _neox_flax_name) = _family(_neox_tables)
+t5_params_to_flax, t5_views_from_flax, t5_params_from_flax, _t5_flax_name = \
+    _family(_t5_tables)
+(whisper_params_to_flax, whisper_views_from_flax, whisper_params_from_flax,
+ _whisper_flax_name) = _family(_whisper_tables)
+
+
+# ---------------------------------------------------------------------------
+# The registry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FlaxConverter:
+    """``to_flax(cfg, state_dict) -> tree``, ``views_from_flax(cfg, tree) ->
+    {name: tensor}`` and ``flax_name(cfg, fqn) -> "a/b/c"`` (the name in the
+    unrolled tree) of one module class."""
+
+    to_flax: Callable
+    views_from_flax: Callable
+    flax_name: Callable
+
+
+FLAX_CONVERTERS: dict[type, FlaxConverter] = {}
+
+
+def register_flax_converter(module_class: type, to_flax: Callable, views_from_flax: Callable,
+                            flax_name: Callable) -> None:
+    """Make checkpoints of ``module_class`` hold the flax tree these give."""
+    FLAX_CONVERTERS[module_class] = FlaxConverter(to_flax, views_from_flax, flax_name)
+
+
+def flax_converter(module) -> Optional[FlaxConverter]:
+    """The converter of ``module``'s class or of the nearest base class that
+    has one (FSDP2's ``fully_shard`` makes a subclass of the module's class),
+    or None (its own names)."""
+    return next((FLAX_CONVERTERS[cls] for cls in type(module).__mro__
+                 if cls in FLAX_CONVERTERS), None)
+
+
+for _cls in (LlamaForCausalLM, MixtralForCausalLM):
+    register_flax_converter(_cls, llama_params_to_flax, llama_views_from_flax, llama_flax_name)
+register_flax_converter(GPT2LMHeadModel, gpt2_params_to_flax, gpt2_views_from_flax,
+                        _gpt2_flax_name)
+register_flax_converter(OPTForCausalLM, opt_params_to_flax, opt_views_from_flax,
+                        _opt_flax_name)
+register_flax_converter(GPTNeoXForCausalLM, neox_params_to_flax, neox_views_from_flax,
+                        _neox_flax_name)
+register_flax_converter(T5ForConditionalGeneration, t5_params_to_flax, t5_views_from_flax,
+                        _t5_flax_name)
+register_flax_converter(WhisperForConditionalGeneration, whisper_params_to_flax,
+                        whisper_views_from_flax, _whisper_flax_name)

@@ -20,9 +20,19 @@ local checkpoint directory (``config.json`` with ``*.safetensors``, read by
 the port's own reader, or ``pytorch_model.bin``), or a ``(config,
 state_dict)`` pair, picks the family from ``model_type`` and falls back to
 the declarative specs of ``generic_hub.py`` for the types outside
-``_FAMILIES`` (the Llama family and Mixtral). The JAX package's other
-families (GPT-2, BERT, T5, ...) raise ``NotImplementedError`` (ROADMAP.md
-Queue A item 10).
+``_FAMILIES``.
+
+GPT-2, OPT, GPT-NeoX, T5 and Whisper map as the JAX hub maps them, onto
+the port's flax-tree names: GPT-2's ``Conv1D`` weights are ``(in, out)``
+and transpose into ``(out, in)`` Linears, every LayerNorm's ``weight`` and
+``bias`` copy over, T5's ``layer.{0,1,2}`` sublayers become ``self_attn``/
+``cross_attn``/``ffn`` with ``ln0``-``ln2`` and the first block's relative
+bias table, Whisper's convolutions and sinusoid table copy as they are. A
+checkpoint's own prefix (``transformer.``, ``model.decoder.``,
+``gpt_neox.``, ``model.``) may be there or not. The JAX hub has no
+``*_params_to_hf`` for these families, and neither has the port (the row's
+fourth field is None). BERT, ViT and CLIP raise ``NotImplementedError``
+(ROADMAP.md Queue A item 10.6).
 """
 
 from __future__ import annotations
@@ -36,10 +46,15 @@ import numpy as np
 import torch
 
 from ..utils.other import load_safetensors
+from .gpt2 import GPT2Config, GPT2LMHeadModel
 from .llama import LlamaConfig, LlamaForCausalLM
 from .moe import MixtralConfig, MixtralForCausalLM
+from .neox import GPTNeoXConfig, GPTNeoXForCausalLM
+from .opt import OPTConfig, OPTForCausalLM
+from .t5 import T5Config, T5ForConditionalGeneration
+from .whisper import WhisperConfig, WhisperForConditionalGeneration
 
-_OTHER_FAMILIES_ITEM = "ROADMAP.md Queue A item 10 (the other models)"
+_OTHER_FAMILIES_ITEM = "ROADMAP.md Queue A item 10.6 (bert, vit, clip, resnet)"
 
 
 def _getter(hf: Any):
@@ -228,11 +243,169 @@ def mixtral_params_to_hf(cfg: MixtralConfig, state_dict: dict) -> dict[str, torc
 
 
 # ---------------------------------------------------------------------------
+# GPT-2, OPT, GPT-NeoX
+# ---------------------------------------------------------------------------
+
+
+def _prefixed(sd: dict, prefix: str) -> str:
+    """``prefix`` when the checkpoint's names carry it (a head class's),
+    else ''."""
+    return prefix if any(k.startswith(prefix) for k in sd) else ""
+
+
+def _renamed(sd: dict, names: dict) -> dict:
+    """port name → checkpoint tensor (``names``: port name → checkpoint
+    name, or ``(checkpoint name, fn)`` to transform it); a name the
+    checkpoint lacks is left for ``_module_params`` to report."""
+    out = {}
+    for ours, theirs in names.items():
+        fn = None
+        if isinstance(theirs, tuple):
+            theirs, fn = theirs
+        if theirs not in sd:
+            continue
+        t = _tensor(sd[theirs])
+        out[ours] = fn(t) if fn else t
+    return out
+
+
+def _t(t: torch.Tensor) -> torch.Tensor:
+    return t.t()
+
+
+def gpt2_config_from_hf(hf: Any) -> GPT2Config:
+    g = _getter(hf)
+    return GPT2Config(vocab_size=g("vocab_size"), n_positions=g("n_positions", 1024),
+                      n_embd=g("n_embd", 768), n_layer=g("n_layer", 12), n_head=g("n_head", 12),
+                      layer_norm_epsilon=g("layer_norm_epsilon", 1e-5))
+
+
+def gpt2_params_from_hf(cfg: GPT2Config, sd: dict) -> dict[str, torch.Tensor]:
+    """GPT-2's ``Conv1D`` weights are ``(in, out)``: transposed here."""
+    pre = _prefixed(sd, "transformer.")
+    names = {f"transformer.{n}.weight": f"{pre}{n}.weight" for n in ("wte", "wpe")}
+    for leaf in ("weight", "bias"):
+        names[f"transformer.ln_f.{leaf}"] = f"{pre}ln_f.{leaf}"
+    for i in range(cfg.n_layer):
+        ours, theirs = f"transformer.h.{i}.", f"{pre}h.{i}."
+        for n in ("ln_1", "ln_2", "attn.c_attn", "attn.c_proj"):
+            names[f"{ours}{n}.bias"] = f"{theirs}{n}.bias"
+        for n in ("ln_1", "ln_2"):
+            names[f"{ours}{n}.weight"] = f"{theirs}{n}.weight"
+        for n in ("attn.c_attn", "attn.c_proj"):
+            names[f"{ours}{n}.weight"] = (f"{theirs}{n}.weight", _t)
+        for n in ("c_fc", "c_proj"):
+            names[f"{ours}{n}.weight"] = (f"{theirs}mlp.{n}.weight", _t)
+            names[f"{ours}{n}.bias"] = f"{theirs}mlp.{n}.bias"
+    return _module_params(GPT2LMHeadModel, cfg, _renamed(sd, names))
+
+
+def opt_config_from_hf(hf: Any) -> OPTConfig:
+    g = _getter(hf)
+    return OPTConfig(vocab_size=g("vocab_size"), hidden_size=g("hidden_size"),
+                     ffn_dim=g("ffn_dim"), num_hidden_layers=g("num_hidden_layers"),
+                     num_attention_heads=g("num_attention_heads"),
+                     max_position_embeddings=g("max_position_embeddings", 2048))
+
+
+def opt_params_from_hf(cfg: OPTConfig, sd: dict) -> dict[str, torch.Tensor]:
+    pre = "model.decoder." if any(k.startswith("model.decoder.") for k in sd) else "decoder."
+    src = {("model." + k[len(pre):]): v for k, v in sd.items() if k.startswith(pre)}
+    return _module_params(OPTForCausalLM, cfg, src)
+
+
+def neox_config_from_hf(hf: Any) -> GPTNeoXConfig:
+    g = _getter(hf)
+    return GPTNeoXConfig(
+        vocab_size=g("vocab_size"), hidden_size=g("hidden_size"),
+        num_hidden_layers=g("num_hidden_layers"), num_attention_heads=g("num_attention_heads"),
+        intermediate_size=g("intermediate_size"), rotary_pct=g("rotary_pct", 0.25),
+        rotary_emb_base=g("rotary_emb_base", 10000.0), layer_norm_eps=g("layer_norm_eps", 1e-5),
+        use_parallel_residual=bool(g("use_parallel_residual", True)),
+        max_position_embeddings=g("max_position_embeddings", 2048))
+
+
+def neox_params_from_hf(cfg: GPTNeoXConfig, sd: dict) -> dict[str, torch.Tensor]:
+    """NeoX's names are the port's but for the MLP's ``mlp.`` level; its
+    fused ``query_key_value`` rows are per head ``[q|k|v]`` already."""
+    pre = _prefixed(sd, "gpt_neox.")
+    src = {}
+    for k, v in sd.items():
+        if k == "embed_out.weight":
+            src[k] = v
+        elif k.startswith(pre):
+            src["gpt_neox." + k[len(pre):].replace(".mlp.", ".")] = v
+    return _module_params(GPTNeoXForCausalLM, cfg, src)
+
+
+# ---------------------------------------------------------------------------
+# T5, Whisper
+# ---------------------------------------------------------------------------
+
+
+def t5_config_from_hf(hf: Any) -> T5Config:
+    g = _getter(hf)
+    return T5Config(
+        vocab_size=g("vocab_size"), d_model=g("d_model"), d_kv=g("d_kv", 64), d_ff=g("d_ff"),
+        num_layers=g("num_layers"), num_decoder_layers=g("num_decoder_layers"),
+        num_heads=g("num_heads"),
+        relative_attention_num_buckets=g("relative_attention_num_buckets", 32),
+        relative_attention_max_distance=g("relative_attention_max_distance", 128),
+        layer_norm_epsilon=g("layer_norm_epsilon", 1e-6),
+        decoder_start_token_id=g("decoder_start_token_id", 0), pad_token_id=g("pad_token_id", 0))
+
+
+def t5_params_from_hf(cfg: T5Config, sd: dict) -> dict[str, torch.Tensor]:
+    """``block.{i}.layer.{0,1,2}`` → ``block_{i}`` with ``self_attn``,
+    ``cross_attn`` (decoder) and ``ffn``, norms ``ln0``-``ln2``."""
+    names = {"shared.weight": "shared.weight"}
+    for stack, n, sub in (("encoder", cfg.num_layers, ("self_attn", "ffn")),
+                          ("decoder", cfg.n_dec, ("self_attn", "cross_attn", "ffn"))):
+        names[f"{stack}.final_ln.weight"] = f"{stack}.final_layer_norm.weight"
+        for i in range(n):
+            ours, theirs = f"{stack}.block_{i}.", f"{stack}.block.{i}.layer."
+            for j, part in enumerate(sub):
+                names[f"{ours}ln{j}.weight"] = f"{theirs}{j}.layer_norm.weight"
+                if part == "ffn":
+                    for w in ("wi", "wo"):
+                        names[f"{ours}ffn.{w}.weight"] = f"{theirs}{j}.DenseReluDense.{w}.weight"
+                    continue
+                hf_part = "SelfAttention" if part == "self_attn" else "EncDecAttention"
+                for w in "qkvo":
+                    names[f"{ours}{part}.{w}.weight"] = f"{theirs}{j}.{hf_part}.{w}.weight"
+            names[f"{stack}.block_0.self_attn.relative_attention_bias.weight"] = \
+                f"{stack}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    return _module_params(T5ForConditionalGeneration, cfg, _renamed(sd, names))
+
+
+def whisper_config_from_hf(hf: Any) -> WhisperConfig:
+    g = _getter(hf)
+    return WhisperConfig(
+        vocab_size=g("vocab_size"), num_mel_bins=g("num_mel_bins", 80), d_model=g("d_model"),
+        encoder_layers=g("encoder_layers"), decoder_layers=g("decoder_layers"),
+        encoder_attention_heads=g("encoder_attention_heads"),
+        decoder_attention_heads=g("decoder_attention_heads"),
+        encoder_ffn_dim=g("encoder_ffn_dim"), decoder_ffn_dim=g("decoder_ffn_dim"),
+        max_source_positions=g("max_source_positions", 1500),
+        max_target_positions=g("max_target_positions", 448))
+
+
+def whisper_params_from_hf(cfg: WhisperConfig, sd: dict) -> dict[str, torch.Tensor]:
+    """The port's names are Whisper's but for the encoder's sinusoid table
+    (a parameter here, ``embed_positions.weight`` there)."""
+    pre = _prefixed(sd, "model.")
+    src = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+    if "encoder.embed_positions.weight" in src:
+        src["encoder.embed_positions"] = src.pop("encoder.embed_positions.weight")
+    return _module_params(WhisperForConditionalGeneration, cfg, src)
+
+
+# ---------------------------------------------------------------------------
 # High-level entry
 # ---------------------------------------------------------------------------
 
 # model_type -> (module class, config from HF, state dict from HF, state
-# dict to HF)
+# dict to HF or None where the JAX hub has no exporter)
 _LLAMA = (llama_params_from_hf, llama_params_to_hf)
 _FAMILIES = {
     "llama": (LlamaForCausalLM, llama_config_from_hf, *_LLAMA),
@@ -242,10 +415,15 @@ _FAMILIES = {
     "phi3": (LlamaForCausalLM, phi3_config_from_hf, phi3_params_from_hf, llama_params_to_hf),
     "mixtral": (MixtralForCausalLM, mixtral_config_from_hf, mixtral_params_from_hf,
                 mixtral_params_to_hf),
+    "gpt2": (GPT2LMHeadModel, gpt2_config_from_hf, gpt2_params_from_hf, None),
+    "opt": (OPTForCausalLM, opt_config_from_hf, opt_params_from_hf, None),
+    "gpt_neox": (GPTNeoXForCausalLM, neox_config_from_hf, neox_params_from_hf, None),
+    "t5": (T5ForConditionalGeneration, t5_config_from_hf, t5_params_from_hf, None),
+    "whisper": (WhisperForConditionalGeneration, whisper_config_from_hf,
+                whisper_params_from_hf, None),
 }
 # The JAX package's other hand-written families.
-_UNPORTED_FAMILIES = ("clip", "gpt2", "bert", "t5", "vit", "opt", "gpt_neox",
-                      "whisper")
+_UNPORTED_FAMILIES = ("bert", "vit", "clip")
 
 
 def _read_checkpoint_dir(path: str) -> tuple[dict, dict]:

@@ -64,7 +64,9 @@ Not ported yet, and refused where they would be set: the journal and
 ``client_request_id``, tracing, chaos, fault tolerance, the compile
 manager, canary and weight swaps, crash recovery and the SDC canary
 (ROADMAP.md Queue A items 8.8 and 12). The engine runs every config of the
-Llama chassis, or the plan ``forward_cached=`` names.
+Llama chassis, Mixtral, GPT-2, OPT and GPT-NeoX, or the plan
+``forward_cached=`` names; an encoder-decoder module (T5, Whisper) is
+refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ import numpy as np
 import torch
 
 from .generation import (
+    ENCDEC_GENERATION_PLANS,
     KVCache,
     _cache_dims,
     _decode_params,
@@ -480,6 +483,10 @@ class ServingEngine:
         self.config = c = config if config is not None else ServingConfig()
         module = getattr(model, "module", model)
         self.cfg = module.config
+        name = type(module).__name__
+        if forward_cached is None and name in ENCDEC_GENERATION_PLANS:
+            raise ValueError("ServingEngine serves causal-LM plans; encoder-decoder families "
+                             f"({name}) keep the static generate() path.")
         fwd = _generation_plan(module, forward_cached)
         self._params = _decode_params(model)
         self.device = _params_device(self._params)

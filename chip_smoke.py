@@ -277,6 +277,34 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    logits equal bit for bit. Phase 2 holds the kernels at the Mixtral
    step's attention shape (B2 S2048 Hq32 Hkv8 D128) and at cp_generate's
    prefill (B1 S8192 H16 D128), and phase 3 times them there.
+19. GPT-2, GPT-NeoX, OPT, T5 and Whisper (``FAMILY_ROWS``: the JAX
+   package's gpt2_xl, pythia_1b, opt_1b3, t5_base and whisper_large
+   presets at their published widths, seeded random weights). (a) Each
+   family's tiny model on the card and on the CPU from the same
+   numpy-seeded weights: fp32 greedy generate() tokens under the near-tie
+   rule (TF32 off), for T5 and Whisper also beam_search() with a decoder
+   prompt, equal; one bf16 train step, loss within 2e-2. (b) Each
+   full-width model's train step through prepare_train_step (bf16 over
+   fp32 masters, adamw(3e-4, weight_decay=0.1), clipping, remat on every
+   block): GPT-2 XL 4 x 1024, Pythia-1B 4 x 2048, OPT-1.3B 4 x 2048,
+   T5-base 8 x (512 encoder, 128 decoder), Whisper-large 2 x (3000, 80)
+   features and 128 decoder tokens; 2 warm-up and 5 timed steps (the batch
+   halved on OOM, said so), ms, tokens/s, MFU from the counted FLOPs (the
+   formula in the row), peak memory, one profiled step (device-busy ms,
+   idle share, categories); losses start near ln(vocab) and fall, and no
+   flash kernel launches (these families attend with materialised scores,
+   as their JAX modules do). (c) Each trained model in bf16: the causal
+   ones' decode row (prompt (1, 64), 32 new tokens), T5's 32 tokens from
+   a 512-token input, Whisper's from (1, 3000, 80) features with its
+   start-of-transcript prompt and forced language, task and no-timestamps
+   tokens; the encoder's ms apart; ms a token, device ms, idle share
+   beside the bytes bound (the decoder's weights, the self-attention K/V
+   and the cross-attention K/V). (d) OPT-1.3B's engine on phase 8's trace
+   cut to 16 requests: each row equal to generate()'s of its prompt under
+   the tie gap ``bf16_tie_gap`` derives; an encoder-decoder module
+   refused. (e) A tiny checkpoint of each family in transformers' names
+   and layouts (``HF_LAYOUT``) read by model_from_pretrained from its
+   directory: logits equal bit for bit to the in-memory load's.
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -729,27 +757,29 @@ def _category(name):
     return "other kernels"
 
 
-def profile_steps(step, state, batch, step_ms, steps=2):
+def profile_steps(step, state, batch, step_ms, steps=2, host=True):
     """Device time per full-width step by kernel category, over `steps`
     profiled steps, and the share of the unprofiled step time (`step_ms`,
     phase 5) during which no kernel ran. The profiler slows the host, so
-    its own wall time is reported but not used for the idle share."""
+    its own wall time is reported but not used for the idle share. With
+    ``host=False`` the card's kernels only are traced (no host ops)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=profiled_activities(host)) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, by_cat, top, _ = device_times(prof, steps)
+    busy_ms, by_cat, top, n_kernels = device_times(prof, steps)
     return {"phase": "profile", "steps": steps, "profiled_wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
             "idle_share": 1.0 - busy_ms / step_ms if top else None,
             "ms_per_step_by_category": by_cat, "top_kernels_ms_per_step": top,
-            "host_ops_ms_per_step": host_ops(prof, steps)}
+            "host_ops_ms_per_step": host_ops(prof, steps) if host else None,
+            "kernels_per_step": n_kernels}
 
 
 def device_times(prof, steps, n_top=12):
@@ -880,10 +910,29 @@ def _greedy_gaps(cfg, model, rows, prompt_len, mask=None):
         valid = np.concatenate([mask.astype(bool), np.ones((b, t - prompt_len), bool)], 1)
         kwargs = {"pad_offset": torch.from_numpy(np.argmax(mask, 1)).to(rows.device),
                   "kv_valid": torch.from_numpy(valid).to(rows.device)}
-    logits, _ = gen._llama_forward_cached(cfg, model, rows, gen.init_cache(
+    logits, _ = plan_of(model)(cfg, model, rows, gen.init_cache(
         cfg, b, t, device=rows.device), return_all=True, **kwargs)
     top2 = torch.topk(logits[:, prompt_len - 1:t - 1], 2, dim=-1).values
     return (top2[..., 0] - top2[..., 1]).cpu().numpy()
+
+
+def profiled_activities(host=True):
+    """torch.profiler's activities: the card's kernels, and the host's ops
+    with ``host`` (or where there is no card: a rehearsal on the CPU)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    if host or not torch.cuda.is_available():
+        return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    return [ProfilerActivity.CUDA]
+
+
+def plan_of(model):
+    """The cached forward of ``model``'s class (a module, a ``Model`` or a
+    decode-quantized model): the Llama chassis's, or another family's."""
+    from accelerate_tpu_torch import generation as gen
+
+    return gen.GENERATION_PLANS[type(getattr(model, "module", model)).__name__]
 
 
 def _tiny_module(device, seed=0):
@@ -937,27 +986,30 @@ def tiny_generate_parity(device="cuda"):
     return out
 
 
-def _decode_steps(cfg, params, prompt, n, profiled=False):
-    """Prefill, then `n` greedy decode steps as generate() runs them:
-    returns (decode seconds, all logits finite, and with `profiled` the
-    torch.profiler run of the decode steps alone, else None)."""
+def _decode_steps(cfg, params, prompt, n, profiled=False, fwd=None, host=True):
+    """Prefill, then `n` greedy decode steps as generate() runs them (with
+    the plan `fwd`, by default the Llama chassis's): returns (decode
+    seconds, all logits finite, and with `profiled` the torch.profiler run
+    of the decode steps alone, else None; ``host=False`` traces the card's
+    kernels only, which parses several times faster)."""
     import contextlib
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from accelerate_tpu_torch import generation as gen
 
+    fwd = fwd or gen._llama_forward_cached
     cache = gen.init_cache(cfg, prompt.shape[0], prompt.shape[1] + n + 1, device=prompt.device)
-    logits, cache = gen._llama_forward_cached(cfg, params, prompt, cache)
+    logits, cache = fwd(cfg, params, prompt, cache)
     finite = [torch.isfinite(logits).all()]
     tok = torch.argmax(logits, dim=-1)
     torch.cuda.synchronize()
-    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+    with (profile(activities=profiled_activities(host)) if profiled
           else contextlib.nullcontext()) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            logits, cache = gen._llama_forward_cached(cfg, params, tok[:, None], cache)
+            logits, cache = fwd(cfg, params, tok[:, None], cache)
             finite.append(torch.isfinite(logits).all())
             tok = torch.argmax(logits, dim=-1)
         torch.cuda.synchronize()
@@ -979,18 +1031,20 @@ def full_width_generate(device="cuda"):
     return decode_row(cfg, module, FULL_WIDTH, device), module
 
 
-def decode_variant(cfg, model, prompt, device="cuda"):
+def decode_variant(cfg, model, prompt, device="cuda", profiled=PROFILED_DECODE_STEPS,
+                   host=True):
     """bench.py's decode row for one model (bf16 or int8 weights): one
     warm-up and one timed generate() of 32 new tokens after `prompt`, then
-    prefill and decode-step times and a profile of
-    ``PROFILED_DECODE_STEPS`` decode steps (the prefill outside it).
-    Returns (the new tokens, the numbers)."""
+    prefill and decode-step times and a profile of `profiled` decode steps
+    (the prefill outside it; with ``host=False`` the card's kernels only,
+    and no host ops). Returns (the new tokens, the numbers)."""
     import numpy as np
     import torch
 
     from accelerate_tpu_torch import generate
-    from accelerate_tpu_torch.generation import _decode_params, _llama_forward_cached, init_cache
+    from accelerate_tpu_torch.generation import _decode_params, init_cache
 
+    fwd = plan_of(model)
     generate(model, prompt, max_new_tokens=GEN_NEW_TOKENS)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1004,13 +1058,14 @@ def decode_variant(cfg, model, prompt, device="cuda"):
         cache = init_cache(cfg, 1, GEN_PROMPT + GEN_NEW_TOKENS, device=device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _llama_forward_cached(cfg, params, prompt, cache)
+        fwd(cfg, params, prompt, cache)
         torch.cuda.synchronize()
         prefill.append((time.perf_counter() - t0) * 1e3)
     steps = GEN_NEW_TOKENS - 1
-    decode_s, finite, _ = _decode_steps(cfg, params, prompt, steps)
-    _, finite_p, prof = _decode_steps(cfg, params, prompt, PROFILED_DECODE_STEPS, profiled=True)
-    busy_ms, by_cat, top, n_kernels = device_times(prof, PROFILED_DECODE_STEPS, n_top=8)
+    decode_s, finite, _ = _decode_steps(cfg, params, prompt, steps, fwd=fwd)
+    _, finite_p, prof = _decode_steps(cfg, params, prompt, profiled, profiled=True, fwd=fwd,
+                                      host=host)
+    busy_ms, by_cat, top, n_kernels = device_times(prof, profiled, n_top=8)
     decode_ms = decode_s * 1e3 / steps
     return row, {
         "decode_tok_s": GEN_NEW_TOKENS / wall, "generate_ms": wall * 1e3,
@@ -1019,7 +1074,7 @@ def decode_variant(cfg, model, prompt, device="cuda"):
         "idle_share": 1.0 - busy_ms / decode_ms if top else None,
         "kernels_per_token": n_kernels, "ms_per_token_by_category": by_cat,
         "top_kernels_ms_per_token": top,
-        "host_ops_ms_per_token": host_ops(prof, PROFILED_DECODE_STEPS),
+        "host_ops_ms_per_token": host_ops(prof, profiled) if host else None,
         "tokens_in_vocab": bool(((row >= 0) & (row < cfg.vocab_size)).all()),
         "logits_finite": finite and finite_p,
     }
@@ -1090,12 +1145,14 @@ def tiny_serving_parity(device="cuda"):
     return divergences
 
 
-def full_width_serving(module, row=SERVING_ROW):
+def full_width_serving(module, row=SERVING_ROW, keep_rows=False):
     """The engine at full width on generate_bench.py's serving row: its
     Poisson trace replayed open loop after one warm-up request, with the
     row's ServingConfig (8 slots, max_len from the trace, chunks up to the
-    prompt length). Phases 17 and 18 cut the trace to fewer requests
-    (`row`)."""
+    prompt length). Phases 17-19 cut the trace to fewer requests (`row`);
+    any family with a generation plan serves. With `keep_rows` the result
+    also holds the rows, prompts and budgets (``_rows``, ``_prompts``,
+    ``_budgets``: not JSON; phase 19 pops them)."""
     import torch
 
     from accelerate_tpu_torch import Model, ServingConfig, ServingEngine
@@ -1123,6 +1180,7 @@ def full_width_serving(module, row=SERVING_ROW):
         "kv_cache_gib": (engine._cache.k.nbytes + engine._cache.v.nbytes) / 2**30,
         "decode_ticks": ticks,
         "ok": serving_gate(rows, prompts, budgets.tolist(), stats, vocab),
+        **({"_rows": rows, "_prompts": prompts, "_budgets": budgets} if keep_rows else {}),
     }
 
 
@@ -3280,12 +3338,13 @@ def _windowed_logits(cfg, model, row, prompt_len, width, device):
     ids = torch.as_tensor(row[None]).long().to(device)
     t = ids.shape[1]
     cache = gen.init_cache(cfg, 1, t + width, device=device)
-    logits, cache = gen._llama_forward_cached(cfg, model, ids[:, :prompt_len], cache)
+    fwd = plan_of(model)
+    logits, cache = fwd(cfg, model, ids[:, :prompt_len], cache)
     out = [logits]
     pos = prompt_len
     while pos < t - 1:
         chunk = ids[:, pos:min(pos + width, t - 1)]
-        logits, cache = gen._llama_forward_cached(cfg, model, chunk, cache, return_all=True)
+        logits, cache = fwd(cfg, model, chunk, cache, return_all=True)
         out.extend(logits[:, j] for j in range(chunk.shape[1]))
         pos += chunk.shape[1]
     return torch.stack(out, dim=1)[0]  # (new tokens, V)
@@ -3306,7 +3365,7 @@ def bf16_tie_gap(cfg, model, rows, prompt_lens, k, device):
     delta = 0.0
     for row, p in zip(rows, prompt_lens):
         ids = torch.as_tensor(row[None]).long().to(device)
-        full, _ = gen._llama_forward_cached(cfg, model, ids, gen.init_cache(
+        full, _ = plan_of(model)(cfg, model, ids, gen.init_cache(
             cfg, 1, ids.shape[1], device=device), return_all=True)
         paths = [full[0, p - 1:-1], _windowed_logits(cfg, model, row, p, 1, device),
                  _windowed_logits(cfg, model, row, p, k + 1, device)]
@@ -4543,6 +4602,657 @@ def moe_phase(hf, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW, serving_ro
             "ok": all(checks.values())}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: GPT-2, GPT-NeoX, OPT, T5 and Whisper at full width
+# ---------------------------------------------------------------------------
+
+# The JAX package's presets at their published widths (GPT2Config.gpt2_xl,
+# GPTNeoXConfig.pythia_1b, OPTConfig.opt_1b3, T5Config.t5_base,
+# WhisperConfig.whisper_large), with seeded random weights; nothing is cut.
+# (b): the train step's batch and sequence; (c): the decode rows.
+FAMILY_ROWS = {
+    "gpt2_xl": dict(family="gpt2", preset="gpt2_xl", batch=4, seq=1024),
+    "pythia_1b": dict(family="neox", preset="pythia_1b", batch=4, seq=2048),
+    "opt_1b3": dict(family="opt", preset="opt_1b3", batch=4, seq=2048),
+    "t5_base": dict(family="t5", preset="t5_base", batch=8, seq=512, dec_seq=128),
+    "whisper_large": dict(family="whisper", preset="whisper_large", batch=2, frames=3000,
+                          dec_seq=128),
+}
+# (b): 2 warm-up, 5 timed and 1 profiled train step; (c): 3 profiled decode
+# steps; both profiles trace the card's kernels only (the host's events,
+# at 2,500 kernels a token and 18,000 a Whisper step, took most of a row's
+# seconds to parse).
+FAMILY_STEPS = dict(warmup=2, timed=5, profiled=1, profiled_decode=3)
+# (c): T5 decodes 32 tokens from a 512-token input; Whisper from 30 s of
+# features with Whisper's start-of-transcript prompt and forced language,
+# task and no-timestamps tokens (multilingual Whisper's ids).
+ENCDEC_DECODE = dict(t5_input=512, whisper_frames=3000, new_tokens=GEN_NEW_TOKENS,
+                     whisper_prompt=(50258,), whisper_forced=((1, 50259), (2, 50359), (3, 50363)))
+# (a) and (e): the tiny widths of each family (the JAX presets' ``tiny``).
+TINY_FAMILY_INPUTS = dict(prompt=(2, 8), new_tokens=12, t5_input=(2, 10), whisper=(2, 40, 16),
+                          beams=3, decoder_prompt=2)
+
+
+def family_classes(family):
+    """(config class, module class, generation-plan name) of a family."""
+    from accelerate_tpu_torch.models import (
+        GPT2Config, GPT2LMHeadModel, GPTNeoXConfig, GPTNeoXForCausalLM, OPTConfig,
+        OPTForCausalLM, T5Config, T5ForConditionalGeneration, WhisperConfig,
+        WhisperForConditionalGeneration)
+
+    return {"gpt2": (GPT2Config, GPT2LMHeadModel), "neox": (GPTNeoXConfig, GPTNeoXForCausalLM),
+            "opt": (OPTConfig, OPTForCausalLM), "t5": (T5Config, T5ForConditionalGeneration),
+            "whisper": (WhisperConfig, WhisperForConditionalGeneration)}[family]
+
+
+def family_weights(module, seed=0):
+    """numpy-seeded weights in the port's layout: matrices of std
+    1/sqrt(fan-in) (T5's q a further 1/sqrt(d_kv), as its initialiser),
+    norm scales of one, zero biases; Whisper's sinusoids kept."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    d_kv = getattr(module.config, "d_kv", None)
+    for n, p in module.state_dict().items():
+        if n == "encoder.embed_positions":
+            out[n] = p.detach().clone()
+            continue
+        if p.dim() == 1:
+            a = np.zeros(p.shape) if n.endswith("bias") else np.ones(p.shape)
+        else:
+            a = rng.standard_normal(p.shape) / math.sqrt(math.prod(p.shape[1:]))
+            if d_kv and n.endswith(".q.weight"):
+                a = a / math.sqrt(d_kv)
+        out[n] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+def family_batch(family, cfg, rows, device, seed=0, **shape):
+    """A train batch: ids ``x``/``y`` (causal: the sequence shifted by
+    one), T5's encoder ids and labels, Whisper's (B, T, mel) features and
+    decoder ids."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if family == "t5":
+        return {"x": torch.from_numpy(rng.integers(2, cfg.vocab_size, (rows, shape["seq"])))
+                .to(device),
+                "y": torch.from_numpy(rng.integers(2, cfg.vocab_size, (rows, shape["dec_seq"])))
+                .to(device)}
+    if family == "whisper":
+        feats = rng.standard_normal((rows, shape["frames"], cfg.num_mel_bins)).astype(np.float32)
+        ids = rng.integers(0, cfg.vocab_size, (rows, shape["dec_seq"] + 1))
+        return {"feats": torch.from_numpy(feats).to(device),
+                "x": torch.from_numpy(ids[:, :-1]).to(device),
+                "y": torch.from_numpy(ids[:, 1:]).to(device)}
+    ids = rng.integers(0, cfg.vocab_size, (rows, shape["seq"] + 1))
+    return {"x": torch.from_numpy(ids[:, :-1]).to(device),
+            "y": torch.from_numpy(ids[:, 1:]).to(device)}
+
+
+def row_shape(row) -> dict:
+    """A row's sequence lengths: ``seq``, ``dec_seq``, ``frames``."""
+    return {k: row[k] for k in ("seq", "dec_seq", "frames") if k in row}
+
+
+def family_loss(family):
+    """The train step's loss: the causal LM loss; T5's teacher forcing
+    (``shift_tokens_right``, ``t5_cross_entropy_loss``); Whisper's decoder
+    ids against the next ids."""
+    from accelerate_tpu_torch.models import (
+        cross_entropy_loss, shift_tokens_right, t5_cross_entropy_loss)
+
+    if family == "t5":
+        return lambda m, b: t5_cross_entropy_loss(m(b["x"], shift_tokens_right(b["y"])), b["y"])
+    if family == "whisper":
+        return lambda m, b: cross_entropy_loss(m(b["feats"], b["x"]), b["y"])
+    return lambda m, b: cross_entropy_loss(m(b["x"]), b["y"])
+
+
+# Tables that are only looked up, never multiplied: left out of N.
+LOOKUP_TABLES = ("transformer.wpe.weight", "model.embed_positions.weight",
+                 "gpt_neox.embed_in.weight", "encoder.embed_positions",
+                 "decoder.embed_positions.weight")
+
+
+def family_flops(family, cfg, module, row, rows) -> tuple[float, str]:
+    """FLOPs of one train step (forward and backward; the remat recompute
+    not counted, as phase 5 counts them) and the formula. N counts the
+    parameters that enter products (a tied head once, lookup-only tables
+    not)."""
+    def n_of(prefix=""):
+        return sum(p.numel() for n, p in module.named_parameters()
+                   if n.startswith(prefix) and n not in LOOKUP_TABLES)
+
+    if family in ("gpt2", "neox", "opt"):
+        layers = getattr(cfg, "num_hidden_layers", None) or cfg.n_layer
+        width = getattr(cfg, "hidden_size", None) or cfg.n_embd
+        per_token = 6 * n_of() + 12 * layers * width * row["seq"]
+        return rows * row["seq"] * per_token, "B*S*(6*N + 12*L*H*S)"
+    se, sd = (row["seq"], row["dec_seq"]) if family == "t5" else (row["frames"] // 2,
+                                                                 row["dec_seq"])
+    inner = cfg.num_heads * cfg.d_kv if family == "t5" else cfg.d_model
+    le = cfg.num_layers if family == "t5" else cfg.encoder_layers
+    ld = cfg.n_dec if family == "t5" else cfg.decoder_layers
+    n_enc, n_dec = n_of("encoder."), n_of("decoder.") + n_of("shared.")
+    flops = 6 * n_enc * se + 6 * n_dec * sd + 12 * inner * (le * se * se + ld * (sd * sd + sd * se))
+    formula = ("B*(6*N_enc*S_enc + 6*N_dec*S_dec + 12*inner*(L_enc*S_enc^2"
+               " + L_dec*(S_dec^2 + S_dec*S_enc)))")
+    if family == "whisper":  # conv1 runs at every frame, not at S_enc positions
+        conv1 = module.encoder.conv1.weight.numel()
+        flops += 6 * conv1 * (row["frames"] - se)
+        formula += " + 6*P_conv1*(T - S_enc)"
+    return rows * flops, formula
+
+
+def family_train_steps(hf, name, device="cuda", row=None, steps=FAMILY_STEPS):
+    """(b) One family's full-width train step through prepare_train_step
+    (bf16 over fp32 masters, adamw(3e-4, weight_decay=0.1), clipping at
+    1.0, remat on every block) on one fixed batch: 2 warm-up and 5 timed
+    steps with the flash kernels' launches counted from zero (none of these
+    families reaches them), then one profiled step. The first loss lies
+    within 1 of ln(vocab) and the timed steps' mean below it. The batch
+    halves on OOM, and the row says so. Returns (the row's numbers, the
+    module with its trained fp32 masters)."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, adamw
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    row = row or FAMILY_ROWS[name]
+    family = row["family"]
+    cfg_cls, mod_cls = family_classes(family)
+    preset = getattr(cfg_cls, row["preset"])
+    cfg = dataclasses.replace(preset(), **row.get("width", {}), dtype=torch.bfloat16,
+                              remat=True)
+    rows, halved = row["batch"], []
+    while True:
+        for cls in (AcceleratorState, GradientState):
+            cls._reset_state()
+        acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu")
+        module = mod_cls(cfg, device=acc.device)
+        module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+        model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+        step = acc.prepare_train_step(family_loss(family), max_grad_norm=1.0)
+        batch = family_batch(family, cfg, rows, acc.device, **row_shape(row))
+        state = acc.train_state
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            hf.reset_launch_counts()
+            losses = []
+            for _ in range(steps["warmup"]):
+                state, metrics = step(state, batch)
+                losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps["timed"]):
+                state, metrics = step(state, batch)
+                losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / steps["timed"]
+            break
+        except torch.cuda.OutOfMemoryError:
+            if rows == 1:
+                raise
+            halved.append(rows)
+            del acc, model, module, step, state, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            rows //= 2
+    launches = dict(hf.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    profile = profile_steps(step, state, batch, dt * 1e3, steps=steps["profiled"], host=False)
+    flops, formula = family_flops(family, cfg, module, row, rows)
+    tokens = rows * ({"t5": row.get("seq", 0) + row.get("dec_seq", 0),
+                      "whisper": row.get("frames", 0) // 2 + row.get("dec_seq", 0)}
+                     .get(family, row.get("seq", 0)))
+    n_params = model.num_parameters()
+    checks = {
+        "losses_finite": all(math.isfinite(x) for x in losses),
+        "loss_near_ln_vocab": abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+        # The timed steps' mean: single steps may spike (T5-base's 7th step
+        # rises in the JAX package's own run of this row, on the CPU).
+        "losses_fall": sum(losses[steps["warmup"]:]) / steps["timed"] < losses[0],
+        "no_flash_launches": all(v == 0 for v in launches.values()),
+    }
+    del acc, model, step, state, batch
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "config": {k: v for k, v in dataclasses.asdict(cfg).items() if k != "dtype"},
+        "n_params": n_params, "batch": rows, "halved_from": halved,
+        **row_shape(row),
+        "steps": steps["warmup"] + steps["timed"], "step_ms": dt * 1e3,
+        "tok_s": tokens / dt, "tokens_per_step": tokens,
+        "flops_per_step": flops, "flops_formula": formula,
+        "mfu": flops / dt / PEAK_BF16_FLOPS, "peak_mem_gib": peak, "losses": losses,
+        "ln_vocab": math.log(cfg.vocab_size), "flash_launches": launches,
+        "profile": profile, "checks": checks,
+    }, module
+
+
+def family_decode_bound(cfg, module, ctx, cross=0) -> tuple[float, float]:
+    """Least time (ms) of one bf16 decode token at batch 1 and its bytes:
+    the decoder's weights read once (the head's matrix once, not the
+    lookup tables it does not double as: positions, NeoX's ``embed_in``,
+    the encoder), the K/V of ``ctx`` cached positions read and one written,
+    and ``cross`` encoder positions' cross-attention K/V read."""
+    skip = {"transformer.wpe.weight", "model.embed_positions.weight",
+            "gpt_neox.embed_in.weight", "decoder.embed_positions.weight"}
+    params = [(n, p) for n, p in module.named_parameters()
+              if n not in skip and not n.startswith("encoder.")]
+    weights = sum(p.numel() for _, p in params)
+    from accelerate_tpu_torch import generation as gen
+
+    layers, heads, d, _ = gen._cache_dims(cfg)
+    kv = 2 * layers * heads * d
+    nbytes = 2 * weights + 2 * kv * (ctx + 1) + 2 * kv * cross
+    return nbytes / PEAK_HBM_BYTES * 1e3, nbytes
+
+
+def family_decode_row(cfg, module, device="cuda", steps=FAMILY_STEPS):
+    """(c) A causal family's decode row: bf16 generate() of prompt (1, 64)
+    and 32 new tokens (``decode_variant``) beside its per-token bound."""
+    import torch
+
+    from accelerate_tpu_torch import Model
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    row, res = decode_variant(cfg, Model(module), decode_prompt(cfg, device), device,
+                              profiled=steps["profiled_decode"], host=False)
+    bound_ms, nbytes = family_decode_bound(cfg, module, ctx=GEN_PROMPT + GEN_NEW_TOKENS // 2)
+    return {**res, "bound_ms_per_token": bound_ms, "bound_bytes_per_token": nbytes,
+            "bound_share": bound_ms / res["decode_ms_per_token"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def encdec_decode_row(name, cfg, module, device="cuda", spec=ENCDEC_DECODE,
+                      steps=FAMILY_STEPS):
+    """(c) An encoder-decoder's decode row in bf16: T5 from a 512-token
+    input, Whisper from (1, 3000, 80) features with its prompt and forced
+    tokens. One warm-up and one timed generate(); the encoder's ms apart
+    (median of 3); the decode steps timed after a prefill, then profiled;
+    the per-token bound with the cross-attention K/V's bytes."""
+    import numpy as np
+    import torch
+    from torch.profiler import profile
+
+    from accelerate_tpu_torch import Model, generate
+    from accelerate_tpu_torch import generation as gen
+
+    rng = np.random.default_rng(0)
+    n_new = spec["new_tokens"]
+    if name.startswith("t5"):
+        enc_in = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, spec["t5_input"])))
+        prompt = torch.zeros((1, 1), dtype=torch.long)
+        kw, cross = {}, spec["t5_input"]
+    else:
+        enc_in = torch.from_numpy(rng.standard_normal(
+            (1, spec["whisper_frames"], cfg.num_mel_bins)).astype(np.float32))
+        prompt = torch.tensor([list(spec["whisper_prompt"])])
+        kw, cross = {"forced_decoder_ids": spec["whisper_forced"]}, spec["whisper_frames"] // 2
+    enc_in, prompt = enc_in.to(device), prompt.to(device)
+    model = Model(module)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    generate(model, enc_in, max_new_tokens=n_new, decoder_input_ids=prompt, **kw)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(model, enc_in, max_new_tokens=n_new, decoder_input_ids=prompt, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    encode, decode = gen.ENCDEC_GENERATION_PLANS[type(module).__name__]
+    encode_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = encode(cfg, module, enc_in)
+        torch.cuda.synchronize()
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+    params = gen._decode_params(module)
+
+    def run_steps(n, profiled=False):
+        cache = gen.init_cache(cfg, 1, prompt.shape[1] + n + 1, device=device)
+        logits, cache = decode(cfg, params, prompt, cache, enc)
+        finite = [torch.isfinite(logits).all()]
+        tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        prof = profile(activities=profiled_activities(False)) if profiled else None
+        if prof:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            logits, cache = decode(cfg, params, tok[:, None], cache, enc)
+            finite.append(torch.isfinite(logits).all())
+            tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if prof:
+            prof.__exit__(None, None, None)
+        return dt, bool(torch.stack(finite).all()), prof
+
+    decode_s, finite, _ = run_steps(n_new - 1)
+    _, finite_p, prof = run_steps(steps["profiled_decode"], profiled=True)
+    busy_ms, by_cat, top, n_kernels = device_times(prof, steps["profiled_decode"], n_top=8)
+    decode_ms = decode_s * 1e3 / (n_new - 1)
+    bound_ms, nbytes = family_decode_bound(cfg, module, ctx=prompt.shape[1] + n_new // 2,
+                                           cross=cross)
+    new = out[0, prompt.shape[1]:].cpu().numpy()
+    forced_ok = all(int(out[0, p]) == t for p, t in kw.get("forced_decoder_ids", ()))
+    return {"encoder_input": list(enc_in.shape), "decoder_prompt": prompt.tolist(),
+            "generate_ms": wall * 1e3, "decode_tok_s": n_new / wall,
+            "encode_ms": float(np.median(encode_ms)), "decode_ms_per_token": decode_ms,
+            "device_busy_ms_per_token": busy_ms,
+            "idle_share": 1.0 - busy_ms / decode_ms if top else None,
+            "kernels_per_token": n_kernels, "ms_per_token_by_category": by_cat,
+            "top_kernels_ms_per_token": top, "cross_positions": cross,
+            "bound_ms_per_token": bound_ms, "bound_bytes_per_token": nbytes,
+            "bound_share": bound_ms / decode_ms,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "tokens_in_vocab": bool(((new >= 0) & (new < cfg.vocab_size)).all()),
+            "forced_tokens": forced_ok, "logits_finite": finite and finite_p}
+
+
+def serving_parity_at_width(module, serving, tie_rows=2, device="cuda"):
+    """(d)'s gate: each engine row against generate()'s (bf16; the prompts
+    left-padded into one batch, each row cut to its budget) under the
+    near-tie rule, with the tie gap ``bf16_tie_gap`` derives in this run
+    from sample rows (4-token windows, the shape of a short prefill
+    chunk)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import generate
+
+    cfg = module.config
+    prompts, budgets, rows = serving.pop("_prompts"), serving.pop("_budgets"), \
+        serving.pop("_rows")
+    s = max(len(p) for p in prompts)
+    ids = np.zeros((len(prompts), s), np.int64)
+    mask = np.zeros((len(prompts), s), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, s - len(p):], mask[i, s - len(p):] = p, 1
+    batch = generate(module, torch.from_numpy(ids).to(device), max_new_tokens=int(max(budgets)),
+                     attention_mask=mask).cpu().numpy()
+    refs = [np.concatenate([p, batch[i, s:s + int(b)]]) for i, (p, b) in
+            enumerate(zip(prompts, budgets))]
+    tie_gap, delta = bf16_tie_gap(cfg, module, refs[:tie_rows],
+                                  [len(p) for p in prompts[:tie_rows]], 3, device)
+    divergences = []
+    for p, ref, got in zip(prompts, refs, rows):
+        new_ref, new_got = list(ref[len(p):]), list(np.asarray(got)[len(p):])
+        if new_ref == new_got:
+            divergences.append(None)
+            continue
+        gaps = _row_gaps(cfg, module, ref, len(p), device)
+        divergences.append(first_divergence([new_ref], [new_got], [gaps], tie_gap)[0])
+    return {"tie_gap": tie_gap, "delta": delta, "divergences": divergences,
+            "equal_rows": sum(d is None for d in divergences), "ok": parity_ok(divergences)}
+
+
+def tiny_family_module(family, dtype, device, seed=0):
+    """The tiny model of a family (the JAX preset's ``tiny``) with
+    numpy-seeded weights (``family_weights``) on ``device``."""
+    cfg_cls, mod_cls = family_classes(family)
+    cfg = cfg_cls.tiny(dtype=dtype)
+    module = mod_cls(cfg)
+    module.load_state_dict(family_weights(module, seed))
+    return cfg, module.to(device)
+
+
+def tiny_family_inputs(family, cfg, spec=TINY_FAMILY_INPUTS):
+    """Encoder inputs (T5 ids, Whisper (B, T, mel) features) or a prompt."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    if family == "t5":
+        return torch.from_numpy(rng.integers(2, cfg.vocab_size, spec["t5_input"]))
+    if family == "whisper":
+        return torch.from_numpy(rng.standard_normal(spec["whisper"]).astype(np.float32))
+    return torch.from_numpy(rng.integers(1, cfg.vocab_size, spec["prompt"]))
+
+
+def _encdec_gaps(module, x, rows, prompt_len):
+    """(B, N) top-2 logit gaps of the greedy steps that made
+    rows[:, prompt_len:], from the teacher-forced full forward."""
+    import torch
+
+    with torch.no_grad():
+        logits = module(x, rows)
+    top2 = torch.topk(logits[:, prompt_len - 1:-1], 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]).cpu().numpy()
+
+
+def tiny_family_parity(family, device="cuda", spec=TINY_FAMILY_INPUTS):
+    """(a) One family's tiny model on `device` against the CPU: fp32 greedy
+    generate() (TF32 off) under the near-tie rule; for T5 and Whisper also
+    beam_search() with a decoder prompt, tokens equal; one bf16 train step
+    from the same weights, loss within 2e-2."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, adamw, generate
+    from accelerate_tpu_torch import generation as gen
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    if device != "cpu" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmuls are on; the fp32 comparison needs them off")
+    encdec = family in ("t5", "whisper")
+    cfg, cpu_model = tiny_family_module(family, torch.float32, "cpu")
+    _, card_model = tiny_family_module(family, torch.float32, device)
+    x = tiny_family_inputs(family, cfg, spec)
+    n = spec["new_tokens"]
+    ref = generate(cpu_model, x, max_new_tokens=n)
+    got = generate(card_model, x.to(device), max_new_tokens=n).cpu()
+    p = ref.shape[1] - n
+    gaps = (_encdec_gaps(cpu_model, x, ref, p) if encdec
+            else _greedy_gaps(cfg, cpu_model, ref, p))
+    out = {"generate": first_divergence(ref[:, p:].tolist(), got[:, p:].tolist(), gaps)}
+    ok = parity_ok(out["generate"])
+    if encdec:
+        dec = torch.zeros((x.shape[0], spec["decoder_prompt"]), dtype=torch.long)
+        dec[:, 1] = 5
+        beams = [gen.beam_search(m, x.to(d), n, num_beams=spec["beams"],
+                                 decoder_input_ids=dec.to(d)).cpu()
+                 for m, d in ((cpu_model, "cpu"), (card_model, device))]
+        out["beam_equal"] = bool(torch.equal(*beams))
+        ok = ok and out["beam_equal"]
+
+    # One bf16 train step on the card and on the CPU from the same weights.
+    bf16_cfg = family_classes(family)[0].tiny(dtype=torch.bfloat16)
+    weights = family_weights(cpu_model)
+    row = {"t5": dict(seq=10, dec_seq=6), "whisper": dict(frames=40, dec_seq=6)}.get(
+        family, dict(seq=16))
+    losses = {}
+    for label, on_cpu in (("card", device == "cpu"), ("cpu", True)):
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+        acc = Accelerator(mixed_precision="bf16", cpu=on_cpu)
+        module = family_classes(family)[1](bf16_cfg)
+        module.load_state_dict(weights)
+        acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+        step = acc.prepare_train_step(family_loss(family), max_grad_norm=1.0)
+        batch = family_batch(family, bf16_cfg, 2, acc.device, seed=3, **row)
+        _, metrics = step(acc.train_state, batch)
+        losses[label] = float(metrics["loss"])
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    out.update(train_loss=losses, train_loss_rel=rel)
+    out["ok"] = bool(ok and math.isfinite(losses["card"]) and rel <= 2e-2)
+    return out
+
+
+# transformers' names and layouts of each family's tensors, from the port's
+# (the inverse of hub.py's ``*_params_from_hf``), for (e)'s checkpoints:
+# (pattern, replacement) rules on the port's names, and the port names
+# whose tensors transformers stores transposed (GPT-2's Conv1D).
+HF_LAYOUT = {
+    "gpt2": ([(r"^transformer\.h\.(\d+)\.(c_fc|c_proj)\.", r"transformer.h.\1.mlp.\2.")],
+             r"^transformer\.h\.\d+\.(attn\.c_attn|attn\.c_proj|c_fc|c_proj)\.weight$"),
+    "opt": ([(r"^model\.", "model.decoder.")], None),
+    "neox": ([(r"^gpt_neox\.layers\.(\d+)\.(dense_h_to_4h|dense_4h_to_h)\.",
+               r"gpt_neox.layers.\1.mlp.\2.")], None),
+    "t5": ([(r"^(encoder|decoder)\.final_ln\.", r"\1.final_layer_norm."),
+            (r"^(encoder|decoder)\.block_(\d+)\.ln(\d)\.", r"\1.block.\2.layer.\3.layer_norm."),
+            (r"^(encoder)\.block_(\d+)\.ffn\.", r"\1.block.\2.layer.1.DenseReluDense."),
+            (r"^(decoder)\.block_(\d+)\.ffn\.", r"\1.block.\2.layer.2.DenseReluDense."),
+            (r"^(encoder|decoder)\.block_(\d+)\.self_attn\.",
+             r"\1.block.\2.layer.0.SelfAttention."),
+            (r"^decoder\.block_(\d+)\.cross_attn\.", r"decoder.block.\1.layer.1.EncDecAttention.")],
+           None),
+    "whisper": ([(r"^encoder\.embed_positions$", "encoder.embed_positions.weight"),
+                 (r"^", "model.")], None),
+}
+# The tiny checkpoints' config.json: transformers' keys of each family.
+HF_TINY_CONFIGS = {
+    "gpt2": dict(model_type="gpt2", vocab_size=128, n_positions=64, n_embd=64, n_layer=2,
+                 n_head=4),
+    "opt": dict(model_type="opt", vocab_size=128, hidden_size=64, ffn_dim=128,
+                num_hidden_layers=2, num_attention_heads=4, max_position_embeddings=64),
+    "neox": dict(model_type="gpt_neox", vocab_size=128, hidden_size=64, num_hidden_layers=2,
+                 num_attention_heads=4, intermediate_size=128, rotary_pct=0.25,
+                 max_position_embeddings=64),
+    "t5": dict(model_type="t5", vocab_size=96, d_model=32, d_kv=8, d_ff=64, num_layers=2,
+               num_heads=4, relative_attention_num_buckets=8,
+               relative_attention_max_distance=16),
+    "whisper": dict(model_type="whisper", vocab_size=96, num_mel_bins=16, d_model=32,
+                    encoder_layers=2, decoder_layers=2, encoder_attention_heads=4,
+                    decoder_attention_heads=4, encoder_ffn_dim=64, decoder_ffn_dim=64,
+                    max_source_positions=24, max_target_positions=32, pad_token_id=0,
+                    bos_token_id=1, eos_token_id=2, decoder_start_token_id=1),
+}
+
+
+def hf_layout_state_dict(family, module) -> dict:
+    """``module``'s state dict under transformers' names and layouts."""
+    rules, transposed = HF_LAYOUT[family]
+    out = {}
+    for name, t in module.state_dict().items():
+        t = t.detach().cpu()
+        if transposed and re.match(transposed, name):
+            t = t.t()
+        for pattern, repl in rules:
+            name = re.sub(pattern, repl, name)
+        out[name] = t.contiguous()
+    return out
+
+
+def family_hub_round_trip(family, device="cuda"):
+    """(e) A tiny checkpoint of the family in transformers' layout (its
+    names and shapes, the port's safetensors writer, a config.json) read by
+    ``model_from_pretrained`` from the directory: logits equal bit for bit
+    to ``model_from_pretrained`` of the same tensors in memory."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import model_from_pretrained
+    from accelerate_tpu_torch.models.hub import _FAMILIES
+    from accelerate_tpu_torch.utils.other import save_safetensors
+
+    hf_cfg = HF_TINY_CONFIGS[family]
+    mod_cls, config_from_hf, _, _ = _FAMILIES[hf_cfg["model_type"]]
+    cfg = dataclasses.replace(config_from_hf(hf_cfg), dtype=torch.float32)
+    source = mod_cls(cfg)
+    source.init_weights(torch.Generator().manual_seed(1), std=0.2)
+    sd = hf_layout_state_dict(family, source)
+    rng = np.random.default_rng(2)
+    if family == "t5":
+        args = [rng.integers(1, cfg.vocab_size, (2, 12)), rng.integers(1, cfg.vocab_size, (2, 5))]
+    elif family == "whisper":
+        args = [rng.standard_normal((2, 48, cfg.num_mel_bins)).astype(np.float32),
+                rng.integers(1, cfg.vocab_size, (2, 5))]
+    else:
+        args = [rng.integers(0, cfg.vocab_size, (2, 16))]
+    args = [torch.from_numpy(a).to(device) for a in args]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_safetensors(sd, os.path.join(tmp, "model.safetensors"))
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(hf_cfg, f)
+        from_dir = model_from_pretrained(tmp, dtype=torch.float32, device=device)
+    in_memory = model_from_pretrained((hf_cfg, sd), dtype=torch.float32, device=device)
+    with torch.no_grad():
+        got, want = from_dir(*args), in_memory(*args)
+        source_logits = source.to(device)(*args)
+    return {"config": hf_cfg, "n_tensors": len(sd), "bit_equal": bool(torch.equal(got, want)),
+            "equal_to_source": bool(torch.equal(want, source_logits)),
+            "max_abs_diff": float((got.float() - want.float()).abs().max())}
+
+
+def families_phase(hf, device="cuda", rows=None, steps=FAMILY_STEPS,
+                   serving_row=SERVING_ROW, tiny=TINY_FAMILY_INPUTS, decode=ENCDEC_DECODE):
+    """Phase 19: (a) the tiny families card against CPU, (b) the full-width
+    train steps, (c) the decode rows, (d) OPT-1.3B's engine and the
+    encoder-decoders' refusal, (e) the hub round trips. The keyword
+    arguments shrink it for a rehearsal on the CPU."""
+    import torch
+
+    from accelerate_tpu_torch import Model, ServingEngine
+
+    rows = rows or FAMILY_ROWS
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def timed(key, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        part_s[key] = time.perf_counter() - t
+        return out
+
+    families = ("gpt2", "neox", "opt", "t5", "whisper")
+    tiny_res = {f: timed(f"tiny_{f}", tiny_family_parity, f, device, tiny) for f in families}
+    train, gen_rows, serving = {}, {}, None
+    for name, row in rows.items():
+        train[name], module = timed(f"train_{name}", family_train_steps, hf, name, device, row,
+                                    steps)
+        module.to(torch.bfloat16)  # the decode rows' weights (the config computes in bf16)
+        cfg = module.config
+        if row["family"] in ("t5", "whisper"):
+            gen_rows[name] = timed(f"decode_{name}", encdec_decode_row, row["family"], cfg,
+                                   module, device, decode, steps)
+        else:
+            gen_rows[name] = timed(f"decode_{name}", family_decode_row, cfg, module, device,
+                                   steps)
+        if row["family"] == "opt":
+            serving = timed("serving", full_width_serving, module,
+                            dict(serving_row, requests=16), keep_rows=True)
+            serving["parity"] = timed("serving_parity", serving_parity_at_width, module,
+                                      serving, device=device)
+        del module
+        gc.collect()
+        torch.cuda.empty_cache()
+    refused = {}
+    for family in ("t5", "whisper"):
+        _, module = tiny_family_module(family, torch.float32, device)
+        try:
+            ServingEngine(Model(module))
+            refused[family] = False
+        except ValueError as exc:
+            refused[family] = "encoder-decoder" in str(exc)
+    hub = {f: timed(f"hub_{f}", family_hub_round_trip, f, device) for f in families}
+    checks = {**{f"tiny_{f}": r["ok"] for f, r in tiny_res.items()},
+              **{f"train_{n}_{k}": v for n, r in train.items() for k, v in r["checks"].items()},
+              **{f"decode_{n}": r["tokens_in_vocab"] and r["logits_finite"]
+                 and r.get("forced_tokens", True) for n, r in gen_rows.items()},
+              "serving": serving is not None and serving["ok"],
+              "serving_parity": serving is not None and serving["parity"]["ok"],
+              **{f"engine_refuses_{f}": v for f, v in refused.items()},
+              **{f"hub_{f}_bit_equal": r["bit_equal"] and r["equal_to_source"]
+                 for f, r in hub.items()}}
+    return {"phase": "families", "tiny": tiny_res, "train": train, "decode": gen_rows,
+            "opt_1b3_serving": serving, "engine_refuses": refused, "hub_round_trip": hub,
+            "phase_s": time.perf_counter() - t0, "part_s": part_s, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def _stub_cuda_for_cpu():
     """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
     import torch
@@ -4830,6 +5540,19 @@ def main() -> int:
     if not moe["ok"]:
         failed = sorted(k for k, v in moe["checks"].items() if not v)
         print(f"chip_smoke: Mixtral phase 18 failed: {failed}", file=sys.stderr)
+        return 1
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 19. GPT-2, GPT-NeoX, OPT, T5 and Whisper: the tiny models card against
+    # CPU, the full-width train steps and decode rows, OPT-1.3B's engine, the
+    # hub round trips
+    families = families_phase(hf)
+    emit(families)
+    if not families["ok"]:
+        failed = sorted(k for k, v in families["checks"].items() if not v)
+        print(f"chip_smoke: families phase 19 failed: {failed}", file=sys.stderr)
         return 1
 
     emit({"kernels": kernel_summary(timed, cases, main_path, {

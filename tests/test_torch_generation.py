@@ -521,17 +521,20 @@ def test_quantized_model_refuses_full_forwards(quantized):
 
 
 def test_unported_generation_options_raise(pair):
+    """The compile manager is not ported; decoder_input_ids belong to
+    encoder-decoder modules, and a class without a plan is refused, as in
+    the JAX package (ValueError)."""
     _, _, cfg, module = pair
     ids = _ids(1, 4, seed=15)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="encoder-decoder"):
         generate(module, ids, decoder_input_ids=ids)
     with pytest.raises(NotImplementedError, match="compile_manager"):
         generate(module, ids, compile_manager=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="encoder-decoder"):
         gen.beam_search(module, ids, 2, decoder_input_ids=ids)
 
-    class GPT2LMHeadModel(torch.nn.Module):
+    class BertForSequenceClassification(torch.nn.Module):
         config = cfg
 
-    with pytest.raises(NotImplementedError, match="GPT2LMHeadModel"):
-        generate(GPT2LMHeadModel(), ids)
+    with pytest.raises(ValueError, match="No generation plan for 'BertForSequenceClassification'"):
+        generate(BertForSequenceClassification(), ids)

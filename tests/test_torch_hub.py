@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 import accelerate_tpu_torch
 from accelerate_tpu.models import model_from_pretrained as jax_model_from_pretrained
+from accelerate_tpu_torch import generate
 from accelerate_tpu_torch.models import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -150,6 +151,102 @@ def test_checkpoint_directory_logits_match_jax(family, tmp_path):
     np.testing.assert_allclose(got, ref, rtol=3e-4, atol=3e-4)
 
 
+# The five families with rows of their own (GPT-2, OPT, GPT-NeoX, T5,
+# Whisper): tiny transformers models from config objects, and the inputs
+# of their forward (Whisper's features in transformers' (B, mel, T)).
+OTHER_FAMILIES = {
+    "gpt2": ("GPT2Config", "GPT2LMHeadModel",
+             dict(vocab_size=128, n_positions=64, n_embd=64, n_layer=2, n_head=4)),
+    "opt": ("OPTConfig", "OPTForCausalLM",
+            dict(vocab_size=128, hidden_size=64, ffn_dim=128, num_hidden_layers=2,
+                 num_attention_heads=4, max_position_embeddings=64)),
+    "gpt_neox": ("GPTNeoXConfig", "GPTNeoXForCausalLM",
+                 dict(vocab_size=128, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                      intermediate_size=128, rotary_pct=0.25, max_position_embeddings=64)),
+    "t5": ("T5Config", "T5ForConditionalGeneration",
+           dict(vocab_size=96, d_model=32, d_kv=8, d_ff=64, num_layers=2, num_heads=4,
+                relative_attention_num_buckets=8, relative_attention_max_distance=16,
+                decoder_start_token_id=0, pad_token_id=0, eos_token_id=1)),
+    "whisper": ("WhisperConfig", "WhisperForConditionalGeneration",
+                dict(vocab_size=96, num_mel_bins=16, d_model=32, encoder_layers=2,
+                     decoder_layers=2, encoder_attention_heads=4, decoder_attention_heads=4,
+                     encoder_ffn_dim=64, decoder_ffn_dim=64, max_source_positions=24,
+                     max_target_positions=32, pad_token_id=0, bos_token_id=1, eos_token_id=2,
+                     decoder_start_token_id=1)),
+}
+
+
+def _other_model(family, seed=0):
+    cfg_cls, model_cls, kw = OTHER_FAMILIES[family]
+    torch.manual_seed(seed)
+    return getattr(transformers, model_cls)(getattr(transformers, cfg_cls)(**kw)).eval()
+
+
+def _other_inputs(family):
+    """(transformers' inputs, the packages' inputs): ids, or (encoder
+    input, decoder ids); Whisper's features transposed to (B, T, mel)."""
+    rng = np.random.default_rng(4)
+    if family == "t5":
+        ids = rng.integers(2, 96, (2, 8))
+        dec = rng.integers(2, 96, (2, 5))
+        return (ids, dec), (ids, dec)
+    if family == "whisper":
+        feats = rng.normal(size=(2, 16, 48)).astype(np.float32)
+        dec = rng.integers(2, 96, (2, 5))
+        return (feats, dec), (np.ascontiguousarray(feats.transpose(0, 2, 1)), dec)
+    ids = rng.integers(0, 128, (2, 12))
+    return (ids,), (ids,)
+
+
+@pytest.mark.parametrize("family", sorted(OTHER_FAMILIES))
+def test_other_families_load_like_the_jax_hub(family, tmp_path):
+    """A transformers checkpoint directory of each family: the port's and
+    the JAX package's ``model_from_pretrained`` give the same fp32 logits
+    (1e-5), and transformers' own (3e-4)."""
+    hf = _other_model(family)
+    hf.save_pretrained(tmp_path, safe_serialization=True)
+    theirs, ours = _other_inputs(family)
+    names = {"t5": ("input_ids", "decoder_input_ids"),
+             "whisper": ("input_features", "decoder_input_ids")}.get(family, ("input_ids",))
+    with torch.no_grad():
+        ref = hf(**{n: torch.from_numpy(x) for n, x in zip(names, theirs)}).logits.numpy()
+    model = model_from_pretrained(str(tmp_path), dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        got = model(*(torch.from_numpy(x) for x in ours)).float().numpy()
+    jmodel = jax_model_from_pretrained(str(tmp_path), dtype=jnp.float32)
+    want = np.asarray(jmodel(*(x.astype(np.float32 if x.dtype == np.float32 else np.int32)
+                               for x in ours)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, ref, rtol=3e-4, atol=3e-4)
+
+
+def test_t5_and_whisper_generate_like_transformers():
+    """T5's greedy tokens equal transformers' ``generate``; Whisper's equal
+    transformers' greedy loop over its own forward (its ``generate`` adds
+    task-token logic), as tests/test_generation.py holds the JAX package."""
+    hf = _other_model("t5")
+    ids = np.random.default_rng(3).integers(2, 96, (2, 8)).astype(np.int64)
+    with torch.no_grad():
+        want = hf.generate(torch.from_numpy(ids), max_new_tokens=5, do_sample=False,
+                           min_length=0).numpy()
+    got = generate(model_from_pretrained(hf, dtype=torch.float32, device="cpu"),
+                   torch.from_numpy(ids), max_new_tokens=5, eos_token_id=1)
+    np.testing.assert_array_equal(got.numpy()[:, :want.shape[1]], want)
+
+    hf = _other_model("whisper")
+    feats = np.random.default_rng(5).normal(size=(1, 16, 48)).astype(np.float32)
+    dec = np.asarray([[50]], np.int64)
+    with torch.no_grad():
+        for _ in range(5):
+            logits = hf(input_features=torch.from_numpy(feats),
+                        decoder_input_ids=torch.from_numpy(dec)).logits
+            dec = np.concatenate([dec, logits[:, -1].argmax(-1, keepdim=True).numpy()], axis=1)
+    got = generate(model_from_pretrained(hf, dtype=torch.float32, device="cpu"),
+                   torch.from_numpy(np.ascontiguousarray(feats.transpose(0, 2, 1))),
+                   max_new_tokens=5, decoder_input_ids=torch.from_numpy(dec[:, :1]))
+    np.testing.assert_array_equal(got.numpy(), dec)
+
+
 def test_transformers_model_and_pytorch_bin_load(tmp_path):
     """A transformers model object, and a pytorch_model.bin directory; the
     loaded masters are copies, so the source's weights stay as they were."""
@@ -209,7 +306,7 @@ def _starcoder2_sd(**kw):
 
 def test_refusals_of_the_jax_tests_raise():
     """tests/test_hub.py:197 and tests/test_generic_hub.py:125, 320, 334,
-    393 and 407, and the families not ported yet."""
+    393 and 407, and a family not ported yet (BERT)."""
     with pytest.raises(ValueError, match="longrope"):
         load_pretrained(_hf_model("phi3", original_max_position_embeddings=32, rope_scaling={
             "type": "longrope", "short_factor": [1.0] * 8, "long_factor": [2.0] * 8}))
@@ -230,8 +327,8 @@ def test_refusals_of_the_jax_tests_raise():
         load_pretrained(({"model_type": "definitely_not_a_model"}, {}))
     with pytest.raises(ValueError, match="Unsupported model family"):
         load_pretrained(({"model_type": "umbrellanet"}, {}))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_pretrained(({"model_type": "gpt2"}, {}))
+    with pytest.raises(NotImplementedError, match="item 10.6"):
+        load_pretrained(({"model_type": "bert"}, {}))
 
 
 def test_the_port_imports_neither_transformers_nor_safetensors():

@@ -142,7 +142,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "accelerate_tpu_torch.utils.other", "accelerate_tpu_torch.utils.constants",
                  "accelerate_tpu_torch.tracking", "accelerate_tpu_torch.telemetry",
                  "accelerate_tpu_torch.profiler", "accelerate_tpu_torch.utils.profiling",
-                 "accelerate_tpu_torch.utils.imports"):
+                 "accelerate_tpu_torch.utils.imports", "accelerate_tpu_torch.models.gpt2",
+                 "accelerate_tpu_torch.models.neox", "accelerate_tpu_torch.models.opt",
+                 "accelerate_tpu_torch.models.t5", "accelerate_tpu_torch.models.whisper",
+                 "accelerate_tpu_torch.models.layers"):
         assert name in modules, name
 
 
