@@ -14,7 +14,9 @@ Hugging Face checkpoints by ``models.load_pretrained``) and the Mixtral
 sparse-MoE family (``MixtralForCausalLM``: capacity dispatch with the
 global batch's semantics over data parallelism, ``moe_cross_entropy_loss``),
 GPT-2, OPT and GPT-NeoX, the T5 and Whisper encoder-decoders (their
-encoder runs once in ``generate`` and ``beam_search``), long-context generation with the prompt split over ``cp``
+encoder runs once in ``generate`` and ``beam_search``), BERT, ViT, CLIP and
+ResNet (flax's BatchNorm through ``prepare_train_step(mutable_state=True)``,
+the global batch's statistics over processes), long-context generation with the prompt split over ``cp``
 (``cp_generate``: ring-attention prefill, flash-decoding), and their
 observability: experiment trackers (``log_with``), step
 telemetry and the device-time profiler (``TelemetryKwargs``), and
@@ -73,6 +75,7 @@ from .state import AcceleratorState, DistributedType, GradientState, PartialStat
 from .telemetry import TelemetryRecorder
 from .train_state import DynamicLossScale, TrainState, grads_all_finite
 from .utils import (
+    AutocastKwargs,
     DataLoaderConfiguration,
     DeepSpeedPlugin,
     DistributedDataParallelKwargs,
@@ -80,6 +83,7 @@ from .utils import (
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
+    InitProcessGroupKwargs,
     MixedPrecisionPolicy,
     ProfileKwargs,
     ProjectConfiguration,
@@ -96,6 +100,7 @@ __all__ = [
     "AcceleratedScheduler",
     "Accelerator",
     "AcceleratorState",
+    "AutocastKwargs",
     "CheckpointSaveError",
     "ColumnDataset",
     "DataLoaderConfiguration",
@@ -109,6 +114,7 @@ __all__ = [
     "GradScalerKwargs",
     "GradientAccumulationPlugin",
     "GradientState",
+    "InitProcessGroupKwargs",
     "MixedPrecisionPolicy",
     "MixtralConfig",
     "MixtralForCausalLM",

@@ -127,7 +127,11 @@ from .model import Model
 from .logging import get_logger
 from .optimizer import AcceleratedOptimizer, AdamW
 from .parallel import apply_data_parallel
-from .parallel.fsdp import average_whole_gradients, gradient_sync
+from .parallel.fsdp import (
+    apply_activation_checkpointing,
+    average_whole_gradients,
+    gradient_sync,
+)
 from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, DistributedType, GradientState
@@ -135,6 +139,7 @@ from .tracking import GeneralTracker, filter_trackers
 from .train_state import DynamicLossScale, TrainState
 from .utils import operations
 from .utils.dataclasses import (
+    AutocastKwargs,
     DataLoaderConfiguration,
     DeepSpeedPlugin,
     DistributedDataParallelKwargs,
@@ -142,6 +147,7 @@ from .utils.dataclasses import (
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
+    InitProcessGroupKwargs,
     KwargsHandler,
     MixedPrecisionPolicy,
     ProfileKwargs,
@@ -265,6 +271,9 @@ class Accelerator:
         self.scaler_handler: Optional[GradScalerKwargs] = None
         self.fp8_recipe_handler: Optional[FP8RecipeKwargs] = None
         self.ddp_handler: Optional[DistributedDataParallelKwargs] = None
+        # Taken and not read, as in the JAX package.
+        self.init_handler: Optional[InitProcessGroupKwargs] = None
+        self.autocast_handler: Optional[AutocastKwargs] = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, ProfileKwargs):
                 self.profile_handler = handler
@@ -276,10 +285,16 @@ class Accelerator:
                 self.fp8_recipe_handler = handler
             elif isinstance(handler, DistributedDataParallelKwargs):
                 self.ddp_handler = handler
+            elif isinstance(handler, InitProcessGroupKwargs):
+                self.init_handler = handler
+            elif isinstance(handler, AutocastKwargs):
+                self.autocast_handler = handler
             else:
                 raise NotImplementedError(
                     f"kwargs handler {type(handler).__name__} is not ported yet (ROADMAP.md "
                     "Queue A: CompileKwargs, FaultToleranceKwargs and AutoPlanKwargs item 12)")
+        if mixed_precision is not None:
+            mixed_precision = str(mixed_precision)  # a PrecisionType member too
         self._mp_policy = MixedPrecisionPolicy.from_mixed_precision(mixed_precision)
         self.state = AcceleratorState(
             mixed_precision=mixed_precision, cpu=cpu, parallelism_config=parallelism_config)
@@ -542,8 +557,12 @@ class Accelerator:
     def prepare_model(self, model: Model, device_placement=None,
                       evaluation_mode: bool = False) -> Model:
         """``model`` on this process's device, sharded or replicated over
-        the process group as ``prepare`` does it; prepared once."""
+        the process group as ``prepare`` does it; prepared once. The
+        plugin's ``activation_checkpointing`` turns the module's remat on
+        first, with or without a group."""
         if model not in self._models:
+            if self.fsdp_plugin is not None and self.fsdp_plugin.activation_checkpointing:
+                apply_activation_checkpointing(model.module)
             model.module.to(self.device)
             apply_data_parallel(model, self.state, self.fsdp_plugin,
                                 self._mp_policy.compute_dtype, self.ddp_handler)
@@ -582,7 +601,8 @@ class Accelerator:
         step = (0 if loss_scale is None
                 else torch.zeros((), dtype=torch.int32, device=self.device))
         self._train_states.append(TrainState(step=step, model=model, optimizer=opt,
-                                             loss_scale=loss_scale))
+                                             loss_scale=loss_scale,
+                                             extra_state=model.extra_state))
         self._optimizers.append(AcceleratedOptimizer(opt, accelerator=self))
         return self._optimizers[-1]
 
@@ -651,7 +671,10 @@ class Accelerator:
     def _to_device(self, batch: dict) -> dict:
         return {k: self._place(v) for k, v in batch.items()}
 
-    def prepare_train_step(self, loss_fn: Callable, *, max_grad_norm: Optional[float] = None):
+    def prepare_train_step(self, loss_fn: Callable, *, has_aux: bool = False,
+                           mutable_state: bool = False,
+                           max_grad_norm: Optional[float] = None,
+                           donate: Optional[bool] = None, model: Optional[Model] = None):
         """``step(state, batch) -> (state, {"loss", "grad_norm"})`` around
         ``loss_fn(model, batch) -> scalar loss``. Over a process group each
         process passes its own share of the global batch
@@ -661,27 +684,67 @@ class Accelerator:
         scaling the loss is the unscaled one and the norm that of the
         unscaled gradients; an overflowed step is skipped on the card.
         Without ``max_grad_norm`` a ``DeepSpeedPlugin``'s
-        ``gradient_clipping`` clips."""
+        ``gradient_clipping`` clips.
+
+        The JAX package's options:
+
+        - ``has_aux``: ``loss_fn`` returns ``(loss, aux)``; the step uses the
+          loss and drops the aux, as the JAX step does (its metrics stay
+          ``{"loss", "grad_norm"}``).
+        - ``mutable_state``: ``loss_fn(model, extra_state, batch) -> (loss,
+          new_extra_state)`` for a model whose forward updates non-parameter
+          collections (BatchNorm's ``batch_stats``, ``models.resnet_loss``).
+          The state's ``extra_state`` goes in, each microbatch of an
+          accumulation window gets the one the previous returned (the JAX
+          step's ``scan`` carry), and the last is stored in
+          ``state.extra_state`` (the model's buffers, in place). Over
+          several processes BatchNorm normalises with the global batch's
+          statistics, as GSPMD makes the JAX step's (``FlaxBatchNorm``).
+          Exclusive with ``has_aux``.
+        - ``model``: the step of that prepared model's slot (its optimizer
+          and state); the first model's by default. The state carries its
+          model and optimizer, so the step advances the state it is passed,
+          and it refuses one of another slot.
+        - ``donate``: taken for the signature. Eager PyTorch already updates
+          the parameters and optimizer state in place, which is what the
+          JAX step's donated buffers buy."""
         if not self._train_states:
             raise RuntimeError("Call accelerator.prepare(...) first.")
+        if mutable_state and has_aux:
+            raise ValueError("mutable_state and has_aux are mutually exclusive")
+        if model is not None and not any(st.model is model for st in self._train_states):
+            raise ValueError("model was not prepared by this Accelerator (with an optimizer)")
         if max_grad_norm is None:
             max_grad_norm = self._ds_gradient_clipping
         policy = self._mp_policy
         num_accum = self.gradient_state.num_steps
         world = self.num_processes
 
+        bound = model
+
         def step(state: TrainState, batch: dict):
+            if bound is not None and state.model is not bound:
+                raise ValueError("this step was prepared for another model's slot")
             model, opt = state.model, state.optimizer
             params = [p for p in model.parameters() if p.requires_grad]
             microbatches = _microbatch_split(self._to_device(batch), num_accum)
             opt.zero_grad(set_to_none=True)
             loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+            extra = state.extra_state
             for mb in microbatches:
                 with (operations.loss_over_processes(world),
                       model.compute_params(policy.cast_for_compute(self._cast_params(model)))):
-                    loss = loss_fn(model, mb).float()
+                    if mutable_state:
+                        loss, extra = loss_fn(model, extra, mb)
+                    else:
+                        loss = loss_fn(model, mb)
+                        if has_aux:
+                            loss, _aux = loss
+                    loss = loss.float()
                     _scaled(loss, state.loss_scale).backward()
                 loss_sum += loss.detach()
+            if mutable_state:
+                state.set_extra_state(extra)
             grads = [p.grad for p in params if p.grad is not None]
             # Parameters FSDP2 leaves whole are averaged here over every
             # process (loss_reduce_axes), as DDP would.

@@ -36,7 +36,8 @@ shards, nothing is gathered. It holds the model's and AdamW's state from
 ``get_state_dict`` (FSDP2's DTensors as they are sharded) under the flax
 tree's ``/``-joined names of the unrolled layers (``params/...``,
 ``opt_state/mu/...``, ``opt_state/nu/...``), in the port's layouts, with
-``opt_state/count`` and ``step``; the other files are as above. A load
+``opt_state/count``, ``step`` and the extra state's leaves
+(``extra_state/batch_stats/...``); the other files are as above. A load
 reads it into the live layout at any world size (DCP reshards), without a
 process group too (``no_dist``). ``save_state(block=False)`` stages the
 state into host buffers (pinned on the card; ``_HostStaging``, DCP's
@@ -91,7 +92,8 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
-from .models.convert import flax_converter
+from .models.convert import _map_tree, flax_converter
+from .train_state import tree_items
 from .utils.constants import (
     CHECKPOINT_DIR_REGEX,
     DCP_DIR_NAME,
@@ -360,6 +362,10 @@ def _dcp_state(train_state) -> tuple[dict, list]:
                                  opt.state[p]["exp_avg_sq"])):
             state[key] = value
             live.append((key, dst))
+    for path, t in tree_items(train_state.extra_state or {}):
+        key = "extra_state/" + "/".join(path)
+        state[key] = t
+        live.append((key, t))
     state["opt_state/count"] = torch.tensor(int(getattr(opt, "count", train_state.step)))
     state["step"] = torch.tensor(int(train_state.step))
     return state, live
@@ -589,8 +595,10 @@ def _save_train_state(train_state, i: int, write_dir: str, max_shard, device,
     # optax.adamw: scale_by_adam, add_decayed_weights, then the rate's
     # transform (scale_by_schedule for a schedule, stateless for a float).
     rate = ScaleByScheduleState(count.copy()) if getattr(opt, "scheduled", False) else EmptyState()
+    extra = (None if train_state.extra_state is None else _map_tree(
+        lambda t: t.detach().cpu().numpy(), train_state.extra_state))
     _dump_optax({"opt_state": (adam, EmptyState(), rate), "step": int(train_state.step),
-                 "extra_state": None},
+                 "extra_state": extra},
                 os.path.join(write_dir, f"{OPTIMIZER_NAME}{_suffix(i)}.bin"))
     stats["write_s"] += time.perf_counter() - t0
 
@@ -740,6 +748,9 @@ def _load_train_state(train_state, i: int, input_dir: str, device, stats: dict) 
     if hasattr(opt, "count"):
         opt.count = count
     train_state.set_step(int(payload["step"]))
+    if payload.get("extra_state") is not None and train_state.extra_state is not None:
+        train_state.set_extra_state(_map_tree(
+            lambda a: torch.as_tensor(np.asarray(a)), payload["extra_state"]))
     if pin:
         torch.cuda.synchronize(device)
     stats["h2d_s"] += time.perf_counter() - t0

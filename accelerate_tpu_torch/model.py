@@ -19,6 +19,12 @@ compute copies, and ``ignored`` holds the parameters it leaves whole), and
 DDP wraps it (``forward_module``, through which calls run).
 
 An inference call (autograd off) runs inside ``ops.fp8.eval_mode()``.
+
+``extra_state`` is flax's non-parameter collections of the module, as
+``Model.from_flax`` splits them off: ``{"batch_stats": ...}`` of its
+BatchNorm layers' running statistics (``models/layers.FlaxBatchNorm``,
+ResNet's) under the flax tree's names, the buffers themselves; None
+without any.
 """
 
 from __future__ import annotations
@@ -40,6 +46,20 @@ class Model:
 
     def parameters(self):
         return self.module.parameters()
+
+    @property
+    def extra_state(self):
+        """``{"batch_stats": {path...: {"mean", "var"}}}`` of the module's
+        BatchNorm buffers (the tensors themselves), or None."""
+        stats: dict = {}
+        for name, mod in self.module.named_modules():
+            if getattr(mod, "flax_collection", None) == "batch_stats":
+                *parents, leaf = name.split(".")
+                node = stats
+                for p in parents:
+                    node = node.setdefault(p, {})
+                node[leaf] = {"mean": mod.mean, "var": mod.var}
+        return {"batch_stats": stats} if stats else None
 
     def num_parameters(self) -> int:
         return sum(p.numel() for p in self.module.parameters())

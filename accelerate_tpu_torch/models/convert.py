@@ -17,18 +17,27 @@ attention and norms, and a ``moe`` subtree in place of ``mlp``: ``router``
 ``(d, E)`` and the stacked ``w_gate``/``w_up`` ``(E, d, f)`` and ``w_down``
 ``(E, f, d)``, which the port holds in the same layouts.
 
-GPT-2, OPT, GPT-NeoX, T5 and Whisper are described as data (``_Leaf``
-tables below): each parameter's port name, its flax path and the two
+GPT-2, OPT, GPT-NeoX, T5, Whisper, BERT, ViT and CLIP are described as
+data (``_Leaf`` tables below): each parameter's port name, its flax path and the two
 layout maps between them. Linear weights ``(out, in)`` become kernels
 ``(in, *out_axes)`` (``DenseGeneral``'s per-head outputs: GPT-2's
 ``c_attn`` ``(H, 3, heads, D)``, NeoX's ``query_key_value``
 ``(H, heads, 3, D)``, q/k/v ``(H, heads, D)``) or ``(*in_axes, out)``
 (output projections ``(heads, D, H)``); biases take the output axes'
 shape; flax's LayerNorm ``scale`` is the port's ``weight``; Whisper's
-convolutions are ``(k, in, out)`` kernels. A family's layers form one
+convolutions are ``(k, in, out)`` kernels, ViT's and CLIP's patch
+convolutions ``(kh, kw, in, out)``. A family's layers form one
 ``nn.scan`` stack with a leading layer axis (``scan_layers=True``) or
 unrolled subtrees, and T5 keeps ``block_0`` (the relative-bias owner)
-apart and scans the rest.
+apart and scans the rest. CLIP has a stack per tower, each with its own
+head count.
+
+ResNet's names are the flax tree's already (``stage0_block0.conv1.weight``
+↔ ``stage0_block0/conv1/kernel``, BatchNorm's ``scale`` and ``bias``):
+only the convolutions' ``(out, in, kh, kw)`` ↔ ``(kh, kw, in, out)`` and
+the classifier's transpose change (``resnet_params_to_flax``). Its running
+statistics are no parameters: they travel as ``extra_state``
+(``checkpointing.py``).
 
 The same maps carry any tree shaped like the parameters, such as AdamW's
 moments (optax's ``mu``/``nu``). Both directions work on torch tensors on
@@ -48,12 +57,17 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.other import flatten_state_dict
+from .bert import BertForMaskedLM, BertForSequenceClassification
+from .clip import CLIPModel
 from .gpt2 import GPT2LMHeadModel
 from .llama import LlamaConfig, LlamaForCausalLM
 from .moe import MixtralForCausalLM
 from .neox import GPTNeoXForCausalLM
 from .opt import OPTForCausalLM
+from .resnet import ResNet
 from .t5 import T5ForConditionalGeneration
+from .vit import ViTForImageClassification
 from .whisper import WhisperForConditionalGeneration
 
 _NORMS = ("input_layernorm", "post_attention_layernorm")
@@ -383,6 +397,82 @@ def _whisper_tables(cfg):
                                       ("decoder", cfg.decoder_layers, dec))]
 
 
+_KERNEL_2D = dict(to_flax=lambda w: w.permute(2, 3, 1, 0),
+                  from_flax=lambda k: k.permute(3, 2, 0, 1))
+
+
+def _encoder_attn(name: str, nh: int, d: int, parts=("query", "key", "value"),
+                  out: str = "output") -> list[_Leaf]:
+    """Self-attention of per-head ``DenseGeneral``s with biases: q, k, v
+    kernels ``(H, heads, D)``, the output ``(heads, D, H)``."""
+    leaves = [_out_leaf(f"{name}.{out}.weight", f"{name}/{out}/kernel", nh, d),
+              _Leaf(f"{name}.{out}.bias", f"{name}/{out}/bias")]
+    for p in parts:
+        leaves += [_linear_leaf(f"{name}.{p}.weight", f"{name}/{p}/kernel", nh, d),
+                   _bias_leaf(f"{name}.{p}.bias", f"{name}/{p}/bias", nh, d)]
+    return leaves
+
+
+def _bert_tables(cfg, head: str):
+    nh, d = cfg.num_attention_heads, cfg.head_dim
+    top = [_Leaf(f"bert.{n}.weight", f"bert/{n}/embedding")
+           for n in ("word_embeddings", "position_embeddings", "token_type_embeddings")]
+    top += _ln_leaves("bert.embeddings_norm", "bert/embeddings_norm")
+    if head == "classifier":
+        top += [_linear_leaf("bert.pooler.weight", "bert/pooler/kernel"),
+                _Leaf("bert.pooler.bias", "bert/pooler/bias"), *_dense_leaves("classifier")]
+    else:
+        top += [*_dense_leaves("transform"), *_ln_leaves("transform_norm", "transform_norm"),
+                _Leaf("decoder_bias", "decoder_bias")]
+    layer = [*_encoder_attn("attention", nh, d),
+             *_ln_leaves("attention_norm", "attention_norm"),
+             *_dense_leaves("intermediate"), *_dense_leaves("output"),
+             *_ln_leaves("output_norm", "output_norm")]
+    return top, [_Stack("bert.layers.{i}.", "bert/layers/block", "bert/layer_{i}",
+                        cfg.num_hidden_layers, layer)]
+
+
+def _vit_tables(cfg):
+    nh, d = cfg.num_attention_heads, cfg.head_dim
+    top = [_Leaf("vit.patch_embed.weight", "vit/patch_embed/kernel", **_KERNEL_2D),
+           _Leaf("vit.patch_embed.bias", "vit/patch_embed/bias"),
+           _Leaf("vit.cls_token", "vit/cls_token"),
+           _Leaf("vit.position_embeddings", "vit/position_embeddings"),
+           *_ln_leaves("vit.ln_final", "vit/ln_final"), *_dense_leaves("classifier")]
+    layer = [*_ln_leaves("ln_before", "ln_before"), *_encoder_attn("attention", nh, d),
+             *_ln_leaves("ln_after", "ln_after"),
+             *_dense_leaves("intermediate"), *_dense_leaves("output")]
+    return top, [_Stack("vit.layers.{i}.", "vit/layers/block", "vit/layer_{i}",
+                        cfg.num_hidden_layers, layer)]
+
+
+def _clip_tables(cfg):
+    top = [_Leaf("text.token_embedding", "text/token_embedding"),
+           _Leaf("text.position_embedding", "text/position_embedding"),
+           *_ln_leaves("text.final_ln", "text/final_ln"),
+           _Leaf("vision.patch_embed.weight", "vision/patch_embed/kernel", **_KERNEL_2D),
+           _Leaf("vision.class_embedding", "vision/class_embedding"),
+           _Leaf("vision.position_embedding", "vision/position_embedding"),
+           *_ln_leaves("vision.pre_ln", "vision/pre_ln"),
+           *_ln_leaves("vision.post_ln", "vision/post_ln"),
+           _linear_leaf("text_projection.weight", "text_projection/kernel"),
+           _linear_leaf("visual_projection.weight", "visual_projection/kernel"),
+           _Leaf("logit_scale", "logit_scale")]
+
+    def layer(hidden, heads):
+        return [*_ln_leaves("ln1", "ln1"), *_ln_leaves("ln2", "ln2"),
+                *_encoder_attn("self_attn", heads, hidden // heads,
+                               ("q_proj", "k_proj", "v_proj"), "out_proj"),
+                *_dense_leaves("fc1"), *_dense_leaves("fc2")]
+
+    return top, [_Stack(f"{t}.layers.{{i}}.", f"{t}/layers/block", f"{t}/layer_{{i}}", n,
+                        layer(h, nh))
+                 for t, n, h, nh in (("text", cfg.text_num_layers, cfg.text_hidden_size,
+                                      cfg.text_num_heads),
+                                     ("vision", cfg.vision_num_layers, cfg.vision_hidden_size,
+                                      cfg.vision_num_heads))]
+
+
 def _set(tree: dict, path: str, value) -> None:
     *parents, leaf = path.split("/")
     for p in parents:
@@ -503,6 +593,61 @@ t5_params_to_flax, t5_views_from_flax, t5_params_from_flax, _t5_flax_name = \
     _family(_t5_tables)
 (whisper_params_to_flax, whisper_views_from_flax, whisper_params_from_flax,
  _whisper_flax_name) = _family(_whisper_tables)
+(bert_params_to_flax, bert_views_from_flax, bert_params_from_flax,
+ _bert_flax_name) = _family(lambda cfg: _bert_tables(cfg, "classifier"))
+(bert_mlm_params_to_flax, bert_mlm_views_from_flax, bert_mlm_params_from_flax,
+ _bert_mlm_flax_name) = _family(lambda cfg: _bert_tables(cfg, "mlm"))
+vit_params_to_flax, vit_views_from_flax, vit_params_from_flax, _vit_flax_name = \
+    _family(_vit_tables)
+clip_params_to_flax, clip_views_from_flax, clip_params_from_flax, _clip_flax_name = \
+    _family(_clip_tables)
+
+
+# ResNet: the flax names, kernels in flax's layouts.
+
+def _resnet_flax_leaf(fqn: str, t: torch.Tensor) -> tuple[str, torch.Tensor]:
+    owner, _, leaf = fqn.rpartition(".")
+    if leaf != "weight":  # BatchNorm's scale and bias, the classifier's bias
+        return fqn.replace(".", "/"), t
+    kernel = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.t()
+    return f"{owner.replace('.', '/')}/kernel", kernel
+
+
+def resnet_params_to_flax(cfg, state_dict: dict) -> dict:
+    """The flax ``params`` tree of a ``ResNet(cfg)`` state dict (its
+    parameters; the running statistics are ``extra_state``)."""
+    tree: dict = {}
+    for fqn, t in state_dict.items():
+        if fqn.rpartition(".")[2] in ("mean", "var"):
+            continue
+        path, value = _resnet_flax_leaf(fqn, t)
+        _set(tree, path, value.contiguous())
+    return tree
+
+
+def resnet_views_from_flax(cfg, flax_params) -> dict[str, torch.Tensor]:
+    """``ResNet(cfg)`` parameter names → tensors in its layouts (views)."""
+    if set(flax_params) == {"params"}:
+        flax_params = flax_params["params"]
+    out = {}
+    for path, value in flatten_state_dict(flax_params).items():
+        t = _as_tensor(value)
+        owner, _, leaf = path.rpartition("/")
+        if leaf == "kernel":
+            out[f"{owner.replace('/', '.')}.weight"] = (t.permute(3, 2, 0, 1) if t.dim() == 4
+                                                        else t.t())
+        else:
+            out[path.replace("/", ".")] = t
+    return out
+
+
+def resnet_params_from_flax(cfg, flax_params) -> dict[str, torch.Tensor]:
+    return {k: v.float().contiguous() for k, v in resnet_views_from_flax(cfg, flax_params).items()}
+
+
+def _resnet_flax_name(cfg, fqn: str) -> str:
+    return _resnet_flax_leaf(fqn, torch.empty(0, 0))[0]
+
 
 
 # ---------------------------------------------------------------------------
@@ -550,3 +695,12 @@ register_flax_converter(T5ForConditionalGeneration, t5_params_to_flax, t5_views_
                         _t5_flax_name)
 register_flax_converter(WhisperForConditionalGeneration, whisper_params_to_flax,
                         whisper_views_from_flax, _whisper_flax_name)
+register_flax_converter(BertForSequenceClassification, bert_params_to_flax,
+                        bert_views_from_flax, _bert_flax_name)
+register_flax_converter(BertForMaskedLM, bert_mlm_params_to_flax, bert_mlm_views_from_flax,
+                        _bert_mlm_flax_name)
+register_flax_converter(ViTForImageClassification, vit_params_to_flax, vit_views_from_flax,
+                        _vit_flax_name)
+register_flax_converter(CLIPModel, clip_params_to_flax, clip_views_from_flax, _clip_flax_name)
+register_flax_converter(ResNet, resnet_params_to_flax, resnet_views_from_flax,
+                        _resnet_flax_name)

@@ -129,6 +129,9 @@ class GPT2Model(nn.Module):
 
 
 class GPT2LMHeadModel(nn.Module):
+    # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
+    _fsdp_blocks = (GPT2Block,)
+
     def __init__(self, cfg: GPT2Config, device=None):
         super().__init__()
         self.config = cfg

@@ -31,8 +31,16 @@ bias table, Whisper's convolutions and sinusoid table copy as they are. A
 checkpoint's own prefix (``transformer.``, ``model.decoder.``,
 ``gpt_neox.``, ``model.``) may be there or not. The JAX hub has no
 ``*_params_to_hf`` for these families, and neither has the port (the row's
-fourth field is None). BERT, ViT and CLIP raise ``NotImplementedError``
-(ROADMAP.md Queue A item 10.6).
+fourth field is None).
+
+BERT (``BertForSequenceClassification``), ViT (``ViTForImageClassification``)
+and CLIP (``CLIPModel``) map as the JAX hub maps them: transformers'
+``attention.self.query`` becomes ``attention.query``, the
+``*.LayerNorm``s the ``attention_norm``/``output_norm``/``embeddings_norm``
+of the flax tree, CLIP's towers ``text``/``vision`` (its ``pre_layrnorm``,
+so spelled, is ``pre_ln``); the patch convolutions are ``(out, in, P, P)``
+in both. A checkpoint's ``bert.``/``vit.`` prefix may be there or not. No
+row for ResNet, as in the JAX hub.
 """
 
 from __future__ import annotations
@@ -46,15 +54,16 @@ import numpy as np
 import torch
 
 from ..utils.other import load_safetensors
+from .bert import BertConfig, BertForSequenceClassification
+from .clip import CLIPConfig, CLIPModel
 from .gpt2 import GPT2Config, GPT2LMHeadModel
 from .llama import LlamaConfig, LlamaForCausalLM
 from .moe import MixtralConfig, MixtralForCausalLM
 from .neox import GPTNeoXConfig, GPTNeoXForCausalLM
 from .opt import OPTConfig, OPTForCausalLM
 from .t5 import T5Config, T5ForConditionalGeneration
+from .vit import ViTConfig, ViTForImageClassification
 from .whisper import WhisperConfig, WhisperForConditionalGeneration
-
-_OTHER_FAMILIES_ITEM = "ROADMAP.md Queue A item 10.6 (bert, vit, clip, resnet)"
 
 
 def _getter(hf: Any):
@@ -401,6 +410,138 @@ def whisper_params_from_hf(cfg: WhisperConfig, sd: dict) -> dict[str, torch.Tens
 
 
 # ---------------------------------------------------------------------------
+# BERT, ViT, CLIP
+# ---------------------------------------------------------------------------
+
+
+def _num_labels(g, default: int) -> int:
+    """A classifier's label count: ``num_labels``, or the size of
+    ``id2label`` (transformers' ``config.json`` keeps only that)."""
+    return g("num_labels") or len(g("id2label") or {}) or default
+
+
+def bert_config_from_hf(hf: Any, num_labels: int = 2) -> BertConfig:
+    g = _getter(hf)
+    return BertConfig(
+        vocab_size=g("vocab_size"), hidden_size=g("hidden_size"),
+        num_hidden_layers=g("num_hidden_layers"), num_attention_heads=g("num_attention_heads"),
+        intermediate_size=g("intermediate_size"),
+        max_position_embeddings=g("max_position_embeddings", 512),
+        type_vocab_size=g("type_vocab_size", 2), layer_norm_eps=g("layer_norm_eps", 1e-12),
+        hidden_dropout_prob=g("hidden_dropout_prob", 0.1),
+        num_labels=_num_labels(g, num_labels))
+
+
+def _pair(names: dict, ours: str, theirs: str) -> None:
+    """A Linear's or a LayerNorm's ``weight`` and ``bias``, renamed."""
+    for leaf in ("weight", "bias"):
+        names[f"{ours}.{leaf}"] = f"{theirs}.{leaf}"
+
+
+def bert_params_from_hf(cfg: BertConfig, sd: dict) -> dict[str, torch.Tensor]:
+    pre = _prefixed(sd, "bert.")
+    names: dict = {}
+    for n in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        names[f"bert.{n}.weight"] = f"{pre}embeddings.{n}.weight"
+    _pair(names, "bert.embeddings_norm", f"{pre}embeddings.LayerNorm")
+    _pair(names, "bert.pooler", f"{pre}pooler.dense")
+    _pair(names, "classifier", "classifier")
+    for i in range(cfg.num_hidden_layers):
+        ours, theirs = f"bert.layers.{i}.", f"{pre}encoder.layer.{i}."
+        for n in ("query", "key", "value"):
+            _pair(names, f"{ours}attention.{n}", f"{theirs}attention.self.{n}")
+        _pair(names, f"{ours}attention.output", f"{theirs}attention.output.dense")
+        _pair(names, f"{ours}attention_norm", f"{theirs}attention.output.LayerNorm")
+        _pair(names, f"{ours}intermediate", f"{theirs}intermediate.dense")
+        _pair(names, f"{ours}output", f"{theirs}output.dense")
+        _pair(names, f"{ours}output_norm", f"{theirs}output.LayerNorm")
+    return _module_params(BertForSequenceClassification, cfg, _renamed(sd, names))
+
+
+def vit_config_from_hf(hf: Any) -> ViTConfig:
+    g = _getter(hf)
+    return ViTConfig(
+        image_size=g("image_size", 224), patch_size=g("patch_size", 16),
+        num_channels=g("num_channels", 3), hidden_size=g("hidden_size"),
+        num_hidden_layers=g("num_hidden_layers"), num_attention_heads=g("num_attention_heads"),
+        intermediate_size=g("intermediate_size"), layer_norm_eps=g("layer_norm_eps", 1e-12),
+        num_labels=_num_labels(g, 1000))
+
+
+def vit_params_from_hf(cfg: ViTConfig, sd: dict) -> dict[str, torch.Tensor]:
+    pre = _prefixed(sd, "vit.")
+    e = f"{pre}embeddings."
+    names = {"vit.cls_token": f"{e}cls_token",
+             "vit.position_embeddings": f"{e}position_embeddings"}
+    _pair(names, "vit.patch_embed", f"{e}patch_embeddings.projection")
+    _pair(names, "vit.ln_final", f"{pre}layernorm")
+    _pair(names, "classifier", "classifier")
+    for i in range(cfg.num_hidden_layers):
+        ours, theirs = f"vit.layers.{i}.", f"{pre}encoder.layer.{i}."
+        _pair(names, f"{ours}ln_before", f"{theirs}layernorm_before")
+        for n in ("query", "key", "value"):
+            _pair(names, f"{ours}attention.{n}", f"{theirs}attention.attention.{n}")
+        _pair(names, f"{ours}attention.output", f"{theirs}attention.output.dense")
+        _pair(names, f"{ours}ln_after", f"{theirs}layernorm_after")
+        _pair(names, f"{ours}intermediate", f"{theirs}intermediate.dense")
+        _pair(names, f"{ours}output", f"{theirs}output.dense")
+    return _module_params(ViTForImageClassification, cfg, _renamed(sd, names))
+
+
+def _same_in_both_towers(tg, vg, key: str, default):
+    text, vision = tg(key, default), vg(key, default)
+    if text != vision:
+        raise ValueError(f"CLIP checkpoint mixes tower {key} (text={text!r}, "
+                         f"vision={vision!r}) — not supported by the native family.")
+    return text
+
+
+def clip_config_from_hf(hf: Any) -> CLIPConfig:
+    g = _getter(hf)
+    text, vision = g("text_config") or {}, g("vision_config") or {}
+    tg, vg = _getter(text), _getter(vision)
+    return CLIPConfig(
+        vocab_size=tg("vocab_size"), text_hidden_size=tg("hidden_size"),
+        text_num_layers=tg("num_hidden_layers"), text_num_heads=tg("num_attention_heads"),
+        text_intermediate_size=tg("intermediate_size"),
+        max_position_embeddings=tg("max_position_embeddings", 77),
+        image_size=vg("image_size", 224), patch_size=vg("patch_size", 32),
+        num_channels=vg("num_channels", 3), vision_hidden_size=vg("hidden_size"),
+        vision_num_layers=vg("num_hidden_layers"), vision_num_heads=vg("num_attention_heads"),
+        vision_intermediate_size=vg("intermediate_size"),
+        projection_dim=g("projection_dim", 512),
+        logit_scale_init=g("logit_scale_init_value", 2.6592),
+        layer_norm_eps=_same_in_both_towers(tg, vg, "layer_norm_eps", 1e-5),
+        eos_token_id=tg("eos_token_id", 49407),
+        hidden_act=_same_in_both_towers(tg, vg, "hidden_act", "quick_gelu"))
+
+
+def clip_params_from_hf(cfg: CLIPConfig, sd: dict) -> dict[str, torch.Tensor]:
+    names = {"text.token_embedding": "text_model.embeddings.token_embedding.weight",
+             "text.position_embedding": "text_model.embeddings.position_embedding.weight",
+             "vision.class_embedding": "vision_model.embeddings.class_embedding",
+             "vision.patch_embed.weight": "vision_model.embeddings.patch_embedding.weight",
+             "vision.position_embedding":
+                 "vision_model.embeddings.position_embedding.weight",
+             "text_projection.weight": "text_projection.weight",
+             "visual_projection.weight": "visual_projection.weight",
+             "logit_scale": "logit_scale"}
+    _pair(names, "text.final_ln", "text_model.final_layer_norm")
+    _pair(names, "vision.pre_ln", "vision_model.pre_layrnorm")
+    _pair(names, "vision.post_ln", "vision_model.post_layernorm")
+    for tower, n in (("text", cfg.text_num_layers), ("vision", cfg.vision_num_layers)):
+        for i in range(n):
+            ours, theirs = f"{tower}.layers.{i}.", f"{tower}_model.encoder.layers.{i}."
+            _pair(names, f"{ours}ln1", f"{theirs}layer_norm1")
+            _pair(names, f"{ours}ln2", f"{theirs}layer_norm2")
+            for p in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                _pair(names, f"{ours}self_attn.{p}", f"{theirs}self_attn.{p}")
+            for p in ("fc1", "fc2"):
+                _pair(names, f"{ours}{p}", f"{theirs}mlp.{p}")
+    return _module_params(CLIPModel, cfg, _renamed(sd, names))
+
+
+# ---------------------------------------------------------------------------
 # High-level entry
 # ---------------------------------------------------------------------------
 
@@ -421,9 +562,10 @@ _FAMILIES = {
     "t5": (T5ForConditionalGeneration, t5_config_from_hf, t5_params_from_hf, None),
     "whisper": (WhisperForConditionalGeneration, whisper_config_from_hf,
                 whisper_params_from_hf, None),
+    "bert": (BertForSequenceClassification, bert_config_from_hf, bert_params_from_hf, None),
+    "vit": (ViTForImageClassification, vit_config_from_hf, vit_params_from_hf, None),
+    "clip": (CLIPModel, clip_config_from_hf, clip_params_from_hf, None),
 }
-# The JAX package's other hand-written families.
-_UNPORTED_FAMILIES = ("bert", "vit", "clip")
 
 
 def _read_checkpoint_dir(path: str) -> tuple[dict, dict]:
@@ -459,9 +601,6 @@ def load_pretrained(src, family: Optional[str] = None, dtype=torch.bfloat16):
         hf_cfg, sd = src.config, src.state_dict()
     if family is None:
         family = _getter(hf_cfg)("model_type")
-    if family in _UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet ({_OTHER_FAMILIES_ITEM})")
     if family not in _FAMILIES:
         from . import generic_hub
 

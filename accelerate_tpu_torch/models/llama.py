@@ -447,6 +447,9 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
+    # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
+    _fsdp_blocks = (LlamaBlock,)
+
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.config = cfg

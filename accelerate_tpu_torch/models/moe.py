@@ -326,6 +326,9 @@ class MixtralModel(nn.Module):
 
 
 class MixtralForCausalLM(nn.Module):
+    # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
+    _fsdp_blocks = (MixtralBlock,)
+
     def __init__(self, cfg: MixtralConfig, device=None):
         super().__init__()
         self.config = cfg

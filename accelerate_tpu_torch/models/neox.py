@@ -135,6 +135,9 @@ class GPTNeoXModel(nn.Module):
 
 
 class GPTNeoXForCausalLM(nn.Module):
+    # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
+    _fsdp_blocks = (GPTNeoXBlock,)
+
     def __init__(self, cfg: GPTNeoXConfig, device=None):
         super().__init__()
         self.config = cfg

@@ -115,6 +115,9 @@ class OPTModel(nn.Module):
 
 
 class OPTForCausalLM(nn.Module):
+    # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
+    _fsdp_blocks = (OPTBlock,)
+
     def __init__(self, cfg: OPTConfig, device=None):
         super().__init__()
         self.config = cfg

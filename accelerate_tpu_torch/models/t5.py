@@ -238,6 +238,9 @@ class T5Stack(nn.Module):
 
 
 class T5ForConditionalGeneration(nn.Module):
+    # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
+    _fsdp_blocks = (T5EncoderBlock, T5DecoderBlock)
+
     def __init__(self, cfg: T5Config, device=None):
         super().__init__()
         self.config = cfg

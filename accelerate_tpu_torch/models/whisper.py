@@ -201,6 +201,9 @@ class WhisperDecoder(nn.Module):
 
 
 class WhisperForConditionalGeneration(nn.Module):
+    # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
+    _fsdp_blocks = (WhisperEncoderBlock, WhisperDecoderBlock)
+
     def __init__(self, cfg: WhisperConfig, device=None):
         super().__init__()
         self.config = cfg

@@ -55,23 +55,40 @@ the window reduce-scatters their sum; DDP's ``no_sync`` keeps each
 process's gradients until the next synchronised backward all-reduces them.
 
 The other plugin fields that map onto FSDP2 are honoured:
-``reshard_after_forward``, ``cpu_offload`` (``CPUOffloadPolicy``: masters,
-gradients and the optimizer step on the host) and
-``activation_checkpointing`` (the model's own remat, ``config.remat``).
+``reshard_after_forward`` and ``cpu_offload`` (``CPUOffloadPolicy``: masters,
+gradients and the optimizer step on the host). ``activation_checkpointing``
+(the model's own remat, ``config.remat``) is applied by
+``Accelerator.prepare_model`` to every prepared model, with or without a
+process group (``apply_activation_checkpointing``).
+
+FSDP2's units: one per repeated block of the model and one on the root.
+A family names its block classes in the class attribute ``_fsdp_blocks``
+(``LlamaBlock``, GPT-2's ``GPT2Block`` under ``h``, T5's ``block_{i}``
+submodules, ResNet's bottlenecks, ...); a module without one has the
+items of its ``ModuleList``s named ``layers`` wrapped.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import logging
 import re
 from contextlib import contextmanager
 
 import torch
 from torch import nn
 
+logger = logging.getLogger(__name__)
+
 
 def decoder_blocks(module: nn.Module) -> list[nn.Module]:
-    """The repeated blocks FSDP2 wraps one by one: the items of every
-    ``ModuleList`` named ``layers`` (the Llama decoder's)."""
+    """The repeated blocks FSDP2 wraps one by one: the submodules of the
+    classes ``module._fsdp_blocks`` names, in module order; without it, the
+    items of every ``ModuleList`` named ``layers``."""
+    kinds = getattr(type(module), "_fsdp_blocks", None)
+    if kinds is not None:
+        return [child for _, child in module.named_modules() if isinstance(child, kinds)]
     return [block for name, child in module.named_modules()
             if isinstance(child, nn.ModuleList) and name.rsplit(".", 1)[-1] == "layers"
             for block in child]
@@ -115,13 +132,34 @@ def average_whole_gradients(model, world: int) -> None:
         torch._foreach_copy_(same, _unflatten_dense_tensors(flat, same))
 
 
-def _activation_checkpointing(module: nn.Module) -> None:
+def apply_activation_checkpointing(module: nn.Module) -> None:
+    """``fsdp_plugin.activation_checkpointing``: the module's own remat
+    switch (``config.remat``) turned on, as the JAX package's
+    ``Accelerator._apply_activation_checkpointing`` does for every prepared
+    model; a module without one is left as it is, with a warning. Like the
+    JAX package's rebuild from ``dataclasses.replace(config, remat=True)``,
+    the caller's config object is left alone: the module and every
+    submodule that holds that object (as ``config`` or ``cfg``) get the
+    replaced one."""
     config = getattr(module, "config", None)
     if config is None or not hasattr(config, "remat"):
-        raise NotImplementedError(
-            f"activation_checkpointing on {type(module).__name__}: only models with a "
-            "config.remat switch (Llama) are ported (ROADMAP.md Queue A item 10)")
-    config.remat = True
+        logger.warning(
+            "fsdp_plugin.activation_checkpointing=True but %s has no config.remat knob: "
+            "apply torch.utils.checkpoint inside your module to get activation "
+            "checkpointing.", type(module).__name__)
+        return
+    if config.remat is False:
+        if dataclasses.is_dataclass(config):
+            remat = dataclasses.replace(config, remat=True)
+        else:
+            remat = copy.copy(config)
+            remat.remat = True
+        for sub in module.modules():
+            for attr in ("config", "cfg"):
+                if getattr(sub, attr, None) is config:
+                    setattr(sub, attr, remat)
+        logger.warning("activation_checkpointing: %s now runs with config.remat=True.",
+                       type(module).__name__)
 
 
 def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype) -> dict:
@@ -131,8 +169,6 @@ def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype) -> d
     from torch.distributed.fsdp import CPUOffloadPolicy, MixedPrecisionPolicy, OffloadPolicy
     from torch.distributed.fsdp import fully_shard
 
-    if plugin.activation_checkpointing:
-        _activation_checkpointing(module)
     shard_mesh = mesh if mesh.size(0) > 1 else mesh["shard"]
     mp = (MixedPrecisionPolicy() if compute_dtype == torch.float32 else
           MixedPrecisionPolicy(param_dtype=compute_dtype, reduce_dtype=torch.float32))

@@ -6,6 +6,10 @@ a jitted step; here the parameters live in the module and the moments in
 the torch optimizer, both updated in place, so the state names them and
 counts steps.
 
+``extra_state`` is the JAX state's: flax's non-parameter collections
+(BatchNorm's ``{"batch_stats": ...}``), here the model's buffers
+(``Model.extra_state``), which a ``mutable_state`` step updates in place.
+
 Under fp16 loss scaling a step whose gradients are not all finite is
 skipped without the host waiting for the card: ``step`` is then a device
 tensor (int32) advanced by the finite flag, and ``DynamicLossScale``'s
@@ -16,7 +20,7 @@ scale and growth tracker are device tensors updated in place. Reading
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -71,6 +75,15 @@ class DynamicLossScale:
         return self
 
 
+def tree_items(tree, prefix: tuple = ()):
+    """(key path, leaf) of nested dicts, in sorted key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
 def grads_all_finite(grads: list) -> torch.Tensor:
     """Whether every gradient value is finite: a bool device tensor."""
     if not grads:
@@ -84,10 +97,25 @@ class TrainState:
     model: Model
     optimizer: torch.optim.Optimizer
     loss_scale: Optional[DynamicLossScale] = None
+    extra_state: Any = None
 
     @property
     def params(self) -> dict:
         return dict(self.model.module.named_parameters())
+
+    def set_extra_state(self, new) -> None:
+        """Take ``new`` (a tree shaped as ``extra_state``) as the extra
+        state: copied into the tensors ``extra_state`` holds (a module's
+        buffers stay its running statistics), or kept when there were none."""
+        if self.extra_state is None:
+            self.extra_state = new
+            return
+        old, new = dict(tree_items(self.extra_state)), dict(tree_items(new))
+        if old.keys() != new.keys():
+            raise ValueError(f"extra_state holds {sorted(old)[:4]}..., the new one "
+                             f"{sorted(new)[:4]}...: the trees must match")
+        with torch.no_grad():
+            torch._foreach_copy_(list(old.values()), [new[k].to(old[k].device) for k in old])
 
     def set_step(self, step: int) -> None:
         """Set the step count (a checkpoint's), in place on the device

@@ -11,6 +11,7 @@ import copy
 import enum
 import json
 from dataclasses import dataclass, fields
+from datetime import timedelta
 from typing import Any, Callable, Optional
 
 import torch
@@ -34,6 +35,73 @@ def _refuse_non_defaults(obj, item, honoured: tuple = ()) -> None:
             raise NotImplementedError(
                 f"{type(obj).__name__}({f.name}={getattr(obj, f.name)!r}) is not "
                 f"ported yet ({where})")
+
+
+class EnumWithContains(enum.EnumMeta):
+    """``value in Enum``: whether the value names a member."""
+
+    def __contains__(cls, item):
+        try:
+            cls(item)
+        except ValueError:
+            return False
+        return True
+
+
+class BaseEnum(str, enum.Enum, metaclass=EnumWithContains):
+    """A string enum whose members are their values wherever the port takes
+    the string (``str(member)`` is the value)."""
+
+    def __str__(self):
+        return self.value
+
+    @classmethod
+    def list(cls):
+        return list(map(str, cls))
+
+
+class PrecisionType(BaseEnum):
+    NO = "no"
+    BF16 = "bf16"
+    FP16 = "fp16"
+    FP8 = "fp8"
+
+
+class LoggerType(BaseEnum):
+    """Tracker identifiers ``Accelerator(log_with=...)`` takes, beside
+    their strings (``tracking.filter_trackers``)."""
+
+    ALL = "all"
+    TENSORBOARD = "tensorboard"
+    WANDB = "wandb"
+    MLFLOW = "mlflow"
+    COMETML = "comet_ml"
+    AIM = "aim"
+    CLEARML = "clearml"
+    DVCLIVE = "dvclive"
+    SWANLAB = "swanlab"
+    TRACKIO = "trackio"
+
+
+class SaveFormat(BaseEnum):
+    SAFETENSORS = "safetensors"
+    ORBAX = "orbax"
+    MSGPACK = "msgpack"
+
+
+class FP8Format(BaseEnum):
+    E4M3 = "E4M3"
+    E5M2 = "E5M2"
+    HYBRID = "HYBRID"
+
+
+class StateDictType(BaseEnum):
+    """The checkpoint formats of ``FullyShardedDataParallelPlugin``: the JAX
+    package's two and the port's ``torch.distributed.checkpoint`` one."""
+
+    FULL_STATE_DICT = "FULL_STATE_DICT"
+    SHARDED_STATE_DICT = "SHARDED_STATE_DICT"
+    DISTRIBUTED_STATE_DICT = "DISTRIBUTED_STATE_DICT"
 
 
 class KwargsHandler:
@@ -170,7 +238,7 @@ class GradScalerKwargs(KwargsHandler):
     enabled: bool = True
 
 
-_FP8_FORMATS = ("E4M3", "E5M2", "HYBRID")
+_FP8_FORMATS = tuple(FP8Format.list())
 
 
 @dataclass
@@ -193,7 +261,7 @@ class FP8RecipeKwargs(KwargsHandler):
     def __post_init__(self):
         from ..ops.fp8 import backend_to_native
 
-        self.fp8_format = self.fp8_format.upper()
+        self.fp8_format = str(self.fp8_format).upper()
         if self.fp8_format not in _FP8_FORMATS:
             raise ValueError(f"fp8_format must be one of {list(_FP8_FORMATS)}")
         self.backend = self.backend.upper()
@@ -205,6 +273,25 @@ class FP8RecipeKwargs(KwargsHandler):
         from ..ops.fp8 import backend_to_native
 
         return backend_to_native(self.backend)
+
+
+@dataclass
+class InitProcessGroupKwargs(KwargsHandler):
+    """The JAX package's fields, taken and not read, as there: the process
+    group is joined from torchrun's environment (``state.py``)."""
+
+    backend: Optional[str] = None
+    init_method: Optional[str] = None
+    timeout: Optional[timedelta] = None
+
+
+@dataclass
+class AutocastKwargs(KwargsHandler):
+    """The JAX package's fields, taken and not read, as there: the compute
+    dtype is the precision policy's (``Accelerator.autocast``)."""
+
+    enabled: bool = True
+    cache_enabled: bool = None
 
 
 @dataclass
@@ -232,7 +319,7 @@ class GradientAccumulationPlugin:
                 if getattr(self, f.name) != f.default}
 
 
-class ShardingStrategy(str, enum.Enum):
+class ShardingStrategy(BaseEnum):
     """The FSDP sharding strategies, with the JAX package's names; the
     integer forms ``"1"``-``"4"`` name them in this order."""
 
@@ -241,16 +328,9 @@ class ShardingStrategy(str, enum.Enum):
     NO_SHARD = "NO_SHARD"            # replicated (DDP)
     HYBRID_SHARD = "HYBRID_SHARD"    # sharded within dp_shard, replicated across dp_replicate
 
-    def __str__(self):
-        return self.value
-
-    @classmethod
-    def list(cls) -> list[str]:
-        return [m.value for m in cls]
-
 
 _STRATEGY_CODES = {"1": "FULL_SHARD", "2": "SHARD_GRAD_OP", "3": "NO_SHARD", "4": "HYBRID_SHARD"}
-_STATE_DICT_TYPES = ("SHARDED_STATE_DICT", "FULL_STATE_DICT", "DISTRIBUTED_STATE_DICT")
+_STATE_DICT_TYPES = tuple(StateDictType.list())
 
 
 @dataclass

@@ -305,6 +305,32 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    refused. (e) A tiny checkpoint of each family in transformers' names
    and layouts (``HF_LAYOUT``) read by model_from_pretrained from its
    directory: logits equal bit for bit to the in-memory load's.
+20. BERT, ViT, CLIP and ResNet (``ENCODER_ROWS``: the JAX package's
+   bert_large, vit_base, CLIPConfig's defaults (openai/clip-vit-base-patch32)
+   and resnet50 presets at their published widths, numpy-seeded
+   weights). (a) Each family's tiny model: one bf16 train step on the card
+   and on the CPU from the same numpy-seeded weights, loss within 2e-2.
+   (b) Each full-width model's train step through prepare_train_step (bf16
+   over fp32 masters, adamw(3e-4, weight_decay=0.1), clipping):
+   BERT-large's masked LM on 16 x 512 tokens, 15 % masked, with the
+   preset's dropout drawn from a torch.Generator; ViT-B/16 on 64 images of
+   224^2 and 1000 labels; CLIP ViT-B/32 on 128 pairs of 77 text tokens and
+   224^2 images; ResNet-50 on 64 images of 224^2 with mutable_state (the
+   running statistics); 2 warm-up and 5 timed steps, ms, tokens/s or
+   images/s, MFU from the module's shapes (the formula in the row; the
+   convolutions' MACs for ResNet), peak memory, two profiled steps
+   (device-busy ms by matmul/conv, elementwise and softmax, BatchNorm,
+   AdamW, BatchNorm's kernels moved one by one out of the category they
+   fell in, the categories adding up to the busy total; idle share); the
+   timed steps' mean loss below the first, no
+   flash kernel launches (materialised attention and convolutions, as in
+   the JAX modules), ResNet's running statistics moved and its eval-mode
+   logits reading them. (c) A tiny BERT, ViT and CLIP written in
+   transformers' names and layouts (``HF_LAYOUT``) and read back by
+   model_from_pretrained: outputs equal bit for bit. (d) FSDP2 over a
+   process group of one (NCCL): every family's tiny model, the eleven the
+   port trains, gets one unit on each block and on the root (ROADMAP.md
+   fault 7), and one train step through them.
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -312,6 +338,7 @@ variant) and, last, the device line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -757,23 +784,32 @@ def _category(name):
     return "other kernels"
 
 
-def profile_steps(step, state, batch, step_ms, steps=2, host=True):
+def profile_steps(step, state, batch, step_ms, steps=2, host=True, categorise=None,
+                  categories=(), attribution=None):
     """Device time per full-width step by kernel category, over `steps`
     profiled steps, and the share of the unprofiled step time (`step_ms`,
     phase 5) during which no kernel ran. The profiler slows the host, so
     its own wall time is reported but not used for the idle share. With
-    ``host=False`` the card's kernels only are traced (no host ops)."""
+    ``host=False`` the card's kernels only are traced (no host ops).
+    ``categorise`` and ``categories`` go to ``device_times``;
+    ``attribution`` (``batch_norm_attribution``) is a context manager around
+    the profiled steps that yields ``split(prof, steps, by_cat)``, which
+    moves a module's kernels from their categories into one of its own."""
     import torch
     from torch.profiler import profile
 
     torch.cuda.synchronize()
-    with profile(activities=profiled_activities(host)) as prof:
+    with (attribution() if attribution else contextlib.nullcontext()) as split, \
+            profile(activities=profiled_activities(host)) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, by_cat, top, n_kernels = device_times(prof, steps)
+    busy_ms, by_cat, top, n_kernels = device_times(prof, steps, categorise=categorise,
+                                                   categories=categories)
+    if split is not None:
+        split(prof, steps, by_cat)
     return {"phase": "profile", "steps": steps, "profiled_wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
             "idle_share": 1.0 - busy_ms / step_ms if top else None,
@@ -782,18 +818,20 @@ def profile_steps(step, state, batch, step_ms, steps=2, host=True):
             "kernels_per_step": n_kernels}
 
 
-def device_times(prof, steps, n_top=12):
+def device_times(prof, steps, n_top=12, categorise=None, categories=()):
     """Kernel time per step from a torch.profiler run of `steps` steps: the
-    busy total, the time by category, the top kernels by name and the
-    number of kernels per step."""
+    busy total, the time by category (``categorise`` of the kernel's name,
+    ``_category`` by default; each of ``categories`` present even at 0),
+    the top kernels by name and the number of kernels per step."""
     from torch.autograd import DeviceType
 
+    categorise = categorise or _category
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-    by_cat, by_name = {}, {}
+    by_cat, by_name = dict.fromkeys(categories, 0.0), {}
     for e in kernels:
-        us = e.device_time_total
-        by_cat[_category(e.name)] = by_cat.get(_category(e.name), 0.0) + us / 1e3 / steps
+        us, cat = e.device_time_total, categorise(e.name)
+        by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e3 / steps
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
     return (sum(by_cat.values()), by_cat, [[name[:90], ms] for name, ms in top],
@@ -4634,21 +4672,36 @@ TINY_FAMILY_INPUTS = dict(prompt=(2, 8), new_tokens=12, t5_input=(2, 10), whispe
 
 
 def family_classes(family):
-    """(config class, module class, generation-plan name) of a family."""
-    from accelerate_tpu_torch.models import (
-        GPT2Config, GPT2LMHeadModel, GPTNeoXConfig, GPTNeoXForCausalLM, OPTConfig,
-        OPTForCausalLM, T5Config, T5ForConditionalGeneration, WhisperConfig,
-        WhisperForConditionalGeneration)
+    """(config class, module class) of a family; BERT's is the masked LM."""
+    from accelerate_tpu_torch import models
 
-    return {"gpt2": (GPT2Config, GPT2LMHeadModel), "neox": (GPTNeoXConfig, GPTNeoXForCausalLM),
-            "opt": (OPTConfig, OPTForCausalLM), "t5": (T5Config, T5ForConditionalGeneration),
-            "whisper": (WhisperConfig, WhisperForConditionalGeneration)}[family]
+    return {"gpt2": (models.GPT2Config, models.GPT2LMHeadModel),
+            "neox": (models.GPTNeoXConfig, models.GPTNeoXForCausalLM),
+            "opt": (models.OPTConfig, models.OPTForCausalLM),
+            "t5": (models.T5Config, models.T5ForConditionalGeneration),
+            "whisper": (models.WhisperConfig, models.WhisperForConditionalGeneration),
+            "bert": (models.BertConfig, models.BertForMaskedLM),
+            "vit": (models.ViTConfig, models.ViTForImageClassification),
+            "clip": (models.CLIPConfig, models.CLIPModel),
+            "resnet": (models.ResNetConfig, models.ResNet)}[family]
+
+
+def family_config(row, dtype):
+    """The row's preset (CLIP's: the config's defaults) in ``dtype``, with
+    the row's ``width`` overrides (a rehearsal's narrow widths) and remat
+    on unless the row says ``remat=False``."""
+    cfg_cls, _ = family_classes(row["family"])
+    preset = getattr(cfg_cls, row["preset"]) if row["preset"] else cfg_cls
+    remat = {"remat": True} if row.get("remat", True) else {}
+    return dataclasses.replace(preset(), **row.get("width", {}), **remat, dtype=dtype)
 
 
 def family_weights(module, seed=0):
-    """numpy-seeded weights in the port's layout: matrices of std
-    1/sqrt(fan-in) (T5's q a further 1/sqrt(d_kv), as its initialiser),
-    norm scales of one, zero biases; Whisper's sinusoids kept."""
+    """numpy-seeded weights in the port's layout: matrices and kernels of
+    std 1/sqrt(fan-in) (T5's q a further 1/sqrt(d_kv), as its initialiser),
+    norm scales of one, zero biases; Whisper's sinusoids kept; CLIP's logit
+    scale at its init; BatchNorm's running statistics of zero mean and unit
+    variance."""
     import numpy as np
     import torch
 
@@ -4659,8 +4712,10 @@ def family_weights(module, seed=0):
         if n == "encoder.embed_positions":
             out[n] = p.detach().clone()
             continue
-        if p.dim() == 1:
-            a = np.zeros(p.shape) if n.endswith("bias") else np.ones(p.shape)
+        if p.dim() == 0:
+            a = np.full((), module.config.logit_scale_init)
+        elif p.dim() == 1:
+            a = np.zeros(p.shape) if n.endswith(("bias", ".mean")) else np.ones(p.shape)
         else:
             a = rng.standard_normal(p.shape) / math.sqrt(math.prod(p.shape[1:]))
             if d_kv and n.endswith(".q.weight"):
@@ -4672,11 +4727,34 @@ def family_weights(module, seed=0):
 def family_batch(family, cfg, rows, device, seed=0, **shape):
     """A train batch: ids ``x``/``y`` (causal: the sequence shifted by
     one), T5's encoder ids and labels, Whisper's (B, T, mel) features and
-    decoder ids."""
+    decoder ids; BERT's ids with ``masked`` of the positions replaced by
+    [MASK] and labelled (the rest -100); NHWC images and labels; CLIP's
+    ids ending in its EOT id, and images."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
+
+    def images():
+        size = cfg.image_size if family != "resnet" else shape.get("image_size", 224)
+        return torch.from_numpy(rng.standard_normal((rows, size, size, 3)).astype(
+            np.float32)).to(device)
+
+    if family == "bert":
+        ids = rng.integers(1, cfg.vocab_size, (rows, shape["seq"]))
+        hit = rng.random(ids.shape) < shape.get("masked", 0.15)
+        labels = np.where(hit, ids, -100)
+        ids = np.where(hit, min(BERT_MASK_ID, cfg.vocab_size - 1), ids)
+        return {"ids": torch.from_numpy(ids).to(device),
+                "labels": torch.from_numpy(labels).to(device)}
+    if family == "clip":
+        ids = rng.integers(1, cfg.eos_token_id, (rows, shape["seq"]))
+        ids[:, -1] = cfg.eos_token_id
+        return {"ids": torch.from_numpy(ids).to(device), "pixels": images()}
+    if family in ("vit", "resnet"):
+        classes = cfg.num_labels if family == "vit" else cfg.num_classes
+        return {"pixels": images(),
+                "labels": torch.from_numpy(rng.integers(0, classes, rows)).to(device)}
     if family == "t5":
         return {"x": torch.from_numpy(rng.integers(2, cfg.vocab_size, (rows, shape["seq"])))
                 .to(device),
@@ -4694,21 +4772,37 @@ def family_batch(family, cfg, rows, device, seed=0, **shape):
 
 
 def row_shape(row) -> dict:
-    """A row's sequence lengths: ``seq``, ``dec_seq``, ``frames``."""
-    return {k: row[k] for k in ("seq", "dec_seq", "frames") if k in row}
+    """A row's input shape: ``seq``, ``dec_seq``, ``frames``,
+    ``image_size``, BERT's ``masked`` share."""
+    return {k: row[k] for k in ("seq", "dec_seq", "frames", "image_size", "masked") if k in row}
 
 
-def family_loss(family):
+def family_loss(family, generator=None):
     """The train step's loss: the causal LM loss; T5's teacher forcing
     (``shift_tokens_right``, ``t5_cross_entropy_loss``); Whisper's decoder
-    ids against the next ids."""
+    ids against the next ids; BERT's ``masked_lm_loss`` (dropout from
+    ``generator``), the image classifiers' cross entropy,
+    ``clip_contrastive_loss``, and ResNet's ``resnet_loss`` with the
+    running statistics (``mutable_state``)."""
+    import torch
+
     from accelerate_tpu_torch.models import (
-        cross_entropy_loss, shift_tokens_right, t5_cross_entropy_loss)
+        clip_contrastive_loss, cross_entropy_loss, masked_lm_loss, resnet_loss,
+        shift_tokens_right, t5_cross_entropy_loss)
 
     if family == "t5":
         return lambda m, b: t5_cross_entropy_loss(m(b["x"], shift_tokens_right(b["y"])), b["y"])
     if family == "whisper":
         return lambda m, b: cross_entropy_loss(m(b["feats"], b["x"]), b["y"])
+    if family == "bert":
+        return lambda m, b: masked_lm_loss(m(b["ids"], generator=generator), b["labels"])
+    if family == "clip":
+        return lambda m, b: clip_contrastive_loss(m, b["ids"], b["pixels"])
+    if family == "resnet":
+        return lambda m, e, b: resnet_loss(m, e, b["pixels"], b["labels"])
+    if family == "vit":
+        return lambda m, b: -torch.log_softmax(m(b["pixels"]), -1).gather(
+            1, b["labels"][:, None]).mean()
     return lambda m, b: cross_entropy_loss(m(b["x"]), b["y"])
 
 
@@ -4723,6 +4817,10 @@ def family_flops(family, cfg, module, row, rows) -> tuple[float, str]:
     not counted, as phase 5 counts them) and the formula. N counts the
     parameters that enter products (a tied head once, lookup-only tables
     not)."""
+    if family in ENCODER_FAMILIES:
+        device = next(module.parameters()).device
+        return encoder_flops(family, cfg, module, rows, device, **row_shape(row))
+
     def n_of(prefix=""):
         return sum(p.numel() for n, p in module.named_parameters()
                    if n.startswith(prefix) and n not in LOOKUP_TABLES)
@@ -4751,34 +4849,46 @@ def family_flops(family, cfg, module, row, rows) -> tuple[float, str]:
 def family_train_steps(hf, name, device="cuda", row=None, steps=FAMILY_STEPS):
     """(b) One family's full-width train step through prepare_train_step
     (bf16 over fp32 masters, adamw(3e-4, weight_decay=0.1), clipping at
-    1.0, remat on every block) on one fixed batch: 2 warm-up and 5 timed
-    steps with the flash kernels' launches counted from zero (none of these
-    families reaches them), then one profiled step. The first loss lies
-    within 1 of ln(vocab) and the timed steps' mean below it. The batch
-    halves on OOM, and the row says so. Returns (the row's numbers, the
-    module with its trained fp32 masters)."""
+    1.0; the module's seeded initialiser, or ``family_weights`` where the
+    row asks for ``numpy_weights``; remat on every block unless the row
+    says otherwise; BERT's dropout
+    from a seeded generator; ResNet with ``mutable_state=True``) on one
+    fixed batch: the warm-up and timed steps with the flash kernels'
+    launches counted from zero (none of these families reaches them), then
+    the profiled steps (the encoders' by matmul/conv, elementwise, AdamW
+    and ResNet's BatchNorm). The timed steps' mean loss lies below the
+    first, a language model's first loss within 1 of ln(vocab), and
+    ResNet's running statistics moved and its eval-mode logits read them.
+    The batch halves on OOM, and the row says so. Returns (the row's
+    numbers, the module with its trained fp32 masters)."""
     import torch
 
     from accelerate_tpu_torch import Accelerator, Model, adamw
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
-    row = row or FAMILY_ROWS[name]
-    family = row["family"]
-    cfg_cls, mod_cls = family_classes(family)
-    preset = getattr(cfg_cls, row["preset"])
-    cfg = dataclasses.replace(preset(), **row.get("width", {}), dtype=torch.bfloat16,
-                              remat=True)
+    row = row or {**FAMILY_ROWS, **ENCODER_ROWS}[name]
+    family, encoder = row["family"], row["family"] in ENCODER_FAMILIES
+    mutable = family == "resnet"
+    cfg = family_config(row, torch.bfloat16)
+    mod_cls = family_classes(family)[1]
     rows, halved = row["batch"], []
     while True:
         for cls in (AcceleratorState, GradientState):
             cls._reset_state()
         acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu")
         module = mod_cls(cfg, device=acc.device)
-        module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+        if row.get("numpy_weights"):
+            module.load_state_dict({k: v.to(acc.device) for k, v in
+                                    family_weights(module).items()})
+        else:
+            module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
         model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
-        step = acc.prepare_train_step(family_loss(family), max_grad_norm=1.0)
+        generator = torch.Generator(device=acc.device).manual_seed(0)
+        step = acc.prepare_train_step(family_loss(family, generator), max_grad_norm=1.0,
+                                      mutable_state=mutable)
         batch = family_batch(family, cfg, rows, acc.device, **row_shape(row))
         state = acc.train_state
+        stats0 = _tree_copy(state.extra_state) if mutable else None
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4806,20 +4916,36 @@ def family_train_steps(hf, name, device="cuda", row=None, steps=FAMILY_STEPS):
     launches = dict(hf.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(x) for x in losses]
-    profile = profile_steps(step, state, batch, dt * 1e3, steps=steps["profiled"], host=False)
+    if encoder:
+        profile = profile_steps(step, state, batch, dt * 1e3, steps=steps["profiled"],
+                                host=mutable, categorise=_encoder_category,
+                                categories=ENCODER_CATEGORIES,
+                                attribution=batch_norm_attribution if mutable else None)
+    else:
+        profile = profile_steps(step, state, batch, dt * 1e3, steps=steps["profiled"],
+                                host=False)
     flops, formula = family_flops(family, cfg, module, row, rows)
-    tokens = rows * ({"t5": row.get("seq", 0) + row.get("dec_seq", 0),
-                      "whisper": row.get("frames", 0) // 2 + row.get("dec_seq", 0)}
-                     .get(family, row.get("seq", 0)))
+    rate, units = family_units(family, row, rows)
     n_params = model.num_parameters()
     checks = {
         "losses_finite": all(math.isfinite(x) for x in losses),
-        "loss_near_ln_vocab": abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
         # The timed steps' mean: single steps may spike (T5-base's 7th step
         # rises in the JAX package's own run of this row, on the CPU).
         "losses_fall": sum(losses[steps["warmup"]:]) / steps["timed"] < losses[0],
         "no_flash_launches": all(v == 0 for v in launches.values()),
     }
+    extra = {}
+    if not encoder:
+        checks["loss_near_ln_vocab"] = abs(losses[0] - math.log(cfg.vocab_size)) < 1.0
+        extra["ln_vocab"] = math.log(cfg.vocab_size)
+    if mutable:
+        moved, reads = batch_stats_checks(model, state, batch, stats0)
+        by_cat = profile["ms_per_step_by_category"]
+        checks.update(stats_moved=moved > 1e-3, eval_reads_the_stats=reads,
+                      categories_add_up=min(by_cat.values()) >= -1e-9 and math.isclose(
+                          sum(by_cat.values()), profile["device_busy_ms_per_step"],
+                          rel_tol=1e-9, abs_tol=1e-9))
+        extra["stats_max_move"] = moved
     del acc, model, step, state, batch
     for cls in (AcceleratorState, GradientState):
         cls._reset_state()
@@ -4830,12 +4956,50 @@ def family_train_steps(hf, name, device="cuda", row=None, steps=FAMILY_STEPS):
         "n_params": n_params, "batch": rows, "halved_from": halved,
         **row_shape(row),
         "steps": steps["warmup"] + steps["timed"], "step_ms": dt * 1e3,
-        "tok_s": tokens / dt, "tokens_per_step": tokens,
+        rate: units / dt, "units_per_step": units,
         "flops_per_step": flops, "flops_formula": formula,
         "mfu": flops / dt / PEAK_BF16_FLOPS, "peak_mem_gib": peak, "losses": losses,
-        "ln_vocab": math.log(cfg.vocab_size), "flash_launches": launches,
-        "profile": profile, "checks": checks,
+        "flash_launches": launches, "profile": profile, **extra, "checks": checks,
     }, module
+
+
+def family_units(family, row, rows) -> tuple[str, int]:
+    """What a step of the row trains, and how many: tokens (encoder and
+    decoder positions; Whisper's encoder runs at half its frames), images,
+    or CLIP's pairs."""
+    if family in ("vit", "resnet"):
+        return "images_s", rows
+    if family == "clip":
+        return "pairs_s", rows
+    if family == "t5":
+        return "tok_s", rows * (row["seq"] + row["dec_seq"])
+    if family == "whisper":
+        return "tok_s", rows * (row["frames"] // 2 + row["dec_seq"])
+    return "tok_s", rows * row["seq"]
+
+
+def batch_stats_checks(model, state, batch, stats0) -> tuple[float, bool]:
+    """ResNet after its steps: the largest move of a running statistic
+    from ``stats0``, and whether the eval-mode logits of four images read
+    the state's statistics (equal to those given explicitly, unlike those
+    from ``stats0``)."""
+    import torch
+
+    from accelerate_tpu_torch.train_state import tree_items
+
+    moved = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+        tree_items(state.extra_state), tree_items(stats0)))
+    with torch.no_grad():
+        x = batch["pixels"][:4]
+        from_buffers = model(x)
+        explicit = model(x, batch_stats=_tree_copy(state.extra_state)["batch_stats"])
+        initial = model(x, batch_stats=stats0["batch_stats"])
+    return moved, bool(torch.equal(from_buffers, explicit)
+                       and not torch.equal(from_buffers, initial))
+
+
+def _tree_copy(tree):
+    return {k: _tree_copy(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
 
 
 def family_decode_bound(cfg, module, ctx, cross=0) -> tuple[float, float]:
@@ -5111,6 +5275,43 @@ HF_LAYOUT = {
            None),
     "whisper": ([(r"^encoder\.embed_positions$", "encoder.embed_positions.weight"),
                  (r"^", "model.")], None),
+    "bert": ([(r"^bert\.(word|position|token_type)_embeddings\.",
+               r"bert.embeddings.\1_embeddings."),
+              (r"^bert\.embeddings_norm\.", "bert.embeddings.LayerNorm."),
+              (r"^bert\.pooler\.", "bert.pooler.dense."),
+              (r"^bert\.layers\.(\d+)\.attention\.(query|key|value)\.",
+               r"bert.encoder.layer.\1.attention.self.\2."),
+              (r"^bert\.layers\.(\d+)\.attention\.output\.",
+               r"bert.encoder.layer.\1.attention.output.dense."),
+              (r"^bert\.layers\.(\d+)\.attention_norm\.",
+               r"bert.encoder.layer.\1.attention.output.LayerNorm."),
+              (r"^bert\.layers\.(\d+)\.(intermediate|output)\.",
+               r"bert.encoder.layer.\1.\2.dense."),
+              (r"^bert\.layers\.(\d+)\.output_norm\.", r"bert.encoder.layer.\1.output.LayerNorm.")],
+             None),
+    "vit": ([(r"^vit\.(cls_token|position_embeddings)$", r"vit.embeddings.\1"),
+             (r"^vit\.patch_embed\.", "vit.embeddings.patch_embeddings.projection."),
+             (r"^vit\.ln_final\.", "vit.layernorm."),
+             (r"^vit\.layers\.(\d+)\.ln_(before|after)\.", r"vit.encoder.layer.\1.layernorm_\2."),
+             (r"^vit\.layers\.(\d+)\.attention\.(query|key|value)\.",
+              r"vit.encoder.layer.\1.attention.attention.\2."),
+             (r"^vit\.layers\.(\d+)\.attention\.output\.",
+              r"vit.encoder.layer.\1.attention.output.dense."),
+             (r"^vit\.layers\.(\d+)\.(intermediate|output)\.", r"vit.encoder.layer.\1.\2.dense.")],
+            None),
+    "clip": ([(r"^text\.(token|position)_embedding$", r"text_model.embeddings.\1_embedding.weight"),
+              (r"^text\.final_ln\.", "text_model.final_layer_norm."),
+              (r"^vision\.class_embedding$", "vision_model.embeddings.class_embedding"),
+              (r"^vision\.patch_embed\.", "vision_model.embeddings.patch_embedding."),
+              (r"^vision\.position_embedding$",
+               "vision_model.embeddings.position_embedding.weight"),
+              (r"^vision\.pre_ln\.", "vision_model.pre_layrnorm."),
+              (r"^vision\.post_ln\.", "vision_model.post_layernorm."),
+              (r"^(text|vision)\.layers\.(\d+)\.ln(\d)\.",
+               r"\1_model.encoder.layers.\2.layer_norm\3."),
+              (r"^(text|vision)\.layers\.(\d+)\.(fc\d)\.", r"\1_model.encoder.layers.\2.mlp.\3."),
+              (r"^(text|vision)\.layers\.(\d+)\.", r"\1_model.encoder.layers.\2.")],
+             None),
 }
 # The tiny checkpoints' config.json: transformers' keys of each family.
 HF_TINY_CONFIGS = {
@@ -5129,6 +5330,18 @@ HF_TINY_CONFIGS = {
                     decoder_attention_heads=4, encoder_ffn_dim=64, decoder_ffn_dim=64,
                     max_source_positions=24, max_target_positions=32, pad_token_id=0,
                     bos_token_id=1, eos_token_id=2, decoder_start_token_id=1),
+    "bert": dict(model_type="bert", vocab_size=128, hidden_size=64, num_hidden_layers=2,
+                 num_attention_heads=4, intermediate_size=128, max_position_embeddings=64,
+                 num_labels=3, hidden_dropout_prob=0.0),
+    "vit": dict(model_type="vit", image_size=32, patch_size=8, hidden_size=64,
+                num_hidden_layers=2, num_attention_heads=4, intermediate_size=128, num_labels=5),
+    "clip": dict(model_type="clip", projection_dim=24,
+                 text_config=dict(vocab_size=99, hidden_size=32, num_hidden_layers=2,
+                                  num_attention_heads=2, intermediate_size=64,
+                                  max_position_embeddings=16, eos_token_id=98),
+                 vision_config=dict(image_size=32, patch_size=8, hidden_size=48,
+                                    num_hidden_layers=2, num_attention_heads=2,
+                                    intermediate_size=96)),
 }
 
 
@@ -5170,6 +5383,12 @@ def family_hub_round_trip(family, device="cuda"):
     elif family == "whisper":
         args = [rng.standard_normal((2, 48, cfg.num_mel_bins)).astype(np.float32),
                 rng.integers(1, cfg.vocab_size, (2, 5))]
+    elif family in ("vit", "clip"):
+        pixels = rng.standard_normal((2, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+        ids = rng.integers(1, cfg.eos_token_id, (2, 12)) if family == "clip" else None
+        if ids is not None:
+            ids[:, -1] = cfg.eos_token_id
+        args = [pixels] if ids is None else [ids, pixels]
     else:
         args = [rng.integers(0, cfg.vocab_size, (2, 16))]
     args = [torch.from_numpy(a).to(device) for a in args]
@@ -5182,9 +5401,13 @@ def family_hub_round_trip(family, device="cuda"):
     with torch.no_grad():
         got, want = from_dir(*args), in_memory(*args)
         source_logits = source.to(device)(*args)
-    return {"config": hf_cfg, "n_tensors": len(sd), "bit_equal": bool(torch.equal(got, want)),
-            "equal_to_source": bool(torch.equal(want, source_logits)),
-            "max_abs_diff": float((got.float() - want.float()).abs().max())}
+    got, want, source_logits = (o if isinstance(o, tuple) else (o,)
+                                for o in (got, want, source_logits))  # CLIP's four outputs
+    return {"config": hf_cfg, "n_tensors": len(sd),
+            "bit_equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+            "equal_to_source": all(torch.equal(w, s) for w, s in zip(want, source_logits)),
+            "max_abs_diff": max(float((g.float() - w.float()).abs().max())
+                                for g, w in zip(got, want))}
 
 
 def families_phase(hf, device="cuda", rows=None, steps=FAMILY_STEPS,
@@ -5251,6 +5474,314 @@ def families_phase(hf, device="cuda", rows=None, steps=FAMILY_STEPS,
             "opt_1b3_serving": serving, "engine_refuses": refused, "hub_round_trip": hub,
             "phase_s": time.perf_counter() - t0, "part_s": part_s, "checks": checks,
             "ok": all(checks.values())}
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: BERT, ViT, CLIP and ResNet at full width
+# ---------------------------------------------------------------------------
+
+# The JAX package's presets at their published widths (BertConfig.bert_large,
+# ViTConfig.vit_base, CLIPConfig's defaults (openai/clip-vit-base-patch32),
+# ResNetConfig.resnet50), with numpy-seeded weights of std 1/sqrt(fan-in)
+# (``family_weights``: CLIP's loss barely falls in 7 steps from its
+# initialiser's std 0.02) and the presets' own remat (off); nothing is
+# cut. (b): the train step's batch:
+# BERT-large's masked LM on 16 x 512 tokens with 15 % of them masked and
+# the preset's dropout, ViT-B/16 and ResNet-50 on 64 images of 224^2 with
+# 1000 labels, CLIP on 128 pairs of 77 text tokens and 224^2 images.
+ENCODER_ROWS = {name: {**row, "remat": False, "numpy_weights": True} for name, row in {
+    "bert_large": dict(family="bert", preset="bert_large", batch=16, seq=512, masked=0.15),
+    "vit_b16": dict(family="vit", preset="vit_base", batch=64),
+    "clip_b32": dict(family="clip", preset=None, batch=128, seq=77),
+    "resnet50": dict(family="resnet", preset="resnet50", batch=64),
+}.items()}
+# (b): 2 warm-up, 5 timed and 2 profiled steps.
+ENCODER_STEPS = dict(warmup=2, timed=5, profiled=2)
+ENCODER_FAMILIES = ("bert", "vit", "clip", "resnet")
+# BERT's [MASK] id in its published vocabulary.
+BERT_MASK_ID = 103
+# (d): every family the port trains, for FSDP2's units (ROADMAP.md fault 7),
+# with the blocks of its tiny config.
+UNIT_FAMILIES = {"llama": 2, "mixtral": 2, "gpt2": 2, "neox": 2, "opt": 2, "t5": 4,
+                 "whisper": 4, "bert": 2, "vit": 2, "clip": 4, "resnet": 2}
+
+
+def conv_macs(module, image_size, device):
+    """ResNet's multiply-accumulates per image, from its convolutions' and
+    classifier's shapes (a forward of one image with hooks)."""
+    import torch
+
+    from accelerate_tpu_torch.models.resnet import _Conv
+
+    macs = []
+
+    def hook(mod, _, out):
+        w = mod.weight
+        macs.append(out.numel() // out.shape[0] * w[0].numel())
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, (_Conv, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            module(torch.zeros(1, image_size, image_size, 3, device=device))
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(macs)
+
+
+def encoder_flops(family, cfg, module, rows, device, **shape) -> tuple[float, str]:
+    """FLOPs of one train step (forward and backward) from the module's
+    shapes, and the formula. Transformers: 6 x the parameters a token
+    passes through (lookup-only tables not; BERT's tied head once) plus
+    12 x L x H x S per token for the attention scores and their product
+    with v; ResNet: 6 x its convolutions' and classifier's MACs."""
+    def n_of(prefix):
+        return sum(p.numel() for n, p in module.named_parameters() if n.startswith(prefix))
+
+    if family == "resnet":
+        macs = conv_macs(module, shape.get("image_size", 224), device)
+        return 6.0 * macs * rows, "6*B*MACs (convolutions and classifier)"
+    if family == "bert":
+        s = shape["seq"]
+        n = (n_of("bert.layers.") + n_of("transform") + n_of("bert.word_embeddings.")
+             + n_of("decoder_bias"))
+        return (rows * s * (6 * n + 12 * cfg.num_hidden_layers * cfg.hidden_size * s),
+                "B*S*(6*N + 12*L*H*S)")
+    if family == "vit":
+        s = cfg.num_patches + 1
+        blocks = (6 * n_of("vit.layers.") * s + 12 * cfg.num_hidden_layers
+                  * cfg.hidden_size * s * s)
+        per_image = blocks + 6 * n_of("vit.patch_embed.") * (s - 1) + 6 * n_of("classifier.")
+        return rows * per_image, "B*(6*N_blocks*S + 12*L*H*S^2 + 6*P_patch*(S-1) + 6*P_head)"
+    st, sv = shape["seq"], cfg.num_patches + 1
+    text = (6 * n_of("text.layers.") * st
+            + 12 * cfg.text_num_layers * cfg.text_hidden_size * st * st)
+    vision = (6 * n_of("vision.layers.") * sv + 12 * cfg.vision_num_layers
+              * cfg.vision_hidden_size * sv * sv + 6 * n_of("vision.patch_embed.") * (sv - 1))
+    heads = 6 * (n_of("text_projection.") + n_of("visual_projection."))
+    return (rows * (text + vision + heads) + 6 * rows * rows * cfg.projection_dim,
+            "B*(6*N_text*S_t + 12*L_t*H_t*S_t^2 + 6*N_vis*S_v + 12*L_v*H_v*S_v^2"
+            " + 6*P_patch*(S_v-1) + 6*P_proj) + 6*B^2*D")
+
+
+# The device-time categories of phase 20's profiles.
+ENCODER_CATEGORIES = ("matmul_conv", "elementwise_softmax", "batch_norm", "adamw", "copy_memset")
+
+
+def _encoder_category(name):
+    """matmul/conv (GEMMs, and cuDNN's convolutions by their libraries'
+    names), AdamW, copy/memset, or elementwise and softmax (every other
+    kernel: norms, activations, casts, masks, softmax, pooling)."""
+    cat, low = _category(name), name.lower()
+    if cat == "matmul" or low.startswith("cudnn") or any(
+            x in low for x in ("implicit_gemm", "implicit_convolve", "wgrad", "dgrad")):
+        return "matmul_conv"
+    return {"optimizer (foreach)": "adamw", "copy/memset": "copy_memset"}.get(
+        cat, "elementwise_softmax")
+
+
+BATCH_NORM_LABEL = "flax_batch_norm"
+
+
+@contextlib.contextmanager
+def batch_norm_attribution():
+    """Around profiled steps (``profile_steps``'s ``attribution``): each
+    FlaxBatchNorm forward runs under a ``record_function`` label. Yields
+    ``split(prof, steps, by_cat)``, which moves BatchNorm's kernels out of
+    the categories ``_encoder_category`` put them in and into
+    ``batch_norm``, kernel by kernel: those of its forwards and those of
+    the backward of the ops they ran (the autograd nodes whose sequence
+    numbers those ops carry)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    from accelerate_tpu_torch.models.layers import FlaxBatchNorm
+
+    inner = FlaxBatchNorm.forward
+
+    def labelled(self, *a, **k):
+        with record_function(BATCH_NORM_LABEL):
+            return inner(self, *a, **k)
+
+    def under_label(e):
+        while e is not None:
+            if e.name == BATCH_NORM_LABEL:
+                return True
+            e = e.cpu_parent
+        return False
+
+    def op(name):  # aten::_to_copy and ToCopyBackward0 name one node
+        return re.sub(r"Backward\d*$", "", name.split(": ")[-1]).replace("aten::", "").replace(
+            "_", "").lower()
+
+    def kernels(e):
+        yield from e.kernels
+        for child in e.cpu_children:
+            yield from kernels(child)
+
+    def split(prof, steps, by_cat):
+        cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+        # The autograd nodes the forward made: an op's sequence number is
+        # the next node's, so a node counts where its op's name matches too.
+        nodes = {(e.sequence_nr, op(e.name)) for e in cpu
+                 if e.sequence_nr >= 0 and under_label(e)}
+        roots = [e for e in cpu if e.name == BATCH_NORM_LABEL
+                 or (e.name.startswith("autograd::engine::evaluate_function")
+                     and (e.sequence_nr, op(e.name)) in nodes)]
+        for root in roots:
+            for k in kernels(root):
+                ms = k.duration / 1e3 / steps
+                by_cat[_encoder_category(k.name)] -= ms
+                by_cat["batch_norm"] += ms
+
+    FlaxBatchNorm.forward = labelled
+    try:
+        yield split
+    finally:
+        FlaxBatchNorm.forward = inner
+
+
+def tiny_encoder_parity(family, device="cuda"):
+    """(a) One bf16 train step of the family's tiny model (the JAX preset's
+    ``tiny``, dropout off) on ``device`` and on the CPU from the same
+    numpy-seeded weights: loss within 2e-2."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, adamw
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    cfg_cls, mod_cls, loss, make_batch = unit_family(family)
+    cfg = cfg_cls.tiny(dtype=torch.bfloat16)
+    weights = family_weights(mod_cls(cfg, device="cpu"))
+    losses = {}
+    for label, on_cpu in (("card", device == "cpu"), ("cpu", True)):
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+        acc = Accelerator(mixed_precision="bf16", cpu=on_cpu)
+        module = mod_cls(cfg)
+        module.load_state_dict(weights)
+        acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+        step = acc.prepare_train_step(loss, max_grad_norm=1.0,
+                                      mutable_state=family == "resnet")
+        _, metrics = step(acc.train_state, make_batch(cfg, acc.device))
+        losses[label] = float(metrics["loss"])
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    return {"train_loss": losses, "train_loss_rel": rel,
+            "ok": bool(math.isfinite(losses["card"]) and rel <= 2e-2)}
+
+
+def unit_family(name):
+    """(config class, module class, loss, batch maker) of each family for
+    (d): 4 rows of 16 tokens (T5: 10 and 6, Whisper: 40 frames and 6
+    tokens), and the encoders' tiny batches."""
+    from accelerate_tpu_torch import models
+
+    if name in ("llama", "mixtral"):
+        if name == "llama":
+            cfg_cls, mod_cls = models.LlamaConfig, models.LlamaForCausalLM
+            loss = lambda m, b: models.cross_entropy_loss(m(b["x"]), b["y"])  # noqa: E731
+        else:
+            cfg_cls, mod_cls = models.MixtralConfig, models.MixtralForCausalLM
+            loss = lambda m, b: models.moe_cross_entropy_loss(m, b["x"], b["y"])  # noqa: E731
+        return cfg_cls, mod_cls, loss, lambda cfg, device: family_batch(
+            name, cfg, 4, device, seed=5, seq=16)
+    cfg_cls, mod_cls = family_classes(name)
+    shape = {"t5": dict(seq=10, dec_seq=6), "whisper": dict(frames=40, dec_seq=6),
+             "clip": dict(seq=12), "resnet": dict(image_size=32)}.get(name, dict(seq=16))
+    return cfg_cls, mod_cls, family_loss(name), lambda cfg, device: family_batch(
+        name, cfg, 4, device, seed=5, **shape)
+
+
+def fsdp_units_check(device="cuda"):
+    """(d) FSDP2 over a process group of one (torchrun's variables in this
+    process for the check: NCCL on the card, gloo on the CPU): each
+    family's tiny model in bf16 gets one unit on every block and one on
+    the root, and one train step through them gives a finite loss. The
+    group is destroyed and the variables restored after."""
+    import torch
+    from torch.distributed.fsdp import FSDPModule
+
+    from accelerate_tpu_torch import Accelerator, FullyShardedDataParallelPlugin, Model, adamw
+    from accelerate_tpu_torch.parallel.fsdp import decoder_blocks
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    saved = {k: os.environ.get(k) for k in torchrun_env(0)}
+    out = {}
+    try:
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+        os.environ.update(torchrun_env(free_port()))
+        for name, n in UNIT_FAMILIES.items():
+            cfg_cls, mod_cls, loss, make_batch = unit_family(name)
+            cfg = cfg_cls.tiny(dtype=torch.bfloat16)
+            acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu",
+                              fsdp_plugin=FullyShardedDataParallelPlugin())
+            module = mod_cls(cfg)
+            module.load_state_dict(family_weights(module))
+            model, _ = acc.prepare(Model(module), adamw(3e-4))
+            blocks = decoder_blocks(model.module)
+            step = acc.prepare_train_step(loss, max_grad_norm=1.0,
+                                          mutable_state=name == "resnet")
+            _, metrics = step(acc.train_state, make_batch(cfg, acc.device))
+            out[name] = {"blocks": len(blocks), "expected": n,
+                         "units": sum(isinstance(b, FSDPModule) for b in blocks),
+                         "root": isinstance(model.module, FSDPModule),
+                         "backend": acc.state._partial.backend, "world": acc.num_processes,
+                         "loss": float(metrics["loss"])}
+            del acc, model, module, step
+            for cls in (AcceleratorState, GradientState):
+                cls._reset_state()
+    finally:
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ok = all(r["blocks"] == r["units"] == r["expected"] and r["root"] and r["world"] == 1
+             and math.isfinite(r["loss"]) for r in out.values())
+    return {"families": out, "ok": ok}
+
+
+def encoders_phase(hf, device="cuda", rows=None, steps=ENCODER_STEPS):
+    """Phase 20: (a) the tiny encoders card against CPU, (b) the full-width
+    train steps, (c) the hub round trips of BERT, ViT and CLIP, (d) FSDP2's
+    units at world size 1 for every family. The keyword arguments shrink
+    it for a rehearsal on the CPU."""
+    import torch
+
+    rows = rows or ENCODER_ROWS
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def timed(key, fn, *args, **kw):
+        t = time.perf_counter()
+        res = fn(*args, **kw)
+        part_s[key] = time.perf_counter() - t
+        return res
+
+    tiny = {f: timed(f"tiny_{f}", tiny_encoder_parity, f, device) for f in ENCODER_FAMILIES}
+    train = {}
+    for name, row in rows.items():
+        train[name] = timed(f"train_{name}", family_train_steps, hf, name, device, row,
+                            steps)[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+    hub = {f: timed(f"hub_{f}", family_hub_round_trip, f, device) for f in ("bert", "vit",
+                                                                           "clip")}
+    units = timed("fsdp_units", fsdp_units_check, device)
+    checks = {**{f"tiny_{f}": r["ok"] for f, r in tiny.items()},
+              **{f"train_{n}_{k}": v for n, r in train.items() for k, v in r["checks"].items()},
+              **{f"hub_{f}_bit_equal": r["bit_equal"] and r["equal_to_source"]
+                 for f, r in hub.items()},
+              "fsdp_units": units["ok"]}
+    return {"phase": "encoders", "tiny": tiny, "train": train, "hub_round_trip": hub,
+            "fsdp_units": units, "phase_s": time.perf_counter() - t0, "part_s": part_s,
+            "checks": checks, "ok": all(checks.values())}
 
 
 def _stub_cuda_for_cpu():
@@ -5553,6 +6084,19 @@ def main() -> int:
     if not families["ok"]:
         failed = sorted(k for k, v in families["checks"].items() if not v)
         print(f"chip_smoke: families phase 19 failed: {failed}", file=sys.stderr)
+        return 1
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 20. BERT, ViT, CLIP and ResNet: the tiny encoders card against CPU, the
+    # full-width train steps (ResNet-50's with mutable_state), the hub round
+    # trips, FSDP2's units on every family's blocks at world size 1
+    encoders = encoders_phase(hf)
+    emit(encoders)
+    if not encoders["ok"]:
+        failed = sorted(k for k, v in encoders["checks"].items() if not v)
+        print(f"chip_smoke: encoders phase 20 failed: {failed}", file=sys.stderr)
         return 1
 
     emit({"kernels": kernel_summary(timed, cases, main_path, {

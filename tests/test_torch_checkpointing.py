@@ -65,6 +65,17 @@ from accelerate_tpu_torch.models import (
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 from accelerate_tpu_torch.utils.other import load_safetensors, save_safetensors
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 WIDTH = dict(num_hidden_layers=2, hidden_size=64)
 ROWS, SEQ, BATCH = 48, 17, 8  # 6 batches per epoch; 8 rows for the 8-device CPU mesh
 SCHEDULE = dict(init_value=1e-3, end_value=1e-4, transition_steps=10)

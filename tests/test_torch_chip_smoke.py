@@ -17,7 +17,20 @@ from pathlib import Path
 
 import pytest
 
+
 _PATH = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -444,6 +457,7 @@ def test_data_parallel_child_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
             "phase5": {"first_metrics": main["first_metrics"], "step_ms": main["step_ms"],
                        "peak_mem_gib": 0.0},
             "tiny_step": tiny}
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the child's intra-op threads
     rc, lines, err = chip_smoke.run_child(args, timeout=300)
     assert lines, err
     res = lines[-1]

@@ -87,6 +87,17 @@ from test_torch_distributed import (
 )
 from test_torch_distributed import _train as _dp_train
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 2e-5
 # Attention inputs: (B, S, Hq, D) queries, Hkv KV heads.
 B, S, HQ, HKV, D = 4, 32, 4, 2, 16

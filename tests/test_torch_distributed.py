@@ -53,6 +53,15 @@ seed, from the same flax-initialised tiny Llama (fp32):
   capacity, slot positions and the aux loss over the global batch, so
   that losses, aux losses, grad norms and drop counts are the JAX
   package's on the whole batch;
+- ResNet's BatchNorm at 2 processes under DDP (three SGD steps) and FSDP2
+  (one AdamW step) with ``prepare_train_step(mutable_state=True)``: the
+  batch statistics of the global batch (sync-BN), so that the running
+  statistics, losses and grad norms are the JAX step's on the whole batch;
+- FSDP2's units at 2 processes: one on every block of every family
+  (ROADMAP.md fault 7; GPT-2's and T5's steps under them keep the
+  one-process numbers), and ``activation_checkpointing`` under
+  ``NO_SHARD`` (DDP) turning the model's remat on as the JAX package does
+  (fault 6);
 - ``verify_operation`` in debug mode at 2 processes (a collective whose
   shapes differ on process 1 raises on both; equal shapes pass), and
   ``utils.other``'s ``wait_for_everyone`` and
@@ -64,9 +73,11 @@ functions that compute the references.
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import pickle
 import random
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -86,17 +97,35 @@ from accelerate_tpu_torch import (
     ProjectConfiguration,
     adamw,
 )
+from accelerate_tpu_torch import models as port_models
 from accelerate_tpu_torch.models import (
     LlamaConfig,
     LlamaForCausalLM,
+    ResNet,
+    ResNetConfig,
     cross_entropy_loss,
     fused_cross_entropy_loss,
     llama_params_from_flax,
     llama_params_to_flax,
+    resnet_loss,
+    resnet_params_to_flax,
 )
 from accelerate_tpu_torch.accelerator import _microbatch_split
+from accelerate_tpu_torch.parallel.fsdp import decoder_blocks
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+from accelerate_tpu_torch.train_state import tree_items
 from accelerate_tpu_torch.utils import operations
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 SEQ, GLOBAL_BATCH, STEPS, LR = 16, 8, 3, 1e-3
 # Per-process inputs of the collectives: rank r holds (r + 1) rows, so that
@@ -233,7 +262,7 @@ def _train(ctx, kind, steps=STEPS, save_after=None, load_dir=None, project_dir=N
            "state_at_load": loaded,
            "sharded": model.sharded, "ddp": model.forward_module is not model.module,
            "fused": opt.param_groups[0].get("fused"), "step": acc.train_state.step,
-           "remat": cfg.remat, "ignored": sorted(model.ignored), "dtensors": _dtensors(model),
+           "remat": model.module.config.remat, "ignored": sorted(model.ignored), "dtensors": _dtensors(model),
            "format": acc.checkpoint_stats and acc.checkpoint_stats["format"]}
     _reset_port()
     return out
@@ -796,7 +825,232 @@ def _moe_steps(ctx):
     return rows
 
 
-JOBS = {"verify": _job_verify, "moe": _job_moe, "fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
+# The tiny ResNet's sync-BN runs: (strategy, optimizer, steps). SGD's update
+# is linear in the gradient, so its running statistics after three steps
+# compare at 1e-5 (tests/test_torch_resnet.py); AdamW's after one.
+RESNET_RUNS = {"ddp": ("ddp", "sgd", STEPS), "fsdp2": ("fsdp", "adamw", 1)}
+RESNET_LR = 0.1
+
+
+def _resnet_weights():
+    """numpy-seeded weights and running statistics of the tiny fp32
+    ResNet: (the port's state dict, flax params, flax batch_stats), numpy;
+    and the global batch of 8 images."""
+    module = ResNet(ResNetConfig.tiny(dtype=torch.float32))
+    rng = np.random.default_rng(11)
+    sd = {}
+    for name, t in module.state_dict().items():
+        if name.endswith("mean"):
+            a = rng.standard_normal(t.shape) * 0.1
+        elif name.endswith("var"):
+            a = rng.uniform(0.5, 1.5, t.shape)
+        elif t.dim() == 1:
+            a = rng.standard_normal(t.shape) * 0.1 + (0.0 if name.endswith("bias") else 1.0)
+        else:
+            a = rng.standard_normal(t.shape) / np.sqrt(np.prod(t.shape[1:]))
+        sd[name] = a.astype(np.float32)
+    module.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    params = {k: v.detach().numpy() for k, v in _flat(resnet_params_to_flax(
+        module.config, dict(module.named_parameters()))).items()}
+    stats = {k: t.numpy().copy() for k, t in tree_items(Model(module).extra_state)}
+    batch = (rng.normal(size=(GLOBAL_BATCH, 32, 32, 3)).astype(np.float32),
+             rng.integers(0, 4, GLOBAL_BATCH).astype(np.int64))
+    return sd, params, stats, batch
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, prefix + (k,)) if isinstance(v, dict) else {prefix + (k,): v})
+    return out
+
+
+def _nest(flat):
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def _job_sync_bn(ctx):
+    """The tiny ResNet's ``mutable_state`` steps on this process's half of
+    the global batch, under each of ``RESNET_RUNS``: (loss, grad norm) per
+    step and the running statistics after, by flax path."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x, y = ctx["resnet_batch"]
+    n = len(x) // world
+    batch = {"x": torch.from_numpy(x[rank * n:(rank + 1) * n]),
+             "y": torch.from_numpy(y[rank * n:(rank + 1) * n])}
+    out = {}
+    for name, (kind, opt, steps) in RESNET_RUNS.items():
+        module = ResNet(ResNetConfig.tiny(dtype=torch.float32))
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in ctx["resnet_sd"].items()})
+        acc = _port_accelerator(kind)
+        optimizer = (torch.optim.SGD(module.parameters(), lr=RESNET_LR) if opt == "sgd"
+                     else adamw(LR))
+        model, _ = acc.prepare(Model(module), optimizer)
+        step = acc.prepare_train_step(lambda m, e, b: resnet_loss(m, e, b["x"], b["y"]),
+                                      mutable_state=True, max_grad_norm=1.0)
+        metrics = []
+        for _ in range(steps):
+            _, m = step(acc.train_state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out[name] = {"metrics": metrics, "sharded": model.sharded,
+                     "ddp": model.forward_module is not model.module,
+                     "stats": {k: t.numpy().copy()
+                               for k, t in tree_items(acc.train_state.extra_state)}}
+        _reset_port()
+    return out
+
+
+# The encoder losses whose global-batch mean needs every process: BERT's
+# masked-LM count and CLIP's in-batch negatives; (config, module class).
+ENCODER_LOSSES = {"bert_mlm": ("BertConfig", "BertForMaskedLM"),
+                  "clip": ("CLIPConfig", "CLIPModel")}
+
+
+def _encoder_module(family):
+    cfg_name, mod_name = ENCODER_LOSSES[family]
+    return getattr(port_models, mod_name)(getattr(port_models, cfg_name).tiny(
+        dtype=torch.float32))
+
+
+def _encoder_weights(family):
+    """numpy-seeded weights of the family's tiny fp32 module (the port's
+    state dict and the flax params, numpy) and its global batch: BERT's
+    ids, padding mask and 30 % masked labels (uneven over the halves),
+    CLIP's ids (the largest id last: the EOT) and pixels."""
+    module = _encoder_module(family)
+    rng = np.random.default_rng(13)
+    sd = {}
+    for name, t in module.state_dict().items():
+        if t.dim() == 0:  # CLIP's logit_scale
+            a = np.full((), 2.6592)
+        elif t.dim() == 1:
+            a = rng.standard_normal(t.shape) * 0.1 + (0.0 if name.endswith("bias") else 1.0)
+        else:
+            a = rng.standard_normal(t.shape) / np.sqrt(np.prod(t.shape[1:]))
+        sd[name] = a.astype(np.float32)
+    tree = port_models.convert.flax_converter(module).to_flax(
+        module.config, {k: torch.from_numpy(v) for k, v in sd.items()})
+    params = {k: v.detach().numpy() for k, v in _flat(tree).items()}
+    ids = rng.integers(1, 250, (GLOBAL_BATCH, 12))
+    if family == "bert_mlm":
+        mask = np.ones_like(ids)
+        mask[1::2, 8:] = 0
+        batch = {"ids": ids, "mask": mask,
+                 "labels": np.where(rng.random(ids.shape) < 0.3, ids, -100)}
+    else:
+        ids[:, -1] = 511
+        batch = {"ids": ids,
+                 "pixels": rng.normal(size=(GLOBAL_BATCH, 32, 32, 3)).astype(np.float32)}
+    return sd, params, batch
+
+
+def _encoder_loss(family):
+    if family == "bert_mlm":
+        return lambda m, b: port_models.masked_lm_loss(m(b["ids"], b["mask"]), b["labels"])
+    return lambda m, b: port_models.clip_contrastive_loss(m, b["ids"], b["pixels"])
+
+
+def _job_encoder_losses(ctx):
+    """Three AdamW steps of each ``ENCODER_LOSSES`` family on this
+    process's half of its global batch, under DDP and FSDP2: (loss, grad
+    norm) per step."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+    for family in ENCODER_LOSSES:
+        sd, _, batch = ctx["encoders"][family]
+        local = {k: torch.from_numpy(v) for k, v in _local(batch, rank, world).items()}
+        for kind in ("ddp", "fsdp"):
+            module = _encoder_module(family)
+            module.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+            acc = _port_accelerator(kind)
+            acc.prepare(Model(module), adamw(LR))
+            step = acc.prepare_train_step(_encoder_loss(family), max_grad_norm=1.0)
+            metrics = []
+            for _ in range(STEPS):
+                _, m = step(acc.train_state, local)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            out[family, kind] = metrics
+            _reset_port()
+    return out
+
+
+# chip_smoke.py's table of every family the port trains, with the blocks of
+# its tiny config, and its classes (``unit_family``).
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(chip_smoke)
+UNIT_FAMILIES = chip_smoke.UNIT_FAMILIES
+# The families whose blocks fault 7 left without units: one FSDP2 step.
+UNIT_STEPS = ("gpt2", "t5")
+
+
+def _unit_module(family, seed=0):
+    cfg_cls, mod_cls = chip_smoke.unit_family(family)[:2]
+    module = mod_cls(cfg_cls.tiny(dtype=torch.float32))
+    module.init_weights(torch.Generator().manual_seed(seed))
+    return module
+
+
+def _unit_loss(family):
+    if family == "t5":
+        return lambda m, b: port_models.t5_cross_entropy_loss(
+            m(b["x"].long(), port_models.shift_tokens_right(b["y"].long())), b["y"].long())
+    return _port_loss
+
+
+def _unit_batch(family):
+    rng = np.random.default_rng(12)
+    if family == "t5":
+        return {"x": rng.integers(2, 256, (GLOBAL_BATCH, 10)),
+                "y": rng.integers(2, 256, (GLOBAL_BATCH, 6))}
+    ids = rng.integers(0, 256, (GLOBAL_BATCH, SEQ + 1))
+    return {"x": ids[:, :-1], "y": ids[:, 1:]}
+
+
+def _job_units(ctx):
+    """FSDP2 at this world size on every family's tiny module: its blocks
+    and how many of them are FSDP2 units, whether the root is one; one
+    step of ``UNIT_STEPS``'s families on this process's share of the
+    global batch; and ``activation_checkpointing`` under ``NO_SHARD``."""
+    from torch.distributed.fsdp import FSDPModule
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+    for family in UNIT_FAMILIES:
+        module = _unit_module(family)
+        acc = _port_accelerator("fsdp")
+        model, _ = acc.prepare(Model(module), adamw(LR))
+        blocks = decoder_blocks(model.module)
+        out[family] = {"blocks": len(blocks),
+                       "units": sum(isinstance(b, FSDPModule) for b in blocks),
+                       "root": isinstance(model.module, FSDPModule)}
+        if family in UNIT_STEPS:
+            step = acc.prepare_train_step(_unit_loss(family), max_grad_norm=1.0)
+            batch = {k: torch.from_numpy(v) for k, v in
+                     _local(_unit_batch(family), rank, world).items()}
+            _, m = step(acc.train_state, batch)
+            out[family]["metrics"] = (float(m["loss"]), float(m["grad_norm"]))
+        _reset_port()
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    acc = _port_accelerator("fsdp", dict(sharding_strategy="NO_SHARD",
+                                         activation_checkpointing=True))
+    model, _ = acc.prepare(Model(LlamaForCausalLM(cfg)), adamw(LR))
+    out["no_shard_remat"] = {"remat": model.module.config.remat, "caller": cfg.remat,
+                            "ddp": model.forward_module is not model.module}
+    _reset_port()
+    return out
+
+
+JOBS = {"verify": _job_verify, "moe": _job_moe, "sync_bn": _job_sync_bn, "units": _job_units,
+        "encoder_losses": _job_encoder_losses,
+        "fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
         "dispatcher": _job_dispatcher, "rng": _job_rng, "save": _job_save,
         "options": _job_options, "fsdp_ga2": _job_fsdp_ga2, "per_node": _job_per_node,
         "resume_jax": _job_resume_jax, "fsdp_uneven": _job_fsdp_uneven,
@@ -955,6 +1209,107 @@ def _jax_moe_train(batches):
     return params, rows
 
 
+def _jax_resnet_train(params, stats, batch, opt, steps):
+    """The JAX Accelerator's ``mutable_state`` steps of the tiny ResNet on
+    the whole global batch: (loss, grad norm) per step and the running
+    statistics after, by flax path."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from accelerate_tpu import Accelerator as JaxAccelerator
+    from accelerate_tpu import Model as JaxModel
+    from accelerate_tpu.models import resnet as jresnet
+
+    _jax_reset()
+    module = jresnet.ResNet(jresnet.ResNetConfig.tiny(dtype=jnp.float32))
+    acc = JaxAccelerator()
+    acc.prepare(JaxModel(module=module, params=jax.tree.map(jnp.array, _nest(params)),
+                         extra_state=jax.tree.map(jnp.array, _nest(stats))),
+                optax.sgd(RESNET_LR) if opt == "sgd" else optax.adamw(LR))
+    step = acc.prepare_train_step(
+        lambda p, extra, b: jresnet.resnet_loss(module, p, extra, b["x"], b["y"]),
+        mutable_state=True, max_grad_norm=1.0)
+    x, y = batch
+    state, metrics = acc.train_state, []
+    for _ in range(steps):
+        state, m = step(state, {"x": jnp.asarray(x), "y": jnp.asarray(y, jnp.int32)})
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    after = {k: np.asarray(v) for k, v in _flat(jax.tree.map(np.asarray,
+                                                             dict(state.extra_state))).items()}
+    _jax_reset()
+    return {"metrics": metrics, "stats": after}
+
+
+def _jax_encoder_train(family, params, batch):
+    """The JAX Accelerator's three AdamW steps of the family's loss on the
+    whole global batch: (loss, grad norm) per step; and at the first
+    weights, the loss on the whole batch and the mean of each half's own."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from accelerate_tpu import Accelerator as JaxAccelerator
+    from accelerate_tpu import Model as JaxModel
+    from accelerate_tpu.models import bert as jbert
+    from accelerate_tpu.models import clip as jclip
+
+    _jax_reset()
+    if family == "bert_mlm":
+        module = jbert.BertForMaskedLM(jbert.BertConfig.tiny(dtype=jnp.float32))
+
+        def loss(p, b):
+            return jbert.masked_lm_loss(module.apply({"params": p}, b["ids"], b["mask"]),
+                                        b["labels"])
+    else:
+        module = jclip.CLIPModel(jclip.CLIPConfig.tiny(dtype=jnp.float32))
+
+        def loss(p, b):
+            return jclip.clip_contrastive_loss(module, p, b["ids"], b["pixels"])
+
+    params = jax.tree.map(jnp.array, _nest(params))
+    whole = {k: jnp.asarray(v.astype(np.int32) if v.dtype == np.int64 else v)
+             for k, v in batch.items()}
+    at_start = {"whole": float(loss(params, whole)),
+                "halves": float(np.mean([loss(params, _local(whole, r, 2)) for r in range(2)]))}
+    acc = JaxAccelerator()
+    acc.prepare(JaxModel(module=module, params=params), optax.adamw(LR))
+    step = acc.prepare_train_step(loss, max_grad_norm=1.0)
+    state, metrics = acc.train_state, []
+    for _ in range(STEPS):
+        state, m = step(state, whole)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    _jax_reset()
+    return {"metrics": metrics, **at_start}
+
+
+def _jax_no_shard_remat(batches) -> tuple[bool, bool]:
+    """The module's ``config.remat`` and the caller's after the JAX package
+    prepares the tiny Llama with ``activation_checkpointing`` under
+    ``NO_SHARD`` on ``dp_replicate=2``."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from accelerate_tpu import Accelerator as JaxAccelerator
+    from accelerate_tpu import FullyShardedDataParallelPlugin as JaxPlugin
+    from accelerate_tpu import Model as JaxModel
+    from accelerate_tpu import ParallelismConfig as JaxPC
+    from accelerate_tpu.models import LlamaConfig as JaxLlamaConfig
+    from accelerate_tpu.models import LlamaForCausalLM as JaxLlama
+
+    _jax_reset()
+    acc = JaxAccelerator(parallelism_config=JaxPC(dp_replicate_size=2),
+                         fsdp_plugin=JaxPlugin(sharding_strategy="NO_SHARD",
+                                               activation_checkpointing=True))
+    cfg = JaxLlamaConfig.tiny(dtype=jnp.float32)
+    model = JaxModel.from_flax(JaxLlama(cfg), jax.random.key(0), batches[0]["x"])
+    acc.prepare(model, optax.adamw(LR))
+    remat = model.module.config.remat, cfg.remat
+    _jax_reset()
+    return remat
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The JAX references and both gangs' results."""
@@ -980,8 +1335,17 @@ def runs(tmp_path_factory):
         batches, dict(dp_replicate_size=2, dp_shard_size=2), True,
         plan=plans.setdefault("hsdp", {}))
     ctx_moe, ref["moe"] = _jax_moe_train(batches)
+    resnet_sd, resnet_params, resnet_stats, resnet_batch = _resnet_weights()
+    for name, (_, opt, steps) in RESNET_RUNS.items():
+        ref["resnet_" + name] = _jax_resnet_train(resnet_params, resnet_stats, resnet_batch,
+                                                  opt, steps)
+    ref["no_shard_remat"] = _jax_no_shard_remat(batches)
+    encoders = {family: _encoder_weights(family) for family in ENCODER_LOSSES}
+    for family, (_, flax_params, batch) in encoders.items():
+        ref["encoder_" + family] = _jax_encoder_train(family, flax_params, batch)
     ctx = {"flax_params": params, "batches": batches, "uneven_batches": _uneven(batches),
-           "moe_flax": ctx_moe,
+           "moe_flax": ctx_moe, "resnet_sd": resnet_sd, "resnet_batch": resnet_batch,
+           "encoders": encoders,
            "save_dir": str(tmp / "port4"),
            "per_node_dir": str(tmp / "per_node"), "surface_dir": str(tmp),
            "telemetry_dir": str(tmp / "telemetry"),
@@ -994,7 +1358,8 @@ def runs(tmp_path_factory):
                           "options", "fsdp_ga2", "per_node", "fsdp_uneven", "fused_ce",
                           "imperative",
                           "surface", "telemetry", "fp16", "strategies", "ddp_kwargs",
-                          "dcp_load", "dcp_async", "verify", "moe"], ctx)
+                          "dcp_load", "dcp_async", "verify", "moe", "sync_bn", "units",
+                          "encoder_losses"], ctx)
     return {"ref": ref, "plans": plans, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
 
 
@@ -1800,3 +2165,72 @@ def test_verify_operation_checks_shapes_across_processes(runs):
         assert "Operation: `gather`" in res["error"]
         assert "Process 0: [2]" in res["error"] and "Process 1: [3]" in res["error"]
         assert res["error"].endswith("Mismatched processes: [1]")
+
+
+@pytest.mark.parametrize("run", sorted(RESNET_RUNS))
+def test_sync_batch_norm_uses_the_global_batch(runs, run):
+    """ResNet's BatchNorm at 2 processes normalises with the global batch's
+    statistics, as GSPMD makes the JAX step's: every process's running
+    statistics within 1e-5 of the JAX step's on the whole batch (equal on
+    both processes), losses and grad norms within rtol 1e-4."""
+    want = runs["ref"]["resnet_" + run]
+    for r in runs[2]:
+        got = r["sync_bn"][run]
+        assert got["ddp"] == (run == "ddp") and got["sharded"] == (run == "fsdp2")
+        np.testing.assert_allclose(np.array(got["metrics"]), np.array(want["metrics"]),
+                                   rtol=1e-4)
+        assert got["stats"].keys() == want["stats"].keys()
+        for k, w in want["stats"].items():
+            np.testing.assert_allclose(got["stats"][k], w, rtol=0, atol=1e-5, err_msg=str(k))
+            np.testing.assert_array_equal(got["stats"][k], runs[2][0]["sync_bn"][run]["stats"][k])
+
+
+@pytest.mark.parametrize("family", sorted(ENCODER_LOSSES))
+def test_encoder_losses_take_the_global_batch(runs, family):
+    """BERT's masked-LM loss divides by the global batch's masked count
+    and CLIP's loss contrasts each row with the whole global batch: three
+    AdamW steps at 2 processes, under DDP and FSDP2, give the JAX step's
+    losses and grad norms on the whole batch within rtol 1e-4. The mean of
+    each half's own loss differs from the whole batch's, so a loss taken
+    per process would fail."""
+    want = runs["ref"]["encoder_" + family]
+    assert abs(want["halves"] - want["whole"]) > 1e-3 * abs(want["whole"])
+    for r in runs[2]:
+        for kind in ("ddp", "fsdp"):
+            np.testing.assert_allclose(np.array(r["encoder_losses"][family, kind]),
+                                       np.array(want["metrics"]), rtol=1e-4, err_msg=kind)
+
+
+@pytest.mark.parametrize("family", sorted(UNIT_FAMILIES))
+def test_fsdp2_puts_a_unit_on_every_block(runs, family):
+    """Fault 7: under FSDP2 at 2 processes every block of every family is
+    a unit of its own (GPT-2's ``h``, T5's ``block_{i}``), and the root."""
+    n = UNIT_FAMILIES[family]
+    for r in runs[2]:
+        assert r["units"][family]["blocks"] == r["units"][family]["units"] == n
+        assert r["units"][family]["root"]
+
+
+@pytest.mark.parametrize("family", UNIT_STEPS)
+def test_steps_under_the_block_units_keep_the_numbers(runs, family):
+    """A step of GPT-2 and T5 under their new units at 2 processes gives
+    the one-process step's loss and grad norm on the global batch
+    (rtol 1e-4)."""
+    acc = Accelerator(cpu=True)
+    acc.prepare(Model(_unit_module(family)), adamw(LR))
+    step = acc.prepare_train_step(_unit_loss(family), max_grad_norm=1.0)
+    _, m = step(acc.train_state, {k: torch.from_numpy(v)
+                                  for k, v in _unit_batch(family).items()})
+    for r in runs[2]:
+        np.testing.assert_allclose(r["units"][family]["metrics"],
+                                   (float(m["loss"]), float(m["grad_norm"])), rtol=1e-4)
+
+
+def test_activation_checkpointing_under_ddp_matches_jax(runs):
+    """Fault 6: ``activation_checkpointing`` with ``NO_SHARD`` at 2
+    processes (DDP) turns ``config.remat`` on, as the JAX package's
+    ``dp_replicate=2`` prepare does: on the prepared module's config, the
+    caller's config left alone."""
+    assert runs["ref"]["no_shard_remat"] == (True, False)
+    for r in runs[2]:
+        assert r["units"]["no_shard_remat"] == {"remat": True, "caller": False, "ddp": True}

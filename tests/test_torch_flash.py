@@ -29,6 +29,17 @@ from accelerate_tpu_torch.ops import (
 )
 from accelerate_tpu_torch.ops import hopper_flash
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 2e-5  # fp32 on both sides; block order differs (tests/test_attention.py)
 
 

@@ -38,6 +38,17 @@ from accelerate_tpu_torch.models import (
 from accelerate_tpu_torch.ops import fp8
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 WIDTH = dict(num_hidden_layers=2, hidden_size=64)
 _F8 = {"e4m3": (jnp.float8_e4m3fn, torch.float8_e4m3fn, fp8.E4M3_MAX),
        "e5m2": (jnp.float8_e5m2, torch.float8_e5m2, fp8.E5M2_MAX)}

@@ -306,7 +306,7 @@ def _starcoder2_sd(**kw):
 
 def test_refusals_of_the_jax_tests_raise():
     """tests/test_hub.py:197 and tests/test_generic_hub.py:125, 320, 334,
-    393 and 407, and a family not ported yet (BERT)."""
+    393 and 407, and a BERT checkpoint without the model's tensors."""
     with pytest.raises(ValueError, match="longrope"):
         load_pretrained(_hf_model("phi3", original_max_position_embeddings=32, rope_scaling={
             "type": "longrope", "short_factor": [1.0] * 8, "long_factor": [2.0] * 8}))
@@ -327,8 +327,10 @@ def test_refusals_of_the_jax_tests_raise():
         load_pretrained(({"model_type": "definitely_not_a_model"}, {}))
     with pytest.raises(ValueError, match="Unsupported model family"):
         load_pretrained(({"model_type": "umbrellanet"}, {}))
-    with pytest.raises(NotImplementedError, match="item 10.6"):
-        load_pretrained(({"model_type": "bert"}, {}))
+    with pytest.raises(KeyError, match="checkpoint lacks"):
+        load_pretrained(({"model_type": "bert", "vocab_size": 64, "hidden_size": 16,
+                          "num_hidden_layers": 1, "num_attention_heads": 2,
+                          "intermediate_size": 32}, {}))
 
 
 def test_the_port_imports_neither_transformers_nor_safetensors():

@@ -26,6 +26,16 @@ from accelerate_tpu_torch.models import (
 from accelerate_tpu_torch.ops import hopper_flash
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ids(b=2, s=24, vocab=256, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, size=(b, s), dtype=np.int32)
 

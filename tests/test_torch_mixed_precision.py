@@ -60,6 +60,17 @@ from accelerate_tpu_torch.models import (
 )
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 WIDTH = dict(num_hidden_layers=2, hidden_size=64)
 STEPS, ROWS, SEQ, OVERFLOW = 6, 8, 16, 3   # 8 rows for the 8-device CPU mesh
 SCHEDULE = dict(init_value=0.0, peak_value=1e-3, warmup_steps=2, decay_steps=8)

@@ -40,6 +40,19 @@ from accelerate_tpu_torch.utils.constants import (
     SERVING_CRASH_EXIT_CODE,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # A plan shaped like the JAX planner's plan dict: enough for note_plan to
 # price comm terms and bandwidth residuals.
 PLAN = {

@@ -52,6 +52,17 @@ from accelerate_tpu_torch.utils.operations import broadcast
 from accelerate_tpu_torch.utils import memory as port_memory
 from accelerate_tpu_torch.utils.operations import collective_counters
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 WIDTH = dict(num_hidden_layers=2, hidden_size=64)
 SHAPES = (4, 4, 2, 4)  # rows of each step's batch, 16 tokens each
 LAYOUT = "donated-buffer layout (expected once)"

@@ -35,6 +35,16 @@ from accelerate_tpu_torch.utils import imports
 from accelerate_tpu_torch.utils.profiling import TRACE_FILE, ProfileSession
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def states():
     PartialState(cpu=True)

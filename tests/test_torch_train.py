@@ -43,6 +43,17 @@ from accelerate_tpu_torch.models import (
 )
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the driver runs several test processes at once,
+    and torch's spinning thread pools would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PACKAGE = Path(accelerate_tpu_torch.__file__).parent
 
 
