@@ -23,13 +23,31 @@ telemetry and the device-time profiler (``TelemetryKwargs``), and
 ``Accelerator.profile`` (``ProfileKwargs``). Reduced precision:
 ``mixed_precision="fp16"`` with dynamic loss scaling (``GradScalerKwargs``)
 and ``"fp8"`` with fp8 projections on Hopper's fp8 tensor cores
-(``FP8RecipeKwargs``, ``LlamaConfig(fp8=True)``).
+(``FP8RecipeKwargs``, ``LlamaConfig(fp8=True)``). Big-model inference:
+device maps over the card, pinned host memory and a disk store, and
+streamed forwards of every decoder family (``load_checkpoint_and_dispatch``,
+``dispatch_model``, ``cpu_offload``, ``disk_offload``); weight-only int8 and
+NF4 quantization (``utils.load_and_quantize_model``); Megatron-LM
+checkpoints (``models.megatron.load_megatron_model``).
 
 It imports torch only, never JAX or the ``accelerate_tpu`` package, and
 runs on CUDA unless the caller asks for the CPU (``Accelerator(cpu=True)``).
 """
 
 from .accelerator import Accelerator
+from .big_modeling import (
+    DispatchedModel,
+    UserCpuOffloadHook,
+    cpu_offload,
+    cpu_offload_with_hook,
+    disk_offload,
+    dispatch_model,
+    init_empty_weights,
+    init_on_device,
+    load_checkpoint_and_dispatch,
+    register_stream_plan,
+    register_stream_spec,
+)
 from .checkpointing import CheckpointSaveError
 from .cp_generation import cp_generate
 from .data_loader import (
@@ -105,6 +123,7 @@ __all__ = [
     "ColumnDataset",
     "DataLoaderConfiguration",
     "DeepSpeedPlugin",
+    "DispatchedModel",
     "DistributedDataParallelKwargs",
     "DistributedType",
     "DynamicLossScale",
@@ -131,18 +150,26 @@ __all__ = [
     "TelemetryKwargs",
     "TelemetryRecorder",
     "TrainState",
+    "UserCpuOffloadHook",
     "adamw",
     "beam_search",
     "compute_dispatch",
     "constant_schedule",
     "cosine_decay_schedule",
     "cp_generate",
+    "cpu_offload",
+    "cpu_offload_with_hook",
+    "disk_offload",
+    "dispatch_model",
     "find_executable_batch_size",
     "fused_cross_entropy_loss",
     "generate",
     "grads_all_finite",
+    "init_empty_weights",
+    "init_on_device",
     "join_schedules",
     "linear_schedule",
+    "load_checkpoint_and_dispatch",
     "llama_params_from_hf",
     "llama_params_to_hf",
     "load_balance_loss",
@@ -153,6 +180,8 @@ __all__ = [
     "quantize_model_for_decode",
     "register_encdec_generation_plan",
     "register_generation_plan",
+    "register_stream_plan",
+    "register_stream_spec",
     "replay_trace",
     "set_seed",
     "skip_first_batches",

@@ -535,6 +535,15 @@ class Accelerator:
         """Prepare models, optimizers, data loaders and schedules, returning
         them in the order given. Each optimizer is built on the parameters of
         the model before it; loaders and schedules may come anywhere."""
+        for obj in args:
+            if isinstance(obj, Model) and self.verify_device_map(obj):
+                # A model dispatched over the card, the host and the disk
+                # holds no trainable parameters a process group can shard.
+                raise ValueError(
+                    "You can't train a model that has been dispatched with a "
+                    "multi-placement device_map (offloaded to cpu/disk). Load the "
+                    "model on-device (or shard it with a ParallelismConfig mesh) "
+                    "before calling prepare().")
         out, model = list(args), None
         for i, obj in enumerate(args):
             if isinstance(obj, Model):
@@ -652,6 +661,17 @@ class Accelerator:
 
     def skip_first_batches(self, dataloader, num_batches: int = 0):
         return skip_first_batches(dataloader, num_batches)
+
+    def verify_device_map(self, model) -> bool:
+        """True when ``model`` was dispatched (``big_modeling``) with a
+        device map of more than one placement; ``prepare`` refuses such a
+        model."""
+        from .big_modeling import DispatchedModel
+        from .utils.modeling import placement_key
+
+        if not isinstance(model, DispatchedModel):
+            return False
+        return len({placement_key(p) for p in model.device_map.values()}) > 1
 
     def unwrap_model(self, model: Model) -> torch.nn.Module:
         return model.module if isinstance(model, Model) else model

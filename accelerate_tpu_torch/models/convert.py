@@ -220,11 +220,12 @@ def _zip_trees(fn, trees: list[dict]) -> dict:
 
 def llama_flax_name(cfg, fqn: str) -> str:
     """The ``/``-joined name of a Llama or Mixtral parameter in the unrolled
-    flax tree: ``layers_<i>``, ``kernel`` for a projection, ``embedding``."""
+    flax tree: ``layers_<i>``, ``kernel`` for a projection's weight (its
+    bias keeps ``bias``), ``embedding``."""
     owner, _, leaf = fqn.rpartition(".")
     if owner.endswith("embed_tokens"):
         leaf = "embedding"
-    elif owner.endswith("_proj") or owner == "lm_head":
+    elif (owner.endswith("_proj") or owner == "lm_head") and leaf == "weight":
         leaf = "kernel"
     owner = re.sub(r"(^|\.)layers\.(\d+)(?=\.|$)", r"\1layers_\2", owner)
     return f"{owner.replace('.', '/')}/{leaf}"
@@ -648,6 +649,118 @@ def resnet_params_from_flax(cfg, flax_params) -> dict[str, torch.Tensor]:
 def _resnet_flax_name(cfg, fqn: str) -> str:
     return _resnet_flax_leaf(fqn, torch.empty(0, 0))[0]
 
+
+# Each table-described family's module class and its tables.
+_TABLES = {GPT2LMHeadModel: _gpt2_tables, OPTForCausalLM: _opt_tables,
+           GPTNeoXForCausalLM: _neox_tables, T5ForConditionalGeneration: _t5_tables,
+           WhisperForConditionalGeneration: _whisper_tables,
+           BertForSequenceClassification: lambda cfg: _bert_tables(cfg, "classifier"),
+           BertForMaskedLM: lambda cfg: _bert_tables(cfg, "mlm"),
+           ViTForImageClassification: _vit_tables, CLIPModel: _clip_tables}
+
+
+
+# ---------------------------------------------------------------------------
+# One parameter at a time
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FlaxLeaf:
+    """Where one parameter of the port lives in the JAX package's tree of
+    the same config: ``name`` (``/``-joined) in the config's own layout,
+    ``index`` its row of a stacked ``nn.scan`` leaf (None when the leaf is
+    the parameter's alone), and the maps of one layer's value from flax's
+    layout to the port's and back (views where the layout allows)."""
+
+    name: str
+    index: Optional[int]
+    from_flax: Callable
+    to_flax: Callable
+
+
+def _identity(t):
+    return t
+
+
+def _llama_leaf(cfg, fqn: str) -> FlaxLeaf:
+    """A Llama or Mixtral parameter's leaf (``llama_flax_name``'s names)."""
+    unrolled = llama_flax_name(cfg, fqn)
+    owner, _, leaf = fqn.rpartition(".")
+    heads = {"q_proj": cfg.num_attention_heads, "k_proj": cfg.num_key_value_heads,
+             "v_proj": cfg.num_key_value_heads}
+    proj = owner.rpartition(".")[2]
+    h, d = cfg.hidden_size, cfg.head_dim
+    from_flax, to_flax = _identity, _identity
+    if proj in heads and leaf == "weight":
+        from_flax, to_flax = _linear, (lambda w, n=heads[proj]: w.t().reshape(h, n, d))
+    elif proj in heads:  # (heads, D) bias
+        from_flax, to_flax = (lambda b: b.reshape(-1)), (lambda b, n=heads[proj]: b.reshape(n, d))
+    elif proj == "o_proj" and leaf == "weight":
+        from_flax = lambda k: k.reshape(-1, k.shape[-1]).t()  # noqa: E731
+        to_flax = lambda w: w.t().reshape(cfg.num_attention_heads, d, h)  # noqa: E731
+    elif leaf == "weight" and (proj.endswith("_proj") or proj == "lm_head"):
+        from_flax, to_flax = _linear, (lambda w: w.t())
+    m = re.fullmatch(r"model/layers_(\d+)/(.+)", unrolled)
+    if m and cfg.scan_layers:
+        return FlaxLeaf(f"model/layers/block/{m.group(2)}", int(m.group(1)), from_flax, to_flax)
+    return FlaxLeaf(unrolled, None, from_flax, to_flax)
+
+
+def _tables_leaf(tables, cfg, fqn: str) -> FlaxLeaf:
+    top, stacks = tables(cfg)
+    for leaf in top:
+        if leaf.port == fqn:
+            return FlaxLeaf(leaf.flax, None, leaf.from_flax, leaf.to_flax)
+    for st in stacks:
+        head, _, tail = st.port.partition("{i}")
+        m = re.fullmatch(re.escape(head) + r"(\d+)" + re.escape(tail) + r"(.+)", fqn)
+        if not m:
+            continue
+        i, rest = int(m.group(1)), m.group(2)
+        leaf = next(lf for lf in st.leaves + st.first_apart if lf.port == rest)
+        start = 1 if st.first_apart else 0
+        if i < start or not cfg.scan_layers:
+            return FlaxLeaf(f"{st.unrolled.format(i=i)}/{leaf.flax}", None, leaf.from_flax,
+                            leaf.to_flax)
+        return FlaxLeaf(f"{st.scanned}/{leaf.flax}", i - start, leaf.from_flax, leaf.to_flax)
+    raise KeyError(fqn)
+
+
+def _resnet_leaf(cfg, fqn: str) -> FlaxLeaf:
+    owner, _, leaf = fqn.rpartition(".")
+    name = _resnet_flax_name(cfg, fqn)
+    if leaf != "weight":
+        return FlaxLeaf(name, None, _identity, _identity)
+    return FlaxLeaf(name, None, lambda k: k.permute(3, 2, 0, 1) if k.dim() == 4 else k.t(),
+                    lambda w: w.permute(2, 3, 1, 0) if w.dim() == 4 else w.t())
+
+
+def _table_of(module):
+    for cls, tables in _TABLES.items():
+        if isinstance(module, cls):
+            return tables
+    return None
+
+
+def flax_leaf(module, fqn: str) -> FlaxLeaf:
+    """The ``FlaxLeaf`` of ``module``'s parameter ``fqn``. A module without
+    a converter keeps its own names (``/``-joined), and a 2-D ``Linear``
+    weight maps to a ``kernel`` ``(in, out)``."""
+    cfg = getattr(module, "config", None)
+    if isinstance(module, (LlamaForCausalLM, MixtralForCausalLM)):
+        return _llama_leaf(cfg, fqn)
+    if isinstance(module, ResNet):
+        return _resnet_leaf(cfg, fqn)
+    tables = _table_of(module)
+    if tables is not None:
+        return _tables_leaf(tables, cfg, fqn)
+    owner, _, leaf = fqn.rpartition(".")
+    sub = module.get_submodule(owner) if owner else module
+    if leaf == "weight" and isinstance(sub, torch.nn.Linear):
+        return FlaxLeaf(f"{owner.replace('.', '/')}/kernel", None, lambda k: k.t(),
+                        lambda w: w.t())
+    return FlaxLeaf(fqn.replace(".", "/"), None, _identity, _identity)
 
 
 # ---------------------------------------------------------------------------

@@ -332,6 +332,39 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    port trains, gets one unit on each block and on the root (ROADMAP.md
    fault 7), and one train step through them.
 
+21. big-model inference. (a) Llama-2-7B's published widths at its 32
+   layers (``LLAMA2_7B``: 6.74B parameters, bf16 weights of std 0.02 from
+   seed 21, flash attention) written as the JAX package's sharded
+   safetensors checkpoint (flax names, 2 GB shards) and dispatched by
+   ``load_checkpoint_and_dispatch(device_map="auto")`` within 6 GiB on the
+   card and 6 GiB of pinned host memory, the rest in the disk store: one
+   warm and one counted forward of a (1, 1024) prompt, streamed; then the
+   same checkpoint loaded whole on the card (fp32 masters: the same bf16
+   values at use) and its forward. The logits must be equal bit for bit
+   (the same kernels on the same bf16 values in the same order), the flash
+   forward kernel launched 32 times in each forward, and the streamed
+   forward's ``max_memory_allocated`` above what was allocated before it
+   at most the card's budget plus two blocks. Prints the bytes in each
+   tier, both forwards' seconds, the bytes copied host to device and their
+   GB/s, ``last_stream_peak_bytes``, the host's MemAvailable and the free
+   disk (without the room the phase fails). (b) ``load_and_quantize_model``
+   of the resident model at 8 and 4 bits (NF4), bf16 compute: bytes under
+   the JAX package's shares of the fp32 masters' (``QUANT_GATES``), logits
+   equal bit for bit to the model of the dequantized weights; the bytes,
+   forward ms, peak, and the cosine and greedy agreement against bf16 at
+   32 layers and at the first ``QUANT_DEPTHS`` layers; the JAX package's
+   own test (its tiny Llama, fp32) on the card under its cosine,
+   agreement and bytes gates. (c) The seven streamed families' tiny models
+   (``STREAM_FAMILIES``, fp32): ``dispatch_model`` over the card, the host
+   and the disk, ``cpu_offload``, ``disk_offload`` and
+   ``cpu_offload_with_hook`` chained to a second model: each within
+   ``STREAM_CARD_REL`` of the model resident on the card (bit-equality
+   printed) and ``STREAM_REL`` of the port on the CPU, every call
+   streamed. (d) A megatron-core checkpoint of
+   Llama-2-7B's widths at 4 layers, TP 2 x PP 2 (``mp_rank_0T_00P``, bf16,
+   its args) through ``load_megatron_model`` onto the card: logits equal bit
+   for bit to the model built from the same flax tree directly.
+
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
 """
@@ -379,14 +412,20 @@ MIXTRAL_LIKE = dict(b=2, s=2048, hq=32, hkv=8, d=128)
 # Phase 18's cp_generate prefill: phase 7's 1.06B Llama (16 heads of dim
 # 128) over a (1, 8192) prompt, the forward kernel once a layer.
 CP_GEN_LIKE = dict(b=1, s=8192, hq=16, hkv=16, d=128)
+# Phase 21's streamed and resident forwards: Llama-2-7B (32 heads of 128)
+# over a (1, 1024) prompt, the forward kernel once a layer.
+LLAMA2_7B_LIKE = dict(b=1, s=1024, hq=32, hkv=32, d=128)
 # The main paths whose launches the kernels line reports: phase 5's Llama
 # train step (bf16 d128), phase 17's Gemma-2B train step (bf16 d256), phase
 # 18's Mixtral-8x7B train step (bf16 d128, GQA 4:1) and its cp_generate
-# prefill (bf16 d128 at seq 8192, the forward kernel).
-MAIN_PATHS = ("train_step", "gemma_2b_step", "mixtral_8x7b_step", "cp_generate")
+# prefill (bf16 d128 at seq 8192, the forward kernel), and phase 21's
+# Llama-2-7B forward streamed past a budget on the card (the forward kernel).
+MAIN_PATHS = ("train_step", "gemma_2b_step", "mixtral_8x7b_step", "cp_generate",
+              "big_model_stream")
 # The other runs whose launches the line lists by path, outside "launches".
 OTHER_PATHS = ("imperative_loop", "observed_loop", "observed_imperative", "observed_serving",
-               "fp16_step", "fp8_step", "dcp_loop", "dcp_async_loop", "serving_rest")
+               "fp16_step", "fp8_step", "dcp_loop", "dcp_async_loop", "serving_rest",
+               "big_model_resident")
 _TRAINING_PATHS = ("train_step", "gemma_2b_step", *OTHER_PATHS)
 # Phase 3 times every built variant (hopper_flash.variant) at the shape its
 # users give it: head dims 64 and 128 at the training shape, 256 at the
@@ -405,7 +444,9 @@ TIMED = [(None, "bfloat16", SLICE, _TRAINING_PATHS),
          (None, "float32", GEMMA_LIKE, _TRAINING_PATHS),
          (None, "bfloat16", dict(SLICE, d=96), _TRAINING_PATHS),
          ("mixtral_8x7b", "bfloat16", MIXTRAL_LIKE, ("mixtral_8x7b_step",)),
-         ("cp_generate_8192", "bfloat16", CP_GEN_LIKE, ("cp_generate",))]
+         ("cp_generate_8192", "bfloat16", CP_GEN_LIKE, ("cp_generate",)),
+         ("llama2_7b_stream", "bfloat16", LLAMA2_7B_LIKE, ("big_model_stream",
+                                                           "big_model_resident"))]
 SOURCES = {"flash_fwd": "accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
            "flash_dq": "accelerate_tpu_torch/ops/csrc/flash_dq.cu",
            "flash_dkv": "accelerate_tpu_torch/ops/csrc/flash_dkv.cu",
@@ -4675,7 +4716,9 @@ def family_classes(family):
     """(config class, module class) of a family; BERT's is the masked LM."""
     from accelerate_tpu_torch import models
 
-    return {"gpt2": (models.GPT2Config, models.GPT2LMHeadModel),
+    return {"llama": (models.LlamaConfig, models.LlamaForCausalLM),
+            "mixtral": (models.MixtralConfig, models.MixtralForCausalLM),
+            "gpt2": (models.GPT2Config, models.GPT2LMHeadModel),
             "neox": (models.GPTNeoXConfig, models.GPTNeoXForCausalLM),
             "opt": (models.OPTConfig, models.OPTForCausalLM),
             "t5": (models.T5Config, models.T5ForConditionalGeneration),
@@ -5784,6 +5827,612 @@ def encoders_phase(hf, device="cuda", rows=None, steps=ENCODER_STEPS):
             "checks": checks, "ok": all(checks.values())}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: big-model inference
+# ---------------------------------------------------------------------------
+
+# meta-llama/Llama-2-7b-hf's config.json: its published widths at its full
+# depth (6.74B parameters, 13.5 GB in bf16), no tied head.
+LLAMA2_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                 num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+                 max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0,
+                 tie_word_embeddings=False)
+# (a): budgets of about 6 GiB on the card and 6 GiB of pinned host memory, the
+# rest on disk; 2 GB shards; weights of std 0.02 from seed 21; (d): 4 layers
+# at TP 2 x PP 2.
+BIG_MODEL = dict(prompt=(LLAMA2_7B_LIKE["b"], LLAMA2_7B_LIKE["s"]), gpu_budget=6 * 2**30,
+                 cpu_budget=6 * 2**30, shard_bytes=2 * 10**9, seed=21, std=0.02,
+                 megatron_layers=4, megatron_tp=2, megatron_pp=2)
+# (b): the JAX package's own gates (tests/test_quantization.py:103-118):
+# cosine of the logits against full precision, int8's greedy agreement,
+# bytes against the fp32 weights'. They hold its test's model, the tiny
+# 2-layer Llama, which (b) runs on the card; on Llama-2-7B's widths a random
+# network amplifies the quantization error layer by layer (on an H100:
+# int8 cosine 0.978, NF4 0.413 at 32 layers), so there (b) gates the bytes
+# and the mechanism and reports the cosine and agreement at the depths of
+# ``QUANT_DEPTHS``.
+QUANT_GATES = {8: dict(cosine=0.999, agreement=0.8, bytes_share=0.45),
+               4: dict(cosine=0.94, agreement=None, bytes_share=0.35)}
+QUANT_DEPTHS = (2, 8)
+# (c): the seven streamed families at their tiny widths.
+# Each dispatched forward against the model resident on the card: bit for
+# bit in six families. Whisper's differs in the last bits (2.3e-7-3.7e-7 on
+# an H100): its convolution stem leaves the encoder's activations in
+# channels-first memory, and torch.matmul folds such a 3-D input into one
+# mm when the weight requires grad (the resident module's parameters) but
+# runs a batched product when it does not (the streamed tensors). So the
+# gate is fp32 rounding; against the port on the CPU, the fp32 parity
+# tolerance.
+STREAM_FAMILIES = ("llama", "mixtral", "gpt2", "opt", "neox", "t5", "whisper")
+STREAM_CARD_REL = 1e-6
+STREAM_REL = 1e-4
+
+
+def big_model_config(width, layers=None, **kw):
+    """The Llama config of ``width`` in bf16 with flash attention and the
+    unrolled flax layout (a checkpoint leaf per layer, so that whole layers
+    land on a tier)."""
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaConfig
+
+    width = dict(width, **({"num_hidden_layers": layers} if layers else {}))
+    return LlamaConfig(**width, dtype=torch.bfloat16, attention_impl="flash",
+                       scan_layers=kw.pop("scan_layers", False), **kw)
+
+
+def seeded_port_params(module, device, seed, std, dtype):
+    """The module's parameters in the port's layout from one
+    ``torch.Generator``: normal(0, std) matrices, unit norm weights, zero
+    biases, in ``dtype`` on ``device`` (name → tensor, in order)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for name, p in module.named_parameters():
+        if p.dim() >= 2:
+            out[name] = (torch.randn(p.shape, generator=gen, device=device, dtype=torch.float32)
+                         * std).to(dtype)
+        else:
+            fill = 0.0 if name.endswith("bias") else 1.0
+            out[name] = torch.full(p.shape, fill, device=device, dtype=dtype)
+    return out
+
+
+def write_flax_checkpoint(module, params, root, shard_bytes):
+    """The JAX package's sharded safetensors checkpoint of ``params`` (the
+    port's names and layouts): flax names and layouts, stacked where the
+    config scans. Returns its bytes."""
+    import torch
+
+    from accelerate_tpu_torch.models.convert import flax_leaf
+    from accelerate_tpu_torch.utils.other import save_sharded_safetensors
+
+    rows: dict = {}
+    for name, t in params.items():
+        leaf = flax_leaf(module, name)
+        rows.setdefault(leaf.name, []).append((leaf.index or 0,
+                                               leaf.to_flax(t).contiguous().cpu()))
+    flat = {}
+    for name, values in rows.items():
+        values.sort(key=lambda kv: kv[0])
+        flat[name] = values[0][1] if len(values) == 1 else torch.stack([v for _, v in values])
+    del rows
+    save_sharded_safetensors(flat, root, max_shard_size=shard_bytes)
+    return sum(t.numel() * t.element_size() for t in flat.values())
+
+
+def layer_bytes(cfg, dtype_bytes=2) -> int:
+    """Bytes of one decoder layer of a Llama config."""
+    h, d = cfg.hidden_size, cfg.head_dim
+    attn = h * cfg.num_attention_heads * d * 2 + h * cfg.num_key_value_heads * d * 2
+    return (attn + 3 * h * cfg.intermediate_size + 2 * h) * dtype_bytes
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a @ b) / (a.norm() * b.norm()))
+
+
+def streamed_llama(hf, cfg, ckpt, offload_dir, ids, device, budgets):
+    """(a), streamed: the checkpoint dispatched over the card, the host and
+    the disk by ``load_checkpoint_and_dispatch(device_map="auto")``, one
+    warm forward, then the counted and timed one."""
+    import torch
+
+    from accelerate_tpu_torch import load_checkpoint_and_dispatch
+    from accelerate_tpu_torch.models import LlamaForCausalLM
+
+    dev = torch.device(device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = load_checkpoint_and_dispatch(
+        LlamaForCausalLM(cfg, device="meta"), ckpt, device_map="auto",
+        max_memory={dev: budgets["gpu"], "cpu": budgets["cpu"]}, offload_folder=offload_dir,
+        dtype=torch.bfloat16)
+    load_s = time.perf_counter() - t0
+    model(ids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = model(ids)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    copied = model.last_stream_copied_bytes
+    tiers = model.tier_bytes()
+    entries = {k: sorted(n for n, v in model.device_map.items() if v == k)
+               for k in ("cpu", "disk")}
+    out = {"load_s": load_s, "tier_bytes": tiers, "device_map_entries": len(model.device_map),
+           "host_entries": entries["cpu"], "disk_entries": entries["disk"],
+           "forward_s": seconds, "h2d_bytes": copied, "h2d_gb_s": copied / seconds / 1e9,
+           "allocated_before": base, "max_memory_allocated": peak,
+           "phase_peak_bytes": peak - base,
+           "last_stream_peak_bytes": model.last_stream_peak_bytes,
+           "hbm_resident_bytes": model.hbm_resident_bytes(),
+           "launches": launches, "variant_launches": variant_launches,
+           "streamed": model.last_stream_peak_bytes is not None}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return logits, out
+
+
+def resident_llama(hf, cfg, ckpt, ids, device):
+    """(a), resident: the same checkpoint loaded whole on the card as fp32
+    masters (the port's convention: cast to bf16 at use, the same bf16
+    values), one counted and timed forward."""
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaForCausalLM
+    from accelerate_tpu_torch.utils import load_checkpoint_in_model
+
+    t0 = time.perf_counter()
+    module = LlamaForCausalLM(cfg, device="meta")
+    store, _ = load_checkpoint_in_model(module, ckpt, device_map={"": torch.device(device)})
+    module.load_state_dict(store, assign=True)
+    del store
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = module(ids)
+    torch.cuda.synchronize()
+    return module, logits, {"load_s": load_s, "forward_s": time.perf_counter() - t0,
+                            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                            "fp32_bytes": sum(p.numel() * 4 for p in module.parameters()),
+                            "launches": dict(hf.LAUNCHES),
+                            "variant_launches": dict(hf.VARIANT_LAUNCHES)}
+
+
+def truncated_llama(module, layers):
+    """The first ``layers`` blocks of a Llama with its embedding, final norm
+    and head: a module sharing the tensors of ``module``."""
+    from accelerate_tpu_torch.models import LlamaForCausalLM
+
+    cfg = dataclasses.replace(module.config, num_hidden_layers=layers)
+    sub = LlamaForCausalLM(cfg, device="meta")
+    sub.load_state_dict({k: v for k, v in module.state_dict().items()
+                         if not k.startswith("model.layers.") or int(k.split(".")[2]) < layers},
+                        assign=True)
+    return sub
+
+
+def dequantized_reference(qm, cfg):
+    """The Llama whose weights are the quantized model's dequantized values
+    (the compute dtype; its other weights shared): what the quantized
+    forward must compute, weight for weight."""
+    from accelerate_tpu_torch.models import LlamaForCausalLM
+    from accelerate_tpu_torch.models.convert import llama_views_from_flax
+    from accelerate_tpu_torch.utils import dequantize_params
+
+    ref = LlamaForCausalLM(cfg, device="meta")
+    views = llama_views_from_flax(cfg, dequantize_params(qm.params,
+                                                         qm.quantization_config.compute_dtype))
+    ref.load_state_dict({k: v.contiguous() for k, v in views.items()}, assign=True)
+    return ref
+
+
+def quantized_llama(module, ref, ids, bits, gates, depths=QUANT_DEPTHS):
+    """(b): ``load_and_quantize_model`` at ``bits`` on the resident model:
+    its bytes against the fp32 masters', forward ms and peak; its logits
+    equal bit for bit to the model of its dequantized weights (the
+    mechanism); cosine and greedy agreement against the bf16 logits, at
+    full depth and at the first ``depths`` layers (reported: a random deep
+    network amplifies the quantization error layer by layer)."""
+    import torch
+
+    from accelerate_tpu_torch import Model
+    from accelerate_tpu_torch.utils import (
+        QuantizationConfig,
+        load_and_quantize_model,
+        quantized_nbytes,
+    )
+
+    qcfg = QuantizationConfig(load_in_8bit=bits == 8, load_in_4bit=bits == 4,
+                              compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    qm = load_and_quantize_model(Model(module), qcfg)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    qm(ids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = qm(ids)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    nbytes = quantized_nbytes(qm.params)
+    full = sum(p.numel() * 4 for p in module.parameters())
+    with torch.no_grad():
+        mechanism = dequantized_reference(qm, module.config)(ids)
+    by_depth = {}
+    for n in (d for d in depths if d < module.config.num_hidden_layers):
+        sub = truncated_llama(module, n)
+        with torch.no_grad():
+            want = sub(ids)
+        got = load_and_quantize_model(Model(sub), qcfg)(ids)
+        by_depth[n] = {"cosine": _cosine(got.float(), want.float()),
+                       "agreement": float((got.argmax(-1) == want.argmax(-1)).float().mean())}
+        del sub, got, want
+    checks = {"mechanism_bit_equal": bool(torch.equal(logits, mechanism)),
+              "bytes": nbytes < gates["bytes_share"] * full,
+              "finite": bool(torch.isfinite(logits).all())}
+    res = {"bits": bits, "quantize_s": quantize_s, "bytes": nbytes, "fp32_bytes": full,
+           "bytes_share": nbytes / full, "forward_ms": ms, "max_memory_allocated": peak,
+           "cosine": _cosine(logits.float(), ref.float()),
+           "agreement": float((logits.argmax(-1) == ref.argmax(-1)).float().mean()),
+           "mechanism_rel": rel_err(logits, mechanism), "by_depth": by_depth,
+           "checks": checks}
+    del qm, mechanism
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tiny_quantized_parity(bits, gates, device="cuda"):
+    """(b) The JAX package's own quantization test on the card: its tiny
+    fp32 Llama (``LlamaConfig.tiny``, weights of std 1/sqrt(fan-in), as
+    its initialisers draw them), fp32 compute, ids (2, 16): cosine against
+    full precision, int8's greedy agreement, bytes against the fp32
+    weights'."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Model
+    from accelerate_tpu_torch.utils import (
+        QuantizationConfig,
+        load_and_quantize_model,
+        quantized_nbytes,
+    )
+
+    cfg, module = stream_family_module("llama", device)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)))
+    ids = ids.to(device)
+    with torch.no_grad():
+        ref = module(ids).float()
+    qm = load_and_quantize_model(Model(module), QuantizationConfig(
+        load_in_8bit=bits == 8, load_in_4bit=bits == 4, compute_dtype=torch.float32))
+    got = qm(ids).float()
+    cosine = _cosine(got, ref)
+    agreement = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    share = quantized_nbytes(qm.params) / sum(p.numel() * 4 for p in module.parameters())
+    checks = {"cosine": cosine > gates["cosine"], "bytes": share < gates["bytes_share"]}
+    if gates["agreement"] is not None:
+        checks["agreement"] = agreement >= gates["agreement"]
+    return {"bits": bits, "cosine": cosine, "agreement": agreement, "bytes_share": share,
+            "gates": gates, "checks": checks}
+
+
+def stream_family_module(family, device, seed=0):
+    """A family's tiny fp32 model (its config's ``tiny``) with numpy-seeded
+    weights (``family_weights``) on ``device``."""
+    import torch
+
+    cfg_cls, mod_cls = family_classes(family)
+    cfg = cfg_cls.tiny(dtype=torch.float32)
+    module = mod_cls(cfg)
+    module.load_state_dict(family_weights(module, seed))
+    return cfg, module.to(device)
+
+
+def stream_family_inputs(family, cfg, device):
+    """The forward's inputs: ids; T5's encoder and decoder ids; Whisper's
+    (B, T, mel) features and decoder ids."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 12))).to(device)
+    if family == "t5":
+        return torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 10))).to(device), ids[:, :8]
+    if family == "whisper":
+        feats = rng.standard_normal((2, 40, cfg.num_mel_bins)).astype(np.float32)
+        return torch.from_numpy(feats).to(device), ids[:, :6]
+    return (ids,)
+
+
+def tiny_stream_parity(family, device="cuda", scratch=None):
+    """(c) One family's tiny model: ``dispatch_model`` over the card, the
+    host and the disk, ``cpu_offload``, ``disk_offload`` and
+    ``cpu_offload_with_hook`` chained to a second model of the family; each
+    forward within ``STREAM_CARD_REL`` of the model resident on the card
+    (and whether bit for bit) and ``STREAM_REL`` of the port on the CPU;
+    every dispatched call streamed (a fallback to materialising fails)."""
+    import torch
+
+    from accelerate_tpu_torch import (
+        Model,
+        cpu_offload,
+        cpu_offload_with_hook,
+        disk_offload,
+        dispatch_model,
+    )
+    from accelerate_tpu_torch.utils import (
+        compute_abstract_params,
+        compute_module_sizes,
+        infer_auto_device_map,
+    )
+
+    dev = torch.device(device)
+    cfg, host = stream_family_module(family, "cpu")
+    _, host2 = stream_family_module(family, "cpu", seed=1)
+    x_cpu = stream_family_inputs(family, cfg, "cpu")
+    x = tuple(t.to(dev) for t in x_cpu)
+    with torch.no_grad():
+        cpu_ref, cpu_ref2 = host(*x_cpu), host2(*x_cpu)
+        card = stream_family_module(family, dev)[1]
+        card2 = stream_family_module(family, dev, seed=1)[1]
+        ref, ref2 = card(*x), card2(*x)
+    del card, card2
+    abstract = compute_abstract_params(host)
+    sizes = compute_module_sizes(abstract)
+    device_map = infer_auto_device_map(abstract, {dev: sizes[""] // 3, "cpu": sizes[""] // 3})
+    runs = {"dispatch_model": dispatch_model(host, device_map, offload_dir=os.path.join(
+                scratch, f"{family}_mixed")),
+            "cpu_offload": cpu_offload(host, execution_device=dev),
+            "disk_offload": disk_offload(host, os.path.join(scratch, f"{family}_disk"),
+                                         execution_device=dev)}
+    res, checks = {}, {}
+    for name, model in runs.items():
+        got = model(*x)
+        res[name] = {"bit_equal": bool(torch.equal(got, ref)), "rel_to_card": rel_err(got, ref),
+                     "rel_to_cpu": rel_err(got.cpu(), cpu_ref),
+                     "streamed": model.last_stream_peak_bytes is not None,
+                     "tier_bytes": model.tier_bytes()}
+        checks[name] = (res[name]["rel_to_card"] <= STREAM_CARD_REL and res[name]["streamed"]
+                        and res[name]["rel_to_cpu"] <= STREAM_REL)
+    hooked1, hook1 = cpu_offload_with_hook(Model(host), execution_device=dev)
+    hooked2, _ = cpu_offload_with_hook(Model(host2), execution_device=dev,
+                                       prev_module_hook=hook1)
+    with torch.no_grad():
+        a = hooked1(*x)
+        b = hooked2(*x)
+    chained = (not hooked1._on_device and hooked2._on_device
+               and next(host.parameters()).device.type == "cpu"
+               and next(host2.parameters()).device.type == dev.type)
+    hook = {"bit_equal": bool(torch.equal(a, ref) and torch.equal(b, ref2)),
+            "rel_to_card": max(rel_err(a, ref), rel_err(b, ref2)),
+            "rel_to_cpu": max(rel_err(a.cpu(), cpu_ref), rel_err(b.cpu(), cpu_ref2)),
+            "chained": chained}
+    res["cpu_offload_with_hook"] = hook
+    checks["cpu_offload_with_hook"] = (hook["rel_to_card"] <= STREAM_CARD_REL and chained
+                                       and hook["rel_to_cpu"] <= STREAM_REL)
+    return {"family": family, "placements": sorted({str(v) for v in device_map.values()}),
+            **res, "checks": checks, "ok": all(checks.values())}
+
+
+def _numpy_tree(tree):
+    """A tree of tensors as fp32 numpy arrays on the host."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.float().cpu().numpy()
+
+
+def megatron_tp_pp_split(sd, tp, pp, layers):
+    """Megatron's (tp, pp) rank dicts of a megatron-core flat dict: column-
+    parallel weights split on dim 0 (SwiGLU's fc1 by its gate and up halves
+    per rank), row-parallel on dim 1, the rest replicated; layers split
+    into ``pp`` stages with stage-local numbers, the embedding on the first
+    stage, the final norm and output layer on the last."""
+    import numpy as np
+
+    per_stage = layers // pp
+    ranks = {}
+    for t in range(tp):
+        for p in range(pp):
+            ranks[(t, p)] = {}
+    for name, arr in sd.items():
+        if name.endswith("linear_fc1.weight"):
+            gate, up = np.split(arr, 2, axis=0)
+            parts = [np.concatenate([g, u]) for g, u in zip(np.split(gate, tp), np.split(up, tp))]
+        elif name.endswith(("linear_qkv.weight", "word_embeddings.weight", "output_layer.weight")):
+            parts = np.split(arr, tp, axis=0)
+        elif name.endswith(("linear_proj.weight", "linear_fc2.weight")):
+            parts = np.split(arr, tp, axis=1)
+        else:
+            parts = [arr] * tp
+        m = re.match(r"(decoder\.layers\.)(\d+)(\..+)", name)
+        for t, part in enumerate(parts):
+            if m:
+                i = int(m.group(2))
+                ranks[(t, i // per_stage)][f"{m.group(1)}{i % per_stage}{m.group(3)}"] = part
+            elif name.startswith("embedding."):
+                ranks[(t, 0)][name] = part
+            else:
+                ranks[(t, pp - 1)][name] = part
+    return ranks
+
+
+def megatron_import(root, device="cuda", width=LLAMA2_7B, spec=BIG_MODEL):
+    """(d): a megatron-core checkpoint of Llama-2-7B's widths at
+    ``megatron_layers`` layers, TP x PP ``mp_rank_0T_00P`` dirs written by
+    ``llama_params_to_megatron_core`` and ``torch.save`` (bf16 tensors, the
+    checkpoint's args), loaded onto the card by ``load_megatron_model``;
+    its logits equal bit for bit to the port's model built from the same
+    flax tree directly."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaForCausalLM
+    from accelerate_tpu_torch.models.convert import llama_params_from_flax, llama_params_to_flax
+    from accelerate_tpu_torch.models.megatron import (
+        llama_params_to_megatron_core,
+        load_megatron_model,
+    )
+
+    t0 = time.perf_counter()
+    cfg = big_model_config(width, spec["megatron_layers"], scan_layers=True)
+    params = seeded_port_params(LlamaForCausalLM(cfg, device="meta"), device, spec["seed"] + 1,
+                                spec["std"], torch.bfloat16)
+    tree = _numpy_tree(llama_params_to_flax(cfg, params))
+    del params
+    sd = llama_params_to_megatron_core(cfg, tree)
+    args = {"padded_vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "ffn_hidden_size": cfg.intermediate_size, "num_layers": cfg.num_hidden_layers,
+            "num_attention_heads": cfg.num_attention_heads,
+            "num_query_groups": cfg.num_key_value_heads,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "norm_epsilon": cfg.rms_norm_eps, "rotary_base": cfg.rope_theta,
+            "untie_embeddings_and_output_weights": True}
+    it = Path(root) / "iter_0000001"
+    ranks = megatron_tp_pp_split(sd, spec["megatron_tp"], spec["megatron_pp"],
+                                 cfg.num_hidden_layers)
+    del sd
+    nbytes = 0
+    for (t, p), part in ranks.items():
+        d = it / f"mp_rank_{t:02d}_{p:03d}"
+        d.mkdir(parents=True)
+        model = {k: torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16)
+                 for k, v in part.items()}
+        nbytes += sum(v.numel() * 2 for v in model.values())
+        torch.save({"model": model, "args": args, "checkpoint_version": 3.0},
+                   d / "model_optim_rng.pt")
+    del ranks
+    (Path(root) / "latest_checkpointed_iteration.txt").write_text("1")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = load_megatron_model(str(root), device=device)
+    load_s = time.perf_counter() - t0
+    direct = LlamaForCausalLM(model.config, device="meta")
+    direct.load_state_dict(llama_params_from_flax(model.config, tree), assign=True)
+    direct = direct.to(device)
+    ids = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, 256))).to(device)
+    with torch.no_grad():
+        got, want = model(ids), direct(ids)
+    bit_equal = bool(torch.equal(got, want))
+    del model, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_hidden_layers, "tp": spec["megatron_tp"], "pp": spec["megatron_pp"],
+            "checkpoint_bytes": nbytes, "write_s": write_s, "load_s": load_s,
+            "bit_equal": bit_equal, "finite": bool(torch.isfinite(got).all()),
+            "ok": bit_equal and bool(torch.isfinite(got).all())}
+
+
+def big_model_phase(hf, device="cuda", width=LLAMA2_7B, spec=BIG_MODEL,
+                    families=STREAM_FAMILIES, megatron_width=None, smi=None):
+    """Phase 21: (a) Llama-2-7B streamed past a budget on the card and the
+    same checkpoint resident, (b) weight-only int8 and NF4 on the resident
+    model, (c) the seven families' tiny models dispatched, offloaded and
+    hooked, (d) a Megatron-core TP x PP checkpoint imported. The keyword
+    arguments shrink it for a rehearsal on the CPU."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaForCausalLM
+    from accelerate_tpu_torch.utils.modeling import placement_key
+
+    t0 = time.perf_counter()
+    part_s = {}
+    cfg = big_model_config(width)
+    bf16_bytes = 2 * llama_n_params(width)
+    megatron_bytes = 2 * llama_n_params(dict(megatron_width or width,
+                                             num_hidden_layers=spec["megatron_layers"]))
+    # Host: the checkpoint's copy before it is written, the pinned tier and
+    # the megatron conversion's fp32 copies, each at most the model's bytes.
+    need_host = 3 * bf16_bytes
+    mem = mem_available_bytes()
+    root, disk = checkpoint_root(bf16_bytes + spec["cpu_budget"] + megatron_bytes)
+    room = {"mem_available_bytes": mem, "need_host_bytes": need_host, **disk}
+    if mem is not None and mem < need_host:
+        shutil.rmtree(root, ignore_errors=True)
+        return {"phase": "big_model", "room": room, "checks": {"host_memory": False},
+                "ok": False}
+
+    def timed(key, fn, *args, **kw):
+        t = time.perf_counter()
+        res = fn(*args, **kw)
+        part_s[key] = time.perf_counter() - t
+        return res
+
+    try:
+        ckpt = os.path.join(root, "llama2_7b")
+        meta = LlamaForCausalLM(cfg, device="meta")
+        params = seeded_port_params(meta, device, spec["seed"], spec["std"], torch.bfloat16)
+        ckpt_bytes = timed("write_checkpoint", write_flax_checkpoint, meta, params, ckpt,
+                           spec["shard_bytes"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        ids = torch.from_numpy(np.random.default_rng(spec["seed"]).integers(
+            0, cfg.vocab_size, spec["prompt"])).to(device)
+        budgets = {"gpu": spec["gpu_budget"], "cpu": spec["cpu_budget"]}
+        streamed_logits, stream = timed("stream", streamed_llama, hf, cfg, ckpt,
+                                        os.path.join(root, "offload"), ids, device, budgets)
+        module, resident_logits, resident = timed("resident", resident_llama, hf, cfg, ckpt,
+                                                  ids, device)
+        bit_equal = bool(torch.equal(streamed_logits, resident_logits))
+        logits_rel = rel_err(streamed_logits, resident_logits)
+        quant = {bits: timed(f"quantize_{bits}", quantized_llama, module, resident_logits, ids,
+                             bits, QUANT_GATES[bits]) for bits in (8, 4)}
+        tiny_quant = {bits: tiny_quantized_parity(bits, QUANT_GATES[bits], device)
+                      for bits in (8, 4)}
+        finite = bool(torch.isfinite(resident_logits).all())
+        del module, streamed_logits, resident_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        tiny = {f: timed(f"tiny_{f}", tiny_stream_parity, f, device, root) for f in families}
+        megatron = timed("megatron", megatron_import, os.path.join(root, "megatron"), device,
+                         megatron_width or width, spec)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    block = layer_bytes(cfg)
+    bound = spec["gpu_budget"] + 2 * block
+    label = {8: "int8", 4: "nf4"}
+    checks = {"streamed": stream["streamed"],
+              "three_tiers": all(stream["tier_bytes"].get(k, 0) > 0 for k in (
+                  placement_key(torch.device(device)), "cpu", "disk")),
+              "peak_within_budget_plus_two_blocks": stream["phase_peak_bytes"] <= bound,
+              "logits_bit_equal": bit_equal, "finite": finite,
+              "stream_launches": stream["launches"]["flash_fwd"] == cfg.num_hidden_layers,
+              "resident_launches": resident["launches"]["flash_fwd"] == cfg.num_hidden_layers,
+              **{f"{label[b]}_{k}": v for b, q in quant.items() for k, v in q["checks"].items()},
+              **{f"tiny_{label[b]}_{k}": v for b, q in tiny_quant.items()
+                 for k, v in q["checks"].items()},
+              **{f"tiny_{f}_{k}": v for f, r in tiny.items() for k, v in r["checks"].items()},
+              "megatron_bit_equal": megatron["ok"]}
+    return {"phase": "big_model", "nvidia_smi": smi, "model": "Llama-2-7B widths",
+            "layers": cfg.num_hidden_layers, "prompt": list(spec["prompt"]),
+            "params_bf16_bytes": bf16_bytes, "checkpoint_bytes": ckpt_bytes,
+            "room": room,
+            "budgets": {"gpu": spec["gpu_budget"], "cpu": spec["cpu_budget"]},
+            "block_bytes": block, "budget_plus_two_blocks": bound, "stream": stream,
+            "resident": resident, "logits_bit_equal": bit_equal, "logits_rel": logits_rel,
+            "stream_over_resident_s": stream["forward_s"] / resident["forward_s"],
+            "quantized": {label[b]: q for b, q in quant.items()},
+            "tiny_quantized": {label[b]: q for b, q in tiny_quant.items()}, "tiny": tiny,
+            "megatron": megatron, "phase_s": time.perf_counter() - t0, "part_s": part_s,
+            "checks": checks, "ok": all(checks.values())}
+
+
 def _stub_cuda_for_cpu():
     """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
     import torch
@@ -5884,6 +6533,8 @@ def main() -> int:
         check_kernels(hf, "mixtral_8x7b", **MIXTRAL_LIKE, seed=25),
         # Phase 18's cp_generate prefill: seq 8192, the forward kernel.
         check_kernels(hf, "cp_generate_8192", **CP_GEN_LIKE, seed=26),
+        # Phase 21's Llama-2-7B forward, streamed and resident.
+        check_kernels(hf, "llama2_7b_stream", **LLAMA2_7B_LIKE, seed=27),
     ]
     for case in cases:
         emit({"phase": "kernels", **case})
@@ -6099,6 +6750,19 @@ def main() -> int:
         print(f"chip_smoke: encoders phase 20 failed: {failed}", file=sys.stderr)
         return 1
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 21. big-model inference: Llama-2-7B streamed past a budget on the card,
+    # weight-only int8 and NF4, the seven families dispatched and offloaded,
+    # a Megatron-core TP x PP checkpoint
+    big = big_model_phase(hf, smi=smi)
+    emit(big)
+    if not big["ok"]:
+        failed = sorted(k for k, v in big["checks"].items() if not v)
+        print(f"chip_smoke: big-model phase 21 failed: {failed}", file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
         "gemma_2b_step": chassis["gemma_2b_train"]["variant_launches"],
         "mixtral_8x7b_step": moe["mixtral_8x7b_train"]["variant_launches"],
@@ -6111,7 +6775,9 @@ def main() -> int:
         "fp8_step": precision["fp8"]["variant_launches"],
         "dcp_loop": dcp["blocking"]["variant_launches"],
         "dcp_async_loop": dcp["background"]["variant_launches"],
-        "serving_rest": rest["variant_launches"]})})
+        "serving_rest": rest["variant_launches"],
+        "big_model_stream": big["stream"]["variant_launches"],
+        "big_model_resident": big["resident"]["variant_launches"]})})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
