@@ -86,7 +86,7 @@ from .optimizer import (
     linear_schedule,
     warmup_cosine_decay_schedule,
 )
-from .parallelism_config import ParallelismConfig
+from .parallelism_config import ParallelismConfig, ParallelismOversubscriptionError
 from .scheduler import AcceleratedScheduler
 from .serving import ServingEngine, ServingStalledError, replay_trace
 from .state import AcceleratorState, DistributedType, GradientState, PartialState
@@ -139,6 +139,7 @@ __all__ = [
     "MixtralForCausalLM",
     "Model",
     "ParallelismConfig",
+    "ParallelismOversubscriptionError",
     "PartialState",
     "ProfileKwargs",
     "ProjectConfiguration",

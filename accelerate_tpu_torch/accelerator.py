@@ -50,8 +50,14 @@ over every shard, and the loss metric is the mean over processes. With
 ``ParallelismConfig(cp_size=...)`` or ``sp_size`` the processes of a
 ``cp``/``sp`` axis share rows and each holds a slice of the sequence
 (``parallel/sharding.py``); the model attends over the whole sequence
-through ``parallel/cp.py`` or ``parallel/sp.py``. ``cross_entropy_loss``
-counts the valid labels of every process inside the step
+through ``parallel/cp.py`` or ``parallel/sp.py``. With
+``ParallelismConfig(tp_size=...)`` and a model with TP rules
+(``Model(module, tp_rules=...)``, each family's ``*_tp_rules``) the
+``tp`` ranks share rows and each holds its shards of the split parameters
+(``parallel/sharding.py``, ``parallel/tp.py``); FSDP2 (2-D with ``tp``) or
+the step's own all-reduce over the data-parallel group averages the
+gradients, and the loss is averaged over every axis but ``tp``.
+``cross_entropy_loss`` counts the valid labels of every process inside the step
 (``operations.global_token_count``), so the loss is the token mean of
 the global batch however unevenly ``-100`` labels fall; a loss function
 of the user's own that returns its process's mean gets the mean of the
@@ -132,6 +138,7 @@ from .parallel.fsdp import (
     average_whole_gradients,
     gradient_sync,
 )
+from .parallel.tp import splits
 from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, DistributedType, GradientState
@@ -194,7 +201,10 @@ def _global_norm(grads: list) -> torch.Tensor:
     one-process step's arithmetic: the norm of the per-tensor norms, in the
     parameters' order. A sharded gradient's norm (FSDP2's DTensors) is the
     root of its shards' squared norms summed over the mesh dims it is
-    sharded on, not over a replicated one (HSDP's ``dp_replicate × sp``):
+    sharded on (FSDP2's dim and, under ``tp``, the ``tp`` one: a split
+    gradient's shards count once), not over a replicated one (HSDP's
+    ``dp_replicate × sp``; a ``tp``-replicated gradient, equal on every
+    ``tp`` rank):
     one all-reduce for all of them. Whole ones (DDP's, and the parameters
     FSDP2 leaves whole) are equal on every process after their
     all-reduce, so the local norm is theirs. Over a group of one the
@@ -205,7 +215,7 @@ def _global_norm(grads: list) -> torch.Tensor:
         if isinstance(g, DTensor):
             by_layout.setdefault((g.device_mesh, tuple(g.placements)), []).append(i)
     for (mesh, placements), idx in by_layout.items():
-        dims = [d for d, p in enumerate(placements) if p.is_shard() and mesh.size(d) > 1]
+        dims = [d for d, p in enumerate(placements) if splits(p) and mesh.size(d) > 1]
         if not dims:
             continue
         sq = torch.stack([norms[i] for i in idx]).square()
@@ -434,7 +444,7 @@ class Accelerator:
 
     @property
     def tensor_parallel_rank(self) -> int:
-        return 0  # tp is not ported (ROADMAP.md Queue A item 6)
+        return self.state.axis_rank("tp")
 
     @property
     def pipeline_parallel_rank(self) -> int:
@@ -442,7 +452,7 @@ class Accelerator:
 
     @property
     def mesh(self):
-        """The 4-D ``DeviceMesh`` over the process group, or None without
+        """The 5-D ``DeviceMesh`` over the process group, or None without
         one."""
         return self.state.device_mesh
 
@@ -591,8 +601,8 @@ class Accelerator:
         return self._prepare_optimizer_for(model, optimizer)
 
     def _prepare_optimizer_for(self, model: Model, obj) -> AcceleratedOptimizer:
-        if model.sharded and not isinstance(obj, AdamW):
-            raise ValueError("under FSDP2 pass adamw(...), so that prepare() builds "
+        if (model.sharded or model.tp_plan) and not isinstance(obj, AdamW):
+            raise ValueError("under FSDP2 or tp pass adamw(...), so that prepare() builds "
                              "the optimizer on the sharded parameters")
         if isinstance(obj, AcceleratedOptimizer):
             obj = obj.optimizer
@@ -699,8 +709,8 @@ class Accelerator:
         ``loss_fn(model, batch) -> scalar loss``. Over a process group each
         process passes its own share of the global batch
         (``parallel.sharding.local_batch``). The losses and gradients are
-        averaged over every process (``ParallelismConfig.loss_reduce_axes``,
-        all of them while tp, pp and ep are not ported). Under fp16 loss
+        averaged over the processes of ``ParallelismConfig.loss_reduce_axes``
+        (every process but other ``tp`` ranks of the same rows). Under fp16 loss
         scaling the loss is the unscaled one and the norm that of the
         unscaled gradients; an overflowed step is skipped on the card.
         Without ``max_grad_norm`` a ``DeepSpeedPlugin``'s
@@ -738,7 +748,9 @@ class Accelerator:
             max_grad_norm = self._ds_gradient_clipping
         policy = self._mp_policy
         num_accum = self.gradient_state.num_steps
-        world = self.num_processes
+        # The processes whose losses the step averages: all of them, or
+        # under tp those of distinct rows (their group).
+        world, group = self.state.loss_size, self.state.loss_group
 
         bound = model
 
@@ -752,7 +764,7 @@ class Accelerator:
             loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
             extra = state.extra_state
             for mb in microbatches:
-                with (operations.loss_over_processes(world),
+                with (operations.loss_over_processes(world, group),
                       model.compute_params(policy.cast_for_compute(self._cast_params(model)))):
                     if mutable_state:
                         loss, extra = loss_fn(model, extra, mb)
@@ -769,7 +781,7 @@ class Accelerator:
             # Parameters FSDP2 leaves whole are averaged here over every
             # process (loss_reduce_axes), as DDP would.
             if world > 1:
-                average_whole_gradients(model, world)
+                average_whole_gradients(model, world, group)
             if num_accum > 1:
                 torch._foreach_div_([_local(g) for g in grads], num_accum)
             finite = self._unscale_and_check(state, grads)
@@ -780,7 +792,7 @@ class Accelerator:
             self._optimizer_step(state, finite)
             loss = loss_sum / num_accum
             if world > 1:
-                operations.all_reduce(loss)
+                operations.all_reduce(loss, group=group)
                 loss = loss / world
             return state, {"loss": loss, "grad_norm": gnorm}
 
@@ -919,25 +931,25 @@ class Accelerator:
         if not self._train_states:
             raise RuntimeError("Call accelerator.prepare(...) before backward().")
         model, loss_scale = self._train_states[0].model, self._train_states[0].loss_scale
-        gs, world = self.gradient_state, self.num_processes
+        gs, world, group = self.gradient_state, self.state.loss_size, self.state.loss_group
         communicate = gs.sync_gradients or gs.sync_each_batch
         tel = self.telemetry
         t0 = time.perf_counter() if tel is not None else 0.0
         args, kwargs = operations.recursively_apply(self._place, (args, kwargs))
         cast = self._mp_policy.cast_for_compute(self._cast_params(model))
-        with (operations.loss_over_processes(world), gradient_sync(model, communicate),
+        with (operations.loss_over_processes(world, group), gradient_sync(model, communicate),
               model.compute_params(cast)):
             out = loss_fn(model, *args, **kwargs)
             loss, aux = out if has_aux else (out, None)
             loss = loss.float()
             _scaled(loss / gs.num_steps, loss_scale).backward()
         if communicate and world > 1:
-            average_whole_gradients(model, world)
+            average_whole_gradients(model, world, group)
         # A reducing backward reduces what earlier microbatches accumulated too.
         self._grads_local = not communicate and self.use_distributed
         loss = loss.detach()
         if world > 1:
-            operations.all_reduce(loss)
+            operations.all_reduce(loss, group=group)
             loss = loss / world
         if tel is not None:
             if tel.handler.sync_timing:

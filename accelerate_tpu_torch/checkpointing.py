@@ -560,10 +560,12 @@ def _suffix(i: int) -> str:
 
 def _save_train_state(train_state, i: int, write_dir: str, max_shard, device,
                       stats: dict, writer: bool = True) -> None:
-    """Write one model's parameters and moments; under FSDP2 every process
-    joins the gathers and only the ``writer`` keeps and writes them."""
+    """Write one model's parameters and moments; under FSDP2 or ``tp``
+    every process joins the gathers (whole tensors, the JAX package's
+    layout) and only the ``writer`` keeps and writes them."""
     module, opt = train_state.model.module, train_state.optimizer
-    if not (writer or train_state.model.sharded):
+    split = any(isinstance(p, DTensor) for p in module.parameters())  # FSDP2 or tp
+    if not (writer or split):
         return
     named = _named_params(train_state)
     trees = {"params": {n: p.detach() for n, p, _ in named}}

@@ -27,7 +27,7 @@ chassis that its ``generate`` applies (``residual_multiplier``,
 ``attention_multiplier``, the ``o_proj`` bias), this one runs the whole
 chassis through ``generation.py``'s block helpers, so that its greedy
 tokens are ``generate``'s for every chassis config. Mixtral over ``cp`` is
-ROADMAP.md Queue A item 6.
+ROADMAP.md Queue A item 6 (EP).
 """
 
 from __future__ import annotations
@@ -243,7 +243,7 @@ def cp_generate(model, input_ids, max_new_tokens: int, *, temperature: Optional[
     if type(module).__name__ != "LlamaForCausalLM":
         raise NotImplementedError(
             f"cp_generate runs the Llama chassis; {type(module).__name__} over cp is not "
-            "ported yet (ROADMAP.md Queue A item 6)")
+            "ported yet (ROADMAP.md Queue A item 6 (EP))")
     cfg = module.config
     params = _decode_params(model)
     device = _params_device(params)

@@ -58,6 +58,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from .models.llama import (
     activation_fn,
@@ -72,6 +73,7 @@ from .models.llama import (
 )
 from .models.moe import router_probs, top_k_experts
 from .models.t5 import MASKED, relative_position_bucket, t5_rms
+from .parallel import tp
 from .utils.quantization import DecodeQuant, dequantize_decode_kernel
 
 _COMPILE_MANAGER_ITEM = "ROADMAP.md Queue A item 12 (control plane: compile_manager.py)"
@@ -148,11 +150,14 @@ def _cache_dims(cfg) -> tuple[int, int, int, int]:
     return layers, kv_heads, cfg.head_dim, max_pos
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> KVCache:
-    """Zeroed k and v of ``(L, batch, max_len, Hkv, D)``. ``torch.int8``
-    gives ``QuantPages`` whose scales start at one, so an unwritten row
-    dequantizes to zero as the float cache's does."""
-    layers, kv_heads, head_dim, _ = _cache_dims(cfg)
+def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
+               kv_heads: Optional[int] = None) -> KVCache:
+    """Zeroed k and v of ``(L, batch, max_len, Hkv, D)``; ``kv_heads``
+    replaces the config's Hkv (a rank's own heads under ``tp``).
+    ``torch.int8`` gives ``QuantPages`` whose scales start at one, so an
+    unwritten row dequantizes to zero as the float cache's does."""
+    layers, cfg_kv_heads, head_dim, _ = _cache_dims(cfg)
+    kv_heads = kv_heads or cfg_kv_heads
     dtype = dtype or cfg.dtype
     shape = (layers, batch, max_len, kv_heads, head_dim)
 
@@ -236,15 +241,21 @@ def _kernel(w, dtype) -> torch.Tensor:
 
 def _dense(p: dict, name: str, x) -> torch.Tensor:
     """x @ W for the ``(out, in)`` weight ``name.weight`` (q/k/v, o_proj and
-    the MLP alike), plus ``name.bias`` when the model has one."""
-    y = F.linear(x, _kernel(p[name + ".weight"], x.dtype))
-    bias = p.get(name + ".bias")
+    the MLP alike), plus ``name.bias`` when the model has one; a weight
+    split over ``tp`` as ``parallel/tp.linear`` computes it."""
+    w, bias = p[name + ".weight"], p.get(name + ".bias")
+    if tp.is_split(w):
+        return tp.linear(x, w, bias, x.dtype)
+    y = F.linear(x, _kernel(w, x.dtype))
     return y if bias is None else y + bias.to(y.dtype)
 
 
 def _proj(p: dict, name: str, x, heads: int) -> torch.Tensor:
-    """(B, S, H) → (B, S, heads, D)."""
+    """(B, S, H) → (B, S, heads, D); this rank's heads under ``tp``."""
     b, s, _ = x.shape
+    w = p[name + ".weight"]
+    if tp.is_split(w):
+        return _dense(p, name, x).view(b, s, -1, w.shape[0] // heads)
     return _dense(p, name, x).view(b, s, heads, -1)
 
 
@@ -257,9 +268,13 @@ def _moe_dropless(cfg, p: dict, pre: str, x) -> torch.Tensor:
     weights, experts = top_k_experts(router_probs(tokens, p[pre + "moe.router"]),
                                      cfg.num_experts_per_tok)
     xe = tokens.expand(cfg.num_local_experts, -1, -1)
-    h = F.silu(torch.bmm(xe, _kernel(p[pre + "moe.w_gate"], x.dtype)))
-    h = h * torch.bmm(xe, _kernel(p[pre + "moe.w_up"], x.dtype))
-    ye = torch.bmm(h, _kernel(p[pre + "moe.w_down"], x.dtype))  # (E, T, d)
+    if tp.is_split(p[pre + "moe.w_gate"]):  # each expert's ffn dim split over tp
+        ye = tp.expert_products(xe, p[pre + "moe.w_gate"], p[pre + "moe.w_up"],
+                                p[pre + "moe.w_down"], x.dtype)
+    else:
+        h = F.silu(torch.bmm(xe, _kernel(p[pre + "moe.w_gate"], x.dtype)))
+        h = h * torch.bmm(xe, _kernel(p[pre + "moe.w_up"], x.dtype))
+        ye = torch.bmm(h, _kernel(p[pre + "moe.w_down"], x.dtype))  # (E, T, d)
     picked = ye[experts, torch.arange(b * s, device=x.device)[:, None]]  # (T, k, d)
     mixed = picked * weights.to(x.dtype)[..., None]
     return mixed.float().sum(1).to(x.dtype).reshape(b, s, d)
@@ -295,6 +310,8 @@ def _qkv_proj(cfg, p: dict, pre: str, hn, cos, sin):
     q = _proj(p, pre + "self_attn.q_proj", hn, cfg.num_attention_heads)
     k = _proj(p, pre + "self_attn.k_proj", hn, cfg.num_key_value_heads)
     v = _proj(p, pre + "self_attn.v_proj", hn, cfg.num_key_value_heads)
+    k, v = tp.heads_for_local_q(q, k, v, cfg.num_attention_heads, cfg.num_key_value_heads,
+                                p[pre + "self_attn.q_proj.weight"])
     q = apply_partial_rope(q, cos, sin, cfg.rotary_dim)
     k = apply_partial_rope(k, cos, sin, cfg.rotary_dim)
     if cfg.attention_multiplier is not None:
@@ -338,6 +355,28 @@ def _attend(q, k, v, q_positions, kv_valid=None) -> torch.Tensor:
     """Causal attention of q against the cache at absolute positions
     ``q_positions`` (B, Sq); ``kv_valid`` (B, T) masks left-padding slots."""
     return _attend_masked(q, k, v, _attend_mask(q_positions, k.shape[1], kv_valid))
+
+
+def _tp_kv_heads(cfg, params: dict, fwd) -> Optional[int]:
+    """The kv heads this rank's cache holds when the model is split over
+    ``tp`` (None otherwise): its share of the kv heads, or, where they stay
+    whole (fewer than ``tp``), those its q heads read
+    (``parallel/tp.heads_for_local_q``). Only the Llama chassis and
+    Mixtral decode over ``tp``."""
+    if not any(isinstance(t, DTensor) for t in params.values()):
+        return None
+    if fwd is not _llama_forward_cached:
+        raise NotImplementedError(
+            "generate over tp runs the Llama chassis and Mixtral; the other families' decode "
+            "plans under tp are not ported yet (ROADMAP.md Queue A item 6)")
+    q = params["model.layers.0.self_attn.q_proj.weight"]
+    h, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    if not tp.is_split(q):
+        return None
+    hq = h // q.device_mesh.size()
+    if tp.is_split(params["model.layers.0.self_attn.k_proj.weight"]):
+        return hkv // q.device_mesh.size()
+    return 1 if (h // hkv) % hq == 0 else hq
 
 
 def _decode_params(model_or_params) -> dict:
@@ -390,7 +429,8 @@ def _llama_forward_cached(cfg, model_or_params, input_ids, cache: KVCache, retur
     x = _chassis_norm(cfg, p, "model.norm", x)
     h_out = x if return_all else x[:, -1]
     head = p["model.embed_tokens.weight"] if cfg.tie_word_embeddings else p["lm_head.weight"]
-    logits = scale_logits(F.linear(h_out, head.to(cfg.dtype)), cfg.logits_scaling)
+    logits = tp.gather_vocab(tp.vocab_logits(h_out, head.to(cfg.dtype)))
+    logits = scale_logits(logits, cfg.logits_scaling)
     return logits.float(), KVCache(cache.k, cache.v, start + s)
 
 
@@ -990,7 +1030,7 @@ def generate(
                   if s <= pos < s + max_new_tokens}
     neg_inf = float(np.finfo(np.float32).min)
 
-    cache = init_cache(cfg, b, t_max, device=device)
+    cache = init_cache(cfg, b, t_max, device=device, kv_heads=_tp_kv_heads(cfg, params, fwd))
     logits, cache = fwd(cfg, params, ids, cache, **kwargs)
     if begin_suppress_tokens:
         logits[:, list(begin_suppress_tokens)] = neg_inf

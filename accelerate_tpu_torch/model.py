@@ -13,6 +13,11 @@ gradients. The cast copies stand in for the parameters through the forward
 and the backward, because a checkpointed block recomputes its forward
 during the backward and must see the same tensors.
 
+``tp_rules`` is the tensor-parallel rule table, as the JAX ``Model``
+takes it (falling back to the module's own ``tp_rules``); under
+``ParallelismConfig(tp_size>1)`` ``prepare`` splits the parameters it
+names over ``tp`` (``parallel/sharding.py``, ``tp_plan``).
+
 Over a process group (``parallel/fsdp.py``) the module keeps its names:
 FSDP2 shards it in place (``sharded``; its mixed-precision policy makes the
 compute copies, and ``ignored`` holds the parameters it leaves whole), and
@@ -30,19 +35,26 @@ without any.
 from __future__ import annotations
 
 from contextlib import contextmanager
+from typing import Optional
 
 import torch
 from torch import nn
 
 
 class Model:
-    def __init__(self, module: nn.Module):
+    def __init__(self, module: nn.Module, tp_rules: Optional[list] = None):
         if not isinstance(module, nn.Module):
             raise TypeError(f"Model wraps a torch.nn.Module, got {type(module).__name__}")
         self.module = module
         self.forward_module = module
         self.sharded = False
         self.ignored: dict = {}
+        # The tensor-parallel rule table, [(name regex, spec)] on the flax
+        # tree's names (parallel/sharding.py), else the module's own.
+        self.tp_rules = list(tp_rules or getattr(module, "tp_rules", None) or [])
+        # The plan prepare put the module on under tp (ParamPlacement by
+        # parameter name), or None.
+        self.tp_plan: Optional[dict] = None
 
     def parameters(self):
         return self.module.parameters()

@@ -35,14 +35,13 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..ops.fp8 import backend_to_native, fp8_dot_general
+from ..parallel import tp
 from ..utils.operations import global_token_count
 from .layers import FlaxLayerNorm, dropout, init_weights, module_attention, run_blocks
 from .llama import _Linear
-
-_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (TP rule tables)"
-
 
 @dataclasses.dataclass
 class BertConfig:
@@ -105,7 +104,7 @@ class BertSelfAttention(nn.Module):
     def forward(self, x, mask):
         cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = (p(x).view(b, s, cfg.num_attention_heads, cfg.head_dim)
+        q, k, v = (p(x).view(b, s, -1, cfg.head_dim)  # local heads under tp
                    for p in (self.query, self.key, self.value))
         out = module_attention(q, k, v, cfg.dtype, causal=False, key_mask=mask)
         return self.output(out.reshape(b, s, -1))
@@ -151,7 +150,7 @@ class BertModel(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        x = (F.embedding(input_ids, self.word_embeddings.weight).to(cfg.dtype)
+        x = (tp.embedding(input_ids, self.word_embeddings.weight).to(cfg.dtype)
              + F.embedding(pos, self.position_embeddings.weight).to(cfg.dtype)
              + F.embedding(token_type_ids, self.token_type_embeddings.weight).to(cfg.dtype))
         x = dropout(self.embeddings_norm(x), cfg.hidden_dropout_prob, generator)
@@ -208,8 +207,8 @@ class BertForMaskedLM(nn.Module):
         x = self.transform_norm(F.gelu(self.transform(x)))
         head = self.bert.word_embeddings.weight.to(cfg.dtype)
         dt = torch.promote_types(x.dtype, head.dtype)
-        logits = F.linear(x.to(dt), head.to(dt))
-        return (logits + self.decoder_bias).float()
+        return tp.vocab_logits(x.to(dt), head.to(dt), self.decoder_bias,
+                               post=lambda y: y.float())
 
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
         init_weights(self, generator, std)
@@ -223,14 +222,26 @@ def masked_lm_loss(logits, labels, ignore_index: int = -100):
     scaled by their number, so that the step's mean is the global batch's,
     as the JAX step takes it (``operations.global_token_count``)."""
     mask = labels != ignore_index
-    safe = torch.where(mask, labels, 0).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    if isinstance(logits, DTensor):  # split on the vocab over tp (parallel/tp.py)
+        nll = tp.vocab_parallel_nll(logits, labels)
+    else:
+        safe = torch.where(mask, labels, 0).long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, safe[..., None])[..., 0]
     count, n = global_token_count(mask.sum())
     return (nll * mask).sum() * n / count.clamp_min(1)
 
 
-def bert_tp_rules(scan_layers: bool = True):
-    """The JAX package's TP rule table for BERT; tensor parallelism is not
-    ported."""
-    raise NotImplementedError(f"bert_tp_rules is not ported yet ({_PARALLEL_ITEM})")
+def bert_tp_rules(scan_layers: bool = True) -> list[tuple[str, tuple]]:
+    """The JAX package's TP rule table for BERT (``parallel/sharding.py``):
+    query/key/value on their heads, ``intermediate`` on its output, the two
+    ``output`` projections on their input, ``word_embeddings`` (and the tied
+    MLM head) on the vocab."""
+    lead = (None,) if scan_layers else ()
+    return [
+        (r"attention/(query|key|value)/kernel", lead + (None, "tp", None)),
+        (r"intermediate/kernel", lead + (None, "tp")),
+        (r"attention/output/kernel", lead + ("tp", None, None)),
+        (r"(?<!attention/)output/kernel", lead + ("tp", None)),
+        (r"word_embeddings/embedding", ("tp", None)),
+    ]

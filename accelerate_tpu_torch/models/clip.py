@@ -38,9 +38,6 @@ from .layers import FlaxLayerNorm, gather_rows, init_weights, module_attention, 
 from .llama import _Linear, as_dtype
 from .vit import patch_embed
 
-_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (TP rule tables)"
-
-
 @dataclasses.dataclass
 class CLIPConfig:
     # Text tower (defaults: openai/clip-vit-base-patch32)
@@ -118,7 +115,7 @@ class CLIPAttention(nn.Module):
 
     def forward(self, x):
         b, s, h = x.shape
-        q, k, v = (p(x).view(b, s, self.heads, h // self.heads)
+        q, k, v = (p(x).view(b, s, -1, h // self.heads)  # local heads under tp
                    for p in (self.q_proj, self.k_proj, self.v_proj))
         out = module_attention(q, k, v, self.dtype, causal=self.causal)
         return self.out_proj(out.reshape(b, s, -1))
@@ -261,13 +258,19 @@ def clip_contrastive_loss(model, input_ids, pixel_values):
     rows = torch.arange(logits_per_image.shape[0], device=logits_per_image.device)
     cols = rows
     if operations.loss_processes() > 1:
-        cols = rows + dist.get_rank() * rows.numel()
+        cols = rows + dist.get_rank(operations.loss_group()) * rows.numel()
     li = -torch.log_softmax(logits_per_image.float(), -1)[rows, cols].mean()
     lt = -torch.log_softmax(logits_per_text.float(), -1)[rows, cols].mean()
     return (li + lt) / 2
 
 
-def clip_tp_rules(scan_layers: bool = True):
-    """The JAX package's TP rule table for CLIP; tensor parallelism is not
-    ported."""
-    raise NotImplementedError(f"clip_tp_rules is not ported yet ({_PARALLEL_ITEM})")
+def clip_tp_rules(scan_layers: bool = True) -> list[tuple[str, tuple]]:
+    """The JAX package's TP rule table for both CLIP towers (ViT's shape;
+    ``parallel/sharding.py``)."""
+    lead = (None,) if scan_layers else ()
+    return [
+        (r"self_attn/(q_proj|k_proj|v_proj)/kernel", lead + (None, "tp", None)),
+        (r"self_attn/out_proj/kernel", lead + ("tp", None, None)),
+        (r"fc1/kernel", lead + (None, "tp")),
+        (r"fc2/kernel", lead + ("tp", None)),
+    ]

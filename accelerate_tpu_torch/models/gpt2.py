@@ -29,11 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fp8 import backend_to_native, fp8_dot_general
+from ..parallel import tp
 from .layers import FlaxLayerNorm, init_weights, module_attention, run_blocks
 from .llama import _Linear
-
-_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (TP rule tables)"
-
 
 @dataclasses.dataclass
 class GPT2Config:
@@ -88,7 +86,8 @@ class GPT2Attention(nn.Module):
     def forward(self, x):
         cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = self.c_attn(x).view(b, s, 3, cfg.n_head, cfg.head_dim).unbind(2)
+        # Under tp c_attn holds this rank's heads of q, k and v (a strided split).
+        q, k, v = self.c_attn(x).view(b, s, 3, -1, cfg.head_dim).unbind(2)
         out = module_attention(q, k, v, cfg.dtype, causal=True)
         return self.c_proj(out.reshape(b, s, -1))
 
@@ -123,7 +122,7 @@ class GPT2Model(nn.Module):
     def forward(self, input_ids):
         cfg = self.cfg
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        x = (F.embedding(input_ids, self.wte.weight).to(cfg.dtype)
+        x = (tp.embedding(input_ids, self.wte.weight).to(cfg.dtype)
              + F.embedding(pos, self.wpe.weight).to(cfg.dtype))
         return self.ln_f(run_blocks(self.h, x, cfg.remat))
 
@@ -142,7 +141,7 @@ class GPT2LMHeadModel(nn.Module):
         x = self.transformer(input_ids)
         head = self.transformer.wte.weight.to(self.config.dtype)
         dt = torch.promote_types(x.dtype, head.dtype)
-        return F.linear(x.to(dt), head.to(dt)).float()
+        return tp.vocab_logits(x.to(dt), head.to(dt), post=lambda y: y.float())
 
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
         """normal(0, std) matrices and embeddings, zero biases, unit norm
@@ -150,7 +149,15 @@ class GPT2LMHeadModel(nn.Module):
         init_weights(self, generator, std)
 
 
-def gpt2_tp_rules(scan_layers: bool = True):
-    """The JAX package's TP rule table for GPT-2; tensor parallelism is not
-    ported."""
-    raise NotImplementedError(f"gpt2_tp_rules is not ported yet ({_PARALLEL_ITEM})")
+def gpt2_tp_rules(scan_layers: bool = True) -> list[tuple[str, tuple]]:
+    """The JAX package's TP rule table for GPT-2 (``parallel/sharding.py``):
+    the fused ``c_attn`` split on its heads, ``c_fc`` on its output, both
+    ``c_proj`` on their input, ``wte`` (and the tied head) on the vocab."""
+    lead = (None,) if scan_layers else ()
+    return [
+        (r"attn/c_attn/kernel", lead + (None, None, "tp", None)),
+        (r"attn/c_proj/kernel", lead + ("tp", None, None)),
+        (r"c_fc/kernel", lead + (None, "tp")),
+        (r"(?<!attn/)c_proj/kernel", lead + ("tp", None)),
+        (r"wte/embedding", ("tp", None)),
+    ]

@@ -168,11 +168,12 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t):
-        return operations.all_reduce(t.clone())
+        ctx.group = operations.loss_group()
+        return operations.all_reduce(t.clone(), group=ctx.group)
 
     @staticmethod
     def backward(ctx, grad):
-        return operations.all_reduce(grad.clone())
+        return operations.all_reduce(grad.clone(), group=ctx.group)
 
 
 class _AllGatherRows(torch.autograd.Function):
@@ -181,15 +182,16 @@ class _AllGatherRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t):
-        rank, world = dist.get_rank(), dist.get_world_size()
+        ctx.group = operations.loss_group()  # the step's processes of distinct rows
+        rank, world = dist.get_rank(ctx.group), dist.get_world_size(ctx.group)
         ctx.rows = slice(rank * t.shape[0], (rank + 1) * t.shape[0])
         full = t.new_zeros((world * t.shape[0],) + t.shape[1:])
         full[ctx.rows] = t
-        return operations.all_reduce(full)
+        return operations.all_reduce(full, group=ctx.group)
 
     @staticmethod
     def backward(ctx, grad):
-        return operations.all_reduce(grad.clone())[ctx.rows]
+        return operations.all_reduce(grad.clone(), group=ctx.group)[ctx.rows]
 
 
 def gather_rows(t: torch.Tensor) -> torch.Tensor:

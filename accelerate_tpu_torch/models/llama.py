@@ -47,6 +47,24 @@ bias is added after the projection's product, in the compute dtype.
 ``fused_cross_entropy_loss`` takes the causal-LM loss without the
 (B, S, V) logits: the sequence goes through the head in ``chunk_size``
 slices whose logits are recomputed in the backward.
+
+Tensor parallelism (``llama_tp_rules``; ``parallel/sharding.py``). Of the
+two designs, a DTensor program whose kernels sit in ``local_map`` (the
+JAX package's GSPMD program with a ``shard_map`` around the Pallas call)
+and a program on local shards with local head counts, the port takes the
+second: every rank runs this module on its own heads and ffn slice, the
+projections put in the Megatron all-reduces (``parallel/tp.py``), and the
+views take ``-1`` heads where the JAX module writes the global count. The
+hot path stays plain tensors: the step is already host-bound in places
+(``PERF.md``), and a DTensor program would dispatch every norm, RoPE and
+residual op through DTensor's sharding propagation; the flash kernels,
+bound through ``ctypes`` on local tensors, need no ``local_map``; and the
+JAX plan's whole biases beside split weights, GQA kv heads kept whole
+below ``tp`` and GPT-2's strided ``c_attn`` are each one explicit slice
+here. The parameters stay DTensors, so that FSDP2, checkpoints and the
+grad norm see their placements. The vocab-split head returns its logits
+as a ``DTensor`` ``Shard(-1)``, which ``cross_entropy_loss`` reduces with
+three all-reduces and no gather.
 """
 
 from __future__ import annotations
@@ -59,6 +77,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -68,6 +87,7 @@ from torch.utils.checkpoint import (
 from ..ops.flash_attention import auto_flash_attention
 from ..ops.fp8 import FP8_MM_OP, backend_to_native, fp8_dot_general
 from ..ops.hopper_flash import FLASH_FWD_OP
+from ..parallel import tp
 from ..parallel.cp import ring_attention
 from ..parallel.sp import ulysses_attention
 from ..state import current_sequence_shard
@@ -194,7 +214,7 @@ def embed_tokens(cfg, weight, ids):
     """Embedding rows in the compute dtype, scaled as Gemma
     (``scale_embeddings``: sqrt(hidden_size)) and Granite
     (``embedding_multiplier``) scale them."""
-    x = F.embedding(ids, weight).to(cfg.dtype)
+    x = tp.embedding(ids, weight).to(cfg.dtype)
     if cfg.scale_embeddings:
         x = x * as_dtype(math.sqrt(cfg.hidden_size), cfg.dtype)
     if cfg.embedding_multiplier != 1.0:
@@ -306,6 +326,8 @@ class _Linear(nn.Module):
         self.linear = linear or F.linear
 
     def forward(self, x):
+        if tp.is_split(self.weight):
+            return tp.linear(x, self.weight, self.bias, self.dtype, self.linear)
         y = self.linear(x.to(self.dtype), self.weight.to(self.dtype))
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
@@ -366,9 +388,12 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         d = cfg.head_dim
-        q = self.q_proj(x).view(b, s, cfg.num_attention_heads, d)
-        k = self.k_proj(x).view(b, s, cfg.num_key_value_heads, d)
-        v = self.v_proj(x).view(b, s, cfg.num_key_value_heads, d)
+        # Local head counts under tp (parallel/tp.py): this rank's heads.
+        q = self.q_proj(x).view(b, s, -1, d)
+        k = self.k_proj(x).view(b, s, -1, d)
+        v = self.v_proj(x).view(b, s, -1, d)
+        k, v = tp.heads_for_local_q(q, k, v, cfg.num_attention_heads, cfg.num_key_value_heads,
+                                    self.q_proj.weight)
         if cfg.attention_multiplier is not None:
             # attention divides by sqrt(d): (q * c * sqrt(d)) . k / sqrt(d) = c * (q . k)
             q = q * as_dtype(cfg.attention_multiplier * math.sqrt(d), q.dtype)
@@ -473,8 +498,8 @@ class LlamaForCausalLM(nn.Module):
         if labels is not None:
             return _chunked_loss(x, self.head_weight().to(self.config.dtype), labels,
                                  self.config.logits_scaling, ignore_index, chunk_size)
-        return scale_logits(F.linear(x, self.head_weight().to(self.config.dtype)),
-                            self.config.logits_scaling)
+        return tp.vocab_logits(x, self.head_weight().to(self.config.dtype),
+                               post=partial(scale_logits, scaling=self.config.logits_scaling))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
@@ -496,8 +521,11 @@ class LlamaForCausalLM(nn.Module):
 def _chunk_loss(hidden, head, labels, scaling: float, ignore_index: int):
     """fp32 sum of the token losses of one chunk: hidden (B, C, H) against
     head (V, H), both in the compute dtype."""
-    logits = scale_logits(F.linear(hidden, head), scaling).float()
     valid = labels != ignore_index
+    if tp.is_split(head):  # vocab-split head: this rank's logits
+        logits = tp.vocab_logits(hidden, head, post=lambda y: scale_logits(y, scaling).float())
+        return torch.where(valid, tp.vocab_parallel_nll(logits, labels), 0.0).sum()
+    logits = scale_logits(F.linear(hidden, head), scaling).float()
     safe = torch.where(valid, labels, 0)
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, safe[..., None])[..., 0]
@@ -540,10 +568,35 @@ def cross_entropy_loss(logits, labels, ignore_index: int = -100):
     Inside a train step over several processes the count is that of every
     process's tokens and the sum is scaled by their number, so that the
     step's mean over processes is the token mean of the global batch, as
-    the JAX step takes it (``operations.global_token_count``)."""
+    the JAX step takes it (``operations.global_token_count``).
+
+    Logits split on the vocab over ``tp`` (a head under a TP plan gives a
+    ``DTensor``) take the vocab-parallel loss (``parallel/tp.py``): three
+    all-reduces, no gather."""
     logits = logits.float()
     valid = labels != ignore_index
-    total = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
-                            ignore_index=ignore_index, reduction="sum")
+    if isinstance(logits, DTensor):
+        total = torch.where(valid, tp.vocab_parallel_nll(logits, labels), 0.0).sum()
+    else:
+        total = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                                ignore_index=ignore_index, reduction="sum")
     count, n = global_token_count(valid.sum())
     return total * n / count.clamp_min(1)
+
+
+def llama_tp_rules(scan_layers: bool = True) -> list[tuple[str, tuple]]:
+    """The JAX package's tensor-parallel rule table for the Llama chassis:
+    regular expressions on the flax tree's ``/``-joined names, each with a
+    spec of its flax leaf's dims (a scanned stack's leading layer dim
+    first). q/k/v split their heads and gate/up their ffn dim
+    (column-parallel), o_proj and down_proj their input (row-parallel),
+    the embedding and the head their vocab (``parallel/sharding.py``)."""
+    lead = (None,) if scan_layers else ()
+    return [
+        (r"self_attn/(q_proj|k_proj|v_proj)/kernel", lead + (None, "tp", None)),
+        (r"mlp/(gate_proj|up_proj)/kernel", lead + (None, "tp")),
+        (r"self_attn/o_proj/kernel", lead + ("tp", None, None)),
+        (r"mlp/down_proj/kernel", lead + ("tp", None)),
+        (r"embed_tokens/embedding", ("tp", None)),
+        (r"lm_head/kernel", (None, "tp")),
+    ]

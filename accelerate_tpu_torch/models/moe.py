@@ -33,9 +33,14 @@ processes is the JAX loss and gives the JAX gradient.
 
 The decoder reuses the Llama port's attention (``attention_impl``: the
 Hopper flash kernels at Mixtral's GQA shape), norms and remat policies; the
-decoder list is ``model.layers``, which FSDP2 wraps block by block. Expert
-parallelism and tensor-parallel rules, and Mixtral over ``cp``/``sp``
-axes, are ROADMAP.md Queue A item 6.
+decoder list is ``model.layers``, which FSDP2 wraps block by block.
+
+Tensor parallelism (``mixtral_tp_rules()``, pure TP): the attention is
+split as Llama's, and each expert's ffn dim over ``tp``
+(``parallel/tp.expert_products``); the router stays whole, so every
+``tp`` rank routes alike and drops the same choices. Expert parallelism
+(``ep_axes``) and Mixtral over ``cp``/``sp`` axes are ROADMAP.md Queue A
+item 6 (EP).
 """
 
 from __future__ import annotations
@@ -52,8 +57,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from ..parallel import tp
 from ..state import current_sequence_shard
-from ..utils.operations import loss_processes
+from ..utils.operations import loss_group, loss_processes
 from .llama import (
     LlamaAttention,
     LlamaConfig,
@@ -65,7 +71,7 @@ from .llama import (
     rotary_embedding,
 )
 
-_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (TP, EP and Mixtral over cp/sp)"
+_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (EP and Mixtral over cp/sp)"
 
 
 @dataclasses.dataclass
@@ -187,11 +193,13 @@ def load_balance_loss(router_probs: torch.Tensor, dispatch: torch.Tensor) -> tor
 def _global_counts(counts: torch.Tensor, tokens: int) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Over the processes of the running step, in rank order: the choices
     of each expert made by lower ranks (E,), by every rank (E,), and the
-    global token count. One all_gather of E + 1 integers."""
+    global token count. One all_gather of E + 1 integers over the step's
+    loss group (every process but other ``tp`` ranks of the same rows)."""
+    group = loss_group()
     mine = torch.cat([counts, counts.new_tensor([tokens])])
-    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, mine)
-    rank = dist.get_rank()
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine, group=group)
+    rank = dist.get_rank(group)
     every = torch.stack(parts)
     offset = every[:rank, :-1].sum(0)
     return offset, every[:, :-1].sum(0), int(every[:, -1].sum())
@@ -261,6 +269,8 @@ class MoeLayer(nn.Module):
     def experts(self, xe) -> torch.Tensor:
         """The stacked SwiGLU experts on (E, C, d) inputs."""
         dtype = self.cfg.dtype
+        if tp.is_split(self.w_gate):
+            return tp.expert_products(xe, self.w_gate, self.w_up, self.w_down, dtype)
         h = F.silu(torch.bmm(xe, self.w_gate.to(dtype))) * torch.bmm(xe, self.w_up.to(dtype))
         return torch.bmm(h, self.w_down.to(dtype))
 
@@ -346,7 +356,7 @@ class MixtralForCausalLM(nn.Module):
         ``(logits, aux)``: the fp32 sum of the layers' router aux losses
         (flax's sown ``"losses"``)."""
         x, aux = self.model(input_ids)
-        logits = F.linear(x, self.head_weight().to(self.config.dtype))
+        logits = tp.vocab_logits(x, self.head_weight().to(self.config.dtype))
         return (logits, aux) if return_aux else logits
 
     def router_stats(self) -> dict:
@@ -377,7 +387,30 @@ def moe_cross_entropy_loss(model, input_ids, labels, ignore_index: int = -100):
     return cross_entropy_loss(logits, labels, ignore_index) + aux
 
 
+def _mixtral_rules(scan_layers: bool, ep_axes: tuple) -> list[tuple[str, tuple]]:
+    """The JAX package's TP + EP table as data: attention split as Llama's,
+    the embedding and head on the vocab; the stacked experts on their
+    expert dim over ``ep_axes`` or, without, on each expert's ffn dim over
+    ``tp``. The router stays whole."""
+    lead = (None,) if scan_layers else ()
+    ep = ep_axes if len(ep_axes) != 1 else ep_axes[0]
+    rules = [
+        (r"self_attn/(q_proj|k_proj|v_proj)/kernel", lead + (None, "tp", None)),
+        (r"self_attn/o_proj/kernel", lead + ("tp", None, None)),
+        (r"embed_tokens/embedding", ("tp", None)),
+        (r"lm_head/kernel", (None, "tp")),
+    ]
+    if ep_axes:
+        return rules + [(r"moe/(w_gate|w_up|w_down)", lead + (ep, None, None))]
+    return rules + [(r"moe/(w_gate|w_up)", lead + (None, None, "tp")),
+                    (r"moe/w_down", lead + (None, "tp", None))]
+
+
 def mixtral_tp_rules(scan_layers: bool = True, ep_axes: tuple = ()):
-    """The JAX package's TP + EP rule table for Mixtral; tensor and expert
-    parallelism are not ported."""
-    raise NotImplementedError(f"mixtral_tp_rules is not ported yet ({_PARALLEL_ITEM})")
+    """Mixtral's TP rule table with ``ep_axes=()``: pure TP
+    (``_mixtral_rules``). Expert parallelism is not ported; its table is
+    data (``estimate_per_chip`` prices it) that no process runs yet."""
+    if ep_axes:
+        raise NotImplementedError(f"mixtral_tp_rules(ep_axes={ep_axes!r}) is not ported yet "
+                                  f"({_PARALLEL_ITEM})")
+    return _mixtral_rules(scan_layers, ())

@@ -24,11 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tp
 from .layers import FlaxLayerNorm, init_weights, module_attention, run_blocks
 from .llama import _Linear, apply_partial_rope, rotary_embedding
-
-_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (TP rule tables)"
-
 
 @dataclasses.dataclass
 class GPTNeoXConfig:
@@ -83,7 +81,7 @@ class GPTNeoXAttention(nn.Module):
     def forward(self, x, positions):
         cfg = self.cfg
         b, s, _ = x.shape
-        qkv = self.query_key_value(x).view(b, s, cfg.num_attention_heads, 3, cfg.head_dim)
+        qkv = self.query_key_value(x).view(b, s, -1, 3, cfg.head_dim)  # local heads under tp
         q, k, v = qkv.unbind(3)
         rnd = cfg.rotary_ndims
         cos, sin = rotary_embedding(positions, rnd, cfg.rotary_emb_base, x.dtype)
@@ -128,7 +126,7 @@ class GPTNeoXModel(nn.Module):
 
     def forward(self, input_ids):
         cfg = self.cfg
-        x = F.embedding(input_ids, self.embed_in.weight).to(cfg.dtype)
+        x = tp.embedding(input_ids, self.embed_in.weight).to(cfg.dtype)
         positions = torch.arange(input_ids.shape[-1], device=input_ids.device)
         positions = positions.expand(input_ids.shape)
         return self.final_layer_norm(run_blocks(self.layers, x, cfg.remat, positions))
@@ -147,13 +145,25 @@ class GPTNeoXForCausalLM(nn.Module):
     def forward(self, input_ids):
         """fp32 logits (B, S, V); the untied head computes in the compute
         dtype."""
-        return self.embed_out(self.gpt_neox(input_ids)).float()
+        dt = self.config.dtype
+        return tp.vocab_logits(self.gpt_neox(input_ids).to(dt), self.embed_out.weight.to(dt),
+                               post=lambda y: y.float())
 
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
         init_weights(self, generator, std)
 
 
-def neox_tp_rules(scan_layers: bool = True):
-    """The JAX package's TP rule table for GPT-NeoX; tensor parallelism is
-    not ported."""
-    raise NotImplementedError(f"neox_tp_rules is not ported yet ({_PARALLEL_ITEM})")
+def neox_tp_rules(scan_layers: bool = True) -> list[tuple[str, tuple]]:
+    """The JAX package's TP rule table for GPT-NeoX (``parallel/sharding.py``):
+    the fused ``query_key_value`` on its heads, ``dense_h_to_4h`` on its
+    output, ``dense`` and ``dense_4h_to_h`` on their input, ``embed_in`` and
+    ``embed_out`` on the vocab."""
+    lead = (None,) if scan_layers else ()
+    return [
+        (r"attention/query_key_value/kernel", lead + (None, "tp", None, None)),
+        (r"attention/dense/kernel", lead + ("tp", None, None)),
+        (r"dense_h_to_4h/kernel", lead + (None, "tp")),
+        (r"dense_4h_to_h/kernel", lead + ("tp", None)),
+        (r"embed_in/embedding", ("tp", None)),
+        (r"embed_out/kernel", (None, "tp")),
+    ]

@@ -20,11 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tp
 from .layers import FlaxLayerNorm, init_weights, module_attention, run_blocks
 from .llama import _Linear
-
-_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (TP rule tables)"
-
 
 @dataclasses.dataclass
 class OPTConfig:
@@ -74,7 +72,7 @@ class OPTAttention(nn.Module):
     def forward(self, x):
         cfg = self.cfg
         b, s, _ = x.shape
-        shape = (b, s, cfg.num_attention_heads, cfg.head_dim)
+        shape = (b, s, -1, cfg.head_dim)  # local heads under tp
         q, k, v = (p(x).view(shape) for p in (self.q_proj, self.k_proj, self.v_proj))
         out = module_attention(q, k, v, cfg.dtype, causal=True)
         return self.out_proj(out.reshape(b, s, -1))
@@ -109,7 +107,7 @@ class OPTModel(nn.Module):
     def forward(self, input_ids):
         cfg = self.cfg
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device) + cfg.POSITION_OFFSET
-        x = (F.embedding(input_ids, self.embed_tokens.weight).to(cfg.dtype)
+        x = (tp.embedding(input_ids, self.embed_tokens.weight).to(cfg.dtype)
              + F.embedding(pos, self.embed_positions.weight).to(cfg.dtype))
         return self.final_layer_norm(run_blocks(self.layers, x, cfg.remat))
 
@@ -128,13 +126,21 @@ class OPTForCausalLM(nn.Module):
         x = self.model(input_ids)
         head = self.model.embed_tokens.weight.to(self.config.dtype)
         dt = torch.promote_types(x.dtype, head.dtype)
-        return F.linear(x.to(dt), head.to(dt)).float()
+        return tp.vocab_logits(x.to(dt), head.to(dt), post=lambda y: y.float())
 
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
         init_weights(self, generator, std)
 
 
-def opt_tp_rules(scan_layers: bool = True):
-    """The JAX package's TP rule table for OPT; tensor parallelism is not
-    ported."""
-    raise NotImplementedError(f"opt_tp_rules is not ported yet ({_PARALLEL_ITEM})")
+def opt_tp_rules(scan_layers: bool = True) -> list[tuple[str, tuple]]:
+    """The JAX package's TP rule table for OPT (``parallel/sharding.py``):
+    q/k/v on their heads, ``fc1`` on its output, ``out_proj`` and ``fc2``
+    on their input, ``embed_tokens`` (and the tied head) on the vocab."""
+    lead = (None,) if scan_layers else ()
+    return [
+        (r"self_attn/(q_proj|k_proj|v_proj)/kernel", lead + (None, "tp", None)),
+        (r"self_attn/out_proj/kernel", lead + ("tp", None, None)),
+        (r"fc1/kernel", lead + (None, "tp")),
+        (r"fc2/kernel", lead + ("tp", None)),
+        (r"embed_tokens/embedding", ("tp", None)),
+    ]

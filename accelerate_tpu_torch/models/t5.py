@@ -29,10 +29,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import tp
 from .layers import causal_mask, init_weights
 from .llama import _Linear, as_dtype
 
-_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (TP rule tables)"
 MASKED = -1e9
 
 
@@ -127,17 +127,26 @@ class T5Attention(nn.Module):
 
     def position_bias(self, sq: int, sk: int, device) -> torch.Tensor:
         """(1, H, Sq, Sk) fp32: the relative bias (zeros in a block without
-        the table), ``-1e9`` where a causal block hides a key."""
+        the table), ``-1e9`` where a causal block hides a key. Under tp the
+        H of this rank's heads: the table (whole on every rank) gives their
+        columns, its gradient all-reduced (``parallel/tp.pick_rows``)."""
         cfg = self.cfg
+        heads = cfg.num_heads
+        split = tp.is_split(self.q.weight)
+        if split:
+            heads //= self.q.weight.device_mesh.size()
         if hasattr(self, "relative_attention_bias"):
             rel = (torch.arange(sk, device=device)[None, :]
                    - torch.arange(sq, device=device)[:, None])
             buckets = relative_position_bucket(
                 rel, bidirectional=not self.causal, num_buckets=cfg.relative_attention_num_buckets,
                 max_distance=cfg.relative_attention_max_distance)
-            bias = F.embedding(buckets, self.relative_attention_bias.weight).permute(2, 0, 1)[None]
+            table = self.relative_attention_bias.weight
+            if split:
+                table = tp.pick_rows(table.t(), self.q.weight).t()
+            bias = F.embedding(buckets, table).permute(2, 0, 1)[None]
         else:
-            bias = torch.zeros((1, cfg.num_heads, sq, sk), device=device)
+            bias = torch.zeros((1, heads, sq, sk), device=device)
         bias = bias.float()
         if self.causal:
             bias = bias.masked_fill(~causal_mask(sq, sk, device), MASKED)
@@ -151,9 +160,9 @@ class T5Attention(nn.Module):
         kv = x if kv is None else kv
         b, sq, _ = x.shape
         sk = kv.shape[1]
-        q = self.q(x).view(b, sq, cfg.num_heads, cfg.d_kv)
-        k = self.k(kv).view(b, sk, cfg.num_heads, cfg.d_kv)
-        v = self.v(kv).view(b, sk, cfg.num_heads, cfg.d_kv)
+        q = self.q(x).view(b, sq, -1, cfg.d_kv)  # local heads under tp
+        k = self.k(kv).view(b, sk, -1, cfg.d_kv)
+        v = self.v(kv).view(b, sk, -1, cfg.d_kv)
         if bias is None:
             bias = self.position_bias(sq, sk, x.device)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() + bias
@@ -249,7 +258,7 @@ class T5ForConditionalGeneration(nn.Module):
         self.decoder = T5Stack(cfg, True, device)
 
     def embed(self, ids):
-        return F.embedding(ids, self.shared.weight).to(self.config.dtype)
+        return tp.embedding(ids, self.shared.weight).to(self.config.dtype)
 
     def encode(self, input_ids, attention_mask=None):
         """(encoder states, the (B, S) mask they were taken under)."""
@@ -266,7 +275,7 @@ class T5ForConditionalGeneration(nn.Module):
         dec = dec * as_dtype(cfg.d_model ** -0.5, dec.dtype)
         head = self.shared.weight.to(cfg.dtype)
         dt = torch.promote_types(dec.dtype, head.dtype)
-        return F.linear(dec.to(dt), head.to(dt))
+        return tp.vocab_logits(dec.to(dt), head.to(dt))
 
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
         init_weights(self, generator, std)
@@ -290,8 +299,28 @@ def t5_cross_entropy_loss(logits, labels, ignore_index: int = -100):
     return cross_entropy_loss(logits, labels, ignore_index)
 
 
-def t5_tp_rules(scan_layers: bool = True):
-    """The JAX package's TP rule table for T5; tensor parallelism is not
-    ported."""
-    raise NotImplementedError(f"t5_tp_rules is not ported yet ({_PARALLEL_ITEM})")
-
+def t5_tp_rules(scan_layers: bool = True) -> list[tuple[str, tuple]]:
+    """The JAX package's Megatron table for T5 (``parallel/sharding.py``):
+    q/k/v on their heads, ``wi`` on its output, ``o`` and ``wo`` on their
+    input, the shared embedding (and the tied head) on the vocab. With
+    ``scan_layers`` ``block_0`` (the relative bias's owner) has no leading
+    layer dim and the scanned rest does."""
+    if not scan_layers:
+        return [
+            (r"(self_attn|cross_attn)/(q|k|v)/kernel", (None, "tp", None)),
+            (r"(self_attn|cross_attn)/o/kernel", ("tp", None, None)),
+            (r"ffn/wi/kernel", (None, "tp")),
+            (r"ffn/wo/kernel", ("tp", None)),
+            (r"shared/embedding", ("tp", None)),
+        ]
+    return [
+        (r"block_0/(self_attn|cross_attn)/(q|k|v)/kernel", (None, "tp", None)),
+        (r"block_0/(self_attn|cross_attn)/o/kernel", ("tp", None, None)),
+        (r"block_0/ffn/wi/kernel", (None, "tp")),
+        (r"block_0/ffn/wo/kernel", ("tp", None)),
+        (r"layers/block/(self_attn|cross_attn)/(q|k|v)/kernel", (None, None, "tp", None)),
+        (r"layers/block/(self_attn|cross_attn)/o/kernel", (None, "tp", None, None)),
+        (r"layers/block/ffn/wi/kernel", (None, None, "tp")),
+        (r"layers/block/ffn/wo/kernel", (None, "tp", None)),
+        (r"shared/embedding", ("tp", None)),
+    ]

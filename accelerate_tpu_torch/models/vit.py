@@ -27,9 +27,6 @@ from torch import nn
 from .layers import FlaxLayerNorm, init_weights, module_attention, run_blocks
 from .llama import _Linear
 
-_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (TP rule tables)"
-
-
 @dataclasses.dataclass
 class ViTConfig:
     image_size: int = 224
@@ -96,7 +93,7 @@ class ViTSelfAttention(nn.Module):
     def forward(self, x):
         cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = (p(x).view(b, s, cfg.num_attention_heads, cfg.head_dim)
+        q, k, v = (p(x).view(b, s, -1, cfg.head_dim)  # local heads under tp
                    for p in (self.query, self.key, self.value))
         out = module_attention(q, k, v, cfg.dtype, causal=False)
         return self.output(out.reshape(b, s, -1))
@@ -164,7 +161,13 @@ class ViTForImageClassification(nn.Module):
         init_weights(self, generator, std)
 
 
-def vit_tp_rules(scan_layers: bool = True):
-    """The JAX package's TP rule table for ViT; tensor parallelism is not
-    ported."""
-    raise NotImplementedError(f"vit_tp_rules is not ported yet ({_PARALLEL_ITEM})")
+def vit_tp_rules(scan_layers: bool = True) -> list[tuple[str, tuple]]:
+    """The JAX package's TP rule table for ViT (BERT's shape;
+    ``parallel/sharding.py``)."""
+    lead = (None,) if scan_layers else ()
+    return [
+        (r"attention/(query|key|value)/kernel", lead + (None, "tp", None)),
+        (r"attention/output/kernel", lead + ("tp", None, None)),
+        (r"intermediate/kernel", lead + (None, "tp")),
+        (r"(?<!attention/)output/kernel", lead + ("tp", None)),
+    ]

@@ -26,11 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tp
 from .layers import FlaxLayerNorm, init_weights, module_attention, run_blocks
 from .llama import _Linear
-
-_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (TP rule tables)"
-
 
 @dataclasses.dataclass
 class WhisperConfig:
@@ -102,9 +100,10 @@ class WhisperAttention(nn.Module):
         kv = x if kv is None else kv
         b, sq, _ = x.shape
         sk = kv.shape[1]
-        q = self.q_proj(x).view(b, sq, self.num_heads, -1)
-        k = self.k_proj(kv).view(b, sk, self.num_heads, -1)
-        v = self.v_proj(kv).view(b, sk, self.num_heads, -1)
+        d = self.cfg.d_model // self.num_heads  # local heads under tp
+        q = self.q_proj(x).view(b, sq, -1, d)
+        k = self.k_proj(kv).view(b, sk, -1, d)
+        v = self.v_proj(kv).view(b, sk, -1, d)
         out = module_attention(q, k, v, self.cfg.dtype, causal=self.causal)
         return self.out_proj(out.reshape(b, sq, -1))
 
@@ -195,7 +194,7 @@ class WhisperDecoder(nn.Module):
     def forward(self, input_ids, enc):
         cfg = self.cfg
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        x = (F.embedding(input_ids, self.embed_tokens.weight).to(cfg.dtype)
+        x = (tp.embedding(input_ids, self.embed_tokens.weight).to(cfg.dtype)
              + F.embedding(pos, self.embed_positions.weight).to(cfg.dtype))
         return self.layer_norm(run_blocks(self.layers, x, cfg.remat, enc))
 
@@ -215,7 +214,7 @@ class WhisperForConditionalGeneration(nn.Module):
         dec = self.decoder(decoder_input_ids, self.encoder(input_features))
         head = self.decoder.embed_tokens.weight.to(self.config.dtype)
         dt = torch.promote_types(dec.dtype, head.dtype)
-        return F.linear(dec.to(dt), head.to(dt)).float()
+        return tp.vocab_logits(dec.to(dt), head.to(dt), post=lambda y: y.float())
 
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
         """normal(0, std) matrices, kernels and embeddings, zero biases, unit
@@ -223,7 +222,16 @@ class WhisperForConditionalGeneration(nn.Module):
         init_weights(self, generator, std, keep=("encoder.embed_positions",))
 
 
-def whisper_tp_rules(scan_layers: bool = True):
-    """The JAX package's TP rule table for Whisper; tensor parallelism is
-    not ported."""
-    raise NotImplementedError(f"whisper_tp_rules is not ported yet ({_PARALLEL_ITEM})")
+def whisper_tp_rules(scan_layers: bool = True) -> list[tuple[str, tuple]]:
+    """The JAX package's TP rule table for Whisper (``parallel/sharding.py``):
+    self- and cross-attention q/k/v on their heads, ``fc1`` on its output,
+    ``out_proj`` and ``fc2`` on their input, the decoder's ``embed_tokens``
+    (and the tied head) on the vocab."""
+    lead = (None,) if scan_layers else ()
+    return [
+        (r"(self_attn|encoder_attn)/(q_proj|k_proj|v_proj)/kernel", lead + (None, "tp", None)),
+        (r"(self_attn|encoder_attn)/out_proj/kernel", lead + ("tp", None, None)),
+        (r"fc1/kernel", lead + (None, "tp")),
+        (r"fc2/kernel", lead + ("tp", None)),
+        (r"embed_tokens/embedding", ("tp", None)),
+    ]

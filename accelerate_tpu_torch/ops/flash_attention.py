@@ -9,7 +9,8 @@ Counterpart of ``accelerate_tpu/ops/flash_attention.py``:
 - :func:`flash_attention` — the fused attention of ``ops/hopper_flash.py``:
   the Hopper kernels for CUDA tensors, their plain version on the CPU.
 - :func:`auto_flash_attention` — the model layer's: ``flash_attention``
-  over the process's mesh, through the ring when the sequence is split.
+  over the process's mesh, on its own heads under ``tp``, through the ring
+  when the sequence is split.
 
 All support GQA (Hq a multiple of Hkv) and causal masking with query/key
 position offsets. Layout is (B, S, H, D).
@@ -89,6 +90,9 @@ def attention_stats(q, k, v, *, causal: bool = True, q_offset: int = 0, k_offset
 # Mesh axes along which each process holds a slice of the batch: attention
 # runs on that slice as it is.
 DATA_PARALLEL_AXES = ("dp_replicate", "dp_shard")
+# Mesh axes that split the heads: each process's projections give it its
+# own heads (parallel/tp.py), and attention runs on them as they are.
+HEAD_AXES = ("tp",)
 # Mesh axes that split the sequence: each process attends over the whole
 # sequence through the "allgather" ring over the axis.
 SEQUENCE_AXES = ("cp", "sp")
@@ -101,11 +105,17 @@ def auto_flash_attention(q, k, v, *, causal: bool = True, mesh=None):
     ``AcceleratorState``'s, if any).
 
     Over ``dp_replicate`` and ``dp_shard`` each process attends over its
-    own rows. Over a ``cp`` or ``sp`` axis wider than 1, where each process
-    holds a slice of the sequence, it attends over the whole sequence, as
-    the JAX package's ``shard_map`` leaves the sequence dim whole: the
-    ``"allgather"`` ring over that axis (``parallel/cp.py``). An axis that
-    splits the heads (tp) is not ported."""
+    own rows. Over ``tp`` it attends with its own heads: the JAX package's
+    ``shard_map`` splits the heads over ``tp`` when both the q and the kv
+    head counts divide and otherwise leaves them whole, and the port's
+    column-parallel projections give each rank the same heads (q split
+    with kv whole: the kv heads its q heads read,
+    ``parallel/tp.heads_for_local_q``), so the kernels run at H/tp heads.
+    Over a ``cp`` or ``sp`` axis wider than 1, where each process holds a
+    slice of the sequence, it attends over the whole sequence, as the JAX
+    package's ``shard_map`` leaves the sequence dim whole: the
+    ``"allgather"`` ring over that axis (``parallel/cp.py``). ``tp`` with
+    a sequence axis is not ported (ROADMAP.md Queue A item 6)."""
     if mesh is None:
         from ..state import current_mesh
 
@@ -113,14 +123,15 @@ def auto_flash_attention(q, k, v, *, causal: bool = True, mesh=None):
     if mesh is not None:
         names = mesh.mesh_dim_names or ()
         wide = [n for i, n in enumerate(names) if mesh.size(i) > 1 and n not in DATA_PARALLEL_AXES]
-        other = [n for n in wide if n not in SEQUENCE_AXES]
-        if len(names) != mesh.ndim or other:
+        other = [n for n in wide if n not in SEQUENCE_AXES + HEAD_AXES]
+        seq = [n for n in wide if n in SEQUENCE_AXES]
+        if len(names) != mesh.ndim or other or (seq and len(seq) < len(wide)):
             raise NotImplementedError(
-                f"auto_flash_attention over mesh axes {other or mesh} that split the heads is "
-                "not ported yet (ROADMAP.md Queue A item 6)")
-        if wide:
+                f"auto_flash_attention over mesh axes {other or wide or mesh} is not ported yet "
+                "(ROADMAP.md Queue A item 6)")
+        if seq:
             from ..parallel.cp import ring_attention
 
             return ring_attention(q, k, v, causal=causal, mesh=mesh, rotate_method="allgather",
-                                  axis_name=wide[0])
+                                  axis_name=seq[0])
     return flash_attention(q, k, v, causal=causal)

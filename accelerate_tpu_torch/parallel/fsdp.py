@@ -115,19 +115,23 @@ def whole_parameters(module: nn.Module, plugin, shard_count: int) -> dict[str, n
     return whole
 
 
-def average_whole_gradients(model, world: int) -> None:
-    """The gradients of the parameters FSDP2 leaves whole averaged over the
-    ``world`` processes, as DDP would average them: one all-reduce of a
-    flat buffer per dtype (Llama's 37 norm scales in one collective)."""
+def average_whole_gradients(model, world: int, group=None) -> None:
+    """The gradients of the parameters FSDP2 leaves whole (under ``tp``
+    without a plugin that shards: every parameter's, a ``tp`` shard's
+    local one) averaged over the ``world`` processes of ``group`` (None:
+    every process), as DDP would average them: one all-reduce of a flat
+    buffer per dtype (Llama's 37 norm scales in one collective)."""
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+    from torch.distributed.tensor import DTensor
 
     from ..utils import operations
 
-    grads = [p.grad for p in model.ignored.values() if p.grad is not None]
+    grads = [p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad
+             for p in model.ignored.values() if p.grad is not None]
     for dtype in dict.fromkeys(g.dtype for g in grads):
         same = [g for g in grads if g.dtype == dtype]
         flat = _flatten_dense_tensors(same)
-        operations.all_reduce(flat)
+        operations.all_reduce(flat, group=group)
         flat.div_(world)
         torch._foreach_copy_(same, _unflatten_dense_tensors(flat, same))
 
@@ -169,7 +173,7 @@ def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype) -> d
     from torch.distributed.fsdp import CPUOffloadPolicy, MixedPrecisionPolicy, OffloadPolicy
     from torch.distributed.fsdp import fully_shard
 
-    shard_mesh = mesh if mesh.size(0) > 1 else mesh["shard"]
+    shard_mesh = mesh if mesh.size(0) > 1 else mesh[mesh.mesh_dim_names[1]]
     mp = (MixedPrecisionPolicy() if compute_dtype == torch.float32 else
           MixedPrecisionPolicy(param_dtype=compute_dtype, reduce_dtype=torch.float32))
     ignored = whole_parameters(module, plugin, mesh.size(1))
@@ -197,12 +201,51 @@ def apply_ddp(module: nn.Module, device: torch.device, ddp_kwargs=None) -> nn.Mo
         **(ddp_kwargs.ddp_kwargs() if ddp_kwargs is not None else {}))
 
 
+def apply_tensor_parallel_model(model, state, plugin) -> None:
+    """``model`` (a ``Model``) split over ``tp`` by its rule table
+    (``parallel/sharding.py``): the plan in ``model.tp_plan``, each split
+    parameter a DTensor over the mesh's ``tp`` slice. Without rules every
+    parameter stays whole on every ``tp`` rank, as in the JAX plan."""
+    from .sharding import apply_tensor_parallel, plan_parameter_sharding
+
+    for pattern, spec in model.tp_rules:
+        axes = {a for e in spec if e for a in (e if isinstance(e, tuple) else (e,))}
+        if axes - {"tp"}:
+            raise NotImplementedError(
+                f"TP rule {pattern!r} splits over {sorted(axes - {'tp'})}: expert parallelism "
+                "is not ported yet (ROADMAP.md Queue A item 6 (EP))")
+    cfg = state.parallelism_config
+    model.tp_plan = plan_parameter_sharding(
+        model.module, state.device_mesh, fsdp_plugin=plugin, parallelism_config=cfg,
+        tp_rules=model.tp_rules)
+    apply_tensor_parallel(model.module, model.tp_plan, state.tensor_parallel_mesh)
+
+
 def apply_data_parallel(model, state, plugin, compute_dtype: torch.dtype,
                         ddp_kwargs=None) -> None:
     """Shard or replicate ``model`` (a ``Model``) over ``state``'s process
     group: FSDP2/HSDP with a plugin whose strategy shards, DDP without a
-    plugin or under ``NO_SHARD``. Does nothing without a group."""
+    plugin or under ``NO_SHARD``. Does nothing without a group.
+
+    Under ``tp`` the model is first split over ``tp``
+    (``apply_tensor_parallel_model``); the data-parallel axes then act on
+    the ``(dp_replicate, dp_shard)`` slice of the same mesh: FSDP2 (2-D
+    with the ``tp`` DTensors) under a plugin that shards, else every
+    gradient averaged over the data-parallel group by the step
+    (``average_whole_gradients``: DDP's arithmetic, without DDP's wrapper,
+    whose hooks would hand a recomputed block its local tensors)."""
     if not state._partial.use_distributed:
+        return
+    if state.parallelism_config.tp_size > 1:
+        apply_tensor_parallel_model(model, state, plugin)
+        if state.parallelism_config.dp_size == 1:
+            return
+        if plugin is not None and plugin.sharding_strategy != "NO_SHARD":
+            model.ignored = apply_fsdp(model.module, state.data_parallel_mesh, plugin,
+                                       compute_dtype)
+            model.sharded = True
+        else:
+            model.ignored = dict(model.module.named_parameters())
         return
     if plugin is not None and plugin.sharding_strategy == "NO_SHARD" and plugin.cpu_offload:
         raise NotImplementedError(

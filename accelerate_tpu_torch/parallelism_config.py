@@ -2,31 +2,38 @@
 
 Counterpart of ``accelerate_tpu/parallelism_config.py``: the same axis
 names, validation, environment round trip and world-size fill. The port
-runs four axes over a ``torch.distributed`` group, one process per GPU:
+runs five axes over a ``torch.distributed`` group, one process per GPU:
 ``dp_replicate`` (DDP, or the replicate axis of HSDP), ``dp_shard``
-(FSDP2), ``cp`` (ring attention, ``parallel/cp.py``) and ``sp`` (Ulysses,
-``parallel/sp.py``). ``tp``, ``pp`` and ``ep`` above 1 raise, naming
-ROADMAP.md Queue A item 6.
+(FSDP2), ``cp`` (ring attention, ``parallel/cp.py``), ``sp`` (Ulysses,
+``parallel/sp.py``) and ``tp`` (tensor parallelism, ``parallel/sharding.py``
+and ``parallel/tp.py``). ``pp`` and ``ep`` above 1 raise, naming ROADMAP.md
+Queue A item 6 (PP, EP).
 
 Processes lie on the mesh in row-major order of ``MESH_AXES``, as the JAX
-package lays its devices: rank ``((r_dp_replicate · dp_shard + r_dp_shard)
-· cp + r_cp) · sp + r_sp``.
+package lays its devices (``tp`` innermost, as in its ``MESH_AXIS_ORDER``):
+rank ``(((r_dp_replicate · dp_shard + r_dp_shard) · cp + r_cp) · sp + r_sp)
+· tp + r_tp``. At ``tp=1`` that is the rank of the four outer axes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 PARALLELISM_CONFIG_PREFIX = "PARALLELISM_CONFIG_"
-# The mesh's axes, outermost first (the JAX package's MESH_AXIS_ORDER
-# without the unported tp).
-MESH_AXES = ("dp_replicate", "dp_shard", "cp", "sp")
+# The mesh's axes, outermost first (the JAX package's MESH_AXIS_ORDER).
+MESH_AXES = ("dp_replicate", "dp_shard", "cp", "sp", "tp")
 _UNPORTED_AXES = {
-    "tp_size": "ROADMAP.md Queue A item 6 (TP)",
     "pp_size": "ROADMAP.md Queue A item 6 (PP)",
     "ep_size": "ROADMAP.md Queue A item 6 (EP)",
 }
+
+
+class ParallelismOversubscriptionError(ValueError):
+    """The axes multiply to more processes than there are: an axis must
+    shrink. Its message names each axis above 1 and the variable that sets
+    it, as the JAX package's does."""
 
 
 @dataclasses.dataclass
@@ -59,8 +66,8 @@ class ParallelismConfig:
         for name, item in _UNPORTED_AXES.items():
             if getattr(self, name) > 1:
                 raise NotImplementedError(
-                    f"{name}={getattr(self, name)}: only the data-parallel, cp and sp axes "
-                    f"are ported yet ({item})")
+                    f"{name}={getattr(self, name)}: only the data-parallel, cp, sp and tp "
+                    f"axes are ported yet ({item})")
 
     @property
     def dp_size(self) -> int:
@@ -81,8 +88,8 @@ class ParallelismConfig:
 
     @property
     def batch_axes(self) -> tuple[str, ...]:
-        """Axes the batch rows are split over; ``cp`` and ``sp`` ranks share
-        rows and split the sequence."""
+        """Axes the batch rows are split over; ``tp`` ranks see the same
+        rows, ``cp`` and ``sp`` ranks share rows and split the sequence."""
         return ("dp_replicate", "dp_shard")
 
     @property
@@ -91,9 +98,30 @@ class ParallelismConfig:
         return ("cp", "sp")
 
     @property
+    def ep_axes(self) -> tuple[str, ...]:
+        """Mesh axes the expert dim of MoE layers is sharded over: whole axes
+        of ``(dp_shard, sp, tp)`` whose sizes multiply to ``ep_size``, the
+        earlier ones preferred, as in the JAX package. Empty while
+        ``ep_size`` is 1, which it is until EP is ported (ROADMAP.md Queue A
+        item 6)."""
+        if self.ep_size == 1:
+            return ()
+        from itertools import combinations
+
+        candidates = [ax for ax in ("dp_shard", "sp", "tp") if self.axis_size(ax) > 1]
+        for r in range(1, len(candidates) + 1):
+            for combo in combinations(candidates, r):
+                if math.prod(self.axis_size(ax) for ax in combo) == self.ep_size:
+                    return combo
+        raise ValueError(
+            f"ep_size={self.ep_size} is not a product of whole mesh axes from "
+            f"(dp_shard={self.dp_shard_size}, sp={self.sp_size}, tp={self.tp_size}); "
+            "choose ep equal to such a product.")
+
+    @property
     def loss_reduce_axes(self) -> tuple[str, ...]:
-        """Axes a scalar loss is averaged over. While ``tp``, ``pp`` and
-        ``ep`` are not ported they span every process."""
+        """Axes a scalar loss is averaged over: every axis but ``tp``, whose
+        ranks hold the same rows and compute the same loss."""
         return ("dp_replicate", "dp_shard", "cp", "sp")
 
     @property
@@ -149,14 +177,22 @@ class ParallelismConfig:
         fixed = self.total_size
         if fixed == n_processes:
             return self
-        if fixed > n_processes or n_processes % fixed:
+        if fixed > n_processes:
+            p = PARALLELISM_CONFIG_PREFIX
+            axes = [f"{ax}={self.axis_size(ax)} ({p}{ax.upper()}_SIZE)"
+                    for ax in MESH_AXES + ("pp",) if self.axis_size(ax) > 1]
+            raise ParallelismOversubscriptionError(
+                f"parallelism axes multiply to {fixed} but only {n_processes} process(es) "
+                f"run: {', '.join(axes) or 'none >1'}. Reduce one of these axes (or launch "
+                "more processes).")
+        if n_processes % fixed:
             raise ValueError(
                 f"parallelism axes multiply to {fixed}, which does not divide the "
                 f"{n_processes} process(es)")
         return dataclasses.replace(self, dp_shard_size=self.dp_shard_size * (n_processes // fixed))
 
     def build_mesh(self, device_type: str):
-        """The 4-D ``DeviceMesh`` over the process group with the axes
+        """The 5-D ``DeviceMesh`` over the process group with the axes
         ``MESH_AXES``, one process per device. Axes of size 1 are kept, so
         that every name resolves."""
         from torch.distributed.device_mesh import init_device_mesh
@@ -173,8 +209,11 @@ class ParallelismConfig:
         import torch
         from torch.distributed.device_mesh import DeviceMesh
 
+        if self.tp_size > 1:
+            raise ValueError("under tp the data-parallel mesh is a slice of the 5-D mesh "
+                             "(AcceleratorState.data_parallel_mesh)")
         replicate = ("dp_replicate", "sp")
         ranks = torch.arange(self.total_size).reshape([self.axis_size(a) for a in MESH_AXES])
-        ranks = ranks.permute([MESH_AXES.index(a) for a in replicate + self.fsdp_axes])
+        ranks = ranks.permute([MESH_AXES.index(a) for a in replicate + self.fsdp_axes + ("tp",)])
         return DeviceMesh(device_type, ranks.reshape(self.dp_replicate_size * self.sp_size, -1),
                           mesh_dim_names=("replicate", "shard"))

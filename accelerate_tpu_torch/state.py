@@ -247,16 +247,21 @@ class AcceleratorState:
             return
         self._partial = partial
         self.mixed_precision = "no" if mixed_precision is None else mixed_precision
+        pc = parallelism_config or ParallelismConfig()
+        if pc.tp_size > 1 and pc.seq_size > 1:
+            raise NotImplementedError(
+                "tp with a cp or sp axis is not ported yet (ROADMAP.md Queue A item 6: the "
+                "rest of TP beside PP and EP)")
         # The data-parallel axes fill the world, as the JAX package fills its
         # devices (ParallelismConfig.infer_missing_axis).
-        self.parallelism_config = (parallelism_config or ParallelismConfig()).infer_missing_axis(
-            partial.num_processes)
+        self.parallelism_config = pc.infer_missing_axis(partial.num_processes)
         self._mesh = None
         self._dp_mesh = None
+        self._loss_group = None
 
     @property
     def device_mesh(self):
-        """The 4-D ``DeviceMesh`` (``parallelism_config.MESH_AXES``) over the
+        """The 5-D ``DeviceMesh`` (``parallelism_config.MESH_AXES``) over the
         process group, or None without a group. Built on first use, with one
         process group per axis (``get_group(axis)``)."""
         if self._mesh is None and self._partial.use_distributed:
@@ -267,11 +272,41 @@ class AcceleratorState:
     def data_parallel_mesh(self):
         """The 2-D ``(replicate, shard)`` mesh FSDP2 runs over
         (``ParallelismConfig.build_data_parallel_mesh``), built on first
-        use; None without a group."""
+        use; None without a group. Under ``tp`` it is the
+        ``(dp_replicate, dp_shard)`` slice of ``device_mesh``, so that
+        FSDP2 composes with the ``tp`` slice's DTensors (one root mesh)."""
         if self._dp_mesh is None and self._partial.use_distributed:
-            self._dp_mesh = self.parallelism_config.build_data_parallel_mesh(
-                self._partial.device.type)
+            if self.parallelism_config.tp_size > 1:
+                self._dp_mesh = self.device_mesh["dp_replicate", "dp_shard"]
+            else:
+                self._dp_mesh = self.parallelism_config.build_data_parallel_mesh(
+                    self._partial.device.type)
         return self._dp_mesh
+
+    @property
+    def tensor_parallel_mesh(self):
+        """The 1-D ``tp`` slice of ``device_mesh`` (the DTensors of a
+        tensor-parallel model live on it), or None without a group."""
+        mesh = self.device_mesh
+        return None if mesh is None else mesh["tp"]
+
+    @property
+    def loss_group(self):
+        """The process group of this process's loss: every axis but ``tp``
+        (``loss_reduce_axes``), whose ranks compute one loss on the same
+        rows. Under ``tp`` (no sequence axis) that is the
+        ``data_parallel_mesh`` slice flattened, built on first use by every
+        process; None (the default group, every process) at ``tp=1``."""
+        if (self._loss_group is None and self.parallelism_config.tp_size > 1
+                and self._partial.use_distributed):
+            self._loss_group = self.data_parallel_mesh._flatten("dp").get_group()
+        return self._loss_group
+
+    @property
+    def loss_size(self) -> int:
+        """How many processes' losses a step averages: the world over
+        ``tp``."""
+        return self._partial.num_processes // self.parallelism_config.tp_size
 
     def axis_rank(self, axis: str) -> int:
         """This process's coordinate on a mesh axis (0 without a group)."""
@@ -309,7 +344,7 @@ class AcceleratorState:
 
 
 def current_mesh():
-    """The set-up ``AcceleratorState``'s 4-D mesh, or None when no state is
+    """The set-up ``AcceleratorState``'s 5-D mesh, or None when no state is
     set up or it has no process group. Sets nothing up."""
     if not AcceleratorState._shared_state.get("_partial"):
         return None

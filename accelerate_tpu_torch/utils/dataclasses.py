@@ -16,7 +16,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-_COMM_HOOK_ITEM = "ROADMAP.md Queue A item 6 (TP, PP and the gradient-communication hooks)"
+_COMM_HOOK_ITEM = "ROADMAP.md Queue A item 6 (the gradient-communication hooks)"
 _REDUCED_PRECISION_ITEM = (
     "ROADMAP.md Queue A item 9: the JAX package defines MixedPrecisionPolicy's param_dtype, "
     "reduce_dtype and output_dtype and FullyShardedDataParallelPlugin.mixed_precision_policy "

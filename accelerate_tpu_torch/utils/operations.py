@@ -85,15 +85,17 @@ def _world() -> int:
 
 
 # While the train step runs a loss function, the number of processes whose
-# losses it averages (Accelerator.prepare_train_step); 1 elsewhere.
-_LOSS_PROCESSES: ContextVar[int] = ContextVar("loss_processes", default=1)
+# losses it averages (Accelerator.prepare_train_step) and their group (None:
+# every process); 1 and None elsewhere.
+_LOSS_PROCESSES: ContextVar[tuple] = ContextVar("loss_processes", default=(1, None))
 
 
 @contextmanager
-def loss_over_processes(n: int):
-    """Inside the block the step averages the losses of ``n`` processes
-    (every process of the group: ``ParallelismConfig.loss_reduce_axes``)."""
-    token = _LOSS_PROCESSES.set(n)
+def loss_over_processes(n: int, group=None):
+    """Inside the block the step averages the losses of ``n`` processes:
+    those of ``group`` (``ParallelismConfig.loss_reduce_axes``; every
+    process by default, the ranks of other rows under ``tp``)."""
+    token = _LOSS_PROCESSES.set((n, group))
     try:
         yield
     finally:
@@ -103,7 +105,12 @@ def loss_over_processes(n: int):
 def loss_processes() -> int:
     """How many processes' losses the running train step averages (1
     outside a step): those whose tokens make its global batch."""
-    return _LOSS_PROCESSES.get()
+    return _LOSS_PROCESSES.get()[0]
+
+
+def loss_group():
+    """The process group of those processes (None: every process)."""
+    return _LOSS_PROCESSES.get()[1]
 
 
 def global_token_count(count: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -113,11 +120,11 @@ def global_token_count(count: torch.Tensor) -> tuple[torch.Tensor, int]:
     step). ``sum · n / total`` averaged over the ``n`` processes is the
     token mean over all of them, as the JAX step's loss on the global
     batch is."""
-    n = _LOSS_PROCESSES.get()
+    n, group = _LOSS_PROCESSES.get()
     if n == 1:
         return count, 1
     count = count.detach().clone()
-    all_reduce(count)
+    all_reduce(count, group=group)
     return count, n
 
 

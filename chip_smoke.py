@@ -75,7 +75,7 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    of ``utils/operations.py`` must round-trip; phase 9's loop must resume
    bit-equal under FSDP2; phase 4's tiny step under DDP (no plugin) must
    give phase 4's numbers, and with ``attention_impl="ring"`` and
-   ``"ulysses"`` over the 4-D mesh (``cp = sp = 1``) bit for bit. Prints
+   ``"ulysses"`` over the 5-D mesh (``cp = sp = tp = 1``) bit for bit. Prints
    the FSDP2 step ms, idle share and peak memory beside phase 5's. The
    child also runs phase 12 (c), phase 14 (a)'s overflow under FSDP2 and
    phase 15 (c). The child's failure fails the run.
@@ -364,6 +364,23 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    Llama-2-7B's widths at 4 layers, TP 2 x PP 2 (``mp_rank_0T_00P``, bf16,
    its args) through ``load_megatron_model`` onto the card: logits equal bit
    for bit to the model built from the same flax tree directly.
+22. tensor parallelism at ``tp=2`` as two processes on the one card
+   (``chip_smoke.py --tp-child``, both on cuda:0 through ``LOCAL_RANK=0``),
+   each joining a gloo group itself: NCCL refuses two ranks on one device,
+   and gloo stages every all-reduce through the host, so the step's ms are
+   gloo's, not NCCL's. (a) Phase 5's model, weights, batch and optimizer
+   with ``llama_tp_rules``: 3 steps whose losses and grad norms are within
+   ``TP_REL_TOL`` of phase 5's first three on both ranks (equal on both),
+   each flash kernel launched 18 times a step on each rank at 8 heads;
+   the step ms, one profiled step's device-busy ms by category and idle
+   share, the peak memory and the all-reduces a step with their bytes.
+   (b) Phase 7's bf16 decode row at ``tp=2``: the greedy tokens equal
+   phase 7's off near-ties, and the teacher-forced logits of phase 7's
+   row within a bound of phase 7's; the tie gap and the bound are
+   ``TP_PLAIN_FACTOR`` times phase 7's own bf16-against-fp32 difference on
+   that row; ms, kernel launches and all-reduces a token. Phases 2 and 3
+   check and time the kernels at each rank's attention shape (B4 S2048
+   H8 D128).
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -415,17 +432,21 @@ CP_GEN_LIKE = dict(b=1, s=8192, hq=16, hkv=16, d=128)
 # Phase 21's streamed and resident forwards: Llama-2-7B (32 heads of 128)
 # over a (1, 1024) prompt, the forward kernel once a layer.
 LLAMA2_7B_LIKE = dict(b=1, s=1024, hq=32, hkv=32, d=128)
+# Phase 22's step at tp=2: each rank's attention, 8 of phase 5's 16 heads.
+TP_RANKS = 2
+TP_LIKE = dict(SLICE, hq=SLICE["hq"] // TP_RANKS, hkv=SLICE["hkv"] // TP_RANKS)
 # The main paths whose launches the kernels line reports: phase 5's Llama
 # train step (bf16 d128), phase 17's Gemma-2B train step (bf16 d256), phase
 # 18's Mixtral-8x7B train step (bf16 d128, GQA 4:1) and its cp_generate
 # prefill (bf16 d128 at seq 8192, the forward kernel), and phase 21's
-# Llama-2-7B forward streamed past a budget on the card (the forward kernel).
+# Llama-2-7B forward streamed past a budget on the card (the forward kernel),
+# and phase 22's step at tp=2 (each rank's counts: rank 0's are reported).
 MAIN_PATHS = ("train_step", "gemma_2b_step", "mixtral_8x7b_step", "cp_generate",
-              "big_model_stream")
+              "big_model_stream", "tp_step")
 # The other runs whose launches the line lists by path, outside "launches".
 OTHER_PATHS = ("imperative_loop", "observed_loop", "observed_imperative", "observed_serving",
                "fp16_step", "fp8_step", "dcp_loop", "dcp_async_loop", "serving_rest",
-               "big_model_resident")
+               "big_model_resident", "tp_generate")
 _TRAINING_PATHS = ("train_step", "gemma_2b_step", *OTHER_PATHS)
 # Phase 3 times every built variant (hopper_flash.variant) at the shape its
 # users give it: head dims 64 and 128 at the training shape, 256 at the
@@ -446,7 +467,8 @@ TIMED = [(None, "bfloat16", SLICE, _TRAINING_PATHS),
          ("mixtral_8x7b", "bfloat16", MIXTRAL_LIKE, ("mixtral_8x7b_step",)),
          ("cp_generate_8192", "bfloat16", CP_GEN_LIKE, ("cp_generate",)),
          ("llama2_7b_stream", "bfloat16", LLAMA2_7B_LIKE, ("big_model_stream",
-                                                           "big_model_resident"))]
+                                                           "big_model_resident")),
+         ("tp2_heads8", "bfloat16", TP_LIKE, ("tp_step", "tp_generate"))]
 SOURCES = {"flash_fwd": "accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
            "flash_dq": "accelerate_tpu_torch/ops/csrc/flash_dq.cu",
            "flash_dkv": "accelerate_tpu_torch/ops/csrc/flash_dkv.cu",
@@ -1195,7 +1217,7 @@ def decode_row(cfg, module, width, device="cuda"):
         "int8_decode_speedup": res["int8"]["decode_tok_s"] / res["bf16"]["decode_tok_s"],
         "int8_tokens_equal_bf16": float((rows["int8"] == rows["bf16"]).mean()),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "variants": res,
+        "variants": res, "rows": {k: v.tolist() for k, v in rows.items()},
     }
 
 
@@ -1713,7 +1735,7 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
     torch.cuda.empty_cache()
     cfg, weights, tiny_batch = _tiny_step_inputs()
     ddp_metrics, ddp_wrapped = tiny_step(cfg, weights, tiny_batch, cpu=device == "cpu")
-    # Ring and Ulysses over the 4-D mesh of one process (cp = sp = 1).
+    # Ring and Ulysses over the 5-D mesh of one process (cp = sp = tp = 1).
     seq_metrics = {impl: tiny_step(dataclasses.replace(cfg, attention_impl=impl), weights,
                                    tiny_batch, cpu=device == "cpu")[0]
                    for impl in ("ring", "ulysses")}
@@ -1752,7 +1774,8 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         "loop_resumes_bit_equal": loop["ok"],
         "ddp_wrapped": ddp_wrapped,
         "ddp_matches_phase4": max(ddp_rel.values()) <= DP_REL_TOL,
-        "mesh_4d": mesh_axes == [["dp_replicate", "dp_shard", "cp", "sp"], [1, 1, 1, 1]],
+        "mesh_5d": mesh_axes == [["dp_replicate", "dp_shard", "cp", "sp", "tp"],
+                                 [1, 1, 1, 1, 1]],
         "ring_ulysses_bit_equal_to_phase4": all(m == args["tiny_step"]
                                                 for m in seq_metrics.values()),
         "fp16_overflow_skipped": fp16["sharded"] and all(fp16["overflow"][k] for k in (
@@ -6433,6 +6456,315 @@ def big_model_phase(hf, device="cuda", width=LLAMA2_7B, spec=BIG_MODEL,
             "checks": checks, "ok": all(checks.values())}
 
 
+# Phase 22: tensor parallelism at tp=2. NCCL refuses two ranks on one card,
+# so the two ranks are two processes on cuda:0 joined by gloo, which stages
+# every all-reduce through the host: a step's ms is gloo's, not NCCL's.
+TP_STEPS = 3
+# The tp=2 step's loss and grad norm against phase 5's tp=1 ones (bf16: the
+# row-parallel products sum their halves in another order).
+TP_REL_TOL = 2e-2
+# Phase 22 (b)'s tie gap and the bound on its tp=2 logits against phase 7's:
+# this many times phase 7's bf16 logits' largest difference from the same
+# weights' fp32 ones, as phase 18 (e) sets its tie gap. Either bf16 run lies
+# about that far from fp32, so the two lie within about twice it of each
+# other; the rest covers the row-parallel sums' other order.
+TP_PLAIN_FACTOR = 4
+
+
+def teacher_forced_logits(cfg, model, row, prompt_len, device="cuda", fp32=False):
+    """fp32 logits (new tokens, V) of one prefill over ``row`` (1, T), at
+    the positions that predicted row[prompt_len:]: the greedy steps' own,
+    through the decode plan (its cache sized for this rank's kv heads).
+    ``fp32``: the same weights cast to fp32 and every product in fp32."""
+    import torch
+
+    from accelerate_tpu_torch import generation as gen
+
+    ids = torch.as_tensor(row).long().reshape(1, -1).to(device)
+    fwd = plan_of(model)
+    params = gen._decode_params(model)
+    if fp32:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        params = {k: v.float() for k, v in params.items()}
+    cache = gen.init_cache(cfg, 1, ids.shape[1], device=device,
+                           kv_heads=gen._tp_kv_heads(cfg, params, fwd))
+    with torch.no_grad():
+        logits, _ = fwd(cfg, params, ids, cache, return_all=True)
+    return logits[0, prompt_len - 1:-1].float().cpu().numpy()
+
+
+def tp_reference(cfg, module, row, ms_per_token=None, device="cuda"):
+    """Phase 22 (b)'s reference from phase 7's tp=1 bf16 model: its greedy
+    ``row`` (prompt included), the row's teacher-forced logits, and the
+    largest difference of those logits from the same weights' in fp32,
+    which sets the tie gap and the bound on the tp=2 logits without
+    reading the TP code."""
+    import numpy as np
+
+    logits = teacher_forced_logits(cfg, module, row, GEN_PROMPT, device)
+    fp32 = teacher_forced_logits(cfg, module, row, GEN_PROMPT, device, fp32=True)
+    return {"row": list(row), "ms_per_token": ms_per_token, "logits": logits,
+            "plain_delta": float(np.abs(logits - fp32).max())}
+
+
+def tp_step_rank(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], batch_size=SLICE["b"],
+                 steps=TP_STEPS, profile=True):
+    """Phase 22 (a), one rank: phase 5's 1.06B Llama (same weights, batch
+    and optimizer) under ``ParallelismConfig(tp_size=2)`` with
+    ``llama_tp_rules``: ``steps`` steps counted from zero (metrics, launches
+    per step, the all-reduces and their bytes), then one more under
+    torch.profiler for the device-busy ms by category (gloo's staging
+    copies under ``copy/memset``)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, ParallelismConfig, adamw
+    from accelerate_tpu_torch.models import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        cross_entropy_loss,
+        llama_tp_rules,
+    )
+    from accelerate_tpu_torch.parallel.tp import is_split
+    from accelerate_tpu_torch.utils.operations import collective_counters
+
+    cfg = LlamaConfig(**width, max_position_embeddings=seq, dtype=torch.bfloat16,
+                      remat=True, remat_policy="dots", attention_impl="flash")
+    acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu",
+                      parallelism_config=ParallelismConfig(tp_size=TP_RANKS))
+    module = LlamaForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    model, _ = acc.prepare(Model(module, tp_rules=llama_tp_rules()),
+                           adamw(3e-4, weight_decay=0.1))
+    step = acc.prepare_train_step(
+        lambda m, b: cross_entropy_loss(m(b["x"]), b["y"]), max_grad_norm=1.0)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(batch_size, seq + 1))
+    batch = {"x": torch.from_numpy(ids[:, :-1]).to(acc.device),
+             "y": torch.from_numpy(ids[:, 1:]).to(acc.device)}
+    state = acc.train_state
+    collective_counters.reset()
+    collective_counters.enabled = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    metrics, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    launches = dict(hf.LAUNCHES)
+    variant_launches = dict(hf.VARIANT_LAUNCHES)
+    collectives = collective_counters.snapshot()
+    collective_counters.enabled = False
+    metrics = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
+    step_ms = float(np.mean(times[1:]))
+    prof = profile_steps(step, state, batch, step_ms, steps=1, host=False) if profile else {}
+    busy = prof.get("device_busy_ms_per_step")
+    split = sum(is_split(p) for p in module.parameters())
+    local_params = sum((p.to_local() if is_split(p) else p).numel() for p in module.parameters())
+    out = {
+        "metrics": metrics, "step_ms": step_ms, "step_ms_each": times,
+        "device_busy_ms": busy, "idle_share": None if busy is None else 1 - busy / step_ms,
+        "busy_ms_by_category": prof.get("ms_per_step_by_category"),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "variant_launches": variant_launches, "n_layers": cfg.num_hidden_layers,
+        "all_reduces_per_step": {op: {"count": c["count"] / steps, "bytes": c["bytes"] / steps}
+                                 for op, c in collectives.items()},
+        "split_params": split, "local_params": local_params,
+        "tp_rank": acc.tensor_parallel_rank,
+    }
+    del state, step, model, module, acc
+    return out
+
+
+def tp_generate_rank(hf, device="cuda", row=None, width=FULL_WIDTH, prompt_len=GEN_PROMPT,
+                     new_tokens=GEN_NEW_TOKENS):
+    """Phase 22 (b), one rank: phase 7's bf16 model and prompt at tp=2,
+    greedy ``generate`` (a two-token warm-up, then the timed call, its
+    kernel launches counted from zero), and the teacher-forced logits of
+    phase 7's row (``row``)."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, ParallelismConfig, generate
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, llama_tp_rules
+    from accelerate_tpu_torch.utils.operations import collective_counters
+
+    cfg = LlamaConfig(**width, max_position_embeddings=2048, dtype=torch.bfloat16)
+    acc = Accelerator(cpu=device == "cpu", parallelism_config=ParallelismConfig(tp_size=TP_RANKS))
+    module = LlamaForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    module.to(torch.bfloat16)
+    model = acc.prepare_model(Model(module, tp_rules=llama_tp_rules()))
+    prompt = decode_prompt(cfg, acc.device)[:, :prompt_len]
+    generate(model, prompt, max_new_tokens=2)  # warm-up
+    collective_counters.reset()
+    collective_counters.enabled = True
+    torch.cuda.synchronize()
+    hf.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate(model, prompt, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    variant_launches = dict(hf.VARIANT_LAUNCHES)
+    collectives = collective_counters.snapshot()
+    collective_counters.enabled = False
+    logits = None if row is None else teacher_forced_logits(cfg, model, row, prompt_len,
+                                                            acc.device)
+    return {"row": out[0, prompt_len:].tolist(), "ms_per_token": wall * 1e3 / new_tokens,
+            "variant_launches": variant_launches,
+            "all_reduces_per_token": {op: {k: v / new_tokens for k, v in c.items()}
+                                      for op, c in collectives.items()}}, logits
+
+
+def tp_child_main(args: dict) -> int:
+    """One rank of phase 22: joins the gloo group of ``args["world"]`` ranks
+    at ``args["init"]`` itself (``PartialState`` adopts it; ``LOCAL_RANK``
+    from the parent puts every rank on cuda:0), runs (a) and (b), writes
+    (b)'s logits on rank 0 to ``args["logits"]``, and prints one line; the
+    parent judges it (``tp_gate``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    device = args.get("device", "cuda")
+    if device == "cpu":
+        _stub_cuda_for_cpu()
+    dist.init_process_group("gloo", init_method=args["init"], rank=args["rank"],
+                            world_size=args["world"])
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    kw = args.get("kw", {})
+    res = {"rank": args["rank"], "backend": dist.get_backend(),
+           "device": str(torch.device(device, 0) if device == "cuda" else device),
+           "step": tp_step_rank(hf, device=device, **kw.get("step", {}))}
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["generate"], logits = tp_generate_rank(hf, device=device, row=args.get("row"),
+                                               **kw.get("generate", {}))
+    if args["rank"] == 0 and logits is not None:
+        np.save(args["logits"], logits)
+    res["ok"] = all(math.isfinite(x) for m in res["step"]["metrics"] for x in m)
+    emit(res)
+    PartialState._reset_state()
+    dist.destroy_process_group()
+    return 0 if res["ok"] else 1
+
+
+def run_tp_children(args: dict, timeout: float, ranks=TP_RANKS):
+    """``chip_smoke.py --tp-child`` once per rank, all started together and
+    all waited for (killed at ``timeout``): by rank, the exit code, the
+    JSON lines and the end of standard error."""
+    port = free_port()
+    env = {**os.environ, "LOCAL_RANK": "0"}
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--tp-child",
+         json.dumps({**args, "rank": r, "world": ranks, "init": f"tcp://127.0.0.1:{port}"})],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent) for r in range(ranks)]
+    deadline, out = time.perf_counter() + timeout, []
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+            lines = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+            out.append((proc.returncode, lines, stderr[-4000:]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def tensor_parallel_phase(hf, phase5, phase7, device="cuda", kw=None, timeout=600):
+    """Phase 22: tp=2 as two processes on the card over gloo
+    (``run_tp_children``), judged by ``tp_gate``. The children's lines and
+    rank 0's logits stay under ``_children`` and ``_logits`` (not printed)."""
+    import numpy as np
+
+    logits_path = tempfile.mktemp(suffix=".npy")
+    t0 = time.perf_counter()
+    children = run_tp_children({"device": device, "row": phase7["row"],
+                                "logits": logits_path, "kw": kw or {}}, timeout)
+    seconds = time.perf_counter() - t0
+    logits = np.load(logits_path) if os.path.exists(logits_path) else None
+    if logits is not None:
+        os.remove(logits_path)
+    return {**tp_gate(children, phase5, phase7, logits), "seconds": seconds,
+            "_children": children, "_logits": logits}
+
+
+def tp_gate(children, phase5, phase7, logits) -> dict:
+    """Phase 22's checks on its children's lines: (a) 3 steps' loss and grad
+    norm within TP_REL_TOL of phase 5's on every rank, the ranks equal, each
+    flash kernel launched once a layer a step on each rank; (b) phase 7's
+    greedy tokens at tp=2 equal phase 7's off near-ties and the tp=2
+    teacher-forced logits of phase 7's row within a bound of phase 7's.
+    Both the tie gap and the bound are TP_PLAIN_FACTOR times phase 7's
+    bf16-against-fp32 difference (``tp_reference``; at least TIE_GAP),
+    which no TP code enters."""
+    import numpy as np
+
+    ranks = [lines[-1] if lines else {} for _, lines, _ in children]
+    checks = {"children": all(rc == 0 and r.get("ok") for (rc, _, _), r in zip(children, ranks)),
+              "gloo": all(r.get("backend") == "gloo" for r in ranks)}
+    res = {"phase": "tensor_parallel", "ranks": TP_RANKS, "backend": ranks[0].get("backend"),
+           "devices": [r.get("device") for r in ranks],
+           "note": "two processes on one card joined by gloo, which stages each all-reduce "
+                   "through the host: step ms are gloo's, not NCCL's"}
+    if not checks["children"] or logits is None:
+        checks["children"] = False
+        return {**res, "checks": checks, "ok": False,
+                "child_exit": [rc for rc, _, _ in children],
+                "child_stderr": [err for _, _, err in children]}
+    steps = [r["step"] for r in ranks]
+    rel = [max(_rel(g, w) for g, w in zip(got, want))
+           for m in steps for got, want in zip(m["metrics"], phase5["first_metrics"])]
+    checks["metrics_vs_phase5"] = max(rel) <= TP_REL_TOL
+    checks["ranks_agree"] = all(s["metrics"] == steps[0]["metrics"] for s in steps)
+    checks["launches_per_layer"] = all(
+        s["launches_per_step"][k] == s["n_layers"] for s in steps for k in KERNELS)
+    ref_row, ref_logits = phase7["row"][GEN_PROMPT:], phase7["logits"]
+    delta = float(np.abs(logits - ref_logits).max())
+    top2 = np.sort(ref_logits, axis=-1)[:, -2:]
+    gaps = top2[:, 1] - top2[:, 0]
+    tie_gap = max(TIE_GAP, TP_PLAIN_FACTOR * phase7["plain_delta"])
+    div = [first_divergence([ref_row], [r["generate"]["row"]], [gaps], tie_gap)[0]
+           for r in ranks]
+    checks["logits_vs_phase7"] = delta <= tie_gap
+    checks["tokens_vs_phase7"] = all(d is None or d["near_tie"] for d in div)
+    return {**res,
+            "a_step": {"rank_metrics": [s["metrics"] for s in steps],
+                       "phase5_metrics": phase5["first_metrics"], "max_rel": max(rel),
+                       "step_ms": [s["step_ms"] for s in steps],
+                       "step_ms_each": [s["step_ms_each"] for s in steps],
+                       "phase5_step_ms": phase5["step_ms"],
+                       "device_busy_ms": [s["device_busy_ms"] for s in steps],
+                       "busy_ms_by_category": [s["busy_ms_by_category"] for s in steps],
+                       "idle_share": [s["idle_share"] for s in steps],
+                       "peak_mem_gib": [s["peak_mem_gib"] for s in steps],
+                       "launches_per_step": [s["launches_per_step"] for s in steps],
+                       "all_reduces_per_step": steps[0]["all_reduces_per_step"],
+                       "split_params": steps[0]["split_params"],
+                       "local_params": [s["local_params"] for s in steps]},
+            "b_generate": {"rows": [r["generate"]["row"] for r in ranks], "phase7_row": ref_row,
+                           "first_divergence": div, "logit_delta": delta, "tie_gap": tie_gap,
+                           "phase7_bf16_fp32_delta": phase7["plain_delta"],
+                           "ms_per_token": [r["generate"]["ms_per_token"] for r in ranks],
+                           "all_reduces_per_token": ranks[0]["generate"]["all_reduces_per_token"],
+                           "phase7_ms_per_token": phase7.get("ms_per_token")},
+            "variant_launches": steps[0]["variant_launches"],
+            "generate_variant_launches": ranks[0]["generate"]["variant_launches"],
+            "checks": checks, "ok": all(checks.values())}
+
+
 def _stub_cuda_for_cpu():
     """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
     import torch
@@ -6535,6 +6867,8 @@ def main() -> int:
         check_kernels(hf, "cp_generate_8192", **CP_GEN_LIKE, seed=26),
         # Phase 21's Llama-2-7B forward, streamed and resident.
         check_kernels(hf, "llama2_7b_stream", **LLAMA2_7B_LIKE, seed=27),
+        # Phase 22's step at tp=2: each rank's 8 of the 16 heads.
+        check_kernels(hf, "tp2_heads8", **TP_LIKE, seed=28),
     ]
     for case in cases:
         emit({"phase": "kernels", **case})
@@ -6593,6 +6927,10 @@ def main() -> int:
     gen_res["full_width"] = full_gen["variants"]
     gen_ok = generate_gate(gen_res)
     phase7_ms = full_gen["variants"]["bf16"]["decode_ms_per_token"]
+    # Phase 22's reference: the bf16 row and its teacher-forced logits.
+    prompt = decode_prompt(gen_module.config)[0].tolist()
+    phase7_tp = tp_reference(gen_module.config, gen_module, prompt + full_gen["rows"]["bf16"],
+                             phase7_ms)
     emit({"phase": "generate", "tiny_divergence": gen_res["tiny"],
           "allocated_gib_at_start": allocated_gib, **full_gen, "ok": gen_ok})
     if not gen_ok:
@@ -6763,6 +7101,20 @@ def main() -> int:
         print(f"chip_smoke: big-model phase 21 failed: {failed}", file=sys.stderr)
         return 1
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 22. tensor parallelism: phase 5's step and phase 7's generate at tp=2,
+    # two processes on the card over gloo
+    tpar = tensor_parallel_phase(hf, main_path, phase7_tp)
+    tpar.pop("_children")
+    tpar.pop("_logits")
+    emit(tpar)
+    if not tpar["ok"]:
+        failed = sorted(k for k, v in tpar["checks"].items() if not v)
+        print(f"chip_smoke: tensor-parallel phase 22 failed: {failed}", file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
         "gemma_2b_step": chassis["gemma_2b_train"]["variant_launches"],
         "mixtral_8x7b_step": moe["mixtral_8x7b_train"]["variant_launches"],
@@ -6777,7 +7129,9 @@ def main() -> int:
         "dcp_async_loop": dcp["background"]["variant_launches"],
         "serving_rest": rest["variant_launches"],
         "big_model_stream": big["stream"]["variant_launches"],
-        "big_model_resident": big["resident"]["variant_launches"]})})
+        "big_model_resident": big["resident"]["variant_launches"],
+        "tp_step": tpar["variant_launches"],
+        "tp_generate": tpar["generate_variant_launches"]})})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -6825,4 +7179,6 @@ def kernel_summary(timed, cases, main_path, other_paths=None):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--child":
         sys.exit(child_main(json.loads(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-child":
+        sys.exit(tp_child_main(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -250,6 +250,10 @@ def test_gpt2_fp8_matches_jax():
 
 
 def test_tp_rules_refused():
-    for fn in (gpt2.gpt2_tp_rules, opt.opt_tp_rules, neox.neox_tp_rules):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn()
+    """The TP rule tables are ported (ROADMAP.md Queue A item 6's TP half):
+    each equals the JAX package's, pattern for pattern and spec for spec
+    (tests/test_torch_tensor_parallel.py runs them)."""
+    for fn, jfn in ((gpt2.gpt2_tp_rules, jgpt2.gpt2_tp_rules), (opt.opt_tp_rules, jopt.opt_tp_rules),
+                    (neox.neox_tp_rules, jneox.neox_tp_rules)):
+        for scan in (True, False):
+            assert fn(scan) == [(p, tuple(s)) for p, s in jfn(scan)]

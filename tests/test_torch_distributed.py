@@ -1684,8 +1684,8 @@ def test_save_on_each_node_writes_once_per_node(runs):
 def test_auto_flash_attention_runs_on_the_data_parallel_mesh(runs):
     for world in (2, 4):
         for r in runs[world]:
-            assert r["collectives"]["mesh"] == (["dp_replicate", "dp_shard", "cp", "sp"],
-                                                [1, world, 1, 1])
+            assert r["collectives"]["mesh"] == (["dp_replicate", "dp_shard", "cp", "sp", "tp"],
+                                                [1, world, 1, 1, 1])
             assert r["collectives"]["auto_flash_equal"]
 
 
@@ -1751,8 +1751,9 @@ def test_torchrun_environment_must_be_complete(monkeypatch):
 
 
 def test_world_fill_and_refused_axes():
-    """dp_shard fills the world around the other axes; cp and sp place each
-    process on the 4-D mesh in row-major order; tp, pp and ep raise."""
+    """dp_shard fills the world around the other axes; cp, sp and tp place
+    each process on the 5-D mesh in row-major order (tp innermost); pp and
+    ep raise."""
     assert ParallelismConfig().infer_missing_axis(4).dp_shard_size == 4
     pc = ParallelismConfig(dp_replicate_size=2).infer_missing_axis(8)
     assert (pc.dp_replicate_size, pc.dp_shard_size) == (2, 4)
@@ -1764,7 +1765,11 @@ def test_world_fill_and_refused_axes():
         assert [pc.coordinates(r)[axis] for r in range(4)] == [0, 1, 0, 1]
         assert [pc.data_parallel_index(r) for r in range(4)] == [0, 0, 1, 1]
         assert [pc.sequence_index(r) for r in range(4)] == [0, 1, 0, 1]
-    for axis in ("tp_size", "pp_size", "ep_size"):
+    pc = ParallelismConfig(tp_size=2).infer_missing_axis(8)
+    assert (pc.dp_shard_size, pc.tp_size) == (4, 2)
+    assert [pc.coordinates(r)["tp"] for r in range(4)] == [0, 1, 0, 1]
+    assert [pc.data_parallel_index(r) for r in range(4)] == [0, 0, 1, 1]
+    for axis in ("pp_size", "ep_size"):
         with pytest.raises(NotImplementedError, match="Queue A item 6"):
             ParallelismConfig(**{axis: 2})
     env = ParallelismConfig(dp_replicate_size=2, dp_shard_size=3).to_env()

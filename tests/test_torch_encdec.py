@@ -281,13 +281,14 @@ def test_relative_position_buckets_match_jax():
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_engine_and_tp_rules_refuse_encoder_decoders(family):
     """The engine serves causal-LM plans and refuses an encoder-decoder
-    module with the JAX engine's ValueError; the TP rule tables name item
-    6."""
+    module with the JAX engine's ValueError; the TP rule tables (ported)
+    equal the JAX package's."""
     _, _, cfg, module = _build(family)
     with pytest.raises(ValueError, match="encoder-decoder"):
         ServingEngine(module)
     with pytest.raises(ValueError, match="attention_mask"):
         generate(module, _torch(_inputs(family)), 2, attention_mask=np.ones((2, 10)))
     rules = t5.t5_tp_rules if family == "t5" else whisper.whisper_tp_rules
-    with pytest.raises(NotImplementedError, match="item 6"):
-        rules()
+    jrules = jt5.t5_tp_rules if family == "t5" else jwhisper.whisper_tp_rules
+    for scan in (True, False):
+        assert rules(scan) == [(p, tuple(s)) for p, s in jrules(scan)]

@@ -331,9 +331,13 @@ def test_bert_fp8_logits_near_jax(trees):
 
 
 def test_tp_rules_raise_naming_item_6():
-    for fn in (bert.bert_tp_rules, vit.vit_tp_rules, clip.clip_tp_rules):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn()
+    """The TP rule tables are ported (ROADMAP.md Queue A item 6's TP half):
+    each equals the JAX package's (tests/test_torch_tensor_parallel.py runs
+    them)."""
+    for fn, jfn in ((bert.bert_tp_rules, jbert.bert_tp_rules), (vit.vit_tp_rules, jvit.vit_tp_rules),
+                    (clip.clip_tp_rules, jclip.clip_tp_rules)):
+        for scan in (True, False):
+            assert fn(scan) == [(p, tuple(s)) for p, s in jfn(scan)]
 
 
 HF_ROWS = {

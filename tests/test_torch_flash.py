@@ -373,7 +373,9 @@ def test_auto_flash_attention_takes_data_parallel_meshes_only(monkeypatch):
     batch shard; over a cp or sp axis, which splits the sequence, it
     attends over the whole sequence through the allgather ring over that
     axis (tests/test_torch_context_parallel.py holds it to the JAX
-    package's); an axis that splits the heads raises, naming Queue A item 6."""
+    package's); over tp, which splits the heads, each process attends with
+    its own heads as they are (tests/test_torch_tensor_parallel.py); tp
+    with a sequence axis raises, naming Queue A item 6."""
     from accelerate_tpu_torch.ops import auto_flash_attention, flash_attention
     from accelerate_tpu_torch.parallel import cp
 
@@ -387,5 +389,7 @@ def test_auto_flash_attention_takes_data_parallel_meshes_only(monkeypatch):
         assert auto_flash_attention(q, k, v, causal=False, mesh=mesh) is q
         assert calls.pop() == dict(causal=False, mesh=mesh, rotate_method="allgather",
                                    axis_name=axis)
+    for mesh in (_Mesh(tp=2), _Mesh(dp_shard=2, tp=2)):
+        assert torch.equal(auto_flash_attention(q, k, v, mesh=mesh), want)
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        auto_flash_attention(q, k, v, mesh=_Mesh(tp=2))
+        auto_flash_attention(q, k, v, mesh=_Mesh(cp=2, tp=2))

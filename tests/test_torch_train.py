@@ -156,7 +156,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "accelerate_tpu_torch.utils.imports", "accelerate_tpu_torch.models.gpt2",
                  "accelerate_tpu_torch.models.neox", "accelerate_tpu_torch.models.opt",
                  "accelerate_tpu_torch.models.t5", "accelerate_tpu_torch.models.whisper",
-                 "accelerate_tpu_torch.models.layers"):
+                 "accelerate_tpu_torch.models.layers", "accelerate_tpu_torch.parallel.tp",
+                 "accelerate_tpu_torch.utils.estimate_memory"):
         assert name in modules, name
 
 
@@ -193,7 +194,7 @@ def test_accelerator_refuses_a_second_device_choice(monkeypatch):
     lambda: DistributedDataParallelKwargs(comm_hook="bf16"),
     lambda: FullyShardedDataParallelPlugin(mixed_precision_policy=MixedPrecisionPolicy()),
     lambda: ProjectConfiguration(automatic_resume=True),
-    lambda: ParallelismConfig(tp_size=2),
+    lambda: ParallelismConfig(pp_size=2),
     lambda: MixedPrecisionPolicy(reduce_dtype=torch.bfloat16),
     lambda: TelemetryKwargs(tracing=True),
 ])
@@ -239,13 +240,15 @@ def test_set_seed_seeds_every_generator_and_returns_one():
 
 
 def test_wider_mesh_and_fp16_are_not_ported():
-    """cp and sp are ported (each alone); tp is not. fp16 is ported (with
-    dynamic loss scaling, tests/test_torch_mixed_precision.py); a lower
-    AdamW ``mu_dtype`` is not."""
+    """cp, sp and tp are ported (tests/test_torch_tensor_parallel.py); pp is
+    not. fp16 is ported (with dynamic loss scaling,
+    tests/test_torch_mixed_precision.py); a lower AdamW ``mu_dtype`` is
+    not."""
     for axes in (dict(cp_size=2), dict(sp_size=2)):
         assert ParallelismConfig(**axes).seq_size == 2
+    assert ParallelismConfig(tp_size=2).total_size == 2
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        ParallelismConfig(tp_size=2)
+        ParallelismConfig(pp_size=2)
     with pytest.raises(ValueError, match="mutually exclusive"):
         ParallelismConfig(cp_size=2, sp_size=2)
     assert Accelerator(mixed_precision="fp16", cpu=True).mixed_precision == "fp16"
