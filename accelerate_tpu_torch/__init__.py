@@ -28,7 +28,11 @@ device maps over the card, pinned host memory and a disk store, and
 streamed forwards of every decoder family (``load_checkpoint_and_dispatch``,
 ``dispatch_model``, ``cpu_offload``, ``disk_offload``); weight-only int8 and
 NF4 quantization (``utils.load_and_quantize_model``); Megatron-LM
-checkpoints (``models.megatron.load_megatron_model``).
+checkpoints (``models.megatron.load_megatron_model``). Pipeline
+parallelism (``ParallelismConfig(pp_size=...)``, GPipe and interleaved,
+``llama_pipeline_forward``, ``pipeline_apply``, ``prepare_pippy``), the
+gradient-compression hooks (``DistributedDataParallelKwargs(comm_hook=
+"fp16"|"bf16"|"powersgd")``) and ``LocalSGD``.
 
 It imports torch only, never JAX or the ``accelerate_tpu`` package, and
 runs on CUDA unless the caller asks for the CPU (``Accelerator(cpu=True)``).
@@ -64,6 +68,8 @@ from .generation import (
     register_generation_plan,
     speculative_generate,
 )
+from .inference import pipeline_stage_layers, prepare_pippy, register_pipeline_plan
+from .local_sgd import LocalSGD
 from .model import Model
 from .models import (
     MixtralConfig,
@@ -111,6 +117,7 @@ from .utils import (
     find_executable_batch_size,
     set_seed,
 )
+from .parallel.pp import llama_pipeline_forward, pipeline_apply
 from .utils.quantization import quantize_model_for_decode
 
 __all__ = [
@@ -134,6 +141,7 @@ __all__ = [
     "GradientAccumulationPlugin",
     "GradientState",
     "InitProcessGroupKwargs",
+    "LocalSGD",
     "MixedPrecisionPolicy",
     "MixtralConfig",
     "MixtralForCausalLM",
@@ -170,6 +178,7 @@ __all__ = [
     "init_on_device",
     "join_schedules",
     "linear_schedule",
+    "llama_pipeline_forward",
     "load_checkpoint_and_dispatch",
     "llama_params_from_hf",
     "llama_params_to_hf",
@@ -177,10 +186,14 @@ __all__ = [
     "load_pretrained",
     "model_from_pretrained",
     "moe_cross_entropy_loss",
+    "pipeline_apply",
+    "pipeline_stage_layers",
     "prepare_data_loader",
+    "prepare_pippy",
     "quantize_model_for_decode",
     "register_encdec_generation_plan",
     "register_generation_plan",
+    "register_pipeline_plan",
     "register_stream_plan",
     "register_stream_spec",
     "replay_trace",

@@ -62,6 +62,18 @@ gradients, and the loss is averaged over every axis but ``tp``.
 the global batch however unevenly ``-100`` labels fall; a loss function
 of the user's own that returns its process's mean gets the mean of the
 processes' means.
+With ``ParallelismConfig(pp_size=...)`` (and ``pp_virtual_stages``)
+``prepare`` cuts the Llama chassis to each process's pipeline stage
+(``parallel/pp.py``: its layers, the embedding on the first stage, the
+final norm and head on the last, a tied embedding on both) and applies the
+other axes to that stage's blocks; a loss around ``llama_pipeline_forward``
+(or the cut module's own forward) runs the GPipe or interleaved schedule,
+the last stage's loss and the global grad norm (squares summed over the
+stages, a tied weight's gradient summed over its two stages and counted
+once) reach every process. With ``DistributedDataParallelKwargs(
+comm_hook="fp16"|"bf16"|"powersgd")`` the step reduces the gradients
+through the hook (``_comm_hook_step``, ``parallel/comm_hooks.py``), and
+inside a ``LocalSGD`` block (``local_sgd.py``) it trains each process alone.
 ``gather``, ``gather_for_metrics``, ``reduce`` and ``pad_across_processes``
 run the collectives of ``utils/operations.py``. The plugin's
 ``sharding_strategy`` picks FSDP2, HSDP or DDP (``parallel/fsdp.py``);
@@ -122,6 +134,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
+import types
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -196,7 +209,7 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _global_norm(grads: list) -> torch.Tensor:
+def _global_norm(grads: list, pipeline_group=None, skip=frozenset()) -> torch.Tensor:
     """The L2 norm over every gradient, whole or sharded, with the
     one-process step's arithmetic: the norm of the per-tensor norms, in the
     parameters' order. A sharded gradient's norm (FSDP2's DTensors) is the
@@ -208,7 +221,10 @@ def _global_norm(grads: list) -> torch.Tensor:
     one all-reduce for all of them. Whole ones (DDP's, and the parameters
     FSDP2 leaves whole) are equal on every process after their
     all-reduce, so the local norm is theirs. Over a group of one the
-    result is the one-process step's bit for bit."""
+    result is the one-process step's bit for bit. Under ``pp`` each stage
+    holds its own gradients: the squares are summed over
+    ``pipeline_group`` too, without the gradients in ``skip`` (by id: a
+    weight two stages hold counts once)."""
     norms = list(torch._foreach_norm([_local(g) for g in grads]))
     by_layout: dict = {}
     for i, g in enumerate(grads):
@@ -226,7 +242,12 @@ def _global_norm(grads: list) -> torch.Tensor:
         for i, n in zip(idx, sq.sqrt().to(norms[idx[0]].device).unbind()):
             norms[i] = n
     device = norms[0].device
-    return torch.linalg.vector_norm(torch.stack([n.to(device) for n in norms]))
+    if pipeline_group is None:
+        return torch.linalg.vector_norm(torch.stack([n.to(device) for n in norms]))
+    kept = [n.to(device) for n, g in zip(norms, grads) if id(g) not in skip]
+    sq = torch.stack(kept).square().sum()
+    operations.all_reduce(sq, group=pipeline_group)
+    return sq.sqrt()
 
 
 class _HookHandle:
@@ -331,6 +352,10 @@ class Accelerator:
         # window that skips the collectives).
         self._max_grad_norm: Optional[float] = None
         self._grads_local = False
+        # Inside a LocalSGD block the fused step trains this process alone.
+        self._local_sgd_active = False
+        # Each slot's comm-hook state (parallel/comm_hooks.py), by slot.
+        self._comm_hook_states: list = []
         self.flag_tensor: Optional[torch.Tensor] = None
         # The last save_state/load_state: its directory and seconds, split
         # into host copies and disk; a save also counts its bytes.
@@ -448,7 +473,7 @@ class Accelerator:
 
     @property
     def pipeline_parallel_rank(self) -> int:
-        return 0  # pp is not ported (ROADMAP.md Queue A item 6)
+        return self.state.axis_rank("pp")
 
     @property
     def mesh(self):
@@ -748,15 +773,33 @@ class Accelerator:
             max_grad_norm = self._ds_gradient_clipping
         policy = self._mp_policy
         num_accum = self.gradient_state.num_steps
-        # The processes whose losses the step averages: all of them, or
-        # under tp those of distinct rows (their group).
-        world, group = self.state.loss_size, self.state.loss_group
+        comm_hook = getattr(self.ddp_handler, "comm_hook", "no") or "no"
+        if comm_hook != "no":
+            step = self._comm_hook_step(loss_fn, comm_hook=comm_hook, bound=model,
+                                        max_grad_norm=max_grad_norm, has_aux=has_aux,
+                                        mutable_state=mutable_state)
+            return self._tracked(step)
+        # Under pp the stages' gradients and metrics meet over the pp slice.
+        n_stages, stage = self.state.pipeline_stage
+        pipe = (self.state.pipeline_mesh.get_group()
+                if n_stages > 1 and self.use_distributed else None)
+        if pipe is not None and (mutable_state or has_aux):
+            raise NotImplementedError(
+                "mutable_state and has_aux under pp are not ported yet (ROADMAP.md Queue A "
+                "item 6: the rest of PP)")
+        if pipe is not None:
+            self.state.pipeline_edge_group  # built by every process, before any step
 
         bound = model
 
         def step(state: TrainState, batch: dict):
             if bound is not None and state.model is not bound:
                 raise ValueError("this step was prepared for another model's slot")
+            # The processes whose losses the step averages: all of them, or
+            # under tp and pp those of distinct rows of one stage (their
+            # group); inside a LocalSGD block, this process alone.
+            local = self._local_sgd_active
+            world, group = (1, None) if local else (self.state.loss_size, self.state.loss_group)
             model, opt = state.model, state.optimizer
             params = [p for p in model.parameters() if p.requires_grad]
             microbatches = _microbatch_split(self._to_device(batch), num_accum)
@@ -765,6 +808,7 @@ class Accelerator:
             extra = state.extra_state
             for mb in microbatches:
                 with (operations.loss_over_processes(world, group),
+                      gradient_sync(model, not local),
                       model.compute_params(policy.cast_for_compute(self._cast_params(model)))):
                     if mutable_state:
                         loss, extra = loss_fn(model, extra, mb)
@@ -782,10 +826,11 @@ class Accelerator:
             # process (loss_reduce_axes), as DDP would.
             if world > 1:
                 average_whole_gradients(model, world, group)
+            skip = self._sum_shared_gradients(model) if pipe is not None else frozenset()
             if num_accum > 1:
                 torch._foreach_div_([_local(g) for g in grads], num_accum)
-            finite = self._unscale_and_check(state, grads)
-            gnorm = _global_norm(grads)
+            finite = self._unscale_and_check(state, grads, local=local)
+            gnorm = _global_norm(grads, pipe, skip)
             if max_grad_norm is not None:
                 factor = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
                 torch._foreach_mul_([_local(g) for g in grads], factor)
@@ -794,7 +839,17 @@ class Accelerator:
             if world > 1:
                 operations.all_reduce(loss, group=group)
                 loss = loss / world
+            if pipe is not None:
+                # The last stage's loss on every stage (the others add zero).
+                if stage != n_stages - 1:
+                    loss = torch.zeros_like(loss)
+                operations.all_reduce(loss, group=pipe)
             return state, {"loss": loss, "grad_norm": gnorm}
+
+        return self._tracked(step)
+
+    def _tracked(self, step: Callable) -> Callable:
+        """``step`` reporting to the telemetry, when there is one."""
 
         def step_and_track(state: TrainState, batch: dict):
             tel = self.telemetry
@@ -813,6 +868,134 @@ class Accelerator:
 
         return step_and_track
 
+    def _comm_hook_step(self, loss_fn: Callable, *, comm_hook: str, bound: Optional[Model],
+                        max_grad_norm: Optional[float], has_aux: bool, mutable_state: bool):
+        """The step whose data-parallel gradient mean runs through a
+        compression hook (``DistributedDataParallelKwargs(comm_hook=...)``,
+        ``parallel/comm_hooks.py``), as the JAX package's
+        ``_comm_hook_step``: each process's backward on its own rows with
+        no reducer (its loss the mean over its own tokens), the gradients
+        summed over an accumulation window and divided once, reduced by the
+        hook (PowerSGD on the unscaled gradients, the wire hooks on the
+        still-scaled ones), then the plain update: unscale, finite check,
+        global norm, clip, AdamW. The loss metric is the mean of the
+        processes' own means. An overflowed step (the finite flag the MIN
+        over the processes) keeps the hook's state, as the parameters.
+        The hook's state (PowerSGD's Q and error feedback by flax leaf) is
+        ``_comm_hook_states[slot]``. DDP semantics only: replicated
+        parameters over a purely data-parallel mesh."""
+        from .parallel.comm_hooks import (
+            flax_gradients,
+            init_powersgd_state,
+            make_comm_hook_reducer,
+            set_from_flax,
+        )
+        from .parallelism_config import MESH_AXES
+
+        if mutable_state or has_aux:
+            raise NotImplementedError(
+                "comm_hook is not supported together with mutable_state/has_aux")
+        plugin = self.fsdp_plugin
+        if plugin is not None and plugin.sharding_strategy == "SHARD_GRAD_OP":
+            raise ValueError(
+                "comm_hook requires replicated (DDP) gradients — it cannot compose with ZeRO-2 "
+                "SHARD_GRAD_OP reduce-scatter")
+        pc = self.parallelism_config
+        bad = [a for a in MESH_AXES if a not in ("dp_replicate", "dp_shard") and pc.axis_size(a) > 1]
+        if bad:
+            raise ValueError(
+                f"comm_hook requires a pure data-parallel mesh; axes {bad} have size > 1 (the "
+                "reference's DDP comm hooks are DP-only too)")
+        slot = next(i for i, st in enumerate(self._train_states)
+                    if bound is None or st.model is bound)
+        model = self._train_states[slot].model
+        if model.sharded or any(isinstance(p, DTensor) for p in model.parameters()):
+            raise ValueError(
+                "comm_hook requires replicated (DDP) parameters; the model is sharded by "
+                "FSDP2 — drop the FSDP plugin or the hook")
+        rank = int(self.ddp_handler.powersgd_rank)
+        world = self.num_processes
+        reducer = make_comm_hook_reducer(comm_hook, None, world, rank=rank)
+        named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
+        state0: dict = {}
+        if comm_hook == "powersgd":
+            meta = [(n, types.SimpleNamespace(grad=torch.empty(p.shape, device="meta")))
+                    for n, p in named]
+            state0 = init_powersgd_state(flax_gradients(model.module, meta)[0], rank,
+                                         device=self.device)
+        while len(self._comm_hook_states) <= slot:
+            self._comm_hook_states.append(None)
+        self._comm_hook_states[slot] = state0
+        policy = self._mp_policy
+        num_accum = self.gradient_state.num_steps
+
+        def step(state: TrainState, batch: dict):
+            if bound is not None and state.model is not bound:
+                raise ValueError("this step was prepared for another model's slot")
+            model, opt = state.model, state.optimizer
+            microbatches = _microbatch_split(self._to_device(batch), num_accum)
+            opt.zero_grad(set_to_none=True)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+            for mb in microbatches:
+                with model.compute_params(policy.cast_for_compute(self._cast_params(model))):
+                    loss = loss_fn(model, mb).float()  # this process's own mean
+                    _scaled(loss, state.loss_scale).backward()
+                loss_sum += loss.detach()
+            for _, p in named:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for _, p in named]
+            if num_accum > 1:
+                torch._foreach_div_(grads, num_accum)
+            scale = None if state.loss_scale is None else state.loss_scale.scale
+            unscale = comm_hook == "powersgd" and scale is not None
+            if unscale:
+                torch._foreach_div_(grads, scale)
+            flax, rows = flax_gradients(model.module, named)
+            comm = self._comm_hook_states[slot]
+            reduced, new_comm = reducer(flax, comm)
+            if comm_hook == "powersgd":
+                finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+                if world > 1:
+                    flag = finite.to(torch.int32)
+                    operations.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
+                    finite = flag.bool()
+                self._comm_hook_states[slot] = {
+                    n: {k: torch.where(finite, t, comm[n][k]) for k, t in st.items()}
+                    for n, st in new_comm.items()}
+            set_from_flax(rows, reduced)
+            if unscale:
+                torch._foreach_mul_(grads, scale)
+            finite = self._unscale_and_check(state, grads)
+            gnorm = _global_norm(grads)
+            if max_grad_norm is not None:
+                factor = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
+                torch._foreach_mul_(grads, factor)
+            self._optimizer_step(state, finite)
+            loss = loss_sum / num_accum
+            if world > 1:
+                operations.all_reduce(loss)
+                loss = loss / world
+            return state, {"loss": loss, "grad_norm": gnorm}
+
+        return step
+
+    def _sum_shared_gradients(self, model: Model) -> frozenset:
+        """Under pp: the gradients of the weights two stages hold (a tied
+        embedding and head) summed over the first and last stages, so that
+        both copies take the whole gradient; returns the ids of the
+        gradients this stage leaves out of the norm (the last stage's
+        copies: the weight counts once)."""
+        shared = [model.module.get_parameter(n) for n in model.pipeline_shared]
+        if not shared:
+            return frozenset()
+        edge = self.state.pipeline_edge_group
+        for p in shared:
+            if p.grad is not None:
+                operations.all_reduce(_local(p.grad), group=edge)
+        n_stages, stage = self.state.pipeline_stage
+        return frozenset(id(p.grad) for p in shared) if stage == n_stages - 1 else frozenset()
+
     @staticmethod
     def _cast_params(model: Model) -> dict:
         """The parameters the step casts for compute itself: all of them,
@@ -820,15 +1003,17 @@ class Accelerator:
         leaves whole."""
         return dict(model.ignored) if model.sharded else dict(model.module.named_parameters())
 
-    def _unscale_and_check(self, state: TrainState, grads: list) -> Optional[torch.Tensor]:
+    def _unscale_and_check(self, state: TrainState, grads: list,
+                           local: bool = False) -> Optional[torch.Tensor]:
         """Under loss scaling: ``grads`` unscaled in place, and whether every
         gradient of every process is finite (a bool device tensor; MIN over
-        the processes, which hold different shards, so that all take the
-        same decision). None without loss scaling."""
+        the processes, which hold different shards or stages, so that all
+        take the same decision; this process's alone with ``local``). None
+        without loss scaling."""
         if state.loss_scale is None:
             return None
         finite = state.loss_scale.unscale([_local(g) for g in grads])
-        if self.num_processes > 1:
+        if self.num_processes > 1 and not local:
             flag = finite.to(torch.int32)
             operations.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
             finite = flag.bool()
@@ -930,6 +1115,10 @@ class Accelerator:
                 f"scalar loss; got a {type(loss_fn).__name__}")
         if not self._train_states:
             raise RuntimeError("Call accelerator.prepare(...) before backward().")
+        if self.parallelism_config.pp_size > 1:
+            raise NotImplementedError(
+                "the imperative loop under pp is not ported yet (ROADMAP.md Queue A item 6: the "
+                "rest of PP); use prepare_train_step")
         model, loss_scale = self._train_states[0].model, self._train_states[0].loss_scale
         gs, world, group = self.gradient_state, self.state.loss_size, self.state.loss_group
         communicate = gs.sync_gradients or gs.sync_each_batch

@@ -458,6 +458,14 @@ def _dir_bytes(path: str) -> int:
                for root, _, files in os.walk(path) for f in files)
 
 
+def _refuse_dcp_under_pp(accelerator) -> None:
+    if accelerator.parallelism_config.pp_size > 1:
+        raise NotImplementedError(
+            "DISTRIBUTED_STATE_DICT under pp is not ported yet (ROADMAP.md Queue A item 6: the "
+            "rest of PP); use FULL_STATE_DICT or SHARDED_STATE_DICT, whose whole tensors "
+            "resume at any pp")
+
+
 def _save_distributed(accelerator, output_dir: str, block: bool, stats: dict) -> None:
     """Every process writes its own shards to ``<output_dir>/distributed_state_torch``;
     with ``block=False`` the state is staged into host memory and a thread
@@ -468,6 +476,7 @@ def _save_distributed(accelerator, output_dir: str, block: bool, stats: dict) ->
         raise NotImplementedError(
             "DISTRIBUTED_STATE_DICT saves a single prepared model, as in the JAX package; use "
             "FULL_STATE_DICT or SHARDED_STATE_DICT for more than one")
+    _refuse_dcp_under_pp(accelerator)
     path = os.path.join(output_dir, DCP_DIR_NAME)
     state, _ = _dcp_state(accelerator._train_states[0])
     no_dist = not accelerator.use_distributed
@@ -526,6 +535,7 @@ def _load_distributed(accelerator, input_dir: str, stats: dict) -> None:
     if len(accelerator._train_states) > 1:
         raise NotImplementedError(
             "DISTRIBUTED_STATE_DICT holds a single prepared model, as in the JAX package")
+    _refuse_dcp_under_pp(accelerator)
     train_state = accelerator._train_states[0]
     opt = train_state.optimizer
     state, live = _dcp_state(train_state)
@@ -558,14 +568,52 @@ def _suffix(i: int) -> str:
     return "" if i == 0 else f"_{i}"
 
 
+def _pipeline_leader_group():
+    """Under ``pp``: (the group of the processes that lead each stage of
+    process 0's pipeline, whether this process is one); (None, False)
+    without ``pp``. A stage's leader is its process whose other mesh
+    coordinates are all 0."""
+    from .state import AcceleratorState
+
+    state = AcceleratorState()
+    cfg = state.parallelism_config
+    if cfg.pp_size == 1 or not state._partial.use_distributed:
+        return None, False
+    leader = state._partial.process_index % cfg.non_pp_size == 0
+    return (state.pipeline_mesh.get_group() if leader else None), leader
+
+
+def _pipeline_stage_count() -> int:
+    from .state import AcceleratorState
+
+    pc = AcceleratorState._shared_state.get("parallelism_config")
+    return 1 if pc is None else pc.pp_size
+
+
+def _gather_stages(host: dict, group) -> dict:
+    """Under ``pp``, on process 0: every stage's whole host tensors merged
+    (their names are global; a tied weight two stages hold is equal on
+    both); the other leaders send theirs and get None."""
+    import torch.distributed as dist
+
+    parts = [None] * dist.get_world_size(group) if dist.get_rank() == 0 else None
+    dist.gather_object(host, parts, dst=0, group=group)
+    if parts is None:
+        return None
+    return {key: {n: t for part in parts for n, t in part[key].items()} for key in host}
+
+
 def _save_train_state(train_state, i: int, write_dir: str, max_shard, device,
                       stats: dict, writer: bool = True) -> None:
     """Write one model's parameters and moments; under FSDP2 or ``tp``
     every process joins the gathers (whole tensors, the JAX package's
-    layout) and only the ``writer`` keeps and writes them."""
+    layout) and only the ``writer`` keeps and writes them. Under ``pp`` each
+    stage's leader gathers its stage's whole tensors and sends them to the
+    writer (process 0)."""
     module, opt = train_state.model.module, train_state.optimizer
     split = any(isinstance(p, DTensor) for p in module.parameters())  # FSDP2 or tp
-    if not (writer or split):
+    stage_group, leader = _pipeline_leader_group()
+    if not (writer or split or leader):
         return
     named = _named_params(train_state)
     trees = {"params": {n: p.detach() for n, p, _ in named}}
@@ -573,15 +621,21 @@ def _save_train_state(train_state, i: int, write_dir: str, max_shard, device,
         trees[key] = {n: _adam_state(opt, p, g)[key] for n, p, g in named}
     t0 = time.perf_counter()
     host = {}
+    keep = writer or leader
     for key, tensors in trees.items():
         whole = {}
         for n, t in tensors.items():
             full = _whole(t, device)
-            if writer:
+            if keep:
                 whole[n] = full
-        if writer:
-            host[key] = _to_host(_flat_model_tree(module, whole), device)
+        if keep:
+            host[key] = (_to_host(whole, device) if stage_group is not None
+                         else _to_host(_flat_model_tree(module, whole), device))
         del whole
+    if stage_group is not None:
+        host = _gather_stages(host, stage_group)
+        if writer:
+            host = {key: _flat_model_tree(module, tensors) for key, tensors in host.items()}
     stats["d2h_s"] += time.perf_counter() - t0
     if not writer:
         return
@@ -643,8 +697,10 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
         logger.warning("save_state(block=False) is only asynchronous for DISTRIBUTED_STATE_DICT "
                        "checkpoints; the safetensors gather path saves synchronously.")
         block = True
-    # One writer of the shared files: process 0, or each node's local process 0.
-    writer = (accelerator.is_local_main_process if pc.save_on_each_node
+    # One writer of the shared files: process 0, or each node's local process 0
+    # (under pp process 0 alone, which the stages send their tensors to).
+    writer = (accelerator.is_local_main_process
+              if pc.save_on_each_node and accelerator.parallelism_config.pp_size == 1
               else accelerator.is_main_process)
     output_dir = _checkpoint_dir(accelerator, output_dir)
     if pc.automatic_checkpoint_naming:
@@ -737,13 +793,18 @@ def _load_train_state(train_state, i: int, input_dir: str, device, stats: dict) 
     t0 = time.perf_counter()
     named = _named_params(train_state)
     params = {n: p for n, p, _ in named}
-    _copy_named(params, _model_views(module, unflatten_state_dict(_to_device(flat, device))),
-                "parameters")
+    # Under pp a stage holds some of the checkpoint's tensors: its own.
+    stage = _pipeline_stage_count() > 1
+
+    def views(host):
+        out = _model_views(module, unflatten_state_dict(_to_device(host, device)))
+        return {n: v for n, v in out.items() if n in params} if stage else out
+
+    _copy_named(params, views(flat), "parameters")
     for key, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
         host = {k: torch.from_numpy(np.asarray(v)) if not torch.is_tensor(v) else v
                 for k, v in flatten_state_dict(tree).items()}
-        _copy_named({n: _adam_state(opt, p, g)[key] for n, p, g in named},
-                    _model_views(module, unflatten_state_dict(_to_device(host, device))),
+        _copy_named({n: _adam_state(opt, p, g)[key] for n, p, g in named}, views(host),
                     f"optimizer {key}")
     for _, p, g in named:
         opt.state[p]["step"].fill_(count)

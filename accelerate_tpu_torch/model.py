@@ -55,6 +55,9 @@ class Model:
         # The plan prepare put the module on under tp (ParamPlacement by
         # parameter name), or None.
         self.tp_plan: Optional[dict] = None
+        # Under pp, the names of the parameters this stage shares with
+        # another (a tied embedding on the first and last stages).
+        self.pipeline_shared: list = []
 
     def parameters(self):
         return self.module.parameters()

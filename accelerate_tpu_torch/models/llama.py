@@ -89,6 +89,7 @@ from ..ops.fp8 import FP8_MM_OP, backend_to_native, fp8_dot_general
 from ..ops.hopper_flash import FLASH_FWD_OP
 from ..parallel import tp
 from ..parallel.cp import ring_attention
+from ..parallel.pp import is_stand_in, llama_pipeline_forward, stand_in_loss
 from ..parallel.sp import ulysses_attention
 from ..state import current_sequence_shard
 from ..utils.operations import global_token_count
@@ -474,6 +475,10 @@ class LlamaModel(nn.Module):
 class LlamaForCausalLM(nn.Module):
     # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
     _fsdp_blocks = (LlamaBlock,)
+    # (stages, this stage, virtual stages) once prepare cut the module to a
+    # pipeline stage (parallel/pp.keep_stage): its forward is then the
+    # pipelined one.
+    pipeline_stage = None
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -493,7 +498,14 @@ class LlamaForCausalLM(nn.Module):
         """Logits (B, S, V) in the compute dtype; with ``labels``, the fp32
         sum of the token losses and the count of labels that are not
         ``ignore_index`` instead (``fused_cross_entropy_loss``), the logits
-        built ``chunk_size`` positions at a time."""
+        built ``chunk_size`` positions at a time. On a pipeline stage the
+        logits of ``llama_pipeline_forward`` (a stand-in but on the last
+        stage), without ``labels``."""
+        if self.pipeline_stage is not None:
+            if labels is not None:
+                raise ValueError("a pipeline stage takes fused_cross_entropy_loss(model, ids, "
+                                 "labels), not the chunked loss of model(ids, labels)")
+            return llama_pipeline_forward(self, input_ids)
         x = self.model(input_ids)
         if labels is not None:
             return _chunked_loss(x, self.head_weight().to(self.config.dtype), labels,
@@ -555,7 +567,11 @@ def fused_cross_entropy_loss(model, input_ids, labels, ignore_index: int = -100,
     order of fp32 sums, without the (B, S, V) logits. ``model`` is a
     ``LlamaForCausalLM`` or a ``Model`` of one (the call goes through it, so
     FSDP2's and DDP's hooks run). The mean is the global token mean, as
-    ``cross_entropy_loss`` takes it."""
+    ``cross_entropy_loss`` takes it. On a pipeline stage (``prepare`` under
+    pp) the head lives on the last stage only: the loss is
+    ``cross_entropy_loss`` of the pipelined logits."""
+    if getattr(getattr(model, "module", model), "pipeline_stage", None) is not None:
+        return cross_entropy_loss(model(input_ids), labels, ignore_index)
     total, valid = model(input_ids, labels, ignore_index=ignore_index, chunk_size=chunk_size)
     count, n = global_token_count(valid)
     return total * n / count.clamp_min(1)
@@ -572,7 +588,13 @@ def cross_entropy_loss(logits, labels, ignore_index: int = -100):
 
     Logits split on the vocab over ``tp`` (a head under a TP plan gives a
     ``DTensor``) take the vocab-parallel loss (``parallel/tp.py``): three
-    all-reduces, no gather."""
+    all-reduces, no gather.
+
+    On a pipeline stage other than the last, whose ``logits`` are a
+    stand-in (``parallel/pp.py``), the loss is a zero that runs the stage's
+    part of the backward."""
+    if is_stand_in(logits):
+        return stand_in_loss(logits)
     logits = logits.float()
     valid = labels != ignore_index
     if isinstance(logits, DTensor):

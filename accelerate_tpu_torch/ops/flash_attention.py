@@ -87,9 +87,9 @@ def attention_stats(q, k, v, *, causal: bool = True, q_offset: int = 0, k_offset
     return acc, m, p.sum(-1)
 
 
-# Mesh axes along which each process holds a slice of the batch: attention
-# runs on that slice as it is.
-DATA_PARALLEL_AXES = ("dp_replicate", "dp_shard")
+# Mesh axes along which attention runs on this process's tensors as they
+# are: its slice of the batch, or (pp) its pipeline stage's layers.
+DATA_PARALLEL_AXES = ("pp", "dp_replicate", "dp_shard")
 # Mesh axes that split the heads: each process's projections give it its
 # own heads (parallel/tp.py), and attention runs on them as they are.
 HEAD_AXES = ("tp",)
@@ -105,7 +105,7 @@ def auto_flash_attention(q, k, v, *, causal: bool = True, mesh=None):
     ``AcceleratorState``'s, if any).
 
     Over ``dp_replicate`` and ``dp_shard`` each process attends over its
-    own rows. Over ``tp`` it attends with its own heads: the JAX package's
+    own rows, and over ``pp`` with its own stage's layers. Over ``tp`` it attends with its own heads: the JAX package's
     ``shard_map`` splits the heads over ``tp`` when both the q and the kv
     head counts divide and otherwise leaves them whole, and the port's
     column-parallel projections give each rank the same heads (q split

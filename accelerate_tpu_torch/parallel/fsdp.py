@@ -61,6 +61,12 @@ gradients and the optimizer step on the host). ``activation_checkpointing``
 ``Accelerator.prepare_model`` to every prepared model, with or without a
 process group (``apply_activation_checkpointing``).
 
+Under ``pp`` (``apply_pipeline_stage``) the model is first cut to the
+process's stage, and each axis then acts on that stage alone: FSDP2 on its
+blocks (each block its own root: the stage's forward runs the blocks, never
+the module's own forward), or DDP's arithmetic by the step over the stage's
+data-parallel slice.
+
 FSDP2's units: one per repeated block of the model and one on the root.
 A family names its block classes in the class attribute ``_fsdp_blocks``
 (``LlamaBlock``, GPT-2's ``GPT2Block`` under ``h``, T5's ``block_{i}``
@@ -166,10 +172,14 @@ def apply_activation_checkpointing(module: nn.Module) -> None:
                        type(module).__name__)
 
 
-def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype) -> dict:
+def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype,
+               root: bool = True) -> dict:
     """``fully_shard`` on each decoder block and on ``module``, in place.
     ``mesh`` is the 2-D ``(replicate, shard)`` data-parallel mesh. Returns
-    the parameters left whole (``whole_parameters``) by name."""
+    the parameters left whole (``whole_parameters``) by name. With
+    ``root=False`` (a pipeline stage, whose forward runs its blocks one by
+    one and never the module's own) only the blocks are sharded, each its
+    own root, and the parameters outside them stay whole too."""
     from torch.distributed.fsdp import CPUOffloadPolicy, MixedPrecisionPolicy, OffloadPolicy
     from torch.distributed.fsdp import fully_shard
 
@@ -177,6 +187,10 @@ def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype) -> d
     mp = (MixedPrecisionPolicy() if compute_dtype == torch.float32 else
           MixedPrecisionPolicy(param_dtype=compute_dtype, reduce_dtype=torch.float32))
     ignored = whole_parameters(module, plugin, mesh.size(1))
+    blocks = decoder_blocks(module)
+    if not root:
+        inside = {id(p) for block in blocks for p in block.parameters()}
+        ignored.update({n: p for n, p in module.named_parameters() if id(p) not in inside})
     # Pinned host memory needs the card; on a CPU device the policy only
     # keeps the optimizer step where the shards already are.
     offload = (CPUOffloadPolicy(pin_memory=shard_mesh.device_type == "cuda")
@@ -184,9 +198,10 @@ def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype) -> d
     reshard = plugin.reshard_after_forward and plugin.sharding_strategy != "SHARD_GRAD_OP"
     kw = dict(mesh=shard_mesh, reshard_after_forward=reshard,
               mp_policy=mp, offload_policy=offload, ignored_params=set(ignored.values()) or None)
-    for block in decoder_blocks(module):
+    for block in blocks:
         fully_shard(block, **kw)
-    fully_shard(module, **kw)
+    if root:
+        fully_shard(module, **kw)
     return ignored
 
 
@@ -208,17 +223,70 @@ def apply_tensor_parallel_model(model, state, plugin) -> None:
     parameter stays whole on every ``tp`` rank, as in the JAX plan."""
     from .sharding import apply_tensor_parallel, plan_parameter_sharding
 
+    _refuse_expert_rules(model)
+    cfg = state.parallelism_config
+    model.tp_plan = plan_parameter_sharding(
+        model.module, state.device_mesh, fsdp_plugin=plugin, parallelism_config=cfg,
+        tp_rules=model.tp_rules)
+    apply_tensor_parallel(model.module, model.tp_plan, state.tensor_parallel_mesh)
+
+
+def apply_pipeline_stage(model, state, plugin, compute_dtype: torch.dtype) -> None:
+    """``model`` (a ``Model`` of the Llama chassis) cut to this process's
+    pipeline stage (``parallel/pp.keep_stage``; the names it shares with
+    another stage in ``model.pipeline_shared``), then, on that stage's
+    blocks only, what the other axes ask: the TP program over the stage's
+    ``tp`` slice (the plan made on the whole module, with the JAX plan's
+    ``pp`` rule), and over its ``(dp_replicate, dp_shard)`` slice FSDP2 on
+    each block under a plugin that shards, else every gradient averaged
+    over the slice by the step (DDP's arithmetic, without DDP's wrapper)."""
+    from .pp import keep_stage
+    from .sharding import apply_tensor_parallel, plan_parameter_sharding
+
+    cfg = state.parallelism_config
+    n_stages, stage = state.pipeline_stage
+    plan = None
+    if cfg.tp_size > 1:
+        _refuse_expert_rules(model)
+        plan = plan_parameter_sharding(model.module, state.device_mesh, fsdp_plugin=plugin,
+                                       parallelism_config=cfg, tp_rules=model.tp_rules)
+    model.pipeline_shared = keep_stage(model.module, n_stages, stage, cfg.pp_virtual_stages)
+    if plan is not None:
+        names = {n for n, _ in model.module.named_parameters()}
+        model.tp_plan = {n: pl for n, pl in plan.items() if n in names}
+        apply_tensor_parallel(model.module, model.tp_plan, state.tensor_parallel_mesh)
+    if cfg.dp_size == 1:
+        return
+    if plugin is not None and plugin.sharding_strategy != "NO_SHARD":
+        model.ignored = apply_fsdp(model.module, state.data_parallel_mesh, plugin, compute_dtype,
+                                   root=False)
+        model.sharded = True
+    else:
+        model.ignored = dict(model.module.named_parameters())
+
+
+def _refuse_expert_rules(model) -> None:
     for pattern, spec in model.tp_rules:
         axes = {a for e in spec if e for a in (e if isinstance(e, tuple) else (e,))}
         if axes - {"tp"}:
             raise NotImplementedError(
                 f"TP rule {pattern!r} splits over {sorted(axes - {'tp'})}: expert parallelism "
                 "is not ported yet (ROADMAP.md Queue A item 6 (EP))")
-    cfg = state.parallelism_config
-    model.tp_plan = plan_parameter_sharding(
-        model.module, state.device_mesh, fsdp_plugin=plugin, parallelism_config=cfg,
-        tp_rules=model.tp_rules)
-    apply_tensor_parallel(model.module, model.tp_plan, state.tensor_parallel_mesh)
+
+
+def _broadcast_parameters(module: nn.Module) -> None:
+    """Every parameter and buffer from process 0, as DDP's constructor
+    does, in one broadcast of a flat buffer per dtype."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    import torch.distributed as dist
+
+    tensors = [t.data for t in (*module.parameters(), *module.buffers())]
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        same = [t for t in tensors if t.dtype == dtype]
+        flat = _flatten_dense_tensors(same)
+        dist.broadcast(flat, src=0)
+        torch._foreach_copy_(same, _unflatten_dense_tensors(flat, same))
 
 
 def apply_data_parallel(model, state, plugin, compute_dtype: torch.dtype,
@@ -235,6 +303,9 @@ def apply_data_parallel(model, state, plugin, compute_dtype: torch.dtype,
     (``average_whole_gradients``: DDP's arithmetic, without DDP's wrapper,
     whose hooks would hand a recomputed block its local tensors)."""
     if not state._partial.use_distributed:
+        return
+    if state.parallelism_config.pp_size > 1:
+        apply_pipeline_stage(model, state, plugin, compute_dtype)
         return
     if state.parallelism_config.tp_size > 1:
         apply_tensor_parallel_model(model, state, plugin)
@@ -254,6 +325,12 @@ def apply_data_parallel(model, state, plugin, compute_dtype: torch.dtype,
     if plugin is not None and plugin.sharding_strategy != "NO_SHARD":
         model.ignored = apply_fsdp(model.module, state.data_parallel_mesh, plugin, compute_dtype)
         model.sharded = True
+    elif ddp_kwargs is not None and ddp_kwargs.comm_hook != "no":
+        # The hooked step reduces the gradients itself (parallel/comm_hooks.py),
+        # so no DDP reducer: the replicas start from process 0's weights, and
+        # the imperative loop averages every gradient as DDP would.
+        _broadcast_parameters(model.module)
+        model.ignored = dict(model.module.named_parameters())
     else:
         model.forward_module = apply_ddp(model.module, state.device, ddp_kwargs)
 

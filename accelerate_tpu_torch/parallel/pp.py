@@ -1,0 +1,470 @@
+"""Pipeline parallelism: the GPipe and interleaved schedules over ``pp``.
+
+Counterpart of ``accelerate_tpu/parallel/pp.py``. There the schedule is one
+``shard_map`` over the ``pp`` mesh axis: a ``lax.scan`` over ticks whose
+``ppermute`` hands each stage's output to the next, and ``jax.grad``
+through the scan is the backward. Here every stage is a process holding
+only its own layers, and the schedule is this module's own loop of
+microbatches with point-to-point sends between neighbouring stages
+(``dist.isend``/``dist.recv`` over the ``pp`` slice of the mesh).
+
+Why not ``torch.distributed.pipelining``: its stages own the loss
+(``ScheduleGPipe(stage, n, loss_fn)``) and run the step themselves, so a
+loss function that calls ``llama_pipeline_forward`` (the JAX package's
+contract: ``loss_fn(model, batch)`` around a pipelined forward, then the
+step's own backward) has no place in it, and its ``scale_grads`` averages
+microbatch means where the JAX loss is the whole batch's token mean. Here
+the whole schedule is one autograd node (``_PipelineFn``): its forward runs
+every microbatch through this stage (autograd recording each one's graph),
+and its backward, reached from the loss on the last stage and from a
+stand-in on the others, runs the microbatches' backwards in reverse order,
+receiving each output's gradient from the next stage and sending each
+input's gradient to the one before. The last stage's output is the whole
+batch, so the loss over it is the JAX loss over the whole batch's logits.
+
+- GPipe (``virtual_stages=1``): stage ``d`` holds layers ``[d·L/pp,
+  (d+1)·L/pp)``; all microbatches go forward, then all backward.
+- Interleaved (``virtual_stages=V``): stage ``d`` holds the V chunks
+  ``v·pp + d`` of ``L/(pp·V)`` layers each, and a microbatch passes the
+  ring of stages V times (the last stage's chunk ``v`` feeds stage 0's
+  chunk ``v + 1``). As in the JAX package ``n_microbatches`` must equal
+  ``pp`` then.
+
+Every send is asynchronous and every receive waits, and each stage takes
+its work in one order consistent with the data's dependencies (round by
+round, microbatch by microbatch), so no cycle of waits can form. Over gloo
+with tensors on the card each send and receive is staged through pinned
+host memory (gloo's point-to-point takes host tensors); ``p2p_counters``
+counts the sends, their bytes and the staged bytes. NCCL sends from the
+card.
+
+On stages other than the last, ``pipeline_apply`` and
+``llama_pipeline_forward`` return a stand-in: zeros of the output's shape
+(a stride-0 view, no memory) that carries the schedule's autograd node, so
+that the step's ``backward()`` on any loss of it runs this stage's part of
+the backward. Its values are not the output. ``cross_entropy_loss`` and
+``fused_cross_entropy_loss`` take a stand-in without computing over it
+(``is_stand_in``); the train step's loss metric comes from the last stage.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from typing import Any, Callable, Optional
+
+import torch
+import torch.distributed as dist
+
+_STAND_IN = "_pp_stand_in"
+
+
+class _P2PCounters:
+    """Process-wide count of the schedule's sends, their payload bytes and
+    the bytes staged through host memory (both ways), for the chip run's
+    report; always on (three adds a send)."""
+
+    __slots__ = ("sends", "bytes", "staged_bytes")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.sends = self.bytes = self.staged_bytes = 0
+
+    def snapshot(self) -> dict:
+        return {"sends": self.sends, "bytes": self.bytes, "staged_bytes": self.staged_bytes}
+
+
+p2p_counters = _P2PCounters()
+
+
+def is_stand_in(t) -> bool:
+    """Whether ``t`` is a pipeline stage's stand-in for an output that only
+    the last stage holds."""
+    return torch.is_tensor(t) and getattr(t, _STAND_IN, False)
+
+
+def _stand_in(anchor: torch.Tensor, shape, device) -> torch.Tensor:
+    """fp32 zeros of ``shape`` as a stride-0 view of the zero-dim
+    ``anchor`` (the schedule's output on a stage that is not the last)."""
+    out = anchor.float().to(device).expand(tuple(shape))
+    setattr(out, _STAND_IN, True)
+    return out
+
+
+def stand_in_loss(t: torch.Tensor) -> torch.Tensor:
+    """A zero loss that backpropagates into a stand-in's schedule."""
+    return t[(0,) * t.dim()] * 0.0
+
+
+def _resolve_virtual_stages(virtual_stages: Optional[int]) -> int:
+    """Explicit argument > the set-up ``ParallelismConfig.pp_virtual_stages``
+    > ``PARALLELISM_CONFIG_PP_VIRTUAL_STAGES`` > 1. The state is read
+    passively (its shared dict): nothing is set up as a side effect."""
+    if virtual_stages is not None:
+        v = int(virtual_stages)
+        if v < 1:
+            raise ValueError(f"virtual_stages must be a positive int, got {virtual_stages}")
+        return v
+    from ..parallelism_config import PARALLELISM_CONFIG_PREFIX
+    from ..state import AcceleratorState
+
+    pc = AcceleratorState._shared_state.get("parallelism_config")
+    if pc is not None:
+        return int(getattr(pc, "pp_virtual_stages", 1) or 1)
+    v = int(os.environ.get(f"{PARALLELISM_CONFIG_PREFIX}PP_VIRTUAL_STAGES", "1"))
+    if v < 1:
+        raise ValueError(f"PARALLELISM_CONFIG_PP_VIRTUAL_STAGES must be a positive int, got {v}")
+    return v
+
+
+def _active_mesh(mesh):
+    """``mesh``, else the set-up state's (None for a state without a
+    process group: one process, one stage)."""
+    if mesh is not None:
+        return mesh
+    from ..state import AcceleratorState
+
+    if not AcceleratorState._shared_state.get("_partial"):
+        raise ValueError("pipeline_apply needs a mesh (pass mesh= or build an Accelerator).")
+    return AcceleratorState().device_mesh
+
+
+def _pipeline_ranks(mesh, axis_name: str) -> tuple[int, int, list]:
+    """(stages, this process's stage, the global ranks of its ``axis_name``
+    slice in stage order); one stage without that axis."""
+    if mesh is None or axis_name not in (mesh.mesh_dim_names or ()):
+        return 1, 0, [dist.get_rank() if dist.is_initialized() else 0]
+    sub = mesh[axis_name] if mesh.ndim > 1 else mesh
+    return sub.size(), sub.get_local_rank(), [int(r) for r in sub.mesh.flatten().tolist()]
+
+
+def stage_layer_indices(n_layers: int, n_stages: int, stage: int,
+                        virtual_stages: int = 1) -> list[list[int]]:
+    """The global layer indices of each of ``stage``'s chunks: one
+    contiguous ``L/pp`` chunk under GPipe; under interleaving the V chunks
+    ``v·pp + stage`` of ``L/(pp·V)`` layers, in round order."""
+    if virtual_stages == 1:
+        if n_layers % n_stages:
+            raise ValueError(f"layer-stack leading dim {n_layers} not divisible by "
+                             f"pp={n_stages}")
+    elif n_layers % (n_stages * virtual_stages):
+        raise ValueError(f"layer count {n_layers} not divisible by pp*virtual_stages="
+                         f"{n_stages}*{virtual_stages}")
+    lc = n_layers // (n_stages * virtual_stages)
+    return [list(range((v * n_stages + stage) * lc, (v * n_stages + stage + 1) * lc))
+            for v in range(virtual_stages)]
+
+
+class _Link:
+    """One schedule's sends and receives between neighbouring stages."""
+
+    def __init__(self, ranks: list, stage: int, device: torch.device):
+        n = len(ranks)
+        self.prev, self.next = ranks[(stage - 1) % n], ranks[(stage + 1) % n]
+        self.device = device
+        self.staged = device.type == "cuda" and dist.get_backend() == "gloo"
+        self.pending: list = []
+
+    def send(self, t: torch.Tensor, dst: int) -> None:
+        t = t.detach().contiguous()
+        nbytes = t.numel() * t.element_size()
+        if self.staged:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t)
+            p2p_counters.staged_bytes += nbytes
+        else:
+            buf = t
+        self.pending.append((dist.isend(buf, dst), buf))
+        p2p_counters.sends += 1
+        p2p_counters.bytes += nbytes
+
+    def recv(self, shape, dtype, src: int) -> torch.Tensor:
+        if self.staged:
+            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+            dist.recv(buf, src)
+            p2p_counters.staged_bytes += buf.numel() * buf.element_size()
+            return buf.to(self.device)
+        buf = torch.empty(shape, dtype=dtype, device=self.device)
+        dist.recv(buf, src)
+        return buf
+
+    def finish(self) -> None:
+        for work, _ in self.pending:
+            work.wait()
+        self.pending.clear()
+
+
+class _Schedule:
+    """One pipelined call on this stage: ``chunks[v]`` is the callable of
+    its v-th chunk (``h -> h``, shape and dtype kept)."""
+
+    def __init__(self, chunks: list, ranks: list, stage: int, n_micro: int, mb_shape,
+                 dtype, device):
+        self.chunks, self.stage, self.n_stages = chunks, stage, len(ranks)
+        self.n_micro, self.mb_shape, self.dtype = n_micro, tuple(mb_shape), dtype
+        self.link = _Link(ranks, stage, device)
+        self.ins: dict = {}
+        self.outs: dict = {}
+
+    def _first(self, v: int) -> bool:
+        return self.stage == 0 and v == 0
+
+    def _last(self, v: int) -> bool:
+        return self.stage == self.n_stages - 1 and v == len(self.chunks) - 1
+
+    @property
+    def is_last_stage(self) -> bool:
+        return self.stage == self.n_stages - 1
+
+    def forward(self, x: Optional[torch.Tensor], record: bool) -> Optional[torch.Tensor]:
+        """Every microbatch through this stage's chunks; on the last stage
+        the (B, ...) output, else None. ``record`` keeps each microbatch's
+        graph for ``backward``."""
+        link, rows = self.link, []
+        mbs = x.reshape(self.n_micro, *self.mb_shape) if self.stage == 0 else None
+        for v, chunk in enumerate(self.chunks):
+            for i in range(self.n_micro):
+                if self._first(v):
+                    h = mbs[i].detach()
+                    if record:
+                        h.requires_grad_(x.requires_grad)
+                else:
+                    h = link.recv(self.mb_shape, self.dtype, link.prev)
+                    if record:
+                        h.requires_grad_(True)
+                with torch.set_grad_enabled(record):
+                    y = chunk(h)
+                if record:
+                    self.ins[v, i], self.outs[v, i] = h, y
+                if self._last(v):
+                    rows.append(y if record else y.detach())
+                else:
+                    link.send(y, link.next)
+        link.finish()
+        return torch.cat(rows) if rows else None
+
+    def backward(self, grad: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The recorded microbatches' backwards in reverse order; returns the
+        gradient of stage 0's input (None elsewhere, or where the input
+        takes none)."""
+        link, gx = self.link, [None] * self.n_micro
+        gmbs = (grad.reshape(self.n_micro, *self.mb_shape) if grad is not None
+                and self.is_last_stage else None)
+        for v in reversed(range(len(self.chunks))):
+            for i in reversed(range(self.n_micro)):
+                h, y = self.ins.pop((v, i)), self.outs.pop((v, i))
+                gy = gmbs[i] if self._last(v) else link.recv(y.shape, y.dtype, link.next)
+                torch.autograd.backward(y, gy)
+                if self._first(v):
+                    gx[i] = h.grad
+                else:
+                    link.send(h.grad, link.prev)
+        link.finish()
+        if self.stage == 0 and all(g is not None for g in gx):
+            return torch.cat(gx)
+        return None
+
+
+class _PipelineFn(torch.autograd.Function):
+    """The schedule as one autograd node: forward runs every microbatch
+    (recording their graphs), backward runs theirs in reverse. ``anchor``
+    (a zero-dim leaf that requires grad) makes the node's output require
+    grad on every stage, so that a stage whose input takes no gradient
+    still runs its backward."""
+
+    @staticmethod
+    def forward(ctx, schedule, x, anchor):
+        ctx.schedule = schedule
+        with torch.enable_grad():
+            out = schedule.forward(x, record=True)
+        return out if out is not None else anchor.detach().clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        schedule = ctx.schedule
+        ctx.schedule = None
+        gx = schedule.backward(grad if schedule.is_last_stage else None)
+        return None, gx, None
+
+
+def _run_pipeline(chunks: list, x: torch.Tensor, *, mesh, axis_name: str,
+                  n_microbatches: Optional[int], v_stages: int,
+                  stand_in_shape=None) -> torch.Tensor:
+    """``x`` (B, ...) through this stage's ``chunks`` pipelined over
+    ``axis_name``: the last stage's output, or elsewhere a stand-in of
+    ``stand_in_shape`` (default ``x``'s). ``x`` is read on stage 0; the
+    other stages take only its shape and dtype."""
+    n_stages, stage, ranks = _pipeline_ranks(mesh, axis_name)
+    n_micro = int(n_microbatches or n_stages)
+    if v_stages > 1 and n_micro != n_stages:
+        raise ValueError(
+            f"virtual_stages>1 requires n_microbatches == pp (got m={n_micro}, "
+            f"pp={n_stages}); accumulate over multiple calls for bigger batches")
+    batch = x.shape[0]
+    if batch % n_micro:
+        raise ValueError(f"batch dim {batch} not divisible by n_microbatches {n_micro}")
+    mb_shape = (batch // n_micro, *x.shape[1:])
+    schedule = _Schedule(chunks, ranks, stage, n_micro, mb_shape, x.dtype, x.device)
+    if torch.is_grad_enabled():
+        anchor = torch.zeros((), dtype=x.dtype, device=x.device, requires_grad=True)
+        out = _PipelineFn.apply(schedule, x, anchor)
+    else:
+        out = schedule.forward(x, record=False)
+        if out is None:
+            out = torch.zeros((), dtype=x.dtype, device=x.device)
+    if schedule.is_last_stage:
+        return out
+    return _stand_in(out, x.shape if stand_in_shape is None else stand_in_shape, x.device)
+
+
+def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor], stage_params: Any,
+                   x: torch.Tensor, *, mesh=None, n_microbatches: Optional[int] = None,
+                   axis_name: str = "pp", virtual_stages: Optional[int] = None) -> torch.Tensor:
+    """Run ``x`` through a layer stack pipelined over the ``pp`` mesh axis.
+
+    ``stage_fn(local_stack, h) -> h`` applies one stage's (or chunk's)
+    layers to a microbatch of hidden states, keeping its shape and dtype.
+    ``stage_params`` is a tensor or a tuple/list of tensors whose leading
+    dim is the layer count L (every process holds the whole stack, as the
+    JAX package's caller does; each stage reads its own rows, views whose
+    gradients land in the whole tensors' rows). ``x`` (B, ...) is split
+    into ``n_microbatches`` (default ``pp``) contiguous microbatches; stage
+    0 reads it, the others its shape and dtype. ``virtual_stages``: the
+    interleaving degree (default ``ParallelismConfig.pp_virtual_stages``).
+    ``mesh``: a ``DeviceMesh`` with a ``pp`` dim (default the set-up
+    state's).
+
+    Returns the (B, ...) output on the last stage and a stand-in on the
+    others (module docstring). Without a ``pp`` axis wider than 1,
+    ``stage_fn(stage_params, x)``."""
+    mesh = _active_mesh(mesh)
+    n_stages, stage, _ = _pipeline_ranks(mesh, axis_name)
+    if n_stages == 1:
+        return stage_fn(stage_params, x)
+    v_stages = _resolve_virtual_stages(virtual_stages)
+    leaves = list(stage_params) if isinstance(stage_params, (tuple, list)) else [stage_params]
+    n_layers = leaves[0].shape[0]
+    for leaf in leaves:
+        if v_stages == 1 and leaf.shape[0] % n_stages:
+            raise ValueError(f"layer-stack leading dim {leaf.shape[0]} not divisible by "
+                             f"pp={n_stages}")
+        if v_stages > 1 and leaf.shape[0] != n_layers:
+            raise ValueError(f"stage_params leaves disagree on layer count "
+                             f"({leaf.shape[0]} vs {n_layers})")
+
+    def rows(idx):
+        lo, hi = idx[0], idx[-1] + 1
+        if isinstance(stage_params, (tuple, list)):
+            return type(stage_params)(leaf[lo:hi] for leaf in stage_params)
+        return stage_params[lo:hi]
+
+    chunks = [functools.partial(stage_fn, rows(idx))
+              for idx in stage_layer_indices(n_layers, n_stages, stage, v_stages)]
+    return _run_pipeline(chunks, x, mesh=mesh, axis_name=axis_name,
+                         n_microbatches=n_microbatches, v_stages=v_stages)
+
+
+# ---------------------------------------------------------------------------
+# The pipelined Llama: the embedding on stage 0, the final norm and the head
+# on the last stage (the reference's first/last-stage carve-out); the JAX
+# package computes those outside its pipeline on every device.
+# ---------------------------------------------------------------------------
+
+
+def _run_layers(layers: list, cos, sin, remat: bool, remat_kwargs: dict, h):
+    """``h`` through ``layers`` with the module's per-layer remat."""
+    from torch.utils.checkpoint import checkpoint
+
+    for layer in layers:
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(layer, h, cos, sin, **remat_kwargs)
+        else:
+            h = layer(h, cos, sin)
+    return h
+
+
+def _module(model):
+    return getattr(model, "module", model)
+
+
+def llama_pipeline_forward(model, input_ids: torch.Tensor, *, mesh=None,
+                           n_microbatches: Optional[int] = None,
+                           virtual_stages: Optional[int] = None) -> torch.Tensor:
+    """Pipelined ``LlamaForCausalLM`` forward: its logits on the last stage
+    (in the compute dtype, as the module's forward gives them), a stand-in
+    of the logits' shape elsewhere. ``model`` is a ``Model`` or the module;
+    under ``ParallelismConfig(pp_size>1)`` ``prepare`` leaves each stage its
+    own layers, the embedding on stage 0 and the final norm and head on the
+    last (a tied embedding on both), and each stage runs only what it holds.
+    Requires ``config.scan_layers=True``, as the JAX package does (its
+    stacked layers are the stages)."""
+    from ..models.llama import embed_tokens, rotary_embedding, scale_logits
+    from . import tp
+
+    module = _module(model)
+    cfg = module.config
+    if not cfg.scan_layers:
+        raise ValueError("pipeline parallelism requires scan_layers=True (stacked blocks)")
+    mesh = _active_mesh(mesh)
+    n_stages, stage, _ = _pipeline_ranks(mesh, "pp")
+    if n_stages == 1:
+        return module(input_ids)
+    v_stages = _resolve_virtual_stages(virtual_stages)
+    inner = module.model
+    b, s = input_ids.shape
+    if stage == 0:
+        x = embed_tokens(cfg, inner.embed_tokens.weight, input_ids)
+    else:
+        x = torch.empty((b, s, cfg.hidden_size), dtype=cfg.dtype, device=input_ids.device)
+    positions = torch.arange(s, device=input_ids.device)
+    cos, sin = rotary_embedding(positions, cfg.rotary_dim, cfg.rope_theta, cfg.dtype)
+    chunks = [functools.partial(_run_layers, [inner.layers[i] for i in idx], cos, sin,
+                                cfg.remat, inner._remat_kwargs)
+              for idx in stage_layer_indices(cfg.num_hidden_layers, n_stages, stage,
+                                             v_stages)]
+    h = _run_pipeline(chunks, x, mesh=mesh, axis_name="pp", n_microbatches=n_microbatches,
+                      v_stages=v_stages, stand_in_shape=(b, s, cfg.vocab_size))
+    if stage != n_stages - 1:
+        return h
+    return tp.vocab_logits(inner.norm(h), module.head_weight().to(cfg.dtype),
+                           post=functools.partial(scale_logits, scaling=cfg.logits_scaling))
+
+
+def keep_stage(module, n_stages: int, stage: int, virtual_stages: int = 1) -> list[str]:
+    """Leave ``module`` (the Llama chassis) only this stage's parameters, in
+    place: the layers of its chunks (``stage_layer_indices``; the others
+    become parameterless ``nn.Identity``, so that names stay global), the
+    embedding on stage 0, the final norm and the head on the last stage,
+    and a tied embedding on both; its ``pipeline_stage`` is set, which makes
+    its forward the pipelined one. Returns the names of the parameters that
+    two stages hold (the tied embedding's, on both edges), whose gradients
+    the step sums over the edge group."""
+    from torch import nn
+
+    from ..models.llama import LlamaForCausalLM
+
+    if not isinstance(module, LlamaForCausalLM):
+        raise NotImplementedError(
+            f"pp training of {type(module).__name__} is not ported yet: the Llama chassis "
+            "only (ROADMAP.md Queue A item 6: the rest of PP)")
+    cfg = module.config
+    if not cfg.scan_layers:
+        raise ValueError("pipeline parallelism requires scan_layers=True (stacked blocks)")
+    keep = {i for idx in stage_layer_indices(cfg.num_hidden_layers, n_stages, stage,
+                                             virtual_stages) for i in idx}
+    layers = module.model.layers
+    for i in range(len(layers)):
+        if i not in keep:
+            layers[i] = nn.Identity()
+    first, last = stage == 0, stage == n_stages - 1
+    tied = cfg.tie_word_embeddings
+    if not (first or (last and tied)):
+        module.model.embed_tokens = None
+    if not last:
+        module.model.norm = None
+        if not tied:
+            module.lm_head = None
+    module.pipeline_stage = (n_stages, stage, virtual_stages)
+    return ["model.embed_tokens.weight"] if tied and (first or last) else []

@@ -11,11 +11,13 @@ holds its own slice of it, by the same rule:
 - dim 1 of every leaf with more than one dim is split over ``cp × sp``
   (``seq_axes``): rank ``i`` holds positions ``[i·S/n, (i+1)·S/n)``.
 
-Processes that differ only in ``cp``, ``sp`` or ``tp`` hold the same rows.
+Processes that differ only in ``cp``, ``sp``, ``tp`` or ``pp`` hold the same
+rows.
 
 The parameters (``plan_parameter_sharding``). The JAX planner gives every
 leaf of the flax tree a PartitionSpec: a TP rule (a regular expression on
-the ``/``-joined name, with a spec in the flax layout) first, then the FSDP
+the ``/``-joined name, with a spec in the flax layout) first, then the
+``pp`` rule (a scanned stack's free layer dim on ``pp``), then the FSDP
 policy (the largest free dim that divides over ``dp_shard × cp``, rank-1
 and small leaves and ``ignored_params`` excepted), else replicated. Here
 the same function runs on the flax names and shapes of the port's
@@ -131,8 +133,9 @@ _SCAN_LAYER_RE = re.compile(r"(^|/)(layers|h)/")
 
 def _leaf_spec(name: str, shape: tuple, sizes: dict, tp_rules, ignored, fsdp_axes,
                min_size: int) -> tuple:
-    """The JAX planner's ``_spec_for`` on one flax leaf (without ``pp``,
-    which is not ported)."""
+    """The JAX planner's ``_spec_for`` on one flax leaf: a TP rule, then the
+    ``pp`` rule (a scanned stack's free layer dim that divides by ``pp``
+    goes on ``pp``: each stage holds its layers), then the FSDP policy."""
     if any(r.search(name) for r in ignored):
         return ()
     entries: list = [None] * len(shape)
@@ -146,6 +149,10 @@ def _leaf_spec(name: str, shape: tuple, sizes: dict, tp_rules, ignored, fsdp_axe
                         "replicating that dim.", pattern, d, name, shape[d], entry)
                     entries[d] = None
             break
+    pp = sizes.get("pp", 1)
+    if (pp > 1 and entries and entries[0] is None and _SCAN_LAYER_RE.search(name)
+            and shape[0] % pp == 0):
+        entries[0] = "pp"
     if fsdp_axes:
         used = {a for e in entries if e for a in (e if isinstance(e, tuple) else (e,))}
         free = tuple(a for a in fsdp_axes if a not in used)

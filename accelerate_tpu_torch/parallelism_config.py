@@ -2,17 +2,19 @@
 
 Counterpart of ``accelerate_tpu/parallelism_config.py``: the same axis
 names, validation, environment round trip and world-size fill. The port
-runs five axes over a ``torch.distributed`` group, one process per GPU:
-``dp_replicate`` (DDP, or the replicate axis of HSDP), ``dp_shard``
-(FSDP2), ``cp`` (ring attention, ``parallel/cp.py``), ``sp`` (Ulysses,
-``parallel/sp.py``) and ``tp`` (tensor parallelism, ``parallel/sharding.py``
-and ``parallel/tp.py``). ``pp`` and ``ep`` above 1 raise, naming ROADMAP.md
-Queue A item 6 (PP, EP).
+runs six axes over a ``torch.distributed`` group, one process per GPU:
+``pp`` (pipeline stages, ``parallel/pp.py``), ``dp_replicate`` (DDP, or
+the replicate axis of HSDP), ``dp_shard`` (FSDP2), ``cp`` (ring attention,
+``parallel/cp.py``), ``sp`` (Ulysses, ``parallel/sp.py``) and ``tp``
+(tensor parallelism, ``parallel/sharding.py`` and ``parallel/tp.py``).
+``ep`` above 1 raises, naming ROADMAP.md Queue A item 6 (EP).
 
 Processes lie on the mesh in row-major order of ``MESH_AXES``, as the JAX
-package lays its devices (``tp`` innermost, as in its ``MESH_AXIS_ORDER``):
-rank ``(((r_dp_replicate · dp_shard + r_dp_shard) · cp + r_cp) · sp + r_sp)
-· tp + r_tp``. At ``tp=1`` that is the rank of the four outer axes.
+package lays its devices (``pp`` outermost, as its ``build_mesh`` puts it
+in front of ``MESH_AXIS_ORDER``; ``tp`` innermost): rank ``r_pp ·
+non_pp_size + (((r_dp_replicate · dp_shard + r_dp_shard) · cp + r_cp) ·
+sp + r_sp) · tp + r_tp``. At ``pp=1`` that is the rank of the other five
+axes.
 """
 
 from __future__ import annotations
@@ -22,12 +24,10 @@ import math
 import os
 
 PARALLELISM_CONFIG_PREFIX = "PARALLELISM_CONFIG_"
-# The mesh's axes, outermost first (the JAX package's MESH_AXIS_ORDER).
-MESH_AXES = ("dp_replicate", "dp_shard", "cp", "sp", "tp")
-_UNPORTED_AXES = {
-    "pp_size": "ROADMAP.md Queue A item 6 (PP)",
-    "ep_size": "ROADMAP.md Queue A item 6 (EP)",
-}
+# The mesh's axes, outermost first: pp, then the JAX package's
+# MESH_AXIS_ORDER.
+MESH_AXES = ("pp", "dp_replicate", "dp_shard", "cp", "sp", "tp")
+_UNPORTED_AXES = {"ep_size": "ROADMAP.md Queue A item 6 (EP)"}
 
 
 class ParallelismOversubscriptionError(ValueError):
@@ -66,16 +66,21 @@ class ParallelismConfig:
         for name, item in _UNPORTED_AXES.items():
             if getattr(self, name) > 1:
                 raise NotImplementedError(
-                    f"{name}={getattr(self, name)}: only the data-parallel, cp, sp and tp "
-                    f"axes are ported yet ({item})")
+                    f"{name}={getattr(self, name)}: expert parallelism is not ported yet "
+                    f"({item})")
 
     @property
     def dp_size(self) -> int:
         return self.dp_replicate_size * self.dp_shard_size
 
     @property
+    def non_pp_size(self) -> int:
+        """Processes of one pipeline stage: every axis but ``pp``."""
+        return self.dp_size * self.cp_size * self.sp_size * self.tp_size
+
+    @property
     def total_size(self) -> int:
-        return self.dp_size * self.cp_size * self.sp_size * self.tp_size * self.pp_size
+        return self.non_pp_size * self.pp_size
 
     def axis_size(self, axis: str) -> int:
         return getattr(self, f"{axis}_size")
@@ -121,7 +126,8 @@ class ParallelismConfig:
     @property
     def loss_reduce_axes(self) -> tuple[str, ...]:
         """Axes a scalar loss is averaged over: every axis but ``tp``, whose
-        ranks hold the same rows and compute the same loss."""
+        ranks hold the same rows and compute the same loss, and ``pp``, whose
+        last stage alone computes it."""
         return ("dp_replicate", "dp_shard", "cp", "sp")
 
     @property
@@ -180,7 +186,7 @@ class ParallelismConfig:
         if fixed > n_processes:
             p = PARALLELISM_CONFIG_PREFIX
             axes = [f"{ax}={self.axis_size(ax)} ({p}{ax.upper()}_SIZE)"
-                    for ax in MESH_AXES + ("pp",) if self.axis_size(ax) > 1]
+                    for ax in MESH_AXES if self.axis_size(ax) > 1]
             raise ParallelismOversubscriptionError(
                 f"parallelism axes multiply to {fixed} but only {n_processes} process(es) "
                 f"run: {', '.join(axes) or 'none >1'}. Reduce one of these axes (or launch "
@@ -192,7 +198,7 @@ class ParallelismConfig:
         return dataclasses.replace(self, dp_shard_size=self.dp_shard_size * (n_processes // fixed))
 
     def build_mesh(self, device_type: str):
-        """The 5-D ``DeviceMesh`` over the process group with the axes
+        """The 6-D ``DeviceMesh`` over the process group with the axes
         ``MESH_AXES``, one process per device. Axes of size 1 are kept, so
         that every name resolves."""
         from torch.distributed.device_mesh import init_device_mesh
@@ -209,11 +215,12 @@ class ParallelismConfig:
         import torch
         from torch.distributed.device_mesh import DeviceMesh
 
-        if self.tp_size > 1:
-            raise ValueError("under tp the data-parallel mesh is a slice of the 5-D mesh "
+        if self.tp_size > 1 or self.pp_size > 1:
+            raise ValueError("under tp or pp the data-parallel mesh is a slice of the 6-D mesh "
                              "(AcceleratorState.data_parallel_mesh)")
         replicate = ("dp_replicate", "sp")
         ranks = torch.arange(self.total_size).reshape([self.axis_size(a) for a in MESH_AXES])
-        ranks = ranks.permute([MESH_AXES.index(a) for a in replicate + self.fsdp_axes + ("tp",)])
+        ranks = ranks.permute([MESH_AXES.index(a)
+                               for a in ("pp",) + replicate + self.fsdp_axes + ("tp",)])
         return DeviceMesh(device_type, ranks.reshape(self.dp_replicate_size * self.sp_size, -1),
                           mesh_dim_names=("replicate", "shard"))

@@ -251,17 +251,22 @@ class AcceleratorState:
         if pc.tp_size > 1 and pc.seq_size > 1:
             raise NotImplementedError(
                 "tp with a cp or sp axis is not ported yet (ROADMAP.md Queue A item 6: the "
-                "rest of TP beside PP and EP)")
+                "rest of TP beside EP)")
+        if pc.pp_size > 1 and pc.seq_size > 1:
+            raise NotImplementedError(
+                "pp with a cp or sp axis is not ported yet (ROADMAP.md Queue A item 6: the "
+                "rest of PP)")
         # The data-parallel axes fill the world, as the JAX package fills its
         # devices (ParallelismConfig.infer_missing_axis).
         self.parallelism_config = pc.infer_missing_axis(partial.num_processes)
         self._mesh = None
         self._dp_mesh = None
         self._loss_group = None
+        self._edge_group = None
 
     @property
     def device_mesh(self):
-        """The 5-D ``DeviceMesh`` (``parallelism_config.MESH_AXES``) over the
+        """The 6-D ``DeviceMesh`` (``parallelism_config.MESH_AXES``) over the
         process group, or None without a group. Built on first use, with one
         process group per axis (``get_group(axis)``)."""
         if self._mesh is None and self._partial.use_distributed:
@@ -272,11 +277,13 @@ class AcceleratorState:
     def data_parallel_mesh(self):
         """The 2-D ``(replicate, shard)`` mesh FSDP2 runs over
         (``ParallelismConfig.build_data_parallel_mesh``), built on first
-        use; None without a group. Under ``tp`` it is the
-        ``(dp_replicate, dp_shard)`` slice of ``device_mesh``, so that
-        FSDP2 composes with the ``tp`` slice's DTensors (one root mesh)."""
+        use; None without a group. Under ``tp`` or ``pp`` it is the
+        ``(dp_replicate, dp_shard)`` slice of ``device_mesh`` (this stage's
+        under ``pp``), so that FSDP2 composes with the ``tp`` slice's
+        DTensors and every group comes from one root mesh."""
         if self._dp_mesh is None and self._partial.use_distributed:
-            if self.parallelism_config.tp_size > 1:
+            cfg = self.parallelism_config
+            if cfg.tp_size > 1 or cfg.pp_size > 1:
                 self._dp_mesh = self.device_mesh["dp_replicate", "dp_shard"]
             else:
                 self._dp_mesh = self.parallelism_config.build_data_parallel_mesh(
@@ -291,13 +298,23 @@ class AcceleratorState:
         return None if mesh is None else mesh["tp"]
 
     @property
+    def pipeline_mesh(self):
+        """The 1-D ``pp`` slice of ``device_mesh``: this process's stages, in
+        order (``parallel/pp.py`` sends activations along it), or None
+        without a group."""
+        mesh = self.device_mesh
+        return None if mesh is None else mesh["pp"]
+
+    @property
     def loss_group(self):
         """The process group of this process's loss: every axis but ``tp``
-        (``loss_reduce_axes``), whose ranks compute one loss on the same
-        rows. Under ``tp`` (no sequence axis) that is the
+        and ``pp`` (``loss_reduce_axes``): ``tp`` ranks compute one loss on
+        the same rows, and a pipeline's last stage alone computes it. Under
+        ``tp`` or ``pp`` (no sequence axis) that is this stage's
         ``data_parallel_mesh`` slice flattened, built on first use by every
-        process; None (the default group, every process) at ``tp=1``."""
-        if (self._loss_group is None and self.parallelism_config.tp_size > 1
+        process; None (the default group, every process) otherwise."""
+        cfg = self.parallelism_config
+        if (self._loss_group is None and (cfg.tp_size > 1 or cfg.pp_size > 1)
                 and self._partial.use_distributed):
             self._loss_group = self.data_parallel_mesh._flatten("dp").get_group()
         return self._loss_group
@@ -305,12 +322,42 @@ class AcceleratorState:
     @property
     def loss_size(self) -> int:
         """How many processes' losses a step averages: the world over
-        ``tp``."""
-        return self._partial.num_processes // self.parallelism_config.tp_size
+        ``tp`` and ``pp``."""
+        cfg = self.parallelism_config
+        return self._partial.num_processes // (cfg.tp_size * cfg.pp_size)
+
+    @property
+    def pipeline_edge_group(self):
+        """The group of this process's first and last pipeline stages (the
+        ranks of its ``pp`` slice at stage 0 and ``pp - 1``), over which a
+        weight both hold (a tied embedding and head) sums its gradient;
+        None on a middle stage or without ``pp``. Every process takes part
+        in building the groups of every slice on first use."""
+        cfg = self.parallelism_config
+        if cfg.pp_size == 1 or not self._partial.use_distributed:
+            return None
+        if self._edge_group is None:
+            if cfg.pp_size == 2:
+                self._edge_group = self.pipeline_mesh.get_group()
+            else:
+                ranks = torch.arange(cfg.total_size).reshape(cfg.pp_size, -1)
+                me = self._partial.process_index
+                for col in range(ranks.shape[1]):
+                    pair = [int(ranks[0, col]), int(ranks[-1, col])]
+                    group = dist.new_group(pair)
+                    if me in pair:
+                        self._edge_group = group
+        return self._edge_group
 
     def axis_rank(self, axis: str) -> int:
         """This process's coordinate on a mesh axis (0 without a group)."""
         return self.parallelism_config.coordinates(self._partial.process_index)[axis]
+
+    @property
+    def pipeline_stage(self) -> tuple[int, int]:
+        """(number of stages, this process's stage) over ``pp``."""
+        cfg = self.parallelism_config
+        return cfg.pp_size, self.axis_rank("pp")
 
     @property
     def data_parallel_size(self) -> int:
@@ -319,8 +366,8 @@ class AcceleratorState:
 
     @property
     def data_parallel_index(self) -> int:
-        """This process's position among them; ``cp`` and ``sp`` ranks of one
-        position read the same rows."""
+        """This process's position among them; ``cp``, ``sp``, ``tp`` and
+        ``pp`` ranks of one position read the same rows."""
         return self.parallelism_config.data_parallel_index(self._partial.process_index)
 
     @property
@@ -344,7 +391,7 @@ class AcceleratorState:
 
 
 def current_mesh():
-    """The set-up ``AcceleratorState``'s 5-D mesh, or None when no state is
+    """The set-up ``AcceleratorState``'s 6-D mesh, or None when no state is
     set up or it has no process group. Sets nothing up."""
     if not AcceleratorState._shared_state.get("_partial"):
         return None

@@ -16,7 +16,6 @@ from typing import Any, Callable, Optional
 
 import torch
 
-_COMM_HOOK_ITEM = "ROADMAP.md Queue A item 6 (the gradient-communication hooks)"
 _REDUCED_PRECISION_ITEM = (
     "ROADMAP.md Queue A item 9: the JAX package defines MixedPrecisionPolicy's param_dtype, "
     "reduce_dtype and output_dtype and FullyShardedDataParallelPlugin.mixed_precision_policy "
@@ -455,8 +454,11 @@ class DistributedDataParallelKwargs(KwargsHandler):
     ``bucket_cap_mb``, ``find_unused_parameters``,
     ``gradient_as_bucket_view`` and ``static_graph``. The JAX package takes
     them and acts on none (its gradient mean is one all-reduce the compiler
-    places). ``comm_hook`` other than ``"no"`` raises, naming its ROADMAP.md
-    item; ``powersgd_rank`` goes with it."""
+    places). ``comm_hook`` (``"no"``, ``"fp16"``, ``"bf16"``, ``"powersgd"``
+    with ``powersgd_rank``) makes ``prepare`` keep the replicas without
+    DDP's reducer and ``prepare_train_step`` reduce the gradients through
+    the hook (``parallel/comm_hooks.py``, ``Accelerator._comm_hook_step``);
+    an unknown name raises there, as in the JAX package."""
 
     bucket_cap_mb: int = 25
     find_unused_parameters: bool = False
@@ -464,12 +466,6 @@ class DistributedDataParallelKwargs(KwargsHandler):
     static_graph: bool = False
     comm_hook: str = "no"
     powersgd_rank: int = 8
-
-    def __post_init__(self):
-        if self.comm_hook != "no":
-            raise NotImplementedError(
-                f"DistributedDataParallelKwargs(comm_hook={self.comm_hook!r}) is not ported "
-                f"yet ({_COMM_HOOK_ITEM})")
 
     def ddp_kwargs(self) -> dict:
         """The ``DistributedDataParallel`` arguments of these settings."""

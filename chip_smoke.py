@@ -75,8 +75,10 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    of ``utils/operations.py`` must round-trip; phase 9's loop must resume
    bit-equal under FSDP2; phase 4's tiny step under DDP (no plugin) must
    give phase 4's numbers, and with ``attention_impl="ring"`` and
-   ``"ulysses"`` over the 5-D mesh (``cp = sp = tp = 1``) bit for bit. Prints
-   the FSDP2 step ms, idle share and peak memory beside phase 5's. The
+   ``"ulysses"`` over the 6-D mesh (``pp = cp = sp = tp = 1``) bit for
+   bit. Prints the FSDP2 step ms, idle share and peak memory beside phase
+   5's (the loop's steps are not profiled again: their device time is the
+   FSDP2 step's). The
    child also runs phase 12 (c), phase 14 (a)'s overflow under FSDP2 and
    phase 15 (c). The child's failure fails the run.
 11. sequence parallelism. A chip call has one GPU, so every rank's share
@@ -128,13 +130,13 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    the profiler's 8 records (7 lagged, the last at close) sum to their
    walls; the one traced window (steps 3-4) launches each flash kernel 18
    times a step; the flight bundle holds the 8 records. (b) With telemetry
-   off and on in turns: host-clock ms, device-busy ms and, under
+   off, then on: host-clock ms, device-busy ms and, under
    torch.profiler, the synchronisations and device-to-host copies of a
    step, which must be equal; the counted FLOPs beside bench.py's model.
    (c) One window of phase 12's imperative loop (4 one-row microbatches):
    one ``optimizer_step`` record with its backward and apply seconds.
-   (d) Phase 8's engine and trace, replayed without telemetry and with a
-   recorder's ``telemetry=`` in turns: tick records that sum to their
+   (d) Phase 8's engine and trace, replayed without telemetry, then with a
+   recorder's ``telemetry=``: tick records that sum to their
    walls, the serving block's TTFT equal to ``stats()``, tok/s of both
    beside phase 8's.
 
@@ -381,6 +383,35 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    that row; ms, kernel launches and all-reduces a token. Phases 2 and 3
    check and time the kernels at each rank's attention shape (B4 S2048
    H8 D128).
+23. pipeline parallelism, the comm hooks and ``LocalSGD``, run by phase
+   22's two processes after its work (no second spawn or rendezvous); gloo
+   stages every send and all-reduce through the host. (a) GPipe at
+   ``pp=2``: phase 5's model, weights, batch and optimizer, 9 layers a
+   rank, 4 microbatches of one row, 3 steps whose losses and grad norms
+   are within ``PP_REL_TOL`` of phase 5's first three on both ranks (equal
+   on both), each flash kernel launched 36 times a step on each rank;
+   step ms, one profiled step's device-busy ms by category and idle share,
+   the peak memory, the point-to-point sends and bytes a step (and those
+   staged through the host). (b) Interleaved, ``pp_virtual_stages=3``:
+   chunks ``{d, d+2, d+4}`` of 3 layers, 2 microbatches of 2 rows, the
+   same gate at 18 launches. (c) ``prepare_pippy``: the pipelined forward
+   of phase 5's batch against the same model resident on the card
+   (relative L2 of the logits within ``PIPPY_REL_TOL``, argmax equal where
+   the top-2 gap exceeds the measured difference), and a tiny GPT-2's
+   pipelined logits on the card against the CPU's. (d) The comm hooks at
+   ``dp_replicate=2``, phase 5's widths at 2 of its 18 layers (gloo's
+   all-reduce of the whole model's fp32 gradients would take seconds a
+   step), each rank on its half of phase 5's batch: ``"no"``, ``"fp16"``,
+   ``"bf16"`` and ``"powersgd"`` (rank 8) for 3 steps each, the wire
+   hooks' losses within ``HOOK_LOSS_TOL`` of ``"no"``'s, PowerSGD's first
+   loss equal to it and its later ones finite, and its reduced gradients
+   within ``POWERSGD_PLAIN_TOL`` of the hook's plain version (the same
+   algorithm on both ranks' gradients in fp64 on the host); step ms and
+   wire bytes a step. (e) ``LocalSGD(local_sgd_steps=2)`` over 4 steps of
+   (d)'s model, the ranks on different batches: the parameters differ
+   across the ranks before each boundary and are bit-equal after it.
+   Phases 2 and 3 check and time the kernels at the GPipe microbatch
+   shape (B1 S2048 H16 D128).
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -435,18 +466,22 @@ LLAMA2_7B_LIKE = dict(b=1, s=1024, hq=32, hkv=32, d=128)
 # Phase 22's step at tp=2: each rank's attention, 8 of phase 5's 16 heads.
 TP_RANKS = 2
 TP_LIKE = dict(SLICE, hq=SLICE["hq"] // TP_RANKS, hkv=SLICE["hkv"] // TP_RANKS)
+# Phase 23's GPipe step at pp=2: one microbatch of one of phase 5's rows.
+PP_MICROBATCHES = SLICE["b"]
+PP_LIKE = dict(SLICE, b=SLICE["b"] // PP_MICROBATCHES)
 # The main paths whose launches the kernels line reports: phase 5's Llama
 # train step (bf16 d128), phase 17's Gemma-2B train step (bf16 d256), phase
 # 18's Mixtral-8x7B train step (bf16 d128, GQA 4:1) and its cp_generate
 # prefill (bf16 d128 at seq 8192, the forward kernel), and phase 21's
 # Llama-2-7B forward streamed past a budget on the card (the forward kernel),
-# and phase 22's step at tp=2 (each rank's counts: rank 0's are reported).
+# phase 22's step at tp=2 (each rank's counts: rank 0's are reported), and
+# phase 23's GPipe and interleaved steps at pp=2 (rank 0's).
 MAIN_PATHS = ("train_step", "gemma_2b_step", "mixtral_8x7b_step", "cp_generate",
-              "big_model_stream", "tp_step")
+              "big_model_stream", "tp_step", "pp_step", "pp_interleaved_step")
 # The other runs whose launches the line lists by path, outside "launches".
 OTHER_PATHS = ("imperative_loop", "observed_loop", "observed_imperative", "observed_serving",
                "fp16_step", "fp8_step", "dcp_loop", "dcp_async_loop", "serving_rest",
-               "big_model_resident", "tp_generate")
+               "big_model_resident", "tp_generate", "pippy_forward")
 _TRAINING_PATHS = ("train_step", "gemma_2b_step", *OTHER_PATHS)
 # Phase 3 times every built variant (hopper_flash.variant) at the shape its
 # users give it: head dims 64 and 128 at the training shape, 256 at the
@@ -468,7 +503,9 @@ TIMED = [(None, "bfloat16", SLICE, _TRAINING_PATHS),
          ("cp_generate_8192", "bfloat16", CP_GEN_LIKE, ("cp_generate",)),
          ("llama2_7b_stream", "bfloat16", LLAMA2_7B_LIKE, ("big_model_stream",
                                                            "big_model_resident")),
-         ("tp2_heads8", "bfloat16", TP_LIKE, ("tp_step", "tp_generate"))]
+         ("tp2_heads8", "bfloat16", TP_LIKE, ("tp_step", "tp_generate")),
+         ("pp_microbatch", "bfloat16", PP_LIKE, ("pp_step", "pp_interleaved_step",
+                                                  "pippy_forward"))]
 SOURCES = {"flash_fwd": "accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
            "flash_dq": "accelerate_tpu_torch/ops/csrc/flash_dq.cu",
            "flash_dkv": "accelerate_tpu_torch/ops/csrc/flash_dkv.cu",
@@ -1721,8 +1758,10 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
     gc.collect()
     torch.cuda.empty_cache()
 
+    # The loop's steps are not profiled here: their device time is the FSDP2
+    # step's, profiled above.
     loop = loop_phase(hf, main["step_ms"], device=device, width=width, seq=seq,
-                      profile_steps=LOOP["profile_steps"] if profile else 0, keep_group=True)
+                      profile_steps=0, keep_group=True)
     gc.collect()
     torch.cuda.empty_cache()
     # Phase 12 (c): the imperative loop under FSDP2, held to the parent's
@@ -1735,7 +1774,7 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
     torch.cuda.empty_cache()
     cfg, weights, tiny_batch = _tiny_step_inputs()
     ddp_metrics, ddp_wrapped = tiny_step(cfg, weights, tiny_batch, cpu=device == "cpu")
-    # Ring and Ulysses over the 5-D mesh of one process (cp = sp = tp = 1).
+    # Ring and Ulysses over the 6-D mesh of one process (pp = cp = sp = tp = 1).
     seq_metrics = {impl: tiny_step(dataclasses.replace(cfg, attention_impl=impl), weights,
                                    tiny_batch, cpu=device == "cpu")[0]
                    for impl in ("ring", "ulysses")}
@@ -1774,8 +1813,8 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         "loop_resumes_bit_equal": loop["ok"],
         "ddp_wrapped": ddp_wrapped,
         "ddp_matches_phase4": max(ddp_rel.values()) <= DP_REL_TOL,
-        "mesh_5d": mesh_axes == [["dp_replicate", "dp_shard", "cp", "sp", "tp"],
-                                 [1, 1, 1, 1, 1]],
+        "mesh_6d": mesh_axes == [["pp", "dp_replicate", "dp_shard", "cp", "sp", "tp"],
+                                 [1, 1, 1, 1, 1, 1]],
         "ring_ulysses_bit_equal_to_phase4": all(m == args["tiny_step"]
                                                 for m in seq_metrics.values()),
         "fp16_overflow_skipped": fp16["sharded"] and all(fp16["overflow"][k] for k in (
@@ -2450,8 +2489,8 @@ def imperative_phase(hf, fsdp_loop, device="cuda", width=FULL_WIDTH, seq=SLICE["
 # ---------------------------------------------------------------------------
 
 # (a) phase 9's loop with trackers, telemetry, the profiler and a traced
-# window; (b) host-clock steps with telemetry off and on (blocks in the order
-# off, on, on, off), each block `cost_steps` steps after one warm-up, then
+# window; (b) host-clock steps with telemetry off and on (a block each),
+# each block `cost_steps` steps after one warm-up, then
 # one step under torch.profiler; the flight bundle's exit code.
 OBSERVED = dict(steps=8, save_after=4, log_every=2, probe_every=2,
                 schedule=dict(wait=1, warmup=1, active=2, repeat=1), cost_steps=4,
@@ -2539,8 +2578,8 @@ def counted_flops_model(width, batch, seq) -> dict:
 def telemetry_cost(hf, acc, step, loader, sched, recorder, device="cuda",
                    cost_steps=OBSERVED["cost_steps"]):
     """(b): the same step with telemetry off and on (the recorder set on the
-    Accelerator and the loader, or None), in blocks off, on, on, off: one
-    warm-up step, ``cost_steps`` steps on the host clock, one step under
+    Accelerator and the loader, or None), in blocks off, on: one warm-up
+    step, ``cost_steps`` steps on the host clock, one step under
     torch.profiler for its device-busy ms, its launches and its
     synchronisations. No profiler may be running when it starts."""
     import torch
@@ -2563,7 +2602,7 @@ def telemetry_cost(hf, acc, step, loader, sched, recorder, device="cuda",
 
         setattr(recorder, name, timed_hook)
     blocks = []
-    for on in (False, True, True, False):
+    for on in (False, True):
         acc.telemetry = loader._telemetry = recorder if on else None
         it = iter(loader)
         step(acc.train_state, next(it))
@@ -2590,15 +2629,11 @@ def telemetry_cost(hf, acc, step, loader, sched, recorder, device="cuda",
         delattr(recorder, name)
     acc.telemetry = loader._telemetry = recorder
 
-    def mean(on, key):
-        return sum(b[key] for b in blocks if b["telemetry"] == on) / 2
-
+    off, on = blocks
     return {"profiler_free_before": free_before, "blocks": blocks,
-            "step_ms": {"off": mean(False, "step_ms"), "on": mean(True, "step_ms")},
-            "device_busy_ms": {"off": mean(False, "device_busy_ms"),
-                               "on": mean(True, "device_busy_ms")},
-            "recorder_ms": {k: sum(b["recorder_ms"][k] for b in blocks if b["telemetry"]) / 2
-                            for k in spent},
+            "step_ms": {"off": off["step_ms"], "on": on["step_ms"]},
+            "device_busy_ms": {"off": off["device_busy_ms"], "on": on["device_busy_ms"]},
+            "recorder_ms": on["recorder_ms"],
             "syncs_equal": all(b["syncs"] == blocks[0]["syncs"] for b in blocks)}
 
 
@@ -2635,7 +2670,7 @@ def observed_imperative(hf, acc, loader, recorder, ga=IMPERATIVE["ga"]):
 def observed_serving(hf, module, recorder, phase8_tok_s=None, row=SERVING_ROW):
     """(d): phase 8's engine and trace, replayed by an engine without
     telemetry and one with ``telemetry=recorder`` (and its profiler, whose
-    ring must hold every tick of a replay), in the order off, on, on, off:
+    ring must hold every tick of a replay), in the order off, on:
     the observed engine's tick records and serving block against its
     stats() (its last replay), tok/s of each replay beside phase 8's."""
     import torch
@@ -2652,7 +2687,7 @@ def observed_serving(hf, module, recorder, phase8_tok_s=None, row=SERVING_ROW):
     for engine in engines.values():
         engine.warmup()
     replays = []
-    for on in (False, True, True, False):
+    for on in (False, True):
         engine = engines[on]
         engine.reset_metrics()
         torch.cuda.synchronize()
@@ -2680,15 +2715,12 @@ def observed_serving(hf, module, recorder, phase8_tok_s=None, row=SERVING_ROW):
         "ticks_lagged": ticks_lagged == observed["ticks"] - 1,
         "serving_block_ttft": (block["ttft_p50_s"], block["ttft_p95_s"]) == (
             observed["ttft_p50_s"], observed["ttft_p95_s"]),
-        # The observed engine's warm-up request and its two replays.
-        "request_records": len(done) == 1 + 2 * len(prompts),
+        # The observed engine's warm-up request and its replay.
+        "request_records": len(done) == 1 + len(prompts),
         "hub": "accelerate_tpu_slo_serving_availability_burn_rate 0.0" in metrics,
     }
 
-    def mean(on):
-        return sum(r["tok_s"] for r in replays if r["telemetry"] == on) / 2
-
-    return {"replays": replays, "tok_s": {"off": mean(False), "on": mean(True)},
+    return {"replays": replays, "tok_s": {"off": replays[0]["tok_s"], "on": replays[1]["tok_s"]},
             "phase8_tok_s": phase8_tok_s, "ticks": observed["ticks"], "tick_records": len(ticks),
             "tick_terms_mean_s": recorder.profiler.summary()["tick_terms_mean_s"],
             "ttft_p50_s": observed["ttft_p50_s"], "ttft_p95_s": observed["ttft_p95_s"],
@@ -6620,11 +6652,14 @@ def tp_generate_rank(hf, device="cuda", row=None, width=FULL_WIDTH, prompt_len=G
 
 
 def tp_child_main(args: dict) -> int:
-    """One rank of phase 22: joins the gloo group of ``args["world"]`` ranks
-    at ``args["init"]`` itself (``PartialState`` adopts it; ``LOCAL_RANK``
-    from the parent puts every rank on cuda:0), runs (a) and (b), writes
-    (b)'s logits on rank 0 to ``args["logits"]``, and prints one line; the
-    parent judges it (``tp_gate``)."""
+    """One rank of phases 22 and 23: joins the gloo group of
+    ``args["world"]`` ranks at ``args["init"]`` itself (``PartialState``
+    adopts it; ``LOCAL_RANK`` from the parent puts every rank on cuda:0),
+    runs phase 22's (a) and (b), writes (b)'s logits on rank 0 to
+    ``args["logits"]`` and prints its line, then runs phase 23
+    (``pipeline_child``; on the CPU only with a narrowing ``kw["pp"]``) and
+    prints a second line (``{"pp": ...}``); the parent judges them
+    (``tp_gate``, ``pp_gate``)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -6638,6 +6673,7 @@ def tp_child_main(args: dict) -> int:
     from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 
     kw = args.get("kw", {})
+    t0 = time.perf_counter()
     res = {"rank": args["rank"], "backend": dist.get_backend(),
            "device": str(torch.device(device, 0) if device == "cuda" else device),
            "step": tp_step_rank(hf, device=device, **kw.get("step", {}))}
@@ -6650,7 +6686,15 @@ def tp_child_main(args: dict) -> int:
     if args["rank"] == 0 and logits is not None:
         np.save(args["logits"], logits)
     res["ok"] = all(math.isfinite(x) for m in res["step"]["metrics"] for x in m)
+    res["phase_s"] = time.perf_counter() - t0
     emit(res)
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # On the CPU phase 23 runs only when narrowed (a rehearsal passes "pp").
+    if device == "cuda" or "pp" in kw:
+        emit({"rank": args["rank"], "pp": pipeline_child(hf, device, kw.get("pp"))})
     PartialState._reset_state()
     dist.destroy_process_group()
     return 0 if res["ok"] else 1
@@ -6697,7 +6741,7 @@ def tensor_parallel_phase(hf, phase5, phase7, device="cuda", kw=None, timeout=60
     logits = np.load(logits_path) if os.path.exists(logits_path) else None
     if logits is not None:
         os.remove(logits_path)
-    return {**tp_gate(children, phase5, phase7, logits), "seconds": seconds,
+    return {**tp_gate(children, phase5, phase7, logits), "children_s": seconds,
             "_children": children, "_logits": logits}
 
 
@@ -6712,13 +6756,14 @@ def tp_gate(children, phase5, phase7, logits) -> dict:
     which no TP code enters."""
     import numpy as np
 
-    ranks = [lines[-1] if lines else {} for _, lines, _ in children]
+    ranks = [next((line for line in lines if "step" in line), {}) for _, lines, _ in children]
     checks = {"children": all(rc == 0 and r.get("ok") for (rc, _, _), r in zip(children, ranks)),
               "gloo": all(r.get("backend") == "gloo" for r in ranks)}
     res = {"phase": "tensor_parallel", "ranks": TP_RANKS, "backend": ranks[0].get("backend"),
            "devices": [r.get("device") for r in ranks],
            "note": "two processes on one card joined by gloo, which stages each all-reduce "
                    "through the host: step ms are gloo's, not NCCL's"}
+    res["seconds"] = max((r.get("phase_s", 0.0) for r in ranks), default=None)
     if not checks["children"] or logits is None:
         checks["children"] = False
         return {**res, "checks": checks, "ok": False,
@@ -6762,6 +6807,486 @@ def tp_gate(children, phase5, phase7, logits) -> dict:
                            "phase7_ms_per_token": phase7.get("ms_per_token")},
             "variant_launches": steps[0]["variant_launches"],
             "generate_variant_launches": ranks[0]["generate"]["variant_launches"],
+            "checks": checks, "ok": all(checks.values())}
+
+
+# Phase 23: pipeline parallelism, the comm hooks and LocalSGD, in phase 22's
+# two processes. Gloo stages every send and all-reduce through the host.
+PP_STAGES = 2
+PP_STEPS = 3
+# The interleaved schedule: 3 chunks of 3 layers a rank, as many
+# microbatches as stages (the JAX package's rule), of 2 rows each.
+PP_VIRTUAL_STAGES = 3
+# The pp=2 steps' loss and grad norm against phase 5's (bf16: the
+# microbatches' products run at other shapes).
+PP_REL_TOL = 2e-2
+# The pipelined logits against the same model resident on the card
+# (relative L2; bf16 products at another batch shape), and a tiny fp32
+# GPT-2's on the card against the CPU's.
+PIPPY_REL_TOL = 1e-2
+PIPPY_TINY_REL_TOL = 1e-4
+# The comm hooks: phase 5's widths at 2 layers (gloo's all-reduce of the
+# 18 layers' 4.2 GB of fp32 gradients takes seconds a step).
+HOOKS = ("no", "fp16", "bf16", "powersgd")
+HOOK_LAYERS = 2
+HOOK_STEPS = 3
+POWERSGD_RANK = 8
+# The wire hooks' losses against "no"'s (absolute), and PowerSGD's reduced
+# gradients against the plain version of its algorithm (relative L2).
+HOOK_LOSS_TOL = 1e-2
+POWERSGD_PLAIN_TOL = 1e-3
+LOCAL_SGD = dict(local_sgd_steps=2, steps=4)
+
+
+def _phase5_batch(cfg, batch_size, seq, device, seed=0):
+    import numpy as np
+    import torch
+
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(batch_size, seq + 1))
+    return {"x": torch.from_numpy(ids[:, :-1]).to(device),
+            "y": torch.from_numpy(ids[:, 1:]).to(device)}
+
+
+def _reset_port_state():
+    import torch
+
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    for cls in (AcceleratorState, GradientState):
+        cls._reset_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pp_step_rank(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], batch_size=SLICE["b"],
+                 steps=PP_STEPS, virtual_stages=1, n_microbatches=PP_MICROBATCHES,
+                 profile=True):
+    """Phase 23 (a) and (b), one rank: phase 5's 1.06B Llama (same weights,
+    batch and optimizer) under ``ParallelismConfig(pp_size=2,
+    pp_virtual_stages=...)``, its loss ``cross_entropy_loss`` of
+    ``llama_pipeline_forward``: ``steps`` steps counted from zero (metrics,
+    launches, the sends and their bytes), then one more under
+    torch.profiler."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        Model,
+        ParallelismConfig,
+        adamw,
+        llama_pipeline_forward,
+    )
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
+    from accelerate_tpu_torch.parallel.pp import p2p_counters
+
+    cfg = LlamaConfig(**width, max_position_embeddings=seq, dtype=torch.bfloat16,
+                      remat=True, remat_policy="dots", attention_impl="flash")
+    acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu",
+                      parallelism_config=ParallelismConfig(pp_size=PP_STAGES,
+                                                           pp_virtual_stages=virtual_stages))
+    module = LlamaForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+    step = acc.prepare_train_step(
+        lambda m, b: cross_entropy_loss(
+            llama_pipeline_forward(m, b["x"], n_microbatches=n_microbatches), b["y"]),
+        max_grad_norm=1.0)
+    batch = _phase5_batch(cfg, batch_size, seq, acc.device)
+    state = acc.train_state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    p2p_counters.reset()
+    metrics, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    launches = dict(hf.LAUNCHES)
+    variant_launches = dict(hf.VARIANT_LAUNCHES)
+    p2p = p2p_counters.snapshot()
+    metrics = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
+    step_ms = float(np.mean(times[1:]))
+    prof = profile_steps(step, state, batch, step_ms, steps=1, host=False) if profile else {}
+    busy = prof.get("device_busy_ms_per_step")
+    out = {
+        "metrics": metrics, "step_ms": step_ms, "step_ms_each": times,
+        "device_busy_ms": busy, "idle_share": None if busy is None else 1 - busy / step_ms,
+        "busy_ms_by_category": prof.get("ms_per_step_by_category"),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "variant_launches": variant_launches, "local_layers": sum(
+            not isinstance(layer, torch.nn.Identity) for layer in module.model.layers),
+        "microbatches": n_microbatches, "virtual_stages": virtual_stages,
+        "p2p_per_step": {k: v / steps for k, v in p2p.items()},
+        "local_params": sum(p.numel() for p in module.parameters()),
+        "pp_rank": acc.pipeline_parallel_rank,
+    }
+    del state, step, model, module, acc
+    return out
+
+
+def pippy_rank(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], batch_size=SLICE["b"],
+               tiny=None):
+    """Phase 23 (c), one rank: ``prepare_pippy`` of phase 5's model (the
+    whole weights on each rank, each running its own layers) on phase 5's
+    batch, its launches counted from zero, against the same model's
+    resident forward on the last stage; then a tiny fp32 GPT-2 pipelined on
+    the card against its forward on the CPU."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, ParallelismConfig, prepare_pippy
+    from accelerate_tpu_torch.models import GPT2Config, GPT2LMHeadModel, LlamaConfig
+    from accelerate_tpu_torch.models import LlamaForCausalLM
+
+    cfg = LlamaConfig(**width, max_position_embeddings=seq, dtype=torch.bfloat16,
+                      attention_impl="flash")
+    acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu",
+                      parallelism_config=ParallelismConfig(pp_size=PP_STAGES))
+    module = LlamaForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    model = Model(module)
+    piped = prepare_pippy(model, num_chunks=PP_MICROBATCHES)
+    batch = _phase5_batch(cfg, batch_size, seq, acc.device)
+    last = acc.pipeline_parallel_rank == PP_STAGES - 1
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        hf.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = piped(batch["x"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        variant_launches = dict(hf.VARIANT_LAUNCHES)
+        out = {"ms": ms, "variant_launches": variant_launches,
+               "launches": dict(hf.LAUNCHES), "last_stage": last,
+               "returned": None if logits is None else list(logits.shape)}
+        if last:
+            ref = model(batch["x"])
+            diff = (logits.float() - ref.float()).abs()
+            delta = float(diff.max())
+            top2 = ref.float().topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > delta
+            agree = logits.argmax(-1) == ref.argmax(-1)
+            out.update(rel_l2=rel_err(logits, ref), max_abs=delta,
+                       clear_positions=int(clear.sum()),
+                       argmax_disagree_clear=int((clear & ~agree).sum()),
+                       argmax_agree_share=float(agree.float().mean()))
+            del ref, diff, top2
+        del logits, piped, model, module
+        gc.collect()
+        torch.cuda.empty_cache()
+        # A tiny GPT-2 on the card against its forward on the CPU.
+        gcfg = GPT2Config.tiny(dtype=torch.float32, n_layer=4, **(tiny or {}))
+        cpu_gpt2 = GPT2LMHeadModel(gcfg)
+        cpu_gpt2.init_weights(torch.Generator().manual_seed(0))
+        ids = torch.randint(0, gcfg.vocab_size, (4, 16), generator=torch.Generator().manual_seed(1))
+        ref = cpu_gpt2(ids)
+        card = GPT2LMHeadModel(gcfg, device=acc.device)
+        card.load_state_dict(cpu_gpt2.state_dict())
+        got = prepare_pippy(Model(card), num_chunks=PP_MICROBATCHES, gather_output=True)(
+            ids.to(acc.device))
+        out["gpt2_rel_l2"] = rel_err(got.cpu(), ref)
+    del acc
+    return out
+
+
+def _fingerprint(module):
+    """Two int64 sums of the parameters' bit patterns (plain, and weighted
+    by position): equal on two ranks when their parameters are bit-equal."""
+    import torch
+
+    total = torch.zeros(2, dtype=torch.int64)
+    for p in module.parameters():
+        bits = p.detach().reshape(-1).view(torch.int32).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        total += torch.stack([bits.sum(), (bits * w).sum()]).cpu()
+    return total.tolist()
+
+
+def _all_ranks(obj):
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def powersgd_plain_check(acc, model, loss_fn, batch):
+    """PowerSGD's reduction of one fresh backward's gradients (the hook's
+    live state, Q and error feedback) against the plain version of the
+    algorithm: both ranks' matrices exchanged, P = mean(M Q) orthonormalised
+    (numpy QR), Q' = mean(Mᵀ P), M̂ = P Q'ᵀ in fp64 on the host; plain
+    leaves against the fp64 mean. The largest relative L2 by leaf."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.parallel.comm_hooks import flax_gradients, make_comm_hook_reducer
+    from accelerate_tpu_torch.utils import operations
+
+    module = model.module
+    named = [(n, p) for n, p in module.named_parameters()]
+    for _, p in named:
+        p.grad = None
+    with model.compute_params(acc._mp_policy.cast_for_compute(acc._cast_params(model))):
+        loss_fn(model, batch).float().backward()
+    grads, _ = flax_gradients(module, named)
+    state = acc._comm_hook_states[0]
+    world, rank = acc.num_processes, acc.process_index
+    reduced, _ = make_comm_hook_reducer("powersgd", None, world, rank=POWERSGD_RANK)(
+        grads, state)
+    rel = {}
+    for name, g in grads.items():
+        st = state.get(name)
+        mat = (g.reshape(g.shape[0], -1).float() + st["e"]) if st else g.float()
+        both = torch.zeros((world, *mat.shape), dtype=torch.float32, device=mat.device)
+        both[rank] = mat
+        operations.all_reduce(both)
+        mats = both.cpu().double().numpy()
+        if st:
+            q = st["q"].cpu().double().numpy()
+            p_, _ = np.linalg.qr(np.mean([m @ q for m in mats], axis=0))
+            q2 = np.mean([m.T @ p_ for m in mats], axis=0)
+            want = (p_ @ q2.T).reshape(g.shape)
+        else:
+            want = np.mean(mats, axis=0)
+        got = reduced[name].detach().cpu().double().numpy()
+        rel[name] = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+    for _, p in named:
+        p.grad = None
+    return rel
+
+
+def hooks_rank(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], batch_size=SLICE["b"],
+               layers=HOOK_LAYERS, steps=HOOK_STEPS, hooks=HOOKS):
+    """Phase 23 (d), one rank: phase 5's widths at ``layers`` layers under
+    ``dp_replicate=2`` with each comm hook, this rank on its half of phase
+    5's batch, ``steps`` steps each (metrics, ms, the all-reduces' bytes);
+    then PowerSGD's reduction against its plain version
+    (``powersgd_plain_check``)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        DistributedDataParallelKwargs,
+        Model,
+        ParallelismConfig,
+        adamw,
+    )
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
+    from accelerate_tpu_torch.utils.operations import collective_counters
+
+    cfg = LlamaConfig(**dict(width, num_hidden_layers=layers), max_position_embeddings=seq,
+                      dtype=torch.bfloat16, remat=True, remat_policy="dots",
+                      attention_impl="flash")
+
+    def loss_fn(m, b):
+        return cross_entropy_loss(m(b["x"]), b["y"])
+
+    out = {}
+    for hook in hooks:
+        _reset_port_state()
+        acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu",
+                          parallelism_config=ParallelismConfig(dp_replicate_size=2),
+                          kwargs_handlers=[DistributedDataParallelKwargs(
+                              comm_hook=hook, powersgd_rank=POWERSGD_RANK)])
+        module = LlamaForCausalLM(cfg, device=acc.device)
+        module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+        model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+        step = acc.prepare_train_step(loss_fn, max_grad_norm=1.0)
+        full = _phase5_batch(cfg, batch_size, seq, acc.device)
+        rows = batch_size // acc.num_processes
+        batch = {k: v[acc.process_index * rows:(acc.process_index + 1) * rows]
+                 for k, v in full.items()}
+        state = acc.train_state
+        collective_counters.reset()
+        collective_counters.enabled = True
+        metrics, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+        collective_counters.enabled = False
+        wire = collective_counters.snapshot().get("all_reduce", {"bytes": 0})["bytes"] / steps
+        if hook == "no":  # DDP's reducer all-reduces every fp32 gradient, uncounted
+            wire += sum(p.numel() * p.element_size() for p in module.parameters())
+        out[hook] = {"metrics": [(float(m["loss"]), float(m["grad_norm"])) for m in metrics],
+                     "step_ms": float(np.mean(times[1:])), "step_ms_each": times,
+                     "wire_bytes_per_step": wire}
+        if hook == "powersgd":
+            out[hook]["plain_rel"] = powersgd_plain_check(acc, model, loss_fn, batch)
+        del state, step, model, module, acc
+    return out
+
+
+def local_sgd_rank(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], rows=2,
+                   layers=HOOK_LAYERS, spec=LOCAL_SGD):
+    """Phase 23 (e), one rank: (d)'s model under DDP at ``dp_replicate=2``,
+    each rank on its own batch, ``spec["steps"]`` steps inside
+    ``LocalSGD(local_sgd_steps=...)``: every rank's parameter fingerprint
+    after each step and after each ``lsgd.step()``."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, LocalSGD, Model, ParallelismConfig, adamw
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
+
+    _reset_port_state()
+    cfg = LlamaConfig(**dict(width, num_hidden_layers=layers), max_position_embeddings=seq,
+                      dtype=torch.bfloat16, remat=True, remat_policy="dots",
+                      attention_impl="flash")
+    acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu",
+                      parallelism_config=ParallelismConfig(dp_replicate_size=2))
+    module = LlamaForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+    step = acc.prepare_train_step(lambda m, b: cross_entropy_loss(m(b["x"]), b["y"]),
+                                  max_grad_norm=1.0)
+    batch = _phase5_batch(cfg, rows, seq, acc.device, seed=100 + acc.process_index)
+    state, before, after, losses = acc.train_state, [], [], []
+    t0 = time.perf_counter()
+    with LocalSGD(acc, model, local_sgd_steps=spec["local_sgd_steps"]) as lsgd:
+        for _ in range(spec["steps"]):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            before.append(_all_ranks(_fingerprint(module)))
+            state = lsgd.step(state)
+            after.append(_all_ranks(_fingerprint(module)))
+    seconds = time.perf_counter() - t0
+    del state, step, model, module, acc
+    return {"losses": losses, "before": before, "after": after, "seconds": seconds,
+            "local_sgd_steps": spec["local_sgd_steps"], "enabled": lsgd.enabled}
+
+
+def pipeline_child(hf, device="cuda", kw=None) -> dict:
+    """Phase 23 in one of phase 22's processes: (a)-(e), each part's state
+    set up afresh; ``kw`` may narrow each part (the CPU rehearsal)."""
+    kw = kw or {}
+    t0 = time.perf_counter()
+    parts, seconds = {}, {}
+    runs = (("gpipe", lambda: pp_step_rank(hf, device=device, **kw.get("step", {}))),
+            ("interleaved", lambda: pp_step_rank(
+                hf, device=device, virtual_stages=PP_VIRTUAL_STAGES,
+                n_microbatches=PP_STAGES, **kw.get("step", {}))),
+            ("pippy", lambda: pippy_rank(hf, device=device, **kw.get("pippy", {}))),
+            ("hooks", lambda: hooks_rank(hf, device=device, **kw.get("hooks", {}))),
+            ("local_sgd", lambda: local_sgd_rank(hf, device=device, **kw.get("local_sgd", {}))))
+    for name, run in runs:
+        _reset_port_state()
+        t = time.perf_counter()
+        parts[name] = run()
+        seconds[name] = time.perf_counter() - t
+    _reset_port_state()
+    return {**parts, "part_s": seconds, "seconds": time.perf_counter() - t0}
+
+
+def pp_gate(children, phase5) -> dict:
+    """Phase 23's checks on the children's phase-23 lines: (a) and (b) the
+    3 steps' loss and grad norm within PP_REL_TOL of phase 5's on every
+    rank, the ranks equal, each flash kernel launched layers × microbatches
+    times a step on each rank (36 and 18); (c) the pipelined logits within
+    PIPPY_REL_TOL of the resident ones with the argmax equal wherever the
+    top-2 gap exceeds their largest difference, only the last stage holding
+    them, the tiny GPT-2 within PIPPY_TINY_REL_TOL of the CPU's; (d) the
+    wire hooks' losses within HOOK_LOSS_TOL of "no"'s, PowerSGD's first
+    loss equal to "no"'s and the rest finite, its reduction within
+    POWERSGD_PLAIN_TOL of the plain version; (e) the ranks' parameters
+    different before each LocalSGD boundary and bit-equal after it."""
+    ranks = [next((line["pp"] for line in reversed(lines) if "pp" in line), None)
+             for _, lines, _ in children]
+    res = {"phase": "pipeline_parallel", "ranks": PP_STAGES,
+           "note": "two processes on one card joined by gloo, which stages every send and "
+                   "all-reduce through the host: step ms are gloo's; NCCL point-to-point "
+                   "(which refuses two ranks on one device) is not measured",
+           "reduced": f"(d) and (e) at {HOOK_LAYERS} of phase 5's 18 layers: gloo's "
+                      "all-reduce of the whole model's 4.2 GB of fp32 gradients takes "
+                      "seconds a step"}
+    checks = {"children": all(rc == 0 for rc, _, _ in children) and all(ranks)}
+    if not checks["children"]:
+        return {**res, "checks": checks, "ok": False,
+                "child_exit": [rc for rc, _, _ in children],
+                "child_stderr": [err for _, _, err in children]}
+
+    def rel_to_phase5(metrics):
+        return max(_rel(g, w) for got, want in zip(metrics, phase5["first_metrics"])
+                   for g, w in zip(got, want))
+
+    out = {}
+    for name in ("gpipe", "interleaved"):
+        runs = [r[name] for r in ranks]
+        rel = [rel_to_phase5(r["metrics"]) for r in runs]
+        want = [r["local_layers"] * r["microbatches"] for r in runs]
+        checks[f"{name}_vs_phase5"] = len(runs[0]["metrics"]) == PP_STEPS and max(rel) <= PP_REL_TOL
+        checks[f"{name}_ranks_agree"] = all(r["metrics"] == runs[0]["metrics"] for r in runs)
+        checks[f"{name}_launches"] = all(
+            r["launches_per_step"].get(k) == w for r, w in zip(runs, want) for k in KERNELS)
+        out[name] = {"rank_metrics": [r["metrics"] for r in runs],
+                     "phase5_metrics": phase5["first_metrics"], "max_rel": max(rel),
+                     "step_ms": [r["step_ms"] for r in runs],
+                     "step_ms_each": [r["step_ms_each"] for r in runs],
+                     "phase5_step_ms": phase5["step_ms"],
+                     "device_busy_ms": [r["device_busy_ms"] for r in runs],
+                     "busy_ms_by_category": [r["busy_ms_by_category"] for r in runs],
+                     "idle_share": [r["idle_share"] for r in runs],
+                     "peak_mem_gib": [r["peak_mem_gib"] for r in runs],
+                     "launches_per_step": [r["launches_per_step"] for r in runs],
+                     "launches_wanted": want,
+                     "p2p_per_step": [r["p2p_per_step"] for r in runs],
+                     "local_layers": [r["local_layers"] for r in runs],
+                     "microbatches": runs[0]["microbatches"],
+                     "virtual_stages": runs[0]["virtual_stages"]}
+    pippy = [r["pippy"] for r in ranks]
+    last = pippy[-1]
+    checks["pippy_only_last_stage"] = [p["returned"] is not None for p in pippy] == [
+        i == PP_STAGES - 1 for i in range(PP_STAGES)]
+    checks["pippy_vs_resident"] = (last.get("rel_l2", math.inf) <= PIPPY_REL_TOL
+                                   and last.get("argmax_disagree_clear", 1) == 0)
+    checks["pippy_gpt2_vs_cpu"] = all(p["gpt2_rel_l2"] <= PIPPY_TINY_REL_TOL for p in pippy)
+    out["pippy"] = {**{k: last.get(k) for k in ("rel_l2", "max_abs", "clear_positions",
+                                                "argmax_disagree_clear", "argmax_agree_share",
+                                                "returned")},
+                    "ms": [p["ms"] for p in pippy],
+                    "launches": [p["launches"] for p in pippy],
+                    "gpt2_rel_l2": [p["gpt2_rel_l2"] for p in pippy]}
+    hooks = [r["hooks"] for r in ranks]
+    base = hooks[0]["no"]["metrics"]
+    wire_dev = {h: max(abs(a[0] - b[0]) for a, b in zip(hooks[0][h]["metrics"], base))
+                for h in ("fp16", "bf16")}
+    psgd = [h["powersgd"] for h in hooks]
+    checks["hooks_ranks_agree"] = all(
+        h[k]["metrics"] == hooks[0][k]["metrics"] for h in hooks for k in HOOKS)
+    checks["wire_hooks_track_no"] = max(wire_dev.values()) <= HOOK_LOSS_TOL
+    checks["powersgd_first_loss"] = psgd[0]["metrics"][0][0] == base[0][0]
+    checks["powersgd_finite"] = all(math.isfinite(x) for m in psgd[0]["metrics"] for x in m)
+    plain = max(v for p in psgd for v in p["plain_rel"].values())
+    checks["powersgd_vs_plain"] = plain <= POWERSGD_PLAIN_TOL
+    out["hooks"] = {h: {"metrics": hooks[0][h]["metrics"],
+                        "step_ms": [x[h]["step_ms"] for x in hooks],
+                        "wire_bytes_per_step": [x[h]["wire_bytes_per_step"] for x in hooks]}
+                    for h in HOOKS}
+    out["hooks"]["wire_loss_deviation"] = wire_dev
+    out["hooks"]["powersgd_plain_rel"] = psgd[0]["plain_rel"]
+    out["hooks"]["powersgd_plain_rel_max"] = plain
+    lsgd = ranks[0]["local_sgd"]
+    k = lsgd["local_sgd_steps"]
+    differ = [len({tuple(fp) for fp in step}) > 1 for step in lsgd["before"]]
+    equal = [len({tuple(fp) for fp in step}) == 1 for step in lsgd["after"]]
+    checks["local_sgd_enabled"] = lsgd["enabled"]
+    checks["local_sgd_diverge_between"] = all(differ)
+    checks["local_sgd_equal_after_boundary"] = all(
+        eq for i, eq in enumerate(equal) if (i + 1) % k == 0)
+    out["local_sgd"] = {"losses": [r["local_sgd"]["losses"] for r in ranks],
+                        "differ_before": differ, "equal_after": equal,
+                        "seconds": lsgd["seconds"]}
+    seconds = [r["seconds"] for r in ranks]
+    return {**res, **out, "part_s": [r["part_s"] for r in ranks], "seconds": max(seconds),
+            "variant_launches": {p: ranks[0][part]["variant_launches"] for p, part in
+                                 (("pp_step", "gpipe"), ("pp_interleaved_step", "interleaved"),
+                                  ("pippy_forward", "pippy"))},
             "checks": checks, "ok": all(checks.values())}
 
 
@@ -6869,6 +7394,8 @@ def main() -> int:
         check_kernels(hf, "llama2_7b_stream", **LLAMA2_7B_LIKE, seed=27),
         # Phase 22's step at tp=2: each rank's 8 of the 16 heads.
         check_kernels(hf, "tp2_heads8", **TP_LIKE, seed=28),
+        # Phase 23's GPipe step at pp=2: microbatches of one row.
+        check_kernels(hf, "pp_microbatch", **PP_LIKE, seed=29),
     ]
     for case in cases:
         emit({"phase": "kernels", **case})
@@ -7105,14 +7632,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 22. tensor parallelism: phase 5's step and phase 7's generate at tp=2,
-    # two processes on the card over gloo
+    # two processes on the card over gloo, which then run phase 23
     tpar = tensor_parallel_phase(hf, main_path, phase7_tp)
-    tpar.pop("_children")
+    children = tpar.pop("_children")
     tpar.pop("_logits")
     emit(tpar)
     if not tpar["ok"]:
         failed = sorted(k for k, v in tpar["checks"].items() if not v)
         print(f"chip_smoke: tensor-parallel phase 22 failed: {failed}", file=sys.stderr)
+        return 1
+
+    # 23. pipeline parallelism (GPipe, interleaved, prepare_pippy), the comm
+    # hooks and LocalSGD, in phase 22's two processes
+    pipe = pp_gate(children, main_path)
+    emit(pipe)
+    if not pipe["ok"]:
+        failed = sorted(k for k, v in pipe["checks"].items() if not v)
+        print(f"chip_smoke: pipeline phase 23 failed: {failed}", file=sys.stderr)
         return 1
 
     emit({"kernels": kernel_summary(timed, cases, main_path, {
@@ -7131,7 +7667,8 @@ def main() -> int:
         "big_model_stream": big["stream"]["variant_launches"],
         "big_model_resident": big["resident"]["variant_launches"],
         "tp_step": tpar["variant_launches"],
-        "tp_generate": tpar["generate_variant_launches"]})})
+        "tp_generate": tpar["generate_variant_launches"],
+        **pipe["variant_launches"]})})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1684,8 +1684,8 @@ def test_save_on_each_node_writes_once_per_node(runs):
 def test_auto_flash_attention_runs_on_the_data_parallel_mesh(runs):
     for world in (2, 4):
         for r in runs[world]:
-            assert r["collectives"]["mesh"] == (["dp_replicate", "dp_shard", "cp", "sp", "tp"],
-                                                [1, world, 1, 1, 1])
+            assert r["collectives"]["mesh"] == (["pp", "dp_replicate", "dp_shard", "cp", "sp",
+                                                 "tp"], [1, 1, world, 1, 1, 1])
             assert r["collectives"]["auto_flash_equal"]
 
 
@@ -1751,9 +1751,9 @@ def test_torchrun_environment_must_be_complete(monkeypatch):
 
 
 def test_world_fill_and_refused_axes():
-    """dp_shard fills the world around the other axes; cp, sp and tp place
-    each process on the 5-D mesh in row-major order (tp innermost); pp and
-    ep raise."""
+    """dp_shard fills the world around the other axes; pp, cp, sp and tp
+    place each process on the 6-D mesh in row-major order (pp outermost, tp
+    innermost); ep raises."""
     assert ParallelismConfig().infer_missing_axis(4).dp_shard_size == 4
     pc = ParallelismConfig(dp_replicate_size=2).infer_missing_axis(8)
     assert (pc.dp_replicate_size, pc.dp_shard_size) == (2, 4)
@@ -1769,9 +1769,12 @@ def test_world_fill_and_refused_axes():
     assert (pc.dp_shard_size, pc.tp_size) == (4, 2)
     assert [pc.coordinates(r)["tp"] for r in range(4)] == [0, 1, 0, 1]
     assert [pc.data_parallel_index(r) for r in range(4)] == [0, 0, 1, 1]
-    for axis in ("pp_size", "ep_size"):
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            ParallelismConfig(**{axis: 2})
+    pc = ParallelismConfig(pp_size=2, tp_size=2).infer_missing_axis(8)
+    assert (pc.pp_size, pc.dp_shard_size, pc.non_pp_size) == (2, 2, 4)
+    assert [pc.coordinates(r)["pp"] for r in range(8)] == [0] * 4 + [1] * 4
+    assert [pc.data_parallel_index(r) for r in range(8)] == [0, 0, 1, 1] * 2
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        ParallelismConfig(ep_size=2)
     env = ParallelismConfig(dp_replicate_size=2, dp_shard_size=3).to_env()
     for k, v in env.items():
         os.environ[k] = v
@@ -2090,15 +2093,19 @@ def test_sharding_strategy_names_and_codes():
 def test_ddp_kwargs_reach_ddp(runs):
     """DistributedDataParallelKwargs' bucket size, unused-parameter search,
     bucket views and static graph are DDP's own, without a plugin and
-    under NO_SHARD; comm_hook raises, naming its ROADMAP item."""
+    under NO_SHARD; a comm_hook is taken (tests/test_torch_comm_hooks.py
+    runs it) and an unknown one refused by the reducer."""
     for r in runs[2]:
         for name, kw in DDP_KWARGS.items():
             got = r["ddp_kwargs"][name]
             assert got["type"] == "DistributedDataParallel" and not got["sharded"]
             want = {**{k: v for k, v in DistributedDataParallelKwargs().ddp_kwargs().items()}, **kw}
             assert {k: got[k] for k in want} == want
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        DistributedDataParallelKwargs(comm_hook="powersgd")
+    assert DistributedDataParallelKwargs(comm_hook="powersgd").comm_hook == "powersgd"
+    from accelerate_tpu_torch.parallel.comm_hooks import make_comm_hook_reducer
+
+    with pytest.raises(ValueError, match="comm_hook"):
+        make_comm_hook_reducer("gzip")
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ For every configuration of the JAX package's ``tests/test_estimate_memory.py``
 detector at ``dp_replicate=8`` and ``dp_shard=8``; the 7B Llama at
 ``dp_shard=64`` in bf16 with remat; the tiny Mixtral at ``dp_replicate=8``
 and at ``dp_replicate=4 × dp_shard=2`` with and without the EP rules; bf16
-moments), the port's ``estimate_per_chip`` on its module built on the
+moments; ``pp=2`` with ``dp_shard`` and ``tp``), the port's ``estimate_per_chip`` on its module built on the
 ``meta`` device gives every row within one byte of the JAX function's on
 its abstract parameter tree, and the same replicated leaves. The EP rules
 are the JAX table as data (``models/moe._mixtral_rules``): the port prices
@@ -65,6 +65,10 @@ CASES = {
     "mixtral-dp_replicate4_dp_shard2": ("mixtral", {}, {"dp_replicate_size": 4,
                                                         "dp_shard_size": 2}, None, TINY),
     "mixtral-ep2": ("mixtral", {}, {"dp_replicate_size": 4, "dp_shard_size": 2}, "ep", TINY),
+    # Pipeline stages: each holds its L/pp layers.
+    "llama-pp2_dp_shard4": ("llama", {}, {"pp_size": 2, "dp_shard_size": 4}, None, TINY),
+    "llama-pp2_dp_shard2_tp2": ("llama", {}, {"pp_size": 2, "dp_shard_size": 2, "tp_size": 2},
+                                "tp", TINY),
 }
 
 

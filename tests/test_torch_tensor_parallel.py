@@ -268,9 +268,12 @@ PLANS = {
     "tp2": ({"tp": 2}, None),
     "dp_shard2_tp2": ({"dp_shard": 2, "tp": 2}, None),
     "ignored": ({"dp_shard": 2, "tp": 2}, {"ignored_params": [r"embed", r"wte", r"shared"]}),
+    # The pp rule: a stacked block leaf's free layer dim goes on pp.
+    "pp2_dp_shard2_tp2": ({"pp": 2, "dp_shard": 2, "tp": 2}, None),
 }
 PLAN_CASES = [(f, t) for f in sorted(FAMILIES) for t in ("tp2", "dp_shard2_tp2")] + [
-    ("llama", "ignored"), ("gpt2", "ignored"), ("t5", "ignored")]
+    ("llama", "ignored"), ("gpt2", "ignored"), ("t5", "ignored"),
+    ("llama", "pp2_dp_shard2_tp2"), ("gpt2", "pp2_dp_shard2_tp2")]
 
 
 @pytest.mark.parametrize("family,topology", PLAN_CASES, ids=[f"{f}-{t}" for f, t in PLAN_CASES])
@@ -348,7 +351,7 @@ def test_parallelism_config_follows_the_jax_validation(monkeypatch):
 def test_rows_over_tp_and_refused_meshes():
     """Processes that differ only in tp read the same rows
     (``batch_axes``) and take tp innermost in the rank; tp with cp or sp
-    is refused, pp and ep still raise."""
+    is refused, ep still raises; pp is taken."""
     pc = ParallelismConfig(dp_shard_size=2, tp_size=2)
     assert [pc.coordinates(r)["tp"] for r in range(4)] == [0, 1, 0, 1]
     assert [pc.data_parallel_index(r) for r in range(4)] == [0, 0, 1, 1]
@@ -357,9 +360,9 @@ def test_rows_over_tp_and_refused_meshes():
     assert rows == [[0, 1, 2, 3], [0, 1, 2, 3], [4, 5, 6, 7], [4, 5, 6, 7]]
     assert pc.loss_reduce_axes == ("dp_replicate", "dp_shard", "cp", "sp")
     assert ParallelismConfig(dp_shard_size=2, tp_size=2).ep_axes == ()
-    for axis in ("pp_size", "ep_size"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            ParallelismConfig(**{axis: 2})
+    assert ParallelismConfig(pp_size=2, tp_size=2).total_size == 4
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ParallelismConfig(ep_size=2)
     with pytest.raises(NotImplementedError, match="item 6"):
         AcceleratorState(cpu=True, parallelism_config=ParallelismConfig(tp_size=2, cp_size=2))
 
@@ -683,7 +686,7 @@ def test_llama_steps_match_jax(runs, world, job, rtol):
         assert r["split"] and all("norm" not in n for n in r["split"])
     assert [r["tp_rank"] for r in results] == [0, 1] * (world // 2)
     assert [r["dp_index"] for r in results] == [i // 2 for i in range(world)]
-    assert results[0]["mesh"] == ["dp_replicate", "dp_shard", "cp", "sp", "tp"]
+    assert results[0]["mesh"] == ["pp", "dp_replicate", "dp_shard", "cp", "sp", "tp"]
     assert results[0]["sharded"] == (job == "fsdp_tp")
     if not bf16:
         _assert_weights(results[0]["params"], want_params, runs["ctx"]["llama"], 1e-5)

@@ -34,7 +34,7 @@ from accelerate_tpu_torch import (
     ProjectConfiguration,
     adamw,
 )
-from accelerate_tpu_torch.utils import DistributedDataParallelKwargs, TelemetryKwargs
+from accelerate_tpu_torch.utils import TelemetryKwargs
 from accelerate_tpu_torch.models import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -191,10 +191,10 @@ def test_accelerator_refuses_a_second_device_choice(monkeypatch):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: DistributedDataParallelKwargs(comm_hook="bf16"),
+    lambda: adamw(1e-3, mu_dtype=torch.bfloat16),
     lambda: FullyShardedDataParallelPlugin(mixed_precision_policy=MixedPrecisionPolicy()),
     lambda: ProjectConfiguration(automatic_resume=True),
-    lambda: ParallelismConfig(pp_size=2),
+    lambda: ParallelismConfig(ep_size=2),
     lambda: MixedPrecisionPolicy(reduce_dtype=torch.bfloat16),
     lambda: TelemetryKwargs(tracing=True),
 ])
@@ -240,15 +240,16 @@ def test_set_seed_seeds_every_generator_and_returns_one():
 
 
 def test_wider_mesh_and_fp16_are_not_ported():
-    """cp, sp and tp are ported (tests/test_torch_tensor_parallel.py); pp is
-    not. fp16 is ported (with dynamic loss scaling,
+    """cp, sp, tp and pp are ported (tests/test_torch_tensor_parallel.py,
+    tests/test_torch_pipeline.py); ep is not. fp16 is ported (with dynamic loss scaling,
     tests/test_torch_mixed_precision.py); a lower AdamW ``mu_dtype`` is
     not."""
     for axes in (dict(cp_size=2), dict(sp_size=2)):
         assert ParallelismConfig(**axes).seq_size == 2
     assert ParallelismConfig(tp_size=2).total_size == 2
+    assert ParallelismConfig(pp_size=2).total_size == 2
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        ParallelismConfig(pp_size=2)
+        ParallelismConfig(ep_size=2)
     with pytest.raises(ValueError, match="mutually exclusive"):
         ParallelismConfig(cp_size=2, sp_size=2)
     assert Accelerator(mixed_precision="fp16", cpu=True).mixed_precision == "fp16"
