@@ -217,7 +217,8 @@ def _global_norm(grads: list, pipeline_group=None, skip=frozenset()) -> torch.Te
     sharded on (FSDP2's dim and, under ``tp``, the ``tp`` one: a split
     gradient's shards count once), not over a replicated one (HSDP's
     ``dp_replicate × sp``; a ``tp``-replicated gradient, equal on every
-    ``tp`` rank):
+    ``tp`` rank; an expert stack split over ep is summed over its ep
+    slice alone, not over ``tp`` again):
     one all-reduce for all of them. Whole ones (DDP's, and the parameters
     FSDP2 leaves whole) are equal on every process after their
     all-reduce, so the local norm is theirs. Over a group of one the

@@ -26,8 +26,11 @@ chassis that its ``generate`` applies (``residual_multiplier``,
 ``logits_scaling``, ``norm_type="layernorm"``, a partial ``rotary_dim``,
 ``attention_multiplier``, the ``o_proj`` bias), this one runs the whole
 chassis through ``generation.py``'s block helpers, so that its greedy
-tokens are ``generate``'s for every chassis config. Mixtral over ``cp`` is
-ROADMAP.md Queue A item 6 (EP).
+tokens are ``generate``'s for every chassis config. A Mixtral is refused:
+the JAX ``cp_generate`` has no MoE path (its prefill and decode loop read
+each layer's ``mlp``, ``accelerate_tpu/cp_generation.py:191`` and
+``:242``, which a Mixtral block has not), and the port adds no feature the
+reference lacks.
 """
 
 from __future__ import annotations
@@ -242,8 +245,10 @@ def cp_generate(model, input_ids, max_new_tokens: int, *, temperature: Optional[
     module = getattr(model, "module", model)
     if type(module).__name__ != "LlamaForCausalLM":
         raise NotImplementedError(
-            f"cp_generate runs the Llama chassis; {type(module).__name__} over cp is not "
-            "ported yet (ROADMAP.md Queue A item 6 (EP))")
+            f"cp_generate runs the Llama chassis, not {type(module).__name__}: the JAX "
+            "cp_generate has no MoE path either (its prefill and decode read each layer's "
+            "'mlp', accelerate_tpu/cp_generation.py:191 and :242); decode a Mixtral with "
+            "generate")
     cfg = module.config
     params = _decode_params(model)
     device = _params_device(params)

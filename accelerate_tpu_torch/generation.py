@@ -74,6 +74,7 @@ from .models.llama import (
 from .models.moe import router_probs, top_k_experts
 from .models.t5 import MASKED, relative_position_bucket, t5_rms
 from .parallel import tp
+from .utils import operations
 from .utils.quantization import DecodeQuant, dequantize_decode_kernel
 
 _COMPILE_MANAGER_ITEM = "ROADMAP.md Queue A item 12 (control plane: compile_manager.py)"
@@ -262,20 +263,36 @@ def _proj(p: dict, name: str, x, heads: int) -> torch.Tensor:
 def _moe_dropless(cfg, p: dict, pre: str, x) -> torch.Tensor:
     """Mixtral's expert layer as the JAX decode plan computes it: fp32
     routing, every expert on every token (dropless: no capacity), the top-k
-    expert outputs mixed with their weights rounded to the compute dtype."""
+    expert outputs mixed with their weights rounded to the compute dtype.
+    With the experts split over ep (every rank of the ep slice decoding the
+    same tokens) each rank runs its own experts on every token, and the
+    picked rows, zero where another rank owns the expert, are summed over
+    the ep slice before the same mix."""
     b, s, d = x.shape
     tokens = x.reshape(b * s, d)
     weights, experts = top_k_experts(router_probs(tokens, p[pre + "moe.router"]),
                                      cfg.num_experts_per_tok)
+    w_gate = p[pre + "moe.w_gate"]
+    token = torch.arange(b * s, device=x.device)[:, None]
+    if tp.is_expert_split(w_gate):
+        local, mesh = w_gate.to_local().shape[0], w_gate.device_mesh
+        start = mesh.get_local_rank() * local
+        ye = tp.expert_products(tokens.expand(local, -1, -1), w_gate, p[pre + "moe.w_up"],
+                                p[pre + "moe.w_down"], x.dtype)  # (E/ep, T, d)
+        mine = (experts >= start) & (experts < start + local)
+        picked = ye[(experts - start).clamp(0, local - 1), token] * mine[..., None]
+        picked = operations.all_reduce(picked.contiguous(), group=mesh.get_group())
+        mixed = picked * weights.to(x.dtype)[..., None]
+        return mixed.float().sum(1).to(x.dtype).reshape(b, s, d)
     xe = tokens.expand(cfg.num_local_experts, -1, -1)
-    if tp.is_split(p[pre + "moe.w_gate"]):  # each expert's ffn dim split over tp
-        ye = tp.expert_products(xe, p[pre + "moe.w_gate"], p[pre + "moe.w_up"],
-                                p[pre + "moe.w_down"], x.dtype)
+    if tp.is_split(w_gate):  # each expert's ffn dim split over tp
+        ye = tp.expert_products(xe, w_gate, p[pre + "moe.w_up"], p[pre + "moe.w_down"],
+                                x.dtype)
     else:
-        h = F.silu(torch.bmm(xe, _kernel(p[pre + "moe.w_gate"], x.dtype)))
+        h = F.silu(torch.bmm(xe, _kernel(w_gate, x.dtype)))
         h = h * torch.bmm(xe, _kernel(p[pre + "moe.w_up"], x.dtype))
         ye = torch.bmm(h, _kernel(p[pre + "moe.w_down"], x.dtype))  # (E, T, d)
-    picked = ye[experts, torch.arange(b * s, device=x.device)[:, None]]  # (T, k, d)
+    picked = ye[experts, token]  # (T, k, d)
     mixed = picked * weights.to(x.dtype)[..., None]
     return mixed.float().sum(1).to(x.dtype).reshape(b, s, d)
 
@@ -389,7 +406,48 @@ def _decode_params(model_or_params) -> dict:
     if params is not None:
         return params
     module = getattr(model_or_params, "module", model_or_params)
-    return dict(module.named_parameters())
+    params = dict(module.named_parameters())
+    if getattr(model_or_params, "sharded", False):
+        return _gathered_fsdp_params(model_or_params, params)
+    return params
+
+
+def _gathered_fsdp_params(model, params: dict) -> dict:
+    """The decode's parameters of a ``Model`` FSDP2 shards: each sharded
+    one gathered whole (every process of the group decodes together), the
+    expert stacks split over ep left where they lie. Under ``tp`` FSDP2's
+    shards are 2-D with the ``tp`` split, which the decode plan does not
+    take."""
+    plan = model.tp_plan or {}
+    if any(pl.tp is not None for pl in plan.values()):
+        raise NotImplementedError(
+            "generate of a model FSDP2 shards over dp_shard × tp: prepare it for decoding "
+            "without the FSDP plugin (tp alone, or tp with dp_replicate)")
+    experts = set(model.expert_params)
+    return {n: _gather_shards(p) if isinstance(p, DTensor) and n not in experts else p
+            for n, p in params.items()}
+
+
+def _gather_shards(t: DTensor) -> torch.Tensor:
+    """The whole tensor of an FSDP2 parameter (dim 0 split over its mesh's
+    last dim, torch.chunk's rows, other dims replicated): this rank's rows
+    padded to the largest chunk, one ``all_gather`` over the shard group,
+    the pads cut. ``full_tensor``'s functional collectives fault over
+    gloo with tensors on the card (torch 2.11); this path does not."""
+    import torch.distributed as dist
+
+    local = t.to_local().detach()
+    for dim, placement in enumerate(t.placements):
+        if getattr(placement, "dim", None) is None or t.device_mesh.size(dim) == 1:
+            continue
+        group, n = t.device_mesh.get_group(dim), t.device_mesh.size(dim)
+        rows = -(-t.shape[0] // n)
+        padded = local.new_zeros((rows,) + tuple(local.shape[1:]))
+        padded[:local.shape[0]] = local
+        parts = [torch.empty_like(padded) for _ in range(n)]
+        dist.all_gather(parts, padded, group=group)
+        local = torch.cat(parts)[:t.shape[0]]
+    return local
 
 
 @torch.no_grad()
@@ -834,7 +892,9 @@ def _generation_plan(module, forward_cached: Optional[Callable] = None) -> Calla
     JAX package), else the plan of the module's class."""
     if forward_cached is not None:
         return forward_cached
-    fwd = GENERATION_PLANS.get(type(module).__name__)
+    # FSDP2 gives a sharded module a subclass of its own class.
+    fwd = next((GENERATION_PLANS[c.__name__] for c in type(module).__mro__
+                if c.__name__ in GENERATION_PLANS), None)
     if fwd is None:
         known = ", ".join(sorted(GENERATION_PLANS) + sorted(ENCDEC_GENERATION_PLANS))
         raise ValueError(f"No generation plan for {type(module).__name__!r}; built-in: {known}")

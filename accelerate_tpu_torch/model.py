@@ -55,6 +55,9 @@ class Model:
         # The plan prepare put the module on under tp (ParamPlacement by
         # parameter name), or None.
         self.tp_plan: Optional[dict] = None
+        # Under ep, the expert stacks split over the ep slice of the mesh,
+        # by parameter name (their gradients are reduced apart).
+        self.expert_params: dict = {}
         # Under pp, the names of the parameters this stage shares with
         # another (a tied embedding on the first and last stages).
         self.pipeline_shared: list = []

@@ -35,12 +35,34 @@ The decoder reuses the Llama port's attention (``attention_impl``: the
 Hopper flash kernels at Mixtral's GQA shape), norms and remat policies; the
 decoder list is ``model.layers``, which FSDP2 wraps block by block.
 
+Over a ``cp`` or ``sp`` axis each process holds a contiguous chunk of
+the sequence of each of its rows (``parallel/cp.py``), while the JAX
+layer's slot order runs token-major over the global ``(B, S)``: a
+token's queue position counts every earlier row whole and the earlier
+chunks of its own row, so the chunks of the processes interleave. The
+gathered counts are therefore per (process, row) run, and each run's
+offset is the sum of the runs before it in the global order
+(``gather_choice_counts``); ``frac`` and ``mean_prob`` stay global.
+
 Tensor parallelism (``mixtral_tp_rules()``, pure TP): the attention is
 split as Llama's, and each expert's ffn dim over ``tp``
 (``parallel/tp.expert_products``); the router stays whole, so every
-``tp`` rank routes alike and drops the same choices. Expert parallelism
-(``ep_axes``) and Mixtral over ``cp``/``sp`` axes are ROADMAP.md Queue A
-item 6 (EP).
+``tp`` rank routes alike and drops the same choices.
+
+Expert parallelism (``mixtral_tp_rules(ep_axes=...)`` with
+``ParallelismConfig(ep_size=...)``): each expert stack is split on its
+expert dim over ``ep_axes`` (a ``DTensor`` over that slice of the mesh,
+``state.ExpertGroups``), so each ep rank holds ``E/ep`` experts. Routing
+is unchanged: every rank routes its own tokens with the whole router,
+over the global batch. The kept choices' rows then travel to the ranks
+that own their experts (``parallel/ep.py``: one ``all_to_all_single``,
+split sizes from the counts already gathered), each rank computes its
+``(E/ep, C, d)`` products, and the reverse exchange brings the rows home
+for the combine. Where ``ep_axes`` include ``tp``, whose ranks hold the
+same rows, no row crosses ``tp``: each ``tp`` rank fills only its own
+experts' slots and the rows it brings home are summed over ``tp``. The
+result is the one without ep: the same slots, drops and aux loss; only
+where the products run changes.
 """
 
 from __future__ import annotations
@@ -49,7 +71,7 @@ import contextlib
 import dataclasses
 import math
 from functools import partial
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -57,8 +79,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from ..parallel import ep as ep_exchange
 from ..parallel import tp
-from ..state import current_sequence_shard
+from ..state import current_expert_groups, current_parallelism_config, current_sequence_shard
 from ..utils.operations import loss_group, loss_processes
 from .llama import (
     LlamaAttention,
@@ -70,9 +93,6 @@ from .llama import (
     embed_tokens,
     rotary_embedding,
 )
-
-_PARALLEL_ITEM = "ROADMAP.md Queue A item 6 (EP and Mixtral over cp/sp)"
-
 
 @dataclasses.dataclass
 class MixtralConfig(LlamaConfig):
@@ -135,7 +155,10 @@ class Routing(NamedTuple):
     ``position`` (T, k) in the expert's queue, ``kept`` (T, k) below
     capacity, the choice's ``weights`` (T, k) (zero where dropped); the
     per-expert ``dispatched`` counts (E,) of the batch they route over
-    (the global one under a step over several processes); ``capacity``."""
+    (the global one under a step over several processes); ``capacity``;
+    ``counts``: the gathered per-run choice counts of a step over several
+    processes (``parallel/ep.ChoiceCounts``), which the ep exchange plans
+    from, else None."""
 
     experts: torch.Tensor
     position: torch.Tensor
@@ -143,26 +166,32 @@ class Routing(NamedTuple):
     weights: torch.Tensor
     dispatched: torch.Tensor
     capacity: int
+    counts: Optional[ep_exchange.ChoiceCounts] = None
 
 
 def route(weights: torch.Tensor, experts: torch.Tensor, num_experts: int, capacity: int,
-          offset=None, totals=None) -> Routing:
+          offset=None, totals=None, counts=None) -> Routing:
     """Routing of the top-k choices (``top_k_experts``: ``weights``,
     ``experts`` (T, k)) into ``capacity`` slots per expert. ``offset``
-    (E,): the choices of each expert made by the tokens before these
-    (lower ranks'); ``totals`` (E,): every choice of the batch (default:
-    these tokens')."""
+    (R, E): for each of R equal runs of the tokens (a process's tokens, or
+    each of its rows when the sequence is split: each row's chunk has its
+    own place in the global order), the choices of each expert made by
+    the tokens before the run; ``totals`` (E,): every choice of the batch
+    (default: these tokens')."""
     t, k = experts.shape
     onehot = F.one_hot(experts, num_experts).reshape(t * k, num_experts)
     # Queue positions: token-major, a token's k-th choice after its (k-1)-th.
-    position = (torch.cumsum(onehot, 0) - onehot).reshape(t, k, num_experts)
+    runs = 1 if offset is None else offset.shape[0]
+    per_run = onehot.reshape(runs, -1, num_experts)
+    position = (torch.cumsum(per_run, 1) - per_run).reshape(t, k, num_experts)
     position = position.gather(-1, experts[..., None])[..., 0]
     if offset is not None:
-        position = position + offset[experts]
+        run = torch.arange(t, device=experts.device) // (t // runs)
+        position = position + offset[run[:, None], experts]
     kept = position < capacity
     totals = onehot.sum(0) if totals is None else totals
     return Routing(experts, position, kept, torch.where(kept, weights, 0.0),
-                   totals.clamp(max=capacity), capacity)
+                   totals.clamp(max=capacity), capacity, counts)
 
 
 def compute_dispatch(router_probs: torch.Tensor, num_experts_per_tok: int,
@@ -190,19 +219,57 @@ def load_balance_loss(router_probs: torch.Tensor, dispatch: torch.Tensor) -> tor
     return e * torch.sum(frac * router_probs.mean(0).float())
 
 
-def _global_counts(counts: torch.Tensor, tokens: int) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Over the processes of the running step, in rank order: the choices
-    of each expert made by lower ranks (E,), by every rank (E,), and the
-    global token count. One all_gather of E + 1 integers over the step's
-    loss group (every process but other ``tp`` ranks of the same rows)."""
-    group = loss_group()
-    mine = torch.cat([counts, counts.new_tensor([tokens])])
-    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, mine, group=group)
-    rank = dist.get_rank(group)
-    every = torch.stack(parts)
-    offset = every[:rank, :-1].sum(0)
-    return offset, every[:, :-1].sum(0), int(every[:, -1].sum())
+def _run_keys(ranks: list, runs: int) -> list:
+    """The place in the global token order of each process's runs: (its
+    global row, its slice of the sequence) for run ``c`` of ``ranks[i]``,
+    rows by ``data_parallel_index`` (group order without a set-up state)."""
+    cfg = current_parallelism_config()
+    if cfg is None:
+        return [(i * runs + c, 0) for i in range(len(ranks)) for c in range(runs)]
+    return [(cfg.data_parallel_index(g) * runs + c, cfg.sequence_index(g))
+            for g in ranks for c in range(runs)]
+
+
+def gather_choice_counts(counts: torch.Tensor, tokens: int, group, capacity_of,
+                         alone: bool = False) -> tuple[ep_exchange.ChoiceCounts, int]:
+    """The (R, E) per-run choice counts of this process's ``tokens`` (R
+    equal runs) gathered over ``group`` in one ``all_gather`` of R·(E + 1)
+    integers, as the finished ``ChoiceCounts``, and the global token count.
+    In a step (``group`` None: every process) the runs are placed in the
+    global token order with the choices of each expert before each run,
+    in one queue of ``capacity_of(global tokens)`` slots. ``alone``
+    (outside a step) each process routes alone: its runs follow each
+    other, its capacity is ``capacity_of(its tokens)`` and its slots start
+    after the lower processes'; ``group`` None there is this process by
+    itself, and nothing is gathered."""
+    runs, e = counts.shape
+    mine = torch.cat([counts, counts.new_full((runs, 1), tokens // runs)], 1)
+    if alone and group is None:
+        every, ranks, me = mine.cpu()[None], [dist.get_rank()], 0
+    else:
+        parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, mine, group=group)
+        every = torch.stack(parts).cpu()
+        ranks = (dist.get_process_group_ranks(group) if group is not None
+                 else list(range(dist.get_world_size())))
+        me = dist.get_rank(group)
+    n = len(ranks)
+    choices, sizes = every[..., :-1], every[..., -1].sum(1).tolist()
+    if alone:
+        offsets = torch.cumsum(choices, 1) - choices
+        capacity = [capacity_of(size) for size in sizes]
+        base, slots = [sum(capacity[:i]) for i in range(n)], sum(capacity)
+    else:
+        keys = _run_keys(ranks, runs)
+        order = sorted(range(n * runs), key=keys.__getitem__)
+        flat = choices.reshape(n * runs, e)
+        before = torch.empty_like(flat)
+        before[order] = torch.cumsum(flat[order], 0) - flat[order]
+        offsets = before.reshape(n, runs, e)
+        slots = capacity_of(sum(sizes))
+        capacity, base = [slots] * n, [0] * n
+    return (ep_exchange.ChoiceCounts(ranks, choices, offsets, capacity, base, slots, me),
+            sum(sizes))
 
 
 class MoeLayer(nn.Module):
@@ -228,24 +295,33 @@ class MoeLayer(nn.Module):
     def forward(self, x, processes: int = 1):
         b, s, d = x.shape
         tokens = x.reshape(b * s, d)
-        r, aux = self.route(tokens, processes)
+        r, aux = self.route(tokens, processes, rows=b)
+        if tp.is_expert_split(self.w_gate):
+            return self.expert_parallel(tokens, r).reshape(b, s, d), aux
         ye = self.experts(self.dispatch(tokens, r))
         return self.combine(ye, r).reshape(b, s, d), aux
 
-    def route(self, tokens, processes: int = 1) -> tuple[Routing, torch.Tensor]:
-        """The routing of (T, d) ``tokens`` and the layer's aux loss; over
-        several processes this process's share of it: its probabilities'
-        sum times processes / T, whose mean over the processes is the
-        global mean's term."""
+    def route(self, tokens, processes: int = 1, rows: int = 1) -> tuple[Routing, torch.Tensor]:
+        """The routing of (T, d) ``tokens`` (``rows`` rows) and the layer's
+        aux loss; over several processes this process's share of it: its
+        probabilities' sum times processes / T, whose mean over the
+        processes is the global mean's term."""
         cfg = self.cfg
         e, k, t = cfg.num_local_experts, cfg.num_experts_per_tok, tokens.shape[0]
         probs = router_probs(tokens, self.router)
         weights, experts = top_k_experts(probs, k)
-        offset, totals, t_all = None, None, t
+        offset, totals, t_all, gathered = None, None, t, None
         if processes > 1:
-            counts = F.one_hot(experts, e).sum((0, 1))
-            offset, totals, t_all = _global_counts(counts, t)
-        r = route(weights, experts, e, expert_capacity(cfg, t_all), offset, totals)
+            # One run per process, or one per row when the sequence is split.
+            pc = current_parallelism_config()
+            runs = rows if pc is not None and pc.seq_size > 1 else 1
+            counts = F.one_hot(experts, e).reshape(runs, -1, e).sum(1)
+            gathered, t_all = gather_choice_counts(counts, t, loss_group(),
+                                                   partial(expert_capacity, cfg))
+            offset = gathered.offsets[gathered.me].to(tokens.device)
+            totals = gathered.counts.sum((0, 1)).to(tokens.device)
+        capacity = expert_capacity(cfg, t) if gathered is None else gathered.slots
+        r = route(weights, experts, e, capacity, offset, totals, gathered)
         frac = r.dispatched.float() / r.dispatched.sum().clamp_min(1).float()
         mean_prob = probs.mean(0) if processes == 1 else probs.sum(0) * (processes / t_all)
         aux = cfg.router_aux_loss_coef * (e * torch.sum(frac * mean_prob))
@@ -267,9 +343,10 @@ class MoeLayer(nn.Module):
         return buf[:, :r.capacity]
 
     def experts(self, xe) -> torch.Tensor:
-        """The stacked SwiGLU experts on (E, C, d) inputs."""
+        """The stacked SwiGLU experts on (E, C, d) inputs; under ep this
+        rank's (E/ep, C, d)."""
         dtype = self.cfg.dtype
-        if tp.is_split(self.w_gate):
+        if tp.is_split(self.w_gate):  # the ffn dim over tp, or the experts over ep
             return tp.expert_products(xe, self.w_gate, self.w_up, self.w_down, dtype)
         h = F.silu(torch.bmm(xe, self.w_gate.to(dtype))) * torch.bmm(xe, self.w_up.to(dtype))
         return torch.bmm(h, self.w_down.to(dtype))
@@ -283,6 +360,43 @@ class MoeLayer(nn.Module):
         picked = F.pad(ye, (0, 0, 0, 1))[r.experts, slot]
         w = r.weights.to(dtype).float()
         return (picked.float() * w[..., None]).sum(1).to(dtype)
+
+
+    def expert_parallel(self, tokens, r: Routing) -> torch.Tensor:
+        """(T, d) combined outputs with the experts split over ep
+        (``state.ExpertGroups``): the kept choices' rows sent to their
+        experts' ranks, this rank's ``(E/ep, C, d)`` products, the rows
+        brought home and, where ``tp`` ranks share the ep slice, summed
+        over ``tp``, then mixed as ``combine`` mixes them."""
+        cfg, groups = self.cfg, current_expert_groups()
+        if groups is None:
+            raise RuntimeError("the experts are split over ep but no ep group is set up")
+        dtype, d = cfg.dtype, tokens.shape[1]
+        t, k = r.experts.shape
+        counts = r.counts
+        if counts is None:  # outside a step: each process routes alone
+            e = cfg.num_local_experts
+            own = F.one_hot(r.experts, e).reshape(1, -1, e).sum(1)
+            counts, _ = gather_choice_counts(own, t, groups.exchange,
+                                             partial(expert_capacity, cfg), alone=True)
+        plan = ep_exchange.plan_exchange(r.experts, r.position, r.kept, counts, groups,
+                                         cfg.num_local_experts)
+        if groups.tp > 1:  # the expert path's input gradient is summed over tp
+            tokens = tp.tp_input(tokens, groups.tp_group)
+        rows = tokens.to(dtype)[plan.order // k]
+        if groups.exchange is not None:
+            rows = ep_exchange.ExchangeRows.apply(rows, plan.send, plan.recv, groups.exchange)
+        local = cfg.num_local_experts // groups.size
+        buf = rows.new_zeros((local * plan.queue, d)).index_put((plan.slots,), rows)
+        ye = self.experts(buf.view(local, plan.queue, d)).reshape(local * plan.queue, d)
+        back = ye[plan.slots]
+        if groups.exchange is not None:
+            back = ep_exchange.ExchangeRows.apply(back, plan.recv, plan.send, groups.exchange)
+        picked = back.new_zeros((t * k, d)).index_put((plan.order,), back)
+        if groups.tp > 1:
+            picked = tp.tp_reduce(picked, groups.tp_group)
+        w = r.weights.to(dtype).float()
+        return (picked.view(t, k, d).float() * w[..., None]).sum(1).to(dtype)
 
 
 class MixtralBlock(nn.Module):
@@ -315,12 +429,16 @@ class MixtralModel(nn.Module):
     def forward(self, input_ids):
         """(final hidden states, the sum of the layers' aux losses)."""
         cfg = self.cfg
-        if current_sequence_shard()[0] > 1:
-            raise NotImplementedError(
-                f"Mixtral over a cp or sp axis is not ported yet ({_PARALLEL_ITEM})")
         x = embed_tokens(cfg, self.embed_tokens.weight, input_ids)
+        # Over a cp or sp axis this process holds slice i of n of each
+        # sequence: its global positions, as LlamaModel takes them.
+        n, i = current_sequence_shard()
+        if n > 1 and cfg.attention_impl == "native":
+            raise NotImplementedError(
+                "attention_impl='native' attends within this process's slice of the sequence; "
+                "over a cp or sp axis use flash, ring or ulysses")
         s = input_ids.shape[-1]
-        positions = torch.arange(s, device=input_ids.device)
+        positions = i * s + torch.arange(s, device=input_ids.device)
         cos, sin = rotary_embedding(positions, cfg.rotary_dim, cfg.rope_theta, x.dtype)
         # Read here, outside any checkpointed block: a recompute in the
         # backward routes over the same processes.
@@ -407,10 +525,7 @@ def _mixtral_rules(scan_layers: bool, ep_axes: tuple) -> list[tuple[str, tuple]]
 
 
 def mixtral_tp_rules(scan_layers: bool = True, ep_axes: tuple = ()):
-    """Mixtral's TP rule table with ``ep_axes=()``: pure TP
-    (``_mixtral_rules``). Expert parallelism is not ported; its table is
-    data (``estimate_per_chip`` prices it) that no process runs yet."""
-    if ep_axes:
-        raise NotImplementedError(f"mixtral_tp_rules(ep_axes={ep_axes!r}) is not ported yet "
-                                  f"({_PARALLEL_ITEM})")
-    return _mixtral_rules(scan_layers, ())
+    """Mixtral's TP + EP rule table (``_mixtral_rules``): with ``ep_axes``
+    (``ParallelismConfig.ep_axes``) the expert stacks split on their
+    expert dim over those axes, else pure TP."""
+    return _mixtral_rules(scan_layers, tuple(ep_axes))

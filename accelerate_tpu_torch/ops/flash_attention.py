@@ -114,8 +114,12 @@ def auto_flash_attention(q, k, v, *, causal: bool = True, mesh=None):
     Over a ``cp`` or ``sp`` axis wider than 1, where each process holds a
     slice of the sequence, it attends over the whole sequence, as the JAX
     package's ``shard_map`` leaves the sequence dim whole: the
-    ``"allgather"`` ring over that axis (``parallel/cp.py``). ``tp`` with
-    a sequence axis is not ported (ROADMAP.md Queue A item 6)."""
+    ``"allgather"`` ring over that axis (``parallel/cp.py``). Over ``tp``
+    with a sequence axis both hold: each rank's ``H/tp`` heads go through
+    the ``"allgather"`` ring over the sequence group of its ``tp`` slice
+    (the mesh's ``cp`` or ``sp`` group that holds this process), as the
+    JAX ``shard_map`` splits the heads over ``tp`` and leaves the sequence
+    whole."""
     if mesh is None:
         from ..state import current_mesh
 
@@ -125,7 +129,7 @@ def auto_flash_attention(q, k, v, *, causal: bool = True, mesh=None):
         wide = [n for i, n in enumerate(names) if mesh.size(i) > 1 and n not in DATA_PARALLEL_AXES]
         other = [n for n in wide if n not in SEQUENCE_AXES + HEAD_AXES]
         seq = [n for n in wide if n in SEQUENCE_AXES]
-        if len(names) != mesh.ndim or other or (seq and len(seq) < len(wide)):
+        if len(names) != mesh.ndim or other or len(seq) > 1:
             raise NotImplementedError(
                 f"auto_flash_attention over mesh axes {other or wide or mesh} is not ported yet "
                 "(ROADMAP.md Queue A item 6)")

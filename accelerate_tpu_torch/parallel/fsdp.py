@@ -67,6 +67,12 @@ blocks (each block its own root: the stage's forward runs the blocks, never
 the module's own forward), or DDP's arithmetic by the step over the stage's
 data-parallel slice.
 
+Under ``ep_size > 1`` a Mixtral's expert stacks are split over the ep
+slice of the mesh (``apply_tensor_parallel_model``); FSDP2 and the step's
+DDP arithmetic leave them out, and their gradients, already summed over
+the ep slice's tokens by the exchange's backward, are summed over the
+ranks that hold the same experts only (``average_whole_gradients``).
+
 FSDP2's units: one per repeated block of the model and one on the root.
 A family names its block classes in the class attribute ``_fsdp_blocks``
 (``LlamaBlock``, GPT-2's ``GPT2Block`` under ``h``, T5's ``block_{i}``
@@ -126,14 +132,39 @@ def average_whole_gradients(model, world: int, group=None) -> None:
     without a plugin that shards: every parameter's, a ``tp`` shard's
     local one) averaged over the ``world`` processes of ``group`` (None:
     every process), as DDP would average them: one all-reduce of a flat
-    buffer per dtype (Llama's 37 norm scales in one collective)."""
-    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+    buffer per dtype (Llama's 37 norm scales in one collective).
+
+    The expert stacks split over ep (``model.expert_params``) are left out
+    of that: the exchange's backward already brought each expert's
+    gradient from every token of its ep slice to its owner, so their sum
+    over the processes that hold the same experts (``ExpertGroups.
+    replicas``: the loss axes outside ``ep_axes``, if any) is the sum over
+    every process, and is divided by ``world`` as the others' is."""
     from torch.distributed.tensor import DTensor
+
+    from ..state import current_expert_groups
+
+    experts = {id(p) for p in model.expert_params.values()}
+    grads = [(p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad, id(p) in experts)
+             for p in model.ignored.values() if p.grad is not None]
+    _sum_and_divide([g for g, expert in grads if not expert], group, world)
+    expert_grads = [g for g, expert in grads if expert]
+    if not expert_grads:
+        return
+    replicas = current_expert_groups().replicas
+    if replicas is None:  # no replicas: the owner's sum is the whole sum
+        torch._foreach_div_(expert_grads, world)
+    else:
+        _sum_and_divide(expert_grads, replicas, world)
+
+
+def _sum_and_divide(grads: list, group, world: int) -> None:
+    """``grads`` summed over ``group`` and divided by ``world``, in place:
+    one all-reduce of a flat buffer per dtype."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
     from ..utils import operations
 
-    grads = [p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad
-             for p in model.ignored.values() if p.grad is not None]
     for dtype in dict.fromkeys(g.dtype for g in grads):
         same = [g for g in grads if g.dtype == dtype]
         flat = _flatten_dense_tensors(same)
@@ -173,20 +204,24 @@ def apply_activation_checkpointing(module: nn.Module) -> None:
 
 
 def apply_fsdp(module: nn.Module, mesh, plugin, compute_dtype: torch.dtype,
-               root: bool = True) -> dict:
+               root: bool = True, keep_whole: dict | None = None) -> dict:
     """``fully_shard`` on each decoder block and on ``module``, in place.
     ``mesh`` is the 2-D ``(replicate, shard)`` data-parallel mesh. Returns
-    the parameters left whole (``whole_parameters``) by name. With
-    ``root=False`` (a pipeline stage, whose forward runs its blocks one by
-    one and never the module's own) only the blocks are sharded, each its
-    own root, and the parameters outside them stay whole too."""
+    the parameters left whole (``whole_parameters``, and ``keep_whole``:
+    the expert stacks split over ep) by name. With ``root=False`` (a
+    pipeline stage, whose forward runs its blocks one by one and never the
+    module's own) only the blocks are sharded, each its own root, and the
+    parameters outside them stay whole too."""
     from torch.distributed.fsdp import CPUOffloadPolicy, MixedPrecisionPolicy, OffloadPolicy
     from torch.distributed.fsdp import fully_shard
 
     shard_mesh = mesh if mesh.size(0) > 1 else mesh[mesh.mesh_dim_names[1]]
     mp = (MixedPrecisionPolicy() if compute_dtype == torch.float32 else
           MixedPrecisionPolicy(param_dtype=compute_dtype, reduce_dtype=torch.float32))
-    ignored = whole_parameters(module, plugin, mesh.size(1))
+    experts = dict(keep_whole or {})
+    ignored = {n: p for n, p in whole_parameters(module, plugin, mesh.size(1)).items()
+               if n not in experts}
+    ignored.update(experts)
     blocks = decoder_blocks(module)
     if not root:
         inside = {id(p) for block in blocks for p in block.parameters()}
@@ -217,18 +252,41 @@ def apply_ddp(module: nn.Module, device: torch.device, ddp_kwargs=None) -> nn.Mo
 
 
 def apply_tensor_parallel_model(model, state, plugin) -> None:
-    """``model`` (a ``Model``) split over ``tp`` by its rule table
-    (``parallel/sharding.py``): the plan in ``model.tp_plan``, each split
-    parameter a DTensor over the mesh's ``tp`` slice. Without rules every
-    parameter stays whole on every ``tp`` rank, as in the JAX plan."""
+    """``model`` (a ``Model``) split over ``tp`` and ``ep`` by its rule
+    table (``parallel/sharding.py``): the plan in ``model.tp_plan``, each
+    split parameter a DTensor over the mesh's ``tp`` slice, each expert
+    stack an ep rule splits a DTensor over the ep slice
+    (``state.ExpertGroups``; by name in ``model.expert_params``). Without
+    rules every parameter stays whole on every ``tp`` rank, as in the JAX
+    plan."""
     from .sharding import apply_tensor_parallel, plan_parameter_sharding
 
-    _refuse_expert_rules(model)
     cfg = state.parallelism_config
     model.tp_plan = plan_parameter_sharding(
         model.module, state.device_mesh, fsdp_plugin=plugin, parallelism_config=cfg,
         tp_rules=model.tp_rules)
-    apply_tensor_parallel(model.module, model.tp_plan, state.tensor_parallel_mesh)
+    if cfg.tp_size > 1:
+        apply_tensor_parallel(model.module, model.tp_plan, state.tensor_parallel_mesh)
+    _apply_expert_parallel(model, state)
+
+
+def _apply_expert_parallel(model, state) -> None:
+    """The expert stacks of ``model.tp_plan`` with an ep placement split
+    over the ep slice; ``model.expert_params`` by name. Under ``ep_size >
+    1`` a plan that splits no stack (rules without ``ep_axes``) is
+    refused: the experts would be whole while the mesh says otherwise."""
+    cfg = state.parallelism_config
+    if cfg.ep_size == 1:
+        return
+    from .sharding import apply_tensor_parallel
+
+    names = [n for n, pl in model.tp_plan.items() if pl.ep is not None]
+    if not names:
+        raise ValueError(
+            f"ep_size={cfg.ep_size} but the model's TP rules split no expert stack over "
+            f"ep_axes={cfg.ep_axes}: pass tp_rules=mixtral_tp_rules(ep_axes=pc.ep_axes)")
+    apply_tensor_parallel(model.module, model.tp_plan, state.expert_groups.mesh, kind="ep")
+    model.expert_params = {n: model.module.get_parameter(n) for n in names}
 
 
 def apply_pipeline_stage(model, state, plugin, compute_dtype: torch.dtype) -> None:
@@ -246,8 +304,11 @@ def apply_pipeline_stage(model, state, plugin, compute_dtype: torch.dtype) -> No
     cfg = state.parallelism_config
     n_stages, stage = state.pipeline_stage
     plan = None
+    if cfg.ep_size > 1:
+        raise NotImplementedError(
+            "ep under pp: the pipeline stages run the Llama chassis (parallel/pp.keep_stage), "
+            "which has no experts")
     if cfg.tp_size > 1:
-        _refuse_expert_rules(model)
         plan = plan_parameter_sharding(model.module, state.device_mesh, fsdp_plugin=plugin,
                                        parallelism_config=cfg, tp_rules=model.tp_rules)
     model.pipeline_shared = keep_stage(model.module, n_stages, stage, cfg.pp_virtual_stages)
@@ -255,7 +316,7 @@ def apply_pipeline_stage(model, state, plugin, compute_dtype: torch.dtype) -> No
         names = {n for n, _ in model.module.named_parameters()}
         model.tp_plan = {n: pl for n, pl in plan.items() if n in names}
         apply_tensor_parallel(model.module, model.tp_plan, state.tensor_parallel_mesh)
-    if cfg.dp_size == 1:
+    if state.loss_size == 1:
         return
     if plugin is not None and plugin.sharding_strategy != "NO_SHARD":
         model.ignored = apply_fsdp(model.module, state.data_parallel_mesh, plugin, compute_dtype,
@@ -263,15 +324,6 @@ def apply_pipeline_stage(model, state, plugin, compute_dtype: torch.dtype) -> No
         model.sharded = True
     else:
         model.ignored = dict(model.module.named_parameters())
-
-
-def _refuse_expert_rules(model) -> None:
-    for pattern, spec in model.tp_rules:
-        axes = {a for e in spec if e for a in (e if isinstance(e, tuple) else (e,))}
-        if axes - {"tp"}:
-            raise NotImplementedError(
-                f"TP rule {pattern!r} splits over {sorted(axes - {'tp'})}: expert parallelism "
-                "is not ported yet (ROADMAP.md Queue A item 6 (EP))")
 
 
 def _broadcast_parameters(module: nn.Module) -> None:
@@ -307,13 +359,14 @@ def apply_data_parallel(model, state, plugin, compute_dtype: torch.dtype,
     if state.parallelism_config.pp_size > 1:
         apply_pipeline_stage(model, state, plugin, compute_dtype)
         return
-    if state.parallelism_config.tp_size > 1:
+    pc = state.parallelism_config
+    if pc.tp_size > 1 or pc.ep_size > 1:
         apply_tensor_parallel_model(model, state, plugin)
-        if state.parallelism_config.dp_size == 1:
+        if state.loss_size == 1:
             return
         if plugin is not None and plugin.sharding_strategy != "NO_SHARD":
             model.ignored = apply_fsdp(model.module, state.data_parallel_mesh, plugin,
-                                       compute_dtype)
+                                       compute_dtype, keep_whole=model.expert_params)
             model.sharded = True
         else:
             model.ignored = dict(model.module.named_parameters())

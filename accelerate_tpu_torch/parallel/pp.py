@@ -401,6 +401,7 @@ def llama_pipeline_forward(model, input_ids: torch.Tensor, *, mesh=None,
     Requires ``config.scan_layers=True``, as the JAX package does (its
     stacked layers are the stages)."""
     from ..models.llama import embed_tokens, rotary_embedding, scale_logits
+    from ..state import current_sequence_shard
     from . import tp
 
     module = _module(model)
@@ -413,12 +414,22 @@ def llama_pipeline_forward(model, input_ids: torch.Tensor, *, mesh=None,
         return module(input_ids)
     v_stages = _resolve_virtual_stages(virtual_stages)
     inner = module.model
+    # Over a cp or sp axis each stage's process holds its slice of the
+    # sequence (the sends carry it) at its global positions; the stage's
+    # attention over the whole sequence is auto_flash_attention's ring.
+    n_seq, i_seq = current_sequence_shard()
+    if n_seq > 1 and cfg.attention_impl != "flash":
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r} under pp with a cp or sp axis: the JAX "
+            "llama_pipeline_forward fails there too (the ring's shard_map inside the "
+            "pipeline's finds a context mesh with pp Manual that does not match its mesh); "
+            "use attention_impl='flash'")
     b, s = input_ids.shape
     if stage == 0:
         x = embed_tokens(cfg, inner.embed_tokens.weight, input_ids)
     else:
         x = torch.empty((b, s, cfg.hidden_size), dtype=cfg.dtype, device=input_ids.device)
-    positions = torch.arange(s, device=input_ids.device)
+    positions = i_seq * s + torch.arange(s, device=input_ids.device)
     cos, sin = rotary_embedding(positions, cfg.rotary_dim, cfg.rope_theta, cfg.dtype)
     chunks = [functools.partial(_run_layers, [inner.layers[i] for i in idx], cos, sin,
                                 cfg.remat, inner._remat_kwargs)

@@ -102,12 +102,14 @@ class ParamPlacement:
     ``spec``: the JAX plan's PartitionSpec of that leaf as a tuple (trailing
     ``None``s dropped; a scanned leaf's leading layer dim included);
     ``tp``: how the port's tensor is split over ``tp`` (``Shard`` or
-    ``_StridedShard``), or None where it is whole on every ``tp`` rank or
-    split over several axes (expert parallelism, which is not run)."""
+    ``_StridedShard``), or None where it is whole on every ``tp`` rank;
+    ``ep``: how an expert stack is split over the ep slice of the mesh
+    (``Shard(0)``, its expert dim over ``ep_axes``), else None."""
 
     flax_name: str
     spec: tuple
     tp: Any = None
+    ep: Any = None
 
 
 def mesh_sizes(mesh) -> dict:
@@ -129,6 +131,8 @@ def _capacity(sizes: dict, axes) -> int:
 
 
 _SCAN_LAYER_RE = re.compile(r"(^|/)(layers|h)/")
+# The expert stacks an ep rule splits on their expert dim.
+_EXPERT_STACK_RE = re.compile(r"moe/(w_gate|w_up|w_down)$")
 
 
 def _leaf_spec(name: str, shape: tuple, sizes: dict, tp_rules, ignored, fsdp_axes,
@@ -214,31 +218,37 @@ def plan_parameter_sharding(module, mesh, *, fsdp_plugin=None, parallelism_confi
     min_size_to_shard = (fsdp_plugin.min_weight_size_to_shard if fsdp_plugin is not None
                          else 2**11)
     tp = sizes["tp"]
+    ep_axes = cfg.ep_axes
     plan, found = {}, {}
     for fqn, p, leaf, shape in _flax_leaves(module):
         spec = _leaf_spec(leaf.name, shape, sizes, tp_rules, ignored, fsdp_axes,
                           min_size_to_shard)
-        placement = None
+        placement = expert = None
         layer_spec = spec[1:] if leaf.index is not None else spec
+        layer_shape = shape[1:] if leaf.index is not None else shape
         for f, entry in enumerate(layer_spec):
             axes = entry if isinstance(entry, tuple) else (entry,)
-            # A dim split over several axes (expert parallelism) gets no
-            # placement: its spec prices it, and apply_tensor_parallel_model
-            # refuses to run it.
-            if entry is None or axes != ("tp",) or tp == 1:
+            if entry is None:
                 continue
-            layer_shape = shape[1:] if leaf.index is not None else shape
             key = (leaf.name, layer_shape, tuple(p.shape), f)
+            if ep_axes and axes == ep_axes and _EXPERT_STACK_RE.search(leaf.name):
+                if key not in found:
+                    found[key] = _port_placement(leaf, layer_shape, tuple(p.shape), f,
+                                                 cfg.ep_size)
+                expert = found[key]
+                continue
+            if axes != ("tp",) or tp == 1:
+                continue
             if key not in found:  # every layer of a stack maps alike
                 found[key] = _port_placement(leaf, layer_shape, tuple(p.shape), f, tp)
             placement = found[key]
-        plan[fqn] = ParamPlacement(leaf.name, spec, placement)
+        plan[fqn] = ParamPlacement(leaf.name, spec, placement, expert)
     return plan
 
 
 def _port_placement(leaf, flax_shape: tuple, port_shape: tuple, f: int, tp: int):
-    """The placement of the port's tensor that gives each ``tp`` rank the
-    elements the flax dim ``f`` split ``tp`` ways gives it: found by
+    """The placement of the port's tensor that gives each of ``tp`` ranks
+    the elements the flax dim ``f`` split ``tp`` ways gives it: found by
     carrying each element's rank through the leaf's ``from_flax``."""
     from torch.distributed.tensor import Shard
 
@@ -269,24 +279,25 @@ def _port_placement(leaf, flax_shape: tuple, port_shape: tuple, f: int, tp: int)
                      f"port's {port_shape} tensor")
 
 
-def apply_tensor_parallel(module, plan: dict, mesh) -> None:
+def apply_tensor_parallel(module, plan: dict, mesh, kind: str = "tp") -> None:
     """Put ``module`` on ``plan`` in place: each parameter with a ``tp``
-    placement becomes a ``DTensor`` over ``mesh`` (the 1-D ``tp`` slice)
-    whose local tensor is a copy of this rank's rows of the whole tensor
-    every rank holds (no communication; the whole one is freed); the
-    others stay as they are."""
+    placement (with ``kind="ep"``, an ``ep`` one) becomes a ``DTensor``
+    over ``mesh`` (the 1-D ``tp`` slice, or the ep slice of
+    ``state.ExpertGroups``) whose local tensor is a copy of this rank's
+    rows of the whole tensor every rank holds (no communication; the
+    whole one is freed); the others stay as they are."""
     from torch import nn
     from torch.distributed.tensor import DTensor
 
     from .tp import local_rows
 
     cfg = getattr(module, "config", None)
-    if getattr(cfg, "fp8", False):
+    if getattr(cfg, "fp8", False) and kind == "tp":
         raise NotImplementedError(
             "fp8 projections under tp: each rank's current scaling would take its own "
             "shard's amax (ROADMAP.md Queue A item 6)")
     for fqn, p in list(module.named_parameters()):
-        placement = plan[fqn].tp
+        placement = getattr(plan[fqn], kind)
         if placement is None:
             continue
         owner, _, attr = fqn.rpartition(".")

@@ -297,10 +297,24 @@ def heads_for_local_q(q, k, v, num_heads: int, num_kv_heads: int, q_weight):
     return tuple(out)
 
 
+def is_expert_split(t) -> bool:
+    """Whether ``t`` is an expert stack split on its expert dim (dim 0)
+    over the ep slice of the mesh (expert parallelism); the TP rule splits
+    a stack's ffn dim, never dim 0."""
+    return isinstance(t, DTensor) and getattr(t.placements[0], "dim", None) == 0
+
+
 def expert_products(xe: torch.Tensor, w_gate, w_up, w_down, dtype) -> torch.Tensor:
     """The stacked SwiGLU experts on (E, C, d) inputs with the ffn dim of
     each expert split over ``tp`` (gate and up on their last dim, down on
-    its middle one): local products, the down projection all-reduced."""
+    its middle one): local products, the down projection all-reduced. With
+    the stacks split on their expert dim over ep (``is_expert_split``) the
+    inputs are this rank's experts' (E/ep, C, d), and the products are
+    local and whole."""
+    if is_expert_split(w_gate):
+        h = F.silu(torch.bmm(xe, w_gate.to_local().to(dtype))) * torch.bmm(
+            xe, w_up.to_local().to(dtype))
+        return torch.bmm(h, w_down.to_local().to(dtype))
     group = _group(w_gate)
     xe = tp_input(xe, group)
     h = F.silu(torch.bmm(xe, w_gate.to_local().to(dtype))) * torch.bmm(

@@ -7,7 +7,9 @@ runs six axes over a ``torch.distributed`` group, one process per GPU:
 the replicate axis of HSDP), ``dp_shard`` (FSDP2), ``cp`` (ring attention,
 ``parallel/cp.py``), ``sp`` (Ulysses, ``parallel/sp.py``) and ``tp``
 (tensor parallelism, ``parallel/sharding.py`` and ``parallel/tp.py``).
-``ep`` above 1 raises, naming ROADMAP.md Queue A item 6 (EP).
+``ep`` is no axis of its own: as in the JAX package it borrows whole axes
+of ``(dp_shard, sp, tp)`` (``ep_axes``), over which a Mixtral's expert
+stacks are split (``models/moe.py``).
 
 Processes lie on the mesh in row-major order of ``MESH_AXES``, as the JAX
 package lays its devices (``pp`` outermost, as its ``build_mesh`` puts it
@@ -27,7 +29,6 @@ PARALLELISM_CONFIG_PREFIX = "PARALLELISM_CONFIG_"
 # The mesh's axes, outermost first: pp, then the JAX package's
 # MESH_AXIS_ORDER.
 MESH_AXES = ("pp", "dp_replicate", "dp_shard", "cp", "sp", "tp")
-_UNPORTED_AXES = {"ep_size": "ROADMAP.md Queue A item 6 (EP)"}
 
 
 class ParallelismOversubscriptionError(ValueError):
@@ -60,14 +61,13 @@ class ParallelismConfig:
         if self.cp_rotate_method not in ("alltoall", "allgather"):
             raise ValueError(
                 f"cp_rotate_method must be alltoall|allgather, got {self.cp_rotate_method}")
+        if self.ep_size > 1 and self.ep_size > self.dp_shard_size * self.sp_size * self.tp_size:
+            raise ValueError(
+                "ep_size must divide into dp_shard*sp*tp (experts are sharded over those axes); "
+                f"got ep={self.ep_size}")
         if not isinstance(self.pp_virtual_stages, int) or self.pp_virtual_stages < 1:
             raise ValueError(
                 f"pp_virtual_stages must be a positive int, got {self.pp_virtual_stages!r}")
-        for name, item in _UNPORTED_AXES.items():
-            if getattr(self, name) > 1:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)}: expert parallelism is not ported yet "
-                    f"({item})")
 
     @property
     def dp_size(self) -> int:
@@ -106,9 +106,8 @@ class ParallelismConfig:
     def ep_axes(self) -> tuple[str, ...]:
         """Mesh axes the expert dim of MoE layers is sharded over: whole axes
         of ``(dp_shard, sp, tp)`` whose sizes multiply to ``ep_size``, the
-        earlier ones preferred, as in the JAX package. Empty while
-        ``ep_size`` is 1, which it is until EP is ported (ROADMAP.md Queue A
-        item 6)."""
+        earlier ones preferred, as in the JAX package; empty while
+        ``ep_size`` is 1."""
         if self.ep_size == 1:
             return ()
         from itertools import combinations

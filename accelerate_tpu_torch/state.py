@@ -25,7 +25,7 @@ import os
 from contextlib import contextmanager
 from datetime import timedelta
 from functools import wraps
-from typing import Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -232,6 +232,31 @@ class PartialState:
         cls._shared_state.clear()
 
 
+class ExpertGroups(NamedTuple):
+    """Where a Mixtral's experts lie under ``ep_size > 1``. ``mesh``: the
+    1-D slice of the mesh over ``ep_axes`` (flattened when they are
+    several), on which each expert stack is a ``DTensor`` split on its
+    expert dim: ep rank ``rank`` of ``size`` holds experts ``[rank·E/size,
+    (rank+1)·E/size)``. ``exchange``: the ranks of that slice that hold
+    distinct tokens, those of its ``dp_shard`` and ``sp`` axes
+    (``exchange_size`` of them; None when ``ep_axes`` is ``tp`` alone);
+    the token rows travel over it. ``tp``: the ``tp`` ranks inside the ep
+    slice (1 when ``tp`` is not an ep axis); they hold the same tokens, so
+    each fills only its own experts' slots and ``tp_group`` sums the
+    results. ``replicas``: the ranks that hold the same experts and other
+    tokens (the loss axes outside ``ep_axes``), over which the experts'
+    gradients are summed; None when there are none."""
+
+    mesh: Any
+    size: int
+    rank: int
+    exchange: Any
+    exchange_size: int
+    tp: int
+    tp_group: Any
+    replicas: Any
+
+
 class AcceleratorState:
     """PartialState plus the precision and parallelism choices."""
 
@@ -248,14 +273,6 @@ class AcceleratorState:
         self._partial = partial
         self.mixed_precision = "no" if mixed_precision is None else mixed_precision
         pc = parallelism_config or ParallelismConfig()
-        if pc.tp_size > 1 and pc.seq_size > 1:
-            raise NotImplementedError(
-                "tp with a cp or sp axis is not ported yet (ROADMAP.md Queue A item 6: the "
-                "rest of TP beside EP)")
-        if pc.pp_size > 1 and pc.seq_size > 1:
-            raise NotImplementedError(
-                "pp with a cp or sp axis is not ported yet (ROADMAP.md Queue A item 6: the "
-                "rest of PP)")
         # The data-parallel axes fill the world, as the JAX package fills its
         # devices (ParallelismConfig.infer_missing_axis).
         self.parallelism_config = pc.infer_missing_axis(partial.num_processes)
@@ -263,6 +280,8 @@ class AcceleratorState:
         self._dp_mesh = None
         self._loss_group = None
         self._edge_group = None
+        self._expert_groups = None
+        self._flattened: dict = {}
 
     @property
     def device_mesh(self):
@@ -273,17 +292,37 @@ class AcceleratorState:
             self._mesh = self.parallelism_config.build_mesh(self._partial.device.type)
         return self._mesh
 
+    def _flat(self, axes: tuple):
+        """The 1-D slice of ``device_mesh`` over ``axes`` (in mesh order),
+        flattened into one dim when there are several, or None when
+        ``axes`` is empty. Every process builds it (its groups) together."""
+        mesh = self.device_mesh
+        if not axes:
+            return None
+        if len(axes) == 1:
+            return mesh[axes[0]]
+        name = "_".join(axes)
+        if name not in self._flattened:
+            self._flattened[name] = mesh[axes]._flatten(name)
+        return self._flattened[name]
+
     @property
     def data_parallel_mesh(self):
         """The 2-D ``(replicate, shard)`` mesh FSDP2 runs over
         (``ParallelismConfig.build_data_parallel_mesh``), built on first
-        use; None without a group. Under ``tp`` or ``pp`` it is the
-        ``(dp_replicate, dp_shard)`` slice of ``device_mesh`` (this stage's
-        under ``pp``), so that FSDP2 composes with the ``tp`` slice's
-        DTensors and every group comes from one root mesh."""
+        use; None without a group. Under ``tp`` or ``pp`` it is a slice of
+        ``device_mesh`` (this stage's under ``pp``), so that FSDP2 composes
+        with the ``tp`` slice's DTensors and every group comes from one
+        root mesh: ``(dp_replicate, dp_shard)``, or with a sequence axis
+        ``dp_replicate × sp`` by ``dp_shard × cp``, each flattened."""
         if self._dp_mesh is None and self._partial.use_distributed:
             cfg = self.parallelism_config
-            if cfg.tp_size > 1 or cfg.pp_size > 1:
+            if (cfg.tp_size > 1 or cfg.pp_size > 1) and cfg.seq_size > 1:
+                replicate = self._flat(("dp_replicate", "sp"))
+                shard = self._flat(("dp_shard", "cp"))
+                self._dp_mesh = self.device_mesh[replicate.mesh_dim_names[0],
+                                                 shard.mesh_dim_names[0]]
+            elif cfg.tp_size > 1 or cfg.pp_size > 1:
                 self._dp_mesh = self.device_mesh["dp_replicate", "dp_shard"]
             else:
                 self._dp_mesh = self.parallelism_config.build_data_parallel_mesh(
@@ -310,14 +349,45 @@ class AcceleratorState:
         """The process group of this process's loss: every axis but ``tp``
         and ``pp`` (``loss_reduce_axes``): ``tp`` ranks compute one loss on
         the same rows, and a pipeline's last stage alone computes it. Under
-        ``tp`` or ``pp`` (no sequence axis) that is this stage's
-        ``data_parallel_mesh`` slice flattened, built on first use by every
-        process; None (the default group, every process) otherwise."""
+        ``tp`` or ``pp`` that is the ``loss_reduce_axes`` slice of
+        ``device_mesh`` of this process's ``tp`` rank and stage, flattened,
+        built on first use by every process; None (the default group, every
+        process) otherwise."""
         cfg = self.parallelism_config
         if (self._loss_group is None and (cfg.tp_size > 1 or cfg.pp_size > 1)
                 and self._partial.use_distributed):
-            self._loss_group = self.data_parallel_mesh._flatten("dp").get_group()
+            axes = tuple(a for a in cfg.loss_reduce_axes if cfg.axis_size(a) > 1)
+            if not axes:  # a group of one
+                self._loss_group = self._flat(("dp_replicate", "dp_shard")).get_group()
+            else:
+                self._loss_group = self._flat(axes).get_group()
         return self._loss_group
+
+    @property
+    def expert_groups(self) -> Optional["ExpertGroups"]:
+        """Under ``ep_size > 1`` the groups expert parallelism runs over
+        (``ExpertGroups``), built on first use by every process; None
+        otherwise or without a process group."""
+        cfg = self.parallelism_config
+        if cfg.ep_size == 1 or not self._partial.use_distributed:
+            return None
+        if self._expert_groups is None:
+            ep = cfg.ep_axes
+            rows = tuple(a for a in ep if a != "tp")
+            tp_in_ep = cfg.tp_size if "tp" in ep else 1
+            replicas = tuple(a for a in cfg.loss_reduce_axes
+                             if a not in ep and cfg.axis_size(a) > 1)
+            mesh = self._flat(ep)
+            exchange = self._flat(rows)
+            replica = self._flat(replicas)
+            self._expert_groups = ExpertGroups(
+                mesh=mesh, size=cfg.ep_size, rank=mesh.get_local_rank(),
+                exchange=None if exchange is None else exchange.get_group(),
+                exchange_size=1 if exchange is None else exchange.size(),
+                tp=tp_in_ep,
+                tp_group=self.device_mesh["tp"].get_group() if tp_in_ep > 1 else None,
+                replicas=None if replica is None else replica.get_group())
+        return self._expert_groups
 
     @property
     def loss_size(self) -> int:
@@ -396,6 +466,21 @@ def current_mesh():
     if not AcceleratorState._shared_state.get("_partial"):
         return None
     return AcceleratorState().device_mesh
+
+
+def current_expert_groups() -> Optional[ExpertGroups]:
+    """The set-up ``AcceleratorState``'s ``expert_groups``, or None when no
+    state is set up, ``ep_size`` is 1 or there is no process group."""
+    if not AcceleratorState._shared_state.get("_partial"):
+        return None
+    return AcceleratorState().expert_groups
+
+
+def current_parallelism_config() -> Optional[ParallelismConfig]:
+    """The set-up ``AcceleratorState``'s ``parallelism_config``, or None."""
+    if not AcceleratorState._shared_state.get("_partial"):
+        return None
+    return AcceleratorState().parallelism_config
 
 
 def current_sequence_shard() -> tuple[int, int]:

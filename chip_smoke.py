@@ -35,7 +35,7 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    parameters, seq 2048, batch 4, bf16 with fp32 masters, AdamW, remat
    "dots", flash attention) for 2 warm-up and 5 timed steps, with the
    kernels' launch counts.
-6. profile: two more full-width steps under torch.profiler, device time by
+6. profile: one more full-width step under torch.profiler, device time by
    kernel category and the share of the step with no kernel running.
 7. generate: greedy generate() of the tiny fp32 Llama on the card against
    the CPU (a plain batch and a left-padded batch with EOS), then bench.py's
@@ -240,7 +240,7 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    flash attention, ``fused_cross_entropy_loss`` in chunks of 256; 2
    warm-up and 5 timed steps on one batch with the flash kernels' launches
    counted from zero (18 of each a step, all of the bf16 head-dim-256
-   variant), ms per step, MFU, peak memory, two profiled steps (idle share,
+   variant), ms per step, MFU, peak memory, one profiled step (idle share,
    device time by category); then the fused loss and one step of
    ``cross_entropy_loss`` on the same state and an unseen batch (within
    ``FUSED_LOSS_REL``; the two steps' peaks side by side). (c) Its decode row (phase 7's, bf16
@@ -265,7 +265,7 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    ``moe_cross_entropy_loss``; 2 warm-up and 5 timed steps with the flash
    kernels' launches counted from zero (2 of each a step, all
    ``*.bf16.d128``), ms, tok/s, MFU over the active parameters, peak
-   memory, the dropped share, and two profiled steps with the router,
+   memory, the dropped share, and one profiled step with the router,
    dispatch, expert products and combine as categories of their own. (c)
    Phase 7's decode row at 8 layers in bf16 beside the routed experts' and
    all experts' per-token bounds. (d) Phase 8's engine on 16 requests; its
@@ -290,7 +290,7 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    fp32 masters, adamw(3e-4, weight_decay=0.1), clipping, remat on every
    block): GPT-2 XL 4 x 1024, Pythia-1B 4 x 2048, OPT-1.3B 4 x 2048,
    T5-base 8 x (512 encoder, 128 decoder), Whisper-large 2 x (3000, 80)
-   features and 128 decoder tokens; 2 warm-up and 5 timed steps (the batch
+   features and 128 decoder tokens; 2 warm-up and 3 timed steps (the batch
    halved on OOM, said so), ms, tokens/s, MFU from the counted FLOPs (the
    formula in the row), peak memory, one profiled step (device-busy ms,
    idle share, categories); losses start near ln(vocab) and fall, and no
@@ -318,9 +318,9 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    preset's dropout drawn from a torch.Generator; ViT-B/16 on 64 images of
    224^2 and 1000 labels; CLIP ViT-B/32 on 128 pairs of 77 text tokens and
    224^2 images; ResNet-50 on 64 images of 224^2 with mutable_state (the
-   running statistics); 2 warm-up and 5 timed steps, ms, tokens/s or
+   running statistics); 2 warm-up and 3 timed steps, ms, tokens/s or
    images/s, MFU from the module's shapes (the formula in the row; the
-   convolutions' MACs for ResNet), peak memory, two profiled steps
+   convolutions' MACs for ResNet), peak memory, one profiled step
    (device-busy ms by matmul/conv, elementwise and softmax, BatchNorm,
    AdamW, BatchNorm's kernels moved one by one out of the category they
    fell in, the categories adding up to the busy total; idle share); the
@@ -363,7 +363,7 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    ``STREAM_CARD_REL`` of the model resident on the card (bit-equality
    printed) and ``STREAM_REL`` of the port on the CPU, every call
    streamed. (d) A megatron-core checkpoint of
-   Llama-2-7B's widths at 4 layers, TP 2 x PP 2 (``mp_rank_0T_00P``, bf16,
+   Llama-2-7B's widths at 2 layers, TP 2 x PP 2 (``mp_rank_0T_00P``, bf16,
    its args) through ``load_megatron_model`` onto the card: logits equal bit
    for bit to the model built from the same flax tree directly.
 22. tensor parallelism at ``tp=2`` as two processes on the one card
@@ -406,12 +406,39 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    hooks' losses within ``HOOK_LOSS_TOL`` of ``"no"``'s, PowerSGD's first
    loss equal to it and its later ones finite, and its reduced gradients
    within ``POWERSGD_PLAIN_TOL`` of the hook's plain version (the same
-   algorithm on both ranks' gradients in fp64 on the host); step ms and
+   algorithm on both ranks' gradients in fp64 on the card); step ms and
    wire bytes a step. (e) ``LocalSGD(local_sgd_steps=2)`` over 4 steps of
    (d)'s model, the ranks on different batches: the parameters differ
    across the ranks before each boundary and are bit-equal after it.
    Phases 2 and 3 check and time the kernels at the GPipe microbatch
    shape (B1 S2048 H16 D128).
+24. expert parallelism, run by phase 22's two processes after phase 23:
+   phase 18 (b)'s Mixtral-8x7B step (its widths at 2 layers, weights,
+   batch of 2 × 2048 and optimizer) with ``mixtral_tp_rules(ep_axes=...)``
+   and FSDP2 on the rest. (a) ``ep_size=2`` over ``dp_shard=2``: one row
+   a rank, 4 of the 8 experts a rank; (b) ``sp_size=2`` with
+   ``ep_size=2`` (ep over ``sp``): both rows, half the sequence a rank,
+   Ulysses attention, the routing's slot order over the processes'
+   chunks. Each: 3 steps on both ranks (equal on both) against phase 18
+   (b)'s first three: step 1's loss within ``EP_STEP1_LOSS_TOL``, its
+   grad norm within ``EP_STEP1_NORM_TOL`` and its dropped choices equal; steps 2-3 within
+   ``EP_REL_TOL``, their drops within ``EP_DROP_SHARE`` of the routed
+   count plus ``EP_REL_TOL`` of phase 18's drops; 2 launches a kernel a
+   step on each rank, ``estimate_per_chip`` within
+   ``EP_ESTIMATE_SHARE`` of each rank's peak; step ms, one profiled
+   step's device-busy ms by category and idle share, the token
+   exchange's calls and bytes a step (all staged through the host over
+   gloo); then greedy ``generate`` of 8 tokens from phase 7's (1, 64)
+   prompt with the experts split, equal on both ranks and held to the
+   plain dropless decode of the same weights with the stacks gathered
+   whole (tokens off near-ties, teacher-forced logits within
+   ``TP_PLAIN_FACTOR`` times the plain bf16 logits' distance from fp32),
+   its top-2 gaps and ms a token. ``chip_smoke.py --drop-witness`` runs
+   ``drop_shift_witness``, which shows why the gate widens after step 1.
+   Phases 2 and 3 check and time the kernels at each rank's attention:
+   (a) B1 S2048 Hq32 Hkv8 D128, (b) after the Ulysses exchange B2 S2048
+   Hq16 Hkv16 D128 (the kv heads repeated up to the q heads first, as
+   the JAX package does).
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -469,19 +496,30 @@ TP_LIKE = dict(SLICE, hq=SLICE["hq"] // TP_RANKS, hkv=SLICE["hkv"] // TP_RANKS)
 # Phase 23's GPipe step at pp=2: one microbatch of one of phase 5's rows.
 PP_MICROBATCHES = SLICE["b"]
 PP_LIKE = dict(SLICE, b=SLICE["b"] // PP_MICROBATCHES)
+# Phase 24's ranks: (a) ep=2 over dp_shard=2, each rank one of phase 18
+# (b)'s two rows (Mixtral's attention at batch 1); (b) sp=2 with ep=2,
+# after the Ulysses exchange both rows over the whole sequence at half the
+# heads, the kv heads repeated up to the q heads first (as the JAX package
+# does).
+EP_RANKS = 2
+EP_LIKE = dict(MIXTRAL_LIKE, b=MIXTRAL_LIKE["b"] // EP_RANKS)
+SP_EP_LIKE = dict(MIXTRAL_LIKE, hq=MIXTRAL_LIKE["hq"] // EP_RANKS,
+                  hkv=MIXTRAL_LIKE["hq"] // EP_RANKS)
 # The main paths whose launches the kernels line reports: phase 5's Llama
 # train step (bf16 d128), phase 17's Gemma-2B train step (bf16 d256), phase
 # 18's Mixtral-8x7B train step (bf16 d128, GQA 4:1) and its cp_generate
 # prefill (bf16 d128 at seq 8192, the forward kernel), and phase 21's
 # Llama-2-7B forward streamed past a budget on the card (the forward kernel),
 # phase 22's step at tp=2 (each rank's counts: rank 0's are reported), and
-# phase 23's GPipe and interleaved steps at pp=2 (rank 0's).
+# phase 23's GPipe and interleaved steps at pp=2 (rank 0's), and phase 24's
+# Mixtral steps under ep (rank 0's).
 MAIN_PATHS = ("train_step", "gemma_2b_step", "mixtral_8x7b_step", "cp_generate",
-              "big_model_stream", "tp_step", "pp_step", "pp_interleaved_step")
+              "big_model_stream", "tp_step", "pp_step", "pp_interleaved_step", "ep_step",
+              "sp_ep_step")
 # The other runs whose launches the line lists by path, outside "launches".
 OTHER_PATHS = ("imperative_loop", "observed_loop", "observed_imperative", "observed_serving",
                "fp16_step", "fp8_step", "dcp_loop", "dcp_async_loop", "serving_rest",
-               "big_model_resident", "tp_generate", "pippy_forward")
+               "big_model_resident", "tp_generate", "pippy_forward", "ep_generate")
 _TRAINING_PATHS = ("train_step", "gemma_2b_step", *OTHER_PATHS)
 # Phase 3 times every built variant (hopper_flash.variant) at the shape its
 # users give it: head dims 64 and 128 at the training shape, 256 at the
@@ -505,7 +543,9 @@ TIMED = [(None, "bfloat16", SLICE, _TRAINING_PATHS),
                                                            "big_model_resident")),
          ("tp2_heads8", "bfloat16", TP_LIKE, ("tp_step", "tp_generate")),
          ("pp_microbatch", "bfloat16", PP_LIKE, ("pp_step", "pp_interleaved_step",
-                                                  "pippy_forward"))]
+                                                  "pippy_forward")),
+         ("ep_row", "bfloat16", EP_LIKE, ("ep_step", "ep_generate")),
+         ("sp_ep_ulysses", "bfloat16", SP_EP_LIKE, ("sp_ep_step",))]
 SOURCES = {"flash_fwd": "accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
            "flash_dq": "accelerate_tpu_torch/ops/csrc/flash_dq.cu",
            "flash_dkv": "accelerate_tpu_torch/ops/csrc/flash_dkv.cu",
@@ -1070,7 +1110,7 @@ def plan_of(model):
     decode-quantized model): the Llama chassis's, or another family's."""
     from accelerate_tpu_torch import generation as gen
 
-    return gen.GENERATION_PLANS[type(getattr(model, "module", model)).__name__]
+    return gen._generation_plan(getattr(model, "module", model))
 
 
 def _tiny_module(device, seed=0):
@@ -1316,6 +1356,7 @@ def full_width_serving(module, row=SERVING_ROW, keep_rows=False):
         "tok_s": stats["tokens_out"] / wall, "stats": stats,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "kv_cache_gib": (engine._cache.k.nbytes + engine._cache.v.nbytes) / 2**30,
+        "kv_cache_bytes": engine._cache.k.nbytes + engine._cache.v.nbytes,
         "decode_ticks": ticks,
         "ok": serving_gate(rows, prompts, budgets.tolist(), stats, vocab),
         **({"_rows": rows, "_prompts": prompts, "_budgets": budgets} if keep_rows else {}),
@@ -1602,11 +1643,6 @@ def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         launches = [(dict(hf.LAUNCHES), steps)]
         variant_launches = dict(hf.VARIANT_LAUNCHES)
         step_count = acc.train_state.step
-        # The same model on one fixed batch (phase 5's way), in this process
-        # after the save: tells the loader's cost from the host's state.
-        batch = next(it)
-        _, t = timed(lambda: [step(acc.train_state, batch) for _ in range(3)])
-        ms["fixed_batch_after_save"] = t / 3
         busy_ms = None
         if profile_steps:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1618,7 +1654,7 @@ def loop_phase(hf, fixed_step_ms, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
         it.close()
         if async_save:
             acc.end_training()  # frees the pinned copies the background save kept
-        del acc, step, loader, sched, it, head, tail, batch
+        del acc, step, loader, sched, it, head, tail
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1739,7 +1775,7 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
     step, state, batch = main.pop("_step")
     acc = main.pop("_acc")
     main.pop("_module")
-    prof = profile_steps(step, state, batch, main["step_ms"]) if profile else None
+    prof = profile_steps(step, state, batch, main["step_ms"], steps=1) if profile else None
 
     x = torch.arange(24.0, device=acc.device).reshape(4, 6)
     obj = [{"a": 1}, "b"]
@@ -3508,11 +3544,29 @@ def bf16_tie_gap(cfg, model, rows, prompt_lens, k, device):
     return 4 * delta, delta
 
 
-def speculation_at_width(module, row=SERVING_ROW, rest=SERVING_REST, device="cuda"):
+def phase8_run(phase8) -> dict:
+    """Phase 8's replay of its trace (``full_width_serving`` with
+    ``keep_rows``: the same weights, engine settings and arrivals) as (b)'s
+    speculate_k=0 run on that trace, in (b)'s row format: every request
+    came back ``ok`` (phase 8's gate), none drafted."""
+    stats = phase8["stats"]
+    rows = [{"tokens": r, "status": "ok", "drafted": 0, "accepted": 0} for r in phase8["rows"]]
+    return {"rows": rows, "wall_s": phase8["wall_s"], "tok_s": phase8["tok_s"],
+            "ttft_p50_s": stats["ttft_p50_s"], "ttft_p95_s": stats["ttft_p95_s"],
+            "speculation": stats["speculation"], "decode_steps": stats["decode_steps"],
+            "peak_mem_gib": phase8["peak_mem_gib"], "statuses_ok": True,
+            "counts_ok": speculation_counts_ok(rows, stats["speculation"]),
+            "decode_ticks": phase8["decode_ticks"], "from_phase8": True}
+
+
+def speculation_at_width(module, row=SERVING_ROW, rest=SERVING_REST, device="cuda",
+                         phase8=None):
     """(b) The engine at speculate_k 0 and k on phase 8's trace and on the
     same arrivals with repetitive prompts (a motif repeated), with decode
     ticks profiled on phase 8's trace; the k runs' greedy rows against the
-    0 runs' under the bf16 tie gap derived here."""
+    0 runs' under the bf16 tie gap derived here. With ``phase8`` (its rows
+    kept) phase 8's own replay stands for the 0 run on its trace, which it
+    would repeat."""
     import numpy as np
     import torch
 
@@ -3523,10 +3577,14 @@ def speculation_at_width(module, row=SERVING_ROW, rest=SERVING_REST, device="cud
     rng = np.random.default_rng(16)
     motifs = [np.tile(rng.integers(1, vocab, rest["motif"]), rest["motif_repeats"])
               for _ in prompts]
-    runs, engines = {}, {}
+    runs, caches = {}, {}
     for trace, trace_prompts in (("phase8", prompts), ("repetitive", motifs)):
         t_cap = int(max(len(p) + b for p, b in zip(trace_prompts, budgets))) + 8
         for kk in (0, k):
+            if trace == "phase8" and kk == 0 and phase8 is not None:
+                runs[trace, kk] = phase8_run(phase8)
+                caches[kk] = {"t_max": phase8["max_len"], "bytes": phase8["kv_cache_bytes"]}
+                continue
             engine = ServingEngine(Model(module), ServingConfig(
                 n_slots=row["slots"], max_len=t_cap, max_prefill_chunk=max(16, row["prompt_len"]),
                 speculate_k=kk, speculate_ngram=rest["spec_ngram"]))
@@ -3544,7 +3602,8 @@ def speculation_at_width(module, row=SERVING_ROW, rest=SERVING_REST, device="cud
                 "counts_ok": speculation_counts_ok(rows, stats["speculation"])}
             if trace == "phase8":
                 runs[trace, kk]["decode_ticks"] = decode_tick_profile(engine, vocab)
-                engines[kk] = engine
+                caches[kk] = {"t_max": engine.t_max,
+                              "bytes": engine._cache.k.nbytes + engine._cache.v.nbytes}
     # The tie gap from the run, and each k row's first parting from its 0 row.
     sample = runs["phase8", 0]["rows"][:rest["tie_rows"]]
     tie_gap, delta = bf16_tie_gap(cfg, module, [r["tokens"] for r in sample],
@@ -3570,7 +3629,7 @@ def speculation_at_width(module, row=SERVING_ROW, rest=SERVING_REST, device="cud
                                   or 0) > 0}
     return {"runs": report, "bf16_tie_gap": tie_gap, "bf16_logit_delta": delta,
             "divergences": divergences, "checks": checks,
-            "_rows": runs["phase8", 0]["rows"], "_engine": engines[0], "_trace": (
+            "_rows": runs["phase8", 0]["rows"], "_cache": caches[0], "_trace": (
                 lengths, budgets, prompts, arrivals)}
 
 
@@ -3586,9 +3645,9 @@ def int8_pages_at_width(module, bf16, row=SERVING_ROW, device="cuda"):
 
     cfg, vocab = module.config, module.config.vocab_size
     lengths, budgets, prompts, arrivals = bf16["_trace"]
-    ref_engine = bf16["_engine"]
+    ref_cache = bf16["_cache"]
     engine = ServingEngine(Model(module), ServingConfig(
-        n_slots=row["slots"], max_len=ref_engine.t_max,
+        n_slots=row["slots"], max_len=ref_cache["t_max"],
         max_prefill_chunk=max(16, row["prompt_len"]), cache_dtype=torch.int8))
     engine.warmup()
     torch.cuda.synchronize()
@@ -3598,7 +3657,7 @@ def int8_pages_at_width(module, bf16, row=SERVING_ROW, device="cuda"):
     peak = torch.cuda.max_memory_allocated() / 2**30
     ticks = decode_tick_profile(engine, vocab)
     int8_bytes = engine._cache.k.nbytes + engine._cache.v.nbytes
-    bf16_bytes = ref_engine._cache.k.nbytes + ref_engine._cache.v.nbytes
+    bf16_bytes = ref_cache["bytes"]
 
     # The first decode step after a prefill of 8 prompts of 64 tokens, fed
     # the same tokens (the bf16 cache's greedy ones) over both caches.
@@ -3818,10 +3877,11 @@ def generation_rest_at_width(module, tie_gap, rest=SERVING_REST, device="cuda",
 
 
 def serving_rest_phase(hf, phase7=None, device="cuda", width=FULL_WIDTH, row=SERVING_ROW,
-                       rest=SERVING_REST):
+                       rest=SERVING_REST, phase8=None):
     """Phase 16: (a) tiny parity on the card; (b)-(e) at full width with
-    phase 8's 1.06B bf16 Llama (weights from seed 0). No flash kernel lies
-    on this path: the launches, counted from zero, are printed."""
+    phase 8's 1.06B bf16 Llama (weights from seed 0); ``phase8``: phase 8's
+    replay with its rows, which (b) reuses. No flash kernel lies on this
+    path: the launches, counted from zero, are printed."""
     import torch
 
     from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -3833,10 +3893,10 @@ def serving_rest_phase(hf, phase7=None, device="cuda", width=FULL_WIDTH, row=SER
     module = LlamaForCausalLM(cfg, device=device)
     module.init_weights(torch.Generator(device=device).manual_seed(0))
     module.to(torch.bfloat16)
-    spec = speculation_at_width(module, row, rest, device)
+    spec = speculation_at_width(module, row, rest, device, phase8)
     tie_gap = spec["bf16_tie_gap"]
     int8 = int8_pages_at_width(module, spec, row, device)
-    for key in ("_rows", "_engine", "_trace"):
+    for key in ("_rows", "_cache", "_trace"):
         spec.pop(key)
     admission = admission_at_width(module, tie_gap, row, rest, device)
     generation = generation_rest_at_width(module, tie_gap, rest, device, width)
@@ -3991,7 +4051,7 @@ def gemma_train_steps(hf, device="cuda", width=GEMMA_2B, row=GEMMA_ROW):
     launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
     peak_fused = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(x) for x in losses]
-    profile = profile_steps(step, state, batch, dt * 1e3)
+    profile = profile_steps(step, state, batch, dt * 1e3, steps=1)
 
     # Both losses on the same state, each pair through one call path (a
     # forward outside the step's compute cast against the step's own loss
@@ -4421,7 +4481,7 @@ def mixtral_train_steps(hf, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW):
     """(b) The Mixtral-8x7B train step at ``row["train_layers"]`` layers
     (seeded random weights, bf16 compute over fp32 masters, adamw,
     clipping, remat "dots", flash attention, ``moe_cross_entropy_loss``) on
-    one fixed batch, counted from zero; then two profiled steps. Batch 1
+    one fixed batch, counted from zero; then one profiled step. Batch 1
     where batch 2 does not fit (said so in the result)."""
     import numpy as np
     import torch
@@ -4462,13 +4522,14 @@ def mixtral_train_steps(hf, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             hf.reset_launch_counts()
-            losses, dropped = [], []
+            losses, norms, dropped = [], [], []
             for i in range(n_steps):
                 if i == row["warmup"]:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                 state, metrics = step(state, batch)
                 losses.append(metrics["loss"])
+                norms.append(metrics["grad_norm"])
                 dropped.append(module.router_stats()["dropped"])
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / row["timed"]
@@ -4483,8 +4544,9 @@ def mixtral_train_steps(hf, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW):
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(x) for x in losses]
     routed = module.router_stats()["routed"]
-    dropped_share = [int(x) / routed for x in dropped]
-    profile = moe_profile(step, state, batch, dt * 1e3)
+    dropped = [int(x) for x in dropped]
+    dropped_share = [x / routed for x in dropped]
+    profile = moe_profile(step, state, batch, dt * 1e3, steps=1)
     active = mixtral_active_params(cfg)
     tok_s = bs * seq / dt
     flops_per_token = 6 * active["total"] + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq
@@ -4516,6 +4578,9 @@ def mixtral_train_steps(hf, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW):
                        "active: attention, router, k of E experts, norms, embedding and head; "
                        "capacity padding not counted",
         "losses": losses, "ln_vocab": math.log(cfg.vocab_size),
+        # Phase 24's reference: its steps start from these weights and batch.
+        "first_metrics": [(l, float(n)) for l, n in zip(losses, norms)][:EP_STEPS],
+        "dropped": dropped, "routed": int(routed),
         "dropped_share": dropped_share, "launches": launches,
         "variant_launches": variant_launches,
         "launches_per_step": {k: v / n_steps for k, v in launches.items()},
@@ -4752,11 +4817,11 @@ FAMILY_ROWS = {
     "whisper_large": dict(family="whisper", preset="whisper_large", batch=2, frames=3000,
                           dec_seq=128),
 }
-# (b): 2 warm-up, 5 timed and 1 profiled train step; (c): 3 profiled decode
+# (b): 2 warm-up, 3 timed and 1 profiled train step; (c): 3 profiled decode
 # steps; both profiles trace the card's kernels only (the host's events,
 # at 2,500 kernels a token and 18,000 a Whisper step, took most of a row's
 # seconds to parse).
-FAMILY_STEPS = dict(warmup=2, timed=5, profiled=1, profiled_decode=3)
+FAMILY_STEPS = dict(warmup=2, timed=3, profiled=1, profiled_decode=3)
 # (c): T5 decodes 32 tokens from a 512-token input; Whisper from 30 s of
 # features with Whisper's start-of-transcript prompt and forced language,
 # task and no-timestamps tokens (multilingual Whisper's ids).
@@ -5593,8 +5658,8 @@ ENCODER_ROWS = {name: {**row, "remat": False, "numpy_weights": True} for name, r
     "clip_b32": dict(family="clip", preset=None, batch=128, seq=77),
     "resnet50": dict(family="resnet", preset="resnet50", batch=64),
 }.items()}
-# (b): 2 warm-up, 5 timed and 2 profiled steps.
-ENCODER_STEPS = dict(warmup=2, timed=5, profiled=2)
+# (b): 2 warm-up, 3 timed and 1 profiled step.
+ENCODER_STEPS = dict(warmup=2, timed=3, profiled=1)
 ENCODER_FAMILIES = ("bert", "vit", "clip", "resnet")
 # BERT's [MASK] id in its published vocabulary.
 BERT_MASK_ID = 103
@@ -6544,9 +6609,9 @@ def tp_step_rank(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], batch_size
     """Phase 22 (a), one rank: phase 5's 1.06B Llama (same weights, batch
     and optimizer) under ``ParallelismConfig(tp_size=2)`` with
     ``llama_tp_rules``: ``steps`` steps counted from zero (metrics, launches
-    per step, the all-reduces and their bytes), then one more under
-    torch.profiler for the device-busy ms by category (gloo's staging
-    copies under ``copy/memset``)."""
+    per step, the all-reduces and their bytes), the last of them under
+    torch.profiler's tracing of the card's kernels for the device-busy ms
+    by category (gloo's staging copies under ``copy/memset``)."""
     import numpy as np
     import torch
 
@@ -6579,12 +6644,16 @@ def tp_step_rank(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], batch_size
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hf.reset_launch_counts()
-    metrics, times = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
+    metrics, times, prof = [], [], None
+    for i in range(steps):
+        traced = profile and i == steps - 1
+        with (torch.profiler.profile(activities=profiled_activities(host=False)) if traced
+              else contextlib.nullcontext()) as prof_i:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        prof = prof_i if traced else prof
         metrics.append(m)
     launches = dict(hf.LAUNCHES)
     variant_launches = dict(hf.VARIANT_LAUNCHES)
@@ -6592,14 +6661,13 @@ def tp_step_rank(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], batch_size
     collective_counters.enabled = False
     metrics = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
     step_ms = float(np.mean(times[1:]))
-    prof = profile_steps(step, state, batch, step_ms, steps=1, host=False) if profile else {}
-    busy = prof.get("device_busy_ms_per_step")
+    busy, by_cat = device_times(prof, 1)[:2] if profile else (None, None)
     split = sum(is_split(p) for p in module.parameters())
     local_params = sum((p.to_local() if is_split(p) else p).numel() for p in module.parameters())
     out = {
         "metrics": metrics, "step_ms": step_ms, "step_ms_each": times,
         "device_busy_ms": busy, "idle_share": None if busy is None else 1 - busy / step_ms,
-        "busy_ms_by_category": prof.get("ms_per_step_by_category"),
+        "busy_ms_by_category": by_cat, "traced_step": steps if profile else None,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
         "variant_launches": variant_launches, "n_layers": cfg.num_hidden_layers,
@@ -6692,9 +6760,14 @@ def tp_child_main(args: dict) -> int:
         cls._reset_state()
     gc.collect()
     torch.cuda.empty_cache()
-    # On the CPU phase 23 runs only when narrowed (a rehearsal passes "pp").
+    # On the CPU phases 23 and 24 run only when narrowed (a rehearsal passes
+    # "pp" or "ep").
     if device == "cuda" or "pp" in kw:
         emit({"rank": args["rank"], "pp": pipeline_child(hf, device, kw.get("pp"))})
+    if device == "cuda" or "ep" in kw:
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"rank": args["rank"], "ep": ep_child(hf, device, kw.get("ep"))})
     PartialState._reset_state()
     dist.destroy_process_group()
     return 0 if res["ok"] else 1
@@ -7018,9 +7091,8 @@ def powersgd_plain_check(acc, model, loss_fn, batch):
     """PowerSGD's reduction of one fresh backward's gradients (the hook's
     live state, Q and error feedback) against the plain version of the
     algorithm: both ranks' matrices exchanged, P = mean(M Q) orthonormalised
-    (numpy QR), Q' = mean(Mᵀ P), M̂ = P Q'ᵀ in fp64 on the host; plain
-    leaves against the fp64 mean. The largest relative L2 by leaf."""
-    import numpy as np
+    (QR), Q' = mean(Mᵀ P), M̂ = P Q'ᵀ in fp64 on the gradients' device;
+    plain leaves against the fp64 mean. The largest relative L2 by leaf."""
     import torch
 
     from accelerate_tpu_torch.parallel.comm_hooks import flax_gradients, make_comm_hook_reducer
@@ -7044,16 +7116,17 @@ def powersgd_plain_check(acc, model, loss_fn, batch):
         both = torch.zeros((world, *mat.shape), dtype=torch.float32, device=mat.device)
         both[rank] = mat
         operations.all_reduce(both)
-        mats = both.cpu().double().numpy()
+        mats = both.double()
         if st:
-            q = st["q"].cpu().double().numpy()
-            p_, _ = np.linalg.qr(np.mean([m @ q for m in mats], axis=0))
-            q2 = np.mean([m.T @ p_ for m in mats], axis=0)
+            q = st["q"].double()
+            p_, _ = torch.linalg.qr(torch.stack([m @ q for m in mats]).mean(0))
+            q2 = torch.stack([m.T @ p_ for m in mats]).mean(0)
             want = (p_ @ q2.T).reshape(g.shape)
         else:
-            want = np.mean(mats, axis=0)
-        got = reduced[name].detach().cpu().double().numpy()
-        rel[name] = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+            want = mats.mean(0)
+        got = reduced[name].detach().double()
+        rel[name] = float(torch.linalg.vector_norm(got - want)
+                          / max(float(torch.linalg.vector_norm(want)), 1e-30))
     for _, p in named:
         p.grad = None
     return rel
@@ -7290,6 +7363,423 @@ def pp_gate(children, phase5) -> dict:
             "checks": checks, "ok": all(checks.values())}
 
 
+# Phase 24: expert parallelism, in phase 22's two processes after phase 23.
+# Mixtral-8x7B's widths at phase 18 (b)'s 2 layers and batch (2 x 2048), its
+# weights (the same seed) and optimizer: (a) ep=2 over dp_shard=2, one row a
+# rank, FSDP2 on the rest; (b) sp=2 with ep=2 (ep over sp): Ulysses
+# attention and the routing's slot order over the processes' chunks.
+EP_STEPS = 3
+EP_RUNS = {"ep_step": dict(pc=dict(dp_shard_size=2, ep_size=2), attention_impl="flash"),
+           "sp_ep_step": dict(pc=dict(sp_size=2, ep_size=2), attention_impl="ulysses")}
+# Against phase 18 (b)'s first steps (bf16: the products run on other row
+# counts, and the gloo sums in another order). Step 1 runs on the same
+# weights: its dropped choices equal, its loss within EP_STEP1_LOSS_TOL and
+# its grad norm within EP_STEP1_NORM_TOL. The bf16 rounding of N gradient
+# entries moves their norm by about 2^-9/sqrt(N): an H100 gave losses
+# bit-equal and grad norms 3.2e-6 (ep over dp_shard) and 9.8e-6 (ep over
+# sp) apart at full width, the CPU 1.5e-7 and 5.0e-5 at the tests' narrow
+# width; a misplaced row moves the loss itself. From step 2 the weights are the first update's,
+# and step 1's rounding has grown through it: loss and grad norm within
+# EP_REL_TOL, dropped choices within EP_DROP_SHARE of the routed ones (a
+# near-tie may move) plus EP_REL_TOL of phase 18's drops (phase 24 (a) on
+# an H100: 778 against 760 at step 3, 1.10e-3 of the 16,384 routed).
+# ``drop_shift_witness`` measures that growth without ep (PERF.md).
+EP_STEP1_LOSS_TOL = 1e-5
+EP_STEP1_NORM_TOL = 1e-4
+EP_REL_TOL = 2e-2
+EP_DROP_SHARE = 1e-3
+# The witness: step 1's gradients given seeded Gaussian noise before the
+# update, of a share of their norm in all ("norm": 3e-6, the size of step
+# 1's grad-norm difference at ep over dp_shard) or of a share of each entry
+# ("entry": 2^-9, about the rounding of a bf16 value), from each seed.
+DROP_WITNESS_NOISE = (("norm", 3e-6), ("entry", 2.0**-9))
+DROP_WITNESS_SEEDS = (0, 1, 2)
+# utils/estimate_memory.estimate_per_chip (the JAX package's rows: exact
+# tensor state, a closed-form activation model) against each rank's
+# measured peak, which also holds the bf16 copies of its expert stacks and
+# FSDP2's gathered parameters: within this share of the peak.
+EP_ESTIMATE_SHARE = 0.2
+# Greedy decode with the experts where they lie: phase 7's (1, 64) prompt.
+EP_DECODE_TOKENS = 8
+
+
+def ep_step_rank(hf, name, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW, steps=EP_STEPS,
+                 profile=True, decode=True):
+    """Phase 24 (a) or (b) (``EP_RUNS[name]``), one rank: phase 18 (b)'s
+    Mixtral step under expert parallelism, ``steps`` steps counted from
+    zero (metrics, dropped choices, launches, the token exchange's calls
+    and bytes, staged included), the last of them under torch.profiler's
+    tracing of the card's kernels (device-busy ms by category; ``step_ms``
+    the steps' mean after the first), the peak against
+    ``estimate_per_chip``;
+    then greedy ``generate`` of ``EP_DECODE_TOKENS`` tokens from phase 7's
+    prompt with the experts where they lie (FSDP2's shards gathered once),
+    the greedy steps' top-2 gaps and ms a token, and its reference on this
+    rank: the same weights with each expert stack gathered whole in bf16,
+    decoded by the plain dropless plan (no ep branch), that row's top-2
+    gaps, the ep decode's teacher-forced logits over it against the plain
+    ones, and the plain bf16 logits' largest difference from fp32."""
+    import types
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        FullyShardedDataParallelPlugin,
+        Model,
+        ParallelismConfig,
+        adamw,
+        generate,
+        moe_cross_entropy_loss,
+    )
+    from accelerate_tpu_torch import generation as gen
+    from accelerate_tpu_torch.models import MixtralForCausalLM, mixtral_tp_rules
+    from accelerate_tpu_torch.models.hub import mixtral_config_from_hf
+    from accelerate_tpu_torch.parallel.ep import exchange_counters
+    from accelerate_tpu_torch.parallel.sharding import local_batch
+    from accelerate_tpu_torch.utils.estimate_memory import estimate_per_chip
+
+    run = EP_RUNS[name]
+    pc = ParallelismConfig(**run["pc"])
+    cfg = dataclasses.replace(mixtral_config_from_hf(width),
+                              num_hidden_layers=row["train_layers"], dtype=torch.bfloat16,
+                              remat=True, remat_policy="dots",
+                              attention_impl=run["attention_impl"])
+    plugin = FullyShardedDataParallelPlugin()
+    acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu", parallelism_config=pc,
+                      fsdp_plugin=plugin)
+    module = MixtralForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    rules = mixtral_tp_rules(cfg.scan_layers, ep_axes=pc.ep_axes)
+    model, opt = acc.prepare(Model(module, tp_rules=rules), adamw(3e-4, weight_decay=0.1))
+    step = acc.prepare_train_step(
+        lambda m, b: moe_cross_entropy_loss(m, b["x"], b["y"]), max_grad_norm=1.0)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            size=(row["batch"], row["seq"] + 1))
+    mine = local_batch({"x": ids[:, :-1], "y": ids[:, 1:]}, acc.parallelism_config,
+                       acc.process_index)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(acc.device) for k, v in mine.items()}
+    state = acc.train_state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    exchange_counters.reset()
+    metrics, dropped, times, prof = [], [], [], None
+    for i in range(steps):
+        # The last counted step runs under torch.profiler, which traces the
+        # card's kernels only (no host events to slow the step).
+        traced = profile and i == steps - 1
+        with (torch.profiler.profile(activities=profiled_activities(host=False)) if traced
+              else contextlib.nullcontext()) as prof_i:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        prof = prof_i if traced else prof
+        metrics.append(m)
+        dropped.append(module.router_stats()["dropped"])
+    launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+    exchanges = exchange_counters.snapshot()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    metrics = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
+    step_ms = float(np.mean(times[1:]))
+    est, _, _ = estimate_per_chip(MixtralForCausalLM(cfg, device="meta"), cfg,
+                                  acc.parallelism_config, seq=row["seq"],
+                                  per_chip_batch=batch["x"].shape[0], fsdp_plugin=plugin,
+                                  tp_rules=rules)
+    out = {"metrics": metrics, "dropped": [int(x) for x in dropped],
+           "routed": int(module.router_stats()["routed"]), "step_ms": step_ms,
+           "step_ms_each": times, "peak_mem_gib": peak, "estimate_gib": est.total_gib,
+           "estimate_rows": est.rows(), "local_batch": list(batch["x"].shape),
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "variant_launches": variant_launches, "n_layers": cfg.num_hidden_layers,
+           "exchange_per_step": {k: v / steps for k, v in exchanges.items()},
+           "ep_axes": list(acc.parallelism_config.ep_axes),
+           "local_experts": int(module.model.layers[0].moe.w_gate.to_local().shape[0])}
+    if profile:
+        busy, by_cat, top, _ = device_times(prof, 1, n_top=6)
+        out.update(device_busy_ms=busy, idle_share=1 - busy / step_ms,
+                   busy_ms_by_category=by_cat, top_kernels_ms=top, traced_step=steps)
+    if decode:
+        del state, opt
+        acc.free_memory()
+        gc.collect()
+        torch.cuda.empty_cache()
+        decoder = types.SimpleNamespace(module=module, params=gen._decode_params(model))
+        prompt = decode_prompt(cfg, acc.device)
+        generate(decoder, prompt, max_new_tokens=1)  # warm-up
+        torch.cuda.synchronize()
+        hf.reset_launch_counts()
+        exchange_counters.reset()
+        t0 = time.perf_counter()
+        rows = generate(decoder, prompt, max_new_tokens=EP_DECODE_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = dict(hf.VARIANT_LAUNCHES)
+        n0 = prompt.shape[1]
+        gaps = _greedy_gaps(cfg, decoder, rows, n0)
+        t0 = time.perf_counter()
+        # Gathered in the compute dtype: the products read bf16 either way.
+        plain = types.SimpleNamespace(module=module, params={
+            n: gen._gather_shards(p.to(cfg.dtype)) if isinstance(p, DTensor) else p
+            for n, p in decoder.params.items()})
+        plain_row = generate(plain, prompt, max_new_tokens=EP_DECODE_TOKENS)[0].tolist()
+        ref = teacher_forced_logits(cfg, plain, plain_row, n0, acc.device)
+        ref32 = teacher_forced_logits(cfg, plain, plain_row, n0, acc.device, fp32=True)
+        got = teacher_forced_logits(cfg, decoder, plain_row, n0, acc.device)
+        top2 = np.sort(ref, axis=-1)[:, -2:]
+        out["decode"] = {"row": rows[0, n0:].tolist(),
+                         "min_top2_gap": float(gaps.min()), "top2_gaps": gaps[0].tolist(),
+                         "ms_per_token": wall * 1e3 / EP_DECODE_TOKENS,
+                         "variant_launches": launched, "plain_row": plain_row[n0:],
+                         "plain_gaps": (top2[:, 1] - top2[:, 0]).tolist(),
+                         "logit_delta": float(np.abs(got - ref).max()),
+                         "plain_delta": float(np.abs(ref - ref32).max()),
+                         "reference_s": time.perf_counter() - t0}
+        del decoder, plain
+    del step, model, module, acc
+    return out
+
+
+def ep_child(hf, device="cuda", kw=None) -> dict:
+    """Phase 24 in one of phase 22's processes: (a) and (b), each set up
+    afresh; ``kw`` may narrow each (the CPU rehearsal)."""
+    kw = kw or {}
+    t0 = time.perf_counter()
+    parts, seconds = {}, {}
+    for name in EP_RUNS:
+        _reset_port_state()
+        t = time.perf_counter()
+        parts[name] = ep_step_rank(hf, name, device=device, **kw.get(name, kw.get("step", {})))
+        seconds[name] = time.perf_counter() - t
+    _reset_port_state()
+    return {**parts, "part_s": seconds, "seconds": time.perf_counter() - t0}
+
+
+def ep_gate(children, phase18) -> dict:
+    """Phase 24's checks on the children's phase-24 lines, for (a) and (b)
+    against phase 18 (b)'s first three steps (``phase18["first_metrics"]``:
+    the same weights, batch and optimizer on one process), the metrics
+    equal on both ranks: step 1's loss within EP_STEP1_LOSS_TOL, its grad
+    norm within EP_STEP1_NORM_TOL and its dropped choices equal; steps 2-3 within
+    EP_REL_TOL, their drops within EP_DROP_SHARE of the routed count plus
+    EP_REL_TOL of phase 18's; each flash kernel launched once a layer a
+    step on each rank, ``estimate_per_chip`` within EP_ESTIMATE_SHARE of
+    each rank's peak; the greedy tokens equal on both ranks and, on each,
+    equal to the plain dropless decode's off near-ties, its teacher-forced
+    logits within the tie gap of the plain ones: TP_PLAIN_FACTOR times the
+    plain bf16 logits' difference from fp32 (at least TIE_GAP), as phase
+    22 (b) bounds its tp=2 logits."""
+    ranks = [next((line["ep"] for line in reversed(lines) if "ep" in line), None)
+             for _, lines, _ in children]
+    res = {"phase": "expert_parallel", "ranks": EP_RANKS,
+           "note": "two processes on one card joined by gloo, which stages every collective "
+                   "and the token exchange through the host: step ms are gloo's"}
+    checks = {"children": all(rc == 0 for rc, _, _ in children) and all(ranks)}
+    if not checks["children"]:
+        return {**res, "checks": checks, "ok": False,
+                "child_exit": [rc for rc, _, _ in children],
+                "child_stderr": [err for _, _, err in children]}
+    out = {}
+    for name in EP_RUNS:
+        runs = [r[name] for r in ranks]
+        rel = [max(_rel(g, w) for got, want in zip(r["metrics"], phase18["first_metrics"])
+                   for g, w in zip(got, want)) for r in runs]
+        rel1 = [[_rel(g, w) for g, w in zip(r["metrics"][0], phase18["first_metrics"][0])]
+                for r in runs]
+        drop_room = [EP_DROP_SHARE * phase18["routed"] + EP_REL_TOL * w if i else 0.0
+                     for i, w in enumerate(phase18["dropped"][:EP_STEPS])]
+        drop_dev = [max(abs(d - w) / phase18["routed"]
+                        for d, w in zip(r["dropped"], phase18["dropped"])) for r in runs]
+        drop_over = [max(abs(d - w) - room for d, w, room in
+                         zip(r["dropped"], phase18["dropped"], drop_room)) for r in runs]
+        checks[f"{name}_vs_phase18"] = (len(runs[0]["metrics"]) == EP_STEPS
+                                        and max(rel) <= EP_REL_TOL)
+        checks[f"{name}_step1_vs_phase18"] = all(
+            loss <= EP_STEP1_LOSS_TOL and norm <= EP_STEP1_NORM_TOL for loss, norm in rel1)
+        checks[f"{name}_ranks_agree"] = all(r["metrics"] == runs[0]["metrics"] for r in runs)
+        checks[f"{name}_dropped"] = max(drop_over) <= 0
+        checks[f"{name}_launches"] = all(r["launches_per_step"].get(k) == r["n_layers"]
+                                         for r in runs for k in KERNELS)
+        checks[f"{name}_estimate"] = all(
+            abs(r["peak_mem_gib"] - r["estimate_gib"]) <= EP_ESTIMATE_SHARE * r["peak_mem_gib"]
+            for r in runs)
+        part = {"rank_metrics": [r["metrics"] for r in runs],
+                "phase18_metrics": phase18["first_metrics"], "max_rel": max(rel),
+                "dropped": [r["dropped"] for r in runs], "phase18_dropped": phase18["dropped"],
+                "routed": runs[0]["routed"], "max_drop_share_dev": max(drop_dev),
+                "step1_rel": rel1,
+                "drop_room": drop_room,
+                **{k: [r.get(k) for r in runs] for k in (
+                    "step_ms", "step_ms_each", "device_busy_ms", "idle_share",
+                    "busy_ms_by_category", "top_kernels_ms", "peak_mem_gib", "estimate_gib",
+                    "launches_per_step", "exchange_per_step", "local_batch", "local_experts")},
+                "ep_axes": runs[0]["ep_axes"], "estimate_rows": runs[0]["estimate_rows"],
+                "phase18_step_ms": phase18["step_ms"],
+                "phase18_peak_mem_gib": phase18["peak_mem_gib"]}
+        decodes = [r.get("decode") for r in runs]
+        if all(decodes):
+            checks[f"{name}_decode_ranks_agree"] = all(d["row"] == decodes[0]["row"]
+                                                       for d in decodes)
+            tie_gap = [max(TIE_GAP, TP_PLAIN_FACTOR * d["plain_delta"]) for d in decodes]
+            div = [first_divergence([d["plain_row"]], [d["row"]], [d["plain_gaps"]], g)[0]
+                   for d, g in zip(decodes, tie_gap)]
+            checks[f"{name}_decode_logits_vs_plain"] = all(
+                d["logit_delta"] <= g for d, g in zip(decodes, tie_gap))
+            checks[f"{name}_decode_tokens_vs_plain"] = parity_ok(div)
+            part["decode"] = {"row": decodes[0]["row"],
+                              "plain_rows": [d["plain_row"] for d in decodes],
+                              "first_divergence": div, "tie_gap": tie_gap,
+                              "logit_delta": [d["logit_delta"] for d in decodes],
+                              "plain_bf16_fp32_delta": [d["plain_delta"] for d in decodes],
+                              "reference_s": [d["reference_s"] for d in decodes],
+                              "min_top2_gap": [d["min_top2_gap"] for d in decodes],
+                              "ms_per_token": [d["ms_per_token"] for d in decodes]}
+        out[name] = part
+    seconds = [r["seconds"] for r in ranks]
+    return {**res, **out, "part_s": [r["part_s"] for r in ranks], "seconds": max(seconds),
+            "variant_launches": {
+                "ep_step": ranks[0]["ep_step"]["variant_launches"],
+                "sp_ep_step": ranks[0]["sp_ep_step"]["variant_launches"],
+                "ep_generate": (ranks[0]["ep_step"].get("decode") or {}).get(
+                    "variant_launches", {})},
+            "checks": checks, "ok": all(checks.values())}
+
+
+def drop_shift_witness(hf, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW, steps=EP_STEPS,
+                       noise=DROP_WITNESS_NOISE, seeds=DROP_WITNESS_SEEDS) -> dict:
+    """Why phase 24's gate widens after step 1, without ep: phase 18 (b)'s
+    Mixtral step (its weights, batch and optimizer, one process) for
+    ``steps`` steps, once as it is and once for each ``noise`` entry and
+    seed with step 1's gradients, after the clip and before AdamW's
+    update, given seeded Gaussian noise: ``("norm", s)`` of ``s`` times
+    their norm in all, ``("entry", s)`` of ``s`` times each entry. Each
+    run's losses, grad norms and dropped choices; for each noisy run, the
+    relative change the noise made to the gradients' norm, the largest
+    relative difference of its loss and grad norm from the plain run's and
+    its drop shift per step, and its routers' largest difference after
+    step 1."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        FullyShardedDataParallelPlugin,
+        Model,
+        adamw,
+        moe_cross_entropy_loss,
+    )
+    from accelerate_tpu_torch.models import MixtralForCausalLM
+    from accelerate_tpu_torch.models.hub import mixtral_config_from_hf
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def norm_of(grads):
+        return torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+
+    cfg = dataclasses.replace(mixtral_config_from_hf(width),
+                              num_hidden_layers=row["train_layers"], dtype=torch.bfloat16,
+                              remat=True, remat_policy="dots", attention_impl="flash")
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            size=(row["batch"], row["seq"] + 1))
+    t0 = time.perf_counter()
+    runs = {}
+    for key in ["plain"] + [f"{kind}:{scale}:{seed}" for kind, scale in noise for seed in seeds]:
+        _reset_port_state()
+        acc = Accelerator(mixed_precision="bf16", fsdp_plugin=FullyShardedDataParallelPlugin(),
+                          cpu=device == "cpu")
+        module = MixtralForCausalLM(cfg, device=acc.device)
+        module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+        acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+        step = acc.prepare_train_step(
+            lambda m, b: moe_cross_entropy_loss(m, b["x"], b["y"]), max_grad_norm=1.0)
+        batch = {"x": torch.from_numpy(ids[:, :-1]).to(acc.device),
+                 "y": torch.from_numpy(ids[:, 1:]).to(acc.device)}
+        state = acc.train_state
+        run = {"updates": 0}
+
+        def perturb(opt, args, kwargs, key=key, run=run):
+            if run["updates"] == 0 and key != "plain":
+                kind, scale, seed = key.split(":")
+                gen = torch.Generator(device=acc.device).manual_seed(int(seed))
+                grads = [local(p.grad) for g in opt.param_groups for p in g["params"]
+                         if p.grad is not None]
+                before = norm_of(grads)
+                sigma = float(scale) * (before / math.sqrt(sum(g.numel() for g in grads))
+                                        if kind == "norm" else 1.0)
+                for g in grads:
+                    z = torch.randn(g.shape, generator=gen, device=g.device, dtype=g.dtype)
+                    g.add_(z * sigma if kind == "norm" else z * sigma * g)
+                run["norm_change"] = float((norm_of(grads) - before).abs() / before)
+            run["updates"] += 1
+
+        hook = state.optimizer.register_step_pre_hook(perturb)
+        metrics, dropped, routers = [], [], None
+        for i in range(steps):
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            dropped.append(int(module.router_stats()["dropped"]))
+            if i == 0:
+                routers = [local(layer.moe.router).detach().float().cpu()
+                           for layer in module.model.layers]
+        hook.remove()
+        runs[key] = {"metrics": metrics, "dropped": dropped, "routers": routers,
+                     "norm_change": run.get("norm_change")}
+        del acc, module, state, step, batch, hook
+        _reset_port_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain = runs["plain"]
+    shifts = {
+        key: {"norm_change": r["norm_change"],
+              "max_rel": [max(_rel(g, w) for g, w in zip(got, want))
+                          for got, want in zip(r["metrics"], plain["metrics"])],
+              "drop_shift": [d - w for d, w in zip(r["dropped"], plain["dropped"])],
+              "router_max_abs_after_step1": max(float((a - b).abs().max())
+                                                for a, b in zip(r["routers"], plain["routers"]))}
+        for key, r in runs.items() if key != "plain"}
+    checks = {"finite": all(math.isfinite(x) for r in runs.values()
+                            for m in r["metrics"] for x in m),
+              "step1_untouched": all(r["metrics"][0] == plain["metrics"][0]
+                                     and r["dropped"][0] == plain["dropped"][0]
+                                     for r in runs.values())}
+    return {"phase": "drop_witness", "steps": steps, "noise": [list(n) for n in noise],
+            "seeds": list(seeds),
+            "runs": {k: {"metrics": v["metrics"], "dropped": v["dropped"]}
+                     for k, v in runs.items()},
+            "routed": row["batch"] * row["seq"] * cfg.num_experts_per_tok,
+            "shifts": shifts, "seconds": time.perf_counter() - t0,
+            "checks": checks, "ok": all(checks.values())}
+
+
+def drop_witness_main() -> int:
+    """``chip_smoke.py --drop-witness``: the card's name and power limit,
+    the kernels built, then ``drop_shift_witness`` as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.ops import hopper_flash as hf
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = drop_shift_witness(hf)
+    emit(dict(res, nvidia_smi=smi))
+    return 0 if res["ok"] else 1
+
+
 def _stub_cuda_for_cpu():
     """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
     import torch
@@ -7396,6 +7886,10 @@ def main() -> int:
         check_kernels(hf, "tp2_heads8", **TP_LIKE, seed=28),
         # Phase 23's GPipe step at pp=2: microbatches of one row.
         check_kernels(hf, "pp_microbatch", **PP_LIKE, seed=29),
+        # Phase 24's ranks: (a) one row of Mixtral's step, (b) after the
+        # Ulysses exchange.
+        check_kernels(hf, "ep_row", **EP_LIKE, seed=30),
+        check_kernels(hf, "sp_ep_ulysses", **SP_EP_LIKE, seed=31),
     ]
     for case in cases:
         emit({"phase": "kernels", **case})
@@ -7441,7 +7935,7 @@ def main() -> int:
         return 1
 
     # 6. where the device time of a step goes (after the counted run)
-    emit(profile_steps(*main_path.pop("_step"), main_path["step_ms"]))
+    emit(profile_steps(*main_path.pop("_step"), main_path["step_ms"], steps=1))
     # The train step's model, optimizer state and activations go before the
     # generation phases.
     gc.collect()
@@ -7467,7 +7961,12 @@ def main() -> int:
 
     # 8. serving: tiny engine against generate on the card, then full width
     tiny_serving = tiny_serving_parity()
-    serving = full_width_serving(gen_module)
+    serving = full_width_serving(gen_module, keep_rows=True)
+    # Phase 16 (b) takes this replay as its speculate_k=0 run on the trace.
+    phase8 = {"rows": serving.pop("_rows"), "stats": serving["stats"],
+              **{k: serving[k] for k in ("wall_s", "tok_s", "peak_mem_gib", "decode_ticks",
+                                         "max_len", "kv_cache_bytes")}}
+    del serving["_prompts"], serving["_budgets"]
     serving_ok = serving["ok"] and parity_ok(tiny_serving)
     emit({"phase": "serving", "tiny_divergence": tiny_serving, **serving, "ok": serving_ok})
     if not serving_ok:
@@ -7558,7 +8057,7 @@ def main() -> int:
 
     # 16. serving, the rest: speculation, int8 KV pages, admission and
     # faults, speculative_generate and beam_search
-    rest = serving_rest_phase(hf, phase7_ms)
+    rest = serving_rest_phase(hf, phase7_ms, phase8=phase8)
     emit(rest)
     if not rest["ok"]:
         failed = sorted(k for k, v in rest["checks"].items() if not v)
@@ -7651,6 +8150,16 @@ def main() -> int:
         print(f"chip_smoke: pipeline phase 23 failed: {failed}", file=sys.stderr)
         return 1
 
+    # 24. expert parallelism: Mixtral-8x7B's step at ep=2 over dp_shard and
+    # at sp=2 with ep=2, and decode with the experts split, in phase 22's two
+    # processes after phase 23
+    ep = ep_gate(children, moe["mixtral_8x7b_train"])
+    emit(ep)
+    if not ep["ok"]:
+        failed = sorted(k for k, v in ep["checks"].items() if not v)
+        print(f"chip_smoke: expert-parallel phase 24 failed: {failed}", file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
         "gemma_2b_step": chassis["gemma_2b_train"]["variant_launches"],
         "mixtral_8x7b_step": moe["mixtral_8x7b_train"]["variant_launches"],
@@ -7668,7 +8177,7 @@ def main() -> int:
         "big_model_resident": big["resident"]["variant_launches"],
         "tp_step": tpar["variant_launches"],
         "tp_generate": tpar["generate_variant_launches"],
-        **pipe["variant_launches"]})})
+        **pipe["variant_launches"], **ep["variant_launches"]})})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -7718,4 +8227,6 @@ if __name__ == "__main__":
         sys.exit(child_main(json.loads(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--tp-child":
         sys.exit(tp_child_main(json.loads(sys.argv[2])))
+    if len(sys.argv) == 2 and sys.argv[1] == "--drop-witness":
+        sys.exit(drop_witness_main())
     sys.exit(main())

@@ -970,11 +970,14 @@ def test_speculation_counts_ok(chip_smoke):
 def test_serving_rest_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     """Phase 16 on the CPU at a small width: (a) with the CPU standing in
     for the card, (b)-(e) with 8 requests of the serving row at 64 per
-    second, short deadlines and budgets. Every check passes here too. One
-    intra-op thread: its thousands of small ops stall when they contend
-    with other test workers for the cores."""
+    second, short deadlines and budgets, (b)'s speculate_k=0 run on phase
+    8's trace taken from phase 8's replay (``full_width_serving``) as the
+    script passes it. Every check passes here too. One intra-op thread:
+    its thousands of small ops stall when they contend with other test
+    workers for the cores."""
     import torch
 
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from accelerate_tpu_torch.ops import hopper_flash as hf
 
     _stub_cuda(chip_smoke, monkeypatch)
@@ -984,11 +987,20 @@ def test_serving_rest_phase_rehearsed_on_the_cpu(chip_smoke, monkeypatch):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
+        module = LlamaForCausalLM(LlamaConfig(**_TINY_WIDTH, max_position_embeddings=2048,
+                                              dtype=torch.bfloat16))
+        module.init_weights(torch.Generator().manual_seed(0))
+        module.to(torch.bfloat16)
+        serving = chip_smoke.full_width_serving(module, row, keep_rows=True)
+        phase8 = {"rows": serving["_rows"], "stats": serving["stats"],
+                  **{k: serving[k] for k in ("wall_s", "tok_s", "peak_mem_gib", "decode_ticks",
+                                             "max_len", "kv_cache_bytes")}}
         res = chip_smoke.serving_rest_phase(hf, phase7=25.0, device="cpu", width=_TINY_WIDTH,
-                                            row=row, rest=rest)
+                                            row=row, rest=rest, phase8=phase8)
     finally:
         torch.set_num_threads(threads)
     assert sorted(k for k, v in res["checks"].items() if not v) == []
+    assert res["speculation"]["runs"]["phase8_k0"]["from_phase8"]
     assert res["variant_launches"] == {}
     assert res["admission"]["burst"]["reject"]["faults"]["sheds"] == 9
     assert res["speculation"]["runs"]["repetitive_k4"]["speculation"]["acceptance_rate"] > 0

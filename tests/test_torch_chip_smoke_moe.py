@@ -120,7 +120,8 @@ def test_kernel_summary_names_the_mixtral_shape_apart(chip_smoke):
     entries = [e for e in chip_smoke.TIMED
                if e[1] == "bfloat16" and e[2]["d"] == 128 and e[2]["hq"] >= 16]
     assert [e[0] for e in entries] == [None, "mixtral_8x7b", "cp_generate_8192",
-                                       "llama2_7b_stream", "pp_microbatch"]
+                                       "llama2_7b_stream", "pp_microbatch", "ep_row",
+                                       "sp_ep_ulysses"]
     assert entries[1][2:] == (chip_smoke.MIXTRAL_LIKE, ("mixtral_8x7b_step",))
     assert entries[2][2:] == (chip_smoke.CP_GEN_LIKE, ("cp_generate",))
     entries = entries[:3]

@@ -1753,7 +1753,8 @@ def test_torchrun_environment_must_be_complete(monkeypatch):
 def test_world_fill_and_refused_axes():
     """dp_shard fills the world around the other axes; pp, cp, sp and tp
     place each process on the 6-D mesh in row-major order (pp outermost, tp
-    innermost); ep raises."""
+    innermost); ep borrows whole axes, and outside them raises as the JAX
+    constructor does."""
     assert ParallelismConfig().infer_missing_axis(4).dp_shard_size == 4
     pc = ParallelismConfig(dp_replicate_size=2).infer_missing_axis(8)
     assert (pc.dp_replicate_size, pc.dp_shard_size) == (2, 4)
@@ -1773,8 +1774,10 @@ def test_world_fill_and_refused_axes():
     assert (pc.pp_size, pc.dp_shard_size, pc.non_pp_size) == (2, 2, 4)
     assert [pc.coordinates(r)["pp"] for r in range(8)] == [0] * 4 + [1] * 4
     assert [pc.data_parallel_index(r) for r in range(8)] == [0, 0, 1, 1] * 2
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(ValueError, match="ep_size must divide"):
         ParallelismConfig(ep_size=2)
+    assert ParallelismConfig(dp_shard_size=2, ep_size=2).infer_missing_axis(2).ep_axes == (
+        "dp_shard",)
     env = ParallelismConfig(dp_replicate_size=2, dp_shard_size=3).to_env()
     for k, v in env.items():
         os.environ[k] = v

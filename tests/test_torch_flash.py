@@ -375,7 +375,8 @@ def test_auto_flash_attention_takes_data_parallel_meshes_only(monkeypatch):
     axis (tests/test_torch_context_parallel.py holds it to the JAX
     package's); over tp, which splits the heads, each process attends with
     its own heads as they are (tests/test_torch_tensor_parallel.py); tp
-    with a sequence axis raises, naming Queue A item 6."""
+    with a sequence axis takes the ring over the sequence axis on each
+    rank's heads (tests/test_torch_expert_parallel.py)."""
     from accelerate_tpu_torch.ops import auto_flash_attention, flash_attention
     from accelerate_tpu_torch.parallel import cp
 
@@ -391,5 +392,7 @@ def test_auto_flash_attention_takes_data_parallel_meshes_only(monkeypatch):
                                    axis_name=axis)
     for mesh in (_Mesh(tp=2), _Mesh(dp_shard=2, tp=2)):
         assert torch.equal(auto_flash_attention(q, k, v, mesh=mesh), want)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        auto_flash_attention(q, k, v, mesh=_Mesh(cp=2, tp=2))
+    for mesh, axis in ((_Mesh(cp=2, tp=2), "cp"), (_Mesh(sp=2, tp=2), "sp")):
+        assert auto_flash_attention(q, k, v, causal=False, mesh=mesh) is q
+        assert calls.pop() == dict(causal=False, mesh=mesh, rotate_method="allgather",
+                                   axis_name=axis)

@@ -448,16 +448,33 @@ def test_other_families_still_raise(family):
 
 
 def test_parallel_moe_is_refused(monkeypatch):
-    """Expert parallelism, the TP rule table and Mixtral over a cp or sp
-    axis name ROADMAP.md Queue A item 6; cp_generate runs Llama only."""
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """Expert parallelism, its TP rule table and Mixtral over a cp or sp
+    axis are ported (tests/test_torch_expert_parallel.py): ep outside
+    whole axes raises as the JAX constructor does, the ep table is the JAX
+    one, and over a sequence axis each slice takes its global positions.
+    cp_generate of a Mixtral stays refused, as the JAX cp_generate fails
+    on it (it reads each layer's ``mlp``)."""
+    from accelerate_tpu.cp_generation import cp_generate as jax_cp_generate
+    from accelerate_tpu.state import AcceleratorState as JaxState
+    from accelerate_tpu import ParallelismConfig as JaxPC
+
+    with pytest.raises(ValueError, match="ep_size must divide"):
         ParallelismConfig(ep_size=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mixtral_tp_rules(ep_axes=("dp_shard",))
-    _, _, _, module = _build()
+    assert mixtral_tp_rules(ep_axes=("dp_shard",)) == [
+        (p, tuple(s)) for p, s in jax_moe.mixtral_tp_rules(ep_axes=("dp_shard",))]
+    jmodule, params, _, module = _build()
     ids = torch.from_numpy(_ids(1, 8, seed=10)).long()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="JAX cp_generate has no MoE path"):
         cp_generate(module, ids, 2)
-    monkeypatch.setattr(port_moe, "current_sequence_shard", lambda: (2, 0))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        module(ids)
+    mesh = JaxState(parallelism_config=JaxPC(cp_size=2, dp_shard_size=4)).mesh
+    try:
+        with pytest.raises(KeyError, match="mlp"):
+            jax_cp_generate(JaxModel(module=jmodule, params=params), ids.numpy(), 2, mesh=mesh)
+    finally:
+        JaxState._reset_state()
+    with torch.no_grad():
+        whole = module(ids)
+        monkeypatch.setattr(port_moe, "current_sequence_shard", lambda: (2, 0))
+        assert torch.equal(module(ids), whole)
+        monkeypatch.setattr(port_moe, "current_sequence_shard", lambda: (2, 1))
+        assert not torch.equal(module(ids), whole)  # positions 8-15

@@ -205,26 +205,27 @@ def _port_table(fn, scan_layers, ep_axes=()):
 
 
 def test_mixtral_ep_table_is_data_and_refused():
-    """The EP table is the JAX one as data; asking for it by ep_axes, and
-    running a plan that splits a dim over an ep axis, raise naming item 6.
-    The planner prices such a table (its specs) and places no tensor on it."""
-    from types import SimpleNamespace
+    """The EP table is the JAX one, by ep_axes too (expert parallelism is
+    ported: tests/test_torch_expert_parallel.py). A plan of a mesh without
+    ep prices such a table (its specs) and places no tensor on the ep
+    axes; under ep the stacks go on them (``ParamPlacement.ep``)."""
+    from torch.distributed.tensor import Shard
 
     from accelerate_tpu.models.moe import mixtral_tp_rules as jax_rules
-    from accelerate_tpu_torch.parallel.fsdp import apply_tensor_parallel_model
 
     for axes in (("dp_shard",), ("dp_shard", "tp")):
         want = [(p, tuple(s)) for p, s in jax_rules(True, ep_axes=axes)]
         assert _port_table("mixtral_tp_rules", True, axes) == want
-        with pytest.raises(NotImplementedError, match="item 6"):
-            M.mixtral_tp_rules(ep_axes=axes)
+        assert M.mixtral_tp_rules(ep_axes=axes) == want
     module = _port_module("mixtral", device="meta")
     rules = _port_table("mixtral_tp_rules", True, ("dp_shard", "tp"))
     plan = sharding.plan_parameter_sharding(module, {"dp_shard": 2, "tp": 2}, tp_rules=rules)
     experts = [p for p in plan.values() if ("dp_shard", "tp") in p.spec]
-    assert experts and all(p.tp is None for p in experts)
-    with pytest.raises(NotImplementedError, match=r"item 6 \(EP\)"):
-        apply_tensor_parallel_model(SimpleNamespace(module=module, tp_rules=rules), None, None)
+    assert experts and all(p.tp is None and p.ep is None for p in experts)
+    pc = ParallelismConfig(dp_shard_size=2, tp_size=2, ep_size=4)
+    plan = sharding.plan_parameter_sharding(module, pc, parallelism_config=pc, tp_rules=rules)
+    experts = [p for p in plan.values() if ("dp_shard", "tp") in p.spec]
+    assert len(experts) == 6 and all(p.ep == Shard(0) and p.tp is None for p in experts)
 
 
 def _jax_specs(family, sizes, rules, plugin_kw=None, **cfg_kw) -> dict:
@@ -351,7 +352,8 @@ def test_parallelism_config_follows_the_jax_validation(monkeypatch):
 def test_rows_over_tp_and_refused_meshes():
     """Processes that differ only in tp read the same rows
     (``batch_axes``) and take tp innermost in the rank; tp with cp or sp
-    is refused, ep still raises; pp is taken."""
+    is taken (each tp slice's sequence group); ep outside whole axes
+    raises as the JAX constructor does; pp is taken."""
     pc = ParallelismConfig(dp_shard_size=2, tp_size=2)
     assert [pc.coordinates(r)["tp"] for r in range(4)] == [0, 1, 0, 1]
     assert [pc.data_parallel_index(r) for r in range(4)] == [0, 0, 1, 1]
@@ -361,10 +363,11 @@ def test_rows_over_tp_and_refused_meshes():
     assert pc.loss_reduce_axes == ("dp_replicate", "dp_shard", "cp", "sp")
     assert ParallelismConfig(dp_shard_size=2, tp_size=2).ep_axes == ()
     assert ParallelismConfig(pp_size=2, tp_size=2).total_size == 4
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="ep_size must divide"):
         ParallelismConfig(ep_size=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        AcceleratorState(cpu=True, parallelism_config=ParallelismConfig(tp_size=2, cp_size=2))
+    pc = ParallelismConfig(tp_size=2, cp_size=2)
+    assert [(pc.sequence_index(r), pc.coordinates(r)["tp"]) for r in range(4)] == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
 
 
 # ---------------------------------------------------------------------------

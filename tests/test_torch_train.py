@@ -32,6 +32,7 @@ from accelerate_tpu_torch import (
     Model,
     ParallelismConfig,
     ProjectConfiguration,
+    ServingConfig,
     adamw,
 )
 from accelerate_tpu_torch.utils import TelemetryKwargs
@@ -194,7 +195,9 @@ def test_accelerator_refuses_a_second_device_choice(monkeypatch):
     lambda: adamw(1e-3, mu_dtype=torch.bfloat16),
     lambda: FullyShardedDataParallelPlugin(mixed_precision_policy=MixedPrecisionPolicy()),
     lambda: ProjectConfiguration(automatic_resume=True),
-    lambda: ParallelismConfig(ep_size=2),
+    # ParallelismConfig(ep_size=2) stood here until expert parallelism was
+    # ported (tests/test_torch_expert_parallel.py).
+    lambda: ServingConfig(journal_dir="journal"),
     lambda: MixedPrecisionPolicy(reduce_dtype=torch.bfloat16),
     lambda: TelemetryKwargs(tracing=True),
 ])
@@ -240,16 +243,18 @@ def test_set_seed_seeds_every_generator_and_returns_one():
 
 
 def test_wider_mesh_and_fp16_are_not_ported():
-    """cp, sp, tp and pp are ported (tests/test_torch_tensor_parallel.py,
-    tests/test_torch_pipeline.py); ep is not. fp16 is ported (with dynamic loss scaling,
+    """cp, sp, tp, pp and ep are ported (tests/test_torch_tensor_parallel.py,
+    tests/test_torch_pipeline.py, tests/test_torch_expert_parallel.py); ep
+    borrows whole axes, as the JAX constructor checks. fp16 is ported (with dynamic loss scaling,
     tests/test_torch_mixed_precision.py); a lower AdamW ``mu_dtype`` is
     not."""
     for axes in (dict(cp_size=2), dict(sp_size=2)):
         assert ParallelismConfig(**axes).seq_size == 2
     assert ParallelismConfig(tp_size=2).total_size == 2
     assert ParallelismConfig(pp_size=2).total_size == 2
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(ValueError, match="ep_size must divide"):
         ParallelismConfig(ep_size=2)
+    assert ParallelismConfig(dp_shard_size=2, ep_size=2).ep_axes == ("dp_shard",)
     with pytest.raises(ValueError, match="mutually exclusive"):
         ParallelismConfig(cp_size=2, sp_size=2)
     assert Accelerator(mixed_precision="fp16", cpu=True).mixed_precision == "fp16"
