@@ -353,6 +353,9 @@ class Accelerator:
         # window that skips the collectives).
         self._max_grad_norm: Optional[float] = None
         self._grads_local = False
+        # Under pp, the window's tied-weight gradients once summed over the
+        # edge group: the ids the norm leaves out (None: not summed yet).
+        self._pp_skip: Optional[frozenset] = None
         # Inside a LocalSGD block the fused step trains this process alone.
         self._local_sgd_active = False
         # Each slot's comm-hook state (parallel/comm_hooks.py), by slot.
@@ -781,13 +784,9 @@ class Accelerator:
                                         mutable_state=mutable_state)
             return self._tracked(step)
         # Under pp the stages' gradients and metrics meet over the pp slice.
-        n_stages, stage = self.state.pipeline_stage
+        n_stages, _ = self.state.pipeline_stage
         pipe = (self.state.pipeline_mesh.get_group()
                 if n_stages > 1 and self.use_distributed else None)
-        if pipe is not None and (mutable_state or has_aux):
-            raise NotImplementedError(
-                "mutable_state and has_aux under pp are not ported yet (ROADMAP.md Queue A "
-                "item 6: the rest of PP)")
         if pipe is not None:
             self.state.pipeline_edge_group  # built by every process, before any step
 
@@ -821,7 +820,8 @@ class Accelerator:
                     _scaled(loss, state.loss_scale).backward()
                 loss_sum += loss.detach()
             if mutable_state:
-                state.set_extra_state(extra)
+                state.set_extra_state(extra if pipe is None
+                                      else self._from_last_stage(extra, pipe))
             grads = [p.grad for p in params if p.grad is not None]
             # Parameters FSDP2 leaves whole are averaged here over every
             # process (loss_reduce_axes), as DDP would.
@@ -841,13 +841,44 @@ class Accelerator:
                 operations.all_reduce(loss, group=group)
                 loss = loss / world
             if pipe is not None:
-                # The last stage's loss on every stage (the others add zero).
-                if stage != n_stages - 1:
-                    loss = torch.zeros_like(loss)
-                operations.all_reduce(loss, group=pipe)
+                loss = self._last_stage_loss(loss, pipe)
             return state, {"loss": loss, "grad_norm": gnorm}
 
         return self._tracked(step)
+
+    def _last_stage_loss(self, loss: torch.Tensor, pipe) -> torch.Tensor:
+        """The last stage's loss on every stage of ``pipe`` (the others add
+        zero)."""
+        n_stages, stage = self.state.pipeline_stage
+        if stage != n_stages - 1:
+            loss = torch.zeros_like(loss)
+        return operations.all_reduce(loss, group=pipe)
+
+    def _from_last_stage(self, tree, pipe):
+        """``tree``'s tensors (the new ``extra_state`` of a ``mutable_state``
+        step) as the last stage computed them, broadcast over ``pipe``: the
+        stages before it ran its loss function on a stand-in."""
+        n_stages, _ = self.state.pipeline_stage
+        src = torch.distributed.get_global_rank(pipe, n_stages - 1)
+
+        def bcast(t):
+            t = t.detach().contiguous().clone()
+            torch.distributed.broadcast(t, src=src, group=pipe)
+            return t
+
+        return operations.recursively_apply(bcast, tree)
+
+    def _pipeline_norm_args(self, model: Model) -> tuple:
+        """Under ``pp``, ``(pipe, skip)`` for ``_global_norm`` in the
+        imperative loop, the window's tied-weight gradients summed over the
+        edge group once (``_sum_shared_gradients``); ``(None, empty)``
+        otherwise."""
+        n_stages, _ = self.state.pipeline_stage
+        if n_stages == 1 or not self.use_distributed:
+            return None, frozenset()
+        if self._pp_skip is None:
+            self._pp_skip = self._sum_shared_gradients(model)
+        return self.state.pipeline_mesh.get_group(), self._pp_skip
 
     def _tracked(self, step: Callable) -> Callable:
         """``step`` reporting to the telemetry, when there is one."""
@@ -1108,7 +1139,11 @@ class Accelerator:
         compute dtype (FSDP2's policy under a plugin), with the loss averaged
         over the processes. A microbatch that does not end the window skips
         the gradient collectives unless ``sync_each_batch``; the one that
-        ends it reduces them and averages the parameters FSDP2 leaves whole."""
+        ends it reduces them and averages the parameters FSDP2 leaves whole.
+        Under ``pp`` the loss is the last stage's (the others' stand-in
+        losses run their part of the backward); each stage's gradients stay
+        its own, and the clip's norm and the step take them over the stages
+        with a tied weight counted once, as the fused step does."""
         if torch.is_tensor(loss_fn) or not callable(loss_fn):
             raise TypeError(
                 "backward() takes the loss function and its inputs, as the JAX package's "
@@ -1116,10 +1151,6 @@ class Accelerator:
                 f"scalar loss; got a {type(loss_fn).__name__}")
         if not self._train_states:
             raise RuntimeError("Call accelerator.prepare(...) before backward().")
-        if self.parallelism_config.pp_size > 1:
-            raise NotImplementedError(
-                "the imperative loop under pp is not ported yet (ROADMAP.md Queue A item 6: the "
-                "rest of PP); use prepare_train_step")
         model, loss_scale = self._train_states[0].model, self._train_states[0].loss_scale
         gs, world, group = self.gradient_state, self.state.loss_size, self.state.loss_group
         communicate = gs.sync_gradients or gs.sync_each_batch
@@ -1141,6 +1172,8 @@ class Accelerator:
         if world > 1:
             operations.all_reduce(loss, group=group)
             loss = loss / world
+        if self.parallelism_config.pp_size > 1 and self.use_distributed:
+            loss = self._last_stage_loss(loss, self.state.pipeline_mesh.get_group())
         if tel is not None:
             if tel.handler.sync_timing:
                 self._synchronize()
@@ -1167,7 +1200,7 @@ class Accelerator:
         if not grads or self._grads_local:
             return None
         loss_scale = self._train_states[0].loss_scale
-        norm = _global_norm(grads)
+        norm = _global_norm(grads, *self._pipeline_norm_args(self._train_states[0].model))
         return norm if loss_scale is None else norm / loss_scale.scale
 
     def clip_grad_value_(self, parameters=None, clip_value: float = 1.0):
@@ -1194,12 +1227,15 @@ class Accelerator:
             return None
         tel = self.telemetry
         t0 = time.perf_counter() if tel is not None else 0.0
+        pipe, skip = self._pipeline_norm_args(state.model)
         finite = self._unscale_and_check(state, grads)
         if self._max_grad_norm is not None:
-            factor = torch.clamp(self._max_grad_norm / (_global_norm(grads) + 1e-6), max=1.0)
+            factor = torch.clamp(self._max_grad_norm / (_global_norm(grads, pipe, skip) + 1e-6),
+                                 max=1.0)
             torch._foreach_mul_([_local(g) for g in grads], factor)
         self._optimizer_step(state, finite)
         self._grads_local = False
+        self._pp_skip = None
         if tel is not None:
             if tel.handler.sync_timing:
                 self._synchronize()
@@ -1388,7 +1424,7 @@ class Accelerator:
                      self._dataloaders):
             held.clear()
         self.step = 0
-        self._max_grad_norm = self.flag_tensor = None
+        self._max_grad_norm = self.flag_tensor = self._pp_skip = None
         self._grads_local = False
         return release_memory(*objects)
 

@@ -39,7 +39,11 @@ tree's ``/``-joined names of the unrolled layers (``params/...``,
 ``opt_state/count``, ``step`` and the extra state's leaves
 (``extra_state/batch_stats/...``); the other files are as above. A load
 reads it into the live layout at any world size (DCP reshards), without a
-process group too (``no_dist``). ``save_state(block=False)`` stages the
+process group too (``no_dist``). Under ``pp`` each stage writes its own
+parameters and moments under their global names (a tied embedding two
+stages hold is written once, DCP keeping one copy of a tensor several
+processes hold whole), so a load takes each stage's at any ``pp`` and
+``pp_virtual_stages``. ``save_state(block=False)`` stages the
 state into host buffers (pinned on the card; ``_HostStaging``, DCP's
 stager interface, keeps them for the next save) and returns;
 a thread writes the files while training goes on, until
@@ -106,6 +110,7 @@ from .utils.constants import (
     SCALER_NAME,
     SCHEDULER_NAME,
 )
+from .utils.operations import gather_shards
 from .utils.other import (
     flatten_state_dict,
     load_sharded_safetensors,
@@ -256,14 +261,12 @@ def _to_host(tensors: dict, device: torch.device) -> dict:
 
 
 def _whole(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """The whole tensor of a sharded one (an all-gather every process of
-    its mesh joins), on ``device``; a plain tensor as it is."""
+    """The whole tensor of a sharded one (``utils/operations.gather_shards``:
+    an all-gather every process of its mesh joins; CPU-offloaded shards are
+    gathered on the card), on ``device``; a plain tensor as it is."""
     if not isinstance(t, DTensor):
         return t
-    if t.device.type != device.type:  # CPU-offloaded shards, gathered on the card
-        t = DTensor.from_local(t.to_local().to(device), t.device_mesh, t.placements,
-                               shape=t.shape, stride=t.stride())
-    return t.full_tensor()
+    return gather_shards(t, device)
 
 
 def _to_device(tensors: dict, device: torch.device) -> dict:
@@ -458,14 +461,6 @@ def _dir_bytes(path: str) -> int:
                for root, _, files in os.walk(path) for f in files)
 
 
-def _refuse_dcp_under_pp(accelerator) -> None:
-    if accelerator.parallelism_config.pp_size > 1:
-        raise NotImplementedError(
-            "DISTRIBUTED_STATE_DICT under pp is not ported yet (ROADMAP.md Queue A item 6: the "
-            "rest of PP); use FULL_STATE_DICT or SHARDED_STATE_DICT, whose whole tensors "
-            "resume at any pp")
-
-
 def _save_distributed(accelerator, output_dir: str, block: bool, stats: dict) -> None:
     """Every process writes its own shards to ``<output_dir>/distributed_state_torch``;
     with ``block=False`` the state is staged into host memory and a thread
@@ -476,7 +471,6 @@ def _save_distributed(accelerator, output_dir: str, block: bool, stats: dict) ->
         raise NotImplementedError(
             "DISTRIBUTED_STATE_DICT saves a single prepared model, as in the JAX package; use "
             "FULL_STATE_DICT or SHARDED_STATE_DICT for more than one")
-    _refuse_dcp_under_pp(accelerator)
     path = os.path.join(output_dir, DCP_DIR_NAME)
     state, _ = _dcp_state(accelerator._train_states[0])
     no_dist = not accelerator.use_distributed
@@ -535,7 +529,6 @@ def _load_distributed(accelerator, input_dir: str, stats: dict) -> None:
     if len(accelerator._train_states) > 1:
         raise NotImplementedError(
             "DISTRIBUTED_STATE_DICT holds a single prepared model, as in the JAX package")
-    _refuse_dcp_under_pp(accelerator)
     train_state = accelerator._train_states[0]
     opt = train_state.optimizer
     state, live = _dcp_state(train_state)

@@ -58,7 +58,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
 from .models.llama import (
     activation_fn,
@@ -75,6 +75,7 @@ from .models.moe import router_probs, top_k_experts
 from .models.t5 import MASKED, relative_position_bucket, t5_rms
 from .parallel import tp
 from .utils import operations
+from .utils.operations import gather_shards
 from .utils.quantization import DecodeQuant, dequantize_decode_kernel
 
 _COMPILE_MANAGER_ITEM = "ROADMAP.md Queue A item 12 (control plane: compile_manager.py)"
@@ -374,25 +375,35 @@ def _attend(q, k, v, q_positions, kv_valid=None) -> torch.Tensor:
     return _attend_masked(q, k, v, _attend_mask(q_positions, k.shape[1], kv_valid))
 
 
-def _tp_kv_heads(cfg, params: dict, fwd) -> Optional[int]:
+# The first self-attention projection of each family's decoder, whose
+# split says whether the cache holds each rank's heads under ``tp``.
+_TP_ATTENTION_WEIGHT = ("transformer.h.0.attn.c_attn.weight",                  # GPT-2
+                        "gpt_neox.layers.0.attention.query_key_value.weight",   # NeoX
+                        "decoder.block_0.self_attn.q.weight",                   # T5
+                        "decoder.layers.0.self_attn.q_proj.weight",             # Whisper
+                        "model.layers.0.self_attn.q_proj.weight")               # the rest
+
+
+def _tp_kv_heads(cfg, params: dict) -> Optional[int]:
     """The kv heads this rank's cache holds when the model is split over
-    ``tp`` (None otherwise): its share of the kv heads, or, where they stay
-    whole (fewer than ``tp``), those its q heads read
-    (``parallel/tp.heads_for_local_q``). Only the Llama chassis and
-    Mixtral decode over ``tp``."""
+    ``tp`` (None otherwise): its share of the kv heads, or, where the
+    Llama chassis keeps them whole (fewer than ``tp``), those its q heads
+    read (``parallel/tp.heads_for_local_q``). Every other family splits
+    its heads as its q projection."""
     if not any(isinstance(t, DTensor) for t in params.values()):
         return None
-    if fwd is not _llama_forward_cached:
-        raise NotImplementedError(
-            "generate over tp runs the Llama chassis and Mixtral; the other families' decode "
-            "plans under tp are not ported yet (ROADMAP.md Queue A item 6)")
-    q = params["model.layers.0.self_attn.q_proj.weight"]
-    h, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
-    if not tp.is_split(q):
+    name = next((n for n in _TP_ATTENTION_WEIGHT if n in params), None)
+    if name is None or not tp.is_split(params[name]):
         return None
-    hq = h // q.device_mesh.size()
+    q = params[name]
+    size = q.device_mesh.size()
+    _, hkv, _, _ = _cache_dims(cfg)
+    if not name.startswith("model.layers.0.self_attn"):
+        return hkv // size
+    h = cfg.num_attention_heads
+    hq = h // size
     if tp.is_split(params["model.layers.0.self_attn.k_proj.weight"]):
-        return hkv // q.device_mesh.size()
+        return hkv // size
     return 1 if (h // hkv) % hq == 0 else hq
 
 
@@ -414,40 +425,45 @@ def _decode_params(model_or_params) -> dict:
 
 def _gathered_fsdp_params(model, params: dict) -> dict:
     """The decode's parameters of a ``Model`` FSDP2 shards: each sharded
-    one gathered whole (every process of the group decodes together), the
-    expert stacks split over ep left where they lie. Under ``tp`` FSDP2's
-    shards are 2-D with the ``tp`` split, which the decode plan does not
-    take."""
-    plan = model.tp_plan or {}
-    if any(pl.tp is not None for pl in plan.values()):
-        raise NotImplementedError(
-            "generate of a model FSDP2 shards over dp_shard × tp: prepare it for decoding "
-            "without the FSDP plugin (tp alone, or tp with dp_replicate)")
+    one gathered over FSDP2's mesh dims only (``utils/operations.
+    gather_shards`` of a ``DTensor`` over them; every process of the group
+    decodes together), the ``tp`` split and the expert stacks split over
+    ep left where they lie, for the decode's tp plan."""
     experts = set(model.expert_params)
-    return {n: _gather_shards(p) if isinstance(p, DTensor) and n not in experts else p
-            for n, p in params.items()}
+    plan = model.tp_plan or {}
+    out = {}
+    for n, p in params.items():
+        if not isinstance(p, DTensor) or n in experts:
+            out[n] = p
+        elif plan.get(n) is not None and plan[n].tp is not None:
+            out[n] = _keep_tp_split(p)
+        else:
+            out[n] = gather_shards(p)
+    return out
 
 
-def _gather_shards(t: DTensor) -> torch.Tensor:
-    """The whole tensor of an FSDP2 parameter (dim 0 split over its mesh's
-    last dim, torch.chunk's rows, other dims replicated): this rank's rows
-    padded to the largest chunk, one ``all_gather`` over the shard group,
-    the pads cut. ``full_tensor``'s functional collectives fault over
-    gloo with tensors on the card (torch 2.11); this path does not."""
-    import torch.distributed as dist
-
-    local = t.to_local().detach()
-    for dim, placement in enumerate(t.placements):
-        if getattr(placement, "dim", None) is None or t.device_mesh.size(dim) == 1:
-            continue
-        group, n = t.device_mesh.get_group(dim), t.device_mesh.size(dim)
-        rows = -(-t.shape[0] // n)
-        padded = local.new_zeros((rows,) + tuple(local.shape[1:]))
-        padded[:local.shape[0]] = local
-        parts = [torch.empty_like(padded) for _ in range(n)]
-        dist.all_gather(parts, padded, group=group)
-        local = torch.cat(parts)[:t.shape[0]]
-    return local
+def _keep_tp_split(t: DTensor) -> DTensor:
+    """A 2-D FSDP2 × ``tp`` parameter as the ``tp`` plan holds it: this
+    rank's ``tp`` shard, gathered whole over the data-parallel dims, as a
+    ``DTensor`` over the ``tp`` slice with its ``tp`` placement."""
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names
+    tp_dim = names.index("tp")
+    placement = t.placements[tp_dim]
+    dp = [m for m in range(mesh.ndim) if m != tp_dim]
+    dp_mesh = mesh[tuple(names[m] for m in dp)] if len(dp) > 1 else mesh[names[dp[0]]]
+    # This rank's tp shard, still split over the data-parallel dims: gather
+    # those. Within the tp shard FSDP2's split is a plain one (its
+    # ``_StridedShard`` says only that it was taken inside the tp chunk).
+    within = [Shard(pl.dim) if getattr(pl, "dim", None) is not None else pl
+              for pl in (t.placements[m] for m in dp)]
+    shape = list(t.shape)
+    shape[placement.dim] //= mesh.size(tp_dim)
+    shape = torch.Size(shape)
+    local = DTensor.from_local(t.to_local(), dp_mesh, within, run_check=False, shape=shape,
+                               stride=torch.empty(shape, device="meta").stride())
+    return DTensor.from_local(gather_shards(local), mesh["tp"], [placement], run_check=False,
+                              shape=t.shape, stride=t.stride())
 
 
 @torch.no_grad()
@@ -538,10 +554,13 @@ def _cached_layers(x, cache: KVCache, positions, kv_valid, n_layers: int, block)
 def _head(x, weight, dtype, return_all: bool) -> torch.Tensor:
     """fp32 logits of the last position (every position with
     ``return_all``) through ``weight`` rounded to ``dtype``, in the type the
-    two promote to."""
+    two promote to; a head split over ``tp`` on the vocab gives each rank's
+    slice, gathered whole (``parallel/tp.gather_vocab``)."""
     h = x if return_all else x[:, -1]
     w = weight.to(dtype)
     dt = torch.promote_types(h.dtype, w.dtype)
+    if tp.is_split(w):
+        return tp.gather_vocab(tp.vocab_logits(h.to(dt), w.to(dt))).float()
     return F.linear(h.to(dt), w.to(dt)).float()
 
 
@@ -550,19 +569,22 @@ def _gpt2_forward_cached(cfg, model_or_params, input_ids, cache: KVCache, return
                          pad_offset=None, kv_valid=None):
     """GPT-2 under ``_llama_forward_cached``'s contract: learned positions
     (shifted by left padding), the fused ``c_attn`` split by view, the
-    tanh-GELU MLP and the head tied to ``wte``."""
+    tanh-GELU MLP and the head tied to ``wte``. Under ``tp`` each rank runs
+    its heads (``c_attn`` split by heads, ``c_proj`` row-parallel) and the
+    vocab-split ``wte`` looks up and gives whole logits."""
     p = _decode_params(model_or_params)
     b, s = input_ids.shape
-    eps, nh = cfg.layer_norm_epsilon, cfg.n_head
+    eps = cfg.layer_norm_epsilon
     positions, pos_ids = _positions(cache, b, s, pad_offset)
     ids = input_ids.long()
-    x = (F.embedding(ids, p["transformer.wte.weight"]).to(cfg.dtype)
+    x = (tp.embedding(ids, p["transformer.wte.weight"]).to(cfg.dtype)
          + F.embedding(pos_ids, p["transformer.wpe.weight"]).to(cfg.dtype))
 
     def block(i, x, attend):
         pre = f"transformer.h.{i}."
         hn = _layer_norm(x, p, pre + "ln_1", eps)
-        q, k, v = _dense(p, pre + "attn.c_attn", hn).view(b, s, 3, nh, -1).unbind(2)
+        # (3, heads, D) rows; under tp this rank's heads of each (a strided split).
+        q, k, v = _dense(p, pre + "attn.c_attn", hn).view(b, s, 3, -1, cfg.head_dim).unbind(2)
         x = x + _dense(p, pre + "attn.c_proj", attend(i, q, k, v).reshape(b, s, -1))
         hn = _layer_norm(x, p, pre + "ln_2", eps)
         return x + _dense(p, pre + "c_proj",
@@ -585,7 +607,7 @@ def _opt_forward_cached(cfg, model_or_params, input_ids, cache: KVCache, return_
     eps, nh = cfg.layer_norm_eps, cfg.num_attention_heads
     positions, pos_ids = _positions(cache, b, s, pad_offset)
     ids = input_ids.long()
-    x = (F.embedding(ids, p["model.embed_tokens.weight"]).to(cfg.dtype)
+    x = (tp.embedding(ids, p["model.embed_tokens.weight"]).to(cfg.dtype)
          + F.embedding(pos_ids + cfg.POSITION_OFFSET,
                        p["model.embed_positions.weight"]).to(cfg.dtype))
 
@@ -612,15 +634,15 @@ def _neox_forward_cached(cfg, model_or_params, input_ids, cache: KVCache, return
     residual and the untied ``embed_out``."""
     p = _decode_params(model_or_params)
     b, s = input_ids.shape
-    eps, nh, rnd = cfg.layer_norm_eps, cfg.num_attention_heads, cfg.rotary_ndims
+    eps, rnd = cfg.layer_norm_eps, cfg.rotary_ndims
     positions, rope_positions = _positions(cache, b, s, pad_offset)
-    x = F.embedding(input_ids.long(), p["gpt_neox.embed_in.weight"]).to(cfg.dtype)
+    x = tp.embedding(input_ids.long(), p["gpt_neox.embed_in.weight"]).to(cfg.dtype)
     cos, sin = rotary_embedding(rope_positions, rnd, cfg.rotary_emb_base, x.dtype)
 
     def block(i, x, attend):
         pre = f"gpt_neox.layers.{i}."
         hn = _layer_norm(x, p, pre + "input_layernorm", eps)
-        qkv = _dense(p, pre + "attention.query_key_value", hn).view(b, s, nh, 3, -1)
+        qkv = _dense(p, pre + "attention.query_key_value", hn).view(b, s, -1, 3, cfg.head_dim)
         q, k, v = qkv.unbind(3)
         q = apply_partial_rope(q, cos, sin, rnd)
         k = apply_partial_rope(k, cos, sin, rnd)
@@ -693,9 +715,9 @@ def _module_of(model):
 
 def _cross_kv(p: dict, names: list[str], enc, heads: int):
     """Stacked (L, B, S, H, D) projections of ``enc`` by the weights (and
-    biases, where a layer has one) ``names``, in ``enc``'s type."""
-    b, s, _ = enc.shape
-    return torch.stack([_dense(p, n, enc).view(b, s, heads, -1) for n in names])
+    biases, where a layer has one) ``names``, in ``enc``'s type; this
+    rank's heads under ``tp``, as the rule tables split them."""
+    return torch.stack([_proj(p, n, enc, heads) for n in names])
 
 
 @torch.no_grad()
@@ -733,9 +755,14 @@ def _t5_decode(cfg, model_or_params, input_ids, cache: KVCache, enc: EncDecState
     eps, nh, t_max = cfg.layer_norm_epsilon, cfg.num_heads, cache.k.shape[2]
     start = cache.length
     positions = _row_positions(start, b, s)
-    y = F.embedding(input_ids.long(), p["shared.weight"]).to(cfg.dtype)
+    y = tp.embedding(input_ids.long(), p["shared.weight"]).to(cfg.dtype)
     self_bias = _t5_self_bias(
         cfg, p["decoder.block_0.self_attn.relative_attention_bias.weight"], positions, t_max)
+    q0 = p["decoder.block_0.self_attn.q.weight"]
+    if tp.is_split(q0):  # the bias table is whole: this rank's heads of it
+        local = nh // q0.device_mesh.size()
+        first = q0.device_mesh.get_local_rank() * local
+        self_bias = self_bias[:, first:first + local]
     visible = _attend_mask(positions, t_max)
 
     def rms(h, name):
@@ -789,7 +816,7 @@ def _whisper_decode(cfg, model_or_params, input_ids, cache: KVCache, enc: EncDec
     eps, nh = cfg.layer_norm_eps, cfg.decoder_attention_heads
     start = cache.length
     positions = _row_positions(start, b, s)
-    y = (F.embedding(input_ids.long(), p["decoder.embed_tokens.weight"]).to(cfg.dtype)
+    y = (tp.embedding(input_ids.long(), p["decoder.embed_tokens.weight"]).to(cfg.dtype)
          + F.embedding(positions, p["decoder.embed_positions.weight"]).to(cfg.dtype))
     scale = 1.0 / np.sqrt(cfg.decoder_head_dim)
 
@@ -1090,7 +1117,7 @@ def generate(
                   if s <= pos < s + max_new_tokens}
     neg_inf = float(np.finfo(np.float32).min)
 
-    cache = init_cache(cfg, b, t_max, device=device, kv_heads=_tp_kv_heads(cfg, params, fwd))
+    cache = init_cache(cfg, b, t_max, device=device, kv_heads=_tp_kv_heads(cfg, params))
     logits, cache = fwd(cfg, params, ids, cache, **kwargs)
     if begin_suppress_tokens:
         logits[:, list(begin_suppress_tokens)] = neg_inf

@@ -18,7 +18,6 @@ the stages other than the last, ``parallel/pp.is_stand_in``).
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Optional
 
 import torch
@@ -28,10 +27,8 @@ from .model import Model
 from .parallel.pp import (
     _active_mesh,
     _pipeline_ranks,
-    _resolve_virtual_stages,
-    _run_pipeline,
     llama_pipeline_forward,
-    stage_layer_indices,
+    pipeline_forward,
 )
 
 # module class name -> fn(model, input_ids, *, mesh, n_microbatches)
@@ -52,46 +49,13 @@ def pipeline_stage_layers(n_layers: int, n_stages: int) -> list[range]:
     return [range(i * per, (i + 1) * per) for i in range(n_stages)]
 
 
-def _gpt2_chunk(blocks: list, remat: bool, h):
-    from .models.layers import run_blocks
-
-    return run_blocks(blocks, h, remat)
-
-
 def gpt2_pipeline_forward(model, input_ids: torch.Tensor, *, mesh=None,
                           n_microbatches: Optional[int] = None) -> torch.Tensor:
     """Pipelined ``GPT2LMHeadModel`` forward: fp32 logits on the last stage
     (``wte`` + ``wpe`` on stage 0, the blocks over ``pp``, the final
-    LayerNorm and the tied head on the last stage)."""
-    from .parallel import tp
-
-    module = getattr(model, "module", model)
-    cfg = module.config
-    if not cfg.scan_layers:
-        raise ValueError("pipeline inference requires scan_layers=True (stacked blocks)")
-    mesh = _active_mesh(mesh)
-    n_stages, stage, _ = _pipeline_ranks(mesh, "pp")
-    if n_stages == 1:
-        return module(input_ids)
-    v_stages = _resolve_virtual_stages(None)
-    tr = module.transformer
-    b, s = input_ids.shape
-    if stage == 0:
-        pos = torch.arange(s, device=input_ids.device)
-        x = (tp.embedding(input_ids, tr.wte.weight).to(cfg.dtype)
-             + torch.nn.functional.embedding(pos, tr.wpe.weight).to(cfg.dtype))
-    else:
-        x = torch.empty((b, s, cfg.n_embd), dtype=cfg.dtype, device=input_ids.device)
-    chunks = [functools.partial(_gpt2_chunk, [tr.h[i] for i in idx], cfg.remat)
-              for idx in stage_layer_indices(cfg.n_layer, n_stages, stage, v_stages)]
-    h = _run_pipeline(chunks, x, mesh=mesh, axis_name="pp", n_microbatches=n_microbatches,
-                      v_stages=v_stages, stand_in_shape=(b, s, cfg.vocab_size))
-    if stage != n_stages - 1:
-        return h
-    h = tr.ln_f(h)
-    head = tr.wte.weight.to(cfg.dtype)
-    dt = torch.promote_types(h.dtype, head.dtype)
-    return tp.vocab_logits(h.to(dt), head.to(dt), post=lambda y: y.float())
+    LayerNorm and the tied head on the last stage; ``parallel/pp.
+    pipeline_forward``)."""
+    return pipeline_forward(model, input_ids, mesh=mesh, n_microbatches=n_microbatches)
 
 
 def _llama_plan(model, input_ids, *, mesh, n_microbatches):

@@ -30,7 +30,9 @@ from torch import nn
 
 from ..ops.fp8 import backend_to_native, fp8_dot_general
 from ..parallel import tp
-from .layers import FlaxLayerNorm, init_weights, module_attention, run_blocks
+from ..parallel.pp import pipeline_forward
+from .layers import (FlaxLayerNorm, init_weights, module_attention, run_blocks,
+                     sequence_positions)
 from .llama import _Linear
 
 @dataclasses.dataclass
@@ -121,7 +123,7 @@ class GPT2Model(nn.Module):
 
     def forward(self, input_ids):
         cfg = self.cfg
-        pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
+        pos = sequence_positions(input_ids)
         x = (tp.embedding(input_ids, self.wte.weight).to(cfg.dtype)
              + F.embedding(pos, self.wpe.weight).to(cfg.dtype))
         return self.ln_f(run_blocks(self.h, x, cfg.remat))
@@ -130,6 +132,9 @@ class GPT2Model(nn.Module):
 class GPT2LMHeadModel(nn.Module):
     # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
     _fsdp_blocks = (GPT2Block,)
+    # Set when prepare cuts the module to a pipeline stage
+    # (parallel/pp.keep_stage): its forward is then the pipelined one.
+    pipeline_stage = None
 
     def __init__(self, cfg: GPT2Config, device=None):
         super().__init__()
@@ -137,7 +142,10 @@ class GPT2LMHeadModel(nn.Module):
         self.transformer = GPT2Model(cfg, device)
 
     def forward(self, input_ids):
-        """fp32 logits (B, S, V)."""
+        """fp32 logits (B, S, V); on a pipeline stage those of
+        ``parallel/pp.pipeline_forward`` (a stand-in but on the last)."""
+        if self.pipeline_stage is not None:
+            return pipeline_forward(self, input_ids)
         x = self.transformer(input_ids)
         head = self.transformer.wte.weight.to(self.config.dtype)
         dt = torch.promote_types(x.dtype, head.dtype)

@@ -13,7 +13,11 @@ JAX counterparts use.
   the type of q and k, divided by sqrt(head_dim) rounded to the compute
   dtype, ``finfo(scores).min`` where the causal mask or a key mask (BERT's
   padding) hides a key, the softmax in fp32 and its probabilities back in
-  the compute dtype.
+  the compute dtype. Over a ``cp`` or ``sp`` axis, where each process
+  holds a slice of every sequence, causal attention without a key mask
+  attends over the whole sequence through ``auto_flash_attention``'s ring
+  (the JAX modules' attention over the global array); ``sequence_positions``
+  gives such a slice its global positions.
 - ``run_blocks``: the layer list, each block under
   ``torch.utils.checkpoint`` when ``remat`` is set and autograd records
   (flax's ``nn.remat`` without a policy: the whole block recomputes); a
@@ -83,11 +87,28 @@ def causal_mask(sq: int, sk: int, device) -> torch.Tensor:
     return torch.ones(sq, sk, dtype=torch.bool, device=device).tril(sk - sq)
 
 
+def sequence_positions(ids: torch.Tensor) -> torch.Tensor:
+    """The global positions of this process's slice of each sequence of
+    ``ids`` (B, S): ``arange(S)`` but over a ``cp`` or ``sp`` axis, where
+    process slice ``i`` starts at ``i · S``."""
+    from ..state import current_sequence_shard
+
+    _, i = current_sequence_shard()
+    s = ids.shape[-1]
+    return i * s + torch.arange(s, device=ids.device)
+
+
 def module_attention(q, k, v, dtype, causal: bool,
                      key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Sq, H, D) against k, v (B, Sk, H, D): see the module's
     docstring; ``key_mask`` (B, Sk), nonzero where a key is seen. Returns
     (B, Sq, H, D) in the type of the probabilities times v."""
+    from ..state import current_sequence_shard
+
+    if causal and key_mask is None and current_sequence_shard()[0] > 1:
+        from ..ops.flash_attention import auto_flash_attention
+
+        return auto_flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), causal=True)
     d = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
     scores = scores / torch.full((), as_dtype(math.sqrt(d), dtype), dtype=scores.dtype,

@@ -81,6 +81,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from ..parallel import ep as ep_exchange
 from ..parallel import tp
+from ..parallel.pp import pipeline_forward
 from ..state import current_expert_groups, current_parallelism_config, current_sequence_shard
 from ..utils.operations import loss_group, loss_processes
 from .llama import (
@@ -272,6 +273,51 @@ def gather_choice_counts(counts: torch.Tensor, tokens: int, group, capacity_of,
             sum(sizes))
 
 
+class MicrobatchRouting:
+    """The routing state of a pipeline stage's ``count`` microbatches of one
+    process's batch (``parallel/pp.py``), which go through each layer in
+    row order: by layer, the choices of each expert made so far
+    (``choices``) and before each microbatch (``before``), so that every
+    microbatch takes the batch's capacity and its slots after the ones
+    before it, as the whole batch routed at once would."""
+
+    def __init__(self, count: int):
+        self.count = count
+        self.choices: dict = {}
+        self.before: dict = {}
+
+
+class Microbatch(NamedTuple):
+    """Microbatch ``index`` of a ``MicrobatchRouting`` (a layer's
+    ``processes`` argument inside a pipeline stage)."""
+
+    index: int
+    routing: MicrobatchRouting
+
+
+def microbatch_aux(cfg: MixtralConfig, routing: MicrobatchRouting, extras: dict) -> dict:
+    """Each microbatch's aux loss term once every microbatch has gone
+    through the stage: ``extras`` maps each to its layers' ``(MoeLayer,
+    probability sums)``; a layer's ``frac`` is the whole batch's, from its
+    carried choices, and its ``mean_prob`` the sum of the microbatches'
+    sums over the batch's tokens, so the terms add up to the batch's aux
+    loss and each one's gradient reaches its own microbatch. Sets each
+    layer's ``stats`` (dropped and routed choices) to the batch's."""
+    e, k = cfg.num_local_experts, cfg.num_experts_per_tok
+    terms = {}
+    for key, parts in extras.items():
+        term = 0.0
+        for moe, sums in parts:
+            totals = routing.choices[id(moe)]
+            tokens = int(totals.sum()) // k
+            dispatched = totals.clamp(max=expert_capacity(cfg, tokens))
+            frac = dispatched.float() / dispatched.sum().clamp_min(1).float()
+            term = term + cfg.router_aux_loss_coef * (e * torch.sum(frac * sums / tokens))
+            moe.stats.update(dropped=tokens * k - dispatched.sum(), routed=tokens * k)
+        terms[key] = term
+    return terms
+
+
 class MoeLayer(nn.Module):
     """Sparse SwiGLU expert layer (Mixtral's MLP) with stacked experts.
 
@@ -310,6 +356,8 @@ class MoeLayer(nn.Module):
         e, k, t = cfg.num_local_experts, cfg.num_experts_per_tok, tokens.shape[0]
         probs = router_probs(tokens, self.router)
         weights, experts = top_k_experts(probs, k)
+        if isinstance(processes, Microbatch):
+            return self._route_microbatch(probs, weights, experts, processes)
         offset, totals, t_all, gathered = None, None, t, None
         if processes > 1:
             # One run per process, or one per row when the sequence is split.
@@ -328,6 +376,29 @@ class MoeLayer(nn.Module):
         self.stats = {"dropped": t_all * k - r.dispatched.sum().detach(), "routed": t_all * k,
                       "experts": experts.detach(), "kept": r.kept, "probs": probs.detach()}
         return r, aux
+
+    def _route_microbatch(self, probs, weights, experts, mb: Microbatch):
+        """The routing of one of a stage's microbatches (``MicrobatchRouting``)
+        and its probabilities' sum, from which ``microbatch_aux`` makes its
+        aux term once the batch's choices are all known. A recompute (remat)
+        finds its microbatch's offsets where the first forward left them."""
+        if tp.is_expert_split(self.w_gate):
+            raise NotImplementedError(
+                "experts split over ep inside a pipeline stage of several microbatches with "
+                "one batch process: pass n_microbatches=1")
+        e, t = self.cfg.num_local_experts, experts.shape[0]
+        counts = F.one_hot(experts, e).reshape(-1, e).sum(0)
+        key = (id(self), mb.index)
+        first = key not in mb.routing.before
+        if first:
+            seen = mb.routing.choices.get(id(self), torch.zeros_like(counts))
+            mb.routing.before[key] = seen
+            mb.routing.choices[id(self)] = seen + counts
+        capacity = expert_capacity(self.cfg, t * mb.routing.count)
+        r = route(weights, experts, e, capacity, mb.routing.before[key][None])
+        if first:  # microbatch_aux adds the batch's dropped and routed choices
+            self.stats = {"experts": experts.detach(), "kept": r.kept, "probs": probs.detach()}
+        return r, probs.sum(0)
 
     def dispatch(self, tokens, r: Routing) -> torch.Tensor:
         """(E, C, d) expert inputs: each kept choice's token in its slot,
@@ -456,6 +527,9 @@ class MixtralModel(nn.Module):
 class MixtralForCausalLM(nn.Module):
     # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
     _fsdp_blocks = (MixtralBlock,)
+    # Set when prepare cuts the module to a pipeline stage
+    # (parallel/pp.keep_stage): its forward is then the pipelined one.
+    pipeline_stage = None
 
     def __init__(self, cfg: MixtralConfig, device=None):
         super().__init__()
@@ -473,14 +547,17 @@ class MixtralForCausalLM(nn.Module):
         """Logits (B, S, V) in the compute dtype; with ``return_aux``,
         ``(logits, aux)``: the fp32 sum of the layers' router aux losses
         (flax's sown ``"losses"``)."""
+        if self.pipeline_stage is not None:
+            return pipeline_forward(self, input_ids, return_aux=return_aux)
         x, aux = self.model(input_ids)
         logits = tp.vocab_logits(x, self.head_weight().to(self.config.dtype))
         return (logits, aux) if return_aux else logits
 
     def router_stats(self) -> dict:
         """The last forward's dropped and routed choices, summed over the
-        layers (detached tensors; read them after the step)."""
-        layers = [blk.moe.stats for blk in self.model.layers]
+        layers (detached tensors; read them after the step); on a pipeline
+        stage, over its own layers."""
+        layers = [blk.moe.stats for blk in self.model.layers if hasattr(blk, "moe")]
         return {"dropped": sum(s["dropped"] for s in layers),
                 "routed": sum(s["routed"] for s in layers)}
 

@@ -25,7 +25,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import tp
-from .layers import FlaxLayerNorm, init_weights, module_attention, run_blocks
+from ..parallel.pp import pipeline_forward
+from .layers import (FlaxLayerNorm, init_weights, module_attention, run_blocks,
+                     sequence_positions)
 from .llama import _Linear, apply_partial_rope, rotary_embedding
 
 @dataclasses.dataclass
@@ -127,7 +129,7 @@ class GPTNeoXModel(nn.Module):
     def forward(self, input_ids):
         cfg = self.cfg
         x = tp.embedding(input_ids, self.embed_in.weight).to(cfg.dtype)
-        positions = torch.arange(input_ids.shape[-1], device=input_ids.device)
+        positions = sequence_positions(input_ids)
         positions = positions.expand(input_ids.shape)
         return self.final_layer_norm(run_blocks(self.layers, x, cfg.remat, positions))
 
@@ -135,6 +137,9 @@ class GPTNeoXModel(nn.Module):
 class GPTNeoXForCausalLM(nn.Module):
     # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
     _fsdp_blocks = (GPTNeoXBlock,)
+    # Set when prepare cuts the module to a pipeline stage
+    # (parallel/pp.keep_stage): its forward is then the pipelined one.
+    pipeline_stage = None
 
     def __init__(self, cfg: GPTNeoXConfig, device=None):
         super().__init__()
@@ -144,7 +149,9 @@ class GPTNeoXForCausalLM(nn.Module):
 
     def forward(self, input_ids):
         """fp32 logits (B, S, V); the untied head computes in the compute
-        dtype."""
+        dtype. On a pipeline stage those of ``parallel/pp.pipeline_forward``."""
+        if self.pipeline_stage is not None:
+            return pipeline_forward(self, input_ids)
         dt = self.config.dtype
         return tp.vocab_logits(self.gpt_neox(input_ids).to(dt), self.embed_out.weight.to(dt),
                                post=lambda y: y.float())

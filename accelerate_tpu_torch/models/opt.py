@@ -21,7 +21,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import tp
-from .layers import FlaxLayerNorm, init_weights, module_attention, run_blocks
+from ..parallel.pp import pipeline_forward
+from .layers import (FlaxLayerNorm, init_weights, module_attention, run_blocks,
+                     sequence_positions)
 from .llama import _Linear
 
 @dataclasses.dataclass
@@ -106,7 +108,7 @@ class OPTModel(nn.Module):
 
     def forward(self, input_ids):
         cfg = self.cfg
-        pos = torch.arange(input_ids.shape[-1], device=input_ids.device) + cfg.POSITION_OFFSET
+        pos = sequence_positions(input_ids) + cfg.POSITION_OFFSET
         x = (tp.embedding(input_ids, self.embed_tokens.weight).to(cfg.dtype)
              + F.embedding(pos, self.embed_positions.weight).to(cfg.dtype))
         return self.final_layer_norm(run_blocks(self.layers, x, cfg.remat))
@@ -115,6 +117,9 @@ class OPTModel(nn.Module):
 class OPTForCausalLM(nn.Module):
     # FSDP2's per-block units (parallel/fsdp.decoder_blocks).
     _fsdp_blocks = (OPTBlock,)
+    # Set when prepare cuts the module to a pipeline stage
+    # (parallel/pp.keep_stage): its forward is then the pipelined one.
+    pipeline_stage = None
 
     def __init__(self, cfg: OPTConfig, device=None):
         super().__init__()
@@ -122,7 +127,10 @@ class OPTForCausalLM(nn.Module):
         self.model = OPTModel(cfg, device)
 
     def forward(self, input_ids):
-        """fp32 logits (B, S, V) of the head tied to ``embed_tokens``."""
+        """fp32 logits (B, S, V) of the head tied to ``embed_tokens``; on a
+        pipeline stage those of ``parallel/pp.pipeline_forward``."""
+        if self.pipeline_stage is not None:
+            return pipeline_forward(self, input_ids)
         x = self.model(input_ids)
         head = self.model.embed_tokens.weight.to(self.config.dtype)
         dt = torch.promote_types(x.dtype, head.dtype)

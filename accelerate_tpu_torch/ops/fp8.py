@@ -39,7 +39,27 @@ both scales, cast. ``PATHS`` counts the products by path.
 ``fp8_dot_general(fp8_format, use_during_eval, native)`` is the port's
 linear, ``linear(x, w) = x @ wᵀ`` with ``w`` in ``nn.Linear``'s ``(out,
 in)`` layout; inside ``eval_mode()`` it computes in full precision unless
-``use_during_eval``. ``fp8_einsum`` routes a two-operand einsum without
+``use_during_eval``.
+
+The amax is the whole tensor's. In the JAX package's jitted step
+``jnp.max(jnp.abs(x))`` is the max over the global array however GSPMD
+splits it, so an operand split over processes takes its amax as an
+``all_reduce(MAX)`` over exactly the processes it is split among, before
+the scale (``_quant``'s ``groups``):
+
+- ``x`` and the cotangent ``g`` over the processes of the running train
+  step's batch (``utils/operations.loss_group``: ``dp_replicate``,
+  ``dp_shard`` and ``cp``/``sp``, this stage's under ``pp``, never other
+  ``tp`` ranks), read when the forward runs;
+- under ``tp`` (``parallel/tp.linear`` passes the split), also over the
+  ``tp`` group for an operand split there: the input of a row-parallel
+  projection, the weight of every split projection and the cotangent of
+  a column-parallel one. A replicated operand takes no collective.
+
+Outside a step, and in the comm-hook step (whose gradients each process
+computes on its own rows, as the JAX ``shard_map`` step does), the batch
+takes none: each process scales its own tensors. ``AMAX_REDUCES`` counts
+the reductions. ``fp8_einsum`` routes a two-operand einsum without
 batch indices through the same linear and quantize-dequantizes the
 operands of one with batch indices, as the JAX package's does.
 """
@@ -52,8 +72,11 @@ from contextlib import contextmanager
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
+
+from ..utils.operations import loss_group, loss_processes
 
 E4M3_MAX = 448.0        # float8_e4m3fn finite max
 E5M2_MAX = 57344.0      # float8_e5m2 finite max
@@ -63,11 +86,14 @@ _F8_MAX = {torch.float8_e4m3fn: E4M3_MAX, torch.float8_e5m2: E5M2_MAX}
 # (``_scaled_mm``), dequantized to 16 bits (e5m2 by e5m2 on the card), or
 # the plain version (CPU tensors).
 PATHS = {"scaled_mm": 0, "dequantized": 0, "plain": 0}
+# The amax all-reduces (one per operand and group) since the last reset_paths().
+AMAX_REDUCES = {"all_reduce": 0}
 
 
 def reset_paths() -> None:
     for name in PATHS:
         PATHS[name] = 0
+    AMAX_REDUCES["all_reduce"] = 0
 
 
 _EVAL_MODE = threading.local()
@@ -97,50 +123,97 @@ def _scale(amax: torch.Tensor, fp8_max: float) -> torch.Tensor:
     return torch.where(amax > 0, amax / torch.full_like(amax, fp8_max), 1.0)
 
 
-def _quant(x: torch.Tensor, fp8_dtype: torch.dtype, fp8_max: Optional[float] = None):
+def _global_amax(amax: torch.Tensor, groups) -> torch.Tensor:
+    """``amax`` (an fp32 scalar) as the max over every process of each of
+    ``groups`` (in turn: the max over their product), in place."""
+    for group in groups:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        AMAX_REDUCES["all_reduce"] += 1
+    return amax
+
+
+def batch_groups() -> tuple:
+    """The groups over which the running train step splits its batch: its
+    loss group when it averages more than one process's loss, else none
+    (outside a step, one process, the comm-hook step)."""
+    return (loss_group(),) if loss_processes() > 1 else ()
+
+
+def _quant(x: torch.Tensor, fp8_dtype: torch.dtype, fp8_max: Optional[float] = None,
+           groups=()):
     """x → (fp8 codes, fp32 scale) with per-tensor current scaling.
 
-    The amax is read in fp32 (exact for 16-bit inputs), and the division
-    runs in fp32 and rounds once into the fp8 output: ``scale`` as a
-    one-element 1-D tensor takes part in type promotion, so a 16-bit ``x``
-    is divided in fp32 without an fp32 copy of it."""
+    The amax is read in fp32 (exact for 16-bit inputs), taken over the
+    processes of ``groups`` where ``x`` is a shard of a larger tensor, and
+    the division runs in fp32 and rounds once into the fp8 output:
+    ``scale`` as a one-element 1-D tensor takes part in type promotion, so
+    a 16-bit ``x`` is divided in fp32 without an fp32 copy of it."""
     fp8_max = _F8_MAX[fp8_dtype] if fp8_max is None else fp8_max
-    scale = _scale(torch.linalg.vector_norm(x, float("inf"), dtype=torch.float32), fp8_max)
+    amax = torch.linalg.vector_norm(x, float("inf"), dtype=torch.float32)
+    scale = _scale(_global_amax(amax, groups), fp8_max)
     q = torch.empty(x.shape, dtype=fp8_dtype, device=x.device)
     torch.div(x, scale.reshape(1), out=q)
     return q, scale
 
 
-def _qdq(x: torch.Tensor, fp8_dtype, fp8_max: float) -> torch.Tensor:
+class _GlobalMax(torch.autograd.Function):
+    """The max of a local max over ``groups``; backward, the gradient of
+    the global max (summed over the groups: each process holds its
+    share of the cotangent) to the processes that hold it, shared among
+    them as ``amax`` shares it among equal entries."""
+
+    @staticmethod
+    def forward(ctx, local, groups):
+        ctx.groups = groups
+        out = _global_amax(local.detach().clone(), groups)
+        ctx.save_for_backward(local.detach() == out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (mine,) = ctx.saved_tensors
+        g, holders = g.clone(), mine.to(g.dtype)
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
+            dist.all_reduce(holders, group=group)
+        return torch.where(mine, g / holders, 0.0), None
+
+
+def _qdq(x: torch.Tensor, fp8_dtype, fp8_max: float, groups=()) -> torch.Tensor:
     """Quantize-dequantize, differentiable as the JAX package's is (the
-    gradient also flows through the scale)."""
-    scale = _scale(x.abs().amax().float(), fp8_max)
+    gradient also flows through the scale, to the entry that holds the
+    amax of the whole tensor over ``groups``)."""
+    amax = x.abs().amax().float()
+    if groups:
+        amax = _GlobalMax.apply(amax, tuple(groups))
+    scale = _scale(amax, fp8_max)
     q = (x.float() / scale).to(fp8_dtype)
     return (q.float() * scale).to(x.dtype)
 
 
-def qdq_e4m3(x: torch.Tensor) -> torch.Tensor:
-    return _qdq(x, torch.float8_e4m3fn, E4M3_MAX)
+def qdq_e4m3(x: torch.Tensor, groups=()) -> torch.Tensor:
+    return _qdq(x, torch.float8_e4m3fn, E4M3_MAX, groups)
 
 
-def qdq_e5m2(x: torch.Tensor) -> torch.Tensor:
-    return _qdq(x, torch.float8_e5m2, E5M2_MAX)
+def qdq_e5m2(x: torch.Tensor, groups=()) -> torch.Tensor:
+    return _qdq(x, torch.float8_e5m2, E5M2_MAX, groups)
 
 
 class _QdqHybrid(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        return qdq_e4m3(x)
+    def forward(ctx, x, groups, g_groups):
+        ctx.g_groups = g_groups
+        return qdq_e4m3(x, groups)
 
     @staticmethod
     def backward(ctx, g):
-        return qdq_e5m2(g)
+        return qdq_e5m2(g, ctx.g_groups), None, None
 
 
-def qdq_hybrid(x: torch.Tensor) -> torch.Tensor:
+def qdq_hybrid(x: torch.Tensor, groups=(), g_groups=()) -> torch.Tensor:
     """E4M3 on the forward value, E5M2 on the backward cotangent (the
-    HYBRID format)."""
-    return _QdqHybrid.apply(x)
+    HYBRID format); the amax of each over its ``groups``."""
+    return _QdqHybrid.apply(x, tuple(groups), tuple(g_groups))
 
 
 def backend_to_native(backend: str) -> Optional[bool]:
@@ -252,22 +325,39 @@ class _F8Linear(torch.autograd.Function):
     the cotangent's and x's; 1 byte an element)."""
 
     @staticmethod
-    def forward(ctx, x, w, fwd_dtype, bwd_dtype):
+    def forward(ctx, x, w, fwd_dtype, bwd_dtype, groups):
+        x_groups, w_groups, g_groups = groups
         x2 = x.reshape(-1, x.shape[-1])
-        xq, sx = _quant(x2, fwd_dtype)
-        wq, sw = _quant(w, fwd_dtype)
+        xq, sx = _quant(x2, fwd_dtype, groups=x_groups)
+        wq, sw = _quant(w, fwd_dtype, groups=w_groups)
         out = fp8_mm(xq, wq.t(), sx, sw, x.dtype)
         ctx.save_for_backward(xq, sx, wq, sw)
         ctx.bwd_dtype, ctx.x_shape, ctx.x_dtype, ctx.w_dtype = bwd_dtype, x.shape, x.dtype, w.dtype
+        ctx.g_groups = g_groups
         return out.reshape(*x.shape[:-1], w.shape[0])
 
     @staticmethod
     def backward(ctx, g):
         xq, sx, wq, sw = ctx.saved_tensors
-        gq, sg = _quant(g.reshape(-1, g.shape[-1]), ctx.bwd_dtype)
+        gq, sg = _quant(g.reshape(-1, g.shape[-1]), ctx.bwd_dtype, groups=ctx.g_groups)
         dx = fp8_mm(gq, _transposed(wq).t(), sg, sw, ctx.x_dtype)
         dw = fp8_mm(_transposed(gq), _transposed(xq).t(), sg, sx, ctx.w_dtype)
-        return dx.reshape(ctx.x_shape), dw, None, None
+        return dx.reshape(ctx.x_shape), dw, None, None, None
+
+
+def amax_groups(tp_split=None) -> tuple:
+    """The groups each operand's amax is taken over, ``(x, w, g)``: the
+    running step's batch groups for x and g, and with ``tp_split`` (the
+    split weight's dim and its ``tp`` group) that group for the weight and
+    for the operand split with it: the cotangent of a column-parallel
+    projection (dim 0), the input of a row-parallel one (dim 1)."""
+    batch = batch_groups()
+    if tp_split is None:
+        return batch, (), batch
+    dim, group = tp_split
+    if dim == 0:
+        return batch, (group,), batch + (group,)
+    return batch + (group,), (group,), batch
 
 
 def fp8_dot_general(fp8_format: str = "HYBRID", use_during_eval: bool = False,
@@ -285,13 +375,20 @@ def fp8_dot_general(fp8_format: str = "HYBRID", use_during_eval: bool = False,
     if native is None:
         native = os.environ.get("ACCELERATE_FP8_NATIVE", "1") != "0"
 
-    def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def linear(x: torch.Tensor, w: torch.Tensor, tp_split=None) -> torch.Tensor:
+        """``x @ wᵀ``; ``tp_split``: ``(dim, group)`` of a weight split over
+        ``tp`` on its output rows (0) or input columns (1)."""
         if not use_during_eval and in_eval_mode():
             return F.linear(x, w)
+        groups = amax_groups(tp_split)
         if native:
-            return _F8Linear.apply(x, w, fwd_dt, bwd_dt)
-        return F.linear(q(x), q(w))
+            return _F8Linear.apply(x, w, fwd_dt, bwd_dt, groups)
+        if fmt == "HYBRID":
+            return F.linear(qdq_hybrid(x, groups[0], groups[2]),
+                            qdq_hybrid(w, groups[1], groups[1]))
+        return F.linear(q(x, groups[0]), q(w, groups[1]))
 
+    linear.takes_tp_split = True
     return linear
 
 

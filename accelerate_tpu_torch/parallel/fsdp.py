@@ -62,10 +62,10 @@ gradients and the optimizer step on the host). ``activation_checkpointing``
 process group (``apply_activation_checkpointing``).
 
 Under ``pp`` (``apply_pipeline_stage``) the model is first cut to the
-process's stage, and each axis then acts on that stage alone: FSDP2 on its
-blocks (each block its own root: the stage's forward runs the blocks, never
-the module's own forward), or DDP's arithmetic by the step over the stage's
-data-parallel slice.
+process's stage, and each axis then acts on that stage alone: ``tp`` and
+ep on its parameters, FSDP2 on its blocks (each block its own root: the
+stage's forward runs the blocks, never the module's own forward), or DDP's
+arithmetic by the step over the stage's data-parallel slice.
 
 Under ``ep_size > 1`` a Mixtral's expert stacks are split over the ep
 slice of the mesh (``apply_tensor_parallel_model``); FSDP2 and the step's
@@ -290,13 +290,15 @@ def _apply_expert_parallel(model, state) -> None:
 
 
 def apply_pipeline_stage(model, state, plugin, compute_dtype: torch.dtype) -> None:
-    """``model`` (a ``Model`` of the Llama chassis) cut to this process's
-    pipeline stage (``parallel/pp.keep_stage``; the names it shares with
-    another stage in ``model.pipeline_shared``), then, on that stage's
-    blocks only, what the other axes ask: the TP program over the stage's
-    ``tp`` slice (the plan made on the whole module, with the JAX plan's
-    ``pp`` rule), and over its ``(dp_replicate, dp_shard)`` slice FSDP2 on
-    each block under a plugin that shards, else every gradient averaged
+    """``model`` (a ``Model`` of a family ``parallel/pp.STAGE_SPECS`` names)
+    cut to this process's pipeline stage (``parallel/pp.keep_stage``; the
+    names it shares with another stage in ``model.pipeline_shared``), then,
+    on that stage's parameters only, what the other axes ask: the TP
+    program over the stage's ``tp`` slice and the expert stacks over the ep
+    slice inside the stage (``state.ExpertGroups``; the plan made on the
+    whole module, with the JAX plan's ``pp`` rule), and over its
+    ``(dp_replicate, dp_shard)`` slice FSDP2 on each block under a plugin
+    that shards (the expert stacks left out), else every gradient averaged
     over the slice by the step (DDP's arithmetic, without DDP's wrapper)."""
     from .pp import keep_stage
     from .sharding import apply_tensor_parallel, plan_parameter_sharding
@@ -304,23 +306,21 @@ def apply_pipeline_stage(model, state, plugin, compute_dtype: torch.dtype) -> No
     cfg = state.parallelism_config
     n_stages, stage = state.pipeline_stage
     plan = None
-    if cfg.ep_size > 1:
-        raise NotImplementedError(
-            "ep under pp: the pipeline stages run the Llama chassis (parallel/pp.keep_stage), "
-            "which has no experts")
-    if cfg.tp_size > 1:
+    if cfg.tp_size > 1 or cfg.ep_size > 1:
         plan = plan_parameter_sharding(model.module, state.device_mesh, fsdp_plugin=plugin,
                                        parallelism_config=cfg, tp_rules=model.tp_rules)
     model.pipeline_shared = keep_stage(model.module, n_stages, stage, cfg.pp_virtual_stages)
     if plan is not None:
         names = {n for n, _ in model.module.named_parameters()}
         model.tp_plan = {n: pl for n, pl in plan.items() if n in names}
-        apply_tensor_parallel(model.module, model.tp_plan, state.tensor_parallel_mesh)
+        if cfg.tp_size > 1:
+            apply_tensor_parallel(model.module, model.tp_plan, state.tensor_parallel_mesh)
+        _apply_expert_parallel(model, state)
     if state.loss_size == 1:
         return
     if plugin is not None and plugin.sharding_strategy != "NO_SHARD":
         model.ignored = apply_fsdp(model.module, state.data_parallel_mesh, plugin, compute_dtype,
-                                   root=False)
+                                   root=False, keep_whole=model.expert_params)
         model.sharded = True
     else:
         model.ignored = dict(model.module.named_parameters())

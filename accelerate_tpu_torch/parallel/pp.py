@@ -49,6 +49,7 @@ the backward. Its values are not the output. ``cross_entropy_loss`` and
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 from typing import Any, Callable, Optional
@@ -201,12 +202,16 @@ class _Schedule:
     its v-th chunk (``h -> h``, shape and dtype kept)."""
 
     def __init__(self, chunks: list, ranks: list, stage: int, n_micro: int, mb_shape,
-                 dtype, device):
+                 dtype, device, aux_fn: Optional[Callable] = None):
         self.chunks, self.stage, self.n_stages = chunks, stage, len(ranks)
         self.n_micro, self.mb_shape, self.dtype = n_micro, tuple(mb_shape), dtype
         self.link = _Link(ranks, stage, device)
         self.ins: dict = {}
         self.outs: dict = {}
+        # Chunks that return ``(h, extra)``: ``aux_fn`` turns every
+        # microbatch's extras, once all have gone forward, into each one's
+        # aux loss term (``aux``), which its backward takes with its output.
+        self.aux_fn, self.extras, self.aux = aux_fn, {}, {}
 
     def _first(self, v: int) -> bool:
         return self.stage == 0 and v == 0
@@ -236,6 +241,8 @@ class _Schedule:
                         h.requires_grad_(True)
                 with torch.set_grad_enabled(record):
                     y = chunk(h)
+                    if self.aux_fn is not None:
+                        y, self.extras[v, i] = y
                 if record:
                     self.ins[v, i], self.outs[v, i] = h, y
                 if self._last(v):
@@ -243,12 +250,25 @@ class _Schedule:
                 else:
                     link.send(y, link.next)
         link.finish()
+        if self.aux_fn is not None:
+            with torch.set_grad_enabled(record):
+                self.aux = self.aux_fn(self.extras)
+            self.extras = {}
         return torch.cat(rows) if rows else None
 
-    def backward(self, grad: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-        """The recorded microbatches' backwards in reverse order; returns the
-        gradient of stage 0's input (None elsewhere, or where the input
-        takes none)."""
+    def aux_total(self, like: torch.Tensor) -> torch.Tensor:
+        """This stage's aux loss: its microbatches' terms summed (detached;
+        fp32 zero without terms)."""
+        total = like.new_zeros((), dtype=torch.float32)
+        for term in self.aux.values():
+            total = total + term.detach().float()
+        return total
+
+    def backward(self, grad: Optional[torch.Tensor],
+                 grad_aux: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+        """The recorded microbatches' backwards in reverse order, each with
+        its aux term's (times ``grad_aux``); returns the gradient of stage
+        0's input (None elsewhere, or where the input takes none)."""
         link, gx = self.link, [None] * self.n_micro
         gmbs = (grad.reshape(self.n_micro, *self.mb_shape) if grad is not None
                 and self.is_last_stage else None)
@@ -256,7 +276,12 @@ class _Schedule:
             for i in reversed(range(self.n_micro)):
                 h, y = self.ins.pop((v, i)), self.outs.pop((v, i))
                 gy = gmbs[i] if self._last(v) else link.recv(y.shape, y.dtype, link.next)
-                torch.autograd.backward(y, gy)
+                term = self.aux.pop((v, i), None)
+                if term is not None and grad_aux is not None and torch.is_tensor(term) \
+                        and term.requires_grad:
+                    torch.autograd.backward([y, term], [gy, grad_aux.to(term.dtype)])
+                else:
+                    torch.autograd.backward(y, gy)
                 if self._first(v):
                     gx[i] = h.grad
                 else:
@@ -272,30 +297,34 @@ class _PipelineFn(torch.autograd.Function):
     (recording their graphs), backward runs theirs in reverse. ``anchor``
     (a zero-dim leaf that requires grad) makes the node's output require
     grad on every stage, so that a stage whose input takes no gradient
-    still runs its backward."""
+    still runs its backward. The second output is the stage's aux loss
+    (zero without one), whose gradient reaches each microbatch's term."""
 
     @staticmethod
     def forward(ctx, schedule, x, anchor):
         ctx.schedule = schedule
         with torch.enable_grad():
             out = schedule.forward(x, record=True)
-        return out if out is not None else anchor.detach().clone()
+        out = out if out is not None else anchor.detach().clone()
+        return out, schedule.aux_total(anchor)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, grad, grad_aux):
         schedule = ctx.schedule
         ctx.schedule = None
-        gx = schedule.backward(grad if schedule.is_last_stage else None)
+        gx = schedule.backward(grad if schedule.is_last_stage else None, grad_aux)
         return None, gx, None
 
 
 def _run_pipeline(chunks: list, x: torch.Tensor, *, mesh, axis_name: str,
                   n_microbatches: Optional[int], v_stages: int,
-                  stand_in_shape=None) -> torch.Tensor:
+                  stand_in_shape=None, aux_fn: Optional[Callable] = None):
     """``x`` (B, ...) through this stage's ``chunks`` pipelined over
     ``axis_name``: the last stage's output, or elsewhere a stand-in of
     ``stand_in_shape`` (default ``x``'s). ``x`` is read on stage 0; the
-    other stages take only its shape and dtype."""
+    other stages take only its shape and dtype. With ``aux_fn`` each chunk
+    returns ``(h, extra)`` and the result is ``(output, this stage's aux
+    loss)`` (``_Schedule``)."""
     n_stages, stage, ranks = _pipeline_ranks(mesh, axis_name)
     n_micro = int(n_microbatches or n_stages)
     if v_stages > 1 and n_micro != n_stages:
@@ -306,17 +335,18 @@ def _run_pipeline(chunks: list, x: torch.Tensor, *, mesh, axis_name: str,
     if batch % n_micro:
         raise ValueError(f"batch dim {batch} not divisible by n_microbatches {n_micro}")
     mb_shape = (batch // n_micro, *x.shape[1:])
-    schedule = _Schedule(chunks, ranks, stage, n_micro, mb_shape, x.dtype, x.device)
+    schedule = _Schedule(chunks, ranks, stage, n_micro, mb_shape, x.dtype, x.device, aux_fn)
     if torch.is_grad_enabled():
         anchor = torch.zeros((), dtype=x.dtype, device=x.device, requires_grad=True)
-        out = _PipelineFn.apply(schedule, x, anchor)
+        out, aux = _PipelineFn.apply(schedule, x, anchor)
     else:
         out = schedule.forward(x, record=False)
         if out is None:
             out = torch.zeros((), dtype=x.dtype, device=x.device)
-    if schedule.is_last_stage:
-        return out
-    return _stand_in(out, x.shape if stand_in_shape is None else stand_in_shape, x.device)
+        aux = schedule.aux_total(out)
+    if not schedule.is_last_stage:
+        out = _stand_in(out, x.shape if stand_in_shape is None else stand_in_shape, x.device)
+    return (out, aux) if aux_fn is not None else out
 
 
 def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor], stage_params: Any,
@@ -367,9 +397,11 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor], stage_
 
 
 # ---------------------------------------------------------------------------
-# The pipelined Llama: the embedding on stage 0, the final norm and the head
-# on the last stage (the reference's first/last-stage carve-out); the JAX
-# package computes those outside its pipeline on every device.
+# Pipeline stages of the decoder families: what runs before the stack on
+# stage 0 (the embeddings), the blocks, what runs after it on the last
+# stage (the final norm and the head); the JAX package computes those
+# outside its pipeline on every device, GSPMD splitting the stacked layer
+# dim of ``(layers|h)/`` leaves over ``pp``.
 # ---------------------------------------------------------------------------
 
 
@@ -389,93 +421,334 @@ def _module(model):
     return getattr(model, "module", model)
 
 
-def llama_pipeline_forward(model, input_ids: torch.Tensor, *, mesh=None,
-                           n_microbatches: Optional[int] = None,
-                           virtual_stages: Optional[int] = None) -> torch.Tensor:
-    """Pipelined ``LlamaForCausalLM`` forward: its logits on the last stage
-    (in the compute dtype, as the module's forward gives them), a stand-in
-    of the logits' shape elsewhere. ``model`` is a ``Model`` or the module;
-    under ``ParallelismConfig(pp_size>1)`` ``prepare`` leaves each stage its
-    own layers, the embedding on stage 0 and the final norm and head on the
-    last (a tied embedding on both), and each stage runs only what it holds.
-    Requires ``config.scan_layers=True``, as the JAX package does (its
-    stacked layers are the stages)."""
+@dataclasses.dataclass(frozen=True)
+class StageSpec:
+    """How a decoder family is cut into pipeline stages; the family keeps
+    its own modules and forward, the spec names them.
+
+    ``blocks``: the path of the block ``ModuleList``; ``layers``, ``width``:
+    the config fields of the layer count and the hidden width; ``first``,
+    ``last``: the submodules stage 0 and the last stage hold (a path in
+    both, the tied embedding, is held by both, its gradient summed over
+    the edge group); ``embed(module, ids, positions) -> h`` on stage 0;
+    ``chunk(module, layers, positions, n_micro) -> h -> h`` makes a chunk's
+    callable (``h -> (h, extra)`` with ``aux``); ``head(module, h) ->
+    logits`` on the last stage; ``aux(module, n_micro) -> aux_fn`` makes
+    ``_Schedule``'s aux function where the blocks add to an aux loss;
+    ``microbatches(n_stages)`` the default microbatch count (``pp``)."""
+
+    blocks: str
+    layers: str
+    width: str
+    first: tuple
+    last: tuple
+    embed: Callable
+    chunk: Callable
+    head: Callable
+    aux: Optional[Callable] = None
+    microbatches: Callable = lambda n_stages: n_stages
+
+    def shared(self) -> list:
+        """The names of the parameters both edges hold."""
+        return [f"{path}.weight" for path in self.first if path in self.last]
+
+
+def _llama_spec(module) -> StageSpec:
     from ..models.llama import embed_tokens, rotary_embedding, scale_logits
-    from ..state import current_sequence_shard
     from . import tp
+
+    cfg = module.config
+    head = "model.embed_tokens" if cfg.tie_word_embeddings else "lm_head"
+
+    def chunk(m, layers, positions, n_micro):
+        cos, sin = rotary_embedding(positions, cfg.rotary_dim, cfg.rope_theta, cfg.dtype)
+        return functools.partial(_run_layers, layers, cos, sin, cfg.remat,
+                                 m.model._remat_kwargs)
+
+    return StageSpec(
+        blocks="model.layers", layers="num_hidden_layers", width="hidden_size",
+        first=("model.embed_tokens",), last=("model.norm", head),
+        embed=lambda m, ids, pos: embed_tokens(cfg, m.model.embed_tokens.weight, ids),
+        chunk=chunk,
+        head=lambda m, h: tp.vocab_logits(
+            m.model.norm(h), m.head_weight().to(cfg.dtype),
+            post=functools.partial(scale_logits, scaling=cfg.logits_scaling)))
+
+
+def _mixtral_spec(module) -> StageSpec:
+    """Mixtral: the Llama chassis's cut; each block also gives its part of
+    the router aux loss. Routing stays the global batch's: with one process
+    a stage's microbatches are the batch's rows in order, so each layer
+    carries the choices of the microbatches before (``models/moe.
+    MicrobatchRouting``: the slot offsets, the batch's capacity) and the
+    aux terms wait for the last microbatch's choices (``frac`` is the whole
+    batch's); over several processes one microbatch (the default there)
+    routes over their global batch as the step without pp does."""
+    from ..models.llama import embed_tokens, rotary_embedding
+    from ..models.moe import Microbatch, MicrobatchRouting, microbatch_aux
+    from ..utils.operations import loss_processes
+    from . import tp
+
+    cfg = module.config
+    head = "model.embed_tokens" if cfg.tie_word_embeddings else "lm_head"
+    routing: dict = {}
+
+    def chunk(m, layers, positions, n_micro):
+        from torch.utils.checkpoint import checkpoint
+
+        cos, sin = rotary_embedding(positions, cfg.rotary_dim, cfg.rope_theta, cfg.dtype)
+        processes = loss_processes()
+        if n_micro > 1 and processes > 1:
+            raise ValueError(
+                f"Mixtral under pp with {processes} batch processes routes the global batch, "
+                "whose slot order runs over each process's rows whole: its microbatches "
+                "cannot route in that order; pass n_microbatches=1")
+        if n_micro > 1:
+            routing["micro"] = routing.get("micro") or MicrobatchRouting(n_micro)
+        calls = iter(range(n_micro))
+
+        def run(h):
+            route = (Microbatch(next(calls), routing["micro"]) if n_micro > 1 else processes)
+            extra = []
+            for layer in layers:
+                if cfg.remat and torch.is_grad_enabled():
+                    h, a = checkpoint(layer, h, cos, sin, route, **m.model._remat_kwargs)
+                else:
+                    h, a = layer(h, cos, sin, route)
+                extra.append((layer.moe, a))
+            return h, extra
+
+        return run
+
+    def aux(m, n_micro):
+        def aux_fn(extras):
+            micro = routing.pop("micro", None)
+            if micro is None:  # one microbatch: each block's aux is its term
+                return {key: sum(a for _, a in parts) for key, parts in extras.items()}
+            return microbatch_aux(cfg, micro, extras)
+
+        return aux_fn
+
+    return StageSpec(
+        blocks="model.layers", layers="num_hidden_layers", width="hidden_size",
+        first=("model.embed_tokens",), last=("model.norm", head),
+        embed=lambda m, ids, pos: embed_tokens(cfg, m.model.embed_tokens.weight, ids),
+        chunk=chunk,
+        head=lambda m, h: tp.vocab_logits(m.model.norm(h), m.head_weight().to(cfg.dtype)),
+        aux=aux, microbatches=lambda n_stages: 1 if loss_processes() > 1 else n_stages)
+
+
+def _tied_head(weight, dtype, h):
+    """fp32 logits of the head tied to ``weight``, in the type ``h`` and the
+    weight rounded to ``dtype`` promote to (GPT-2's and OPT's head)."""
+    from . import tp
+
+    head = weight.to(dtype)
+    dt = torch.promote_types(h.dtype, head.dtype)
+    return tp.vocab_logits(h.to(dt), head.to(dt), post=lambda y: y.float())
+
+
+def _gpt2_spec(module) -> StageSpec:
+    import torch.nn.functional as F
+
+    from ..models.layers import run_blocks
+    from . import tp
+
+    cfg = module.config
+    return StageSpec(
+        blocks="transformer.h", layers="n_layer", width="n_embd",
+        first=("transformer.wte", "transformer.wpe"), last=("transformer.ln_f", "transformer.wte"),
+        embed=lambda m, ids, pos: (tp.embedding(ids, m.transformer.wte.weight).to(cfg.dtype)
+                                   + F.embedding(pos, m.transformer.wpe.weight).to(cfg.dtype)),
+        chunk=lambda m, layers, pos, n: functools.partial(run_blocks, layers, remat=cfg.remat),
+        head=lambda m, h: _tied_head(m.transformer.wte.weight, cfg.dtype,
+                                     m.transformer.ln_f(h)))
+
+
+def _opt_spec(module) -> StageSpec:
+    import torch.nn.functional as F
+
+    from ..models.layers import run_blocks
+    from . import tp
+
+    cfg = module.config
+    return StageSpec(
+        blocks="model.layers", layers="num_hidden_layers", width="hidden_size",
+        first=("model.embed_tokens", "model.embed_positions"),
+        last=("model.final_layer_norm", "model.embed_tokens"),
+        embed=lambda m, ids, pos: (
+            tp.embedding(ids, m.model.embed_tokens.weight).to(cfg.dtype)
+            + F.embedding(pos + cfg.POSITION_OFFSET, m.model.embed_positions.weight).to(cfg.dtype)),
+        chunk=lambda m, layers, pos, n: functools.partial(run_blocks, layers, remat=cfg.remat),
+        head=lambda m, h: _tied_head(m.model.embed_tokens.weight, cfg.dtype,
+                                     m.model.final_layer_norm(h)))
+
+
+def _neox_spec(module) -> StageSpec:
+    from ..models.layers import run_blocks
+    from . import tp
+
+    cfg = module.config
+
+    def chunk(m, layers, positions, n_micro):
+        def run(h):
+            return run_blocks(layers, h, cfg.remat, positions.expand(h.shape[0], -1))
+
+        return run
+
+    return StageSpec(
+        blocks="gpt_neox.layers", layers="num_hidden_layers", width="hidden_size",
+        first=("gpt_neox.embed_in",), last=("gpt_neox.final_layer_norm", "embed_out"),
+        embed=lambda m, ids, pos: tp.embedding(ids, m.gpt_neox.embed_in.weight).to(cfg.dtype),
+        chunk=chunk,
+        head=lambda m, h: tp.vocab_logits(
+            m.gpt_neox.final_layer_norm(h).to(cfg.dtype), m.embed_out.weight.to(cfg.dtype),
+            post=lambda y: y.float()))
+
+
+# Module class name -> its stage spec's maker.
+STAGE_SPECS: dict = {
+    "LlamaForCausalLM": _llama_spec,
+    "MixtralForCausalLM": _mixtral_spec,
+    "GPT2LMHeadModel": _gpt2_spec,
+    "OPTForCausalLM": _opt_spec,
+    "GPTNeoXForCausalLM": _neox_spec,
+}
+
+
+def stage_spec(module) -> StageSpec:
+    """The stage spec of ``module``'s family; other families are refused."""
+    from ..models.llama import LlamaForCausalLM
+
+    name = "LlamaForCausalLM" if isinstance(module, LlamaForCausalLM) else type(module).__name__
+    if name not in STAGE_SPECS:
+        raise NotImplementedError(
+            f"pp of {type(module).__name__} is not ported yet: the decoder families (Llama, "
+            "Mixtral, GPT-2, OPT, GPT-NeoX) only; pp for BERT, ViT, CLIP, T5, Whisper and "
+            "ResNet is the rest of ROADMAP.md Queue A item 6.3")
+    return STAGE_SPECS[name](module)
+
+
+def pipeline_forward(model, input_ids: torch.Tensor, *, mesh=None,
+                     n_microbatches: Optional[int] = None,
+                     virtual_stages: Optional[int] = None, return_aux: bool = False):
+    """Pipelined forward of a decoder family (``STAGE_SPECS``): its logits on
+    the last stage (as the module's forward gives them), a stand-in of the
+    logits' shape elsewhere; with ``return_aux`` (Mixtral) ``(logits, aux)``,
+    the layers' router aux loss summed over the stages, on every stage
+    (its gradient reaches each stage's routers). ``model`` is a ``Model``
+    or the module; under ``ParallelismConfig(pp_size>1)`` ``prepare``
+    leaves each stage its own layers, the embeddings on stage 0 and the
+    final norm and head on the last (a tied embedding on both), and each
+    stage runs only what it holds. Requires ``config.scan_layers=True``,
+    as the JAX package does (its stacked layers are the stages)."""
+    from ..state import current_sequence_shard
 
     module = _module(model)
     cfg = module.config
+    spec = stage_spec(module)
     if not cfg.scan_layers:
         raise ValueError("pipeline parallelism requires scan_layers=True (stacked blocks)")
+    if return_aux and spec.aux is None:
+        raise ValueError(f"{type(module).__name__} has no aux loss")
     mesh = _active_mesh(mesh)
     n_stages, stage, _ = _pipeline_ranks(mesh, "pp")
     if n_stages == 1:
-        return module(input_ids)
+        return module(input_ids, return_aux=True) if return_aux else module(input_ids)
     v_stages = _resolve_virtual_stages(virtual_stages)
-    inner = module.model
     # Over a cp or sp axis each stage's process holds its slice of the
     # sequence (the sends carry it) at its global positions; the stage's
     # attention over the whole sequence is auto_flash_attention's ring.
-    n_seq, i_seq = current_sequence_shard()
-    if n_seq > 1 and cfg.attention_impl != "flash":
+    n_seq, _ = current_sequence_shard()
+    if n_seq > 1 and getattr(cfg, "attention_impl", "flash") != "flash":
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r} under pp with a cp or sp axis: the JAX "
             "llama_pipeline_forward fails there too (the ring's shard_map inside the "
             "pipeline's finds a context mesh with pp Manual that does not match its mesh); "
             "use attention_impl='flash'")
     b, s = input_ids.shape
+    from ..models.layers import sequence_positions
+
+    positions = sequence_positions(input_ids)
     if stage == 0:
-        x = embed_tokens(cfg, inner.embed_tokens.weight, input_ids)
+        x = spec.embed(module, input_ids, positions)
     else:
-        x = torch.empty((b, s, cfg.hidden_size), dtype=cfg.dtype, device=input_ids.device)
-    positions = i_seq * s + torch.arange(s, device=input_ids.device)
-    cos, sin = rotary_embedding(positions, cfg.rotary_dim, cfg.rope_theta, cfg.dtype)
-    chunks = [functools.partial(_run_layers, [inner.layers[i] for i in idx], cos, sin,
-                                cfg.remat, inner._remat_kwargs)
-              for idx in stage_layer_indices(cfg.num_hidden_layers, n_stages, stage,
+        x = torch.empty((b, s, getattr(cfg, spec.width)), dtype=cfg.dtype,
+                        device=input_ids.device)
+    blocks = module.get_submodule(spec.blocks)
+    n_micro = int(n_microbatches or spec.microbatches(n_stages))
+    chunks = [spec.chunk(module, [blocks[i] for i in idx], positions, n_micro)
+              for idx in stage_layer_indices(getattr(cfg, spec.layers), n_stages, stage,
                                              v_stages)]
-    h = _run_pipeline(chunks, x, mesh=mesh, axis_name="pp", n_microbatches=n_microbatches,
-                      v_stages=v_stages, stand_in_shape=(b, s, cfg.vocab_size))
-    if stage != n_stages - 1:
-        return h
-    return tp.vocab_logits(inner.norm(h), module.head_weight().to(cfg.dtype),
-                           post=functools.partial(scale_logits, scaling=cfg.logits_scaling))
+    aux_fn = None if spec.aux is None else spec.aux(module, n_micro)
+    out = _run_pipeline(chunks, x, mesh=mesh, axis_name="pp", n_microbatches=n_micro,
+                        v_stages=v_stages, stand_in_shape=(b, s, cfg.vocab_size), aux_fn=aux_fn)
+    h, aux = out if aux_fn is not None else (out, None)
+    logits = h if stage != n_stages - 1 else spec.head(module, h)
+    if not return_aux:
+        return logits
+    sub = mesh["pp"] if mesh.ndim > 1 else mesh
+    return logits, sum_over_stages(aux, sub.get_group())
+
+
+class _SumOverStages(torch.autograd.Function):
+    """The sum over the ``pp`` group; backward, the identity (each stage's
+    part takes the gradient of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.detach().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over_stages(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the stages of ``group``, differentiable: each
+    stage's own ``x`` gets the sum's gradient."""
+    return _SumOverStages.apply(x, group)
+
+
+def llama_pipeline_forward(model, input_ids: torch.Tensor, *, mesh=None,
+                           n_microbatches: Optional[int] = None,
+                           virtual_stages: Optional[int] = None) -> torch.Tensor:
+    """Pipelined ``LlamaForCausalLM`` forward (``pipeline_forward``): its
+    logits on the last stage (in the compute dtype, as the module's forward
+    gives them), a stand-in of the logits' shape elsewhere. The JAX
+    package's name; any family of ``STAGE_SPECS`` takes it."""
+    return pipeline_forward(model, input_ids, mesh=mesh, n_microbatches=n_microbatches,
+                            virtual_stages=virtual_stages)
 
 
 def keep_stage(module, n_stages: int, stage: int, virtual_stages: int = 1) -> list[str]:
-    """Leave ``module`` (the Llama chassis) only this stage's parameters, in
-    place: the layers of its chunks (``stage_layer_indices``; the others
-    become parameterless ``nn.Identity``, so that names stay global), the
-    embedding on stage 0, the final norm and the head on the last stage,
-    and a tied embedding on both; its ``pipeline_stage`` is set, which makes
-    its forward the pipelined one. Returns the names of the parameters that
-    two stages hold (the tied embedding's, on both edges), whose gradients
-    the step sums over the edge group."""
+    """Leave ``module`` (a family of ``STAGE_SPECS``) only this stage's
+    parameters, in place: the blocks of its chunks (``stage_layer_indices``;
+    the others become parameterless ``nn.Identity``, so that names stay
+    global), the spec's ``first`` submodules on stage 0 and its ``last``
+    ones on the last stage (a tied embedding on both); its
+    ``pipeline_stage`` is set, which makes its forward the pipelined one.
+    Returns the names of the parameters that two stages hold, whose
+    gradients the step sums over the edge group."""
     from torch import nn
 
-    from ..models.llama import LlamaForCausalLM
-
-    if not isinstance(module, LlamaForCausalLM):
-        raise NotImplementedError(
-            f"pp training of {type(module).__name__} is not ported yet: the Llama chassis "
-            "only (ROADMAP.md Queue A item 6: the rest of PP)")
+    spec = stage_spec(module)
     cfg = module.config
     if not cfg.scan_layers:
         raise ValueError("pipeline parallelism requires scan_layers=True (stacked blocks)")
-    keep = {i for idx in stage_layer_indices(cfg.num_hidden_layers, n_stages, stage,
+    keep = {i for idx in stage_layer_indices(getattr(cfg, spec.layers), n_stages, stage,
                                              virtual_stages) for i in idx}
-    layers = module.model.layers
+    layers = module.get_submodule(spec.blocks)
     for i in range(len(layers)):
         if i not in keep:
             layers[i] = nn.Identity()
     first, last = stage == 0, stage == n_stages - 1
-    tied = cfg.tie_word_embeddings
-    if not (first or (last and tied)):
-        module.model.embed_tokens = None
-    if not last:
-        module.model.norm = None
-        if not tied:
-            module.lm_head = None
+    held = set(spec.first if first else ()) | set(spec.last if last else ())
+    for path in (*spec.first, *spec.last):
+        if path not in held:
+            owner, _, attr = path.rpartition(".")
+            setattr(module.get_submodule(owner) if owner else module, attr, None)
     module.pipeline_stage = (n_stages, stage, virtual_stages)
-    return ["model.embed_tokens.weight"] if tied and (first or last) else []
+    return spec.shared() if first or last else []

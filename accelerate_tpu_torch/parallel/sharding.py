@@ -291,11 +291,6 @@ def apply_tensor_parallel(module, plan: dict, mesh, kind: str = "tp") -> None:
 
     from .tp import local_rows
 
-    cfg = getattr(module, "config", None)
-    if getattr(cfg, "fp8", False) and kind == "tp":
-        raise NotImplementedError(
-            "fp8 projections under tp: each rank's current scaling would take its own "
-            "shard's amax (ROADMAP.md Queue A item 6)")
     for fqn, p in list(module.named_parameters()):
         placement = getattr(plan[fqn], kind)
         if placement is None:

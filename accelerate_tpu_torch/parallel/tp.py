@@ -38,6 +38,7 @@ their input gradients are summed before one all-reduce.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -172,10 +173,16 @@ def linear(x: torch.Tensor, weight: DTensor, bias: Optional[torch.Tensor], dtype
            fn: Callable = F.linear) -> torch.Tensor:
     """``fn(x, W) + b`` for a ``(out, in)`` weight split over ``tp``:
     column-parallel on dim 0 (local output features), row-parallel on dim
-    1 (``x`` holds the local input features; the output is whole)."""
+    1 (``x`` holds the local input features; the output is whole). An fp8
+    linear (``ops/fp8.fp8_dot_general``) is told the split, so that it takes
+    the amax of each split operand over the group; the row-parallel fp8
+    product stays a partial sum, reduced after its scales are applied."""
     group = _group(weight)
     w = weight.to_local().to(dtype)
-    if weight.placements[0].dim == 0:
+    dim = weight.placements[0].dim
+    if getattr(fn, "takes_tp_split", False):
+        fn = functools.partial(fn, tp_split=(dim, group))
+    if dim == 0:
         y = fn(tp_input(x, group).to(dtype), w)
         if bias is not None:
             y = y + pick_rows(bias, weight).to(dtype)

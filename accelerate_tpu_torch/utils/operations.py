@@ -27,7 +27,6 @@ from __future__ import annotations
 import functools
 from collections.abc import Mapping
 from contextlib import contextmanager
-from contextvars import ContextVar
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -84,10 +83,12 @@ def _world() -> int:
     return _state().num_processes
 
 
-# While the train step runs a loss function, the number of processes whose
-# losses it averages (Accelerator.prepare_train_step) and their group (None:
-# every process); 1 and None elsewhere.
-_LOSS_PROCESSES: ContextVar[tuple] = ContextVar("loss_processes", default=(1, None))
+# While the train step runs a loss function and its backward, the number of
+# processes whose losses it averages (Accelerator.prepare_train_step) and
+# their group (None: every process), innermost last; 1 and None elsewhere.
+# Process-wide, not a context variable: the autograd engine runs a CUDA
+# backward, and the remat recompute inside it, on a thread of its own.
+_LOSS_PROCESSES: list = [(1, None)]
 
 
 @contextmanager
@@ -95,22 +96,22 @@ def loss_over_processes(n: int, group=None):
     """Inside the block the step averages the losses of ``n`` processes:
     those of ``group`` (``ParallelismConfig.loss_reduce_axes``; every
     process by default, the ranks of other rows under ``tp``)."""
-    token = _LOSS_PROCESSES.set((n, group))
+    _LOSS_PROCESSES.append((n, group))
     try:
         yield
     finally:
-        _LOSS_PROCESSES.reset(token)
+        _LOSS_PROCESSES.pop()
 
 
 def loss_processes() -> int:
     """How many processes' losses the running train step averages (1
     outside a step): those whose tokens make its global batch."""
-    return _LOSS_PROCESSES.get()[0]
+    return _LOSS_PROCESSES[-1][0]
 
 
 def loss_group():
     """The process group of those processes (None: every process)."""
-    return _LOSS_PROCESSES.get()[1]
+    return _LOSS_PROCESSES[-1][1]
 
 
 def global_token_count(count: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -120,7 +121,7 @@ def global_token_count(count: torch.Tensor) -> tuple[torch.Tensor, int]:
     step). ``sum · n / total`` averaged over the ``n`` processes is the
     token mean over all of them, as the JAX step's loss on the global
     batch is."""
-    n, group = _LOSS_PROCESSES.get()
+    n, group = _LOSS_PROCESSES[-1]
     if n == 1:
         return count, 1
     count = count.detach().clone()
@@ -354,6 +355,85 @@ def _gather(tensor, seq_size: Optional[int] = None):
         return torch.cat([g[0] if whole else torch.cat(g, dim=1) for g in groups], dim=0)
 
     return recursively_apply(one, tensor)
+
+
+def _shard_rows(length: int, placement, rank: int, size: int) -> torch.Tensor:
+    """The indices of a dim of ``length`` that ``rank`` of ``size`` holds
+    under a placement that splits it: ``Shard``'s ``torch.chunk`` rows (the
+    last chunks short or empty where the length does not divide), or
+    ``_StridedShard``'s blocks ``j·size + rank`` of ``split_factor·size``
+    equal ones."""
+    factor = getattr(placement, "split_factor", 1)
+    if factor == 1:
+        chunks = torch.arange(length).chunk(size)
+        return chunks[rank] if rank < len(chunks) else torch.arange(0)
+    chunk = length // (factor * size)
+    idx = torch.arange(chunk)
+    return torch.cat([(j * size + rank) * chunk + idx for j in range(factor)])
+
+
+def _held_rows(shape, placements, coords, sizes) -> list:
+    """For each dim of a tensor of ``shape``, the indices of the whole
+    tensor that the process at mesh coordinates ``coords`` holds: each mesh
+    dim's split applied, in mesh order, to what the dims before it left
+    (``(Shard(0), Shard(0))`` nests the second split in the first's rows;
+    FSDP2's ``_StridedShard`` before a ``tp`` split takes its rows from
+    within each ``tp`` chunk)."""
+    held = [torch.arange(n) for n in shape]
+    for placement, rank, size in zip(placements, coords, sizes):
+        dim = getattr(placement, "dim", None)
+        if dim is None or size == 1:
+            continue
+        held[dim] = held[dim][_shard_rows(len(held[dim]), placement, rank, size)]
+    return held
+
+
+def gather_shards(t, device: Optional[torch.device] = None) -> torch.Tensor:
+    """The whole tensor of a ``DTensor`` parameter or state (any ``Shard``
+    or ``_StridedShard`` over any dims of its mesh: FSDP2's, ``tp``'s, the
+    2-D ``dp_shard × tp`` ones, an ep stack's), on ``device`` (default: its
+    local tensor's); a plain tensor as it is. One ``dist.all_gather`` per
+    mesh dim that splits it (every process of those groups joins), each
+    rank's part padded to the largest, then every part written into the
+    rows it holds. ``DTensor.full_tensor``'s functional collectives fault
+    over gloo with tensors on the card (torch 2.11); this path does not.
+    The values are the whole tensor's bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t
+    local = t.to_local().detach()
+    if device is not None:
+        local = local.to(device)
+    mesh, placements = t.device_mesh, t.placements
+    sizes = [mesh.size(m) for m in range(mesh.ndim)]
+    mine = [mesh.get_local_rank(m) for m in range(mesh.ndim)]
+    split = [m for m, pl in enumerate(placements)
+             if getattr(pl, "dim", None) is not None and sizes[m] > 1]
+    if not split:
+        return local.clone()
+    # Every rank's part, padded to the largest on each dim: (parts, *padded).
+    every = [list(mine)]
+    for m in split:
+        every = [[r if k == m else c[k] for k in range(mesh.ndim)]
+                 for r in range(sizes[m]) for c in every]
+    held = [_held_rows(t.shape, placements, c, sizes) for c in every]
+    pad = [max(len(h[d]) for h in held) for d in range(local.dim())]
+    parts = local.new_zeros([1] + pad)
+    parts[(0,) + tuple(slice(0, n) for n in local.shape)] = local
+    for m in split:  # stacked in the order of ``every``
+        gathered = [torch.empty_like(parts) for _ in range(sizes[m])]
+        dist.all_gather(gathered, parts.contiguous(), group=mesh.get_group(m))
+        parts = torch.cat(gathered)
+    whole = local.new_empty(t.shape)
+    for part, rows in zip(parts, held):
+        if any(len(r) == 0 for r in rows):
+            continue
+        block = part[tuple(slice(0, len(r)) for r in rows)]
+        index = tuple(r.to(whole.device).reshape([-1 if d == i else 1 for d in range(len(rows))])
+                      for i, r in enumerate(rows))
+        whole[index] = block
+    return whole
 
 
 def gather_object(obj: Any) -> list:

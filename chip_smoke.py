@@ -439,6 +439,31 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    (a) B1 S2048 Hq32 Hkv8 D128, (b) after the Ulysses exchange B2 S2048
    Hq16 Hkv16 D128 (the kv heads repeated up to the q heads first, as
    the JAX package does).
+25. the rest of item 6, run by phase 22's two processes after phase 24
+   (``rest_child``, judged by ``rest_gate``): (a) phase 14 (b)'s fp8 step
+   (HYBRID) at ``tp=2``: 3 steps within ``TP_REL_TOL`` of phase 14 (b)'s
+   first three, equal on both ranks, every product on ``_scaled_mm``, one
+   launch a kernel a layer a step; step ms, the amax all-reduces a step
+   and their share of the step, the peak, one profiled step's device-busy
+   ms by category. (b) phase 23 (d)'s 2-layer model in fp8 at
+   ``dp_replicate=2``, each rank on half of phase 5's batch: step 1's
+   scales equal on both ranks, 3 steps within ``TP_REL_TOL`` of the
+   parent's one-process steps on the whole batch (``fp8_batch_steps``);
+   one step under the ``"fp16"`` comm hook: each rank's own scales, no
+   amax collective, its loss within ``HOOK_LOSS_TOL``. (c) ``generate``
+   over ``tp=2`` of GPT-2 XL and T5-base from phase 19's seeds in bf16
+   (phase 19's decode inputs, 8 greedy tokens): tokens equal to the same
+   weights decoded on one process off near-ties, teacher-forced logits
+   within ``TP_PLAIN_FACTOR`` times the reference's bf16-against-fp32
+   difference; ms and all-reduces a token. (d) phase 18 (b)'s Mixtral
+   step at ``pp=2`` (one layer a stage, GPipe over its two rows): phase
+   24's gates against phase 18 (b), two launches a kernel a step; step
+   ms, sends and bytes, the peak, the aux loss. (e) phase 23 (d)'s model
+   at ``pp=2`` under ``DISTRIBUTED_STATE_DICT``: a save, a load into a
+   fresh prepare and the next step bit-equal to the step without the
+   round trip; the same model under FSDP2 at ``dp_shard=2`` saved whole
+   (``SHARDED_STATE_DICT``, through ``gather_shards`` on the card) and
+   resumed by the parent on one process, bit-equal; seconds and bytes.
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -512,10 +537,11 @@ SP_EP_LIKE = dict(MIXTRAL_LIKE, hq=MIXTRAL_LIKE["hq"] // EP_RANKS,
 # Llama-2-7B forward streamed past a budget on the card (the forward kernel),
 # phase 22's step at tp=2 (each rank's counts: rank 0's are reported), and
 # phase 23's GPipe and interleaved steps at pp=2 (rank 0's), and phase 24's
-# Mixtral steps under ep (rank 0's).
+# Mixtral steps under ep (rank 0's), and phase 25's fp8 step at tp=2, its
+# Mixtral step at pp=2 and its DCP round trip's steps at pp=2 (rank 0's).
 MAIN_PATHS = ("train_step", "gemma_2b_step", "mixtral_8x7b_step", "cp_generate",
               "big_model_stream", "tp_step", "pp_step", "pp_interleaved_step", "ep_step",
-              "sp_ep_step")
+              "sp_ep_step", "fp8_tp_step", "pp_mixtral_step", "pp_dcp_step")
 # The other runs whose launches the line lists by path, outside "launches".
 OTHER_PATHS = ("imperative_loop", "observed_loop", "observed_imperative", "observed_serving",
                "fp16_step", "fp8_step", "dcp_loop", "dcp_async_loop", "serving_rest",
@@ -541,10 +567,10 @@ TIMED = [(None, "bfloat16", SLICE, _TRAINING_PATHS),
          ("cp_generate_8192", "bfloat16", CP_GEN_LIKE, ("cp_generate",)),
          ("llama2_7b_stream", "bfloat16", LLAMA2_7B_LIKE, ("big_model_stream",
                                                            "big_model_resident")),
-         ("tp2_heads8", "bfloat16", TP_LIKE, ("tp_step", "tp_generate")),
+         ("tp2_heads8", "bfloat16", TP_LIKE, ("tp_step", "tp_generate", "fp8_tp_step")),
          ("pp_microbatch", "bfloat16", PP_LIKE, ("pp_step", "pp_interleaved_step",
-                                                  "pippy_forward")),
-         ("ep_row", "bfloat16", EP_LIKE, ("ep_step", "ep_generate")),
+                                                  "pippy_forward", "pp_dcp_step")),
+         ("ep_row", "bfloat16", EP_LIKE, ("ep_step", "ep_generate", "pp_mixtral_step")),
          ("sp_ep_ulysses", "bfloat16", SP_EP_LIKE, ("sp_ep_step",))]
 SOURCES = {"flash_fwd": "accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
            "flash_dq": "accelerate_tpu_torch/ops/csrc/flash_dq.cu",
@@ -3137,14 +3163,17 @@ def fp8_steps(hf, fp8_ops, device="cuda", width=FULL_WIDTH, seq=SLICE["s"],
     torch.cuda.reset_peak_memory_stats()
     hf.reset_launch_counts()
     fp8_ops.reset_paths()
+    norms = []
     for _ in range(warmup):
         state, m = step(state, batch)
         losses.append(m["loss"])
+        norms.append(m["grad_norm"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(timed):
         state, m = step(state, batch)
         losses.append(m["loss"])
+        norms.append(m["grad_norm"])
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / timed
     launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
@@ -3164,6 +3193,8 @@ def fp8_steps(hf, fp8_ops, device="cuda", width=FULL_WIDTH, seq=SLICE["s"],
     return {"n_layers": cfg.num_hidden_layers, "steps": warmup + timed, "step_ms": dt * 1e3,
             "tok_s": tok_s, "mfu": tok_s * flops_per_token / PEAK_BF16_FLOPS,
             "peak_mem_gib": peak, "losses": [float(x) for x in losses], "paths": paths,
+            # Phase 25 (a)'s reference: its steps start from these weights and batch.
+            "first_metrics": [(float(l), float(n)) for l, n in zip(losses, norms)][:TP_STEPS],
             "launches": launches, "variant_launches": variant_launches, "profile": prof}
 
 
@@ -6584,7 +6615,7 @@ def teacher_forced_logits(cfg, model, row, prompt_len, device="cuda", fp32=False
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
         params = {k: v.float() for k, v in params.items()}
     cache = gen.init_cache(cfg, 1, ids.shape[1], device=device,
-                           kv_heads=gen._tp_kv_heads(cfg, params, fwd))
+                           kv_heads=gen._tp_kv_heads(cfg, params))
     with torch.no_grad():
         logits, _ = fwd(cfg, params, ids, cache, return_all=True)
     return logits[0, prompt_len - 1:-1].float().cpu().numpy()
@@ -6720,14 +6751,16 @@ def tp_generate_rank(hf, device="cuda", row=None, width=FULL_WIDTH, prompt_len=G
 
 
 def tp_child_main(args: dict) -> int:
-    """One rank of phases 22 and 23: joins the gloo group of
+    """One rank of phases 22-25: joins the gloo group of
     ``args["world"]`` ranks at ``args["init"]`` itself (``PartialState``
     adopts it; ``LOCAL_RANK`` from the parent puts every rank on cuda:0),
     runs phase 22's (a) and (b), writes (b)'s logits on rank 0 to
     ``args["logits"]`` and prints its line, then runs phase 23
     (``pipeline_child``; on the CPU only with a narrowing ``kw["pp"]``) and
-    prints a second line (``{"pp": ...}``); the parent judges them
-    (``tp_gate``, ``pp_gate``)."""
+    prints a second line (``{"pp": ...}``), then phases 24 (``ep_child``)
+    and 25 (``rest_child``, its checkpoints under ``args["ckpt"]``) alike;
+    the parent judges them (``tp_gate``, ``pp_gate``, ``ep_gate``,
+    ``rest_gate``)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -6760,14 +6793,19 @@ def tp_child_main(args: dict) -> int:
         cls._reset_state()
     gc.collect()
     torch.cuda.empty_cache()
-    # On the CPU phases 23 and 24 run only when narrowed (a rehearsal passes
-    # "pp" or "ep").
+    # On the CPU phases 23-25 run only when narrowed (a rehearsal passes
+    # "pp", "ep" or "rest").
     if device == "cuda" or "pp" in kw:
         emit({"rank": args["rank"], "pp": pipeline_child(hf, device, kw.get("pp"))})
     if device == "cuda" or "ep" in kw:
         gc.collect()
         torch.cuda.empty_cache()
         emit({"rank": args["rank"], "ep": ep_child(hf, device, kw.get("ep"))})
+    if device == "cuda" or "rest" in kw:
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"rank": args["rank"], "rest": rest_child(
+            hf, device, dict(kw.get("rest") or {}, ckpt_dir=args["ckpt"]))})
     PartialState._reset_state()
     dist.destroy_process_group()
     return 0 if res["ok"] else 1
@@ -6800,16 +6838,19 @@ def run_tp_children(args: dict, timeout: float, ranks=TP_RANKS):
     return out
 
 
-def tensor_parallel_phase(hf, phase5, phase7, device="cuda", kw=None, timeout=600):
+def tensor_parallel_phase(hf, phase5, phase7, device="cuda", kw=None, timeout=600,
+                          ckpt_dir=None):
     """Phase 22: tp=2 as two processes on the card over gloo
     (``run_tp_children``), judged by ``tp_gate``. The children's lines and
-    rank 0's logits stay under ``_children`` and ``_logits`` (not printed)."""
+    rank 0's logits stay under ``_children`` and ``_logits`` (not printed);
+    phase 25 writes its checkpoints under ``ckpt_dir``."""
     import numpy as np
 
     logits_path = tempfile.mktemp(suffix=".npy")
     t0 = time.perf_counter()
     children = run_tp_children({"device": device, "row": phase7["row"],
-                                "logits": logits_path, "kw": kw or {}}, timeout)
+                                "logits": logits_path, "kw": kw or {}, "ckpt": ckpt_dir},
+                               timeout)
     seconds = time.perf_counter() - t0
     logits = np.load(logits_path) if os.path.exists(logits_path) else None
     if logits is not None:
@@ -7438,6 +7479,7 @@ def ep_step_rank(hf, name, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW, s
     from accelerate_tpu_torch.models import MixtralForCausalLM, mixtral_tp_rules
     from accelerate_tpu_torch.models.hub import mixtral_config_from_hf
     from accelerate_tpu_torch.parallel.ep import exchange_counters
+    from accelerate_tpu_torch.utils.operations import gather_shards
     from accelerate_tpu_torch.parallel.sharding import local_batch
     from accelerate_tpu_torch.utils.estimate_memory import estimate_per_chip
 
@@ -7523,7 +7565,7 @@ def ep_step_rank(hf, name, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW, s
         t0 = time.perf_counter()
         # Gathered in the compute dtype: the products read bf16 either way.
         plain = types.SimpleNamespace(module=module, params={
-            n: gen._gather_shards(p.to(cfg.dtype)) if isinstance(p, DTensor) else p
+            n: gather_shards(p.to(cfg.dtype)) if isinstance(p, DTensor) else p
             for n, p in decoder.params.items()})
         plain_row = generate(plain, prompt, max_new_tokens=EP_DECODE_TOKENS)[0].tolist()
         ref = teacher_forced_logits(cfg, plain, plain_row, n0, acc.device)
@@ -7778,6 +7820,651 @@ def drop_witness_main() -> int:
     res = drop_shift_witness(hf)
     emit(dict(res, nvidia_smi=smi))
     return 0 if res["ok"] else 1
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the rest of item 6, in phase 22's two processes after phase 24.
+# (a) phase 14 (b)'s fp8 step at tp=2; (b) fp8 over the batch at
+# dp_replicate=2 (fault 10), then one step under the "fp16" comm hook; (c)
+# generate over tp=2 of GPT-2 XL and T5-base; (d) Mixtral at pp=2 (one layer
+# a stage, GPipe over two one-row microbatches); (e) a DISTRIBUTED_STATE_DICT
+# round trip at pp=2 and a SHARDED_STATE_DICT save of FSDP2's shards through
+# the shared gather, resumed by the parent on one process.
+# ---------------------------------------------------------------------------
+
+# (b) and (e): phase 23 (d)'s model, phase 5's widths at 2 layers.
+REST_LAYERS = HOOK_LAYERS
+# (c): phase 19's decode rows (GPT-2 XL's (1, 64) prompt, T5's 512-token
+# input), 8 greedy tokens each.
+REST_DECODE = ("gpt2_xl", "t5_base")
+REST_DECODE_TOKENS = 8
+# (d): phase 18 (b)'s Mixtral step at pp=2: GPipe over its two rows.
+REST_PP_MICROBATCHES = MIXTRAL_ROW["batch"]
+
+
+def _timed_amax(fp8_ops):
+    """``fp8_ops._global_amax`` with each call's host wall time recorded (a
+    gloo all-reduce of a CUDA scalar stages it through the host, so the
+    call waits for the amax): (the list of seconds, a restore function)."""
+    inner, seconds = fp8_ops._global_amax, []
+
+    def timed(amax, groups):
+        t0 = time.perf_counter()
+        try:
+            return inner(amax, groups)
+        finally:
+            if groups:
+                seconds.append(time.perf_counter() - t0)
+
+    fp8_ops._global_amax = timed
+    return seconds, lambda: setattr(fp8_ops, "_global_amax", inner)
+
+
+def _scale_tap(fp8_ops):
+    """``fp8_ops._quant`` recording each scale and whether it quantized a
+    cotangent (e5m2): (the list, a restore function)."""
+    import torch
+
+    inner, scales = fp8_ops._quant, []
+
+    def tap(x, fp8_dtype, *args, **kwargs):
+        q, scale = inner(x, fp8_dtype, *args, **kwargs)
+        scales.append((float(scale), fp8_dtype == torch.float8_e5m2))
+        return q, scale
+
+    fp8_ops._quant = tap
+    return scales, lambda: setattr(fp8_ops, "_quant", inner)
+
+
+def fp8_tp_rank(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"], batch_size=SLICE["b"],
+                steps=TP_STEPS, profile=True):
+    """(a), one rank: phase 14 (b)'s fp8 step (phase 5's weights, batch and
+    optimizer, HYBRID projections) at ``tp_size=2`` with
+    ``llama_tp_rules``: ``steps`` steps counted from zero (metrics, the fp8
+    products' paths, launches, the amax all-reduces and their host seconds),
+    the last under torch.profiler (device-busy ms by category)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, ParallelismConfig, adamw
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
+    from accelerate_tpu_torch.models import llama_tp_rules
+    from accelerate_tpu_torch.ops import fp8 as fp8_ops
+
+    cfg = LlamaConfig(**width, max_position_embeddings=seq, dtype=torch.bfloat16,
+                      remat=True, remat_policy="dots", attention_impl="flash", fp8=True,
+                      fp8_format="HYBRID")
+    acc = Accelerator(mixed_precision="fp8", cpu=device == "cpu",
+                      parallelism_config=ParallelismConfig(tp_size=TP_RANKS))
+    module = LlamaForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    acc.prepare(Model(module, tp_rules=llama_tp_rules()), adamw(3e-4, weight_decay=0.1))
+    step = acc.prepare_train_step(lambda m, b: cross_entropy_loss(m(b["x"]), b["y"]),
+                                  max_grad_norm=1.0)
+    batch = _phase5_batch(cfg, batch_size, seq, acc.device)
+    state = acc.train_state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    fp8_ops.reset_paths()
+    amax_s, restore = _timed_amax(fp8_ops)
+    metrics, times, prof = [], [], None
+    try:
+        for i in range(steps):
+            traced = profile and i == steps - 1
+            with (torch.profiler.profile(activities=profiled_activities(host=False)) if traced
+                  else contextlib.nullcontext()) as prof_i:
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            prof = prof_i if traced else prof
+            metrics.append(m)
+    finally:
+        restore()
+    step_ms = float(np.mean(times[1:]))
+    reduces = fp8_ops.AMAX_REDUCES["all_reduce"] / steps
+    out = {"metrics": [(float(m["loss"]), float(m["grad_norm"])) for m in metrics],
+           "step_ms": step_ms, "step_ms_each": times, "paths": dict(fp8_ops.PATHS),
+           "amax_all_reduces_per_step": reduces,
+           "amax_ms_per_step": sum(amax_s) * 1e3 / steps,
+           "amax_share": sum(amax_s) * 1e3 / steps / step_ms,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step": {k: v / steps for k, v in hf.LAUNCHES.items()},
+           "variant_launches": dict(hf.VARIANT_LAUNCHES), "n_layers": cfg.num_hidden_layers}
+    if profile:
+        busy, by_cat, top, _ = device_times(prof, 1, n_top=6)
+        out.update(device_busy_ms=busy, idle_share=1 - busy / step_ms,
+                   busy_ms_by_category=by_cat, top_kernels_ms=top)
+    del state, step, module, acc
+    return out
+
+
+def _rest_model(width, seq, device, layers=REST_LAYERS, **cfg_kw):
+    """Phase 23 (d)'s model (phase 5's widths at ``layers`` layers, seed 0)
+    and its config."""
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**dict(width, num_hidden_layers=layers), max_position_embeddings=seq,
+                      dtype=torch.bfloat16, remat=True, remat_policy="dots",
+                      attention_impl="flash", **cfg_kw)
+    module = LlamaForCausalLM(cfg, device=device)
+    module.init_weights(torch.Generator(device=device).manual_seed(0))
+    return cfg, module
+
+
+def fp8_batch_steps(hf, device="cuda", width=FULL_WIDTH, seq=SLICE["s"],
+                    batch_size=SLICE["b"], steps=HOOK_STEPS, pc=None, hook=None, rows=None):
+    """(b)'s fp8 steps of phase 23 (d)'s model (HYBRID projections) on
+    ``rows`` of phase 5's batch (default all), under ``pc`` and ``hook``
+    (None: one process): metrics, step 1's scales in the order taken (with
+    whether each quantized a cotangent), the amax all-reduces a step."""
+    import torch
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        DistributedDataParallelKwargs,
+        Model,
+        ParallelismConfig,
+        adamw,
+    )
+    from accelerate_tpu_torch.models import cross_entropy_loss
+    from accelerate_tpu_torch.ops import fp8 as fp8_ops
+
+    _reset_port_state()
+    handlers = [DistributedDataParallelKwargs(comm_hook=hook)] if hook else []
+    acc = Accelerator(mixed_precision="fp8", cpu=device == "cpu", kwargs_handlers=handlers,
+                      parallelism_config=None if pc is None else ParallelismConfig(**pc))
+    cfg, module = _rest_model(width, seq, acc.device, fp8=True, fp8_format="HYBRID")
+    acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+    step = acc.prepare_train_step(lambda m, b: cross_entropy_loss(m(b["x"]), b["y"]),
+                                  max_grad_norm=1.0)
+    full = _phase5_batch(cfg, batch_size, seq, acc.device)
+    batch = {k: v[rows[0]:rows[1]] for k, v in full.items()} if rows else full
+    state, metrics = acc.train_state, []
+    fp8_ops.reset_paths()
+    scales, restore = _scale_tap(fp8_ops)
+    try:
+        state, m = step(state, batch)
+        metrics.append(m)
+    finally:
+        restore()
+    for _ in range(steps - 1):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    out = {"metrics": [(float(m["loss"]), float(m["grad_norm"])) for m in metrics],
+           "scales": scales, "amax_all_reduces_per_step":
+           fp8_ops.AMAX_REDUCES["all_reduce"] / steps}
+    del state, step, module, acc
+    _reset_port_state()
+    return out
+
+
+def fp8_batch_rank(hf, device="cuda", **kw):
+    """(b), one rank: at ``dp_replicate=2`` (DDP, no hook) on this rank's
+    half of the batch, 3 steps; then one step under the "fp16" comm hook,
+    where each rank scales its own tensors."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rows = kw.get("batch_size", SLICE["b"]) // world
+    half = (rank * rows, (rank + 1) * rows)
+    pc = dict(dp_replicate_size=world)
+    return {"dp": fp8_batch_steps(hf, device, pc=pc, rows=half, **kw),
+            "hook": fp8_batch_steps(hf, device, pc=pc, rows=half, hook="fp16",
+                                    **dict(kw, steps=1))}
+
+
+def _encdec_teacher_forced(cfg, model, enc_in, row, prompt_len, device, fp32=False):
+    """T5's teacher-forced fp32 logits over ``row`` (1, T) of decoder ids
+    from ``enc_in``, at the positions that predicted row[prompt_len:]."""
+    import copy
+
+    import torch
+
+    from accelerate_tpu_torch import generation as gen
+
+    module = getattr(model, "module", model)
+    if fp32:
+        module = copy.deepcopy(module).float()
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        module.config = cfg
+        model = module
+    encode, decode = gen.ENCDEC_GENERATION_PLANS[type(module).__name__]
+    ids = torch.as_tensor(row).long().reshape(1, -1).to(device)
+    params = gen._decode_params(model)
+    with torch.no_grad():
+        enc = encode(cfg, model, enc_in)
+        cache = gen.init_cache(cfg, 1, ids.shape[1], device=device,
+                               kv_heads=gen._tp_kv_heads(cfg, params))
+        logits, _ = decode(cfg, params, ids, cache, enc, return_all=True)
+    return logits[0, prompt_len - 1:-1].float().cpu().numpy()
+
+
+def tp_family_decode_rank(hf, device="cuda", names=REST_DECODE, new_tokens=REST_DECODE_TOKENS,
+                          rows=None):
+    """(c), one rank: each family's bf16 model from phase 19's seed, greedy
+    ``new_tokens`` from phase 19's decode input on this process with the
+    whole weights (the reference: its row, top-2 gaps, teacher-forced
+    logits and their largest difference from fp32), then the same weights
+    split over ``tp_size=2``: the timed greedy row, its all-reduces a token,
+    and its teacher-forced logits over the reference row."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, ParallelismConfig, generate
+    from accelerate_tpu_torch import models as M
+    from accelerate_tpu_torch.utils.operations import collective_counters
+
+    out = {}
+    for name in names:
+        _reset_port_state()
+        row = (rows or FAMILY_ROWS)[name]
+        family = row["family"]
+        cfg = dataclasses.replace(family_config(row, torch.bfloat16), remat=False)
+        acc = Accelerator(cpu=device == "cpu",
+                          parallelism_config=ParallelismConfig(tp_size=TP_RANKS))
+        module = family_classes(family)[1](cfg, device=acc.device)
+        module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+        module.to(torch.bfloat16)
+        rng = np.random.default_rng(0)
+        if family == "t5":
+            enc_in = torch.from_numpy(rng.integers(
+                2, cfg.vocab_size, (1, ENCDEC_DECODE["t5_input"]))).to(acc.device)
+            prompt = torch.zeros((1, 1), dtype=torch.long, device=acc.device)
+            kw = {"decoder_input_ids": prompt}
+            args = (enc_in,)
+        else:
+            prompt = decode_prompt(cfg, acc.device)
+            kw, args = {}, (prompt,)
+        n0 = prompt.shape[1]
+        with torch.no_grad():
+            ref_row = generate(module, *args, max_new_tokens=new_tokens, **kw)
+            if family == "t5":
+                ref = _encdec_teacher_forced(cfg, module, enc_in, ref_row[0].tolist(), n0,
+                                             acc.device)
+                ref32 = _encdec_teacher_forced(cfg, module, enc_in, ref_row[0].tolist(), n0,
+                                               acc.device, fp32=True)
+            else:
+                ref = teacher_forced_logits(cfg, module, ref_row[0].tolist(), n0, acc.device)
+                ref32 = teacher_forced_logits(cfg, module, ref_row[0].tolist(), n0,
+                                              acc.device, fp32=True)
+        top2 = np.sort(ref, axis=-1)[:, -2:]
+        model = acc.prepare_model(Model(module, tp_rules=getattr(M, f"{family}_tp_rules")()))
+        generate(model, *args, max_new_tokens=2, **kw)  # warm-up
+        collective_counters.reset()
+        collective_counters.enabled = True
+        torch.cuda.synchronize()
+        hf.reset_launch_counts()
+        t0 = time.perf_counter()
+        got_row = generate(model, *args, max_new_tokens=new_tokens, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        collectives = collective_counters.snapshot()
+        collective_counters.enabled = False
+        if family == "t5":
+            got = _encdec_teacher_forced(cfg, model, enc_in, ref_row[0].tolist(), n0, acc.device)
+        else:
+            got = teacher_forced_logits(cfg, model, ref_row[0].tolist(), n0, acc.device)
+        out[name] = {"row": got_row[0, n0:].tolist(), "plain_row": ref_row[0, n0:].tolist(),
+                     "plain_gaps": (top2[:, 1] - top2[:, 0]).tolist(),
+                     "plain_delta": float(np.abs(ref - ref32).max()),
+                     "logit_delta": float(np.abs(got - ref).max()),
+                     "ms_per_token": wall * 1e3 / new_tokens,
+                     "all_reduces_per_token": {op: {k: v / new_tokens for k, v in c.items()}
+                                               for op, c in collectives.items()},
+                     "flash_launches": dict(hf.LAUNCHES),
+                     "split_params": sum(isinstance(p, torch.distributed.tensor.DTensor)
+                                         for p in module.parameters())}
+        del model, module, acc
+    _reset_port_state()
+    return out
+
+
+def pp_mixtral_rank(hf, device="cuda", width=MIXTRAL_8X7B, row=MIXTRAL_ROW, steps=EP_STEPS,
+                    n_microbatches=REST_PP_MICROBATCHES):
+    """(d), one rank: phase 18 (b)'s Mixtral step (its weights, batch and
+    optimizer, one layer a stage) at ``pp_size=2``, GPipe over
+    ``n_microbatches`` microbatches: metrics, dropped choices and the aux
+    loss (summed over the stages) a step, launches, sends and bytes, the
+    peak."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator, Model, ParallelismConfig, adamw
+    from accelerate_tpu_torch.models import MixtralForCausalLM, cross_entropy_loss
+    from accelerate_tpu_torch.models.hub import mixtral_config_from_hf
+    from accelerate_tpu_torch.parallel.pp import p2p_counters
+
+    cfg = dataclasses.replace(mixtral_config_from_hf(width),
+                              num_hidden_layers=row["train_layers"], dtype=torch.bfloat16,
+                              remat=True, remat_policy="dots", attention_impl="flash")
+    acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu",
+                      parallelism_config=ParallelismConfig(pp_size=PP_STAGES))
+    module = MixtralForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+    aux_seen = []
+
+    def loss_fn(m, b):
+        from accelerate_tpu_torch.parallel.pp import pipeline_forward
+
+        logits, aux = pipeline_forward(m, b["x"], n_microbatches=n_microbatches,
+                                       return_aux=True)
+        aux_seen.append(float(aux.detach()))
+        return cross_entropy_loss(logits, b["y"]) + aux
+
+    step = acc.prepare_train_step(loss_fn, max_grad_norm=1.0)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(row["batch"], row["seq"] + 1))
+    batch = {"x": torch.from_numpy(ids[:, :-1]).to(acc.device),
+             "y": torch.from_numpy(ids[:, 1:]).to(acc.device)}
+    state = acc.train_state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launch_counts()
+    p2p_counters.reset()
+    metrics, dropped, times = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+        n = torch.as_tensor(module.router_stats()["dropped"], device=acc.device).reshape(1)
+        dist.all_reduce(n, group=acc.state.pipeline_mesh.get_group())
+        dropped.append(int(n))
+    out = {"metrics": [(float(m["loss"]), float(m["grad_norm"])) for m in metrics],
+           "dropped": dropped, "aux": aux_seen, "step_ms": float(np.mean(times[1:])),
+           "step_ms_each": times, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step": {k: v / steps for k, v in hf.LAUNCHES.items()},
+           "variant_launches": dict(hf.VARIANT_LAUNCHES),
+           "p2p_per_step": {k: v / steps for k, v in p2p_counters.snapshot().items()},
+           "local_params": sum(p.numel() for p in module.parameters()),
+           "microbatches": n_microbatches, "pp_rank": acc.pipeline_parallel_rank}
+    del state, step, module, acc
+    return out
+
+
+def _fingerprint_tensors(tensors):
+    """``_fingerprint`` of a sequence of tensors."""
+    import torch
+
+    total = torch.zeros(2, dtype=torch.int64)
+    for t in tensors:
+        bits = t.detach().reshape(-1).view(torch.int32).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        total += torch.stack([bits.sum(), (bits * w).sum()]).cpu()
+    return total.tolist()
+
+
+def checkpoint_rank(hf, ckpt_dir, device="cuda", width=FULL_WIDTH, seq=SLICE["s"],
+                    batch_size=SLICE["b"]):
+    """(e), one rank. Phase 23 (d)'s model at ``pp_size=2`` (GPipe over
+    PP_MICROBATCHES) under DISTRIBUTED_STATE_DICT: one step, a save, a
+    fresh prepare that loads it and takes the second step, against the
+    same two steps without the round trip (metrics and the parameters'
+    fingerprint over the stages). Then the same model under FSDP2 at
+    ``dp_shard=2``: one step and a SHARDED_STATE_DICT save (whole tensors
+    through ``gather_shards`` over gloo on the card), with the gathered
+    parameters' fingerprint for the parent's one-process resume."""
+    import torch
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        FullyShardedDataParallelPlugin,
+        Model,
+        ParallelismConfig,
+        adamw,
+        llama_pipeline_forward,
+    )
+    from accelerate_tpu_torch.models import cross_entropy_loss
+    from accelerate_tpu_torch.parallel.sharding import local_batch
+    from accelerate_tpu_torch.utils.operations import gather_shards
+
+    def pp_loss(m, b):
+        return cross_entropy_loss(llama_pipeline_forward(m, b["x"],
+                                                         n_microbatches=PP_MICROBATCHES), b["y"])
+
+    def run(pc, state_dict_type, loss_fn):
+        _reset_port_state()
+        acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu",
+                          parallelism_config=ParallelismConfig(**pc),
+                          fsdp_plugin=FullyShardedDataParallelPlugin(
+                              state_dict_type=state_dict_type))
+        cfg, module = _rest_model(width, seq, acc.device)
+        model, _ = acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+        step = acc.prepare_train_step(loss_fn, max_grad_norm=1.0)
+        full = _phase5_batch(cfg, batch_size, seq, "cpu")
+        mine = local_batch({k: v.numpy() for k, v in full.items()}, acc.parallelism_config,
+                           acc.process_index)
+        batch = {k: torch.from_numpy(v).to(acc.device) for k, v in mine.items()}
+        return acc, module, step, batch
+
+    out, dcp_dir = {}, os.path.join(ckpt_dir, "dcp")
+    rounds = {}
+    for trip in (False, True):
+        acc, module, step, batch = run(dict(pp_size=PP_STAGES), "DISTRIBUTED_STATE_DICT", pp_loss)
+        hf.reset_launch_counts()
+        _, m1 = step(acc.train_state, batch)
+        if trip:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            acc.save_state(dcp_dir)
+            save_s = time.perf_counter() - t0
+            del acc, module, step
+            acc, module, step, batch = run(dict(pp_size=PP_STAGES), "DISTRIBUTED_STATE_DICT",
+                                           pp_loss)
+            t0 = time.perf_counter()
+            acc.load_state(dcp_dir)
+            torch.cuda.synchronize()
+            out["dcp"] = {"save_s": save_s, "load_s": time.perf_counter() - t0,
+                          "bytes": dir_bytes(dcp_dir)}
+        _, m2 = step(acc.train_state, batch)
+        torch.cuda.synchronize()
+        rounds[trip] = {"metrics": [(float(m["loss"]), float(m["grad_norm"])) for m in (m1, m2)],
+                        "fingerprint": _fingerprint(module)}
+        if trip:
+            out["variant_launches"] = dict(hf.VARIANT_LAUNCHES)
+        del acc, module, step
+    out["dcp"].update(plain=rounds[False], round_trip=rounds[True])
+    sharded_dir = os.path.join(ckpt_dir, "sharded")
+    acc, module, step, batch = run(dict(dp_shard_size=2), "SHARDED_STATE_DICT",
+                                   lambda m, b: cross_entropy_loss(m(b["x"]), b["y"]))
+    _, m1 = step(acc.train_state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc.save_state(sharded_dir)
+    save_s = time.perf_counter() - t0
+    gathered = _fingerprint_tensors(gather_shards(p) for p in module.parameters())
+    out["sharded"] = {"save_s": save_s, "bytes": dir_bytes(sharded_dir),
+                      "loss": float(m1["loss"]), "fingerprint": gathered,
+                      "dtensors": sum(hasattr(p, "full_tensor") for p in module.parameters())}
+    del acc, module, step
+    _reset_port_state()
+    return out
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def sharded_resume(ckpt_dir, device="cuda", width=FULL_WIDTH, seq=SLICE["s"]) -> dict:
+    """(e)'s resume on one process (the parent): the SHARDED_STATE_DICT
+    checkpoint the FSDP2 ranks saved, loaded into the same model; its
+    parameters' fingerprint, and the load's seconds."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, adamw
+
+    _reset_port_state()
+    acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu")
+    _, module = _rest_model(width, seq, acc.device)
+    acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+    t0 = time.perf_counter()
+    acc.load_state(os.path.join(ckpt_dir, "sharded"))
+    torch.cuda.synchronize()
+    out = {"load_s": time.perf_counter() - t0, "fingerprint": _fingerprint(module)}
+    del acc, module
+    _reset_port_state()
+    return out
+
+
+def rest_child(hf, device="cuda", kw=None) -> dict:
+    """Phase 25 in one of phase 22's processes: (a)-(e), each set up
+    afresh; ``kw`` may narrow each part (the CPU rehearsal) and names the
+    checkpoint directory (``kw["ckpt_dir"]``)."""
+    kw = kw or {}
+    t0 = time.perf_counter()
+    parts, seconds = {}, {}
+    runs = (("fp8_tp", lambda: fp8_tp_rank(hf, device=device, **kw.get("fp8_tp", {}))),
+            ("fp8_batch", lambda: fp8_batch_rank(hf, device=device, **kw.get("fp8_batch", {}))),
+            ("decode", lambda: tp_family_decode_rank(hf, device=device, **kw.get("decode", {}))),
+            ("pp_mixtral", lambda: pp_mixtral_rank(hf, device=device,
+                                                   **kw.get("pp_mixtral", {}))),
+            ("checkpoints", lambda: checkpoint_rank(hf, kw["ckpt_dir"], device=device,
+                                                    **kw.get("checkpoints", {}))))
+    for name, run in runs:
+        _reset_port_state()
+        t = time.perf_counter()
+        parts[name] = run()
+        seconds[name] = time.perf_counter() - t
+    _reset_port_state()
+    return {**parts, "part_s": seconds, "seconds": time.perf_counter() - t0}
+
+
+def rest_gate(children, fp8_first, fp8_ref, phase18, resume) -> dict:
+    """Phase 25's checks on the children's phase-25 lines.
+
+    (a) 3 steps within TP_REL_TOL of phase 14 (b)'s first three (``fp8_first``),
+    equal on both ranks; every fp8 product on ``_scaled_mm`` (none
+    dequantized); each flash kernel launched once a layer a step.
+    (b) step 1's scales, every input and cotangent, equal on the two ranks;
+    3 steps within TP_REL_TOL of the one-process steps (``fp8_ref``); under
+    the "fp16" hook the ranks' scales their own (some differ) and no amax
+    collective, its loss within HOOK_LOSS_TOL of the one-process step 1.
+    (c) each family's greedy tokens equal the whole-weights reference's off
+    near-ties, its teacher-forced logits within the tie gap (TP_PLAIN_FACTOR
+    times the reference's bf16-against-fp32 difference, at least TIE_GAP).
+    (d) phase 24's gates against phase 18 (b)'s first three steps, each
+    flash kernel launched twice a step on each rank (one layer, two
+    microbatches). (e) the DCP round trip's second step bit-equal (metrics
+    and parameters) to the plain one; the one-process resume of the
+    SHARDED_STATE_DICT save bit-equal to the gathered parameters."""
+    ranks = [next((line["rest"] for line in reversed(lines) if "rest" in line), None)
+             for _, lines, _ in children]
+    res = {"phase": "parallel_rest", "ranks": TP_RANKS,
+           "note": "two processes on one card joined by gloo, which stages every collective "
+                   "through the host: step ms are gloo's"}
+    checks = {"children": all(rc == 0 for rc, _, _ in children) and all(ranks)}
+    if not checks["children"]:
+        return {**res, "checks": checks, "ok": False,
+                "child_exit": [rc for rc, _, _ in children],
+                "child_stderr": [err for _, _, err in children]}
+    out = {}
+    # (a)
+    runs = [r["fp8_tp"] for r in ranks]
+    rel = max(_rel(g, w) for r in runs for got, want in zip(r["metrics"], fp8_first)
+              for g, w in zip(got, want))
+    checks["fp8_tp_vs_phase14"] = len(runs[0]["metrics"]) == TP_STEPS and rel <= TP_REL_TOL
+    checks["fp8_tp_ranks_agree"] = all(r["metrics"] == runs[0]["metrics"] for r in runs)
+    checks["fp8_tp_scaled_mm"] = all(r["paths"]["dequantized"] == 0 and r["paths"]["scaled_mm"]
+                                     for r in runs)
+    checks["fp8_tp_launches"] = all(r["launches_per_step"].get(k) == r["n_layers"]
+                                    for r in runs for k in KERNELS)
+    out["fp8_tp"] = {"rank_metrics": [r["metrics"] for r in runs], "phase14_metrics": fp8_first,
+                     "max_rel": rel, **{k: [r.get(k) for r in runs] for k in (
+                         "step_ms", "step_ms_each", "amax_all_reduces_per_step",
+                         "amax_ms_per_step", "amax_share", "peak_mem_gib", "device_busy_ms",
+                         "idle_share", "busy_ms_by_category", "top_kernels_ms",
+                         "launches_per_step", "paths")}}
+    # (b)
+    dp = [r["fp8_batch"]["dp"] for r in ranks]
+    hook = [r["fp8_batch"]["hook"] for r in ranks]
+    rel = max(_rel(g, w) for r in dp for got, want in zip(r["metrics"], fp8_ref["metrics"])
+              for g, w in zip(got, want))
+    checks["fp8_batch_scales_agree"] = bool(dp[0]["scales"]) and all(
+        r["scales"] == dp[0]["scales"] for r in dp)
+    checks["fp8_batch_vs_one_process"] = rel <= TP_REL_TOL
+    checks["fp8_hook_scales_own"] = any(a != b for a, b in zip(hook[0]["scales"],
+                                                               hook[1]["scales"]))
+    checks["fp8_hook_no_amax_collective"] = all(r["amax_all_reduces_per_step"] == 0
+                                                for r in hook)
+    checks["fp8_hook_loss"] = all(abs(r["metrics"][0][0] - fp8_ref["metrics"][0][0])
+                                  <= HOOK_LOSS_TOL for r in hook)
+    out["fp8_batch"] = {
+        "rank_metrics": [r["metrics"] for r in dp], "one_process_metrics": fp8_ref["metrics"],
+        "max_rel": rel, "amax_all_reduces_per_step": [r["amax_all_reduces_per_step"] for r in dp],
+        "scales_step1": len(dp[0]["scales"]),
+        "scale_rel_to_one_process": max(
+            abs(g - (w * TP_RANKS if bwd else w)) / (w * TP_RANKS if bwd else w)
+            for (g, bwd), (w, _) in zip(dp[0]["scales"], fp8_ref["scales"])),
+        "hook_losses": [r["metrics"][0][0] for r in hook],
+        "hook_scales_differing": sum(a != b for a, b in zip(hook[0]["scales"],
+                                                            hook[1]["scales"]))}
+    # (c)
+    out["decode"] = {}
+    for name in ranks[0]["decode"]:
+        decodes = [r["decode"][name] for r in ranks]
+        tie_gap = [max(TIE_GAP, TP_PLAIN_FACTOR * d["plain_delta"]) for d in decodes]
+        div = [first_divergence([d["plain_row"]], [d["row"]], [d["plain_gaps"]], g)[0]
+               for d, g in zip(decodes, tie_gap)]
+        checks[f"decode_{name}_tokens"] = parity_ok(div)
+        checks[f"decode_{name}_logits"] = all(d["logit_delta"] <= g
+                                              for d, g in zip(decodes, tie_gap))
+        checks[f"decode_{name}_split"] = all(d["split_params"] > 0 for d in decodes)
+        out["decode"][name] = {"row": decodes[0]["row"], "plain_row": decodes[0]["plain_row"],
+                               "first_divergence": div, "tie_gap": tie_gap,
+                               **{k: [d[k] for d in decodes] for k in (
+                                   "logit_delta", "plain_delta", "ms_per_token",
+                                   "all_reduces_per_token", "split_params")}}
+    # (d)
+    runs = [r["pp_mixtral"] for r in ranks]
+    want = phase18["first_metrics"]
+    rel = max(_rel(g, w) for r in runs for got, w_ in zip(r["metrics"], want)
+              for g, w in zip(got, w_))
+    rel1 = [[_rel(g, w) for g, w in zip(r["metrics"][0], want[0])] for r in runs]
+    drop_room = [EP_DROP_SHARE * phase18["routed"] + EP_REL_TOL * w if i else 0.0
+                 for i, w in enumerate(phase18["dropped"][:EP_STEPS])]
+    drop_over = [max(abs(d - w) - room for d, w, room in
+                     zip(r["dropped"], phase18["dropped"], drop_room)) for r in runs]
+    checks["pp_mixtral_vs_phase18"] = len(runs[0]["metrics"]) == EP_STEPS and rel <= EP_REL_TOL
+    checks["pp_mixtral_step1"] = all(loss <= EP_STEP1_LOSS_TOL and norm <= EP_STEP1_NORM_TOL
+                                     for loss, norm in rel1)
+    checks["pp_mixtral_ranks_agree"] = all(r["metrics"] == runs[0]["metrics"] for r in runs)
+    checks["pp_mixtral_dropped"] = max(drop_over) <= 0
+    checks["pp_mixtral_launches"] = all(
+        r["launches_per_step"].get(k) == r["microbatches"] for r in runs for k in KERNELS)
+    out["pp_mixtral"] = {"rank_metrics": [r["metrics"] for r in runs], "phase18_metrics": want,
+                         "max_rel": rel, "step1_rel": rel1,
+                         "dropped": [r["dropped"] for r in runs],
+                         "phase18_dropped": phase18["dropped"][:EP_STEPS], "drop_room": drop_room,
+                         "phase18_step_ms": phase18["step_ms"],
+                         **{k: [r.get(k) for r in runs] for k in (
+                             "aux", "step_ms", "step_ms_each", "peak_mem_gib",
+                             "launches_per_step", "p2p_per_step", "local_params")}}
+    # (e)
+    ck = [r["checkpoints"] for r in ranks]
+    checks["dcp_round_trip_bit_equal"] = all(
+        c["dcp"]["plain"] == c["dcp"]["round_trip"] for c in ck)
+    checks["sharded_resume_bit_equal"] = (resume is not None and all(
+        c["sharded"]["fingerprint"] == resume["fingerprint"] for c in ck))
+    checks["sharded_saved_dtensors"] = all(c["sharded"]["dtensors"] > 0 for c in ck)
+    out["checkpoints"] = {
+        "dcp": [{k: c["dcp"][k] for k in ("save_s", "load_s", "bytes")} for c in ck],
+        "dcp_metrics": ck[0]["dcp"]["plain"]["metrics"],
+        "sharded": [{k: c["sharded"][k] for k in ("save_s", "bytes", "loss")} for c in ck],
+        "resume": resume}
+    return {**res, **out, "part_s": [r["part_s"] for r in ranks],
+            "seconds": max(r["seconds"] for r in ranks),
+            "variant_launches": {"fp8_tp_step": ranks[0]["fp8_tp"]["variant_launches"],
+                                 "pp_mixtral_step": ranks[0]["pp_mixtral"]["variant_launches"],
+                                 "pp_dcp_step": ranks[0]["checkpoints"]["variant_launches"]},
+            "checks": checks, "ok": all(checks.values())}
 
 
 def _stub_cuda_for_cpu():
@@ -8130,9 +8817,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 25's one-process reference: phase 23 (d)'s model with fp8 projections
+    # on phase 5's whole batch
+    fp8_ref = fp8_batch_steps(hf)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+
     # 22. tensor parallelism: phase 5's step and phase 7's generate at tp=2,
-    # two processes on the card over gloo, which then run phase 23
-    tpar = tensor_parallel_phase(hf, main_path, phase7_tp)
+    # two processes on the card over gloo, which then run phases 23-25
+    tpar = tensor_parallel_phase(hf, main_path, phase7_tp, ckpt_dir=ckpt_dir)
     children = tpar.pop("_children")
     tpar.pop("_logits")
     emit(tpar)
@@ -8160,6 +8852,23 @@ def main() -> int:
         print(f"chip_smoke: expert-parallel phase 24 failed: {failed}", file=sys.stderr)
         return 1
 
+    # 25. the rest of item 6: fp8 at tp=2 and over the batch, generate over
+    # tp=2 for GPT-2 XL and T5-base, Mixtral at pp=2, the DCP round trip at
+    # pp=2 and FSDP2's whole-tensor save, in phase 22's two processes
+    try:
+        resume = sharded_resume(ckpt_dir)
+    except Exception as exc:  # judged as a failed check below
+        print(f"chip_smoke: phase 25's one-process resume failed: {exc!r}", file=sys.stderr)
+        resume = None
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rest = rest_gate(children, precision["fp8"]["first_metrics"], fp8_ref,
+                     moe["mixtral_8x7b_train"], resume)
+    emit(rest)
+    if not rest["ok"]:
+        failed = sorted(k for k, v in rest["checks"].items() if not v)
+        print(f"chip_smoke: parallel-rest phase 25 failed: {failed}", file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
         "gemma_2b_step": chassis["gemma_2b_train"]["variant_launches"],
         "mixtral_8x7b_step": moe["mixtral_8x7b_train"]["variant_launches"],
@@ -8177,7 +8886,7 @@ def main() -> int:
         "big_model_resident": big["resident"]["variant_launches"],
         "tp_step": tpar["variant_launches"],
         "tp_generate": tpar["generate_variant_launches"],
-        **pipe["variant_launches"], **ep["variant_launches"]})})
+        **pipe["variant_launches"], **ep["variant_launches"], **rest["variant_launches"]})})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -33,6 +33,7 @@ functions that compute the references.
 
 from __future__ import annotations
 
+import os
 import pickle
 
 import numpy as np
@@ -206,12 +207,11 @@ def _train(ctx, pc, mixed_precision="no", plugin=None, tied=False, rules=False, 
         out["moments"] = {n: {k: _whole(acc.train_state.optimizer.state[p][k])
                               for k in ("exp_avg", "exp_avg_sq")}
                           for n, p in module.named_parameters()}
-        from accelerate_tpu_torch.checkpointing import _refuse_dcp_under_pp
-
-        try:
-            _refuse_dcp_under_pp(acc)
-        except NotImplementedError as exc:
-            out["dcp_refused"] = str(exc)
+        # DISTRIBUTED_STATE_DICT under pp: each stage writes its own shards.
+        acc.fsdp_plugin = FullyShardedDataParallelPlugin(state_dict_type="DISTRIBUTED_STATE_DICT")
+        acc.save_state(save + "_dcp")
+        out["dcp_files"] = sorted(os.listdir(os.path.join(save + "_dcp",
+                                                          "distributed_state_torch")))
     return out
 
 
@@ -570,7 +570,8 @@ def test_tied_embedding_at_pp2_matches_jax(runs):
 def test_pp2_checkpoint_resumes_at_pp1_in_both_packages(runs):
     """A save at pp=2 holds whole tensors in the JAX package's layout: the
     port at pp=1 and the JAX package load it bit for bit (parameters and
-    AdamW moments); DISTRIBUTED_STATE_DICT under pp is refused."""
+    AdamW moments); DISTRIBUTED_STATE_DICT under pp writes both stages'
+    shards (its round trips: tests/test_torch_parallel_rest.py)."""
     import jax
 
     from accelerate_tpu import Accelerator as JaxAccelerator
@@ -578,7 +579,7 @@ def test_pp2_checkpoint_resumes_at_pp1_in_both_packages(runs):
 
     ctx = runs["ctx"]
     saved = [r["save"] for r in runs[2]]
-    assert "DISTRIBUTED_STATE_DICT under pp" in saved[0]["dcp_refused"]
+    assert saved[0]["dcp_files"] == [".metadata", "__0_0.distcp", "__1_0.distcp"]
     params = _merged(saved)
     moments = {}
     for r in saved:
