@@ -52,6 +52,7 @@ from .big_modeling import (
     register_stream_plan,
     register_stream_spec,
 )
+from .chaos import Fault, FaultInjector, InjectedFaultError
 from .checkpointing import CheckpointSaveError
 from .cp_generation import cp_generate
 from .data_loader import (
@@ -94,6 +95,7 @@ from .optimizer import (
 )
 from .parallelism_config import ParallelismConfig, ParallelismOversubscriptionError
 from .scheduler import AcceleratedScheduler
+from .sdc import DecodeCanary, SDCConfig
 from .serving import ServingEngine, ServingStalledError, replay_trace
 from .state import AcceleratorState, DistributedType, GradientState, PartialState
 from .telemetry import TelemetryRecorder
@@ -110,6 +112,7 @@ from .utils import (
     InitProcessGroupKwargs,
     MixedPrecisionPolicy,
     ProfileKwargs,
+    FaultToleranceKwargs,
     ProjectConfiguration,
     ServingConfig,
     ShardingStrategy,
@@ -127,6 +130,11 @@ __all__ = [
     "AcceleratorState",
     "AutocastKwargs",
     "CheckpointSaveError",
+    "DecodeCanary",
+    "Fault",
+    "FaultInjector",
+    "InjectedFaultError",
+    "SDCConfig",
     "ColumnDataset",
     "DataLoaderConfiguration",
     "DeepSpeedPlugin",
@@ -150,6 +158,7 @@ __all__ = [
     "ParallelismOversubscriptionError",
     "PartialState",
     "ProfileKwargs",
+    "FaultToleranceKwargs",
     "ProjectConfiguration",
     "SeedableRandomSampler",
     "ServingConfig",

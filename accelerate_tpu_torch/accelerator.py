@@ -133,6 +133,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
+import shutil
 import time
 import types
 from typing import Callable, Optional, Union
@@ -151,6 +153,7 @@ from .parallel.fsdp import (
     average_whole_gradients,
     gradient_sync,
 )
+from .parallel.pp import stage_loss, stage_scope
 from .parallel.tp import splits
 from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
@@ -164,6 +167,7 @@ from .utils.dataclasses import (
     DeepSpeedPlugin,
     DistributedDataParallelKwargs,
     FP8RecipeKwargs,
+    FaultToleranceKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
@@ -246,7 +250,8 @@ def _global_norm(grads: list, pipeline_group=None, skip=frozenset()) -> torch.Te
     if pipeline_group is None:
         return torch.linalg.vector_norm(torch.stack([n.to(device) for n in norms]))
     kept = [n.to(device) for n, g in zip(norms, grads) if id(g) not in skip]
-    sq = torch.stack(kept).square().sum()
+    sq = (torch.stack(kept).square().sum() if kept
+          else torch.zeros((), dtype=norms[0].dtype, device=device))
     operations.all_reduce(sq, group=pipeline_group)
     return sq.sqrt()
 
@@ -306,6 +311,7 @@ class Accelerator:
         # Taken and not read, as in the JAX package.
         self.init_handler: Optional[InitProcessGroupKwargs] = None
         self.autocast_handler: Optional[AutocastKwargs] = None
+        self.fault_tolerance_handler: Optional[FaultToleranceKwargs] = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, ProfileKwargs):
                 self.profile_handler = handler
@@ -321,10 +327,13 @@ class Accelerator:
                 self.init_handler = handler
             elif isinstance(handler, AutocastKwargs):
                 self.autocast_handler = handler
+            elif isinstance(handler, FaultToleranceKwargs):
+                self.fault_tolerance_handler = handler
             else:
                 raise NotImplementedError(
                     f"kwargs handler {type(handler).__name__} is not ported yet (ROADMAP.md "
-                    "Queue A: CompileKwargs, FaultToleranceKwargs and AutoPlanKwargs item 12)")
+                    "Queue A item 12: CompileKwargs with item 12.4, ElasticKwargs and "
+                    "AutoPlanKwargs with item 12.3)")
         if mixed_precision is not None:
             mixed_precision = str(mixed_precision)  # a PrecisionType member too
         self._mp_policy = MixedPrecisionPolicy.from_mixed_precision(mixed_precision)
@@ -378,6 +387,15 @@ class Accelerator:
             from .telemetry import TelemetryRecorder
 
             self.telemetry = TelemetryRecorder(self, self.telemetry_handler)
+        # Fault tolerance (fault_tolerance.py): atomic verified checkpoints,
+        # preemption saves, save retries, the divergence sentinel, the
+        # watchdog, chaos and SDC. Without a handler every hook is one None
+        # check and checkpoints are written as before.
+        self.fault_tolerance = None
+        if self.fault_tolerance_handler is not None and self.fault_tolerance_handler.enabled:
+            from .fault_tolerance import FaultToleranceManager
+
+            self.fault_tolerance = FaultToleranceManager(self, self.fault_tolerance_handler)
 
     @property
     def device(self) -> torch.device:
@@ -600,7 +618,40 @@ class Accelerator:
                 out[i] = self.prepare_scheduler(obj)
             else:
                 raise TypeError(f"prepare() does not take {type(obj).__name__}")
+        self._maybe_elastic_resume()
+        if self.fault_tolerance is not None:
+            # Every process runs prepare(); the launcher signals the whole gang.
+            self.fault_tolerance.install_signal_handlers()
+            self.fault_tolerance.start_watchdog()
         return out[0] if len(out) == 1 else tuple(out)
+
+    def _maybe_elastic_resume(self) -> None:
+        """``ProjectConfiguration(automatic_resume=True)``: a relaunched run
+        (``ACCELERATE_RESTART_ATTEMPT > 0``) with automatic checkpoint naming
+        restores the newest checkpoint right after the ``prepare()`` that
+        gave it an optimizer, once; with none (or only an interrupted
+        ``.tmp``) it starts fresh. Under fault tolerance the verified
+        resolver refuses a checkpoint of another world size or layout
+        (``fault_tolerance.py``, ROADMAP.md Queue A item 12.3)."""
+        from .checkpointing import _list_checkpoint_dirs
+
+        pc = self.project_configuration
+        if not (pc.automatic_resume and pc.automatic_checkpoint_naming):
+            return
+        if getattr(self, "_elastic_resumed", False) or not self._train_states:
+            return
+        attempt = int(os.environ.get("ACCELERATE_RESTART_ATTEMPT", "0") or 0)
+        if attempt <= 0:
+            return
+        self._elastic_resumed = True
+        base = os.path.join(self.project_dir or ".", "checkpoints")
+        if not os.path.isdir(base) or not _list_checkpoint_dirs(base):
+            logger.warning("automatic_resume: restart attempt %d but no checkpoints under %s: "
+                           "starting fresh.", attempt, base)
+            return
+        loaded = self.load_state()
+        logger.info("automatic_resume: restart attempt %d resumed from %s (step %d)", attempt,
+                    loaded, int(self._train_states[0].step))
 
     def prepare_model(self, model: Model, device_placement=None,
                       evaluation_mode: bool = False) -> Model:
@@ -684,6 +735,7 @@ class Accelerator:
         if prepared not in self._dataloaders:
             self._dataloaders.append(prepared)
         prepared._telemetry = self.telemetry  # the loader's wait goes to add_data_wait
+        prepared._fault_tolerance = self.fault_tolerance  # chaos corrupt_batch
         return prepared
 
     def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
@@ -809,19 +861,22 @@ class Accelerator:
             for mb in microbatches:
                 with (operations.loss_over_processes(world, group),
                       gradient_sync(model, not local),
-                      model.compute_params(policy.cast_for_compute(self._cast_params(model)))):
+                      model.compute_params(policy.cast_for_compute(self._cast_params(model))),
+                      stage_scope() as scope):
                     if mutable_state:
                         loss, extra = loss_fn(model, extra, mb)
                     else:
                         loss = loss_fn(model, mb)
                         if has_aux:
                             loss, _aux = loss
-                    loss = loss.float()
+                    loss = stage_loss(model.module, loss.float(), scope)
                     _scaled(loss, state.loss_scale).backward()
                 loss_sum += loss.detach()
             if mutable_state:
                 state.set_extra_state(extra if pipe is None
                                       else self._from_last_stage(extra, pipe))
+            if pipe is not None:
+                self._pipeline_zero_grads(model)
             grads = [p.grad for p in params if p.grad is not None]
             # Parameters FSDP2 leaves whole are averaged here over every
             # process (loss_reduce_axes), as DDP would.
@@ -842,7 +897,7 @@ class Accelerator:
                 loss = loss / world
             if pipe is not None:
                 loss = self._last_stage_loss(loss, pipe)
-            return state, {"loss": loss, "grad_norm": gnorm}
+            return state, self._step_metrics(model, loss, gnorm)
 
         return self._tracked(step)
 
@@ -880,10 +935,22 @@ class Accelerator:
             self._pp_skip = self._sum_shared_gradients(model)
         return self.state.pipeline_mesh.get_group(), self._pp_skip
 
-    def _tracked(self, step: Callable) -> Callable:
-        """``step`` reporting to the telemetry, when there is one."""
+    def _step_metrics(self, model: Model, loss: torch.Tensor, gnorm: torch.Tensor) -> dict:
+        """The step's metrics; with the SDC sentinel armed also the
+        integrity digest of the new parameters and the grad norm
+        (``sdc.integrity_digest``), computed on the card inside the step."""
+        metrics = {"loss": loss, "grad_norm": gnorm}
+        ft = self.fault_tolerance
+        if ft is not None and ft.sdc is not None:
+            metrics["sdc_digest"] = ft.sdc.digest(model, gnorm)
+        return metrics
 
-        def step_and_track(state: TrainState, batch: dict):
+    def _tracked(self, step: Callable) -> Callable:
+        """``step`` reporting to the telemetry, when there is one, and to
+        fault tolerance: before the first step the SDC sentinel's golden
+        capture, after every step ``observe_step`` (``_maybe_sentinel``)."""
+
+        def run(state: TrainState, batch: dict):
             tel = self.telemetry
             if tel is None:
                 return step(state, batch)
@@ -898,7 +965,24 @@ class Accelerator:
             tel.on_train_step(step, batch, time.perf_counter() - t0, metrics=metrics)
             return state, metrics
 
+        def step_and_track(state: TrainState, batch: dict):
+            ft = self.fault_tolerance
+            if ft is None:
+                return run(state, batch)
+            if ft.sdc is not None and ft.sdc.needs_golden:
+                ft.sdc.capture_golden(step, state, batch)
+            state, metrics = run(state, batch)
+            return self._maybe_sentinel(state, metrics), metrics
+
         return step_and_track
+
+    def _maybe_sentinel(self, state: TrainState, metrics) -> TrainState:
+        """``observe_step`` after a step: the state to train on next, the
+        restored one after a rollback or an SDC repair (restored in place:
+        the same object, at the checkpoint's step)."""
+        slot = next((i for i, st in enumerate(self._train_states) if st is state), 0)
+        restored = self.fault_tolerance.observe_step(metrics, slot=slot)
+        return restored if restored is not None else state
 
     def _comm_hook_step(self, loss_fn: Callable, *, comm_hook: str, bound: Optional[Model],
                         max_grad_norm: Optional[float], has_aux: bool, mutable_state: bool):
@@ -1008,7 +1092,7 @@ class Accelerator:
             if world > 1:
                 operations.all_reduce(loss)
                 loss = loss / world
-            return state, {"loss": loss, "grad_norm": gnorm}
+            return state, self._step_metrics(model, loss, gnorm)
 
         return step
 
@@ -1017,16 +1101,34 @@ class Accelerator:
         embedding and head) summed over the first and last stages, so that
         both copies take the whole gradient; returns the ids of the
         gradients this stage leaves out of the norm (the last stage's
-        copies: the weight counts once)."""
+        copies: the weight counts once). For a family whose every stage
+        holds the parameters outside its cut stacks (``parallel/pp.
+        ReplicatedSpec``) those are summed over the whole pp group and count
+        on stage 0 only."""
         shared = [model.module.get_parameter(n) for n in model.pipeline_shared]
         if not shared:
             return frozenset()
-        edge = self.state.pipeline_edge_group
+        replicated = getattr(model.module, "pipeline_replicated", False)
+        group = (self.state.pipeline_mesh.get_group() if replicated
+                 else self.state.pipeline_edge_group)
         for p in shared:
             if p.grad is not None:
-                operations.all_reduce(_local(p.grad), group=edge)
+                operations.all_reduce(_local(p.grad), group=group)
         n_stages, stage = self.state.pipeline_stage
-        return frozenset(id(p.grad) for p in shared) if stage == n_stages - 1 else frozenset()
+        counted_here = stage == 0 if replicated else stage != n_stages - 1
+        return frozenset() if counted_here else frozenset(id(p.grad) for p in shared)
+
+    @staticmethod
+    def _pipeline_zero_grads(model: Model) -> None:
+        """Under pp of a replicated family: a parameter every stage holds
+        that took no gradient on this stage (its part of the graph ran
+        elsewhere) takes zeros, so that every stage sums the same list."""
+        if not getattr(model.module, "pipeline_replicated", False):
+            return
+        for n in model.pipeline_shared:
+            p = model.module.get_parameter(n)
+            if p.requires_grad and p.grad is None:
+                p.grad = torch.zeros_like(p)
 
     @staticmethod
     def _cast_params(model: Model) -> dict:
@@ -1159,10 +1261,10 @@ class Accelerator:
         args, kwargs = operations.recursively_apply(self._place, (args, kwargs))
         cast = self._mp_policy.cast_for_compute(self._cast_params(model))
         with (operations.loss_over_processes(world, group), gradient_sync(model, communicate),
-              model.compute_params(cast)):
+              model.compute_params(cast), stage_scope() as scope):
             out = loss_fn(model, *args, **kwargs)
             loss, aux = out if has_aux else (out, None)
-            loss = loss.float()
+            loss = stage_loss(model.module, loss.float(), scope)
             _scaled(loss / gs.num_steps, loss_scale).backward()
         if communicate and world > 1:
             average_whole_gradients(model, world, group)
@@ -1222,6 +1324,8 @@ class Accelerator:
         on the device where they overflowed). Returns the finite flag under
         loss scaling, else None. Nothing without gradients."""
         state = next(st for st in self._train_states if st.optimizer is optimizer)
+        if self.parallelism_config.pp_size > 1 and self.use_distributed:
+            self._pipeline_zero_grads(state.model)
         grads = self._grads(state)
         if not grads:
             return None
@@ -1240,6 +1344,10 @@ class Accelerator:
             if tel.handler.sync_timing:
                 self._synchronize()
             tel.on_apply_gradients(time.perf_counter() - t0)
+        if self.fault_tolerance is not None:
+            # The imperative loop has no step metrics: the chaos draws and
+            # the watchdog's note run (a restored state is restored in place).
+            self.fault_tolerance.observe_step(None, slot=self._train_states.index(state))
         return finite
 
     # ------------------------------------------------------------------
@@ -1341,6 +1449,8 @@ class Accelerator:
         from .checkpointing import release_staging
 
         release_staging(self)
+        if self.fault_tolerance is not None:
+            self.fault_tolerance.close()  # the watchdog, the previous signal handlers
         if self.telemetry is not None:
             self.telemetry.close()
         if self.is_main_process:
@@ -1469,12 +1579,33 @@ class Accelerator:
             raise ValueError("checkpoints hold model.safetensors: safe_serialization=False "
                              "has no other format")
         self.wait_for_checkpoint()
-        if self._save_state_pre_hooks:
-            output_dir = _checkpoint_dir(self, output_dir)
-            for hook in self._save_state_pre_hooks:
-                hook(self._models, self._train_states[0] if self._train_states else None,
-                     output_dir)
-        return save_accelerator_state(self, output_dir, block=block)
+        train_state = self._train_states[0] if self._train_states else None
+        ft = self.fault_tolerance
+        if ft is None:
+            if self._save_state_pre_hooks:
+                output_dir = _checkpoint_dir(self, output_dir)
+                for hook in self._save_state_pre_hooks:
+                    hook(self._models, train_state, output_dir)
+            return save_accelerator_state(self, output_dir, block=block)
+        # Under fault tolerance the save stages into <dir>.tmp and commits
+        # (checkpointing.py); the pre-hooks write into the staging directory,
+        # so their files ride the commit, again on every retry.
+        from .fault_tolerance import staging_path
+
+        def do_save(target: str) -> str:
+            if self._save_state_pre_hooks:
+                hook_dir = staging_path(target) if ft.atomic else target
+                if ft.atomic:
+                    if self.is_main_process and os.path.isdir(hook_dir):
+                        shutil.rmtree(hook_dir)
+                    self.wait_for_everyone()
+                    os.makedirs(hook_dir, exist_ok=True)
+                    ft.prearm_staging(hook_dir)
+                for hook in self._save_state_pre_hooks:
+                    hook(self._models, train_state, hook_dir)
+            return save_accelerator_state(self, target, block=block)
+
+        return ft.run_save_with_retry(do_save, _checkpoint_dir(self, output_dir))
 
     def load_state(self, input_dir: Optional[str] = None) -> str:
         """Restore the training state from ``input_dir`` or the newest
@@ -1489,6 +1620,31 @@ class Accelerator:
             for hook in self._load_state_pre_hooks:
                 hook(self._models, input_dir)
         return load_accelerator_state(self, input_dir)
+
+    # -- preemption (fault_tolerance.py) ------------------------------------
+
+    def should_checkpoint(self) -> bool:
+        """True once this process received a preemption signal (SIGTERM or
+        SIGUSR1 under ``FaultToleranceKwargs``): save now. Local and free."""
+        ft = self.fault_tolerance
+        return ft is not None and ft.preempted
+
+    def check_preemption(self) -> bool:
+        """True on every process once any received a preemption signal (an
+        OR over a gloo group, ``PartialState.agree_any``). After the final
+        ``save_state()`` exit with ``preemption_exit_code``."""
+        ft = self.fault_tolerance
+        if ft is None:
+            return False
+        return self.state._partial.agree_any(ft.preempted)
+
+    @property
+    def preemption_exit_code(self) -> int:
+        """The exit code of a preempted run (75): a supervisor relaunches it
+        as resumable."""
+        from .utils.constants import PREEMPTION_EXIT_CODE
+
+        return PREEMPTION_EXIT_CODE
 
     def wait_for_checkpoint(self) -> None:
         """Block until a ``save_state(block=False)`` has finished writing.

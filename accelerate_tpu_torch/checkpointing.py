@@ -76,7 +76,12 @@ allows numpy's array reconstructors and maps optax's ``ScaleByAdamState``,
 fields, so a JAX checkpoint loads without optax; any other global is
 refused.
 
-Not ported: the atomic manifest commit of ``fault_tolerance.py``.
+Under ``FaultToleranceKwargs`` (``fault_tolerance.py``) a save writes into
+``<dir>.tmp``, then process 0 writes ``manifest.json`` and renames the
+directory (the commit), and ``total_limit`` prunes after the commit; a
+``block=False`` save commits in ``finish_pending_save`` once its write has
+finished. A load resolves to the newest checkpoint whose manifest
+verifies.
 """
 
 from __future__ import annotations
@@ -221,9 +226,15 @@ def _checkpoint_dir(accelerator, output_dir: Optional[str], for_load: bool = Fal
             folders = _list_checkpoint_dirs(base) if os.path.isdir(base) else []
             if not folders:
                 raise FileNotFoundError(f"No checkpoints found in {base}")
-            # The next save continues past the newest checkpoint.
+            ft = getattr(accelerator, "fault_tolerance", None)
+            # Under fault tolerance: the newest checkpoint whose manifest
+            # verifies, the torn ones skipped.
+            chosen = (ft.resolve_verified(base, folders)
+                      if ft is not None and ft.handler.verify_on_load else folders[-1])
+            # The next save continues past the newest checkpoint, a torn one
+            # too, so that no save reuses its name.
             pc.iteration = _checkpoint_index(folders[-1]) + 1
-            return os.path.join(base, folders[-1])
+            return os.path.join(base, chosen)
         return os.path.join(base, f"checkpoint_{pc.iteration}")
     if output_dir is None:
         raise ValueError("Provide output_dir or enable automatic_checkpoint_naming.")
@@ -509,10 +520,18 @@ def finish_pending_save(accelerator) -> Optional[dict]:
         if tel is not None:
             tel.record_event("checkpoint_async_error", dir=pending["dir"],
                              error=f"{type(exc).__name__}: {exc}"[:500])
+        if pending.get("commit") is not None:  # an uncommitted staging directory
+            shutil.rmtree(pending["dir"], ignore_errors=True)
         raise CheckpointSaveError(
             f"the checkpoint {pending['dir']} failed to persist in the background: {exc}"
         ) from exc
     accelerator.wait_for_everyone()
+    if pending.get("commit") is not None:
+        # Under fault tolerance the background write committed nothing yet:
+        # the manifest and the rename come now that every byte is on disk.
+        final_dir, step = pending["commit"]
+        _finalize_save(accelerator, pending["dir"], final_dir, step)
+        pending["dir"] = final_dir
     done = {"wait_s": time.perf_counter() - t0,
             "persist_s": time.perf_counter() - pending["started"],
             "bytes": _dir_bytes(pending["dir"])}
@@ -670,6 +689,20 @@ def _save_host_side_state(accelerator, output_dir: str, writer: bool) -> None:
     _dump({"step": accelerator.step}, os.path.join(output_dir, "accelerator_step.bin"))
 
 
+def _finalize_save(accelerator, write_dir: str, final_dir: str, step: int) -> None:
+    """The commit of an atomic save: every process has written into the
+    staging directory; process 0 writes the manifest and renames it; then
+    ``total_limit`` prunes."""
+    ft = accelerator.fault_tolerance
+    accelerator.wait_for_everyone()
+    if accelerator.is_main_process:
+        ft.commit(write_dir, final_dir, step)
+    accelerator.wait_for_everyone()
+    if accelerator.project_configuration.automatic_checkpoint_naming and \
+            accelerator.is_main_process:
+        _prune_total_limit(accelerator, os.path.dirname(final_dir), room_for=0)
+
+
 def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
                            block: bool = True) -> str:
     """Write the prepared training state to ``output_dir`` (or the next
@@ -696,24 +729,45 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
               if pc.save_on_each_node and accelerator.parallelism_config.pp_size == 1
               else accelerator.is_main_process)
     output_dir = _checkpoint_dir(accelerator, output_dir)
+    ft = getattr(accelerator, "fault_tolerance", None)
+    atomic = ft is not None and ft.atomic
     if pc.automatic_checkpoint_naming:
         base = os.path.dirname(output_dir)
         os.makedirs(base, exist_ok=True)
-        if writer:
+        # Under atomic saves total_limit prunes after the commit
+        # (_finalize_save), so a failed save never removes the only good one.
+        if writer and not atomic:
             _prune_total_limit(accelerator, base, room_for=1)
-    os.makedirs(output_dir, exist_ok=True)
+    write_dir = output_dir
+    if atomic:
+        from .fault_tolerance import staging_path
+
+        write_dir = staging_path(output_dir)
+        if (accelerator.is_main_process and os.path.isdir(write_dir)
+                and not ft.consume_prearmed(write_dir)):
+            shutil.rmtree(write_dir)  # a failed or killed attempt's leftovers
+        accelerator.wait_for_everyone()
+    os.makedirs(write_dir, exist_ok=True)
 
     max_shard = (MAX_SHARD_SIZE if plugin is None or plugin.state_dict_type == "SHARDED_STATE_DICT"
                  else 10**15)
     stats = {"d2h_s": 0.0, "write_s": 0.0}
     if distributed:
-        _save_distributed(accelerator, output_dir, block, stats)
+        _save_distributed(accelerator, write_dir, block, stats)
     else:
         for i, train_state in enumerate(accelerator._train_states):
-            _save_train_state(train_state, i, output_dir, max_shard, accelerator.device, stats,
+            _save_train_state(train_state, i, write_dir, max_shard, accelerator.device, stats,
                               writer)
-    _save_host_side_state(accelerator, output_dir, writer)
+    _save_host_side_state(accelerator, write_dir, writer)
     accelerator.wait_for_everyone()
+    if atomic:
+        step = int(accelerator._train_states[0].step)
+        if block:
+            t0 = time.perf_counter()
+            _finalize_save(accelerator, write_dir, output_dir, step)
+            stats["commit_s"] = time.perf_counter() - t0
+        else:  # committed by finish_pending_save once the write is done
+            accelerator._pending_save["commit"] = (output_dir, step)
     if pc.automatic_checkpoint_naming:
         pc.iteration += 1
     stats["seconds"] = time.perf_counter() - t_start
@@ -852,6 +906,9 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None) -> str:
     if not accelerator._train_states:
         raise RuntimeError("Call accelerator.prepare(...) before load_state().")
     input_dir = _checkpoint_dir(accelerator, input_dir, for_load=True)
+    ft = getattr(accelerator, "fault_tolerance", None)
+    if ft is not None and ft.handler.verify_on_load:
+        ft.verify_before_load(input_dir)  # an explicit path; the resolver's pick passes
     stats = {"read_s": 0.0, "h2d_s": 0.0}
     distributed = os.path.isdir(os.path.join(input_dir, DCP_DIR_NAME))
     if distributed:

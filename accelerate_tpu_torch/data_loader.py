@@ -398,6 +398,9 @@ class BaseDataLoader:
         # Step telemetry (telemetry.py), set by Accelerator.prepare: the
         # seconds next() blocks on the next batch go to add_data_wait.
         self._telemetry = None
+        # Set by Accelerator.prepare_data_loader under fault tolerance: a chaos
+        # corrupt_batch fault NaN-poisons a batch at the device boundary.
+        self._fault_tolerance = None
 
     # -- device side -----------------------------------------------------
 
@@ -424,7 +427,15 @@ class BaseDataLoader:
         return recursively_apply(host, batch)
 
     def _device_put_batch(self, batch):
-        """Host tensors → the loader's device, on the caller's stream."""
+        """Host tensors → the loader's device, on the caller's stream. A
+        chaos ``corrupt_batch`` fault (``fault_tolerance.draw_batch_fault``)
+        fills every floating tensor with NaN first: a real divergence through
+        the step, for the sentinel to roll back."""
+        ft = self._fault_tolerance
+        if ft is not None and ft.draw_batch_fault() is not None:
+            batch = recursively_apply(
+                lambda x: torch.full_like(x, float("nan"))
+                if torch.is_tensor(x) and x.is_floating_point() else x, batch)
         if not self.device_placement:
             return batch
         return recursively_apply(

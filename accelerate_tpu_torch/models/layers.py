@@ -46,6 +46,7 @@ JAX counterparts use.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -145,7 +146,18 @@ def _rewinding(layer, generator: torch.Generator):
 
 def run_blocks(layers, x, remat: bool, *args, generator: Optional[torch.Generator] = None):
     """``x`` through every block of ``layers`` (each ``block(x, *args)``);
-    ``generator``: the one the blocks' dropout draws from, if any."""
+    ``generator``: the one the blocks' dropout draws from, if any. On a
+    pipeline stage whose ``layers`` ``keep_stage`` cut, this stage's
+    chunks of them, pipelined (``parallel/pp.run_stack``)."""
+    if getattr(layers, "_pp_plan", None) is not None:
+        from ..parallel.pp import run_stack
+
+        return run_stack(layers, list(layers), functools.partial(
+            _blocks, remat=remat, generator=generator), x, *args)
+    return _blocks(layers, x, *args, remat=remat, generator=generator)
+
+
+def _blocks(layers, x, *args, remat: bool, generator: Optional[torch.Generator] = None):
     for layer in layers:
         if remat and torch.is_grad_enabled():
             fn = layer if generator is None else _rewinding(layer, generator)

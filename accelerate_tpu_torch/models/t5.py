@@ -30,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel import tp
+from ..parallel.pp import every_stage, run_stack
 from .layers import causal_mask, init_weights
 from .llama import _Linear, as_dtype
 
@@ -238,12 +239,17 @@ class T5Stack(nn.Module):
         args = (enc, None, enc_mask) if self.is_decoder else (mask, None)
         x, bias = self.block_0(x, *args)
         args = (enc, bias, enc_mask) if self.is_decoder else (mask, bias)
-        for blk in self.blocks()[1:]:
+        # block_1.. on a pipeline stage: this stage's chunks (parallel/pp.run_stack).
+        x = run_stack(self, self.blocks()[1:], self._rest, x, *args)
+        return self.final_ln(x)
+
+    def _rest(self, blocks, x, *args):
+        for blk in blocks:
             if self.cfg.remat and torch.is_grad_enabled():
                 x, _ = checkpoint(blk, x, *args, use_reentrant=False)
             else:
                 x, _ = blk(x, *args)
-        return self.final_ln(x)
+        return x
 
 
 class T5ForConditionalGeneration(nn.Module):
@@ -271,6 +277,9 @@ class T5ForConditionalGeneration(nn.Module):
         compute dtype promote to (fp32 outside a train step)."""
         cfg = self.config
         enc, mask = self.encode(input_ids, attention_mask)
+        # On a pipeline stage the decoder's first block reads the encoder's
+        # output on every stage: the last stage's.
+        enc = every_stage(self, enc)
         dec = self.decoder(self.embed(decoder_input_ids), enc=enc, enc_mask=mask)
         dec = dec * as_dtype(cfg.d_model ** -0.5, dec.dtype)
         head = self.shared.weight.to(cfg.dtype)

@@ -49,9 +49,11 @@ the backward. Its values are not the output. ``cross_entropy_loss`` and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
+import threading
 from typing import Any, Callable, Optional
 
 import torch
@@ -202,12 +204,20 @@ class _Schedule:
     its v-th chunk (``h -> h``, shape and dtype kept)."""
 
     def __init__(self, chunks: list, ranks: list, stage: int, n_micro: int, mb_shape,
-                 dtype, device, aux_fn: Optional[Callable] = None):
+                 dtype, device, aux_fn: Optional[Callable] = None, context: tuple = ()):
         self.chunks, self.stage, self.n_stages = chunks, stage, len(ranks)
         self.n_micro, self.mb_shape, self.dtype = n_micro, tuple(mb_shape), dtype
         self.link = _Link(ranks, stage, device)
         self.ins: dict = {}
         self.outs: dict = {}
+        # Tensors every chunk reads beside its input (an encoder's output, a
+        # mask, a position bias): each microbatch's rows of those with the
+        # batch's leading dim, the others whole. Those that take a gradient
+        # get it summed over the microbatches (``context_grads``).
+        self.context = context
+        self.batch = mb_shape[0] * n_micro
+        self.ctx_leaves: dict = {}
+        self.context_grads = [torch.zeros_like(c) if _takes_grad(c) else None for c in context]
         # Chunks that return ``(h, extra)``: ``aux_fn`` turns every
         # microbatch's extras, once all have gone forward, into each one's
         # aux loss term (``aux``), which its backward takes with its output.
@@ -222,6 +232,30 @@ class _Schedule:
     @property
     def is_last_stage(self) -> bool:
         return self.stage == self.n_stages - 1
+
+    def _gather_context_grads(self, i: int, leaves: tuple) -> None:
+        mb = self.mb_shape[0]
+        for j, leaf in enumerate(leaves):
+            if self.context_grads[j] is None or leaf.grad is None:
+                continue
+            if leaf.shape != self.context_grads[j].shape:
+                self.context_grads[j][i * mb:(i + 1) * mb] += leaf.grad
+            else:
+                self.context_grads[j] += leaf.grad
+
+    def _context(self, i: int, record: bool) -> tuple:
+        """Microbatch ``i``'s context: row slices where the leading dim is the
+        batch's; with ``record`` fresh leaves for those that take a
+        gradient."""
+        mb = self.mb_shape[0]
+        out = []
+        for c in self.context:
+            if torch.is_tensor(c) and c.dim() > 0 and c.shape[0] == self.batch:
+                c = c[i * mb:(i + 1) * mb]
+            if record and _takes_grad(c):
+                c = c.detach().requires_grad_(True)
+            out.append(c)
+        return tuple(out)
 
     def forward(self, x: Optional[torch.Tensor], record: bool) -> Optional[torch.Tensor]:
         """Every microbatch through this stage's chunks; on the last stage
@@ -240,7 +274,12 @@ class _Schedule:
                     if record:
                         h.requires_grad_(True)
                 with torch.set_grad_enabled(record):
-                    y = chunk(h)
+                    if self.context:
+                        ctx = self._context(i, record)
+                        self.ctx_leaves[v, i] = ctx
+                        y = chunk(h, *ctx)
+                    else:
+                        y = chunk(h)
                     if self.aux_fn is not None:
                         y, self.extras[v, i] = y
                 if record:
@@ -282,6 +321,7 @@ class _Schedule:
                     torch.autograd.backward([y, term], [gy, grad_aux.to(term.dtype)])
                 else:
                     torch.autograd.backward(y, gy)
+                self._gather_context_grads(i, self.ctx_leaves.pop((v, i), ()))
                 if self._first(v):
                     gx[i] = h.grad
                 else:
@@ -292,16 +332,22 @@ class _Schedule:
         return None
 
 
+def _takes_grad(t) -> bool:
+    return torch.is_tensor(t) and t.is_floating_point() and t.requires_grad
+
+
 class _PipelineFn(torch.autograd.Function):
     """The schedule as one autograd node: forward runs every microbatch
     (recording their graphs), backward runs theirs in reverse. ``anchor``
     (a zero-dim leaf that requires grad) makes the node's output require
     grad on every stage, so that a stage whose input takes no gradient
     still runs its backward. The second output is the stage's aux loss
-    (zero without one), whose gradient reaches each microbatch's term."""
+    (zero without one), whose gradient reaches each microbatch's term.
+    The schedule's context tensors follow as inputs and get their
+    gradients summed over the microbatches."""
 
     @staticmethod
-    def forward(ctx, schedule, x, anchor):
+    def forward(ctx, schedule, x, anchor, *context):
         ctx.schedule = schedule
         with torch.enable_grad():
             out = schedule.forward(x, record=True)
@@ -313,12 +359,12 @@ class _PipelineFn(torch.autograd.Function):
         schedule = ctx.schedule
         ctx.schedule = None
         gx = schedule.backward(grad if schedule.is_last_stage else None, grad_aux)
-        return None, gx, None
+        return (None, gx, None, *schedule.context_grads)
 
 
 def _run_pipeline(chunks: list, x: torch.Tensor, *, mesh, axis_name: str,
                   n_microbatches: Optional[int], v_stages: int,
-                  stand_in_shape=None, aux_fn: Optional[Callable] = None):
+                  stand_in_shape=None, aux_fn: Optional[Callable] = None, context: tuple = ()):
     """``x`` (B, ...) through this stage's ``chunks`` pipelined over
     ``axis_name``: the last stage's output, or elsewhere a stand-in of
     ``stand_in_shape`` (default ``x``'s). ``x`` is read on stage 0; the
@@ -335,10 +381,11 @@ def _run_pipeline(chunks: list, x: torch.Tensor, *, mesh, axis_name: str,
     if batch % n_micro:
         raise ValueError(f"batch dim {batch} not divisible by n_microbatches {n_micro}")
     mb_shape = (batch // n_micro, *x.shape[1:])
-    schedule = _Schedule(chunks, ranks, stage, n_micro, mb_shape, x.dtype, x.device, aux_fn)
+    schedule = _Schedule(chunks, ranks, stage, n_micro, mb_shape, x.dtype, x.device, aux_fn,
+                         context)
     if torch.is_grad_enabled():
         anchor = torch.zeros((), dtype=x.dtype, device=x.device, requires_grad=True)
-        out, aux = _PipelineFn.apply(schedule, x, anchor)
+        out, aux = _PipelineFn.apply(schedule, x, anchor, *context)
     else:
         out = schedule.forward(x, record=False)
         if out is None:
@@ -606,6 +653,64 @@ def _neox_spec(module) -> StageSpec:
             post=lambda y: y.float()))
 
 
+# ---------------------------------------------------------------------------
+# Pipeline stages of the encoders (BERT, ViT), the two-stack models (CLIP,
+# T5, Whisper) and ResNet. The JAX package splits the layer dim of a
+# stacked leaf over pp when it divides and leaves every other leaf whole on
+# every stage; here each stage holds the blocks of its chunks of every
+# stack whose depth divides by pp (times the virtual stages) and every
+# other parameter, and the family's own forward runs on every stage: its
+# stacks (``run_stack``: ``models/layers.run_blocks``, T5's ``rest``) run
+# pipelined, everything else on every stage. A stack's output exists on the
+# last stage only (a stand-in elsewhere), so a tensor a later stack reads
+# beside its input (an encoder's output, a position bias) is broadcast from
+# the last stage first (``every_stage``), its gradient summed back. The
+# step counts each stage's own part of the gradient of a parameter every
+# stage holds (the embeddings through stage 0's pipeline input, a context
+# through the broadcast on the last stage, the heads on the last stage;
+# ``stage_loss`` drops the graph of the heads elsewhere) and sums it over
+# the pp group (``Accelerator._sum_shared_gradients``). Two stacks of one
+# forward run their backwards in one order on every stage: the second's
+# input depends on the first's output (``_After``). With no stack that
+# divides (ResNet, T5-base's 11 ``rest`` blocks at pp=2) every stage runs
+# the whole model and the step takes the last stage's gradient.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicatedSpec:
+    """``stacks(module) -> [(owner path, [child names in layer order])]``:
+    the family's stacked blocks."""
+
+    stacks: Callable
+
+
+def _module_list(path: str):
+    def stacks(module):
+        owner = module.get_submodule(path)
+        return [(path, [str(i) for i in range(len(owner))])]
+
+    return stacks
+
+
+def _t5_stacks(module):
+    return [(stack, [f"block_{i}" for i in range(1, module.get_submodule(stack).n_blocks)])
+            for stack in ("encoder", "decoder")]
+
+
+_REPLICATED_SPECS = {
+    "BertForSequenceClassification": ReplicatedSpec(_module_list("bert.layers")),
+    "BertForMaskedLM": ReplicatedSpec(_module_list("bert.layers")),
+    "ViTForImageClassification": ReplicatedSpec(_module_list("vit.layers")),
+    "CLIPModel": ReplicatedSpec(lambda m: [*_module_list("text.layers")(m),
+                                           *_module_list("vision.layers")(m)]),
+    "T5ForConditionalGeneration": ReplicatedSpec(_t5_stacks),
+    "WhisperForConditionalGeneration": ReplicatedSpec(
+        lambda m: [*_module_list("encoder.layers")(m), *_module_list("decoder.layers")(m)]),
+    "ResNet": ReplicatedSpec(lambda m: []),
+}
+
+
 # Module class name -> its stage spec's maker.
 STAGE_SPECS: dict = {
     "LlamaForCausalLM": _llama_spec,
@@ -613,20 +718,170 @@ STAGE_SPECS: dict = {
     "GPT2LMHeadModel": _gpt2_spec,
     "OPTForCausalLM": _opt_spec,
     "GPTNeoXForCausalLM": _neox_spec,
+    **{name: (lambda spec: lambda module: spec)(spec) for name, spec in _REPLICATED_SPECS.items()},
 }
 
 
-def stage_spec(module) -> StageSpec:
-    """The stage spec of ``module``'s family; other families are refused."""
+def stage_spec(module):
+    """The stage spec of ``module``'s family: a ``StageSpec`` for the decoder
+    families, a ``ReplicatedSpec`` for the others."""
     from ..models.llama import LlamaForCausalLM
 
     name = "LlamaForCausalLM" if isinstance(module, LlamaForCausalLM) else type(module).__name__
     if name not in STAGE_SPECS:
         raise NotImplementedError(
-            f"pp of {type(module).__name__} is not ported yet: the decoder families (Llama, "
-            "Mixtral, GPT-2, OPT, GPT-NeoX) only; pp for BERT, ViT, CLIP, T5, Whisper and "
-            "ResNet is the rest of ROADMAP.md Queue A item 6.3")
+            f"pp of {type(module).__name__}: no stage spec (parallel/pp.STAGE_SPECS names "
+            "the families it cuts)")
     return STAGE_SPECS[name](module)
+
+
+class _Scope:
+    """The pipelined stacks one loss function ran: their outputs (each the
+    last stage's, or a stand-in)."""
+
+    def __init__(self):
+        self.outputs: list = []
+        self.stand_ins: list = []
+
+
+_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def stage_scope():
+    """Collect the pipelined stacks of the forwards inside (the train
+    step's loss function), for ``stage_loss`` and the order of stacks."""
+    prev = getattr(_TLS, "scope", None)
+    _TLS.scope = scope = _Scope()
+    try:
+        yield scope
+    finally:
+        _TLS.scope = prev
+
+
+def stage_loss(module, loss: torch.Tensor, scope: _Scope) -> torch.Tensor:
+    """On a stage of a replicated family other than the last, the loss that
+    runs only this stage's part of the backward: its stacks' stand-in
+    losses, or with no pipelined stack zero (its gradients then all come
+    from the last stage). ``loss`` elsewhere."""
+    stage = getattr(module, "pipeline_stage", None)
+    if stage is None or not getattr(module, "pipeline_replicated", False):
+        return loss
+    n_stages, this, _ = stage
+    if this == n_stages - 1:
+        return loss
+    if scope.stand_ins:
+        return sum(stand_in_loss(t) for t in scope.stand_ins)
+    return loss * 0.0
+
+
+class _FromLastStage(torch.autograd.Function):
+    """``t`` as the last stage holds it, on every stage of ``group``; the
+    gradient is summed over the stages onto the last one's ``t``."""
+
+    @staticmethod
+    def forward(ctx, t, group, src, is_src):
+        out = t.detach().contiguous().clone()
+        dist.broadcast(out, src=src, group=group)
+        ctx.group, ctx.is_src = group, is_src
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return (g if ctx.is_src else torch.zeros_like(g)), None, None, None
+
+
+def _every_stage(t: torch.Tensor, mesh) -> torch.Tensor:
+    sub = mesh["pp"] if mesh.ndim > 1 else mesh
+    n_stages, stage, ranks = sub.size(), sub.get_local_rank(), sub.mesh.flatten().tolist()
+    out = _FromLastStage.apply(t, sub.get_group(), int(ranks[-1]), stage == n_stages - 1)
+    out._pp_everywhere = True
+    return out
+
+
+def every_stage(module, t):
+    """``t`` broadcast from the last stage when ``module`` is a pipeline
+    stage of a replicated family with a pipelined stack (T5's encoder
+    output, which the decoder's first block reads on stage 0); else ``t``."""
+    if (not getattr(module, "pipeline_replicated", False) or not torch.is_tensor(t)
+            or not getattr(module, "_pp_pipelined", False) or getattr(t, "_pp_everywhere", False)):
+        return t
+    return _every_stage(t, _active_mesh(None))
+
+
+class _After(torch.autograd.Function):
+    """``x`` after ``prev``: the identity on ``x`` whose backward gives
+    ``prev`` a zero gradient, so that the stack reading ``x`` runs its
+    backward before the one that made ``prev``, on every stage."""
+
+    @staticmethod
+    def forward(ctx, x, prev):
+        ctx.prev_shape, ctx.prev_dtype = prev.shape, prev.dtype
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, torch.zeros(ctx.prev_shape, dtype=ctx.prev_dtype, device=g.device)
+
+
+def run_stack(owner, blocks: list, body: Callable, x: torch.Tensor, *context):
+    """``body(blocks, x, *context) -> h`` with ``blocks`` the stack in
+    layer order, pipelined over ``pp`` when ``keep_stage`` cut this stack
+    (``owner._pp_plan``): this stage's chunks of it, the last stage's
+    output, a stand-in elsewhere. The floating-point context tensors are
+    the last stage's on every stage (``every_stage``)."""
+    plan = getattr(owner, "_pp_plan", None)
+    if plan is None:
+        return body(blocks, x, *context)
+    n_stages, stage, chunks_idx = plan
+    mesh = _active_mesh(None)
+    context = tuple(
+        _every_stage(c, mesh) if torch.is_tensor(c) and c.is_floating_point()
+        and not getattr(c, "_pp_everywhere", False) else c for c in context)
+    scope = getattr(_TLS, "scope", None)
+    if scope is not None and scope.outputs and torch.is_grad_enabled():
+        x = _After.apply(x, scope.outputs[-1])
+    chunks = [functools.partial(body, [blocks[i] for i in idx]) for idx in chunks_idx]
+    out = _run_pipeline(chunks, x, mesh=mesh, axis_name="pp", n_microbatches=None,
+                        v_stages=len(chunks_idx), context=context)
+    if scope is not None:
+        scope.outputs.append(out)
+        if stage != n_stages - 1:
+            scope.stand_ins.append(out)
+    return out
+
+
+def _keep_replicated(module, spec: ReplicatedSpec, n_stages: int, stage: int,
+                     virtual_stages: int) -> list[str]:
+    """``keep_stage`` of a replicated family: each stack whose depth divides
+    by ``pp × virtual_stages`` keeps this stage's chunks' blocks (the
+    others become ``nn.Identity``) and is marked for ``run_stack``; other
+    stacks and every other parameter stay. Returns the names of the
+    parameters every stage holds."""
+    from torch import nn
+
+    cut_prefixes = []
+    pipelined = False
+    for path, names in spec.stacks(module):
+        owner = module.get_submodule(path)
+        if not names or len(names) % (n_stages * virtual_stages):
+            continue  # stays whole on every stage, as the JAX package leaves it
+        chunks = stage_layer_indices(len(names), n_stages, stage, virtual_stages)
+        keep = {i for idx in chunks for i in idx}
+        for i, name in enumerate(names):
+            if i in keep:
+                cut_prefixes.append(f"{path}.{name}.")
+            else:
+                setattr(owner, name, nn.Identity())
+        owner._pp_plan = (n_stages, stage, chunks)
+        pipelined = True
+    module.pipeline_stage = (n_stages, stage, virtual_stages)
+    module.pipeline_replicated = True
+    module._pp_pipelined = pipelined
+    return [n for n, _ in module.named_parameters()
+            if not any(n.startswith(pre) for pre in cut_prefixes)]
 
 
 def pipeline_forward(model, input_ids: torch.Tensor, *, mesh=None,
@@ -647,6 +902,9 @@ def pipeline_forward(model, input_ids: torch.Tensor, *, mesh=None,
     module = _module(model)
     cfg = module.config
     spec = stage_spec(module)
+    if isinstance(spec, ReplicatedSpec):
+        raise ValueError(f"pipeline_forward takes the decoder families; a pipeline stage of "
+                         f"{type(module).__name__} runs its own forward (run_stack)")
     if not cfg.scan_layers:
         raise ValueError("pipeline parallelism requires scan_layers=True (stacked blocks)")
     if return_aux and spec.aux is None:
@@ -735,6 +993,8 @@ def keep_stage(module, n_stages: int, stage: int, virtual_stages: int = 1) -> li
     from torch import nn
 
     spec = stage_spec(module)
+    if isinstance(spec, ReplicatedSpec):
+        return _keep_replicated(module, spec, n_stages, stage, virtual_stages)
     cfg = module.config
     if not cfg.scan_layers:
         raise ValueError("pipeline parallelism requires scan_layers=True (stacked blocks)")

@@ -92,17 +92,22 @@ from .generation import (
     init_slot_cache,
     sample_logits,
 )
+from .chaos import InjectedFaultError
+from .utils.constants import PREEMPTION_EXIT_CODE
 from .utils.dataclasses import ServingConfig
 
 logger = logging.getLogger(__name__)
 
 # Engine arguments of the JAX package that the port does not take yet.
 _UNPORTED_ENGINE_ARGS = {
-    "compile_manager": "ROADMAP.md Queue A item 12 (control plane: compile_manager.py)",
-    "fault_tolerance": "ROADMAP.md Queue A item 12 (control plane: preemption drain)",
-    "chaos": "ROADMAP.md Queue A item 12 (control plane: chaos.py)",
-    "tracing": "ROADMAP.md Queue A item 12 (control plane: tracing.py)",
-    "journal": "ROADMAP.md Queue A item 12 (control plane: journal.py)",
+    "compile_manager": "ROADMAP.md Queue A item 12.4 (compile_manager.py)",
+    "tracing": "ROADMAP.md Queue A item 12.2 (tracing.py)",
+    "journal": "ROADMAP.md Queue A item 12.2 (journal.py)",
+}
+# Injection points whose engine paths are not ported: an injector that
+# names one is refused.
+_UNPORTED_CHAOS_POINTS = {
+    "engine_crash": "ROADMAP.md Queue A item 12.2 (the hard crash and the journal's recovery)",
 }
 _IDEMPOTENCY_ITEM = "ROADMAP.md Queue A item 8.8 (the engine's journal hooks)"
 
@@ -468,12 +473,18 @@ class ServingEngine:
     def __init__(self, model, config: Optional[ServingConfig] = None, *,
                  forward_cached=None, compile_manager=None, telemetry=None,
                  fault_tolerance=None, chaos=None, tracing=None, journal=None, profiler=None):
-        given = dict(compile_manager=compile_manager, fault_tolerance=fault_tolerance,
-                     chaos=chaos, tracing=tracing, journal=journal)
+        given = dict(compile_manager=compile_manager, tracing=tracing, journal=journal)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) is not ported yet ({_UNPORTED_ENGINE_ARGS[name]})")
+        # A FaultToleranceManager arms the preemption drain; a FaultInjector
+        # the chaos draws at prefill_dispatch, decode_tick and
+        # draft_mismatch.
+        self.fault_tolerance = fault_tolerance
+        self.chaos = chaos
+        self._draining = False
+        self._sdc_canary = None
         self.telemetry = telemetry
         # Per-tick attribution (profiler.py): host perf_counter sections
         # only. None: every hook is one check.
@@ -547,6 +558,21 @@ class ServingEngine:
             self._hub.register_provider("serving", self.stats, replace=True)
             self._hub.register_provider("spec", self._spec_metrics, replace=True)
 
+    @property
+    def chaos(self):
+        """The attached ``chaos.FaultInjector``, or None."""
+        return self._chaos
+
+    @chaos.setter
+    def chaos(self, injector) -> None:
+        if injector is not None:
+            named = set(injector.rates) | {e["point"] for e in injector._schedule}
+            for point, item in _UNPORTED_CHAOS_POINTS.items():
+                if point in named:
+                    raise NotImplementedError(
+                        f"ServingEngine(chaos=...) drawing {point!r} is not ported yet ({item})")
+        self._chaos = injector
+
     # -- request lifecycle -------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
@@ -590,6 +616,9 @@ class ServingEngine:
         self._stats["submitted"] += 1
         if self._first_submit_t is None:
             self._first_submit_t = req.submit_t
+        if self._draining:  # the preemption drain: nothing new gets in
+            self._finish(req, "shed")
+            return req.id
         cap = self.config.max_queue_depth
         if cap is not None and len(self._queue) >= cap:
             policy = self.config.overload_policy
@@ -674,12 +703,26 @@ class ServingEngine:
                 f["sheds"], f["timeouts"], f["failed"])
 
     def _begin_tick(self) -> tuple:
+        ft = self.fault_tolerance
+        if not self._draining and ft is not None and getattr(ft, "preempted", False):
+            # The preemption drain: nothing new is admitted, the queue is
+            # shed, the requests in flight finish; then exit
+            # preemption_exit_code.
+            self._draining = True
+            logger.warning("serving: preemption signal: shedding %d queued request(s), "
+                           "draining %d in flight, then exiting resumable (code %d)",
+                           len(self._queue), len(self._prefilling) + len(self._decoding),
+                           PREEMPTION_EXIT_CODE)
+            while self._queue:
+                self._finish(self._queue.popleft(), "shed")
         if self._has_deadlines:
             self._expire_deadlines()
         return self._progress_marker()
 
     def _end_tick(self, snap: tuple) -> None:
         self._stats["ticks"] += 1
+        if self._sdc_canary is not None:
+            self._sdc_canary.on_tick()
         if not (self.pending and self._progress_marker() == snap):
             self._idle_ticks = 0
             return
@@ -725,6 +768,10 @@ class ServingEngine:
         is_first = req.next_chunk == 0
         is_final = req.next_chunk == len(req.chunks) - 1
         try:
+            if self._chaos is not None:
+                fault = self._chaos.draw("prefill_dispatch", self._stats["ticks"], unit=req.id)
+                if fault is not None:
+                    raise InjectedFaultError(fault)
             tok = self._prefill(self._params, self._cache, self._state,
                                 torch.from_numpy(chunk).to(self.device), req.slot, valid,
                                 req.budget, req.generator, is_first, is_final)
@@ -747,6 +794,21 @@ class ServingEngine:
                 self._decoding[req.slot] = req
 
     def _decode_tick(self) -> None:
+        flip_slot = None
+        if self._chaos is not None:
+            fault = self._chaos.draw("decode_tick", self._stats["ticks"])
+            if fault is not None and fault.kind == "poison":
+                self._poison_slot(min(self._decoding))
+            elif fault is not None and fault.kind == "bit_flip":
+                # Silent decode corruption: one emitted token XOR'd with 1
+                # after the host read; only the decode canary sees it.
+                flip_slot = int((fault.extra or {}).get("slot", min(self._decoding)))
+            if self._speculate_k > 0:
+                fault = self._chaos.draw("draft_mismatch", self._stats["ticks"])
+                if fault is not None and fault.kind == "poison":
+                    # One slot's n-gram history blanked: its drafts degrade,
+                    # verification keeps the output equal.
+                    self._state.history[min(self._decoding)] = -1
         live = len(self._decoding)
         self._stats["occupancy_sum"] += live
         self._stats["peak_occupancy"] = max(self._stats["peak_occupancy"], live)
@@ -762,6 +824,8 @@ class ServingEngine:
                           bad.long()[:, None]], dim=1).cpu().numpy()
         if self._profiler is not None:
             self._tick_fetch_s += time.perf_counter() - tf0
+        if flip_slot is not None and flip_slot in self._decoding:
+            host[flip_slot, 0] ^= 1
         drafted = accepted = 0
         for slot, req in list(self._decoding.items()):
             if host[slot, k + 3]:
@@ -784,6 +848,35 @@ class ServingEngine:
             # The speculative dispatch is the (k+1)-position verify forward;
             # its host clock runs to the end of the tick's read.
             self._stats["spec_verify_s"] += time.perf_counter() - t0
+
+    def _poison_slot(self, slot: int) -> None:
+        """Chaos ``poison``: ``slot``'s KV rows turn NaN, for the decode
+        sentinel to catch (an int8 cache has no NaN: the fault is skipped)."""
+        cache = self._cache
+        if not (torch.is_tensor(cache.k) and cache.k.is_floating_point()):
+            logger.warning("serving: poison fault skipped: the cache holds no floats")
+            return
+        cache.k[:, slot] = float("nan")
+        cache.v[:, slot] = float("nan")
+
+    @property
+    def preempted(self) -> bool:
+        """True once the preemption drain latched."""
+        return self._draining
+
+    @property
+    def preemption_exit_code(self) -> int:
+        """The resumable exit code (75) of a drained, preempted engine."""
+        return PREEMPTION_EXIT_CODE
+
+    def attach_sdc_canary(self, canary) -> None:
+        """Register a ``sdc.DecodeCanary`` (its constructor calls this): it
+        runs at the end of every tick."""
+        self._sdc_canary = canary
+
+    def sdc_stats(self) -> Optional[dict]:
+        """The decode canary's counters, or None without one."""
+        return None if self._sdc_canary is None else self._sdc_canary.summary()
 
     def _retire(self, req: _Request) -> None:
         """Natural completion: the device row already flagged itself done,
@@ -953,6 +1046,8 @@ class ServingEngine:
         if self._profiler is not None:
             # Warm-up records would skew the term means and the flight ring.
             self._profiler.reset()
+        if self._sdc_canary is not None:
+            self._sdc_canary.reset_counters()
 
     def close(self) -> None:
         """Push the ``stats()`` block into the telemetry stream."""
@@ -1044,12 +1139,14 @@ class ServingEngine:
         }
 
     def fault_stats(self) -> dict:
-        """Terminal-status counters, retries and quarantines. The keys of
-        what is not ported (lanes, handoffs, canary, chaos, preemption)
-        read 0 or False."""
+        """Terminal-status counters, retries, quarantines, the faults the
+        injector drew and the preemption drain. The keys of what is not
+        ported (lanes, handoffs, weight canaries, degraded mode) read 0 or
+        False."""
         f = dict(self._fstats)
-        f.update(injected=0, quarantined_slots=len(self._quarantined_slots), degraded=False,
-                 preempted=False)
+        f.update(injected=len(self._chaos.injected) if self._chaos is not None else 0,
+                 quarantined_slots=len(self._quarantined_slots), degraded=False,
+                 preempted=self._draining)
         return f
 
     def speculation_stats(self) -> dict:

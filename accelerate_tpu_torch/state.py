@@ -144,6 +144,38 @@ class PartialState:
             else:
                 dist.barrier()
 
+    def _host_group(self):
+        """A gloo group over every process, made once on first use (by
+        every process, at the same call): the host-side collectives below
+        run on CPU tensors and never enqueue work on the card. The default
+        group when it is gloo already."""
+        if self.backend == "gloo":
+            return None
+        if self._shared_state.get("_gloo_group") is None:
+            self._shared_state["_gloo_group"] = dist.new_group(backend="gloo")
+        return self._shared_state["_gloo_group"]
+
+    def agree_any(self, flag: bool) -> bool:
+        """OR of a host-side flag over the processes: True everywhere once
+        any process passes True (``Accelerator.check_preemption``)."""
+        if self.num_processes <= 1:
+            return bool(flag)
+        t = torch.tensor([1 if flag else 0], dtype=torch.int32)
+        dist.all_reduce(t, group=self._host_group())
+        return int(t) > 0
+
+    def allgather_host_floats(self, values) -> np.ndarray:
+        """A small float vector from every process: a ``(num_processes,
+        len(values))`` float64 array, row r rank r's (``(1, n)`` alone).
+        The step watchdog's heartbeat and the SDC vote; float64 on the wire,
+        so a float32 digest arrives bit for bit."""
+        vec = torch.tensor(np.asarray(values, np.float64).reshape(1, -1))
+        if self.num_processes <= 1:
+            return vec.numpy()
+        out = [torch.empty_like(vec) for _ in range(self.num_processes)]
+        dist.all_gather(out, vec, group=self._host_group())
+        return torch.cat(out).numpy()
+
     @contextmanager
     def main_process_first(self):
         """The main process runs the body first; the others wait for it,

@@ -20,8 +20,16 @@ SAFE_WEIGHTS_INDEX_NAME = "model.safetensors.index.json"
 # Shard size of SHARDED_STATE_DICT safetensors.
 MAX_SHARD_SIZE = "5GB"
 
-# An automatic checkpoint directory under <project_dir>/checkpoints.
+# An automatic checkpoint directory under <project_dir>/checkpoints. Under
+# fault tolerance a save writes into <dir>.tmp and renames it after
+# manifest.json lists every file (fault_tolerance.py).
 CHECKPOINT_DIR_REGEX = r"^checkpoint_(\d+)$"
+CHECKPOINT_STAGING_SUFFIX = ".tmp"
+CHECKPOINT_MANIFEST_NAME = "manifest.json"
+
+# The quarantine record a sticky silent-data-corruption conviction writes
+# into the project directory (sdc.py).
+SDC_QUARANTINE_FILE = "sdc_quarantine.json"
 
 # ----------------------------------------------------------------------
 # Exit-code protocol, copied from the JAX package so that one supervisor

@@ -476,14 +476,88 @@ class DistributedDataParallelKwargs(KwargsHandler):
 
 
 @dataclass
+class FaultToleranceKwargs(KwargsHandler):
+    """Fault tolerance (``fault_tolerance.py``): passing this handler turns
+    it on; without it ``accelerator.fault_tolerance`` is None. The JAX
+    package's fields and checks:
+
+    - atomic verified checkpoints (``atomic_checkpoints``,
+      ``verify_on_load``; ``checksum`` ``"sha256"`` hashes every byte,
+      ``"size"`` checks sizes only);
+    - save retries (``save_retries`` with backoff from ``retry_backoff_s``
+      doubling up to ``retry_backoff_max_s``, then ``fallback_dir``);
+    - preemption (``install_signal_handlers`` for ``preemption_signals``);
+    - the divergence sentinel (``sentinel`` ``off|warn|halt|rollback``,
+      ``sentinel_window`` bad steps in a row, ``sentinel_explode_factor``
+      times the loss's EMA of ``sentinel_ema_alpha``, ``max_rollbacks``);
+    - chaos (``chaos``: a ``chaos.FaultInjector`` or its arguments as a
+      dict) and silent-data-corruption votes (``sdc``: an
+      ``sdc.SDCConfig`` or its arguments as a dict);
+    - the step watchdog (``watchdog`` ``off|warn|error|preempt``,
+      ``watchdog_warn_s``, ``watchdog_stall_s``, ``watchdog_poll_s``,
+      ``watchdog_heartbeat_every`` steps between gang heartbeats,
+      ``watchdog_grace_s``)."""
+
+    enabled: bool = True
+    atomic_checkpoints: bool = True
+    verify_on_load: bool = True
+    checksum: str = "sha256"  # sha256 | size
+    save_retries: int = 3
+    retry_backoff_s: float = 0.5
+    retry_backoff_max_s: float = 8.0
+    fallback_dir: Optional[str] = None
+    install_signal_handlers: bool = True
+    preemption_signals: tuple = ("SIGTERM", "SIGUSR1")
+    sentinel: str = "warn"  # off | warn | halt | rollback
+    sentinel_window: int = 3
+    sentinel_explode_factor: float = 10.0
+    sentinel_ema_alpha: float = 0.1
+    max_rollbacks: int = 2
+    chaos: Optional[object] = None
+    sdc: Optional[object] = None
+    watchdog: str = "off"  # off | warn | error | preempt
+    watchdog_warn_s: float = 60.0
+    watchdog_stall_s: float = 300.0
+    watchdog_poll_s: float = 1.0
+    watchdog_heartbeat_every: int = 0
+    watchdog_grace_s: float = 30.0
+
+    def __post_init__(self):
+        if self.checksum not in ("sha256", "size"):
+            raise ValueError("checksum must be sha256|size")
+        if self.sentinel not in ("off", "warn", "halt", "rollback"):
+            raise ValueError("sentinel must be off|warn|halt|rollback")
+        if self.sentinel_window < 1:
+            raise ValueError("sentinel_window must be >= 1")
+        if self.watchdog not in ("off", "warn", "error", "preempt"):
+            raise ValueError("watchdog must be off|warn|error|preempt")
+        if self.watchdog_warn_s <= 0 or self.watchdog_stall_s <= 0:
+            raise ValueError("watchdog_warn_s/watchdog_stall_s must be > 0")
+        if self.watchdog_stall_s < self.watchdog_warn_s:
+            raise ValueError("watchdog_stall_s must be >= watchdog_warn_s (warn first, then "
+                             "escalate)")
+        if self.watchdog_poll_s <= 0:
+            raise ValueError("watchdog_poll_s must be > 0")
+        if self.watchdog_heartbeat_every < 0:
+            raise ValueError("watchdog_heartbeat_every must be >= 0")
+        if self.sdc is not None and not isinstance(self.sdc, dict):
+            if type(self.sdc).__name__ != "SDCConfig":
+                raise ValueError("sdc must be an sdc.SDCConfig or a dict of its kwargs, got "
+                                 f"{type(self.sdc).__name__}")
+
+
+@dataclass
 class ProjectConfiguration:
     """Where checkpoints and logs go. With ``automatic_checkpoint_naming``,
     ``save_state()`` writes ``<project_dir>/checkpoints/checkpoint_<iteration>``
     and keeps at most ``total_limit`` of them; ``load_state()`` reads the
     newest. ``save_on_each_node`` writes the shared files once per node
     (by each node's local process 0) instead of once. ``logging_dir`` is
-    where the trackers write (default ``project_dir``). Resuming on a
-    restart (``automatic_resume``) is not ported."""
+    where the trackers write (default ``project_dir``). With
+    ``automatic_resume`` (and automatic naming) a relaunched run
+    (``ACCELERATE_RESTART_ATTEMPT > 0``) restores the newest checkpoint
+    right after ``prepare``, at the same world size and layout
+    (``Accelerator._maybe_elastic_resume``)."""
 
     project_dir: str = None
     logging_dir: str = None
@@ -494,10 +568,6 @@ class ProjectConfiguration:
     automatic_resume: bool = False
 
     def __post_init__(self):
-        _refuse_non_defaults(
-            self, _CONTROL_PLANE_ITEM + ": fault_tolerance.py's resume on restart",
-            honoured=("project_dir", "logging_dir", "automatic_checkpoint_naming",
-                      "total_limit", "iteration", "save_on_each_node"))
         self.set_directories(self.project_dir)
 
     def set_directories(self, project_dir: str = None):

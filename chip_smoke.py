@@ -73,7 +73,9 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    with FSDP2: the first three losses and grad norms must be phase 5's
    (``DP_REL_TOL``), with 18 launches per kernel per step; the collectives
    of ``utils/operations.py`` must round-trip; phase 9's loop must resume
-   bit-equal under FSDP2; phase 4's tiny step under DDP (no plugin) must
+   bit-equal under FSDP2 (at ``CUT_LOOP_LAYERS`` of its 18 layers: the
+   12.67 GB save and load at full depth are phase 9's); phase 4's tiny
+   step under DDP (no plugin) must
    give phase 4's numbers, and with ``attention_impl="ring"`` and
    ``"ulysses"`` over the 6-D mesh (``pp = cp = sp = tp = 1``) bit for
    bit. Prints the FSDP2 step ms, idle share and peak memory beside phase
@@ -171,12 +173,14 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    quantization's.
 
 15. distributed checkpoints. (a) Phase 9's loop (its data, schedule and
-   1.06B model) with ``FullyShardedDataParallelPlugin(state_dict_type=
+   1.06B model's widths at ``CUT_LOOP_LAYERS`` of its 18 layers: 4.04 GB;
+   phase 9 writes the full depth's 12.67 GB) with
+   ``FullyShardedDataParallelPlugin(state_dict_type=
    "DISTRIBUTED_STATE_DICT")`` and no process group: ``save_state()``
    after step 4 writes torch.distributed.checkpoint's files; a fresh
    Accelerator with weights from another seed ``load_state()``s them and
    takes steps 5-8, bit-equal to the uninterrupted run, every kernel
-   launched 18 times a step. (b) The same loop with ``save_state(block=
+   launched once a layer a step. (b) The same loop with ``save_state(block=
    False)`` after step 4: steps 5 and 6 run while the checkpoint persists,
    then ``wait_for_checkpoint()``, steps 7 and 8, a second background save
    (its stall, with the pinned copies of the first reused; removed once
@@ -464,6 +468,41 @@ each printing one JSON line; any failure ends the run with a nonzero exit:
    round trip; the same model under FSDP2 at ``dp_shard=2`` saved whole
    (``SHARDED_STATE_DICT``, through ``gather_shards`` on the card) and
    resumed by the parent on one process, bit-equal; seconds and bytes.
+26. fault tolerance, chaos and SDC (``ft_phase``, judged by ``ft_gate``).
+   (a) phase 5's Llama at 4 of its 18 layers under
+   ``FaultToleranceKwargs(sentinel="rollback")``: 8 steps, saves after
+   steps 2 (a ``size`` manifest) and 4 (``sha256``), the chaos schedule
+   ``FT_SCHEDULE`` (the second save's first attempt torn, a slow step at
+   tick 2, nonfinite metrics at tick 5): the torn save retried clean, the
+   rollback to step 4, every step's loss bit-equal to the fault-free run
+   with the manager off, no ``.tmp`` left, host syncs a step equal with
+   the manager on and off, a truncated newest checkpoint skipped for the
+   older one; step ms on and off, save s under both checksums (the
+   commit's share), verify-on-load s, rollback s. (b) ``chip_smoke.py
+   --ft-child`` twice in turn: the first sends itself SIGTERM after step
+   3, saves and exits 75; the second, with ``ACCELERATE_RESTART_ATTEMPT=1``
+   and ``automatic_resume``, resumes and takes steps 4-6 bit-equal to (a)'s
+   fault-free run; both start with the phase and wait for their turns,
+   the first's beside (a)'s fault-free run, the second's beside (d), which
+   measure no time. (c) in phase 22's two processes after phase 25 (and
+   (e)): 2 of phase 5's layers at ``dp_replicate=2``, each rank on the
+   same row, the SDC sentinel voting every step: a transient ``bit_flip``
+   of rank 1's digest repaired (no majority, the probe rerunning the
+   golden step with the golden digest, rollback to step 1) with the
+   replay's losses and digests those of the first pass, then a sticky
+   flip: rank 1 writes ``sdc_quarantine.json`` and exits 79 for real (the
+   gates of phases 22-25 read its 79 as 0 when the record names it, and
+   rank 0 leaves without a collective); the digest's device ms and the
+   vote's host ms. (d) phase 8's 8-slot engine on phase 7's model: a
+   ``decode_tick`` poison fails exactly its request (no retry) and the
+   other rows equal the fault-free run's; ``DecodeCanary(every=16)`` reads
+   no mismatch fault-free and one or more under a bit flip of its own
+   slot; SIGTERM drains the engine (the queue shed, the two requests in
+   flight finished) and its exit code is 75. (e) in the same processes
+   before (c): phase 20 (b)'s BERT-large and phase 19 (b)'s T5-base steps
+   at ``pp=2`` (BERT's 24 layers split; T5's 11 ``rest`` blocks do not
+   divide and stay whole on both stages): step 1's loss within
+   ``PP_FAMILY_REL_TOL`` of the one-process step 1, equal on both ranks.
 
 Then the kernel summary line (one entry per kernel of every timed
 variant) and, last, the device line.
@@ -545,7 +584,7 @@ MAIN_PATHS = ("train_step", "gemma_2b_step", "mixtral_8x7b_step", "cp_generate",
 # The other runs whose launches the line lists by path, outside "launches".
 OTHER_PATHS = ("imperative_loop", "observed_loop", "observed_imperative", "observed_serving",
                "fp16_step", "fp8_step", "dcp_loop", "dcp_async_loop", "serving_rest",
-               "big_model_resident", "tp_generate", "pippy_forward", "ep_generate")
+               "big_model_resident", "tp_generate", "pippy_forward", "ep_generate", "ft_loop")
 _TRAINING_PATHS = ("train_step", "gemma_2b_step", *OTHER_PATHS)
 # Phase 3 times every built variant (hopper_flash.variant) at the shape its
 # users give it: head dims 64 and 128 at the training shape, 256 at the
@@ -596,6 +635,10 @@ TIE_GAP = 1e-4
 LOOP = dict(rows=48, batch=4, steps=8, save_after=4, profile_steps=2, data_seed=9,
             init_seeds=(0, 1), weight_decay=0.1,
             schedule=dict(init_value=0.0, peak_value=3e-4, warmup_steps=2, decay_steps=12))
+# Phase 10's loop under FSDP2 and phase 15's DCP loops at this many of
+# phase 9's 18 layers: the same saves, loads and bit-equal resumes, 4.04 GB
+# checkpoints where phase 9 writes the full depth's 12.67 GB.
+CUT_LOOP_LAYERS = 4
 # Where the checkpoint goes when the temporary directory lacks the room
 # (listed in .gitignore; removed at the end of the phase).
 CKPT_FALLBACK = Path(__file__).resolve().parent / ".smoke_ckpt"
@@ -1453,6 +1496,11 @@ def llama_n_params(width) -> int:
     return 2 * width["vocab_size"] * h + layers * block + h
 
 
+def cut_loop_width(width) -> dict:
+    """``width`` at ``CUT_LOOP_LAYERS`` layers (fewer where it has fewer)."""
+    return dict(width, num_hidden_layers=min(CUT_LOOP_LAYERS, width["num_hidden_layers"]))
+
+
 def checkpoint_root(need_bytes, fallback=CKPT_FALLBACK):
     """A fresh directory with room for `need_bytes` (and a quarter more):
     under the temporary directory, else under `fallback`. Returns it and
@@ -1822,8 +1870,9 @@ def data_parallel_phase(hf, args, device="cuda", width=FULL_WIDTH, seq=SLICE["s"
 
     # The loop's steps are not profiled here: their device time is the FSDP2
     # step's, profiled above.
-    loop = loop_phase(hf, main["step_ms"], device=device, width=width, seq=seq,
-                      profile_steps=0, keep_group=True)
+    loop = loop_phase(hf, main["step_ms"], device=device,
+                      width=cut_loop_width(width),
+                      seq=seq, profile_steps=0, keep_group=True)
     gc.collect()
     torch.cuda.empty_cache()
     # Phase 12 (c): the imperative loop under FSDP2, held to the parent's
@@ -1963,6 +2012,7 @@ def distributed_checkpoint_phase(hf, phase9, dp_child, device="cuda", width=FULL
     child report (its ``phase15``: (c))."""
     import torch
 
+    width = cut_loop_width(width)
     blocking = loop_phase(hf, phase9["phase5_fixed_batch_step_ms"], device=device, width=width,
                           seq=seq, profile_steps=0, state_dict_type="DISTRIBUTED_STATE_DICT")
     gc.collect()
@@ -6806,6 +6856,19 @@ def tp_child_main(args: dict) -> int:
         torch.cuda.empty_cache()
         emit({"rank": args["rank"], "rest": rest_child(
             hf, device, dict(kw.get("rest") or {}, ckpt_dir=args["ckpt"]))})
+    if device == "cuda" or "ft" in kw:
+        # Phase 26 (e), then (c); (c)'s sticky run last: rank 1 exits 79.
+        ft_kw = kw.get("ft") or {}
+        emit({"rank": args["rank"], "pp_families": {
+            name: pp_family_rank(hf, name, device, row=(ft_kw.get("rows") or {}).get(name))
+            for name in PP_FAMILY_RUNS}})
+        sdc_res, ctx = sdc_child(hf, device, dict(ft_kw.get("sdc") or {},
+                                                  project=args["sdc_project"]))
+        emit({"rank": args["rank"], "sdc": sdc_res})
+        emit({"rank": args["rank"], "sdc_sticky": sdc_sticky_child(*ctx)})
+        # Rank 1 exited in the sticky conviction: no collective after it.
+        sys.stdout.flush()
+        os._exit(0 if res["ok"] else 1)
     PartialState._reset_state()
     dist.destroy_process_group()
     return 0 if res["ok"] else 1
@@ -6838,25 +6901,49 @@ def run_tp_children(args: dict, timeout: float, ranks=TP_RANKS):
     return out
 
 
-def tensor_parallel_phase(hf, phase5, phase7, device="cuda", kw=None, timeout=600,
-                          ckpt_dir=None):
+def tensor_parallel_phase(hf, phase5, phase7, device="cuda", kw=None, timeout=720,
+                          ckpt_dir=None, sdc_project=None):
     """Phase 22: tp=2 as two processes on the card over gloo
     (``run_tp_children``), judged by ``tp_gate``. The children's lines and
     rank 0's logits stay under ``_children`` and ``_logits`` (not printed);
-    phase 25 writes its checkpoints under ``ckpt_dir``."""
+    phase 25 writes its checkpoints under ``ckpt_dir``, phase 26 (c) its
+    checkpoint and quarantine record under ``sdc_project``. Rank 1 exits
+    SDC_EXIT_CODE after phase 26 (c)'s sticky conviction: its exit code is
+    kept under ``_sdc_exit`` and read as 0 by the gates of phases 22-25
+    when the quarantine record names it."""
     import numpy as np
 
     logits_path = tempfile.mktemp(suffix=".npy")
     t0 = time.perf_counter()
     children = run_tp_children({"device": device, "row": phase7["row"],
-                                "logits": logits_path, "kw": kw or {}, "ckpt": ckpt_dir},
-                               timeout)
+                                "logits": logits_path, "kw": kw or {}, "ckpt": ckpt_dir,
+                                "sdc_project": sdc_project}, timeout)
     seconds = time.perf_counter() - t0
+    children, sdc_exit = sticky_exits(children, sdc_project)
     logits = np.load(logits_path) if os.path.exists(logits_path) else None
     if logits is not None:
         os.remove(logits_path)
     return {**tp_gate(children, phase5, phase7, logits), "children_s": seconds,
-            "_children": children, "_logits": logits}
+            "_children": children, "_logits": logits, "_sdc_exit": sdc_exit}
+
+
+def sticky_exits(children, sdc_project):
+    """The children with rank 1's SDC_EXIT_CODE read as 0 where the
+    quarantine record under ``sdc_project`` names rank 1 (phase 26 (c)'s
+    sticky conviction), and what phase 26's gate reads: the exit codes, the
+    quarantined ranks, whether rank 0 was told."""
+    from accelerate_tpu_torch.sdc import load_quarantine
+    from accelerate_tpu_torch.utils.constants import SDC_EXIT_CODE
+
+    hosts = load_quarantine(sdc_project)["hosts"] if sdc_project else []
+    quarantined = [h.get("process_index") for h in hosts]
+    told = [next((line["sdc_sticky"] for line in lines if "sdc_sticky" in line), None)
+            for _, lines, _ in children]
+    out = [(0 if r == 1 and rc == SDC_EXIT_CODE and quarantined == [1] else rc, lines, err)
+           for r, (rc, lines, err) in enumerate(children)]
+    return out, {"exit_codes": [rc for rc, _, _ in children], "quarantined": quarantined,
+                 "peer_quarantined": bool(told[0] and told[0]["peer_quarantined"]),
+                 "records": hosts}
 
 
 def tp_gate(children, phase5, phase7, logits) -> dict:
@@ -8467,6 +8554,613 @@ def rest_gate(children, fp8_first, fp8_ref, phase18, resume) -> dict:
             "checks": checks, "ok": all(checks.values())}
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: fault tolerance, chaos and SDC (ROADMAP.md Queue A item 12.1)
+# ---------------------------------------------------------------------------
+
+# (a), (b): phase 5's Llama at full width with 4 of its 18 layers, batch 4 x
+# 2048, bf16 over fp32 masters, flash; 8 steps saving after steps 2 (its
+# manifest checksum "size") and 4 ("sha256"); chaos: the first attempt of
+# the second save torn, a slow step at tick 2, a nonfinite_grad at tick 5;
+# sentinel "rollback" over a window of 1. (b): the first child sends itself
+# SIGTERM after step 3, the second resumes and takes steps 4-6.
+FT_ROW = dict(layers=4, batch=SLICE["b"], seq=SLICE["s"], steps=8, saves=(2, 4), timed=3,
+              slow_s=0.05, preempt_after=3, resume_to=6, lr=3e-4)
+FT_SCHEDULE = ({"point": "checkpoint_save", "kind": "torn_write", "tick": 1, "unit": 0},
+               {"point": "train_step", "kind": "slow_step", "tick": 2},
+               {"point": "train_step", "kind": "nonfinite_grad", "tick": 5})
+# (c): phase 22's two processes at dp_replicate=2 (DDP over gloo), phase 5's
+# widths at 2 layers, one row each; the SDC sentinel votes every step,
+# rolls back to the checkpoint after step 1. Transient flip on rank 1 at
+# tick 1; then a sticky one at the next tick.
+SDC_ROW = dict(layers=2, batch=1, seq=SLICE["s"], steps=3, flip_tick=1)
+# (d): phase 8's 8-slot engine on phase 7's model: 8 requests of 64-token
+# prompts and 16 new tokens; the canary every 16 ticks with 4 new tokens.
+FT_ENGINE = dict(requests=8, prompt_len=64, new_tokens=16, slots=8, poison_tick=6,
+                 canary_every=16, canary_ticks=40, drain_after=3)
+# (e): phase 20 (b)'s BERT-large and phase 19 (b)'s T5-base at pp=2, two
+# steps; step 1's loss against phase 20's and 19's step 1.
+PP_FAMILY_RUNS = ("bert_large", "t5_base")
+PP_FAMILY_REL_TOL = 2e-2
+
+
+def ft_llama(device="cuda", width=FULL_WIDTH, row=FT_ROW, project_dir=None, handler=None,
+             automatic_resume=False, checksum=None):
+    """Phase 26's Llama (phase 5's widths at ``row["layers"]`` layers, its
+    seeded init), its Accelerator (bf16; ``handler`` a FaultToleranceKwargs),
+    step and fixed batches (one per step, numpy-seeded)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, ProjectConfiguration, adamw
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM, cross_entropy_loss
+
+    _reset_port_state()
+    cfg = LlamaConfig(**dict(width, num_hidden_layers=row["layers"]),
+                      max_position_embeddings=row["seq"], dtype=torch.bfloat16, remat=True,
+                      remat_policy="dots", attention_impl="flash")
+    acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu",
+                      project_config=ProjectConfiguration(
+                          project_dir=project_dir, automatic_checkpoint_naming=True,
+                          automatic_resume=automatic_resume),
+                      kwargs_handlers=[handler] if handler is not None else None)
+    module = LlamaForCausalLM(cfg, device=acc.device)
+    module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    acc.prepare(Model(module), adamw(row["lr"], weight_decay=0.1))
+    step = acc.prepare_train_step(lambda m, b: cross_entropy_loss(m(b["x"]), b["y"]),
+                                  max_grad_norm=1.0)
+    rng = np.random.default_rng(26)
+    batches = []
+    for _ in range(row["steps"] + 1):
+        ids = rng.integers(0, cfg.vocab_size, size=(row["batch"], row["seq"] + 1))
+        batches.append({"x": torch.from_numpy(ids[:, :-1]).to(acc.device),
+                        "y": torch.from_numpy(ids[:, 1:]).to(acc.device)})
+    return acc, step, batches
+
+
+def ft_loop(acc, step, batches, until, saves=(), checksums=None, max_ticks=None):
+    """Steps on the batch of the state's step until step ``until`` (a
+    rollback replays from the restored step), saving after the steps in
+    ``saves`` once each (with the manifest checksum ``checksums[step]``).
+    Returns [(step before, loss tensor)] and each save's seconds."""
+    state, out, saved, save_s = acc.train_state, [], {}, {}
+    for _ in range(max_ticks or 4 * until):
+        if int(state.step) >= until:
+            break
+        s0 = int(state.step)
+        state, m = step(state, batches[s0])
+        out.append((s0, m["loss"]))
+        s = int(state.step)
+        if s in saves and s not in saved:
+            ft = acc.fault_tolerance
+            if ft is not None and checksums:
+                ft.handler = dataclasses.replace(ft.handler, checksum=checksums[s])
+            t0 = time.perf_counter()
+            saved[s] = acc.save_state()
+            save_s[s] = {"seconds": time.perf_counter() - t0, **acc.checkpoint_stats}
+    return out, save_s
+
+
+def _timed_steps(acc, step, batches, n):
+    """Mean host ms of ``n`` steps between two synchronisations."""
+    import torch
+
+    state = acc.train_state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        state, _ = step(state, batches[int(state.step) % len(batches)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _profiled_syncs(acc, step, batches, n=2):
+    """SYNC_CALLS and device-to-host copies a step over ``n`` steps."""
+    import torch
+
+    state = acc.train_state
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=profiled_activities(True)) as prof:
+        for _ in range(n):
+            state, _ = step(state, batches[int(state.step) % len(batches)])
+        torch.cuda.synchronize()
+    return sync_counts(prof, n)
+
+
+def ft_rollback_part(hf, device="cuda", width=FULL_WIDTH, row=FT_ROW, root=None,
+                     before_clean=None) -> dict:
+    """(a) in this process: the chaos run (torn save retried, slow step,
+    nonfinite metrics rolled back to the step-4 checkpoint) against the
+    fault-free run, bit for bit; host syncs a step with the manager on and
+    off; seconds of the saves (sha256 and size), of the verification on
+    load and of the rollback; a truncated newest checkpoint skipped."""
+    import torch
+
+    from accelerate_tpu_torch import FaultToleranceKwargs
+    from accelerate_tpu_torch import fault_tolerance as ftmod
+
+    t_start = time.perf_counter()
+    schedule = [dict(e, seconds=row["slow_s"]) if e["kind"] == "slow_step" else dict(e)
+                for e in FT_SCHEDULE]
+    handler = FaultToleranceKwargs(sentinel="rollback", sentinel_window=1, retry_backoff_s=0.0,
+                                   chaos=dict(seed=0, schedule=schedule))
+    project = os.path.join(root, "a")
+    acc, step, batches = ft_llama(device, width, row, project_dir=project, handler=handler)
+    ft = acc.fault_tolerance
+    # The path's launches: counted from zero just before, read just after.
+    hf.reset_launch_counts()
+    run, saves = ft_loop(acc, step, batches, row["steps"], saves=row["saves"],
+                         checksums={row["saves"][0]: "size", row["saves"][1]: "sha256"})
+    launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+    run = [(s, float(loss)) for s, loss in run]
+    base = os.path.join(project, "checkpoints")
+    listing = sorted(os.listdir(base))
+    # The manager on and off on this model, alternating (every hook is a
+    # None check without it), so that both sides see the same host state.
+    on_ms, off_ms = [], []
+    for _ in range(2):
+        on_ms.append(_timed_steps(acc, step, batches, row["timed"]))
+        acc.fault_tolerance = None
+        off_ms.append(_timed_steps(acc, step, batches, row["timed"]))
+        acc.fault_tolerance = ft
+    on_syncs = _profiled_syncs(acc, step, batches)
+    acc.fault_tolerance = None
+    off_syncs = _profiled_syncs(acc, step, batches)
+    acc.fault_tolerance = ft
+    # The rollback's verification of the step-4 checkpoint (sha256 of every
+    # byte) is the verification on load.
+    verify = ft.last_verify
+    # A truncated newest checkpoint: the resolver takes the older one (sizes
+    # checked only: the truncation shows there).
+    newest = os.path.join(base, listing[-1])
+    victim = max((os.path.join(dp, f) for dp, _, fs in os.walk(newest) for f in fs
+                  if f != "manifest.json"), key=os.path.getsize)
+    with open(victim, "r+b") as f:
+        f.truncate(os.path.getsize(victim) // 2)
+    ft.handler = dataclasses.replace(ft.handler, checksum="size")
+    resolved = ft.resolve_verified(base, listing)
+    summary = {"rollbacks": ft.rollbacks_done, "save_retries": ft.save_retries_total,
+               "injected": list(ft.chaos.injected),
+               "rollback_s": getattr(ft, "last_rollback_s", None),
+               "lagged_reads": {"fetches": ftmod.HostFetch.fetches,
+                                "waited": ftmod.HostFetch.waits}}
+    acc.end_training()
+    del acc, step, ft
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The fault-free run, the manager off. It measures no time: (b)'s first
+    # child starts beside it (``before_clean``).
+    if before_clean is not None:
+        before_clean()
+    acc, step, batches = ft_llama(device, width, row, project_dir=os.path.join(root, "clean"))
+    clean, _ = ft_loop(acc, step, batches, row["steps"])
+    clean = [(s, float(loss)) for s, loss in clean]
+    del acc, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dict(clean)
+    sync_on = sum(on_syncs[k] for k in SYNC_CALLS)
+    sync_off = sum(off_syncs[k] for k in SYNC_CALLS)
+    checks = {
+        "torn_save_retried_clean": summary["save_retries"] == 1
+        and [e["point"] for e in summary["injected"]].count("checkpoint_save") == 1,
+        "rollback_restores_step_4": summary["rollbacks"] == 1
+        and [s for s, _ in run] == [0, 1, 2, 3, 4, 5, 6, 4, 5, 6, 7],
+        "replay_bit_equal": all(loss == want[s] for s, loss in run),
+        "no_tmp_left": listing == ["checkpoint_0", "checkpoint_1"],
+        "verified_sha256": verify["dir"] == os.path.join(base, listing[-1])
+        and verify["ok"] and verify["hashed"],
+        "truncated_newest_skipped": resolved == listing[0],
+        "host_syncs_equal": sync_on == sync_off,
+        "losses_finite": all(math.isfinite(x) for _, x in clean),
+        "flash_launched": all(launches.get(k, 0) > 0 for k in KERNELS),
+    }
+    return {"run": run, "fault_free": clean, **summary,
+            "step_ms": {"manager_on": sum(on_ms) / len(on_ms),
+                        "manager_off": sum(off_ms) / len(off_ms),
+                        "windows": {"manager_on": on_ms, "manager_off": off_ms}},
+            "syncs_per_step": {"manager_on": on_syncs, "manager_off": off_syncs},
+            "save": {"size": saves.get(row["saves"][0]), "sha256": saves.get(row["saves"][1])},
+            "verify_on_load_s": verify["seconds"], "checkpoint_bytes": saves.get(row["saves"][1], {}).get(
+                "bytes"), "launches": launches, "variant_launches": variant_launches,
+            "seconds": time.perf_counter() - t_start, "checks": checks}
+
+
+def ft_child_main(args: dict) -> int:
+    """(b): one training process of phase 26. With ``preempt_after`` it
+    sends itself SIGTERM after that step, saves (the preemption save) and
+    exits ``preemption_exit_code``; relaunched (``ACCELERATE_RESTART_ATTEMPT``
+    in its environment) it resumes from the newest checkpoint and steps to
+    ``resume_to``. Prints its losses by step."""
+    import signal
+
+    import torch
+
+    from accelerate_tpu_torch import FaultToleranceKwargs
+
+    device = args.get("device", "cuda")
+    if device == "cpu":
+        _stub_cuda_for_cpu()
+    else:
+        torch.empty(1, device=device)  # the CUDA context, before the wait
+    row = {**FT_ROW, **args.get("row", {})}
+    width = {**FULL_WIDTH, **args.get("width", {})}
+    # Seconds since the script started: imported, told to go, model built
+    # (and resumed), first step. The parent starts the child early and
+    # creates ``args["go"]`` when its turn comes.
+    timeline = {"ready_s": time.perf_counter() - RUN_START}
+    while args.get("go") and not os.path.exists(args["go"]):
+        time.sleep(0.05)
+    timeline["go_s"] = time.perf_counter() - RUN_START
+    acc, step, batches = ft_llama(device, width, row, project_dir=args["project"],
+                                  handler=FaultToleranceKwargs(sentinel="off", checksum="size"),
+                                  automatic_resume=True)
+    timeline["prepared_s"] = time.perf_counter() - RUN_START
+    state, losses = acc.train_state, {}
+    resumed_at = int(state.step)
+    while int(state.step) < row["resume_to"]:
+        s0 = int(state.step)
+        state, m = step(state, batches[s0])
+        losses[s0 + 1] = m["loss"]
+        timeline.setdefault("first_step_s", time.perf_counter() - RUN_START)
+        if args.get("preempt_after") == int(state.step):
+            os.kill(os.getpid(), signal.SIGTERM)
+        if acc.check_preemption():
+            t0 = time.perf_counter()
+            acc.save_state()
+            emit({"ft_child": {"losses": {k: float(v) for k, v in losses.items()},
+                               "resumed_at": resumed_at, "save_s": time.perf_counter() - t0,
+                               "signal": acc.fault_tolerance.preemption_signal,
+                               "timeline": timeline}})
+            acc.end_training()
+            return acc.preemption_exit_code
+    emit({"ft_child": {"losses": {k: float(v) for k, v in losses.items()},
+                       "resumed_at": resumed_at, "timeline": timeline,
+                       "load_s": (acc.checkpoint_stats or {}).get("seconds")}})
+    acc.end_training()
+    return 0
+
+
+class FtChild:
+    """(b): one ``chip_smoke.py --ft-child`` process, started now (it
+    imports and makes its CUDA context, then waits for the file ``go``) and
+    read by ``result()``: its exit code, its line, its wall seconds."""
+
+    def __init__(self, device, row, width, project, attempt, preempt_after, go):
+        args = {"device": device, "project": project, "preempt_after": preempt_after,
+                "row": row, "width": width or {}, "go": go}
+        env = {**os.environ, "ACCELERATE_RESTART_ATTEMPT": str(attempt)}
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--ft-child", json.dumps(args)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=Path(__file__).resolve().parent)
+
+    def result(self) -> dict:
+        try:
+            stdout, stderr = self.proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            stdout, stderr = self.proc.communicate()
+        lines = [json.loads(x) for x in stdout.splitlines() if x.startswith('{"ft_child"')]
+        rc = self.proc.returncode
+        return {"exit": rc, **(lines[-1]["ft_child"] if lines else {}),
+                "wall_s": time.perf_counter() - self.t0,
+                "elapsed_s": lines[-1]["elapsed_s"] if lines else None,
+                "stderr": stderr[-2000:] if rc not in (0, 75) else ""}
+
+
+def ft_resume_gate(first, second, row=FT_ROW, fault_free=None) -> dict:
+    """(b)'s checks on the two children's results: the first preempted
+    (exit 75), the second resumed at its save with steps 4-6 bit-equal to
+    (a)'s fault-free run."""
+    want = dict(fault_free or [])
+    resumed = {int(k): v for k, v in second.get("losses", {}).items()}
+    checks = {
+        "preempted_exit_75": first["exit"] == 75 and first.get("signal") == "SIGTERM",
+        "resumed_exit_0": second["exit"] == 0 and second.get("resumed_at") == row["preempt_after"],
+        "resumed_steps_bit_equal": sorted(resumed) == list(range(row["preempt_after"] + 1,
+                                                                  row["resume_to"] + 1))
+        and all(resumed[s] == want.get(s - 1) for s in resumed),
+    }
+    return {"children": [first, second], "checks": checks}
+
+
+def ft_engine_part(device="cuda", width=FULL_WIDTH, spec=FT_ENGINE) -> dict:
+    """(d): phase 8's engine on phase 7's model: a decode_tick poison fails
+    exactly its request (no retry), the others' tokens the fault-free
+    run's; DecodeCanary(every=16) reads no mismatch fault-free and one or
+    more under a decode_tick bit flip of its own slot; SIGTERM drains the
+    engine (the queue shed, the requests in flight finished) and its exit
+    code is 75."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import (Accelerator, DecodeCanary, FaultInjector,
+                                      FaultToleranceKwargs, Model, ServingConfig, ServingEngine)
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    t0 = time.perf_counter()
+    _reset_port_state()
+    cfg = LlamaConfig(**width, max_position_embeddings=2048, dtype=torch.bfloat16)
+    module = LlamaForCausalLM(cfg, device=device)
+    module.init_weights(torch.Generator(device=device).manual_seed(0))
+    module.to(torch.bfloat16)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, cfg.vocab_size, (spec["prompt_len"],)) for _ in
+               range(spec["requests"])]
+    scfg = dict(n_slots=spec["slots"], max_len=spec["prompt_len"] + spec["new_tokens"] + 8,
+                min_prefill_chunk=min(16, spec["prompt_len"]),
+                max_prefill_chunk=spec["prompt_len"], max_retries=0)
+
+    def run(engine, n=len(prompts)):
+        ids = [engine.submit(p, max_new_tokens=spec["new_tokens"]) for p in prompts[:n]]
+        rows = {}
+        while engine.pending:
+            engine.tick()
+            rows.update({r["id"]: r for r in engine.poll()})
+        return [rows[i] for i in ids]
+
+    clean = run(ServingEngine(Model(module), ServingConfig(**scfg)))
+    poisoned = ServingEngine(Model(module), ServingConfig(**scfg), chaos=FaultInjector(
+        schedule=[{"point": "decode_tick", "kind": "poison", "tick": spec["poison_tick"]}]))
+    got = run(poisoned)
+    failed = [i for i, r in enumerate(got) if r["status"] != "ok"]
+    others_equal = all(np.array_equal(g["tokens"], c["tokens"])
+                       for i, (g, c) in enumerate(zip(got, clean)) if i not in failed)
+    # The canary: fault-free under traffic, then under a bit flip at every
+    # decode tick with only its probe in flight.
+    engine = ServingEngine(Model(module), ServingConfig(**scfg))
+    canary = DecodeCanary(engine, every=spec["canary_every"], max_new_tokens=4)
+    canary.warmup()
+    run(engine)
+    for _ in range(spec["canary_ticks"]):
+        engine.tick()
+        engine.poll()
+    fault_free = engine.sdc_stats()
+    engine.chaos = FaultInjector(rates={"decode_tick": {"bit_flip": 1.0}})
+    for _ in range(spec["canary_ticks"]):
+        engine.tick()
+        engine.poll()
+    flipped = engine.sdc_stats()
+    # SIGTERM: the preemption drain.
+    acc = Accelerator(cpu=device == "cpu", kwargs_handlers=[FaultToleranceKwargs(sentinel="off")])
+    ft = acc.fault_tolerance
+    ft.install_signal_handlers()
+    engine = ServingEngine(Model(module), ServingConfig(**dict(scfg, n_slots=2)),
+                           fault_tolerance=ft)
+    ids = [engine.submit(p, max_new_tokens=spec["new_tokens"]) for p in prompts]
+    for _ in range(spec["drain_after"]):
+        engine.tick()
+    os.kill(os.getpid(), signal.SIGTERM)
+    rows = {}
+    while engine.pending:
+        engine.tick()
+        rows.update({r["id"]: r for r in engine.poll()})
+    ft.close()
+    statuses = [rows[i]["status"] for i in ids]
+    drained_equal = all(np.array_equal(rows[i]["tokens"], clean[k]["tokens"])
+                        for k, i in enumerate(ids) if statuses[k] == "ok")
+    checks = {
+        "poison_fails_one_request": len(failed) == 1 and poisoned.fault_stats()["failed"] == 1,
+        "others_equal_fault_free": others_equal,
+        "canary_clean": fault_free["probes"] >= 1 and fault_free["mismatches"] == 0,
+        "canary_sees_bit_flip": flipped["mismatches"] >= 1,
+        "drain_sheds_queue_finishes_in_flight": statuses[:2] == ["ok", "ok"]
+        and set(statuses[2:]) == {"shed"} and drained_equal,
+        "drain_exit_code_75": engine.preempted and engine.preemption_exit_code == 75,
+    }
+    del module, engine, poisoned
+    _reset_port_state()
+    return {"poisoned": {"failed_requests": failed, "statuses": [r["status"] for r in got]},
+            "canary": {"fault_free": fault_free, "bit_flip": flipped},
+            "drain": {"statuses": statuses}, "seconds": time.perf_counter() - t0,
+            "checks": checks}
+
+
+def sdc_child(hf, device="cuda", kw=None) -> dict:
+    """(c) in one of phase 22's processes: the 2-layer Llama at
+    dp_replicate=2 (DDP over gloo), each rank on the same row, the SDC
+    sentinel voting every step. A transient flip of rank 1's observed
+    digest repaired (no majority, the probe, which reruns the golden step,
+    clean: its digest the golden one; rollback to step 1) and the replay's
+    losses and digests equal to the first pass's; the digest's and the
+    vote's ms.
+    The sticky run comes last (``sdc_sticky_child``)."""
+    import torch
+
+    from accelerate_tpu_torch import FaultInjector, FaultToleranceKwargs, ParallelismConfig
+    from accelerate_tpu_torch.sdc import integrity_digest
+
+    kw = kw or {}
+    row = {**SDC_ROW, **kw.get("row", {})}
+    width = {**FULL_WIDTH, **kw.get("width", {})}
+    t0 = time.perf_counter()
+    flip = {"point": "train_step", "kind": "bit_flip", "tick": row["flip_tick"], "unit": 1,
+            "mode": "transient"}
+    handler = FaultToleranceKwargs(sentinel="off", checksum="size",
+                                   sdc=dict(vote_every=1, repair="rollback"),
+                                   chaos=dict(seed=0, schedule=[flip]))
+    project = kw["project"]
+    acc, step, batches = ft_llama(device, width, dict(FT_ROW, **row), project_dir=project,
+                                  handler=handler)
+    assert isinstance(acc.parallelism_config, ParallelismConfig)
+    sentinel = acc.fault_tolerance.sdc
+    state, run, saved = acc.train_state, [], False
+    for _ in range(3 * row["steps"]):
+        if int(state.step) >= row["steps"]:
+            break
+        s0 = int(state.step)
+        state, m = step(state, batches[s0])
+        run.append((s0, m["loss"], m["sdc_digest"]))
+        if not saved:
+            acc.save_state()
+            saved = True
+    run = [(s, float(loss), float(d)) for s, loss, d in run]
+    golden = sentinel._golden["digest"]
+    # The digest alone, on the card.
+    plan = sentinel._plans[id(acc.train_state.model)]
+    gnorm = torch.ones((), device=acc.device)
+    digest_ms = cuda_ms(lambda: integrity_digest(plan, gnorm), 10) if device == "cuda" \
+        else None
+    summary = sentinel.summary()
+    out = {"run": run, "golden": golden, "summary": summary,
+           "digest_ms": digest_ms,
+           "vote_ms": sentinel.timings["vote_s"] / max(1, sentinel.timings["votes"]) * 1e3,
+           "seconds": time.perf_counter() - t0}
+    # The sticky run continues this Accelerator: its golden is captured.
+    sticky = {"point": "train_step", "kind": "bit_flip", "unit": 1, "mode": "sticky",
+              "tick": acc.fault_tolerance._step_ticks}
+    acc.fault_tolerance.chaos = FaultInjector(schedule=[sticky])
+    return out, (acc, step, batches)
+
+
+def sdc_sticky_child(acc, step, batches) -> dict:
+    """The sticky flip on rank 1: the probe reproduces it, rank 1 writes the
+    quarantine record and exits SDC_EXIT_CODE (79) for real; rank 0 is told
+    its peer was convicted and leaves the loop (no collective after)."""
+    state = acc.train_state
+    for _ in range(4):
+        s0 = int(state.step)
+        state, _ = step(state, batches[s0 % len(batches)])
+        if acc.fault_tolerance.sdc.peer_quarantined:
+            break
+    return {"peer_quarantined": acc.fault_tolerance.sdc.peer_quarantined,
+            "summary": acc.fault_tolerance.sdc.summary()}
+
+
+def pp_family_rank(hf, name, device="cuda", row=None, steps=2) -> dict:
+    """(e) in one of phase 22's processes: a family's full-width train step
+    (phase 19/20 (b)'s row, weights, batch and loss) at pp=2."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Model, ParallelismConfig, adamw
+
+    row = row or {**FAMILY_ROWS, **ENCODER_ROWS}[name]
+    family = row["family"]
+    _reset_port_state()
+    cfg = family_config(row, torch.bfloat16)
+    acc = Accelerator(mixed_precision="bf16", cpu=device == "cpu",
+                      parallelism_config=ParallelismConfig(pp_size=2))
+    module = family_classes(family)[1](cfg, device=acc.device)
+    if row.get("numpy_weights"):
+        module.load_state_dict({k: v.to(acc.device) for k, v in family_weights(module).items()})
+    else:
+        module.init_weights(torch.Generator(device=acc.device).manual_seed(0))
+    acc.prepare(Model(module), adamw(3e-4, weight_decay=0.1))
+    generator = torch.Generator(device=acc.device).manual_seed(0)
+    step = acc.prepare_train_step(family_loss(family, generator), max_grad_norm=1.0)
+    batch = family_batch(family, cfg, row["batch"], acc.device, **row_shape(row))
+    state, metrics, ms = acc.train_state, [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    pipelined = getattr(module, "_pp_pipelined", False)
+    out = {"metrics": metrics, "step_ms": ms, "pipelined": pipelined,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "batch": row["batch"]}
+    del acc, module, step, state, batch
+    _reset_port_state()
+    return out
+
+
+def ft_gate(children, parts, phase19, phase20, sdc_exit) -> dict:
+    """Phase 26's checks: (a), (b), (d) from the parent's parts; (c) and (e)
+    from the children's lines (``{"sdc": ...}``, ``{"pp_families": ...}``)
+    and the sticky conviction's exit code and quarantine record
+    (``sdc_exit``)."""
+    ranks = [next((line for line in reversed(lines) if "sdc" in line), None)
+             for _, lines, _ in children]
+    fam = [next((line["pp_families"] for line in reversed(lines) if "pp_families" in line),
+                None) for _, lines, _ in children]
+    checks = {f"a_{k}": v for k, v in parts["a"]["checks"].items()}
+    checks.update({f"b_{k}": v for k, v in parts["b"]["checks"].items()})
+    checks.update({f"d_{k}": v for k, v in parts["d"]["checks"].items()})
+    checks["c_children"] = all(ranks) and all(fam)
+    out = {"phase": "fault_tolerance", "parts": parts, "sticky": sdc_exit,
+           "note": "(c) and (e) in phase 22's two processes on one card joined by gloo"}
+    if not checks["c_children"]:
+        return {**out, "checks": checks, "ok": False,
+                "child_exit": [rc for rc, _, _ in children],
+                "child_stderr": [err for _, _, err in children]}
+    sdc = [r["sdc"] for r in ranks]
+    out["sdc"] = sdc
+    flip = SDC_ROW["flip_tick"]
+    for r, res in enumerate(sdc):
+        first = {s: (loss, d) for s, loss, d in res["run"][:flip + 2]}
+        replay = res["run"][flip + 2:]
+        # The transient repair's probe reran the golden step: a clean probe
+        # is its digest equal to the golden one bit for bit.
+        checks[f"c_golden_twice_equal_{r}"] = (res["summary"]["probes"] == 1
+                                               and res["summary"]["probes_failed"] == 0)
+        checks[f"c_transient_repaired_{r}"] = (
+            res["summary"]["repairs"] == 1 and res["summary"]["probes_failed"] == 0
+            and [s for s, _, _ in res["run"]] == list(range(flip + 2)) + list(
+                range(1, SDC_ROW["steps"])))
+        checks[f"c_replay_bit_equal_{r}"] = all(first.get(s) == (loss, d)
+                                                for s, loss, d in replay)
+    checks["c_ranks_equal"] = sdc[0]["run"] == sdc[1]["run"]
+    checks["c_sticky_exit_79"] = sdc_exit["exit_codes"] == [0, 79]
+    checks["c_sticky_quarantined"] = sdc_exit["quarantined"] == [1]
+    checks["c_peer_told"] = bool(sdc_exit.get("peer_quarantined"))
+    out["pp_families"] = fam
+    for name, ref in (("bert_large", phase20["train"]["bert_large"]["losses"][0]),
+                      ("t5_base", phase19["train"]["t5_base"]["losses"][0])):
+        got = [f[name]["metrics"][0][0] for f in fam]
+        checks[f"e_{name}_step1_within_tol"] = all(
+            abs(g - ref) <= PP_FAMILY_REL_TOL * abs(ref) for g in got)
+        checks[f"e_{name}_ranks_equal"] = fam[0][name]["metrics"] == fam[1][name]["metrics"]
+        out.setdefault("pp_reference_loss", {})[name] = ref
+    return {**out, "checks": checks, "ok": all(checks.values())}
+
+
+def ft_phase(hf, children, phase19, phase20, sdc_exit, device="cuda", width=FULL_WIDTH,
+             row=FT_ROW, engine=FT_ENGINE) -> dict:
+    """Phase 26 in the parent: (a), (b) and (d), then the gate with the
+    children's (c) and (e). (b)'s children start with the phase and wait
+    (imported, their CUDA contexts made) for their turns: the first runs
+    beside (a)'s fault-free run, the second beside (d), which measure no
+    time; ``b["seconds"]`` runs from the end of (a) to the second's end."""
+    t0 = time.perf_counter()
+    root, room = checkpoint_root(4 * llama_n_params(dict(width,
+                                                         num_hidden_layers=row["layers"])) * 12)
+    narrow = {k: v for k, v in width.items() if width[k] != FULL_WIDTH.get(k)}
+    go = [os.path.join(root, f"go{i}") for i in (1, 2)]
+
+    def turn(path):
+        open(path, "w").close()
+
+    # (b)'s children start now and wait for their turns: the first after
+    # (a)'s timed part, beside its fault-free run; the second after the
+    # first exits, beside (d). Those two measure no time.
+    children_b = [FtChild(device, row, narrow, os.path.join(root, "b"), 0,
+                          row["preempt_after"], go[0]),
+                  FtChild(device, row, narrow, os.path.join(root, "b"), 1, None, go[1])]
+    try:
+        a = ft_rollback_part(hf, device, width, row, root=root,
+                             before_clean=lambda: turn(go[0]))
+        t = time.perf_counter()
+        first = children_b[0].result()
+        turn(go[1])
+        d = ft_engine_part(device, width, engine)
+        b = ft_resume_gate(first, children_b[1].result(), row, a["fault_free"])
+        b["seconds"] = time.perf_counter() - t
+    finally:
+        for c in children_b:
+            if c.proc.poll() is None:
+                c.proc.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    res = ft_gate(children, {"a": a, "b": b, "d": d}, phase19, phase20, sdc_exit)
+    res["checkpoint_root"] = room
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
 def _stub_cuda_for_cpu():
     """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
     import torch
@@ -8821,11 +9515,16 @@ def main() -> int:
     # on phase 5's whole batch
     fp8_ref = fp8_batch_steps(hf)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    sdc_dir = tempfile.mkdtemp(prefix="chip_smoke_sdc_")
 
     # 22. tensor parallelism: phase 5's step and phase 7's generate at tp=2,
-    # two processes on the card over gloo, which then run phases 23-25
-    tpar = tensor_parallel_phase(hf, main_path, phase7_tp, ckpt_dir=ckpt_dir)
+    # two processes on the card over gloo, which then run phases 23-25 and
+    # phase 26 (c) and (e)
+    tpar = tensor_parallel_phase(hf, main_path, phase7_tp, ckpt_dir=ckpt_dir,
+                                 sdc_project=sdc_dir)
     children = tpar.pop("_children")
+    sdc_exit = tpar.pop("_sdc_exit")
+    shutil.rmtree(sdc_dir, ignore_errors=True)
     tpar.pop("_logits")
     emit(tpar)
     if not tpar["ok"]:
@@ -8869,6 +9568,21 @@ def main() -> int:
         print(f"chip_smoke: parallel-rest phase 25 failed: {failed}", file=sys.stderr)
         return 1
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 26. fault tolerance, chaos and SDC: (a) rollback and save retries, (b)
+    # preemption and automatic_resume in two children, (d) the engine's
+    # chaos, canary and drain here; (c) SDC and (e) pp for BERT-large and
+    # T5-base from phase 22's processes
+    ftp = ft_phase(hf, children, families, encoders, sdc_exit)
+    ft_launches = ftp["parts"]["a"].pop("variant_launches")
+    emit(ftp)
+    if not ftp["ok"]:
+        failed = sorted(k for k, v in ftp["checks"].items() if not v)
+        print(f"chip_smoke: fault-tolerance phase 26 failed: {failed}", file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
         "gemma_2b_step": chassis["gemma_2b_train"]["variant_launches"],
         "mixtral_8x7b_step": moe["mixtral_8x7b_train"]["variant_launches"],
@@ -8886,7 +9600,8 @@ def main() -> int:
         "big_model_resident": big["resident"]["variant_launches"],
         "tp_step": tpar["variant_launches"],
         "tp_generate": tpar["generate_variant_launches"],
-        **pipe["variant_launches"], **ep["variant_launches"], **rest["variant_launches"]})})
+        **pipe["variant_launches"], **ep["variant_launches"], **rest["variant_launches"],
+        "ft_loop": ft_launches})})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -8936,6 +9651,8 @@ if __name__ == "__main__":
         sys.exit(child_main(json.loads(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--tp-child":
         sys.exit(tp_child_main(json.loads(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ft-child":
+        sys.exit(ft_child_main(json.loads(sys.argv[2])))
     if len(sys.argv) == 2 and sys.argv[1] == "--drop-witness":
         sys.exit(drop_witness_main())
     sys.exit(main())

@@ -1048,7 +1048,74 @@ def _job_units(ctx):
     return out
 
 
-JOBS = {"verify": _job_verify, "moe": _job_moe, "sync_bn": _job_sync_bn, "units": _job_units,
+SDC_STEPS = 6
+
+
+def _sdc_run(ctx, name, flip=None, repair="rollback"):
+    """SDC_STEPS DDP steps (every process a replica: the same batch) of the
+    tiny Llama with the SDC sentinel voting every step, a checkpoint after
+    step 1 and chaos ``bit_flip`` entries ``flip``; each step on the batch
+    of the state's step. A conviction's ``os._exit`` is caught here."""
+    from unittest import mock
+
+    from accelerate_tpu_torch import FaultToleranceKwargs
+
+    rank = dist.get_rank()
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    module = LlamaForCausalLM(cfg)
+    module.load_state_dict(llama_params_from_flax(cfg, ctx["flax_params"]))
+    project = os.path.join(ctx["surface_dir"], "sdc", name)
+    handler = FaultToleranceKwargs(sentinel="off", sdc=dict(vote_every=1, repair=repair),
+                                   chaos=dict(seed=0, schedule=flip or []))
+    acc = Accelerator(cpu=True, project_config=ProjectConfiguration(
+        project_dir=project, automatic_checkpoint_naming=True), kwargs_handlers=[handler])
+    acc.prepare(Model(module), adamw(LR))
+    step = acc.prepare_train_step(_port_loss, max_grad_norm=1.0)
+    batches, state, losses, code = _batches(SDC_STEPS), acc.train_state, [], None
+    sentinel = acc.fault_tolerance.sdc
+    def exit_(code):
+        raise SystemExit(code)
+
+    with mock.patch("os._exit", side_effect=exit_):
+        try:
+            for _ in range(SDC_STEPS + 4):
+                if int(state.step) >= SDC_STEPS or sentinel.peer_quarantined:
+                    break
+                s0 = int(state.step)
+                batch = {k: torch.from_numpy(v) for k, v in batches[s0].items()}
+                state, m = step(state, batch)
+                losses.append((s0, float(m["loss"]), float(m["sdc_digest"])))
+                if int(state.step) == 1 and name != "clean" and len(losses) == 1:
+                    acc.save_state()
+        except SystemExit as e:
+            code = e.code
+    out = {"losses": losses, "summary": sentinel.summary(), "exit": code,
+           "params": _whole_params(acc.train_state.model), "project": project}
+    acc.end_training()
+    _reset_port()
+    return out
+
+
+def _job_sdc(ctx):
+    """Fault-free, a transient flip on rank 1 (two replicas: no majority;
+    the probe is clean, the run rolls back to step 1) and a sticky one
+    (the probe reproduces it: rank 1 convicted, exit 79, the quarantine
+    record; rank 0 told its peer was)."""
+    flip = {"point": "train_step", "kind": "bit_flip", "tick": 2, "unit": 1}
+    return {"clean": _sdc_run(ctx, "clean"),
+            "transient": _sdc_run(ctx, "transient", [dict(flip, mode="transient")]),
+            "sticky": _sdc_run(ctx, "sticky", [dict(flip, mode="sticky")])}
+
+
+def _job_sdc_broadcast(ctx):
+    """4 replicas, a transient flip on rank 2: the 3-rank majority names it
+    and ``repair="broadcast"`` re-syncs every rank from rank 0."""
+    flip = {"point": "train_step", "kind": "bit_flip", "tick": 2, "unit": 2, "mode": "transient"}
+    return {"clean": _sdc_run(ctx, "clean", repair="broadcast"),
+            "broadcast": _sdc_run(ctx, "broadcast", [flip], repair="broadcast")}
+
+
+JOBS = {"verify": _job_verify, "sdc": _job_sdc, "sdc_broadcast": _job_sdc_broadcast, "moe": _job_moe, "sync_bn": _job_sync_bn, "units": _job_units,
         "encoder_losses": _job_encoder_losses,
         "fsdp": _job_fsdp, "ddp": _job_ddp, "hsdp": _job_hsdp, "collectives": _job_collectives,
         "dispatcher": _job_dispatcher, "rng": _job_rng, "save": _job_save,
@@ -1353,13 +1420,13 @@ def runs(tmp_path_factory):
            "jax_ckpt": str(tmp / "jax" / "checkpoints" / "checkpoint_0")}
     # The 4-process gang first: the 2-process one loads its DCP checkpoint.
     four = _spawn(tmp, 4, ["fsdp", "hsdp", "collectives", "save", "imperative_hsdp",
-                           "surface", "strategies", "dcp_save"], ctx)
+                           "surface", "strategies", "dcp_save", "sdc_broadcast"], ctx)
     two = _spawn(tmp, 2, ["fsdp", "ddp", "collectives", "dispatcher", "rng", "resume_jax",
                           "options", "fsdp_ga2", "per_node", "fsdp_uneven", "fused_ce",
                           "imperative",
                           "surface", "telemetry", "fp16", "strategies", "ddp_kwargs",
                           "dcp_load", "dcp_async", "verify", "moe", "sync_bn", "units",
-                          "encoder_losses"], ctx)
+                          "encoder_losses", "sdc"], ctx)
     return {"ref": ref, "plans": plans, 2: two, 4: four, "ctx": ctx, "tmp": tmp}
 
 
@@ -2249,3 +2316,49 @@ def test_activation_checkpointing_under_ddp_matches_jax(runs):
     assert runs["ref"]["no_shard_remat"] == (True, False)
     for r in runs[2]:
         assert r["units"]["no_shard_remat"] == {"remat": True, "caller": False, "ddp": True}
+
+
+# ---------------------------------------------------------------------------
+# Silent data corruption (sdc.py) in the gangs
+# ---------------------------------------------------------------------------
+
+
+def test_sdc_transient_flip_rolls_back_to_the_fault_free_run(runs):
+    """Two replicas vote every step; rank 1's observed digest of step 3 is
+    flipped: no majority, both ranks probe, the probe is clean, the run
+    rolls back to the checkpoint after step 1 and replays; every step's
+    loss and digest, and the parameters at the end, equal the fault-free
+    run's bit for bit, on both ranks."""
+    for rank in range(2):
+        clean, run = runs[2][rank]["sdc"]["clean"], runs[2][rank]["sdc"]["transient"]
+        assert [s for s, _, _ in run["losses"]] == [0, 1, 2, 3, 1, 2, 3, 4, 5]
+        want = {s: (loss, d) for s, loss, d in clean["losses"]}
+        assert all((loss, d) == want[s] for s, loss, d in run["losses"])
+        summary = run["summary"]
+        assert (summary["mismatches"], summary["probes"], summary["probes_failed"],
+                summary["repairs"], run["exit"]) == (1, 1, 0, 1, None)
+        for n, p in clean["params"].items():
+            assert np.array_equal(run["params"][n], p), n
+    assert runs[2][0]["sdc"]["clean"]["losses"] == runs[2][1]["sdc"]["clean"]["losses"]
+
+
+def test_sdc_sticky_flip_convicts_and_quarantines(runs):
+    from accelerate_tpu_torch.sdc import load_quarantine
+
+    bad, peer = runs[2][1]["sdc"]["sticky"], runs[2][0]["sdc"]["sticky"]
+    assert bad["exit"] == 79 and bad["summary"]["probes_failed"] == 1
+    assert bad["summary"]["quarantines"] == 1
+    assert peer["exit"] is None and peer["summary"]["peer_quarantined"]
+    hosts = load_quarantine(bad["project"])["hosts"]
+    assert [(h["process_index"], h["tick"]) for h in hosts] == [(1, 2)]
+
+
+def test_sdc_broadcast_repair_with_a_three_rank_majority(runs):
+    for rank in range(4):
+        clean, run = runs[4][rank]["sdc_broadcast"]["clean"], runs[4][rank]["sdc_broadcast"][
+            "broadcast"]
+        summary = run["summary"]
+        assert (summary["mismatches"], summary["repairs"], summary["probes_failed"]) == (1, 1, 0)
+        # No rollback: the steps run on, each the fault-free run's.
+        assert [s for s, _, _ in run["losses"]] == list(range(SDC_STEPS))
+        assert [x[1:] for x in run["losses"]] == [x[1:] for x in clean["losses"]]

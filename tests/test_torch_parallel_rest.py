@@ -5,8 +5,8 @@ decoder families, ``has_aux``/``mutable_state``, the imperative loop and
 ``DISTRIBUTED_STATE_DICT`` under ``pp``, ``ep`` under ``pp``, two prepared
 models under FSDP2, and the one whole-tensor gather.
 
-Without processes: the refusals that remain (``pp`` of BERT, ViT, CLIP,
-T5, Whisper and ResNet).
+Without processes: ``keep_stage`` of BERT, ViT, CLIP, T5, Whisper and
+ResNet, refused until item 6.3's rest was ported.
 
 On gloo gangs of 2 and 4 CPU processes (``torch.multiprocessing`` spawn,
 a ``file://`` rendezvous under the test's temporary directory), spawned
@@ -1036,13 +1036,17 @@ def test_the_step_batch_is_seen_from_the_backward_thread():
 
 @pytest.mark.parametrize("family", ["bert", "vit", "clip", "t5", "whisper", "resnet"])
 def test_pp_of_the_other_families_is_refused(family):
-    """pp of the encoders, the two-stack models and ResNet is the rest of
-    item 6.3: ``keep_stage`` refuses it, naming them."""
+    """pp of the encoders, the two-stack models and ResNet was refused here
+    until item 6.3's rest was ported: ``keep_stage`` now cuts each family to
+    a stage (``parallel/pp.ReplicatedSpec``; the steps are held to the JAX
+    package in tests/test_torch_pipeline_encoders.py) and marks it as one."""
     from accelerate_tpu_torch.parallel.pp import keep_stage
 
     if family == "resnet":
         module = M.ResNet(M.ResNetConfig.tiny())
     else:
         module = getattr(M, FAMILIES[family][0])(_config(family))
-    with pytest.raises(NotImplementedError, match="BERT, ViT, CLIP, T5, Whisper and ResNet"):
-        keep_stage(module, 2, 0)
+    names = {n for n, _ in module.named_parameters()}
+    shared = keep_stage(module, 2, 0)
+    assert module.pipeline_stage == (2, 0, 1) and module.pipeline_replicated
+    assert set(shared) <= names

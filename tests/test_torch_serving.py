@@ -660,3 +660,136 @@ def test_every_slot_quarantined_raises_the_stall_error_like_jax(pair):
     # idle one raises.
     assert ticks[0] == ticks[1] == 1 + 4
     assert engine.fault_stats() == jengine.fault_stats()
+
+
+# ---------------------------------------------------------------------------
+# Chaos, the decode canary and the preemption drain (ROADMAP item 12.1)
+# ---------------------------------------------------------------------------
+
+CHAOS_RATES = {"prefill_dispatch": 0.12, "decode_tick": {"poison": 0.08}}
+
+
+def _statuses(engine, prompts, budgets):
+    ids = [engine.submit(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+    rows = {}
+    for _ in range(2000):
+        if not engine.pending:
+            break
+        engine.tick()
+        rows.update({r["id"]: r for r in engine.poll()})
+    return [rows[i] for i in ids]
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_chaos_statuses_equal_the_jax_engines(pair, seed):
+    """One injector's schedule (transfer errors at prefill dispatch, NaN
+    pages at decode ticks; one retry each) through both engines: the same
+    faults drawn, the same status for every request, equal rows for those
+    that finish ``ok``, and the same fault counters."""
+    from accelerate_tpu import FaultInjector as JaxInjector
+    from accelerate_tpu_torch import FaultInjector
+
+    jmodel, _, module = pair
+    prompts = _prompts([3, 7, 12, 20, 5, 9, 4, 11], seed=21)
+    budgets = [6, 4, 8, 3, 6, 5, 7, 2]
+    kw = dict(n_slots=3, max_len=64, prefill_chunks=[4, 8], max_retries=1)
+    port = ServingEngine(Model(module), ServingConfig(**kw),
+                         chaos=FaultInjector(seed=seed, rates=CHAOS_RATES))
+    jeng = JaxServingEngine(jmodel, JaxServingConfig(**kw),
+                            chaos=JaxInjector(seed=seed, rates=CHAOS_RATES))
+    got, want = _statuses(port, prompts, budgets), _statuses(jeng, prompts, budgets)
+    assert port.chaos.injected == jeng.chaos.injected and port.chaos.injected
+    assert [r["status"] for r in got] == [r["status"] for r in want]
+    assert {r["status"] for r in got} >= {"ok"}
+    for g, w in zip(got, want):
+        assert g["attempt"] == w["attempt"]
+        if g["status"] == "ok":
+            np.testing.assert_array_equal(g["tokens"], np.asarray(w["tokens"]))
+    keys = ("failed", "retries", "slot_quarantines", "injected")
+    pf, jf = port.fault_stats(), jeng.fault_stats()
+    assert {k: pf[k] for k in keys} == {k: jf[k] for k in keys}
+
+
+def test_a_decode_poison_fails_exactly_its_request(pair):
+    """With no retry, the request whose slot a ``decode_tick`` poison hits
+    fails and its slot leaves rotation; every other request's row equals
+    the fault-free run's."""
+    from accelerate_tpu_torch import FaultInjector
+
+    _, _, module = pair
+    prompts = _prompts([5, 9, 6, 7], seed=4)
+    budgets = [6, 6, 6, 6]
+    kw = dict(n_slots=4, max_len=64, prefill_chunks=[4, 8], max_retries=0)
+    clean = _statuses(ServingEngine(module, ServingConfig(**kw)), prompts, budgets)
+    engine = ServingEngine(module, ServingConfig(**kw), chaos=FaultInjector(
+        schedule=[{"point": "decode_tick", "kind": "poison", "tick": 4}]))
+    got = _statuses(engine, prompts, budgets)
+    assert [r["status"] for r in got] == ["failed", "ok", "ok", "ok"]
+    for g, c in zip(got[1:], clean[1:]):
+        np.testing.assert_array_equal(g["tokens"], c["tokens"])
+    assert engine.fault_stats()["quarantined_slots"] == 1
+
+
+def test_decode_canary_sees_a_bit_flip_only(pair):
+    """``DecodeCanary(every=4)``: no mismatch in a fault-free run (its rows
+    never reach poll()), one or more under a ``decode_tick`` bit flip of
+    the canary's own slot, which no NaN sentinel sees."""
+    from accelerate_tpu_torch import DecodeCanary, FaultInjector
+
+    _, _, module = pair
+    kw = dict(n_slots=2, max_len=64, prefill_chunks=[4, 8])
+    prompts = _prompts([5, 9, 6, 7], seed=8)
+    for flips, want in ((None, 0), ([{"point": "decode_tick", "kind": "bit_flip",
+                                      "count": 40, "slot": 0}], 1)):
+        engine = ServingEngine(module, ServingConfig(**kw))
+        canary = DecodeCanary(engine, every=4, max_new_tokens=4)
+        canary.warmup()
+        assert canary.armed and canary.golden_digest is not None
+        engine.chaos = FaultInjector(schedule=flips) if flips else None
+        rows = _statuses(engine, prompts, [6] * 4)
+        for _ in range(12):
+            engine.tick()
+        assert len(rows) == 4 and all(r["id"] not in canary.probe_rids for r in rows)
+        summary = engine.sdc_stats()
+        assert summary["probes"] >= 1
+        assert (summary["mismatches"] >= want) if want else summary["mismatches"] == 0
+
+
+def test_preemption_drain_sheds_the_queue_and_finishes_in_flight(pair):
+    """A preempted fault-tolerance manager: queued requests are shed, the
+    ones holding a slot finish ``ok`` (the fault-free rows), a new submit
+    is shed, and the engine's exit code is 75."""
+    import types
+
+    _, _, module = pair
+    prompts = _prompts([5, 9, 6, 7, 8, 4], seed=12)
+    kw = dict(n_slots=2, max_len=64, prefill_chunks=[8])
+    clean = _statuses(ServingEngine(module, ServingConfig(**kw)), prompts, [5] * 6)
+    ft = types.SimpleNamespace(preempted=False)
+    engine = ServingEngine(module, ServingConfig(**kw), fault_tolerance=ft)
+    ids = [engine.submit(p, max_new_tokens=5) for p in prompts]
+    engine.tick()
+    ft.preempted = True
+    rows = {}
+    while engine.pending:
+        engine.tick()
+        rows.update({r["id"]: r for r in engine.poll()})
+    late = engine.submit(prompts[0], max_new_tokens=5)
+    rows.update({r["id"]: r for r in engine.poll()})
+    assert [rows[i]["status"] for i in ids] == ["ok", "ok", "shed", "shed", "shed", "shed"]
+    for i in ids[:2]:
+        np.testing.assert_array_equal(rows[i]["tokens"], clean[i]["tokens"])
+    assert rows[late]["status"] == "shed"
+    assert engine.preempted and engine.preemption_exit_code == 75
+    assert engine.fault_stats()["preempted"] is True
+
+
+def test_engine_crash_and_tracing_stay_refused(pair):
+    from accelerate_tpu_torch import FaultInjector
+
+    _, _, module = pair
+    with pytest.raises(NotImplementedError, match="item 12.2"):
+        ServingEngine(module, ServingConfig(n_slots=1, max_len=32),
+                      chaos=FaultInjector(rates={"engine_crash": 0.1}))
+    with pytest.raises(NotImplementedError, match="item 12.2"):
+        ServingEngine(module, ServingConfig(n_slots=1, max_len=32), tracing=object())

@@ -194,7 +194,9 @@ def test_accelerator_refuses_a_second_device_choice(monkeypatch):
 @pytest.mark.parametrize("make", [
     lambda: adamw(1e-3, mu_dtype=torch.bfloat16),
     lambda: FullyShardedDataParallelPlugin(mixed_precision_policy=MixedPrecisionPolicy()),
-    lambda: ProjectConfiguration(automatic_resume=True),
+    # ProjectConfiguration(automatic_resume=True) stood here until fault
+    # tolerance was ported (tests/test_torch_fault_tolerance.py).
+    lambda: ServingConfig(journal_fsync="always"),
     # ParallelismConfig(ep_size=2) stood here until expert parallelism was
     # ported (tests/test_torch_expert_parallel.py).
     lambda: ServingConfig(journal_dir="journal"),
