@@ -32,7 +32,11 @@ checkpoints (``models.megatron.load_megatron_model``). Pipeline
 parallelism (``ParallelismConfig(pp_size=...)``, GPipe and interleaved,
 ``llama_pipeline_forward``, ``pipeline_apply``, ``prepare_pippy``), the
 gradient-compression hooks (``DistributedDataParallelKwargs(comm_hook=
-"fp16"|"bf16"|"powersgd")``) and ``LocalSGD``.
+"fp16"|"bf16"|"powersgd")``) and ``LocalSGD``. Fault tolerance, chaos and
+SDC (``FaultToleranceKwargs``, ``FaultInjector``, ``DecodeCanary``);
+request tracing (``TraceRecorder``, ``TelemetryKwargs(tracing=...)``) and
+the serving engine's crash-durable journal (``RequestJournal``,
+``ServingConfig(journal_dir=...)``, ``ServingEngine.recover()``).
 
 It imports torch only, never JAX or the ``accelerate_tpu`` package, and
 runs on CUDA unless the caller asks for the CPU (``Accelerator(cpu=True)``).
@@ -55,6 +59,7 @@ from .big_modeling import (
 from .chaos import Fault, FaultInjector, InjectedFaultError
 from .checkpointing import CheckpointSaveError
 from .cp_generation import cp_generate
+from .journal import JournalAdoptionError, RequestJournal
 from .data_loader import (
     ColumnDataset,
     SeedableRandomSampler,
@@ -99,6 +104,7 @@ from .sdc import DecodeCanary, SDCConfig
 from .serving import ServingEngine, ServingStalledError, replay_trace
 from .state import AcceleratorState, DistributedType, GradientState, PartialState
 from .telemetry import TelemetryRecorder
+from .tracing import TraceConfig, TraceRecorder
 from .train_state import DynamicLossScale, TrainState, grads_all_finite
 from .utils import (
     AutocastKwargs,
@@ -134,6 +140,8 @@ __all__ = [
     "Fault",
     "FaultInjector",
     "InjectedFaultError",
+    "JournalAdoptionError",
+    "RequestJournal",
     "SDCConfig",
     "ColumnDataset",
     "DataLoaderConfiguration",
@@ -167,6 +175,8 @@ __all__ = [
     "ShardingStrategy",
     "TelemetryKwargs",
     "TelemetryRecorder",
+    "TraceConfig",
+    "TraceRecorder",
     "TrainState",
     "UserCpuOffloadHook",
     "adamw",

@@ -412,6 +412,7 @@ class FlightRecorder:
         self.out_dir = out_dir
         self._ring: deque = deque(maxlen=self.capacity)
         self._gauges: Dict[str, Any] = {}
+        self._tracing = None
         self.dumps = 0
         self.last_dump_path: Optional[str] = None
 
@@ -426,15 +427,26 @@ class FlightRecorder:
     def note(self, key: str, value: Any) -> None:
         self._gauges[key] = value
 
+    def attach_tracing(self, recorder) -> None:
+        """Let dumps include the newest spans of a ``TraceRecorder``."""
+        self._tracing = recorder
+
     def entries(self) -> List[dict]:
         return list(self._ring)
 
     def snapshot(self) -> dict:
-        return {
+        snap = {
             "capacity": self.capacity,
             "entries": self.entries(),
             "gauges": dict(self._gauges),
         }
+        tr = self._tracing
+        if tr is not None:
+            try:
+                snap["recent_spans"] = [s.tick_view() for s in tr.spans()[-50:]]
+            except Exception:  # a dump must not fail on its way out
+                snap["recent_spans"] = None
+        return snap
 
     def resolve_dir(self) -> str:
         return os.environ.get(FLIGHT_DIR_ENV) or self.out_dir or "."

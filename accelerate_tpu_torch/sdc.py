@@ -591,9 +591,16 @@ class DecodeCanary:
             self._submit()
 
     def _submit(self) -> int:
-        gen = torch.Generator(device=self.engine.device).manual_seed(self._RNG_SEED)
-        self._inflight = self.engine.submit(self.prompt.copy(),
-                                            max_new_tokens=self.max_new_tokens, generator=gen)
+        eng = self.engine
+        gen = torch.Generator(device=eng.device).manual_seed(self._RNG_SEED)
+        # The probe reaches neither the journal (recover() would replay it)
+        # nor poll(): as warmup() keeps its request out.
+        jr, eng._journal = eng._journal, None
+        try:
+            self._inflight = eng.submit(self.prompt.copy(), max_new_tokens=self.max_new_tokens,
+                                        generator=gen)
+        finally:
+            eng._journal = jr
         self.probe_rids.append(self._inflight)
         return self._inflight
 

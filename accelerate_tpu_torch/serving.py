@@ -58,15 +58,29 @@ the ``serving_availability`` SLO. With a profiler (``profiler=``, or the
 recorder's from ``TelemetryKwargs(profile=True)``) each tick is split into
 admit, prefill, decode, host-fetch and bookkeeping seconds on the host
 clock (``DeviceTimeProfiler.on_tick``), timing the tick's one host read
-without adding another.
+without adding another. With a ``tracing.TraceRecorder`` (``tracing=``, or
+the recorder's from ``TelemetryKwargs(tracing=True)``) every request's
+life becomes spans (host clocks only).
 
-Not ported yet, and refused where they would be set: the journal and
-``client_request_id``, tracing, chaos, fault tolerance, the compile
-manager, canary and weight swaps, crash recovery and the SDC canary
-(ROADMAP.md Queue A items 8.8 and 12). The engine runs every config of the
-Llama chassis, Mixtral, GPT-2, OPT and GPT-NeoX, or the plan
-``forward_cached=`` names; an encoder-decoder module (T5, Whisper) is
-refused, as in the JAX package.
+Weight versions: ``swap_params`` binds a new parameter tree as the primary
+version; ``begin_canary`` routes an exact fraction of new admissions to a
+candidate until ``promote_canary`` or ``rollback_canary``. A request keeps
+the version it bound at its first grant; while two versions are live,
+each tick decodes once per version, each pass leaving the other version's
+slots untouched.
+
+Crash durability: with a ``journal.RequestJournal`` (``journal=`` or
+``ServingConfig.journal_dir``) every admission, binding, tick of progress
+and terminal row is journaled; ``submit(client_request_id=...)`` dedupes;
+a ``FaultInjector`` drawing ``engine_crash`` exits the process (code 78)
+after the tick's flush; ``recover()`` on a new engine over the same
+directory returns the finished requests' rows and replays the others
+bit-equal.
+
+Not ported yet, and refused where set: the compile manager (ROADMAP.md
+Queue A item 12.4). The engine runs every config of the Llama chassis,
+Mixtral, GPT-2, OPT and GPT-NeoX, or the plan ``forward_cached=`` names;
+an encoder-decoder module (T5, Whisper) is refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -74,6 +88,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import logging
+import os
 import time
 from collections import deque
 from typing import Optional
@@ -84,6 +99,7 @@ import torch
 from .generation import (
     ENCDEC_GENERATION_PLANS,
     KVCache,
+    QuantPages,
     _cache_dims,
     _decode_params,
     _filter_logits,
@@ -92,8 +108,10 @@ from .generation import (
     init_slot_cache,
     sample_logits,
 )
-from .chaos import InjectedFaultError
-from .utils.constants import PREEMPTION_EXIT_CODE
+from .chaos import InjectedFaultError, flush_injected_log
+from .journal import JournalAdoptionError, RequestJournal
+from .profiler import dump_flight
+from .utils.constants import PREEMPTION_EXIT_CODE, SERVING_CRASH_EXIT_CODE
 from .utils.dataclasses import ServingConfig
 
 logger = logging.getLogger(__name__)
@@ -101,15 +119,7 @@ logger = logging.getLogger(__name__)
 # Engine arguments of the JAX package that the port does not take yet.
 _UNPORTED_ENGINE_ARGS = {
     "compile_manager": "ROADMAP.md Queue A item 12.4 (compile_manager.py)",
-    "tracing": "ROADMAP.md Queue A item 12.2 (tracing.py)",
-    "journal": "ROADMAP.md Queue A item 12.2 (journal.py)",
 }
-# Injection points whose engine paths are not ported: an injector that
-# names one is refused.
-_UNPORTED_CHAOS_POINTS = {
-    "engine_crash": "ROADMAP.md Queue A item 12.2 (the hard crash and the journal's recovery)",
-}
-_IDEMPOTENCY_ITEM = "ROADMAP.md Queue A item 8.8 (the engine's journal hooks)"
 
 #: The terminal statuses every request ends with (``poll()`` rows).
 REQUEST_STATUSES = ("ok", "timeout", "shed", "failed")
@@ -241,17 +251,40 @@ def _speculative_accept(probs: torch.Tensor, drafts: torch.Tensor, u: torch.Tens
     return torch.where(idx < m[:, None], drafts_ext, cand), m
 
 
+def _cache_sides(cache: KVCache) -> list:
+    """The cache's tensors indexed (L, N, T, ...): k and v, or an int8
+    cache's codes and scales."""
+    return [t for side in (cache.k, cache.v)
+            for t in ((side.data, side.scale) if isinstance(side, QuantPages) else (side,))]
+
+
+def _window_rows(cache: KVCache, width: int):
+    """(rows (N, 1), positions (N, width)) of the window a decode step
+    writes in every slot, at each slot's length, clamped to the last row
+    as ``generation._write_plan`` clamps the writes past it."""
+    t = _cache_sides(cache)[0].shape[2]
+    pos = cache.length[:, None] + torch.arange(width, device=cache.length.device)[None, :]
+    return torch.arange(pos.shape[0], device=pos.device)[:, None], pos.clamp(max=t - 1)
+
+
 def _build_decode_step(fwd, cfg, temperature, top_k, top_p, eos_token_id,
                        speculate_k: int = 0):
     """One decode step for every slot: ``decode(params, cache, state,
-    sampled_slots) -> (toks (N, k+1), emitted (N,), bad (N,))``, where
-    ``toks[slot, :emitted[slot]]`` are the tokens the slot produced
+    sampled_slots, run_mask) -> (toks (N, k+1), emitted (N,), bad (N,))``,
+    where ``toks[slot, :emitted[slot]]`` are the tokens the slot produced
     (``k = 0``: one, for live rows) and ``bad`` flags live rows whose
-    logits are not all finite. Live rows (``active & ~done``) advance their
-    cache length, token, count and history; the others compute masked
-    values and keep their state. ``sampled_slots`` are the slots whose
-    generator is drawn from (the live ones; the host knows them), so a
-    stream advances only with its request.
+    logits are not all finite. Live rows (``active & ~done``, and in
+    ``run_mask`` when one is given) advance their cache length, token,
+    count and history; the others compute masked values and keep their
+    state. ``sampled_slots`` are the slots whose generator is drawn from
+    (the live ones; the host knows them), so a stream advances only with
+    its request.
+
+    ``run_mask`` (a (N,) bool tensor, or None for every slot) selects the
+    slots of one weights version while two are live: the step runs all N
+    rows, so its shapes stay those of the one-version tick, and puts back
+    the cache rows it wrote in the other slots, which it leaves
+    bit-untouched.
 
     With ``speculate_k = k > 0`` each slot drafts ``k`` tokens
     (``_ngram_draft``) and one ``(N, k+1)`` forward scores the window
@@ -282,9 +315,22 @@ def _build_decode_step(fwd, cfg, temperature, top_k, top_p, eos_token_id,
             state.history.copy_(new_history)
 
     @torch.no_grad()
-    def decode(params, cache: KVCache, state: SlotState, sampled_slots=()):
+    def decode(params, cache: KVCache, state: SlotState, sampled_slots=(), run_mask=None):
         live = state.active & ~state.done
+        if run_mask is not None:
+            live = live & run_mask
+            rows, pos = _window_rows(cache, k + 1)
+            held = [t[:, rows, pos] for t in _cache_sides(cache)]
         n = live.shape[0]
+        out, e, bad = step(params, cache, state, sampled_slots, live, n)
+        if run_mask is not None:
+            hold = ~run_mask
+            for t, old in zip(_cache_sides(cache), held):
+                shape = (1, n) + (1,) * (old.dim() - 2)
+                t[:, rows, pos] = torch.where(hold.view(shape), old, t[:, rows, pos])
+        return out, e, bad
+
+    def step(params, cache, state, sampled_slots, live, n):
         if k == 0:
             logits, _ = fwd(cfg, params, state.last_token[:, None], cache)
             tok = torch.argmax(logits, dim=-1)
@@ -418,8 +464,8 @@ def _slo_aggregate(events) -> dict:
 class _Request:
     __slots__ = ("id", "tokens", "budget", "generator", "generator_state", "slot", "chunks",
                  "next_chunk", "consumed", "out", "submit_t", "admit_t", "first_token_t",
-                 "done_t", "deadline", "retries", "status", "weights_version",
-                 "spec_drafted", "spec_accepted")
+                 "done_t", "deadline", "retries", "status", "weights_version", "canary",
+                 "client_request_id", "recoveries", "spec_drafted", "spec_accepted")
 
     def __init__(self, rid, tokens, budget, generator):
         self.id = rid
@@ -441,6 +487,9 @@ class _Request:
         self.retries = 0
         self.status = None            # ok | timeout | shed | failed
         self.weights_version = None   # bound at the first grant
+        self.canary = False           # admitted inside a canary window
+        self.client_request_id = None  # the caller's idempotency key
+        self.recoveries = 0           # replays after a crash (no retry spent)
         self.spec_drafted = 0
         self.spec_accepted = 0
 
@@ -468,20 +517,33 @@ class ServingEngine:
     plan comes from the model's class unless ``forward_cached`` names
     one. ``telemetry`` is a ``TelemetryRecorder``
     (``Accelerator.telemetry``) and ``profiler`` a ``DeviceTimeProfiler``,
-    by default the recorder's."""
+    by default the recorder's; ``tracing`` a ``tracing.TraceRecorder``, by
+    default the recorder's; ``journal`` a ``journal.RequestJournal`` or a
+    directory (``ServingConfig.journal_dir`` is the config's spelling)."""
 
     def __init__(self, model, config: Optional[ServingConfig] = None, *,
                  forward_cached=None, compile_manager=None, telemetry=None,
                  fault_tolerance=None, chaos=None, tracing=None, journal=None, profiler=None):
-        given = dict(compile_manager=compile_manager, tracing=tracing, journal=journal)
-        for name, value in given.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported yet ({_UNPORTED_ENGINE_ARGS[name]})")
+        if compile_manager is not None:
+            raise NotImplementedError("ServingEngine(compile_manager=...) is not ported yet "
+                                      f"({_UNPORTED_ENGINE_ARGS['compile_manager']})")
+        self.config = c = config if config is not None else ServingConfig()
         # A FaultToleranceManager arms the preemption drain; a FaultInjector
-        # the chaos draws at prefill_dispatch, decode_tick and
-        # draft_mismatch.
+        # the chaos draws at prefill_dispatch, decode_tick, draft_mismatch,
+        # engine_crash and the journal's.
         self.fault_tolerance = fault_tolerance
+        self.tracing = tracing if tracing is not None else getattr(telemetry, "tracing", None)
+        jr = journal if journal is not None else c.journal_dir
+        if isinstance(jr, (str, os.PathLike)):
+            jr = RequestJournal(str(jr), fsync=c.journal_fsync,
+                                segment_records=c.journal_segment_records)
+        self._journal = jr
+        # Tokens each live request emitted this tick: the tick's progress
+        # record. Idempotency keys, cached terminal rows, recovery counts.
+        self._journal_tokens: dict[int, list[int]] = {}
+        self._client_ids: dict[str, int] = {}
+        self._cached_rows: dict[int, dict] = {}
+        self._jstats = dict.fromkeys(("recovered_inflight", "recovered_terminal", "deduped"), 0)
         self.chaos = chaos
         self._draining = False
         self._sdc_canary = None
@@ -491,7 +553,6 @@ class ServingEngine:
         self._profiler = profiler if profiler is not None else getattr(
             telemetry, "profiler", None)
         self._tick_fetch_s = 0.0
-        self.config = c = config if config is not None else ServingConfig()
         module = getattr(model, "module", model)
         self.cfg = module.config
         name = type(module).__name__
@@ -501,6 +562,14 @@ class ServingEngine:
         fwd = _generation_plan(module, forward_cached)
         self._params = _decode_params(model)
         self.device = _params_device(self._params)
+        # Weight versions: _params is the primary's tree; a request decodes
+        # the version it bound at its grant, which stays installed until no
+        # request holds it.
+        self._weights_version = 0
+        self._params_by_version = {0: self._params}
+        self._canary = None          # the canary window, or None
+        self._canary_acc = 0.0       # its error-diffusion accumulator
+        self._cohorts: dict[int, dict] = {}
 
         self.n_slots = int(c.n_slots)
         max_pos = _cache_dims(self.cfg)[3]
@@ -549,29 +618,32 @@ class ServingEngine:
         self._idle_ticks = 0
         self._stats, self._fstats = {}, {}
         self.reset_metrics()
-        # The metrics hub of the recorder: stats() as the "serving"
-        # provider, speculation_stats() as "spec", and one good/bad sample
-        # per finished request into the availability SLO's window.
-        self._hub = getattr(telemetry, "hub", None)
+        # The metrics hub (the tracer's, else the recorder's): stats() as
+        # the "serving" provider, speculation_stats() as "spec", the
+        # journal's, and one good/bad sample per finished request into the
+        # availability SLO's window.
+        self._hub = getattr(self.tracing, "hub", None) or getattr(telemetry, "hub", None)
         if self._hub is not None:
             self._hub.register_slo("serving_availability", 0.99)
             self._hub.register_provider("serving", self.stats, replace=True)
             self._hub.register_provider("spec", self._spec_metrics, replace=True)
+            if self._journal is not None:
+                self._hub.register_provider("journal", self._journal.stats, replace=True)
 
     @property
     def chaos(self):
-        """The attached ``chaos.FaultInjector``, or None."""
+        """The attached ``chaos.FaultInjector``, or None. Attaching one
+        also wires the tracer's annotations and the journal's draws."""
         return self._chaos
 
     @chaos.setter
     def chaos(self, injector) -> None:
-        if injector is not None:
-            named = set(injector.rates) | {e["point"] for e in injector._schedule}
-            for point, item in _UNPORTED_CHAOS_POINTS.items():
-                if point in named:
-                    raise NotImplementedError(
-                        f"ServingEngine(chaos=...) drawing {point!r} is not ported yet ({item})")
         self._chaos = injector
+        if injector is not None and self.tracing is not None:
+            self.tracing.attach_chaos(injector)
+        jr = getattr(self, "_journal", None)
+        if jr is not None:
+            jr.chaos = injector
 
     # -- request lifecycle -------------------------------------------------
 
@@ -585,13 +657,23 @@ class ServingEngine:
         overrides ``ServingConfig.deadline_s`` (seconds from now: a request
         past it finishes ``timeout``).
 
+        ``client_request_id`` is the caller's idempotency key: a submit
+        with a key seen before (in this process, or in the journal that
+        ``recover()`` read) runs nothing and returns the first request's
+        id; if that request has finished, its row goes to ``poll()`` again.
+
         With ``max_queue_depth`` set and the queue full,
         ``overload_policy`` decides: ``reject`` finishes this request
         ``shed``, ``shed_oldest`` sheds the oldest queued request instead,
         ``block`` ticks the engine until the queue has room."""
-        if client_request_id is not None:
-            raise NotImplementedError(
-                f"submit(client_request_id=...) is not ported yet ({_IDEMPOTENCY_ITEM})")
+        cid = str(client_request_id) if client_request_id is not None else None
+        if cid is not None and cid in self._client_ids:
+            known = self._client_ids[cid]
+            self._jstats["deduped"] += 1
+            row = self._cached_rows.get(known)
+            if row is not None:
+                self._finished.append(dict(row))
+            return known
         tokens = np.asarray(prompt.cpu() if torch.is_tensor(prompt) else prompt,
                             np.int64).reshape(-1)
         if tokens.size < 1:
@@ -607,6 +689,9 @@ class ServingEngine:
         if generator is None and self._sampled:
             generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
         req = _Request(next(self._ids), tokens, budget, generator)
+        req.client_request_id = cid
+        if cid is not None:
+            self._client_ids[cid] = req.id
         deadline = deadline_s if deadline_s is not None else self.config.deadline_s
         if deadline is not None:
             if float(deadline) <= 0:
@@ -616,6 +701,22 @@ class ServingEngine:
         self._stats["submitted"] += 1
         if self._first_submit_t is None:
             self._first_submit_t = req.submit_t
+        if self._journal is not None:
+            # What a bit-equal replay needs: the prompt, the budget and the
+            # sampling stream's state before its first draw; the deadline as
+            # a budget beside the submit time on the monotonic clock.
+            self._journal.append({
+                "t": "admit", "rid": req.id, "cid": cid, "tokens": tokens.tolist(),
+                "budget": budget,
+                "rng": (req.generator_state.tolist()
+                        if self._sampled and req.generator_state is not None else None),
+                "deadline_s": float(deadline) if deadline is not None else None,
+                "t_mono": req.submit_t, "weights_version": self._weights_version,
+            }, tick=self._stats["ticks"], unit=req.id)
+        if self.tracing is not None:
+            self.tracing.request_submitted(
+                req.id, self._stats["ticks"], req.submit_t, prompt_tokens=int(tokens.size),
+                budget=budget, deadline_s=float(deadline) if deadline is not None else None)
         if self._draining:  # the preemption drain: nothing new gets in
             self._finish(req, "shed")
             return req.id
@@ -639,10 +740,12 @@ class ServingEngine:
         "attempt", "recovered", "drafted", "accepted"}``. ``status`` is one
         of ``REQUEST_STATUSES``; ``tokens`` is the prompt + continuation
         row padded to ``prompt + budget`` with ``pad_token_id``
-        (generate()'s row layout); ``weights_version`` is 0 once the
-        request held a slot (None if it never did); ``attempt`` counts
-        executions (1 + retries); ``drafted``/``accepted`` count its
-        speculative drafts."""
+        (generate()'s row layout); ``weights_version`` is the version the
+        request bound at its grant (None if it never held a slot);
+        ``attempt`` counts executions (1 + retries + replays after a
+        crash); ``recovered`` flags a row that crossed a crash (a cached
+        row from the journal, or a request replayed by ``recover()``);
+        ``drafted``/``accepted`` count its speculative drafts."""
         out = list(self._finished)
         self._finished.clear()
         return out
@@ -687,7 +790,9 @@ class ServingEngine:
                 "decode_s": (t3 - t2) - self._tick_fetch_s,
                 "host_fetch_s": self._tick_fetch_s,
                 "bookkeeping_s": t4 - t3,
-            }, gauges={"occupancy": len(self._decoding)})
+            }, gauges={"journal_lsn": (self._journal.stats()["appends"]
+                                       if self._journal is not None else None),
+                       "occupancy": len(self._decoding)})
 
     def _sample_queue_depth(self) -> None:
         depth = len(self._queue)
@@ -720,6 +825,22 @@ class ServingEngine:
         return self._progress_marker()
 
     def _end_tick(self, snap: tuple) -> None:
+        if self._journal is not None:
+            if self._journal_tokens:
+                # One progress record a tick, then the tick's durability
+                # point under the fsync policy.
+                self._journal.append({"t": "progress", "tick": self._stats["ticks"],
+                                      "t_mono": time.perf_counter(),
+                                      "toks": self._journal_tokens},
+                                     tick=self._stats["ticks"])
+                self._journal_tokens = {}
+            self._journal.tick_flush()
+        if self._chaos is not None:
+            # After the flush: what the fsync policy promised durable is
+            # durable when the process dies.
+            fault = self._chaos.draw("engine_crash", self._stats["ticks"])
+            if fault is not None and fault.kind == "crash":
+                self._hard_crash(fault)
         self._stats["ticks"] += 1
         if self._sdc_canary is not None:
             self._sdc_canary.on_tick()
@@ -749,13 +870,27 @@ class ServingEngine:
         req.slot = slot
         req.admit_t = time.perf_counter()
         req.chunks = plan_chunks(int(req.tokens.size), self.ladder)
-        if req.weights_version is None:
-            req.weights_version = 0  # the engine serves one version of the weights
+        if req.weights_version not in self._params_by_version:
+            # The first grant binds a version (the canary's routing picks
+            # it); a retry or a recovered request keeps its binding, so it
+            # replays under the same weights.
+            req.weights_version = self._route_version()
+            req.canary = self._canary is not None
+            if self._journal is not None and not self._journal_suppressed(req.id):
+                self._journal.append({"t": "bind", "rid": req.id,
+                                      "weights_version": req.weights_version,
+                                      "t_mono": req.admit_t},
+                                     tick=self._stats["ticks"], unit=req.id)
         self._stats["slot_allocs"] += 1
         if slot in self._used_slots:
             self._stats["slot_reuses"] += 1
         self._used_slots.add(slot)
         self._prefilling.append(req)
+        if self.tracing is not None:
+            # No prefill lanes: those are the disaggregated router's.
+            self.tracing.request_granted(req.id, self._stats["ticks"], req.admit_t, slot=slot,
+                                         lane=None, weights_version=req.weights_version,
+                                         canary=bool(req.canary))
 
     def _admit(self) -> None:
         while self._free and self._queue:
@@ -767,12 +902,14 @@ class ServingEngine:
         chunk[0, :valid] = req.tokens[req.consumed:req.consumed + valid]
         is_first = req.next_chunk == 0
         is_final = req.next_chunk == len(req.chunks) - 1
+        tr = self.tracing
+        t0 = time.perf_counter() if tr is not None else None
         try:
             if self._chaos is not None:
                 fault = self._chaos.draw("prefill_dispatch", self._stats["ticks"], unit=req.id)
                 if fault is not None:
                     raise InjectedFaultError(fault)
-            tok = self._prefill(self._params, self._cache, self._state,
+            tok = self._prefill(self._params_for(req.weights_version), self._cache, self._state,
                                 torch.from_numpy(chunk).to(self.device), req.slot, valid,
                                 req.budget, req.generator, is_first, is_final)
         except RuntimeError as exc:  # a device failure; a programming error propagates
@@ -782,16 +919,43 @@ class ServingEngine:
         req.consumed += valid
         self._stats["prefill_chunks"] += 1
         self._stats["prefill_pad_tokens"] += size - valid
+        if tr is not None:
+            # The chunk's host span: its dispatch, not its device time (the
+            # final chunk's first token is read below).
+            tr.prefill_chunk(req.id, self._stats["ticks"], t0, time.perf_counter(), size=size,
+                             valid=valid, lane=None, slot=req.slot,
+                             index=req.next_chunk - 1, final=is_final)
         if is_final:
             self._prefilling.remove(req)
             first = int(tok)  # the one host read of a prefill: the TTFT moment
             req.first_token_t = time.perf_counter()
             req.out.append(first)
+            if self._journal is not None and not self._journal_suppressed(req.id):
+                self._journal_tokens.setdefault(req.id, []).append(first)
+            if tr is not None:
+                tr.first_token(req.id, self._stats["ticks"], req.first_token_t)
             eos = self.config.eos_token_id
             if req.budget <= 1 or (eos is not None and first == eos):
                 self._retire(req)
             else:
                 self._decoding[req.slot] = req
+
+    def _decode_groups(self) -> list:
+        """``(version, run_mask)`` for each decode pass of this tick: one
+        pass with no mask while every decoding slot holds one version; one
+        pass per version, each with a (N,) bool mask of its slots, while
+        two are live (a canary window, or requests of a swapped-out version
+        draining)."""
+        versions = sorted({r.weights_version for r in self._decoding.values()})
+        if len(versions) <= 1:
+            return [(versions[0] if versions else self._weights_version, None)]
+        groups = []
+        for v in versions:
+            mask = np.zeros((self.n_slots,), bool)
+            for slot, r in self._decoding.items():
+                mask[slot] = r.weights_version == v
+            groups.append((v, torch.from_numpy(mask).to(self.device)))
+        return groups
 
     def _decode_tick(self) -> None:
         flip_slot = None
@@ -813,41 +977,58 @@ class ServingEngine:
         self._stats["occupancy_sum"] += live
         self._stats["peak_occupancy"] = max(self._stats["peak_occupancy"], live)
         k = self._speculate_k
-        t0 = time.perf_counter() if k > 0 else 0.0
-        sampled = sorted(self._decoding) if self._sampled else ()
-        toks, emitted, bad = self._decode(self._params, self._cache, self._state, sampled)
-        self._stats["decode_steps"] += 1
-        # The tick's one host sync: the tokens, emitted counts, done flags
-        # and the sentinel. The profiler times it as the tick's host_fetch_s.
-        tf0 = time.perf_counter() if self._profiler is not None else 0.0
-        host = torch.cat([toks, emitted[:, None], self._state.done.long()[:, None],
-                          bad.long()[:, None]], dim=1).cpu().numpy()
-        if self._profiler is not None:
-            self._tick_fetch_s += time.perf_counter() - tf0
-        if flip_slot is not None and flip_slot in self._decoding:
-            host[flip_slot, 0] ^= 1
-        drafted = accepted = 0
-        for slot, req in list(self._decoding.items()):
-            if host[slot, k + 3]:
-                self._on_poisoned_slot(slot, req)
-                continue
-            cnt = int(host[slot, k + 1])
-            req.out.extend(int(t) for t in host[slot, :cnt])
+        tr = self.tracing
+        journal = self._journal
+        for version, mask in self._decode_groups():
+            members = {slot: req for slot, req in self._decoding.items()
+                       if req.weights_version == version}
+            t0 = time.perf_counter() if (tr is not None or k > 0) else 0.0
+            sampled = sorted(members) if self._sampled else ()
+            toks, emitted, bad = self._decode(self._params_for(version), self._cache,
+                                              self._state, sampled, mask)
+            self._stats["decode_steps"] += 1
+            # The pass's one host read: the tokens, emitted counts, done
+            # flags and the sentinel (one a tick while one version is live).
+            # The profiler times it as the tick's host_fetch_s.
+            tf0 = time.perf_counter() if self._profiler is not None else 0.0
+            host = torch.cat([toks, emitted[:, None], self._state.done.long()[:, None],
+                              bad.long()[:, None]], dim=1).cpu().numpy()
+            self._stats["host_reads"] += 1
+            if self._profiler is not None:
+                self._tick_fetch_s += time.perf_counter() - tf0
+            if flip_slot is not None and flip_slot in members:
+                host[flip_slot, 0] ^= 1
+                flip_slot = None  # one flip a tick, not one a pass
+            drafted = accepted = 0
+            for slot, req in members.items():
+                if host[slot, k + 3]:
+                    self._on_poisoned_slot(slot, req)
+                    continue
+                cnt = int(host[slot, k + 1])
+                new = [int(t) for t in host[slot, :cnt]]
+                req.out.extend(new)
+                if journal is not None and not self._journal_suppressed(req.id):
+                    self._journal_tokens.setdefault(req.id, []).extend(new)
+                if k > 0:
+                    req.spec_drafted += k
+                    req.spec_accepted += max(cnt - 1, 0)
+                    drafted += k
+                    accepted += max(cnt - 1, 0)
+                    self._stats["spec_decode_tokens"] += cnt
+                if host[slot, k + 2]:
+                    del self._decoding[slot]
+                    self._retire(req)
             if k > 0:
-                req.spec_drafted += k
-                req.spec_accepted += max(cnt - 1, 0)
-                drafted += k
-                accepted += max(cnt - 1, 0)
-                self._stats["spec_decode_tokens"] += cnt
-            if host[slot, k + 2]:
-                del self._decoding[slot]
-                self._retire(req)
-        if k > 0:
-            self._stats["spec_drafted"] += drafted
-            self._stats["spec_accepted"] += accepted
-            # The speculative dispatch is the (k+1)-position verify forward;
-            # its host clock runs to the end of the tick's read.
-            self._stats["spec_verify_s"] += time.perf_counter() - t0
+                self._stats["spec_drafted"] += drafted
+                self._stats["spec_accepted"] += accepted
+                # The speculative dispatch is the (k+1)-position verify
+                # forward; its host clock runs to the end of the pass's read.
+                self._stats["spec_verify_s"] += time.perf_counter() - t0
+            if tr is not None:
+                tr.decode_tick(self._stats["ticks"], t0, time.perf_counter(),
+                               weights_version=version, occupancy=live, n_slots=self.n_slots,
+                               request_ids=[r.id for r in members.values()], drafted=drafted,
+                               accepted=accepted)
 
     def _poison_slot(self, slot: int) -> None:
         """Chaos ``poison``: ``slot``'s KV rows turn NaN, for the decode
@@ -908,11 +1089,37 @@ class ServingEngine:
                              "prompt_tokens": int(req.tokens.size), "new_tokens": n_new})
         if self._hub is not None:
             self._hub.observe_slo("serving_availability", status == "ok")
-        self._finished.append({
+        if req.canary and req.weights_version in self._cohorts:
+            self._cohorts[req.weights_version]["events"].append(
+                {"status": status, "ttft_s": ttft, "tpot_s": tpot})
+        attempt = 1 + req.retries + req.recoveries
+        result = {
             "id": req.id, "status": status, "tokens": row, "new_tokens": n_new,
             "ttft_s": ttft, "tpot_s": tpot, "weights_version": req.weights_version,
-            "attempt": 1 + req.retries, "recovered": False,
-            "drafted": req.spec_drafted, "accepted": req.spec_accepted})
+            "attempt": attempt, "recovered": req.recoveries > 0,
+            "drafted": req.spec_drafted, "accepted": req.spec_accepted}
+        self._finished.append(result)
+        if req.client_request_id is not None:
+            # A duplicate submit with this key gets this row again.
+            self._cached_rows[req.id] = result
+        if self._journal is not None and not self._journal_suppressed(req.id):
+            self._journal_tokens.pop(req.id, None)
+            # Self-contained: compaction may drop the request's other
+            # records, and this row still answers a duplicate and a restart.
+            self._journal.append({
+                "t": "terminal", "rid": req.id, "cid": req.client_request_id,
+                "status": status, "row": row.tolist(), "new_tokens": n_new,
+                "ttft_s": ttft, "tpot_s": tpot, "weights_version": req.weights_version,
+                "attempt": attempt, "t_mono": req.done_t,
+                "drafted": req.spec_drafted, "accepted": req.spec_accepted,
+            }, tick=self._stats["ticks"], unit=req.id)
+        if len(self._params_by_version) > 1:
+            self._gc_versions()
+        if self.tracing is not None:
+            self.tracing.request_finished(
+                req.id, self._stats["ticks"], req.done_t, status=status, new_tokens=n_new,
+                weights_version=req.weights_version, drafted=req.spec_drafted,
+                accepted=req.spec_accepted)
         if self.telemetry is not None:
             self.telemetry.record_event(
                 "serving_request_done", request_id=req.id, status=status, ttft_s=ttft,
@@ -954,6 +1161,9 @@ class ServingEngine:
         self._fstats["retries"] += 1
         req.reset_for_retry()
         self._queue.appendleft(req)
+        if self.tracing is not None:
+            self.tracing.request_retry(req.id, self._stats["ticks"], reason=reason or "retry",
+                                       attempt=req.retries)
 
     def _on_prefill_failure(self, req: _Request, exc: Exception) -> None:
         """A prefill chunk raised: free what the request held, then retry
@@ -973,16 +1183,388 @@ class ServingEngine:
         del self._decoding[slot]
         self._quarantine_slot(slot)
         req.slot = None
+        if req.canary and req.weights_version in self._cohorts:
+            # A candidate whose slots go non-finite reads as a regression.
+            self._cohorts[req.weights_version]["poisoned"] += 1
         self._retry_or_fail(req, reason=f"nonfinite logits in slot {slot}")
 
     def _quarantine_slot(self, slot: int) -> None:
         self._quarantined_slots.add(slot)
         self._fstats["slot_quarantines"] += 1
+        if self.tracing is not None:
+            self.tracing.quarantine("slot", slot, self._stats["ticks"])
         _release_slot_op(self._state, slot)
         logger.warning("serving: quarantined slot %d (nonfinite logits); %d/%d slots remain",
                        slot, self.n_slots - len(self._quarantined_slots), self.n_slots)
         if self.telemetry is not None:
             self.telemetry.record_event("serving_slot_quarantined", slot=slot)
+
+    # -- crash durability (the journal) --------------------------------------
+
+    @property
+    def journal(self):
+        """The attached ``journal.RequestJournal``, or None."""
+        return self._journal
+
+    def _journal_suppressed(self, rid: int) -> bool:
+        """True for the decode canary's probe in flight: its records reach
+        neither the journal (recover() would replay it) nor poll()."""
+        c = self._sdc_canary
+        return c is not None and c._inflight == rid
+
+    def _hard_crash(self, fault) -> None:
+        """An injected ``engine_crash``: die as a killed process dies, with
+        no drain and no seal of the journal (what the fsync policy made
+        durable is what a restart finds), after the telemetry event, the
+        injector's log and the flight bundle."""
+        code = int((fault.extra or {}).get("exit_code", SERVING_CRASH_EXIT_CODE))
+        logger.error("serving: injected engine_crash: exiting %d (tick %d); %d request(s) in "
+                     "flight%s", code, self._stats["ticks"], self.pending,
+                     "" if self._journal is None else "; recover() replays them from the journal")
+        if self.telemetry is not None:
+            try:
+                self.telemetry.record_event("serving_engine_crash", tick=self._stats["ticks"],
+                                            exit_code=code, pending=self.pending,
+                                            journaled=self._journal is not None)
+            except Exception:  # dying anyway
+                pass
+        flush_injected_log(self._chaos, self.telemetry)
+        # The flight bundle last: the flush above closed the lagged tick
+        # record, so its newest entries name the tick that died.
+        dump_flight(self._profiler, code,
+                    reason=f"injected engine_crash at tick {self._stats['ticks']}")
+        os._exit(code)
+
+    def _restore_generator(self, rng) -> Optional[torch.Generator]:
+        """A journaled request's generator, on this engine's device, in the
+        state it had at ``submit``; None for a greedy engine. A state this
+        device's generator cannot take (another device kind, the JAX
+        package's key data) falls back to ``ServingConfig.seed``."""
+        if not self._sampled:
+            return None
+        gen = torch.Generator(device=self.device)
+        if rng is not None:
+            try:
+                return gen.set_state(torch.tensor(rng, dtype=torch.uint8))
+            except (RuntimeError, ValueError, TypeError) as exc:
+                logger.warning("serving: a journaled generator state does not fit this "
+                               "device (%s); the request samples from seed %d", exc,
+                               self.config.seed)
+        return gen.manual_seed(self.config.seed)
+
+    def recover(self, journal_dir: Optional[str] = None) -> dict:
+        """Rebuild the requests of a dead engine from its journal. Call on
+        a new (warmed) engine over the same directory: the attached
+        journal's, or ``journal_dir`` when the engine has none, whose
+        adoption sentinel it then claims (``JournalAdoptionError`` if
+        another party holds it).
+
+        - A request with a journaled terminal row returns that row through
+          ``poll()``, flagged ``recovered``, and never runs again; its
+          ``client_request_id`` keeps deduping.
+        - Every other request goes back to the queue in admission order
+          and replays from its prompt and its generator's journaled state,
+          under the weights version it bound (bit-equal), spending a
+          ``recoveries`` count, not a retry.
+        - A deadline's remaining budget is what the dead process had left
+          on its own monotonic clock, rebased on this one's.
+
+        Returns the counts recovered and the journal's scan (records,
+        segments, torn tails, corrupt lines skipped) and the seconds."""
+        if self._journal is None and journal_dir is not None:
+            self._journal = RequestJournal.adopt(
+                str(journal_dir), f"serving-recover:pid={os.getpid()}",
+                fsync=self.config.journal_fsync,
+                segment_records=self.config.journal_segment_records)
+            self._journal.chaos = self._chaos
+            if self._hub is not None:
+                self._hub.register_provider("journal", self._journal.stats, replace=True)
+        if self._journal is None:
+            raise ValueError("recover() needs a journal: pass journal_dir=, set "
+                             "ServingConfig.journal_dir, or build the engine with journal=.")
+        if not self._journal.adopted:
+            holder = self._journal.adoption_holder()
+            if holder is not None:
+                raise JournalAdoptionError(
+                    f"journal {self._journal.dir!r} is adopted by "
+                    f"{holder.get('owner', '<unreadable>')!r}: its requests were drained "
+                    "elsewhere; relaunch with a fresh journal_dir instead of replaying it")
+        t_start = time.perf_counter()
+        tr = self.tracing
+        span = tr.begin("serving", "recover", self._stats["ticks"]) if tr is not None else None
+        records, scan = self._journal.replay()
+        admits: dict[int, dict] = {}
+        terminals: dict[int, dict] = {}
+        binds: dict[int, int] = {}
+        recovers: dict[int, int] = {}
+        last_mono = None
+        for rec in records:
+            tm = rec.get("t_mono")
+            if tm is not None:
+                last_mono = tm if last_mono is None else max(last_mono, tm)
+            rid, t = rec.get("rid"), rec.get("t")
+            if rid is None:
+                continue
+            rid = int(rid)
+            if t == "admit":
+                admits[rid] = rec
+            elif t == "terminal":
+                terminals[rid] = rec
+            elif t == "bind" and rec.get("weights_version") is not None:
+                binds[rid] = int(rec["weights_version"])
+            elif t == "recovered":
+                recovers[rid] = recovers.get(rid, 0) + 1
+        now = time.perf_counter()
+        n_terminal = n_inflight = 0
+        # Compaction drops a finished request's admit record, so a cached
+        # row may have no admit left: the union of both.
+        for rid in sorted(set(admits) | set(terminals)):
+            a, trec = admits.get(rid), terminals.get(rid)
+            cid = a.get("cid") if a is not None else trec.get("cid")
+            if trec is not None:
+                result = {
+                    "id": rid, "status": trec.get("status"),
+                    "tokens": np.asarray(trec.get("row", []), np.int64),
+                    "new_tokens": int(trec.get("new_tokens", 0)),
+                    "ttft_s": trec.get("ttft_s"), "tpot_s": trec.get("tpot_s"),
+                    "weights_version": trec.get("weights_version"),
+                    "attempt": int(trec.get("attempt", 1)), "recovered": True,
+                    "drafted": int(trec.get("drafted", 0)),
+                    "accepted": int(trec.get("accepted", 0))}
+                self._finished.append(result)
+                self._cached_rows[rid] = result
+                if cid is not None:
+                    self._client_ids[str(cid)] = rid
+                n_terminal += 1
+                continue
+            req = _Request(rid, np.asarray(a["tokens"], np.int64), int(a["budget"]),
+                           self._restore_generator(a.get("rng")))
+            req.client_request_id = str(cid) if cid is not None else None
+            # The journaled recovered markers carry the count over crashes.
+            req.recoveries = recovers.get(rid, 0) + 1
+            dl = a.get("deadline_s")
+            if dl is not None:
+                elapsed = 0.0
+                if last_mono is not None and a.get("t_mono") is not None:
+                    # Both stamps on the dead process's monotonic clock.
+                    elapsed = max(0.0, float(last_mono) - float(a["t_mono"]))
+                req.deadline = now + max(0.0, float(dl) - elapsed)
+                self._has_deadlines = True
+            v = binds.get(rid)
+            if v is not None and v in self._params_by_version:
+                # _grant keeps the binding: the replay runs the same weights.
+                req.weights_version = v
+            if req.client_request_id is not None:
+                self._client_ids[req.client_request_id] = rid
+            self._queue.append(req)
+            self._journal.append({"t": "recovered", "rid": rid, "tick": self._stats["ticks"],
+                                  "t_mono": now}, tick=self._stats["ticks"], unit=rid)
+            self._stats["submitted"] += 1
+            n_inflight += 1
+            if tr is not None:
+                tr.request_retry(rid, self._stats["ticks"], reason="recovered",
+                                 attempt=req.retries + req.recoveries)
+        if admits or terminals:
+            # New ids never collide with journaled ones.
+            self._ids = itertools.count(max([*admits, *terminals]) + 1)
+        self._journal.tick_flush()
+        self._jstats["recovered_inflight"] += n_inflight
+        self._jstats["recovered_terminal"] += n_terminal
+        summary = {
+            "recovered_inflight": n_inflight, "recovered_terminal": n_terminal,
+            "records": scan["records"], "segments": scan["segments"],
+            "torn_tails": scan["torn_tails"], "corrupt_skipped": scan["corrupt_skipped"],
+            "elapsed_s": round(time.perf_counter() - t_start, 6)}
+        if span is not None:
+            tr.end(span, self._stats["ticks"], recovered_inflight=n_inflight,
+                   recovered_terminal=n_terminal, torn_tails=scan["torn_tails"],
+                   corrupt_skipped=scan["corrupt_skipped"])
+        if self.telemetry is not None:
+            self.telemetry.record_event("serving_recovered", **summary)
+        logger.info("serving: recovered from journal %s: %d request(s) in flight re-queued, "
+                    "%d cached terminal row(s) (%d torn tail(s) truncated, %d corrupt "
+                    "record(s) skipped)", self._journal.dir, n_inflight, n_terminal,
+                    scan["torn_tails"], scan["corrupt_skipped"])
+        return summary
+
+    # -- weight versions and the canary window ------------------------------
+
+    @property
+    def weights_version(self) -> int:
+        """The primary version: what new admissions bind outside a canary
+        window (0: the weights the engine was built with)."""
+        return self._weights_version
+
+    def _params_for(self, version):
+        """The parameter tree of a version a request bound; a version stays
+        installed while any request holds it."""
+        if version == self._weights_version:
+            return self._params
+        return self._params_by_version[version]
+
+    def _route_version(self) -> int:
+        """The version of a first grant. In a canary window an
+        error-diffusion accumulator sends exactly the window's fraction of
+        admissions to the candidate (no random draw, so a replay routes the
+        same)."""
+        c = self._canary
+        if c is None:
+            return self._weights_version
+        self._canary_acc += c["fraction"]
+        if self._canary_acc >= 1.0 - 1e-9:
+            self._canary_acc -= 1.0
+            c["routed_candidate"] += 1
+            return c["version"]
+        c["routed_primary"] += 1
+        return self._weights_version
+
+    def _gc_versions(self) -> None:
+        """Drop the versions that are neither primary nor candidate and that
+        no request in flight holds."""
+        keep = {self._weights_version}
+        if self._canary is not None:
+            keep.add(self._canary["version"])
+        for r in itertools.chain(self._queue, self._prefilling, self._decoding.values()):
+            if r.weights_version is not None:
+                keep.add(r.weights_version)
+        for v in [v for v in self._params_by_version if v not in keep]:
+            del self._params_by_version[v]
+
+    def _validate_params_tree(self, params: dict) -> None:
+        """The incoming tree must match the serving one name for name, in
+        shape, dtype, device and, for a ``DTensor`` (``tp``), mesh and
+        placements; the offending parameter is named."""
+        cur = self._params
+        if set(params) != set(cur):
+            missing, extra = sorted(set(cur) - set(params)), sorted(set(params) - set(cur))
+            raise ValueError(
+                f"swap_params: the parameter names differ from the serving tree's (missing "
+                f"{missing[:4]}, unexpected {extra[:4]}); publish the model family and config "
+                "the engine was built with.")
+
+        def leaves(name, x):
+            if torch.is_tensor(x):
+                return [(name, x)]
+            if dataclasses.is_dataclass(x):  # a DecodeQuant's codes and scales
+                return [(f"{name}.{f.name}", getattr(x, f.name)) for f in dataclasses.fields(x)
+                        if torch.is_tensor(getattr(x, f.name))]
+            return [(name, x)]
+
+        for name in cur:
+            a, b = cur[name], params[name]
+            a_leaves, b_leaves = leaves(name, a), leaves(name, b)
+            if (not (torch.is_tensor(a) and torch.is_tensor(b)) and type(a) is not type(b)) \
+                    or len(a_leaves) != len(b_leaves):
+                raise ValueError(f"swap_params: parameter {name!r} is a {type(b).__name__}, "
+                                 f"serving holds a {type(a).__name__}.")
+            for (leaf, a), (_, b) in zip(a_leaves, b_leaves):
+                if not torch.is_tensor(b):
+                    continue
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise ValueError(f"swap_params: parameter {leaf!r} is "
+                                     f"{tuple(b.shape)}/{b.dtype}, serving expects "
+                                     f"{tuple(a.shape)}/{a.dtype}.")
+                if a.device != b.device:
+                    raise ValueError(f"swap_params: parameter {leaf!r} is on {b.device}, "
+                                     f"serving runs on {a.device}.")
+                pa, pb = getattr(a, "placements", None), getattr(b, "placements", None)
+                if (pa, getattr(a, "device_mesh", None)) != (pb, getattr(b, "device_mesh", None)):
+                    raise ValueError(f"swap_params: parameter {leaf!r} is placed {pb}, the "
+                                     f"serving tree {pa}; redistribute it onto the serving "
+                                     "mesh first.")
+
+    def _check_new_version(self, weights_version) -> int:
+        v = int(weights_version)
+        if v <= self._weights_version:
+            raise ValueError(f"weights_version {v} is not newer than the serving primary "
+                             f"{self._weights_version}; versions are monotonic.")
+        if self._canary is not None:
+            raise ValueError(f"a canary for version {self._canary['version']} is active; "
+                             "promote or roll it back before publishing again.")
+        return v
+
+    def swap_params(self, params, *, weights_version: int) -> None:
+        """Bind ``params`` (a name → tensor dict as ``_decode_params`` gives,
+        or a model) as the new primary version. Requests in flight finish
+        on the version they bound; every admission from now on binds this
+        one. The tensors are used as they are, not copied."""
+        params = _decode_params(params)
+        v = self._check_new_version(weights_version)
+        self._validate_params_tree(params)
+        self._params_by_version[v] = params
+        self._weights_version = v
+        self._params = params
+        self._gc_versions()
+        logger.debug("serving: params swapped to version %d", v)
+
+    def begin_canary(self, params, *, weights_version: int, fraction: float = 0.1) -> None:
+        """Install ``params`` as a candidate version and route ``fraction``
+        of new admissions to it (exactly: error diffusion, not a draw)
+        until :meth:`promote_canary` or :meth:`rollback_canary`; each arm's
+        finished requests gather in :meth:`cohort_stats`."""
+        if not 0.0 < float(fraction) <= 1.0:
+            raise ValueError(f"canary fraction must be in (0, 1], got {fraction}")
+        params = _decode_params(params)
+        v = self._check_new_version(weights_version)
+        self._validate_params_tree(params)
+        self._params_by_version[v] = params
+        self._canary = {"version": v, "fraction": float(fraction), "routed_candidate": 0,
+                        "routed_primary": 0, "started_tick": self._stats["ticks"]}
+        self._canary_acc = 0.0
+        self._cohorts = {self._weights_version: {"events": [], "poisoned": 0},
+                         v: {"events": [], "poisoned": 0}}
+
+    def promote_canary(self) -> dict:
+        """End the window with the candidate as primary; requests of the
+        old version drain on it, then it goes."""
+        c = self._require_canary()
+        self._canary = None
+        self._weights_version = c["version"]
+        self._params = self._params_by_version[c["version"]]
+        self._fstats["promoted"] += 1
+        self._gc_versions()
+        logger.info("serving: canary promoted: version %d is primary (%d canary / %d primary "
+                    "admissions in the window)", c["version"], c["routed_candidate"],
+                    c["routed_primary"])
+        return c
+
+    def rollback_canary(self) -> dict:
+        """End the window discarding the candidate: new admissions bind
+        the primary again, as if nothing had been published; the
+        candidate's requests in flight finish on it, then it goes."""
+        c = self._require_canary()
+        self._canary = None
+        self._fstats["rolled_back"] += 1
+        self._gc_versions()
+        logger.warning("serving: canary version %d rolled back; primary stays %d (%d canary / "
+                       "%d primary admissions in the window)", c["version"],
+                       self._weights_version, c["routed_candidate"], c["routed_primary"])
+        return c
+
+    def _require_canary(self) -> dict:
+        if self._canary is None:
+            raise ValueError("no canary window is active")
+        return self._canary
+
+    def canary_status(self) -> Optional[dict]:
+        """The canary window (version, fraction, admissions routed to each
+        arm, the tick it began), or None."""
+        return dict(self._canary) if self._canary is not None else None
+
+    def cohort_stats(self, version: int, warmup: int = 0) -> Optional[dict]:
+        """SLO aggregates of one canary cohort past its first ``warmup``
+        finished requests (None until the version has a cohort): rates
+        over the window, ok-only TTFT/TPOT means, non-finite slots."""
+        co = self._cohorts.get(version)
+        if co is None:
+            return None
+        agg = _slo_aggregate(co["events"][int(warmup):])
+        return {
+            "version": int(version), "completed": agg["n"], "ok": agg["ok"],
+            "ok_ttft_mean_s": float(agg["ttft"].mean()) if agg["ttft"].size else None,
+            "ok_tpot_mean_s": float(agg["tpot"].mean()) if agg["tpot"].size else None,
+            "timeout_rate": agg["timeout_rate"], "shed_rate": agg["shed_rate"],
+            "failed_rate": agg["failed_rate"], "poisoned": int(co["poisoned"])}
 
     # -- batch front-end ---------------------------------------------------
 
@@ -1020,7 +1602,13 @@ class ServingEngine:
         """Run one request whose prompt walks every ladder rung, and two
         decode steps, then reset the metrics so a timed run starts clean."""
         prompt_len = min(sum(self.ladder), self.t_max - 2)
-        self.run([np.ones((prompt_len,), np.int64)], max_new_tokens=2)
+        # The warm-up request stays out of the journal: recover() would
+        # replay it.
+        jr, self._journal = self._journal, None
+        try:
+            self.run([np.ones((prompt_len,), np.int64)], max_new_tokens=2)
+        finally:
+            self._journal = jr
         self.reset_metrics()
 
     def reset_metrics(self) -> None:
@@ -1030,10 +1618,11 @@ class ServingEngine:
             ("submitted", "completed", "ticks", "decode_steps", "prefill_chunks",
              "prefill_pad_tokens", "tokens_out", "prompt_tokens_in", "slot_allocs",
              "slot_reuses", "occupancy_sum", "peak_occupancy", "queue_depth_sum",
-             "queue_samples", "spec_drafted", "spec_accepted", "spec_decode_tokens"), 0)
+             "queue_samples", "spec_drafted", "spec_accepted", "spec_decode_tokens",
+             "host_reads"), 0)
         self._stats["spec_verify_s"] = 0.0
-        # Keys of the JAX package's fault block; lanes, handoffs and the
-        # canary are not ported and stay 0.
+        # Keys of the JAX package's fault block; lanes and handoffs (the
+        # disaggregated router's) are not ported and stay 0.
         self._fstats = dict.fromkeys(
             ("sheds", "timeouts", "failed", "retries", "slot_quarantines", "lane_quarantines",
              "handoff_retries", "handoff_delays", "promoted", "rolled_back"), 0)
@@ -1043,6 +1632,10 @@ class ServingEngine:
         for samples in (self._ttfts, self._tpots, self._queue_waits, self._prefill_lats,
                         self._window, self._queue_depth_window, self._finished):
             samples.clear()
+        self._jstats = dict.fromkeys(self._jstats, 0)
+        if self.tracing is not None:
+            # The trace restarts with the metrics, at tick 0.
+            self.tracing.reset()
         if self._profiler is not None:
             # Warm-up records would skew the term means and the flight ring.
             self._profiler.reset()
@@ -1050,8 +1643,11 @@ class ServingEngine:
             self._sdc_canary.reset_counters()
 
     def close(self) -> None:
-        """Push the ``stats()`` block into the telemetry stream."""
+        """Push the ``stats()`` block into the telemetry stream and seal the
+        journal's active segment."""
         self._push_telemetry_summary()
+        if self._journal is not None:
+            self._journal.close()
 
     def _push_telemetry_summary(self) -> None:
         if self.telemetry is not None:
@@ -1061,10 +1657,10 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """The JAX package's serving block, on the host clock: TTFT and
-        TPOT, queue depth, slot occupancy, aggregate tokens/s, and the
+        TPOT, queue depth, slot occupancy, aggregate tokens/s, the primary
+        weights version, and the ``canary``, ``sdc``, ``journal``,
         ``window``, ``faults`` and ``speculation`` blocks. Eager PyTorch
-        compiles no program, so the executable counts are None; there is
-        one weights version (0) and no canary, SDC canary or journal."""
+        compiles no program, so the executable counts are None."""
         s = self._stats
         elapsed = None
         if self._first_submit_t is not None:
@@ -1101,10 +1697,10 @@ class ServingEngine:
             "steady_recompiles": 0,
             "decode_executables": None,
             "prefill_executables": None,
-            "weights_version": 0,
-            "canary": None,
-            "sdc": None,
-            "journal": None,
+            "weights_version": self._weights_version,
+            "canary": self.canary_status(),
+            "sdc": self.sdc_stats(),
+            "journal": self.journal_stats(),
             "window": self.window_stats(),
             "faults": self.fault_stats(),
             "speculation": self.speculation_stats(),
@@ -1138,11 +1734,21 @@ class ServingEngine:
             "prompt_decode_ratio": round(ok_prompt / ok_new, 4) if ok_new else None,
         }
 
+    def journal_stats(self) -> Optional[dict]:
+        """The journal's counters (appends, syncs, rotations, compactions,
+        torn writes and tails, corrupt lines skipped) and this engine's
+        recovered and deduped counts, or None without a journal."""
+        if self._journal is None:
+            return None
+        js = self._journal.stats()
+        js.update(self._jstats)
+        return js
+
     def fault_stats(self) -> dict:
-        """Terminal-status counters, retries, quarantines, the faults the
-        injector drew and the preemption drain. The keys of what is not
-        ported (lanes, handoffs, weight canaries, degraded mode) read 0 or
-        False."""
+        """Terminal-status counters, retries, quarantines, canary promotions
+        and rollbacks, the faults the injector drew and the preemption
+        drain. The keys of what is not ported (lanes, handoffs, degraded
+        mode) read 0 or False."""
         f = dict(self._fstats)
         f.update(injected=len(self._chaos.injected) if self._chaos is not None else 0,
                  quarantined_slots=len(self._quarantined_slots), degraded=False,

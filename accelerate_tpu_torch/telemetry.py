@@ -37,9 +37,13 @@ profiler (``profiler.py``) and owns the metrics hub.
 With ``sync_timing=False`` nothing here waits for the card: the loss is
 not read, the memory gauges are host counters, and the probe's gather is
 an identity in one process. Off (no ``TelemetryKwargs``), every hook in the
-package is one ``is None`` check. Request tracing, the fault-tolerance
-events and the planner's plan are not ported (ROADMAP.md Queue A item 12);
-a plan dict can be given to ``profiler.note_plan`` directly.
+package is one ``is None`` check. With ``TelemetryKwargs(tracing=...)`` the
+recorder owns a ``tracing.TraceRecorder`` (``self.tracing``) on its hub:
+``record_event`` forwards every event to it, so checkpoint saves, loads,
+verifications and rollbacks and watchdog stalls become spans, and the
+summary gains a ``tracing`` block. The planner's plan is not ported
+(ROADMAP.md Queue A item 12.3); a plan dict can be given to
+``profiler.note_plan`` directly.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ import numpy as np
 
 from .logging import get_logger
 from .profiler import DeviceTimeProfiler, MetricsHub, ProfilerConfig
+from .tracing import TraceConfig, TraceRecorder
 from .utils.memory import get_device_memory_stats, live_bytes_on_device
 from .utils.operations import _gather, collective_counters
 
@@ -203,11 +208,19 @@ class TelemetryRecorder:
         # engine register their providers here.
         self.hub = MetricsHub()
         self.hub.register_provider("telemetry", self._hub_stats)
+        # Request tracing on the same hub; engines built with this recorder
+        # as their telemetry report to it.
+        self.tracing = None
+        tr_cfg = TraceConfig.from_value(getattr(handler, "tracing", None))
+        if tr_cfg is not None:
+            self.tracing = TraceRecorder(tr_cfg, hub=self.hub)
         self.profiler = None
         pf_cfg = ProfilerConfig.from_value(getattr(handler, "profile", None))
         if pf_cfg is not None:
             self.profiler = DeviceTimeProfiler(pf_cfg, out_dir=accelerator.project_dir or ".")
             self.hub.register_provider("profile", self.profiler.summary)
+            if self.tracing is not None:
+                self.profiler.flight.attach_tracing(self.tracing)
         self._rotated_once = False
         # The counters are process-wide; a new recorder starts a new tally.
         collective_counters.reset()
@@ -384,6 +397,13 @@ class TelemetryRecorder:
             self._ckpt[f"{kind}_s"] += float(fields.get("seconds") or 0.0)
         elif event == "checkpoint_async_error":
             self._ckpt["async_errors"] += 1
+        if self.tracing is not None:
+            # Checkpoint saves and loads, verifications, rollbacks and
+            # watchdog stalls become spans through this one point.
+            try:
+                self.tracing.on_event(event, fields, self.step)
+            except Exception:
+                logger.warning_once(f"telemetry: trace forwarding failed for {event!r}")
         record = {"event": event, "step": self.step, "time": time.time()}
         record.update(fields)
         self._write(record)
@@ -465,6 +485,8 @@ class TelemetryRecorder:
         }
         if self._serving_summary is not None:
             out["serving"] = dict(self._serving_summary)
+        if self.tracing is not None:
+            out["tracing"] = self.tracing.stats()
         if self.profiler is not None:
             out["profile"] = self.profiler.summary()
         if times.size:

@@ -21,7 +21,6 @@ _REDUCED_PRECISION_ITEM = (
     "reduce_dtype and output_dtype and FullyShardedDataParallelPlugin.mixed_precision_policy "
     "but never reads them, so there is nothing to port; the masters, the gradient "
     "reductions and the outputs stay fp32")
-_CONTROL_PLANE_ITEM = "ROADMAP.md Queue A item 12 (control plane)"
 
 
 def _refuse_non_defaults(obj, item, honoured: tuple = ()) -> None:
@@ -163,8 +162,10 @@ class TelemetryKwargs(KwargsHandler):
     - ``max_log_bytes``: rotate the per-process JSONL at this size.
     - ``profile``: the device-time profiler (``profiler.py``): ``True``, a
       dict of ``ProfilerConfig`` fields, or a ``ProfilerConfig``.
-    - ``tracing``: request tracing; not ported (ROADMAP.md Queue A item
-      12)."""
+    - ``tracing``: request tracing (``tracing.py``): ``True``, a dict of
+      ``TraceConfig`` fields, or a ``TraceConfig``; the recorder is
+      ``telemetry.tracing``, engines built with ``telemetry=`` report to
+      it, and ``summary()`` gains a ``tracing`` block."""
 
     enabled: bool = True
     sync_timing: bool = False
@@ -179,10 +180,9 @@ class TelemetryKwargs(KwargsHandler):
     profile: Any = None
 
     def __post_init__(self):
-        if self.tracing:  # False and None both mean off, as in the JAX package
-            raise NotImplementedError(
-                f"TelemetryKwargs(tracing={self.tracing!r}) is not ported yet "
-                f"({_CONTROL_PLANE_ITEM}: tracing.py's request tracing)")
+        from ..tracing import TraceConfig
+
+        TraceConfig.from_value(self.tracing)  # a value it cannot take raises here
 
 
 @dataclass
@@ -606,12 +606,9 @@ class DataLoaderConfiguration:
             raise ValueError("prefetch_size must be >= 0")
 
 
-_JOURNAL_ITEM = "ROADMAP.md Queue A item 8.8 (the engine's journal hooks, with item 12)"
 # ServingConfig fields the engine does not act on yet, by ROADMAP item.
 _UNPORTED_SERVING_FIELDS = {
-    "enabled": "ROADMAP.md Queue A item 12 (control plane: Accelerator.build_serving_engine)",
-    "journal_dir": _JOURNAL_ITEM, "journal_fsync": _JOURNAL_ITEM,
-    "journal_segment_records": _JOURNAL_ITEM,
+    "enabled": "ROADMAP.md Queue A item 12.5 (control plane: Accelerator.build_serving_engine)",
 }
 
 
@@ -644,10 +641,14 @@ class ServingConfig:
       quarantined slot before it finishes ``failed``. ``max_idle_ticks``:
       ticks without progress before ``ServingStalledError``.
       ``window_requests``: the rolling window of ``window_stats()``.
+    - ``journal_dir``: the crash-durable request journal (``journal.py``)
+      in this directory; ``journal_fsync`` (``every_record``,
+      ``every_tick`` or ``os``) and ``journal_segment_records`` its
+      durability and rotation.
 
-    ``enabled`` and the journal fields keep the JAX package's names and
-    defaults and raise ``NotImplementedError`` naming their ROADMAP item
-    when set away from them."""
+    ``enabled`` keeps the JAX package's name and default and raises
+    ``NotImplementedError`` naming its ROADMAP item when set away from
+    it."""
 
     enabled: bool = True
     n_slots: int = 8
@@ -704,6 +705,11 @@ class ServingConfig:
             raise ValueError("max_idle_ticks must be >= 1")
         if self.window_requests < 1:
             raise ValueError("window_requests must be >= 1")
+        if self.journal_fsync not in ("every_record", "every_tick", "os"):
+            raise ValueError("journal_fsync must be 'every_record', 'every_tick', or "
+                             f"'os', got {self.journal_fsync!r}")
+        if self.journal_segment_records < 1:
+            raise ValueError("journal_segment_records must be >= 1")
         if self.speculate_k < 0:
             raise ValueError("speculate_k must be >= 0")
         if self.speculate_ngram < 2:

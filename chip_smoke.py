@@ -584,7 +584,8 @@ MAIN_PATHS = ("train_step", "gemma_2b_step", "mixtral_8x7b_step", "cp_generate",
 # The other runs whose launches the line lists by path, outside "launches".
 OTHER_PATHS = ("imperative_loop", "observed_loop", "observed_imperative", "observed_serving",
                "fp16_step", "fp8_step", "dcp_loop", "dcp_async_loop", "serving_rest",
-               "big_model_resident", "tp_generate", "pippy_forward", "ep_generate", "ft_loop")
+               "big_model_resident", "tp_generate", "pippy_forward", "ep_generate", "ft_loop",
+               "traced_loop")
 _TRAINING_PATHS = ("train_step", "gemma_2b_step", *OTHER_PATHS)
 # Phase 3 times every built variant (hopper_flash.variant) at the shape its
 # users give it: head dims 64 and 128 at the training shape, 256 at the
@@ -9161,6 +9162,618 @@ def ft_phase(hf, children, phase19, phase20, sdc_exit, device="cuda", width=FULL
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: request tracing and the crash-durable journal
+# ---------------------------------------------------------------------------
+
+# (a): phase 26 (d)'s engine, the 1.06B Llama at full width (18 layers) on 8
+# slots: 16 requests of 64-token prompts and 16 new tokens from a seed, all
+# submitted at once, served four ways (JOURNAL_MODES), each twice,
+# interleaved: no tracer and no journal, then a tracer with the journal
+# under each fsync policy. Then a swap to a second seeded tree after
+# ``swap_after`` ticks with half the requests in flight, and a canary window
+# at ``canary_fraction`` rolled back.
+JOURNAL_ENGINE = dict(requests=16, prompt_len=64, new_tokens=16, slots=8, repeats=2,
+                      profiled_ticks=2, swap_after=3, canary_fraction=0.25)
+# The tracer's hooks the engine calls, timed in (a) (the tracer's host cost).
+TRACER_HOOKS = ("request_submitted", "request_granted", "prefill_chunk", "first_token",
+                "decode_tick", "request_retry", "quarantine", "request_finished")
+JOURNAL_MODES = ("off", "every_tick", "every_record", "os")
+# (b): the child's two engines over the same model, greedy and sampled, 8
+# requests each on 4 slots, every request with a client_request_id. The
+# budgets leave, at the sampled engine's engine_crash draw after tick
+# ``crash_tick``, two requests finished, four decoding and two queued; its
+# journal tears the append of request ``torn_unit``.
+JOURNAL_CHILD = dict(slots=4, budgets=(4, 4, 24, 24, 24, 24, 24, 24), crash_tick=12,
+                     torn_unit=3, temperature=0.8, top_k=50, gen_seed=2700)
+# (c): phase 26 (a)'s Llama (FT_ROW: 4 layers at full width, bf16, flash)
+# with TelemetryKwargs(tracing=True, profile=True): steps with the tracer
+# on and off in turn on one model, one save, one load.
+TRACED_LOOP = dict(timed=4, windows=4, profiled=2)
+EXPLAIN_TOL = 1e-6  # seconds: explain()'s terms against each request's TTFT
+
+
+def journal_module(device="cuda", width=FULL_WIDTH, seed=0):
+    """Phase 26 (d)'s Llama at ``width`` (phase 7's seeded init, bf16)."""
+    import torch
+
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**width, max_position_embeddings=2048, dtype=torch.bfloat16)
+    module = LlamaForCausalLM(cfg, device=device)
+    module.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return module.to(torch.bfloat16)
+
+
+def _journal_trace(vocab, spec):
+    import numpy as np
+
+    rng = np.random.default_rng(27)
+    return [rng.integers(1, vocab, (spec["prompt_len"],)) for _ in range(spec["requests"])]
+
+
+def _serve(engine, prompts, budget, cids=None, rows=None):
+    """Submit every prompt, tick until drained; the rows by prompt, the
+    wall seconds and the ticks. ``rows`` collects every row polled, by id
+    (requests submitted before finish here too)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks0 = engine._stats["ticks"]
+    ids = [engine.submit(p, max_new_tokens=budget,
+                         client_request_id=cids[i] if cids else None)
+           for i, p in enumerate(prompts)]
+    rows = {} if rows is None else rows
+    while engine.pending:
+        engine.tick()
+        rows.update((r["id"], r) for r in engine.poll())
+    torch.cuda.synchronize()
+    return [rows[i] for i in ids], time.perf_counter() - t0, engine._stats["ticks"] - ticks0
+
+
+def _steady_syncs(engine, vocab, budget, n):
+    """Host syncs a tick over ``n`` profiled decode ticks with every slot
+    live (torch.profiler's SYNC_CALLS and device-to-host copies)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    for _ in range(engine.n_slots):
+        engine.submit(rng.integers(1, vocab, (8,)), max_new_tokens=budget)
+    while engine._queue or engine._prefilling:
+        engine.tick()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=profiled_activities(True)) as prof:
+        for _ in range(n):
+            engine.tick()
+        torch.cuda.synchronize()
+    while engine.pending:
+        engine.tick()
+    engine.poll()
+    counts = sync_counts(prof, n)
+    return {**counts, "syncs": sum(counts[k] for k in SYNC_CALLS)}
+
+
+class _HostCost:
+    """Host seconds spent in chosen methods of chosen objects: each method
+    is replaced on its instance by a wrapper that adds its call's
+    perf_counter span to the object's tally."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, name, obj, methods):
+        self.seconds.setdefault(name, 0.0)
+        for m in methods:
+            fn = getattr(obj, m)
+
+            def timed(*args, _fn=fn, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    self.seconds[name] += time.perf_counter() - t0
+
+            setattr(obj, m, timed)
+
+
+def _same_rows(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(np.array_equal(x["tokens"], y["tokens"])
+                                    for x, y in zip(a, b))
+
+
+def journal_modes_part(module, root, spec=JOURNAL_ENGINE, device="cuda",
+                       width=FULL_WIDTH) -> dict:
+    """(a): the four ways, interleaved, with tok/s, TTFT, tick ms, host syncs
+    a tick, the journal's appends, bytes and fsyncs a tick; explain()'s
+    terms, the Chrome trace and the metrics text of the last traced run;
+    the swap and the canary window."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Model, ServingConfig, ServingEngine
+    from accelerate_tpu_torch.generation import _decode_params
+    from accelerate_tpu_torch.tracing import TraceRecorder
+
+    t_start = time.perf_counter()
+    vocab = module.config.vocab_size
+    prompts = _journal_trace(vocab, spec)
+    cids = [f"a-{i}" for i in range(len(prompts))]
+    budget = spec["new_tokens"]
+    scfg = dict(n_slots=spec["slots"], max_len=spec["prompt_len"] + budget + 8,
+                min_prefill_chunk=min(16, spec["prompt_len"]),
+                max_prefill_chunk=spec["prompt_len"])
+
+    def engine_for(mode, tag):
+        tracer = None if mode == "off" else TraceRecorder()
+        jkw = {} if mode == "off" else dict(journal_dir=os.path.join(root, f"a_{tag}_{mode}"),
+                                           journal_fsync=mode)
+        return ServingEngine(Model(module), ServingConfig(**scfg, **jkw), tracing=tracer)
+
+    # A warm-up: the whole trace once, unmeasured.
+    warm = engine_for("off", "warm")
+    warm.warmup()
+    _serve(warm, prompts, budget)
+    runs, last = {m: [] for m in JOURNAL_MODES}, None
+    for rep in range(spec["repeats"]):
+        # Each repeat in the other order, so a drift of the host weighs on
+        # every mode alike.
+        for mode in (JOURNAL_MODES if rep % 2 == 0 else JOURNAL_MODES[::-1]):
+            engine = engine_for(mode, rep)
+            cost = _HostCost()
+            if engine.tracing is not None:
+                cost.wrap("tracing", engine.tracing, TRACER_HOOKS)
+                cost.wrap("journal", engine.journal, ("append", "tick_flush"))
+            rows, wall, ticks = _serve(engine, prompts, budget, cids)
+            stats = engine.stats()
+            js = engine.journal_stats()
+            run = {"rows": rows, "wall_s": wall, "ticks": ticks,
+                   "tok_s": stats["tokens_out"] / wall,
+                   "ttft_p50_s": stats["ttft_p50_s"], "ttft_p95_s": stats["ttft_p95_s"],
+                   "tick_ms": wall / ticks * 1e3,
+                   "tracing_ms_per_tick": cost.seconds.get("tracing", 0.0) / ticks * 1e3,
+                   "journal_ms_per_tick": cost.seconds.get("journal", 0.0) / ticks * 1e3,
+                   "host_reads_per_tick": (stats["prefill_chunks"]
+                                           + engine._stats["host_reads"]) / ticks,
+                   "journal": None if js is None else {
+                       "appends_per_tick": js["appends"] / ticks,
+                       "bytes_per_tick": js["bytes_written"] / ticks,
+                       "fsyncs_per_tick": js["syncs"] / ticks, "appends": js["appends"],
+                       "bytes": js["bytes_written"], "fsyncs": js["syncs"]}}
+            if engine.tracing is not None:
+                tr = engine.tracing
+                sums = []
+                for rid in tr.request_ids():
+                    ex = tr.explain(rid)
+                    sums.append(abs(sum(ex["terms"].values()) - ex["ttft_s"]))
+                run["explain_max_residual_s"] = max(sums)
+                run["explain_requests"] = len(sums)
+                run["spans"] = tr.stats()["spans"]
+                last = engine
+            if rep == 0:
+                run["syncs_per_tick"] = _steady_syncs(engine, vocab, 4 + spec["profiled_ticks"],
+                                                      spec["profiled_ticks"])
+            if engine.journal is not None:
+                engine.close()
+            runs[mode].append(run)
+    tr = last.tracing
+    trace_path = tr.export_chrome_trace(os.path.join(root, "a_trace.json"))
+    with open(trace_path) as f:
+        doc = json.load(f)
+    names = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    pid_of = {v: k for k, v in names.items()}
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    chrome_ok = (len(pid_of) == len(names) and len(spans) == tr.stats()["spans"]
+                 and all(pid_of.get(e["cat"]) == e["pid"] for e in spans))
+    metrics = tr.metrics_text()
+    metrics_ok = (metrics == tr.hub.render() and "accelerate_tpu_serving_ticks" in metrics
+                  and "accelerate_tpu_tracing_spans_total" in metrics)
+    off = runs["off"][0]["rows"]
+    # The swap: half the trace in flight on version 0, the rest admitted
+    # after it on a second seeded tree.
+    module2 = journal_module(device, width, seed=1)
+    params2 = _decode_params(module2)
+    half = len(prompts) // 2
+    engine = engine_for("every_tick", "swap")
+    ids = [engine.submit(p, max_new_tokens=budget, client_request_id=cids[i])
+           for i, p in enumerate(prompts[:half])]
+    got = {}
+    for _ in range(spec["swap_after"]):
+        engine.tick()
+        got.update((r["id"], r) for r in engine.poll())
+    in_flight = len(engine._decoding) + len(engine._prefilling)
+    engine.swap_params(params2, weights_version=1)
+    rest, _, _ = _serve(engine, prompts[half:], budget, cids[half:], rows=got)
+    swap_rows = [got[i] for i in ids] + rest
+    swap = {"in_flight_at_swap": in_flight, "decode_passes": engine._stats["decode_steps"],
+            "ticks": engine._stats["ticks"], "host_reads": engine._stats["host_reads"],
+            "versions": [r["weights_version"] for r in swap_rows],
+            "versions_left": sorted(engine._params_by_version)}
+    engine.close()
+    # The canary: a quarter of the admissions on the second tree, then the
+    # window rolled back and half the trace again.
+    engine = engine_for("off", "canary")
+    engine.begin_canary(params2, weights_version=1, fraction=spec["canary_fraction"])
+    canary_rows, _, _ = _serve(engine, prompts, budget)
+    status = engine.canary_status()
+    cohorts = {v: engine.cohort_stats(v) for v in (0, 1)}
+    engine.rollback_canary()
+    after_rows, _, _ = _serve(engine, prompts[:half], budget)
+    canary = {"status": status, "cohorts": cohorts,
+              "versions": [r["weights_version"] for r in canary_rows],
+              "after_versions": [r["weights_version"] for r in after_rows],
+              "rolled_back": engine.fault_stats()["rolled_back"]}
+    del module2, params2, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = len(prompts)
+    want_candidate = int(round(n * spec["canary_fraction"]))
+    syncs = {m: runs[m][0]["syncs_per_tick"]["syncs"] for m in JOURNAL_MODES}
+    traced = [r for m in JOURNAL_MODES[1:] for r in runs[m]]
+    checks = {
+        "rows_bit_equal_all_modes": all(_same_rows(r["rows"], off)
+                                        for m in JOURNAL_MODES for r in runs[m]),
+        "all_ok": all(r["status"] == "ok" for r in off),
+        "host_syncs_per_tick_equal": len(set(syncs.values())) == 1,
+        "host_reads_per_tick_equal": len({r["host_reads_per_tick"] for m in JOURNAL_MODES
+                                          for r in runs[m]}) == 1,
+        "explain_sums_to_ttft": all(r["explain_max_residual_s"] <= EXPLAIN_TOL
+                                    and r["explain_requests"] == n for r in traced),
+        "chrome_trace_one_pid_per_subsystem": chrome_ok,
+        "metrics_text_is_the_hub_render": metrics_ok,
+        "fsyncs_by_policy": all(r["journal"]["fsyncs"] == 0 for r in runs["os"])
+        and all(r["journal"]["fsyncs"] == r["journal"]["appends"]
+                for r in runs["every_record"])
+        and all(0 < r["journal"]["fsyncs"] <= r["ticks"] for r in runs["every_tick"]),
+        "swap_in_flight_bit_equal_on_v0": in_flight > 0
+        and _same_rows(swap_rows[:half], off[:half])
+        and swap["versions"] == [0] * half + [1] * (n - half),
+        "swap_two_versions_decoded": swap["decode_passes"] > swap["ticks"] - half
+        and swap["versions_left"] == [1],
+        "canary_routed_exactly": (status["routed_candidate"], status["routed_primary"])
+        == (want_candidate, n - want_candidate)
+        and canary["versions"].count(1) == want_candidate,
+        "canary_primary_rows_bit_equal": _same_rows(
+            [r for r in canary_rows if r["weights_version"] == 0],
+            [off[i] for i, r in enumerate(canary_rows) if r["weights_version"] == 0]),
+        "rollback_bit_equal_to_never_publishing": _same_rows(after_rows, off[:half])
+        and set(canary["after_versions"]) == {0} and canary["rolled_back"] == 1,
+    }
+
+    def summary(rs):
+        keys = ("tok_s", "ttft_p50_s", "ttft_p95_s", "tick_ms", "tracing_ms_per_tick",
+                "journal_ms_per_tick", "host_reads_per_tick")
+        out = {k: [r[k] for r in rs] for k in keys}
+        out["syncs_per_tick"] = rs[0]["syncs_per_tick"]
+        if rs[0]["journal"] is not None:
+            out["journal"] = [r["journal"] for r in rs]
+        return out
+
+    return {"modes": {m: summary(runs[m]) for m in JOURNAL_MODES},
+            "spans": runs["every_tick"][0]["spans"],
+            "explain_max_residual_s": max(r["explain_max_residual_s"] for r in traced),
+            "swap": swap, "canary": {k: v for k, v in canary.items()},
+            "seconds": time.perf_counter() - t_start, "checks": checks,
+            "_rows": off}
+
+
+def journal_child_engines(module, root, spec=JOURNAL_CHILD, device="cuda", telemetry=None,
+                          chaos=None):
+    """(b)'s two engines: greedy (``g``) and sampled (``s``), each over its
+    journal under ``root`` (None: no journal), the sampled one with
+    ``telemetry`` and ``chaos``."""
+    from accelerate_tpu_torch import Model, ServingConfig, ServingEngine
+
+    base = dict(n_slots=spec["slots"], max_len=64 + max(spec["budgets"]) + 8,
+                min_prefill_chunk=16, max_prefill_chunk=64)
+    wal = (lambda name: {} if root is None else {"journal_dir": os.path.join(root, name)})
+    g = ServingEngine(Model(module), ServingConfig(**base, **wal("g")))
+    s = ServingEngine(Model(module), ServingConfig(**base, **wal("s"), temperature=spec[
+        "temperature"], top_k=spec["top_k"]), telemetry=telemetry, chaos=chaos)
+    return g, s
+
+
+def journal_child_requests(vocab, spec=JOURNAL_CHILD, device="cuda"):
+    """(b)'s 16 requests: (engine, prompt, budget, client_request_id,
+    generator)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(2727)
+    out = []
+    for name in ("g", "s"):
+        for i, budget in enumerate(spec["budgets"]):
+            gen = (torch.Generator(device=device).manual_seed(spec["gen_seed"] + i)
+                   if name == "s" else None)
+            out.append((name, rng.integers(1, vocab, (64,)), budget, f"{name}-{i}", gen))
+    return out
+
+
+def _submit_all(engines, requests):
+    """Submit (b)'s requests; their ids by client_request_id, as (engine,
+    id) pairs."""
+    return {cid: (name, engines[name].submit(p, max_new_tokens=b, generator=gen,
+                                             client_request_id=cid))
+            for name, p, b, cid, gen in requests}
+
+
+def _drain_pair(engines) -> dict:
+    """Tick the engines in turn until both are drained; every row polled,
+    by (engine, id)."""
+    rows = {}
+    while any(e.pending for e in engines.values()):
+        for name, engine in engines.items():
+            engine.tick()
+            rows.update(((name, r["id"]), r) for r in engine.poll())
+    return rows
+
+
+def journal_child_main(args: dict) -> int:
+    """(b): the process that dies. It builds phase 27's model from its
+    seed, the two engines over ``args["root"]``'s journals (the sampled
+    one with a tracer, the profiler's flight ring and a seeded schedule:
+    one torn journal append, then ``engine_crash``), submits the 16
+    requests and ticks both engines in turn, printing before each tick how
+    many of its requests have finished, decode and wait. The crash exits
+    78."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, FaultInjector, TelemetryKwargs
+
+    device = args.get("device", "cuda")
+    if device == "cpu":
+        _stub_cuda_for_cpu()
+    else:
+        torch.empty(1, device=device)  # the CUDA context, before the wait
+    spec = {**JOURNAL_CHILD, **args.get("spec", {})}
+    width = {**FULL_WIDTH, **args.get("width", {})}
+    timeline = {"ready_s": time.perf_counter() - RUN_START}
+    while args.get("go") and not os.path.exists(args["go"]):
+        time.sleep(0.05)
+    timeline["go_s"] = time.perf_counter() - RUN_START
+    module = journal_module(device, width)
+    acc = Accelerator(cpu=device == "cpu", project_dir=args["project"],
+                      kwargs_handlers=[TelemetryKwargs(tracing=True, profile=True)])
+    chaos = FaultInjector(seed=27, schedule=[
+        {"point": "journal_append", "kind": "torn_write", "tick": 0, "unit": spec["torn_unit"]},
+        {"point": "engine_crash", "kind": "crash", "tick": spec["crash_tick"]}])
+    engines = dict(zip(("g", "s"), journal_child_engines(
+        module, args["root"], spec, device, telemetry=acc.telemetry)))
+    for engine in engines.values():
+        engine.warmup()
+    engines["s"].chaos = chaos  # after the warm-up, whose ticks the schedule does not count
+    _submit_all(engines, journal_child_requests(module.config.vocab_size, spec, device))
+    timeline["submitted_s"] = time.perf_counter() - RUN_START
+    finished = 0
+    for _ in range(10 * max(spec["budgets"])):
+        for name, engine in engines.items():
+            states = {"finished": finished,
+                      "decoding": sum(len(e._decoding) for e in engines.values()),
+                      "queued": sum(len(e._queue) + len(e._prefilling)
+                                    for e in engines.values())}
+            emit({"journal_child": {"engine": name, "tick": engine._stats["ticks"],
+                                    "states": states, "timeline": timeline}})
+            engine.tick()
+            finished += len(engine.poll())
+    emit({"journal_child": {"error": "engine_crash never fired"}})
+    return 1
+
+
+class JournalChild:
+    """(b): ``chip_smoke.py --journal-child``, started now (it imports and
+    makes its CUDA context, then waits for the file ``go``); ``result()``
+    reads its exit code and its last line."""
+
+    def __init__(self, device, root, width, spec, go):
+        self.project = os.path.join(root, "project")
+        args = {"device": device, "root": root, "project": self.project, "width": width or {},
+                "spec": spec or {}, "go": go}
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--journal-child", json.dumps(args)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=Path(__file__).resolve().parent)
+
+    def result(self) -> dict:
+        try:
+            stdout, stderr = self.proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            stdout, stderr = self.proc.communicate()
+        lines = [json.loads(x)["journal_child"] for x in stdout.splitlines()
+                 if x.startswith('{"journal_child"')]
+        rc = self.proc.returncode
+        return {"exit": rc, "last": lines[-1] if lines else None,
+                "wall_s": time.perf_counter() - self.t0,
+                "stderr": stderr[-2000:] if rc != 78 else ""}
+
+
+def journal_crash_part(module, child, root, spec=JOURNAL_CHILD, device="cuda") -> dict:
+    """(b) in the parent: the same 16 requests served uninterrupted (it
+    measures no time: the child runs beside it), then the child's exit,
+    its telemetry and flight bundle, and recover() on new engines over its
+    journals: cached rows flagged and not run again, duplicates deduped,
+    the torn record counted, every request ``ok`` once and bit-equal to the
+    uninterrupted run."""
+    import glob
+
+    t_start = time.perf_counter()
+    vocab = module.config.vocab_size
+    engines = dict(zip(("g", "s"), journal_child_engines(module, None, spec, device)))
+    for engine in engines.values():
+        engine.warmup()
+    requests = journal_child_requests(vocab, spec, device)
+    ids = _submit_all(engines, requests)
+    ref = _drain_pair(engines)
+    ref = {cid: ref[key] for cid, key in ids.items()}
+    del engines
+    res = child.result()
+    tel_path = os.path.join(child.project, "telemetry", "rank_0.jsonl")
+    names = [e.get("event") for e in (_jsonl(tel_path) if os.path.exists(tel_path) else [])]
+    flights = sorted(glob.glob(os.path.join(child.project, "flight_*.json")))
+    bundle = {}
+    if flights:
+        with open(flights[-1]) as f:
+            bundle = json.load(f)
+    # Recovery: new engines over the dead child's journals.
+    engines = dict(zip(("g", "s"), journal_child_engines(module, root, spec, device)))
+    for engine in engines.values():
+        engine.warmup()
+    t_rec = time.perf_counter()
+    summaries = {name: engine.recover() for name, engine in engines.items()}
+    recover_s = time.perf_counter() - t_rec
+    cached = {(name, r["id"]): r for name, e in engines.items() for r in e.poll()}
+    resubmit = _submit_all(engines, [(n, p, b, cid, None) for n, p, b, cid, _ in requests])
+    dedup_rows = [r for e in engines.values() for r in e.poll()]
+    replayed = _drain_pair(engines)
+    by_cid = {cid: replayed.get(key, cached.get(key)) for cid, key in ids.items()}
+    admitted = sum(sm["recovered_inflight"] + sm["recovered_terminal"]
+                   for sm in summaries.values())
+    n_cached = sum(sm["recovered_terminal"] for sm in summaries.values())
+    executions = sum(e.stats()["requests_completed"] for e in engines.values())
+    states = (res.get("last") or {}).get("states", {})
+    checks = {
+        "child_exit_78": res["exit"] == 78,
+        "crash_with_finished_decoding_queued": all(states.get(k, 0) > 0 for k in (
+            "finished", "decoding", "queued")),
+        "telemetry_has_crash_and_injector_log": "serving_engine_crash" in names
+        and "chaos_injected_log" in names,
+        "flight_bundle_has_recent_spans": bool(bundle.get("recent_spans")),
+        "cached_rows_flagged_not_rerun": bool(cached) and len(cached) == n_cached
+        and all(r["recovered"] and r["status"] == "ok" for r in cached.values())
+        and not (set(cached) & set(replayed)),
+        "executions_after_crash": admitted == len(ids)
+        and executions == admitted - n_cached == len(replayed),
+        "resubmits_dedupe": resubmit == ids
+        and sum(e.journal_stats()["deduped"] for e in engines.values()) == len(ids)
+        and len(dedup_rows) == n_cached,
+        "torn_record_counted": summaries["s"]["corrupt_skipped"] >= 1,
+        "every_request_ok_once": sorted(set(cached) | set(replayed)) == sorted(ids.values())
+        and all(r is not None and r["status"] == "ok" for r in by_cid.values()),
+        "rows_bit_equal_uninterrupted": all(
+            by_cid[cid] is not None and _same_rows([by_cid[cid]], [ref[cid]]) for cid in ids),
+        "replays_flagged_recovered": all(r["recovered"] and r["attempt"] == 2
+                                         for r in replayed.values()),
+    }
+    del engines
+    return {"child": res, "summaries": summaries, "recover_s": recover_s,
+            "cached": n_cached, "replayed": len(replayed), "admitted": admitted,
+            "events": sorted({n for n in names if n}),
+            "flight": os.path.basename(flights[-1]) if flights else None,
+            "recent_spans": len(bundle.get("recent_spans") or []),
+            "seconds": time.perf_counter() - t_start, "checks": checks}
+
+
+def traced_loop_part(hf, root, device="cuda", width=FULL_WIDTH, row=FT_ROW,
+                     spec=TRACED_LOOP) -> dict:
+    """(c): phase 26 (a)'s Llama with TelemetryKwargs(tracing=True,
+    profile=True): step ms and host syncs a step with the tracer on and
+    off in turn on one model, one save and one load as spans of their
+    events' seconds, and the flash launches of the whole run."""
+    import torch
+
+    from accelerate_tpu_torch import TelemetryKwargs
+
+    t_start = time.perf_counter()
+    acc, step, batches = ft_llama(device, width, row, project_dir=os.path.join(root, "c"),
+                                  handler=TelemetryKwargs(tracing=True, profile=True))
+    tr = acc.telemetry.tracing
+    # The path's launches: counted from zero just before, read just after.
+    hf.reset_launch_counts()
+    state = acc.train_state
+    state, _ = step(state, batches[0])  # the first step builds what the others reuse
+    # Windows in the order on, off, off, on, ..., so that a drift of the
+    # host weighs on both sides alike.
+    on_ms, off_ms = [], []
+    for w in range(2 * spec["windows"]):
+        on = w % 4 in (0, 3)
+        acc.telemetry.tracing = tr if on else None
+        (on_ms if on else off_ms).append(_timed_steps(acc, step, batches, spec["timed"]))
+    acc.telemetry.tracing = tr
+    on_syncs = _profiled_syncs(acc, step, batches, spec["profiled"])
+    acc.telemetry.tracing = None
+    off_syncs = _profiled_syncs(acc, step, batches, spec["profiled"])
+    acc.telemetry.tracing = tr
+    out = acc.save_state(os.path.join(root, "c_ckpt"))
+    acc.load_state(out)
+    torch.cuda.synchronize()
+    launches, variant_launches = dict(hf.LAUNCHES), dict(hf.VARIANT_LAUNCHES)
+    events = {e["event"]: e for e in _jsonl(acc.telemetry.path)
+              if e.get("event") in ("checkpoint_save", "checkpoint_load")}
+    spans = {s.name: s for s in tr.spans() if s.subsystem == "checkpoint"}
+    durations = {name: (spans[name].t1 - spans[name].t0, events[name]["seconds"])
+                 for name in spans if name in events}
+    acc.end_training()
+    del acc, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    sync_on = sum(on_syncs[k] for k in SYNC_CALLS)
+    sync_off = sum(off_syncs[k] for k in SYNC_CALLS)
+    spread = max(max(on_ms) - min(on_ms), max(off_ms) - min(off_ms))
+    on, off = sum(on_ms) / len(on_ms), sum(off_ms) / len(off_ms)
+    checks = {
+        "checkpoint_spans_last_their_seconds": sorted(durations) == [
+            "checkpoint_load", "checkpoint_save"]
+        and all(abs(a - b) <= 1e-6 for a, b in durations.values()),
+        "step_ms_within_spread": abs(on - off) <= max(spread, 0.02 * off),
+        "host_syncs_equal": sync_on == sync_off,
+        "flash_launched": all(launches.get(k, 0) > 0 for k in KERNELS),
+    }
+    return {"step_ms": {"tracing_on": on, "tracing_off": off,
+                        "windows": {"tracing_on": on_ms, "tracing_off": off_ms}},
+            "syncs_per_step": {"tracing_on": on_syncs, "tracing_off": off_syncs},
+            "checkpoint_s": {k: {"span": a, "event": b} for k, (a, b) in durations.items()},
+            "launches": launches, "variant_launches": variant_launches,
+            "seconds": time.perf_counter() - t_start, "checks": checks}
+
+
+def journal_phase(hf, device="cuda", width=FULL_WIDTH, row=FT_ROW, spec=JOURNAL_ENGINE,
+                  child_spec=None) -> dict:
+    """Phase 27: (a) and (c), which time, then (b), which does not: its
+    child starts with the phase and waits (imported, its CUDA context
+    made) until (b) begins; the parent's uninterrupted run of its requests
+    runs beside it."""
+    import torch
+
+    t0 = time.perf_counter()
+    root, room = checkpoint_root(4 * llama_n_params(dict(width,
+                                                         num_hidden_layers=row["layers"])) * 4)
+    narrow = {k: v for k, v in width.items() if width[k] != FULL_WIDTH.get(k)}
+    go = os.path.join(root, "go_b")
+    child = JournalChild(device, os.path.join(root, "b"), narrow, child_spec, go)
+    try:
+        module = journal_module(device, width)
+        a = journal_modes_part(module, root, spec, device, width)
+        rows = a.pop("_rows")
+        c = traced_loop_part(hf, root, device, width, row)
+        open(go, "w").close()
+        b = journal_crash_part(module, child, os.path.join(root, "b"),
+                               {**JOURNAL_CHILD, **(child_spec or {})}, device)
+        del module, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if child.proc.poll() is None:
+            child.proc.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    variant_launches = c.pop("variant_launches")
+    return {"phase": "tracing_journal", "a": a, "b": b, "c": c, "checkpoint_root": room,
+            "phase_s": time.perf_counter() - t0, **journal_gate(a, b, c),
+            "_variant_launches": variant_launches}
+
+
+def journal_gate(a, b, c) -> dict:
+    """Phase 27's checks: every check of its three parts, by part."""
+    checks = {f"{name}_{k}": v for name, part in (("a", a), ("b", b), ("c", c))
+              for k, v in part["checks"].items()}
+    return {"checks": checks, "ok": all(checks.values())}
+
+
 def _stub_cuda_for_cpu():
     """The CUDA calls of the phases as no-ops, for a rehearsal on the CPU."""
     import torch
@@ -9583,6 +10196,20 @@ def main() -> int:
         print(f"chip_smoke: fault-tolerance phase 26 failed: {failed}", file=sys.stderr)
         return 1
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 27. request tracing and the crash-durable journal: (a) the engine's
+    # four ways, a swap and a canary window, (c) the traced training loop,
+    # (b) a child that dies by engine_crash and the recovery here
+    jp = journal_phase(hf)
+    traced_launches = jp.pop("_variant_launches")
+    emit(jp)
+    if not jp["ok"]:
+        failed = sorted(k for k, v in jp["checks"].items() if not v)
+        print(f"chip_smoke: tracing/journal phase 27 failed: {failed}", file=sys.stderr)
+        return 1
+
     emit({"kernels": kernel_summary(timed, cases, main_path, {
         "gemma_2b_step": chassis["gemma_2b_train"]["variant_launches"],
         "mixtral_8x7b_step": moe["mixtral_8x7b_train"]["variant_launches"],
@@ -9601,7 +10228,7 @@ def main() -> int:
         "tp_step": tpar["variant_launches"],
         "tp_generate": tpar["generate_variant_launches"],
         **pipe["variant_launches"], **ep["variant_launches"], **rest["variant_launches"],
-        "ft_loop": ft_launches})})
+        "ft_loop": ft_launches, "traced_loop": traced_launches})})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -9653,6 +10280,8 @@ if __name__ == "__main__":
         sys.exit(tp_child_main(json.loads(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--ft-child":
         sys.exit(ft_child_main(json.loads(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--journal-child":
+        sys.exit(journal_child_main(json.loads(sys.argv[2])))
     if len(sys.argv) == 2 and sys.argv[1] == "--drop-witness":
         sys.exit(drop_witness_main())
     sys.exit(main())

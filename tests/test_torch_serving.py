@@ -345,8 +345,7 @@ def test_cache_dtype_takes_int8_only():
         ServingConfig(cache_dtype=torch.float16)
 
 
-_UNPORTED_VALUES = {"enabled": False, "journal_dir": "wal", "journal_fsync": "os",
-                    "journal_segment_records": 8}
+_UNPORTED_VALUES = {"enabled": False}
 
 
 @pytest.mark.parametrize("field", sorted(_UNPORTED_SERVING_FIELDS))
@@ -355,10 +354,59 @@ def test_unported_serving_config_fields_raise(field):
         ServingConfig(**{field: _UNPORTED_VALUES[field]})
 
 
-def test_client_request_id_is_refused(pair):
-    engine = ServingEngine(pair[2], ServingConfig(n_slots=1, max_len=8))
-    with pytest.raises(NotImplementedError, match="item 8.8"):
-        engine.submit(np.ones((2,), np.int32), max_new_tokens=2, client_request_id="a")
+@pytest.mark.parametrize("field,value", [("journal_dir", "wal"), ("journal_fsync", "os"),
+                                         ("journal_segment_records", 8)])
+def test_journal_fields_are_acted_on(pair, tmp_path, field, value):
+    """Each journal field reaches the engine's RequestJournal (the journal
+    itself: tests/test_torch_journal.py)."""
+    kw = {"journal_dir": str(tmp_path / "wal"), field: value}
+    if field == "journal_dir":
+        kw[field] = str(tmp_path / value)
+    engine = ServingEngine(pair[2], ServingConfig(n_slots=1, max_len=16, **kw))
+    jr = engine.journal
+    assert (jr.dir, jr.fsync, jr.segment_records) == (
+        kw["journal_dir"], kw.get("journal_fsync", "every_tick"),
+        kw.get("journal_segment_records", 512))
+    engine.run([np.ones((3,), np.int32)], max_new_tokens=2)
+    assert engine.journal_stats()["appends"] == engine.stats()["journal"]["appends"] >= 3
+
+
+@pytest.mark.parametrize("arg", ["journal", "tracing"])
+def test_engine_takes_a_journal_and_a_tracer(pair, tmp_path, arg):
+    """``journal=`` (a RequestJournal) and ``tracing=`` (a TraceRecorder),
+    the two engine arguments this module once listed as refused, are
+    acted on: the journal gets the request's records, the tracer its
+    spans."""
+    from accelerate_tpu_torch import RequestJournal, TraceRecorder
+
+    obj = RequestJournal(str(tmp_path / "wal")) if arg == "journal" else TraceRecorder()
+    engine = ServingEngine(pair[2], ServingConfig(n_slots=1, max_len=16), **{arg: obj})
+    engine.run([np.ones((3,), np.int32)], max_new_tokens=2)
+    if arg == "journal":
+        assert engine.journal is obj
+        records, _ = RequestJournal(str(tmp_path / "wal")).replay()
+        assert [r["t"] for r in records if "rid" in r] == ["admit", "bind", "terminal"]
+    else:
+        assert engine.tracing is obj
+        assert [s["kind"] for s in obj.tick_trace()][0] == "queued"
+        assert obj.stats()["by_kind"]["finish"] == 1
+
+
+def test_client_request_id_dedupes(pair):
+    """A second submit with a seen key runs nothing and returns the first
+    id; once finished, its row comes back through poll()."""
+    engine = ServingEngine(pair[2], ServingConfig(n_slots=1, max_len=16))
+    rid = engine.submit(np.ones((2,), np.int32), max_new_tokens=2, client_request_id="a")
+    assert engine.submit(np.ones((2,), np.int32), max_new_tokens=2, client_request_id="a") == rid
+    rows = []
+    while engine.pending:
+        engine.tick()
+        rows += engine.poll()
+    (row,) = rows
+    assert engine.submit([5, 6], max_new_tokens=3, client_request_id="a") == rid
+    (again,) = engine.poll()
+    assert again["id"] == rid and engine.stats()["requests_completed"] == 1
+    np.testing.assert_array_equal(again["tokens"], row["tokens"])
 
 
 @pytest.mark.parametrize("arg", sorted(serving._UNPORTED_ENGINE_ARGS))
@@ -784,12 +832,196 @@ def test_preemption_drain_sheds_the_queue_and_finishes_in_flight(pair):
     assert engine.fault_stats()["preempted"] is True
 
 
-def test_engine_crash_and_tracing_stay_refused(pair):
-    from accelerate_tpu_torch import FaultInjector
+def test_engine_crash_and_tracing_are_taken(pair):
+    """An injector naming ``engine_crash`` and a tracer attach (the crash
+    itself: tests/test_torch_journal.py); the compile manager stays
+    refused, naming its item."""
+    from accelerate_tpu_torch import FaultInjector, TraceRecorder
 
     _, _, module = pair
-    with pytest.raises(NotImplementedError, match="item 12.2"):
-        ServingEngine(module, ServingConfig(n_slots=1, max_len=32),
-                      chaos=FaultInjector(rates={"engine_crash": 0.1}))
-    with pytest.raises(NotImplementedError, match="item 12.2"):
-        ServingEngine(module, ServingConfig(n_slots=1, max_len=32), tracing=object())
+    injector, tracer = FaultInjector(rates={"engine_crash": 0.0}), TraceRecorder()
+    engine = ServingEngine(module, ServingConfig(n_slots=1, max_len=32), chaos=injector,
+                           tracing=tracer)
+    assert engine.chaos is injector and engine.tracing is tracer
+    assert injector.on_inject == tracer.on_fault
+    with pytest.raises(NotImplementedError, match="item 12.4"):
+        ServingEngine(module, ServingConfig(n_slots=1, max_len=32), compile_manager=object())
+
+
+# ---------------------------------------------------------------------------
+# Weight versions and the canary window
+# ---------------------------------------------------------------------------
+
+
+def _other_weights(module, seed):
+    """A second tree of ``module``'s parameters: each moved by a
+    numpy-seeded perturbation."""
+    rng = np.random.default_rng(seed)
+    return {k: v.detach() + torch.from_numpy(rng.normal(0, 0.05, v.shape).astype(np.float32))
+            for k, v in module.named_parameters()}
+
+
+def _module_with(cfg, params):
+    m = LlamaForCausalLM(cfg)
+    m.load_state_dict(params)
+    return m
+
+
+def _jax_params(cfg, params):
+    from accelerate_tpu_torch.models import llama_params_to_flax
+
+    return jax.tree.map(lambda t: jnp.asarray(t.numpy()), llama_params_to_flax(cfg, params))
+
+
+def test_swap_mid_flight_keeps_in_flight_requests_on_their_version(pair):
+    """Requests in flight at the swap finish on version 0, bit-equal to a
+    run without the swap; later admissions bind version 1 and equal an
+    engine built on the new weights; the JAX engine gives the same rows."""
+    jmodel, cfg, module = pair
+    params1 = _other_weights(module, 1)
+    prompts = _prompts([5, 9, 4, 7], seed=51)
+    kw = dict(n_slots=2, max_len=32, prefill_chunks=[4, 8])
+    base = ServingEngine(module, ServingConfig(**kw)).run(prompts, max_new_tokens=6)
+    new = ServingEngine(_module_with(cfg, params1), ServingConfig(**kw)).run(
+        prompts, max_new_tokens=6)
+    runs = []
+    for eng, swap in ((ServingEngine(module, ServingConfig(**kw)), params1),
+                      (JaxServingEngine(jmodel, JaxServingConfig(**kw)),
+                       _jax_params(cfg, params1))):
+        ids = [eng.submit(p, max_new_tokens=6) for p in prompts[:2]]
+        for _ in range(3):
+            eng.tick()
+        eng.swap_params(swap, weights_version=1)
+        ids += [eng.submit(p, max_new_tokens=6) for p in prompts[2:]]
+        rows = {}
+        while eng.pending:
+            eng.tick()
+            rows.update((r["id"], r) for r in eng.poll())
+        runs.append([rows[i] for i in ids])
+        assert eng.weights_version == 1 and list(eng._params_by_version) == [1]
+    got, want = runs
+    versions = [r["weights_version"] for r in got]
+    assert versions == [r["weights_version"] for r in want] == [0, 0, 1, 1]
+    for i, row in enumerate(got):
+        np.testing.assert_array_equal(row["tokens"], (base if i < 2 else new)[i])
+        np.testing.assert_array_equal(row["tokens"], np.asarray(want[i]["tokens"]))
+        gap_module = module if i < 2 else _module_with(cfg, params1)
+        assert _min_greedy_gap(cfg, gap_module, row["tokens"], len(prompts[i])) > MIN_GAP
+
+
+def test_canary_routes_exact_counts_and_rollback_equals_never_publishing(pair):
+    """``begin_canary(fraction=0.25)``: of 8 admissions exactly 2 go to the
+    candidate, in the JAX engine's order; rows of each arm equal their
+    weights' run; after ``rollback_canary`` later rows equal an engine that
+    never published; ``promote_canary`` makes the candidate primary."""
+    jmodel, cfg, module = pair
+    params1 = _other_weights(module, 2)
+    prompts = _prompts([5, 6, 4, 7, 5, 8, 3, 6], seed=52)
+    later = _prompts([6, 5], seed=53)
+    kw = dict(n_slots=3, max_len=32, prefill_chunks=[4, 8])
+    base = ServingEngine(module, ServingConfig(**kw)).run(prompts + later, max_new_tokens=5)
+    cand = ServingEngine(_module_with(cfg, params1), ServingConfig(**kw)).run(
+        prompts, max_new_tokens=5)
+    out = []
+    for eng, tree in ((ServingEngine(module, ServingConfig(**kw)), params1),
+                      (JaxServingEngine(jmodel, JaxServingConfig(**kw)),
+                       _jax_params(cfg, params1))):
+        eng.begin_canary(tree, weights_version=1, fraction=0.25)
+        rows = _drive(eng, [(p, 5, {}) for p in prompts])
+        status = eng.canary_status()
+        cohorts = [eng.cohort_stats(v) for v in (0, 1)]
+        assert eng.rollback_canary()["routed_candidate"] == 2
+        after = _drive(eng, [(p, 5, {}) for p in later])
+        out.append((rows, status, cohorts, after, eng.fault_stats()["rolled_back"]))
+    (rows, status, cohorts, after, rb), (jrows, jstatus, jcohorts, jafter, jrb) = out
+    assert status == jstatus and (status["routed_candidate"], status["routed_primary"]) == (2, 6)
+    assert rb == jrb == 1
+    versions = [r["weights_version"] for r in rows]
+    assert versions == [r["weights_version"] for r in jrows] and versions.count(1) == 2
+    for i, row in enumerate(rows):
+        np.testing.assert_array_equal(row["tokens"], (cand if versions[i] else base)[i])
+    for c, jc in zip(cohorts, jcohorts):
+        assert set(c) == set(jc) and c["completed"] == jc["completed"]
+        assert c["version"] == jc["version"] and c["ok"] == jc["ok"]
+    for i, row in enumerate(after):
+        assert row["weights_version"] == 0 == jafter[i]["weights_version"]
+        np.testing.assert_array_equal(row["tokens"], base[len(prompts) + i])
+    engine = ServingEngine(module, ServingConfig(**kw))
+    engine.begin_canary(params1, weights_version=3, fraction=1.0)
+    assert engine.promote_canary()["version"] == 3
+    assert engine.weights_version == 3 and engine.stats()["weights_version"] == 3
+    row = _drive(engine, [(prompts[0], 5, {})])[0]
+    np.testing.assert_array_equal(row["tokens"], cand[0])
+    with pytest.raises(ValueError, match="no canary window"):
+        engine.rollback_canary()
+
+
+def test_swap_validation_names_the_parameter(pair):
+    _, _, module = pair
+    engine = ServingEngine(module, ServingConfig(n_slots=1, max_len=16))
+    good = _other_weights(module, 3)
+    name = "model.layers.0.self_attn.q_proj.weight"
+    bad_shape = dict(good, **{name: good[name][:, :-1]})
+    with pytest.raises(ValueError, match=name.replace(".", r"\.") + ".*serving expects"):
+        engine.swap_params(bad_shape, weights_version=1)
+    with pytest.raises(ValueError, match=f"'{name}' is .*torch.float16"):
+        engine.swap_params(dict(good, **{name: good[name].half()}), weights_version=1)
+    with pytest.raises(ValueError, match="missing"):
+        engine.swap_params({k: v for k, v in good.items() if k != name}, weights_version=1)
+    with pytest.raises(ValueError, match="not newer"):
+        engine.swap_params(good, weights_version=0)
+    engine.begin_canary(good, weights_version=1)
+    with pytest.raises(ValueError, match="canary for version 1 is active"):
+        engine.swap_params(good, weights_version=2)
+    with pytest.raises(ValueError, match="fraction"):
+        ServingEngine(module, ServingConfig(n_slots=1, max_len=16)).begin_canary(
+            good, weights_version=1, fraction=0.0)
+    assert engine.weights_version == 0
+
+
+@pytest.mark.parametrize("speculate_k", [0, 2])
+def test_a_version_pass_leaves_the_other_versions_slots_untouched(pair, speculate_k):
+    """With two versions live, the pass for one leaves every row of the
+    other version's slots bit for bit: the cache, the length, last_token,
+    generated, done, history and the generator's stream; and a tick reads
+    the host once a version."""
+    _, cfg, module = pair
+    kw = dict(n_slots=3, max_len=32, prefill_chunks=[4, 8], temperature=0.9, top_k=20,
+              speculate_k=speculate_k)
+    engine = ServingEngine(module, ServingConfig(**kw))
+    prompts = _prompts([5, 6, 4], seed=54)
+    gens = [torch.Generator().manual_seed(60 + i) for i in range(3)]
+    ids = [engine.submit(p, max_new_tokens=8, generator=g) for p, g in zip(prompts[:2], gens)]
+    while len(engine._decoding) < 2:
+        engine.tick()
+    engine.swap_params(_other_weights(module, 4), weights_version=1)
+    engine.submit(prompts[2], max_new_tokens=8, generator=gens[2])
+    while len(engine._decoding) < 3:
+        engine.tick()
+    groups = engine._decode_groups()
+    assert [v for v, _ in groups] == [0, 1]
+    old_slots = [s for s, r in engine._decoding.items() if r.weights_version == 0]
+    st, cache = engine._state, engine._cache
+
+    def snapshot():
+        return ([t.clone() for t in (cache.k, cache.v, cache.length, st.last_token,
+                                     st.generated, st.done, st.history)],
+                [st.generators[s].get_state() for s in old_slots])
+
+    before, gen_before = snapshot()
+    version, mask = groups[1]
+    members = sorted(s for s, r in engine._decoding.items() if r.weights_version == version)
+    engine._decode(engine._params_for(version), cache, st, members, mask)
+    after, gen_after = snapshot()
+    for b, a in zip(before, after):
+        assert torch.equal(b[:, old_slots] if b.dim() == 5 else b[old_slots],
+                           a[:, old_slots] if a.dim() == 5 else a[old_slots])
+    assert all(torch.equal(b, a) for b, a in zip(gen_before, gen_after))
+    assert not torch.equal(before[2][members], after[2][members])  # the pass ran its slots
+    reads, passes = engine._stats["host_reads"], len(engine._decode_groups())
+    engine.tick()
+    assert engine._stats["host_reads"] - reads == passes == 2
+    while engine.pending:
+        engine.tick()
+    rows = {r["id"]: r for r in engine.poll()}
+    assert [rows[i]["weights_version"] for i in ids] == [0, 0]

@@ -534,9 +534,15 @@ def test_telemetry_kwargs_match_jax_and_tracing_raises():
     ref = [(f.name, f.default) for f in dataclasses.fields(JaxTelemetryKwargs)]
     assert port == ref
     assert TelemetryKwargs(log_every=2).to_kwargs() == JaxTelemetryKwargs(log_every=2).to_kwargs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 12"):
-        TelemetryKwargs(tracing=True)
-    TelemetryKwargs(tracing=False)
+    # tracing takes what TraceConfig.from_value takes; anything else raises
+    # at construction.
+    for value in (True, False, None, {"max_spans": 8}):
+        assert TelemetryKwargs(tracing=value).to_kwargs() == \
+            JaxTelemetryKwargs(tracing=value).to_kwargs()
+    with pytest.raises(TypeError, match="tracing must be bool, dict, or TraceConfig"):
+        TelemetryKwargs(tracing=3)
+    with pytest.raises(TypeError):
+        TelemetryKwargs(tracing={"no_such_field": 1})
 
     from accelerate_tpu_torch.utils import KwargsHandler
 

@@ -195,17 +195,47 @@ def test_accelerator_refuses_a_second_device_choice(monkeypatch):
     lambda: adamw(1e-3, mu_dtype=torch.bfloat16),
     lambda: FullyShardedDataParallelPlugin(mixed_precision_policy=MixedPrecisionPolicy()),
     # ProjectConfiguration(automatic_resume=True) stood here until fault
-    # tolerance was ported (tests/test_torch_fault_tolerance.py).
-    lambda: ServingConfig(journal_fsync="always"),
-    # ParallelismConfig(ep_size=2) stood here until expert parallelism was
-    # ported (tests/test_torch_expert_parallel.py).
-    lambda: ServingConfig(journal_dir="journal"),
+    # tolerance was ported (tests/test_torch_fault_tolerance.py), and
+    # ParallelismConfig(ep_size=2) until expert parallelism was
+    # (tests/test_torch_expert_parallel.py); ServingConfig's journal fields
+    # and TelemetryKwargs(tracing=True) until tracing and the journal were
+    # (test_settings_the_port_now_acts_on below).
     lambda: MixedPrecisionPolicy(reduce_dtype=torch.bfloat16),
-    lambda: TelemetryKwargs(tracing=True),
 ])
 def test_settings_the_port_does_not_act_on_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
         make()
+
+
+@pytest.mark.parametrize("setting", ["journal_fsync", "journal_dir", "tracing"])
+def test_settings_the_port_now_acts_on(setting, tmp_path):
+    """The three settings this test module once listed as refused: an
+    unknown fsync policy is a ValueError, as in the JAX package; a journal
+    directory gets the engine's admission records; tracing builds the
+    telemetry recorder's TraceRecorder."""
+    if setting == "journal_fsync":
+        with pytest.raises(ValueError, match="journal_fsync"):
+            ServingConfig(journal_fsync="always")
+        assert ServingConfig(journal_fsync="os").journal_fsync == "os"
+    elif setting == "journal_dir":
+        from accelerate_tpu_torch import ServingEngine
+        from accelerate_tpu_torch.journal import RequestJournal
+        from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+        module = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32))
+        module.init_weights(torch.Generator().manual_seed(0))
+        wal = str(tmp_path / "journal")
+        engine = ServingEngine(module, ServingConfig(n_slots=1, max_len=16, journal_dir=wal))
+        engine.run([np.ones((3,), np.int64)], max_new_tokens=2)
+        records, _ = RequestJournal(wal).replay()
+        assert [r["t"] for r in records if "rid" in r] == ["admit", "bind", "terminal"]
+    else:
+        from accelerate_tpu_torch.tracing import TraceRecorder
+
+        acc = Accelerator(cpu=True, project_dir=str(tmp_path),
+                          kwargs_handlers=[TelemetryKwargs(tracing=True)])
+        assert isinstance(acc.telemetry.tracing, TraceRecorder)
+        assert acc.telemetry.tracing.hub is acc.telemetry.hub
 
 
 def test_project_dir_is_acted_on(tmp_path):
